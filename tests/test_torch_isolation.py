@@ -1,0 +1,107 @@
+"""The port stands alone: no module of nope_nerf_torch, and not chip_smoke.py,
+imports JAX or nope_nerf_tpu, and the entry points do not fall back to the CPU.
+
+The import check runs in a subprocess whose sys.modules blocks jax,
+nope_nerf_tpu and the packages the card's machine lacks (PyYAML, cv2,
+imageio), so any import of them at module level fails there.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "nope_nerf_torch"
+BLOCKED = ("jax", "jaxlib", "nope_nerf_tpu", "optax", "chex", "yaml", "cv2", "imageio")
+
+torch.set_num_threads(2)
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+import nope_nerf_torch
+names = [m.name for m in pkgutil.walk_packages(nope_nerf_torch.__path__, "nope_nerf_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in {blocked!r})
+print(len(names), loaded)
+"""
+
+_ENTRY_WITHOUT_DEVICE = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["nope_nerf_tpu"] = None
+import torch
+from nope_nerf_torch.cli.render import render
+from nope_nerf_torch.config import load_config
+assert not torch.cuda.is_available()
+try:
+    render(load_config(), synthetic="driving")
+except RuntimeError as e:
+    print("raised:", e)
+else:
+    raise SystemExit("render ran without a CUDA device")
+"""
+
+
+def _run(code, **env):
+    full_env = dict(os.environ, PYTHONPATH=str(REPO), **env)
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=full_env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_every_module_imports_without_jax_or_reference():
+    res = _run(_IMPORT_ALL.format(blocked=BLOCKED))
+    assert res.returncode == 0, res.stderr
+    n, loaded = res.stdout.strip().split(" ", 1)
+    assert int(n) >= 15
+    assert loaded == "[]", loaded
+
+
+def test_no_import_statement_names_jax_or_reference():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|nope_nerf_tpu|optax|chex)\b")
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    offenders = [f"{f.relative_to(REPO)}:{i}" for f in files
+                 for i, line in enumerate(f.read_text().splitlines(), 1)
+                 if pattern.match(line)]
+    assert not offenders, offenders
+
+
+def test_render_entry_point_raises_without_cuda():
+    res = _run(_ENTRY_WITHOUT_DEVICE, CUDA_VISIBLE_DEVICES="")
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "no CUDA device" in res.stdout
+
+
+def test_entry_points_do_not_fall_back_to_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device, so the default device is valid")
+    from nope_nerf_torch import resolve_device
+    from nope_nerf_torch.evaluation.extract import render_trajectory
+    from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
+    from nope_nerf_torch.ops.render import RenderConfig
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_nerf_params(NerfConfig(hidden_dim=128), torch.Generator().manual_seed(0))
+    params = init_nerf_params(NerfConfig(hidden_dim=128), torch.Generator().manual_seed(0),
+                              device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        render_trajectory(params, np.eye(4, dtype=np.float32)[None], np.eye(4), (4, 4),
+                          NerfConfig(hidden_dim=128), RenderConfig())
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_tf32_is_off():
+    import nope_nerf_torch  # noqa: F401
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
