@@ -6,7 +6,7 @@ novel trajectory ('interp' | 'bspline' | 'sprial'/'spiral'), renders
 RGB/depth/disparity per view through the fused render kernel and writes pngs
 and videos under extraction/. Scenes come from the built-in synthetic
 generators for now: on-disk LLFF/V-KITTI loading needs cv2 and comes with the
-training slice.
+data slice of the port, together with the train CLI.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ def load_scene(synthetic: Union[bool, str]):
     if not synthetic:
         raise NotImplementedError(
             "on-disk scenes (data/fields.py, llff.py, degrade.py need cv2) come with the "
-            "training slice of the port; render a synthetic scene with --synthetic")
+            "data slice of the port; render a synthetic scene with --synthetic")
     raise ValueError(f"unknown synthetic scene {synthetic!r}; one of {SYNTHETIC_SCENES}")
 
 

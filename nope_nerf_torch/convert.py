@@ -4,6 +4,8 @@ Both packages keep the same groups ("nerf", "pose", "focal", "distortion"),
 the same names and the same (in, out) weight layout, so a conversion only
 changes the array type; values are copied exactly, dtypes kept. A tree is a
 nested dict whose leaves are arrays (0-d arrays included, e.g. focal "fx").
+`state_from_numpy` carries a whole train state across, Adam moments included,
+so that a run can start from the same state in both packages.
 """
 
 from __future__ import annotations
@@ -45,3 +47,25 @@ def params_to_numpy(tree: Tree) -> Tree:
     """The port's tensor tree -> numpy arrays (host), the JAX package's form."""
     _check_groups(tree)
     return _map(tree, lambda t: t.detach().cpu().numpy())
+
+
+def state_from_numpy(params: Tree, opt_state: Dict[str, Dict[str, Any]], it: int = -1,
+                     seed: int = 0, device: DeviceLike = None):
+    """A JAX TrainState on the host -> the port's TrainState on `device`.
+
+    `params` is TrainState.params as numpy; `opt_state[group]` holds the
+    fields of that group's optax ScaleByAdamState as {"mu": tree, "nu": tree,
+    "count": int}. The JAX key does not convert: the port's generator is
+    seeded with `seed`."""
+    from .training.state import AdamState, TrainState
+    dev = resolve_device(device)
+    tensors = params_from_numpy(params, dev)
+    if set(opt_state) != set(tensors):
+        raise ValueError(f"optimizer groups {sorted(opt_state)} do not match the "
+                         f"parameter groups {sorted(tensors)}")
+    opt = {g: AdamState(mu=params_from_numpy({g: o["mu"]}, dev)[g],
+                        nu=params_from_numpy({g: o["nu"]}, dev)[g],
+                        count=int(o["count"]))
+           for g, o in opt_state.items()}
+    return TrainState(params=tensors, opt_state=opt, it=int(it),
+                      generator=torch.Generator(device=dev).manual_seed(seed))

@@ -3,7 +3,7 @@
 Copy of make_synthetic_scene / make_driving_scene from
 nope_nerf_tpu/data/synthetic.py: a disk-free stand-in with the exact batch
 schema of a loaded scene. The V-KITTI writer (which needs cv2) is not ported:
-on-disk scenes come with the training slice.
+on-disk scenes come with the data slice of the port.
 """
 
 from __future__ import annotations

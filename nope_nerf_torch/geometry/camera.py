@@ -2,8 +2,9 @@
 
 Port of nope_nerf_tpu/geometry/camera.py (reference model/common.py:13-237).
 The composition P = scale^-1 @ world^-1 @ K^-1 is formed once per frame and
-applied to all pixels as one (N,4)x(4,4) product. Products are exact float32:
-the package switches TF32 off when it loads.
+applied to all pixels as one (N,4)x(4,4) product. Products are exact float32
+(the JAX package pins them with `mm_exact`): the package switches TF32 off
+when it loads, so a plain `@` is the exact product here.
 
 Conventions (identical to the reference):
 - pixels live in [-1, 1]^2 with x = 2*px/(W-1) - 1;
@@ -112,6 +113,25 @@ def transform_to_world(pixels: torch.Tensor, depth: torch.Tensor, camera_mat: to
     return (hom @ P.T)[:, :3]
 
 
+def origin_to_world(camera_mat: torch.Tensor, world_mat: torch.Tensor,
+                    scale_mat: Optional[torch.Tensor] = None,
+                    invert: bool = True) -> torch.Tensor:
+    """Camera center in world coordinates, shape (3,) (reference
+    model/common.py:186-215)."""
+    return _compose_cam_to_world(camera_mat, world_mat, scale_mat, invert)[:3, 3]
+
+
+def transform_to_camera_space(p_world: torch.Tensor, camera_mat: torch.Tensor,
+                              world_mat: torch.Tensor,
+                              scale_mat: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """World points (N, 3) -> camera space (N, 3) (reference model/common.py:163-183)."""
+    if scale_mat is None:
+        scale_mat = torch.eye(4, dtype=p_world.dtype, device=p_world.device)
+    M = (camera_mat @ world_mat) @ scale_mat
+    hom = torch.cat([p_world, torch.ones_like(p_world[:, :1])], dim=-1)
+    return (hom @ M.T)[:, :3]
+
+
 def rays_from_pixels(pixels: torch.Tensor, camera_mat: torch.Tensor, world_mat: torch.Tensor,
                      scale_mat: Optional[torch.Tensor] = None,
                      normalize: bool = True
@@ -127,6 +147,31 @@ def rays_from_pixels(pixels: torch.Tensor, camera_mat: torch.Tensor, world_mat: 
     if normalize:
         ray_vec = ray_vec / ray_norm[:, None]
     return origin, ray_vec, ray_norm
+
+
+def project_to_cam(points: torch.Tensor,
+                   camera_mat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Project camera-space points (N, 3) through K -> ([-1,1] xy (N, 2), valid
+    mask (N, 1) bool) (reference model/common.py:436-457)."""
+    hom = torch.cat([points, torch.ones_like(points[:, :1])], dim=-1)
+    xy = (hom @ camera_mat.T)[:, :3]
+    xy = xy[:, :2] / xy[:, 2:]
+    valid = (xy.abs().amax(dim=-1) <= 1.0)[:, None]
+    return xy, valid
+
+
+def reprojection(pixels: torch.Tensor, depth: torch.Tensor, Rt_ref: torch.Tensor,
+                 world_mat: torch.Tensor,
+                 camera_mat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Warp pixels of frame A into frame B: K @ Rt_ref @ world^-1 @ K^-1 ->
+    ([-1,1] xy (N, 2), valid float mask (N, 1)) (reference common.py:405-435)."""
+    d = depth.reshape(-1, 1)
+    hom = torch.cat([pixels * d, d, torch.ones_like(d)], dim=-1)
+    M = ((camera_mat @ Rt_ref) @ rigid_inverse(world_mat)) @ diag4_inverse(camera_mat)
+    xy = (hom @ M.T)[:, :3]
+    xy = xy[:, :2] / xy[:, 2:]
+    valid = (xy.abs().amax(dim=-1) <= 1.0)[:, None].to(pixels.dtype)
+    return xy, valid
 
 
 def get_ndc_rays_fxfy(fxfy: torch.Tensor, near: float, rays_o: torch.Tensor,

@@ -70,3 +70,9 @@ def pose_c2w_all(params: Params, cfg: PoseConfig) -> torch.Tensor:
     if cfg.use_init_c2w:
         c2ws = c2ws @ params["init_c2w"].detach()
     return c2ws
+
+
+def pose_translations(params: Params, cfg: PoseConfig) -> torch.Tensor:
+    """The raw t parameters (N, 3) of the trajectory-smoothness loss
+    (reference `LearnPose.get_t`, poses.py:32-34)."""
+    return _gated(params, cfg)[1]

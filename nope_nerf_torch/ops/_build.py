@@ -2,9 +2,9 @@
 
 Each source is compiled by `nvcc` for sm_90a into a shared library with a
 plain C interface, which the wrapper loads with ctypes (no PyTorch headers, so
-a build takes seconds). Libraries go to `build/torch_kernels/` at the root of
-the checkout, named by a hash of the source and the flags, so an unchanged
-source is built once.
+a build takes seconds, half a minute for the train kernel). Libraries go to `build/torch_kernels/` at the root of
+the checkout, named by a hash of the source, the headers and the flags, so an
+unchanged source is built once.
 
 Nothing here runs on import: the CPU tests import every module of the package
 and have no CUDA toolkit.
@@ -18,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -46,35 +46,68 @@ class CudaLibrary:
     its kernel, and nowhere else. `build_log` is nvcc's output (ptxas usage)."""
 
     def __init__(self, source: str, setup):
-        self.source = CSRC_DIR / source
+        self.source = CSRC_DIR / source    # an absolute path stands as it is
         self._setup = setup
         self._lib: Optional[ctypes.CDLL] = None
         self.launches = 0
         self.build_log = ""
 
-    def lib(self) -> ctypes.CDLL:
-        """The loaded library, built first if needed."""
+    def _target(self, nvcc: str) -> Path:
+        """The library's path, named by a hash of the source, of every header
+        beside it (a source may include any of them) and of the flags."""
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            h.update(header.read_bytes())
+        h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
+
+    def start_build(self) -> Optional[subprocess.Popen]:
+        """Start nvcc if the library is not built yet; `lib()` waits for it."""
+        nvcc = find_nvcc()
+        target = self._target(nvcc)
+        if self._lib is not None or target.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # build under a per-process name, then rename: concurrent test
+        # processes never load a half-written library
+        tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
+        return subprocess.Popen([nvcc, *NVCC_FLAGS, f"-I{CSRC_DIR}", "-o", str(tmp),
+                                 str(self.source)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def lib(self, build: Optional[subprocess.Popen] = None) -> ctypes.CDLL:
+        """The loaded library, built first if needed (`build`: a build already
+        started by start_build)."""
         if self._lib is not None:
             return self._lib
-        nvcc = find_nvcc()
-        h = hashlib.sha256(self.source.read_bytes())
-        h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
-        target = BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
+        target = self._target(find_nvcc())
         log = target.with_suffix(".log")
-        if not target.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            # build under a per-process name, then rename: concurrent test
-            # processes never load a half-written library
-            tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
-            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        proc = build if build is not None else self.start_build()
+        if proc is not None:
+            out, _ = proc.communicate()
+            tmp = Path(proc.args[-2])
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed on {self.source.name}:\n{proc.stdout}")
-            log.write_text(proc.stdout)
+                raise RuntimeError(f"nvcc failed on {self.source.name}:\n{out}")
+            log.write_text(out)
             os.replace(tmp, target)
         self.build_log = log.read_text() if log.exists() else ""
         lib = ctypes.CDLL(str(target))
         self._setup(lib)
         self._lib = lib
         return lib
+
+
+def build_all(libraries: Sequence[CudaLibrary]) -> None:
+    """Build and load several libraries, their nvcc runs side by side (each
+    uses one core; the largest source takes about half a minute). A failed
+    build raises here, after the other runs have been stopped."""
+    builds = [(library, library.start_build()) for library in libraries]
+    try:
+        for library, proc in builds:
+            library.lib(proc)
+    finally:
+        for _, proc in builds:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.communicate()

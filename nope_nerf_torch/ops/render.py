@@ -6,11 +6,14 @@ Port of nope_nerf_tpu/ops/render.py (reference model/rendering.py:36-198,
 on a CUDA tensor that is the hand-written kernel, on a CPU tensor its plain
 version. Configs the kernel cannot serve run the unfused plain path on the
 CPU only; on CUDA they raise until a later slice of the port brings them.
+`fused_train_prepare` is the train step's share of it: the geometry that
+feeds the train-fused kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -61,8 +64,10 @@ def fused_eligible(rcfg: RenderConfig, ncfg: NerfConfig) -> bool:
             and fg_steps % 128 == 0)
 
 
+@functools.lru_cache(maxsize=16)
 def _linspace01(steps: int, device: torch.device) -> torch.Tensor:
-    """jnp.linspace(0, 1, steps) in f32: start + i * step, the end point exact."""
+    """jnp.linspace(0, 1, steps) in f32: start + i * step, the end point exact.
+    Built once per device: a constant, so callers never write to it."""
     z = np.arange(steps, dtype=np.float32) * np.float32(1.0 / max(steps - 1, 1))
     z[-1] = 1.0
     return torch.from_numpy(z).to(device)
@@ -150,6 +155,31 @@ def fused_inputs(geo: Dict[str, torch.Tensor], rcfg: RenderConfig
     return table, geo["z_val"].to(torch.float32).contiguous()
 
 
+def fused_train_eligible(rcfg: RenderConfig, ncfg: NerfConfig) -> bool:
+    """Can the train step take the single-kernel fused loss path
+    (ops/fused_render.render_ray_loss_fused)? As fused_eligible, the kernel
+    masks its own ragged edge, so the JAX package's condition on the ray
+    count (ops/render.py:201-208) is dropped."""
+    return fused_eligible(rcfg, ncfg) and not rcfg.normal_loss
+
+
+def fused_train_prepare(pixels: torch.Tensor, depth_prior: Optional[torch.Tensor],
+                        camera_mat: torch.Tensor, world_mat: torch.Tensor,
+                        scale_mat: Optional[torch.Tensor],
+                        generator: Optional[torch.Generator], rcfg: RenderConfig,
+                        add_noise: bool, noise: Optional[torch.Tensor] = None):
+    """Geometry for the train-fused kernel: (ray table (N,9), z (N,S),
+    depth_gt (N,) in loss space, object_mask (N,) bool): what
+    render_nope_nerf would feed render_rays_fused."""
+    geo = _ray_geometry(pixels, depth_prior, camera_mat, world_mat, scale_mat,
+                        generator, rcfg, add_noise, noise)
+    table, z = fused_inputs(geo, rcfg)
+    depth_gt = geo["d_i_src"]
+    if rcfg.sample_option == "ndc":
+        depth_gt = 1.0 - 1.0 / depth_gt  # rendering.py:158-159
+    return table, z, depth_gt, geo["object_mask"]
+
+
 def _render_unfused(nerf_params, geo, rcfg: RenderConfig, ncfg: NerfConfig):
     """Plain sample -> nerf_apply -> composite path (JAX unfused branch)."""
     z_val, ray_vec = geo["z_val"], geo["ray_vec"]
@@ -197,13 +227,13 @@ def render_nope_nerf(nerf_params: Dict[str, torch.Tensor],
         raise NotImplementedError("hierarchical sampling (n_importance > 0) comes with a "
                                   "later slice of the port")
     if rcfg.normal_loss and not eval_:
-        raise NotImplementedError("the normal loss comes with the training slice")
+        raise NotImplementedError("the normal loss comes with a later slice of the port")
     use_fused = fused_eligible(rcfg, ncfg)
     if pixels.device.type != "cpu" and not use_fused:
         raise NotImplementedError(
             "on CUDA the port renders only through the fused kernel (use_pallas, "
             "n_importance == 0, outside_steps == 0, num_points % 128 == 0); the "
-            "unfused path comes with the training slice")
+            "unfused path runs on the CPU only")
     if rcfg.outside_steps:
         raise NotImplementedError("outside_steps > 0 is not supported")
 

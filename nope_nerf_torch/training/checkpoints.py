@@ -2,8 +2,9 @@
 
 Port of nope_nerf_tpu/training/checkpoints.py. A checkpoint is one pickle of
 {"params", "opt_state", "it", "rng", "scalars", "format_version"} with numpy
-leaves. The port writes the params only (its optimizer comes with the
-training slice) and reads the params of any checkpoint, including those
+leaves. The port writes the params only (its Adam state is carried between
+the packages by convert.state_from_numpy; saving it comes with the train
+CLI's resume) and reads the params of any checkpoint, including those
 written by `nope_nerf_tpu`, whose "opt_state" pickles optax classes: the
 loader stubs every class of optax, jax, jaxlib and chex instead of importing
 them, and refuses classes from any module it does not know.

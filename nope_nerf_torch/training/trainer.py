@@ -1,0 +1,426 @@
+"""The train step and the host-side Trainer.
+
+Port of nope_nerf_tpu/training/trainer.py (reference model/training.py:16-416,
+Trainer.train_step/compute_loss): ray sampling with the sparse-depth validity
+guarantee, pose/distortion/focal application, rendering, the inter-frame
+reference pair (point-cloud lift, relative-pose warp, photometric
+reprojection), loss assembly, and one Adam update per parameter group.
+
+The step runs eagerly. With an eligible config the rays go through
+ops/fused_render.render_ray_loss_fused: one launch of the train kernel gives
+the rgb + depth term and every gradient below it, and autograd carries the
+rest (poses, distortions, the pair losses). Other configs take the unfused
+branch through autograd, on the CPU only. The frame-order select of the JAX
+package (a traced where) is a plain `if` here. The epoch loop with its eval
+hooks, Trainer.render_frame and the occupancy grid are not ported yet.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..geometry.camera import (
+    camera_matrix_from_focal,
+    pixel_grid,
+    project_to_cam,
+    rigid_inverse,
+    transform_to_world,
+)
+from ..losses import compute_losses, depth_loss_invariant
+from ..models.distortions import distortion_scale_shift
+from ..models.intrinsics import focal_fxfy
+from ..models.poses import pose_c2w, pose_translations
+from ..ops.fused_render import pack_targets, render_ray_loss_fused
+from ..ops.interp import get_tensor_values, resize_area, resize_bilinear, resize_nearest
+from ..ops.render import fused_train_eligible, fused_train_prepare, render_nope_nerf
+from .scheduler import annealed_weights, lr_at_epoch, rgb_loss_type_at
+from .state import ModelConfigs, TrainState, adam_step
+
+
+@functools.lru_cache(maxsize=8)
+def _pc_pixels(sh: int, sw: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The point clouds' fixed pixel grid (sh*sw, 2) on `device`, uploaded once."""
+    return torch.from_numpy(pixel_grid((sh, sw))[1]).to(device=device, dtype=dtype)
+
+
+def _sample_rays(generator: torch.Generator, hw: int, n: int,
+                 depth_mask_flat: Optional[torch.Tensor], resample: bool) -> torch.Tensor:
+    """randperm(h*w)[:n], the reference's own draw (training.py:277), with its
+    >= 1-valid-sparse-depth guarantee (training.py:277-283) as the JAX package
+    has it: draw once; if no sampled pixel has a valid depth, put the first
+    valid index into slot 0."""
+    idx = torch.randperm(hw, generator=generator, device=generator.device)[:n]
+    if not resample or depth_mask_flat is None:
+        return idx
+    idx = idx.to(depth_mask_flat.device)
+    any_valid = depth_mask_flat[idx].any()
+    forced = torch.argmax(depth_mask_flat.to(torch.uint8))  # first valid index
+    idx[0] = torch.where(any_valid, idx[0], forced)
+    return idx
+
+
+def _apply_distortion(depth: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                      shift_first: bool) -> torch.Tensor:
+    """training.py:259-264 / :310-315."""
+    if shift_first:
+        return (depth + shift) * scale
+    return depth * scale + shift
+
+
+def _ray_terms(nerf_params, pixels, depth_prior, rgb_gt, prior_mask, camera_mat, world_mat,
+               scale_mat, generator, mc: ModelConfigs, rgb_loss_type: str, n_total: int,
+               weights: Dict[str, float], noise: Optional[torch.Tensor] = None,
+               force_plain: bool = False):
+    """Render the ray batch and reduce its loss terms to scalars:
+    (l_rgb, l_depth, l2_mean, ray_total).
+
+    On the fused path ray_total is the already-weighted rgb + depth term from
+    the one program that also produces every gradient below it, and l_rgb,
+    l_depth, l2_mean are metrics without gradient; otherwise ray_total is None
+    and the caller weights l_rgb and l_depth itself."""
+    lcfg = mc.loss
+    zero = torch.zeros((), dtype=torch.float32, device=pixels.device)
+    fused = lcfg.depth_loss_type == "l1" and fused_train_eligible(mc.render, mc.nerf)
+    if not fused and pixels.device.type != "cpu":
+        raise NotImplementedError(
+            "on CUDA the train step runs only through the fused render-loss kernel "
+            "(depth_loss_type l1, use_pallas, n_importance == 0, outside_steps == 0, no "
+            "normal_loss, num_points % 128 == 0); other configs need the render backward "
+            "kernel (K4), which comes with a later slice of the port")
+    if fused:
+        ray_table, z_val, depth_gt, object_mask = fused_train_prepare(
+            pixels, depth_prior, camera_mat, world_mat, scale_mat, generator, mc.render,
+            add_noise=mc.stratified_noise, noise=noise)
+        if mc.detach_gt_depth:
+            depth_gt = depth_gt.detach()
+        mask = object_mask & prior_mask
+        count = mask.to(torch.float32).sum()
+        w_rgb_s = weights["rgb_weight"] / n_total if lcfg.use_rgb else 0.0
+        w_depth_s = (weights["depth_weight"] * (count > 0) / count.clamp_min(1.0)
+                     if lcfg.use_depth else 0.0)
+        tgt = pack_targets(rgb_gt, depth_gt, mask, w_rgb_s, w_depth_s)
+        total, sums = render_ray_loss_fused(
+            nerf_params, ray_table, z_val, tgt, mc.nerf, mc.render.dist_alpha,
+            1 if rgb_loss_type == "l1" else 2, mc.render.white_background,
+            force_plain=force_plain)
+        l_rgb = sums[0] / n_total if lcfg.use_rgb else zero
+        l_depth = (torch.where(count > 0, sums[1] / count.clamp_min(1.0), zero)
+                   if lcfg.use_depth else zero)
+        return l_rgb, l_depth, sums[2] / (n_total * 3), total
+
+    out = render_nope_nerf(nerf_params, pixels, depth_prior, camera_mat, world_mat, scale_mat,
+                           generator, mc.render, mc.nerf, add_noise=mc.stratified_noise,
+                           eval_=False, noise=noise)
+    depth_pred, depth_gt = out["depth_pred"], out["depth_gt"]
+    if mc.detach_gt_depth:
+        depth_gt = depth_gt.detach()
+    mask = out["object_mask"] & prior_mask
+    diff = out["rgb"] - rgb_gt
+    if lcfg.use_rgb:
+        l_rgb = (diff.abs() if rgb_loss_type == "l1" else diff * diff).sum() / n_total
+    else:
+        l_rgb = zero
+    if not lcfg.use_depth:
+        l_depth = zero
+    elif lcfg.depth_loss_type == "l1":
+        dsum = torch.where(mask, (depth_pred - depth_gt).abs(), zero).sum()
+        dcount = mask.to(torch.float32).sum()
+        l_depth = torch.where(dcount > 0, dsum / dcount.clamp_min(1.0), zero)
+    else:
+        l_depth = depth_loss_invariant(depth_pred, depth_gt, mask)
+    l2_mean = (diff * diff).sum() / (n_total * 3) if lcfg.use_rgb or lcfg.use_depth else zero
+    return l_rgb, l_depth, l2_mean, None
+
+
+def compute_step_loss(params: Dict[str, Any], batch: Dict[str, Any], weights: Dict[str, float],
+                      ray_idx: torch.Tensor, generator: Optional[torch.Generator],
+                      mc: ModelConfigs, rgb_loss_type: str,
+                      noise: Optional[torch.Tensor] = None,
+                      force_plain: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The loss of one frame and its reference frame, differentiable in `params`
+    through autograd: (loss, loss_dict). `noise` pins the stratified jitter
+    (N, S) that `generator` would otherwise draw. `force_plain` sends both
+    kernels' wrappers through their plain versions on any device; it exists
+    for checks that hold the kernels' route against the plain one."""
+    img = batch["img"]                      # (H, W, 3)
+    depth_input = batch["depth"]            # (H, W)
+    depth_mask = batch["depth_mask"]        # (H, W) bool
+    idx = int(batch["idx"])
+    pose_gt = batch["pose_gt"]              # (4, 4) c2w
+    h, w, _ = img.shape
+    lcfg = mc.loss
+
+    # --- pose, depth distortion, intrinsics ---------------------------------
+    if mc.pose is not None:
+        world_mat = rigid_inverse(pose_c2w(params["pose"], idx, mc.pose))
+        t_list = pose_translations(params["pose"], mc.pose)
+    else:
+        world_mat = rigid_inverse(pose_gt)
+        t_list = None
+    world_mat_gt = rigid_inverse(pose_gt)
+
+    if mc.distortion is not None:
+        scale_in, shift_in = distortion_scale_shift(params["distortion"], idx, mc.distortion)
+        depth_input = _apply_distortion(depth_input, scale_in[0], shift_in[0], mc.shift_first)
+    else:
+        scale_in = torch.ones((1,), dtype=img.dtype, device=img.device)
+        shift_in = torch.zeros((1,), dtype=img.dtype, device=img.device)
+
+    if mc.focal is not None:
+        fxfy = focal_fxfy(params["focal"], mc.focal)
+        camera_mat = camera_matrix_from_focal(fxfy[0], fxfy[1])
+    else:
+        camera_mat = batch["camera_mat"]
+    scale_mat = batch.get("scale_mat")
+
+    # --- render the sampled rays --------------------------------------------
+    iy = ray_idx // w
+    ix = ray_idx % w
+    rgb_gt = img[iy, ix]
+    pixels = torch.stack([2.0 * ix.to(img.dtype) / (w - 1) - 1.0,
+                          2.0 * iy.to(img.dtype) / (h - 1) - 1.0], dim=-1)
+    # per-ray depth prior: full-frame area resize, then gather (network.py:19-33)
+    depth_resized = resize_area(depth_input[..., None], (h, w))[..., 0]
+    depth_prior = depth_resized[iy, ix][:, None]
+
+    zero = torch.zeros((), dtype=torch.float32, device=img.device)
+    precomputed = {"loss_rgb": zero, "loss_depth": zero, "l2_mean": zero}
+    if lcfg.use_rgb or lcfg.use_depth:
+        l_rgb, l_depth, l2_mean, ray_total = _ray_terms(
+            params["nerf"], pixels, depth_prior, rgb_gt, depth_mask[iy, ix], camera_mat,
+            world_mat, scale_mat, generator, mc, rgb_loss_type, mc.n_training_points,
+            weights, noise=noise, force_plain=force_plain)
+        precomputed = {"loss_rgb": l_rgb, "loss_depth": l_depth, "l2_mean": l2_mean}
+        if ray_total is not None:
+            precomputed["ray_total"] = ray_total
+
+    # --- inter-frame reference pair -----------------------------------------
+    loss_kwargs: Dict[str, Any] = {}
+    if lcfg.use_pc or lcfg.use_rgb_s or lcfg.use_t_cycle:
+        if mc.pose is None:
+            raise ValueError("pair losses require learned poses")
+        ref_idx = int(batch["ref_idx"])
+        ref_img = batch["ref_img"]
+        depth_ref = batch["ref_depth"]
+        nl = mc.nearest_limit
+
+        c2w_ref = pose_c2w(params["pose"], ref_idx, mc.pose)
+        if mc.distortion is not None:
+            scale_ref, shift_ref = distortion_scale_shift(params["distortion"], ref_idx,
+                                                          mc.distortion)
+            depth_ref = _apply_distortion(depth_ref, scale_ref[0], shift_ref[0], mc.shift_first)
+        else:
+            scale_ref = torch.ones((1,), dtype=img.dtype, device=img.device)
+        if mc.detach_ref_img:
+            c2w_ref, scale_ref, depth_ref = c2w_ref.detach(), scale_ref.detach(), depth_ref.detach()
+        ref_Rt = rigid_inverse(c2w_ref)
+        ref_Rt_gt = rigid_inverse(batch["ref_pose_gt"])
+
+        # frame ordering: frame 1 must precede frame 2 (training.py:323-352)
+        if idx < mc.pose.num_cams - 1:
+            d1, d2, img1, img2, scale1 = depth_input, depth_ref, img, ref_img, scale_in
+            Rt_rel_12 = ref_Rt @ rigid_inverse(world_mat)
+            Rt_rel_12_gt = ref_Rt_gt @ rigid_inverse(world_mat_gt)
+        else:
+            d1, d2, img1, img2, scale1 = depth_ref, depth_input, ref_img, img, scale_ref
+            Rt_rel_12 = world_mat @ rigid_inverse(ref_Rt)
+            Rt_rel_12_gt = world_mat_gt @ rigid_inverse(ref_Rt_gt)
+        R_rel = Rt_rel_12[:3, :3]
+        t_rel = Rt_rel_12[:3, 3]
+
+        sh, sw = h // mc.pc_ratio, w // mc.pc_ratio
+        p_pc = _pc_pixels(sh, sw, img.device, img.dtype)
+        d1s = resize_nearest(d1[..., None], (sh, sw)).reshape(-1).clamp_min(nl)
+        d2s = resize_nearest(d2[..., None], (sh, sw)).reshape(-1).clamp_min(nl)
+        pc1 = transform_to_world(p_pc, d1s[:, None], camera_mat)
+        pc2 = transform_to_world(p_pc, d2s[:, None], camera_mat)
+
+        if lcfg.use_rgb_s:
+            first = idx < mc.pose.num_cams - 1
+            if "img_small" in batch:
+                # per-frame constants, computed once per scene (Trainer._warp_frames)
+                img2s = batch["ref_img_small"] if first else batch["img_small"]
+                rgb_pc1 = batch["rgb_pc"] if first else batch["ref_rgb_pc"]
+            else:
+                img2s = resize_bilinear(img2, (sh, sw))
+                rgb_pc1 = get_tensor_values(resize_bilinear(img1, (sh, sw)), p_pc,
+                                            mode="bilinear", scale=False, align_corners=True)
+            pc1_base = pc1.detach() if mc.detach_rgbs_scale else pc1
+            pc1_rot = pc1_base @ R_rel.T + t_rel
+            invalid = (-pc1_rot[:, 2:]) < nl  # in front of / too close to cam 2
+            pc1_rot = torch.where(invalid.expand(pc1_rot.shape),
+                                  torch.full_like(pc1_rot, nl), pc1_rot)
+            p_reproj, valid_mask = project_to_cam(pc1_rot, camera_mat)
+            rgb_pc1_proj = get_tensor_values(img2s, p_reproj, mode="bilinear", scale=False,
+                                             align_corners=True)
+            loss_kwargs.update(rgb_pc1=rgb_pc1.reshape(sh, sw, 3),
+                               rgb_pc1_proj=rgb_pc1_proj.reshape(sh, sw, 3),
+                               valid_points=valid_mask.reshape(sh, sw, 1).to(img.dtype))
+
+        if mc.scale_pcs:  # training.py:394-396
+            pc1 = pc1 / scale1
+            pc2 = pc2 / scale1
+        loss_kwargs.update(pc_x=pc1 @ R_rel.T + t_rel, pc_y=pc2, rt_12=Rt_rel_12,
+                           rt_12_gt=Rt_rel_12_gt)
+
+    loss_dict = compute_losses(lcfg, weights, rgb_loss_type=rgb_loss_type, t_list=t_list,
+                               precomputed=precomputed, chamfer_plain=force_plain,
+                               **loss_kwargs)
+    loss_dict["scale"] = scale_in[0]
+    loss_dict["shift"] = shift_in[0]
+    return loss_dict["loss"], loss_dict
+
+
+def step_gradients(params: Dict[str, Dict[str, torch.Tensor]], batch, weights, ray_idx,
+                   generator, mc: ModelConfigs, rgb_loss_type: str, noise=None,
+                   force_plain: bool = False):
+    """(grads shaped like params, detached loss_dict) of compute_step_loss. A
+    tensor the loss does not reach (a frozen init pose) gets a zero gradient,
+    as jax.grad gives it."""
+    leaves = {g: {k: v.detach().requires_grad_(True) for k, v in group.items()}
+              for g, group in params.items()}
+    loss, loss_dict = compute_step_loss(leaves, batch, weights, ray_idx, generator, mc,
+                                        rgb_loss_type, noise=noise, force_plain=force_plain)
+    flat = [(g, k) for g in leaves for k in leaves[g]]
+    grads = torch.autograd.grad(loss, [leaves[g][k] for g, k in flat], allow_unused=True)
+    out: Dict[str, Dict[str, torch.Tensor]] = {g: {} for g in leaves}
+    for (g, k), grad in zip(flat, grads):
+        out[g][k] = grad if grad is not None else torch.zeros_like(leaves[g][k])
+    # cloned: scale and shift are views of parameters that the update changes in place
+    return out, {k: v.detach().clone() for k, v in loss_dict.items()}
+
+
+def train_step(state: TrainState, batch: Dict[str, Any], weights: Dict[str, float],
+               lrs: Dict[str, float], mc: ModelConfigs, rgb_loss_type: str,
+               ray_idx: Optional[torch.Tensor] = None,
+               noise: Optional[torch.Tensor] = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One full optimization step: state -> (state, metrics). The state's
+    tensors are updated in place and the same state object is returned.
+    `ray_idx` and `noise` pin the two random draws (tests); otherwise both
+    come from the state's generator."""
+    h, w, _ = batch["img"].shape
+    if ray_idx is None:
+        ray_idx = _sample_rays(
+            state.generator, h * w, mc.n_training_points,
+            batch["depth_mask"].reshape(-1) if mc.use_sparse_depth_resample else None,
+            mc.use_sparse_depth_resample)
+    ray_idx = ray_idx.to(batch["img"].device)
+    grads, loss_dict = step_gradients(state.params, batch, weights, ray_idx, state.generator,
+                                      mc, rgb_loss_type, noise=noise)
+    for group in state.params:
+        adam_step(state.params[group], grads[group], state.opt_state[group], lrs[group],
+                  mc.weight_decay if group == "nerf" else 0.0)
+    state.it += 1
+    return state, loss_dict
+
+
+def train_steps(state: TrainState, scene_stack: Dict[str, torch.Tensor], order, ref_order,
+                weights: Dict[str, float], lrs: Dict[str, float], mc: ModelConfigs,
+                rgb_loss_type: str) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """len(order) train steps over the frame order (the JAX package's lax.scan
+    as a loop): (state, loss_dict with a leading step axis). Nothing is read
+    back to the host between steps."""
+    dicts = []
+    for idx, ref in zip(order, ref_order):
+        idx, ref = int(idx), int(ref)
+        batch = {
+            "img": scene_stack["imgs"][idx],
+            "depth": scene_stack["depths"][idx],
+            "depth_mask": scene_stack["depth_masks"][idx],
+            "camera_mat": scene_stack["K"],
+            "pose_gt": scene_stack["c2ws_gt"][idx],
+            "idx": idx,
+            "ref_img": scene_stack["imgs"][ref],
+            "ref_depth": scene_stack["depths"][ref],
+            "ref_pose_gt": scene_stack["c2ws_gt"][ref],
+            "ref_idx": ref,
+        }
+        if "imgs_small" in scene_stack:
+            batch["img_small"] = scene_stack["imgs_small"][idx]
+            batch["ref_img_small"] = scene_stack["imgs_small"][ref]
+            batch["rgb_pc"] = scene_stack["rgb_pc"][idx]
+            batch["ref_rgb_pc"] = scene_stack["rgb_pc"][ref]
+        state, loss_dict = train_step(state, batch, weights, lrs, mc, rgb_loss_type)
+        dicts.append(loss_dict)
+    return state, {k: torch.stack([d[k] for d in dicts]) for k in dicts[0]}
+
+
+class Trainer:
+    """Host-side orchestration: the epoch's schedule scalars and the per-scene
+    warp cache. The per-step compute lives in train_step."""
+
+    def __init__(self, cfg: dict, mc: ModelConfigs):
+        self.cfg = cfg
+        self.mc = mc
+        t = cfg["training"]
+        self.base_lrs = {"nerf": t["learning_rate"], "pose": t["pose_lr"],
+                         "focal": t["focal_lr"], "distortion": t["distortion_lr"]}
+        self.gammas = {"nerf": t["scheduler_gamma"], "pose": t["scheduler_gamma_pose"],
+                       "focal": t["scheduler_gamma_focal"],
+                       "distortion": t["scheduler_gamma_distortion"]}
+        self.decay_intervals = {"nerf": 10, "pose": 100, "focal": 100, "distortion": 100}
+        self._sched_cache: Dict[Any, Any] = {}
+        self._warp_cache = None   # per-scene photometric-warp constants (_warp_frames)
+
+    def lrs_at(self, epoch: int, scheduling_start: int) -> Dict[str, float]:
+        return {g: lr_at_epoch(self.base_lrs[g], self.gammas[g], scheduling_start, epoch,
+                               self.decay_intervals[g]) for g in self.base_lrs}
+
+    def weights_at(self, epoch: int, scheduling_start: int) -> Dict[str, float]:
+        return annealed_weights(self.cfg["training"], scheduling_start, epoch)
+
+    def rgb_loss_type(self, epoch: int, scheduling_start: int) -> str:
+        return rgb_loss_type_at(self.cfg["training"], scheduling_start, epoch)
+
+    def _sched_at(self, epoch: int, scheduling_start: int):
+        """(weights, lrs, rgb_loss_type) of this epoch, computed once per epoch."""
+        key = (epoch, scheduling_start)
+        sched = self._sched_cache.get(key)
+        if sched is None:
+            sched = (self.weights_at(epoch, scheduling_start),
+                     self.lrs_at(epoch, scheduling_start),
+                     self.rgb_loss_type(epoch, scheduling_start))
+            self._sched_cache = {key: sched}  # keep only the current epoch
+        return sched
+
+    def step(self, state: TrainState, batch: Dict[str, Any], epoch: int,
+             scheduling_start: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        weights, lrs, rgb_loss_type = self._sched_at(epoch, scheduling_start)
+        return train_step(state, batch, weights, lrs, self.mc, rgb_loss_type)
+
+    def run_steps(self, state: TrainState, scene, order, ref_order, epoch: int,
+                  scheduling_start: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """len(order) steps over a device-resident SceneData (see train_steps);
+        order/ref_order come from data.loader.epoch_order."""
+        weights, lrs, rgb_loss_type = self._sched_at(epoch, scheduling_start)
+        scene_stack = {"imgs": scene.imgs, "depths": scene.depths,
+                       "depth_masks": scene.depth_masks, "K": scene.K,
+                       "c2ws_gt": scene.c2ws_gt}
+        small, rgb_pc = self._warp_frames(scene)
+        if small is not None:
+            scene_stack["imgs_small"] = small
+            scene_stack["rgb_pc"] = rgb_pc
+        return train_steps(state, scene_stack, order, ref_order, weights, lrs, self.mc,
+                           rgb_loss_type)
+
+    def _warp_frames(self, scene):
+        """Per-frame constants of the photometric warp, computed once per scene:
+        the pc_ratio-downsampled images and the source-side samples
+        rgb_pc1 = bilinear(img_small, fixed pixel grid): the ops the step
+        would otherwise repeat every time."""
+        if self.mc.pose is None:
+            return None, None
+        # keyed on the tensor object itself (kept alive in the cache tuple)
+        if self._warp_cache is None or self._warp_cache[0] is not scene.imgs:
+            imgs = scene.imgs
+            h, w = imgs.shape[1:3]
+            sh, sw = h // self.mc.pc_ratio, w // self.mc.pc_ratio
+            p_pc = _pc_pixels(sh, sw, imgs.device, imgs.dtype)
+            small = torch.stack([resize_bilinear(im, (sh, sw)) for im in imgs])
+            rgb_pc = torch.stack([get_tensor_values(sm, p_pc, mode="bilinear", scale=False,
+                                                    align_corners=True) for sm in small])
+            self._warp_cache = (imgs, small, rgb_pc)
+        return self._warp_cache[1], self._warp_cache[2]

@@ -52,6 +52,16 @@ else:
     raise SystemExit("render ran without a CUDA device")
 """
 
+_CHIP_SMOKE_WITHOUT_DEVICE = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["nope_nerf_tpu"] = None
+import chip_smoke
+code = chip_smoke.main()
+assert code != 0, code
+print("exit", code)
+"""
+
 
 def _run(code, **env):
     full_env = dict(os.environ, PYTHONPATH=str(REPO), **env)
@@ -63,7 +73,7 @@ def test_every_module_imports_without_jax_or_reference():
     res = _run(_IMPORT_ALL.format(blocked=BLOCKED))
     assert res.returncode == 0, res.stderr
     n, loaded = res.stdout.strip().split(" ", 1)
-    assert int(n) >= 15
+    assert int(n) >= 32       # every module of both slices, the trainer's included
     assert loaded == "[]", loaded
 
 
@@ -80,6 +90,33 @@ def test_render_entry_point_raises_without_cuda():
     res = _run(_ENTRY_WITHOUT_DEVICE, CUDA_VISIBLE_DEVICES="")
     assert res.returncode == 0, res.stdout + res.stderr
     assert "no CUDA device" in res.stdout
+
+
+def test_chip_smoke_fails_without_cuda_and_prints_no_result():
+    res = _run(_CHIP_SMOKE_WITHOUT_DEVICE, CUDA_VISIBLE_DEVICES="")
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip() == "exit 1" and '"ok"' not in res.stdout
+
+
+def test_train_entry_points_do_not_fall_back_to_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default device is valid")
+    from nope_nerf_torch.config import load_config
+    from nope_nerf_torch.data import SceneData, make_synthetic_scene
+    from nope_nerf_torch.models.distortions import DistortionConfig, init_distortion_params
+    from nope_nerf_torch.models.intrinsics import FocalConfig, init_focal_params
+    from nope_nerf_torch.training import ModelConfigs, create_train_state
+    scene = SceneData.from_dict(make_synthetic_scene(n_frames=2, h=8, w=8))
+    mc = ModelConfigs.from_cfg(load_config(overrides={"model": {"hidden_dim": 128}}), 2)
+    for call in (lambda: create_train_state(0, mc),
+                 lambda: scene.to_device(),
+                 lambda: init_distortion_params(DistortionConfig(num_cams=2)),
+                 lambda: init_focal_params(FocalConfig())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    state = create_train_state(0, mc, device="cpu")
+    assert state.generator.device.type == "cpu"
+    assert all(v.device.type == "cpu" for d in state.params.values() for v in d.values())
 
 
 def test_entry_points_do_not_fall_back_to_cpu():
