@@ -6,7 +6,9 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    kernel from nope_nerf_torch/csrc/ (one nvcc per source, side by side);
 2. holds each kernel against its plain PyTorch version on the card, over the
    flags it takes: render_fwd (K3), render_train (K1, with the bit-equality
-   of two launches) and chamfer_bidir (K2, by matched distances);
+   of two launches), render_bwd (K4: two cotangent sets, bit-equality, its
+   frozen-network variant, and the train kernel's own cotangents fed through
+   it) and chamfer_bidir (K2, by matched distances);
 3. drives the render path: nope_nerf_torch.cli.render.render on the synthetic
    driving scene at V-KITTI's 188x621, from a checkpoint the port wrote with
    seeded random weights at the full model width; checks that its kernel
@@ -17,7 +19,17 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    warm-up step; checks the launch counts per step, the loss terms and the
    parameters, and holds step 1 against the same step through the plain
    versions on the card;
-5. times each path and each kernel at its main path's shapes (CUDA events),
+5. drives the train CLI and the evaluation path at the full model width on the
+   built-in synthetic scene: cli.train.train for 2 epochs with the validate
+   and checkpoint hooks firing, a resume (1 epoch + checkpoint + 1 epoch) held
+   bit-equal to 2 epochs straight, cli.eval.evaluate with test-time pose
+   optimisation (one render_fwd launch and one of render_bwd's
+   frozen-network variant per step),
+   cli.eval_poses.evaluate_poses, and 4 train steps of a config outside the
+   fused-loss gate (depth_loss_type invariant: render_fwd + render_bwd's full
+   variant per step), each with its launch counts asserted and its first
+   step (loss terms and gradients) held against the plain versions' route;
+6. times each path and each kernel at its main path's shapes (CUDA events),
    prints one `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 It exits non-zero, and prints no result, when CUDA is missing, outside a
 checkout, or when any phase fails. It imports nothing of JAX.
@@ -41,6 +53,10 @@ CHECK_RAYS = 2048
 TRAIN_CHECK_RAYS = 256
 TRAIN_RAYS = 1024            # configs/default.yaml training.n_training_points
 TRAIN_STEPS = 8
+BWD_CHECK_RAYS = 301         # no multiple of the card's 132 SMs
+CLI_EPOCHS = 2               # cli.train on the 8-frame synthetic scene: 8 steps per epoch
+POSE_OPT_EPOCHS = 20         # eval_pose.opt_pose_epoch for the check (default 1000)
+UNFUSED_STEPS = 4
 DENSITY_SHIFT = -4.0         # density bias of the seeded weights: keeps transmittance alive
                              # to the last of the 128 samples, so the composite and its
                              # backward are exercised whole
@@ -246,6 +262,103 @@ def check_render_train(torch, dev, gen):
     return worst_val, worst_share
 
 
+def bwd_cotangents(torch, params, rays, z, tgt, ncfg, dist_alpha: bool, aux: bool):
+    """Cotangents for the render-backward kernel, those of a smooth loss of the
+    forward's own outputs: 0.7 mean|rgb - gt|^2 + 0.3 mean (dist - dgt)^2 and,
+    with `aux`, + mean over rays of sum(weights[:, ::7]^2) + sum(alpha[:, 5])."""
+    from nope_nerf_torch.ops.fused_render import TGT_DEPTH, render_rays_fused_plain
+    rgb, dist, weights, alpha = render_rays_fused_plain(params, rays, z, ncfg, dist_alpha, True)
+    n = rays.shape[0]
+    g_rgb = (1.4 / n * (rgb - tgt[:, 0:3])).contiguous()
+    g_dist = (0.6 / n * (dist - tgt[:, TGT_DEPTH])).contiguous()
+    if not aux:
+        return g_rgb, g_dist, None, None
+    g_w = torch.zeros_like(weights)
+    g_w[:, ::7] = 2.0 / n * weights[:, ::7]
+    g_a = torch.zeros_like(alpha)
+    g_a[:, 5] = 1.0 / n
+    return g_rgb, g_dist, g_w, g_a
+
+
+def check_render_bwd(torch, dev, gen):
+    """K4 against its plain version over {softplus, relu} x head dist_alpha x
+    renderer dist_alpha x {rgb and dist cotangents only, all four}: the full
+    variant, two launches bit-equal, and the frozen-network variant's d(rays)
+    and dz equal to the full one's. Then the train kernel's own cotangents fed
+    through K4, which must give K1's gradients. Returns (worst absolute error
+    of a gradient entry, the same over d(rays) and dz alone, which are all the
+    frozen-network variant returns, worst error as a share of its tolerance)."""
+    from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
+    from nope_nerf_torch.ops.fused_render import (_render_bwd_cuda, _train_cuda,
+                                                  render_rays_fused_bwd_plain, unpack_grads)
+    rays, z, tgt = train_inputs(torch, dev, gen, BWD_CHECK_RAYS)
+    worst_abs, worst_abs_frozen, worst_share, failed = 0.0, 0.0, 0.0, []
+
+    def flat(out):
+        return [*out[0], *out[1], out[2], out[3]]
+
+    for occ in ("softplus", "relu"):
+        for head_da in (False, True):
+            ncfg = NerfConfig(hidden_dim=256, occ_activation=occ, dist_alpha=head_da,
+                              use_pallas=True)
+            params = init_nerf_params(ncfg, gen, device=dev)
+            if occ == "softplus" and not head_da:
+                params["density_b"] = params["density_b"] + DENSITY_SHIFT   # see check_render_train
+            for dist_alpha in (False, True):
+                for aux in (False, True):
+                    cot = bwd_cotangents(torch, params, rays, z, tgt, ncfg, dist_alpha, aux)
+                    a = _render_bwd_cuda(params, rays, z, *cot, ncfg, dist_alpha)
+                    b = _render_bwd_cuda(params, rays, z, *cot, ncfg, dist_alpha)
+                    frozen = _render_bwd_cuda(params, rays, z, *cot, ncfg, dist_alpha,
+                                              want_param_grads=False)
+                    torch.cuda.synchronize()
+                    case = (f"occ={occ} head_dist_alpha={head_da} dist_alpha={dist_alpha} "
+                            f"cotangents={'rgb,dist,weights,alpha' if aux else 'rgb,dist'}")
+                    if not all(torch.equal(x, y) for x, y in zip(flat(a), flat(b))):
+                        raise RuntimeError(f"render_bwd: two launches differ ({case})")
+                    if not (frozen[0] is None and torch.equal(frozen[2], a[2])
+                            and torch.equal(frozen[3], a[3])):
+                        raise RuntimeError(f"render_bwd: the frozen-network variant's d(rays), dz "
+                                           f"differ from the full variant's ({case})")
+                    ref = render_rays_fused_bwd_plain(params, rays, z, *cot, ncfg, dist_alpha)
+                    got = dict(unpack_grads(a[0], a[1], ncfg), rays=a[2], z=a[3])
+                    want = dict(unpack_grads(ref[0], ref[1], ncfg), rays=ref[2], z=ref[3])
+                    shares = {k: grad_share(got[k], want[k], k in ("rays", "z")) for k in want}
+                    k_worst = max(shares, key=shares.get)
+                    worst_share = max(worst_share, shares[k_worst])
+                    worst_abs = max(worst_abs, max(max_err(got[k], want[k]) for k in want))
+                    worst_abs_frozen = max(worst_abs_frozen, max_err(frozen[2], ref[2]),
+                                           max_err(frozen[3], ref[3]))
+                    print(f"render_bwd vs plain, {case}: {len(shares)} gradient blocks, worst "
+                          f"{k_worst} at {shares[k_worst]:.3f} of its tolerance (rays "
+                          f"{shares['rays']:.3f}, z {shares['z']:.3f}, largest weight block "
+                          f"{max(v for k, v in shares.items() if k.endswith('_w')):.3f}); two "
+                          f"launches bit-equal; frozen-network variant equal")
+                    if not shares[k_worst] <= 1.0:
+                        failed.append(f"{k_worst} at {shares[k_worst]:.2f} of its tolerance "
+                                      f"({case})")
+    if failed:
+        raise RuntimeError("render_bwd disagrees with its plain version: " + "; ".join(failed))
+
+    # K1 forms g_rgb = w_rgb d|rgb-gt|^p and g_dist = w_depth m sign(dist-dgt) itself and
+    # writes their negatives into d(tgt): fed to K4, they must reproduce K1's gradients
+    ncfg = NerfConfig(hidden_dim=256, use_pallas=True)
+    params = init_nerf_params(ncfg, gen, device=dev)
+    params["density_b"] = params["density_b"] + DENSITY_SHIFT
+    for rgb_p in (1, 2):
+        _, dWs, dBs, drays, dz, dtgt = _train_cuda(params, rays, z, tgt, ncfg, False, rgb_p, False)
+        out = _render_bwd_cuda(params, rays, z, (-dtgt[:, 0:3]).contiguous(),
+                               (-dtgt[:, 3]).contiguous(), None, None, ncfg, False)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(x, y) for x, y in zip([*dWs, *dBs, drays, dz], flat(out)))
+        print(f"render_bwd on render_train's cotangents, rgb_p={rgb_p}: dW, dB, d(rays), dz "
+              f"bit-equal to render_train's: {equal}")
+        if not equal:
+            raise RuntimeError("render_bwd does not reproduce render_train's gradients from "
+                               "its cotangents")
+    return worst_abs, worst_abs_frozen, worst_share
+
+
 def depth_lifted_clouds(torch, dev, gen, h: int, w: int):
     """Two (h*w, 3) clouds as the train step lifts them: a pixel grid times
     seeded depths through the scene's K^-1, the second moved by a small pose."""
@@ -313,7 +426,7 @@ def run_render_path(torch, np, dev, gen):
     from nope_nerf_torch.ops.fused_render import (RENDER_FWD, render_rays_fused,
                                                   render_rays_fused_plain)
     from nope_nerf_torch.ops.render import RenderConfig, _ray_geometry, fused_inputs
-    from nope_nerf_torch.training.checkpoints import load_checkpoint, save_checkpoint
+    from nope_nerf_torch.training.checkpoints import load_params, save_params
 
     scene = load_scene("driving")
     with tempfile.TemporaryDirectory() as out_dir:
@@ -328,12 +441,12 @@ def run_render_path(torch, np, dev, gen):
         params = {"nerf": nerf,
                   "pose": {"r": log_so3(c2ws[:, :3, :3]).to(dev),
                            "t": c2ws[:, :3, 3].contiguous().to(dev)}}
-        save_checkpoint(out_dir, cfg["extract_images"]["model_file"], params)
+        save_params(out_dir, cfg["extract_images"]["model_file"], params)
 
         RENDER_FWD.launches = 0
         frames = render(cfg, synthetic="driving", device=dev, save=False)
         launches = RENDER_FWD.launches
-        params, _ = load_checkpoint(out_dir, cfg["extract_images"]["model_file"], device=dev)
+        params, _ = load_params(out_dir, cfg["extract_images"]["model_file"], device=dev)
 
     h, w = RESOLUTION
     n_rays = h * w
@@ -397,7 +510,7 @@ def run_train_path(torch, np, dev):
     from nope_nerf_torch.data import (SceneData, batch_for_frame, epoch_order,
                                       make_synthetic_scene)
     from nope_nerf_torch.ops.chamfer import CHAMFER_BIDIR
-    from nope_nerf_torch.ops.fused_render import RENDER_FWD, RENDER_TRAIN
+    from nope_nerf_torch.ops.fused_render import RENDER_FWD, RENDER_TRAIN, plain_versions
     from nope_nerf_torch.training import ModelConfigs, Trainer, create_train_state
     from nope_nerf_torch.training.trainer import _sample_rays, step_gradients
 
@@ -420,8 +533,9 @@ def run_train_path(torch, np, dev):
                        generator=torch.Generator(device=dev).manual_seed(SEED + 2), device=dev)
     g_k, ld_k = step_gradients(state.params, batch, weights, ray_idx, None, mc, rgb_loss_type,
                                noise=noise)
-    g_p, ld_p = step_gradients(state.params, batch, weights, ray_idx, None, mc, rgb_loss_type,
-                               noise=noise, force_plain=True)
+    with plain_versions():
+        g_p, ld_p = step_gradients(state.params, batch, weights, ray_idx, None, mc,
+                                   rgb_loss_type, noise=noise)
     torch.cuda.synchronize()
     for k in ld_p:
         err = abs(float(ld_k[k]) - float(ld_p[k]))
@@ -479,6 +593,249 @@ def run_train_path(torch, np, dev):
     return counts, step_ms, trainer, state, scene, order, refs, mc
 
 
+def kernel_counters():
+    from nope_nerf_torch.ops.chamfer import CHAMFER_BIDIR
+    from nope_nerf_torch.ops.fused_render import (RENDER_BWD, RENDER_BWD_FROZEN, RENDER_FWD,
+                                                  RENDER_TRAIN)
+    return {"render_train": RENDER_TRAIN, "chamfer_bidir": CHAMFER_BIDIR,
+            "render_fwd": RENDER_FWD, "render_bwd": RENDER_BWD,
+            "render_bwd_frozen": RENDER_BWD_FROZEN}
+
+
+def counted(fn, expected: dict, what: str):
+    """Run fn() with every kernel's launch count set to 0 just before and read
+    just after; fail unless the counts are `expected` (a kernel it does not
+    name: 0). render_bwd counts both variants of the render-backward kernel,
+    render_bwd_frozen those of its frozen-network variant among them.
+    Returns (fn's result, counts)."""
+    import torch
+    libs = kernel_counters()
+    expected = {name: expected.get(name, 0) for name in libs}
+    for lib in libs.values():
+        lib.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {name: lib.launches for name, lib in libs.items()}
+    order = ("render_train", "chamfer_bidir", "render_fwd", "render_bwd", "render_bwd_frozen")
+    print(f"{what}: launches " + ", ".join(f"{k} {counts[k]}" for k in order) + " (expected "
+          + ", ".join(str(expected[k]) for k in order) + ")")
+    if counts != expected:
+        raise RuntimeError(f"{what}: launch counts {counts}, expected {expected}")
+    return out, counts
+
+
+def states_bit_equal(torch, a, b) -> bool:
+    """Parameters, Adam moments and counts, iteration counter, generator state."""
+    same = a.it == b.it and torch.equal(a.generator.get_state(), b.generator.get_state())
+    for g, d in a.params.items():
+        same = same and a.opt_state[g].count == b.opt_state[g].count
+        for k, v in d.items():
+            same = (same and torch.equal(v, b.params[g][k])
+                    and torch.equal(a.opt_state[g].mu[k], b.opt_state[g].mu[k])
+                    and torch.equal(a.opt_state[g].nu[k], b.opt_state[g].nu[k]))
+    return bool(same)
+
+
+def run_cli_path(torch, np, dev):
+    """Phase 5a: the train CLI, its resume, the eval CLI with test-time pose
+    optimisation and the pose-eval CLI, at the full model width on the
+    built-in 8-frame 120x160 synthetic scene. Returns (launch counts of the
+    eval run, what the timings need)."""
+    from nope_nerf_torch.cli.eval import evaluate, split_synthetic_scene
+    from nope_nerf_torch.cli.eval_poses import evaluate_poses
+    from nope_nerf_torch.cli.train import train
+    from nope_nerf_torch.config import load_config
+    from nope_nerf_torch.evaluation.pose_opt import (optimize_test_poses, pose_opt_loss)
+    from nope_nerf_torch.models.poses import PoseConfig, init_pose_params
+    from nope_nerf_torch.ops.fused_render import plain_versions
+    from nope_nerf_torch.training import ModelConfigs
+
+    steps = CLI_EPOCHS * 8
+
+    def cfg_for(out_dir, **extra):
+        over = {"training": {"out_dir": out_dir, "n_training_points": TRAIN_RAYS,
+                             "vis_geo": False, "print_every": 8, "validate_every": 8,
+                             "checkpoint_every": 8, "visualize_every": 0,
+                             "vis_reprojection_every": 0},
+                "pose": {"learn_pose": True, "init_pose": True},
+                "eval_pose": {"opt_pose_epoch": POSE_OPT_EPOCHS, "n_points": TRAIN_RAYS,
+                              "type_to_eval": "eval"}}
+        for k, v in extra.items():
+            over.setdefault(k, {}).update(v)
+        return load_config(overrides=over)
+
+    with tempfile.TemporaryDirectory() as root:
+        # ---- cli.train: 2 epochs; validate renders the 120x160 frame at it 0 and 8
+        cfg = cfg_for(os.path.join(root, "a"))
+        (state_a, _, _), _ = counted(
+            lambda: train(cfg, synthetic=True, max_epochs=CLI_EPOCHS, device=dev),
+            {"render_train": steps, "chamfer_bidir": steps, "render_fwd": steps // 8},
+            f"cli.train, {CLI_EPOCHS} epochs of 8 steps")
+        if state_a.it != steps - 1 or not os.path.exists(os.path.join(root, "a", "model.ckpt")):
+            raise RuntimeError("cli.train: wrong iteration counter or no checkpoint")
+        for group, d in state_a.params.items():
+            if not all(bool(torch.isfinite(v).all()) for v in d.values()):
+                raise RuntimeError(f"cli.train: non-finite parameter in group {group}")
+
+        # ---- resume: 1 epoch, checkpoint, resume 1 epoch = 2 epochs straight
+        cfg_b = cfg_for(os.path.join(root, "b"))
+        train(cfg_b, synthetic=True, max_epochs=1, device=dev)
+        state_b, _, _ = train(cfg_b, synthetic=True, max_epochs=CLI_EPOCHS, device=dev)
+        equal = states_bit_equal(torch, state_a, state_b)
+        print(f"resume: 1 epoch + checkpoint + 1 epoch against {CLI_EPOCHS} epochs straight: "
+              f"parameters, Adam state and generator bit-equal: {equal}")
+        if not equal:
+            raise RuntimeError("a resumed run differs from the same epochs run straight")
+
+        # ---- step 1 of the pose optimisation, kernels against the plain versions
+        mc = ModelConfigs.from_cfg(cfg, num_cams=7)
+        _, eval_scene, _ = split_synthetic_scene()
+        nerf = {k: v.detach() for k, v in state_a.params["nerf"].items()}
+        img = torch.as_tensor(eval_scene.imgs[0]).to(dev)
+        cam = torch.as_tensor(eval_scene.K).to(dev)
+        pcfg = PoseConfig(num_cams=1, use_init_c2w=True)
+        ray_idx = torch.randperm(img.shape[0] * img.shape[1],
+                                 generator=torch.Generator(device=dev).manual_seed(SEED + 4),
+                                 device=dev)[:TRAIN_RAYS]
+
+        def pose_grads():
+            pose = init_pose_params(pcfg, torch.as_tensor(eval_scene.c2ws_gt), device=dev)
+            leaves = {k: v.requires_grad_(k != "init_c2w") for k, v in pose.items()}
+            loss = pose_opt_loss(leaves, nerf, None, img, 0, cam, ray_idx, pcfg, None, mc.nerf,
+                                 mc.render)
+            g_r, g_t = torch.autograd.grad(loss, [leaves["r"], leaves["t"]])
+            return float(loss.detach()), {"r": g_r, "t": g_t}
+
+        (loss_k, g_k), _ = counted(pose_grads, {"render_fwd": 1, "render_bwd": 1,
+                                                "render_bwd_frozen": 1},
+                                   "pose-opt step 1 through the kernels")
+        with plain_versions():
+            loss_p, g_p = pose_grads()
+        report = []
+        for k, ref in g_p.items():
+            err, top = max_err(g_k[k], ref), float(ref.abs().max())
+            report.append(f"pose/{k} {err:.3g} of {top:.3g}")
+            if not err <= 5e-2 * top + 1e-9:
+                raise RuntimeError(f"pose-opt step 1: gradient pose/{k} differs from the plain "
+                                   f"versions' by {err} (largest entry {top})")
+        if not abs(loss_k - loss_p) <= 2e-3 * abs(loss_p):
+            raise RuntimeError(f"pose-opt step 1: loss {loss_k} differs from the plain {loss_p}")
+        print(f"pose-opt step 1 vs plain versions: loss {loss_k:.6g} vs {loss_p:.6g}; gradient "
+              "errors " + ", ".join(report))
+
+        # ---- cli.eval: pose optimisation on the held-out frame, then its render
+        n_eval = eval_scene.n_frames
+        opt_steps = n_eval * POSE_OPT_EPOCHS
+        summary, eval_counts = counted(
+            lambda: evaluate(cfg, synthetic=True, device=dev, save=False),
+            {"render_fwd": opt_steps + n_eval, "render_bwd": opt_steps,
+             "render_bwd_frozen": opt_steps},
+            f"cli.eval, {POSE_OPT_EPOCHS} pose-opt epochs on {n_eval} view, then its frame")
+        for k in ("mean_mse", "mean_psnr", "mean_ssim"):
+            if not math.isfinite(summary[k]):
+                raise RuntimeError(f"cli.eval: {k} is not finite")
+        # the same optimisation by hand: the pose must move and stay finite
+        init = np.asarray(eval_scene.c2ws_gt)
+        pose, c2ws = optimize_test_poses(nerf, None, eval_scene, mc.nerf, mc.render,
+                                         init_c2ws=init, n_points=TRAIN_RAYS, n_epochs=5,
+                                         lr=1e-3, log_every=0, device=dev)
+        moved = float(np.abs(c2ws - init).max())
+        print(f"cli.eval: PSNR {summary['mean_psnr']:.3f} SSIM {summary['mean_ssim']:.4f}; "
+              f"5 pose-opt epochs move the pose by at most {moved:.3g}")
+        if not (np.isfinite(c2ws).all() and moved > 0.0
+                and bool((pose["r"].abs().max() > 0) & (pose["t"].abs().max() > 0))):
+            raise RuntimeError("pose optimisation left the pose unchanged or non-finite")
+
+        # ---- cli.eval_poses: learned poses, and the scene's own (every error 0)
+        metrics = evaluate_poses(cfg, synthetic=True, device=dev)
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise RuntimeError(f"cli.eval_poses: non-finite metric {metrics}")
+        cfg_fixed = cfg_for(os.path.join(root, "c"), pose={"learn_pose": False, "init_pose": False},
+                            training={"pc_weight": [0.0, 0.0], "rgb_s_weight": [0.0, 0.0],
+                                      "validate_every": 0})
+        counted(lambda: train(cfg_fixed, synthetic=True, max_epochs=1, device=dev),
+                {"render_train": 8},
+                "cli.train without learned poses, 1 epoch")
+        fixed = evaluate_poses(cfg_fixed, synthetic=True, device=dev)
+        if not all(abs(v) < 1e-6 for v in fixed.values()):
+            raise RuntimeError(f"cli.eval_poses: errors {fixed} without learned poses, expected 0")
+        print(f"cli.eval_poses: ATE_t {metrics['ate_trans']:.6f}, RPE_r "
+              f"{metrics['rpe_rot_deg']:.4f} deg; 0 without learned poses")
+    return eval_counts, (nerf, img, cam, pcfg, ray_idx, eval_scene, mc)
+
+
+def run_unfused_steps(torch, np, dev):
+    """Phase 5b: train steps of a config outside the fused-loss gate
+    (depth_loss_type invariant) on the train path's scene: per step one
+    render_fwd, one render_bwd (full variant), one chamfer_bidir and no
+    render_train launch. Step 1's loss terms and gradients are held against
+    the same step through the plain versions. Returns (launch counts, trainer,
+    state, scene, order, refs)."""
+    from nope_nerf_torch.config import load_config
+    from nope_nerf_torch.data import (SceneData, batch_for_frame, epoch_order,
+                                      make_synthetic_scene)
+    from nope_nerf_torch.ops.fused_render import plain_versions
+    from nope_nerf_torch.training import ModelConfigs, Trainer, create_train_state
+    from nope_nerf_torch.training.trainer import _sample_rays, step_gradients
+
+    h, w = RESOLUTION
+    cfg = load_config(overrides={"training": {"n_training_points": TRAIN_RAYS,
+                                              "depth_loss_type": "invariant"},
+                                 "pose": {"learn_pose": True, "init_pose": True}})
+    scene = SceneData.from_dict(make_synthetic_scene(n_frames=4, h=h, w=w)).to_device(dev)
+    mc = ModelConfigs.from_cfg(cfg, num_cams=scene.n_frames)
+    state = create_train_state(SEED, mc, init_c2w=scene.c2ws_gt, device=dev)
+    trainer = Trainer(cfg, mc)
+    order, refs = epoch_order(scene.n_frames, shuffle=True, seed=SEED)
+    weights, _, rgb_loss_type = trainer._sched_at(0, 10000)
+
+    batch = batch_for_frame(scene, int(order[0]), ref_idx=int(refs[0]))
+    ray_idx = _sample_rays(torch.Generator(device=dev).manual_seed(SEED + 1), h * w, TRAIN_RAYS,
+                           None, False)
+    noise = torch.rand((TRAIN_RAYS, mc.render.num_points),
+                       generator=torch.Generator(device=dev).manual_seed(SEED + 2), device=dev)
+    g_k, ld_k = step_gradients(state.params, batch, weights, ray_idx, None, mc, rgb_loss_type,
+                               noise=noise)
+    with plain_versions():
+        g_p, ld_p = step_gradients(state.params, batch, weights, ray_idx, None, mc,
+                                   rgb_loss_type, noise=noise)
+    for k in ld_p:
+        err = abs(float(ld_k[k]) - float(ld_p[k]))
+        if not err <= 2e-3 * abs(float(ld_p[k])) + 1e-7:
+            raise RuntimeError(f"unfused train step 1: loss term {k} {float(ld_k[k])} differs "
+                               f"from the plain versions' {float(ld_p[k])}")
+    print(f"unfused train step 1 vs plain versions: {len(ld_p)} loss terms within 2e-3 (loss "
+          f"{float(ld_k['loss']):.6g} vs {float(ld_p['loss']):.6g}, loss_depth "
+          f"{float(ld_k['loss_depth']):.6g})")
+    # the gradients: here the nerf blocks come from render_bwd's full variant at the train batch
+    shares = {k: grad_share(g_k["nerf"][k], ref, False) for k, ref in g_p["nerf"].items()}
+    k_worst = max(shares, key=shares.get)
+    report = [f"worst nerf block {k_worst} at {shares[k_worst]:.3f} of its tolerance"]
+    if not shares[k_worst] <= 1.0:
+        raise RuntimeError(f"unfused train step 1: gradient nerf/{k_worst} at "
+                           f"{shares[k_worst]:.2f} of its tolerance against the plain versions'")
+    for group in ("pose", "distortion"):
+        for k, ref in g_p[group].items():
+            err, top = max_err(g_k[group][k], ref), float(ref.abs().max())
+            report.append(f"{group}/{k} {err:.3g} of {top:.3g}")
+            if not err <= 5e-2 * top + 1e-9:
+                raise RuntimeError(f"unfused train step 1: gradient {group}/{k} differs from the "
+                                   f"plain versions' by {err} (largest entry {top})")
+    print(f"unfused train step 1 vs plain versions, gradients: {len(shares)} nerf blocks within "
+          "5e-3 of each block's largest entry, pose and distortion within 5e-2: "
+          + ", ".join(report))
+
+    (state, lds), counts = counted(
+        lambda: trainer.run_steps(state, scene, order, refs, epoch=0, scheduling_start=10000),
+        {"chamfer_bidir": UNFUSED_STEPS, "render_fwd": UNFUSED_STEPS,
+         "render_bwd": UNFUSED_STEPS},
+        f"unfused train path (depth_loss_type invariant), {UNFUSED_STEPS} steps")
+    for k, v in lds.items():
+        if v.shape[0] != UNFUSED_STEPS or not bool(torch.isfinite(v).all()):
+            raise RuntimeError(f"unfused train path: loss term {k} is not finite over the steps")
+    return counts, trainer, state, scene, order, refs
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -492,8 +849,9 @@ def main() -> int:
     from nope_nerf_torch.ops.chamfer import (CHAMFER_BIDIR, nearest_idx_bidirectional,
                                              nearest_idx_bidirectional_plain)
     from nope_nerf_torch.ops.fused_render import (
-        RENDER_FWD, RENDER_TRAIN, STASH_HALF_DIMS, pack_weights, render_ray_loss_fused,
-        render_ray_loss_fused_plain, render_rays_fused, render_rays_fused_plain)
+        RENDER_BWD, RENDER_FWD, RENDER_TRAIN, STASH_HALF_DIMS, _render_bwd_cuda, pack_weights,
+        render_ray_loss_fused, render_ray_loss_fused_plain, render_rays_fused,
+        render_rays_fused_bwd_plain, render_rays_fused_plain)
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -502,7 +860,7 @@ def main() -> int:
     print(smi)
 
     # ---- 1. build -----------------------------------------------------------
-    libraries = (RENDER_FWD, RENDER_TRAIN, CHAMFER_BIDIR)
+    libraries = (RENDER_FWD, RENDER_TRAIN, RENDER_BWD, CHAMFER_BIDIR)
     t0 = time.perf_counter()
     build_all(libraries)
     print(f"build: {time.perf_counter() - t0:.1f} s for "
@@ -518,6 +876,9 @@ def main() -> int:
     train_err, train_share = check_render_train(torch, dev, gen)
     print(f"render_train: worst gradient error over the 16 cases at {train_share:.3f} of its "
           f"tolerance (grad_share)")
+    bwd_err, bwd_frozen_err, bwd_share = check_render_bwd(torch, dev, gen)
+    print(f"render_bwd: worst gradient error over the 16 cases at {bwd_share:.3f} of its "
+          f"tolerance (grad_share)")
     chamfer_gap = check_chamfer(torch, dev, gen)
 
     # ---- 3. the render path: novel views through the render CLI --------------
@@ -527,7 +888,12 @@ def main() -> int:
     # ---- 4. the train path: Trainer.run_steps --------------------------------
     counts, step_ms, trainer, state, tscene, order, refs, mc = run_train_path(torch, np, dev)
 
-    # ---- 5. timing at the main paths' shapes ---------------------------------
+    # ---- 5. the train CLI, the eval path, the unfused train steps ------------
+    eval_counts, (enerf, eimg, ecam, epcfg, eray_idx, eval_scene, emc) = run_cli_path(
+        torch, np, dev)
+    unfused_counts, utrainer, ustate, uscene, uorder, urefs = run_unfused_steps(torch, np, dev)
+
+    # ---- 6. timing at the main paths' shapes ---------------------------------
     h, w = RESOLUTION
     n_rays = h * w
     frame_ms = time_ms(lambda: render_trajectory(params["nerf"], traj[:1], scene.K,
@@ -561,18 +927,71 @@ def main() -> int:
                                                      False), 10)
     train_plain_ms = time_ms(lambda: render_ray_loss_fused_plain(tparams, rays, tz, tgt, tcfg,
                                                                  False, 1, False), 2)
+    # The bounds count what each function must move: every input read once (the weights
+    # once, as bf16), every output written once. The kernels' activation stash is their own
+    # choice, not the function's, and stays out of the bound; it is printed beside it.
     W, B = pack_weights(tparams, tcfg)
+    weight_bytes = numel_bytes(W) + numel_bytes(B)
     grad_bytes = 4 * sum(v.numel() for v in tparams.values())
     stash_bytes = TRAIN_RAYS * S * STASH_HALF_DIMS * tcfg.hidden_dim   # bf16, 9.5 D per point
-    io_bytes = 2 * numel_bytes([rays, tz, tgt]) + 2 * numel_bytes(W) + numel_bytes(B) + grad_bytes
+    stash_ms = 2 * stash_bytes / PEAK_BYTES * 1e3
+    io_bytes = 2 * numel_bytes([rays, tz, tgt]) + weight_bytes + grad_bytes
     t_flops = train_flops(tcfg.hidden_dim, TRAIN_RAYS, S)
-    t_bound, t_by, t_ops_ms, t_bytes_ms = bound(t_flops, PEAK_BF16_FLOPS,
-                                                io_bytes + 2 * stash_bytes)
+    t_bound, t_by, t_ops_ms, t_bytes_ms = bound(t_flops, PEAK_BF16_FLOPS, io_bytes)
     print(f"render_train {TRAIN_RAYS} rays x {S}: {train_ms:.3f} ms, plain version "
           f"{train_plain_ms:.1f} ms; {t_flops / 1e12:.3f} TFLOP ({t_ops_ms:.3f} ms), "
-          f"{io_bytes / 1e6:.1f} MB of rays, weights and gradients plus a "
-          f"{stash_bytes / 1e6:.1f} MB stash written and read ({t_bytes_ms:.3f} ms) -> bound "
-          f"{t_bound:.3f} ms by {t_by} ({t_flops / train_ms / 1e9:.1f} TFLOP/s achieved)")
+          f"{io_bytes / 1e6:.1f} MB of rays, targets, weights and gradients "
+          f"({t_bytes_ms:.4f} ms) -> bound {t_bound:.3f} ms by {t_by} "
+          f"({t_flops / train_ms / 1e9:.1f} TFLOP/s achieved); outside the bound, the "
+          f"kernel's own stash: {stash_bytes / 1e6:.1f} MB written and read, {stash_ms:.3f} ms "
+          f"at the memory rate")
+
+    # K4 at the pose-opt and train batch: 1024 rays x 128, both variants, on the
+    # cotangents of a colour and depth loss (what pose optimisation sends)
+    cot = bwd_cotangents(torch, tparams, rays, tz, tgt, tcfg, False, False)
+    bwd_ms = time_ms(lambda: _render_bwd_cuda(tparams, rays, tz, *cot, tcfg, False), 10)
+    bwd_frozen_ms = time_ms(lambda: _render_bwd_cuda(tparams, rays, tz, *cot, tcfg, False,
+                                                     want_param_grads=False), 10)
+    bwd_plain_ms = time_ms(lambda: render_rays_fused_bwd_plain(tparams, rays, tz, *cot, tcfg,
+                                                               False), 2)
+    # the frozen-network variant: rays, z, cotangents and weights in, d(rays) and dz out;
+    # forward + dX = two thirds of the products. The full variant adds the dW/dB outputs.
+    f_io = numel_bytes([rays, tz, cot[0], cot[1]]) + numel_bytes([rays, tz]) + weight_bytes
+    f_flops = 2 * t_flops / 3
+    f_bound, f_by, f_ops_ms, f_bytes_ms = bound(f_flops, PEAK_BF16_FLOPS, f_io)
+    b_io = f_io + grad_bytes
+    b_bound, b_by, b_ops_ms, b_bytes_ms = bound(t_flops, PEAK_BF16_FLOPS, b_io)
+    print(f"render_bwd {TRAIN_RAYS} rays x {S}, full variant: {bwd_ms:.3f} ms, plain version "
+          f"{bwd_plain_ms:.1f} ms; {t_flops / 1e12:.3f} TFLOP ({b_ops_ms:.3f} ms), "
+          f"{b_io / 1e6:.1f} MB of rays, cotangents, weights and gradients ({b_bytes_ms:.4f} "
+          f"ms) -> bound {b_bound:.3f} ms by {b_by} ({t_flops / bwd_ms / 1e9:.1f} TFLOP/s "
+          f"achieved, {bwd_ms / b_bound:.1f} x the bound); frozen-network variant (forward + "
+          f"dX, no dW/dB): {bwd_frozen_ms:.3f} ms; {f_flops / 1e12:.3f} TFLOP ({f_ops_ms:.3f} "
+          f"ms), {f_io / 1e6:.1f} MB ({f_bytes_ms:.4f} ms) -> bound {f_bound:.3f} ms by {f_by} "
+          f"({f_flops / bwd_frozen_ms / 1e9:.1f} TFLOP/s achieved, "
+          f"{bwd_frozen_ms / f_bound:.1f} x the bound); outside both bounds, the kernel's own "
+          f"stash: {stash_ms:.3f} ms at the memory rate")
+
+    # one pose-opt step, one unfused train step and one eval frame, end to end
+    from nope_nerf_torch.data import batch_for_frame
+    from nope_nerf_torch.evaluation.pose_opt import pose_opt_step
+    from nope_nerf_torch.models.poses import init_pose_params
+    from nope_nerf_torch.training.state import init_adam
+    pose = init_pose_params(epcfg, torch.as_tensor(eval_scene.c2ws_gt), device=dev)
+    adam = init_adam(pose)
+    pose_ms = time_ms(lambda: pose_opt_step(pose, adam, enerf, None, eimg, 0, ecam, eray_idx, 1e-3,
+                                            epcfg, None, emc.nerf, emc.render), 20)
+
+    def unfused_steps():
+        utrainer.run_steps(ustate, uscene, uorder, urefs, epoch=0, scheduling_start=10000)
+    unfused_ms = time_ms(unfused_steps, 2) / UNFUSED_STEPS
+    fbatch = batch_for_frame(tscene, 0, ref_idx=1)
+    eval_frame_ms = time_ms(lambda: trainer.render_frame(state, fbatch, RESOLUTION), N_VIEWS)
+    print(f"pose-opt step, {TRAIN_RAYS} rays of a 120x160 frame: {pose_ms:.2f} ms end to end "
+          f"(render_fwd + render_bwd's frozen-network variant + Adam on the pose); unfused "
+          f"train step (depth_loss_type invariant) {unfused_ms:.2f} ms end to end beside the "
+          f"fused step's {steps_ms:.2f} ms; Trainer.render_frame {h}x{w} {eval_frame_ms:.2f} ms "
+          f"end to end")
 
     cx, cy = depth_lifted_clouds(torch, dev, gen, h // mc.pc_ratio, w // mc.pc_ratio)
     chamfer_ms = time_ms(lambda: nearest_idx_bidirectional(cx, cy), 20)
@@ -609,6 +1028,22 @@ def main() -> int:
          "replaces": "nope_nerf_tpu/ops/pallas_render.py:605",
          "launches": counts["render_train"], "max_abs_err": train_err, "ms": train_ms,
          "plain_ms": train_plain_ms, "bound_ms": t_bound, "bound_by": t_by,
+         "library_ms": None},
+        # the full variant (dW, dB, d(rays), dz), launched by the unfused train steps
+        {"name": "render_bwd", "route": "cuda",
+         "source": "nope_nerf_torch/csrc/render_bwd.cu",
+         "replaces": "nope_nerf_tpu/ops/pallas_render.py:535",
+         "launches": unfused_counts["render_bwd"] - unfused_counts["render_bwd_frozen"],
+         "max_abs_err": bwd_err, "ms": bwd_ms,
+         "plain_ms": bwd_plain_ms, "bound_ms": b_bound, "bound_by": b_by,
+         "library_ms": None},
+        # its frozen-network variant (d(rays), dz only), launched by cli.eval's pose
+        # optimisation; the plain version it is held against computes dW and dB as well
+        {"name": "render_bwd_frozen", "route": "cuda",
+         "source": "nope_nerf_torch/csrc/render_bwd.cu",
+         "replaces": "nope_nerf_tpu/ops/pallas_render.py:535",
+         "launches": eval_counts["render_bwd_frozen"], "max_abs_err": bwd_frozen_err,
+         "ms": bwd_frozen_ms, "plain_ms": bwd_plain_ms, "bound_ms": f_bound, "bound_by": f_by,
          "library_ms": None},
         {"name": "chamfer_bidir", "route": "cuda",
          "source": "nope_nerf_torch/csrc/chamfer_bidir.cu",

@@ -6,7 +6,7 @@ novel trajectory ('interp' | 'bspline' | 'sprial'/'spiral'), renders
 RGB/depth/disparity per view through the fused render kernel and writes pngs
 and videos under extraction/. Scenes come from the built-in synthetic
 generators for now: on-disk LLFF/V-KITTI loading needs cv2 and comes with the
-data slice of the port, together with the train CLI.
+data slice of the port.
 """
 
 from __future__ import annotations
@@ -74,13 +74,13 @@ def render(cfg: dict, synthetic: Union[bool, str] = False, device: DeviceLike = 
     from ..evaluation.extract import render_trajectory
     from ..models.nerf import NerfConfig
     from ..ops.render import RenderConfig
-    from ..training.checkpoints import load_checkpoint
+    from ..training.checkpoints import load_params
 
     dev = resolve_device(device)
     scene = load_scene(synthetic)
     out_dir = cfg["training"]["out_dir"]
     extraction_dir = os.path.join(out_dir, cfg["extract_images"]["extraction_dir"])
-    loaded = load_checkpoint(out_dir, cfg["extract_images"]["model_file"], device=dev)
+    loaded = load_params(out_dir, cfg["extract_images"]["model_file"], device=dev)
     if loaded is None:
         raise FileNotFoundError(f"no checkpoint in {out_dir}")
     params, _ = loaded

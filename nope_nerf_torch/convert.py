@@ -4,8 +4,11 @@ Both packages keep the same groups ("nerf", "pose", "focal", "distortion"),
 the same names and the same (in, out) weight layout, so a conversion only
 changes the array type; values are copied exactly, dtypes kept. A tree is a
 nested dict whose leaves are arrays (0-d arrays included, e.g. focal "fx").
-`state_from_numpy` carries a whole train state across, Adam moments included,
-so that a run can start from the same state in both packages.
+`state_from_numpy` and `state_to_numpy` carry a whole train state across, Adam
+moments included, so that a run can start from the same state in both
+packages and a state trained by the port can be handed back. A single group
+outside a train state (the test-time pose parameters of
+evaluation/pose_opt.py) goes through `tree_from_numpy` / `tree_to_numpy`.
 """
 
 from __future__ import annotations
@@ -35,18 +38,28 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def tree_from_numpy(tree: Tree, device: DeviceLike = None) -> Tree:
+    """A nested dict of numpy arrays -> the same dict of torch tensors on `device`."""
+    dev = resolve_device(device)
+    return _map(tree, lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev))
+
+
+def tree_to_numpy(tree: Tree) -> Tree:
+    """A nested dict of torch tensors -> numpy arrays on the host."""
+    return _map(tree, lambda t: t.detach().cpu().numpy())
+
+
 def params_from_numpy(tree: Tree, device: DeviceLike = None) -> Tree:
     """{group: {name: numpy array}} (a JAX state's params on the host) ->
     the same tree of torch tensors on `device`."""
     _check_groups(tree)
-    dev = resolve_device(device)
-    return _map(tree, lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev))
+    return tree_from_numpy(tree, device)
 
 
 def params_to_numpy(tree: Tree) -> Tree:
     """The port's tensor tree -> numpy arrays (host), the JAX package's form."""
     _check_groups(tree)
-    return _map(tree, lambda t: t.detach().cpu().numpy())
+    return tree_to_numpy(tree)
 
 
 def state_from_numpy(params: Tree, opt_state: Dict[str, Dict[str, Any]], it: int = -1,
@@ -63,9 +76,17 @@ def state_from_numpy(params: Tree, opt_state: Dict[str, Dict[str, Any]], it: int
     if set(opt_state) != set(tensors):
         raise ValueError(f"optimizer groups {sorted(opt_state)} do not match the "
                          f"parameter groups {sorted(tensors)}")
-    opt = {g: AdamState(mu=params_from_numpy({g: o["mu"]}, dev)[g],
-                        nu=params_from_numpy({g: o["nu"]}, dev)[g],
+    opt = {g: AdamState(mu=tree_from_numpy(o["mu"], dev), nu=tree_from_numpy(o["nu"], dev),
                         count=int(o["count"]))
            for g, o in opt_state.items()}
     return TrainState(params=tensors, opt_state=opt, it=int(it),
                       generator=torch.Generator(device=dev).manual_seed(seed))
+
+
+def state_to_numpy(state):
+    """The port's TrainState -> (params, opt_state, it) on the host, the
+    arguments of state_from_numpy: params as numpy, opt_state[group] =
+    {"mu": tree, "nu": tree, "count": int}. The generator does not convert."""
+    opt = {g: {"mu": tree_to_numpy(o.mu), "nu": tree_to_numpy(o.nu), "count": int(o.count)}
+           for g, o in state.opt_state.items()}
+    return params_to_numpy(state.params), opt, int(state.it)

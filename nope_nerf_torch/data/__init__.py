@@ -1,2 +1,2 @@
-from .loader import SceneData, batch_for_frame, epoch_order
+from .loader import SceneData, batch_for_frame, epoch_order, frame_iterator
 from .synthetic import make_driving_scene, make_synthetic_scene

@@ -10,7 +10,7 @@ draws from numpy on the host, as the reference's `random.randint`
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +81,14 @@ def batch_for_frame(scene: SceneData, idx: int, ref_idx: Optional[int] = None,
         "ref_pose_gt": scene.c2ws_gt[ref_idx],
         "ref_idx": int(ref_idx),
     }
+
+
+def frame_iterator(scene: SceneData, shuffle: bool = True, random_ref: int = 1,
+                   seed: int = 0) -> Iterator[Dict[str, object]]:
+    """One epoch of per-frame batches (the reference's DataLoader with
+    batch_size=1), in epoch_order's order with its reference picks."""
+    for idx, ref in zip(*epoch_order(scene.n_frames, shuffle, random_ref, seed)):
+        yield batch_for_frame(scene, int(idx), ref_idx=int(ref))
 
 
 def epoch_order(n_frames: int, shuffle: bool = True, random_ref: int = 1,

@@ -46,6 +46,14 @@ def pixel_grid(resolution: Tuple[int, int],
     return _pixel_grid_np(tuple(resolution), tuple(image_range), np.dtype(dtype).name)
 
 
+@functools.lru_cache(maxsize=8)
+def pixel_grid_on(resolution: Tuple[int, int], device: torch.device,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """pixel_grid's scaled pixels (H*W, 2) as a tensor on `device`, uploaded
+    once per resolution: a constant, so callers never write to it."""
+    return torch.from_numpy(pixel_grid(tuple(resolution))[1]).to(device=device, dtype=dtype)
+
+
 def rigid_inverse(T: torch.Tensor) -> torch.Tensor:
     """Closed-form inverse of a rigid 4x4 [R|t; 0 0 0 1]: [R^T | -R^T t]."""
     R = T[..., :3, :3]

@@ -198,16 +198,15 @@ def compute_losses(cfg: LossConfig,
                    d1: Optional[torch.Tensor] = None,
                    rt_12: Optional[torch.Tensor] = None,
                    rt_12_gt: Optional[torch.Tensor] = None,
-                   precomputed: Optional[Dict[str, torch.Tensor]] = None,
-                   chamfer_plain: bool = False) -> Dict[str, torch.Tensor]:
+                   precomputed: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Dict[str, torch.Tensor]:
     """Weighted total + per-term dict (Loss.forward, losses.py:164-228).
 
     `weights` are the epoch's annealed scalars; which terms exist is static
     through LossConfig. `precomputed` carries already-reduced rgb/depth/l2
     scalars from the trainer and, on the fused route, `ray_total`: the rgb +
     depth term already weighted by the kernel that also produced its
-    gradients (loss_rgb / loss_depth are then metrics without a gradient).
-    `chamfer_plain` is for checks only: see ops.chamfer.chamfer_loss."""
+    gradients (loss_rgb / loss_depth are then metrics without a gradient)."""
     given = (rgb_pred, pc_x, rgb_pc1, rt_12, t_list, d1_proj, *(precomputed or {}).values())
     device = next(t.device for t in given if t is not None)
     zero = torch.zeros((), dtype=torch.float32, device=device)
@@ -228,7 +227,7 @@ def compute_losses(cfg: LossConfig,
             l_depth = zero
 
     l_dist_1st, l_dist_2nd = weight_dist_loss(t_list) if cfg.use_dist else (zero, zero)
-    l_pc = chamfer_loss(pc_x, pc_y, force_plain=chamfer_plain) if cfg.use_pc else zero
+    l_pc = chamfer_loss(pc_x, pc_y) if cfg.use_pc else zero
     l_rgb_s = (rgb_s_loss(rgb_pc1, rgb_pc1_proj, valid_points, cfg.with_ssim)
                if cfg.use_rgb_s else zero)
     l_dc = (depth_consistency_loss(d1_proj, d2, d2_proj, d1)

@@ -110,9 +110,23 @@ def init_nerf_params(cfg: NerfConfig, generator: torch.Generator,
     return {k: v.to(dev) for k, v in params.items()}
 
 
+def reset_linear_params(generator: torch.Generator, params: Params, cfg: NerfConfig) -> Params:
+    """Re-initialize every linear layer on the params' device (the reference's
+    scheduling_mode='reset' at decay start, train.py:347-350: torch's
+    reset_parameters includes the head biases, so the custom density and rgb
+    biases revert to uniform too)."""
+    some = params["density_w"]
+    fresh = init_nerf_params(cfg, generator, device=some.device, dtype=some.dtype)
+    for name, fan_in in (("density_b", cfg.hidden_dim), ("rgb_b", cfg.hidden_dim // 2)):
+        bound = 1.0 / math.sqrt(fan_in)
+        fresh[name] = torch.empty(params[name].shape, dtype=some.dtype).uniform_(
+            -bound, bound, generator=generator).to(some.device)
+    return fresh
+
+
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
-    """Round f32 to the nearest bf16 value (ties to even), kept as f32."""
-    return x.to(torch.bfloat16).to(torch.float32)
+    """Round to the nearest bf16 value (ties to even), kept in x's own dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
 
 
 def _matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

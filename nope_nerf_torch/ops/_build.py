@@ -12,6 +12,7 @@ and have no CUDA toolkit.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,6 +26,31 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
+
+
+_PLAIN_VERSIONS = False
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Within the block every kernel wrapper runs its kernel's plain PyTorch
+    version, whatever device its tensors lie on, and launches nothing. It
+    exists for checks that hold a path through the kernels against the same
+    path through their plain versions. A wrapper reads the switch when it is
+    called, so a backward pass follows the route its forward took, also after
+    the block has ended."""
+    global _PLAIN_VERSIONS
+    previous, _PLAIN_VERSIONS = _PLAIN_VERSIONS, True
+    try:
+        yield
+    finally:
+        _PLAIN_VERSIONS = previous
+
+
+def runs_plain(t) -> bool:
+    """Whether a wrapper given tensor `t` runs its plain version: `t` lies on
+    the CPU, or the call is inside plain_versions()."""
+    return t.device.type == "cpu" or _PLAIN_VERSIONS
 
 
 def find_nvcc() -> str:

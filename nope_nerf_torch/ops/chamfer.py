@@ -26,7 +26,7 @@ from typing import Tuple
 import torch
 
 from ..utils.safemath import safe_norm
-from ._build import CudaLibrary
+from ._build import CudaLibrary, runs_plain
 
 IDX_BITS = 13                    # index field of the packed (d2, idx) int32
 IDX_MASK = (1 << IDX_BITS) - 1
@@ -120,24 +120,21 @@ def nearest_idx_bidirectional(x: torch.Tensor, y: torch.Tensor
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(argmin_y d(x_i, y) (S,), argmin_x d(y_j, x) (D,)) as int64 index
     tensors, without gradient. A CUDA tensor goes through the hand-written
-    kernel (clouds of at most 8,192 points); a CPU tensor through the plain
-    version."""
+    kernel (clouds of at most 8,192 points); a CPU tensor, and any tensor
+    inside `plain_versions()`, through the plain version."""
     _check_clouds(x, y)
-    if x.device.type == "cpu":
+    if runs_plain(x):
         return nearest_idx_bidirectional_plain(x, y)
     if x.device.type != "cuda":
         raise NotImplementedError(f"no Chamfer kernel for device {x.device}")
     return _nearest_idx_cuda(x, y)
 
 
-def chamfer_loss(x: torch.Tensor, y: torch.Tensor, force_plain: bool = False) -> torch.Tensor:
+def chamfer_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """mean_nn(x->y) + mean_nn(y->x), scalar (reference `get_pc_loss`,
     losses.py:116-123, match_method='dense'). safe_norm: exactly coincident
-    pairs would otherwise NaN the pose and distortion gradients.
-    `force_plain` sends the sweep through the plain version on any device; it
-    exists for checks that hold the kernel's route against the plain one."""
-    sweep = nearest_idx_bidirectional_plain if force_plain else nearest_idx_bidirectional
-    idx_xy, idx_yx = sweep(x, y)
+    pairs would otherwise NaN the pose and distortion gradients."""
+    idx_xy, idx_yx = nearest_idx_bidirectional(x, y)
     d_x = safe_norm(x - y[idx_xy], dim=-1)
     d_y = safe_norm(y - x[idx_yx], dim=-1)
     return d_x.mean() + d_y.mean()

@@ -1,13 +1,17 @@
 """Fused ray render: rays + z -> encode -> MLP -> heads -> composite, one kernel.
 
 Port of nope_nerf_tpu/ops/pallas_render.py's forward (`_render_fwd_kernel`,
-K3), of its train-step program (`_render_train_kernel`, K1: render, rgb and
+K3), of its backward (`_render_bwd_kernel`, K4: the VJP of render_rays_fused),
+of its train-step program (`_render_train_kernel`, K1: render, rgb and
 depth losses and every gradient in one launch) and of pallas_mlp.py's
 `pack_weights` / `_unpack_grads`. On a CUDA tensor `render_rays_fused` and
 `render_ray_loss_fused` launch the hand-written Hopper kernels in
-`nope_nerf_torch/csrc/render_fwd.cu` and `csrc/render_train.cu`, or raise; on
-a CPU tensor they run `render_rays_fused_plain` and
-`render_ray_loss_fused_plain`, the same arithmetic in plain PyTorch:
+`nope_nerf_torch/csrc/render_fwd.cu`, `csrc/render_bwd.cu` and
+`csrc/render_train.cu`, or raise; on a CPU tensor they run
+`render_rays_fused_plain`, `render_rays_fused_bwd_plain` and
+`render_ray_loss_fused_plain`, the same arithmetic in plain PyTorch (inside
+`with plain_versions():`, re-exported here, they do so on any device: a
+switch for checks that hold the kernels' route against the plain one):
 - bf16 matmul operands (whatever `compute_dtype` says, as the TPU kernel)
   with f32 accumulation; activations rounded to bf16 after each ReLU, `feat`
   rounded without one; heads f32;
@@ -33,7 +37,7 @@ import numpy as np
 import torch
 
 from ..models.nerf import NerfConfig, bf16_round, softplus
-from ._build import CudaLibrary
+from ._build import CudaLibrary, plain_versions, runs_plain  # plain_versions: re-exported
 
 EPSILON = 1e-6          # compositing epsilon, reference model/rendering.py:9
 RAY_DIM = 9             # [origin | ray_vec | mlp_dir]
@@ -325,28 +329,6 @@ def _render_cuda(W, B, rays, z, cfg: NerfConfig, dist_alpha: bool, want_aux: boo
     return rgb, dist, weights, alpha
 
 
-def render_rays_fused(params, rays: torch.Tensor, z: torch.Tensor, cfg: NerfConfig,
-                      dist_alpha: bool = False, want_aux: bool = True):
-    """(params, ray table (N,9), z (N,S)) -> (rgb (N,3), dist (N,),
-    weights (N,S), alpha (N,S)); weights/alpha are None when not want_aux.
-
-    `dist_alpha` is the RENDERER's flag (delta-scaled opacity); the MLP head's
-    is cfg.dist_alpha. A CUDA tensor goes through the hand-written kernel
-    (forward only: no autograd graph is built); a CPU tensor through
-    render_rays_fused_plain."""
-    _check_inputs(rays, z)
-    if rays.device.type == "cpu":
-        return render_rays_fused_plain(params, rays, z, cfg, dist_alpha, want_aux)
-    if rays.device.type != "cuda":
-        raise NotImplementedError(f"no render kernel for device {rays.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (rays, z, *params.values())):
-        raise NotImplementedError("gradients through the CUDA render kernel come with the "
-                                  "port of its backward kernel (K4)")
-    W, B = pack_weights(params, cfg)
-    with torch.no_grad():
-        return _render_cuda(W, B, rays, z, cfg, dist_alpha, want_aux)
-
-
 # ---------------------------------------------------------------------------
 # Train-fused path: one launch per step = loss values + every gradient
 # (pallas_render.py::render_ray_loss_fused, kernel K1).
@@ -419,27 +401,25 @@ def _enc_deriv_to_coords(dpe, x, levels: int):
     return dpe[:, :3] + (d_arg * scale[None, :, None]).sum(dim=1)
 
 
-def _plain_train_block(Wf, B, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool,
-                       rgb_p: int, white_bg: bool):
-    """K1's arithmetic on one block of rays, step by step: forward, loss sums,
-    analytic cotangents and the explicit backward (not autograd: autograd
-    would not round the cotangents to bf16 before each product). Returns
-    (sums (3,), dWs [14] stored (in, out), dBs [12], drays (n,9), dz (n,S),
-    dtgt (n,7))."""
+def _plain_forward(Wf, B, rays, z, cfg: NerfConfig, dist_alpha: bool,
+                   dtype: torch.dtype = torch.float32) -> Dict[str, object]:
+    """The forward of one block of f32 rays with everything its backward reads
+    (pallas_render.py:146-218): encodings, activations, heads, alpha and the
+    composite, before any white background. The sample points and their
+    bf16-rounded encodings are always formed in f32; with `dtype` float64
+    (and Wf in float64) everything after them is summed in f64."""
     n, S = z.shape
-    r = bf16_round
-    o, v, d = rays[:, 0:3], rays[:, 3:6], rays[:, 6:9]
-    pts = (o[:, None, :] + v[:, None, :] * z[..., None]).reshape(-1, 3)
-    pe, de = _encode_points(rays, z)
+    o, v = rays[:, 0:3], rays[:, 3:6]
+    pts = (o[:, None, :] + v[:, None, :] * z[..., None]).reshape(-1, 3).to(dtype)
+    pe, de = (t.to(dtype) for t in _encode_points(rays, z))
+    z = z.to(dtype)
     rgb_raw, sig_raw, acts = _mlp_forward(Wf, B, pe, de, n, S)
-    x0, x1, x2, x3, x4, x5, x6, x7, feat, h = acts
-
-    # ---- heads, alpha, composite (pallas_render.py:146-218) -----------------
     raw = sig_raw.reshape(n, S)
     sigma = softplus(raw) if cfg.occ_activation == "softplus" else torch.relu(raw)
     occ = sigma if cfg.dist_alpha else 1.0 - torch.exp(-sigma)
     last = torch.zeros(S, dtype=torch.bool, device=z.device)
     last[-1] = True
+    deltas = None
     if dist_alpha:
         deltas = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)], dim=1)
         alpha = torch.where(last, torch.ones_like(occ), 1.0 - torch.exp(-occ * deltas))
@@ -447,31 +427,41 @@ def _plain_train_block(Wf, B, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool,
         alpha = occ
     trans = torch.exp(prefix_exclusive(torch.log(1.0 - alpha + EPSILON)))
     weights = alpha * trans
-    dist = (weights * z).sum(dim=1)
     rgb3 = torch.sigmoid(rgb_raw).reshape(n, S, 3)
-    ray_rgb = (weights[..., None] * rgb3).sum(dim=1)
-    if white_bg:
-        ray_rgb = ray_rgb + (1.0 - weights.sum(dim=1, keepdim=True))
+    return {"pts": pts, "pe": pe, "de": de, "acts": acts, "raw": raw, "occ": occ, "last": last,
+            "deltas": deltas, "alpha": alpha, "trans": trans, "weights": weights, "rgb3": rgb3,
+            "dist": (weights * z).sum(dim=1),
+            "ray_rgb": (weights[..., None] * rgb3).sum(dim=1)}
 
-    # ---- loss values and analytic cotangents (:666-695) ---------------------
-    diff = ray_rgb - tgt[:, 0:3]
-    m, w_rgb, w_depth = tgt[:, TGT_MASK], tgt[:, TGT_WRGB], tgt[:, TGT_WDEPTH]
-    ddiff = dist - tgt[:, TGT_DEPTH]
-    row_rgb = (diff.abs() if rgb_p == 1 else diff * diff).sum(dim=1)
-    row_depth = m * ddiff.abs()
-    sums = torch.stack([row_rgb.sum(), row_depth.sum(), (diff * diff).sum()])
-    g_rgb_ray = w_rgb[:, None] * (torch.sign(diff) if rgb_p == 1 else 2.0 * diff)
-    g_dist = w_depth * m * torch.sign(ddiff)
-    zero = torch.zeros_like(g_dist)
-    dtgt = torch.stack([-g_rgb_ray[:, 0], -g_rgb_ray[:, 1], -g_rgb_ray[:, 2], -g_dist, zero,
-                        row_rgb, row_depth], dim=1)
+
+def _plain_backward_tail(Wf, rays, z, fwd: Dict[str, object], cfg: NerfConfig, dist_alpha: bool,
+                         g_rgb_ray, g_dist, g_w_in, g_a_in, white_bg: bool):
+    """Composite -> heads -> MLP -> encoding backward of one block of rays
+    (pallas_render.py::_backward_tail), step by step (not autograd: autograd
+    would not round the cotangents to bf16 before each product). `fwd` is
+    _plain_forward's; g_rgb_ray (n,3) and g_dist (n,) are the cotangents of
+    the rays' rgb and dist, g_w_in / g_a_in (n,S) or None those of the
+    per-sample weights and alpha; white_bg folds the gradient of the
+    1 - sum(weights) term in. Returns (dWs [14] stored (in, out), dBs [12],
+    drays (n,9), dz (n,S))."""
+    n, S = z.shape
+    r = bf16_round
+    v, d = rays[:, 3:6], rays[:, 6:9]
+    pts, pe, de = fwd["pts"], fwd["pe"], fwd["de"]
+    x0, x1, x2, x3, x4, x5, x6, x7, feat, h = fwd["acts"]
+    raw, occ, last, deltas = fwd["raw"], fwd["occ"], fwd["last"], fwd["deltas"]
+    alpha, trans, weights, rgb3 = fwd["alpha"], fwd["trans"], fwd["weights"], fwd["rgb3"]
 
     # ---- composite backward (:435-472) --------------------------------------
     g_w = (g_rgb_ray[:, None, :] * rgb3).sum(dim=2) + g_dist[:, None] * z
     if white_bg:
         g_w = g_w - g_rgb_ray.sum(dim=1, keepdim=True)
+    if g_w_in is not None:
+        g_w = g_w + g_w_in
     g_logs = suffix_exclusive(g_w * weights)
     g_alpha = g_w * trans - g_logs / (1.0 - alpha + EPSILON)
+    if g_a_in is not None:
+        g_alpha = g_alpha + g_a_in
     g_z = g_dist[:, None] * weights
     if dist_alpha:
         E = torch.exp(-occ * deltas)
@@ -521,6 +511,33 @@ def _plain_train_block(Wf, B, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool,
     g_z = g_z + (dpts * v[:, None, :]).sum(dim=2)
     drays = torch.cat([dpts.sum(dim=1), (dpts * z[..., None]).sum(dim=1),
                        _enc_deriv_to_coords(dde, d, 4)], dim=1)
+    return dW, dB, drays, g_z
+
+
+def _plain_train_block(Wf, B, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool,
+                       rgb_p: int, white_bg: bool):
+    """K1's arithmetic on one block of rays, step by step: forward, loss sums,
+    analytic cotangents and the explicit backward. Returns (sums (3,), dWs
+    [14] stored (in, out), dBs [12], drays (n,9), dz (n,S), dtgt (n,7))."""
+    fwd = _plain_forward(Wf, B, rays, z, cfg, dist_alpha)
+    dist, ray_rgb = fwd["dist"], fwd["ray_rgb"]
+    if white_bg:
+        ray_rgb = ray_rgb + (1.0 - fwd["weights"].sum(dim=1, keepdim=True))
+
+    # ---- loss values and analytic cotangents (:666-695) ---------------------
+    diff = ray_rgb - tgt[:, 0:3]
+    m, w_rgb, w_depth = tgt[:, TGT_MASK], tgt[:, TGT_WRGB], tgt[:, TGT_WDEPTH]
+    ddiff = dist - tgt[:, TGT_DEPTH]
+    row_rgb = (diff.abs() if rgb_p == 1 else diff * diff).sum(dim=1)
+    row_depth = m * ddiff.abs()
+    sums = torch.stack([row_rgb.sum(), row_depth.sum(), (diff * diff).sum()])
+    g_rgb_ray = w_rgb[:, None] * (torch.sign(diff) if rgb_p == 1 else 2.0 * diff)
+    g_dist = w_depth * m * torch.sign(ddiff)
+    zero = torch.zeros_like(g_dist)
+    dtgt = torch.stack([-g_rgb_ray[:, 0], -g_rgb_ray[:, 1], -g_rgb_ray[:, 2], -g_dist, zero,
+                        row_rgb, row_depth], dim=1)
+    dW, dB, drays, g_z = _plain_backward_tail(Wf, rays, z, fwd, cfg, dist_alpha, g_rgb_ray,
+                                              g_dist, None, None, white_bg)
     return sums, dW, dB, drays, g_z, dtgt
 
 
@@ -531,6 +548,14 @@ def _check_train_inputs(rays, z, tgt) -> None:
     if tgt.ndim != 2 or tuple(tgt.shape) != (rays.shape[0], TGT_DIM):
         raise ValueError(f"tgt must be (N, {TGT_DIM}) with N={rays.shape[0]}, "
                          f"got {tuple(tgt.shape)}")
+
+
+def _sum_blocks(per_block: List[List[torch.Tensor]]) -> List[torch.Tensor]:
+    """Sum each entry of the blocks' lists, in block order."""
+    out = list(per_block[0])
+    for block in per_block[1:]:
+        out = [a + b for a, b in zip(out, block)]
+    return out
 
 
 def _train_plain(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p: int,
@@ -545,13 +570,59 @@ def _train_plain(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p:
                                 tgt[i:i + PLAIN_TRAIN_BLOCK_RAYS], cfg, dist_alpha, rgb_p,
                                 white_bg)
              for i in range(0, rays.shape[0], PLAIN_TRAIN_BLOCK_RAYS)]
-    sums, dW, dB = parts[0][0], list(parts[0][1]), list(parts[0][2])
+    sums = parts[0][0]
     for part in parts[1:]:
         sums = sums + part[0]
-        dW = [a + b for a, b in zip(dW, part[1])]
-        dB = [a + b for a, b in zip(dB, part[2])]
+    dW, dB = _sum_blocks([part[1] for part in parts]), _sum_blocks([part[2] for part in parts])
     drays, dz, dtgt = (torch.cat([part[k] for part in parts], dim=0) for k in (3, 4, 5))
     return sums, dW, dB, drays, dz, dtgt
+
+
+def _check_backward_shapes(kernel: str, S: int, D: int) -> None:
+    if S % PTS_PER_PASS or S > TRAIN_MAX_SAMPLES:
+        raise NotImplementedError(
+            f"the CUDA {kernel} kernel takes S % {PTS_PER_PASS} == 0 and S <= "
+            f"{TRAIN_MAX_SAMPLES}, got S={S}")
+    if D not in (128, 256):
+        raise NotImplementedError(f"the CUDA {kernel} kernel is built for hidden_dim 128 "
+                                  f"and 256, got {D}")
+
+
+def _check_backward_tensors(named, dev: torch.device) -> None:
+    for name, t in named:
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
+        if t.device != dev:
+            raise ValueError(f"{name} must be on the rays' device")
+
+
+def _pack_for_backward(params, cfg: NerfConfig, dev: torch.device):
+    """ctypes pointer arrays of both weight layouts and the biases (and the
+    tensors, which must outlive the launch)."""
+    with torch.no_grad():
+        W, Wt, B = pack_weights_both(params, cfg)
+    for t in W + Wt + B:
+        if t.device != dev:
+            raise ValueError("params must be on the rays' device")
+    return ((ctypes.c_void_p * 14)(*[w.data_ptr() for w in W]),
+            (ctypes.c_void_p * 14)(*[w.data_ptr() for w in Wt]),
+            (ctypes.c_void_p * 12)(*[b.data_ptr() for b in B]), (W, Wt, B))
+
+
+def _backward_ctas(n: int, dev: torch.device) -> int:
+    """One persistent CTA per SM, each with its own stash and partial sums."""
+    return min(n, torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+def _grad_blocks(grads: torch.Tensor, offsets, D: int):
+    """The 14 dW (in, out) and 12 dB views of a kernel's gradient buffer."""
+    H = D // 2
+    w_shapes = [(PE_DIM, D), (D, D), (D, D), (D, D), (D, D), (PE_DIM, D), (D, D), (D, D),
+                (D, D), (D, 1), (D, D), (D, H), (DE_DIM, H), (H, 3)]
+    b_shapes = [(D,)] * 8 + [(1,), (D,), (H,), (3,)]
+    blocks = [grads[off:off + int(np.prod(shape))].view(shape)
+              for off, shape in zip(offsets, w_shapes + b_shapes)]
+    return blocks[:14], blocks[14:26]
 
 
 def _train_cuda(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p: int,
@@ -559,32 +630,17 @@ def _train_cuda(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p: 
     """(sums, dWs, dBs, drays, dz, dtgt) by one launch of the train kernel."""
     n, S = z.shape
     D = cfg.hidden_dim
-    if S % PTS_PER_PASS or S > TRAIN_MAX_SAMPLES:
-        raise NotImplementedError(
-            f"the CUDA train kernel takes S % {PTS_PER_PASS} == 0 and S <= "
-            f"{TRAIN_MAX_SAMPLES}, got S={S}")
-    if D not in (128, 256):
-        raise NotImplementedError(f"the CUDA train kernel is built for hidden_dim 128 "
-                                  f"and 256, got {D}")
+    _check_backward_shapes("train", S, D)
     dev = rays.device
     rays, z, tgt = (t.detach() for t in (rays, z, tgt))
-    for name, t in (("rays", rays), ("z", z), ("tgt", tgt)):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32")
-        if t.device != dev:
-            raise ValueError("rays, z and tgt must be on the same device")
-    with torch.no_grad():
-        W, Wt, B = pack_weights_both(params, cfg)
-    for t in W + Wt + B:
-        if t.device != dev:
-            raise ValueError("params must be on the rays' device")
+    _check_backward_tensors((("rays", rays), ("z", z), ("tgt", tgt)), dev)
+    wptrs, wtptrs, bptrs, _keep = _pack_for_backward(params, cfg, dev)
     lib = RENDER_TRAIN.lib()
     offsets = (ctypes.c_int * 27)()
     total = lib.nerf_train_grad_layout(D, offsets)
     if total <= 0:
         raise RuntimeError("the train kernel reports no gradient layout")
-    # one persistent CTA per SM, each with its own stash and partial sums
-    n_ctas = min(n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_ctas = _backward_ctas(n, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     stash = torch.empty((n_ctas, S, STASH_HALF_DIMS * D // 2), dtype=torch.bfloat16, device=dev)
     partials = torch.empty((n_ctas, total), **f32)
@@ -592,9 +648,6 @@ def _train_cuda(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p: 
     drays = torch.empty((n, RAY_DIM), **f32)
     dz = torch.empty((n, S), **f32)
     dtgt = torch.empty((n, TGT_DIM), **f32)
-    wptrs = (ctypes.c_void_p * 14)(*[w.data_ptr() for w in W])
-    wtptrs = (ctypes.c_void_p * 14)(*[w.data_ptr() for w in Wt])
-    bptrs = (ctypes.c_void_p * 12)(*[b.data_ptr() for b in B])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nerf_render_train(
@@ -607,14 +660,9 @@ def _train_cuda(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p: 
         raise RuntimeError("train kernel launch failed: "
                            + lib.nerf_error_string(err).decode())
     RENDER_TRAIN.launches += 1
-    H = D // 2
-    w_shapes = [(PE_DIM, D), (D, D), (D, D), (D, D), (D, D), (PE_DIM, D), (D, D), (D, D),
-                (D, D), (D, 1), (D, D), (D, H), (DE_DIM, H), (H, 3)]
-    b_shapes = [(D,)] * 8 + [(1,), (D,), (H,), (3,)]
-    blocks = [grads[off:off + int(np.prod(shape))].view(shape)
-              for off, shape in zip(offsets, w_shapes + b_shapes)]
+    dWs, dBs = _grad_blocks(grads, offsets, D)
     sums = grads[offsets[26]:offsets[26] + 3]
-    return sums, blocks[:14], blocks[14:26], drays, dz, dtgt
+    return sums, dWs, dBs, drays, dz, dtgt
 
 
 class _RayLossFused(torch.autograd.Function):
@@ -622,10 +670,9 @@ class _RayLossFused(torch.autograd.Function):
     scales them by the cotangent of `total` (pallas_render.py:1017-1031)."""
 
     @staticmethod
-    def forward(ctx, rays, z, tgt, cfg, dist_alpha, rgb_p, white_bg, force_plain, names,
-                *tensors):
+    def forward(ctx, rays, z, tgt, cfg, dist_alpha, rgb_p, white_bg, names, *tensors):
         params = dict(zip(names, tensors))
-        run = _train_plain if (rays.device.type == "cpu" or force_plain) else _train_cuda
+        run = _train_plain if runs_plain(rays) else _train_cuda
         sums, dWs, dBs, drays, dz, dtgt = run(params, rays, z, tgt, cfg, dist_alpha, rgb_p,
                                               white_bg)
         grads = unpack_grads(dWs, dBs, cfg)
@@ -639,12 +686,11 @@ class _RayLossFused(torch.autograd.Function):
     def backward(ctx, g_total, _g_sums):
         drays, dz, dtgt, *grads = ctx.saved_tensors
         return (drays * g_total, dz * g_total, dtgt * g_total, None, None, None, None, None,
-                None, *[g * g_total for g in grads])
+                *[g * g_total for g in grads])
 
 
 def render_ray_loss_fused(params, rays: torch.Tensor, z: torch.Tensor, tgt: torch.Tensor,
-                          cfg: NerfConfig, dist_alpha: bool, rgb_p: int, white_bg: bool,
-                          force_plain: bool = False):
+                          cfg: NerfConfig, dist_alpha: bool, rgb_p: int, white_bg: bool):
     """(params, ray table (N,9), z (N,S), target table (N,7)) -> (total, sums (3,)):
     total = w_rgb' sum|rgb-gt|^p + w_depth' sum m|dist-dgt| (the weights ride
     in the target table, TGT_*) and sums are the unweighted
@@ -652,9 +698,8 @@ def render_ray_loss_fused(params, rays: torch.Tensor, z: torch.Tensor, tgt: torc
 
     Gradients flow to the nerf params, the ray table, z and the target table.
     On a CUDA tensor the hand-written train kernel computes values and
-    gradients in one launch; on a CPU tensor render_ray_loss_fused_plain's
-    arithmetic does. `force_plain` sends a CUDA tensor through the plain
-    version too: it exists for checks that hold the kernel against it."""
+    gradients in one launch; on a CPU tensor, and on any tensor inside
+    `plain_versions()`, render_ray_loss_fused_plain's arithmetic does."""
     _check_train_inputs(rays, z, tgt)
     if rays.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no train kernel for device {rays.device}")
@@ -662,7 +707,7 @@ def render_ray_loss_fused(params, rays: torch.Tensor, z: torch.Tensor, tgt: torc
         raise ValueError("rgb_p must be 1 (L1) or 2 (L2)")
     names = tuple(sorted(params))
     return _RayLossFused.apply(rays, z, tgt, cfg, bool(dist_alpha), int(rgb_p), bool(white_bg),
-                               bool(force_plain), names, *[params[k] for k in names])
+                               names, *[params[k] for k in names])
 
 
 def render_ray_loss_fused_plain(params, rays: torch.Tensor, z: torch.Tensor,
@@ -678,3 +723,222 @@ def render_ray_loss_fused_plain(params, rays: torch.Tensor, z: torch.Tensor,
         total = tgt[0, TGT_WRGB] * sums[0] + tgt[0, TGT_WDEPTH] * sums[1]
     return total, sums, {"params": unpack_grads(dWs, dBs, cfg), "rays": drays, "z": dz,
                          "tgt": dtgt}
+
+
+# ---------------------------------------------------------------------------
+# The render's backward (pallas_render.py::_render_fused_bwd, kernel K4) and
+# the differentiable render_rays_fused.
+# ---------------------------------------------------------------------------
+
+def _setup_bwd(lib: ctypes.CDLL) -> None:
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.nerf_bwd_grad_layout.argtypes = [i, p]
+    lib.nerf_bwd_grad_layout.restype = ctypes.c_int
+    lib.nerf_render_bwd.argtypes = [p] * 14 + [i] * 8 + [p]
+    lib.nerf_render_bwd.restype = ctypes.c_int
+    lib.nerf_error_string.argtypes = [ctypes.c_int]
+    lib.nerf_error_string.restype = ctypes.c_char_p
+
+
+RENDER_BWD = CudaLibrary("render_bwd.cu", _setup_bwd)
+
+
+class _FrozenVariantCount:
+    """Of RENDER_BWD.launches, those of the frozen-network variant (no dW/dB)."""
+    launches = 0
+
+
+RENDER_BWD_FROZEN = _FrozenVariantCount()
+
+
+def _check_bwd_inputs(rays, z, g_rgb, g_dist, g_w, g_a) -> None:
+    _check_inputs(rays, z)
+    n, S = z.shape
+    if n == 0:
+        raise ValueError("the render backward needs at least one ray")
+    if tuple(g_rgb.shape) != (n, 3) or tuple(g_dist.shape) != (n,):
+        raise ValueError(f"g_rgb must be ({n}, 3) and g_dist ({n},), got "
+                         f"{tuple(g_rgb.shape)} and {tuple(g_dist.shape)}")
+    for name, g in (("g_w", g_w), ("g_a", g_a)):
+        if g is not None and tuple(g.shape) != (n, S):
+            raise ValueError(f"{name} must be ({n}, {S}) or None, got {tuple(g.shape)}")
+
+
+def _bwd_plain(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig, dist_alpha: bool,
+               dtype: torch.dtype = torch.float32):
+    """(dWs, dBs, drays, dz) by the plain version, in blocks of rays summed in
+    order: two runs give the same bits. `dtype` float64 sums every product,
+    scan and reduction in f64 (same bf16 operands, same rounding points)."""
+    W, B = pack_weights(params, cfg)
+    Wf = [w.to(dtype) for w in W]
+    rays, z = (t.detach().to(torch.float32) for t in (rays, z))
+    g_rgb, g_dist = (t.detach().to(dtype) for t in (g_rgb, g_dist))
+    g_w, g_a = (None if g is None else g.detach().to(dtype) for g in (g_w, g_a))
+    parts = []
+    for i in range(0, rays.shape[0], PLAIN_TRAIN_BLOCK_RAYS):
+        sl = slice(i, i + PLAIN_TRAIN_BLOCK_RAYS)
+        fwd = _plain_forward(Wf, B, rays[sl], z[sl], cfg, dist_alpha, dtype)
+        # a white background is applied outside this function, so its gradient
+        # arrives through g_w (pallas_render.py:592-593)
+        parts.append(_plain_backward_tail(
+            Wf, rays[sl].to(dtype), z[sl].to(dtype), fwd, cfg, dist_alpha, g_rgb[sl], g_dist[sl],
+            None if g_w is None else g_w[sl], None if g_a is None else g_a[sl], False))
+    dW, dB = _sum_blocks([part[0] for part in parts]), _sum_blocks([part[1] for part in parts])
+    drays, dz = (torch.cat([part[k] for part in parts], dim=0) for k in (2, 3))
+    return dW, dB, drays, dz
+
+
+def render_rays_fused_bwd_plain(params, rays: torch.Tensor, z: torch.Tensor,
+                                g_rgb: torch.Tensor, g_dist: torch.Tensor,
+                                g_w: Optional[torch.Tensor], g_a: Optional[torch.Tensor],
+                                cfg: NerfConfig, dist_alpha: bool = False,
+                                dtype: torch.dtype = torch.float32):
+    """Plain PyTorch version of the render-backward kernel, on any device: the
+    VJP of render_rays_fused at cotangents g_rgb (N,3), g_dist (N,), g_w and
+    g_a (N,S) or None (zero). It recomputes the forward and returns
+    (dWs [14] stored (in, out), dBs [12], drays (N,9), dz (N,S)); unpack_grads
+    turns the first two into the nerf params' layout. `dtype` float64 gives
+    the same function summed in f64 (same bf16 operands and rounding points,
+    gradients returned as f64): the yardstick for how far the order of f32
+    additions moves the kernel and the f32 plain version."""
+    _check_bwd_inputs(rays, z, g_rgb, g_dist, g_w, g_a)
+    with torch.no_grad():
+        return _bwd_plain(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg, dist_alpha, dtype)
+
+
+def _render_bwd_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig,
+                     dist_alpha: bool, want_param_grads: bool = True):
+    """(dWs, dBs, drays, dz) by one launch of the render-backward kernel. With
+    want_param_grads=False the kernel's frozen-network variant runs: it skips
+    the dW/dB products and their buffers, and dWs, dBs are None."""
+    n, S = z.shape
+    D = cfg.hidden_dim
+    _check_backward_shapes("render-backward", S, D)
+    dev = rays.device
+    rays, z, g_rgb, g_dist = (t.detach() for t in (rays, z, g_rgb, g_dist))
+    g_w, g_a = (None if g is None else g.detach() for g in (g_w, g_a))
+    named = [("rays", rays), ("z", z), ("g_rgb", g_rgb), ("g_dist", g_dist)]
+    named += [(name, g) for name, g in (("g_w", g_w), ("g_a", g_a)) if g is not None]
+    _check_backward_tensors(named, dev)
+    wptrs, wtptrs, bptrs, _keep = _pack_for_backward(params, cfg, dev)
+    lib = RENDER_BWD.lib()
+    offsets = (ctypes.c_int * 26)()
+    total = lib.nerf_bwd_grad_layout(D, offsets)
+    if total <= 0:
+        raise RuntimeError("the render-backward kernel reports no gradient layout")
+    n_ctas = _backward_ctas(n, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    stash = torch.empty((n_ctas, S, STASH_HALF_DIMS * D // 2), dtype=torch.bfloat16, device=dev)
+    partials = grads = None
+    if want_param_grads:
+        partials = torch.empty((n_ctas, total), **f32)
+        grads = torch.empty((total,), **f32)
+    drays = torch.empty((n, RAY_DIM), **f32)
+    dz = torch.empty((n, S), **f32)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.nerf_render_bwd(
+            rays.data_ptr(), z.data_ptr(), g_rgb.data_ptr(), g_dist.data_ptr(), ptr(g_w),
+            ptr(g_a), wptrs, wtptrs, bptrs, stash.data_ptr(), ptr(partials), ptr(grads),
+            drays.data_ptr(), dz.data_ptr(), n, S, D, n_ctas,
+            int(cfg.occ_activation == "softplus"), int(cfg.dist_alpha), int(dist_alpha),
+            total, stream)
+    if err != 0:
+        raise RuntimeError("render-backward kernel launch failed: "
+                           + lib.nerf_error_string(err).decode())
+    RENDER_BWD.launches += 1
+    if not want_param_grads:
+        RENDER_BWD_FROZEN.launches += 1
+        return None, None, drays, dz
+    dWs, dBs = _grad_blocks(grads, offsets, D)
+    return dWs, dBs, drays, dz
+
+
+def _render_forward(params, rays, z, cfg: NerfConfig, dist_alpha: bool, want_aux: bool,
+                    plain: bool):
+    """The forward by its route: the plain version when `plain`, else the
+    kernel. No autograd graph."""
+    with torch.no_grad():
+        if plain:
+            return render_rays_fused_plain(params, rays, z, cfg, dist_alpha, want_aux)
+        W, B = pack_weights(params, cfg)
+        return _render_cuda(W, B, rays.detach(), z.detach(), cfg, dist_alpha, want_aux)
+
+
+class _RenderFused(torch.autograd.Function):
+    """render_rays_fused with its hand-written backward: the forward stores
+    only its inputs, the backward recomputes everything
+    (pallas_render.py:845-911). Cotangents of outputs nobody used arrive as
+    None and count as zero."""
+
+    @staticmethod
+    def forward(ctx, rays, z, cfg, dist_alpha, want_aux, names, *tensors):
+        params = dict(zip(names, tensors))
+        plain = runs_plain(rays)      # read here: the backward takes the forward's route
+        if not plain:
+            # the backward kernel's limits are tighter than the forward's: say so now
+            _check_backward_shapes("render-backward", z.shape[1], cfg.hidden_dim)
+        out = _render_forward(params, rays, z, cfg, dist_alpha, want_aux, plain)
+        ctx.save_for_backward(rays, z, *tensors)
+        ctx.static = (cfg, dist_alpha, plain, names)
+        ctx.set_materialize_grads(False)
+        return out if want_aux else out[:2]
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_dist, g_w=None, g_a=None):
+        rays, z, *tensors = ctx.saved_tensors
+        cfg, dist_alpha, plain, names = ctx.static
+        params = dict(zip(names, tensors))
+        n = rays.shape[0]
+        if g_rgb is None:
+            g_rgb = torch.zeros((n, 3), dtype=torch.float32, device=rays.device)
+        if g_dist is None:
+            g_dist = torch.zeros((n,), dtype=torch.float32, device=rays.device)
+        g_rgb, g_dist = g_rgb.to(torch.float32).contiguous(), g_dist.to(torch.float32).contiguous()
+        g_w, g_a = (None if g is None else g.to(torch.float32).contiguous() for g in (g_w, g_a))
+        want_param_grads = any(ctx.needs_input_grad[6:])
+        if plain:
+            dWs, dBs, drays, dz = _bwd_plain(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg,
+                                             dist_alpha)
+        else:
+            dWs, dBs, drays, dz = _render_bwd_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg,
+                                                   dist_alpha, want_param_grads)
+        if want_param_grads:
+            grads = unpack_grads(dWs, dBs, cfg)
+            param_grads = [grads[k].to(params[k].dtype) if need else None
+                           for k, need in zip(names, ctx.needs_input_grad[6:])]
+        else:
+            param_grads = [None] * len(names)
+        return (drays.to(rays.dtype), dz.to(z.dtype), None, None, None, None, *param_grads)
+
+
+def render_rays_fused(params, rays: torch.Tensor, z: torch.Tensor, cfg: NerfConfig,
+                      dist_alpha: bool = False, want_aux: bool = True):
+    """(params, ray table (N,9), z (N,S)) -> (rgb (N,3), dist (N,),
+    weights (N,S), alpha (N,S)); weights/alpha are None when not want_aux.
+
+    `dist_alpha` is the RENDERER's flag (delta-scaled opacity); the MLP head's
+    is cfg.dist_alpha. A CUDA tensor goes through the hand-written kernels
+    (render_fwd forward, render_bwd backward) or raises; a CPU tensor, and any
+    tensor inside `plain_versions()`, through render_rays_fused_plain and
+    render_rays_fused_bwd_plain, the same arithmetic. Gradients flow to the nerf params, the ray table and z; under
+    torch.no_grad(), or when nothing requires a gradient, no graph is built.
+    When no nerf parameter requires a gradient the backward skips the dW/dB
+    products."""
+    _check_inputs(rays, z)
+    if rays.device.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"no render kernel for device {rays.device}")
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (rays, z, *params.values()))):
+        return _render_forward(params, rays, z, cfg, dist_alpha, want_aux, runs_plain(rays))
+    if rays.shape[0] == 0:
+        raise ValueError("the differentiable render needs at least one ray")
+    names = tuple(sorted(params))
+    out = _RenderFused.apply(rays, z, cfg, bool(dist_alpha), bool(want_aux), names,
+                             *[params[k] for k in names])
+    return out if want_aux else (out[0], out[1], None, None)

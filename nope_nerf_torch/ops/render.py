@@ -222,18 +222,22 @@ def render_nope_nerf(nerf_params: Dict[str, torch.Tensor],
     Output keys (rendering.py:160-167, masks instead of gathers): rgb (N,3),
     z_vals (N,S), alpha (N,S), weights (N,S), depth_pred (N,), depth_gt (N,),
     object_mask (N,) bool. need_aux=False skips the (N,S) weights/alpha of
-    the fused route (None in the dict). `noise` pins the stratified jitter."""
+    the fused route (None in the dict). `noise` pins the stratified jitter.
+    Gradients flow to the nerf params and, through the ray table, to the
+    camera and world matrices; on CUDA the backward is the render-backward
+    kernel."""
     if rcfg.n_importance > 0:
-        raise NotImplementedError("hierarchical sampling (n_importance > 0) comes with a "
-                                  "later slice of the port")
+        raise NotImplementedError("hierarchical sampling (n_importance > 0) comes with the "
+                                  "point-query MLP kernels (K5/K6) in a later slice of the port")
     if rcfg.normal_loss and not eval_:
-        raise NotImplementedError("the normal loss comes with a later slice of the port")
+        raise NotImplementedError("the normal loss comes with the point-query MLP kernels "
+                                  "(K5/K6) in a later slice of the port")
     use_fused = fused_eligible(rcfg, ncfg)
     if pixels.device.type != "cpu" and not use_fused:
         raise NotImplementedError(
-            "on CUDA the port renders only through the fused kernel (use_pallas, "
-            "n_importance == 0, outside_steps == 0, num_points % 128 == 0); the "
-            "unfused path runs on the CPU only")
+            "on CUDA the port renders only through the fused kernels (use_pallas, "
+            "n_importance == 0, outside_steps == 0, num_points % 128 == 0); the unfused "
+            "path runs on the CPU only until the point-query MLP kernels (K5/K6) are ported")
     if rcfg.outside_steps:
         raise NotImplementedError("outside_steps > 0 is not supported")
 

@@ -5,6 +5,9 @@ from the root of a checkout, on a machine with one NVIDIA GPU.
    synthetic scene, 1024 rays) and profiles 4 steps of Trainer.run_steps with
    torch.profiler: device time by kernel, host API calls (launches, copies,
    blocking syncs) and device kernels per step, and the device's idle share.
+   Then the same for the unfused train step (depth_loss_type invariant) and
+   for a test-time pose-optimisation step, both through render_fwd and
+   render_bwd.
 2. Times the train kernel at 1024 rays x 128 samples beside two variants of
    its source built on the spot: `no_dw_traffic` keeps the dW products but
    neither reads nor writes the per-CTA partial buffer, `store_only` writes it
@@ -49,32 +52,69 @@ def _device_us(prof, needle: str) -> float:
     return sum(_self_device_us(e) for e in events) / max(sum(e.count for e in events), 1)
 
 
-def profile_step(torch, np, dev) -> None:
-    import chip_smoke
+KERNELS = ("render_train_kernel", "render_bwd_kernel", "render_fwd_kernel",
+           "reduce_partials_kernel", "chamfer_bidir_kernel")
+
+
+def profile_steps(torch, run, steps: int, label: str, table: bool = False) -> None:
+    """run() performs `steps` steps: their wall time unprofiled, then device
+    time by kernel, host API calls and the device's idle share from a profile."""
     from torch.profiler import ProfilerActivity, profile
-    *_, trainer, state, scene, order, refs, _mc = chip_smoke.run_train_path(torch, np, dev)
+    run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trainer.run_steps(state, scene, order[:STEPS], refs[:STEPS], epoch=0, scheduling_start=10000)
+    run()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.run_steps(state, scene, order[:STEPS], refs[:STEPS], epoch=0,
-                          scheduling_start=10000)
+        run()
         torch.cuda.synchronize()
     ka = prof.key_averages()
-    print(ka.table(sort_by="self_cuda_time_total", row_limit=12, max_name_column_width=56))
+    if table:
+        print(ka.table(sort_by="self_cuda_time_total", row_limit=12, max_name_column_width=56))
     # device-side rows only: an operator's row repeats its kernels' time
     device_ms = sum(_self_device_us(e) for e in ka
-                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / STEPS
-    calls = {name: sum(e.count for e in ka if e.key == name) / STEPS
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / steps
+    calls = {name: sum(e.count for e in ka if e.key == name) / steps
              for name in ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaStreamSynchronize")}
-    print(f"train step, unprofiled: {wall_ms:.2f} ms by the host clock; device busy "
+    print(f"{label}, unprofiled: {wall_ms:.2f} ms by the host clock; device busy "
           f"{device_ms:.2f} ms per step (idle share {1 - device_ms / wall_ms:.1%}); per step "
           + ", ".join(f"{v:.0f} {k}" for k, v in calls.items()))
-    print(f"per call: render_train_kernel {_device_us(prof, 'render_train_kernel'):.0f} us, "
-          f"reduce_partials_kernel {_device_us(prof, 'reduce_partials_kernel'):.0f} us, "
-          f"chamfer_bidir_kernel {_device_us(prof, 'chamfer_bidir_kernel'):.0f} us")
+    print("per call: " + ", ".join(f"{k} {_device_us(prof, k):.0f} us" for k in KERNELS
+                                   if any(k in e.key for e in ka)))
+
+
+def profile_paths(torch, np, dev) -> None:
+    """The fused train step, the unfused one (depth_loss_type invariant:
+    render_fwd + render_bwd) and one test-time pose-optimisation step."""
+    import chip_smoke
+    from ..evaluation.pose_opt import pose_opt_step
+    from ..models.nerf import init_nerf_params
+    from ..models.poses import PoseConfig, init_pose_params
+    from ..training.state import init_adam
+    *_, trainer, state, scene, order, refs, mc = chip_smoke.run_train_path(torch, np, dev)
+    profile_steps(torch, lambda: trainer.run_steps(state, scene, order[:STEPS], refs[:STEPS],
+                                                   epoch=0, scheduling_start=10000),
+                  STEPS, "train step", table=True)
+    _, utrainer, ustate, uscene, uorder, urefs = chip_smoke.run_unfused_steps(torch, np, dev)
+    profile_steps(torch, lambda: utrainer.run_steps(ustate, uscene, uorder[:STEPS], urefs[:STEPS],
+                                                    epoch=0, scheduling_start=10000),
+                  STEPS, "unfused train step (depth_loss_type invariant)")
+
+    gen = torch.Generator().manual_seed(5)
+    nerf = init_nerf_params(mc.nerf, gen, device=dev)
+    nerf["density_b"] = nerf["density_b"] + chip_smoke.DENSITY_SHIFT
+    pcfg = PoseConfig(num_cams=1, use_init_c2w=True)
+    pose = init_pose_params(pcfg, scene.c2ws_gt[:1], device=dev)
+    adam = init_adam(pose)
+    h, w = scene.imgs.shape[1:3]
+    ray_idx = torch.randperm(h * w, device=dev)[:chip_smoke.TRAIN_RAYS]
+
+    def pose_steps():
+        for _ in range(STEPS):
+            pose_opt_step(pose, adam, nerf, None, scene.imgs[0], 0, scene.K, ray_idx, 1e-3, pcfg,
+                          None, mc.nerf, mc.render)
+    profile_steps(torch, pose_steps, STEPS, "pose-opt step")
 
 
 def time_variants(torch, dev) -> None:
@@ -83,7 +123,12 @@ def time_variants(torch, dev) -> None:
     from ..models.nerf import NerfConfig, init_nerf_params
     from ..ops import fused_render as F
     from ..ops._build import BUILD_DIR, CSRC_DIR, CudaLibrary, build_all
+    # the products the variants patch live in the shared header: inline it
+    include = '#include "nerf_bwd.cuh"'
     src = (CSRC_DIR / "render_train.cu").read_text()
+    if include not in src:
+        raise RuntimeError("render_train.cu no longer includes nerf_bwd.cuh")
+    src = src.replace(include, (CSRC_DIR / "nerf_bwd.cuh").read_text())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs = {}
     for name, (old, new) in _VARIANTS.items():
@@ -127,7 +172,7 @@ def main() -> int:
     dev = torch.device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    profile_step(torch, np, dev)
+    profile_paths(torch, np, dev)
     time_variants(torch, dev)
     return 0
 

@@ -9,22 +9,24 @@ reprojection), loss assembly, and one Adam update per parameter group.
 The step runs eagerly. With an eligible config the rays go through
 ops/fused_render.render_ray_loss_fused: one launch of the train kernel gives
 the rgb + depth term and every gradient below it, and autograd carries the
-rest (poses, distortions, the pair losses). Other configs take the unfused
-branch through autograd, on the CPU only. The frame-order select of the JAX
-package (a traced where) is a plain `if` here. The epoch loop with its eval
-hooks, Trainer.render_frame and the occupancy grid are not ported yet.
+rest (poses, distortions, the pair losses). Other fused-eligible configs
+render through render_nope_nerf, forward and backward kernels on CUDA; configs
+the fused render cannot serve run through autograd on the CPU only. The
+frame-order select of the JAX package (a traced where) is a plain `if` here.
+Trainer.render_frame renders a whole eval frame; render_geo and the occupancy
+grid are not ported yet.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..geometry.camera import (
     camera_matrix_from_focal,
-    pixel_grid,
+    pixel_grid_on,
     project_to_cam,
     rigid_inverse,
     transform_to_world,
@@ -40,10 +42,7 @@ from .scheduler import annealed_weights, lr_at_epoch, rgb_loss_type_at
 from .state import ModelConfigs, TrainState, adam_step
 
 
-@functools.lru_cache(maxsize=8)
-def _pc_pixels(sh: int, sw: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """The point clouds' fixed pixel grid (sh*sw, 2) on `device`, uploaded once."""
-    return torch.from_numpy(pixel_grid((sh, sw))[1]).to(device=device, dtype=dtype)
+RENDER_CHUNK = 131072   # rays per render launch of an eval frame: one for a 188x621 frame
 
 
 def _sample_rays(generator: torch.Generator, hw: int, n: int,
@@ -72,24 +71,19 @@ def _apply_distortion(depth: torch.Tensor, scale: torch.Tensor, shift: torch.Ten
 
 def _ray_terms(nerf_params, pixels, depth_prior, rgb_gt, prior_mask, camera_mat, world_mat,
                scale_mat, generator, mc: ModelConfigs, rgb_loss_type: str, n_total: int,
-               weights: Dict[str, float], noise: Optional[torch.Tensor] = None,
-               force_plain: bool = False):
+               weights: Dict[str, float], noise: Optional[torch.Tensor] = None):
     """Render the ray batch and reduce its loss terms to scalars:
     (l_rgb, l_depth, l2_mean, ray_total).
 
     On the fused path ray_total is the already-weighted rgb + depth term from
     the one program that also produces every gradient below it, and l_rgb,
-    l_depth, l2_mean are metrics without gradient; otherwise ray_total is None
-    and the caller weights l_rgb and l_depth itself."""
+    l_depth, l2_mean are metrics without gradient; otherwise (e.g.
+    depth_loss_type invariant) the rays go through render_nope_nerf, whose
+    backward on CUDA is the render-backward kernel, ray_total is None and the
+    caller weights l_rgb and l_depth itself."""
     lcfg = mc.loss
     zero = torch.zeros((), dtype=torch.float32, device=pixels.device)
     fused = lcfg.depth_loss_type == "l1" and fused_train_eligible(mc.render, mc.nerf)
-    if not fused and pixels.device.type != "cpu":
-        raise NotImplementedError(
-            "on CUDA the train step runs only through the fused render-loss kernel "
-            "(depth_loss_type l1, use_pallas, n_importance == 0, outside_steps == 0, no "
-            "normal_loss, num_points % 128 == 0); other configs need the render backward "
-            "kernel (K4), which comes with a later slice of the port")
     if fused:
         ray_table, z_val, depth_gt, object_mask = fused_train_prepare(
             pixels, depth_prior, camera_mat, world_mat, scale_mat, generator, mc.render,
@@ -104,8 +98,7 @@ def _ray_terms(nerf_params, pixels, depth_prior, rgb_gt, prior_mask, camera_mat,
         tgt = pack_targets(rgb_gt, depth_gt, mask, w_rgb_s, w_depth_s)
         total, sums = render_ray_loss_fused(
             nerf_params, ray_table, z_val, tgt, mc.nerf, mc.render.dist_alpha,
-            1 if rgb_loss_type == "l1" else 2, mc.render.white_background,
-            force_plain=force_plain)
+            1 if rgb_loss_type == "l1" else 2, mc.render.white_background)
         l_rgb = sums[0] / n_total if lcfg.use_rgb else zero
         l_depth = (torch.where(count > 0, sums[1] / count.clamp_min(1.0), zero)
                    if lcfg.use_depth else zero)
@@ -138,13 +131,11 @@ def _ray_terms(nerf_params, pixels, depth_prior, rgb_gt, prior_mask, camera_mat,
 def compute_step_loss(params: Dict[str, Any], batch: Dict[str, Any], weights: Dict[str, float],
                       ray_idx: torch.Tensor, generator: Optional[torch.Generator],
                       mc: ModelConfigs, rgb_loss_type: str,
-                      noise: Optional[torch.Tensor] = None,
-                      force_plain: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                      noise: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The loss of one frame and its reference frame, differentiable in `params`
     through autograd: (loss, loss_dict). `noise` pins the stratified jitter
-    (N, S) that `generator` would otherwise draw. `force_plain` sends both
-    kernels' wrappers through their plain versions on any device; it exists
-    for checks that hold the kernels' route against the plain one."""
+    (N, S) that `generator` would otherwise draw."""
     img = batch["img"]                      # (H, W, 3)
     depth_input = batch["depth"]            # (H, W)
     depth_mask = batch["depth_mask"]        # (H, W) bool
@@ -192,7 +183,7 @@ def compute_step_loss(params: Dict[str, Any], batch: Dict[str, Any], weights: Di
         l_rgb, l_depth, l2_mean, ray_total = _ray_terms(
             params["nerf"], pixels, depth_prior, rgb_gt, depth_mask[iy, ix], camera_mat,
             world_mat, scale_mat, generator, mc, rgb_loss_type, mc.n_training_points,
-            weights, noise=noise, force_plain=force_plain)
+            weights, noise=noise)
         precomputed = {"loss_rgb": l_rgb, "loss_depth": l_depth, "l2_mean": l2_mean}
         if ray_total is not None:
             precomputed["ray_total"] = ray_total
@@ -232,7 +223,7 @@ def compute_step_loss(params: Dict[str, Any], batch: Dict[str, Any], weights: Di
         t_rel = Rt_rel_12[:3, 3]
 
         sh, sw = h // mc.pc_ratio, w // mc.pc_ratio
-        p_pc = _pc_pixels(sh, sw, img.device, img.dtype)
+        p_pc = pixel_grid_on((sh, sw), img.device, img.dtype)
         d1s = resize_nearest(d1[..., None], (sh, sw)).reshape(-1).clamp_min(nl)
         d2s = resize_nearest(d2[..., None], (sh, sw)).reshape(-1).clamp_min(nl)
         pc1 = transform_to_world(p_pc, d1s[:, None], camera_mat)
@@ -267,23 +258,21 @@ def compute_step_loss(params: Dict[str, Any], batch: Dict[str, Any], weights: Di
                            rt_12_gt=Rt_rel_12_gt)
 
     loss_dict = compute_losses(lcfg, weights, rgb_loss_type=rgb_loss_type, t_list=t_list,
-                               precomputed=precomputed, chamfer_plain=force_plain,
-                               **loss_kwargs)
+                               precomputed=precomputed, **loss_kwargs)
     loss_dict["scale"] = scale_in[0]
     loss_dict["shift"] = shift_in[0]
     return loss_dict["loss"], loss_dict
 
 
 def step_gradients(params: Dict[str, Dict[str, torch.Tensor]], batch, weights, ray_idx,
-                   generator, mc: ModelConfigs, rgb_loss_type: str, noise=None,
-                   force_plain: bool = False):
+                   generator, mc: ModelConfigs, rgb_loss_type: str, noise=None):
     """(grads shaped like params, detached loss_dict) of compute_step_loss. A
     tensor the loss does not reach (a frozen init pose) gets a zero gradient,
     as jax.grad gives it."""
     leaves = {g: {k: v.detach().requires_grad_(True) for k, v in group.items()}
               for g, group in params.items()}
     loss, loss_dict = compute_step_loss(leaves, batch, weights, ray_idx, generator, mc,
-                                        rgb_loss_type, noise=noise, force_plain=force_plain)
+                                        rgb_loss_type, noise=noise)
     flat = [(g, k) for g in leaves for k in leaves[g]]
     grads = torch.autograd.grad(loss, [leaves[g][k] for g, k in flat], allow_unused=True)
     out: Dict[str, Dict[str, torch.Tensor]] = {g: {} for g in leaves}
@@ -418,9 +407,123 @@ class Trainer:
             imgs = scene.imgs
             h, w = imgs.shape[1:3]
             sh, sw = h // self.mc.pc_ratio, w // self.mc.pc_ratio
-            p_pc = _pc_pixels(sh, sw, imgs.device, imgs.dtype)
+            p_pc = pixel_grid_on((sh, sw), imgs.device, imgs.dtype)
             small = torch.stack([resize_bilinear(im, (sh, sw)) for im in imgs])
             rgb_pc = torch.stack([get_tensor_values(sm, p_pc, mode="bilinear", scale=False,
                                                     align_corners=True) for sm in small])
             self._warp_cache = (imgs, small, rgb_pc)
         return self._warp_cache[1], self._warp_cache[2]
+
+    @torch.no_grad()
+    def render_frame(self, state: TrainState, batch: Dict[str, Any],
+                     resolution: Tuple[int, int], chunk: int = RENDER_CHUNK,
+                     use_learned_pose: bool = True, sync: bool = True,
+                     rows: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
+        """Full-frame eval render in ray chunks, on the device of the state's
+        params (reference render_visdata, training.py:103-165). Returns
+        {'rgb': (h,w,3), 'depth': (h,w)} as numpy. `batch` is batch_for_frame's
+        dict, of tensors or numpy arrays; the learned pose of frame
+        batch['idx'] is used unless use_learned_pose is off (then
+        batch['pose_gt']), with the learned focal and distortion when the
+        config has them. The render kernel takes any ray count, so the last
+        chunk is simply shorter.
+
+        sync=False returns a pending frame (device tensors, nothing read
+        back); pass it to finalize_frame. A caller that renders many frames
+        queues the next one before it reads this one back.
+
+        rows=(lo, hi) renders only that row slab: per-ray math is independent,
+        so a slab equals the same rows of a full-frame render (the depth
+        prior's area resize stays full-frame)."""
+        h, w = resolution
+        mc = self.mc
+        params = state.params
+        dev = params["nerf"]["density_w"].device
+
+        def on_device(x):
+            return torch.as_tensor(x).to(dev)
+
+        idx = int(batch["idx"])
+        if use_learned_pose and mc.pose is not None:
+            world_mat = rigid_inverse(pose_c2w(params["pose"], idx, mc.pose))
+        else:
+            world_mat = rigid_inverse(on_device(batch["pose_gt"]))
+        if mc.focal is not None:
+            fxfy = focal_fxfy(params["focal"], mc.focal)
+            camera_mat = camera_matrix_from_focal(fxfy[0], fxfy[1])
+        else:
+            camera_mat = on_device(batch["camera_mat"])
+        depth_input = on_device(batch["depth"])
+        if mc.distortion is not None:
+            scale, shift = distortion_scale_shift(params["distortion"], idx, mc.distortion)
+            depth_input = _apply_distortion(depth_input, scale[0], shift[0], mc.shift_first)
+        depth_resized = resize_area(depth_input[..., None], (h, w)).reshape(-1)
+        pixels_all = pixel_grid_on((h, w), dev, depth_resized.dtype)
+        if rows is not None:
+            lo, hi = rows
+            pixels_all = pixels_all[lo * w:hi * w]
+            depth_resized = depth_resized[lo * w:hi * w]
+            h = hi - lo
+        n = h * w
+        rgbs, depths = [], []
+        for i in range(0, n, chunk):
+            out = render_nope_nerf(params["nerf"], pixels_all[i:i + chunk],
+                                   depth_resized[i:i + chunk, None], camera_mat, world_mat,
+                                   None, None, mc.render, mc.nerf, add_noise=False, eval_=True,
+                                   need_aux=False)
+            rgbs.append(out["rgb"])
+            depths.append(out["depth_pred"])
+        pending = {"rgb_chunks": rgbs, "depth_chunks": depths, "resolution": (h, w)}
+        return self.finalize_frame(pending) if sync else pending
+
+    @staticmethod
+    def finalize_frame(pending: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        """Read back a pending render_frame(sync=False) result -> numpy dict."""
+        h, w = pending["resolution"]
+        rgb = torch.cat(pending["rgb_chunks"]).cpu().numpy()
+        depth = torch.cat(pending["depth_chunks"]).cpu().numpy()
+        return {"rgb": rgb.reshape(h, w, 3), "depth": depth.reshape(h, w)}
+
+    @torch.no_grad()
+    def reprojection_pair(self, state: TrainState, batch: Dict[str, Any]):
+        """The photometric warp pair (rgb_pc1, rgb_pc1_proj, valid) as numpy
+        images: the reference dumps these every vis_reprojection_every
+        iterations (training.py:383-393). The pieces are compute_step_loss's."""
+        mc = self.mc
+        params = state.params
+        img, ref_img = batch["img"], batch["ref_img"]
+        h, w, _ = img.shape
+        idx, ref_idx = int(batch["idx"]), int(batch["ref_idx"])
+        nl = mc.nearest_limit
+        world_mat = rigid_inverse(pose_c2w(params["pose"], idx, mc.pose))
+        ref_Rt = rigid_inverse(pose_c2w(params["pose"], ref_idx, mc.pose))
+        depth, depth_ref = batch["depth"], batch["ref_depth"]
+        if mc.distortion is not None:
+            s, sh = distortion_scale_shift(params["distortion"], idx, mc.distortion)
+            depth = _apply_distortion(depth, s[0], sh[0], mc.shift_first)
+            s2, sh2 = distortion_scale_shift(params["distortion"], ref_idx, mc.distortion)
+            depth_ref = _apply_distortion(depth_ref, s2[0], sh2[0], mc.shift_first)
+        camera_mat = batch["camera_mat"]
+
+        fwd = idx < mc.pose.num_cams - 1
+        d1 = depth if fwd else depth_ref
+        img1, img2 = (img, ref_img) if fwd else (ref_img, img)
+        Rt_rel = (ref_Rt @ rigid_inverse(world_mat) if fwd
+                  else world_mat @ rigid_inverse(ref_Rt))
+
+        sh_res = (h // mc.pc_ratio, w // mc.pc_ratio)
+        p_pc = pixel_grid_on(sh_res, img.device, img.dtype)
+        d1s = resize_nearest(d1[..., None], sh_res).reshape(-1).clamp_min(nl)
+        pc1 = transform_to_world(p_pc, d1s[:, None], camera_mat)
+        rgb_pc1 = get_tensor_values(resize_bilinear(img1, sh_res), p_pc, mode="bilinear",
+                                    scale=False, align_corners=True)
+        pc1_rot = pc1 @ Rt_rel[:3, :3].T + Rt_rel[:3, 3]
+        invalid = (-pc1_rot[:, 2:]) < nl
+        pc1_rot = torch.where(invalid.expand(pc1_rot.shape), torch.full_like(pc1_rot, nl),
+                              pc1_rot)
+        p_reproj, valid = project_to_cam(pc1_rot, camera_mat)
+        rgb_proj = get_tensor_values(resize_bilinear(img2, sh_res), p_reproj, mode="bilinear",
+                                     scale=False, align_corners=True)
+        return (rgb_pc1.cpu().numpy().reshape(*sh_res, 3),
+                rgb_proj.cpu().numpy().reshape(*sh_res, 3),
+                valid.cpu().numpy().reshape(*sh_res))

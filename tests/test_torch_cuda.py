@@ -9,7 +9,7 @@ is left out:
 
 Tolerances. Forward values: 2e-3 x max(1, max|plain|): the kernel and the plain
 version sum the same bf16 products in another order (see chip_smoke.tolerance).
-The train kernel's gradients: 5e-3 of each weight block's largest entry; for
+The train and backward kernels' gradients: 5e-3 of each weight block's largest entry; for
 d(rays) and dz, per ray and per sample, an L2 error within 2e-2 of the block's
 norm with at most 1 entry in 1000 off by more than 2e-2 of the largest: a
 flipped bf16 rounding or ReLU mask travels down one point's chain and nothing
@@ -38,11 +38,11 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(dev, n, S, seed=0):
+def _inputs(dev, n, S, seed=0, spread=3.0, far=8.1):
     gen = torch.Generator().manual_seed(seed)
     v = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=1)
-    rays = F.pack_rays(torch.randn(n, 3, generator=gen) * 3.0, v, -v).to(dev)
-    z = torch.sort(torch.rand(n, S, generator=gen) * 8 + 0.1, dim=1).values.to(dev)
+    rays = F.pack_rays(torch.randn(n, 3, generator=gen) * spread, v, -v).to(dev)
+    z = torch.sort(torch.rand(n, S, generator=gen) * (far - 0.1) + 0.1, dim=1).values.to(dev)
     return gen, rays, z
 
 
@@ -94,13 +94,15 @@ def test_render_fwd_counts_launches_and_rejects_bad_inputs(cuda_device):
 # ---- render_train (K1) -------------------------------------------------------
 
 def _train_case(dev, n, S, hidden, seed=0, **flags):
-    gen, rays, z = _inputs(dev, n, S, seed)
+    gen, rays, z = _inputs(dev, n, S, seed, flags.get("spread", 3.0), flags.get("far", 8.1))
     ncfg = NerfConfig(hidden_dim=hidden, use_pallas=True,
                       occ_activation=flags.get("occ", "softplus"),
                       dist_alpha=flags.get("dist_alpha", False))
     params = init_nerf_params(ncfg, gen, device=dev)
-    if ncfg.occ_activation == "softplus" and not ncfg.dist_alpha:
-        params["density_b"] = params["density_b"] - 4.0    # weights spread over the ray
+    # softplus opacity that is not scaled by the sample spacing saturates within a few
+    # samples at the seeded bias: lower it, so that the weights spread over the ray
+    if ncfg.occ_activation == "softplus" and not flags.get("render_dist_alpha", ncfg.dist_alpha):
+        params["density_b"] = params["density_b"] - 4.0
     mask = (torch.arange(n) % 3 != 0).to(dev)
     tgt = F.pack_targets(torch.rand(n, 3, generator=gen).to(dev),
                          (1 + 4 * torch.rand(n, generator=gen)).to(dev), mask, 0.7 / n,
@@ -154,7 +156,8 @@ def test_render_train_bit_equal_counts_launches_and_rejects_bad_inputs(cuda_devi
     assert F.RENDER_TRAIN.launches == before + 2
     for x, y in zip([a[0], *a[1], *a[2], *a[3:]], [b[0], *b[1], *b[2], *b[3:]]):
         assert torch.equal(x, y)
-    F.render_ray_loss_fused(params, rays, z, tgt, ncfg, False, 1, False, force_plain=True)
+    with F.plain_versions():
+        F.render_ray_loss_fused(params, rays, z, tgt, ncfg, False, 1, False)
     assert F.RENDER_TRAIN.launches == before + 2              # the plain route launches nothing
     with pytest.raises(NotImplementedError):
         F.render_ray_loss_fused(params, rays, z[:, :100].contiguous(), tgt, ncfg, False, 1, False)
@@ -163,9 +166,173 @@ def test_render_train_bit_equal_counts_launches_and_rejects_bad_inputs(cuda_devi
         F.render_ray_loss_fused(params, rays, big, tgt, ncfg, False, 1, False)
     with pytest.raises(ValueError):
         F.render_ray_loss_fused(params, rays, z.t().contiguous().t(), tgt, ncfg, False, 1, False)
-    with pytest.raises(NotImplementedError, match="K4"):
-        F.render_rays_fused({k: v.requires_grad_(True) for k, v in params.items()}, rays, z, ncfg)
     assert F.RENDER_TRAIN.launches == before + 2
+
+
+# ---- render_bwd (K4) -------------------------------------------------------------
+
+def _bwd_cotangents(params, rays, z, tgt, ncfg, dist_alpha, aux):
+    """Cotangents of a smooth loss of the forward's own outputs (an L2 colour
+    and depth term; with aux a sum of squared weights on every 7th sample and
+    one column of alpha)."""
+    rgb, dist, weights, alpha = F.render_rays_fused_plain(params, rays, z, ncfg, dist_alpha, True)
+    n = rays.shape[0]
+    g_rgb = (1.4 / n * (rgb - tgt[:, 0:3])).contiguous()
+    g_dist = (0.6 / n * (dist - tgt[:, F.TGT_DEPTH])).contiguous()
+    if not aux:
+        return g_rgb, g_dist, None, None
+    g_w = torch.zeros_like(weights)
+    g_w[:, ::7] = 2.0 / n * weights[:, ::7]
+    g_a = torch.zeros_like(alpha)
+    g_a[:, 5] = 1.0 / n
+    return g_rgb, g_dist, g_w, g_a
+
+
+def _assert_grads_close(got, ref):
+    for k, r in ref.items():
+        assert torch.isfinite(got[k]).all(), k
+        err, top = (got[k] - r).abs(), float(r.abs().max())
+        if k in ("rays", "z"):
+            assert float(err.norm()) <= 2e-2 * float(r.norm()) + 1e-9, k
+            assert float((err > 2e-2 * top + 1e-6).float().mean()) <= 1e-3, k
+        else:
+            assert float(err.max()) <= 5e-3 * top + 1e-6, k
+
+
+@pytest.mark.parametrize("aux", [False, True])
+@pytest.mark.parametrize("dist_alpha", [False, True])
+@pytest.mark.parametrize("head_dist_alpha", [False, True])
+@pytest.mark.parametrize("occ", ["softplus", "relu"])
+def test_render_bwd_flags(cuda_device, occ, head_dist_alpha, dist_alpha, aux):
+    # rays from near the origin over [0.1, 6], the scale of a scene: bias gradients, which
+    # no product averages, sit near their tolerance for rays scattered three times as far
+    params, rays, z, tgt, ncfg = _train_case(cuda_device, 301, 128, 256, seed=1, occ=occ,
+                                             dist_alpha=head_dist_alpha,
+                                             render_dist_alpha=dist_alpha, spread=0.5, far=6.0)
+    cot = _bwd_cotangents(params, rays, z, tgt, ncfg, dist_alpha, aux)
+    before = F.RENDER_BWD.launches
+    runs = [F._render_bwd_cuda(params, rays, z, *cot, ncfg, dist_alpha) for _ in range(2)]
+    assert F.RENDER_BWD.launches == before + 2
+    for a, b in zip([*runs[0][0], *runs[0][1], *runs[0][2:]], [*runs[1][0], *runs[1][1], *runs[1][2:]]):
+        assert torch.equal(a, b)                         # no float atomics
+    ref = F.render_rays_fused_bwd_plain(params, rays, z, *cot, ncfg, dist_alpha)
+    _assert_grads_close(dict(F.unpack_grads(runs[0][0], runs[0][1], ncfg), rays=runs[0][2],
+                             z=runs[0][3]),
+                        dict(F.unpack_grads(ref[0], ref[1], ncfg), rays=ref[2], z=ref[3]))
+    # the frozen-network variant: the same d(rays) and dz, no parameter gradients
+    dWs, dBs, drays, dz = F._render_bwd_cuda(params, rays, z, *cot, ncfg, dist_alpha,
+                                             want_param_grads=False)
+    assert dWs is None and dBs is None
+    assert torch.equal(drays, runs[0][2]) and torch.equal(dz, runs[0][3])
+
+
+@pytest.mark.parametrize("hidden", [128, 256])
+@pytest.mark.parametrize("S", [128, 256])
+def test_render_bwd_widths_and_train_kernel_cotangents(cuda_device, hidden, S):
+    """Fed the cotangents the train kernel forms itself, the backward kernel
+    returns the train kernel's gradients bit for bit: they share one chain."""
+    params, rays, z, tgt, ncfg = _train_case(cuda_device, 200, S, hidden)
+    sums, dWs, dBs, drays, dz, dtgt = F._train_cuda(params, rays, z, tgt, ncfg, False, 2, False)
+    got = F._render_bwd_cuda(params, rays, z, (-dtgt[:, 0:3]).contiguous(),
+                             (-dtgt[:, 3]).contiguous(), None, None, ncfg, False)
+    for a, b in zip([*dWs, *dBs, drays, dz], [*got[0], *got[1], got[2], got[3]]):
+        assert torch.equal(a, b)
+
+
+def test_render_rays_fused_differentiates_on_card(cuda_device):
+    """Under grad the wrapper launches the forward kernel, then the backward
+    kernel: it raises nothing, and its gradients match the plain route's."""
+    params, rays, z, tgt, ncfg = _train_case(cuda_device, 301, 128, 256, spread=0.5, far=6.0)
+
+    def grads(frozen):
+        leaves = {k: v.clone().requires_grad_(not frozen) for k, v in params.items()}
+        r, zz = rays.clone().requires_grad_(True), z.clone().requires_grad_(True)
+        rgb, dist, w, a = F.render_rays_fused(leaves, r, zz, ncfg, False, want_aux=True)
+        loss = (((rgb - tgt[:, 0:3]) ** 2).mean() + ((dist - tgt[:, 3]) ** 2).mean()
+                + (w[:, ::7] ** 2).sum(dim=1).mean() + a[:, 5].mean())
+        loss.backward()
+        out = dict(rays=r.grad, z=zz.grad)
+        if not frozen:
+            out.update({k: v.grad for k, v in leaves.items()})
+        return out
+
+    counts = [lib.launches for lib in (F.RENDER_FWD, F.RENDER_BWD, F.RENDER_TRAIN)]
+    got = grads(False)
+    after = [lib.launches for lib in (F.RENDER_FWD, F.RENDER_BWD, F.RENDER_TRAIN)]
+    assert [a - b for a, b in zip(after, counts)] == [1, 1, 0]
+    with F.plain_versions():
+        plain = grads(False)
+    _assert_grads_close(got, plain)
+    assert [lib.launches for lib in (F.RENDER_FWD, F.RENDER_BWD, F.RENDER_TRAIN)] == after
+    frozen = grads(True)                   # the frozen-network variant
+    assert torch.equal(frozen["rays"], got["rays"]) and torch.equal(frozen["z"], got["z"])
+    with torch.no_grad():
+        out = F.render_rays_fused({k: v.clone().requires_grad_(True) for k, v in params.items()},
+                                  rays, z, ncfg)
+    assert all(t.grad_fn is None for t in out)
+    assert F.RENDER_BWD.launches == after[1] + 1
+    with pytest.raises(NotImplementedError):
+        F.render_rays_fused(params, rays.clone().requires_grad_(True),
+                            torch.sort(torch.rand(301, 384, device=cuda_device), dim=1).values, ncfg)
+
+
+def test_render_nope_nerf_gradients_on_card(cuda_device):
+    """render_nope_nerf's gradients w.r.t. the nerf params and the world matrix
+    (where the pose gradient flows), kernel route against the plain route,
+    with a white background."""
+    from nope_nerf_torch.geometry.camera import camera_matrix_from_focal, pixel_grid_on
+    from nope_nerf_torch.ops.render import RenderConfig, render_nope_nerf
+    gen = torch.Generator().manual_seed(2)
+    ncfg = NerfConfig(use_pallas=True, white_background=True)
+    rcfg = RenderConfig(white_background=True, depth_range=(0.1, 6.0))
+    params = init_nerf_params(ncfg, gen, device=cuda_device)
+    params["density_b"] = params["density_b"] - 4.0
+    pixels = pixel_grid_on((16, 24), cuda_device)
+    prior = (1 + 3 * torch.rand(pixels.shape[0], 1, generator=gen)).to(cuda_device)
+    cam = camera_matrix_from_focal(torch.tensor(1.2), torch.tensor(1.4)).to(cuda_device)
+    gt = torch.rand(pixels.shape[0], 3, generator=gen).to(cuda_device)
+
+    def grads():
+        leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        world = torch.eye(4, device=cuda_device).requires_grad_(True)
+        out = render_nope_nerf(leaves, pixels, prior, cam, world, None, None, rcfg, ncfg,
+                               add_noise=False)
+        (((out["rgb"] - gt) ** 2).mean() + 0.1 * (out["depth_pred"] - out["depth_gt"]).abs().mean()
+         ).backward()
+        return dict({k: v.grad for k, v in leaves.items()}), world.grad
+
+    gp, gw = grads()
+    with F.plain_versions():
+        rp, rw = grads()
+    _assert_grads_close(gp, rp)
+    assert float((gw - rw).abs().max()) <= 5e-2 * float(rw.abs().max())
+
+
+def test_resume_is_bit_equal_on_card(cuda_device, tmp_path):
+    """2 epochs straight against 1 + checkpoint + resume + 1 at the full model
+    width: every kernel is deterministic, so parameters, Adam's moments and
+    the generator's state are bit-equal."""
+    from nope_nerf_torch.cli.train import train
+
+    def cfg_for(out):
+        return load_config(overrides={
+            "training": {"out_dir": str(out), "n_training_points": 256, "vis_geo": False,
+                         "print_every": 0, "checkpoint_every": 1, "visualize_every": 0,
+                         "vis_reprojection_every": 0, "backup_every": 0},
+            "pose": {"learn_pose": True, "init_pose": True}})
+
+    state_a, _, _ = train(cfg_for(tmp_path / "a"), synthetic=True, max_epochs=2,
+                          device=cuda_device)
+    train(cfg_for(tmp_path / "b"), synthetic=True, max_epochs=1, device=cuda_device)
+    state_b, _, _ = train(cfg_for(tmp_path / "b"), synthetic=True, max_epochs=2,
+                          device=cuda_device)
+    assert state_a.it == state_b.it == 15
+    for g, d in state_a.params.items():
+        for k, v in d.items():
+            assert torch.equal(v, state_b.params[g][k]), (g, k)
+            assert torch.equal(state_a.opt_state[g].mu[k], state_b.opt_state[g].mu[k]), (g, k)
+            assert torch.equal(state_a.opt_state[g].nu[k], state_b.opt_state[g].nu[k]), (g, k)
+    assert torch.equal(state_a.generator.get_state(), state_b.generator.get_state())
 
 
 # ---- chamfer_bidir (K2) ----------------------------------------------------------
@@ -198,7 +365,8 @@ def test_chamfer_loss_gradients_and_cloud_limit(cuda_device):
     xg, yg = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
     C.chamfer_loss(xg, yg).backward()
     xp, yp = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
-    C.chamfer_loss(xp, yp, force_plain=True).backward()
+    with F.plain_versions():
+        C.chamfer_loss(xp, yp).backward()
     assert torch.equal(xg.grad, xp.grad) and torch.equal(yg.grad, yp.grad)
     with pytest.raises(NotImplementedError, match="8192"):
         C.nearest_idx_bidirectional(torch.zeros(8193, 3, device=cuda_device), y)
@@ -206,7 +374,7 @@ def test_chamfer_loss_gradients_and_cloud_limit(cuda_device):
 
 # ---- the train step on the card -------------------------------------------------
 
-def test_train_step_on_card_counts_launches_and_rejects_unfused(cuda_device):
+def test_train_step_on_card_counts_launches_fused_and_not(cuda_device):
     cfg = load_config(overrides={"training": {"n_training_points": 256},
                                  "pose": {"learn_pose": True, "init_pose": True}})
     scene = SceneData.from_dict(make_synthetic_scene(n_frames=4, h=48, w=64)).to_device(cuda_device)
@@ -220,7 +388,21 @@ def test_train_step_on_card_counts_launches_and_rejects_unfused(cuda_device):
     assert [a - b for a, b in zip(after, counts)] == [3, 3, 0]
     assert all(torch.isfinite(v).all() for v in lds.values()) and state.it == 2
 
+    # outside the fused-loss gate the step renders through the forward and backward kernels
     cfg["training"]["depth_loss_type"] = "invariant"
     mc_inv = ModelConfigs.from_cfg(cfg, 4)
-    with pytest.raises(NotImplementedError, match="K4"):
-        Trainer(cfg, mc_inv).step(state, batch_for_frame(scene, 0, ref_idx=1), 0, 10000)
+    libs = (F.RENDER_TRAIN, C.CHAMFER_BIDIR, F.RENDER_FWD, F.RENDER_BWD)
+    counts = [lib.launches for lib in libs]
+    state, ld = Trainer(cfg, mc_inv).step(state, batch_for_frame(scene, 0, ref_idx=1), 0, 10000)
+    assert [lib.launches - c for lib, c in zip(libs, counts)] == [0, 1, 1, 1]
+    assert all(torch.isfinite(v).all() for v in ld.values()) and float(ld["loss_depth"]) > 0
+
+    # a config the fused render cannot serve still raises, naming what would serve it
+    for section, key, value in (("tpu", "use_pallas_renderer", False),
+                                ("rendering", "num_points", 100)):
+        bad = load_config(overrides={"training": {"n_training_points": 256},
+                                     "pose": {"learn_pose": True, "init_pose": True},
+                                     section: {key: value}})
+        with pytest.raises(NotImplementedError, match="K5/K6"):
+            Trainer(bad, ModelConfigs.from_cfg(bad, 4)).step(
+                state, batch_for_frame(scene, 0, ref_idx=1), 0, 10000)

@@ -18,7 +18,13 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "nope_nerf_torch"
-BLOCKED = ("jax", "jaxlib", "nope_nerf_tpu", "optax", "chex", "yaml", "cv2", "imageio")
+BLOCKED = ("jax", "jaxlib", "nope_nerf_tpu", "optax", "chex", "yaml", "cv2", "imageio",
+           "matplotlib")
+# the modules of the third slice: each must be among those the scan imports
+REQUIRED = tuple("nope_nerf_torch." + m for m in (
+    "cli.train", "cli.eval", "cli.eval_poses", "evaluation.align", "evaluation.artifacts",
+    "evaluation.image_eval", "evaluation.pose_eval", "evaluation.pose_opt",
+    "tools.backward_noise", "training.checkpoints", "utils.metrics", "utils.profiling"))
 
 torch.set_num_threads(2)
 
@@ -30,6 +36,8 @@ import nope_nerf_torch
 names = [m.name for m in pkgutil.walk_packages(nope_nerf_torch.__path__, "nope_nerf_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in {required!r}:
+    assert name in names, name
 import chip_smoke
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in {blocked!r})
@@ -70,10 +78,10 @@ def _run(code, **env):
 
 
 def test_every_module_imports_without_jax_or_reference():
-    res = _run(_IMPORT_ALL.format(blocked=BLOCKED))
+    res = _run(_IMPORT_ALL.format(blocked=BLOCKED, required=REQUIRED))
     assert res.returncode == 0, res.stderr
     n, loaded = res.stdout.strip().split(" ", 1)
-    assert int(n) >= 32       # every module of both slices, the trainer's included
+    assert int(n) >= 43       # every module of the three slices, the CLIs' included
     assert loaded == "[]", loaded
 
 
@@ -90,6 +98,33 @@ def test_render_entry_point_raises_without_cuda():
     res = _run(_ENTRY_WITHOUT_DEVICE, CUDA_VISIBLE_DEVICES="")
     assert res.returncode == 0, res.stdout + res.stderr
     assert "no CUDA device" in res.stdout
+
+
+_CLI_WITHOUT_DEVICE = r"""
+import sys, tempfile
+sys.modules["jax"] = None
+sys.modules["nope_nerf_tpu"] = None
+import torch
+from nope_nerf_torch.cli.eval import evaluate
+from nope_nerf_torch.cli.eval_poses import evaluate_poses
+from nope_nerf_torch.cli.train import train
+from nope_nerf_torch.config import load_config
+assert not torch.cuda.is_available()
+cfg = load_config(overrides={"training": {"out_dir": tempfile.mkdtemp(), "vis_geo": False}})
+for fn in (train, evaluate, evaluate_poses):
+    try:
+        fn(cfg, synthetic=True)
+    except RuntimeError as e:
+        print(fn.__name__, "raised:", e)
+    else:
+        raise SystemExit(fn.__name__ + " ran without a CUDA device")
+"""
+
+
+def test_train_and_eval_entry_points_raise_without_cuda():
+    res = _run(_CLI_WITHOUT_DEVICE, CUDA_VISIBLE_DEVICES="")
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.count("no CUDA device") == 3, res.stdout
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result():

@@ -27,8 +27,8 @@ from nope_nerf_tpu.training.checkpoints import save_checkpoint as jax_save
 from nope_nerf_torch.cli.render import render as port_render
 from nope_nerf_torch.config import load_config as port_load_config
 from nope_nerf_torch.convert import params_from_numpy, params_to_numpy
-from nope_nerf_torch.training.checkpoints import load_checkpoint as port_load
-from nope_nerf_torch.training.checkpoints import save_checkpoint as port_save
+from nope_nerf_torch.training.checkpoints import load_params as port_load
+from nope_nerf_torch.training.checkpoints import save_params as port_save
 
 torch.set_num_threads(2)
 N_CAMS = 8   # the synthetic scene both render CLIs build

@@ -301,11 +301,20 @@ def test_sample_rays_distinct_and_forced_valid():
             assert int(idx[0]) == 500 and torch.equal(idx[1:], plain[1:])
 
 
-def test_cuda_only_configs_raise_not_implemented():
-    """On CUDA a config outside the fused gate raises, naming the kernel that
-    would serve it; the check fires before any device work (meta tensors)."""
+@pytest.mark.parametrize("section,key,value", [
+    ("tpu", "use_pallas_renderer", False),
+    ("rendering", "num_points", 100),
+    ("rendering", "n_importance", 64),
+    ("rendering", "normal_loss", True),
+])
+def test_cuda_only_configs_raise_not_implemented(section, key, value):
+    """On CUDA a config the fused render cannot serve raises, naming the
+    kernels that would serve it; the check fires before any device work (meta
+    tensors). A config merely outside the fused-loss gate (depth_loss_type
+    invariant) no longer raises: it renders through the forward and backward
+    kernels."""
     cfg = _cfg(fused=True)
-    cfg["training"]["depth_loss_type"] = "invariant"
+    cfg[section][key] = value
     mc = ModelConfigs.from_cfg(cfg, N_FRAMES)
     scene = SceneData.from_dict(_scene())
     batch = {k: (torch.as_tensor(v).to("meta") if isinstance(v, np.ndarray) else v)
@@ -314,6 +323,46 @@ def test_cuda_only_configs_raise_not_implemented():
     params = {g: {k: v.to("meta") for k, v in d.items()} for g, d in state.params.items()}
     weights = Trainer(cfg, mc).weights_at(0, SCHED_START)
     from nope_nerf_torch.training import compute_step_loss
-    with pytest.raises(NotImplementedError, match="K4"):
+    with pytest.raises(NotImplementedError, match="K5/K6"):
         compute_step_loss(params, batch, weights, torch.zeros(N_RAYS, dtype=torch.long,
                                                               device="meta"), None, mc, "l1")
+
+
+def test_invariant_depth_step_matches_jax_f32():
+    """A config outside the fused-loss gate (depth_loss_type invariant): one
+    step's loss dict and gradients against the JAX package from a converted
+    state, in float32 mode."""
+    def invariant(fused):
+        cfg = _cfg(fused)
+        cfg["training"]["depth_loss_type"] = "invariant"
+        return cfg
+
+    jx = _Jax(fused=False)
+    jx.mc = JModelConfigs.from_cfg(invariant(False), N_FRAMES)
+    cfg, scene, _, trainer = _port(fused=False)
+    mc = ModelConfigs.from_cfg(invariant(False), N_FRAMES)
+    weights = trainer.weights_at(0, SCHED_START)
+    ray_idx, key, noise = _pins(0)
+    g_ref, ld_ref = jx.grads(jx.state.params, 0, 1, weights, ray_idx, key)
+    state = state_from_numpy(*_numpy_state(jx.state), device="cpu")
+    g, ld = step_gradients(state.params, batch_for_frame(scene, 0, ref_idx=1), weights,
+                           torch.from_numpy(ray_idx).long(), None, mc, "l1",
+                           noise=torch.from_numpy(noise))
+    _assert_loss_dict(ld, ld_ref, 1e-4)
+    _assert_blocks(g, jax.tree.map(np.asarray, g_ref), 1e-4, "invariant")
+    assert float(ld["loss_depth"]) > 0
+
+    # the same config in bfloat16 fused mode renders through render_rays_fused
+    # and its hand-written backward (the plain versions on the CPU): the two
+    # routes agree in the bf16 class
+    mc_f = ModelConfigs.from_cfg(invariant(True), N_FRAMES)
+    cfg_u = invariant(True)
+    cfg_u["tpu"]["use_pallas_renderer"] = False
+    mc_u = ModelConfigs.from_cfg(cfg_u, N_FRAMES)
+    args = (state.params, batch_for_frame(scene, 0, ref_idx=1), weights,
+            torch.from_numpy(ray_idx).long(), None)
+    g_f, ld_f = step_gradients(*args, mc_f, "l1", noise=torch.from_numpy(noise))
+    g_u, ld_u = step_gradients(*args, mc_u, "l1", noise=torch.from_numpy(noise))
+    _assert_loss_dict(ld_f, ld_u, 2e-3)
+    _assert_blocks(g_f, {g_: {k: v.numpy() for k, v in d.items()} for g_, d in g_u.items()}, 5e-2,
+                   "invariant routes")
