@@ -3,12 +3,14 @@
 
 Run from the root of a checkout: `python3 chip_smoke.py`. In order it
 1. prints the card's name and power limit (nvidia-smi) and builds every
-   kernel from nope_nerf_torch/csrc/ (one nvcc per source, side by side);
+   kernel from nope_nerf_torch/csrc/ (one nvcc per source, six side by side);
 2. holds each kernel against its plain PyTorch version on the card, over the
    flags it takes: render_fwd (K3), render_train (K1, with the bit-equality
    of two launches), render_bwd (K4: two cotangent sets, bit-equality, its
    frozen-network variant, and the train kernel's own cotangents fed through
-   it) and chamfer_bidir (K2, by matched distances);
+   it), chamfer_bidir (K2, by matched distances), point_mlp_fwd (K5) and
+   point_mlp_bwd (K6, with the bit-equality of two launches), the last two at
+   the fine pass's point count made ragged;
 3. drives the render path: nope_nerf_torch.cli.render.render on the synthetic
    driving scene at V-KITTI's 188x621, from a checkpoint the port wrote with
    seeded random weights at the full model width; checks that its kernel
@@ -29,7 +31,14 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    fused-loss gate (depth_loss_type invariant: render_fwd + render_bwd's full
    variant per step), each with its launch counts asserted and its first
    step (loss terms and gradients) held against the plain versions' route;
-6. times each path and each kernel at its main path's shapes (CUDA events),
+6. drives hierarchical sampling (rendering.n_importance 64) through K5 and K6:
+   the train path of phase 4 (step 1 against the plain versions, then 4
+   counted steps: K5 twice and K6 once per step, no fused render kernel),
+   Trainer.render_frame at 188x621 (K5 twice per chunk, a slab against the
+   plain versions), pose-optimisation steps; then the rest of the slice:
+   train steps with normal_loss, cli.train with the occupancy grid (its
+   resume bit-equal, grid included) and Trainer.render_geo;
+7. times each path and each kernel at its main path's shapes (CUDA events),
    prints one `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 It exits non-zero, and prints no result, when CUDA is missing, outside a
 checkout, or when any phase fails. It imports nothing of JAX.
@@ -57,6 +66,9 @@ BWD_CHECK_RAYS = 301         # no multiple of the card's 132 SMs
 CLI_EPOCHS = 2               # cli.train on the 8-frame synthetic scene: 8 steps per epoch
 POSE_OPT_EPOCHS = 20         # eval_pose.opt_pose_epoch for the check (default 1000)
 UNFUSED_STEPS = 4
+POINT_CHECK_M = 196_608 + 37   # the fine pass's points per train step, made ragged
+N_IMPORTANCE = 64            # hierarchical fine samples per ray on the K5/K6 path
+HIER_STEPS = 4
 DENSITY_SHIFT = -4.0         # density bias of the seeded weights: keeps transmittance alive
                              # to the last of the 128 samples, so the composite and its
                              # backward are exercised whole
@@ -359,6 +371,102 @@ def check_render_bwd(torch, dev, gen):
     return worst_abs, worst_abs_frozen, worst_share
 
 
+def point_inputs(torch, dev, gen, m: int):
+    """Seeded points in the occupied part of the scene cube and unit directions."""
+    pts = (torch.randn(m, 3, generator=gen) * 1.5).to(dev)
+    dirs = torch.nn.functional.normalize(torch.randn(m, 3, generator=gen), dim=1).to(dev)
+    return pts, dirs
+
+
+def check_point_mlp_fwd(torch, dev, gen) -> float:
+    """K5 against its plain version over {softplus, relu} x head dist_alpha at a
+    ragged M (no multiple of the 128-point pass). Returns the worst error."""
+    from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
+    from nope_nerf_torch.ops.fused_mlp import _mlp_fwd_cuda, point_mlp_fwd_plain
+    pts, dirs = point_inputs(torch, dev, gen, POINT_CHECK_M)
+    worst = 0.0
+    for occ in ("softplus", "relu"):
+        for head_da in (False, True):
+            ncfg = NerfConfig(hidden_dim=256, occ_activation=occ, dist_alpha=head_da,
+                              use_pallas=True)
+            params = init_nerf_params(ncfg, gen, device=dev)
+            got = _mlp_fwd_cuda(params, pts, dirs, ncfg)
+            torch.cuda.synchronize()
+            ref = point_mlp_fwd_plain(params, pts, dirs, ncfg)
+            report = []
+            for name, g, r in zip(("rgb", "density"), got, ref):
+                err, tol = max_err(g, r), tolerance(r)
+                worst = max(worst, err)
+                report.append(f"{name} {err:.3g}/{tol:.3g}")
+                if not err <= tol:
+                    raise RuntimeError(f"point_mlp_fwd disagrees with its plain version: {name} "
+                                       f"err {err} > {tol} (occ={occ}, head_dist_alpha={head_da})")
+            print(f"point_mlp_fwd vs plain, {POINT_CHECK_M} points, occ={occ} "
+                  f"head_dist_alpha={head_da}: " + ", ".join(report))
+    return worst
+
+
+def point_cotangents(torch, params, pts, dirs, ncfg):
+    """Cotangents for the point-query MLP backward, those of a smooth loss of
+    the forward's own outputs (tests/test_pallas_mlp.py's): mean over points
+    of |rgb - 0.5|^2 / 3 + 0.1 density. Cotangents that are noise instead
+    (zero-mean, independent per point) make every gradient block a random
+    walk over the points, and a single flipped bf16 rounding or ReLU mask
+    then moves a bias gradient by a share of its largest entry that real
+    training never sees."""
+    from nope_nerf_torch.ops.fused_mlp import point_mlp_fwd_plain
+    rgb, _ = point_mlp_fwd_plain(params, pts, dirs, ncfg)
+    m = pts.shape[0]
+    g_rgb = (2.0 / (3 * m) * (rgb - 0.5)).contiguous()
+    return g_rgb, torch.full((m, 1), 0.1 / m, device=pts.device)
+
+
+def check_point_mlp_bwd(torch, dev, gen):
+    """K6 against its plain version over {softplus, relu} x head dist_alpha at
+    the same ragged M, on the cotangents of a smooth loss: weight and bias
+    blocks within 5e-3 of each block's largest entry, d(points) and
+    d(directions) by the per-sample rule (grad_share), two launches bit-equal.
+    Returns (worst absolute error of a gradient entry, worst share of its
+    tolerance)."""
+    from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
+    from nope_nerf_torch.ops.fused_mlp import _mlp_bwd_cuda, point_mlp_bwd_plain
+    from nope_nerf_torch.ops.fused_render import unpack_grads
+    pts, dirs = point_inputs(torch, dev, gen, POINT_CHECK_M)
+    worst_abs, worst_share, failed = 0.0, 0.0, []
+    for occ in ("softplus", "relu"):
+        for head_da in (False, True):
+            ncfg = NerfConfig(hidden_dim=256, occ_activation=occ, dist_alpha=head_da,
+                              use_pallas=True)
+            params = init_nerf_params(ncfg, gen, device=dev)
+            g_rgb, g_den = point_cotangents(torch, params, pts, dirs, ncfg)
+            a = _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_den, ncfg)
+            b = _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_den, ncfg)
+            torch.cuda.synchronize()
+            case = f"occ={occ} head_dist_alpha={head_da}"
+            flat_a, flat_b = [*a[0], *a[1], a[2], a[3]], [*b[0], *b[1], b[2], b[3]]
+            if not all(torch.equal(x, y) for x, y in zip(flat_a, flat_b)):
+                raise RuntimeError(f"point_mlp_bwd: two launches differ ({case})")
+            ref = point_mlp_bwd_plain(params, pts, dirs, g_rgb, g_den, ncfg)
+            got = dict(unpack_grads(a[0], a[1], ncfg), points=a[2], directions=a[3])
+            want = dict(unpack_grads(ref[0], ref[1], ncfg), points=ref[2], directions=ref[3])
+            shares = {k: grad_share(got[k], want[k], k in ("points", "directions"))
+                      for k in want}
+            k_worst = max(shares, key=shares.get)
+            worst_share = max(worst_share, shares[k_worst])
+            worst_abs = max(worst_abs, max(max_err(got[k], want[k]) for k in want))
+            print(f"point_mlp_bwd vs plain, {POINT_CHECK_M} points, {case}: {len(shares)} "
+                  f"gradient blocks, worst {k_worst} at {shares[k_worst]:.3f} of its tolerance "
+                  f"(points {shares['points']:.3f}, directions {shares['directions']:.3f}, "
+                  f"largest weight block "
+                  f"{max(v for k, v in shares.items() if k.endswith('_w')):.3f}); two launches "
+                  f"bit-equal")
+            if not shares[k_worst] <= 1.0:
+                failed.append(f"{k_worst} at {shares[k_worst]:.2f} of its tolerance ({case})")
+    if failed:
+        raise RuntimeError("point_mlp_bwd disagrees with its plain version: " + "; ".join(failed))
+    return worst_abs, worst_share
+
+
 def depth_lifted_clouds(torch, dev, gen, h: int, w: int):
     """Two (h*w, 3) clouds as the train step lifts them: a pixel grid times
     seeded depths through the scene's K^-1, the second moved by a small pose."""
@@ -595,11 +703,13 @@ def run_train_path(torch, np, dev):
 
 def kernel_counters():
     from nope_nerf_torch.ops.chamfer import CHAMFER_BIDIR
+    from nope_nerf_torch.ops.fused_mlp import POINT_MLP_BWD, POINT_MLP_FWD
     from nope_nerf_torch.ops.fused_render import (RENDER_BWD, RENDER_BWD_FROZEN, RENDER_FWD,
                                                   RENDER_TRAIN)
     return {"render_train": RENDER_TRAIN, "chamfer_bidir": CHAMFER_BIDIR,
             "render_fwd": RENDER_FWD, "render_bwd": RENDER_BWD,
-            "render_bwd_frozen": RENDER_BWD_FROZEN}
+            "render_bwd_frozen": RENDER_BWD_FROZEN, "point_mlp_fwd": POINT_MLP_FWD,
+            "point_mlp_bwd": POINT_MLP_BWD}
 
 
 def counted(fn, expected: dict, what: str):
@@ -616,7 +726,8 @@ def counted(fn, expected: dict, what: str):
     out = fn()
     torch.cuda.synchronize()
     counts = {name: lib.launches for name, lib in libs.items()}
-    order = ("render_train", "chamfer_bidir", "render_fwd", "render_bwd", "render_bwd_frozen")
+    order = ("render_train", "chamfer_bidir", "render_fwd", "render_bwd", "render_bwd_frozen",
+             "point_mlp_fwd", "point_mlp_bwd")
     print(f"{what}: launches " + ", ".join(f"{k} {counts[k]}" for k in order) + " (expected "
           + ", ".join(str(expected[k]) for k in order) + ")")
     if counts != expected:
@@ -836,6 +947,226 @@ def run_unfused_steps(torch, np, dev):
     return counts, trainer, state, scene, order, refs
 
 
+def hier_config(**extra):
+    """The bench workload (bench.py: default config, learned poses on top of
+    the scene's, 1024 rays) with hierarchical sampling on."""
+    from nope_nerf_torch.config import load_config
+    over = {"training": {"n_training_points": TRAIN_RAYS},
+            "rendering": {"n_importance": N_IMPORTANCE},
+            "pose": {"learn_pose": True, "init_pose": True}}
+    for k, v in extra.items():
+        over.setdefault(k, {}).update(v)
+    return load_config(overrides=over)
+
+
+def run_hier_train_path(torch, np, dev):
+    """Phase 6a: the train path with hierarchical sampling (rendering.n_importance
+    64) on the 188x621 4-frame scene: per step K5 twice (the coarse pass of
+    128 samples per ray, the fine pass of 192) and K6 once (the fine pass's
+    backward), Chamfer once, no fused render kernel. Step 1 through the
+    kernels against the same step through their plain versions, then the
+    counted steps. Returns (counts, trainer, state, scene, order, refs, mc)."""
+    from nope_nerf_torch.data import (SceneData, batch_for_frame, epoch_order,
+                                      make_synthetic_scene)
+    from nope_nerf_torch.ops.fused_render import plain_versions
+    from nope_nerf_torch.training import ModelConfigs, Trainer, create_train_state
+    from nope_nerf_torch.training.trainer import _sample_rays, step_gradients
+
+    h, w = RESOLUTION
+    cfg = hier_config()
+    scene = SceneData.from_dict(make_synthetic_scene(n_frames=4, h=h, w=w)).to_device(dev)
+    mc = ModelConfigs.from_cfg(cfg, num_cams=scene.n_frames)
+    state = create_train_state(SEED, mc, init_c2w=scene.c2ws_gt, device=dev)
+    trainer = Trainer(cfg, mc)
+    order, refs = epoch_order(scene.n_frames, shuffle=True, seed=SEED)
+    weights, _, rgb_loss_type = trainer._sched_at(0, 10000)
+
+    batch = batch_for_frame(scene, int(order[0]), ref_idx=int(refs[0]))
+    ray_idx = _sample_rays(torch.Generator(device=dev).manual_seed(SEED + 1), h * w, TRAIN_RAYS,
+                           None, False)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    noise = torch.rand((TRAIN_RAYS, mc.render.num_points), generator=gen, device=dev)
+    fine_u = torch.rand((TRAIN_RAYS, N_IMPORTANCE), generator=gen, device=dev) * (1.0 - 1e-5)
+    (g_k, ld_k), _ = counted(
+        lambda: step_gradients(state.params, batch, weights, ray_idx, None, mc, rgb_loss_type,
+                               noise=noise, fine_u=fine_u),
+        {"point_mlp_fwd": 2, "point_mlp_bwd": 1, "chamfer_bidir": 1},
+        "hierarchical train step 1 through the kernels")
+    with plain_versions():
+        g_p, ld_p = step_gradients(state.params, batch, weights, ray_idx, None, mc,
+                                   rgb_loss_type, noise=noise, fine_u=fine_u)
+    for k in ld_p:
+        err = abs(float(ld_k[k]) - float(ld_p[k]))
+        if not err <= 2e-3 * abs(float(ld_p[k])) + 1e-7:
+            raise RuntimeError(f"hierarchical train step 1: loss term {k} {float(ld_k[k])} "
+                               f"differs from the plain versions' {float(ld_p[k])}")
+    shares = {k: grad_share(g_k["nerf"][k], ref, False) for k, ref in g_p["nerf"].items()}
+    k_worst = max(shares, key=shares.get)
+    report = [f"worst nerf block {k_worst} at {shares[k_worst]:.3f} of its tolerance"]
+    if not shares[k_worst] <= 1.0:
+        raise RuntimeError(f"hierarchical train step 1: gradient nerf/{k_worst} at "
+                           f"{shares[k_worst]:.2f} of its tolerance against the plain versions'")
+    for group in ("pose", "distortion"):
+        for k, ref in g_p[group].items():
+            err, top = max_err(g_k[group][k], ref), float(ref.abs().max())
+            report.append(f"{group}/{k} {err:.3g} of {top:.3g}")
+            if not err <= 5e-2 * top + 1e-9:
+                raise RuntimeError(f"hierarchical train step 1: gradient {group}/{k} differs "
+                                   f"from the plain versions' by {err} (largest entry {top})")
+    print(f"hierarchical train step 1 vs plain versions: {len(ld_p)} loss terms within 2e-3 "
+          f"(loss {float(ld_k['loss']):.6g} vs {float(ld_p['loss']):.6g}); gradients: "
+          f"{len(shares)} nerf blocks within 5e-3 of each block's largest entry, pose and "
+          "distortion within 5e-2: " + ", ".join(report))
+
+    order, refs = np.resize(order, HIER_STEPS), np.resize(refs, HIER_STEPS)
+    (state, lds), counts = counted(
+        lambda: trainer.run_steps(state, scene, order, refs, epoch=0, scheduling_start=10000),
+        {"point_mlp_fwd": 2 * HIER_STEPS, "point_mlp_bwd": HIER_STEPS,
+         "chamfer_bidir": HIER_STEPS},
+        f"hierarchical train path (n_importance {N_IMPORTANCE}), {HIER_STEPS} steps of "
+        f"{TRAIN_RAYS} rays at {h}x{w}")
+    for k, v in lds.items():
+        if v.shape[0] != HIER_STEPS or not bool(torch.isfinite(v).all()):
+            raise RuntimeError(f"hierarchical train path: loss term {k} is not finite")
+    print("hierarchical train path: loss per step "
+          + " ".join(f"{v:.4f}" for v in lds["loss"].tolist()))
+    return counts, trainer, state, scene, order, refs, mc
+
+
+def run_hier_eval(torch, np, dev, trainer, state, scene, eval_inputs):
+    """Phase 6b: Trainer.render_frame at 188x621 with hierarchical sampling (K5
+    twice per chunk, the deterministic fine draw), a slab of it against the
+    plain versions, and pose-optimisation steps with n_importance 64 (K5 twice
+    and K6 once per step, the network frozen). Returns the frame's counts."""
+    import dataclasses
+    from nope_nerf_torch.data import batch_for_frame
+    from nope_nerf_torch.evaluation.pose_opt import pose_opt_step
+    from nope_nerf_torch.models.poses import init_pose_params
+    from nope_nerf_torch.ops.fused_render import plain_versions
+    from nope_nerf_torch.training.state import init_adam
+
+    h, w = RESOLUTION
+    chunks = math.ceil(h * w / 131072)
+    batch = batch_for_frame(scene, 1)
+    frame, frame_counts = counted(lambda: trainer.render_frame(state, batch, RESOLUTION),
+                                  {"point_mlp_fwd": 2 * chunks},
+                                  f"hierarchical render_frame {h}x{w}, {chunks} chunk")
+    if frame["rgb"].shape != (h, w, 3) or not (np.isfinite(frame["rgb"]).all()
+                                               and np.isfinite(frame["depth"]).all()):
+        raise RuntimeError("hierarchical render_frame: bad shape or non-finite values")
+    with plain_versions():
+        slab = trainer.render_frame(state, batch, RESOLUTION, rows=(0, 8))
+    for name in ("rgb", "depth"):
+        g = torch.as_tensor(frame[name][:8])
+        r = torch.as_tensor(slab[name])
+        err, tol = max_err(g, r), tolerance(r)
+        print(f"hierarchical frame rows 0-7 vs plain versions: {name} err {err:.3g} "
+              f"(tol {tol:.3g})")
+        if not err <= tol:
+            raise RuntimeError(f"hierarchical render_frame disagrees with the plain versions: "
+                               f"{name}")
+    print(f"hierarchical frame: rgb mean {frame['rgb'].mean():.4f}, depth mean "
+          f"{frame['depth'].mean():.4f}")
+
+    enerf, eimg, ecam, epcfg, eray_idx, eval_scene, emc = eval_inputs
+    rcfg = dataclasses.replace(emc.render, n_importance=N_IMPORTANCE)
+    pose = init_pose_params(epcfg, torch.as_tensor(eval_scene.c2ws_gt), device=dev)
+    adam = init_adam(pose)
+
+    def steps():
+        return [float(pose_opt_step(pose, adam, enerf, None, eimg, 0, ecam, eray_idx, 1e-3, epcfg,
+                                    None, emc.nerf, rcfg)) for _ in range(HIER_STEPS)]
+    losses, _ = counted(steps, {"point_mlp_fwd": 2 * HIER_STEPS, "point_mlp_bwd": HIER_STEPS},
+                        f"hierarchical pose-opt, {HIER_STEPS} steps")
+    if not all(math.isfinite(v) for v in losses) or not bool(pose["t"].abs().max() > 0):
+        raise RuntimeError("hierarchical pose optimisation: non-finite loss or a pose that "
+                           "did not move")
+    print("hierarchical pose-opt: loss per step " + " ".join(f"{v:.5f}" for v in losses))
+    return frame_counts, (pose, adam, enerf, eimg, ecam, eray_idx, epcfg, emc, rcfg)
+
+
+def run_slice_rest(torch, np, dev):
+    """Phase 6c: the rest of the slice. Train steps with normal_loss (the fused
+    render's K3 + K4 per step, the normal output through plain nerf_gradient);
+    cli.train for 2 epochs with the occupancy grid (created, updated each
+    epoch, checkpointed; a resume ends bit-equal to the straight run, grid
+    included); Trainer.render_geo at 120x160 (plain density queries)."""
+    from nope_nerf_torch.cli.train import train
+    from nope_nerf_torch.config import load_config
+    from nope_nerf_torch.data import (SceneData, batch_for_frame, epoch_order,
+                                      make_synthetic_scene)
+    from nope_nerf_torch.ops.render import render_nope_nerf
+    from nope_nerf_torch.training import ModelConfigs, Trainer, create_train_state
+    from nope_nerf_torch.training.checkpoints import load_params
+
+    # ---- normal_loss: the fused render's forward and backward kernels, and the normals
+    cfg = load_config(overrides={"training": {"n_training_points": TRAIN_RAYS},
+                                 "rendering": {"normal_loss": True},
+                                 "pose": {"learn_pose": True, "init_pose": True}})
+    scene = SceneData.from_dict(make_synthetic_scene(n_frames=4, h=120, w=160)).to_device(dev)
+    mc = ModelConfigs.from_cfg(cfg, num_cams=scene.n_frames)
+    state = create_train_state(SEED, mc, init_c2w=scene.c2ws_gt, device=dev)
+    order, refs = epoch_order(scene.n_frames, shuffle=True, seed=SEED)
+    (state, lds), _ = counted(
+        lambda: Trainer(cfg, mc).run_steps(state, scene, order[:2], refs[:2], epoch=0,
+                                           scheduling_start=10000),
+        {"render_fwd": 2, "render_bwd": 2, "chamfer_bidir": 2},
+        "normal_loss train path, 2 steps")
+    if not all(bool(torch.isfinite(v).all()) for v in lds.values()):
+        raise RuntimeError("normal_loss train path: non-finite loss term")
+    batch = batch_for_frame(scene, 0)
+    pixels = torch.rand((TRAIN_RAYS, 2), device=dev) * 2.0 - 1.0
+    out = render_nope_nerf(state.params["nerf"], pixels,
+                           torch.full((TRAIN_RAYS, 1), 3.0, device=dev), batch["camera_mat"],
+                           torch.eye(4, device=dev), None, torch.Generator(device=dev).manual_seed(1),
+                           mc.render, mc.nerf)
+    if out["normal"].shape != (TRAIN_RAYS,) or not bool(torch.isfinite(out["normal"]).all()):
+        raise RuntimeError("the normal output is missing or not finite")
+    print(f"normal_loss: 'normal' finite, mean {float(out['normal'].mean()):.4g}")
+
+    # ---- cli.train with the occupancy grid, and its resume
+    def occ_cfg(out_dir):
+        return load_config(overrides={
+            "training": {"out_dir": out_dir, "n_training_points": TRAIN_RAYS, "vis_geo": False,
+                         "print_every": 0, "validate_every": 0, "checkpoint_every": 0,
+                         "visualize_every": 0, "vis_reprojection_every": 0},
+            "rendering": {"occupancy_grid": True},
+            "pose": {"learn_pose": True, "init_pose": True}})
+
+    with tempfile.TemporaryDirectory() as root:
+        (state_a, trainer_a, cscene), _ = counted(
+            lambda: train(occ_cfg(os.path.join(root, "a")), synthetic=True,
+                          max_epochs=CLI_EPOCHS, device=dev),
+            {"render_train": 8 * CLI_EPOCHS, "chamfer_bidir": 8 * CLI_EPOCHS},
+            f"cli.train with the occupancy grid, {CLI_EPOCHS} epochs of 8 steps")
+        grid = trainer_a.occ_grid
+        _, scalars = load_params(os.path.join(root, "a"), "model.ckpt", device=dev)
+        if grid is None or tuple(grid.shape) != (64, 64, 64) or bool((grid == 1.0).all()):
+            raise RuntimeError("cli.train: the occupancy grid was not created or not updated")
+        if not np.array_equal(scalars.get("occ_grid"), grid.cpu().numpy()):
+            raise RuntimeError("cli.train: the checkpoint does not hold the occupancy grid")
+        cfg_b = occ_cfg(os.path.join(root, "b"))
+        train(cfg_b, synthetic=True, max_epochs=1, device=dev)
+        state_b, trainer_b, _ = train(cfg_b, synthetic=True, max_epochs=CLI_EPOCHS, device=dev)
+        equal = (states_bit_equal(torch, state_a, state_b)
+                 and torch.equal(trainer_a.occ_grid, trainer_b.occ_grid))
+        print(f"occupancy grid {tuple(grid.shape)}: occupied share "
+              f"{float((grid > 0.5).float().mean()):.4f}, checkpointed; resume (1 epoch + "
+              f"checkpoint + 1 epoch) against {CLI_EPOCHS} epochs straight, state and grid "
+              f"bit-equal: {equal}")
+        if not equal:
+            raise RuntimeError("a resumed occupancy run differs from the same epochs run straight")
+
+    # ---- the phong geometry view
+    vis = batch_for_frame(cscene, 0)
+    geo = trainer_a.render_geo(state_a, vis, (120, 160))
+    if geo.shape != (120, 160, 3) or not np.isfinite(geo).all():
+        raise RuntimeError("render_geo: bad shape or non-finite values")
+    hits = float((geo < 1.0).any(axis=-1).mean())
+    print(f"render_geo 120x160: finite, surface hits on {hits:.4f} of the pixels")
+    return trainer_a, state_a, vis
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -848,6 +1179,9 @@ def main() -> int:
     from nope_nerf_torch.ops._build import build_all
     from nope_nerf_torch.ops.chamfer import (CHAMFER_BIDIR, nearest_idx_bidirectional,
                                              nearest_idx_bidirectional_plain)
+    from nope_nerf_torch.ops.fused_mlp import (POINT_MLP_BWD, POINT_MLP_FWD, _mlp_bwd_cuda,
+                                               _mlp_fwd_cuda, point_mlp_bwd_plain,
+                                               point_mlp_fwd_plain)
     from nope_nerf_torch.ops.fused_render import (
         RENDER_BWD, RENDER_FWD, RENDER_TRAIN, STASH_HALF_DIMS, _render_bwd_cuda, pack_weights,
         render_ray_loss_fused, render_ray_loss_fused_plain, render_rays_fused,
@@ -860,7 +1194,8 @@ def main() -> int:
     print(smi)
 
     # ---- 1. build -----------------------------------------------------------
-    libraries = (RENDER_FWD, RENDER_TRAIN, RENDER_BWD, CHAMFER_BIDIR)
+    libraries = (RENDER_FWD, RENDER_TRAIN, RENDER_BWD, CHAMFER_BIDIR, POINT_MLP_FWD,
+                 POINT_MLP_BWD)
     t0 = time.perf_counter()
     build_all(libraries)
     print(f"build: {time.perf_counter() - t0:.1f} s for "
@@ -880,6 +1215,10 @@ def main() -> int:
     print(f"render_bwd: worst gradient error over the 16 cases at {bwd_share:.3f} of its "
           f"tolerance (grad_share)")
     chamfer_gap = check_chamfer(torch, dev, gen)
+    pfwd_err = check_point_mlp_fwd(torch, dev, gen)
+    pbwd_err, pbwd_share = check_point_mlp_bwd(torch, dev, gen)
+    print(f"point_mlp_bwd: worst gradient error over the 4 cases at {pbwd_share:.3f} of its "
+          f"tolerance (grad_share)")
 
     # ---- 3. the render path: novel views through the render CLI --------------
     fwd_launches, params, traj, scene, ncfg, rcfg, view0_inputs = run_render_path(
@@ -893,7 +1232,14 @@ def main() -> int:
         torch, np, dev)
     unfused_counts, utrainer, ustate, uscene, uorder, urefs = run_unfused_steps(torch, np, dev)
 
-    # ---- 6. timing at the main paths' shapes ---------------------------------
+    # ---- 6. hierarchical sampling through K5 / K6, and the rest of the slice --
+    hier_counts, htrainer, hstate, hscene, horder, hrefs, hmc = run_hier_train_path(torch, np, dev)
+    hframe_counts, hpose_args = run_hier_eval(
+        torch, np, dev, htrainer, hstate, hscene,
+        (enerf, eimg, ecam, epcfg, eray_idx, eval_scene, emc))
+    gtrainer, gstate, gbatch = run_slice_rest(torch, np, dev)
+
+    # ---- 7. timing at the main paths' shapes ---------------------------------
     h, w = RESOLUTION
     n_rays = h * w
     frame_ms = time_ms(lambda: render_trajectory(params["nerf"], traj[:1], scene.K,
@@ -1016,6 +1362,65 @@ def main() -> int:
           f"{chamfer_ms / steps_ms:.1%}, the rest (plain torch ops, autograd, Adam, host) "
           f"{rest_ms:.2f} ms = {rest_ms / steps_ms:.1%}")
 
+    # K5 at the coarse and fine passes' point counts, K6 at the fine pass's; the hierarchical
+    # train step, frame and pose-opt step end to end; the phong view
+    gen = torch.Generator().manual_seed(SEED + 5)
+    pcfg = NerfConfig(hidden_dim=256, use_pallas=True)
+    pparams = init_nerf_params(pcfg, gen, device=dev)
+    coarse_m, fine_m = TRAIN_RAYS * mc.render.num_points, TRAIN_RAYS * (
+        mc.render.num_points + N_IMPORTANCE)
+    cpts, cdirs = point_inputs(torch, dev, gen, coarse_m)
+    fpts, fdirs = point_inputs(torch, dev, gen, fine_m)
+    g_rgb, g_den = point_cotangents(torch, pparams, fpts, fdirs, pcfg)
+    pfwd_coarse_ms = time_ms(lambda: _mlp_fwd_cuda(pparams, cpts, cdirs, pcfg), 10)
+    pfwd_ms = time_ms(lambda: _mlp_fwd_cuda(pparams, fpts, fdirs, pcfg), 10)
+    pfwd_plain_ms = time_ms(lambda: point_mlp_fwd_plain(pparams, fpts, fdirs, pcfg), 2)
+    pbwd_ms = time_ms(lambda: _mlp_bwd_cuda(pparams, fpts, fdirs, g_rgb, g_den, pcfg), 10)
+    pbwd_plain_ms = time_ms(lambda: point_mlp_bwd_plain(pparams, fpts, fdirs, g_rgb, g_den,
+                                                        pcfg), 2)
+    W, B = pack_weights(pparams, pcfg)
+    pweight_bytes = numel_bytes(W) + numel_bytes(B)
+    pgrad_bytes = 4 * sum(v.numel() for v in pparams.values())
+    # each point has its own direction: the MLP of one-sample rays, 1,186,816 FLOP a point
+    p_flops = mlp_flops(pcfg.hidden_dim, 1, 1)
+    pf_bound, pf_by, pf_ops_ms, pf_bytes_ms = bound(p_flops * fine_m, PEAK_BF16_FLOPS,
+                                                    40 * fine_m + pweight_bytes)
+    pc_bound, _, _, _ = bound(p_flops * coarse_m, PEAK_BF16_FLOPS, 40 * coarse_m + pweight_bytes)
+    pb_bound, pb_by, pb_ops_ms, pb_bytes_ms = bound(3 * p_flops * fine_m, PEAK_BF16_FLOPS,
+                                                    64 * fine_m + pweight_bytes + pgrad_bytes)
+    pstash_ms = 2 * fine_m * STASH_HALF_DIMS * pcfg.hidden_dim / PEAK_BYTES * 1e3
+    print(f"point_mlp_fwd: {coarse_m} points (coarse pass) {pfwd_coarse_ms:.3f} ms, bound "
+          f"{pc_bound:.3f} ms; {fine_m} points (fine pass) {pfwd_ms:.3f} ms, plain version "
+          f"{pfwd_plain_ms:.2f} ms; {p_flops * fine_m / 1e12:.3f} TFLOP ({pf_ops_ms:.3f} ms), "
+          f"{(40 * fine_m + pweight_bytes) / 1e6:.1f} MB ({pf_bytes_ms:.4f} ms) -> bound "
+          f"{pf_bound:.3f} ms by {pf_by} ({p_flops * fine_m / pfwd_ms / 1e9:.1f} TFLOP/s "
+          f"achieved, {pfwd_ms / pf_bound:.1f} x the bound)")
+    print(f"point_mlp_bwd: {fine_m} points {pbwd_ms:.3f} ms, plain version {pbwd_plain_ms:.2f} "
+          f"ms; {3 * p_flops * fine_m / 1e12:.3f} TFLOP ({pb_ops_ms:.3f} ms), "
+          f"{(64 * fine_m + pweight_bytes + pgrad_bytes) / 1e6:.1f} MB of points, cotangents, "
+          f"weights and gradients ({pb_bytes_ms:.4f} ms) -> bound {pb_bound:.3f} ms by {pb_by} "
+          f"({3 * p_flops * fine_m / pbwd_ms / 1e9:.1f} TFLOP/s achieved, "
+          f"{pbwd_ms / pb_bound:.1f} x the bound); outside the bound, the kernel's own stash: "
+          f"{pstash_ms:.3f} ms at the memory rate")
+
+    def hier_steps():
+        htrainer.run_steps(hstate, hscene, horder, hrefs, epoch=0, scheduling_start=10000)
+    hier_step_ms = time_ms(hier_steps, 2) / HIER_STEPS
+    hbatch = batch_for_frame(hscene, 1)
+    hier_frame_ms = time_ms(lambda: htrainer.render_frame(hstate, hbatch, RESOLUTION), 2)
+    hpose, hadam, henerf, heimg, hecam, heray_idx, hepcfg, hemc, hrcfg = hpose_args
+    hier_pose_ms = time_ms(lambda: pose_opt_step(hpose, hadam, henerf, None, heimg, 0, hecam,
+                                                 heray_idx, 1e-3, hepcfg, None, hemc.nerf,
+                                                 hrcfg), 10)
+    geo_ms = time_ms(lambda: gtrainer.render_geo(gstate, gbatch, (120, 160)), 1)
+    print(f"hierarchical train step {h}x{w}, {TRAIN_RAYS} rays x ({mc.render.num_points} + "
+          f"{N_IMPORTANCE}): {hier_step_ms:.2f} ms end to end ({TRAIN_RAYS / hier_step_ms * 1e3:.0f}"
+          f" rays/s), point_mlp_fwd x2 + point_mlp_bwd "
+          f"{(pfwd_coarse_ms + pfwd_ms + pbwd_ms) / hier_step_ms:.1%} of it; hierarchical "
+          f"Trainer.render_frame {h}x{w} {hier_frame_ms:.2f} ms end to end "
+          f"({n_rays / hier_frame_ms * 1e3:.0f} rays/s); hierarchical pose-opt step "
+          f"{hier_pose_ms:.2f} ms; render_geo 120x160 {geo_ms:.1f} ms (plain density queries)")
+
     print(json.dumps({"kernels": [
         {"name": "render_fwd", "route": "cuda",
          "source": "nope_nerf_torch/csrc/render_fwd.cu",
@@ -1050,7 +1455,20 @@ def main() -> int:
          "replaces": "nope_nerf_tpu/ops/pallas_chamfer.py:78",
          "launches": counts["chamfer_bidir"], "max_abs_err": chamfer_gap, "ms": chamfer_ms,
          "plain_ms": chamfer_plain_ms, "bound_ms": c_bound, "bound_by": c_by,
-         "library_ms": chamfer_lib_ms}]}))
+         "library_ms": chamfer_lib_ms},
+        # at the fine pass's 196,608 points; the coarse pass's time is printed above
+        {"name": "point_mlp_fwd", "route": "cuda",
+         "source": "nope_nerf_torch/csrc/point_mlp_fwd.cu",
+         "replaces": "nope_nerf_tpu/ops/pallas_mlp.py:186",
+         "launches": hier_counts["point_mlp_fwd"], "max_abs_err": pfwd_err, "ms": pfwd_ms,
+         "plain_ms": pfwd_plain_ms, "bound_ms": pf_bound, "bound_by": pf_by,
+         "library_ms": None},
+        {"name": "point_mlp_bwd", "route": "cuda",
+         "source": "nope_nerf_torch/csrc/point_mlp_bwd.cu",
+         "replaces": "nope_nerf_tpu/ops/pallas_mlp.py:273",
+         "launches": hier_counts["point_mlp_bwd"], "max_abs_err": pbwd_err, "ms": pbwd_ms,
+         "plain_ms": pbwd_plain_ms, "bound_ms": pb_bound, "bound_by": pb_by,
+         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -47,7 +47,7 @@ def evaluate(cfg: dict, synthetic: bool = False, device: DeviceLike = None, save
 
     if cfg["extract_images"].get("lpips_weights"):
         raise NotImplementedError("extract_images.lpips_weights is set, but the LPIPS network "
-                                  "(evaluation/lpips.py) comes with a later slice of the port; "
+                                  "(evaluation/lpips.py) comes with the LPIPS/DPT slice of the port; "
                                   "unset it to evaluate without LPIPS")
     if not synthetic:
         raise NotImplementedError(

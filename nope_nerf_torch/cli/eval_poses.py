@@ -31,7 +31,8 @@ def evaluate_poses(cfg: dict, vis: bool = False, synthetic: bool = False,
 
     if vis:
         raise NotImplementedError("the trajectory figure and frustum export (vis) need "
-                                  "cli/vis_poses.py, which is not ported yet")
+                                  "cli/vis_poses.py, which comes with the data slice of the "
+                                  "port (on-disk scenes)")
     dev = resolve_device(device)
     out_dir = cfg["training"]["out_dir"]
     extraction_dir = os.path.join(out_dir, cfg["eval_pose"]["extraction_dir"])

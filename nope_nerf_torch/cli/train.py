@@ -61,15 +61,8 @@ def check_supported(cfg: dict) -> None:
     t = cfg["training"]
     if cfg["dataloading"]["show_pose_only"]:
         raise NotImplementedError("dataloading.show_pose_only draws pose frustums with "
-                                  "cli/vis_poses.py, which is not ported yet")
-    if t["vis_geo"] and t["visualize_every"] > 0:
-        raise NotImplementedError(
-            "training.vis_geo renders the phong geometry view (ops/phong.py, through the "
-            "point-query MLP kernels K5/K6), which is not ported yet: set training.vis_geo "
-            "to false or training.visualize_every to 0")
-    if cfg["rendering"].get("occupancy_grid", False):
-        raise NotImplementedError("rendering.occupancy_grid needs ops/occupancy.py (through the "
-                                  "point-query MLP kernels K5/K6), which is not ported yet")
+                                  "cli/vis_poses.py, which comes with the data slice of the "
+                                  "port (on-disk scenes)")
     if cfg["tpu"]["mesh_shape"]:
         raise NotImplementedError("tpu.mesh_shape asks for a device mesh; the multi-device "
                                   "slice of the port is not there yet")
@@ -160,11 +153,19 @@ def train(cfg: dict, synthetic: bool = False, max_epochs: Optional[int] = None,
         scheduling_start = scalars.get("scheduling_start", scheduling_start)
         psnr_best = scalars.get("psnr_best", psnr_best)
         auto.load_state_dict(scalars)
+        if scalars.get("occ_grid") is not None:
+            # resume the EMA occupancy grid: a fresh all-ones grid would make a
+            # resumed run sample differently for dozens of epochs (ignored when
+            # the config has the grid off)
+            trainer.set_occupancy_grid(scalars["occ_grid"])
         print(f"resumed from {t_cfg['load_dir']} at epoch {epoch_it}, it {it}")
 
     def ckpt_scalars(ep, sched_start):
-        return {"epoch_it": ep, "scheduling_start": sched_start, "psnr_best": psnr_best,
-                **auto.state_dict()}
+        sc = {"epoch_it": ep, "scheduling_start": sched_start, "psnr_best": psnr_best,
+              **auto.state_dict()}
+        if trainer.occ_grid is not None:
+            sc["occ_grid"] = trainer.occ_grid.cpu().numpy()
+        return sc
 
     try:
         from torch.utils.tensorboard import SummaryWriter
@@ -214,6 +215,12 @@ def train(cfg: dict, synthetic: bool = False, max_epochs: Optional[int] = None,
             _save_u8(os.path.join(vis_dir, "rgb.png"), out["rgb"])
             d = out["depth"]
             _save_u8(os.path.join(vis_dir, "depth.png"), (d - d.min()) / max(d.max(), 1e-6))
+            if t_cfg["vis_geo"]:
+                # phong geometry view (reference render_visdata's vis_geo branch,
+                # training.py:146-163)
+                geo = trainer.render_geo(state, vis_batch, tuple(t_cfg["vis_resolution"]),
+                                         radius=cfg["rendering"]["radius"])
+                _save_u8(os.path.join(vis_dir, "geo.png"), geo)
 
         if validate_every > 0 and itj % validate_every == 0:
             # render the vis frame and log PSNR (reference Trainer.evaluate via
@@ -254,6 +261,7 @@ def train(cfg: dict, synthetic: bool = False, max_epochs: Optional[int] = None,
                           f"{max_epochs}; nothing to train (delete {out_dir} or raise "
                           f"--max-epochs to rerun)")
                 break
+            trainer.update_occupancy(state, epoch_it)    # no-op unless the grid is on
             order, refs = epoch_order(scene.n_frames, shuffle=cfg["dataloading"]["shuffle"],
                                       random_ref=cfg["dataloading"]["random_ref"],
                                       seed=seed + epoch_it)
@@ -312,6 +320,8 @@ def train(cfg: dict, synthetic: bool = False, max_epochs: Optional[int] = None,
                 # Adam's moments stay, as in the JAX package
                 gen = torch.Generator().manual_seed(seed * 1_000_003 + epoch_it)
                 state.params["nerf"] = reset_linear_params(gen, state.params["nerf"], mc.nerf)
+                # the EMA grid describes the old field: start it afresh
+                trainer.reset_occupancy()
                 print(f"scheduling_mode=reset: re-initialized NeRF at epoch {epoch_it}")
     finally:
         # flush the held best-PSNR state on any exit: divergence abort,

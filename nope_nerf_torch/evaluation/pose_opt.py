@@ -10,7 +10,9 @@ stratified noise, eval renormalization), as the reference does
 
 A step is one forward launch of the render kernel and one launch of its
 backward kernel (the frozen-network variant: only the ray table's gradient is
-needed, and it carries the pose's). The JAX package's scan chunks, padding
+needed, and it carries the pose's); with rendering.n_importance > 0 it is two
+launches of the point-query MLP forward (coarse and fine pass) and one of its
+backward, whose dW/dB the frozen NeRF discards. The JAX package's scan chunks, padding
 mask and jit cache are dispatch devices of that machine; here the epochs and
 frames are a plain loop, and nothing is read back except for the log line.
 """

@@ -3,8 +3,11 @@
 Port of nope_nerf_tpu/models/nerf.py: params are a flat dict of (in, out)
 weight matrices with the JAX package's names, so a JAX state converts without
 reshaping (see nope_nerf_torch/convert.py). `nerf_apply` is the plain path on
-(M, 3) point batches; the fused render kernel (ops/fused_render.py) computes
-the same network inside one CUDA kernel.
+(M, 3) point batches; the fused render kernels (ops/fused_render.py) and the
+point-query MLP kernels (ops/fused_mlp.py) compute the same network inside
+CUDA kernels. `nerf_density` and `nerf_gradient` stay plain on every device,
+as the JAX package runs them outside its kernels (occupancy grid, phong view,
+normals).
 """
 
 from __future__ import annotations
@@ -165,6 +168,22 @@ def nerf_density(params: Params, pts: torch.Tensor, cfg: NerfConfig) -> torch.Te
     """Density/occupancy only (the reference's only_occupancy=True path)."""
     x = _trunk(params, encode_position(pts, cfg.pos_enc_levels), cfg)
     return _occupancy(_matmul(x, params["density_w"], params["density_b"], cfg), cfg)
+
+
+def nerf_gradient(params: Params, pts: torch.Tensor, cfg: NerfConfig) -> torch.Tensor:
+    """Negative spatial gradient of the raw (pre-activation) density head with
+    respect to the points, (M, 3) (reference official_nerf.py:46-58, the
+    surface normals). Under grad mode, when the params or the points require
+    a gradient, the result keeps its graph (create_graph) and stays
+    differentiable in them."""
+    create = torch.is_grad_enabled() and (
+        pts.requires_grad or any(v.requires_grad for v in params.values()))
+    with torch.enable_grad():
+        p = pts if create and pts.requires_grad else pts.detach().requires_grad_(True)
+        x = _trunk(params, encode_position(p, cfg.pos_enc_levels), cfg)
+        raw = _matmul(x, params["density_w"], params["density_b"], cfg)
+        grad, = torch.autograd.grad(raw.sum(), p, create_graph=create)
+    return -grad
 
 
 def nerf_apply(params: Params, pts: torch.Tensor, ray_d: torch.Tensor,

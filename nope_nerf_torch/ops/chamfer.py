@@ -99,7 +99,8 @@ def _nearest_idx_cuda(x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, t
     if max(s, d) > MAX_POINTS:
         raise NotImplementedError(
             f"the CUDA Chamfer kernel takes clouds of at most {MAX_POINTS} points, got "
-            f"{s} and {d}; the sweep for larger clouds comes with a later slice of the port")
+            f"{s} and {d}; the sweep for larger clouds comes with the slice of the port that "
+            "brings K7 (pallas_chamfer.py::_kernel)")
     x = x.detach().to(torch.float32).contiguous()
     y = y.detach().to(torch.float32).contiguous()
     lib = CHAMFER_BIDIR.lib()

@@ -434,6 +434,41 @@ def _plain_forward(Wf, B, rays, z, cfg: NerfConfig, dist_alpha: bool,
             "ray_rgb": (weights[..., None] * rgb3).sum(dim=1)}
 
 
+def mlp_backward(Wf, pe, de, acts, g_rgb, g_sig, n: int, S: int):
+    """MLP backward (pallas_mlp.py:207-260) from the cotangents of the raw
+    heads, g_rgb (T,3) and g_sig (T,), over T = n*S points whose direction
+    encoding `de` (n,32) is shared by each group of S: dW = x^T . bf16(g)
+    stored (in, out), dX = bf16(g) . W^T with Wf[i] = W^T (the (out, in)
+    weights as f32). Returns (dWs [14], dBs [12], dpe (T,64), dde (n,32))."""
+    r = bf16_round
+    x0, x1, x2, x3, x4, x5, x6, x7, feat, h = acts
+    dW: List[Optional[torch.Tensor]] = [None] * 14
+    dB: List[Optional[torch.Tensor]] = [None] * 12
+    H = h.shape[1]
+    dW[13], dB[11] = h.t() @ r(g_rgb), g_rgb.sum(dim=0)
+    g_h = (r(g_rgb) @ Wf[13][:3]) * (h > 0)
+    rg_h = r(g_h)
+    dW[11], dB[10] = feat.t() @ rg_h, g_h.sum(dim=0)
+    dW[12] = de.t() @ rg_h.reshape(n, S, H).sum(dim=1)      # rounded per point, then summed
+    dde = (rg_h @ Wf[12]).reshape(n, S, DE_DIM).sum(dim=1)  # (n, 32)
+    g_feat = rg_h @ Wf[11]
+    dW[10], dB[9] = x7.t() @ r(g_feat), g_feat.sum(dim=0)
+    dW[9], dB[8] = x7.t() @ r(g_sig)[:, None], g_sig.sum().reshape(1)
+    g = (r(g_feat) @ Wf[10] + r(g_sig)[:, None] * Wf[9][0][None, :]) * (x7 > 0)
+    for wi, bi, x_in in ((8, 7, x6), (7, 6, x5), (6, 5, x4)):
+        dW[wi], dB[bi] = x_in.t() @ r(g), g.sum(dim=0)
+        g = (r(g) @ Wf[wi]) * (x_in > 0)
+    g4 = g
+    for wi, bi, x_in in ((4, 4, x3), (3, 3, x2), (2, 2, x1), (1, 1, x0)):
+        dW[wi], dB[bi] = x_in.t() @ r(g), g.sum(dim=0)
+        g = (r(g) @ Wf[wi]) * (x_in > 0)
+    g0 = g
+    dB[0] = g0.sum(dim=0)
+    dW[0], dW[5] = pe.t() @ r(g0), pe.t() @ r(g4)
+    dpe = r(g0) @ Wf[0] + r(g4) @ Wf[5]                      # (T, 64)
+    return dW, dB, dpe, dde
+
+
 def _plain_backward_tail(Wf, rays, z, fwd: Dict[str, object], cfg: NerfConfig, dist_alpha: bool,
                          g_rgb_ray, g_dist, g_w_in, g_a_in, white_bg: bool):
     """Composite -> heads -> MLP -> encoding backward of one block of rays
@@ -445,10 +480,8 @@ def _plain_backward_tail(Wf, rays, z, fwd: Dict[str, object], cfg: NerfConfig, d
     1 - sum(weights) term in. Returns (dWs [14] stored (in, out), dBs [12],
     drays (n,9), dz (n,S))."""
     n, S = z.shape
-    r = bf16_round
     v, d = rays[:, 3:6], rays[:, 6:9]
     pts, pe, de = fwd["pts"], fwd["pe"], fwd["de"]
-    x0, x1, x2, x3, x4, x5, x6, x7, feat, h = fwd["acts"]
     raw, occ, last, deltas = fwd["raw"], fwd["occ"], fwd["last"], fwd["deltas"]
     alpha, trans, weights, rgb3 = fwd["alpha"], fwd["trans"], fwd["weights"], fwd["rgb3"]
 
@@ -478,33 +511,7 @@ def _plain_backward_tail(Wf, rays, z, fwd: Dict[str, object], cfg: NerfConfig, d
         g_raw = g_sigma * (raw > 0.0)
     g_sig = g_raw.reshape(-1)                                              # (T,)
     g_rgb = (weights[..., None] * g_rgb_ray[:, None, :] * rgb3 * (1.0 - rgb3)).reshape(-1, 3)
-
-    # ---- MLP backward (pallas_mlp.py:207-260) -------------------------------
-    # dW = x^T . bf16(g) stored (in, out); dX = bf16(g) . W^T with Wf[i] = W^T
-    dW: List[Optional[torch.Tensor]] = [None] * 14
-    dB: List[Optional[torch.Tensor]] = [None] * 12
-    H = h.shape[1]
-    dW[13], dB[11] = h.t() @ r(g_rgb), g_rgb.sum(dim=0)
-    g_h = (r(g_rgb) @ Wf[13][:3]) * (h > 0)
-    rg_h = r(g_h)
-    dW[11], dB[10] = feat.t() @ rg_h, g_h.sum(dim=0)
-    dW[12] = de.t() @ rg_h.reshape(n, S, H).sum(dim=1)      # rounded per point, then summed
-    dde = (rg_h @ Wf[12]).reshape(n, S, DE_DIM).sum(dim=1)  # (n, 32)
-    g_feat = rg_h @ Wf[11]
-    dW[10], dB[9] = x7.t() @ r(g_feat), g_feat.sum(dim=0)
-    dW[9], dB[8] = x7.t() @ r(g_sig)[:, None], g_sig.sum().reshape(1)
-    g = (r(g_feat) @ Wf[10] + r(g_sig)[:, None] * Wf[9][0][None, :]) * (x7 > 0)
-    for wi, bi, x_in in ((8, 7, x6), (7, 6, x5), (6, 5, x4)):
-        dW[wi], dB[bi] = x_in.t() @ r(g), g.sum(dim=0)
-        g = (r(g) @ Wf[wi]) * (x_in > 0)
-    g4 = g
-    for wi, bi, x_in in ((4, 4, x3), (3, 3, x2), (2, 2, x1), (1, 1, x0)):
-        dW[wi], dB[bi] = x_in.t() @ r(g), g.sum(dim=0)
-        g = (r(g) @ Wf[wi]) * (x_in > 0)
-    g0 = g
-    dB[0] = g0.sum(dim=0)
-    dW[0], dW[5] = pe.t() @ r(g0), pe.t() @ r(g4)
-    dpe = r(g0) @ Wf[0] + r(g4) @ Wf[5]                      # (T, 64)
+    dW, dB, dpe, dde = mlp_backward(Wf, pe, de, fwd["acts"], g_rgb, g_sig, n, S)
 
     # ---- encoding backward -> ray table and z (:484-523) --------------------
     dpts = _enc_deriv_to_coords(dpe, pts, 10).reshape(n, S, 3)

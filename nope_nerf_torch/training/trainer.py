@@ -10,11 +10,14 @@ The step runs eagerly. With an eligible config the rays go through
 ops/fused_render.render_ray_loss_fused: one launch of the train kernel gives
 the rgb + depth term and every gradient below it, and autograd carries the
 rest (poses, distortions, the pair losses). Other fused-eligible configs
-render through render_nope_nerf, forward and backward kernels on CUDA; configs
-the fused render cannot serve run through autograd on the CPU only. The
+render through render_nope_nerf, forward and backward kernels on CUDA; the
+configs the fused render cannot serve (hierarchical sampling, num_points %
+128 != 0) render through its unfused route, whose MLP queries are the
+point-query kernels (ops/fused_mlp.py) on CUDA with use_pallas. The
 frame-order select of the JAX package (a traced where) is a plain `if` here.
-Trainer.render_frame renders a whole eval frame; render_geo and the occupancy
-grid are not ported yet.
+Trainer.render_frame renders a whole eval frame, Trainer.render_geo the phong
+geometry view; the Trainer keeps the occupancy grid (ops/occupancy.py) when
+rendering.occupancy_grid is set.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from ..models.intrinsics import focal_fxfy
 from ..models.poses import pose_c2w, pose_translations
 from ..ops.fused_render import pack_targets, render_ray_loss_fused
 from ..ops.interp import get_tensor_values, resize_area, resize_bilinear, resize_nearest
+from ..ops.occupancy import make_occupancy_grid, update_occupancy_grid
 from ..ops.render import fused_train_eligible, fused_train_prepare, render_nope_nerf
 from .scheduler import annealed_weights, lr_at_epoch, rgb_loss_type_at
 from .state import ModelConfigs, TrainState, adam_step
@@ -71,9 +75,12 @@ def _apply_distortion(depth: torch.Tensor, scale: torch.Tensor, shift: torch.Ten
 
 def _ray_terms(nerf_params, pixels, depth_prior, rgb_gt, prior_mask, camera_mat, world_mat,
                scale_mat, generator, mc: ModelConfigs, rgb_loss_type: str, n_total: int,
-               weights: Dict[str, float], noise: Optional[torch.Tensor] = None):
+               weights: Dict[str, float], noise: Optional[torch.Tensor] = None,
+               fine_u: Optional[torch.Tensor] = None, occ_grid: Optional[torch.Tensor] = None):
     """Render the ray batch and reduce its loss terms to scalars:
-    (l_rgb, l_depth, l2_mean, ray_total).
+    (l_rgb, l_depth, l2_mean, ray_total). `noise` and `fine_u` pin the
+    stratified (or occupancy) jitter and the hierarchical fine draw;
+    `occ_grid` guides the sampling when given.
 
     On the fused path ray_total is the already-weighted rgb + depth term from
     the one program that also produces every gradient below it, and l_rgb,
@@ -87,7 +94,7 @@ def _ray_terms(nerf_params, pixels, depth_prior, rgb_gt, prior_mask, camera_mat,
     if fused:
         ray_table, z_val, depth_gt, object_mask = fused_train_prepare(
             pixels, depth_prior, camera_mat, world_mat, scale_mat, generator, mc.render,
-            add_noise=mc.stratified_noise, noise=noise)
+            add_noise=mc.stratified_noise, noise=noise, occ_grid=occ_grid)
         if mc.detach_gt_depth:
             depth_gt = depth_gt.detach()
         mask = object_mask & prior_mask
@@ -106,7 +113,7 @@ def _ray_terms(nerf_params, pixels, depth_prior, rgb_gt, prior_mask, camera_mat,
 
     out = render_nope_nerf(nerf_params, pixels, depth_prior, camera_mat, world_mat, scale_mat,
                            generator, mc.render, mc.nerf, add_noise=mc.stratified_noise,
-                           eval_=False, noise=noise)
+                           eval_=False, noise=noise, occ_grid=occ_grid, fine_u=fine_u)
     depth_pred, depth_gt = out["depth_pred"], out["depth_gt"]
     if mc.detach_gt_depth:
         depth_gt = depth_gt.detach()
@@ -131,11 +138,14 @@ def _ray_terms(nerf_params, pixels, depth_prior, rgb_gt, prior_mask, camera_mat,
 def compute_step_loss(params: Dict[str, Any], batch: Dict[str, Any], weights: Dict[str, float],
                       ray_idx: torch.Tensor, generator: Optional[torch.Generator],
                       mc: ModelConfigs, rgb_loss_type: str,
-                      noise: Optional[torch.Tensor] = None
+                      noise: Optional[torch.Tensor] = None,
+                      fine_u: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The loss of one frame and its reference frame, differentiable in `params`
     through autograd: (loss, loss_dict). `noise` pins the stratified jitter
-    (N, S) that `generator` would otherwise draw."""
+    (N, S) and `fine_u` the hierarchical fine draw (N, n_importance) that
+    `generator` would otherwise draw. batch["occ_grid"], when present, guides
+    the sampling."""
     img = batch["img"]                      # (H, W, 3)
     depth_input = batch["depth"]            # (H, W)
     depth_mask = batch["depth_mask"]        # (H, W) bool
@@ -183,7 +193,7 @@ def compute_step_loss(params: Dict[str, Any], batch: Dict[str, Any], weights: Di
         l_rgb, l_depth, l2_mean, ray_total = _ray_terms(
             params["nerf"], pixels, depth_prior, rgb_gt, depth_mask[iy, ix], camera_mat,
             world_mat, scale_mat, generator, mc, rgb_loss_type, mc.n_training_points,
-            weights, noise=noise)
+            weights, noise=noise, fine_u=fine_u, occ_grid=batch.get("occ_grid"))
         precomputed = {"loss_rgb": l_rgb, "loss_depth": l_depth, "l2_mean": l2_mean}
         if ray_total is not None:
             precomputed["ray_total"] = ray_total
@@ -265,14 +275,14 @@ def compute_step_loss(params: Dict[str, Any], batch: Dict[str, Any], weights: Di
 
 
 def step_gradients(params: Dict[str, Dict[str, torch.Tensor]], batch, weights, ray_idx,
-                   generator, mc: ModelConfigs, rgb_loss_type: str, noise=None):
+                   generator, mc: ModelConfigs, rgb_loss_type: str, noise=None, fine_u=None):
     """(grads shaped like params, detached loss_dict) of compute_step_loss. A
     tensor the loss does not reach (a frozen init pose) gets a zero gradient,
     as jax.grad gives it."""
     leaves = {g: {k: v.detach().requires_grad_(True) for k, v in group.items()}
               for g, group in params.items()}
     loss, loss_dict = compute_step_loss(leaves, batch, weights, ray_idx, generator, mc,
-                                        rgb_loss_type, noise=noise)
+                                        rgb_loss_type, noise=noise, fine_u=fine_u)
     flat = [(g, k) for g in leaves for k in leaves[g]]
     grads = torch.autograd.grad(loss, [leaves[g][k] for g, k in flat], allow_unused=True)
     out: Dict[str, Dict[str, torch.Tensor]] = {g: {} for g in leaves}
@@ -285,11 +295,12 @@ def step_gradients(params: Dict[str, Dict[str, torch.Tensor]], batch, weights, r
 def train_step(state: TrainState, batch: Dict[str, Any], weights: Dict[str, float],
                lrs: Dict[str, float], mc: ModelConfigs, rgb_loss_type: str,
                ray_idx: Optional[torch.Tensor] = None,
-               noise: Optional[torch.Tensor] = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+               noise: Optional[torch.Tensor] = None,
+               fine_u: Optional[torch.Tensor] = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One full optimization step: state -> (state, metrics). The state's
     tensors are updated in place and the same state object is returned.
-    `ray_idx` and `noise` pin the two random draws (tests); otherwise both
-    come from the state's generator."""
+    `ray_idx`, `noise` and `fine_u` pin the random draws (tests); otherwise
+    they come from the state's generator."""
     h, w, _ = batch["img"].shape
     if ray_idx is None:
         ray_idx = _sample_rays(
@@ -298,7 +309,7 @@ def train_step(state: TrainState, batch: Dict[str, Any], weights: Dict[str, floa
             mc.use_sparse_depth_resample)
     ray_idx = ray_idx.to(batch["img"].device)
     grads, loss_dict = step_gradients(state.params, batch, weights, ray_idx, state.generator,
-                                      mc, rgb_loss_type, noise=noise)
+                                      mc, rgb_loss_type, noise=noise, fine_u=fine_u)
     for group in state.params:
         adam_step(state.params[group], grads[group], state.opt_state[group], lrs[group],
                   mc.weight_decay if group == "nerf" else 0.0)
@@ -332,14 +343,17 @@ def train_steps(state: TrainState, scene_stack: Dict[str, torch.Tensor], order, 
             batch["ref_img_small"] = scene_stack["imgs_small"][ref]
             batch["rgb_pc"] = scene_stack["rgb_pc"][idx]
             batch["ref_rgb_pc"] = scene_stack["rgb_pc"][ref]
+        if "occ_grid" in scene_stack:
+            batch["occ_grid"] = scene_stack["occ_grid"]
         state, loss_dict = train_step(state, batch, weights, lrs, mc, rgb_loss_type)
         dicts.append(loss_dict)
     return state, {k: torch.stack([d[k] for d in dicts]) for k in dicts[0]}
 
 
 class Trainer:
-    """Host-side orchestration: the epoch's schedule scalars and the per-scene
-    warp cache. The per-step compute lives in train_step."""
+    """Host-side orchestration: the epoch's schedule scalars, the per-scene
+    warp cache and the occupancy grid. The per-step compute lives in
+    train_step."""
 
     def __init__(self, cfg: dict, mc: ModelConfigs):
         self.cfg = cfg
@@ -353,6 +367,19 @@ class Trainer:
         self.decay_intervals = {"nerf": 10, "pose": 100, "focal": 100, "distortion": 100}
         self._sched_cache: Dict[Any, Any] = {}
         self._warp_cache = None   # per-scene photometric-warp constants (_warp_frames)
+        # occupancy-grid guided sampling (ops/occupancy.py), created by update_occupancy
+        r = cfg["rendering"]
+        self.occ_grid: Optional[torch.Tensor] = None
+        self._occ_enabled = bool(r.get("occupancy_grid", False))
+        self._occ_res = int(r.get("occupancy_res", 64))
+        self._occ_decay = float(r.get("occupancy_decay", 0.95))
+        self._occ_update_every = int(r.get("occupancy_update_every", 1))
+        if self._occ_enabled and mc.render.sample_option == "ndc":
+            # NDC sampling takes priority in _ray_geometry: a grid would only cost a
+            # 262k-point density query per epoch and checkpoint space
+            print("WARNING: rendering.occupancy_grid is ignored with sample_option=ndc "
+                  "(NDC z-sampling takes priority); disabling occupancy for this run")
+            self._occ_enabled = False
 
     def lrs_at(self, epoch: int, scheduling_start: int) -> Dict[str, float]:
         return {g: lr_at_epoch(self.base_lrs[g], self.gammas[g], scheduling_start, epoch,
@@ -378,6 +405,8 @@ class Trainer:
     def step(self, state: TrainState, batch: Dict[str, Any], epoch: int,
              scheduling_start: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         weights, lrs, rgb_loss_type = self._sched_at(epoch, scheduling_start)
+        if self.occ_grid is not None and "occ_grid" not in batch:
+            batch = {**batch, "occ_grid": self.occ_grid}
         return train_step(state, batch, weights, lrs, self.mc, rgb_loss_type)
 
     def run_steps(self, state: TrainState, scene, order, ref_order, epoch: int,
@@ -392,6 +421,8 @@ class Trainer:
         if small is not None:
             scene_stack["imgs_small"] = small
             scene_stack["rgb_pc"] = rgb_pc
+        if self.occ_grid is not None:
+            scene_stack["occ_grid"] = self.occ_grid
         return train_steps(state, scene_stack, order, ref_order, weights, lrs, self.mc,
                            rgb_loss_type)
 
@@ -413,6 +444,50 @@ class Trainer:
                                                     align_corners=True) for sm in small])
             self._warp_cache = (imgs, small, rgb_pc)
         return self._warp_cache[1], self._warp_cache[2]
+
+    def set_occupancy_grid(self, grid) -> None:
+        """Install a grid (a checkpoint's). Ignored when the feature is off: a
+        checkpoint of an occupancy run does not turn it on under a config that
+        has it off. The grid goes to the device of the nerf params once the
+        first update runs, or at once when one ran."""
+        if not self._occ_enabled:
+            return
+        grid = torch.as_tensor(np.asarray(grid, np.float32))
+        if grid.shape[0] != self._occ_res:
+            print(f"WARNING: checkpointed occupancy grid is {grid.shape[0]}^3 but "
+                  f"rendering.occupancy_res={self._occ_res}; keeping the checkpoint's "
+                  "resolution for this run")
+        self.occ_grid = grid if self.occ_grid is None else grid.to(self.occ_grid.device)
+
+    def reset_occupancy(self) -> None:
+        """A fresh all-ones grid (scheduling_mode reset discards the field the
+        EMA describes)."""
+        if self.occ_grid is not None:
+            self.occ_grid = make_occupancy_grid(self._occ_res, self.occ_grid.device)
+
+    def update_occupancy(self, state: TrainState, epoch: int) -> None:
+        """EMA-update the occupancy grid from the current field; call once per
+        epoch. The grid is created on the first call whenever the feature is
+        on, whatever the cadence; update_every <= 0 never updates it. The
+        jitter of epoch e comes from a generator seeded with (17, e), so a
+        resumed run draws what the straight run drew."""
+        if not self._occ_enabled:
+            return
+        dev = state.params["nerf"]["density_w"].device
+        if self.occ_grid is None:
+            self.occ_grid = make_occupancy_grid(self._occ_res, dev)
+            far = self.mc.render.depth_range[1]
+            if far > self.mc.render.occ_radius:
+                print(f"WARNING: rendering.depth_range far ({far}) exceeds the occupancy cube "
+                      f"radius ({self.mc.render.occ_radius}); content beyond the cube only gets "
+                      "floor-level sampling: set rendering.radius to cover the scene")
+        self.occ_grid = self.occ_grid.to(dev)
+        if self._occ_update_every <= 0 or epoch % self._occ_update_every:
+            return
+        gen = torch.Generator(device=dev).manual_seed(17 * 1_000_003 + epoch)
+        self.occ_grid = update_occupancy_grid(self.occ_grid, state.params["nerf"], self.mc.nerf,
+                                              radius=self.mc.render.occ_radius,
+                                              decay=self._occ_decay, generator=gen)
 
     @torch.no_grad()
     def render_frame(self, state: TrainState, batch: Dict[str, Any],
@@ -483,6 +558,30 @@ class Trainer:
         rgb = torch.cat(pending["rgb_chunks"]).cpu().numpy()
         depth = torch.cat(pending["depth_chunks"]).cpu().numpy()
         return {"rgb": rgb.reshape(h, w, 3), "depth": depth.reshape(h, w)}
+
+    @torch.no_grad()
+    def render_geo(self, state: TrainState, batch: Dict[str, Any], resolution: Tuple[int, int],
+                   chunk: int = 1024, radius: float = 4.0, n_steps: int = 512) -> np.ndarray:
+        """Phong geometry view of the current surface (reference render_visdata's
+        vis_geo branch, training.py:146-163) on the device of the state's
+        params, in chunks of `chunk` rays of n_steps density queries each:
+        (h, w, 3) numpy. The learned pose of frame batch['idx'] is used when
+        the config learns poses, else batch['pose_gt']."""
+        from ..ops.phong import phong_render
+        h, w = resolution
+        mc = self.mc
+        params = state.params
+        dev = params["nerf"]["density_w"].device
+        if mc.pose is not None:
+            world_mat = rigid_inverse(pose_c2w(params["pose"], int(batch["idx"]), mc.pose))
+        else:
+            world_mat = rigid_inverse(torch.as_tensor(batch["pose_gt"]).to(dev))
+        camera_mat = torch.as_tensor(batch["camera_mat"]).to(dev)
+        pixels = pixel_grid_on((h, w), dev, camera_mat.dtype)
+        rgbs = [phong_render(params["nerf"], pixels[i:i + chunk], camera_mat, world_mat, None,
+                             mc.nerf, radius=radius, n_steps=n_steps)["rgb"]
+                for i in range(0, h * w, chunk)]
+        return torch.cat(rgbs).cpu().numpy().reshape(h, w, 3)
 
     @torch.no_grad()
     def reprojection_pair(self, state: TrainState, batch: Dict[str, Any]):

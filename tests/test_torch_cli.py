@@ -353,18 +353,70 @@ def test_scheduling_mode_reset_reinitializes_the_nerf(tmp_path):
 
 @pytest.mark.parametrize("section,key,value,match", [
     ("dataloading", "show_pose_only", True, "vis_poses"),
-    ("training", "vis_geo", True, "phong"),
-    ("rendering", "occupancy_grid", True, "occupancy"),
     ("tpu", "mesh_shape", [4], "multi-device"),
 ])
 def test_train_refuses_unported_options_early(tmp_path, section, key, value, match):
     extra = {section: {key: value}}
-    if key == "vis_geo":
-        extra["training"]["visualize_every"] = 100
     cfg = _tiny_cfg(tmp_path / "out", **extra)
     with pytest.raises(NotImplementedError, match=match):
         train(cfg, synthetic=True, max_epochs=1, device="cpu")
     assert not (tmp_path / "out").exists()          # nothing ran
+
+
+def _occupancy_cfg(out_dir):
+    return _tiny_cfg(out_dir, rendering={"occupancy_grid": True, "occupancy_res": 8})
+
+
+@pytest.mark.parametrize("option", ["vis_geo", "occupancy_grid"])
+def test_train_runs_vis_geo_and_occupancy(tmp_path, option):
+    """training.vis_geo: the visualize hook writes the phong geometry view
+    beside the rgb and depth images. rendering.occupancy_grid: the grid is
+    created and updated every epoch, checkpointed with the scalars, and a
+    resumed run (1 epoch, checkpoint, 1 epoch) ends bit-equal to 2 epochs
+    straight, grid included; the checkpoint's grid loads into the JAX
+    package's trainer, and a JAX checkpoint's into the port's."""
+    if option == "vis_geo":
+        cfg = _tiny_cfg(tmp_path / "out", training={"vis_geo": True, "visualize_every": 8,
+                                                    "vis_resolution": [6, 8]})
+        train(cfg, synthetic=True, max_epochs=1, device="cpu")
+        vis_dirs = glob.glob(str(tmp_path / "out" / "rendering" / "*_vis"))
+        assert vis_dirs and all(os.path.exists(os.path.join(d, "geo.png")) for d in vis_dirs)
+        return
+
+    import pickle
+    from nope_nerf_tpu.training import Trainer as JTrainer
+
+    state_a, trainer_a, _ = train(_occupancy_cfg(tmp_path / "a"), synthetic=True, max_epochs=2,
+                                  device="cpu")
+    grid = trainer_a.occ_grid
+    assert grid.shape == (8, 8, 8) and not torch.equal(grid, torch.ones(8, 8, 8))
+    _, scalars = load_params(str(tmp_path / "a"), "model.ckpt", device="cpu")
+    np.testing.assert_array_equal(scalars["occ_grid"], grid.numpy())
+
+    cfg_b = _occupancy_cfg(tmp_path / "b")
+    train(cfg_b, synthetic=True, max_epochs=1, device="cpu")
+    state_b, trainer_b, _ = train(cfg_b, synthetic=True, max_epochs=2, device="cpu")
+    _assert_states_equal(state_a, state_b)
+    assert torch.equal(trainer_a.occ_grid, trainer_b.occ_grid)
+
+    # port -> JAX: the JAX package reads the scalars of the checkpoint's pickle
+    jcfg = jax_load_config(overrides=_overrides(tmp_path / "j", rendering={
+        "occupancy_grid": True, "occupancy_res": 8}))
+    jmc = JModelConfigs.from_cfg(jcfg, num_cams=8)
+    jstate, optimizers = jax_create(jax.random.key(0), jmc,
+                                    init_c2w=jnp.broadcast_to(jnp.eye(4), (8, 4, 4)))
+    with open(tmp_path / "a" / "model.ckpt", "rb") as f:
+        payload = pickle.load(f)
+    jtrainer = JTrainer(jcfg, jmc, optimizers)
+    jtrainer.set_occupancy_grid(payload["scalars"]["occ_grid"])
+    np.testing.assert_array_equal(np.asarray(jtrainer.occ_grid), grid.numpy())
+    # JAX -> port
+    jgrid = np.random.default_rng(0).uniform(size=(8, 8, 8)).astype(np.float32)
+    jax_save(str(tmp_path / "j"), "model.ckpt", jstate, {"epoch_it": 0, "occ_grid": jgrid})
+    _, jscalars = load_params(str(tmp_path / "j"), "model.ckpt", device="cpu")
+    trainer_c = Trainer(cfg_b, ModelConfigs.from_cfg(cfg_b, 8))
+    trainer_c.set_occupancy_grid(jscalars["occ_grid"])
+    np.testing.assert_array_equal(trainer_c.occ_grid.numpy(), jgrid)
 
 
 def test_entry_points_refuse_disk_scenes_and_lpips_weights(tmp_path):

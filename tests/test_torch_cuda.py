@@ -25,6 +25,7 @@ from nope_nerf_torch.config import load_config
 from nope_nerf_torch.data import SceneData, batch_for_frame, make_synthetic_scene
 from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
 from nope_nerf_torch.ops import chamfer as C
+from nope_nerf_torch.ops import fused_mlp as M
 from nope_nerf_torch.ops import fused_render as F
 from nope_nerf_torch.training import ModelConfigs, Trainer, create_train_state
 
@@ -397,12 +398,112 @@ def test_train_step_on_card_counts_launches_fused_and_not(cuda_device):
     assert [lib.launches - c for lib, c in zip(libs, counts)] == [0, 1, 1, 1]
     assert all(torch.isfinite(v).all() for v in ld.values()) and float(ld["loss_depth"]) > 0
 
-    # a config the fused render cannot serve still raises, naming what would serve it
-    for section, key, value in (("tpu", "use_pallas_renderer", False),
-                                ("rendering", "num_points", 100)):
-        bad = load_config(overrides={"training": {"n_training_points": 256},
-                                     "pose": {"learn_pose": True, "init_pose": True},
-                                     section: {key: value}})
-        with pytest.raises(NotImplementedError, match="K5/K6"):
-            Trainer(bad, ModelConfigs.from_cfg(bad, 4)).step(
-                state, batch_for_frame(scene, 0, ref_idx=1), 0, 10000)
+    # the configs the fused render cannot serve take a step through the point-query
+    # MLP kernels (num_points 100: one K5 and one K6 launch) or through nerf_apply
+    # on the card (use_pallas_renderer false: no kernel at all)
+    libs = (F.RENDER_TRAIN, F.RENDER_FWD, F.RENDER_BWD, M.POINT_MLP_FWD, M.POINT_MLP_BWD)
+    for section, key, value, expected in (("tpu", "use_pallas_renderer", False, [0, 0, 0, 0, 0]),
+                                          ("rendering", "num_points", 100, [0, 0, 0, 1, 1])):
+        other = load_config(overrides={"training": {"n_training_points": 256},
+                                       "pose": {"learn_pose": True, "init_pose": True},
+                                       section: {key: value}})
+        counts = [lib.launches for lib in libs]
+        state, ld = Trainer(other, ModelConfigs.from_cfg(other, 4)).step(
+            state, batch_for_frame(scene, 0, ref_idx=1), 0, 10000)
+        assert [lib.launches - c for lib, c in zip(libs, counts)] == expected, key
+        assert all(torch.isfinite(v).all() for v in ld.values())
+
+
+# ---- the point-query MLP kernels (K5, K6) and the hierarchical path -------------
+
+def _points(dev, m, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    pts = (torch.randn(m, 3, generator=gen) * 1.5).to(dev)
+    dirs = torch.nn.functional.normalize(torch.randn(m, 3, generator=gen), dim=1).to(dev)
+    return gen, pts, dirs
+
+
+@pytest.mark.parametrize("hidden", [128, 256])
+@pytest.mark.parametrize("occ", ["softplus", "relu"])
+@pytest.mark.parametrize("dist_alpha", [False, True])
+def test_point_mlp_fwd_matches_plain(cuda_device, hidden, occ, dist_alpha):
+    gen, pts, dirs = _points(cuda_device, 3 * 128 + 37)       # a ragged last pass
+    ncfg = NerfConfig(hidden_dim=hidden, occ_activation=occ, dist_alpha=dist_alpha,
+                      use_pallas=True)
+    params = init_nerf_params(ncfg, gen, device=cuda_device)
+    before = M.POINT_MLP_FWD.launches
+    with torch.no_grad():
+        got = M.point_mlp(params, pts, dirs, ncfg)
+    assert M.POINT_MLP_FWD.launches == before + 1
+    _assert_close(got, M.point_mlp_fwd_plain(params, pts, dirs, ncfg))
+
+
+def _assert_point_grads_close(got, ref, ncfg):
+    """The render-backward rule (_assert_grads_close) with d(points) and
+    d(directions) as the per-sample blocks."""
+    g = dict(F.unpack_grads(got[0], got[1], ncfg), rays=got[2], z=got[3])
+    r = dict(F.unpack_grads(ref[0], ref[1], ncfg), rays=ref[2], z=ref[3])
+    _assert_grads_close(g, r)
+
+
+@pytest.mark.parametrize("hidden", [128, 256])
+@pytest.mark.parametrize("occ", ["softplus", "relu"])
+@pytest.mark.parametrize("dist_alpha", [False, True])
+def test_point_mlp_bwd_matches_plain_and_is_bit_reproducible(cuda_device, hidden, occ,
+                                                             dist_alpha):
+    gen, pts, dirs = _points(cuda_device, 300 * 128 + 37, seed=1)
+    ncfg = NerfConfig(hidden_dim=hidden, occ_activation=occ, dist_alpha=dist_alpha,
+                      use_pallas=True)
+    params = init_nerf_params(ncfg, gen, device=cuda_device)
+    # the cotangents of a smooth loss, mean |rgb - 0.5|^2 / 3 + 0.1 density: noise
+    # cotangents would make each block a random walk that one flip moves far
+    # (chip_smoke.point_cotangents)
+    m = pts.shape[0]
+    g_rgb = (2.0 / (3 * m) * (M.point_mlp_fwd_plain(params, pts, dirs, ncfg)[0] - 0.5)).contiguous()
+    g_den = torch.full((m, 1), 0.1 / m, device=cuda_device)
+    a = M._mlp_bwd_cuda(params, pts, dirs, g_rgb, g_den, ncfg)
+    b = M._mlp_bwd_cuda(params, pts, dirs, g_rgb, g_den, ncfg)
+    for x, y in zip([*a[0], *a[1], a[2], a[3]], [*b[0], *b[1], b[2], b[3]]):
+        assert torch.equal(x, y)
+    _assert_point_grads_close(a, M.point_mlp_bwd_plain(params, pts, dirs, g_rgb, g_den, ncfg),
+                              ncfg)
+
+
+def test_point_mlp_autograd_launches_its_kernels(cuda_device):
+    gen, pts, dirs = _points(cuda_device, 1000, seed=2)
+    ncfg = NerfConfig(use_pallas=True)
+    params = {k: v.requires_grad_(True) for k, v in
+              init_nerf_params(ncfg, gen, device=cuda_device).items()}
+    pts.requires_grad_(True)
+    counts = (M.POINT_MLP_FWD.launches, M.POINT_MLP_BWD.launches)
+    rgb, den = M.point_mlp(params, pts, dirs, ncfg)
+    (rgb.sum() + den.sum()).backward()
+    assert (M.POINT_MLP_FWD.launches - counts[0], M.POINT_MLP_BWD.launches - counts[1]) == (1, 1)
+    assert torch.isfinite(pts.grad).all() and float(params["trunk0_0_w"].grad.abs().max()) > 0
+    with pytest.raises(NotImplementedError, match="hidden_dim"):
+        M.point_mlp({k: v.detach() for k, v in init_nerf_params(
+            NerfConfig(hidden_dim=64), gen, device=cuda_device).items()}, pts.detach(), dirs,
+            NerfConfig(hidden_dim=64, use_pallas=True))
+
+
+def test_hierarchical_train_step_and_frame_on_card(cuda_device):
+    """n_importance 64: per step K5 twice (coarse, fine) and K6 once, no fused
+    render kernel; render_frame launches K5 twice per chunk."""
+    cfg = load_config(overrides={"training": {"n_training_points": 256},
+                                 "rendering": {"n_importance": 64},
+                                 "pose": {"learn_pose": True, "init_pose": True}})
+    scene = SceneData.from_dict(make_synthetic_scene(n_frames=4, h=48, w=64)).to_device(cuda_device)
+    mc = ModelConfigs.from_cfg(cfg, 4)
+    state = create_train_state(0, mc, init_c2w=scene.c2ws_gt, device=cuda_device)
+    trainer = Trainer(cfg, mc)
+    libs = (M.POINT_MLP_FWD, M.POINT_MLP_BWD, C.CHAMFER_BIDIR, F.RENDER_TRAIN, F.RENDER_FWD,
+            F.RENDER_BWD)
+    counts = [lib.launches for lib in libs]
+    state, lds = trainer.run_steps(state, scene, np.array([0, 3]), np.array([1, 2]), epoch=0,
+                                   scheduling_start=10000)
+    assert [lib.launches - c for lib, c in zip(libs, counts)] == [4, 2, 2, 0, 0, 0]
+    assert all(torch.isfinite(v).all() for v in lds.values())
+    counts = M.POINT_MLP_FWD.launches
+    frame = trainer.render_frame(state, batch_for_frame(scene, 1), (48, 64), chunk=1000)
+    assert M.POINT_MLP_FWD.launches - counts == 2 * 4                # 3072 rays in 4 chunks
+    assert frame["rgb"].shape == (48, 64, 3) and np.isfinite(frame["rgb"]).all()

@@ -20,11 +20,12 @@ REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "nope_nerf_torch"
 BLOCKED = ("jax", "jaxlib", "nope_nerf_tpu", "optax", "chex", "yaml", "cv2", "imageio",
            "matplotlib")
-# the modules of the third slice: each must be among those the scan imports
+# the modules of the third and fourth slices: each must be among those the scan imports
 REQUIRED = tuple("nope_nerf_torch." + m for m in (
     "cli.train", "cli.eval", "cli.eval_poses", "evaluation.align", "evaluation.artifacts",
     "evaluation.image_eval", "evaluation.pose_eval", "evaluation.pose_opt",
-    "tools.backward_noise", "training.checkpoints", "utils.metrics", "utils.profiling"))
+    "tools.backward_noise", "training.checkpoints", "utils.metrics", "utils.profiling",
+    "ops.fused_mlp", "ops.occupancy", "ops.phong"))
 
 torch.set_num_threads(2)
 

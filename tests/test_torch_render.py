@@ -157,19 +157,18 @@ def test_fused_plain_empty_batch_and_bad_shapes():
 
 
 def test_cuda_ineligible_config_raises_not_implemented():
-    """The CUDA route serves only the fused kernel; the check fires before any
-    device work, so a meta tensor stands in for a CUDA one here."""
+    """Every config but outside_steps > 0 has a route on CUDA now (the fused
+    render or the unfused one through the point-query MLP kernels); that one
+    raises on every device, as the JAX package's renderer cannot run it. The
+    check fires before any device work, so a meta tensor stands in for a
+    CUDA one here."""
     _, tp, cam, world, pixels, depth = _setup()
-    px = torch.empty((N_RAYS, 2), device="meta")
-    with pytest.raises(NotImplementedError, match="fused kernel"):
-        trender.render_nope_nerf(tp, px, None, torch.from_numpy(cam), torch.from_numpy(world),
-                                 None, None, trender.RenderConfig(),
-                                 NerfConfig(hidden_dim=HIDDEN, use_pallas=False))
-    with pytest.raises(NotImplementedError):
-        trender.render_nope_nerf(tp, torch.from_numpy(pixels), None, torch.from_numpy(cam),
-                                 torch.from_numpy(world), None, None,
-                                 trender.RenderConfig(n_importance=16),
-                                 NerfConfig(hidden_dim=HIDDEN))
+    for px in (torch.empty((N_RAYS, 2), device="meta"), torch.from_numpy(pixels)):
+        with pytest.raises(NotImplementedError, match="outside_steps"):
+            trender.render_nope_nerf(tp, px, None, torch.from_numpy(cam),
+                                     torch.from_numpy(world), None, None,
+                                     trender.RenderConfig(outside_steps=8),
+                                     NerfConfig(hidden_dim=HIDDEN, use_pallas=True))
 
 
 @pytest.mark.slow

@@ -301,18 +301,58 @@ def test_sample_rays_distinct_and_forced_valid():
             assert int(idx[0]) == 500 and torch.equal(idx[1:], plain[1:])
 
 
+def _draws(key, steps: int, n_importance: int):
+    """The stratified jitter (N, steps) and the hierarchical fine draw
+    (N, n_importance) that JAX's render_nope_nerf takes from `key`."""
+    k0, knoise, _ = jax.random.split(key, 3)
+    u = jax.random.uniform(jax.random.fold_in(k0, 1), (N_RAYS, n_importance), jnp.float32,
+                           0.0, 1.0 - 1e-5)
+    return (torch.from_numpy(np.array(jax.random.uniform(knoise, (N_RAYS, steps), jnp.float32))),
+            torch.from_numpy(np.array(u)))
+
+
 @pytest.mark.parametrize("section,key,value", [
     ("tpu", "use_pallas_renderer", False),
     ("rendering", "num_points", 100),
     ("rendering", "n_importance", 64),
     ("rendering", "normal_loss", True),
 ])
+def test_configs_off_the_fused_render_step_matches_jax(section, key, value):
+    """The configs the fused render cannot serve, and normal_loss (off the
+    fused-loss gate: the fused render plus the normal output), take one CPU
+    train step from a converted state: loss dict and every gradient against
+    the JAX package's step. The port runs its own route for the config:
+    point_mlp's plain version (num_points 100, n_importance 64),
+    render_rays_fused's forward and backward plain versions (normal_loss),
+    nerf_apply (use_pallas_renderer false); JAX runs nerf_apply in bfloat16
+    (its route without the Pallas kernels, which interpret mode would make
+    slow). bf16 class, as the route comparisons below: loss dict 2e-3
+    relative, gradients 5e-2 of each block's largest entry."""
+    cfg_t, cfg_j = _cfg(fused=True), _cfg(fused=True)
+    cfg_j["tpu"]["use_pallas_renderer"] = False
+    for cfg in (cfg_t, cfg_j):
+        cfg[section][key] = value
+    jx = _Jax(fused=False)
+    jx.mc = JModelConfigs.from_cfg(cfg_j, N_FRAMES)
+    mc = ModelConfigs.from_cfg(cfg_t, N_FRAMES)
+    _, scene, _, trainer = _port(fused=True)
+    weights = trainer.weights_at(0, SCHED_START)
+    ray_idx, key, _ = _pins(0)
+    g_ref, ld_ref = jx.grads(jx.state.params, 0, 1, weights, ray_idx, key)
+    noise, fine_u = _draws(key, mc.render.num_points, mc.render.n_importance)
+    state = state_from_numpy(*_numpy_state(jx.state), device="cpu")
+    g, ld = step_gradients(state.params, batch_for_frame(scene, 0, ref_idx=1), weights,
+                           torch.from_numpy(ray_idx).long(), torch.Generator().manual_seed(0), mc,
+                           "l1", noise=noise, fine_u=fine_u)
+    _assert_loss_dict(ld, ld_ref, 2e-3)
+    _assert_blocks(g, jax.tree.map(np.asarray, g_ref), 5e-2, f"{section}.{key}")
+
+
+@pytest.mark.parametrize("section,key,value", [("rendering", "outside_steps", 8)])
 def test_cuda_only_configs_raise_not_implemented(section, key, value):
-    """On CUDA a config the fused render cannot serve raises, naming the
-    kernels that would serve it; the check fires before any device work (meta
-    tensors). A config merely outside the fused-loss gate (depth_loss_type
-    invariant) no longer raises: it renders through the forward and backward
-    kernels."""
+    """The one config no route serves, outside_steps > 0 (the JAX package's
+    renderer cannot run it either), raises NotImplementedError; the check
+    fires before any device work (meta tensors stand in for CUDA ones)."""
     cfg = _cfg(fused=True)
     cfg[section][key] = value
     mc = ModelConfigs.from_cfg(cfg, N_FRAMES)
@@ -323,7 +363,7 @@ def test_cuda_only_configs_raise_not_implemented(section, key, value):
     params = {g: {k: v.to("meta") for k, v in d.items()} for g, d in state.params.items()}
     weights = Trainer(cfg, mc).weights_at(0, SCHED_START)
     from nope_nerf_torch.training import compute_step_loss
-    with pytest.raises(NotImplementedError, match="K5/K6"):
+    with pytest.raises(NotImplementedError, match="outside_steps"):
         compute_step_loss(params, batch, weights, torch.zeros(N_RAYS, dtype=torch.long,
                                                               device="meta"), None, mc, "l1")
 
