@@ -3,14 +3,16 @@
 
 Run from the root of a checkout: `python3 chip_smoke.py`. In order it
 1. prints the card's name and power limit (nvidia-smi) and builds every
-   kernel from nope_nerf_torch/csrc/ (one nvcc per source, six side by side);
+   kernel from nope_nerf_torch/csrc/ (one nvcc per source, seven side by side);
 2. holds each kernel against its plain PyTorch version on the card, over the
    flags it takes: render_fwd (K3), render_train (K1, with the bit-equality
    of two launches), render_bwd (K4: two cotangent sets, bit-equality, its
    frozen-network variant, and the train kernel's own cotangents fed through
    it), chamfer_bidir (K2, by matched distances), point_mlp_fwd (K5) and
    point_mlp_bwd (K6, with the bit-equality of two launches), the last two at
-   the fine pass's point count made ragged;
+   the fine pass's point count made ragged, and chamfer_nearest (K7: d2 and
+   indices bit-equal at the LLFF and Tanks train steps' 47,628- and
+   32,400-point clouds, ragged shapes and a lattice; nearest_dists' gradient);
 3. drives the render path: nope_nerf_torch.cli.render.render on the synthetic
    driving scene at V-KITTI's 188x621, from a checkpoint the port wrote with
    seeded random weights at the full model width; checks that its kernel
@@ -38,7 +40,18 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    plain versions), pose-optimisation steps; then the rest of the slice:
    train steps with normal_loss, cli.train with the occupancy grid (its
    resume bit-equal, grid included) and Trainer.render_geo;
-7. times each path and each kernel at its main path's shapes (CUDA events),
+7. drives scenes on disk, written by the port's write_vkitti_scene in the
+   V-KITTI/LLFF layout and read back through data/fields.py::DataField: the
+   configs configs/LLFF/fern.yaml (756x1008, DPT npz priors, NDC), configs/
+   Tanks/Ballroom.yaml (540x960) and configs/V_KITTI/straight_d4.yaml (375x1242
+   on disk, 188x621 after resize_factor 2, 16-bit depths, intrinsics.npz,
+   noisy COLMAP poses), each through cli.train for 1 epoch with its launches
+   per step asserted (K7 twice on the first two, whose Chamfer clouds exceed
+   K2's 8,192 points; K2 once on the third); fern's step 1 against the plain
+   versions; then cli.eval_poses (the PLY), cli.render and cli.eval on the fern
+   scene. The one cut: fern is written at its working size with
+   resize_factor 1, not as 3024x4032 originals minified by 4;
+8. times each path and each kernel at its main path's shapes (CUDA events),
    prints one `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 It exits non-zero, and prints no result, when CUDA is missing, outside a
 checkout, or when any phase fails. It imports nothing of JAX.
@@ -72,6 +85,44 @@ HIER_STEPS = 4
 DENSITY_SHIFT = -4.0         # density bias of the seeded weights: keeps transmittance alive
                              # to the last of the 128 samples, so the composite and its
                              # backward are exercised whole
+DISK_FRAMES = 6              # frames per scene on disk: frame 4 is the eval split (sample
+                             # rate 8), so an epoch is 5 train steps
+# The three configurations' own keys, as configs/LLFF/fern.yaml, configs/Tanks/
+# Ballroom.yaml and configs/V_KITTI/straight_d4.yaml set them (the card's machine
+# has no PyYAML; tests/test_torch_cli_disk.py holds them equal to the files).
+DISK_CONFIGS = {
+    "fern": {
+        "dataloading": {"path": "data/nerf_llff_data", "scene": ["fern"], "random_ref": 1,
+                        "resize_factor": 4},
+        "depth": {"type": None},
+        "pose": {"learn_pose": True},
+        "rendering": {"depth_range": [0.0, 1.0], "dist_alpha": True, "sample_option": "ndc"},
+        "training": {"out_dir": "out/llff/fern", "vis_resolution": [75, 100]},
+        "extract_images": {"resolution": [756, 1008]}},
+    "Ballroom": {
+        "dataloading": {"path": "data/Tanks", "scene": ["Ballroom"], "customized_focal": False,
+                        "random_ref": 1},
+        "depth": {"type": None},
+        "pose": {"learn_pose": True},
+        "training": {"out_dir": "out/Tanks/Ballroom", "auto_scheduler": True},
+        "extract_images": {"resolution": [540, 960]}},
+    "straight_d4": {
+        "dataloading": {"path": "data/V_KITTI", "scene": ["straight"], "resize_factor": 2,
+                        "customized_focal": True, "customized_poses": False,
+                        "load_colmap_poses": True, "random_ref": 1, "with_depth": True,
+                        "depth_scale": 0.01, "sparsify_depth": True,
+                        "sparsify_depth_pattern": [1, 3, 1, 3]},
+        "depth": {"type": None},
+        "pose": {"learn_pose": True, "init_pose": True, "init_pose_type": "colmap",
+                 "init_R_only": False, "learn_R": False, "learn_t": False,
+                 "learn_focal": False, "update_focal": True},
+        "distortion": {"learn_distortion": True, "learn_scale": False, "learn_shift": False},
+        "training": {"out_dir": "out/V_KITTI/straight_d4", "depth_loss_type": "l1",
+                     "match_method": "dense", "with_ssim": False, "auto_scheduler": True},
+        "extract_images": {"resolution": [188, 621], "eval_depth": True,
+                           "traj_option": "interp", "bspline_degree": 100}},
+}
+DISK_SIZES = {"fern": (756, 1008), "Ballroom": (540, 960), "straight_d4": (375, 1242)}
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate (data sheet)
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 rate outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3 rate (data sheet)
@@ -524,6 +575,60 @@ def check_chamfer(torch, dev, gen) -> float:
     return worst
 
 
+def check_chamfer_nearest(torch, dev, gen) -> float:
+    """K7 against its plain version: d2 and indices bit-equal (both round each
+    product and sum at the same place), at the Chamfer clouds of the LLFF and
+    Tanks train steps (189x252 = 47,628 and 135x240 = 32,400 depth-lifted
+    points), ragged shapes and a lattice, both directions; then the gradient
+    of nearest_dists against its plain route (the same ops but for the sweep;
+    index_add_ sums d(dst) with atomics, so within 1e-6 of the largest entry).
+    Returns the worst d2 difference (0 when bit-equal)."""
+    from nope_nerf_torch.ops.chamfer import nearest_dists, nearest_idx, nearest_idx_plain
+    from nope_nerf_torch.ops.fused_render import plain_versions
+    side = torch.arange(18.0)
+    lattice = torch.stack(torch.meshgrid(side, side, side, indexing="ij"), -1).reshape(-1, 3)
+    lx = (lattice + 0.1 * (torch.rand(lattice.shape, generator=gen) - 0.5)).to(dev)
+    ly = (lattice[torch.randperm(len(lattice), generator=gen)]
+          + 0.1 * (torch.rand(lattice.shape, generator=gen) - 0.5)).to(dev)
+    cases = [("47628 x 47628 depth-lifted (LLFF 189x252)", depth_lifted_clouds(torch, dev, gen, 189, 252)),
+             ("32400 x 32400 depth-lifted (Tanks 135x240)", depth_lifted_clouds(torch, dev, gen, 135, 240)),
+             ("301 x 77 ragged", ((torch.rand(301, 3, generator=gen) * 6 - 3).to(dev),
+                                  (torch.rand(77, 3, generator=gen) * 6 - 3).to(dev))),
+             ("5 x 40000", ((torch.rand(5, 3, generator=gen) * 6 - 3).to(dev),
+                            (torch.rand(40000, 3, generator=gen) * 6 - 3).to(dev))),
+             (f"{len(lattice)} lattice points", (lx, ly))]
+    worst = 0.0
+    for name, (x, y) in cases:
+        for direction, src, dst in (("x->y", x, y), ("y->x", y, x)):
+            d2_k, i_k = nearest_idx(src, dst)
+            torch.cuda.synchronize()
+            d2_p, i_p = nearest_idx_plain(src, dst)
+            same_i, same_d2 = torch.equal(i_k, i_p), torch.equal(d2_k, d2_p)
+            worst = max(worst, float((d2_k - d2_p).abs().max()))
+            print(f"chamfer_nearest vs plain, {name} {direction}: indices equal {same_i}, d2 "
+                  f"bit-equal {same_d2}")
+            if not (same_i and same_d2):
+                raise RuntimeError(f"chamfer_nearest differs from its plain version ({name}, "
+                                   f"{direction}): worst d2 gap {worst}")
+    x, y = cases[1][1]
+    w = (0.5 + torch.rand(x.shape[0], generator=gen)).to(dev)
+
+    def grads():
+        xs, ys = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+        (w * nearest_dists(xs, ys)).sum().backward()
+        return xs.grad, ys.grad
+
+    g_k = grads()
+    with plain_versions():
+        g_p = grads()
+    for name, a, b in (("src", g_k[0], g_p[0]), ("dst", g_k[1], g_p[1])):
+        err, top = max_err(a, b), float(b.abs().max())
+        print(f"nearest_dists gradient into {name} vs the plain route: {err:.3g} of {top:.3g}")
+        if not err <= 1e-6 * top:
+            raise RuntimeError(f"nearest_dists: gradient into {name} differs from the plain route")
+    return worst
+
+
 def run_render_path(torch, np, dev, gen):
     """Phase 3. Returns what the timings need: (launches, params, traj, scene, ncfg, rcfg)."""
     from nope_nerf_torch.cli.render import load_scene, novel_trajectory, render
@@ -702,14 +807,14 @@ def run_train_path(torch, np, dev):
 
 
 def kernel_counters():
-    from nope_nerf_torch.ops.chamfer import CHAMFER_BIDIR
+    from nope_nerf_torch.ops.chamfer import CHAMFER_BIDIR, CHAMFER_NEAREST
     from nope_nerf_torch.ops.fused_mlp import POINT_MLP_BWD, POINT_MLP_FWD
     from nope_nerf_torch.ops.fused_render import (RENDER_BWD, RENDER_BWD_FROZEN, RENDER_FWD,
                                                   RENDER_TRAIN)
     return {"render_train": RENDER_TRAIN, "chamfer_bidir": CHAMFER_BIDIR,
             "render_fwd": RENDER_FWD, "render_bwd": RENDER_BWD,
             "render_bwd_frozen": RENDER_BWD_FROZEN, "point_mlp_fwd": POINT_MLP_FWD,
-            "point_mlp_bwd": POINT_MLP_BWD}
+            "point_mlp_bwd": POINT_MLP_BWD, "chamfer_nearest": CHAMFER_NEAREST}
 
 
 def counted(fn, expected: dict, what: str):
@@ -727,7 +832,7 @@ def counted(fn, expected: dict, what: str):
     torch.cuda.synchronize()
     counts = {name: lib.launches for name, lib in libs.items()}
     order = ("render_train", "chamfer_bidir", "render_fwd", "render_bwd", "render_bwd_frozen",
-             "point_mlp_fwd", "point_mlp_bwd")
+             "point_mlp_fwd", "point_mlp_bwd", "chamfer_nearest")
     print(f"{what}: launches " + ", ".join(f"{k} {counts[k]}" for k in order) + " (expected "
           + ", ".join(str(expected[k]) for k in order) + ")")
     if counts != expected:
@@ -1167,6 +1272,162 @@ def run_slice_rest(torch, np, dev):
     return trainer_a, state_a, vis
 
 
+def disk_config(name: str, root: str):
+    """DISK_CONFIGS[name] with this run's changes: the scene under `root`, fern
+    read at its working size (resize_factor 1: the one cut, see the module
+    docstring), the output under `root`, the hooks that write images (imageio)
+    or render views off, cli.eval's pose optimisation cut to POSE_OPT_EPOCHS
+    epochs, one novel view."""
+    from nope_nerf_torch.config import load_config
+    over = copy.deepcopy(DISK_CONFIGS[name])
+    d = over["dataloading"]
+    d["path"] = os.path.join(root, os.path.basename(d["path"]))
+    if name == "fern":
+        d["resize_factor"] = 1
+    over["training"].update(out_dir=os.path.join(root, "out", name), vis_geo=False,
+                            print_every=0, validate_every=0, checkpoint_every=0,
+                            visualize_every=0, vis_reprojection_every=0, backup_every=0)
+    over["eval_pose"] = {"opt_pose_epoch": POSE_OPT_EPOCHS, "n_points": TRAIN_RAYS}
+    over["extract_images"]["N_novel_imgs"] = 1
+    return load_config(overrides=over)
+
+
+def write_disk_scenes(np, root: str) -> None:
+    """One synthetic driving scene per configuration, at its size on disk, in
+    the V-KITTI/LLFF layout (images, 16-bit depth PNGs, intrinsics.npz,
+    poses_gt.npy, noisy poses_bounds.npy), with dpt/depth_<frame>.npz priors
+    where the configuration reads them (with_depth false)."""
+    from nope_nerf_torch.data import make_driving_scene, write_vkitti_scene
+    for name, (h, w) in DISK_SIZES.items():
+        d = DISK_CONFIGS[name]["dataloading"]
+        dest = os.path.join(root, os.path.basename(d["path"]), d["scene"][0])
+        scene = make_driving_scene(n_frames=DISK_FRAMES, h=h, w=w, seed=SEED)
+        write_vkitti_scene(dest, scene, pose_noise_deg=1.0, pose_noise_trans=0.05, seed=SEED)
+        if not d.get("with_depth"):
+            os.makedirs(os.path.join(dest, "dpt"))
+            for i, depth in enumerate(scene["depths"]):
+                np.savez(os.path.join(dest, "dpt", f"depth_{i:05d}.npz"),
+                         pred=depth[None].astype(np.float32))
+
+
+def run_disk_scenes(torch, np, dev):
+    """Phase 7: the three configurations from scenes on disk through the CLIs
+    (see the module docstring). Returns (fern's launch counts, the fern run's
+    trainer, state and scene for the timings)."""
+    from nope_nerf_torch.cli.eval import evaluate
+    from nope_nerf_torch.cli.eval_poses import evaluate_poses
+    from nope_nerf_torch.cli.render import render
+    from nope_nerf_torch.cli.train import train
+    from nope_nerf_torch.data import batch_for_frame
+    from nope_nerf_torch.data.image_io import read_png, write_png
+    from nope_nerf_torch.ops.fused_render import plain_versions
+    from nope_nerf_torch.training.trainer import _sample_rays, step_gradients
+
+    t_phase = time.perf_counter()
+    steps = DISK_FRAMES - 1
+    expected = {"fern": {"render_train": steps, "chamfer_nearest": 2 * steps},
+                "Ballroom": {"render_train": steps, "chamfer_nearest": 2 * steps},
+                "straight_d4": {"render_train": steps, "chamfer_bidir": steps}}
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_disk_scenes(np, root)
+        print(f"on-disk scenes: {DISK_FRAMES} frames each at "
+              + ", ".join(f"{n} {h}x{w}" for n, (h, w) in DISK_SIZES.items())
+              + f" written in {time.perf_counter() - t0:.1f} s")
+        for name in DISK_SIZES:
+            cfg = disk_config(name, root)
+            t0 = time.perf_counter()
+            (state, trainer, scene), counts = counted(
+                lambda: train(cfg, max_epochs=1, device=dev), expected[name],
+                f"cli.train on the {name} scene on disk, 1 epoch of {steps} steps")
+            h, w = scene.imgs.shape[1:3]
+            n_pc = (h // trainer.mc.pc_ratio) * (w // trainer.mc.pc_ratio)
+            print(f"  {name}: {scene.n_frames} train frames at {h}x{w}, Chamfer clouds of "
+                  f"{n_pc} points, {time.perf_counter() - t0:.1f} s with the scene's loading")
+            if state.it != steps - 1:
+                raise RuntimeError(f"cli.train on {name}: iteration counter {state.it}")
+            for group, d in state.params.items():
+                if not all(bool(torch.isfinite(v).all()) for v in d.values()):
+                    raise RuntimeError(f"cli.train on {name}: non-finite parameter in {group}")
+            runs[name] = (counts, trainer, state, scene)
+
+        # fern's step 1 through the kernels (K1, K7 twice) and through the plain versions
+        _, trainer, state, scene = runs["fern"]
+        mc = trainer.mc
+        h, w = scene.imgs.shape[1:3]
+        weights, _, rgb_loss_type = trainer._sched_at(0, 10000)
+        batch = batch_for_frame(scene, 0, ref_idx=1)
+        ray_idx = _sample_rays(torch.Generator(device=dev).manual_seed(SEED + 1), h * w,
+                               TRAIN_RAYS, None, False)
+        noise = torch.rand((TRAIN_RAYS, mc.render.num_points),
+                           generator=torch.Generator(device=dev).manual_seed(SEED + 2), device=dev)
+        (g_k, ld_k), _ = counted(
+            lambda: step_gradients(state.params, batch, weights, ray_idx, None, mc,
+                                   rgb_loss_type, noise=noise),
+            {"render_train": 1, "chamfer_nearest": 2}, "fern step 1 through the kernels")
+        with plain_versions():
+            g_p, ld_p = step_gradients(state.params, batch, weights, ray_idx, None, mc,
+                                       rgb_loss_type, noise=noise)
+        torch.cuda.synchronize()
+        for k in ld_p:
+            if not abs(float(ld_k[k]) - float(ld_p[k])) <= 2e-3 * abs(float(ld_p[k])) + 1e-7:
+                raise RuntimeError(f"fern step 1: loss term {k} {float(ld_k[k])} differs from "
+                                   f"the plain versions' {float(ld_p[k])}")
+        report = []
+        for group in ("pose", "distortion"):
+            for k, ref in g_p[group].items():
+                err, top = max_err(g_k[group][k], ref), float(ref.abs().max())
+                report.append(f"{group}/{k} {err:.3g} of {top:.3g}")
+                if not err <= 5e-2 * top + 1e-9:
+                    raise RuntimeError(f"fern step 1: gradient {group}/{k} differs from the "
+                                       f"plain versions' by {err} (largest entry {top})")
+        print(f"fern step 1 vs plain versions: {len(ld_p)} loss terms within 2e-3 (loss_pc "
+              f"{float(ld_k['loss_pc']):.6g} vs {float(ld_p['loss_pc']):.6g}); gradient errors "
+              + ", ".join(report))
+
+        # the fern scene through the other CLIs
+        cfg = disk_config("fern", root)
+        metrics = evaluate_poses(cfg, vis=True, device=dev)
+        ply = os.path.join(cfg["training"]["out_dir"], cfg["eval_pose"]["extraction_dir"],
+                           "trajectory.ply")
+        if not (os.path.exists(ply) and all(math.isfinite(v) for v in metrics.values())):
+            raise RuntimeError(f"cli.eval_poses on fern: no PLY or a non-finite metric {metrics}")
+        chunks = math.ceil(h * w / 131072)
+        frames, _ = counted(lambda: render(cfg, device=dev, save=False), {"render_fwd": chunks},
+                            f"cli.render on fern, 1 view at {h}x{w}")
+        if frames[0]["rgb"].shape != (h, w, 3) or not np.isfinite(frames[0]["rgb"]).all():
+            raise RuntimeError("cli.render on fern: bad or non-finite frame")
+        opt_steps = POSE_OPT_EPOCHS      # one eval view (frame 4)
+        summary, _ = counted(
+            lambda: evaluate(cfg, device=dev, save=False),
+            {"render_fwd": opt_steps + chunks, "render_bwd": opt_steps,
+             "render_bwd_frozen": opt_steps},
+            f"cli.eval on fern, {POSE_OPT_EPOCHS} pose-opt epochs on 1 view, then its frame")
+        if not all(math.isfinite(summary[k]) for k in ("mean_mse", "mean_psnr", "mean_ssim")):
+            raise RuntimeError(f"cli.eval on fern: non-finite summary {summary}")
+        print(f"fern: eval_poses ATE_t {metrics['ate_trans']:.6f}, PLY written; eval PSNR "
+              f"{summary['mean_psnr']:.3f}")
+
+        # PNG decoding on this machine: a V-KITTI frame Paeth-filtered (cv2's adaptive
+        # writer may choose Paeth rows) against the Up filter the port writes
+        d = DISK_CONFIGS["straight_d4"]["dataloading"]
+        img = read_png(os.path.join(root, os.path.basename(d["path"]), d["scene"][0], "images",
+                                    "00000.png"))
+        times = {}
+        for filt, label in ((4, "Paeth"), (2, "Up")):
+            path = os.path.join(root, f"{label}.png")
+            write_png(path, img, filter_type=filt)
+            t0 = time.perf_counter()
+            read_png(path)
+            times[label] = time.perf_counter() - t0
+        print(f"PNG decode of a {img.shape[0]}x{img.shape[1]} RGB frame: Paeth rows "
+              f"{times['Paeth'] * 1e3:.0f} ms, Up rows {times['Up'] * 1e3:.1f} ms (host)")
+    print(f"on-disk phase: {time.perf_counter() - t_phase:.1f} s wall")
+    fern_counts, trainer, state, scene = runs["fern"]
+    return fern_counts, trainer, state, scene
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1177,8 +1438,9 @@ def main() -> int:
     from nope_nerf_torch.evaluation.extract import render_trajectory
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
     from nope_nerf_torch.ops._build import build_all
-    from nope_nerf_torch.ops.chamfer import (CHAMFER_BIDIR, nearest_idx_bidirectional,
-                                             nearest_idx_bidirectional_plain)
+    from nope_nerf_torch.ops.chamfer import (CHAMFER_BIDIR, CHAMFER_NEAREST, nearest_idx,
+                                             nearest_idx_bidirectional,
+                                             nearest_idx_bidirectional_plain, nearest_idx_plain)
     from nope_nerf_torch.ops.fused_mlp import (POINT_MLP_BWD, POINT_MLP_FWD, _mlp_bwd_cuda,
                                                _mlp_fwd_cuda, point_mlp_bwd_plain,
                                                point_mlp_fwd_plain)
@@ -1195,7 +1457,7 @@ def main() -> int:
 
     # ---- 1. build -----------------------------------------------------------
     libraries = (RENDER_FWD, RENDER_TRAIN, RENDER_BWD, CHAMFER_BIDIR, POINT_MLP_FWD,
-                 POINT_MLP_BWD)
+                 POINT_MLP_BWD, CHAMFER_NEAREST)
     t0 = time.perf_counter()
     build_all(libraries)
     print(f"build: {time.perf_counter() - t0:.1f} s for "
@@ -1219,6 +1481,7 @@ def main() -> int:
     pbwd_err, pbwd_share = check_point_mlp_bwd(torch, dev, gen)
     print(f"point_mlp_bwd: worst gradient error over the 4 cases at {pbwd_share:.3f} of its "
           f"tolerance (grad_share)")
+    nearest_err = check_chamfer_nearest(torch, dev, gen)
 
     # ---- 3. the render path: novel views through the render CLI --------------
     fwd_launches, params, traj, scene, ncfg, rcfg, view0_inputs = run_render_path(
@@ -1239,7 +1502,10 @@ def main() -> int:
         (enerf, eimg, ecam, epcfg, eray_idx, eval_scene, emc))
     gtrainer, gstate, gbatch = run_slice_rest(torch, np, dev)
 
-    # ---- 7. timing at the main paths' shapes ---------------------------------
+    # ---- 7. scenes on disk: the fern, Ballroom and straight_d4 configurations
+    disk_counts, dtrainer, dstate, dscene = run_disk_scenes(torch, np, dev)
+
+    # ---- 8. timing at the main paths' shapes ---------------------------------
     h, w = RESOLUTION
     n_rays = h * w
     frame_ms = time_ms(lambda: render_trajectory(params["nerf"], traj[:1], scene.K,
@@ -1319,7 +1585,7 @@ def main() -> int:
           f"stash: {stash_ms:.3f} ms at the memory rate")
 
     # one pose-opt step, one unfused train step and one eval frame, end to end
-    from nope_nerf_torch.data import batch_for_frame
+    from nope_nerf_torch.data import batch_for_frame, epoch_order
     from nope_nerf_torch.evaluation.pose_opt import pose_opt_step
     from nope_nerf_torch.models.poses import init_pose_params
     from nope_nerf_torch.training.state import init_adam
@@ -1421,6 +1687,38 @@ def main() -> int:
           f"({n_rays / hier_frame_ms * 1e3:.0f} rays/s); hierarchical pose-opt step "
           f"{hier_pose_ms:.2f} ms; render_geo 120x160 {geo_ms:.1f} ms (plain density queries)")
 
+    # K7 at the LLFF and Tanks Chamfer clouds, per direction; the fern train step end to end
+    def library_nearest(x, y, rows=8192):
+        # torch.cdist + min in row slabs (47,628^2 distances are 9 GB at once)
+        return [torch.cdist(x[i:i + rows], y).min(dim=1) for i in range(0, x.shape[0], rows)]
+
+    nearest_rows = {}
+    for label, (ch, cw) in (("fern", (189, 252)), ("Tanks", (135, 240))):
+        nx, ny = depth_lifted_clouds(torch, dev, gen, ch, cw)
+        n_ms = time_ms(lambda: nearest_idx(nx, ny), 10)
+        n_plain_ms = time_ms(lambda: nearest_idx_plain(nx, ny), 2)
+        n_lib_ms = time_ms(lambda: library_nearest(nx, ny), 3)
+        pairs = nx.shape[0] * ny.shape[0]
+        # 3 products, 2 sums for the dot, 2 for d2 and the compare, in f32 outside the
+        # tensor cores; 12 bytes in per point of each cloud, d2 and index out per src point
+        n_bound, n_by, _, _ = bound(8 * pairs, PEAK_F32_FLOPS, 12 * (nx.shape[0] + ny.shape[0])
+                                    + 8 * nx.shape[0])
+        nearest_rows[label] = (n_ms, n_plain_ms, n_lib_ms, n_bound, n_by)
+        print(f"chamfer_nearest {nx.shape[0]} x {ny.shape[0]} ({label}), one direction: "
+              f"{n_ms:.3f} ms, plain version {n_plain_ms:.2f} ms, torch.cdist + min in row slabs "
+              f"{n_lib_ms:.3f} ms; {pairs / 1e9:.2f} G pairs x 8 f32 operations -> bound "
+              f"{n_bound:.3f} ms by {n_by} ({n_ms / n_bound:.1f} x the bound)")
+    dorder, drefs = epoch_order(dscene.n_frames, shuffle=True, seed=SEED)
+
+    def disk_steps():
+        dtrainer.run_steps(dstate, dscene, dorder, drefs, epoch=0, scheduling_start=10000)
+    fern_step_ms = time_ms(disk_steps, 2) / len(dorder)
+    k7_ms = nearest_rows["fern"][0]
+    print(f"fern train step {dscene.imgs.shape[1]}x{dscene.imgs.shape[2]} from disk, "
+          f"{TRAIN_RAYS} rays: {fern_step_ms:.2f} ms end to end by CUDA events, chamfer_nearest "
+          f"x2 {2 * k7_ms:.2f} ms = {2 * k7_ms / fern_step_ms:.1%} of it, render_train "
+          f"{train_ms / fern_step_ms:.1%}")
+
     print(json.dumps({"kernels": [
         {"name": "render_fwd", "route": "cuda",
          "source": "nope_nerf_torch/csrc/render_fwd.cu",
@@ -1468,7 +1766,15 @@ def main() -> int:
          "replaces": "nope_nerf_tpu/ops/pallas_mlp.py:273",
          "launches": hier_counts["point_mlp_bwd"], "max_abs_err": pbwd_err, "ms": pbwd_ms,
          "plain_ms": pbwd_plain_ms, "bound_ms": pb_bound, "bound_by": pb_by,
-         "library_ms": None}]}))
+         "library_ms": None},
+        # one direction at the fern step's 47,628-point clouds; the step launches it twice
+        {"name": "chamfer_nearest", "route": "cuda",
+         "source": "nope_nerf_torch/csrc/chamfer_nearest.cu",
+         "replaces": "nope_nerf_tpu/ops/pallas_chamfer.py:150",
+         "launches": disk_counts["chamfer_nearest"], "max_abs_err": nearest_err,
+         "ms": nearest_rows["fern"][0], "plain_ms": nearest_rows["fern"][1],
+         "bound_ms": nearest_rows["fern"][3], "bound_by": nearest_rows["fern"][4],
+         "library_ms": nearest_rows["fern"][2]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
-"""Image/depth evaluation CLI: `python -m nope_nerf_torch.cli.eval <config.yaml> --synthetic`.
+"""Image/depth evaluation CLI: `python -m nope_nerf_torch.cli.eval <config.yaml> [--synthetic]`.
 
 Port of nope_nerf_tpu/cli/eval.py (reference evaluation/eval.py:29-227): loads
 the trained checkpoint (either package's), initializes the test poses
@@ -37,8 +37,10 @@ def split_synthetic_scene():
 
 
 def evaluate(cfg: dict, synthetic: bool = False, device: DeviceLike = None, save: bool = True):
-    """Evaluate cfg's checkpoint on `device` (CUDA unless told otherwise);
-    returns the summary dict. `save=False` writes evaluation.txt only."""
+    """Evaluate cfg's checkpoint on `device` (CUDA unless told otherwise), on
+    cfg's scene on disk (its train and eval splits) or with `synthetic` on the
+    built-in scene; returns the summary dict. `save=False` writes
+    evaluation.txt only."""
     from ..evaluation.image_eval import aggregate_depth_errors, eval_image
     from ..evaluation.pose_opt import init_test_poses, optimize_test_poses
     from ..models.poses import pose_c2w_all
@@ -49,16 +51,18 @@ def evaluate(cfg: dict, synthetic: bool = False, device: DeviceLike = None, save
         raise NotImplementedError("extract_images.lpips_weights is set, but the LPIPS network "
                                   "(evaluation/lpips.py) comes with the LPIPS/DPT slice of the port; "
                                   "unset it to evaluate without LPIPS")
-    if not synthetic:
-        raise NotImplementedError(
-            "on-disk scenes (data/fields.py, llff.py, degrade.py need cv2) come with the "
-            "data slice of the port; evaluate the built-in scene with --synthetic")
     dev = resolve_device(device)
     out_dir = cfg["training"]["out_dir"]
     extraction_dir = os.path.join(out_dir, cfg["extract_images"]["extraction_dir"])
     os.makedirs(extraction_dir, exist_ok=True)
 
-    train_scene, eval_scene, sample_rate = split_synthetic_scene()
+    if synthetic:
+        train_scene, eval_scene, sample_rate = split_synthetic_scene()
+    else:
+        from ..data import DataField
+        train_scene = DataField.from_cfg(cfg, mode="train").scene
+        eval_scene = DataField.from_cfg(cfg, mode="eval").scene
+        sample_rate = cfg["dataloading"]["sample_rate"]
     mc = ModelConfigs.from_cfg(cfg, num_cams=train_scene.n_frames)
     state = create_train_state(
         0, mc, init_c2w=torch.as_tensor(train_scene.c2ws_gt) if cfg["pose"]["init_pose"] else None,

@@ -1,10 +1,12 @@
-"""Trajectory evaluation CLI: `python -m nope_nerf_torch.cli.eval_poses <config.yaml> --synthetic`.
+"""Trajectory evaluation CLI: `python -m nope_nerf_torch.cli.eval_poses <config.yaml> [--synthetic] [--vis]`.
 
 Port of nope_nerf_tpu/cli/eval_poses.py (reference
 evaluation/eval_poses.py:80-163): load the learned poses, revert the LLFF
 preprocessing to metric units, align by the initial pose, and report ATE /
-ATE_v2 / RPE into `extraction/evaluation.txt`. The trajectory figure and the
-frustum export (`vis`) need cli/vis_poses.py, which is not ported yet.
+ATE_v2 / RPE into `extraction/evaluation.txt`. With `vis`, the metric GT and
+aligned learned trajectories go to `extraction/trajectory.ply` as frustums
+(cli/vis_poses.py, numpy) and, where matplotlib is installed, to
+`extraction/trajectory.png`.
 """
 
 from __future__ import annotations
@@ -29,16 +31,12 @@ def evaluate_poses(cfg: dict, vis: bool = False, synthetic: bool = False,
     from ..training.checkpoints import load_checkpoint
     from .train import build_scene
 
-    if vis:
-        raise NotImplementedError("the trajectory figure and frustum export (vis) need "
-                                  "cli/vis_poses.py, which comes with the data slice of the "
-                                  "port (on-disk scenes)")
     dev = resolve_device(device)
     out_dir = cfg["training"]["out_dir"]
     extraction_dir = os.path.join(out_dir, cfg["eval_pose"]["extraction_dir"])
     os.makedirs(extraction_dir, exist_ok=True)
 
-    scene = build_scene(cfg, synthetic)
+    scene = build_scene(cfg, synthetic, mode="train")
     mc = ModelConfigs.from_cfg(cfg, num_cams=scene.n_frames)
     state = create_train_state(
         0, mc, init_c2w=torch.as_tensor(scene.c2ws_gt) if cfg["pose"]["init_pose"] else None,
@@ -64,7 +62,43 @@ def evaluate_poses(cfg: dict, vis: bool = False, synthetic: bool = False,
     print(line)
     with open(os.path.join(extraction_dir, "evaluation.txt"), "a") as f:
         f.write(line + "\n")
+    if vis:
+        write_trajectory(extraction_dir, learned, gt, scene)
     return metrics
+
+
+def write_trajectory(extraction_dir: str, learned: np.ndarray, gt: np.ndarray, scene) -> str:
+    """The metric GT and learned trajectories, the learned one aligned by its
+    initial pose: frustums to trajectory.ply and, with matplotlib, the figure
+    trajectory.png. Returns the PLY's path."""
+    from ..evaluation.align import align_ate_init_pose
+    from ..evaluation.pose_eval import revert_to_metric
+    from .vis_poses import write_frustums_ply
+
+    est_m = revert_to_metric(learned, scene.reverse) if scene.reverse else learned
+    gt_m = revert_to_metric(gt, scene.reverse) if scene.reverse else gt
+    est_m = align_ate_init_pose(est_m, gt_m)
+    h_img, w_img = scene.imgs.shape[1:3]
+    fx = float(scene.K[0, 0]) * w_img / 2.0
+    fy = float(-scene.K[1, 1]) * h_img / 2.0
+    ply = write_frustums_ply([gt_m, est_m], ["green", "red"], h_img, w_img, fx, fy,
+                             os.path.join(extraction_dir, "trajectory.ply"))
+    try:
+        import matplotlib
+    except ImportError:
+        print(f"saved {ply} (no matplotlib: no trajectory.png)")
+        return ply
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    fig = plt.figure(figsize=(8, 6))
+    ax = fig.add_subplot(111, projection="3d")
+    ax.plot(*gt_m[:, :3, 3].T, "g-o", ms=2, label="GT")
+    ax.plot(*est_m[:, :3, 3].T, "r-o", ms=2, label="learned")
+    ax.legend()
+    fig.savefig(os.path.join(extraction_dir, "trajectory.png"), dpi=150)
+    plt.close(fig)
+    print(f"saved {extraction_dir}/trajectory.png and {ply}")
+    return ply
 
 
 def main():

@@ -4,16 +4,15 @@ Port of nope_nerf_tpu/cli/render.py (reference vis/render.py): loads a
 checkpoint (written by either package) and the learned poses, builds the
 novel trajectory ('interp' | 'bspline' | 'sprial'/'spiral'), renders
 RGB/depth/disparity per view through the fused render kernel and writes pngs
-and videos under extraction/. Scenes come from the built-in synthetic
-generators for now: on-disk LLFF/V-KITTI loading needs cv2 and comes with the
-data slice of the port.
+and videos under extraction/. The scene is cfg's on disk (data/fields.py,
+mode "render") or one of the built-in synthetic generators.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 
@@ -22,18 +21,17 @@ from .. import DeviceLike, resolve_device
 SYNTHETIC_SCENES = ("plane", "driving")
 
 
-def load_scene(synthetic: Union[bool, str]):
-    """The scene `render` uses: see its `synthetic` argument."""
-    from ..data import SceneData, make_driving_scene, make_synthetic_scene
+def load_scene(synthetic: Union[bool, str], cfg: Optional[dict] = None):
+    """The scene `render` uses: see its `synthetic` argument; without one,
+    cfg's scene on disk."""
+    from ..data import DataField, SceneData, make_driving_scene, make_synthetic_scene
 
     if synthetic is True or synthetic == "plane":
         return SceneData.from_dict(make_synthetic_scene(n_frames=8, h=120, w=160))
     if synthetic == "driving":
         return SceneData.from_dict(make_driving_scene(n_frames=8))
     if not synthetic:
-        raise NotImplementedError(
-            "on-disk scenes (data/fields.py, llff.py, degrade.py need cv2) come with the "
-            "data slice of the port; render a synthetic scene with --synthetic")
+        return DataField.from_cfg(cfg, mode="render").scene
     raise ValueError(f"unknown synthetic scene {synthetic!r}; one of {SYNTHETIC_SCENES}")
 
 
@@ -69,15 +67,15 @@ def render(cfg: dict, synthetic: Union[bool, str] = False, device: DeviceLike = 
            save: bool = True):
     """Render cfg's novel-view trajectory; returns the frames (see
     evaluation.extract.render_trajectory). `synthetic`: True or "plane" for
-    the single-plane scene, "driving" for the V-KITTI-shaped one. `save=False`
-    writes no files."""
+    the single-plane scene, "driving" for the V-KITTI-shaped one, False for
+    cfg's scene on disk. `save=False` writes no files."""
     from ..evaluation.extract import render_trajectory
     from ..models.nerf import NerfConfig
     from ..ops.render import RenderConfig
     from ..training.checkpoints import load_params
 
     dev = resolve_device(device)
-    scene = load_scene(synthetic)
+    scene = load_scene(synthetic, cfg)
     out_dir = cfg["training"]["out_dir"]
     extraction_dir = os.path.join(out_dir, cfg["extract_images"]["extraction_dir"])
     loaded = load_params(out_dir, cfg["extract_images"]["model_file"], device=dev)

@@ -11,8 +11,11 @@ per-iteration hooks whose boundary falls inside an epoch fire at that epoch's
 end, with the step's own metrics, as in the JAX package's scan-fused loop.
 The state's tensors are updated in place, so the held best state is a copy.
 
-Scenes come from the built-in synthetic generator for now. What needs a module
-the port does not have yet fails at the top of `train`, by name.
+The scene is one on disk (data/fields.py::DataField: LLFF, Tanks and
+V-KITTI layouts, PNG images) or, with `synthetic`, the built-in generator.
+`dataloading.show_pose_only` draws the preprocessed pose frustums
+(cli/vis_poses.py) and returns without training. What needs a module the port
+does not have yet fails at the top of `train`, by name.
 """
 
 from __future__ import annotations
@@ -46,23 +49,39 @@ def backup(out_dir: str, config_path: Optional[str], snapshot_source: bool = Tru
                         ignore=shutil.ignore_patterns("__pycache__", "*.pyc"))
 
 
-def build_scene(cfg: dict, synthetic: bool):
-    """The training scene: the 8-frame 120x160 synthetic plane scene."""
-    if not synthetic:
-        raise NotImplementedError(
-            "on-disk scenes (data/fields.py, llff.py, degrade.py need cv2) come with the "
-            "data slice of the port; train on the built-in scene with --synthetic")
-    from ..data import SceneData, make_synthetic_scene
-    return SceneData.from_dict(make_synthetic_scene(n_frames=8, h=120, w=160))
+def build_scene(cfg: dict, synthetic: bool, mode: Optional[str] = None):
+    """The training scene: cfg's scene on disk in `mode` (default
+    training.mode), or with `synthetic` the 8-frame 120x160 synthetic plane
+    scene."""
+    from ..data import DataField, SceneData, make_synthetic_scene
+    if synthetic:
+        return SceneData.from_dict(make_synthetic_scene(n_frames=8, h=120, w=160))
+    return DataField.from_cfg(cfg, mode=mode or cfg["training"]["mode"]).scene
+
+
+def show_poses(scene, out_dir: str) -> str:
+    """Pose-loading sanity check (reference dataset.py:114-127): the
+    preprocessed GT poses and the initial (COLMAP) ones as frustums, drawn to
+    out_dir/pose_check.png. Needs matplotlib."""
+    from .vis_poses import draw_poses
+    h_img, w_img = scene.imgs.shape[1:3]
+    fx = float(scene.K[0, 0]) * w_img / 2.0
+    fy = float(-scene.K[1, 1]) * h_img / 2.0
+    c2ws_list = [np.asarray(scene.c2ws_gt)]
+    colors, labels = ["tab:blue"], ["preprocessed (gt/llff)"]
+    if scene.c2ws_init is not None:
+        c2ws_list.append(np.asarray(scene.c2ws_init))
+        colors.append("tab:orange")
+        labels.append("init (colmap)")
+    out_path = os.path.join(out_dir, "pose_check.png")
+    draw_poses(c2ws_list, colors, labels, h_img, w_img, fx, fy, out_path)
+    print(f"show_pose_only: wrote {out_path}; exiting without training")
+    return out_path
 
 
 def check_supported(cfg: dict) -> None:
     """Raise for the options whose modules the port does not have yet."""
     t = cfg["training"]
-    if cfg["dataloading"]["show_pose_only"]:
-        raise NotImplementedError("dataloading.show_pose_only draws pose frustums with "
-                                  "cli/vis_poses.py, which comes with the data slice of the "
-                                  "port (on-disk scenes)")
     if cfg["tpu"]["mesh_shape"]:
         raise NotImplementedError("tpu.mesh_shape asks for a device mesh; the multi-device "
                                   "slice of the port is not there yet")
@@ -94,7 +113,8 @@ def train(cfg: dict, synthetic: bool = False, max_epochs: Optional[int] = None,
           device: DeviceLike = None):
     """Train cfg's model on `device` (CUDA unless told otherwise) until the
     schedule ends or `max_epochs` epochs have run; resumes from the checkpoint
-    in training.out_dir when there is one. Returns (state, trainer, scene)."""
+    in training.out_dir when there is one. Returns (state, trainer, scene), or
+    with dataloading.show_pose_only the pose figure's path."""
     from ..data import batch_for_frame, epoch_order
     from ..evaluation.image_eval import eval_image
     from ..evaluation.pose_eval import full_pose_evaluation
@@ -117,6 +137,8 @@ def train(cfg: dict, synthetic: bool = False, max_epochs: Optional[int] = None,
     np.random.seed(seed)
 
     scene = build_scene(cfg, synthetic)
+    if cfg["dataloading"]["show_pose_only"]:
+        return show_poses(scene, out_dir)
     n_views = scene.n_frames
     c2ws_gt = np.asarray(scene.c2ws_gt)
     mc = ModelConfigs.from_cfg(cfg, num_cams=n_views)
@@ -125,6 +147,13 @@ def train(cfg: dict, synthetic: bool = False, max_epochs: Optional[int] = None,
     if cfg["pose"]["learn_pose"] and cfg["pose"]["init_pose"]:
         src = scene.c2ws_gt if cfg["pose"]["init_pose_type"] == "gt" else scene.c2ws_init
         if src is None:
+            # a scene on disk without COLMAP poses is a config error: GT init
+            # would make a pose-refinement experiment trivially degenerate
+            if not synthetic:
+                raise ValueError(
+                    "pose.init_pose_type=colmap but the scene has no COLMAP poses "
+                    "(dataloading.load_colmap_poses is off?); set init_pose_type=gt "
+                    "explicitly if GT init is intended")
             # synthetic scenes have no COLMAP reconstruction: GT init is the only option
             print("synthetic scene: init_pose_type=colmap falls back to GT init")
             src = scene.c2ws_gt

@@ -2,17 +2,20 @@
 
 Copy of make_synthetic_scene / make_driving_scene from
 nope_nerf_tpu/data/synthetic.py: a disk-free stand-in with the exact batch
-schema of a loaded scene. The V-KITTI writer (which needs cv2) is not ported:
-on-disk scenes come with the data slice of the port.
+schema of a loaded scene; and of its write_vkitti_scene, which writes such a
+scene as a scene directory on disk through data/image_io.py (no cv2): the
+same files, pixel for pixel, as the JAX package's writer.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
 
 from ..geometry.camera import intrinsics_ndc_np as _intrinsics_ndc_np
+from .image_io import write_png
 
 
 def _texture(x: np.ndarray, y: np.ndarray) -> np.ndarray:
@@ -124,6 +127,65 @@ def make_driving_scene(n_frames: int = 20, h: int = 96, w: int = 160,
         "fx": np.float32(fx),
         "fy": np.float32(fy),
     }
+
+
+def _c2w_to_llff_row(c2w: np.ndarray, h: int, w: int, f: float,
+                     dmin: float, dmax: float) -> np.ndarray:
+    """OpenGL c2w -> 17-float LLFF row [R|t|hwf] + bounds, such that the loader's
+    (x,y,z)->(y,-x,z) column swizzle (llff.make_c2ws_from_llff) recovers c2w.
+    Same permutation as cli/get_vkitti.convert_pose."""
+    r, t = c2w[:3, :3], c2w[:3, 3:4]
+    r_llff = np.hstack([-r[:, 1:2], r[:, 0:1], r[:, 2:3]])
+    m35 = np.hstack([r_llff, t, np.array([[h], [w], [f]], np.float64)])
+    return np.hstack([m35.flatten(), dmin, dmax])
+
+
+def write_vkitti_scene(dest: str, scene: Dict[str, np.ndarray],
+                       pose_noise_deg: float = 0.0,
+                       pose_noise_trans: float = 0.0,
+                       seed: int = 1) -> None:
+    """Write a scene dict as a V-KITTI-format LLFF scene directory, the exact
+    layout cli/get_vkitti produces from raw V-KITTI (and the reference's
+    get_kittivirtual.py emits): images/*.png, depth/*.png (uint16 centimetres),
+    intrinsics.npz, poses_gt.npy, poses_bounds.npy.
+
+    poses_bounds.npy (the "COLMAP" initialization the d-variant configs start
+    from) can be perturbed with rotation/translation noise to simulate an
+    imperfect reconstruction, making joint pose refinement non-trivial.
+    """
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(dest, "images"), exist_ok=True)
+    os.makedirs(os.path.join(dest, "depth"), exist_ok=True)
+
+    imgs, depths, c2ws = scene["imgs"], scene["depths"], scene["c2ws_gt"]
+    n, h, w = depths.shape
+    fx, fy = float(scene["fx"]), float(scene["fy"])
+    K3 = np.array([[fx, 0, (w - 1) / 2.0], [0, fy, (h - 1) / 2.0], [0, 0, 1]])
+    np.savez(os.path.join(dest, "intrinsics.npz"), K=K3)
+
+    rows_gt, rows_init = [], []
+    for i in range(n):
+        name = f"{i:05d}.png"
+        rgb = np.clip(imgs[i] * 255.0, 0, 255).astype(np.uint8)
+        write_png(os.path.join(dest, "images", name), rgb)
+        depth_cm = np.clip(np.round(depths[i] * 100.0), 0, 65535).astype(np.uint16)
+        write_png(os.path.join(dest, "depth", name), depth_cm)
+
+        dmin, dmax = float(depths[i].min()), float(depths[i].max())
+        rows_gt.append(_c2w_to_llff_row(c2ws[i], h, w, fx, dmin, dmax))
+
+        noisy = np.array(c2ws[i], np.float64)
+        if pose_noise_deg or pose_noise_trans:
+            dr = Rotation.from_rotvec(
+                np.deg2rad(pose_noise_deg) * rng.randn(3) / np.sqrt(3)).as_matrix()
+            noisy[:3, :3] = dr @ noisy[:3, :3]
+            noisy[:3, 3] += pose_noise_trans * rng.randn(3)
+        rows_init.append(_c2w_to_llff_row(noisy, h, w, fx, dmin, dmax))
+
+    np.save(os.path.join(dest, "poses_gt.npy"), np.stack(rows_gt))
+    np.save(os.path.join(dest, "poses_bounds.npy"), np.stack(rows_init))
 
 
 def make_synthetic_scene(n_frames: int = 4, h: int = 48, w: int = 64,

@@ -11,7 +11,7 @@ LPIPS: the JAX package reports None without pretrained weights
 None here; the eval CLI refuses a config that names LPIPS weights.
 
 The card's machine has no cv2: the depth resize to the ground truth's
-resolution (cv2.INTER_NEAREST_EXACT) is an index map in numpy.
+resolution (cv2.INTER_NEAREST_EXACT) is data/image_io.py's index map.
 """
 
 from __future__ import annotations
@@ -21,19 +21,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..data.image_io import resize_nearest_exact
 from ..ops.ssim import ssim as ssim_fn
 from ..utils.metrics import compute_errors, mse2psnr
-
-
-def resize_nearest_exact(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """(H, W[, C]) -> (size[0], size[1][, C]) by cv2.INTER_NEAREST_EXACT's rule:
-    the source pixel under the centre of each destination pixel,
-    src = floor((dst + 0.5) * src_len / dst_len)."""
-    h, w = img.shape[:2]
-    oh, ow = size
-    iy = np.minimum(np.floor((np.arange(oh) + 0.5) * (h / oh)).astype(np.int64), h - 1)
-    ix = np.minimum(np.floor((np.arange(ow) + 0.5) * (w / ow)).astype(np.int64), w - 1)
-    return img[iy[:, None], ix[None, :]]
 
 
 def depth_confusion(depth_pred: np.ndarray, depth_gt: np.ndarray,

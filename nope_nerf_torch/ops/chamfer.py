@@ -1,21 +1,31 @@
-"""Bidirectional Chamfer (point-to-point) loss.
+"""Bidirectional Chamfer (point-to-point) loss and the one-direction
+nearest-neighbour distance.
 
-Port of nope_nerf_tpu/ops/chamfer.py::chamfer_loss and of the nearest-neighbour
-sweep nope_nerf_tpu/ops/pallas_chamfer.py::_bidir_kernel (K2). For each point
-of one cloud the nearest point of the other is found by one sweep over the
-(S, D) squared distances that serves both directions; the loss then recomputes
-the exact f32 distance of every matched pair, and the gradient flows through
-that gather alone (the indices are constants).
+Port of nope_nerf_tpu/ops/chamfer.py::chamfer_loss and nearest_dists, and of
+the two nearest-neighbour sweeps of nope_nerf_tpu/ops/pallas_chamfer.py:
+`_bidir_kernel` (K2) and `_kernel` (K7). The loss recomputes the exact f32
+distance of every matched pair, and the gradient flows through that gather
+alone (the indices are constants).
 
-On a CUDA tensor `nearest_idx_bidirectional` launches the hand-written kernel
-`nope_nerf_torch/csrc/chamfer_bidir.cu`, or raises; on a CPU tensor it runs
-`nearest_idx_bidirectional_plain`, the same packed-integer formulation in
-plain PyTorch. On this card the one kernel stands for both JAX routes (the
-Pallas kernel and the XLA scan of ops/chamfer.py).
-
-Near-ties: d^2 keeps 10 of its 23 mantissa bits in the packed key, so among
-candidates whose d^2 agree to 2^-10 the lower index wins. The loss is exact
-for whichever winner, and its error is bounded by the tie gap.
+Two sweeps, chosen by cloud size on every device (the JAX gate of
+ops/chamfer.py:202), so that the CPU runs the route the card runs:
+- clouds of at most 8,192 points: `nearest_idx_bidirectional`, one sweep over
+  the (S, D) squared distances that serves both directions; on a CUDA tensor
+  the hand-written kernel `csrc/chamfer_bidir.cu` (K2), on a CPU tensor
+  `nearest_idx_bidirectional_plain`, the same packed-integer formulation.
+  Near-ties: d^2 keeps 10 of its 23 mantissa bits in the packed key, so among
+  candidates whose d^2 agree to 2^-10 the lower index wins. The loss is exact
+  for whichever winner, and its error is bounded by the tie gap.
+- larger clouds: `nearest_idx` once per direction; on a CUDA tensor the
+  hand-written kernel `csrc/chamfer_nearest.cu` (K7), on a CPU tensor
+  `nearest_idx_plain`. d^2 is f32 with the lowest index winning exact ties,
+  and the kernel's d^2 is bit-equal to the plain version's. The JAX package
+  picks these winners from bf16 distances, so on general clouds the two differ
+  among near-ties; on clouds without near-ties they agree.
+A CUDA tensor never falls back to a plain version: the wrapper launches its
+kernel or raises. On this card the two kernels stand for the Pallas kernels
+and the XLA scans alike, and `nearest_dists` for both JAX routes of the
+one-direction distance (ops/chamfer.py:53 and nearest_dists_pallas).
 """
 
 from __future__ import annotations
@@ -32,7 +42,7 @@ IDX_BITS = 13                    # index field of the packed (d2, idx) int32
 IDX_MASK = (1 << IDX_BITS) - 1
 MAX_POINTS = 1 << IDX_BITS       # 8,192 points per cloud
 INT_MAX = 2 ** 31 - 1
-PLAIN_CHUNK = 512                # y rows per block of the plain version
+PLAIN_CHUNK = 512                # y rows per block of the plain versions
 
 
 def _setup(lib: ctypes.CDLL) -> None:
@@ -44,7 +54,17 @@ def _setup(lib: ctypes.CDLL) -> None:
     lib.chamfer_error_string.restype = ctypes.c_char_p
 
 
+def _setup_nearest(lib: ctypes.CDLL) -> None:
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.chamfer_nearest.argtypes = [p, p, p, p, i, i, p]
+    lib.chamfer_nearest.restype = ctypes.c_int
+    lib.chamfer_nearest_error_string.argtypes = [ctypes.c_int]
+    lib.chamfer_nearest_error_string.restype = ctypes.c_char_p
+
+
 CHAMFER_BIDIR = CudaLibrary("chamfer_bidir.cu", _setup)
+CHAMFER_NEAREST = CudaLibrary("chamfer_nearest.cu", _setup_nearest)
 
 
 def _check_clouds(x: torch.Tensor, y: torch.Tensor) -> None:
@@ -98,9 +118,9 @@ def _nearest_idx_cuda(x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, t
     s, d = x.shape[0], y.shape[0]
     if max(s, d) > MAX_POINTS:
         raise NotImplementedError(
-            f"the CUDA Chamfer kernel takes clouds of at most {MAX_POINTS} points, got "
-            f"{s} and {d}; the sweep for larger clouds comes with the slice of the port that "
-            "brings K7 (pallas_chamfer.py::_kernel)")
+            f"the bidirectional CUDA Chamfer kernel takes clouds of at most {MAX_POINTS} "
+            f"points, got {s} and {d}; chamfer_loss sends larger clouds through nearest_idx "
+            "(the one-direction kernel, chamfer_nearest.cu) once per direction")
     x = x.detach().to(torch.float32).contiguous()
     y = y.detach().to(torch.float32).contiguous()
     lib = CHAMFER_BIDIR.lib()
@@ -131,11 +151,105 @@ def nearest_idx_bidirectional(x: torch.Tensor, y: torch.Tensor
     return _nearest_idx_cuda(x, y)
 
 
+def nearest_idx_plain(src: torch.Tensor, dst: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K7, on any device and for any cloud size:
+    (min_j d2(src_i, dst_j) (S,) f32, its argmin (S,) int64), with
+    d2 = (|x|^2 + |y|^2) - 2<x,y> not clamped. Each product and sum is its own
+    elementwise op, in the kernel's order (no reduction or matmul, whose order
+    is unspecified), so the kernel's d2 is bit-equal to this one's. In chunks
+    of dst: the lowest index wins within a chunk (min's first index) and a
+    strict < keeps the earlier chunk's winner across chunks."""
+    _check_clouds(src, dst)
+    x = src.detach().to(torch.float32)
+    y = dst.detach().to(torch.float32)
+    x0, x1, x2 = x[:, 0:1], x[:, 1:2], x[:, 2:3]
+    xsq = (x0 * x0 + x1 * x1) + x2 * x2
+    best = torch.full((x.shape[0],), float("inf"), device=x.device)
+    best_i = torch.zeros((x.shape[0],), dtype=torch.int64, device=x.device)
+    for c0 in range(0, y.shape[0], PLAIN_CHUNK):
+        yc = y[c0:c0 + PLAIN_CHUNK]
+        y0, y1, y2 = yc[:, 0], yc[:, 1], yc[:, 2]
+        ysq = (y0 * y0 + y1 * y1) + y2 * y2
+        dot = (x0 * y0 + x1 * y1) + x2 * y2
+        m, a = ((xsq + ysq) - 2.0 * dot).min(dim=1)
+        take = m < best
+        best = torch.where(take, m, best)
+        best_i = torch.where(take, a + c0, best_i)
+    return best, best_i
+
+
+def _nearest_one_cuda(src: torch.Tensor, dst: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    s, d = src.shape[0], dst.shape[0]
+    src = src.detach().to(torch.float32).contiguous()
+    dst = dst.detach().to(torch.float32).contiguous()
+    lib = CHAMFER_NEAREST.lib()
+    d2 = torch.empty((s,), dtype=torch.float32, device=src.device)
+    idx = torch.empty((s,), dtype=torch.int32, device=src.device)
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        err = lib.chamfer_nearest(src.data_ptr(), dst.data_ptr(), d2.data_ptr(), idx.data_ptr(),
+                                  s, d, stream)
+    if err != 0:
+        raise RuntimeError("chamfer_nearest kernel launch failed: "
+                           + lib.chamfer_nearest_error_string(err).decode())
+    CHAMFER_NEAREST.launches += 1
+    return d2, idx.to(torch.int64)
+
+
+def nearest_idx(src: torch.Tensor, dst: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(min squared distance (S,) f32, argmin (S,) int64) of each src point
+    over the dst cloud, without gradient. A CUDA tensor goes through the
+    hand-written kernel (K7, any cloud size); a CPU tensor, and any tensor
+    inside `plain_versions()`, through `nearest_idx_plain`."""
+    _check_clouds(src, dst)
+    if runs_plain(src):
+        return nearest_idx_plain(src, dst)
+    if src.device.type != "cuda":
+        raise NotImplementedError(f"no Chamfer kernel for device {src.device}")
+    return _nearest_one_cuda(src, dst)
+
+
+class _NearestDists(torch.autograd.Function):
+    """The custom VJP of pallas_chamfer.py:205-217: the index is a constant;
+    d(src) = g * diff / max(|diff|, 1e-12), and d(dst) the scatter-add of
+    -d(src) by index (index_add_, as JAX's segment_sum outside its kernel)."""
+
+    @staticmethod
+    def forward(ctx, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+        _, idx = nearest_idx(src, dst)
+        diff = src - dst[idx]
+        dist = torch.sqrt(torch.sum(diff * diff, dim=-1))
+        ctx.save_for_backward(diff, dist, idx)
+        ctx.n_dst = dst.shape[0]
+        return dist
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        diff, dist, idx = ctx.saved_tensors
+        dsrc = diff / torch.clamp_min(dist, 1e-12)[:, None] * g[:, None]
+        ddst = torch.zeros((ctx.n_dst, 3), dtype=dsrc.dtype, device=dsrc.device)
+        ddst.index_add_(0, idx, -dsrc)
+        return dsrc, ddst
+
+
+def nearest_dists(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """For each src point (S, 3): the euclidean distance to its nearest dst
+    point (D, 3), (S,), differentiable in both clouds (see _NearestDists)."""
+    return _NearestDists.apply(src, dst)
+
+
 def chamfer_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """mean_nn(x->y) + mean_nn(y->x), scalar (reference `get_pc_loss`,
-    losses.py:116-123, match_method='dense'). safe_norm: exactly coincident
-    pairs would otherwise NaN the pose and distortion gradients."""
-    idx_xy, idx_yx = nearest_idx_bidirectional(x, y)
+    losses.py:116-123, match_method='dense'). Clouds of at most 8,192 points
+    take the bidirectional sweep (K2), larger ones the one-direction sweep
+    (K7) once per direction. safe_norm: exactly coincident pairs would
+    otherwise NaN the pose and distortion gradients."""
+    if max(x.shape[0], y.shape[0]) > MAX_POINTS:
+        _, idx_xy = nearest_idx(x, y)
+        _, idx_yx = nearest_idx(y, x)
+    else:
+        idx_xy, idx_yx = nearest_idx_bidirectional(x, y)
     d_x = safe_norm(x - y[idx_xy], dim=-1)
     d_y = safe_norm(y - x[idx_yx], dim=-1)
     return d_x.mean() + d_y.mean()

@@ -245,8 +245,15 @@ def test_eval_poses_cli(trained):
     assert np.isfinite(metrics["ate_trans"]) and metrics["ate_trans"] < 1.0
     text = open(os.path.join(cfg["training"]["out_dir"], "extraction", "evaluation.txt")).read()
     assert "ATE_t:" in text and "RPE_r:" in text
-    with pytest.raises(NotImplementedError, match="vis_poses"):
-        evaluate_poses(cfg, vis=True, synthetic=True, device="cpu")
+    # vis: the metric trajectories as frustums (cli/vis_poses.py) and the figure
+    evaluate_poses(cfg, vis=True, synthetic=True, device="cpu")
+    extraction = os.path.join(cfg["training"]["out_dir"], "extraction")
+    ply = open(os.path.join(extraction, "trajectory.ply")).read()
+    n = scene.n_frames
+    # per trajectory: 8 frustum segments of 2 vertices per camera, plus the polyline
+    assert f"element vertex {2 * (16 * n + n)}" in ply
+    assert f"element edge {2 * (8 * n + n - 1)}" in ply
+    assert os.path.exists(os.path.join(extraction, "trajectory.png"))
 
 
 def test_eval_poses_cli_is_zero_without_learned_poses(tmp_path):
@@ -356,8 +363,16 @@ def test_scheduling_mode_reset_reinitializes_the_nerf(tmp_path):
     ("tpu", "mesh_shape", [4], "multi-device"),
 ])
 def test_train_refuses_unported_options_early(tmp_path, section, key, value, match):
+    """tpu.mesh_shape raises before anything runs. dataloading.show_pose_only
+    is ported (cli/vis_poses.py): train stops as early, once the pose figure
+    is drawn, and trains nothing."""
     extra = {section: {key: value}}
     cfg = _tiny_cfg(tmp_path / "out", **extra)
+    if key == "show_pose_only":
+        out = train(cfg, synthetic=True, max_epochs=1, device="cpu")
+        assert out == str(tmp_path / "out" / "pose_check.png") and os.path.exists(out)
+        assert not (tmp_path / "out" / "model.ckpt").exists()        # nothing trained
+        return
     with pytest.raises(NotImplementedError, match=match):
         train(cfg, synthetic=True, max_epochs=1, device="cpu")
     assert not (tmp_path / "out").exists()          # nothing ran
@@ -421,9 +436,10 @@ def test_train_runs_vis_geo_and_occupancy(tmp_path, option):
 
 def test_entry_points_refuse_disk_scenes_and_lpips_weights(tmp_path):
     cfg = _tiny_cfg(tmp_path)
+    # scenes on disk are ported: a config that names none is refused by name
     for call in (lambda: train(cfg, device="cpu"), lambda: evaluate(cfg, device="cpu"),
                  lambda: evaluate_poses(cfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match="data slice"):
+        with pytest.raises(ValueError, match="dataloading.path"):
             call()
     with pytest.raises(FileNotFoundError):
         evaluate(cfg, synthetic=True, device="cpu")

@@ -373,6 +373,45 @@ def test_chamfer_loss_gradients_and_cloud_limit(cuda_device):
         C.nearest_idx_bidirectional(torch.zeros(8193, 3, device=cuda_device), y)
 
 
+# ---- chamfer_nearest (K7) -------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(9000, 9100), (301, 77), (5, 40000), (1, 1)])
+def test_chamfer_nearest_is_bit_equal_to_plain(cuda_device, shape):
+    gen = torch.Generator().manual_seed(shape[1])
+    x = (torch.rand(shape[0], 3, generator=gen) * 6 - 3).to(cuda_device)
+    y = (torch.rand(shape[1], 3, generator=gen) * 6 - 3).to(cuda_device)
+    before = C.CHAMFER_NEAREST.launches
+    d2, idx = C.nearest_idx(x, y)
+    assert C.CHAMFER_NEAREST.launches == before + 1
+    d2_p, idx_p = C.nearest_idx_plain(x, y)
+    assert idx.dtype == torch.int64 and d2.dtype == torch.float32
+    assert torch.equal(idx, idx_p) and torch.equal(d2, d2_p)
+
+
+def test_chamfer_loss_above_the_gate_launches_k7_twice(cuda_device):
+    gen = torch.Generator().manual_seed(4)
+    x = (torch.rand(C.MAX_POINTS + 100, 3, generator=gen) * 20).to(cuda_device)
+    y = (torch.rand(C.MAX_POINTS + 7, 3, generator=gen) * 20).to(cuda_device)
+    k2, k7 = C.CHAMFER_BIDIR.launches, C.CHAMFER_NEAREST.launches
+    xg, yg = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    loss = C.chamfer_loss(xg, yg)
+    loss.backward()
+    assert (C.CHAMFER_BIDIR.launches - k2, C.CHAMFER_NEAREST.launches - k7) == (0, 2)
+    xp, yp = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    with F.plain_versions():
+        loss_p = C.chamfer_loss(xp, yp)
+        loss_p.backward()
+    assert C.CHAMFER_NEAREST.launches - k7 == 2
+    # the same indices, so the same gather tail: equal up to index_add's atomic order
+    assert torch.equal(loss.detach(), loss_p.detach())
+    for g, p in ((xg.grad, xp.grad), (yg.grad, yp.grad)):
+        assert float((g - p).abs().max()) <= 1e-6 * float(p.abs().max())
+    w = torch.rand(x.shape[0], generator=gen).to(cuda_device)
+    xs, ys = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    (w * C.nearest_dists(xs, ys)).sum().backward()
+    assert torch.isfinite(xs.grad).all() and torch.isfinite(ys.grad).all()
+
+
 # ---- the train step on the card -------------------------------------------------
 
 def test_train_step_on_card_counts_launches_fused_and_not(cuda_device):

@@ -19,13 +19,14 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "nope_nerf_torch"
 BLOCKED = ("jax", "jaxlib", "nope_nerf_tpu", "optax", "chex", "yaml", "cv2", "imageio",
-           "matplotlib")
-# the modules of the third and fourth slices: each must be among those the scan imports
+           "matplotlib", "PIL")
+# the modules of the third to fifth slices: each must be among those the scan imports
 REQUIRED = tuple("nope_nerf_torch." + m for m in (
     "cli.train", "cli.eval", "cli.eval_poses", "evaluation.align", "evaluation.artifacts",
     "evaluation.image_eval", "evaluation.pose_eval", "evaluation.pose_opt",
     "tools.backward_noise", "training.checkpoints", "utils.metrics", "utils.profiling",
-    "ops.fused_mlp", "ops.occupancy", "ops.phong"))
+    "ops.fused_mlp", "ops.occupancy", "ops.phong", "cli.vis_poses", "data.image_io",
+    "data.llff", "data.degrade", "data.fields"))
 
 torch.set_num_threads(2)
 
@@ -82,7 +83,7 @@ def test_every_module_imports_without_jax_or_reference():
     res = _run(_IMPORT_ALL.format(blocked=BLOCKED, required=REQUIRED))
     assert res.returncode == 0, res.stderr
     n, loaded = res.stdout.strip().split(" ", 1)
-    assert int(n) >= 43       # every module of the three slices, the CLIs' included
+    assert int(n) >= 48       # every module of the five slices, the CLIs' included
     assert loaded == "[]", loaded
 
 

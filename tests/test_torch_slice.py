@@ -136,7 +136,8 @@ def test_port_render_requires_checkpoint_and_synthetic(tmp_path):
     cfg = port_load_config(overrides=_overrides(tmp_path, True))
     with pytest.raises(FileNotFoundError):
         port_render(cfg, synthetic=True, device="cpu", save=False)
-    with pytest.raises(NotImplementedError, match="data slice"):
+    # scenes on disk are ported: a config that names none is refused by name
+    with pytest.raises(ValueError, match="dataloading.path"):
         port_render(cfg, synthetic=False, device="cpu", save=False)
 
 
