@@ -26,9 +26,11 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
 5. drives the train CLI and the evaluation path at the full model width on the
    built-in synthetic scene: cli.train.train for 2 epochs with the validate
    and checkpoint hooks firing, a resume (1 epoch + checkpoint + 1 epoch) held
-   bit-equal to 2 epochs straight, cli.eval.evaluate with test-time pose
-   optimisation (one render_fwd launch and one of render_bwd's
-   frozen-network variant per step),
+   bit-equal to 2 epochs straight, an epoch with the visualize (phong geometry
+   view included) and reprojection hooks writing PNGs through the port's own
+   writer, cli.eval.evaluate with test-time pose optimisation (one render_fwd
+   launch and one of render_bwd's frozen-network variant per step) saving its
+   per-view PNGs,
    cli.eval_poses.evaluate_poses, and 4 train steps of a config outside the
    fused-loss gate (depth_loss_type invariant: render_fwd + render_bwd's full
    variant per step), each with its launch counts asserted and its first
@@ -209,39 +211,50 @@ def numel_bytes(tensors) -> int:
 
 
 def check_render_fwd(torch, dev, gen) -> float:
-    """K3 against its plain version over {softplus, relu} x dist_alpha x want_aux."""
+    """K3 against its plain version over {softplus, relu} x dist_alpha x want_aux
+    at 128 samples and D=256; then at the shared-memory-tight 1024 samples at
+    both widths, on a ray count that is no multiple of the card's SMs."""
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
     from nope_nerf_torch.ops.fused_render import (pack_rays, render_rays_fused,
                                                   render_rays_fused_plain)
     worst = 0.0
+
+    def held(gen, D, S, n_rays, occ, dist_alpha, want_aux, label):
+        nonlocal worst
+        ncfg = NerfConfig(hidden_dim=D, occ_activation=occ, dist_alpha=dist_alpha,
+                          use_pallas=True)
+        params = init_nerf_params(ncfg, gen, device=dev)
+        origin = torch.randn(n_rays, 3, generator=gen) * 3.0
+        ray_vec = torch.nn.functional.normalize(torch.randn(n_rays, 3, generator=gen), dim=1)
+        rays = pack_rays(origin, ray_vec, -ray_vec).to(dev)
+        z = torch.sort(0.01 + 9.99 * torch.rand(n_rays, S, generator=gen), dim=1).values.to(dev)
+        for aux in want_aux:
+            got = render_rays_fused(params, rays, z, ncfg, dist_alpha, aux)
+            torch.cuda.synchronize()
+            ref = render_rays_fused_plain(params, rays, z, ncfg, dist_alpha, aux)
+            report = []
+            for name, g, r in zip(("rgb", "dist", "weights", "alpha"), got, ref):
+                if r is None:
+                    continue
+                err, tol = max_err(g, r), tolerance(r)
+                worst = max(worst, err)
+                report.append(f"{name} {err:.3g}/{tol:.3g}")
+                if not err <= tol:
+                    raise RuntimeError(f"render_fwd disagrees with its plain version: "
+                                       f"{name} err {err} > {tol} (D={D}, S={S}, occ={occ}, "
+                                       f"dist_alpha={dist_alpha}, want_aux={aux})")
+            print(f"render_fwd vs plain, {label}occ={occ} dist_alpha={dist_alpha} "
+                  f"want_aux={aux}: " + ", ".join(report))
+
     for occ in ("softplus", "relu"):
         for dist_alpha in (False, True):
-            ncfg = NerfConfig(hidden_dim=256, occ_activation=occ, dist_alpha=dist_alpha,
-                              use_pallas=True)
-            params = init_nerf_params(ncfg, gen, device=dev)
-            origin = torch.randn(CHECK_RAYS, 3, generator=gen) * 3.0
-            ray_vec = torch.nn.functional.normalize(
-                torch.randn(CHECK_RAYS, 3, generator=gen), dim=1)
-            rays = pack_rays(origin, ray_vec, -ray_vec).to(dev)
-            z = torch.sort(0.01 + 9.99 * torch.rand(CHECK_RAYS, 128, generator=gen),
-                           dim=1).values.to(dev)
-            for want_aux in (False, True):
-                got = render_rays_fused(params, rays, z, ncfg, dist_alpha, want_aux)
-                torch.cuda.synchronize()
-                ref = render_rays_fused_plain(params, rays, z, ncfg, dist_alpha, want_aux)
-                report = []
-                for name, g, r in zip(("rgb", "dist", "weights", "alpha"), got, ref):
-                    if r is None:
-                        continue
-                    err, tol = max_err(g, r), tolerance(r)
-                    worst = max(worst, err)
-                    report.append(f"{name} {err:.3g}/{tol:.3g}")
-                    if not err <= tol:
-                        raise RuntimeError(f"render_fwd disagrees with its plain version: "
-                                           f"{name} err {err} > {tol} (occ={occ}, "
-                                           f"dist_alpha={dist_alpha}, want_aux={want_aux})")
-                print(f"render_fwd vs plain, occ={occ} dist_alpha={dist_alpha} "
-                      f"want_aux={want_aux}: " + ", ".join(report))
+            held(gen, 256, 128, CHECK_RAYS, occ, dist_alpha, (False, True), "")
+    # a generator of their own: the later phases draw the same inputs as before
+    gen_s = torch.Generator().manual_seed(SEED + 6)
+    for D in (256, 128):
+        for occ, dist_alpha in (("softplus", False), ("relu", True)):
+            held(gen_s, D, 1024, BWD_CHECK_RAYS, occ, dist_alpha, (True,),
+                 f"D={D} S=1024 {BWD_CHECK_RAYS} rays, ")
     return worst
 
 
@@ -861,6 +874,7 @@ def run_cli_path(torch, np, dev):
     from nope_nerf_torch.cli.eval_poses import evaluate_poses
     from nope_nerf_torch.cli.train import train
     from nope_nerf_torch.config import load_config
+    from nope_nerf_torch.data.image_io import read_png
     from nope_nerf_torch.evaluation.pose_opt import (optimize_test_poses, pose_opt_loss)
     from nope_nerf_torch.models.poses import PoseConfig, init_pose_params
     from nope_nerf_torch.ops.fused_render import plain_versions
@@ -903,6 +917,23 @@ def run_cli_path(torch, np, dev):
         if not equal:
             raise RuntimeError("a resumed run differs from the same epochs run straight")
 
+        # ---- cli.train with the visualize (rgb, depth, phong geometry) and
+        # reprojection hooks: PNGs through the port's own writer, no imageio or cv2
+        cfg_v = cfg_for(os.path.join(root, "v"), training={
+            "visualize_every": 4, "vis_reprojection_every": 4, "vis_geo": True,
+            "validate_every": 0})
+        counted(lambda: train(cfg_v, synthetic=True, max_epochs=1, device=dev),
+                {"render_train": 8, "chamfer_bidir": 8, "render_fwd": 2},
+                "cli.train with the visualize and reprojection hooks every 4 steps, 1 epoch")
+        rendering = os.path.join(root, "v", "rendering")
+        pngs = sorted(os.path.join(d, f) for d, _, files in os.walk(rendering) for f in files
+                      if f.endswith(".png"))
+        shapes = {os.path.relpath(p, rendering): read_png(p).shape for p in pngs}
+        print(f"cli.train hooks wrote {len(pngs)} PNGs: " + ", ".join(
+            f"{k} {v}" for k, v in shapes.items()))
+        if len(pngs) != 2 * 3 + 2 * 2:
+            raise RuntimeError(f"cli.train hooks: expected 10 PNGs, got {sorted(shapes)}")
+
         # ---- step 1 of the pose optimisation, kernels against the plain versions
         mc = ModelConfigs.from_cfg(cfg, num_cams=7)
         _, eval_scene, _ = split_synthetic_scene()
@@ -943,13 +974,20 @@ def run_cli_path(torch, np, dev):
         n_eval = eval_scene.n_frames
         opt_steps = n_eval * POSE_OPT_EPOCHS
         summary, eval_counts = counted(
-            lambda: evaluate(cfg, synthetic=True, device=dev, save=False),
+            lambda: evaluate(cfg, synthetic=True, device=dev, save=True),
             {"render_fwd": opt_steps + n_eval, "render_bwd": opt_steps,
              "render_bwd_frozen": opt_steps},
             f"cli.eval, {POSE_OPT_EPOCHS} pose-opt epochs on {n_eval} view, then its frame")
         for k in ("mean_mse", "mean_psnr", "mean_ssim"):
             if not math.isfinite(summary[k]):
                 raise RuntimeError(f"cli.eval: {k} is not finite")
+        extraction = os.path.join(root, "a", cfg["extract_images"]["extraction_dir"])
+        saved = [os.path.join(extraction, sub, "0000.png") for sub in ("img_out", "img_gt_out")]
+        shape = tuple(eval_scene.imgs.shape[1:])
+        if not all(read_png(p).shape == shape for p in saved):
+            raise RuntimeError("cli.eval with save: the view's PNGs are missing or misshapen")
+        print(f"cli.eval with save: {', '.join(os.path.relpath(p, extraction) for p in saved)} "
+              f"read back at {shape}")
         # the same optimisation by hand: the pose must move and stay finite
         init = np.asarray(eval_scene.c2ws_gt)
         pose, c2ws = optimize_test_poses(nerf, None, eval_scene, mc.nerf, mc.render,
@@ -1275,8 +1313,8 @@ def run_slice_rest(torch, np, dev):
 def disk_config(name: str, root: str):
     """DISK_CONFIGS[name] with this run's changes: the scene under `root`, fern
     read at its working size (resize_factor 1: the one cut, see the module
-    docstring), the output under `root`, the hooks that write images (imageio)
-    or render views off, cli.eval's pose optimisation cut to POSE_OPT_EPOCHS
+    docstring), the output under `root`, the hooks that write images or render
+    views off (phase 5 drives them; here they would only add launches), cli.eval's pose optimisation cut to POSE_OPT_EPOCHS
     epochs, one novel view."""
     from nope_nerf_torch.config import load_config
     over = copy.deepcopy(DISK_CONFIGS[name])
@@ -1523,7 +1561,9 @@ def main() -> int:
           f"render_fwd {fwd_ms:.2f} ms ({fwd_ms / frame_ms:.1%} of the frame), "
           f"plain version {fwd_plain_ms:.1f} ms; {fwd_flops / 1e12:.2f} TFLOP, "
           f"{fwd_bytes / 1e6:.1f} MB -> bound {fwd_bound:.2f} ms "
-          f"({fwd_flops / fwd_ms / 1e9:.1f} TFLOP/s achieved)")
+          f"({fwd_flops / fwd_ms / 1e9:.1f} TFLOP/s achieved, "
+          f"{fwd_flops / fwd_ms * 1e3 / PEAK_BF16_FLOPS:.1%} of the bf16 peak, "
+          f"{fwd_ms / fwd_bound:.2f} x the bound)")
 
     # the train step end to end, and K1 / K2 at its shapes
     def steps():
@@ -1660,7 +1700,8 @@ def main() -> int:
           f"{pfwd_plain_ms:.2f} ms; {p_flops * fine_m / 1e12:.3f} TFLOP ({pf_ops_ms:.3f} ms), "
           f"{(40 * fine_m + pweight_bytes) / 1e6:.1f} MB ({pf_bytes_ms:.4f} ms) -> bound "
           f"{pf_bound:.3f} ms by {pf_by} ({p_flops * fine_m / pfwd_ms / 1e9:.1f} TFLOP/s "
-          f"achieved, {pfwd_ms / pf_bound:.1f} x the bound)")
+          f"achieved, {p_flops * fine_m / pfwd_ms * 1e3 / PEAK_BF16_FLOPS:.1%} of the bf16 "
+          f"peak, {pfwd_ms / pf_bound:.2f} x the bound)")
     print(f"point_mlp_bwd: {fine_m} points {pbwd_ms:.3f} ms, plain version {pbwd_plain_ms:.2f} "
           f"ms; {3 * p_flops * fine_m / 1e12:.3f} TFLOP ({pb_ops_ms:.3f} ms), "
           f"{(64 * fine_m + pweight_bytes + pgrad_bytes) / 1e6:.1f} MB of points, cotangents, "

@@ -6,7 +6,8 @@ the trained checkpoint (either package's), initializes the test poses
 NeRF, renders each eval view at full resolution, and aggregates PSNR/SSIM and
 the 7 depth metrics with the validity confusion matrix into
 `extraction/evaluation.txt`; with `save` it also writes the per-view artifact
-set and the eval video (evaluation/artifacts.py, which needs imageio and cv2).
+set (evaluation/artifacts.py: PNGs by the port's own writer; the INFERNO
+disparity maps need cv2) and, where imageio is installed, the eval video.
 LPIPS is reported as n/a: the port has no LPIPS module yet.
 """
 

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import DeviceLike, resolve_device
+from ..data.image_io import write_png
 
 BEST_CKPT_WRITE_EVERY = 25   # epochs between model_best.ckpt disk writes
 
@@ -105,8 +106,8 @@ def _clone_state(state):
 
 
 def _save_u8(path: str, img: np.ndarray) -> None:
-    import imageio
-    imageio.imwrite(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
+    """[0, 1] values -> an 8-bit PNG through the port's own writer."""
+    write_png(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
 
 
 def train(cfg: dict, synthetic: bool = False, max_epochs: Optional[int] = None,

@@ -17,104 +17,146 @@
 // heads f32. Where the TPU kernel takes (M, 64) and (M, 32) padded encodings
 // from device memory and writes (M, 128) padded head outputs, this kernel
 // encodes each pass from the (M, 3) inputs in shared memory and writes only
-// the 4 live outputs per point; it masks its own ragged last pass, so M needs
-// no padding.
+// the 4 live outputs per point; it masks its own ragged last pass (rows
+// n..127 are zero), so M needs no padding.
 //
 // Bound: compute. A point is 593,408 multiply-adds (the 63 and 27 live
 // encoding lanes counted), 1.187 MFLOP, against 40 bytes of input and output
 // and 1.2 MB of weights per launch: at the main path's 131,072 and 196,608
 // points the least time is the FLOPs over the card's dense bf16 rate.
 //
-// Design (simple first, speed later): the render-forward kernel's pass
-// (nerf_mlp.cuh) over 128 consecutive points instead of a ray's samples: one
-// CTA of 8 warps per pass, grid-striding over the passes; every layer as
-// warp-level mma.sync m16n8k16 bf16 tiles on two ping-pong 128 x (D+8)
-// activation buffers in shared memory; weights read through the read-only
-// path and kept in L2. The direction encoding is per point here, so the
-// rgb-hidden layer takes it as a second (128 x 32) x (32 x D/2) product.
+// Design: the wgmma trunk of mlp_fwd_sm90.cuh over 128 consecutive points.
+// Persistent CTAs, at most one per SM, walk over the passes blockIdx.x,
+// blockIdx.x + gridDim.x, ...; the producer warpgroup streams the weight
+// slices through the ring across passes and encodes the next pass's points
+// and directions while the consumers run the current one. The direction
+// encoding is per point here, so the rgb-hidden layer takes it as a second
+// product (128 x 32) x (32 x D/2) into the same accumulators.
+//
+// Shared memory at D=256: activations 64 KB, position and direction
+// encodings one 16 KB block each, resident heads 6 KB, raw heads 2 KB,
+// barriers and slack ~1.2 KB, and a ring of 3 stages of 32 KB (201 KB of 227).
 
-#include "point_mlp.cuh"
+#include "mlp_fwd_sm90.cuh"
 
 namespace {
 
-template <int D>
-size_t fwd_smem_bytes() {
-  return sizeof(bf16) * (2 * act_elems<D>() + static_cast<size_t>(kPts) * (kLdPe + kLdDe)) +
-         sizeof(float) * static_cast<size_t>(kPts) * (4 + 3 + 3);
-}
+// f32 arrays: raw heads (128, 4).
+constexpr size_t kPointF32Bytes = sizeof(float) * kPts * 4;
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-point_mlp_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ dirs, Net net,
+__global__ void __launch_bounds__(kThreads90, 1)
+point_mlp_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
+                     const unsigned char* __restrict__ tiles, Biases bias,
                      float* __restrict__ rgb, float* __restrict__ density, long long M,
-                     int occ_softplus, int head_dist_alpha) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* buf_a = reinterpret_cast<bf16*>(smem_raw);
-  bf16* buf_b = buf_a + act_elems<D>();
-  bf16* pe = buf_b + act_elems<D>();                       // (128, 72)
-  bf16* de = pe + kPts * kLdPe;                            // (128, 40)
-  float* hout = reinterpret_cast<float*>(de + kPts * kLdDe);  // rgb raw | sigma raw (128, 4)
-  float* xs = hout + 4 * kPts;                             // points      (128, 3)
-  float* ds = xs + 3 * kPts;                               // directions  (128, 3)
-
+                     int occ_softplus, int head_dist_alpha, Layout90<D> L) {
+  using T = Tiles<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = setup90(smem_raw, L.bars, L.stages);
+  Ring ring = make_ring(base, L.ring, L.bars, T::kFull, L.stages);
+  const uint32_t head_bar = ring.full + 16 * kMaxStages;
+  const uint32_t heads = smem_addr(base + L.heads);
+  const Handoff hand = make_handoff(ring);
   const long long n_pass = (M + kPts - 1) / kPts;
-  for (long long pass = blockIdx.x; pass < n_pass; pass += gridDim.x) {
+
+  if (threadIdx.x >= kConsumers) {
+    set_producer_regs();
+    const int etid = threadIdx.x - kConsumers - 32;
+    if (threadIdx.x == kConsumers) {
+      const long long mine = (n_pass - blockIdx.x + gridDim.x - 1) / gridDim.x;
+      produce<D>(tiles, heads, head_bar, ring, mine, T::kPoint);
+    } else if (etid >= 0) {
+      // encoders: the CTA's passes in order, rows n..127 of a ragged last
+      // pass from zero points and directions
+      unsigned char* pe = base + L.pe;
+      unsigned char* de = base + L.de;
+      long long tile = 0;
+      for (long long pass = blockIdx.x; pass < n_pass; pass += gridDim.x, ++tile) {
+        const long long p0 = pass * kPts;
+        const int n = static_cast<int>(M - p0 < kPts ? M - p0 : kPts);
+        wait_free(hand.pe_free, tile);
+        encode_tile<10, kPe>(pe, etid, [&](int p, int c) {
+          return p < n ? pts[3 * (p0 + p) + c] : 0.f;
+        });
+        hand_over(hand.pe_full);
+        wait_free(hand.de_free, tile);
+        encode_tile<4, kDe>(de, etid, [&](int p, int c) {
+          return p < n ? dirs[3 * (p0 + p) + c] : 0.f;
+        });
+        hand_over(hand.de_full);
+      }
+    }
+    return;
+  }
+  set_consumer_regs();
+
+  float* hout = reinterpret_cast<float*>(base + L.f32);   // rgb raw | sigma raw (128, 4)
+  const uint32_t pe_s = smem_addr(base + L.pe), de_s = smem_addr(base + L.de);
+  const int tid = threadIdx.x;
+  mbar_wait(head_bar, 0);
+
+  long long tile = 0;
+  for (long long pass = blockIdx.x; pass < n_pass; pass += gridDim.x, ++tile) {
     const long long p0 = pass * kPts;
     const int n = static_cast<int>(M - p0 < kPts ? M - p0 : kPts);
-    load_points(xs, ds, pts, dirs, p0, n);
-    __syncthreads();
-    encode_points(pe, kLdPe, de, xs, ds);
-    __syncthreads();
-    point_mlp_pass<D, false>(net, pe, de, buf_a, buf_b, hout, nullptr);
-    for (int p = threadIdx.x; p < n; p += kThreads) {
+    mlp_tile90<D>(bias.b, pe_s, de_s, base + L.act, heads, heads + T::kDensHead, bias.b[10],
+                  hout, hand, tile, ring);
+    consumer_sync();   // both warpgroups' raw heads are in
+    for (int p = tid; p < n; p += kConsumers) {
       const float sigma = density_act(hout[4 * p + 3], occ_softplus);
       density[p0 + p] = head_dist_alpha ? sigma : 1.f - expf(-sigma);
 #pragma unroll
       for (int c = 0; c < 3; ++c) rgb[3 * (p0 + p) + c] = 1.f / (1.f + expf(-hout[4 * p + c]));
     }
-    __syncthreads();
+    consumer_sync();   // hout is read before the next pass's heads overwrite it
   }
 }
 
 template <int D>
-cudaError_t launch_fwd(const float* pts, const float* dirs, const Net& net, float* rgb,
-                       float* density, long long M, int occ_softplus, int head_dist_alpha,
-                       cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes<D>();
+cudaError_t launch_fwd(const float* pts, const float* dirs, const unsigned char* tiles,
+                       const Biases& bias, float* rgb, float* density, long long M,
+                       int occ_softplus, int head_dist_alpha, cudaStream_t stream) {
+  const Layout90<D> L(true, kPointF32Bytes);
+  if (L.stages < 2) return cudaErrorInvalidValue;
+  const size_t smem = L.bytes(kPointF32Bytes);
   cudaError_t err = cudaFuncSetAttribute(point_mlp_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidDevice;
   const long long n_pass = (M + kPts - 1) / kPts;
-  const int grid = static_cast<int>(n_pass < (1 << 20) ? n_pass : (1 << 20));
-  point_mlp_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(pts, dirs, net, rgb, density, M,
-                                                            occ_softplus, head_dist_alpha);
+  const int grid = static_cast<int>(n_pass < sms ? n_pass : sms);
+  point_mlp_fwd_kernel<D><<<grid, kThreads90, smem, stream>>>(
+      pts, dirs, tiles, bias, rgb, density, M, occ_softplus, head_dist_alpha, L);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // C interface, bound with ctypes by nope_nerf_torch/ops/fused_mlp.py.
-// pts, dirs (M, 3) f32 contiguous on the device; weights/biases: arrays of 14
-// and 12 device pointers in the Net layout (nerf_mlp.cuh); rgb (M, 3) and
-// density (M, 1) f32 (out). Returns a cudaError_t (0 on success); the launch is
-// asynchronous on `stream`.
-extern "C" int nerf_point_mlp_fwd(const float* pts, const float* dirs, const void* const* weights,
+// pts, dirs (M, 3) f32 contiguous on the device; tiles: the weight buffer of
+// fused_render.pack_tiles (16-byte aligned); biases: an array of 12 device
+// pointers in the Net layout (nerf_mlp.cuh); rgb (M, 3) and density (M, 1) f32
+// (out). Returns a cudaError_t (0 on success); the launch is asynchronous on
+// `stream`.
+extern "C" int nerf_point_mlp_fwd(const float* pts, const float* dirs, const void* tiles,
                                   const void* const* biases, float* rgb, float* density,
                                   long long M, int D, int occ_softplus, int head_dist_alpha,
                                   void* stream) {
   if (M <= 0) return 0;
-  Net net;
-  for (int i = 0; i < 14; ++i) net.w[i] = static_cast<const bf16*>(weights[i]);
-  for (int i = 0; i < 12; ++i) net.b[i] = static_cast<const float*>(biases[i]);
+  if (reinterpret_cast<uintptr_t>(tiles) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  Biases bias;
+  for (int i = 0; i < 12; ++i) bias.b[i] = static_cast<const float*>(biases[i]);
+  const auto* w = static_cast<const unsigned char*>(tiles);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
     case 256:
-      err = launch_fwd<256>(pts, dirs, net, rgb, density, M, occ_softplus, head_dist_alpha, st);
+      err = launch_fwd<256>(pts, dirs, w, bias, rgb, density, M, occ_softplus, head_dist_alpha, st);
       break;
     case 128:
-      err = launch_fwd<128>(pts, dirs, net, rgb, density, M, occ_softplus, head_dist_alpha, st);
+      err = launch_fwd<128>(pts, dirs, w, bias, rgb, density, M, occ_softplus, head_dist_alpha, st);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -21,113 +21,217 @@
 // per ray, = 17.63 TFLOP, against ~67 MB of ray and weight I/O, so the least
 // time is the FLOPs over the card's dense bf16 tensor-core rate.
 //
-// Design (simple first, speed later): one CTA of 8 warps per ray. The ray's
-// samples are processed in passes of 128 points; each pass keeps its
-// activations in shared memory (two ping-pong 128 x (D+8) bf16 buffers plus
-// the 128 x 72 position encoding for the skip layer) and runs every layer as
-// warp-level mma.sync m16n8k16 bf16 tiles. Weights (~1.2 MB bf16 at D=256)
-// are read from global memory through the read-only path and stay in L2. The
-// direction encoding is per ray, so its rgb-hidden contribution is folded
-// into that layer's bias once per ray. The composite is a block-wide f32
-// Hillis-Steele scan over S in shared memory: the same order of additions as
-// the TPU kernel's lane scan. Every output is per ray: no atomics, and the
-// result is deterministic.
+// Design: persistent CTAs, at most one per SM, each walking over the rays
+// blockIdx.x, blockIdx.x + gridDim.x, ...; a ray's samples go through the MLP
+// in 128-point tiles on the wgmma trunk of mlp_fwd_sm90.cuh (two consumer
+// warpgroups; a producer warpgroup that streams pre-swizzled weight slices
+// through a ring of shared-memory stages by cp.async.bulk and mbarriers, and
+// encodes the next tile's sample positions meanwhile). The direction
+// encoding is per ray, so its rgb-hidden contribution is folded into that
+// layer's bias once per ray (the same fmaf order as before). The composite is
+// a block-wide f32 Hillis-Steele scan over S in shared memory: the same order
+// of additions as the TPU kernel's lane scan. Every output is per ray: no
+// atomics, and the result is deterministic.
+//
+// Shared memory at D=256, S=1024 (the tight case), from a 1024-aligned base:
+//   activations 128 x 256 bf16                        64 KB
+//   position encodings, one swizzled block             16 KB
+//   resident heads (8 x 256 + 8 x 128 bf16)             6 KB
+//   z (S) and the raw heads (4S), f32                  20 KB
+//   direction encoding, rgb-hidden bias, sums, ray      ~1 KB
+//   barriers, alignment slack                          ~1.3 KB
+//   weight ring: 3 stages of 32 KB                     96 KB   (-> 204 KB of 227)
+// alpha and the two scan buffers (3S f32, 12 KB) reuse the activation buffer
+// once the ray's last tile is done. Smaller S leaves room for more stages.
 
-#include "nerf_mlp.cuh"
+#include "mlp_fwd_sm90.cuh"
 
 namespace {
 
 constexpr int kMaxS = 1024;
 
+// f32 arrays: z (S), raw heads (4S), direction encoding (32), rgb-hidden bias
+// (D/2), per-warp sums (4 per warp), the ray (9, padded to 16).
 template <int D>
-size_t smem_bytes(int S) {
-  return sizeof(bf16) * (2 * act_elems<D>() + static_cast<size_t>(kPts) * kLdPe) +
-         sizeof(float) * (8 * static_cast<size_t>(S) + kDe + D / 2 + 4 * kWarps + 16);
+size_t f32_bytes(int S) {
+  return sizeof(float) * (5 * static_cast<size_t>(S) + kDe + D / 2 + 4 * kConsumerWarps + 16);
+}
+
+// nerf_mlp.cuh's alpha_and_prefix over the consumer threads: alpha[s] from the
+// raw densities hout[4s+3] and z, then the f32 exclusive Hillis-Steele prefix
+// sum of log(1 - alpha + eps), ping-ponging scan0/scan1. Returns the buffer
+// that holds the prefix sums; ends synchronised.
+__device__ __forceinline__ float* alpha_and_prefix90(const float* hout, const float* fz,
+                                                     float* alpha, float* scan0, float* scan1,
+                                                     int S, int occ_softplus, int head_dist_alpha,
+                                                     int dist_alpha) {
+  const int tid = threadIdx.x;
+  for (int s = tid; s < S; s += kConsumers) {
+    const float sigma = density_act(hout[4 * s + 3], occ_softplus);
+    const float occ = head_dist_alpha ? sigma : 1.f - expf(-sigma);
+    float a = occ;
+    if (dist_alpha) a = (s == S - 1) ? 1.f : 1.f - expf(-occ * (fz[s + 1] - fz[s]));
+    alpha[s] = a;
+  }
+  consumer_sync();
+  for (int s = tid; s < S; s += kConsumers)
+    scan0[s] = s >= 1 ? logf(1.f - alpha[s - 1] + kEps) : 0.f;
+  consumer_sync();
+  float* src = scan0;
+  float* dst = scan1;
+  for (int d = 1; d < S; d <<= 1) {
+    for (int s = tid; s < S; s += kConsumers) dst[s] = s >= d ? src[s] + src[s - d] : src[s];
+    consumer_sync();
+    float* tmp = src;
+    src = dst;
+    dst = tmp;
+  }
+  return src;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-render_fwd_kernel(const float* __restrict__ rays, const float* __restrict__ z, Net net,
+__global__ void __launch_bounds__(kThreads90, 1)
+render_fwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
+                  const unsigned char* __restrict__ tiles, Biases bias,
                   float* __restrict__ rgb_out, float* __restrict__ dist_out,
-                  float* __restrict__ w_out, float* __restrict__ a_out, int S,
-                  int occ_softplus, int head_dist_alpha, int dist_alpha) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* buf_a = reinterpret_cast<bf16*>(smem_raw);
-  bf16* buf_b = buf_a + act_elems<D>();
-  bf16* pe = buf_b + act_elems<D>();
-  float* fz = reinterpret_cast<float*>(pe + kPts * kLdPe);  // z            (S)
-  float* hout = fz + S;                                     // rgb raw|sig (S,4)
-  float* alpha = hout + 4 * S;                              // alpha        (S)
-  float* scan0 = alpha + S;                                 // scan buffers (S)
-  float* scan1 = scan0 + S;
-  float* de = scan1 + S;                                    // dir encoding (32)
-  float* debias = de + kDe;                                 // hidden bias  (D/2)
-  float* red = debias + D / 2;                              // reductions   (4*warps)
-  float* ray = red + 4 * kWarps;                            // o | v | dir  (9)
+                  float* __restrict__ w_out, float* __restrict__ a_out, int n_rays, int S,
+                  int occ_softplus, int head_dist_alpha, int dist_alpha, Layout90<D> L) {
+  using T = Tiles<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = setup90(smem_raw, L.bars, L.stages);
+  Ring ring = make_ring(base, L.ring, L.bars, T::kFull, L.stages);
+  const uint32_t head_bar = ring.full + 16 * kMaxStages;
+  const uint32_t heads = smem_addr(base + L.heads);
+  const Handoff hand = make_handoff(ring);
+  const int passes = S / kPts;
 
-  const int r = blockIdx.x;
-  const int tid = threadIdx.x;
-  if (tid < 9) ray[tid] = rays[static_cast<size_t>(r) * 9 + tid];
-  for (int s = tid; s < S; s += kThreads) fz[s] = z[static_cast<size_t>(r) * S + s];
-  __syncthreads();
-
-  // direction encoding, bf16-rounded as a matmul operand; its rgb-hidden
-  // contribution is the same for every sample of the ray
-  direction_bias<D>(net, ray, de, debias);
-
-  for (int p0 = 0; p0 < S; p0 += kPts) {
-    encode_pass(pe, ray, fz + p0);
-    __syncthreads();
-    mlp_pass<D, false>(net, pe, buf_a, buf_b, debias, hout + 4 * p0, nullptr);
-  }
-
-  // ---- alpha and the f32 composite ------------------------------------------
-  const float* src = alpha_and_prefix(hout, fz, alpha, scan0, scan1, S, occ_softplus,
-                                      head_dist_alpha, dist_alpha);
-
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int s = tid; s < S; s += kThreads) {
-    const float w = alpha[s] * expf(src[s]);
+  if (threadIdx.x >= kConsumers) {
+    set_producer_regs();
+    const long long mine = (n_rays - static_cast<long long>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+    const int etid = threadIdx.x - kConsumers - 32;
+    if (threadIdx.x == kConsumers) {
+      produce<D>(tiles, heads, head_bar, ring, mine * passes, T::kRender);
+    } else if (etid >= 0) {
+      // encoders: the position encodings of the CTA's tiles in order, o + v*z
+      // by explicitly rounded mul and add
+      unsigned char* pe = base + L.pe;
+      long long tile = 0;
+      for (long long r = blockIdx.x; r < n_rays; r += gridDim.x) {
+        float o[3], v[3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) part[c] += w * (1.f / (1.f + expf(-hout[4 * s + c])));
-    part[3] += w * fz[s];
-    if (w_out != nullptr) {
-      w_out[static_cast<size_t>(r) * S + s] = w;
-      a_out[static_cast<size_t>(r) * S + s] = alpha[s];
+        for (int c = 0; c < 3; ++c) {
+          o[c] = rays[r * 9 + c];
+          v[c] = rays[r * 9 + 3 + c];
+        }
+        for (int p0 = 0; p0 < S; p0 += kPts, ++tile) {
+          wait_free(hand.pe_free, tile);
+          const float* zt = z + r * S + p0;
+          encode_tile<10, kPe>(pe, etid, [&](int p, int c) {
+            const float oc = c == 0 ? o[0] : (c == 1 ? o[1] : o[2]);
+            const float vc = c == 0 ? v[0] : (c == 1 ? v[1] : v[2]);
+            return __fadd_rn(oc, __fmul_rn(vc, zt[p]));
+          });
+          hand_over(hand.pe_full);
+        }
+      }
+    }
+    return;
+  }
+  set_consumer_regs();
+
+  float* fz = reinterpret_cast<float*>(base + L.f32);   // z            (S)
+  float* hout = fz + S;                                 // rgb raw|sig (S,4)
+  float* de = hout + 4 * S;                             // dir encoding (32)
+  float* debias = de + kDe;                             // hidden bias  (D/2)
+  float* red = debias + D / 2;                          // sums         (4*warps)
+  float* ray = red + 4 * kConsumerWarps;                // o | v | dir  (9)
+  float* alpha = reinterpret_cast<float*>(base + L.act);  // after the MLP: alpha (S)
+  float* scan0 = alpha + S;                             // scan buffers (S)
+  float* scan1 = scan0 + S;
+  const uint32_t pe_s = smem_addr(base + L.pe);
+  const int tid = threadIdx.x;
+  mbar_wait(head_bar, 0);
+
+  long long tile = 0;
+  for (long long r = blockIdx.x; r < n_rays; r += gridDim.x) {
+    consumer_sync();   // the previous ray is done with every buffer
+    if (tid < 9) ray[tid] = rays[r * 9 + tid];
+    for (int s = tid; s < S; s += kConsumers) fz[s] = z[r * S + s];
+    consumer_sync();
+
+    // direction encoding, bf16-rounded as a matmul operand; its rgb-hidden
+    // contribution is the same for every sample of the ray: debias = de @ wrde + b
+    if (tid < kDe) de[tid] = __bfloat162float(__float2bfloat16_rn(dense_lane(ray + 6, tid, 4)));
+    consumer_sync();
+    for (int j = tid; j < D / 2; j += kConsumers) {
+      float acc = 0.f;
+      for (int k = 0; k < kDe; ++k) {
+        const bf16 wv = *reinterpret_cast<const bf16*>(tiles + T::kW12 + swz(j, k, 0));
+        acc = fmaf(de[k], __bfloat162float(wv), acc);
+      }
+      debias[j] = acc + bias.b[10][j];
+    }
+    consumer_sync();
+
+    for (int p0 = 0; p0 < S; p0 += kPts, ++tile)
+      mlp_tile90<D>(bias.b, pe_s, 0, base + L.act, heads, heads + T::kDensHead, debias,
+                    hout + 4 * p0, hand, tile, ring);
+    consumer_sync();   // every tile's raw heads are in
+
+    // ---- alpha and the f32 composite ----------------------------------------
+    const float* src = alpha_and_prefix90(hout, fz, alpha, scan0, scan1, S, occ_softplus,
+                                          head_dist_alpha, dist_alpha);
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int s = tid; s < S; s += kConsumers) {
+      const float w = alpha[s] * expf(src[s]);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) part[c] += w * (1.f / (1.f + expf(-hout[4 * s + c])));
+      part[3] += w * fz[s];
+      if (w_out != nullptr) {
+        w_out[r * S + s] = w;
+        a_out[r * S + s] = alpha[s];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) part[c] += __shfl_xor_sync(0xffffffffu, part[c], off);
+    }
+    const int warp = tid >> 5, lane = tid & 31;
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) red[4 * warp + c] = part[c];
+    }
+    consumer_sync();
+    if (tid < 4) {
+      float acc = 0.f;
+      for (int w = 0; w < kConsumerWarps; ++w) acc += red[4 * w + tid];
+      if (tid < 3)
+        rgb_out[r * 3 + tid] = acc;
+      else
+        dist_out[r] = acc;
     }
   }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) part[c] += __shfl_xor_sync(0xffffffffu, part[c], off);
-  }
-  const int warp = tid >> 5, lane = tid & 31;
-  if (lane == 0) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) red[4 * warp + c] = part[c];
-  }
-  __syncthreads();
-  if (tid < 4) {
-    float acc = 0.f;
-    for (int w = 0; w < kWarps; ++w) acc += red[4 * w + tid];
-    if (tid < 3)
-      rgb_out[static_cast<size_t>(r) * 3 + tid] = acc;
-    else
-      dist_out[r] = acc;
-  }
 }
 
 template <int D>
-cudaError_t launch(const float* rays, const float* z, const Net& net, float* rgb, float* dist,
-                   float* w_out, float* a_out, int n_rays, int S, int occ_softplus,
-                   int head_dist_alpha, int dist_alpha, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(S);
+cudaError_t launch(const float* rays, const float* z, const unsigned char* tiles,
+                   const Biases& bias, float* rgb, float* dist, float* w_out, float* a_out,
+                   int n_rays, int S, int occ_softplus, int head_dist_alpha, int dist_alpha,
+                   cudaStream_t stream) {
+  const Layout90<D> L(false, f32_bytes<D>(S));
+  if (L.stages < 2) return cudaErrorInvalidValue;
+  const size_t smem = L.bytes(f32_bytes<D>(S));
   cudaError_t err = cudaFuncSetAttribute(render_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  render_fwd_kernel<D><<<n_rays, kThreads, smem, stream>>>(
-      rays, z, net, rgb, dist, w_out, a_out, S, occ_softplus, head_dist_alpha, dist_alpha);
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  const int grid = n_rays < sms ? n_rays : sms;
+  render_fwd_kernel<D><<<grid, kThreads90, smem, stream>>>(
+      rays, z, tiles, bias, rgb, dist, w_out, a_out, n_rays, S, occ_softplus, head_dist_alpha,
+      dist_alpha, L);
   return cudaGetLastError();
 }
 
@@ -135,28 +239,30 @@ cudaError_t launch(const float* rays, const float* z, const Net& net, float* rgb
 
 // C interface, bound with ctypes by nope_nerf_torch/ops/fused_render.py.
 // rays (n_rays, 9) f32 [origin | ray_vec | mlp_dir], z (n_rays, S) f32, all
-// contiguous on the device; weights/biases: arrays of 14 and 12 device
-// pointers in the Net layout; w_out/a_out may both be null. Returns a
-// cudaError_t (0 on success); the launch is asynchronous on `stream`.
-extern "C" int nerf_render_fwd(const float* rays, const float* z, const void* const* weights,
+// contiguous on the device; tiles: the weight buffer of pack_tiles (16-byte
+// aligned); biases: an array of 12 device pointers in the Net layout
+// (nerf_mlp.cuh); w_out/a_out may both be null. Returns a cudaError_t (0 on
+// success); the launch is asynchronous on `stream`.
+extern "C" int nerf_render_fwd(const float* rays, const float* z, const void* tiles,
                                const void* const* biases, float* rgb, float* dist, float* w_out,
                                float* a_out, int n_rays, int S, int D, int occ_softplus,
                                int head_dist_alpha, int dist_alpha, void* stream) {
   if (n_rays <= 0) return 0;
   if (S <= 0 || S % kPts != 0 || S > kMaxS) return static_cast<int>(cudaErrorInvalidValue);
   if ((w_out == nullptr) != (a_out == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  Net net;
-  for (int i = 0; i < 14; ++i) net.w[i] = static_cast<const bf16*>(weights[i]);
-  for (int i = 0; i < 12; ++i) net.b[i] = static_cast<const float*>(biases[i]);
+  if (reinterpret_cast<uintptr_t>(tiles) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  Biases bias;
+  for (int i = 0; i < 12; ++i) bias.b[i] = static_cast<const float*>(biases[i]);
+  const auto* w = static_cast<const unsigned char*>(tiles);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
     case 256:
-      err = launch<256>(rays, z, net, rgb, dist, w_out, a_out, n_rays, S, occ_softplus,
+      err = launch<256>(rays, z, w, bias, rgb, dist, w_out, a_out, n_rays, S, occ_softplus,
                         head_dist_alpha, dist_alpha, st);
       break;
     case 128:
-      err = launch<128>(rays, z, net, rgb, dist, w_out, a_out, n_rays, S, occ_softplus,
+      err = launch<128>(rays, z, w, bias, rgb, dist, w_out, a_out, n_rays, S, occ_softplus,
                         head_dist_alpha, dist_alpha, st);
       break;
     default:

@@ -19,6 +19,7 @@ from scipy.spatial.transform import Rotation as R
 from scipy.spatial.transform import Slerp
 
 from .. import DeviceLike, resolve_device
+from ..data.image_io import write_png
 
 
 def _normalize(v):
@@ -125,9 +126,8 @@ def generate_spiral_nerf(learned_poses: np.ndarray, bds: np.ndarray,
 
 def _write_frames(frames: List[Dict[str, np.ndarray]], out_dir: str,
                   save_video: bool) -> None:
-    """img/depth/disp pngs, and mp4s (GIF without an ffmpeg backend)."""
-    import imageio
-
+    """img/depth/disp pngs (the port's own PNG writer), and, where imageio is
+    installed, mp4s (GIF without an ffmpeg backend)."""
     for sub in ("img", "depth", "disp"):
         os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
 
@@ -135,11 +135,15 @@ def _write_frames(frames: List[Dict[str, np.ndarray]], out_dir: str,
         return np.clip(255.0 / x.max() * (x - x.min()), 0, 255).astype(np.uint8)
 
     for vi, f in enumerate(frames):
-        imageio.imwrite(os.path.join(out_dir, "img", f"{vi:04d}.png"),
-                        (f["rgb"] * 255).astype(np.uint8))
-        imageio.imwrite(os.path.join(out_dir, "depth", f"{vi:04d}.png"), norm8(f["depth"]))
-        imageio.imwrite(os.path.join(out_dir, "disp", f"{vi:04d}.png"), norm8(f["disp"]))
+        write_png(os.path.join(out_dir, "img", f"{vi:04d}.png"), (f["rgb"] * 255).astype(np.uint8))
+        write_png(os.path.join(out_dir, "depth", f"{vi:04d}.png"), norm8(f["depth"]))
+        write_png(os.path.join(out_dir, "disp", f"{vi:04d}.png"), norm8(f["disp"]))
     if save_video:
+        try:
+            import imageio
+        except ImportError:
+            print(f"saved the frames under {out_dir} (no imageio: no videos)")
+            return
         for sub, key in (("img", "rgb"), ("depth", "depth"), ("disp", "disp")):
             arr = [((f[key] * 255).astype(np.uint8) if key == "rgb" else norm8(f[key]))
                    for f in frames]

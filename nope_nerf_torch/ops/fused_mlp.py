@@ -21,7 +21,8 @@ in plain PyTorch:
   the f32 cotangents (fused_render.mlp_backward), and the encodings'
   cotangents pulled to the points and directions with the forward's f32
   sin/cos.
-The packed weights are fused_render.pack_weights'; the TPU's (M, 64) / (M, 32)
+The packed weights are fused_render.pack_weights' (the forward kernel takes
+them as pack_tiles' pre-swizzled slices); the TPU's (M, 64) / (M, 32)
 encodings and (M, 128) padded outputs are layouts of that machine and are not
 carried over: the kernels take (M, 3) and write (M, 3) and (M, 1).
 """
@@ -37,7 +38,7 @@ from ..models.nerf import NerfConfig, _occupancy, bf16_round, softplus
 from ._build import CudaLibrary, runs_plain
 from .fused_render import (DE_DIM, PE_DIM, STASH_HALF_DIMS, _backward_ctas, _enc_deriv_to_coords,
                            _grad_blocks, _mlp_forward, _pack_for_backward, encode_lanes,
-                           mlp_backward, pack_weights, unpack_grads)
+                           mlp_backward, pack_tiles, pack_weights, unpack_grads)
 
 PTS_PER_PASS = 128        # the kernels' pass over consecutive points
 PLAIN_BLOCK_POINTS = 65536  # points per block of the plain versions (bounds their memory)
@@ -165,8 +166,8 @@ def _mlp_fwd_cuda(params, pts: torch.Tensor, dirs: torch.Tensor, cfg: NerfConfig
     _check_width(cfg)
     dev = pts.device
     _check_tensors((("pts", pts), ("dirs", dirs)), dev)
-    W, B = pack_weights(params, cfg)
-    for t in W + B:
+    tiles, B = pack_tiles(params, cfg)
+    for t in [tiles] + B:
         if t.device != dev:
             raise ValueError("params must be on the points' device")
     M = pts.shape[0]
@@ -175,11 +176,10 @@ def _mlp_fwd_cuda(params, pts: torch.Tensor, dirs: torch.Tensor, cfg: NerfConfig
     if M == 0:
         return rgb, density
     lib = POINT_MLP_FWD.lib()
-    wptrs = (ctypes.c_void_p * 14)(*[w.data_ptr() for w in W])
     bptrs = (ctypes.c_void_p * 12)(*[b.data_ptr() for b in B])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.nerf_point_mlp_fwd(pts.data_ptr(), dirs.data_ptr(), wptrs, bptrs,
+        err = lib.nerf_point_mlp_fwd(pts.data_ptr(), dirs.data_ptr(), tiles.data_ptr(), bptrs,
                                      rgb.data_ptr(), density.data_ptr(), M, cfg.hidden_dim,
                                      int(cfg.occ_activation == "softplus"), int(cfg.dist_alpha),
                                      stream)

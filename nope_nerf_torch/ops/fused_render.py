@@ -22,6 +22,10 @@ switch for checks that hold the kernels' route against the plain one):
   activations, bias gradients sum the f32 cotangent, and the encoding
   derivative uses the forward's own f32 sin/cos.
 
+The forward kernels (render_fwd here, point_mlp_fwd in fused_mlp.py) take the
+weights as `pack_tiles`' pre-swizzled slices, the layout their wgmma trunk
+(csrc/mlp_fwd_sm90.cuh) streams into shared memory.
+
 The ray table is (N, 9) [origin | ray_vec | mlp_dir]: the TPU's 128-lane
 padding is a layout of that machine and is not carried over. The train
 kernel's target table is (N, 7) for the same reason.
@@ -138,6 +142,60 @@ def pack_weights(params: Dict[str, torch.Tensor], cfg: NerfConfig) -> Packed:
     forward products' operands in the kernels' layout."""
     blocks, biases = _packed_blocks(params, cfg)
     return [w.t().contiguous().to(torch.bfloat16) for w in blocks], biases
+
+
+SWIZZLE_COLS = 64       # bf16 columns of one 128-byte swizzled block
+
+
+def _tile_layout(D: int) -> List[Tuple[int, int, int]]:
+    """(pack_weights index, rows N, columns K) of each weight in the order of
+    the forward kernels' tiled buffer (csrc/mlp_fwd_sm90.cuh::Tiles): the
+    trunk's and feature layer's (D-row) slices in the order a pass consumes
+    them, the rgb-hidden layer's (D/2 rows, w12's 32 columns padded to one
+    block), then the two heads (8 rows)."""
+    H = D // 2
+    return [(0, D, PE_DIM), (1, D, D), (2, D, D), (3, D, D), (4, D, D), (5, D, PE_DIM),
+            (6, D, D), (7, D, D), (8, D, D), (10, D, D), (11, H, D), (12, H, DE_DIM),
+            (9, HEAD_DIM, D), (13, HEAD_DIM, H)]
+
+
+@functools.lru_cache(maxsize=4)
+def _tile_index(D: int) -> np.ndarray:
+    """For each bf16 of the tiled buffer, its index in the concatenation of the
+    _packed_blocks (stored (in, out), in _tile_layout's order) followed by one
+    zero. A weight (N, K) becomes ceil(K/64) blocks of N rows of 64 columns;
+    the 16-byte chunk c of row r is stored at chunk c ^ (r % 8) (the 128-byte
+    swizzle wgmma and the bulk copies read), columns past K are zero."""
+    parts, base = [], 0
+    for _, N, K in _tile_layout(D):
+        kblocks = -(-K // SWIZZLE_COLS)
+        r = np.arange(N)[None, :, None, None]
+        chunk = np.arange(8)[None, None, :, None] ^ (r % 8)
+        col = (np.arange(kblocks)[:, None, None, None] * SWIZZLE_COLS + chunk * 8
+               + np.arange(8)[None, None, None, :])
+        parts.append(np.where(col < K, base + col * N + r, -1).reshape(-1))
+        base += K * N
+    idx = np.concatenate(parts)
+    return np.where(idx < 0, base, idx)
+
+
+@functools.lru_cache(maxsize=8)
+def _tile_index_tensor(D: int, device: torch.device) -> torch.Tensor:
+    """_tile_index on `device`, uploaded once (a constant: never written)."""
+    return torch.as_tensor(_tile_index(D), device=device)
+
+
+def pack_tiles(params: Dict[str, torch.Tensor], cfg: NerfConfig) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """nerf params -> (the forward kernels' tiled bf16 weight buffer, 12 f32
+    biases): pack_weights' 14 weights, pre-swizzled and in the order the
+    kernels' producer streams them (_tile_index), so each slice is one
+    contiguous bulk copy. Three device ops past _packed_blocks: a
+    concatenation, a cast and one gather."""
+    blocks, biases = _packed_blocks(params, cfg)
+    D = cfg.hidden_dim
+    order = [blocks[i] for i, _, _ in _tile_layout(D)]
+    flat = torch.cat([b.reshape(-1) for b in order] + [order[0].new_zeros(1)])
+    return flat.to(torch.bfloat16)[_tile_index_tensor(D, flat.device)], biases
 
 
 def pack_weights_both(params: Dict[str, torch.Tensor], cfg: NerfConfig):
@@ -285,7 +343,9 @@ def render_rays_fused_plain(params, rays: torch.Tensor, z: torch.Tensor,
     return rgb, dist, weights, alpha
 
 
-def _render_cuda(W, B, rays, z, cfg: NerfConfig, dist_alpha: bool, want_aux: bool):
+def _render_cuda(tiles, B, rays, z, cfg: NerfConfig, dist_alpha: bool, want_aux: bool):
+    """(rgb, dist, weights, alpha) by one launch of the render kernel, from
+    pack_tiles' (tiles, B)."""
     n, S = z.shape
     D = cfg.hidden_dim
     if S % PTS_PER_PASS or S > MAX_SAMPLES:
@@ -300,7 +360,7 @@ def _render_cuda(W, B, rays, z, cfg: NerfConfig, dist_alpha: bool, want_aux: boo
             raise ValueError(f"{name} must be contiguous float32")
         if t.device != rays.device:
             raise ValueError("rays and z must be on the same device")
-    for t in W + B:
+    for t in [tiles] + B:
         if t.device != rays.device or not t.is_contiguous():
             raise ValueError("packed params must be contiguous on the rays' device")
     lib = RENDER_FWD.lib()
@@ -312,12 +372,12 @@ def _render_cuda(W, B, rays, z, cfg: NerfConfig, dist_alpha: bool, want_aux: boo
         alpha = torch.empty((n, S), dtype=torch.float32, device=rays.device)
     if n == 0:
         return rgb, dist, weights, alpha
-    wptrs = (ctypes.c_void_p * 14)(*[w.data_ptr() for w in W])
     bptrs = (ctypes.c_void_p * 12)(*[b.data_ptr() for b in B])
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream(rays.device).cuda_stream
         err = lib.nerf_render_fwd(
-            rays.data_ptr(), z.data_ptr(), wptrs, bptrs, rgb.data_ptr(), dist.data_ptr(),
+            rays.data_ptr(), z.data_ptr(), tiles.data_ptr(), bptrs, rgb.data_ptr(),
+            dist.data_ptr(),
             weights.data_ptr() if want_aux else None,
             alpha.data_ptr() if want_aux else None,
             n, S, D, int(cfg.occ_activation == "softplus"), int(cfg.dist_alpha),
@@ -873,8 +933,8 @@ def _render_forward(params, rays, z, cfg: NerfConfig, dist_alpha: bool, want_aux
     with torch.no_grad():
         if plain:
             return render_rays_fused_plain(params, rays, z, cfg, dist_alpha, want_aux)
-        W, B = pack_weights(params, cfg)
-        return _render_cuda(W, B, rays.detach(), z.detach(), cfg, dist_alpha, want_aux)
+        tiles, B = pack_tiles(params, cfg)
+        return _render_cuda(tiles, B, rays.detach(), z.detach(), cfg, dist_alpha, want_aux)
 
 
 class _RenderFused(torch.autograd.Function):

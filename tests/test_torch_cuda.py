@@ -56,7 +56,7 @@ def _assert_close(got, ref):
 
 
 @pytest.mark.parametrize("hidden", [128, 256])
-@pytest.mark.parametrize("S", [128, 256])
+@pytest.mark.parametrize("S", [128, 256, 1024])      # 1024: the shared-memory-tight case
 @pytest.mark.parametrize("want_aux", [False, True])
 def test_render_fwd_matches_plain(cuda_device, hidden, S, want_aux):
     gen, rays, z = _inputs(cuda_device, 301, S)          # 301: no tile multiple
@@ -74,6 +74,18 @@ def test_render_fwd_flags(cuda_device, occ, dist_alpha):
     params = init_nerf_params(ncfg, gen, device=cuda_device)
     got = F.render_rays_fused(params, rays, z, ncfg, dist_alpha, True)
     _assert_close(got, F.render_rays_fused_plain(params, rays, z, ncfg, dist_alpha, True))
+
+
+@pytest.mark.parametrize("n_rays", [1, 2, 133, 265])
+def test_render_fwd_ray_counts_around_a_persistent_wave(cuda_device, n_rays):
+    """The kernel launches at most one CTA per SM and each walks over the rays
+    r, r + grid, ...: fewer rays than SMs, and counts just past one and two
+    waves of the card's 132 SMs."""
+    gen, rays, z = _inputs(cuda_device, n_rays, 128, seed=2)
+    ncfg = NerfConfig(use_pallas=True)
+    params = init_nerf_params(ncfg, gen, device=cuda_device)
+    got = F.render_rays_fused(params, rays, z, ncfg, False, True)
+    _assert_close(got, F.render_rays_fused_plain(params, rays, z, ncfg, False, True))
 
 
 def test_render_fwd_counts_launches_and_rejects_bad_inputs(cuda_device):
@@ -474,6 +486,20 @@ def test_point_mlp_fwd_matches_plain(cuda_device, hidden, occ, dist_alpha):
     with torch.no_grad():
         got = M.point_mlp(params, pts, dirs, ncfg)
     assert M.POINT_MLP_FWD.launches == before + 1
+    _assert_close(got, M.point_mlp_fwd_plain(params, pts, dirs, ncfg))
+
+
+@pytest.mark.parametrize("hidden", [128, 256])
+@pytest.mark.parametrize("m", [1, 127, 128, 128 * 265 + 5])
+def test_point_mlp_fwd_point_counts(cuda_device, hidden, m):
+    """Persistent CTAs (one per SM) walk over the 128-point passes: a single
+    point, a ragged and a full single pass, and two waves of the card's 132
+    SMs and more, ending in a ragged pass."""
+    gen, pts, dirs = _points(cuda_device, m, seed=3)
+    ncfg = NerfConfig(hidden_dim=hidden, use_pallas=True)
+    params = init_nerf_params(ncfg, gen, device=cuda_device)
+    with torch.no_grad():
+        got = M.point_mlp(params, pts, dirs, ncfg)
     _assert_close(got, M.point_mlp_fwd_plain(params, pts, dirs, ncfg))
 
 
