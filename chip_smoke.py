@@ -3,15 +3,16 @@
 
 Run from the root of a checkout: `python3 chip_smoke.py`. In order it
 1. prints the card's name and power limit (nvidia-smi) and builds every
-   kernel from nope_nerf_torch/csrc/ (one nvcc per source, seven side by side);
+   kernel from nope_nerf_torch/csrc/ (one nvcc per source, nine side by side);
 2. holds each kernel against its plain PyTorch version on the card, over the
    flags it takes: render_fwd (K3), render_train (K1, with the bit-equality
    of two launches), render_bwd (K4: two cotangent sets, bit-equality, its
    frozen-network variant, and the train kernel's own cotangents fed through
    it), chamfer_bidir (K2, by matched distances), point_mlp_fwd (K5) and
-   point_mlp_bwd (K6, with the bit-equality of two launches), the last two at
-   the fine pass's point count made ragged, and chamfer_nearest (K7: d2 and
-   indices bit-equal at the LLFF and Tanks train steps' 47,628- and
+   point_mlp_bwd (K6, with the bit-equality of two launches and its
+   frozen-network variant's d(points), d(directions) equal to the full
+   one's), the last two at the fine pass's point count made ragged, and
+   chamfer_nearest (K7: d2 and indices bit-equal at the LLFF and Tanks train steps' 47,628- and
    32,400-point clouds, ragged shapes and a lattice; nearest_dists' gradient);
 3. drives the render path: nope_nerf_torch.cli.render.render on the synthetic
    driving scene at V-KITTI's 188x621, from a checkpoint the port wrote with
@@ -39,7 +40,8 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    the train path of phase 4 (step 1 against the plain versions, then 4
    counted steps: K5 twice and K6 once per step, no fused render kernel),
    Trainer.render_frame at 188x621 (K5 twice per chunk, a slab against the
-   plain versions), pose-optimisation steps; then the rest of the slice:
+   plain versions), pose-optimisation steps (K5 twice and K6's
+   frozen-network variant once per step); then the rest of the slice:
    train steps with normal_loss, cli.train with the occupancy grid (its
    resume bit-equal, grid included) and Trainer.render_geo;
 7. drives scenes on disk, written by the port's write_vkitti_scene in the
@@ -489,14 +491,16 @@ def check_point_mlp_bwd(torch, dev, gen):
     """K6 against its plain version over {softplus, relu} x head dist_alpha at
     the same ragged M, on the cotangents of a smooth loss: weight and bias
     blocks within 5e-3 of each block's largest entry, d(points) and
-    d(directions) by the per-sample rule (grad_share), two launches bit-equal.
-    Returns (worst absolute error of a gradient entry, worst share of its
-    tolerance)."""
+    d(directions) by the per-sample rule (grad_share), two launches bit-equal;
+    then its frozen-network variant (point_mlp_bwd_frozen.cu): d(points) and
+    d(directions) bit-equal to the full variant's, held against the frozen
+    plain version. Returns (worst absolute error of a gradient entry, worst
+    share of its tolerance, the frozen variant's worst absolute error)."""
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
     from nope_nerf_torch.ops.fused_mlp import _mlp_bwd_cuda, point_mlp_bwd_plain
     from nope_nerf_torch.ops.fused_render import unpack_grads
     pts, dirs = point_inputs(torch, dev, gen, POINT_CHECK_M)
-    worst_abs, worst_share, failed = 0.0, 0.0, []
+    worst_abs, worst_share, worst_frozen, failed = 0.0, 0.0, 0.0, []
     for occ in ("softplus", "relu"):
         for head_da in (False, True):
             ncfg = NerfConfig(hidden_dim=256, occ_activation=occ, dist_alpha=head_da,
@@ -505,6 +509,7 @@ def check_point_mlp_bwd(torch, dev, gen):
             g_rgb, g_den = point_cotangents(torch, params, pts, dirs, ncfg)
             a = _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_den, ncfg)
             b = _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_den, ncfg)
+            frozen = _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_den, ncfg, want_param_grads=False)
             torch.cuda.synchronize()
             case = f"occ={occ} head_dist_alpha={head_da}"
             flat_a, flat_b = [*a[0], *a[1], a[2], a[3]], [*b[0], *b[1], b[2], b[3]]
@@ -526,9 +531,26 @@ def check_point_mlp_bwd(torch, dev, gen):
                   f"bit-equal")
             if not shares[k_worst] <= 1.0:
                 failed.append(f"{k_worst} at {shares[k_worst]:.2f} of its tolerance ({case})")
+            if not (frozen[0] is None and torch.equal(frozen[2], a[2])
+                    and torch.equal(frozen[3], a[3])):
+                raise RuntimeError(f"point_mlp_bwd: the frozen-network variant's d(points), "
+                                   f"d(directions) differ from the full variant's ({case})")
+            fref = point_mlp_bwd_plain(params, pts, dirs, g_rgb, g_den, ncfg,
+                                       want_param_grads=False)
+            fshares = {k: grad_share(g, r, True) for k, g, r in
+                       (("points", frozen[2], fref[2]), ("directions", frozen[3], fref[3]))}
+            worst_frozen = max(worst_frozen, max_err(frozen[2], fref[2]),
+                               max_err(frozen[3], fref[3]))
+            print(f"point_mlp_bwd frozen-network variant, {POINT_CHECK_M} points, {case}: "
+                  f"d(points), d(directions) bit-equal to the full variant's; vs the frozen "
+                  f"plain version points {fshares['points']:.3f}, directions "
+                  f"{fshares['directions']:.3f} of their tolerance")
+            if not max(fshares.values()) <= 1.0:
+                failed.append(f"frozen variant at {max(fshares.values()):.2f} of its tolerance "
+                              f"({case})")
     if failed:
         raise RuntimeError("point_mlp_bwd disagrees with its plain version: " + "; ".join(failed))
-    return worst_abs, worst_share
+    return worst_abs, worst_share, worst_frozen
 
 
 def depth_lifted_clouds(torch, dev, gen, h: int, w: int):
@@ -821,20 +843,22 @@ def run_train_path(torch, np, dev):
 
 def kernel_counters():
     from nope_nerf_torch.ops.chamfer import CHAMFER_BIDIR, CHAMFER_NEAREST
-    from nope_nerf_torch.ops.fused_mlp import POINT_MLP_BWD, POINT_MLP_FWD
+    from nope_nerf_torch.ops.fused_mlp import POINT_MLP_BWD, POINT_MLP_BWD_FROZEN, POINT_MLP_FWD
     from nope_nerf_torch.ops.fused_render import (RENDER_BWD, RENDER_BWD_FROZEN, RENDER_FWD,
                                                   RENDER_TRAIN)
     return {"render_train": RENDER_TRAIN, "chamfer_bidir": CHAMFER_BIDIR,
             "render_fwd": RENDER_FWD, "render_bwd": RENDER_BWD,
             "render_bwd_frozen": RENDER_BWD_FROZEN, "point_mlp_fwd": POINT_MLP_FWD,
-            "point_mlp_bwd": POINT_MLP_BWD, "chamfer_nearest": CHAMFER_NEAREST}
+            "point_mlp_bwd": POINT_MLP_BWD, "point_mlp_bwd_frozen": POINT_MLP_BWD_FROZEN,
+            "chamfer_nearest": CHAMFER_NEAREST}
 
 
 def counted(fn, expected: dict, what: str):
     """Run fn() with every kernel's launch count set to 0 just before and read
     just after; fail unless the counts are `expected` (a kernel it does not
     name: 0). render_bwd counts both variants of the render-backward kernel,
-    render_bwd_frozen those of its frozen-network variant among them.
+    render_bwd_frozen those of its frozen-network variant among them;
+    point_mlp_bwd and point_mlp_bwd_frozen likewise for K6.
     Returns (fn's result, counts)."""
     import torch
     libs = kernel_counters()
@@ -845,7 +869,7 @@ def counted(fn, expected: dict, what: str):
     torch.cuda.synchronize()
     counts = {name: lib.launches for name, lib in libs.items()}
     order = ("render_train", "chamfer_bidir", "render_fwd", "render_bwd", "render_bwd_frozen",
-             "point_mlp_fwd", "point_mlp_bwd", "chamfer_nearest")
+             "point_mlp_fwd", "point_mlp_bwd", "point_mlp_bwd_frozen", "chamfer_nearest")
     print(f"{what}: launches " + ", ".join(f"{k} {counts[k]}" for k in order) + " (expected "
           + ", ".join(str(expected[k]) for k in order) + ")")
     if counts != expected:
@@ -1180,7 +1204,8 @@ def run_hier_eval(torch, np, dev, trainer, state, scene, eval_inputs):
     """Phase 6b: Trainer.render_frame at 188x621 with hierarchical sampling (K5
     twice per chunk, the deterministic fine draw), a slab of it against the
     plain versions, and pose-optimisation steps with n_importance 64 (K5 twice
-    and K6 once per step, the network frozen). Returns the frame's counts."""
+    and K6's frozen-network variant once per step). Returns the frame's counts
+    and the pose-opt steps'."""
     import dataclasses
     from nope_nerf_torch.data import batch_for_frame
     from nope_nerf_torch.evaluation.pose_opt import pose_opt_step
@@ -1219,13 +1244,16 @@ def run_hier_eval(torch, np, dev, trainer, state, scene, eval_inputs):
     def steps():
         return [float(pose_opt_step(pose, adam, enerf, None, eimg, 0, ecam, eray_idx, 1e-3, epcfg,
                                     None, emc.nerf, rcfg)) for _ in range(HIER_STEPS)]
-    losses, _ = counted(steps, {"point_mlp_fwd": 2 * HIER_STEPS, "point_mlp_bwd": HIER_STEPS},
-                        f"hierarchical pose-opt, {HIER_STEPS} steps")
+    # the network is frozen: K6 runs as its frozen-network variant (counted in both)
+    losses, pose_counts = counted(steps, {"point_mlp_fwd": 2 * HIER_STEPS,
+                                          "point_mlp_bwd": HIER_STEPS,
+                                          "point_mlp_bwd_frozen": HIER_STEPS},
+                                  f"hierarchical pose-opt, {HIER_STEPS} steps")
     if not all(math.isfinite(v) for v in losses) or not bool(pose["t"].abs().max() > 0):
         raise RuntimeError("hierarchical pose optimisation: non-finite loss or a pose that "
                            "did not move")
     print("hierarchical pose-opt: loss per step " + " ".join(f"{v:.5f}" for v in losses))
-    return frame_counts, (pose, adam, enerf, eimg, ecam, eray_idx, epcfg, emc, rcfg)
+    return frame_counts, pose_counts, (pose, adam, enerf, eimg, ecam, eray_idx, epcfg, emc, rcfg)
 
 
 def run_slice_rest(torch, np, dev):
@@ -1479,13 +1507,13 @@ def main() -> int:
     from nope_nerf_torch.ops.chamfer import (CHAMFER_BIDIR, CHAMFER_NEAREST, nearest_idx,
                                              nearest_idx_bidirectional,
                                              nearest_idx_bidirectional_plain, nearest_idx_plain)
-    from nope_nerf_torch.ops.fused_mlp import (POINT_MLP_BWD, POINT_MLP_FWD, _mlp_bwd_cuda,
-                                               _mlp_fwd_cuda, point_mlp_bwd_plain,
+    from nope_nerf_torch.ops.fused_mlp import (POINT_MLP_BWD, POINT_MLP_BWD_FROZEN, POINT_MLP_FWD,
+                                               _mlp_bwd_cuda, _mlp_fwd_cuda, point_mlp_bwd_plain,
                                                point_mlp_fwd_plain)
     from nope_nerf_torch.ops.fused_render import (
-        RENDER_BWD, RENDER_FWD, RENDER_TRAIN, STASH_HALF_DIMS, _render_bwd_cuda, pack_weights,
-        render_ray_loss_fused, render_ray_loss_fused_plain, render_rays_fused,
-        render_rays_fused_bwd_plain, render_rays_fused_plain)
+        RENDER_BWD, RENDER_BWD_FROZEN, RENDER_FWD, RENDER_TRAIN, STASH_HALF_DIMS,
+        _render_bwd_cuda, pack_weights, render_ray_loss_fused, render_ray_loss_fused_plain,
+        render_rays_fused, render_rays_fused_bwd_plain, render_rays_fused_plain)
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1494,8 +1522,8 @@ def main() -> int:
     print(smi)
 
     # ---- 1. build -----------------------------------------------------------
-    libraries = (RENDER_FWD, RENDER_TRAIN, RENDER_BWD, CHAMFER_BIDIR, POINT_MLP_FWD,
-                 POINT_MLP_BWD, CHAMFER_NEAREST)
+    libraries = (RENDER_FWD, RENDER_TRAIN, RENDER_BWD, RENDER_BWD_FROZEN, CHAMFER_BIDIR,
+                 POINT_MLP_FWD, POINT_MLP_BWD, POINT_MLP_BWD_FROZEN, CHAMFER_NEAREST)
     t0 = time.perf_counter()
     build_all(libraries)
     print(f"build: {time.perf_counter() - t0:.1f} s for "
@@ -1516,7 +1544,7 @@ def main() -> int:
           f"tolerance (grad_share)")
     chamfer_gap = check_chamfer(torch, dev, gen)
     pfwd_err = check_point_mlp_fwd(torch, dev, gen)
-    pbwd_err, pbwd_share = check_point_mlp_bwd(torch, dev, gen)
+    pbwd_err, pbwd_share, pbwd_frozen_err = check_point_mlp_bwd(torch, dev, gen)
     print(f"point_mlp_bwd: worst gradient error over the 4 cases at {pbwd_share:.3f} of its "
           f"tolerance (grad_share)")
     nearest_err = check_chamfer_nearest(torch, dev, gen)
@@ -1535,7 +1563,7 @@ def main() -> int:
 
     # ---- 6. hierarchical sampling through K5 / K6, and the rest of the slice --
     hier_counts, htrainer, hstate, hscene, horder, hrefs, hmc = run_hier_train_path(torch, np, dev)
-    hframe_counts, hpose_args = run_hier_eval(
+    hframe_counts, hpose_counts, hpose_args = run_hier_eval(
         torch, np, dev, htrainer, hstate, hscene,
         (enerf, eimg, ecam, epcfg, eray_idx, eval_scene, emc))
     gtrainer, gstate, gbatch = run_slice_rest(torch, np, dev)
@@ -1618,11 +1646,13 @@ def main() -> int:
           f"{b_io / 1e6:.1f} MB of rays, cotangents, weights and gradients ({b_bytes_ms:.4f} "
           f"ms) -> bound {b_bound:.3f} ms by {b_by} ({t_flops / bwd_ms / 1e9:.1f} TFLOP/s "
           f"achieved, {bwd_ms / b_bound:.1f} x the bound); frozen-network variant (forward + "
-          f"dX, no dW/dB): {bwd_frozen_ms:.3f} ms; {f_flops / 1e12:.3f} TFLOP ({f_ops_ms:.3f} "
+          f"dX, no dW/dB): {bwd_frozen_ms:.3f} ms ({bwd_ms / bwd_frozen_ms:.2f} x faster than the "
+          f"full variant); {f_flops / 1e12:.3f} TFLOP ({f_ops_ms:.3f} "
           f"ms), {f_io / 1e6:.1f} MB ({f_bytes_ms:.4f} ms) -> bound {f_bound:.3f} ms by {f_by} "
           f"({f_flops / bwd_frozen_ms / 1e9:.1f} TFLOP/s achieved, "
-          f"{bwd_frozen_ms / f_bound:.1f} x the bound); outside both bounds, the kernel's own "
-          f"stash: {stash_ms:.3f} ms at the memory rate")
+          f"{f_flops / bwd_frozen_ms * 1e3 / PEAK_BF16_FLOPS:.1%} of the bf16 peak, "
+          f"{bwd_frozen_ms / f_bound:.2f} x the bound); outside the full variant's bound, its "
+          f"own stash: {stash_ms:.3f} ms at the memory rate (the frozen variant has none)")
 
     # one pose-opt step, one unfused train step and one eval frame, end to end
     from nope_nerf_torch.data import batch_for_frame, epoch_order
@@ -1684,6 +1714,10 @@ def main() -> int:
     pbwd_ms = time_ms(lambda: _mlp_bwd_cuda(pparams, fpts, fdirs, g_rgb, g_den, pcfg), 10)
     pbwd_plain_ms = time_ms(lambda: point_mlp_bwd_plain(pparams, fpts, fdirs, g_rgb, g_den,
                                                         pcfg), 2)
+    pbwd_frozen_ms = time_ms(lambda: _mlp_bwd_cuda(pparams, fpts, fdirs, g_rgb, g_den, pcfg,
+                                                   want_param_grads=False), 10)
+    pbwd_frozen_plain_ms = time_ms(lambda: point_mlp_bwd_plain(
+        pparams, fpts, fdirs, g_rgb, g_den, pcfg, want_param_grads=False), 2)
     W, B = pack_weights(pparams, pcfg)
     pweight_bytes = numel_bytes(W) + numel_bytes(B)
     pgrad_bytes = 4 * sum(v.numel() for v in pparams.values())
@@ -1694,6 +1728,11 @@ def main() -> int:
     pc_bound, _, _, _ = bound(p_flops * coarse_m, PEAK_BF16_FLOPS, 40 * coarse_m + pweight_bytes)
     pb_bound, pb_by, pb_ops_ms, pb_bytes_ms = bound(3 * p_flops * fine_m, PEAK_BF16_FLOPS,
                                                     64 * fine_m + pweight_bytes + pgrad_bytes)
+    # the frozen-network variant: forward + dX, points, directions and cotangents in,
+    # d(points) and d(directions) out, the weights once
+    pz_flops = 2 * p_flops * fine_m
+    pz_bound, pz_by, pz_ops_ms, pz_bytes_ms = bound(pz_flops, PEAK_BF16_FLOPS,
+                                                    64 * fine_m + pweight_bytes)
     pstash_ms = 2 * fine_m * STASH_HALF_DIMS * pcfg.hidden_dim / PEAK_BYTES * 1e3
     print(f"point_mlp_fwd: {coarse_m} points (coarse pass) {pfwd_coarse_ms:.3f} ms, bound "
           f"{pc_bound:.3f} ms; {fine_m} points (fine pass) {pfwd_ms:.3f} ms, plain version "
@@ -1709,6 +1748,13 @@ def main() -> int:
           f"({3 * p_flops * fine_m / pbwd_ms / 1e9:.1f} TFLOP/s achieved, "
           f"{pbwd_ms / pb_bound:.1f} x the bound); outside the bound, the kernel's own stash: "
           f"{pstash_ms:.3f} ms at the memory rate")
+    print(f"point_mlp_bwd frozen-network variant (forward + dX, no dW/dB): {fine_m} points "
+          f"{pbwd_frozen_ms:.3f} ms ({pbwd_ms / pbwd_frozen_ms:.2f} x faster than the full "
+          f"variant), plain version {pbwd_frozen_plain_ms:.2f} ms; {pz_flops / 1e12:.3f} TFLOP "
+          f"({pz_ops_ms:.3f} ms), {(64 * fine_m + pweight_bytes) / 1e6:.1f} MB ({pz_bytes_ms:.4f} "
+          f"ms) -> bound {pz_bound:.3f} ms by {pz_by} ({pz_flops / pbwd_frozen_ms / 1e9:.1f} "
+          f"TFLOP/s achieved, {pz_flops / pbwd_frozen_ms * 1e3 / PEAK_BF16_FLOPS:.1%} of the "
+          f"bf16 peak, {pbwd_frozen_ms / pz_bound:.2f} x the bound)")
 
     def hier_steps():
         htrainer.run_steps(hstate, hscene, horder, hrefs, epoch=0, scheduling_start=10000)
@@ -1784,7 +1830,7 @@ def main() -> int:
         # its frozen-network variant (d(rays), dz only), launched by cli.eval's pose
         # optimisation; the plain version it is held against computes dW and dB as well
         {"name": "render_bwd_frozen", "route": "cuda",
-         "source": "nope_nerf_torch/csrc/render_bwd.cu",
+         "source": "nope_nerf_torch/csrc/render_bwd_frozen.cu",
          "replaces": "nope_nerf_tpu/ops/pallas_render.py:535",
          "launches": eval_counts["render_bwd_frozen"], "max_abs_err": bwd_frozen_err,
          "ms": bwd_frozen_ms, "plain_ms": bwd_plain_ms, "bound_ms": f_bound, "bound_by": f_by,
@@ -1808,6 +1854,14 @@ def main() -> int:
          "launches": hier_counts["point_mlp_bwd"], "max_abs_err": pbwd_err, "ms": pbwd_ms,
          "plain_ms": pbwd_plain_ms, "bound_ms": pb_bound, "bound_by": pb_by,
          "library_ms": None},
+        # its frozen-network variant (d(points), d(directions) only), launched by the
+        # hierarchical pose optimisation; at the fine pass's 196,608 points
+        {"name": "point_mlp_bwd_frozen", "route": "cuda",
+         "source": "nope_nerf_torch/csrc/point_mlp_bwd_frozen.cu",
+         "replaces": "nope_nerf_tpu/ops/pallas_mlp.py:273",
+         "launches": hpose_counts["point_mlp_bwd_frozen"], "max_abs_err": pbwd_frozen_err,
+         "ms": pbwd_frozen_ms, "plain_ms": pbwd_frozen_plain_ms, "bound_ms": pz_bound,
+         "bound_by": pz_by, "library_ms": None},
         # one direction at the fern step's 47,628-point clouds; the step launches it twice
         {"name": "chamfer_nearest", "route": "cuda",
          "source": "nope_nerf_torch/csrc/chamfer_nearest.cu",

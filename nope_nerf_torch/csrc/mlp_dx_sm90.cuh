@@ -1,0 +1,496 @@
+// The frozen-network dX chain on Hopper (sm_90a), shared by
+// render_bwd_frozen.cu (K4's frozen-network variant) and
+// point_mlp_bwd_frozen.cu (K6's): one 128-point tile through the forward on
+// the wgmma trunk of mlp_fwd_sm90.cuh, then back through every layer's
+// dX = g W product to the cotangent of the position encoding. No weight or
+// bias gradient is formed.
+//
+// Numerics are those of nerf_bwd.cuh's chain (the full variants' and the
+// TPU kernels'), and its results are bit-equal to that chain's:
+// - the forward as mlp_fwd_sm90.cuh (which sums each product as the
+//   mma.sync trunk does: bias first, then 16-column steps of K in order);
+// - every cotangent rounded to bf16 before it enters a product, each product
+//   summed from zero over 16-column steps of K in order, then in
+//   dense_bwd's epilogue order: + gs wd (the density head's rank-1 term),
+//   the ReLU mask, the bf16 rounding;
+// - the masks from the bf16 activations (bf16(relu(x)) > 0);
+// - the rgb head's backward in scalar f32, a thread per (column, row group)
+//   as in nerf_bwd.cuh, its column sums over the row groups in order;
+// - dpe = g0 W0 summed first, then g4 W5pe into the same accumulator;
+// - the encoding derivative per lane in enc_lane_grad's order (over j, then
+//   hc), the per-row sums by shfl_xor over 1 then 2, the block sums over the
+//   8 consumer warps in order: consumer warp w of warpgroup g owns rows
+//   64g + 16w.., the rows warp 4g + w owned in the mma.sync chain.
+//
+// Design:
+// - The CTA is mlp_fwd_sm90.cuh's: two consumer warpgroups and a producer
+//   warpgroup, persistent, one CTA per SM; the producer's first warp streams
+//   weight slices through the ring by cp.async.bulk with mbarriers, its
+//   other three warps encode the next tile. The ring carries the forward
+//   slices (pack_tiles) and then the backward's (pack_tiles_dx), one
+//   sequence the producer and the consumers both know in advance.
+// - Warpgroup g owns rows 64g..64g+63 of the tile in the forward and in the
+//   backward. A dX product is one wgmma m64nNk16 per 16 columns of K (K = the
+//   layer's outputs, N = its inputs), A = the cotangent in the shared
+//   activation buffer (128-byte swizzle), B = a ring slice: a 64-column block
+//   of the (in, out) weight, N rows of 128 bytes. The epilogue writes the new
+//   cotangent over the old one, as the forward writes each layer's output
+//   over its input: one 128 x D buffer serves the whole chain.
+// - A frozen network needs no activations in the backward, only their ReLU
+//   masks. The forward's epilogue keeps one bit per activation in shared
+//   memory, in the accumulator's own layout, so that the thread that wrote a
+//   bit in the forward is the thread that reads it in the backward's
+//   epilogue of the same layer: 8 x 128 x D bits for x0..x7 (32 KB at
+//   D=256) and 128 x D/2 for the rgb-hidden layer. Nothing goes to a stash
+//   in device memory and nothing is read back from one.
+//
+// The two tight points:
+// (a) g4, the skip layer's cotangent, enters the encoding product last (dpe
+//     sums g0 W0 first, and that order is binding for bit-equality), but its
+//     64 KB (D=256) must leave the activation buffer to the four layers
+//     after it, and no other 64 KB of shared memory is free. Each warpgroup
+//     writes its 64 rows of g4 to a per-CTA scratch in device memory
+//     straight from the epilogue's registers (128 x D bf16 a CTA: 8.4 MB for
+//     132 CTAs, which stays in the 50 MB L2), and reads them back with
+//     cp.async over g0 once g0's products are done. That is 2 x 64 KB of L2
+//     traffic a tile against the old chain's 4.9 KB a point to device memory.
+//     (Keeping g4 as wgmma A fragments in registers would take 64 registers
+//     a thread beside the 128 of the accumulator.)
+// (b) S = 256 in K4: the composite backward needs the head outputs of the
+//     whole ray before any tile's MLP backward, and the masks of two tiles
+//     (68 KB) do not fit beside the ring. The ray's forward runs once over
+//     every tile for the head outputs and again per tile, before that tile's
+//     backward, for its masks; with one tile (S = 128, the pose-opt path)
+//     the masks of the first forward serve and nothing runs twice.
+//
+// Shared memory at D=256: mlp_fwd_sm90.cuh's Layout90 (activations and
+// cotangents 64 KB, position encodings 16 KB, +16 KB of directions in K6,
+// resident heads 6 KB, as many 32 KB ring stages as fit, barriers), whose
+// trailing area holds the masks (34 KB, mask_bytes) and then the kernel's f32
+// arrays: K4 keeps 3 ring stages at S=128 and 2 at S=256, K6 2.
+
+#pragma once
+
+#include "mlp_fwd_sm90.cuh"
+#include "nerf_bwd.cuh"   // bf16_round, enc_lane_grad, kMaxTrainS
+
+namespace {
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The backward's weight buffer of ops/fused_render.py::pack_tiles_dx, in
+// bytes: 64-column (output) blocks of each (in, out) weight, N = in rows of
+// 128 bytes, 128-byte swizzle, in the order the chain consumes them:
+//   w12 (H/64 slices of 32 rows; K6 only, K4 starts after them),
+//   w11 (H/64 of D rows), w10, w8, w7, w6, w4, w3, w2, w1 (D/64 of D rows each),
+//   w0, w5's encoding part (D/64 of 64 rows each).
+template <int D, bool DIRS>
+struct TilesDx {
+  static constexpr int H = D / 2;
+  static constexpr int kDir = H / 64;
+  static constexpr int kFullSlices = H / 64 + 8 * (D / 64);
+  static constexpr int kEnc = 2 * (D / 64);
+  static constexpr int kFirst = DIRS ? 0 : kDir;
+  static constexpr int kEnd = kDir + kFullSlices + kEnc;
+  static constexpr uint32_t kDirBytes = 32 * 128;
+  static constexpr uint32_t kFullBytes = D * 128;
+  static constexpr uint32_t kEncBytes = 64 * 128;
+  __device__ static size_t offset(int i) {
+    if (i < kDir) return static_cast<size_t>(i) * kDirBytes;
+    const size_t dir = static_cast<size_t>(kDir) * kDirBytes;
+    if (i < kDir + kFullSlices) return dir + static_cast<size_t>(i - kDir) * kFullBytes;
+    return dir + static_cast<size_t>(kFullSlices) * kFullBytes +
+           static_cast<size_t>(i - kDir - kFullSlices) * kEncBytes;
+  }
+  __device__ static uint32_t bytes(int i) {
+    return i < kDir ? kDirBytes : (i < kDir + kFullSlices ? kFullBytes : kEncBytes);
+  }
+};
+
+// The producer's side of the ring: slices in the consumers' order.
+struct Feeder {
+  Ring ring;
+  __device__ __forceinline__ void push(const unsigned char* src, uint32_t bytes) {
+    const uint32_t stage = ring.it % ring.stages;
+    mbar_wait(ring.empty + 8 * stage, ((ring.it / ring.stages) & 1) ^ 1);
+    mbar_expect_tx(ring.full + 8 * stage, bytes);
+    bulk_load(ring.base + stage * ring.stride, src, bytes, ring.full + 8 * stage);
+    ++ring.it;
+  }
+  template <int D>
+  __device__ __forceinline__ void forward(const unsigned char* w, int slices) {
+    for (int i = 0; i < slices; ++i) push(w + Tiles<D>::offset(i), Tiles<D>::bytes(i));
+  }
+  template <int D, bool DIRS>
+  __device__ __forceinline__ void backward(const unsigned char* w) {
+    using T = TilesDx<D, DIRS>;
+    for (int i = T::kFirst; i < T::kEnd; ++i) push(w + T::offset(i), T::bytes(i));
+  }
+};
+
+// nerf_bwd.cuh's enc_lane_grad with its cosine or sine evaluated out of line:
+// the same operations in the same order (its results bit for bit), but one
+// copy of the accurate sinf/cosf code where an unrolled loop over a row's
+// lanes inlines sixteen; the encoding VJP takes a fifth fewer cycles
+// (tools/frozen_profile.py). x: the three coordinates, read by selects only,
+// so that they stay in registers.
+__device__ __noinline__ float lane_trig(float a, bool is_sin) { return is_sin ? cosf(a) : sinf(a); }
+
+__device__ __forceinline__ float enc_lane_grad90(float g, const float* x, int e, int levels,
+                                                 int* c_out) {
+  if (e < 3) {
+    *c_out = e;
+    return g;
+  }
+  int q = e - 3;
+  const bool is_sin = q < 3 * levels;
+  if (!is_sin) q -= 3 * levels;
+  if (q >= 3 * levels) {
+    *c_out = -1;
+    return 0.f;
+  }
+  const int c = q % 3;
+  const float scale = static_cast<float>(1 << (q / 3));
+  const float a = (c == 0 ? x[0] : (c == 1 ? x[1] : x[2])) * scale;
+  *c_out = c;
+  const float tr = lane_trig(a, is_sin);
+  return (is_sin ? g * tr : -(g * tr)) * scale;
+}
+
+// ---- ReLU masks ---------------------------------------------------------------
+
+// 32-bit words a consumer thread keeps per row half for an N-wide layer: bit
+// 2j + h (mod 32) of word (2j + h) / 32 is column 8j + 2t + h of the
+// accumulator fragment (wgmma_bf16's d[4j + h] and d[4j + 2 + h]).
+template <int N>
+__host__ __device__ constexpr int mask_words() { return N >= 128 ? N / 128 : 1; }
+
+// Words of the mask region: x0..x7 (D wide) then h (D/2 wide), each as
+// [row half][word][consumer thread].
+template <int D>
+__host__ __device__ constexpr int mask_layer_words() { return 2 * mask_words<D>() * kConsumers; }
+template <int D>
+__host__ __device__ constexpr size_t mask_bytes() {
+  return sizeof(uint32_t) * (8 * static_cast<size_t>(mask_layer_words<D>()) +
+                             2 * mask_words<D / 2>() * kConsumers);
+}
+
+// store_act's output and, for a ReLU layer, the mask of the stored bf16
+// values into `mask` (this layer's words), then fenced for the async proxy.
+template <int N, bool RELU>
+__device__ __forceinline__ void store_act_mask(const float (&acc)[N / 2], unsigned char* act_wg,
+                                               uint32_t* mask) {
+  constexpr int W = mask_words<N>();
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int row = 16 * w + (lane >> 2), t = lane & 3;
+  uint32_t bits[2][W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) bits[0][k] = bits[1][k] = 0u;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    float v0 = acc[4 * j], v1 = acc[4 * j + 1], v2 = acc[4 * j + 2], v3 = acc[4 * j + 3];
+    if (RELU) {
+      v0 = fmaxf(v0, 0.f);
+      v1 = fmaxf(v1, 0.f);
+      v2 = fmaxf(v2, 0.f);
+      v3 = fmaxf(v3, 0.f);
+    }
+    const int col = 8 * j + 2 * t;
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v0, v1), hi = __floats2bfloat162_rn(v2, v3);
+    *reinterpret_cast<__nv_bfloat162*>(act_wg + swz(row, col, kBlockBytes)) = lo;
+    *reinterpret_cast<__nv_bfloat162*>(act_wg + swz(row + 8, col, kBlockBytes)) = hi;
+    if (RELU) {
+      const int b = (2 * j) & 31;
+      bits[0][(2 * j) >> 5] |= (__low2float(lo) > 0.f ? 1u : 0u) << b;
+      bits[0][(2 * j) >> 5] |= (__high2float(lo) > 0.f ? 1u : 0u) << (b + 1);
+      bits[1][(2 * j) >> 5] |= (__low2float(hi) > 0.f ? 1u : 0u) << b;
+      bits[1][(2 * j) >> 5] |= (__high2float(hi) > 0.f ? 1u : 0u) << (b + 1);
+    }
+  }
+  if (RELU) {
+    const int tid = threadIdx.x;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      mask[k * kConsumers + tid] = bits[0][k];
+      mask[(W + k) * kConsumers + tid] = bits[1][k];
+    }
+  }
+  fence_proxy_async();
+}
+
+// The mask bit of row m (of the tile), column j of the rgb-hidden layer,
+// whoever wrote it (the scalar rgb-head backward reads other threads' bits).
+__device__ __forceinline__ bool hidden_mask(const uint32_t* mask_h, int m, int j) {
+  const int thread = (m >> 6) * 128 + ((m & 63) >> 4) * 32 + (m & 7) * 4 + ((j & 7) >> 1);
+  const int half = (m >> 3) & 1;
+  return (mask_h[half * kConsumers + thread] >> (2 * (j >> 3) + (j & 1))) & 1u;
+}
+
+// ---- the forward, masks kept ----------------------------------------------------
+
+// mlp_fwd_sm90.cuh's mlp_tile90 with the ReLU layers' masks kept in `masks`:
+// the same products in the same order, the same roundings. Raw rgb and
+// density go to hout[4p + 0..3].
+template <int D>
+__device__ __forceinline__ void mlp_tile_masks(const float* const* b, uint32_t pe, uint32_t de,
+                                               unsigned char* act, uint32_t dens_w,
+                                               uint32_t rgb_w, const float* hbias, float* hout,
+                                               const Handoff& hand, long long tile, Ring& ring,
+                                               uint32_t* masks) {
+  const int wg = threadIdx.x >> 7;
+  const bool leader = (threadIdx.x & 31) == 0;
+  const uint32_t parity = static_cast<uint32_t>(tile & 1);
+  unsigned char* act_g = act + wg * kWgRowBytes;
+  const uint32_t act_s = smem_addr(act) + wg * kWgRowBytes;
+  const uint32_t pe_s = pe + wg * kWgRowBytes;
+  float* hout_wg = hout + 4 * 64 * wg;
+  constexpr int LW = mask_layer_words<D>();
+  mbar_wait(hand.pe_full, parity);
+  {
+    float acc[D / 2];
+    acc_bias<D>(acc, b[0]);
+    ring_products<D>(acc, pe_s, 1, 4, ring);
+    wg_sync(wg);
+    store_act_mask<D, true>(acc, act_g, masks);
+    wg_sync(wg);
+#pragma unroll 1
+    for (int l = 1; l < 8; ++l) {
+      acc_bias<D>(acc, b[l]);
+      ring_products<D>(acc, act_s, D / 64, 4, ring);
+      if (l == 4) {
+        ring_products<D>(acc, pe_s, 1, 4, ring);   // the skip: pe @ w5, pe's last use
+        if (leader) mbar_arrive(hand.pe_free);
+      }
+      wg_sync(wg);
+      store_act_mask<D, true>(acc, act_g, masks + l * LW);
+      wg_sync(wg);
+    }
+    head90<D>(act_s, dens_w, b[8], hout_wg, 3, 1);
+    acc_bias<D>(acc, b[9]);
+    ring_products<D>(acc, act_s, D / 64, 4, ring);
+    wg_sync(wg);
+    store_act<D, false>(acc, act_g);
+    wg_sync(wg);
+  }
+  float acc[D / 4];
+  acc_bias<D / 2>(acc, hbias);
+  ring_products<D / 2>(acc, act_s, D / 64, 4, ring);
+  if (de != 0) {
+    mbar_wait(hand.de_full, parity);
+    ring_products<D / 2>(acc, de + wg * kWgRowBytes, 1, kDe / 16, ring);
+    if (leader) mbar_arrive(hand.de_free);
+  }
+  wg_sync(wg);
+  store_act_mask<D / 2, true>(acc, act_g, masks + 8 * LW);
+  wg_sync(wg);
+  head90<D / 2>(act_s, rgb_w, b[11], hout_wg, 0, 3);
+}
+
+// ---- the dX chain ---------------------------------------------------------------
+
+// The warpgroup's rows of the new cotangent = bf16(mask * (acc [+ gs wd])),
+// over the old one in the activation buffer; with SAVE also to `save_wg`
+// (device memory, the warpgroup's 64 rows in the same swizzle, 64-column
+// blocks kWgRowBytes apart). dense_bwd's epilogue, in its order.
+template <int N, bool MASK, bool RANK1, bool SAVE>
+__device__ __forceinline__ void store_dx(const float (&acc)[N / 2], unsigned char* act_wg,
+                                         const uint32_t* mask, const float* gs_wg,
+                                         const unsigned char* dens_head, unsigned char* save_wg) {
+  constexpr int W = mask_words<N>();
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int row = 16 * w + (lane >> 2), t = lane & 3;
+  uint32_t bits[2][W];
+  if (MASK) {
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      bits[0][k] = mask[k * kConsumers + threadIdx.x];
+      bits[1][k] = mask[(W + k) * kConsumers + threadIdx.x];
+    }
+  }
+  float gs0 = 0.f, gs1 = 0.f;
+  if (RANK1) {
+    gs0 = gs_wg[row];
+    gs1 = gs_wg[row + 8];
+  }
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    float v0 = acc[4 * j], v1 = acc[4 * j + 1], v2 = acc[4 * j + 2], v3 = acc[4 * j + 3];
+    if (RANK1) {
+      const float wd0 = __bfloat162float(*reinterpret_cast<const bf16*>(dens_head + swz(0, col, 1024)));
+      const float wd1 =
+          __bfloat162float(*reinterpret_cast<const bf16*>(dens_head + swz(0, col + 1, 1024)));
+      v0 += gs0 * wd0;
+      v1 += gs0 * wd1;
+      v2 += gs1 * wd0;
+      v3 += gs1 * wd1;
+    }
+    if (MASK) {
+      const int b = (2 * j) & 31, k = (2 * j) >> 5;
+      if (!((bits[0][k] >> b) & 1u)) v0 = 0.f;
+      if (!((bits[0][k] >> (b + 1)) & 1u)) v1 = 0.f;
+      if (!((bits[1][k] >> b) & 1u)) v2 = 0.f;
+      if (!((bits[1][k] >> (b + 1)) & 1u)) v3 = 0.f;
+    }
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v0, v1), hi = __floats2bfloat162_rn(v2, v3);
+    *reinterpret_cast<__nv_bfloat162*>(act_wg + swz(row, col, kBlockBytes)) = lo;
+    *reinterpret_cast<__nv_bfloat162*>(act_wg + swz(row + 8, col, kBlockBytes)) = hi;
+    if (SAVE) {   // past L1 (st.global.cg): the forward's biases stay there
+      __stcg(reinterpret_cast<unsigned int*>(save_wg + swz(row, col, kWgRowBytes)),
+             *reinterpret_cast<const unsigned int*>(&lo));
+      __stcg(reinterpret_cast<unsigned int*>(save_wg + swz(row + 8, col, kWgRowBytes)),
+             *reinterpret_cast<const unsigned int*>(&hi));
+    }
+  }
+  fence_proxy_async();
+}
+
+// One dX layer on the warpgroup's rows: g_in = epilogue(g_out W) over the
+// next K/64 ring slices (N rows each).
+template <int K, int N, bool MASK, bool RANK1, bool SAVE>
+__device__ __forceinline__ void dx_layer(unsigned char* act_wg, uint32_t act_s, Ring& ring,
+                                         const uint32_t* mask, const float* gs_wg,
+                                         const unsigned char* dens_head, unsigned char* save_wg) {
+  const int wg = threadIdx.x >> 7;
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  ring_products<N>(acc, act_s, K / 64, 4, ring);
+  wg_sync(wg);
+  store_dx<N, MASK, RANK1, SAVE>(acc, act_wg, mask, gs_wg, dens_head, save_wg);
+  wg_sync(wg);
+}
+
+// The rgb head's backward for the tile, scalar f32 as nerf_bwd.cuh's: with
+// j = tid % H and row group tid / H, g_h[m][j] = (bf16 g_rgb[m] . wo[:, j]) *
+// (h[m][j] > 0), rounded to bf16 into the activation buffer (every row: both
+// warpgroups). With ghsum, each thread's sum of its rows' bf16 g_h goes to
+// red[tid] and ghsum[j] += the row groups' sums in order. grgb: the tile's
+// raw-rgb cotangents (128 x 4 f32). Ends synchronised (both warpgroups) with
+// the buffer fenced for wgmma.
+template <int D>
+__device__ __forceinline__ void rgb_head_bwd(unsigned char* act, const float* grgb,
+                                             const uint32_t* mask_h, const unsigned char* rgb_head,
+                                             float* red, float* ghsum) {
+  constexpr int H = D / 2;
+  constexpr int NG = kConsumers / H;        // row groups, each of kPts / NG rows
+  const int tid = threadIdx.x;
+  const int j = tid % H, grp = tid / H;
+  const float wo0 = __bfloat162float(*reinterpret_cast<const bf16*>(rgb_head + swz(0, j, 1024)));
+  const float wo1 = __bfloat162float(*reinterpret_cast<const bf16*>(rgb_head + swz(1, j, 1024)));
+  const float wo2 = __bfloat162float(*reinterpret_cast<const bf16*>(rgb_head + swz(2, j, 1024)));
+  float csb = 0.f;
+  consumer_sync();   // both warpgroups are done with the buffer and the masks are in
+#pragma unroll 8
+  for (int m = grp * (kPts / NG); m < (grp + 1) * (kPts / NG); ++m) {
+    const float g0 = bf16_round(grgb[4 * m]), g1 = bf16_round(grgb[4 * m + 1]),
+                g2 = bf16_round(grgb[4 * m + 2]);
+    float gh = g0 * wo0 + g1 * wo1 + g2 * wo2;
+    if (!hidden_mask(mask_h, m, j)) gh = 0.f;
+    const bf16 ghb = __float2bfloat16_rn(gh);
+    *reinterpret_cast<bf16*>(act + swz(m, j, kBlockBytes)) = ghb;
+    csb += __bfloat162float(ghb);
+  }
+  fence_proxy_async();
+  if (ghsum != nullptr) red[tid] = csb;
+  consumer_sync();
+  if (ghsum != nullptr) {
+    if (tid < H) {
+      float v = 0.f;
+      for (int gi = 0; gi < NG; ++gi) v += red[gi * H + tid];
+      ghsum[tid] += v;
+    }
+    consumer_sync();
+  }
+}
+
+// The dX chain of the tile from g_h (in the buffer) to the cotangent of the
+// position encoding: feat <- h (w11), x7 <- feat (w10, + gs wd, mask x7),
+// x_{l-1} <- x_l (w8..w6, w4..w1, masks x6..x0), g4 parked in `save`
+// (this CTA's scratch: 128 x D bf16), then dpe = g0 W0 + g4 W5pe into
+// `dpe` (the m64n64 fragment of the warpgroup's rows). gsbf: the tile's
+// bf16-valued raw-density cotangents (128 f32).
+template <int D>
+__device__ __forceinline__ void dx_chain(float (&dpe)[32], unsigned char* act, Ring& ring,
+                                         const uint32_t* masks, const float* gsbf,
+                                         const unsigned char* dens_head, unsigned char* save) {
+  constexpr int H = D / 2;
+  constexpr int LW = mask_layer_words<D>();
+  const int wg = threadIdx.x >> 7;
+  unsigned char* act_g = act + wg * kWgRowBytes;
+  const uint32_t act_s = smem_addr(act) + wg * kWgRowBytes;
+  unsigned char* save_wg = save + wg * (kWgRowBytes * (D / 64));
+  const float* gs_wg = gsbf + 64 * wg;
+  dx_layer<H, D, false, false, false>(act_g, act_s, ring, nullptr, nullptr, nullptr, nullptr);
+  dx_layer<D, D, true, true, false>(act_g, act_s, ring, masks + 7 * LW, gs_wg, dens_head,
+                                    nullptr);
+#pragma unroll 1
+  for (int l = 7; l >= 1; --l) {
+    if (l == 5)
+      dx_layer<D, D, true, false, true>(act_g, act_s, ring, masks + 4 * LW, nullptr, nullptr,
+                                        save_wg);
+    else
+      dx_layer<D, D, true, false, false>(act_g, act_s, ring, masks + (l - 1) * LW, nullptr,
+                                         nullptr, nullptr);
+  }
+  __threadfence_block();   // g4's device-memory writes, before other threads read them back
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dpe[i] = 0.f;
+  ring_products<64>(dpe, act_s, D / 64, 4, ring);   // g0 W0
+  wg_sync(wg);
+  // g4 back over g0, by 16-byte cp.async
+  {
+    constexpr int kChunks = (D / 64) * (kWgRowBytes / 16);
+    const int lt = threadIdx.x & 127;
+    for (int e = lt; e < kChunks; e += 128) {
+      const int blk = e / (kWgRowBytes / 16), within = (e % (kWgRowBytes / 16)) * 16;
+      const uint32_t dst = act_s + blk * kBlockBytes + within;
+      const unsigned char* src = save_wg + blk * kWgRowBytes + within;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    fence_proxy_async();
+  }
+  wg_sync(wg);
+  ring_products<64>(dpe, act_s, D / 64, 4, ring);   // + g4 W5pe
+}
+
+// ---- block-level helpers over the consumer threads ---------------------------
+
+// nerf_mlp.cuh's block_sum over the 8 consumer warps (shuffles inside a warp,
+// then the warps in order); the sums are left in red[0..N). Ends synchronised.
+template <int N>
+__device__ __forceinline__ void block_sum90(float (&part)[N], float* red) {
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) part[c] += __shfl_xor_sync(0xffffffffu, part[c], off);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  consumer_sync();
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) red[N * warp + c] = part[c];
+  }
+  consumer_sync();
+  float acc = 0.f;
+  if (threadIdx.x < N) {
+    for (int w = 0; w < kConsumerWarps; ++w) acc += red[N * w + threadIdx.x];
+  }
+  consumer_sync();
+  if (threadIdx.x < N) red[threadIdx.x] = acc;
+  consumer_sync();
+}
+
+}  // namespace

@@ -15,15 +15,16 @@
 //   so its gradient arrives through the weights' cotangent.
 // Outputs: dW (14 blocks, stored (in, out)), dB (12), d(rays) (N,9), dz (N,S).
 //
-// Two variants, chosen by the caller: the full one, and one for a frozen
-// network (partials == null) that forms only the dX chain and so d(rays) and
-// dz: test-time pose optimisation needs nothing else. The grid, the stash,
-// the per-CTA partial gradient buffers summed in CTA order (no float atomics:
-// two launches give the same bits) and the shared-memory plan are the train
+// This file is the full variant. The variant for a frozen network, which
+// forms only d(rays) and dz (all test-time pose optimisation needs), is
+// render_bwd_frozen.cu, on the wgmma dX chain of mlp_dx_sm90.cuh; its
+// results are bit-equal to this one's. The grid, the stash, the per-CTA
+// partial gradient buffers summed in CTA order (no float atomics: two
+// launches give the same bits) and the shared-memory plan are the train
 // kernel's; render_train.cu describes them.
 //
 // Bound: compute, as the train kernel: forward + dX + dW are three products
-// per layer (two without dW) against a 4.9 KB stash written and read per point.
+// per layer against a 4.9 KB stash written and read per point.
 
 #include "nerf_bwd.cuh"
 
@@ -106,11 +107,10 @@ extern "C" int nerf_bwd_grad_layout(int D, int* offsets) {
 // (n_rays, 3), g_dist (n_rays) f32, contiguous on the device; g_w, g_a
 // (n_rays, S) f32 or null (a zero cotangent); weights (out, in), weights_t
 // (in, out): 14 bf16 device pointers each in the Net layout; biases: 12 f32
-// pointers. stash: n_ctas * S * 9.5 D bf16. partials: n_ctas * total f32 and
-// grads: total f32 (out), or both null for the frozen-network variant, which
-// writes no dW/dB. drays (n_rays, 9), dz (n_rays, S) f32 (out). n_ctas <=
-// n_rays. Returns a cudaError_t (0 on success); the launches are asynchronous
-// on `stream`.
+// pointers. stash: n_ctas * S * 9.5 D bf16. partials: n_ctas * total f32
+// (scratch) and grads: total f32 (out). drays (n_rays, 9), dz (n_rays, S) f32
+// (out). n_ctas <= n_rays. Returns a cudaError_t (0 on success); the launches
+// are asynchronous on `stream`.
 extern "C" int nerf_render_bwd(const float* rays, const float* z, const float* g_rgb,
                                const float* g_dist, const float* g_w, const float* g_a,
                                const void* const* weights, const void* const* weights_t,
@@ -123,7 +123,7 @@ extern "C" int nerf_render_bwd(const float* rays, const float* z, const float* g
   if (S <= 0 || S % kPts != 0 || S > kMaxTrainS) return static_cast<int>(cudaErrorInvalidValue);
   if ((D != 128 && D != 256) || total != grad_layout(D).total)
     return static_cast<int>(cudaErrorInvalidValue);
-  if ((partials == nullptr) != (grads == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (partials == nullptr || grads == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   Net net;
   NetT nett;
   for (int i = 0; i < 14; ++i) {
@@ -133,17 +133,13 @@ extern "C" int nerf_render_bwd(const float* rays, const float* z, const float* g
   for (int i = 0; i < 12; ++i) net.b[i] = static_cast<const float*>(biases[i]);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   bf16* sp = static_cast<bf16*>(stash);
-  const bool dw = partials != nullptr;
-#define NERF_BWD_LAUNCH(DIM, FLAG)                                                              \
-  launch_bwd<DIM, FLAG>(rays, z, g_rgb, g_dist, g_w, g_a, net, nett, sp, partials, grads,       \
-                        drays, dz, n_rays, S, n_ctas, occ_softplus, head_dist_alpha,            \
-                        dist_alpha, st)
-  cudaError_t err;
-  if (D == 256)
-    err = dw ? NERF_BWD_LAUNCH(256, true) : NERF_BWD_LAUNCH(256, false);
-  else
-    err = dw ? NERF_BWD_LAUNCH(128, true) : NERF_BWD_LAUNCH(128, false);
-#undef NERF_BWD_LAUNCH
+  const cudaError_t err =
+      D == 256 ? launch_bwd<256, true>(rays, z, g_rgb, g_dist, g_w, g_a, net, nett, sp, partials,
+                                       grads, drays, dz, n_rays, S, n_ctas, occ_softplus,
+                                       head_dist_alpha, dist_alpha, st)
+               : launch_bwd<128, true>(rays, z, g_rgb, g_dist, g_w, g_a, net, nett, sp, partials,
+                                       grads, drays, dz, n_rays, S, n_ctas, occ_softplus,
+                                       head_dist_alpha, dist_alpha, st);
   return static_cast<int>(err);
 }
 

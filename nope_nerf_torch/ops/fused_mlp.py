@@ -8,10 +8,12 @@ package runs around them. `point_mlp` is the MLP query of the unfused render
 sample count the fused render does not take).
 
 On a CUDA tensor `point_mlp` launches the hand-written Hopper kernels in
-`nope_nerf_torch/csrc/point_mlp_fwd.cu` and `csrc/point_mlp_bwd.cu`, or
-raises; on a CPU tensor, and on any tensor inside `with plain_versions():`,
-it runs `point_mlp_fwd_plain` and `point_mlp_bwd_plain`, the same arithmetic
-in plain PyTorch:
+`nope_nerf_torch/csrc/point_mlp_fwd.cu` and `csrc/point_mlp_bwd.cu` (or,
+when no nerf parameter wants a gradient, K6's frozen-network variant
+`csrc/point_mlp_bwd_frozen.cu`, the wgmma dX chain), or raises; on a CPU
+tensor, and on any tensor inside `with plain_versions():`, it runs
+`point_mlp_fwd_plain` and `point_mlp_bwd_plain`, the same arithmetic in
+plain PyTorch:
 - the f32 dense-lane encodings (fused_render.encode_lanes) rounded to bf16;
 - bf16 matmul operands with f32 accumulation, whatever `compute_dtype` says
   (pallas_mlp.py:395-399), activations rounded to bf16 after each ReLU,
@@ -37,8 +39,8 @@ import torch
 from ..models.nerf import NerfConfig, _occupancy, bf16_round, softplus
 from ._build import CudaLibrary, runs_plain
 from .fused_render import (DE_DIM, PE_DIM, STASH_HALF_DIMS, _backward_ctas, _enc_deriv_to_coords,
-                           _grad_blocks, _mlp_forward, _pack_for_backward, encode_lanes,
-                           mlp_backward, pack_tiles, pack_weights, unpack_grads)
+                           _grad_blocks, _mlp_forward, _pack_for_backward, _packed_tiles_on,
+                           encode_lanes, mlp_backward, pack_tiles, pack_weights, unpack_grads)
 
 PTS_PER_PASS = 128        # the kernels' pass over consecutive points
 PLAIN_BLOCK_POINTS = 65536  # points per block of the plain versions (bounds their memory)
@@ -64,8 +66,21 @@ def _setup_bwd(lib: ctypes.CDLL) -> None:
     lib.nerf_error_string.restype = ctypes.c_char_p
 
 
+def _setup_bwd_frozen(lib: ctypes.CDLL) -> None:
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.nerf_point_mlp_bwd_frozen.argtypes = [p] * 10 + [ctypes.c_longlong] + [i] * 4 + [p]
+    lib.nerf_point_mlp_bwd_frozen.restype = ctypes.c_int
+    lib.nerf_error_string.argtypes = [ctypes.c_int]
+    lib.nerf_error_string.restype = ctypes.c_char_p
+
+
 POINT_MLP_FWD = CudaLibrary("point_mlp_fwd.cu", _setup_fwd)
 POINT_MLP_BWD = CudaLibrary("point_mlp_bwd.cu", _setup_bwd)
+# K6's frozen-network variant (d(points), d(directions) only) on the wgmma dX
+# chain. Its `launches` counts those launches; each also counts in
+# POINT_MLP_BWD.launches, which counts every launch of K6, either variant.
+POINT_MLP_BWD_FROZEN = CudaLibrary("point_mlp_bwd_frozen.cu", _setup_bwd_frozen)
 
 
 def _check_inputs(pts: torch.Tensor, dirs: torch.Tensor) -> None:
@@ -126,12 +141,15 @@ def _head_vjp(rgb_raw, sig_raw, g_rgb, g_density, cfg: NerfConfig):
 
 
 def point_mlp_bwd_plain(params: Dict[str, torch.Tensor], pts: torch.Tensor, dirs: torch.Tensor,
-                        g_rgb: torch.Tensor, g_density: torch.Tensor, cfg: NerfConfig):
+                        g_rgb: torch.Tensor, g_density: torch.Tensor, cfg: NerfConfig,
+                        want_param_grads: bool = True):
     """Plain PyTorch version of the backward kernel, on any device: the VJP of
     point_mlp at cotangents g_rgb (M,3) and g_density (M,1). It recomputes the
     forward and returns (dWs [14] stored (in, out), dBs [12], dpts (M,3),
     ddirs (M,3)); unpack_grads turns the first two into the nerf params'
-    layout. Blocks of points are summed in order: two runs give the same bits."""
+    layout. Blocks of points are summed in order: two runs give the same bits.
+    With want_param_grads=False, the frozen-network variant's version: the
+    same dX arithmetic with the dW/dB work skipped, and dWs, dBs None."""
     _check_inputs(pts, dirs)
     with torch.no_grad():
         W, B = pack_weights(params, cfg)
@@ -145,9 +163,11 @@ def point_mlp_bwd_plain(params: Dict[str, torch.Tensor], pts: torch.Tensor, dirs
             rgb_raw, sig_raw, acts, pe, de = _plain_forward(Wf, B, pts[sl], dirs[sl])
             g_rgb_raw, g_sig = _head_vjp(rgb_raw, sig_raw, g_rgb[sl], g_density[sl], cfg)
             m = pe.shape[0]
-            dW_b, dB_b, dpe, dde = mlp_backward(Wf, pe, de, acts, g_rgb_raw, g_sig, m, 1)
-            dW = dW_b if dW is None else [a + b for a, b in zip(dW, dW_b)]
-            dB = dB_b if dB is None else [a + b for a, b in zip(dB, dB_b)]
+            dW_b, dB_b, dpe, dde = mlp_backward(Wf, pe, de, acts, g_rgb_raw, g_sig, m, 1,
+                                                want_param_grads)
+            if want_param_grads:
+                dW = dW_b if dW is None else [a + b for a, b in zip(dW, dW_b)]
+                dB = dB_b if dB is None else [a + b for a, b in zip(dB, dB_b)]
             dpts.append(_enc_deriv_to_coords(dpe, pts[sl], 10))
             ddirs.append(_enc_deriv_to_coords(dde, dirs[sl], 4))
         return dW, dB, torch.cat(dpts, dim=0), torch.cat(ddirs, dim=0)
@@ -190,9 +210,11 @@ def _mlp_fwd_cuda(params, pts: torch.Tensor, dirs: torch.Tensor, cfg: NerfConfig
     return rgb, density
 
 
-def _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig):
+def _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig,
+                  want_param_grads: bool = True):
     """(dWs, dBs, dpts, ddirs) by one launch of the backward kernel (and its
-    in-order sum of the CTAs' partial gradients)."""
+    in-order sum of the CTAs' partial gradients). With want_param_grads=False
+    its frozen-network variant runs: no dW/dB, and dWs, dBs are None."""
     _check_width(cfg)
     D = cfg.hidden_dim
     dev = pts.device
@@ -201,6 +223,8 @@ def _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig):
         raise ValueError("the point-query MLP backward needs at least one point")
     _check_tensors((("pts", pts), ("dirs", dirs), ("g_rgb", g_rgb), ("g_density", g_density)),
                    dev)
+    if not want_param_grads:
+        return (None, None) + _mlp_bwd_frozen_cuda(params, pts, dirs, g_rgb, g_density, cfg)
     wptrs, wtptrs, bptrs, _keep = _pack_for_backward(params, cfg, dev)
     lib = POINT_MLP_BWD.lib()
     offsets = (ctypes.c_int * 26)()
@@ -228,6 +252,33 @@ def _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig):
     POINT_MLP_BWD.launches += 1
     dWs, dBs = _grad_blocks(grads, offsets, D)
     return dWs, dBs, dpts, ddirs
+
+
+def _mlp_bwd_frozen_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig):
+    """(dpts, ddirs) by one launch of K6's frozen-network variant: no stash,
+    no partial sums; a per-CTA scratch of 128 x D bf16 holds the chain's g4."""
+    D = cfg.hidden_dim
+    dev = pts.device
+    M = pts.shape[0]
+    tiles, tiles_dx, _B, bptrs = _packed_tiles_on(params, cfg, dev)
+    lib = POINT_MLP_BWD_FROZEN.lib()
+    n_ctas = _backward_ctas(-(-M // PTS_PER_PASS), dev)
+    scratch = torch.empty((n_ctas, PTS_PER_PASS, D), dtype=torch.bfloat16, device=dev)
+    dpts = torch.empty((M, 3), dtype=torch.float32, device=dev)
+    ddirs = torch.empty((M, 3), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.nerf_point_mlp_bwd_frozen(
+            pts.data_ptr(), dirs.data_ptr(), g_rgb.data_ptr(), g_density.data_ptr(),
+            tiles.data_ptr(), tiles_dx.data_ptr(), bptrs, scratch.data_ptr(), dpts.data_ptr(),
+            ddirs.data_ptr(), M, D, n_ctas, int(cfg.occ_activation == "softplus"),
+            int(cfg.dist_alpha), stream)
+    if err != 0:
+        raise RuntimeError("point-query MLP backward kernel (frozen-network variant) launch "
+                           "failed: " + lib.nerf_error_string(err).decode())
+    POINT_MLP_BWD.launches += 1
+    POINT_MLP_BWD_FROZEN.launches += 1
+    return dpts, ddirs
 
 
 def _forward(params, pts, dirs, cfg: NerfConfig, plain: bool):
@@ -262,13 +313,15 @@ class _PointMLP(torch.autograd.Function):
         g_rgb = torch.zeros((pts.shape[0], 3), **f32) if g_rgb is None else g_rgb
         g_density = torch.zeros((pts.shape[0], 1), **f32) if g_density is None else g_density
         g_rgb, g_density = (g.to(torch.float32).contiguous() for g in (g_rgb, g_density))
-        if plain:
-            dWs, dBs, dpts, ddirs = point_mlp_bwd_plain(params, pts, dirs, g_rgb, g_density, cfg)
-        else:
-            dWs, dBs, dpts, ddirs = _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg)
-        grads = unpack_grads(dWs, dBs, cfg)
-        param_grads = [grads[k].to(params[k].dtype) if need else None
-                       for k, need in zip(names, ctx.needs_input_grad[4:])]
+        want_param_grads = any(ctx.needs_input_grad[4:])
+        backward = point_mlp_bwd_plain if plain else _mlp_bwd_cuda
+        dWs, dBs, dpts, ddirs = backward(params, pts, dirs, g_rgb, g_density, cfg,
+                                         want_param_grads)
+        param_grads = [None] * len(names)
+        if want_param_grads:
+            grads = unpack_grads(dWs, dBs, cfg)
+            param_grads = [grads[k].to(params[k].dtype) if need else None
+                           for k, need in zip(names, ctx.needs_input_grad[4:])]
         return dpts.to(pts.dtype), ddirs.to(dirs.dtype), None, None, *param_grads
 
 
@@ -280,7 +333,8 @@ def point_mlp(params: Dict[str, torch.Tensor], pts: torch.Tensor, dirs: torch.Te
     raises; a CPU tensor, and any tensor inside `plain_versions()`, through
     point_mlp_fwd_plain and point_mlp_bwd_plain. Gradients flow to the nerf
     params, the points and the directions; under torch.no_grad(), or when
-    nothing requires a gradient, no graph is built."""
+    nothing requires a gradient, no graph is built. When no nerf parameter
+    requires a gradient the backward is the frozen-network variant (no dW/dB)."""
     _check_inputs(pts, dirs)
     if pts.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no point-query MLP kernel for device {pts.device}")

@@ -6,8 +6,9 @@ of its train-step program (`_render_train_kernel`, K1: render, rgb and
 depth losses and every gradient in one launch) and of pallas_mlp.py's
 `pack_weights` / `_unpack_grads`. On a CUDA tensor `render_rays_fused` and
 `render_ray_loss_fused` launch the hand-written Hopper kernels in
-`nope_nerf_torch/csrc/render_fwd.cu`, `csrc/render_bwd.cu` and
-`csrc/render_train.cu`, or raise; on a CPU tensor they run
+`nope_nerf_torch/csrc/render_fwd.cu`, `csrc/render_bwd.cu` (for a frozen
+network its variant `csrc/render_bwd_frozen.cu`) and `csrc/render_train.cu`,
+or raise; on a CPU tensor they run
 `render_rays_fused_plain`, `render_rays_fused_bwd_plain` and
 `render_ray_loss_fused_plain`, the same arithmetic in plain PyTorch (inside
 `with plain_versions():`, re-exported here, they do so on any device: a
@@ -24,7 +25,10 @@ switch for checks that hold the kernels' route against the plain one):
 
 The forward kernels (render_fwd here, point_mlp_fwd in fused_mlp.py) take the
 weights as `pack_tiles`' pre-swizzled slices, the layout their wgmma trunk
-(csrc/mlp_fwd_sm90.cuh) streams into shared memory.
+(csrc/mlp_fwd_sm90.cuh) streams into shared memory; the frozen-network
+backward variants (render_bwd_frozen here, point_mlp_bwd_frozen in
+fused_mlp.py) take those and `pack_tiles_dx`' slices of the (in, out)
+weights, the B operands of their wgmma dX chain (csrc/mlp_dx_sm90.cuh).
 
 The ray table is (N, 9) [origin | ray_vec | mlp_dir]: the TPU's 128-lane
 padding is a layout of that machine and is not carried over. The train
@@ -159,30 +163,33 @@ def _tile_layout(D: int) -> List[Tuple[int, int, int]]:
             (9, HEAD_DIM, D), (13, HEAD_DIM, H)]
 
 
-@functools.lru_cache(maxsize=4)
-def _tile_index(D: int) -> np.ndarray:
-    """For each bf16 of the tiled buffer, its index in the concatenation of the
-    _packed_blocks (stored (in, out), in _tile_layout's order) followed by one
-    zero. A weight (N, K) becomes ceil(K/64) blocks of N rows of 64 columns;
-    the 16-byte chunk c of row r is stored at chunk c ^ (r % 8) (the 128-byte
-    swizzle wgmma and the bulk copies read), columns past K are zero."""
+def _swizzled_slices(shapes: List[Tuple[int, int]], k_major: bool) -> np.ndarray:
+    """For each bf16 of a buffer of swizzled weight slices, its index in the
+    concatenation of the source blocks followed by one zero. shapes: (rows N,
+    columns K) of each weight in buffer order; its source block is (K, N)
+    row-major (stored (in, out) and read transposed) unless k_major, when it
+    is (N, K) row-major. A weight becomes ceil(K/64) blocks of N rows of 64
+    columns; the 16-byte chunk c of row r is stored at chunk c ^ (r % 8) (the
+    128-byte swizzle wgmma and the bulk copies read), columns past K are zero."""
     parts, base = [], 0
-    for _, N, K in _tile_layout(D):
+    for N, K in shapes:
         kblocks = -(-K // SWIZZLE_COLS)
         r = np.arange(N)[None, :, None, None]
         chunk = np.arange(8)[None, None, :, None] ^ (r % 8)
         col = (np.arange(kblocks)[:, None, None, None] * SWIZZLE_COLS + chunk * 8
                + np.arange(8)[None, None, None, :])
-        parts.append(np.where(col < K, base + col * N + r, -1).reshape(-1))
+        src = base + r * K + col if k_major else base + col * N + r
+        parts.append(np.where(col < K, src, -1).reshape(-1))
         base += K * N
     idx = np.concatenate(parts)
     return np.where(idx < 0, base, idx)
 
 
-@functools.lru_cache(maxsize=8)
-def _tile_index_tensor(D: int, device: torch.device) -> torch.Tensor:
-    """_tile_index on `device`, uploaded once (a constant: never written)."""
-    return torch.as_tensor(_tile_index(D), device=device)
+@functools.lru_cache(maxsize=4)
+def _tile_index(D: int) -> np.ndarray:
+    """The forward buffer's gather index (_swizzled_slices) over the
+    _packed_blocks (stored (in, out)) in _tile_layout's order."""
+    return _swizzled_slices([(N, K) for _, N, K in _tile_layout(D)], k_major=False)
 
 
 def pack_tiles(params: Dict[str, torch.Tensor], cfg: NerfConfig) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -192,10 +199,54 @@ def pack_tiles(params: Dict[str, torch.Tensor], cfg: NerfConfig) -> Tuple[torch.
     contiguous bulk copy. Three device ops past _packed_blocks: a
     concatenation, a cast and one gather."""
     blocks, biases = _packed_blocks(params, cfg)
-    D = cfg.hidden_dim
-    order = [blocks[i] for i, _, _ in _tile_layout(D)]
+    return _gather_slices(blocks, cfg.hidden_dim, _tile_layout, _tile_index), biases
+
+
+def _tile_dx_layout(D: int) -> List[Tuple[int, int, int]]:
+    """(pack_weights index, rows N = inputs, columns K = outputs) of each
+    weight of the frozen-network backward's buffer (csrc/mlp_dx_sm90.cuh::
+    TilesDx), in the order its dX products g_in = g_out W consume them: the
+    rgb-hidden layer's direction part (K6 only; K4 starts after it) and x
+    part, the feature layer, the trunk from layer 7 down to 1 (w8, w7, w6,
+    w4, w3, w2, w1), then the encoding's two products, w0 and the skip's
+    encoding part w5."""
+    H = D // 2
+    return [(12, DE_DIM, H), (11, D, H), (10, D, D), (8, D, D), (7, D, D), (6, D, D),
+            (4, D, D), (3, D, D), (2, D, D), (1, D, D), (0, PE_DIM, D), (5, PE_DIM, D)]
+
+
+@functools.lru_cache(maxsize=4)
+def _tile_dx_index(D: int) -> np.ndarray:
+    """The backward buffer's gather index (_swizzled_slices): each weight's
+    (in, out) block is already (N, K) with K contiguous, the K-major B operand
+    of a dX product."""
+    return _swizzled_slices([(N, K) for _, N, K in _tile_dx_layout(D)], k_major=True)
+
+
+@functools.lru_cache(maxsize=16)
+def _index_tensor(index_fn, D: int, device: torch.device) -> torch.Tensor:
+    """A gather index on `device`, uploaded once (a constant: never written)."""
+    return torch.as_tensor(index_fn(D), device=device)
+
+
+def _gather_slices(blocks: List[torch.Tensor], D: int, layout_fn, index_fn) -> torch.Tensor:
+    """The _packed_blocks in layout_fn(D)'s order, cast to bf16 and gathered
+    into swizzled slices by index_fn(D): a concatenation, a cast, a gather."""
+    order = [blocks[i] for i, _, _ in layout_fn(D)]
     flat = torch.cat([b.reshape(-1) for b in order] + [order[0].new_zeros(1)])
-    return flat.to(torch.bfloat16)[_tile_index_tensor(D, flat.device)], biases
+    return flat.to(torch.bfloat16)[_index_tensor(index_fn, D, flat.device)]
+
+
+def pack_tiles_dx(params: Dict[str, torch.Tensor], cfg: NerfConfig):
+    """nerf params -> (the forward buffer of pack_tiles, the frozen-network
+    backward's buffer, 12 f32 biases), from one _packed_blocks. The backward
+    buffer holds each weight of _tile_dx_layout as 64-column (output) slices
+    of its (in, out) storage, pre-swizzled, in the order the chain's producer
+    streams them."""
+    blocks, biases = _packed_blocks(params, cfg)
+    D = cfg.hidden_dim
+    return (_gather_slices(blocks, D, _tile_layout, _tile_index),
+            _gather_slices(blocks, D, _tile_dx_layout, _tile_dx_index), biases)
 
 
 def pack_weights_both(params: Dict[str, torch.Tensor], cfg: NerfConfig):
@@ -494,38 +545,51 @@ def _plain_forward(Wf, B, rays, z, cfg: NerfConfig, dist_alpha: bool,
             "ray_rgb": (weights[..., None] * rgb3).sum(dim=1)}
 
 
-def mlp_backward(Wf, pe, de, acts, g_rgb, g_sig, n: int, S: int):
+def mlp_backward(Wf, pe, de, acts, g_rgb, g_sig, n: int, S: int,
+                 want_param_grads: bool = True):
     """MLP backward (pallas_mlp.py:207-260) from the cotangents of the raw
     heads, g_rgb (T,3) and g_sig (T,), over T = n*S points whose direction
     encoding `de` (n,32) is shared by each group of S: dW = x^T . bf16(g)
     stored (in, out), dX = bf16(g) . W^T with Wf[i] = W^T (the (out, in)
-    weights as f32). Returns (dWs [14], dBs [12], dpe (T,64), dde (n,32))."""
+    weights as f32). Returns (dWs [14], dBs [12], dpe (T,64), dde (n,32));
+    with want_param_grads=False (a frozen network) the same dpe and dde, and
+    dWs, dBs None: the dX chain alone."""
     r = bf16_round
     x0, x1, x2, x3, x4, x5, x6, x7, feat, h = acts
     dW: List[Optional[torch.Tensor]] = [None] * 14
     dB: List[Optional[torch.Tensor]] = [None] * 12
+
+    def grads(wi, bi, x_in, g):
+        if want_param_grads:
+            dW[wi], dB[bi] = x_in.t() @ r(g), g.sum(dim=0)
+
     H = h.shape[1]
-    dW[13], dB[11] = h.t() @ r(g_rgb), g_rgb.sum(dim=0)
+    grads(13, 11, h, g_rgb)
     g_h = (r(g_rgb) @ Wf[13][:3]) * (h > 0)
     rg_h = r(g_h)
-    dW[11], dB[10] = feat.t() @ rg_h, g_h.sum(dim=0)
-    dW[12] = de.t() @ rg_h.reshape(n, S, H).sum(dim=1)      # rounded per point, then summed
+    grads(11, 10, feat, g_h)
+    if want_param_grads:
+        dW[12] = de.t() @ rg_h.reshape(n, S, H).sum(dim=1)  # rounded per point, then summed
     dde = (rg_h @ Wf[12]).reshape(n, S, DE_DIM).sum(dim=1)  # (n, 32)
     g_feat = rg_h @ Wf[11]
-    dW[10], dB[9] = x7.t() @ r(g_feat), g_feat.sum(dim=0)
-    dW[9], dB[8] = x7.t() @ r(g_sig)[:, None], g_sig.sum().reshape(1)
+    grads(10, 9, x7, g_feat)
+    if want_param_grads:
+        dW[9], dB[8] = x7.t() @ r(g_sig)[:, None], g_sig.sum().reshape(1)
     g = (r(g_feat) @ Wf[10] + r(g_sig)[:, None] * Wf[9][0][None, :]) * (x7 > 0)
     for wi, bi, x_in in ((8, 7, x6), (7, 6, x5), (6, 5, x4)):
-        dW[wi], dB[bi] = x_in.t() @ r(g), g.sum(dim=0)
+        grads(wi, bi, x_in, g)
         g = (r(g) @ Wf[wi]) * (x_in > 0)
     g4 = g
     for wi, bi, x_in in ((4, 4, x3), (3, 3, x2), (2, 2, x1), (1, 1, x0)):
-        dW[wi], dB[bi] = x_in.t() @ r(g), g.sum(dim=0)
+        grads(wi, bi, x_in, g)
         g = (r(g) @ Wf[wi]) * (x_in > 0)
     g0 = g
-    dB[0] = g0.sum(dim=0)
-    dW[0], dW[5] = pe.t() @ r(g0), pe.t() @ r(g4)
+    if want_param_grads:
+        dB[0] = g0.sum(dim=0)
+        dW[0], dW[5] = pe.t() @ r(g0), pe.t() @ r(g4)
     dpe = r(g0) @ Wf[0] + r(g4) @ Wf[5]                      # (T, 64)
+    if not want_param_grads:
+        return None, None, dpe, dde
     return dW, dB, dpe, dde
 
 
@@ -811,12 +875,19 @@ def _setup_bwd(lib: ctypes.CDLL) -> None:
 RENDER_BWD = CudaLibrary("render_bwd.cu", _setup_bwd)
 
 
-class _FrozenVariantCount:
-    """Of RENDER_BWD.launches, those of the frozen-network variant (no dW/dB)."""
-    launches = 0
+def _setup_bwd_frozen(lib: ctypes.CDLL) -> None:
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.nerf_render_bwd_frozen.argtypes = [p] * 12 + [i] * 7 + [p]
+    lib.nerf_render_bwd_frozen.restype = ctypes.c_int
+    lib.nerf_error_string.argtypes = [ctypes.c_int]
+    lib.nerf_error_string.restype = ctypes.c_char_p
 
 
-RENDER_BWD_FROZEN = _FrozenVariantCount()
+# K4's frozen-network variant (d(rays), dz only) on the wgmma dX chain. Its
+# `launches` counts those launches; each also counts in RENDER_BWD.launches,
+# which counts every launch of K4, either variant.
+RENDER_BWD_FROZEN = CudaLibrary("render_bwd_frozen.cu", _setup_bwd_frozen)
 
 
 def _check_bwd_inputs(rays, z, g_rgb, g_dist, g_w, g_a) -> None:
@@ -877,8 +948,8 @@ def render_rays_fused_bwd_plain(params, rays: torch.Tensor, z: torch.Tensor,
 def _render_bwd_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig,
                      dist_alpha: bool, want_param_grads: bool = True):
     """(dWs, dBs, drays, dz) by one launch of the render-backward kernel. With
-    want_param_grads=False the kernel's frozen-network variant runs: it skips
-    the dW/dB products and their buffers, and dWs, dBs are None."""
+    want_param_grads=False its frozen-network variant runs (render_bwd_frozen.cu,
+    the wgmma dX chain): no dW/dB, and dWs, dBs are None."""
     n, S = z.shape
     D = cfg.hidden_dim
     _check_backward_shapes("render-backward", S, D)
@@ -888,6 +959,10 @@ def _render_bwd_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig,
     named = [("rays", rays), ("z", z), ("g_rgb", g_rgb), ("g_dist", g_dist)]
     named += [(name, g) for name, g in (("g_w", g_w), ("g_a", g_a)) if g is not None]
     _check_backward_tensors(named, dev)
+    if not want_param_grads:
+        drays, dz = _render_bwd_frozen_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg,
+                                            dist_alpha)
+        return None, None, drays, dz
     wptrs, wtptrs, bptrs, _keep = _pack_for_backward(params, cfg, dev)
     lib = RENDER_BWD.lib()
     offsets = (ctypes.c_int * 26)()
@@ -897,10 +972,8 @@ def _render_bwd_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig,
     n_ctas = _backward_ctas(n, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     stash = torch.empty((n_ctas, S, STASH_HALF_DIMS * D // 2), dtype=torch.bfloat16, device=dev)
-    partials = grads = None
-    if want_param_grads:
-        partials = torch.empty((n_ctas, total), **f32)
-        grads = torch.empty((total,), **f32)
+    partials = torch.empty((n_ctas, total), **f32)
+    grads = torch.empty((total,), **f32)
     drays = torch.empty((n, RAY_DIM), **f32)
     dz = torch.empty((n, S), **f32)
 
@@ -911,19 +984,56 @@ def _render_bwd_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nerf_render_bwd(
             rays.data_ptr(), z.data_ptr(), g_rgb.data_ptr(), g_dist.data_ptr(), ptr(g_w),
-            ptr(g_a), wptrs, wtptrs, bptrs, stash.data_ptr(), ptr(partials), ptr(grads),
-            drays.data_ptr(), dz.data_ptr(), n, S, D, n_ctas,
+            ptr(g_a), wptrs, wtptrs, bptrs, stash.data_ptr(), partials.data_ptr(),
+            grads.data_ptr(), drays.data_ptr(), dz.data_ptr(), n, S, D, n_ctas,
             int(cfg.occ_activation == "softplus"), int(cfg.dist_alpha), int(dist_alpha),
             total, stream)
     if err != 0:
         raise RuntimeError("render-backward kernel launch failed: "
                            + lib.nerf_error_string(err).decode())
     RENDER_BWD.launches += 1
-    if not want_param_grads:
-        RENDER_BWD_FROZEN.launches += 1
-        return None, None, drays, dz
     dWs, dBs = _grad_blocks(grads, offsets, D)
     return dWs, dBs, drays, dz
+
+
+def _packed_tiles_on(params, cfg: NerfConfig, dev: torch.device):
+    """pack_tiles_dx's (tiles, tiles_dx, biases), checked to lie on `dev`,
+    and the 12 bias pointers."""
+    with torch.no_grad():
+        tiles, tiles_dx, B = pack_tiles_dx(params, cfg)
+    for t in [tiles, tiles_dx] + B:
+        if t.device != dev:
+            raise ValueError("params must be on the inputs' device")
+    return tiles, tiles_dx, B, (ctypes.c_void_p * 12)(*[b.data_ptr() for b in B])
+
+
+def _render_bwd_frozen_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig,
+                            dist_alpha: bool):
+    """(drays, dz) by one launch of K4's frozen-network variant: no stash, no
+    partial sums; a per-CTA scratch of 128 x D bf16 holds the chain's g4."""
+    n, S = z.shape
+    D = cfg.hidden_dim
+    dev = rays.device
+    tiles, tiles_dx, _B, bptrs = _packed_tiles_on(params, cfg, dev)
+    lib = RENDER_BWD_FROZEN.lib()
+    n_ctas = _backward_ctas(n, dev)
+    scratch = torch.empty((n_ctas, PTS_PER_PASS, D), dtype=torch.bfloat16, device=dev)
+    drays = torch.empty((n, RAY_DIM), dtype=torch.float32, device=dev)
+    dz = torch.empty((n, S), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.nerf_render_bwd_frozen(
+            rays.data_ptr(), z.data_ptr(), g_rgb.data_ptr(), g_dist.data_ptr(),
+            None if g_w is None else g_w.data_ptr(), None if g_a is None else g_a.data_ptr(),
+            tiles.data_ptr(), tiles_dx.data_ptr(), bptrs, scratch.data_ptr(), drays.data_ptr(),
+            dz.data_ptr(), n, S, D, n_ctas, int(cfg.occ_activation == "softplus"),
+            int(cfg.dist_alpha), int(dist_alpha), stream)
+    if err != 0:
+        raise RuntimeError("render-backward kernel (frozen-network variant) launch failed: "
+                           + lib.nerf_error_string(err).decode())
+    RENDER_BWD.launches += 1
+    RENDER_BWD_FROZEN.launches += 1
+    return drays, dz
 
 
 def _render_forward(params, rays, z, cfg: NerfConfig, dist_alpha: bool, want_aux: bool,

@@ -252,6 +252,34 @@ def test_render_bwd_widths_and_train_kernel_cotangents(cuda_device, hidden, S):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("aux", [False, True])
+@pytest.mark.parametrize("dist_alpha", [False, True])
+@pytest.mark.parametrize("head_dist_alpha", [False, True])
+@pytest.mark.parametrize("occ", ["softplus", "relu"])
+@pytest.mark.parametrize("S", [128, 256])
+@pytest.mark.parametrize("hidden", [128, 256])
+def test_render_bwd_frozen_variant(cuda_device, hidden, S, occ, head_dist_alpha, dist_alpha,
+                                   aux):
+    """K4's frozen-network variant (render_bwd_frozen.cu, the wgmma dX chain)
+    gives the full variant's d(rays) and dz bit for bit, two launches give the
+    same bits, and it is within the per-sample tolerance of the plain version.
+    133 rays: one more than the card's SMs, so one CTA takes a second ray."""
+    params, rays, z, tgt, ncfg = _train_case(cuda_device, 133, S, hidden, seed=4, occ=occ,
+                                             dist_alpha=head_dist_alpha,
+                                             render_dist_alpha=dist_alpha, spread=0.5, far=6.0)
+    cot = _bwd_cotangents(params, rays, z, tgt, ncfg, dist_alpha, aux)
+    full = F._render_bwd_cuda(params, rays, z, *cot, ncfg, dist_alpha)
+    counts = (F.RENDER_BWD.launches, F.RENDER_BWD_FROZEN.launches)
+    runs = [F._render_bwd_cuda(params, rays, z, *cot, ncfg, dist_alpha, want_param_grads=False)
+            for _ in range(2)]
+    assert (F.RENDER_BWD.launches - counts[0], F.RENDER_BWD_FROZEN.launches - counts[1]) == (2, 2)
+    for dWs, dBs, drays, dz in runs:
+        assert dWs is None and dBs is None
+        assert torch.equal(drays, full[2]) and torch.equal(dz, full[3])
+    ref = F.render_rays_fused_bwd_plain(params, rays, z, *cot, ncfg, dist_alpha)
+    _assert_grads_close(dict(rays=runs[0][2], z=runs[0][3]), dict(rays=ref[2], z=ref[3]))
+
+
 def test_render_rays_fused_differentiates_on_card(cuda_device):
     """Under grad the wrapper launches the forward kernel, then the backward
     kernel: it raises nothing, and its gradients match the plain route's."""
@@ -532,6 +560,82 @@ def test_point_mlp_bwd_matches_plain_and_is_bit_reproducible(cuda_device, hidden
         assert torch.equal(x, y)
     _assert_point_grads_close(a, M.point_mlp_bwd_plain(params, pts, dirs, g_rgb, g_den, ncfg),
                               ncfg)
+
+
+def _point_cotangents(params, pts, dirs, ncfg):
+    m = pts.shape[0]
+    g_rgb = (2.0 / (3 * m) * (M.point_mlp_fwd_plain(params, pts, dirs, ncfg)[0] - 0.5)).contiguous()
+    return g_rgb, torch.full((m, 1), 0.1 / m, device=pts.device)
+
+
+def _assert_frozen_point_grads(params, pts, dirs, g_rgb, g_den, ncfg):
+    """K6's frozen-network variant: d(points), d(directions) bit-equal to the
+    full variant's in two launches, within the per-sample tolerance of the
+    plain version, no dW/dB."""
+    full = M._mlp_bwd_cuda(params, pts, dirs, g_rgb, g_den, ncfg)
+    counts = (M.POINT_MLP_BWD.launches, M.POINT_MLP_BWD_FROZEN.launches)
+    runs = [M._mlp_bwd_cuda(params, pts, dirs, g_rgb, g_den, ncfg, want_param_grads=False)
+            for _ in range(2)]
+    assert (M.POINT_MLP_BWD.launches - counts[0],
+            M.POINT_MLP_BWD_FROZEN.launches - counts[1]) == (2, 2)
+    for dWs, dBs, dpts, ddirs in runs:
+        assert dWs is None and dBs is None
+        assert torch.equal(dpts, full[2]) and torch.equal(ddirs, full[3])
+    ref = M.point_mlp_bwd_plain(params, pts, dirs, g_rgb, g_den, ncfg, want_param_grads=False)
+    assert ref[0] is None and ref[1] is None
+    if ref[2].numel() >= 1000:
+        _assert_grads_close(dict(rays=runs[0][2], z=runs[0][3]), dict(rays=ref[2], z=ref[3]))
+    else:
+        # under 1000 entries the "1 entry in 1000" outlier allowance admits no flipped
+        # mask at all, and K6's full variant (bit-equal above) shows one at M = 127:
+        # the L2 rule holds here, the outlier rule at the counts that have 1000 entries
+        for got, r in ((runs[0][2], ref[2]), (runs[0][3], ref[3])):
+            assert torch.isfinite(got).all()
+            assert float((got - r).norm()) <= 2e-2 * float(r.norm()) + 1e-9
+
+
+@pytest.mark.parametrize("hidden", [128, 256])
+@pytest.mark.parametrize("m", [1, 127, 128, 128 * 265 + 5])
+def test_point_mlp_bwd_frozen_point_counts(cuda_device, hidden, m):
+    """A single point, a ragged and a full single pass, and two waves of the
+    card's 132 SMs and more, ending in a ragged pass."""
+    gen, pts, dirs = _points(cuda_device, m, seed=5)
+    ncfg = NerfConfig(hidden_dim=hidden, use_pallas=True)
+    params = init_nerf_params(ncfg, gen, device=cuda_device)
+    _assert_frozen_point_grads(params, pts, dirs, *_point_cotangents(params, pts, dirs, ncfg),
+                               ncfg)
+
+
+@pytest.mark.parametrize("occ", ["softplus", "relu"])
+@pytest.mark.parametrize("dist_alpha", [False, True])
+def test_point_mlp_bwd_frozen_flags(cuda_device, occ, dist_alpha):
+    gen, pts, dirs = _points(cuda_device, 300 * 128 + 37, seed=6)
+    ncfg = NerfConfig(occ_activation=occ, dist_alpha=dist_alpha, use_pallas=True)
+    params = init_nerf_params(ncfg, gen, device=cuda_device)
+    _assert_frozen_point_grads(params, pts, dirs, *_point_cotangents(params, pts, dirs, ncfg),
+                               ncfg)
+
+
+def test_point_mlp_autograd_takes_the_frozen_variant(cuda_device):
+    """With no nerf parameter requiring a gradient, point_mlp's backward is
+    K6's frozen-network variant, and the points' gradient is the full one's."""
+    gen, pts, dirs = _points(cuda_device, 1000, seed=7)
+    ncfg = NerfConfig(use_pallas=True)
+    params = init_nerf_params(ncfg, gen, device=cuda_device)
+
+    def grad(frozen):
+        leaves = {k: v.clone().requires_grad_(not frozen) for k, v in params.items()}
+        x = pts.clone().requires_grad_(True)
+        rgb, den = M.point_mlp(leaves, x, dirs, ncfg)
+        (rgb.sum() + den.sum()).backward()
+        return x.grad
+
+    counts = (M.POINT_MLP_BWD.launches, M.POINT_MLP_BWD_FROZEN.launches)
+    full = grad(False)
+    assert (M.POINT_MLP_BWD.launches - counts[0], M.POINT_MLP_BWD_FROZEN.launches - counts[1]) == (1, 0)
+    frozen = grad(True)
+    assert (M.POINT_MLP_BWD.launches - counts[0], M.POINT_MLP_BWD_FROZEN.launches - counts[1]) == (2, 1)
+    assert torch.equal(frozen, full)
 
 
 def test_point_mlp_autograd_launches_its_kernels(cuda_device):

@@ -1,6 +1,8 @@
-"""The tiled weight buffer of the forward kernels' trunk (ops/fused_render.py::
-pack_tiles, read by csrc/mlp_fwd_sm90.cuh), on the CPU: it holds exactly
-pack_weights' bf16 weights, in the order and the 128-byte swizzle the kernels'
+"""The tiled weight buffers of the wgmma kernels, on the CPU: the forward
+trunk's (ops/fused_render.py::pack_tiles, read by csrc/mlp_fwd_sm90.cuh) holds
+exactly pack_weights' bf16 weights, and the frozen-network backward's
+(pack_tiles_dx, read by csrc/mlp_dx_sm90.cuh) exactly pack_weights_both's
+(in, out) blocks, each in the order and the 128-byte swizzle the kernels'
 bulk copies and wgmma descriptors assume, at both widths the kernels take."""
 
 import numpy as np
@@ -8,7 +10,9 @@ import pytest
 import torch
 
 from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
-from nope_nerf_torch.ops.fused_render import _tile_index, _tile_layout, pack_tiles, pack_weights
+from nope_nerf_torch.ops.fused_render import (_tile_dx_index, _tile_dx_layout, _tile_index,
+                                              _tile_layout, pack_tiles, pack_tiles_dx,
+                                              pack_weights, pack_weights_both)
 
 torch.set_num_threads(2)
 
@@ -81,3 +85,64 @@ def test_padded_columns_of_the_direction_slice_are_zero(D):
     for c in range(4, 8):
         assert not block[rows, c ^ (rows % 8)].any()
     assert block.any()
+
+
+def unpack_tiles_dx(tiles_dx, D):
+    """pack_tiles_dx's backward buffer -> the (in, out) blocks it holds, by
+    pack_weights index: the tiling undone through its own index."""
+    layout = _tile_dx_layout(D)
+    sizes = [N * K for _, N, K in layout]
+    flat = tiles_dx.new_zeros(sum(sizes) + 1)
+    index = torch.as_tensor(_tile_dx_index(D))
+    flat[index] = tiles_dx
+    out, offset = {}, 0
+    for (i, N, K), size in zip(layout, sizes):
+        out[i] = flat[offset:offset + size].view(N, K)
+        offset += size
+    return out, index, sum(sizes)
+
+
+@pytest.mark.parametrize("D", [128, 256])
+def test_unpacking_the_dx_slices_gives_the_in_out_blocks(D):
+    cfg = NerfConfig(hidden_dim=D)
+    params = init_nerf_params(cfg, torch.Generator().manual_seed(D + 1), device="cpu")
+    tiles, tiles_dx, biases = pack_tiles_dx(params, cfg)
+    _, Wt, B = pack_weights_both(params, cfg)
+    ref_tiles, ref_biases = pack_tiles(params, cfg)
+    assert torch.equal(tiles, ref_tiles)                 # the forward buffer, as pack_tiles'
+    assert all(torch.equal(a, b) for a, b in zip(biases, B))
+    assert all(torch.equal(a, b) for a, b in zip(biases, ref_biases))
+    assert tiles_dx.dtype == torch.bfloat16 and tiles_dx.is_contiguous()
+    blocks, index, pad = unpack_tiles_dx(tiles_dx, D)
+    assert sorted(blocks) == [0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 11, 12]   # no head
+    for i, got in blocks.items():
+        assert got.shape == Wt[i].shape and torch.equal(got, Wt[i]), i
+    # zero padding where K is short of a 64-column slice (none at these widths:
+    # every output count is a multiple of 64), and every element read once
+    padded = index == pad
+    assert not tiles_dx[padded].to(torch.float32).any()
+    assert int(padded.sum()) == sum(N * (-(-K // 64) * 64 - K) for _, N, K in _tile_dx_layout(D))
+    assert torch.equal(torch.sort(index[~padded]).values, torch.arange(pad))
+
+
+@pytest.mark.parametrize("D", [128, 256])
+def test_dx_buffer_follows_the_chain_slice_order(D):
+    """The byte counts of csrc/mlp_dx_sm90.cuh's TilesDx<D>: D/128 slices of
+    w12 (32 rows), D/128 of w11 and 8 D/64 of the trunk (D rows), 2 D/64 of
+    w0 and w5 (64 rows); each slice's row r holds 16-byte chunk c at c ^ (r % 8)."""
+    cfg = NerfConfig(hidden_dim=D)
+    params = init_nerf_params(cfg, torch.Generator().manual_seed(D + 2), device="cpu")
+    _, tiles_dx, _ = pack_tiles_dx(params, cfg)
+    _, Wt, _ = pack_weights_both(params, cfg)
+    H = D // 2
+    assert tiles_dx.numel() == (H // 64) * 32 * 64 + (H // 64 + 8 * (D // 64)) * D * 64 \
+        + 2 * (D // 64) * 64 * 64
+    offset = 0
+    for i, N, K in _tile_dx_layout(D):
+        for kb in range(K // 64):
+            block = tiles_dx[offset:offset + N * 64].view(N, 8, 8)
+            r = torch.arange(N)
+            for c in range(8):
+                assert torch.equal(block[r, c ^ (r % 8)], Wt[i][:, 64 * kb + 8 * c:64 * kb + 8 * c + 8]), (i, kb, c)
+            offset += N * 64
+    assert offset == tiles_dx.numel()
