@@ -3,7 +3,7 @@
 
 Run from the root of a checkout: `python3 chip_smoke.py`. In order it
 1. prints the card's name and power limit (nvidia-smi) and builds every
-   kernel from nope_nerf_torch/csrc/ (one nvcc per source, nine side by side);
+   kernel from nope_nerf_torch/csrc/ (one nvcc per source, ten side by side);
 2. holds each kernel against its plain PyTorch version on the card, over the
    flags it takes: render_fwd (K3), render_train (K1, with the bit-equality
    of two launches), render_bwd (K4: two cotangent sets, bit-equality, its
@@ -11,7 +11,10 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    it), chamfer_bidir (K2, by matched distances), point_mlp_fwd (K5) and
    point_mlp_bwd (K6, with the bit-equality of two launches and its
    frozen-network variant's d(points), d(directions) equal to the full
-   one's), the last two at the fine pass's point count made ragged, and
+   one's), the last two at the fine pass's point count made ragged, the
+   weight-gradient kernel dw_sm90 (K6 full's dW products, on its own over
+   every block shape of K6's table at 1, 127, 128 and that many points,
+   with two launches bit-equal), and
    chamfer_nearest (K7: d2 and indices bit-equal at the LLFF and Tanks train steps' 47,628- and
    32,400-point clouds, ragged shapes and a lattice; nearest_dists' gradient);
 3. drives the render path: nope_nerf_torch.cli.render.render on the synthetic
@@ -64,6 +67,7 @@ checkout, or when any phase fails. It imports nothing of JAX.
 from __future__ import annotations
 
 import copy
+import ctypes
 import json
 import math
 import os
@@ -553,6 +557,64 @@ def check_point_mlp_bwd(torch, dev, gen):
     return worst_abs, worst_share, worst_frozen
 
 
+def dw_operands(torch, dev, gen, shapes, m: int, poison: bool):
+    """Seeded bf16 operands X (m, K), G (m, N) for each (K, N) and their
+    tiled copies; with poison, the padding rows of the last row tile are NaN
+    (the kernel must read rows past m as zero)."""
+    from nope_nerf_torch.ops.fused_mlp import DW_ROWS, tile_operand
+    xs, gs, xt, gt = [], [], [], []
+    for K, N in shapes:
+        x = torch.randn(m, K, generator=gen).to(dev).to(torch.bfloat16)
+        g = torch.randn(m, N, generator=gen).to(dev).to(torch.bfloat16)
+        X, G = tile_operand(x), tile_operand(g)
+        if poison and m % DW_ROWS:
+            X[-1, :, m % DW_ROWS:] = float("nan")
+            G[-1, :, m % DW_ROWS:] = float("nan")
+        xs.append(x)
+        gs.append(g)
+        xt.append(X)
+        gt.append(G)
+    return xs, gs, xt, gt
+
+
+def check_dw(torch, dev, gen) -> float:
+    """The weight-gradient kernel (dw_sm90.cuh) on its own against dw_plain,
+    over every block shape of K6's work table at D = 256, at M = 1, 127, 128
+    and POINT_CHECK_M, with the padding rows NaN: each entry within 1e-4 of
+    the sum of its products' magnitudes (f32 sums of up to 33,000 terms a
+    chunk, in the tensor cores' order against matmul's), two launches
+    bit-equal. Returns the worst absolute error."""
+    from nope_nerf_torch.ops.fused_mlp import (dw_chunks, dw_cta_tiles, dw_plain, dw_sm90,
+                                               point_dw_table)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shapes = sorted({(K, N) for *_, K, N in point_dw_table(256)})
+    Ks = [K for K, _ in shapes]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst_abs, failed = 0.0, []
+    for m in (1, 127, 128, POINT_CHECK_M):
+        xs, gs, xt, gt = dw_operands(torch, dev, gen, shapes, m, poison=True)
+        chunks = dw_chunks(dw_cta_tiles(Ks), m, sms)
+        a = dw_sm90(xt, gt, Ks, m, chunks)
+        b = dw_sm90(xt, gt, Ks, m, chunks)
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            raise RuntimeError(f"dw_sm90: two launches differ (M = {m})")
+        share = 0.0
+        for got, x, g in zip(a, xs, gs):
+            ref = dw_plain(x, g, chunks)
+            mag = x.float().abs().t() @ g.float().abs()
+            err = (got - ref).abs()
+            worst_abs = max(worst_abs, float(err.max()))
+            share = max(share, float((err / (1e-4 * mag + 1e-30)).max()))
+        print(f"dw_sm90 vs plain, {m} points, {chunks} chunks: {len(shapes)} block shapes "
+              f"{shapes}, worst entry at {share:.3g} of its tolerance; two launches bit-equal")
+        if not share <= 1.0:
+            failed.append(f"M = {m} at {share:.3g} of its tolerance")
+    if failed:
+        raise RuntimeError("dw_sm90 disagrees with its plain version: " + "; ".join(failed))
+    return worst_abs
+
+
 def depth_lifted_clouds(torch, dev, gen, h: int, w: int):
     """Two (h*w, 3) clouds as the train step lifts them: a pixel grid times
     seeded depths through the scene's K^-1, the second moved by a small pose."""
@@ -843,14 +905,15 @@ def run_train_path(torch, np, dev):
 
 def kernel_counters():
     from nope_nerf_torch.ops.chamfer import CHAMFER_BIDIR, CHAMFER_NEAREST
-    from nope_nerf_torch.ops.fused_mlp import POINT_MLP_BWD, POINT_MLP_BWD_FROZEN, POINT_MLP_FWD
+    from nope_nerf_torch.ops.fused_mlp import (DW_SM90, POINT_MLP_BWD, POINT_MLP_BWD_FROZEN,
+                                               POINT_MLP_FWD)
     from nope_nerf_torch.ops.fused_render import (RENDER_BWD, RENDER_BWD_FROZEN, RENDER_FWD,
                                                   RENDER_TRAIN)
     return {"render_train": RENDER_TRAIN, "chamfer_bidir": CHAMFER_BIDIR,
             "render_fwd": RENDER_FWD, "render_bwd": RENDER_BWD,
             "render_bwd_frozen": RENDER_BWD_FROZEN, "point_mlp_fwd": POINT_MLP_FWD,
             "point_mlp_bwd": POINT_MLP_BWD, "point_mlp_bwd_frozen": POINT_MLP_BWD_FROZEN,
-            "chamfer_nearest": CHAMFER_NEAREST}
+            "chamfer_nearest": CHAMFER_NEAREST, "dw_sm90": DW_SM90}
 
 
 def counted(fn, expected: dict, what: str):
@@ -858,7 +921,8 @@ def counted(fn, expected: dict, what: str):
     just after; fail unless the counts are `expected` (a kernel it does not
     name: 0). render_bwd counts both variants of the render-backward kernel,
     render_bwd_frozen those of its frozen-network variant among them;
-    point_mlp_bwd and point_mlp_bwd_frozen likewise for K6.
+    point_mlp_bwd and point_mlp_bwd_frozen likewise for K6; dw_sm90 counts
+    the weight-gradient kernel, which K6's full variant launches once.
     Returns (fn's result, counts)."""
     import torch
     libs = kernel_counters()
@@ -869,7 +933,8 @@ def counted(fn, expected: dict, what: str):
     torch.cuda.synchronize()
     counts = {name: lib.launches for name, lib in libs.items()}
     order = ("render_train", "chamfer_bidir", "render_fwd", "render_bwd", "render_bwd_frozen",
-             "point_mlp_fwd", "point_mlp_bwd", "point_mlp_bwd_frozen", "chamfer_nearest")
+             "point_mlp_fwd", "point_mlp_bwd", "point_mlp_bwd_frozen", "chamfer_nearest",
+             "dw_sm90")
     print(f"{what}: launches " + ", ".join(f"{k} {counts[k]}" for k in order) + " (expected "
           + ", ".join(str(expected[k]) for k in order) + ")")
     if counts != expected:
@@ -1157,7 +1222,7 @@ def run_hier_train_path(torch, np, dev):
     (g_k, ld_k), _ = counted(
         lambda: step_gradients(state.params, batch, weights, ray_idx, None, mc, rgb_loss_type,
                                noise=noise, fine_u=fine_u),
-        {"point_mlp_fwd": 2, "point_mlp_bwd": 1, "chamfer_bidir": 1},
+        {"point_mlp_fwd": 2, "point_mlp_bwd": 1, "dw_sm90": 1, "chamfer_bidir": 1},
         "hierarchical train step 1 through the kernels")
     with plain_versions():
         g_p, ld_p = step_gradients(state.params, batch, weights, ray_idx, None, mc,
@@ -1188,7 +1253,7 @@ def run_hier_train_path(torch, np, dev):
     order, refs = np.resize(order, HIER_STEPS), np.resize(refs, HIER_STEPS)
     (state, lds), counts = counted(
         lambda: trainer.run_steps(state, scene, order, refs, epoch=0, scheduling_start=10000),
-        {"point_mlp_fwd": 2 * HIER_STEPS, "point_mlp_bwd": HIER_STEPS,
+        {"point_mlp_fwd": 2 * HIER_STEPS, "point_mlp_bwd": HIER_STEPS, "dw_sm90": HIER_STEPS,
          "chamfer_bidir": HIER_STEPS},
         f"hierarchical train path (n_importance {N_IMPORTANCE}), {HIER_STEPS} steps of "
         f"{TRAIN_RAYS} rays at {h}x{w}")
@@ -1507,8 +1572,10 @@ def main() -> int:
     from nope_nerf_torch.ops.chamfer import (CHAMFER_BIDIR, CHAMFER_NEAREST, nearest_idx,
                                              nearest_idx_bidirectional,
                                              nearest_idx_bidirectional_plain, nearest_idx_plain)
-    from nope_nerf_torch.ops.fused_mlp import (POINT_MLP_BWD, POINT_MLP_BWD_FROZEN, POINT_MLP_FWD,
-                                               _mlp_bwd_cuda, _mlp_fwd_cuda, point_mlp_bwd_plain,
+    from nope_nerf_torch.ops.fused_mlp import (DW_SM90, POINT_MLP_BWD, POINT_MLP_BWD_FROZEN,
+                                               POINT_MLP_FWD, _mlp_bwd_cuda, _mlp_fwd_cuda,
+                                               dw_chunks, dw_cta_tiles, dw_plain, dw_sm90,
+                                               point_dw_table, point_mlp_bwd_plain,
                                                point_mlp_fwd_plain)
     from nope_nerf_torch.ops.fused_render import (
         RENDER_BWD, RENDER_BWD_FROZEN, RENDER_FWD, RENDER_TRAIN, STASH_HALF_DIMS,
@@ -1523,7 +1590,7 @@ def main() -> int:
 
     # ---- 1. build -----------------------------------------------------------
     libraries = (RENDER_FWD, RENDER_TRAIN, RENDER_BWD, RENDER_BWD_FROZEN, CHAMFER_BIDIR,
-                 POINT_MLP_FWD, POINT_MLP_BWD, POINT_MLP_BWD_FROZEN, CHAMFER_NEAREST)
+                 POINT_MLP_FWD, POINT_MLP_BWD, POINT_MLP_BWD_FROZEN, CHAMFER_NEAREST, DW_SM90)
     t0 = time.perf_counter()
     build_all(libraries)
     print(f"build: {time.perf_counter() - t0:.1f} s for "
@@ -1547,6 +1614,8 @@ def main() -> int:
     pbwd_err, pbwd_share, pbwd_frozen_err = check_point_mlp_bwd(torch, dev, gen)
     print(f"point_mlp_bwd: worst gradient error over the 4 cases at {pbwd_share:.3f} of its "
           f"tolerance (grad_share)")
+    # its own generator: the phases after it draw the inputs they drew before it existed
+    dw_err = check_dw(torch, dev, torch.Generator().manual_seed(SEED + 11))
     nearest_err = check_chamfer_nearest(torch, dev, gen)
 
     # ---- 3. the render path: novel views through the render CLI --------------
@@ -1733,7 +1802,28 @@ def main() -> int:
     pz_flops = 2 * p_flops * fine_m
     pz_bound, pz_by, pz_ops_ms, pz_bytes_ms = bound(pz_flops, PEAK_BF16_FLOPS,
                                                     64 * fine_m + pweight_bytes)
-    pstash_ms = 2 * fine_m * STASH_HALF_DIMS * pcfg.hidden_dim / PEAK_BYTES * 1e3
+    # the operands K6 full writes for its dW kernel and reads back: outside the bound
+    psizes = (ctypes.c_longlong * 5)()
+    POINT_MLP_BWD.lib().nerf_point_mlp_bwd_scratch(pcfg.hidden_dim, fine_m, 1, psizes)
+    poperand_bytes = psizes[0] + psizes[1]
+    poperand_ms = 2 * poperand_bytes / PEAK_BYTES * 1e3
+    # the dW kernel on its own over K6's 12 blocks at the fine pass's points, against
+    # dw_plain and one torch.matmul per block (bf16 in, bf16 out) on the same operands
+    dw_table = point_dw_table(pcfg.hidden_dim)
+    dw_shapes = [(K, N) for *_, K, N in dw_table]
+    dxs, dgs, dxt, dgt = dw_operands(torch, dev, torch.Generator().manual_seed(SEED + 12),
+                                     dw_shapes, fine_m, poison=False)
+    dKs = [K for K, _ in dw_shapes]
+    dchunks = dw_chunks(dw_cta_tiles(dKs), fine_m,
+                        torch.cuda.get_device_properties(dev).multi_processor_count)
+    dw_ms = time_ms(lambda: dw_sm90(dxt, dgt, dKs, fine_m, dchunks), 10)
+    dw_plain_ms = time_ms(lambda: [dw_plain(x, g, dchunks) for x, g in zip(dxs, dgs)], 2)
+    dw_lib_ms = time_ms(lambda: [torch.matmul(x.t(), g) for x, g in zip(dxs, dgs)], 10)
+    dw_flops = 2 * fine_m * sum(K * N for K, N in dw_shapes)
+    dw_in_bytes = 2 * fine_m * sum(K + N for K, N in dw_shapes)
+    dw_bound, dw_by, dw_ops_ms, dw_bytes_ms = bound(
+        dw_flops, PEAK_BF16_FLOPS, dw_in_bytes + 4 * sum(K * N for K, N in dw_shapes))
+    del dxs, dgs, dxt, dgt
     print(f"point_mlp_fwd: {coarse_m} points (coarse pass) {pfwd_coarse_ms:.3f} ms, bound "
           f"{pc_bound:.3f} ms; {fine_m} points (fine pass) {pfwd_ms:.3f} ms, plain version "
           f"{pfwd_plain_ms:.2f} ms; {p_flops * fine_m / 1e12:.3f} TFLOP ({pf_ops_ms:.3f} ms), "
@@ -1746,8 +1836,15 @@ def main() -> int:
           f"{(64 * fine_m + pweight_bytes + pgrad_bytes) / 1e6:.1f} MB of points, cotangents, "
           f"weights and gradients ({pb_bytes_ms:.4f} ms) -> bound {pb_bound:.3f} ms by {pb_by} "
           f"({3 * p_flops * fine_m / pbwd_ms / 1e9:.1f} TFLOP/s achieved, "
-          f"{pbwd_ms / pb_bound:.1f} x the bound); outside the bound, the kernel's own stash: "
-          f"{pstash_ms:.3f} ms at the memory rate")
+          f"{pbwd_ms / pb_bound:.1f} x the bound); outside the bound, the operands the chain "
+          f"writes for the dW kernel and it reads back: {poperand_bytes / 1e9:.3f} GB "
+          f"({poperand_bytes / fine_m:.0f} B a point), {poperand_ms:.3f} ms at the memory rate")
+    print(f"dw_sm90 (K6's 12 dW blocks on their own): {fine_m} points, {dchunks} chunks, "
+          f"{dw_ms:.3f} ms, plain version {dw_plain_ms:.2f} ms, torch.matmul per block "
+          f"(bf16 out) {dw_lib_ms:.3f} ms; {dw_flops / 1e12:.3f} TFLOP ({dw_ops_ms:.3f} ms), "
+          f"{dw_in_bytes / 1e9:.3f} GB of operands ({dw_bytes_ms:.3f} ms) -> bound "
+          f"{dw_bound:.3f} ms by {dw_by} ({dw_flops / dw_ms / 1e9:.1f} TFLOP/s achieved, "
+          f"{dw_ms / dw_bound:.2f} x the bound)")
     print(f"point_mlp_bwd frozen-network variant (forward + dX, no dW/dB): {fine_m} points "
           f"{pbwd_frozen_ms:.3f} ms ({pbwd_ms / pbwd_frozen_ms:.2f} x faster than the full "
           f"variant), plain version {pbwd_frozen_plain_ms:.2f} ms; {pz_flops / 1e12:.3f} TFLOP "
@@ -1854,6 +1951,14 @@ def main() -> int:
          "launches": hier_counts["point_mlp_bwd"], "max_abs_err": pbwd_err, "ms": pbwd_ms,
          "plain_ms": pbwd_plain_ms, "bound_ms": pb_bound, "bound_by": pb_by,
          "library_ms": None},
+        # the weight-gradient kernel K6 full launches for its dW blocks (the TPU kernel's
+        # _dmat products), timed on its own over K6's 12 blocks at the fine pass's points
+        {"name": "dw_sm90", "route": "cuda",
+         "source": "nope_nerf_torch/csrc/dw_sm90.cuh",
+         "replaces": "nope_nerf_tpu/ops/pallas_mlp.py:197",
+         "launches": hier_counts["dw_sm90"], "max_abs_err": dw_err, "ms": dw_ms,
+         "plain_ms": dw_plain_ms, "bound_ms": dw_bound, "bound_by": dw_by,
+         "library_ms": dw_lib_ms},
         # its frozen-network variant (d(points), d(directions) only), launched by the
         # hierarchical pose optimisation; at the fine pass's 196,608 points
         {"name": "point_mlp_bwd_frozen", "route": "cuda",

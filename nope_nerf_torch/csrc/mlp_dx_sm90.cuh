@@ -1,9 +1,11 @@
-// The frozen-network dX chain on Hopper (sm_90a), shared by
-// render_bwd_frozen.cu (K4's frozen-network variant) and
-// point_mlp_bwd_frozen.cu (K6's): one 128-point tile through the forward on
-// the wgmma trunk of mlp_fwd_sm90.cuh, then back through every layer's
-// dX = g W product to the cotangent of the position encoding. No weight or
-// bias gradient is formed.
+// The dX chain on Hopper (sm_90a), shared by render_bwd_frozen.cu (K4's
+// frozen-network variant), point_mlp_bwd_frozen.cu (K6's) and
+// point_mlp_bwd.cu (K6 full): one 128-point tile through the forward on the
+// wgmma trunk of mlp_fwd_sm90.cuh, then back through every layer's dX = g W
+// product to the cotangent of the position encoding. No weight gradient is
+// formed here: K6 full saves the operands of its dW products through the
+// forward's save hook and its own dX layers, sums its bias gradients in
+// store_dx's epilogue (SUM) and hands the products to dw_sm90.cuh.
 //
 // Numerics are those of nerf_bwd.cuh's chain (the full variants' and the
 // TPU kernels'), and its results are bit-equal to that chain's:
@@ -239,15 +241,28 @@ __device__ __forceinline__ bool hidden_mask(const uint32_t* mask_h, int m, int j
 
 // ---- the forward, masks kept ----------------------------------------------------
 
+// No operand leaves the tile.
+struct NoSave {
+  __device__ __forceinline__ void operator()(int, int) const {}
+  __device__ __forceinline__ void drain(int) const {}
+};
+
 // mlp_fwd_sm90.cuh's mlp_tile90 with the ReLU layers' masks kept in `masks`:
 // the same products in the same order, the same roundings. Raw rgb and
-// density go to hout[4p + 0..3].
-template <int D>
+// density go to hout[4p + 0..3]. save(i, wg) is called by each warpgroup
+// once an operand of the weight gradients is in shared memory, with its rows
+// of it: i = 0 the position encodings (the `pe` block), 1..8 x0..x7 and
+// 9 feat (the activation buffer), 10 the direction encodings (the `de`
+// block). save.drain(wg) is called by each warpgroup before its next write
+// over a saved buffer (the next epilogue's warpgroup barrier) and before it
+// frees the direction encodings: a save that still reads shared memory
+// finishes reading there.
+template <int D, typename Save = NoSave>
 __device__ __forceinline__ void mlp_tile_masks(const float* const* b, uint32_t pe, uint32_t de,
                                                unsigned char* act, uint32_t dens_w,
                                                uint32_t rgb_w, const float* hbias, float* hout,
                                                const Handoff& hand, long long tile, Ring& ring,
-                                               uint32_t* masks) {
+                                               uint32_t* masks, const Save& save = Save()) {
   const int wg = threadIdx.x >> 7;
   const bool leader = (threadIdx.x & 31) == 0;
   const uint32_t parity = static_cast<uint32_t>(tile & 1);
@@ -257,6 +272,7 @@ __device__ __forceinline__ void mlp_tile_masks(const float* const* b, uint32_t p
   float* hout_wg = hout + 4 * 64 * wg;
   constexpr int LW = mask_layer_words<D>();
   mbar_wait(hand.pe_full, parity);
+  save(0, wg);
   {
     float acc[D / 2];
     acc_bias<D>(acc, b[0]);
@@ -264,6 +280,7 @@ __device__ __forceinline__ void mlp_tile_masks(const float* const* b, uint32_t p
     wg_sync(wg);
     store_act_mask<D, true>(acc, act_g, masks);
     wg_sync(wg);
+    save(1, wg);
 #pragma unroll 1
     for (int l = 1; l < 8; ++l) {
       acc_bias<D>(acc, b[l]);
@@ -272,25 +289,32 @@ __device__ __forceinline__ void mlp_tile_masks(const float* const* b, uint32_t p
         ring_products<D>(acc, pe_s, 1, 4, ring);   // the skip: pe @ w5, pe's last use
         if (leader) mbar_arrive(hand.pe_free);
       }
+      save.drain(wg);
       wg_sync(wg);
       store_act_mask<D, true>(acc, act_g, masks + l * LW);
       wg_sync(wg);
+      save(1 + l, wg);
     }
     head90<D>(act_s, dens_w, b[8], hout_wg, 3, 1);
     acc_bias<D>(acc, b[9]);
     ring_products<D>(acc, act_s, D / 64, 4, ring);
+    save.drain(wg);
     wg_sync(wg);
     store_act<D, false>(acc, act_g);
     wg_sync(wg);
+    save(9, wg);
   }
   float acc[D / 4];
   acc_bias<D / 2>(acc, hbias);
   ring_products<D / 2>(acc, act_s, D / 64, 4, ring);
   if (de != 0) {
     mbar_wait(hand.de_full, parity);
+    save(10, wg);
     ring_products<D / 2>(acc, de + wg * kWgRowBytes, 1, kDe / 16, ring);
+    save.drain(wg);
     if (leader) mbar_arrive(hand.de_free);
   }
+  save.drain(wg);
   wg_sync(wg);
   store_act_mask<D / 2, true>(acc, act_g, masks + 8 * LW);
   wg_sync(wg);
@@ -303,10 +327,16 @@ __device__ __forceinline__ void mlp_tile_masks(const float* const* b, uint32_t p
 // over the old one in the activation buffer; with SAVE also to `save_wg`
 // (device memory, the warpgroup's 64 rows in the same swizzle, 64-column
 // blocks kWgRowBytes apart). dense_bwd's epilogue, in its order.
-template <int N, bool MASK, bool RANK1, bool SAVE>
+//
+// With SUM, the f32 column sums of the warpgroup's rows of mask * (acc [+ gs
+// wd]), before the rounding (dense_bwd's bias terms), go to red_wg[w][N] for
+// each of its warps w: over the thread's two rows, then the warp's eight row
+// groups by shfl_xor over 4, 8, 16.
+template <int N, bool MASK, bool RANK1, bool SAVE, bool SUM = false>
 __device__ __forceinline__ void store_dx(const float (&acc)[N / 2], unsigned char* act_wg,
                                          const uint32_t* mask, const float* gs_wg,
-                                         const unsigned char* dens_head, unsigned char* save_wg) {
+                                         const unsigned char* dens_head, unsigned char* save_wg,
+                                         float* red_wg = nullptr) {
   constexpr int W = mask_words<N>();
   const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
   const int row = 16 * w + (lane >> 2), t = lane & 3;
@@ -342,6 +372,18 @@ __device__ __forceinline__ void store_dx(const float (&acc)[N / 2], unsigned cha
       if (!((bits[0][k] >> (b + 1)) & 1u)) v1 = 0.f;
       if (!((bits[1][k] >> b) & 1u)) v2 = 0.f;
       if (!((bits[1][k] >> (b + 1)) & 1u)) v3 = 0.f;
+    }
+    if (SUM) {
+      float s0 = v0 + v2, s1 = v1 + v3;
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      }
+      if ((lane >> 2) == 0) {
+        red_wg[w * N + col] = s0;
+        red_wg[w * N + col + 1] = s1;
+      }
     }
     const __nv_bfloat162 lo = __floats2bfloat162_rn(v0, v1), hi = __floats2bfloat162_rn(v2, v3);
     *reinterpret_cast<__nv_bfloat162*>(act_wg + swz(row, col, kBlockBytes)) = lo;
@@ -464,6 +506,48 @@ __device__ __forceinline__ void dx_chain(float (&dpe)[32], unsigned char* act, R
   }
   wg_sync(wg);
   ring_products<64>(dpe, act_s, D / 64, 4, ring);   // + g4 W5pe
+}
+
+// The f32 cotangents of an encoding (levels `levels`) in the m64nN fragment
+// acc (NT n-tiles of 8 lanes) pulled to the 3 coordinates of each of the
+// thread's two rows, summed over the rows' lanes (nerf_bwd.cuh's
+// coord_grad order) and written to out[3 * (p0 + m) + c] for rows
+// m < n. src: the (M, 3) coordinates the forward encoded.
+template <int NT>
+__device__ __forceinline__ void coord_grad90(const float (&acc)[4 * NT],
+                                             const float* __restrict__ src, int levels, int n,
+                                             long long p0, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  const int m0 = 16 * (threadIdx.x >> 5);
+#pragma unroll
+  for (int hrow = 0; hrow < 2; ++hrow) {
+    const int m = m0 + gq + 8 * hrow;
+    float x[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) x[c] = m < n ? src[3 * (p0 + m) + c] : 0.f;
+    float d[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int hc = 0; hc < 2; ++hc) {
+        int c;
+        const float tv = enc_lane_grad90(acc[4 * j + 2 * hrow + hc], x, 8 * j + 2 * t + hc,
+                                         levels, &c);
+#pragma unroll
+        for (int cc = 0; cc < 3; ++cc)
+          if (c == cc) d[cc] += tv;
+      }
+    }
+#pragma unroll
+    for (int cc = 0; cc < 3; ++cc) {
+      d[cc] += __shfl_xor_sync(0xffffffffu, d[cc], 1);
+      d[cc] += __shfl_xor_sync(0xffffffffu, d[cc], 2);
+    }
+    if (t == 0 && m < n) {
+#pragma unroll
+      for (int cc = 0; cc < 3; ++cc) out[3 * (p0 + m) + cc] = d[cc];
+    }
+  }
 }
 
 // ---- block-level helpers over the consumer threads ---------------------------

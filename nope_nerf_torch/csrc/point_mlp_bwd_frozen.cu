@@ -41,48 +41,6 @@ namespace {
 // cotangents and their bf16 values (128 each).
 constexpr size_t kFrozenF32Bytes = sizeof(float) * kPts * (4 + 4 + 1 + 1);
 
-// The f32 cotangents of an encoding (levels `levels`) in the m64nN fragment
-// acc (NT n-tiles of 8 lanes) pulled to the 3 coordinates of each of the
-// thread's two rows, summed over the rows' lanes (point_mlp_bwd.cu's
-// coord_grad, in its order) and written to out[3 * (p0 + m) + c] for rows
-// m < n. src: the (M, 3) coordinates the forward encoded.
-template <int NT>
-__device__ __forceinline__ void coord_grad90(const float (&acc)[4 * NT],
-                                             const float* __restrict__ src, int levels, int n,
-                                             long long p0, float* __restrict__ out) {
-  const int lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
-  const int m0 = 16 * (threadIdx.x >> 5);
-#pragma unroll
-  for (int hrow = 0; hrow < 2; ++hrow) {
-    const int m = m0 + gq + 8 * hrow;
-    float x[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) x[c] = m < n ? src[3 * (p0 + m) + c] : 0.f;
-    float d[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int hc = 0; hc < 2; ++hc) {
-        int c;
-        const float tv = enc_lane_grad90(acc[4 * j + 2 * hrow + hc], x, 8 * j + 2 * t + hc,
-                                         levels, &c);
-#pragma unroll
-        for (int cc = 0; cc < 3; ++cc)
-          if (c == cc) d[cc] += tv;
-      }
-    }
-#pragma unroll
-    for (int cc = 0; cc < 3; ++cc) {
-      d[cc] += __shfl_xor_sync(0xffffffffu, d[cc], 1);
-      d[cc] += __shfl_xor_sync(0xffffffffu, d[cc], 2);
-    }
-    if (t == 0 && m < n) {
-#pragma unroll
-      for (int cc = 0; cc < 3; ++cc) out[3 * (p0 + m) + cc] = d[cc];
-    }
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads90, 1)
 point_mlp_bwd_frozen_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,

@@ -10,7 +10,12 @@ sample count the fused render does not take).
 On a CUDA tensor `point_mlp` launches the hand-written Hopper kernels in
 `nope_nerf_torch/csrc/point_mlp_fwd.cu` and `csrc/point_mlp_bwd.cu` (or,
 when no nerf parameter wants a gradient, K6's frozen-network variant
-`csrc/point_mlp_bwd_frozen.cu`, the wgmma dX chain), or raises; on a CPU
+`csrc/point_mlp_bwd_frozen.cu`), or raises. Both backward variants run the
+wgmma dX chain (`csrc/mlp_dx_sm90.cuh`); the full one also writes every
+operand of a weight-gradient product to device memory and forms the dW
+blocks with the generic weight-gradient kernel `csrc/dw_sm90.cuh`
+(dW = X^T G over the points, split into chunks of points summed in order;
+standalone as `dw_sm90`, plain version `dw_plain`). On a CPU
 tensor, and on any tensor inside `with plain_versions():`, it runs
 `point_mlp_fwd_plain` and `point_mlp_bwd_plain`, the same arithmetic in
 plain PyTorch:
@@ -32,18 +37,20 @@ carried over: the kernels take (M, 3) and write (M, 3) and (M, 1).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from ..models.nerf import NerfConfig, _occupancy, bf16_round, softplus
 from ._build import CudaLibrary, runs_plain
-from .fused_render import (DE_DIM, PE_DIM, STASH_HALF_DIMS, _backward_ctas, _enc_deriv_to_coords,
-                           _grad_blocks, _mlp_forward, _pack_for_backward, _packed_tiles_on,
-                           encode_lanes, mlp_backward, pack_tiles, pack_weights, unpack_grads)
+from .fused_render import (DE_DIM, PE_DIM, SWIZZLE_COLS, _backward_ctas, _enc_deriv_to_coords,
+                           _grad_blocks, _mlp_forward, _packed_tiles_on, encode_lanes,
+                           mlp_backward, pack_tiles, pack_weights, unpack_grads)
 
 PTS_PER_PASS = 128        # the kernels' pass over consecutive points
 PLAIN_BLOCK_POINTS = 65536  # points per block of the plain versions (bounds their memory)
+DW_ROWS = 128             # rows (points) of a row tile of a dW operand
+DW_TILE_ROWS = 128        # dW rows of one CTA tile of the dW kernel
 
 
 def _setup_fwd(lib: ctypes.CDLL) -> None:
@@ -60,7 +67,9 @@ def _setup_bwd(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
     lib.nerf_point_mlp_grad_layout.argtypes = [i, p]
     lib.nerf_point_mlp_grad_layout.restype = ctypes.c_int
-    lib.nerf_point_mlp_bwd.argtypes = [p] * 12 + [ctypes.c_longlong] + [i] * 5 + [p]
+    lib.nerf_point_mlp_bwd_scratch.argtypes = [i, ctypes.c_longlong, i, p]
+    lib.nerf_point_mlp_bwd_scratch.restype = ctypes.c_int
+    lib.nerf_point_mlp_bwd.argtypes = [p] * 14 + [ctypes.c_longlong] + [i] * 6 + [p]
     lib.nerf_point_mlp_bwd.restype = ctypes.c_int
     lib.nerf_error_string.argtypes = [ctypes.c_int]
     lib.nerf_error_string.restype = ctypes.c_char_p
@@ -75,8 +84,21 @@ def _setup_bwd_frozen(lib: ctypes.CDLL) -> None:
     lib.nerf_error_string.restype = ctypes.c_char_p
 
 
+def _setup_dw(lib: ctypes.CDLL) -> None:
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.nerf_dw_sm90.argtypes = [i] + [p] * 6 + [ctypes.c_longlong, i, p, p]
+    lib.nerf_dw_sm90.restype = ctypes.c_int
+    lib.nerf_error_string.argtypes = [ctypes.c_int]
+    lib.nerf_error_string.restype = ctypes.c_char_p
+
+
 POINT_MLP_FWD = CudaLibrary("point_mlp_fwd.cu", _setup_fwd)
 POINT_MLP_BWD = CudaLibrary("point_mlp_bwd.cu", _setup_bwd)
+# The weight-gradient kernel (csrc/dw_sm90.cuh). Its `launches` counts every
+# launch of it: by K6 full (point_mlp_bwd.cu's entry, once per K6 full
+# launch) and by `dw_sm90`, the kernel on its own (dw_sm90.cu).
+DW_SM90 = CudaLibrary("dw_sm90.cu", _setup_dw)
 # K6's frozen-network variant (d(points), d(directions) only) on the wgmma dX
 # chain. Its `launches` counts those launches; each also counts in
 # POINT_MLP_BWD.launches, which counts every launch of K6, either variant.
@@ -138,6 +160,93 @@ def _head_vjp(rgb_raw, sig_raw, g_rgb, g_density, cfg: NerfConfig):
         g_sig = g_sigma * (sig_raw > 0.0)
     s = torch.sigmoid(rgb_raw)
     return g_rgb * (s * (1.0 - s)), g_sig
+
+
+# K6's weight-gradient blocks on the dW kernel (point_mlp_bwd.cu's
+# point_dw_table): (pack_weights index, X operand, G operand, K, N). The head
+# blocks dW[9] and dW[13] are formed in the chain.
+def point_dw_table(D: int) -> List[Tuple[int, str, str, int, int]]:
+    H = D // 2
+    return [(0, "pe", "g0", PE_DIM, D), (1, "x0", "g1", D, D), (2, "x1", "g2", D, D),
+            (3, "x2", "g3", D, D), (4, "x3", "g4", D, D), (5, "pe", "g4", PE_DIM, D),
+            (6, "x4", "g5", D, D), (7, "x5", "g6", D, D), (8, "x6", "g7", D, D),
+            (10, "x7", "g_feat", D, D), (11, "feat", "g_h", D, H), (12, "de", "g_h", DE_DIM, H)]
+
+
+def dw_cta_tiles(Ks) -> int:
+    """CTA tiles of the dW kernel over blocks of K rows: 128 dW rows each."""
+    return sum(-(-K // DW_TILE_ROWS) for K in Ks)
+
+
+def dw_chunks(cta_tiles: int, M: int, sms: int) -> int:
+    """The number of contiguous chunks of row tiles the dW kernel splits M
+    points into: as many as one wave of CTA tiles x chunks fills the SMs
+    with, at least 1 and at most the row tiles. From M and the SM count
+    only, so two launches split alike."""
+    return max(1, min(-(-M // DW_ROWS), sms // cta_tiles))
+
+
+def _chunk_bounds(M: int, chunks: int) -> List[Tuple[int, int]]:
+    """Row ranges of the chunks: chunk c holds row tiles [c nt / C, (c+1) nt / C)."""
+    nt = -(-M // DW_ROWS)
+    return [(c * nt // chunks * DW_ROWS, min(M, (c + 1) * nt // chunks * DW_ROWS))
+            for c in range(chunks)]
+
+
+def dw_plain(X: torch.Tensor, G: torch.Tensor, chunks: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of the dW kernel, on any device: dW (K, N) f32 =
+    X^T G for X (M, K) and G (M, N) holding bf16 values (any float type),
+    each chunk of rows (the kernel's split) summed in f32 from exact f32
+    products, then the chunks summed in order."""
+    if X.ndim != 2 or G.ndim != 2 or X.shape[0] != G.shape[0]:
+        raise ValueError(f"X and G must be (M, K) and (M, N), got {tuple(X.shape)} and "
+                         f"{tuple(G.shape)}")
+    x = bf16_round(X.to(torch.float32))
+    g = bf16_round(G.to(torch.float32))
+    out = None
+    for a, b in _chunk_bounds(X.shape[0], chunks):
+        part = x[a:b].t() @ g[a:b]
+        out = part if out is None else out + part
+    return out
+
+
+def tile_operand(X: torch.Tensor) -> torch.Tensor:
+    """An (M, C) operand in the dW kernel's tiled bf16 layout: (ceil(M/128),
+    ceil(C/64), 128, 64), each 128-row, 64-column block with the 16-byte chunk
+    c of row r stored at chunk c ^ (r % 8), padding rows and columns zero."""
+    M, C = X.shape
+    nt, cb = -(-M // DW_ROWS), -(-C // SWIZZLE_COLS)
+    pad = X.new_zeros((nt * DW_ROWS, cb * SWIZZLE_COLS), dtype=torch.bfloat16)
+    pad[:M, :C] = X.to(torch.bfloat16)
+    t = pad.view(nt, DW_ROWS, cb, 8, 8).permute(0, 2, 1, 3, 4)       # (nt, cb, r, chunk, 8)
+    r = torch.arange(DW_ROWS, device=X.device)[:, None]
+    src = (torch.arange(8, device=X.device)[None, :] ^ (r % 8))      # stored chunk k holds k ^ (r % 8)
+    idx = src[None, None, :, :, None].expand(nt, cb, DW_ROWS, 8, 8)
+    return torch.gather(t, 3, idx).reshape(nt, cb, DW_ROWS, SWIZZLE_COLS).contiguous()
+
+
+def point_mlp_dw_operands(params: Dict[str, torch.Tensor], pts: torch.Tensor,
+                          dirs: torch.Tensor, g_rgb: torch.Tensor, g_density: torch.Tensor,
+                          cfg: NerfConfig):
+    """The operands of K6's dW products as the plain backward forms them,
+    for one block of points (at most PLAIN_BLOCK_POINTS): (X, G) dicts of
+    bf16-valued f32 (M, width) tensors named as in point_dw_table (X: pe,
+    x0..x7, feat, de; G: g_h, g_feat, g7..g0)."""
+    _check_inputs(pts, dirs)
+    if pts.shape[0] > PLAIN_BLOCK_POINTS:
+        raise ValueError(f"at most {PLAIN_BLOCK_POINTS} points, got {pts.shape[0]}")
+    with torch.no_grad():
+        W, B = pack_weights(params, cfg)
+        Wf = [w.to(torch.float32) for w in W]
+        pts, dirs, g_rgb, g_density = (t.detach().to(torch.float32)
+                                       for t in (pts, dirs, g_rgb, g_density))
+        rgb_raw, sig_raw, acts, pe, de = _plain_forward(Wf, B, pts, dirs)
+        g_rgb_raw, g_sig = _head_vjp(rgb_raw, sig_raw, g_rgb, g_density, cfg)
+        taps: Dict[str, torch.Tensor] = {}
+        mlp_backward(Wf, pe, de, acts, g_rgb_raw, g_sig, pe.shape[0], 1, True, taps)
+        X = {"pe": pe, "de": de, "feat": acts[8]}
+        X.update({f"x{i}": acts[i] for i in range(8)})
+        return X, taps
 
 
 def point_mlp_bwd_plain(params: Dict[str, torch.Tensor], pts: torch.Tensor, dirs: torch.Tensor,
@@ -212,9 +321,11 @@ def _mlp_fwd_cuda(params, pts: torch.Tensor, dirs: torch.Tensor, cfg: NerfConfig
 
 def _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig,
                   want_param_grads: bool = True):
-    """(dWs, dBs, dpts, ddirs) by one launch of the backward kernel (and its
-    in-order sum of the CTAs' partial gradients). With want_param_grads=False
-    its frozen-network variant runs: no dW/dB, and dWs, dBs are None."""
+    """(dWs, dBs, dpts, ddirs) by one launch of the backward kernel: its C
+    entry issues the chain, the in-order sum of the chain's partial sums and
+    the dW kernel (with its in-order sum of the chunks). With
+    want_param_grads=False its frozen-network variant runs: no dW/dB, and
+    dWs, dBs are None."""
     _check_width(cfg)
     D = cfg.hidden_dim
     dev = pts.device
@@ -225,38 +336,85 @@ def _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig,
                    dev)
     if not want_param_grads:
         return (None, None) + _mlp_bwd_frozen_cuda(params, pts, dirs, g_rgb, g_density, cfg)
-    wptrs, wtptrs, bptrs, _keep = _pack_for_backward(params, cfg, dev)
+    tiles, tiles_dx, _B, bptrs = _packed_tiles_on(params, cfg, dev)
     lib = POINT_MLP_BWD.lib()
     offsets = (ctypes.c_int * 26)()
     total = lib.nerf_point_mlp_grad_layout(D, offsets)
     if total <= 0:
         raise RuntimeError("the point-query MLP backward kernel reports no gradient layout")
-    n_ctas = _backward_ctas(-(-M // PTS_PER_PASS), dev)
+    n_pass = -(-M // PTS_PER_PASS)
+    n_ctas = _backward_ctas(n_pass, dev)
+    sizes = (ctypes.c_longlong * 5)()
+    if lib.nerf_point_mlp_bwd_scratch(D, M, n_ctas, sizes) != 0:
+        raise RuntimeError("the point-query MLP backward kernel reports no scratch sizes")
+    chunks = dw_chunks(sizes[4], M, torch.cuda.get_device_properties(dev).multi_processor_count)
+    xops, gops = (torch.empty((sizes[i],), dtype=torch.uint8, device=dev) for i in (0, 1))
+    chain_part = torch.empty((sizes[2] // 4,), dtype=torch.float32, device=dev)
+    dw_part = torch.empty((chunks * sizes[3] // 4,), dtype=torch.float32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    stash = torch.empty((n_ctas, PTS_PER_PASS * STASH_HALF_DIMS * D // 2), dtype=torch.bfloat16,
-                        device=dev)
-    partials = torch.empty((n_ctas, total), **f32)
     grads = torch.empty((total,), **f32)
     dpts = torch.empty((M, 3), **f32)
     ddirs = torch.empty((M, 3), **f32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nerf_point_mlp_bwd(
-            pts.data_ptr(), dirs.data_ptr(), g_rgb.data_ptr(), g_density.data_ptr(), wptrs, wtptrs,
-            bptrs, stash.data_ptr(), partials.data_ptr(), grads.data_ptr(), dpts.data_ptr(),
-            ddirs.data_ptr(), M, D, n_ctas, int(cfg.occ_activation == "softplus"),
+            pts.data_ptr(), dirs.data_ptr(), g_rgb.data_ptr(), g_density.data_ptr(),
+            tiles.data_ptr(), tiles_dx.data_ptr(), bptrs, xops.data_ptr(), gops.data_ptr(),
+            chain_part.data_ptr(), dw_part.data_ptr(), grads.data_ptr(), dpts.data_ptr(),
+            ddirs.data_ptr(), M, D, n_ctas, chunks, int(cfg.occ_activation == "softplus"),
             int(cfg.dist_alpha), total, stream)
     if err != 0:
         raise RuntimeError("point-query MLP backward kernel launch failed: "
                            + lib.nerf_error_string(err).decode())
     POINT_MLP_BWD.launches += 1
+    DW_SM90.launches += 1
     dWs, dBs = _grad_blocks(grads, offsets, D)
     return dWs, dBs, dpts, ddirs
 
 
+def dw_sm90(xs: Sequence[torch.Tensor], gs: Sequence[torch.Tensor], Ks: Sequence[int], M: int,
+            chunks: int) -> List[torch.Tensor]:
+    """dW_i (K_i, N_i) f32 = X_i^T G_i for each block, by one launch of the
+    dW kernel (and its in-order sum of the chunks): xs[i], gs[i] the
+    operands in tile_operand's layout over M rows, on the card. The kernel
+    alone, for checks and timings: K6 full launches it from its own entry."""
+    if not (len(xs) == len(gs) == len(Ks)) or not 0 < len(xs) <= 16:
+        raise ValueError("1 to 16 blocks, each with X, G and K")
+    nt = -(-M // DW_ROWS)
+    dev = xs[0].device
+    for x, g, K in zip(xs, gs, Ks):
+        for t in (x, g):
+            if (t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != dev
+                    or t.ndim != 4 or t.shape[0] != nt or tuple(t.shape[2:]) != (DW_ROWS, 64)):
+                raise ValueError(f"operands must be tile_operand's bf16 layout of {M} rows on "
+                                 f"one device, got {tuple(t.shape)} {t.dtype}")
+        if not 0 < K <= 64 * x.shape[1] or g.shape[1] not in (1, 2, 4):
+            raise ValueError(f"K = {K} for {x.shape[1]} blocks of X, N = {64 * g.shape[1]}")
+    if not 0 < chunks <= nt:
+        raise ValueError(f"chunks must be in 1..{nt}, got {chunks}")
+    lib = DW_SM90.lib()
+    outs = [torch.empty((K, 64 * g.shape[1]), dtype=torch.float32, device=dev)
+            for g, K in zip(gs, Ks)]
+    part = torch.empty((chunks * sum(o.numel() for o in outs),), dtype=torch.float32, device=dev)
+    n = len(xs)
+    arr = lambda ts: (ctypes.c_void_p * n)(*[t.data_ptr() for t in ts])
+    ints = lambda v: (ctypes.c_int * n)(*v)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.nerf_dw_sm90(n, arr(xs), arr(gs), arr(outs), ints([x.shape[1] for x in xs]),
+                               ints(Ks), ints([64 * g.shape[1] for g in gs]), M, chunks,
+                               part.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("weight-gradient kernel launch failed: "
+                           + lib.nerf_error_string(err).decode())
+    DW_SM90.launches += 1
+    return outs
+
+
 def _mlp_bwd_frozen_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig):
-    """(dpts, ddirs) by one launch of K6's frozen-network variant: no stash,
-    no partial sums; a per-CTA scratch of 128 x D bf16 holds the chain's g4."""
+    """(dpts, ddirs) by one launch of K6's frozen-network variant: no
+    operands, no partial sums; a per-CTA scratch of 128 x D bf16 holds the
+    chain's g4."""
     D = cfg.hidden_dim
     dev = pts.device
     M = pts.shape[0]

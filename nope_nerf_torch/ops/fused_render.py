@@ -546,14 +546,15 @@ def _plain_forward(Wf, B, rays, z, cfg: NerfConfig, dist_alpha: bool,
 
 
 def mlp_backward(Wf, pe, de, acts, g_rgb, g_sig, n: int, S: int,
-                 want_param_grads: bool = True):
+                 want_param_grads: bool = True, taps: Optional[Dict[str, torch.Tensor]] = None):
     """MLP backward (pallas_mlp.py:207-260) from the cotangents of the raw
     heads, g_rgb (T,3) and g_sig (T,), over T = n*S points whose direction
     encoding `de` (n,32) is shared by each group of S: dW = x^T . bf16(g)
     stored (in, out), dX = bf16(g) . W^T with Wf[i] = W^T (the (out, in)
     weights as f32). Returns (dWs [14], dBs [12], dpe (T,64), dde (n,32));
     with want_param_grads=False (a frozen network) the same dpe and dde, and
-    dWs, dBs None: the dX chain alone."""
+    dWs, dBs None: the dX chain alone. A `taps` dict receives the bf16-valued
+    cotangents that enter the dW products: g_h, g_feat, g7 .. g0."""
     r = bf16_round
     x0, x1, x2, x3, x4, x5, x6, x7, feat, h = acts
     dW: List[Optional[torch.Tensor]] = [None] * 14
@@ -576,13 +577,19 @@ def mlp_backward(Wf, pe, de, acts, g_rgb, g_sig, n: int, S: int,
     if want_param_grads:
         dW[9], dB[8] = x7.t() @ r(g_sig)[:, None], g_sig.sum().reshape(1)
     g = (r(g_feat) @ Wf[10] + r(g_sig)[:, None] * Wf[9][0][None, :]) * (x7 > 0)
+    if taps is not None:
+        taps.update(g_h=rg_h, g_feat=r(g_feat), g7=r(g))
     for wi, bi, x_in in ((8, 7, x6), (7, 6, x5), (6, 5, x4)):
         grads(wi, bi, x_in, g)
         g = (r(g) @ Wf[wi]) * (x_in > 0)
+        if taps is not None:
+            taps[f"g{wi - 2}"] = r(g)
     g4 = g
     for wi, bi, x_in in ((4, 4, x3), (3, 3, x2), (2, 2, x1), (1, 1, x0)):
         grads(wi, bi, x_in, g)
         g = (r(g) @ Wf[wi]) * (x_in > 0)
+        if taps is not None:
+            taps[f"g{wi - 1}"] = r(g)
     g0 = g
     if want_param_grads:
         dB[0] = g0.sum(dim=0)

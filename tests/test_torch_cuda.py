@@ -655,6 +655,73 @@ def test_point_mlp_autograd_launches_its_kernels(cuda_device):
             NerfConfig(hidden_dim=64, use_pallas=True))
 
 
+def _dw_operands(dev, shapes, m, seed):
+    """Seeded bf16 operands (m, K), (m, N) for each (K, N), their tiled copies
+    with the padding rows of the last row tile NaN (rows past m must read as
+    zero), and the chunk count K6 would use."""
+    gen = torch.Generator().manual_seed(seed)
+    xs, gs, xt, gt = [], [], [], []
+    for K, N in shapes:
+        x = torch.randn(m, K, generator=gen).to(dev).to(torch.bfloat16)
+        g = torch.randn(m, N, generator=gen).to(dev).to(torch.bfloat16)
+        X, G = M.tile_operand(x), M.tile_operand(g)
+        if m % M.DW_ROWS:
+            X[-1, :, m % M.DW_ROWS:] = float("nan")
+            G[-1, :, m % M.DW_ROWS:] = float("nan")
+        xs, gs, xt, gt = xs + [x], gs + [g], xt + [X], gt + [G]
+    chunks = M.dw_chunks(M.dw_cta_tiles(K for K, _ in shapes), m,
+                         torch.cuda.get_device_properties(dev).multi_processor_count)
+    return xs, gs, xt, gt, chunks
+
+
+@pytest.mark.parametrize("hidden", [128, 256])
+@pytest.mark.parametrize("m", [1, 127, 128, 196_645])
+def test_dw_kernel_matches_plain_for_every_block_shape(cuda_device, hidden, m):
+    """The weight-gradient kernel against dw_plain over every block shape of
+    K6's work table: each entry within 1e-4 of the sum of its products'
+    magnitudes (f32 sums of up to ~33,000 terms a chunk, the tensor cores'
+    order against matmul's in full f32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shapes = sorted({(K, N) for *_, K, N in M.point_dw_table(hidden)})
+    xs, gs, xt, gt, chunks = _dw_operands(cuda_device, shapes, m, seed=m)
+    count = M.DW_SM90.launches
+    got = M.dw_sm90(xt, gt, [K for K, _ in shapes], m, chunks)
+    assert M.DW_SM90.launches - count == 1
+    for d, x, g, (K, N) in zip(got, xs, gs, shapes):
+        assert tuple(d.shape) == (K, N) and torch.isfinite(d).all()
+        ref = M.dw_plain(x, g, chunks)
+        mag = x.float().abs().t() @ g.float().abs()
+        assert bool(((d - ref).abs() <= 1e-4 * mag).all()), (K, N)
+
+
+@pytest.mark.parametrize("m", [127, 196_645])
+def test_dw_kernel_two_launches_bit_equal(cuda_device, m):
+    shapes = sorted({(K, N) for *_, K, N in M.point_dw_table(256)})
+    _, _, xt, gt, chunks = _dw_operands(cuda_device, shapes, m, seed=3)
+    Ks = [K for K, _ in shapes]
+    for a, b in zip(M.dw_sm90(xt, gt, Ks, m, chunks), M.dw_sm90(xt, gt, Ks, m, chunks)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hidden", [128, 256])
+@pytest.mark.parametrize("occ", ["softplus", "relu"])
+@pytest.mark.parametrize("dist_alpha", [False, True])
+def test_point_mlp_bwd_full_dx_equals_the_frozen_variant(cuda_device, hidden, occ, dist_alpha):
+    """K6 full and its frozen-network variant run the same dX chain: d(points)
+    and d(directions) torch.equal; K6 full launches the dW kernel once."""
+    gen, pts, dirs = _points(cuda_device, 300 * 128 + 37, seed=8)
+    ncfg = NerfConfig(hidden_dim=hidden, occ_activation=occ, dist_alpha=dist_alpha,
+                      use_pallas=True)
+    params = init_nerf_params(ncfg, gen, device=cuda_device)
+    g_rgb, g_den = _point_cotangents(params, pts, dirs, ncfg)
+    count = M.DW_SM90.launches
+    full = M._mlp_bwd_cuda(params, pts, dirs, g_rgb, g_den, ncfg)
+    assert M.DW_SM90.launches - count == 1
+    frozen = M._mlp_bwd_cuda(params, pts, dirs, g_rgb, g_den, ncfg, want_param_grads=False)
+    assert M.DW_SM90.launches - count == 1
+    assert torch.equal(full[2], frozen[2]) and torch.equal(full[3], frozen[3])
+
+
 def test_hierarchical_train_step_and_frame_on_card(cuda_device):
     """n_importance 64: per step K5 twice (coarse, fine) and K6 once, no fused
     render kernel; render_frame launches K5 twice per chunk."""
