@@ -12,9 +12,9 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    point_mlp_bwd (K6, with the bit-equality of two launches and its
    frozen-network variant's d(points), d(directions) equal to the full
    one's), the last two at the fine pass's point count made ragged, the
-   weight-gradient kernel dw_sm90 (K6 full's dW products, on its own over
-   every block shape of K6's table at 1, 127, 128 and that many points,
-   with two launches bit-equal), and
+   weight-gradient kernel dw_sm90 (the dW products of K1, K4 full and K6
+   full, on its own over every block shape of K6's table at 1, 127, 128 and
+   that many points, with two launches bit-equal), and
    chamfer_nearest (K7: d2 and indices bit-equal at the LLFF and Tanks train steps' 47,628- and
    32,400-point clouds, ragged shapes and a lattice; nearest_dists' gradient);
 3. drives the render path: nope_nerf_torch.cli.render.render on the synthetic
@@ -58,8 +58,10 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    versions; then cli.eval_poses (the PLY), cli.render and cli.eval on the fern
    scene. The one cut: fern is written at its working size with
    resize_factor 1, not as 3024x4032 originals minified by 4;
-8. times each path and each kernel at its main path's shapes (CUDA events),
-   prints one `kernels` JSON line and, last, {"ok": true, "device": {...}}.
+8. times each path and each kernel at its main path's shapes (CUDA events;
+   dw_sm90 also on its own over K1's and K4 full's 11 blocks, beside the
+   bytes of the operands those kernels hand it), prints one `kernels` JSON
+   line and, last, {"ok": true, "device": {...}}.
 It exits non-zero, and prints no result, when CUDA is missing, outside a
 checkout, or when any phase fails. It imports nothing of JAX.
 """
@@ -820,6 +822,7 @@ def run_train_path(torch, np, dev):
     from nope_nerf_torch.data import (SceneData, batch_for_frame, epoch_order,
                                       make_synthetic_scene)
     from nope_nerf_torch.ops.chamfer import CHAMFER_BIDIR
+    from nope_nerf_torch.ops.fused_mlp import DW_SM90
     from nope_nerf_torch.ops.fused_render import RENDER_FWD, RENDER_TRAIN, plain_versions
     from nope_nerf_torch.training import ModelConfigs, Trainer, create_train_state
     from nope_nerf_torch.training.trainer import _sample_rays, step_gradients
@@ -870,7 +873,7 @@ def run_train_path(torch, np, dev):
                                  scheduling_start=10000)
     before = {g: {k: v.clone() for k, v in d.items()} for g, d in state.params.items()}
     kernels = {"render_train": RENDER_TRAIN, "chamfer_bidir": CHAMFER_BIDIR,
-               "render_fwd": RENDER_FWD}
+               "render_fwd": RENDER_FWD, "dw_sm90": DW_SM90}
     for lib in kernels.values():
         lib.launches = 0
     torch.cuda.synchronize()
@@ -881,9 +884,10 @@ def run_train_path(torch, np, dev):
     counts = {name: lib.launches for name, lib in kernels.items()}
     print(f"train path: {TRAIN_STEPS} steps of {TRAIN_RAYS} rays at {h}x{w}, launches "
           f"render_train {counts['render_train']}, chamfer_bidir {counts['chamfer_bidir']}, "
-          f"render_fwd {counts['render_fwd']} (expected {TRAIN_STEPS}, {TRAIN_STEPS}, 0)")
-    if (counts["render_train"], counts["chamfer_bidir"], counts["render_fwd"]) != (
-            TRAIN_STEPS, TRAIN_STEPS, 0):
+          f"render_fwd {counts['render_fwd']}, dw_sm90 {counts['dw_sm90']} (expected "
+          f"{TRAIN_STEPS}, {TRAIN_STEPS}, 0, {TRAIN_STEPS})")
+    if (counts["render_train"], counts["chamfer_bidir"], counts["render_fwd"],
+            counts["dw_sm90"]) != (TRAIN_STEPS, TRAIN_STEPS, 0, TRAIN_STEPS):
         raise RuntimeError("the train path did not launch each of its kernels once per step")
     for k, v in lds.items():
         if v.shape[0] != TRAIN_STEPS or not bool(torch.isfinite(v).all()):
@@ -922,7 +926,8 @@ def counted(fn, expected: dict, what: str):
     name: 0). render_bwd counts both variants of the render-backward kernel,
     render_bwd_frozen those of its frozen-network variant among them;
     point_mlp_bwd and point_mlp_bwd_frozen likewise for K6; dw_sm90 counts
-    the weight-gradient kernel, which K6's full variant launches once.
+    the weight-gradient kernel, which K1, K4's full variant and K6's full
+    variant each launch once.
     Returns (fn's result, counts)."""
     import torch
     libs = kernel_counters()
@@ -988,7 +993,8 @@ def run_cli_path(torch, np, dev):
         cfg = cfg_for(os.path.join(root, "a"))
         (state_a, _, _), _ = counted(
             lambda: train(cfg, synthetic=True, max_epochs=CLI_EPOCHS, device=dev),
-            {"render_train": steps, "chamfer_bidir": steps, "render_fwd": steps // 8},
+            {"render_train": steps, "chamfer_bidir": steps, "render_fwd": steps // 8,
+             "dw_sm90": steps},
             f"cli.train, {CLI_EPOCHS} epochs of 8 steps")
         if state_a.it != steps - 1 or not os.path.exists(os.path.join(root, "a", "model.ckpt")):
             raise RuntimeError("cli.train: wrong iteration counter or no checkpoint")
@@ -1012,7 +1018,7 @@ def run_cli_path(torch, np, dev):
             "visualize_every": 4, "vis_reprojection_every": 4, "vis_geo": True,
             "validate_every": 0})
         counted(lambda: train(cfg_v, synthetic=True, max_epochs=1, device=dev),
-                {"render_train": 8, "chamfer_bidir": 8, "render_fwd": 2},
+                {"render_train": 8, "chamfer_bidir": 8, "render_fwd": 2, "dw_sm90": 8},
                 "cli.train with the visualize and reprojection hooks every 4 steps, 1 epoch")
         rendering = os.path.join(root, "v", "rendering")
         pngs = sorted(os.path.join(d, f) for d, _, files in os.walk(rendering) for f in files
@@ -1097,7 +1103,7 @@ def run_cli_path(torch, np, dev):
                             training={"pc_weight": [0.0, 0.0], "rgb_s_weight": [0.0, 0.0],
                                       "validate_every": 0})
         counted(lambda: train(cfg_fixed, synthetic=True, max_epochs=1, device=dev),
-                {"render_train": 8},
+                {"render_train": 8, "dw_sm90": 8},
                 "cli.train without learned poses, 1 epoch")
         fixed = evaluate_poses(cfg_fixed, synthetic=True, device=dev)
         if not all(abs(v) < 1e-6 for v in fixed.values()):
@@ -1171,7 +1177,7 @@ def run_unfused_steps(torch, np, dev):
     (state, lds), counts = counted(
         lambda: trainer.run_steps(state, scene, order, refs, epoch=0, scheduling_start=10000),
         {"chamfer_bidir": UNFUSED_STEPS, "render_fwd": UNFUSED_STEPS,
-         "render_bwd": UNFUSED_STEPS},
+         "render_bwd": UNFUSED_STEPS, "dw_sm90": UNFUSED_STEPS},
         f"unfused train path (depth_loss_type invariant), {UNFUSED_STEPS} steps")
     for k, v in lds.items():
         if v.shape[0] != UNFUSED_STEPS or not bool(torch.isfinite(v).all()):
@@ -1346,7 +1352,7 @@ def run_slice_rest(torch, np, dev):
     (state, lds), _ = counted(
         lambda: Trainer(cfg, mc).run_steps(state, scene, order[:2], refs[:2], epoch=0,
                                            scheduling_start=10000),
-        {"render_fwd": 2, "render_bwd": 2, "chamfer_bidir": 2},
+        {"render_fwd": 2, "render_bwd": 2, "chamfer_bidir": 2, "dw_sm90": 2},
         "normal_loss train path, 2 steps")
     if not all(bool(torch.isfinite(v).all()) for v in lds.values()):
         raise RuntimeError("normal_loss train path: non-finite loss term")
@@ -1373,7 +1379,8 @@ def run_slice_rest(torch, np, dev):
         (state_a, trainer_a, cscene), _ = counted(
             lambda: train(occ_cfg(os.path.join(root, "a")), synthetic=True,
                           max_epochs=CLI_EPOCHS, device=dev),
-            {"render_train": 8 * CLI_EPOCHS, "chamfer_bidir": 8 * CLI_EPOCHS},
+            {"render_train": 8 * CLI_EPOCHS, "chamfer_bidir": 8 * CLI_EPOCHS,
+             "dw_sm90": 8 * CLI_EPOCHS},
             f"cli.train with the occupancy grid, {CLI_EPOCHS} epochs of 8 steps")
         grid = trainer_a.occ_grid
         _, scalars = load_params(os.path.join(root, "a"), "model.ckpt", device=dev)
@@ -1456,9 +1463,10 @@ def run_disk_scenes(torch, np, dev):
 
     t_phase = time.perf_counter()
     steps = DISK_FRAMES - 1
-    expected = {"fern": {"render_train": steps, "chamfer_nearest": 2 * steps},
-                "Ballroom": {"render_train": steps, "chamfer_nearest": 2 * steps},
-                "straight_d4": {"render_train": steps, "chamfer_bidir": steps}}
+    expected = {"fern": {"render_train": steps, "chamfer_nearest": 2 * steps, "dw_sm90": steps},
+                "Ballroom": {"render_train": steps, "chamfer_nearest": 2 * steps,
+                             "dw_sm90": steps},
+                "straight_d4": {"render_train": steps, "chamfer_bidir": steps, "dw_sm90": steps}}
     runs = {}
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
@@ -1496,7 +1504,8 @@ def run_disk_scenes(torch, np, dev):
         (g_k, ld_k), _ = counted(
             lambda: step_gradients(state.params, batch, weights, ray_idx, None, mc,
                                    rgb_loss_type, noise=noise),
-            {"render_train": 1, "chamfer_nearest": 2}, "fern step 1 through the kernels")
+            {"render_train": 1, "chamfer_nearest": 2, "dw_sm90": 1},
+            "fern step 1 through the kernels")
         with plain_versions():
             g_p, ld_p = step_gradients(state.params, batch, weights, ray_idx, None, mc,
                                        rgb_loss_type, noise=noise)
@@ -1576,10 +1585,10 @@ def main() -> int:
                                                POINT_MLP_FWD, _mlp_bwd_cuda, _mlp_fwd_cuda,
                                                dw_chunks, dw_cta_tiles, dw_plain, dw_sm90,
                                                point_dw_table, point_mlp_bwd_plain,
-                                               point_mlp_fwd_plain)
+                                               point_mlp_fwd_plain, render_dw_table)
     from nope_nerf_torch.ops.fused_render import (
-        RENDER_BWD, RENDER_BWD_FROZEN, RENDER_FWD, RENDER_TRAIN, STASH_HALF_DIMS,
-        _render_bwd_cuda, pack_weights, render_ray_loss_fused, render_ray_loss_fused_plain,
+        RENDER_BWD, RENDER_BWD_FROZEN, RENDER_FWD, RENDER_TRAIN, _render_bwd_cuda, pack_weights,
+        render_operand_bytes, render_ray_loss_fused, render_ray_loss_fused_plain,
         render_rays_fused, render_rays_fused_bwd_plain, render_rays_fused_plain)
 
     dev = torch.device("cuda")
@@ -1677,13 +1686,14 @@ def main() -> int:
     train_plain_ms = time_ms(lambda: render_ray_loss_fused_plain(tparams, rays, tz, tgt, tcfg,
                                                                  False, 1, False), 2)
     # The bounds count what each function must move: every input read once (the weights
-    # once, as bf16), every output written once. The kernels' activation stash is their own
-    # choice, not the function's, and stays out of the bound; it is printed beside it.
+    # once, as bf16), every output written once. The operands K1 and K4 full hand their dW
+    # kernel are their own choice, not the function's, and stay out of the bound; they are
+    # printed beside it.
     W, B = pack_weights(tparams, tcfg)
     weight_bytes = numel_bytes(W) + numel_bytes(B)
     grad_bytes = 4 * sum(v.numel() for v in tparams.values())
-    stash_bytes = TRAIN_RAYS * S * STASH_HALF_DIMS * tcfg.hidden_dim   # bf16, 9.5 D per point
-    stash_ms = 2 * stash_bytes / PEAK_BYTES * 1e3
+    operand_bytes = sum(render_operand_bytes(tcfg.hidden_dim, TRAIN_RAYS, S))
+    operand_ms = 2 * operand_bytes / PEAK_BYTES * 1e3
     io_bytes = 2 * numel_bytes([rays, tz, tgt]) + weight_bytes + grad_bytes
     t_flops = train_flops(tcfg.hidden_dim, TRAIN_RAYS, S)
     t_bound, t_by, t_ops_ms, t_bytes_ms = bound(t_flops, PEAK_BF16_FLOPS, io_bytes)
@@ -1691,9 +1701,10 @@ def main() -> int:
           f"{train_plain_ms:.1f} ms; {t_flops / 1e12:.3f} TFLOP ({t_ops_ms:.3f} ms), "
           f"{io_bytes / 1e6:.1f} MB of rays, targets, weights and gradients "
           f"({t_bytes_ms:.4f} ms) -> bound {t_bound:.3f} ms by {t_by} "
-          f"({t_flops / train_ms / 1e9:.1f} TFLOP/s achieved); outside the bound, the "
-          f"kernel's own stash: {stash_bytes / 1e6:.1f} MB written and read, {stash_ms:.3f} ms "
-          f"at the memory rate")
+          f"({t_flops / train_ms / 1e9:.1f} TFLOP/s achieved, {train_ms / t_bound:.2f} x the "
+          f"bound); outside the bound, the operands the chain writes for the dW kernel and it "
+          f"reads back: {operand_bytes / 1e9:.3f} GB ({operand_bytes / (TRAIN_RAYS * S):.0f} B a "
+          f"sample), {operand_ms:.3f} ms at the memory rate")
 
     # K4 at the pose-opt and train batch: 1024 rays x 128, both variants, on the
     # cotangents of a colour and depth loss (what pose optimisation sends)
@@ -1721,7 +1732,31 @@ def main() -> int:
           f"({f_flops / bwd_frozen_ms / 1e9:.1f} TFLOP/s achieved, "
           f"{f_flops / bwd_frozen_ms * 1e3 / PEAK_BF16_FLOPS:.1%} of the bf16 peak, "
           f"{bwd_frozen_ms / f_bound:.2f} x the bound); outside the full variant's bound, its "
-          f"own stash: {stash_ms:.3f} ms at the memory rate (the frozen variant has none)")
+          f"dW operands: {operand_ms:.3f} ms at the memory rate (the frozen variant has none)")
+
+    # the dW kernel on its own over K1's and K4 full's 11 blocks at their 1024 x 128
+    # samples, against dw_plain and one torch.matmul per block (bf16 in, bf16 out)
+    m_r = TRAIN_RAYS * S
+    r_shapes = [(K, N) for *_, K, N in render_dw_table(tcfg.hidden_dim)]
+    rxs, rgs, rxt, rgt = dw_operands(torch, dev, torch.Generator().manual_seed(SEED + 13),
+                                     r_shapes, m_r, poison=False)
+    rKs = [K for K, _ in r_shapes]
+    rchunks = dw_chunks(dw_cta_tiles(rKs), m_r,
+                        torch.cuda.get_device_properties(dev).multi_processor_count)
+    rdw_ms = time_ms(lambda: dw_sm90(rxt, rgt, rKs, m_r, rchunks), 10)
+    rdw_plain_ms = time_ms(lambda: [dw_plain(x, g, rchunks) for x, g in zip(rxs, rgs)], 2)
+    rdw_lib_ms = time_ms(lambda: [torch.matmul(x.t(), g) for x, g in zip(rxs, rgs)], 10)
+    rdw_flops = 2 * m_r * sum(K * N for K, N in r_shapes)
+    rdw_in_bytes = 2 * m_r * sum(K + N for K, N in r_shapes)
+    rdw_bound, rdw_by, rdw_ops_ms, rdw_bytes_ms = bound(
+        rdw_flops, PEAK_BF16_FLOPS, rdw_in_bytes + 4 * sum(K * N for K, N in r_shapes))
+    del rxs, rgs, rxt, rgt
+    print(f"dw_sm90 (K1's and K4 full's 11 dW blocks on their own): {m_r} samples, {rchunks} "
+          f"chunks, {rdw_ms:.3f} ms ({rdw_ms / train_ms:.1%} of render_train's time, "
+          f"{rdw_ms / bwd_ms:.1%} of render_bwd's), plain version {rdw_plain_ms:.2f} ms, "
+          f"torch.matmul per block (bf16 out) {rdw_lib_ms:.3f} ms; {rdw_flops / 1e12:.3f} TFLOP "
+          f"({rdw_ops_ms:.3f} ms), {rdw_in_bytes / 1e9:.3f} GB of operands ({rdw_bytes_ms:.3f} "
+          f"ms) -> bound {rdw_bound:.3f} ms by {rdw_by} ({rdw_ms / rdw_bound:.2f} x the bound)")
 
     # one pose-opt step, one unfused train step and one eval frame, end to end
     from nope_nerf_torch.data import batch_for_frame, epoch_order

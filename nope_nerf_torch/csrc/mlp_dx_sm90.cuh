@@ -1,28 +1,32 @@
-// The dX chain on Hopper (sm_90a), shared by render_bwd_frozen.cu (K4's
-// frozen-network variant), point_mlp_bwd_frozen.cu (K6's) and
-// point_mlp_bwd.cu (K6 full): one 128-point tile through the forward on the
-// wgmma trunk of mlp_fwd_sm90.cuh, then back through every layer's dX = g W
-// product to the cotangent of the position encoding. No weight gradient is
-// formed here: K6 full saves the operands of its dW products through the
-// forward's save hook and its own dX layers, sums its bias gradients in
-// store_dx's epilogue (SUM) and hands the products to dw_sm90.cuh.
+// The dX chain on Hopper (sm_90a), shared by every backward kernel of the
+// NeRF MLP: render_bwd_frozen.cu (K4's frozen-network variant),
+// point_mlp_bwd_frozen.cu (K6's), point_mlp_bwd.cu (K6 full) and
+// render_full_sm90.cuh (K1 and K4 full): one 128-point tile through the
+// forward on the wgmma trunk of mlp_fwd_sm90.cuh, then back through every
+// layer's dX = g W product to the cotangent of the position encoding. No
+// weight gradient is formed here: the full kernels save the operands of
+// their dW products through the forward's save hook and their own dX layers,
+// sum their bias gradients in store_dx's epilogue (SUM) and hand the
+// products to dw_sm90.cuh (mlp_dw_chain_sm90.cuh). The render kernels' per-ray
+// pieces (the producer, the composite forward and backward, the encoding
+// VJPs) close this file.
 //
-// Numerics are those of nerf_bwd.cuh's chain (the full variants' and the
-// TPU kernels'), and its results are bit-equal to that chain's:
-// - the forward as mlp_fwd_sm90.cuh (which sums each product as the
-//   mma.sync trunk does: bias first, then 16-column steps of K in order);
+// Numerics are the TPU kernels' (pallas_mlp.py::_bwd_chain_core), in a
+// fixed order:
+// - the forward as mlp_fwd_sm90.cuh (each product summed from the bias,
+//   then 16-column steps of K in order);
 // - every cotangent rounded to bf16 before it enters a product, each product
-//   summed from zero over 16-column steps of K in order, then in
-//   dense_bwd's epilogue order: + gs wd (the density head's rank-1 term),
-//   the ReLU mask, the bf16 rounding;
+//   summed from zero over 16-column steps of K in order, then in the
+//   epilogue's order: + gs wd (the density head's rank-1 term), the ReLU
+//   mask, the bf16 rounding;
 // - the masks from the bf16 activations (bf16(relu(x)) > 0);
-// - the rgb head's backward in scalar f32, a thread per (column, row group)
-//   as in nerf_bwd.cuh, its column sums over the row groups in order;
+// - the rgb head's backward in scalar f32, a thread per (column, row group),
+//   its column sums over the row groups in order;
 // - dpe = g0 W0 summed first, then g4 W5pe into the same accumulator;
 // - the encoding derivative per lane in enc_lane_grad's order (over j, then
 //   hc), the per-row sums by shfl_xor over 1 then 2, the block sums over the
 //   8 consumer warps in order: consumer warp w of warpgroup g owns rows
-//   64g + 16w.., the rows warp 4g + w owned in the mma.sync chain.
+//   64g + 16w.
 //
 // Design:
 // - The CTA is mlp_fwd_sm90.cuh's: two consumer warpgroups and a producer
@@ -43,19 +47,20 @@
 //   memory, in the accumulator's own layout, so that the thread that wrote a
 //   bit in the forward is the thread that reads it in the backward's
 //   epilogue of the same layer: 8 x 128 x D bits for x0..x7 (32 KB at
-//   D=256) and 128 x D/2 for the rgb-hidden layer. Nothing goes to a stash
-//   in device memory and nothing is read back from one.
+//   D=256) and 128 x D/2 for the rgb-hidden layer. No activation goes to
+//   device memory and none is read back.
 //
 // The two tight points:
 // (a) g4, the skip layer's cotangent, enters the encoding product last (dpe
-//     sums g0 W0 first, and that order is binding for bit-equality), but its
+//     sums g0 W0 first, and that order is binding for bit-equality between
+//     the variants), but its
 //     64 KB (D=256) must leave the activation buffer to the four layers
 //     after it, and no other 64 KB of shared memory is free. Each warpgroup
 //     writes its 64 rows of g4 to a per-CTA scratch in device memory
 //     straight from the epilogue's registers (128 x D bf16 a CTA: 8.4 MB for
 //     132 CTAs, which stays in the 50 MB L2), and reads them back with
-//     cp.async over g0 once g0's products are done. That is 2 x 64 KB of L2
-//     traffic a tile against the old chain's 4.9 KB a point to device memory.
+//     cp.async over g0 once g0's products are done: 2 x 64 KB of L2
+//     traffic a tile. (The full kernels read it back from its G operand.)
 //     (Keeping g4 as wgmma A fragments in registers would take 64 registers
 //     a thread beside the 128 of the accumulator.)
 // (b) S = 256 in K4: the composite backward needs the head outputs of the
@@ -326,10 +331,10 @@ __device__ __forceinline__ void mlp_tile_masks(const float* const* b, uint32_t p
 // The warpgroup's rows of the new cotangent = bf16(mask * (acc [+ gs wd])),
 // over the old one in the activation buffer; with SAVE also to `save_wg`
 // (device memory, the warpgroup's 64 rows in the same swizzle, 64-column
-// blocks kWgRowBytes apart). dense_bwd's epilogue, in its order.
+// blocks kWgRowBytes apart), in the epilogue's order.
 //
 // With SUM, the f32 column sums of the warpgroup's rows of mask * (acc [+ gs
-// wd]), before the rounding (dense_bwd's bias terms), go to red_wg[w][N] for
+// wd]), before the rounding (the bias gradients' terms), go to red_wg[w][N] for
 // each of its warps w: over the thread's two rows, then the warp's eight row
 // groups by shfl_xor over 4, 8, 16.
 template <int N, bool MASK, bool RANK1, bool SAVE, bool SUM = false>
@@ -414,7 +419,7 @@ __device__ __forceinline__ void dx_layer(unsigned char* act_wg, uint32_t act_s, 
   wg_sync(wg);
 }
 
-// The rgb head's backward for the tile, scalar f32 as nerf_bwd.cuh's: with
+// The rgb head's backward for the tile, scalar f32: with
 // j = tid % H and row group tid / H, g_h[m][j] = (bf16 g_rgb[m] . wo[:, j]) *
 // (h[m][j] > 0), rounded to bf16 into the activation buffer (every row: both
 // warpgroups). With ghsum, each thread's sum of its rows' bf16 g_h goes to
@@ -510,8 +515,7 @@ __device__ __forceinline__ void dx_chain(float (&dpe)[32], unsigned char* act, R
 
 // The f32 cotangents of an encoding (levels `levels`) in the m64nN fragment
 // acc (NT n-tiles of 8 lanes) pulled to the 3 coordinates of each of the
-// thread's two rows, summed over the rows' lanes (nerf_bwd.cuh's
-// coord_grad order) and written to out[3 * (p0 + m) + c] for rows
+// thread's two rows, summed over the rows' lanes in order and written to out[3 * (p0 + m) + c] for rows
 // m < n. src: the (M, 3) coordinates the forward encoded.
 template <int NT>
 __device__ __forceinline__ void coord_grad90(const float (&acc)[4 * NT],
@@ -552,7 +556,7 @@ __device__ __forceinline__ void coord_grad90(const float (&acc)[4 * NT],
 
 // ---- block-level helpers over the consumer threads ---------------------------
 
-// nerf_mlp.cuh's block_sum over the 8 consumer warps (shuffles inside a warp,
+// A block sum over the 8 consumer warps (shuffles inside a warp,
 // then the warps in order); the sums are left in red[0..N). Ends synchronised.
 template <int N>
 __device__ __forceinline__ void block_sum90(float (&part)[N], float* red) {
@@ -574,6 +578,293 @@ __device__ __forceinline__ void block_sum90(float (&part)[N], float* red) {
   }
   consumer_sync();
   if (threadIdx.x < N) red[threadIdx.x] = acc;
+  consumer_sync();
+}
+
+// ---- the render's per-ray pieces: K4's frozen variant (render_bwd_frozen.cu)
+// and the kernels with weight gradients (render_full_sm90.cuh) --------------
+
+// render_fwd.cu's alpha_and_prefix90 over the consumer threads: alpha, then
+// the f32 exclusive Hillis-Steele prefix sum of log(1 - alpha + eps).
+// Returns the buffer holding the prefix sums.
+__device__ __forceinline__ float* alpha_prefix90(const float* hout, const float* fz, float* alpha,
+                                                 float* scan0, float* scan1, int S,
+                                                 int occ_softplus, int head_dist_alpha,
+                                                 int dist_alpha) {
+  const int tid = threadIdx.x;
+  for (int s = tid; s < S; s += kConsumers) {
+    const float sigma = density_act(hout[4 * s + 3], occ_softplus);
+    const float occ = head_dist_alpha ? sigma : 1.f - expf(-sigma);
+    float a = occ;
+    if (dist_alpha) a = (s == S - 1) ? 1.f : 1.f - expf(-occ * (fz[s + 1] - fz[s]));
+    alpha[s] = a;
+  }
+  consumer_sync();
+  for (int s = tid; s < S; s += kConsumers)
+    scan0[s] = s >= 1 ? logf(1.f - alpha[s - 1] + kEps) : 0.f;
+  consumer_sync();
+  float* src = scan0;
+  float* dst = scan1;
+  for (int d = 1; d < S; d <<= 1) {
+    for (int s = tid; s < S; s += kConsumers) dst[s] = s >= d ? src[s] + src[s - d] : src[s];
+    consumer_sync();
+    float* tmp = src;
+    src = dst;
+    dst = tmp;
+  }
+  return src;
+}
+
+// The consumer threads copy the forward buffer's w12 slice (D/2 rows of 128
+// bytes, swizzled, 32 live columns) from device memory to `dst` in shared
+// memory: a few 16-byte loads a thread in flight at once, where a chain of
+// fmaf over single loads would wait on L2 once per term. The loads pass L1
+// by (ld.global.cg), which keeps the forward's biases.
+template <int D>
+__device__ __forceinline__ void stage_w12(unsigned char* dst, const unsigned char* src) {
+  for (int e = threadIdx.x; e < D / 2 * 128 / 16; e += kConsumers)
+    reinterpret_cast<uint4*>(dst)[e] = __ldcg(reinterpret_cast<const uint4*>(src) + e);
+}
+
+// The producer warpgroup of a render backward kernel (persistent CTA,
+// rays blockIdx.x, blockIdx.x + gridDim.x, ...): its first thread loads the
+// heads and streams, per ray, the forward slices of its S/128 tiles, then per
+// tile (after a second forward for its masks when S = 256) the backward's;
+// warps 1..3 encode every forward tile's sample positions in the consumers'
+// order, o + v*z by explicitly rounded mul and add.
+template <int D>
+__device__ __forceinline__ void render_producer90(const float* __restrict__ rays,
+                                                  const float* __restrict__ z,
+                                                  const unsigned char* __restrict__ tiles,
+                                                  const unsigned char* __restrict__ tiles_dx,
+                                                  const Ring& ring, uint32_t heads,
+                                                  uint32_t head_bar, const Handoff& hand,
+                                                  unsigned char* pe, int n_rays, int S) {
+  using T = Tiles<D>;
+  const int passes = S / kPts;
+  const bool again = passes > 1;
+  const long long mine = (n_rays - static_cast<long long>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  const int etid = threadIdx.x - kConsumers - 32;
+  if (threadIdx.x == kConsumers) {
+    mbar_expect_tx(head_bar, T::kDensHead + T::kRgbHead);
+    bulk_load(heads, tiles + T::kHeads, T::kDensHead + T::kRgbHead, head_bar);
+    Feeder f{ring};
+    for (long long r = 0; r < mine; ++r) {
+      for (int p = 0; p < passes; ++p) f.forward<D>(tiles, T::kRender);
+      for (int p = 0; p < passes; ++p) {
+        if (again) f.forward<D>(tiles, T::kRender);
+        f.backward<D, false>(tiles_dx);
+      }
+    }
+  } else if (etid >= 0) {
+    long long tile = 0;
+    for (long long r = blockIdx.x; r < n_rays; r += gridDim.x) {
+      float o[3], v[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        o[c] = rays[r * 9 + c];
+        v[c] = rays[r * 9 + 3 + c];
+      }
+      for (int k = 0; k < (again ? 2 : 1) * passes; ++k, ++tile) {
+        wait_free(hand.pe_free, tile);
+        const float* zt = z + r * S + (k % passes) * kPts;
+        encode_tile<10, kPe>(pe, etid, [&](int p, int c) {
+          const float oc = c == 0 ? o[0] : (c == 1 ? o[1] : o[2]);
+          const float vc = c == 0 ? v[0] : (c == 1 ? v[1] : v[2]);
+          return __fadd_rn(oc, __fmul_rn(vc, zt[p]));
+        });
+        hand_over(hand.pe_full);
+      }
+    }
+  }
+}
+
+// The composite forward of a ray in f32 over the consumer threads, from the
+// raw heads in hout (rgb | raw density, 4 a sample) and z: alpha and its
+// prefix (alpha_prefix90, in scan0/scan1), trans = exp(prefix), wts = alpha
+// trans, and hout's rgb turned into its sigmoid in place. With `sums` (5
+// floats), each thread's partial sums over its samples of wts rgb (3),
+// wts z and wts. Ends synchronised.
+__device__ __forceinline__ void composite_fwd90(float* hout, const float* fz, float* alpha,
+                                                float* trans, float* wts, float* scan0,
+                                                float* scan1, int S, int occ_softplus,
+                                                int head_dist_alpha, int dist_alpha,
+                                                float* sums = nullptr) {
+  const float* pre = alpha_prefix90(hout, fz, alpha, scan0, scan1, S, occ_softplus,
+                                    head_dist_alpha, dist_alpha);
+  for (int s = threadIdx.x; s < S; s += kConsumers) {
+    const float tr = expf(pre[s]);
+    const float w = alpha[s] * tr;
+    trans[s] = tr;
+    wts[s] = w;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float rgb = 1.f / (1.f + expf(-hout[4 * s + c]));
+      hout[4 * s + c] = rgb;
+      if (sums != nullptr) sums[c] += w * rgb;
+    }
+    if (sums != nullptr) {
+      sums[3] += w * fz[s];
+      sums[4] += w;
+    }
+  }
+  consumer_sync();
+}
+
+// The composite backward of a ray in f32 (the TPU kernel's _backward_tail):
+// from the cotangents of the ray's rgb (g_rgb_ray[3]) and dist (gd) and,
+// where not null, of its per-sample
+// weights and alpha, g_w = g_rgb . rgb + gd z (- the sum of g_rgb with
+// white_bg) [+ g_w_in], the exclusive suffix scan of g_w w, g_alpha and the
+// dist_alpha g_delta terms, to graw (the raw density's cotangent), grgb
+// (the raw rgb's, 4 a sample) and gz (dz's composite part). hout holds the
+// sigmoid rgb | raw density, alpha, trans, wts the forward's; scan0, scan1
+// are scratch of S floats. The last step (gz's dist_alpha terms, each
+// thread its own samples) is left unsynchronised: the caller's next
+// barrier orders it.
+__device__ __forceinline__ void composite_bwd90(const float* g_rgb_ray, float gd, int white_bg,
+                                                const float* g_w_in, const float* g_a_in,
+                                                const float* hout, const float* fz,
+                                                const float* alpha, const float* trans,
+                                                const float* wts, float* scan0, float* scan1,
+                                                float* graw, float* grgb, float* gz, int S,
+                                                int occ_softplus, int head_dist_alpha,
+                                                int dist_alpha) {
+  const int tid = threadIdx.x;
+  const float g_rgb_sum = g_rgb_ray[0] + g_rgb_ray[1] + g_rgb_ray[2];
+  for (int s = tid; s < S; s += kConsumers) {
+    float gw = g_rgb_ray[0] * hout[4 * s] + g_rgb_ray[1] * hout[4 * s + 1] +
+               g_rgb_ray[2] * hout[4 * s + 2] + gd * fz[s];
+    if (white_bg) gw -= g_rgb_sum;
+    if (g_w_in != nullptr) gw += g_w_in[s];
+    graw[s] = gw;                       // g_w, until g_raw replaces it below
+    scan1[s] = gw * wts[s];             // g_c = g_trans * trans
+  }
+  consumer_sync();
+  for (int s = tid; s < S; s += kConsumers) scan0[s] = s + 1 < S ? scan1[s + 1] : 0.f;
+  consumer_sync();
+  float* src = scan0;
+  float* dst = scan1;
+  for (int d = 1; d < S; d <<= 1) {
+    for (int s = tid; s < S; s += kConsumers) dst[s] = s + d < S ? src[s] + src[s + d] : src[s];
+    consumer_sync();
+    float* tmp = src;
+    src = dst;
+    dst = tmp;
+  }
+  for (int s = tid; s < S; s += kConsumers) {
+    const float gw = graw[s], a = alpha[s], w = wts[s];
+    float g_alpha = gw * trans[s] - src[s] / (1.f - a + kEps);
+    if (g_a_in != nullptr) g_alpha += g_a_in[s];
+    const float raw = hout[4 * s + 3];
+    const float sigma = density_act(raw, occ_softplus);
+    const float occ = head_dist_alpha ? sigma : 1.f - expf(-sigma);
+    float g_occ = g_alpha, g_delta = 0.f;
+    if (dist_alpha) {
+      if (s == S - 1) {
+        g_occ = 0.f;
+      } else {
+        const float delta = fz[s + 1] - fz[s];
+        const float E = expf(-occ * delta);
+        g_occ = g_alpha * delta * E;
+        g_delta = g_alpha * occ * E;
+      }
+    }
+    dst[s] = g_delta;
+    const float g_sigma = head_dist_alpha ? g_occ : g_occ * (1.f - occ);
+    const float g_raw =
+        occ_softplus ? g_sigma * (1.f / (1.f + expf(-raw))) : (raw > 0.f ? g_sigma : 0.f);
+    graw[s] = g_raw;
+    gz[s] = gd * w;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float rgb = hout[4 * s + c];
+      grgb[4 * s + c] = w * g_rgb_ray[c] * rgb * (1.f - rgb);
+    }
+  }
+  consumer_sync();
+  if (dist_alpha) {
+    for (int s = tid; s < S; s += kConsumers) gz[s] = gz[s] - dst[s] + (s > 0 ? dst[s - 1] : 0.f);
+  }
+}
+
+// The tile's position-encoding cotangent (dpe, the m64n64 fragment of the
+// warpgroup's rows) through the encoding to the ray: dz's encoding part into
+// gz[p0 + m], d_o and d_v summed over the tile (per row, then the block in
+// warp order) and added to rsum[0..5]. ray: o | v | dir. Ends synchronised.
+__device__ __forceinline__ void tile_enc_vjp90(const float (&dpe)[32], const float* ray,
+                                               const float* fz, float* gz, float* rsum,
+                                               float* red, int p0) {
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  float sums[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};   // d_o xyz, d_v xyz
+  float dzr[2] = {0.f, 0.f};
+  const int m0 = 16 * warp;
+#pragma unroll
+  for (int hrow = 0; hrow < 2; ++hrow) {
+    const int m = m0 + gq + 8 * hrow;
+    const float zz = fz[p0 + m];
+    float pts[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) pts[c] = __fadd_rn(ray[c], __fmul_rn(ray[3 + c], zz));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int hc = 0; hc < 2; ++hc) {
+        int c;
+        const float tv = enc_lane_grad90(dpe[4 * j + 2 * hrow + hc], pts, 8 * j + 2 * t + hc,
+                                         10, &c);
+        if (c >= 0) {
+          dzr[hrow] += tv * ray[3 + c];
+#pragma unroll
+          for (int cc = 0; cc < 3; ++cc) {
+            if (c == cc) {
+              sums[cc] += tv;
+              sums[3 + cc] += tv * zz;
+            }
+          }
+        }
+      }
+    }
+    dzr[hrow] += __shfl_xor_sync(0xffffffffu, dzr[hrow], 1);
+    dzr[hrow] += __shfl_xor_sync(0xffffffffu, dzr[hrow], 2);
+    if (t == 0) gz[p0 + m] += dzr[hrow];
+  }
+  block_sum90<6>(sums, red);
+  if (tid < 6) rsum[tid] += red[tid];
+  consumer_sync();
+}
+
+// The direction encoding's cotangent, once per ray: w12 staged into `w12`
+// (shared memory), dde = (sum_s bf16 g_h) wrde^T, pulled through the
+// encoding to d(dir) into rsum[6..8]. Ends synchronised.
+template <int D>
+__device__ __forceinline__ void ray_dir_vjp90(unsigned char* w12, const unsigned char* w12_src,
+                                              const float* ghsum, const float* ray, float* rsum,
+                                              float* red) {
+  constexpr int H = D / 2;
+  const int tid = threadIdx.x;
+  stage_w12<D>(w12, w12_src);
+  consumer_sync();
+  if (tid < kDe) {
+    float dd = 0.f;
+#pragma unroll 16
+    for (int j = 0; j < H; ++j) {
+      const bf16 wv = *reinterpret_cast<const bf16*>(w12 + swz(j, tid, 0));
+      dd = fmaf(ghsum[j], __bfloat162float(wv), dd);
+    }
+    int c;
+    red[tid] = enc_lane_grad(dd, ray + 6, tid, 4, &c);
+    red[kDe + tid] = static_cast<float>(c);
+  }
+  consumer_sync();
+  if (tid < 3) {
+    float acc = 0.f;
+    for (int k = 0; k < kDe; ++k)
+      if (static_cast<int>(red[kDe + k]) == tid) acc += red[k];
+    rsum[6 + tid] = acc;
+  }
   consumer_sync();
 }
 

@@ -2,11 +2,11 @@
 // and point_mlp_fwd.cu (K5): one 128-point tile through the 9-layer MLP with
 // its layer-4 skip, the feature and rgb-hidden layers and the f32 heads.
 //
-// Numerics are those of nerf_mlp.cuh's trunk (and of the TPU kernels): bf16
-// operands, f32 accumulators that start at the bias, activations rounded to
-// bf16 after each ReLU, `feat` rounded without one, the skip as a second
-// product into the same accumulators, heads f32. Only the order in which the
-// tensor cores sum a product's terms differs.
+// Numerics are those of the TPU kernels: bf16 operands, f32 accumulators
+// that start at the bias, activations rounded to bf16 after each ReLU,
+// `feat` rounded without one, the skip as a second product into the same
+// accumulators, heads f32. Only the order in which the tensor cores sum a
+// product's terms differs.
 //
 // Design:
 // - A CTA is two consumer warpgroups and one producer warpgroup (384
@@ -37,8 +37,7 @@
 //   its products on the slice have finished. The ring runs on across layers,
 //   passes and tiles, so the next layer's first slices load while the current
 //   one computes and while the tile's encoding and epilogues run.
-// - Each slice is read from L2 once per 128-point tile (the mma.sync trunk
-//   read each weight once per 64-row block: twice per tile).
+// - Each slice is read from L2 once per 128-point tile.
 // - The heads (N = 8) are `wgmma` m64n8k16 on head weights that stay in
 //   shared memory for the whole kernel.
 // - Epilogue stores are generic-proxy writes that the next `wgmma` reads
@@ -89,7 +88,7 @@ struct Tiles {
   __device__ static uint32_t bytes(int i) { return i < kTrunk ? kFull : kHalf; }
 };
 
-// The 12 f32 biases in the Net layout (nerf_mlp.cuh), a kernel argument.
+// The 12 f32 biases in pack_weights' order, a kernel argument.
 struct Biases {
   const float* b[12];
 };

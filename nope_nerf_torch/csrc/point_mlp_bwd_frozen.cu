@@ -177,7 +177,7 @@ cudaError_t launch_frozen(const float* pts, const float* dirs, const float* g_rg
 // pts, dirs, g_rgb (M, 3) and g_density (M, 1) f32, contiguous on the device;
 // tiles: pack_tiles' forward weight buffer, tiles_dx: pack_tiles_dx's
 // backward buffer (both 16-byte aligned); biases: 12 f32 device pointers in
-// the Net layout. scratch: n_ctas x 128 x D bf16 (the chain's parked g4).
+// pack_weights' order. scratch: n_ctas x 128 x D bf16 (the chain's parked g4).
 // dpts, ddirs (M, 3) f32 (out). 0 < n_ctas <= the number of 128-point
 // passes. Returns a cudaError_t (0 on success); the launch is asynchronous
 // on `stream`.

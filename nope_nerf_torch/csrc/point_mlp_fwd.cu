@@ -137,7 +137,7 @@ cudaError_t launch_fwd(const float* pts, const float* dirs, const unsigned char*
 // C interface, bound with ctypes by nope_nerf_torch/ops/fused_mlp.py.
 // pts, dirs (M, 3) f32 contiguous on the device; tiles: the weight buffer of
 // fused_render.pack_tiles (16-byte aligned); biases: an array of 12 device
-// pointers in the Net layout (nerf_mlp.cuh); rgb (M, 3) and density (M, 1) f32
+// pointers in pack_weights' order; rgb (M, 3) and density (M, 1) f32
 // (out). Returns a cudaError_t (0 on success); the launch is asynchronous on
 // `stream`.
 extern "C" int nerf_point_mlp_fwd(const float* pts, const float* dirs, const void* tiles,

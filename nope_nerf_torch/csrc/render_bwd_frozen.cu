@@ -6,8 +6,8 @@
 // nope_nerf_tpu/ops/pallas_render.py::_render_bwd_kernel (reached through
 // _raw_render_bwd, the VJP of render_rays_fused). Test-time pose optimisation
 // freezes the network: each step needs the gradient of the ray table only,
-// which carries the pose's. What it computes is render_bwd.cu's full variant
-// without the dW/dB products, bit for bit: per ray, the forward (raw heads,
+// which carries the pose's. What it computes is the full variant's d(rays)
+// and dz (render_full_sm90.cuh, K4 full), bit for bit: per ray, the forward (raw heads,
 // alpha, the f32 composite), the composite backward in f32 (g_w, the
 // exclusive suffix scan of g_w w, g_alpha, the dist_alpha g_delta terms),
 // the head VJPs, the MLP's dX chain, the encoding VJP to the origin, the ray
@@ -28,7 +28,8 @@
 // The producer warpgroup streams the forward and backward weight slices in
 // that order and encodes every tile's sample positions ahead of the
 // consumers. The per-ray sums (d_o, d_v, the direction's) are taken over the
-// tiles in order, as the full variant's.
+// tiles in order. The producer, the composite forward and backward and the
+// encoding VJPs are mlp_dx_sm90.cuh's, shared with the full variant.
 //
 // Shared memory at D=256, S=128 (the pose-opt path): activations 64 KB,
 // position encodings 16 KB, heads 6 KB, masks 34 KB, f32 arrays 8.3 KB
@@ -48,48 +49,6 @@ template <int D>
 size_t frozen_f32_bytes(int S) {
   return sizeof(float) * (11 * static_cast<size_t>(S) + kDe + D / 2 + D / 2 + kConsumers + 16 +
                           16 + kPts + 16);
-}
-
-// render_fwd.cu's alpha_and_prefix90 (nerf_mlp.cuh's alpha_and_prefix over
-// the consumer threads): alpha, then the f32 exclusive Hillis-Steele prefix
-// sum of log(1 - alpha + eps). Returns the buffer holding the prefix sums.
-__device__ __forceinline__ float* alpha_prefix90(const float* hout, const float* fz, float* alpha,
-                                                 float* scan0, float* scan1, int S,
-                                                 int occ_softplus, int head_dist_alpha,
-                                                 int dist_alpha) {
-  const int tid = threadIdx.x;
-  for (int s = tid; s < S; s += kConsumers) {
-    const float sigma = density_act(hout[4 * s + 3], occ_softplus);
-    const float occ = head_dist_alpha ? sigma : 1.f - expf(-sigma);
-    float a = occ;
-    if (dist_alpha) a = (s == S - 1) ? 1.f : 1.f - expf(-occ * (fz[s + 1] - fz[s]));
-    alpha[s] = a;
-  }
-  consumer_sync();
-  for (int s = tid; s < S; s += kConsumers)
-    scan0[s] = s >= 1 ? logf(1.f - alpha[s - 1] + kEps) : 0.f;
-  consumer_sync();
-  float* src = scan0;
-  float* dst = scan1;
-  for (int d = 1; d < S; d <<= 1) {
-    for (int s = tid; s < S; s += kConsumers) dst[s] = s >= d ? src[s] + src[s - d] : src[s];
-    consumer_sync();
-    float* tmp = src;
-    src = dst;
-    dst = tmp;
-  }
-  return src;
-}
-
-// The consumer threads copy the forward buffer's w12 slice (D/2 rows of 128
-// bytes, swizzled, 32 live columns) from device memory to `dst` in shared
-// memory: a few 16-byte loads a thread in flight at once, where a chain of
-// fmaf over single loads would wait on L2 once per term. The loads pass L1
-// by (ld.global.cg), which keeps the forward's biases.
-template <int D>
-__device__ __forceinline__ void stage_w12(unsigned char* dst, const unsigned char* src) {
-  for (int e = threadIdx.x; e < D / 2 * 128 / 16; e += kConsumers)
-    reinterpret_cast<uint4*>(dst)[e] = __ldcg(reinterpret_cast<const uint4*>(src) + e);
 }
 
 template <int D>
@@ -115,43 +74,8 @@ render_bwd_frozen_kernel(const float* __restrict__ rays, const float* __restrict
 
   if (threadIdx.x >= kConsumers) {
     set_producer_regs();
-    const long long mine = (n_rays - static_cast<long long>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
-    const int etid = threadIdx.x - kConsumers - 32;
-    if (threadIdx.x == kConsumers) {
-      mbar_expect_tx(head_bar, T::kDensHead + T::kRgbHead);
-      bulk_load(heads, tiles + T::kHeads, T::kDensHead + T::kRgbHead, head_bar);
-      Feeder f{ring};
-      for (long long r = 0; r < mine; ++r) {
-        for (int p = 0; p < passes; ++p) f.forward<D>(tiles, T::kRender);
-        for (int p = 0; p < passes; ++p) {
-          if (again) f.forward<D>(tiles, T::kRender);
-          f.backward<D, false>(tiles_dx);
-        }
-      }
-    } else if (etid >= 0) {
-      // encoders: the position encodings of every forward tile in the
-      // consumers' order, o + v*z by explicitly rounded mul and add
-      unsigned char* pe = base + L.pe;
-      long long tile = 0;
-      for (long long r = blockIdx.x; r < n_rays; r += gridDim.x) {
-        float o[3], v[3];
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          o[c] = rays[r * 9 + c];
-          v[c] = rays[r * 9 + 3 + c];
-        }
-        for (int k = 0; k < (again ? 2 : 1) * passes; ++k, ++tile) {
-          wait_free(hand.pe_free, tile);
-          const float* zt = z + r * S + (k % passes) * kPts;
-          encode_tile<10, kPe>(pe, etid, [&](int p, int c) {
-            const float oc = c == 0 ? o[0] : (c == 1 ? o[1] : o[2]);
-            const float vc = c == 0 ? v[0] : (c == 1 ? v[1] : v[2]);
-            return __fadd_rn(oc, __fmul_rn(vc, zt[p]));
-          });
-          hand_over(hand.pe_full);
-        }
-      }
-    }
+    render_producer90<D>(rays, z, tiles, tiles_dx, ring, heads, head_bar, hand, base + L.pe,
+                         n_rays, S);
     return;
   }
   set_consumer_regs();
@@ -186,8 +110,6 @@ render_bwd_frozen_kernel(const float* __restrict__ rays, const float* __restrict
   unsigned char* w12 = base + L.act;
   const uint32_t pe_s = smem_addr(base + L.pe);
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, t = lane & 3;
   mbar_wait(head_bar, 0);
 
   long long tile = 0;
@@ -217,75 +139,13 @@ render_bwd_frozen_kernel(const float* __restrict__ rays, const float* __restrict
       mlp_tile_masks<D>(bias.b, pe_s, 0, base + L.act, heads, heads + T::kDensHead, debias,
                         hout + 4 * p0, hand, tile, ring, masks);
     consumer_sync();
-    const float* pre = alpha_prefix90(hout, fz, alpha, scan0, scan1, S, occ_softplus,
-                                      head_dist_alpha, dist_alpha);
-    for (int s = tid; s < S; s += kConsumers) {
-      const float tr = expf(pre[s]);
-      trans[s] = tr;
-      wts[s] = alpha[s] * tr;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) hout[4 * s + c] = 1.f / (1.f + expf(-hout[4 * s + c]));
-    }
-    consumer_sync();
+    composite_fwd90(hout, fz, alpha, trans, wts, scan0, scan1, S, occ_softplus, head_dist_alpha,
+                    dist_alpha);
 
-    // ---- composite backward (f32), nerf_bwd.cuh's backward_tail --------------
-    const float* g_rgb_ray = cot;
-    const float gd = cot[3];
-    const float* g_w_in = g_w == nullptr ? nullptr : g_w + r * S;
-    const float* g_a_in = g_a == nullptr ? nullptr : g_a + r * S;
-    for (int s = tid; s < S; s += kConsumers) {
-      float gw = g_rgb_ray[0] * hout[4 * s] + g_rgb_ray[1] * hout[4 * s + 1] +
-                 g_rgb_ray[2] * hout[4 * s + 2] + gd * fz[s];
-      if (g_w_in != nullptr) gw += g_w_in[s];
-      graw[s] = gw;                       // g_w, until g_raw replaces it below
-      scan1[s] = gw * wts[s];             // g_c = g_trans * trans
-    }
-    consumer_sync();
-    for (int s = tid; s < S; s += kConsumers) scan0[s] = s + 1 < S ? scan1[s + 1] : 0.f;
-    consumer_sync();
-    float* src = scan0;
-    float* dst = scan1;
-    for (int d = 1; d < S; d <<= 1) {
-      for (int s = tid; s < S; s += kConsumers) dst[s] = s + d < S ? src[s] + src[s + d] : src[s];
-      consumer_sync();
-      float* tmp = src;
-      src = dst;
-      dst = tmp;
-    }
-    for (int s = tid; s < S; s += kConsumers) {
-      const float gw = graw[s], a = alpha[s], w = wts[s];
-      float g_alpha = gw * trans[s] - src[s] / (1.f - a + kEps);
-      if (g_a_in != nullptr) g_alpha += g_a_in[s];
-      const float raw = hout[4 * s + 3];
-      const float sigma = density_act(raw, occ_softplus);
-      const float occ = head_dist_alpha ? sigma : 1.f - expf(-sigma);
-      float g_occ = g_alpha, g_delta = 0.f;
-      if (dist_alpha) {
-        if (s == S - 1) {
-          g_occ = 0.f;
-        } else {
-          const float delta = fz[s + 1] - fz[s];
-          const float E = expf(-occ * delta);
-          g_occ = g_alpha * delta * E;
-          g_delta = g_alpha * occ * E;
-        }
-      }
-      dst[s] = g_delta;
-      const float g_sigma = head_dist_alpha ? g_occ : g_occ * (1.f - occ);
-      const float g_raw =
-          occ_softplus ? g_sigma * (1.f / (1.f + expf(-raw))) : (raw > 0.f ? g_sigma : 0.f);
-      graw[s] = g_raw;
-      gz[s] = gd * w;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float rgb = hout[4 * s + c];
-        grgb[4 * s + c] = w * g_rgb_ray[c] * rgb * (1.f - rgb);
-      }
-    }
-    consumer_sync();
-    if (dist_alpha) {
-      for (int s = tid; s < S; s += kConsumers) gz[s] = gz[s] - dst[s] + (s > 0 ? dst[s - 1] : 0.f);
-    }
+    // ---- composite backward (f32) ---------------------------------------------
+    composite_bwd90(cot, cot[3], 0, g_w == nullptr ? nullptr : g_w + r * S,
+                    g_a == nullptr ? nullptr : g_a + r * S, hout, fz, alpha, trans, wts, scan0,
+                    scan1, graw, grgb, gz, S, occ_softplus, head_dist_alpha, dist_alpha);
     if (tid < H) ghsum[tid] = 0.f;
     if (tid < 16) rsum[tid] = 0.f;
     consumer_sync();
@@ -302,66 +162,11 @@ render_bwd_frozen_kernel(const float* __restrict__ rays, const float* __restrict
       float dpe[32];
       dx_chain<D>(dpe, base + L.act, ring, masks, gsbf, dens_head, save);
 
-      float sums[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};   // d_o xyz, d_v xyz
-      float dzr[2] = {0.f, 0.f};
-      const int m0 = 16 * warp;
-#pragma unroll
-      for (int hrow = 0; hrow < 2; ++hrow) {
-        const int m = m0 + gq + 8 * hrow;
-        const float zz = fz[p0 + m];
-        float pts[3];
-#pragma unroll
-        for (int c = 0; c < 3; ++c) pts[c] = __fadd_rn(ray[c], __fmul_rn(ray[3 + c], zz));
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-#pragma unroll
-          for (int hc = 0; hc < 2; ++hc) {
-            int c;
-            const float tv = enc_lane_grad90(dpe[4 * j + 2 * hrow + hc], pts, 8 * j + 2 * t + hc,
-                                             10, &c);
-            if (c >= 0) {
-              dzr[hrow] += tv * ray[3 + c];
-#pragma unroll
-              for (int cc = 0; cc < 3; ++cc) {
-                if (c == cc) {
-                  sums[cc] += tv;
-                  sums[3 + cc] += tv * zz;
-                }
-              }
-            }
-          }
-        }
-        dzr[hrow] += __shfl_xor_sync(0xffffffffu, dzr[hrow], 1);
-        dzr[hrow] += __shfl_xor_sync(0xffffffffu, dzr[hrow], 2);
-        if (t == 0) gz[p0 + m] += dzr[hrow];
-      }
-      block_sum90<6>(sums, red);
-      if (tid < 6) rsum[tid] += red[tid];
-      consumer_sync();
+      tile_enc_vjp90(dpe, ray, fz, gz, rsum, red, p0);
     }
 
     // ---- direction encoding, once per ray: dde = (sum_s bf16 g_h) wrde^T -----
-    stage_w12<D>(w12, tiles + T::kW12);
-    consumer_sync();
-    if (tid < kDe) {
-      float dd = 0.f;
-#pragma unroll 16
-      for (int j = 0; j < H; ++j) {
-        const bf16 wv = *reinterpret_cast<const bf16*>(w12 + swz(j, tid, 0));
-        dd = fmaf(ghsum[j], __bfloat162float(wv), dd);
-      }
-      int c;
-      red[tid] = enc_lane_grad(dd, ray + 6, tid, 4, &c);
-      red[kDe + tid] = static_cast<float>(c);
-    }
-    consumer_sync();
-    if (tid < 3) {
-      float acc = 0.f;
-      for (int k = 0; k < kDe; ++k)
-        if (static_cast<int>(red[kDe + k]) == tid) acc += red[k];
-      rsum[6 + tid] = acc;
-    }
-    consumer_sync();
+    ray_dir_vjp90<D>(w12, tiles + T::kW12, ghsum, ray, rsum, red);
     if (tid < 9) drays[r * 9 + tid] = rsum[tid];
     for (int s = tid; s < S; s += kConsumers) dz[r * S + s] = gz[s];
   }
@@ -395,7 +200,7 @@ cudaError_t launch_frozen(const float* rays, const float* z, const float* g_rgb,
 // (n_rays, 3), g_dist (n_rays) f32, contiguous on the device; g_w, g_a
 // (n_rays, S) f32 or null (a zero cotangent); tiles: pack_tiles' forward
 // weight buffer, tiles_dx: pack_tiles_dx's backward buffer (both 16-byte
-// aligned); biases: 12 f32 device pointers in the Net layout. scratch:
+// aligned); biases: 12 f32 device pointers in pack_weights' order. scratch:
 // n_ctas x 128 x D bf16 (the chain's parked g4). drays (n_rays, 9), dz
 // (n_rays, S) f32 (out). 0 < n_ctas <= n_rays. Returns a cudaError_t (0 on
 // success); the launch is asynchronous on `stream`.

@@ -57,7 +57,7 @@ size_t f32_bytes(int S) {
   return sizeof(float) * (5 * static_cast<size_t>(S) + kDe + D / 2 + 4 * kConsumerWarps + 16);
 }
 
-// nerf_mlp.cuh's alpha_and_prefix over the consumer threads: alpha[s] from the
+// Over the consumer threads: alpha[s] from the
 // raw densities hout[4s+3] and z, then the f32 exclusive Hillis-Steele prefix
 // sum of log(1 - alpha + eps), ping-ponging scan0/scan1. Returns the buffer
 // that holds the prefix sums; ends synchronised.
@@ -240,8 +240,7 @@ cudaError_t launch(const float* rays, const float* z, const unsigned char* tiles
 // C interface, bound with ctypes by nope_nerf_torch/ops/fused_render.py.
 // rays (n_rays, 9) f32 [origin | ray_vec | mlp_dir], z (n_rays, S) f32, all
 // contiguous on the device; tiles: the weight buffer of pack_tiles (16-byte
-// aligned); biases: an array of 12 device pointers in the Net layout
-// (nerf_mlp.cuh); w_out/a_out may both be null. Returns a cudaError_t (0 on
+// aligned); biases: an array of 12 device pointers in pack_weights' order; w_out/a_out may both be null. Returns a cudaError_t (0 on
 // success); the launch is asynchronous on `stream`.
 extern "C" int nerf_render_fwd(const float* rays, const float* z, const void* tiles,
                                const void* const* biases, float* rgb, float* dist, float* w_out,

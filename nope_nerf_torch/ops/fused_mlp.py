@@ -96,8 +96,9 @@ def _setup_dw(lib: ctypes.CDLL) -> None:
 POINT_MLP_FWD = CudaLibrary("point_mlp_fwd.cu", _setup_fwd)
 POINT_MLP_BWD = CudaLibrary("point_mlp_bwd.cu", _setup_bwd)
 # The weight-gradient kernel (csrc/dw_sm90.cuh). Its `launches` counts every
-# launch of it: by K6 full (point_mlp_bwd.cu's entry, once per K6 full
-# launch) and by `dw_sm90`, the kernel on its own (dw_sm90.cu).
+# launch of it: by K6 full (point_mlp_bwd.cu's entry), K1 and K4 full
+# (render_train.cu's and render_bwd.cu's), once per launch of each, and by
+# `dw_sm90`, the kernel on its own (dw_sm90.cu).
 DW_SM90 = CudaLibrary("dw_sm90.cu", _setup_dw)
 # K6's frozen-network variant (d(points), d(directions) only) on the wgmma dX
 # chain. Its `launches` counts those launches; each also counts in
@@ -171,6 +172,14 @@ def point_dw_table(D: int) -> List[Tuple[int, str, str, int, int]]:
             (3, "x2", "g3", D, D), (4, "x3", "g4", D, D), (5, "pe", "g4", PE_DIM, D),
             (6, "x4", "g5", D, D), (7, "x5", "g6", D, D), (8, "x6", "g7", D, D),
             (10, "x7", "g_feat", D, D), (11, "feat", "g_h", D, H), (12, "de", "g_h", DE_DIM, H)]
+
+
+# K1's and K4 full's (render_full_sm90.cuh): K6's table without its direction
+# block. The render kernels fold the direction into a per-ray bias, so the
+# right factor of dW[12] is a per-ray f32 sum of bf16 g_h, not a bf16 operand:
+# they form dW[12] in the chain, with dW[9] and dW[13].
+def render_dw_table(D: int) -> List[Tuple[int, str, str, int, int]]:
+    return point_dw_table(D)[:11]
 
 
 def dw_cta_tiles(Ks) -> int:

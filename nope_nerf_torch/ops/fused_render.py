@@ -8,7 +8,10 @@ depth losses and every gradient in one launch) and of pallas_mlp.py's
 `render_ray_loss_fused` launch the hand-written Hopper kernels in
 `nope_nerf_torch/csrc/render_fwd.cu`, `csrc/render_bwd.cu` (for a frozen
 network its variant `csrc/render_bwd_frozen.cu`) and `csrc/render_train.cu`,
-or raise; on a CPU tensor they run
+or raise (render_train.cu and render_bwd.cu are the two instances of one
+kernel template, `csrc/render_full_sm90.cuh`, on the wgmma dX chain, handing
+their weight-gradient products to the dW kernel of `csrc/dw_sm90.cuh`); on a
+CPU tensor they run
 `render_rays_fused_plain`, `render_rays_fused_bwd_plain` and
 `render_ray_loss_fused_plain`, the same arithmetic in plain PyTorch (inside
 `with plain_versions():`, re-exported here, they do so on any device: a
@@ -25,10 +28,9 @@ switch for checks that hold the kernels' route against the plain one):
 
 The forward kernels (render_fwd here, point_mlp_fwd in fused_mlp.py) take the
 weights as `pack_tiles`' pre-swizzled slices, the layout their wgmma trunk
-(csrc/mlp_fwd_sm90.cuh) streams into shared memory; the frozen-network
-backward variants (render_bwd_frozen here, point_mlp_bwd_frozen in
-fused_mlp.py) take those and `pack_tiles_dx`' slices of the (in, out)
-weights, the B operands of their wgmma dX chain (csrc/mlp_dx_sm90.cuh).
+(csrc/mlp_fwd_sm90.cuh) streams into shared memory; every backward kernel
+takes those and `pack_tiles_dx`' slices of the (in, out) weights, the B
+operands of its wgmma dX chain (csrc/mlp_dx_sm90.cuh).
 
 The ray table is (N, 9) [origin | ray_vec | mlp_dir]: the TPU's 128-lane
 padding is a layout of that machine and is not carried over. The train
@@ -250,9 +252,9 @@ def pack_tiles_dx(params: Dict[str, torch.Tensor], cfg: NerfConfig):
 
 
 def pack_weights_both(params: Dict[str, torch.Tensor], cfg: NerfConfig):
-    """(weights (out, in), weights (in, out), biases): the train kernel also
-    takes each bf16 weight as the params dict stores it, the operand of the
-    backward's dX = g W^T products."""
+    """(weights (out, in), weights (in, out), biases): pack_weights' bf16
+    blocks in both storages; the (in, out) one, as the params dict stores
+    each weight, is what pack_tiles_dx slices for the dX = g W^T products."""
     blocks, biases = _packed_blocks(params, cfg)
     return ([w.t().contiguous().to(torch.bfloat16) for w in blocks],
             [w.contiguous().to(torch.bfloat16) for w in blocks], biases)
@@ -452,8 +454,6 @@ TGT_WRGB = 5            # annealed rgb_weight / n_total (same value every row)
 TGT_WDEPTH = 6          # annealed depth_weight * (count>0) / max(count, 1)
 TRAIN_MAX_SAMPLES = 256   # the train kernel's shared-memory limit on S
 PLAIN_TRAIN_BLOCK_RAYS = 256
-STASH_HALF_DIMS = 19      # the kernel's activation stash per point, in units of
-                          # hidden_dim / 2: x0..x7 and feat (2 each), h (1)
 
 
 def _setup_train(lib: ctypes.CDLL) -> None:
@@ -461,8 +461,9 @@ def _setup_train(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
     lib.nerf_train_grad_layout.argtypes = [i, p]
     lib.nerf_train_grad_layout.restype = ctypes.c_int
-    lib.nerf_render_train.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p,
-                                      i, i, i, i, i, i, i, i, i, i, p]
+    lib.nerf_render_train_scratch.argtypes = [i, ctypes.c_longlong, i, i, p]
+    lib.nerf_render_train_scratch.restype = ctypes.c_int
+    lib.nerf_render_train.argtypes = [p] * 14 + [i] * 11 + [p]
     lib.nerf_render_train.restype = ctypes.c_int
     lib.nerf_error_string.argtypes = [ctypes.c_int]
     lib.nerf_error_string.restype = ctypes.c_char_p
@@ -601,7 +602,8 @@ def mlp_backward(Wf, pe, de, acts, g_rgb, g_sig, n: int, S: int,
 
 
 def _plain_backward_tail(Wf, rays, z, fwd: Dict[str, object], cfg: NerfConfig, dist_alpha: bool,
-                         g_rgb_ray, g_dist, g_w_in, g_a_in, white_bg: bool):
+                         g_rgb_ray, g_dist, g_w_in, g_a_in, white_bg: bool,
+                         taps: Optional[Dict[str, torch.Tensor]] = None):
     """Composite -> heads -> MLP -> encoding backward of one block of rays
     (pallas_render.py::_backward_tail), step by step (not autograd: autograd
     would not round the cotangents to bf16 before each product). `fwd` is
@@ -609,7 +611,8 @@ def _plain_backward_tail(Wf, rays, z, fwd: Dict[str, object], cfg: NerfConfig, d
     the rays' rgb and dist, g_w_in / g_a_in (n,S) or None those of the
     per-sample weights and alpha; white_bg folds the gradient of the
     1 - sum(weights) term in. Returns (dWs [14] stored (in, out), dBs [12],
-    drays (n,9), dz (n,S))."""
+    drays (n,9), dz (n,S)); a `taps` dict receives mlp_backward's taps and
+    the bf16-valued raw-density and raw-rgb cotangents g_sig (T,), g_rgb (T,3)."""
     n, S = z.shape
     v, d = rays[:, 3:6], rays[:, 6:9]
     pts, pe, de = fwd["pts"], fwd["pe"], fwd["de"]
@@ -642,7 +645,9 @@ def _plain_backward_tail(Wf, rays, z, fwd: Dict[str, object], cfg: NerfConfig, d
         g_raw = g_sigma * (raw > 0.0)
     g_sig = g_raw.reshape(-1)                                              # (T,)
     g_rgb = (weights[..., None] * g_rgb_ray[:, None, :] * rgb3 * (1.0 - rgb3)).reshape(-1, 3)
-    dW, dB, dpe, dde = mlp_backward(Wf, pe, de, fwd["acts"], g_rgb, g_sig, n, S)
+    dW, dB, dpe, dde = mlp_backward(Wf, pe, de, fwd["acts"], g_rgb, g_sig, n, S, True, taps)
+    if taps is not None:
+        taps.update(g_sig=bf16_round(g_sig), g_rgb=bf16_round(g_rgb))
 
     # ---- encoding backward -> ray table and z (:484-523) --------------------
     dpts = _enc_deriv_to_coords(dpe, pts, 10).reshape(n, S, 3)
@@ -734,22 +739,47 @@ def _check_backward_tensors(named, dev: torch.device) -> None:
             raise ValueError(f"{name} must be on the rays' device")
 
 
-def _pack_for_backward(params, cfg: NerfConfig, dev: torch.device):
-    """ctypes pointer arrays of both weight layouts and the biases (and the
-    tensors, which must outlive the launch)."""
-    with torch.no_grad():
-        W, Wt, B = pack_weights_both(params, cfg)
-    for t in W + Wt + B:
-        if t.device != dev:
-            raise ValueError("params must be on the rays' device")
-    return ((ctypes.c_void_p * 14)(*[w.data_ptr() for w in W]),
-            (ctypes.c_void_p * 14)(*[w.data_ptr() for w in Wt]),
-            (ctypes.c_void_p * 12)(*[b.data_ptr() for b in B]), (W, Wt, B))
-
-
 def _backward_ctas(n: int, dev: torch.device) -> int:
-    """One persistent CTA per SM, each with its own stash and partial sums."""
+    """One persistent CTA per SM, each with its own partial sums."""
     return min(n, torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+def render_operand_bytes(D: int, n_rays: int, S: int) -> Tuple[int, int]:
+    """Bytes of the X and G operands K1 and K4 full hand the dW kernel for
+    n_rays x S samples: every operand is one 128-row tile per 128 samples of
+    64-column bf16 blocks (16 KB each). X: pe (1 block), x0..x7 and feat
+    (D/64 each); G: g_h (D/128), g_feat and g7..g0 (D/64 each). At D = 256,
+    4,736 and 4,864 B a sample."""
+    tiles = n_rays * (S // PTS_PER_PASS)
+    block = PTS_PER_PASS * 2 * SWIZZLE_COLS
+    return tiles * block * (1 + 9 * (D // 64)), tiles * block * (D // 128 + 9 * (D // 64))
+
+
+def _full_scratch(scratch_fn, D: int, n: int, S: int, dev: torch.device):
+    """(n_ctas, chunks, [xops, gops, chain_part, dw_part]) for one launch of
+    K1 or K4 full: the scratch sizes from the kernel's own entry (its X and G
+    operands checked against render_operand_bytes), the dW kernel's chunks
+    of samples by fused_mlp.dw_chunks."""
+    from .fused_mlp import dw_chunks   # fused_mlp imports this module
+    n_ctas = _backward_ctas(n, dev)
+    sizes = (ctypes.c_longlong * 5)()
+    if scratch_fn(D, n, S, n_ctas, sizes) != 0:
+        raise RuntimeError("the render backward kernel reports no scratch sizes")
+    if (sizes[0], sizes[1]) != render_operand_bytes(D, n, S):
+        raise RuntimeError(f"the render backward kernel's operand sizes {sizes[0]}, {sizes[1]} "
+                           f"are not render_operand_bytes' {render_operand_bytes(D, n, S)}")
+    chunks = dw_chunks(sizes[4], n * S, torch.cuda.get_device_properties(dev).multi_processor_count)
+    scratch = [torch.empty((sizes[i],), dtype=torch.uint8, device=dev) for i in (0, 1)]
+    scratch += [torch.empty((sizes[2] // 4,), dtype=torch.float32, device=dev),
+                torch.empty((chunks * sizes[3] // 4,), dtype=torch.float32, device=dev)]
+    return n_ctas, chunks, scratch
+
+
+def _count_dw_launch() -> None:
+    """K1 and K4 full launch the dW kernel from their own C entries: one more
+    launch of it."""
+    from .fused_mlp import DW_SM90   # fused_mlp imports this module
+    DW_SM90.launches += 1
 
 
 def _grad_blocks(grads: torch.Tensor, offsets, D: int):
@@ -765,23 +795,23 @@ def _grad_blocks(grads: torch.Tensor, offsets, D: int):
 
 def _train_cuda(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p: int,
                 white_bg: bool):
-    """(sums, dWs, dBs, drays, dz, dtgt) by one launch of the train kernel."""
+    """(sums, dWs, dBs, drays, dz, dtgt) by one launch of the train kernel:
+    its C entry issues the chain, the in-order sum of the chain's partial
+    sums and the dW kernel (with its in-order sum of the chunks)."""
     n, S = z.shape
     D = cfg.hidden_dim
     _check_backward_shapes("train", S, D)
     dev = rays.device
     rays, z, tgt = (t.detach() for t in (rays, z, tgt))
     _check_backward_tensors((("rays", rays), ("z", z), ("tgt", tgt)), dev)
-    wptrs, wtptrs, bptrs, _keep = _pack_for_backward(params, cfg, dev)
+    tiles, tiles_dx, _B, bptrs = _packed_tiles_on(params, cfg, dev)
     lib = RENDER_TRAIN.lib()
     offsets = (ctypes.c_int * 27)()
     total = lib.nerf_train_grad_layout(D, offsets)
     if total <= 0:
         raise RuntimeError("the train kernel reports no gradient layout")
-    n_ctas = _backward_ctas(n, dev)
+    n_ctas, chunks, scratch = _full_scratch(lib.nerf_render_train_scratch, D, n, S, dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    stash = torch.empty((n_ctas, S, STASH_HALF_DIMS * D // 2), dtype=torch.bfloat16, device=dev)
-    partials = torch.empty((n_ctas, total), **f32)
     grads = torch.empty((total,), **f32)
     drays = torch.empty((n, RAY_DIM), **f32)
     dz = torch.empty((n, S), **f32)
@@ -789,15 +819,16 @@ def _train_cuda(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p: 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nerf_render_train(
-            rays.data_ptr(), z.data_ptr(), tgt.data_ptr(), wptrs, wtptrs, bptrs,
-            stash.data_ptr(), partials.data_ptr(), grads.data_ptr(), drays.data_ptr(),
-            dz.data_ptr(), dtgt.data_ptr(), n, S, D, n_ctas,
+            rays.data_ptr(), z.data_ptr(), tgt.data_ptr(), tiles.data_ptr(), tiles_dx.data_ptr(),
+            bptrs, *[t.data_ptr() for t in scratch], grads.data_ptr(), drays.data_ptr(),
+            dz.data_ptr(), dtgt.data_ptr(), n, S, D, n_ctas, chunks,
             int(cfg.occ_activation == "softplus"), int(cfg.dist_alpha), int(dist_alpha),
             int(rgb_p), int(white_bg), total, stream)
     if err != 0:
         raise RuntimeError("train kernel launch failed: "
                            + lib.nerf_error_string(err).decode())
     RENDER_TRAIN.launches += 1
+    _count_dw_launch()
     dWs, dBs = _grad_blocks(grads, offsets, D)
     sums = grads[offsets[26]:offsets[26] + 3]
     return sums, dWs, dBs, drays, dz, dtgt
@@ -873,7 +904,9 @@ def _setup_bwd(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
     lib.nerf_bwd_grad_layout.argtypes = [i, p]
     lib.nerf_bwd_grad_layout.restype = ctypes.c_int
-    lib.nerf_render_bwd.argtypes = [p] * 14 + [i] * 8 + [p]
+    lib.nerf_render_bwd_scratch.argtypes = [i, ctypes.c_longlong, i, i, p]
+    lib.nerf_render_bwd_scratch.restype = ctypes.c_int
+    lib.nerf_render_bwd.argtypes = [p] * 16 + [i] * 9 + [p]
     lib.nerf_render_bwd.restype = ctypes.c_int
     lib.nerf_error_string.argtypes = [ctypes.c_int]
     lib.nerf_error_string.restype = ctypes.c_char_p
@@ -952,11 +985,50 @@ def render_rays_fused_bwd_plain(params, rays: torch.Tensor, z: torch.Tensor,
         return _bwd_plain(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg, dist_alpha, dtype)
 
 
+def render_dw_operands(params, rays: torch.Tensor, z: torch.Tensor, g_rgb: torch.Tensor,
+                       g_dist: torch.Tensor, g_w: Optional[torch.Tensor],
+                       g_a: Optional[torch.Tensor], cfg: NerfConfig, dist_alpha: bool = False,
+                       white_bg: bool = False):
+    """The operands of K1's and K4 full's weight gradients as the plain
+    backward forms them, for one block of at most PLAIN_TRAIN_BLOCK_RAYS rays
+    at the cotangents of render_rays_fused_bwd_plain (with white_bg, K1's:
+    the background's term folded into g_w as the train kernel does). Returns
+    (X, G, chain): X and G dicts of bf16-valued f32 (n S, width) tensors
+    named as in fused_mlp.render_dw_table (X: pe, x0..x7, feat; G: g_h,
+    g_feat, g7..g0), rows in the kernels' row-tile order (sample s of ray r
+    at r S + s); chain holds the factors of the blocks the kernels keep in
+    their chain: x7, g_sig (dW[9] = x7^T g_sig), h, g_rgb (the raw rgb's
+    cotangent, dW[13] = h^T g_rgb), de (n, 32) and ghsum (n, D/2), the sum
+    of each ray's bf16 g_h (dW[12] = de^T ghsum)."""
+    _check_bwd_inputs(rays, z, g_rgb, g_dist, g_w, g_a)
+    n, S = z.shape
+    if n > PLAIN_TRAIN_BLOCK_RAYS:
+        raise ValueError(f"at most {PLAIN_TRAIN_BLOCK_RAYS} rays, got {n}")
+    with torch.no_grad():
+        W, B = pack_weights(params, cfg)
+        Wf = [w.to(torch.float32) for w in W]
+        rays, z, g_rgb, g_dist = (t.detach().to(torch.float32) for t in (rays, z, g_rgb, g_dist))
+        g_w, g_a = (None if g is None else g.detach().to(torch.float32) for g in (g_w, g_a))
+        fwd = _plain_forward(Wf, B, rays, z, cfg, dist_alpha)
+        taps: Dict[str, torch.Tensor] = {}
+        _plain_backward_tail(Wf, rays, z, fwd, cfg, dist_alpha, g_rgb, g_dist, g_w, g_a,
+                             white_bg, taps)
+        acts = fwd["acts"]
+        X = {"pe": fwd["pe"], "feat": acts[8]}
+        X.update({f"x{i}": acts[i] for i in range(8)})
+        G = {k: v for k, v in taps.items() if k not in ("g_sig", "g_rgb")}
+        H = cfg.hidden_dim // 2
+        chain = {"x7": acts[7], "g_sig": taps["g_sig"], "h": acts[9], "g_rgb": taps["g_rgb"],
+                 "de": fwd["de"], "ghsum": taps["g_h"].reshape(n, S, H).sum(dim=1)}
+        return X, G, chain
+
+
 def _render_bwd_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig,
                      dist_alpha: bool, want_param_grads: bool = True):
-    """(dWs, dBs, drays, dz) by one launch of the render-backward kernel. With
-    want_param_grads=False its frozen-network variant runs (render_bwd_frozen.cu,
-    the wgmma dX chain): no dW/dB, and dWs, dBs are None."""
+    """(dWs, dBs, drays, dz) by one launch of the render-backward kernel (its
+    C entry issues the chain, the in-order sum of its partials and the dW
+    kernel). With want_param_grads=False its frozen-network variant runs
+    (render_bwd_frozen.cu): no dW/dB, and dWs, dBs are None."""
     n, S = z.shape
     D = cfg.hidden_dim
     _check_backward_shapes("render-backward", S, D)
@@ -970,16 +1042,14 @@ def _render_bwd_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig,
         drays, dz = _render_bwd_frozen_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg,
                                             dist_alpha)
         return None, None, drays, dz
-    wptrs, wtptrs, bptrs, _keep = _pack_for_backward(params, cfg, dev)
+    tiles, tiles_dx, _B, bptrs = _packed_tiles_on(params, cfg, dev)
     lib = RENDER_BWD.lib()
     offsets = (ctypes.c_int * 26)()
     total = lib.nerf_bwd_grad_layout(D, offsets)
     if total <= 0:
         raise RuntimeError("the render-backward kernel reports no gradient layout")
-    n_ctas = _backward_ctas(n, dev)
+    n_ctas, chunks, scratch = _full_scratch(lib.nerf_render_bwd_scratch, D, n, S, dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    stash = torch.empty((n_ctas, S, STASH_HALF_DIMS * D // 2), dtype=torch.bfloat16, device=dev)
-    partials = torch.empty((n_ctas, total), **f32)
     grads = torch.empty((total,), **f32)
     drays = torch.empty((n, RAY_DIM), **f32)
     dz = torch.empty((n, S), **f32)
@@ -991,14 +1061,15 @@ def _render_bwd_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nerf_render_bwd(
             rays.data_ptr(), z.data_ptr(), g_rgb.data_ptr(), g_dist.data_ptr(), ptr(g_w),
-            ptr(g_a), wptrs, wtptrs, bptrs, stash.data_ptr(), partials.data_ptr(),
-            grads.data_ptr(), drays.data_ptr(), dz.data_ptr(), n, S, D, n_ctas,
-            int(cfg.occ_activation == "softplus"), int(cfg.dist_alpha), int(dist_alpha),
-            total, stream)
+            ptr(g_a), tiles.data_ptr(), tiles_dx.data_ptr(), bptrs,
+            *[t.data_ptr() for t in scratch], grads.data_ptr(), drays.data_ptr(), dz.data_ptr(),
+            n, S, D, n_ctas, chunks, int(cfg.occ_activation == "softplus"),
+            int(cfg.dist_alpha), int(dist_alpha), total, stream)
     if err != 0:
         raise RuntimeError("render-backward kernel launch failed: "
                            + lib.nerf_error_string(err).decode())
     RENDER_BWD.launches += 1
+    _count_dw_launch()
     dWs, dBs = _grad_blocks(grads, offsets, D)
     return dWs, dBs, drays, dz
 
@@ -1016,8 +1087,8 @@ def _packed_tiles_on(params, cfg: NerfConfig, dev: torch.device):
 
 def _render_bwd_frozen_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig,
                             dist_alpha: bool):
-    """(drays, dz) by one launch of K4's frozen-network variant: no stash, no
-    partial sums; a per-CTA scratch of 128 x D bf16 holds the chain's g4."""
+    """(drays, dz) by one launch of K4's frozen-network variant: no operands,
+    no partial sums; a per-CTA scratch of 128 x D bf16 holds the chain's g4."""
     n, S = z.shape
     D = cfg.hidden_dim
     dev = rays.device

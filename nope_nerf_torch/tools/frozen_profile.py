@@ -55,7 +55,7 @@ extern "C" int marks_copy(void* dst) {{
 
 # (anchor, text, before): the text goes before the anchor when `before`, else after it.
 _HEADER = [
-    ("  mbar_wait(hand.pe_full, parity);\n  {", "\n    MARK(1);", False),
+    ("  mbar_wait(hand.pe_full, parity);\n  save(0, wg);\n  {", "\n    MARK(1);", False),
     ("    store_act_mask<D, true>(acc, act_g, masks);\n    wg_sync(wg);", "\n    MARK(2);", False),
     ("      store_act_mask<D, true>(acc, act_g, masks + l * LW);\n      wg_sync(wg);",
      "\n      if (l == 4) MARK(3);", False),
@@ -67,18 +67,18 @@ _HEADER = [
     ("  __threadfence_block();   // g4's", "  MARK(22);\n", True),
     ("  ring_products<64>(dpe, act_s, D / 64, 4, ring);   // g0 W0", "\n  MARK(23);", False),
     ("    fence_proxy_async();\n  }\n  wg_sync(wg);", "\n  MARK(24);", False),
+    ("  block_sum90<6>(sums, red);\n  if (tid < 6) rsum[tid] += red[tid];", "  MARK(26);\n", True),
 ]
 _K4 = [
     ("    consumer_sync();   // the previous ray is done with every buffer",
      "\n    ITEM((r - blockIdx.x) / gridDim.x);\n    MARK(0);", False),
     ("    // ---- forward: every tile's raw heads", "    MARK(10);\n", True),
-    ("    const float* pre = alpha_prefix90(", "    MARK(6);\n", True),
+    ("    composite_fwd90(hout, fz, alpha,", "    MARK(6);\n", True),
     ("    // ---- heads -> MLP -> encoding, tile by tile", "    MARK(11);\n", True),
     ("      rgb_head_bwd<D>(base + L.act, grgb", "      MARK(12);\n", True),
     ("      float dpe[32];", "      MARK(13);\n", True),
     ("      dx_chain<D>(dpe, base + L.act, ring, masks, gsbf, dens_head, save);", "\n      MARK(25);",
      False),
-    ("      block_sum90<6>(sums, red);", "      MARK(26);\n", True),
     ("    // ---- direction encoding, once per ray", "    MARK(27);\n", True),
     ("    if (tid < 9) drays[r * 9 + tid] = rsum[tid];", "    MARK(28);\n", True),
 ]

@@ -56,7 +56,7 @@ _GH_SAVE = """    copy_rows_async(base + L.act + wg * kWgRowBytes, save.tiles.g(
 _NOSUM = [("store_dx<N, MASK, RANK1, false, true>", "store_dx<N, MASK, RANK1, false, false>"),
           ("""  for (int c = threadIdx.x & 127; c < N; c += 128)
     bsum[c] += red_wg[c] + red_wg[N + c] + red_wg[2 * N + c] + red_wg[3 * N + c];""", "")]
-_W9 = ("    if (tid < D) {   // dW[9]", "    if (tid < 0) {   // dW[9]")
+_W9 = ("    density_head_dw<D>(save.tiles, gsbf, part0);\n", "")
 VARIANTS = {
     "base": [],
     "sync": [(_X_SAVE, "    copy_rows(src, dst, Operands<D>::xblocks(i));"),
@@ -74,16 +74,21 @@ VARIANTS = {
 
 
 def _variant_library(name: str, patches) -> CudaLibrary:
-    """point_mlp_bwd.cu with `patches` applied, in a directory of its own."""
-    source = (CSRC_DIR / "point_mlp_bwd.cu").read_text()
+    """point_mlp_bwd.cu and the hand-off header it includes
+    (mlp_dw_chain_sm90.cuh) with `patches` applied, in a directory of their
+    own: the source's quoted include finds the patched header beside it."""
+    files = {f: (CSRC_DIR / f).read_text() for f in ("point_mlp_bwd.cu", "mlp_dw_chain_sm90.cuh")}
     for old, new in patches:
-        if old not in source:
+        hits = [f for f, text in files.items() if old in text]
+        if not hits:
             raise RuntimeError(f"variant {name}: the kernel no longer has the code it ablates")
-        source = source.replace(old, new)
+        for f in hits:
+            files[f] = files[f].replace(old, new)
     d = BUILD_DIR / "k6_ablation" / name
     d.mkdir(parents=True, exist_ok=True)
     # the variant's name in the source keeps its library apart from the others'
-    (d / "point_mlp_bwd.cu").write_text(f"// K6 variant: {name}\n" + source)
+    for f, text in files.items():
+        (d / f).write_text(f"// K6 variant: {name}\n" + text)
     return CudaLibrary(str(d / "point_mlp_bwd.cu"), fused_mlp._setup_bwd)
 
 

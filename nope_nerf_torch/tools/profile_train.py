@@ -1,20 +1,13 @@
 """Where a train step's time goes on the card: `python3 -m nope_nerf_torch.tools.profile_train`
 from the root of a checkout, on a machine with one NVIDIA GPU.
 
-1. Sets up chip_smoke.py's train path (default config, 188x621 4-frame
-   synthetic scene, 1024 rays) and profiles 4 steps of Trainer.run_steps with
-   torch.profiler: device time by kernel, host API calls (launches, copies,
-   blocking syncs) and device kernels per step, and the device's idle share.
-   Then the same for the unfused train step (depth_loss_type invariant) and
-   for a test-time pose-optimisation step, both through render_fwd and
-   render_bwd.
-2. Times the train kernel at 1024 rays x 128 samples beside two variants of
-   its source built on the spot: `no_dw_traffic` keeps the dW products but
-   neither reads nor writes the per-CTA partial buffer, `store_only` writes it
-   without reading. The differences are what the partial sums' trip through
-   device memory costs. (The variants' gradients are wrong by construction:
-   they exist to be timed.)
-Prints plain text; PERF.md quotes it.
+Sets up chip_smoke.py's train path (default config, 188x621 4-frame
+synthetic scene, 1024 rays) and profiles 4 steps of Trainer.run_steps with
+torch.profiler: device time by kernel, host API calls (launches, copies,
+blocking syncs) and device kernels per step, and the device's idle share.
+Then the same for the unfused train step (depth_loss_type invariant) and
+for a test-time pose-optimisation step, both through render_fwd and
+render_bwd. Prints plain text; PERF.md quotes it.
 """
 
 from __future__ import annotations
@@ -24,19 +17,6 @@ import sys
 import time
 
 STEPS = 4
-_RMW = ("        float2 v0 = *p0, v1 = *p1;\n        v0.x += acc[a][b][0];\n"
-        "        v0.y += acc[a][b][1];\n        v1.x += acc[a][b][2];\n"
-        "        v1.y += acc[a][b][3];\n        *p0 = v0;\n        *p1 = v1;")
-_VARIANTS = {
-    "as_built": (None, None),
-    # a store the compiler cannot drop and the data never takes
-    "no_dw_traffic": (_RMW, "        if (acc[a][b][0] == 1234.5f) { *p0 = make_float2(acc[a][b][0], "
-                            "acc[a][b][1]); *p1 = make_float2(acc[a][b][2], acc[a][b][3]); }"),
-    "store_only": ("        float2 v0 = *p0, v1 = *p1;",
-                   "        float2 v0 = make_float2(0.f, 0.f), v1 = v0;"),
-}
-
-
 def _self_device_us(event) -> float:
     """An averaged event's own device time; the attribute was renamed between
     PyTorch releases."""
@@ -52,8 +32,9 @@ def _device_us(prof, needle: str) -> float:
     return sum(_self_device_us(e) for e in events) / max(sum(e.count for e in events), 1)
 
 
-KERNELS = ("render_train_kernel", "render_bwd_kernel", "render_fwd_kernel",
-           "reduce_partials_kernel", "chamfer_bidir_kernel")
+# K1 and K4 full are both render_full_kernel (its LOSS and plain instances)
+KERNELS = ("render_full_kernel", "render_bwd_frozen_kernel", "render_fwd_kernel",
+           "chain_reduce_kernel", "dw_sm90_kernel", "dw_reduce_kernel", "chamfer_bidir_kernel")
 
 
 def profile_steps(torch, run, steps: int, label: str, table: bool = False) -> None:
@@ -117,50 +98,6 @@ def profile_paths(torch, np, dev) -> None:
     profile_steps(torch, pose_steps, STEPS, "pose-opt step")
 
 
-def time_variants(torch, dev) -> None:
-    import chip_smoke
-    from torch.profiler import ProfilerActivity, profile
-    from ..models.nerf import NerfConfig, init_nerf_params
-    from ..ops import fused_render as F
-    from ..ops._build import BUILD_DIR, CSRC_DIR, CudaLibrary, build_all
-    # the products the variants patch live in the shared header: inline it
-    include = '#include "nerf_bwd.cuh"'
-    src = (CSRC_DIR / "render_train.cu").read_text()
-    if include not in src:
-        raise RuntimeError("render_train.cu no longer includes nerf_bwd.cuh")
-    src = src.replace(include, (CSRC_DIR / "nerf_bwd.cuh").read_text())
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    libs = {}
-    for name, (old, new) in _VARIANTS.items():
-        text = src if old is None else src.replace(old, new)
-        if old is not None and text == src:
-            raise RuntimeError(f"variant {name}: its pattern is not in render_train.cu")
-        path = BUILD_DIR / f"render_train_{name}.cu"
-        path.write_text(text)
-        libs[name] = CudaLibrary(str(path), F._setup_train)
-    build_all(list(libs.values()))
-    gen = torch.Generator().manual_seed(3)
-    cfg = NerfConfig(hidden_dim=256, use_pallas=True)
-    params = init_nerf_params(cfg, gen, device=dev)
-    params["density_b"] = params["density_b"] + chip_smoke.DENSITY_SHIFT
-    rays, z, tgt = chip_smoke.train_inputs(torch, dev, gen, chip_smoke.TRAIN_RAYS)
-    as_built = F.RENDER_TRAIN
-    try:
-        for name, lib in libs.items():
-            F.RENDER_TRAIN = lib
-            for _ in range(2):
-                F._train_cuda(params, rays, z, tgt, cfg, False, 1, False)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    F._train_cuda(params, rays, z, tgt, cfg, False, 1, False)
-                torch.cuda.synchronize()
-            print(f"render_train_kernel, {chip_smoke.TRAIN_RAYS} rays x 128, variant {name}: "
-                  f"{_device_us(prof, 'render_train_kernel'):.0f} us")
-    finally:
-        F.RENDER_TRAIN = as_built
-
-
 def main() -> int:
     import subprocess
     import numpy as np
@@ -173,7 +110,6 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     profile_paths(torch, np, dev)
-    time_variants(torch, dev)
     return 0
 
 

@@ -119,7 +119,7 @@ def _train_case(dev, n, S, hidden, seed=0, **flags):
     mask = (torch.arange(n) % 3 != 0).to(dev)
     tgt = F.pack_targets(torch.rand(n, 3, generator=gen).to(dev),
                          (1 + 4 * torch.rand(n, generator=gen)).to(dev), mask, 0.7 / n,
-                         0.3 / float(mask.sum()))
+                         0.3 / max(float(mask.sum()), 1.0))       # one ray: an empty mask
     return params, rays, z, tgt, ncfg
 
 
@@ -278,6 +278,51 @@ def test_render_bwd_frozen_variant(cuda_device, hidden, S, occ, head_dist_alpha,
         assert torch.equal(drays, full[2]) and torch.equal(dz, full[3])
     ref = F.render_rays_fused_bwd_plain(params, rays, z, *cot, ncfg, dist_alpha)
     _assert_grads_close(dict(rays=runs[0][2], z=runs[0][3]), dict(rays=ref[2], z=ref[3]))
+
+
+@pytest.mark.parametrize("n_rays", [1, 133, 301])
+@pytest.mark.parametrize("S", [128, 256])
+@pytest.mark.parametrize("hidden", [128, 256])
+def test_render_bwd_full_dx_equals_the_frozen_variant(cuda_device, hidden, S, n_rays):
+    """K4 full (render_full_sm90.cuh: the chain that also saves the operands
+    of its dW products) gives the frozen variant's d(rays) and dz bit for
+    bit: the same dX chain and the same per-ray pieces. It launches the dW
+    kernel once, the frozen variant never. 1 ray: one CTA; 133: one CTA
+    takes a second ray; 301: three rays on some CTAs, two on the others."""
+    params, rays, z, tgt, ncfg = _train_case(cuda_device, n_rays, S, hidden, seed=5, spread=0.5,
+                                             far=6.0)
+    cot = _bwd_cotangents(params, rays, z, tgt, ncfg, False, True)
+    before = M.DW_SM90.launches
+    full = F._render_bwd_cuda(params, rays, z, *cot, ncfg, False)
+    assert M.DW_SM90.launches == before + 1
+    frozen = F._render_bwd_cuda(params, rays, z, *cot, ncfg, False, want_param_grads=False)
+    assert M.DW_SM90.launches == before + 1
+    assert torch.equal(full[2], frozen[2]) and torch.equal(full[3], frozen[3])
+    assert all(torch.isfinite(t).all() for t in (*full[0], *full[1]))
+
+
+def _flat(out):
+    return [t for item in out for t in (item if isinstance(item, (list, tuple)) else [item])]
+
+
+@pytest.mark.parametrize("kernel", ["render_train", "render_bwd"])
+def test_render_full_kernels_bit_equal_and_launch_the_dw_kernel_once(cuda_device, kernel):
+    """K1 and K4 full: two launches give the same bits (no float atomics in
+    the chain, its partial sums or the dW kernel), and each launch of either
+    launches the dW kernel once."""
+    params, rays, z, tgt, ncfg = _train_case(cuda_device, 301, 256, 256, seed=6)
+    if kernel == "render_train":
+        lib = F.RENDER_TRAIN
+        run = lambda: F._train_cuda(params, rays, z, tgt, ncfg, False, 2, True)   # noqa: E731
+    else:
+        lib = F.RENDER_BWD
+        cot = _bwd_cotangents(params, rays, z, tgt, ncfg, False, True)
+        run = lambda: F._render_bwd_cuda(params, rays, z, *cot, ncfg, False)    # noqa: E731
+    before = (lib.launches, M.DW_SM90.launches)
+    a, b = run(), run()
+    assert (lib.launches - before[0], M.DW_SM90.launches - before[1]) == (2, 2)
+    for x, y in zip(_flat(a), _flat(b)):
+        assert torch.equal(x, y)
 
 
 def test_render_rays_fused_differentiates_on_card(cuda_device):
