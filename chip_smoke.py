@@ -8,7 +8,8 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    flags it takes: render_fwd (K3), render_train (K1, with the bit-equality
    of two launches), render_bwd (K4: two cotangent sets, bit-equality, its
    frozen-network variant, and the train kernel's own cotangents fed through
-   it), chamfer_bidir (K2, by matched distances), point_mlp_fwd (K5) and
+   it), chamfer_bidir (K2, by matched distances, and two launches
+   bit-equal), point_mlp_fwd (K5) and
    point_mlp_bwd (K6, with the bit-equality of two launches and its
    frozen-network variant's d(points), d(directions) equal to the full
    one's), the last two at the fine pass's point count made ragged, the
@@ -16,7 +17,8 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    full, on its own over every block shape of K6's table at 1, 127, 128 and
    that many points, with two launches bit-equal), and
    chamfer_nearest (K7: d2 and indices bit-equal at the LLFF and Tanks train steps' 47,628- and
-   32,400-point clouds, ragged shapes and a lattice; nearest_dists' gradient);
+   32,400-point clouds, ragged shapes, a lattice and clouds with exact duplicates across
+   every segment edge of its grid, two launches bit-equal; nearest_dists' gradient);
 3. drives the render path: nope_nerf_torch.cli.render.render on the synthetic
    driving scene at V-KITTI's 188x621, from a checkpoint the port wrote with
    seeded random weights at the full model width; checks that its kernel
@@ -60,8 +62,10 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    resize_factor 1, not as 3024x4032 originals minified by 4;
 8. times each path and each kernel at its main path's shapes (CUDA events;
    dw_sm90 also on its own over K1's and K4 full's 11 blocks, beside the
-   bytes of the operands those kernels hand it), prints one `kernels` JSON
-   line and, last, {"ok": true, "device": {...}}.
+   bytes of the operands those kernels hand it; K2 and K7 through their
+   wrappers and as the bare C call, beside their FLOP bound and the issue
+   floor of their hot loop's SASS), prints one `kernels` JSON line and, last,
+   {"ok": true, "device": {...}}.
 It exits non-zero, and prints no result, when CUDA is missing, outside a
 checkout, or when any phase fails. It imports nothing of JAX.
 """
@@ -216,6 +220,18 @@ def bound(flops: float, peak_flops: float, nbytes: float):
 
 def numel_bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def issue_floor_text(sass, pairs: int, kernel_ms: float) -> str:
+    """The issue floor of a Chamfer sweep: its hot loop's SASS instructions per
+    pair (nope_nerf_torch/tools/chamfer_profile.py) at 132 SMs x 4
+    warp-instructions a clock x 1.98 GHz."""
+    from nope_nerf_torch.tools.chamfer_profile import issue_floor_ms
+    if sass is None:
+        return "issue floor not measured (no cuobjdump, or no hot loop found)"
+    floor = issue_floor_ms(sass[0], pairs)
+    return (f"{sass[0]:.2f} SASS instructions per pair in the hot loop -> issue floor "
+            f"{floor:.4f} ms (kernel alone {kernel_ms / floor:.2f} x)")
 
 
 def check_render_fwd(torch, dev, gen) -> float:
@@ -671,7 +687,41 @@ def check_chamfer(torch, dev, gen) -> float:
                            "without near-ties")
     print(f"chamfer_bidir vs plain, {len(lattice)} lattice points without near-ties: "
           f"indices equal")
+    # the partials leave no trace of the order the blocks ran in
+    x, y = cases[0][1]
+    first, again = nearest_idx_bidirectional(x, y), nearest_idx_bidirectional(x, y)
+    same = all(torch.equal(a, b) and a.dtype == torch.int64 for a, b in zip(first, again))
+    print(f"chamfer_bidir, {cases[0][0]}: two launches bit-equal, int64 indices: {same}")
+    if not same:
+        raise RuntimeError("chamfer_bidir: two launches differ")
     return worst
+
+
+def edge_duplicate_clouds(torch, gen, s: int, d: int):
+    """Two random clouds (s,3), (d,3) in which, for each cloud as dst, the
+    point before every segment edge of K7's grid (ops/chamfer.py::
+    nearest_geometry) is copied onto the point after it, and one point of the
+    other cloud is moved to 1e-3 from that pair: an exact tie across the edge,
+    which the earlier segment must win. Returns (x, y, {direction: (src rows,
+    the dst indices they must get)})."""
+    from nope_nerf_torch.ops.chamfer import nearest_geometry
+    x = torch.rand(s, 3, generator=gen) * 6 - 3
+    y = torch.rand(d, 3, generator=gen) * 6 - 3
+    edges = {}
+    for direction, src, dst in (("x->y", x, y), ("y->x", y, x)):
+        seg = nearest_geometry(src.shape[0], dst.shape[0]).seg_len
+        edges[direction] = torch.arange(seg, dst.shape[0], seg)
+        dst[edges[direction]] = dst[edges[direction] - 1]
+    pinned = {}
+    for direction, other, src, dst in (("x->y", "y->x", x, y), ("y->x", "x->y", y, x)):
+        # src rows that hold no duplicate of the other direction
+        taken = set(edges[other].tolist()) | set((edges[other] - 1).tolist())
+        rows = torch.tensor([i for i in range(src.shape[0]) if i not in taken]
+                            [:len(edges[direction])], dtype=torch.int64)
+        e = edges[direction][:len(rows)]
+        src[rows] = dst[e] + torch.tensor([1e-3, 0.0, 0.0])
+        pinned[direction] = (rows, e - 1)
+    return x, y, pinned
 
 
 def check_chamfer_nearest(torch, dev, gen) -> float:
@@ -696,17 +746,33 @@ def check_chamfer_nearest(torch, dev, gen) -> float:
              ("5 x 40000", ((torch.rand(5, 3, generator=gen) * 6 - 3).to(dev),
                             (torch.rand(40000, 3, generator=gen) * 6 - 3).to(dev))),
              (f"{len(lattice)} lattice points", (lx, ly))]
+    # its own generator: the phases after it draw the inputs they drew before it existed
+    egen = torch.Generator().manual_seed(SEED + 13)
+    edge_pinned = {}
+    for s, d in ((47628, 47628), (300, 40000)):
+        x, y, pinned = edge_duplicate_clouds(torch, egen, s, d)
+        cases.append((f"{s} x {d} with duplicates across every segment edge",
+                      (x.to(dev), y.to(dev))))
+        edge_pinned[cases[-1][0]] = pinned
     worst = 0.0
     for name, (x, y) in cases:
         for direction, src, dst in (("x->y", x, y), ("y->x", y, x)):
             d2_k, i_k = nearest_idx(src, dst)
+            d2_a, i_a = nearest_idx(src, dst)
             torch.cuda.synchronize()
             d2_p, i_p = nearest_idx_plain(src, dst)
             same_i, same_d2 = torch.equal(i_k, i_p), torch.equal(d2_k, d2_p)
+            again = torch.equal(i_a, i_k) and torch.equal(d2_a, d2_k)
             worst = max(worst, float((d2_k - d2_p).abs().max()))
-            print(f"chamfer_nearest vs plain, {name} {direction}: indices equal {same_i}, d2 "
-                  f"bit-equal {same_d2}")
-            if not (same_i and same_d2):
+            line = (f"chamfer_nearest vs plain, {name} {direction}: indices equal {same_i}, d2 "
+                    f"bit-equal {same_d2}, two launches bit-equal {again}")
+            if name in edge_pinned:
+                src_rows, want = edge_pinned[name][direction]
+                lowest = torch.equal(i_k[src_rows.to(dev)].cpu(), want)
+                line += f", the lower of each duplicate pair wins {lowest}"
+                same_i = same_i and lowest
+            print(line)
+            if not (same_i and same_d2 and again):
                 raise RuntimeError(f"chamfer_nearest differs from its plain version ({name}, "
                                    f"{direction}): worst d2 gap {worst}")
     x, y = cases[1][1]
@@ -1578,9 +1644,11 @@ def main() -> int:
     from nope_nerf_torch.evaluation.extract import render_trajectory
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
     from nope_nerf_torch.ops._build import build_all
-    from nope_nerf_torch.ops.chamfer import (CHAMFER_BIDIR, CHAMFER_NEAREST, nearest_idx,
-                                             nearest_idx_bidirectional,
+    from nope_nerf_torch.ops.chamfer import (CHAMFER_BIDIR, CHAMFER_NEAREST, _bidir_buffers,
+                                             _bidir_launch, _nearest_buffers, _nearest_launch,
+                                             nearest_idx, nearest_idx_bidirectional,
                                              nearest_idx_bidirectional_plain, nearest_idx_plain)
+    from nope_nerf_torch.tools.chamfer_profile import sweep_instructions_per_pair
     from nope_nerf_torch.ops.fused_mlp import (DW_SM90, POINT_MLP_BWD, POINT_MLP_BWD_FROZEN,
                                                POINT_MLP_FWD, _mlp_bwd_cuda, _mlp_fwd_cuda,
                                                dw_chunks, dw_cta_tiles, dw_plain, dw_sm90,
@@ -1780,7 +1848,12 @@ def main() -> int:
           f"end to end")
 
     cx, cy = depth_lifted_clouds(torch, dev, gen, h // mc.pc_ratio, w // mc.pc_ratio)
+    # the wrapper (its two device launches and the allocations), and the bare C call
+    # on buffers allocated once
     chamfer_ms = time_ms(lambda: nearest_idx_bidirectional(cx, cy), 20)
+    kx, ky = cx.contiguous(), cy.contiguous()
+    c_bufs = _bidir_buffers(kx, ky)
+    chamfer_kernel_ms = time_ms(lambda: _bidir_launch(kx, ky, *c_bufs), 20)
     chamfer_plain_ms = time_ms(lambda: nearest_idx_bidirectional_plain(cx, cy), 3)
 
     def library_sweep():
@@ -1789,12 +1862,14 @@ def main() -> int:
     chamfer_lib_ms = time_ms(library_sweep, 10)
     pairs = cx.shape[0] * cy.shape[0]
     c_flops = 8 * pairs            # 3 FMAs and 2 adds per pair, in f32 outside the tensor cores
-    c_bytes = 16 * (cx.shape[0] + cy.shape[0])   # 12 bytes in, one int32 index out, per point
+    c_bytes = 20 * (cx.shape[0] + cy.shape[0])   # 12 bytes in, one int64 index out, per point
     c_bound, c_by, _, _ = bound(c_flops, PEAK_F32_FLOPS, c_bytes)
-    print(f"chamfer_bidir {cx.shape[0]} x {cy.shape[0]}: {chamfer_ms * 1e3:.1f} us with its two "
-          f"fills and index masks, plain version {chamfer_plain_ms:.2f} ms, torch.cdist + two "
-          f"mins {chamfer_lib_ms:.3f} ms; {pairs / 1e6:.1f} M pairs -> bound "
-          f"{c_bound * 1e3:.1f} us by {c_by}: launch-bound at this size")
+    c_sass = sweep_instructions_per_pair(CHAMFER_BIDIR, "chamfer_bidir")
+    print(f"chamfer_bidir {cx.shape[0]} x {cy.shape[0]}: wrapper {chamfer_ms * 1e3:.1f} us, kernel "
+          f"alone (the bare C call: sweep and finishing launch) {chamfer_kernel_ms * 1e3:.1f} us, "
+          f"plain version {chamfer_plain_ms:.2f} ms, torch.cdist + two mins {chamfer_lib_ms:.3f} "
+          f"ms; {pairs / 1e6:.1f} M pairs -> FLOP bound {c_bound * 1e3:.1f} us by {c_by}; "
+          + issue_floor_text(c_sass, pairs, chamfer_kernel_ms))
     rest_ms = steps_ms - train_ms - chamfer_ms
     print(f"train step {h}x{w}, {TRAIN_RAYS} rays: {steps_ms:.2f} ms end to end by CUDA events "
           f"({TRAIN_RAYS / steps_ms * 1e3:.0f} rays/s; {step_ms:.2f} ms by the host clock in the "
@@ -1912,21 +1987,32 @@ def main() -> int:
         return [torch.cdist(x[i:i + rows], y).min(dim=1) for i in range(0, x.shape[0], rows)]
 
     nearest_rows = {}
-    for label, (ch, cw) in (("fern", (189, 252)), ("Tanks", (135, 240))):
-        nx, ny = depth_lifted_clouds(torch, dev, gen, ch, cw)
+    n_sass = sweep_instructions_per_pair(CHAMFER_NEAREST, "chamfer_nearest")
+    sgen = torch.Generator().manual_seed(SEED + 17)   # the draws of `gen` stay as they were
+    small = ((torch.rand(5, 3, generator=sgen) * 6 - 3).to(dev),
+             (torch.rand(40000, 3, generator=sgen) * 6 - 3).to(dev))
+    for label, clouds in (("fern", (189, 252)), ("Tanks", (135, 240)), ("5 x 40000", small)):
+        nx, ny = clouds if label == "5 x 40000" else depth_lifted_clouds(torch, dev, gen, *clouds)
         n_ms = time_ms(lambda: nearest_idx(nx, ny), 10)
+        kx, ky = nx.contiguous(), ny.contiguous()
+        n_bufs = _nearest_buffers(kx, ky)
+        n_kernel_ms = time_ms(lambda: _nearest_launch(kx, ky, *n_bufs), 10)
         n_plain_ms = time_ms(lambda: nearest_idx_plain(nx, ny), 2)
         n_lib_ms = time_ms(lambda: library_nearest(nx, ny), 3)
         pairs = nx.shape[0] * ny.shape[0]
         # 3 products, 2 sums for the dot, 2 for d2 and the compare, in f32 outside the
-        # tensor cores; 12 bytes in per point of each cloud, d2 and index out per src point
+        # tensor cores; 12 bytes in per point of each cloud, d2 and an int64 index out per
+        # src point
         n_bound, n_by, _, _ = bound(8 * pairs, PEAK_F32_FLOPS, 12 * (nx.shape[0] + ny.shape[0])
-                                    + 8 * nx.shape[0])
+                                    + 12 * nx.shape[0])
         nearest_rows[label] = (n_ms, n_plain_ms, n_lib_ms, n_bound, n_by)
-        print(f"chamfer_nearest {nx.shape[0]} x {ny.shape[0]} ({label}), one direction: "
-              f"{n_ms:.3f} ms, plain version {n_plain_ms:.2f} ms, torch.cdist + min in row slabs "
-              f"{n_lib_ms:.3f} ms; {pairs / 1e9:.2f} G pairs x 8 f32 operations -> bound "
-              f"{n_bound:.3f} ms by {n_by} ({n_ms / n_bound:.1f} x the bound)")
+        print(f"chamfer_nearest {nx.shape[0]} x {ny.shape[0]} ({label}), one direction: wrapper "
+              f"{n_ms:.3f} ms, kernel alone (the bare C call: sweep and merge, "
+              f"{n_bufs[0].blocks} blocks in {n_bufs[0].n_segs} segments) {n_kernel_ms:.3f} ms, "
+              f"plain version {n_plain_ms:.2f} ms, torch.cdist + min in row slabs "
+              f"{n_lib_ms:.3f} ms; {pairs / 1e9:.4f} G pairs x 8 f32 operations -> FLOP bound "
+              f"{n_bound:.4f} ms by {n_by} ({n_ms / n_bound:.1f} x); "
+              + issue_floor_text(n_sass, pairs, n_kernel_ms))
     dorder, drefs = epoch_order(dscene.n_frames, shuffle=True, seed=SEED)
 
     def disk_steps():
@@ -1967,6 +2053,8 @@ def main() -> int:
          "launches": eval_counts["render_bwd_frozen"], "max_abs_err": bwd_frozen_err,
          "ms": bwd_frozen_ms, "plain_ms": bwd_plain_ms, "bound_ms": f_bound, "bound_by": f_by,
          "library_ms": None},
+        # ms: the wrapper's (both device launches and its allocations); the kernel alone
+        # is printed beside it
         {"name": "chamfer_bidir", "route": "cuda",
          "source": "nope_nerf_torch/csrc/chamfer_bidir.cu",
          "replaces": "nope_nerf_tpu/ops/pallas_chamfer.py:78",

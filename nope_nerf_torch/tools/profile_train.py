@@ -34,7 +34,8 @@ def _device_us(prof, needle: str) -> float:
 
 # K1 and K4 full are both render_full_kernel (its LOSS and plain instances)
 KERNELS = ("render_full_kernel", "render_bwd_frozen_kernel", "render_fwd_kernel",
-           "chain_reduce_kernel", "dw_sm90_kernel", "dw_reduce_kernel", "chamfer_bidir_kernel")
+           "chain_reduce_kernel", "dw_sm90_kernel", "dw_reduce_kernel", "chamfer_bidir_sweep",
+           "chamfer_bidir_finish")
 
 
 def profile_steps(torch, run, steps: int, label: str, table: bool = False) -> None:

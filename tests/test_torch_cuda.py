@@ -473,6 +473,59 @@ def test_chamfer_nearest_is_bit_equal_to_plain(cuda_device, shape):
     assert torch.equal(idx, idx_p) and torch.equal(d2, d2_p)
 
 
+@pytest.mark.parametrize("shape", [(9000, 9100), (47628, 47628), (300, 40000), (5, 40000)])
+def test_chamfer_nearest_segment_edge_duplicates(cuda_device, shape):
+    """The dst point before every segment edge of K7's grid is copied onto the
+    one after it and a src point sits 1e-3 from the pair: the merge must keep
+    the earlier segment's copy, as the plain version's strict < does."""
+    gen = torch.Generator().manual_seed(shape[0] + 1)
+    x = torch.rand(shape[0], 3, generator=gen) * 6 - 3
+    y = torch.rand(shape[1], 3, generator=gen) * 6 - 3
+    seg = C.nearest_geometry(*shape).seg_len
+    edges = torch.arange(seg, shape[1], seg)[:shape[0]]
+    y[edges] = y[edges - 1]
+    x[:len(edges)] = y[edges] + torch.tensor([1e-3, 0.0, 0.0])
+    x, y = x.to(cuda_device), y.to(cuda_device)
+    d2, idx = C.nearest_idx(x, y)
+    d2_p, idx_p = C.nearest_idx_plain(x, y)
+    assert torch.equal(idx, idx_p) and torch.equal(d2, d2_p)
+    assert torch.equal(idx[:len(edges)].cpu(), edges - 1)
+
+
+@pytest.mark.parametrize("shape", [(47628, 47628), (5, 40000), (301, 77)])
+def test_chamfer_nearest_two_launches_bit_equal(cuda_device, shape):
+    gen = torch.Generator().manual_seed(shape[0] + 2)
+    x = (torch.rand(shape[0], 3, generator=gen) * 6 - 3).to(cuda_device)
+    y = (torch.rand(shape[1], 3, generator=gen) * 6 - 3).to(cuda_device)
+    a, b = C.nearest_idx(x, y), C.nearest_idx(x, y)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("shape", [(7285, 7285), (8192, 8192), (301, 77)])
+def test_chamfer_bidir_two_launches_bit_equal(cuda_device, shape):
+    gen = torch.Generator().manual_seed(shape[0] + 3)
+    x = (torch.rand(shape[0], 3, generator=gen) * 6 - 3).to(cuda_device)
+    y = (torch.rand(shape[1], 3, generator=gen) * 6 - 3).to(cuda_device)
+    before = C.CHAMFER_BIDIR.launches
+    a, b = C.nearest_idx_bidirectional(x, y), C.nearest_idx_bidirectional(x, y)
+    assert C.CHAMFER_BIDIR.launches == before + 2
+    for u, v in zip(a, b):
+        assert u.dtype == torch.int64 and torch.equal(u, v)
+
+
+@pytest.mark.parametrize("n_side", [9, 18, 20])
+def test_chamfer_bidir_lattice_indices_equal_plain(cuda_device, n_side):
+    """Without near-ties the packed keys leave one winner: indices equal."""
+    gen = torch.Generator().manual_seed(n_side)
+    side = torch.arange(float(n_side))
+    lattice = torch.stack(torch.meshgrid(side, side, side, indexing="ij"), -1).reshape(-1, 3)
+    x = (lattice + 0.1 * (torch.rand(lattice.shape, generator=gen) - 0.5)).to(cuda_device)
+    y = (lattice[torch.randperm(len(lattice), generator=gen)]
+         + 0.1 * (torch.rand(lattice.shape, generator=gen) - 0.5)).to(cuda_device)
+    got, ref = C.nearest_idx_bidirectional(x, y), C.nearest_idx_bidirectional_plain(x, y)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
 def test_chamfer_loss_above_the_gate_launches_k7_twice(cuda_device):
     gen = torch.Generator().manual_seed(4)
     x = (torch.rand(C.MAX_POINTS + 100, 3, generator=gen) * 20).to(cuda_device)
