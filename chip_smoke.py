@@ -60,7 +60,18 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    versions; then cli.eval_poses (the PLY), cli.render and cli.eval on the fern
    scene. The one cut: fern is written at its working size with
    resize_factor 1, not as 3024x4032 originals minified by 4;
-8. times each path and each kernel at its main path's shapes (CUDA events;
+8. prepares a scene and measures it perceptually on phase 7's straight
+   scene: LPIPS (VGG16, seeded weights saved as a JAX-layout .npz) on a
+   188x621 pair and DPT-Hybrid (default widths, the JAX package's random
+   init) on one 384x1280 input, each on the card against the same module on
+   this machine's CPU (DPT: l1 to l4, path1, the inverse depth and the
+   depth); cli.preprocess with configs/V_KITTI/preprocess_straight.yaml's
+   keys writes the 6 priors; cli.train trains straight_d2 for 1 epoch on them
+   (K1 and K2 once a step); cli.eval reports LPIPS; cli.get_vkitti turns a
+   raw V-KITTI tree (375x1242 PNGs, extrinsics txt) into a scene that
+   DataField reads back; DPT and LPIPS are timed beside their FLOP bounds and
+   printed on their own JSON line (library calls, not kernels);
+9. times each path and each kernel at its main path's shapes (CUDA events;
    dw_sm90 also on its own over K1's and K4 full's 11 blocks, beside the
    bytes of the operands those kernels hand it; K2 and K7 through their
    wrappers and as the bare C call, beside their FLOP bound and the issue
@@ -137,6 +148,31 @@ DISK_CONFIGS = {
                            "traj_option": "interp", "bspline_degree": 100}},
 }
 DISK_SIZES = {"fern": (756, 1008), "Ballroom": (540, 960), "straight_d4": (375, 1242)}
+# Phase 8 on phase 7's straight scene: configs/V_KITTI/preprocess_straight.yaml writes its
+# DPT priors, configs/V_KITTI/straight_d2.yaml trains on them (their keys, as above;
+# tests/test_torch_preprocess.py holds them equal to the files)
+PREP_CONFIGS = {
+    "preprocess_straight": {
+        "dataloading": {"path": "data/V_KITTI", "scene": ["straight"], "resize_factor": 2,
+                        "customized_focal": True, "customized_poses": False,
+                        "load_colmap_poses": True},
+        "depth": {"type": "DPT"},
+        "training": {"mode": "all"}},
+    "straight_d2": {
+        "dataloading": {"path": "data/V_KITTI", "scene": ["straight"], "resize_factor": 2,
+                        "customized_focal": True, "customized_poses": False,
+                        "load_colmap_poses": True, "random_ref": 1},
+        "depth": {"type": None},
+        "pose": {"learn_pose": True, "init_pose": True, "init_pose_type": "colmap",
+                 "init_R_only": False, "learn_R": False, "learn_t": False,
+                 "learn_focal": False, "update_focal": True},
+        "distortion": {"learn_distortion": True},
+        "training": {"out_dir": "out/V_KITTI/straight_d2", "depth_loss_type": "l1",
+                     "match_method": "dense", "with_ssim": False, "auto_scheduler": True},
+        "extract_images": {"resolution": [188, 621], "eval_depth": True,
+                           "traj_option": "interp", "bspline_degree": 100}},
+}
+DPT_INPUT = (384, 1280)      # a 188x621 V-KITTI frame after the DPT input transform
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate (data sheet)
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 rate outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3 rate (data sheet)
@@ -1483,16 +1519,17 @@ def disk_config(name: str, root: str):
     views off (phase 5 drives them; here they would only add launches), cli.eval's pose optimisation cut to POSE_OPT_EPOCHS
     epochs, one novel view."""
     from nope_nerf_torch.config import load_config
-    over = copy.deepcopy(DISK_CONFIGS[name])
+    over = copy.deepcopy({**DISK_CONFIGS, **PREP_CONFIGS}[name])
     d = over["dataloading"]
     d["path"] = os.path.join(root, os.path.basename(d["path"]))
     if name == "fern":
         d["resize_factor"] = 1
-    over["training"].update(out_dir=os.path.join(root, "out", name), vis_geo=False,
-                            print_every=0, validate_every=0, checkpoint_every=0,
-                            visualize_every=0, vis_reprojection_every=0, backup_every=0)
+    over.setdefault("training", {}).update(
+        out_dir=os.path.join(root, "out", name), vis_geo=False, print_every=0,
+        validate_every=0, checkpoint_every=0, visualize_every=0, vis_reprojection_every=0,
+        backup_every=0)
     over["eval_pose"] = {"opt_pose_epoch": POSE_OPT_EPOCHS, "n_points": TRAIN_RAYS}
-    over["extract_images"]["N_novel_imgs"] = 1
+    over.setdefault("extract_images", {})["N_novel_imgs"] = 1
     return load_config(overrides=over)
 
 
@@ -1514,10 +1551,10 @@ def write_disk_scenes(np, root: str) -> None:
                          pred=depth[None].astype(np.float32))
 
 
-def run_disk_scenes(torch, np, dev):
-    """Phase 7: the three configurations from scenes on disk through the CLIs
-    (see the module docstring). Returns (fern's launch counts, the fern run's
-    trainer, state and scene for the timings)."""
+def run_disk_scenes(torch, np, dev, root: str):
+    """Phase 7: the three configurations from scenes on disk under `root`
+    through the CLIs (see the module docstring). Returns (fern's launch counts,
+    the fern run's trainer, state and scene for the timings)."""
     from nope_nerf_torch.cli.eval import evaluate
     from nope_nerf_torch.cli.eval_poses import evaluate_poses
     from nope_nerf_torch.cli.render import render
@@ -1534,104 +1571,315 @@ def run_disk_scenes(torch, np, dev):
                              "dw_sm90": steps},
                 "straight_d4": {"render_train": steps, "chamfer_bidir": steps, "dw_sm90": steps}}
     runs = {}
-    with tempfile.TemporaryDirectory() as root:
+    t0 = time.perf_counter()
+    write_disk_scenes(np, root)
+    print(f"on-disk scenes: {DISK_FRAMES} frames each at "
+          + ", ".join(f"{n} {h}x{w}" for n, (h, w) in DISK_SIZES.items())
+          + f" written in {time.perf_counter() - t0:.1f} s")
+    for name in DISK_SIZES:
+        cfg = disk_config(name, root)
         t0 = time.perf_counter()
-        write_disk_scenes(np, root)
-        print(f"on-disk scenes: {DISK_FRAMES} frames each at "
-              + ", ".join(f"{n} {h}x{w}" for n, (h, w) in DISK_SIZES.items())
-              + f" written in {time.perf_counter() - t0:.1f} s")
-        for name in DISK_SIZES:
-            cfg = disk_config(name, root)
-            t0 = time.perf_counter()
-            (state, trainer, scene), counts = counted(
-                lambda: train(cfg, max_epochs=1, device=dev), expected[name],
-                f"cli.train on the {name} scene on disk, 1 epoch of {steps} steps")
-            h, w = scene.imgs.shape[1:3]
-            n_pc = (h // trainer.mc.pc_ratio) * (w // trainer.mc.pc_ratio)
-            print(f"  {name}: {scene.n_frames} train frames at {h}x{w}, Chamfer clouds of "
-                  f"{n_pc} points, {time.perf_counter() - t0:.1f} s with the scene's loading")
-            if state.it != steps - 1:
-                raise RuntimeError(f"cli.train on {name}: iteration counter {state.it}")
-            for group, d in state.params.items():
-                if not all(bool(torch.isfinite(v).all()) for v in d.values()):
-                    raise RuntimeError(f"cli.train on {name}: non-finite parameter in {group}")
-            runs[name] = (counts, trainer, state, scene)
-
-        # fern's step 1 through the kernels (K1, K7 twice) and through the plain versions
-        _, trainer, state, scene = runs["fern"]
-        mc = trainer.mc
+        (state, trainer, scene), counts = counted(
+            lambda: train(cfg, max_epochs=1, device=dev), expected[name],
+            f"cli.train on the {name} scene on disk, 1 epoch of {steps} steps")
         h, w = scene.imgs.shape[1:3]
-        weights, _, rgb_loss_type = trainer._sched_at(0, 10000)
-        batch = batch_for_frame(scene, 0, ref_idx=1)
-        ray_idx = _sample_rays(torch.Generator(device=dev).manual_seed(SEED + 1), h * w,
-                               TRAIN_RAYS, None, False)
-        noise = torch.rand((TRAIN_RAYS, mc.render.num_points),
-                           generator=torch.Generator(device=dev).manual_seed(SEED + 2), device=dev)
-        (g_k, ld_k), _ = counted(
-            lambda: step_gradients(state.params, batch, weights, ray_idx, None, mc,
-                                   rgb_loss_type, noise=noise),
-            {"render_train": 1, "chamfer_nearest": 2, "dw_sm90": 1},
-            "fern step 1 through the kernels")
-        with plain_versions():
-            g_p, ld_p = step_gradients(state.params, batch, weights, ray_idx, None, mc,
-                                       rgb_loss_type, noise=noise)
-        torch.cuda.synchronize()
-        for k in ld_p:
-            if not abs(float(ld_k[k]) - float(ld_p[k])) <= 2e-3 * abs(float(ld_p[k])) + 1e-7:
-                raise RuntimeError(f"fern step 1: loss term {k} {float(ld_k[k])} differs from "
-                                   f"the plain versions' {float(ld_p[k])}")
-        report = []
-        for group in ("pose", "distortion"):
-            for k, ref in g_p[group].items():
-                err, top = max_err(g_k[group][k], ref), float(ref.abs().max())
-                report.append(f"{group}/{k} {err:.3g} of {top:.3g}")
-                if not err <= 5e-2 * top + 1e-9:
-                    raise RuntimeError(f"fern step 1: gradient {group}/{k} differs from the "
-                                       f"plain versions' by {err} (largest entry {top})")
-        print(f"fern step 1 vs plain versions: {len(ld_p)} loss terms within 2e-3 (loss_pc "
-              f"{float(ld_k['loss_pc']):.6g} vs {float(ld_p['loss_pc']):.6g}); gradient errors "
-              + ", ".join(report))
+        n_pc = (h // trainer.mc.pc_ratio) * (w // trainer.mc.pc_ratio)
+        print(f"  {name}: {scene.n_frames} train frames at {h}x{w}, Chamfer clouds of "
+              f"{n_pc} points, {time.perf_counter() - t0:.1f} s with the scene's loading")
+        if state.it != steps - 1:
+            raise RuntimeError(f"cli.train on {name}: iteration counter {state.it}")
+        for group, d in state.params.items():
+            if not all(bool(torch.isfinite(v).all()) for v in d.values()):
+                raise RuntimeError(f"cli.train on {name}: non-finite parameter in {group}")
+        runs[name] = (counts, trainer, state, scene)
 
-        # the fern scene through the other CLIs
-        cfg = disk_config("fern", root)
-        metrics = evaluate_poses(cfg, vis=True, device=dev)
-        ply = os.path.join(cfg["training"]["out_dir"], cfg["eval_pose"]["extraction_dir"],
-                           "trajectory.ply")
-        if not (os.path.exists(ply) and all(math.isfinite(v) for v in metrics.values())):
-            raise RuntimeError(f"cli.eval_poses on fern: no PLY or a non-finite metric {metrics}")
-        chunks = math.ceil(h * w / 131072)
-        frames, _ = counted(lambda: render(cfg, device=dev, save=False), {"render_fwd": chunks},
-                            f"cli.render on fern, 1 view at {h}x{w}")
-        if frames[0]["rgb"].shape != (h, w, 3) or not np.isfinite(frames[0]["rgb"]).all():
-            raise RuntimeError("cli.render on fern: bad or non-finite frame")
-        opt_steps = POSE_OPT_EPOCHS      # one eval view (frame 4)
-        summary, _ = counted(
-            lambda: evaluate(cfg, device=dev, save=False),
-            {"render_fwd": opt_steps + chunks, "render_bwd": opt_steps,
-             "render_bwd_frozen": opt_steps},
-            f"cli.eval on fern, {POSE_OPT_EPOCHS} pose-opt epochs on 1 view, then its frame")
-        if not all(math.isfinite(summary[k]) for k in ("mean_mse", "mean_psnr", "mean_ssim")):
-            raise RuntimeError(f"cli.eval on fern: non-finite summary {summary}")
-        print(f"fern: eval_poses ATE_t {metrics['ate_trans']:.6f}, PLY written; eval PSNR "
-              f"{summary['mean_psnr']:.3f}")
+    # fern's step 1 through the kernels (K1, K7 twice) and through the plain versions
+    _, trainer, state, scene = runs["fern"]
+    mc = trainer.mc
+    h, w = scene.imgs.shape[1:3]
+    weights, _, rgb_loss_type = trainer._sched_at(0, 10000)
+    batch = batch_for_frame(scene, 0, ref_idx=1)
+    ray_idx = _sample_rays(torch.Generator(device=dev).manual_seed(SEED + 1), h * w,
+                           TRAIN_RAYS, None, False)
+    noise = torch.rand((TRAIN_RAYS, mc.render.num_points),
+                       generator=torch.Generator(device=dev).manual_seed(SEED + 2), device=dev)
+    (g_k, ld_k), _ = counted(
+        lambda: step_gradients(state.params, batch, weights, ray_idx, None, mc,
+                               rgb_loss_type, noise=noise),
+        {"render_train": 1, "chamfer_nearest": 2, "dw_sm90": 1},
+        "fern step 1 through the kernels")
+    with plain_versions():
+        g_p, ld_p = step_gradients(state.params, batch, weights, ray_idx, None, mc,
+                                   rgb_loss_type, noise=noise)
+    torch.cuda.synchronize()
+    for k in ld_p:
+        if not abs(float(ld_k[k]) - float(ld_p[k])) <= 2e-3 * abs(float(ld_p[k])) + 1e-7:
+            raise RuntimeError(f"fern step 1: loss term {k} {float(ld_k[k])} differs from "
+                               f"the plain versions' {float(ld_p[k])}")
+    report = []
+    for group in ("pose", "distortion"):
+        for k, ref in g_p[group].items():
+            err, top = max_err(g_k[group][k], ref), float(ref.abs().max())
+            report.append(f"{group}/{k} {err:.3g} of {top:.3g}")
+            if not err <= 5e-2 * top + 1e-9:
+                raise RuntimeError(f"fern step 1: gradient {group}/{k} differs from the "
+                                   f"plain versions' by {err} (largest entry {top})")
+    print(f"fern step 1 vs plain versions: {len(ld_p)} loss terms within 2e-3 (loss_pc "
+          f"{float(ld_k['loss_pc']):.6g} vs {float(ld_p['loss_pc']):.6g}); gradient errors "
+          + ", ".join(report))
 
-        # PNG decoding on this machine: a V-KITTI frame Paeth-filtered (cv2's adaptive
-        # writer may choose Paeth rows) against the Up filter the port writes
-        d = DISK_CONFIGS["straight_d4"]["dataloading"]
-        img = read_png(os.path.join(root, os.path.basename(d["path"]), d["scene"][0], "images",
-                                    "00000.png"))
-        times = {}
-        for filt, label in ((4, "Paeth"), (2, "Up")):
-            path = os.path.join(root, f"{label}.png")
-            write_png(path, img, filter_type=filt)
-            t0 = time.perf_counter()
-            read_png(path)
-            times[label] = time.perf_counter() - t0
-        print(f"PNG decode of a {img.shape[0]}x{img.shape[1]} RGB frame: Paeth rows "
-              f"{times['Paeth'] * 1e3:.0f} ms, Up rows {times['Up'] * 1e3:.1f} ms (host)")
+    # the fern scene through the other CLIs
+    cfg = disk_config("fern", root)
+    metrics = evaluate_poses(cfg, vis=True, device=dev)
+    ply = os.path.join(cfg["training"]["out_dir"], cfg["eval_pose"]["extraction_dir"],
+                       "trajectory.ply")
+    if not (os.path.exists(ply) and all(math.isfinite(v) for v in metrics.values())):
+        raise RuntimeError(f"cli.eval_poses on fern: no PLY or a non-finite metric {metrics}")
+    chunks = math.ceil(h * w / 131072)
+    frames, _ = counted(lambda: render(cfg, device=dev, save=False), {"render_fwd": chunks},
+                        f"cli.render on fern, 1 view at {h}x{w}")
+    if frames[0]["rgb"].shape != (h, w, 3) or not np.isfinite(frames[0]["rgb"]).all():
+        raise RuntimeError("cli.render on fern: bad or non-finite frame")
+    opt_steps = POSE_OPT_EPOCHS      # one eval view (frame 4)
+    summary, _ = counted(
+        lambda: evaluate(cfg, device=dev, save=False),
+        {"render_fwd": opt_steps + chunks, "render_bwd": opt_steps,
+         "render_bwd_frozen": opt_steps},
+        f"cli.eval on fern, {POSE_OPT_EPOCHS} pose-opt epochs on 1 view, then its frame")
+    if not all(math.isfinite(summary[k]) for k in ("mean_mse", "mean_psnr", "mean_ssim")):
+        raise RuntimeError(f"cli.eval on fern: non-finite summary {summary}")
+    print(f"fern: eval_poses ATE_t {metrics['ate_trans']:.6f}, PLY written; eval PSNR "
+          f"{summary['mean_psnr']:.3f}")
+
+    # PNG decoding on this machine: a V-KITTI frame Paeth-filtered (cv2's adaptive
+    # writer may choose Paeth rows) against the Up filter the port writes
+    d = DISK_CONFIGS["straight_d4"]["dataloading"]
+    img = read_png(os.path.join(root, os.path.basename(d["path"]), d["scene"][0], "images",
+                                "00000.png"))
+    times = {}
+    for filt, label in ((4, "Paeth"), (2, "Up")):
+        path = os.path.join(root, f"{label}.png")
+        write_png(path, img, filter_type=filt)
+        t0 = time.perf_counter()
+        read_png(path)
+        times[label] = time.perf_counter() - t0
+    print(f"PNG decode of a {img.shape[0]}x{img.shape[1]} RGB frame: Paeth rows "
+          f"{times['Paeth'] * 1e3:.0f} ms, Up rows {times['Up'] * 1e3:.1f} ms (host)")
     print(f"on-disk phase: {time.perf_counter() - t_phase:.1f} s wall")
     fern_counts, trainer, state, scene = runs["fern"]
     return fern_counts, trainer, state, scene
+
+
+def write_lpips_weights(np, path: str) -> None:
+    """Seeded random LPIPS weights at the full VGG16 width as an .npz in the JAX
+    package's layout (OIHW convs scaled to keep activations of order 1,
+    non-negative (1, C, 1, 1) lin heads)."""
+    from nope_nerf_torch.evaluation.lpips import TAP_CHANNELS, VGG16_CHANNELS, VGG16_CONV_IDX
+    rng = np.random.default_rng(SEED)
+    params, c_in = {}, 3
+    for idx, c_out in zip(VGG16_CONV_IDX, VGG16_CHANNELS):
+        params[f"features.{idx}.weight"] = (
+            rng.standard_normal((c_out, c_in, 3, 3)) / np.sqrt(9 * c_in)).astype(np.float32)
+        params[f"features.{idx}.bias"] = (0.1 * rng.standard_normal(c_out)).astype(np.float32)
+        c_in = c_out
+    for k, c in enumerate(TAP_CHANNELS):
+        params[f"lin{k}.weight"] = np.abs(rng.standard_normal((1, c, 1, 1))).astype(np.float32)
+    np.savez(path, **params)
+
+
+def write_raw_vkitti(np, raw: str, scene_dir: str) -> int:
+    """A raw V-KITTI 1.3.1 tree for drive 0001 / clone: the straight scene's
+    375x1242 RGB and 16-bit depth PNGs, and an extrinsics txt of a car driving
+    forward while it turns slowly. Returns the number of frames."""
+    import shutil
+    names = sorted(os.listdir(os.path.join(scene_dir, "images")))
+    for sub, kind in (("images", "rgb"), ("depth", "depthgt")):
+        dest = os.path.join(raw, f"vkitti_1.3.1_{kind}", "0001", "clone")
+        os.makedirs(dest)
+        for name in names:
+            shutil.copy(os.path.join(scene_dir, sub, name), dest)
+    os.makedirs(os.path.join(raw, "vkitti_1.3.1_extrinsicsgt"))
+    lines = ["frame r1,1 r1,2 r1,3 t1 r2,1 r2,2 r2,3 t2 r3,1 r3,2 r3,3 t3 0 0 0 1"]
+    for i in range(len(names)):
+        yaw = 0.01 * i
+        c2w = np.array([[np.cos(yaw), 0, np.sin(yaw), 0.05 * i], [0, 1, 0, 0],
+                        [-np.sin(yaw), 0, np.cos(yaw), 0.8 * i], [0, 0, 0, 1]])
+        lines.append(f"{i} " + " ".join(f"{v:.9f}" for v in np.linalg.inv(c2w).reshape(-1)))
+    with open(os.path.join(raw, "vkitti_1.3.1_extrinsicsgt", "0001_clone.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return len(names)
+
+
+def run_scene_preparation(torch, np, dev, root: str) -> dict:
+    """Phase 8 on phase 7's straight scene under `root`: LPIPS and DPT-Hybrid at
+    full width on the card against the same modules on this machine's CPU, the
+    preprocess CLI's priors, an epoch of straight_d2 trained on them, cli.eval
+    with LPIPS, cli.get_vkitti on a raw tree; times LPIPS and DPT. No
+    hand-written kernel computes LPIPS or DPT: they are F.conv2d / matmul
+    library calls. Returns their numbers for the JSON line."""
+    from nope_nerf_torch.cli.eval import evaluate
+    from nope_nerf_torch.cli.preprocess import preprocess
+    from nope_nerf_torch.cli.train import train
+    from nope_nerf_torch.config import load_config
+    from nope_nerf_torch.data import DataField
+    from nope_nerf_torch.data.dpt_transforms import prepare_dpt_input
+    from nope_nerf_torch.evaluation.lpips import load_lpips_params, lpips_flops, lpips_pair
+    from nope_nerf_torch.models.dpt import DPTConfig, dpt_flops, init_dpt_params, make_dpt
+
+    t_phase = time.perf_counter()
+    steps = DISK_FRAMES - 1
+    prep_cfg = disk_config("preprocess_straight", root)
+    imgs = DataField.from_cfg(prep_cfg, mode="all").scene.imgs          # 6 x 188 x 621
+    h, w = imgs.shape[1:3]
+
+    # a. LPIPS at the full VGG16 width on a pair of consecutive frames
+    weights = os.path.join(root, "lpips_vgg16.npz")
+    write_lpips_weights(np, weights)
+    p_dev, p_cpu = load_lpips_params(weights, dev), load_lpips_params(weights, "cpu")
+    a, b = torch.from_numpy(imgs[0]), torch.from_numpy(imgs[1])
+    with torch.inference_mode():
+        d_dev, d_cpu = float(lpips_pair(p_dev, a, b)), float(lpips_pair(p_cpu, a, b))
+        d_same = float(lpips_pair(p_dev, a, a.clone()))
+    lpips_rel = abs(d_dev - d_cpu) / abs(d_cpu)
+    print(f"LPIPS (VGG16, seeded weights) {h}x{w} pair on the card {d_dev:.8f}, on the CPU "
+          f"{d_cpu:.8f} (relative difference {lpips_rel:.2e}, tolerance 1e-4); identical "
+          f"images {d_same}")
+    if not (math.isfinite(d_cpu) and d_cpu > 0 and lpips_rel <= 1e-4 and d_same == 0.0):
+        raise RuntimeError(f"LPIPS: card {d_dev}, CPU {d_cpu}, identical images {d_same}")
+
+    # b. DPT-Hybrid at the default widths, random init, one 384x1280 frame
+    dcfg = DPTConfig.from_cfg(prep_cfg)
+    sd = init_dpt_params(dcfg)
+    m_dev, m_cpu = make_dpt(sd, dcfg, dev), make_dpt(sd, dcfg, "cpu")
+    x = torch.from_numpy(prepare_dpt_input(imgs[0])).permute(2, 0, 1)[None].contiguous()
+    if tuple(x.shape[2:]) != DPT_INPUT:
+        raise RuntimeError(f"DPT input {tuple(x.shape)}, expected {DPT_INPUT}")
+    x_dev = x.to(dev)
+    with torch.inference_mode():
+        s_dev, s_cpu = m_dev.stages(x_dev), m_cpu.stages(x)
+    report, dpt_worst = [], 0.0
+    for k in ("l1", "l2", "l3", "l4", "path1", "inv_depth", "depth"):
+        got, ref = s_dev[k].cpu(), s_cpu[k]
+        err, top = max_err(got, ref), float(ref.abs().max())
+        report.append(f"{k} {tuple(ref.shape[1:])} {err:.3g} of {top:.3g}")
+        dpt_worst = max(dpt_worst, err / top if top > 0 else err)
+        if not (bool(torch.isfinite(got).all()) and err <= 1e-3 * top):
+            raise RuntimeError(f"DPT {k}: the card's differs from the CPU's by {err} "
+                               f"(largest entry {top})")
+    print("DPT-Hybrid 384x1280, card vs CPU (tolerance 1e-3 of each tensor's largest "
+          "entry): " + ", ".join(report))
+    del m_cpu, s_cpu, s_dev
+
+    # e. times (CUDA events, after a warm-up)
+    a_dev, b_dev = a.to(dev), b.to(dev)
+    with torch.inference_mode():
+        lpips_ms = time_ms(lambda: lpips_pair(p_dev, a_dev, b_dev), 5)
+        dpt_ms = time_ms(lambda: m_dev(x_dev), 5)
+    flops = dpt_flops(dcfg, *DPT_INPUT)
+    n_flops = sum(flops.values())
+    dpt_bytes = (sum(t.numel() for t in sd.values()) + x.numel() + DPT_INPUT[0] * DPT_INPUT[1]) * 4
+    dpt_bound, dpt_by, _, _ = bound(n_flops, PEAK_F32_FLOPS, dpt_bytes)
+    l_flops = lpips_flops(h, w)
+    l_bytes = (sum(t.numel() for t in p_dev.values()) + 2 * h * w * 3 + 1) * 4
+    l_bound, l_by, _, _ = bound(l_flops, PEAK_F32_FLOPS, l_bytes)
+    print(f"DPT-Hybrid forward {DPT_INPUT[0]}x{DPT_INPUT[1]}: {dpt_ms:.2f} ms per frame; "
+          f"{n_flops / 1e12:.4f} TFLOP (ResNet {flops['resnet'] / 1e12:.4f}, ViT "
+          f"{flops['vit'] / 1e12:.4f}, decoder {flops['decoder'] / 1e12:.4f}) -> "
+          f"{n_flops / dpt_ms / 1e9:.1f} TFLOP/s achieved, bound {dpt_bound:.2f} ms by {dpt_by} "
+          f"at the f32 peak ({dpt_ms / dpt_bound:.2f} x)")
+    # where the DPT forward's device time goes, and the gaps between its kernels
+    from torch.profiler import ProfilerActivity, profile
+    from nope_nerf_torch.tools.profile_train import _self_device_us
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA]) as prof:
+        m_dev(x_dev)
+        torch.cuda.synchronize()
+    ka = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(_self_device_us(e) for e in ka) / 1e3
+    top = sorted(ka, key=_self_device_us, reverse=True)[:6]
+    print(f"DPT-Hybrid device time (torch.profiler, one forward): {busy_ms:.2f} ms busy in "
+          f"{sum(e.count for e in ka)} kernels against {dpt_ms:.2f} ms by CUDA events (idle "
+          f"share {1 - busy_ms / dpt_ms:.1%}); largest: "
+          + "; ".join(f"{e.key[:64]} x{e.count} {_self_device_us(e) / 1e3:.2f} ms" for e in top))
+    print(f"LPIPS pair {h}x{w}: {lpips_ms:.2f} ms; {l_flops / 1e12:.4f} TFLOP -> "
+          f"{l_flops / lpips_ms / 1e9:.1f} TFLOP/s achieved, bound {l_bound:.2f} ms by {l_by} "
+          f"({lpips_ms / l_bound:.2f} x)")
+    del m_dev, p_cpu
+
+    # c. the preprocess CLI writes the priors; straight_d2 trains on them; eval with LPIPS
+    t0 = time.perf_counter()
+    out_dir, _ = counted(lambda: preprocess(prep_cfg, random_weights=True, device=dev), {},
+                         f"cli.preprocess, DPT priors of the {DISK_FRAMES} straight frames")
+    prep_s = time.perf_counter() - t0
+    npz = sorted(n for n in os.listdir(out_dir) if n.endswith(".npz"))
+    pngs = sorted(n for n in os.listdir(out_dir) if n.endswith(".png"))
+    if len(npz) != DISK_FRAMES or len(pngs) != DISK_FRAMES:
+        raise RuntimeError(f"cli.preprocess wrote {npz} and {pngs}")
+    for name in npz:
+        pred = np.load(os.path.join(out_dir, name))["pred"]
+        if pred.shape != DPT_INPUT or pred.dtype != np.float32 or not np.isfinite(pred).all():
+            raise RuntimeError(f"cli.preprocess: {name} {pred.shape} {pred.dtype} not finite")
+    print(f"cli.preprocess: {len(npz)} priors of {DPT_INPUT[0]}x{DPT_INPUT[1]} and their PNGs "
+          f"in {prep_s:.1f} s (random init, DataField and the host transform included)")
+
+    train_cfg = disk_config("straight_d2", root)
+    (state, trainer, scene), _ = counted(
+        lambda: train(train_cfg, max_epochs=1, device=dev),
+        {"render_train": steps, "chamfer_bidir": steps, "dw_sm90": steps},
+        f"cli.train on straight_d2 from the DPT priors, 1 epoch of {steps} steps")
+    if scene.depths.shape[1:] != DPT_INPUT or state.it != steps - 1:
+        raise RuntimeError(f"straight_d2: priors {scene.depths.shape}, iteration {state.it}")
+    for group, d in state.params.items():
+        if not all(bool(torch.isfinite(v).all()) for v in d.values()):
+            raise RuntimeError(f"cli.train on straight_d2: non-finite parameter in {group}")
+    eval_cfg = copy.deepcopy(train_cfg)
+    eval_cfg["extract_images"]["lpips_weights"] = weights
+    chunks = math.ceil(h * w / 131072)
+    summary, _ = counted(
+        lambda: evaluate(eval_cfg, device=dev, save=False),
+        {"render_fwd": POSE_OPT_EPOCHS + chunks, "render_bwd": POSE_OPT_EPOCHS,
+         "render_bwd_frozen": POSE_OPT_EPOCHS},
+        f"cli.eval on straight_d2 with LPIPS, {POSE_OPT_EPOCHS} pose-opt epochs on 1 view")
+    text = open(os.path.join(eval_cfg["training"]["out_dir"],
+                             eval_cfg["extract_images"]["extraction_dir"], "evaluation.txt")).read()
+    if not (math.isfinite(summary.get("mean_lpips", math.nan))
+            and f"LPIPS {summary['mean_lpips']:.2f}" in text):
+        raise RuntimeError(f"cli.eval on straight_d2: no finite mean_lpips ({summary})")
+    print(f"straight_d2: eval PSNR {summary['mean_psnr']:.3f}, mean_lpips "
+          f"{summary['mean_lpips']:.6f}")
+
+    # d. cli.get_vkitti on a raw V-KITTI tree, run as a user runs it, read back
+    raw, work = os.path.join(root, "raw_vkitti"), os.path.join(root, "get_vkitti")
+    n = write_raw_vkitti(np, raw, os.path.join(root, "V_KITTI", "straight"))
+    os.makedirs(work)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run(
+        [sys.executable, "-m", "nope_nerf_torch.cli.get_vkitti", raw, "1.3.1", "0001",
+         "straight", "interval", "--with-depth", "--customised-focal", "--customised-poses",
+         "--resize-factor", "2"],
+        cwd=work, env=dict(os.environ, PYTHONPATH=repo), capture_output=True, text=True,
+        timeout=300)
+    if res.returncode != 0:
+        raise RuntimeError(f"cli.get_vkitti exited {res.returncode}: {res.stderr[-2000:]}")
+    cfg = load_config(os.path.join(work, "configs", "V_KITTI", "straight.yaml"),
+                      overrides={"dataloading": {"path": os.path.join(work, "data", "V_KITTI")}})
+    back = DataField.from_cfg(cfg, mode="all").scene
+    rows = np.load(os.path.join(work, "data", "V_KITTI", "straight", "poses_gt.npy"))
+    if (back.imgs.shape != (n, h, w, 3) or rows.shape != (n, 17)
+            or not (np.isfinite(back.c2ws_gt).all() and np.isfinite(back.depths).all())):
+        raise RuntimeError(f"cli.get_vkitti: scene read back as {back.imgs.shape}, "
+                           f"poses {rows.shape}")
+    print(f"cli.get_vkitti: {n} raw frames of 375x1242 -> scene and yamls, read back through "
+          f"DataField at {h}x{w} ({res.stdout.strip().splitlines()[-1]})")
+    print(f"scene-preparation phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return {"library_calls": [
+        {"name": "dpt_hybrid", "input": [1, 3, *DPT_INPUT], "ms": dpt_ms,
+         "tflop": n_flops / 1e12, "bound_ms": dpt_bound, "bound_by": dpt_by,
+         "max_rel_err_vs_cpu": dpt_worst},
+        {"name": "lpips_vgg16", "input": [2, h, w, 3], "ms": lpips_ms,
+         "tflop": l_flops / 1e12, "bound_ms": l_bound, "bound_by": l_by,
+         "max_rel_err_vs_cpu": lpips_rel}],
+        "preprocess_s": prep_s, "preprocess_frames": len(npz)}
 
 
 def main() -> int:
@@ -1714,10 +1962,14 @@ def main() -> int:
         (enerf, eimg, ecam, epcfg, eray_idx, eval_scene, emc))
     gtrainer, gstate, gbatch = run_slice_rest(torch, np, dev)
 
-    # ---- 7. scenes on disk: the fern, Ballroom and straight_d4 configurations
-    disk_counts, dtrainer, dstate, dscene = run_disk_scenes(torch, np, dev)
+    with tempfile.TemporaryDirectory() as disk_root:
+        # ---- 7. scenes on disk: the fern, Ballroom and straight_d4 configurations
+        disk_counts, dtrainer, dstate, dscene = run_disk_scenes(torch, np, dev, disk_root)
 
-    # ---- 8. timing at the main paths' shapes ---------------------------------
+        # ---- 8. scene preparation and the perceptual metric on phase 7's straight scene
+        prep = run_scene_preparation(torch, np, dev, disk_root)
+
+    # ---- 9. timing at the main paths' shapes ---------------------------------
     h, w = RESOLUTION
     n_rays = h * w
     frame_ms = time_ms(lambda: render_trajectory(params["nerf"], traj[:1], scene.K,
@@ -2024,6 +2276,8 @@ def main() -> int:
           f"x2 {2 * k7_ms:.2f} ms = {2 * k7_ms / fern_step_ms:.1%} of it, render_train "
           f"{train_ms / fern_step_ms:.1%}")
 
+    # DPT and LPIPS are library calls (F.conv2d, matmul), not hand-written kernels
+    print(json.dumps({"card": smi, **prep}))
     print(json.dumps({"kernels": [
         {"name": "render_fwd", "route": "cuda",
          "source": "nope_nerf_torch/csrc/render_fwd.cu",

@@ -8,7 +8,8 @@ the 7 depth metrics with the validity confusion matrix into
 `extraction/evaluation.txt`; with `save` it also writes the per-view artifact
 set (evaluation/artifacts.py: PNGs by the port's own writer; the INFERNO
 disparity maps need cv2) and, where imageio is installed, the eval video.
-LPIPS is reported as n/a: the port has no LPIPS module yet.
+LPIPS (evaluation/lpips.py) runs on the eval device when
+`extract_images.lpips_weights` names a weight file, and is n/a without one.
 """
 
 from __future__ import annotations
@@ -43,16 +44,14 @@ def evaluate(cfg: dict, synthetic: bool = False, device: DeviceLike = None, save
     built-in scene; returns the summary dict. `save=False` writes
     evaluation.txt only."""
     from ..evaluation.image_eval import aggregate_depth_errors, eval_image
+    from ..evaluation.lpips import set_lpips_weights
     from ..evaluation.pose_opt import init_test_poses, optimize_test_poses
     from ..models.poses import pose_c2w_all
     from ..training import ModelConfigs, Trainer, create_train_state
     from ..training.checkpoints import load_checkpoint
 
-    if cfg["extract_images"].get("lpips_weights"):
-        raise NotImplementedError("extract_images.lpips_weights is set, but the LPIPS network "
-                                  "(evaluation/lpips.py) comes with the LPIPS/DPT slice of the port; "
-                                  "unset it to evaluate without LPIPS")
     dev = resolve_device(device)
+    set_lpips_weights(cfg["extract_images"].get("lpips_weights"), dev)
     out_dir = cfg["training"]["out_dir"]
     extraction_dir = os.path.join(out_dir, cfg["extract_images"]["extraction_dir"])
     os.makedirs(extraction_dir, exist_ok=True)
@@ -117,7 +116,8 @@ def evaluate(cfg: dict, synthetic: bool = False, device: DeviceLike = None, save
         r = eval_image(out["rgb"], eval_scene.imgs[i], out["depth"], gt_depth, sc=sc,
                        min_depth=min_d, max_depth=max_d)
         results.append(r)
-        print(f"{i:4d} img: PSNR {r['psnr']:.2f} SSIM {r['ssim']:.3f} LPIPS n/a")
+        print(f"{i:4d} img: PSNR {r['psnr']:.2f} SSIM {r['ssim']:.3f} "
+              f"LPIPS {r['lpips'] if r['lpips'] is not None else 'n/a'}")
         if save:
             # per-view artifact set (model/eval_images.py:109-198); the depth-error
             # scatter only for the first view, as eval.py:179 show_errors=first
@@ -145,6 +145,8 @@ def evaluate(cfg: dict, synthetic: bool = False, device: DeviceLike = None, save
         "mean_psnr": float(np.mean([r["psnr"] for r in results])),
         "mean_ssim": float(np.mean([r["ssim"] for r in results])),
     }
+    if all(r["lpips"] is not None for r in results):
+        summary["mean_lpips"] = float(np.mean([r["lpips"] for r in results]))
     if all("depth_pred_masked" in r for r in results):
         summary.update(aggregate_depth_errors(results))
         conf = np.sum([r["conf_mat"] for r in results], axis=0) / len(results)
@@ -152,8 +154,9 @@ def evaluate(cfg: dict, synthetic: bool = False, device: DeviceLike = None, save
 
     # evaluation.txt in the reference's format (evaluation/eval.py:215-221)
     with open(os.path.join(extraction_dir, "evaluation.txt"), "a") as f:
-        f.write("Mean MSE: {0:.2f}, PSNR: {1:.2f}, SSIM: {2:.2f}, LPIPS n/a\n".format(
-            summary["mean_mse"], summary["mean_psnr"], summary["mean_ssim"]))
+        f.write("Mean MSE: {0:.2f}, PSNR: {1:.2f}, SSIM: {2:.2f}, LPIPS {3}\n".format(
+            summary["mean_mse"], summary["mean_psnr"], summary["mean_ssim"],
+            "{0:.2f}".format(summary["mean_lpips"]) if "mean_lpips" in summary else "n/a"))
         if "abs_rel" in summary:
             names = ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")
             f.write(("{:>8} | " * 7).format(*names) + "\n")

@@ -256,7 +256,7 @@ def train(cfg: dict, synthetic: bool = False, max_epochs: Optional[int] = None,
             # render the vis frame and log PSNR (reference Trainer.evaluate via
             # validate_every, train.py:245-249)
             out_v = trainer.render_frame(state, vis_batch, vis_img.shape[:2])
-            r = eval_image(out_v["rgb"], vis_img)
+            r = eval_image(out_v["rgb"], vis_img, with_lpips=False)
             print(f"  val: PSNR {r['psnr']:.2f} SSIM {r['ssim']:.3f}")
             if writer:
                 writer.add_scalar("val/psnr", r["psnr"], itj)

@@ -2,7 +2,8 @@
 
 Copy of nope_nerf_tpu/config.py (the port keeps its own). PyYAML is imported
 only where a yaml file is read or written, so configs built in code need no
-yaml at all.
+yaml at all. Without PyYAML, `load_config` still reads a yaml in the flow form
+that is also JSON, as cli/get_vkitti.py writes its configs there.
 
 Capability parity with the reference's `dataloading/configloading.py:3-47` (scene yaml
 recursively merged over `configs/default.yaml`), except the default option surface lives
@@ -13,6 +14,7 @@ on-disk default yaml can still be layered in between.
 from __future__ import annotations
 
 import copy
+import json
 import os
 from typing import Any, Dict, Optional
 
@@ -232,6 +234,20 @@ def update_recursive(dict1: Dict[str, Any], dict2: Dict[str, Any]) -> None:
             dict1[k] = v
 
 
+def _parse_yaml(text: str, path: str) -> Any:
+    """A yaml document through PyYAML, or without it, JSON (YAML's flow form)."""
+    try:
+        import yaml
+    except ImportError:
+        try:
+            return json.loads(text)
+        except json.JSONDecodeError as e:
+            raise ImportError(f"{path}: PyYAML is not installed, and without it only configs "
+                              "in JSON form (as cli.get_vkitti writes them there) are "
+                              "read") from e
+    return yaml.safe_load(text)
+
+
 def load_config(path: Optional[str] = None,
                 default_path: Optional[str] = None,
                 overrides: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
@@ -248,9 +264,8 @@ def load_config(path: Optional[str] = None,
             continue
         if not os.path.exists(p):
             raise FileNotFoundError(f"config file not found: {p}")
-        import yaml
         with open(p, "r") as f:
-            loaded = yaml.safe_load(f) or {}
+            loaded = _parse_yaml(f.read(), p) or {}
         update_recursive(cfg, loaded)
     if overrides:
         update_recursive(cfg, overrides)

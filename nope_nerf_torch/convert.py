@@ -9,6 +9,11 @@ moments included, so that a run can start from the same state in both
 packages and a state trained by the port can be handed back. A single group
 outside a train state (the test-time pose parameters of
 evaluation/pose_opt.py) goes through `tree_from_numpy` / `tree_to_numpy`.
+
+The frozen networks of scene preparation and evaluation carry across too:
+`dpt_params_from_jax` / `dpt_params_to_jax` change the DPT layouts (the JAX
+package keeps convs HWIO and linears (in, out), torch OIHW and (out, in)),
+and `lpips_params_from_jax` checks an LPIPS tree, OIHW in both packages.
 """
 
 from __future__ import annotations
@@ -90,3 +95,44 @@ def state_to_numpy(state):
     opt = {g: {"mu": tree_to_numpy(o.mu), "nu": tree_to_numpy(o.nu), "count": int(o.count)}
            for g, o in state.opt_state.items()}
     return params_to_numpy(state.params), opt, int(state.it)
+
+
+def dpt_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's DPT params (numpy, convert_torch_state_dict's layouts)
+    -> a state dict for models/dpt.py::DPT: 4-d weights HWIO -> OIHW, 2-d
+    weights (in, out) -> (out, in), everything else as it is. Values are
+    copied exactly."""
+    out = {}
+    for k, v in params.items():
+        v = np.asarray(v)
+        if k.endswith(".weight") and v.ndim == 4:
+            v = v.transpose(3, 2, 0, 1)
+        elif k.endswith(".weight") and v.ndim == 2:
+            v = v.T
+        out[k] = torch.from_numpy(np.array(v, order="C"))
+    return out
+
+
+def dpt_params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of dpt_params_from_jax: OIHW -> HWIO, (out, in) -> (in, out)."""
+    out = {}
+    for k, v in state_dict.items():
+        v = v.detach().cpu().numpy()
+        if k.endswith(".weight") and v.ndim == 4:
+            v = v.transpose(2, 3, 1, 0)
+        elif k.endswith(".weight") and v.ndim == 2:
+            v = v.T
+        out[k] = np.ascontiguousarray(v)
+    return out
+
+
+def lpips_params_from_jax(params: Dict[str, Any], device: DeviceLike = None
+                          ) -> Dict[str, torch.Tensor]:
+    """The JAX package's LPIPS params (VGG16 `features.<i>` OIHW convs and
+    `lin<k>.weight` heads, the layout of both packages) -> float32 tensors on
+    `device`, after evaluation/lpips.py's key and size checks."""
+    from .evaluation.lpips import _validate
+    dev = resolve_device(device)
+    out = {k: torch.tensor(np.asarray(v, np.float32), device=dev) for k, v in params.items()}
+    _validate(out)
+    return out

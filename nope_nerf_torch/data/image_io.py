@@ -16,9 +16,10 @@ has no cv2, imageio or PIL:
   goes in as RGB; cv2 reads and writes BGR. Interlaced and palette files are
   refused.
 - `resize_area` (cv2.INTER_AREA, downscaling), `resize_linear`
-  (cv2.INTER_LINEAR) and `resize_nearest_exact` (cv2.INTER_NEAREST_EXACT),
-  each taking the output size as (height, width), where cv2 takes
-  (width, height).
+  (cv2.INTER_LINEAR), `resize_cubic` (cv2.INTER_CUBIC, which the DPT input
+  transform uses on float32 images) and `resize_nearest_exact`
+  (cv2.INTER_NEAREST_EXACT), each taking the output size as (height, width),
+  where cv2 takes (width, height).
 
 cv2 computes uint8 results in fixed point or single precision, the port in
 float64 with the same weights, rounded to nearest. A uint8 result may so
@@ -234,6 +235,27 @@ def _linear_weights(src: int, dst: int) -> np.ndarray:
     return w
 
 
+def _cubic_weights(src: int, dst: int) -> np.ndarray:
+    """(dst, src) weights of cv2's INTER_CUBIC: Keys' cubic with A = -0.75 on
+    half-pixel centres, the four taps' indices clamped at the edges. cv2 (5.0)
+    places the taps and forms the coefficients in double and keeps them as
+    float32 for a float image; so does this."""
+    a = -0.75
+    fx = (np.arange(dst) + 0.5) * (src / dst) - 0.5
+    sx = np.floor(fx)
+    x = fx - sx
+    c0 = ((a * (x + 1) - 5 * a) * (x + 1) + 8 * a) * (x + 1) - 4 * a
+    c1 = ((a + 2) * x - (a + 3)) * x * x + 1
+    c2 = ((a + 2) * (1 - x) - (a + 3)) * (1 - x) * (1 - x) + 1
+    c3 = 1 - c0 - c1 - c2
+    w = np.zeros((dst, src))
+    rows = np.arange(dst)
+    for k, c in enumerate((c0, c1, c2, c3)):
+        np.add.at(w, (rows, np.clip(sx.astype(np.int64) - 1 + k, 0, src - 1)),
+                  c.astype(np.float32))
+    return w
+
+
 def _apply(img: np.ndarray, wy: np.ndarray, wx: np.ndarray, half_up: bool = False
            ) -> np.ndarray:
     out = np.tensordot(wy, img.astype(np.float64), axes=(1, 0))        # (oh, w, ...)
@@ -263,6 +285,16 @@ def resize_linear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     if (h, w) == (2 * size[0], 2 * size[1]):
         return resize_area(img, size)
     return _apply(img, _linear_weights(h, size[0]), _linear_weights(w, size[1]))
+
+
+def resize_cubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """(H, W[, C]) -> size = (h, w) by cv2.INTER_CUBIC, up or down (four taps
+    either way, as cv2). cv2 resizes a float image in float32 arithmetic; the
+    port sums in float64 over the same float32 weights, so the two agree to
+    float32 rounding. A uint8 image is rounded to nearest, where cv2's fixed
+    point may land one step away."""
+    h, w = img.shape[:2]
+    return _apply(img, _cubic_weights(h, size[0]), _cubic_weights(w, size[1]))
 
 
 def resize_nearest_exact(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:

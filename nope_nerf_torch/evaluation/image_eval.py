@@ -6,9 +6,9 @@ model/eval_images.py:17-217, Eval_Images): PSNR/SSIM, metric depth rescale
 and the 7 aggregate depth metrics. Everything here is host numpy; SSIM runs
 as a torch convolution on the CPU.
 
-LPIPS: the JAX package reports None without pretrained weights
-(evaluation/lpips.py). The port has no LPIPS module yet, so `lpips` is always
-None here; the eval CLI refuses a config that names LPIPS weights.
+LPIPS: the VGG16 metric of evaluation/lpips.py, on the weights and the device
+the eval CLI sets there (extract_images.lpips_weights); without a weight file
+`lpips` is None, as in the JAX package.
 
 The card's machine has no cv2: the depth resize to the ground truth's
 resolution (cv2.INTER_NEAREST_EXACT) is data/image_io.py's index map.
@@ -24,6 +24,7 @@ import torch
 from ..data.image_io import resize_nearest_exact
 from ..ops.ssim import ssim as ssim_fn
 from ..utils.metrics import compute_errors, mse2psnr
+from .lpips import get_lpips_fn
 
 
 def depth_confusion(depth_pred: np.ndarray, depth_gt: np.ndarray,
@@ -45,16 +46,23 @@ def depth_confusion(depth_pred: np.ndarray, depth_gt: np.ndarray,
 def eval_image(rgb_pred: np.ndarray, rgb_gt: np.ndarray,
                depth_pred: Optional[np.ndarray] = None,
                depth_gt: Optional[np.ndarray] = None,
-               sc: float = 1.0, min_depth: float = 0.1, max_depth: float = 20.0) -> Dict:
+               sc: float = 1.0, min_depth: float = 0.1, max_depth: float = 20.0,
+               with_lpips: bool = True) -> Dict:
     """Metrics of one rendered view against ground truth (eval_images.py:47-217
     minus the file IO). depth_pred is rescaled to metric by `sc` (the
     preprocessing-scale ratio, evaluation/eval.py:171-175) and compared inside
-    the joint validity mask. "lpips" is None (see the module docstring)."""
+    the joint validity mask. "lpips" is None without LPIPS weights or with
+    `with_lpips` False (see the module docstring)."""
     mse = float(np.mean((rgb_pred - rgb_gt) ** 2))
     psnr = float(mse2psnr(mse))
     ssim = float(ssim_fn(torch.from_numpy(np.ascontiguousarray(rgb_pred, np.float32)),
                          torch.from_numpy(np.ascontiguousarray(rgb_gt, np.float32))))
-    out: Dict = {"mse": mse, "psnr": psnr, "ssim": ssim, "lpips": None}
+    lpips = None
+    if with_lpips:
+        fn = get_lpips_fn()
+        if fn is not None:
+            lpips = fn(rgb_pred.astype(np.float32), rgb_gt.astype(np.float32))
+    out: Dict = {"mse": mse, "psnr": psnr, "ssim": ssim, "lpips": lpips}
 
     if depth_pred is not None and depth_gt is not None:
         depth_out = depth_pred * sc

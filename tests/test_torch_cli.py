@@ -445,9 +445,14 @@ def test_entry_points_refuse_disk_scenes_and_lpips_weights(tmp_path):
         evaluate(cfg, synthetic=True, device="cpu")
     with pytest.raises(FileNotFoundError):
         evaluate_poses(cfg, synthetic=True, device="cpu")
-    with_lpips = _tiny_cfg(tmp_path, extract_images={"lpips_weights": "weights/lpips.npz"})
-    with pytest.raises(NotImplementedError, match="LPIPS"):
-        evaluate(with_lpips, synthetic=True, device="cpu")
+    # LPIPS is ported: a config that names a weight file reports mean_lpips
+    from test_torch_lpips import random_params
+    np.savez(tmp_path / "lpips.npz", **random_params(0))
+    with_lpips = _tiny_cfg(tmp_path / "lpips_run",
+                           extract_images={"lpips_weights": str(tmp_path / "lpips.npz")})
+    train(with_lpips, synthetic=True, max_epochs=1, device="cpu")
+    summary = evaluate(with_lpips, synthetic=True, device="cpu", save=False)
+    assert np.isfinite(summary["mean_lpips"]) and summary["mean_lpips"] > 0
 
 
 def test_backup_snapshots_config_and_source(tmp_path):
