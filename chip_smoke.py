@@ -71,6 +71,21 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    raw V-KITTI tree (375x1242 PNGs, extrinsics txt) into a scene that
    DataField reads back; DPT and LPIPS are timed beside their FLOP bounds and
    printed on their own JSON line (library calls, not kernels);
+10. drives the multi-device layer (nope_nerf_torch/parallel/) while phase 7's
+   scene is still on disk, in processes of its own (this file run with
+   --parallel-worker or --cli-worker), each printing its own launch counts:
+   (a) the sharded fused train step at the width of phase 4 on 2 ranks
+   under gloo on this one card (512 rays a rank through K1 and the dW
+   kernel, K2 on each rank): step 1 against the one-process step on the
+   same draws, 4 counted steps, the ranks' states bit-equal; (d)
+   Trainer.render_frame_multihost at 188x621 (K3 once a rank), bit-equal to
+   render_frame; (b) the invariant-depth step (K3 and K4 full a rank, the
+   median over the gathered batch) the same way; (c) the sharded step on a
+   1-rank NCCL mesh, bit-equal to the unsharded step; (e) cli.train with
+   tpu.mesh_shape [2] through torch.distributed.run on the straight_d4
+   scene, only rank 0 writing checkpoints and a resume bit-equal to a
+   straight run. A rank that fails, or a collective that times out, fails
+   the phase. It runs before phase 9's timings;
 9. times each path and each kernel at its main path's shapes (CUDA events;
    dw_sm90 also on its own over K1's and K4 full's 11 blocks, beside the
    bytes of the operands those kernels hand it; K2 and K7 through their
@@ -1882,6 +1897,397 @@ def run_scene_preparation(torch, np, dev, root: str) -> dict:
         "preprocess_s": prep_s, "preprocess_frames": len(npz)}
 
 
+# ---- phase 10: the multi-device layer ---------------------------------------------------
+
+PARALLEL_RANKS = 2           # ranks of the gloo phases, both on cuda:0
+PARALLEL_STEPS = 4           # counted sharded steps of the fused config
+PARALLEL_UNFUSED_STEPS = 2   # counted sharded steps of the invariant-depth config
+COLLECTIVE_TIMEOUT_S = 180   # a rank that waits longer in a collective raises
+SPAWN_TIMEOUT_S = 420        # a spawn of ranks that runs longer is stopped, and the phase fails
+
+
+def rank_print(mesh_rank: int, text: str) -> None:
+    print(f"[rank {mesh_rank}] {text}", flush=True)
+
+
+def copy_generator(torch, gen):
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
+
+
+def flat_state(state) -> dict:
+    """Every tensor of a TrainState on the host, by name: params, Adam moments
+    and counts, the iteration counter, the generator's state."""
+    import torch
+    out = {"generator": state.generator.get_state(), "it": torch.tensor(state.it)}
+    for g, d in state.params.items():
+        out[f"count/{g}"] = torch.tensor(state.opt_state[g].count)
+        for k, v in d.items():
+            out[f"params/{g}/{k}"] = v.detach().cpu()
+            out[f"mu/{g}/{k}"] = state.opt_state[g].mu[k].cpu()
+            out[f"nu/{g}/{k}"] = state.opt_state[g].nu[k].cpu()
+    return out
+
+
+def flat_equal(torch, a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def compare_steps(torch, what: str, got, ref, rank: int) -> None:
+    """A sharded step's (gradients, loss dict) against the one-process step's
+    on the same draws: loss terms within 2e-3 relative, nerf blocks within
+    grad_tolerance (5e-3 of the block's largest entry), pose and distortion
+    blocks within 5e-2 of theirs (sums of d(rays) and dz over the batch).
+    Splitting the rays changes the order of K1's per-CTA dW partial sums."""
+    (g_s, ld_s), (g_1, ld_1) = got, ref
+    for k in ld_1:
+        if not abs(float(ld_s[k]) - float(ld_1[k])) <= 2e-3 * abs(float(ld_1[k])) + 1e-7:
+            raise RuntimeError(f"{what}: loss term {k} {float(ld_s[k])} differs from the "
+                               f"one-process step's {float(ld_1[k])}")
+    worst, report = 0.0, []
+    for k, ref_k in g_1["nerf"].items():
+        err = max_err(g_s["nerf"][k], ref_k)
+        if not err <= grad_tolerance(ref_k):
+            raise RuntimeError(f"{what}: nerf/{k} differs from the one-process step's by {err}")
+        worst = max(worst, err / grad_tolerance(ref_k))
+    for group in ("pose", "distortion"):
+        for k, ref_k in g_1.get(group, {}).items():
+            err, top = max_err(g_s[group][k], ref_k), float(ref_k.abs().max())
+            report.append(f"{group}/{k} {err:.3g} of {top:.3g}")
+            if not err <= 5e-2 * top + 1e-9:
+                raise RuntimeError(f"{what}: gradient {group}/{k} differs from the one-process "
+                                   f"step's by {err} (largest entry {top})")
+    rank_print(rank, f"{what} vs the one-process step on the same draws: {len(ld_1)} loss "
+               f"terms within 2e-3 (loss {float(ld_s['loss']):.6g} vs {float(ld_1['loss']):.6g}), "
+               f"{len(g_1['nerf'])} nerf blocks at worst {worst:.3f} of grad_tolerance, "
+               + ", ".join(report))
+
+
+def collective_meter():
+    """Count the mesh's all-reduces from now on, and the host time inside them:
+    returns a function that stops counting and gives (calls, ms)."""
+    from nope_nerf_torch.parallel import sharding
+    real = sharding.all_reduce
+    seen = [0, 0.0]
+
+    def metered(t, mesh):
+        t0 = time.perf_counter()
+        out = real(t, mesh)
+        seen[0] += 1
+        seen[1] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    sharding.all_reduce = metered
+
+    def stop():
+        sharding.all_reduce = real
+        return seen[0], seen[1]
+    return stop
+
+
+def parallel_setup(torch, dev, **training):
+    """The train workload of phase 4 (default config, learned poses, 1024 rays, the
+    4-frame synthetic scene at 188x621), `training` merged into its training keys."""
+    from nope_nerf_torch.config import load_config
+    from nope_nerf_torch.data import SceneData, make_synthetic_scene
+    from nope_nerf_torch.training import ModelConfigs, create_train_state
+    h, w = RESOLUTION
+    cfg = load_config(overrides={"training": {"n_training_points": TRAIN_RAYS, **training},
+                                 "pose": {"learn_pose": True, "init_pose": True}})
+    scene = SceneData.from_dict(make_synthetic_scene(n_frames=4, h=h, w=w)).to_device(dev)
+    mc = ModelConfigs.from_cfg(cfg, num_cams=scene.n_frames)
+    return cfg, scene, mc, create_train_state(SEED, mc, init_c2w=scene.c2ws_gt, device=dev)
+
+
+def sharded_step_check(torch, np, mesh, what: str, **training):
+    """Step 1 of the workload on `mesh` against the one-process step from a copy of
+    the same generator (rank 0 compares; every rank checks it drew the same ray
+    indices). Returns (cfg, scene, mc, state, order, refs)."""
+    from nope_nerf_torch.data import batch_for_frame, epoch_order
+    from nope_nerf_torch.training import Trainer
+    from nope_nerf_torch.training.trainer import _sample_rays, step_gradients
+    h, w = RESOLUTION
+    cfg, scene, mc, state = parallel_setup(torch, mesh.device, **training)
+    weights, _, rgb_loss_type = Trainer(cfg, mc)._sched_at(0, 10000)
+    order, refs = epoch_order(scene.n_frames, shuffle=True, seed=SEED)
+    batch = batch_for_frame(scene, int(order[0]), ref_idx=int(refs[0]))
+    gen = copy_generator(torch, state.generator)
+    ray_idx = _sample_rays(gen, h * w, TRAIN_RAYS, None, False)
+    sharded = step_gradients(state.params, batch, weights, ray_idx, gen, mc, rgb_loss_type,
+                             mesh=mesh)
+    gen1 = copy_generator(torch, state.generator)
+    ray_idx1 = _sample_rays(gen1, h * w, TRAIN_RAYS, None, False)
+    if not torch.equal(ray_idx, ray_idx1):
+        raise RuntimeError(f"{what}: the ranks drew other ray indices than one process")
+    if mesh.rank == 0:
+        one = step_gradients(state.params, batch, weights, ray_idx1, gen1, mc, rgb_loss_type)
+        if not torch.equal(gen.get_state(), gen1.get_state()):
+            raise RuntimeError(f"{what}: the sharded step drew other jitter than one process")
+        compare_steps(torch, what, sharded, one, mesh.rank)
+    return cfg, scene, mc, state, order, refs
+
+
+def parallel_gloo(torch, np, mesh, work: str) -> dict:
+    """Phase 10 (a), (b) and (d) on this rank of a 2-rank gloo mesh on cuda:0."""
+    from nope_nerf_torch.training import Trainer
+    from nope_nerf_torch.data import batch_for_frame
+    h, w = RESOLUTION
+    r = mesh.rank
+    out = {}
+    # (a) the fused step: K1 and its dW kernel on this rank's 512 rays, K2 on every rank
+    cfg, scene, mc, state, order, refs = sharded_step_check(
+        torch, np, mesh, f"sharded fused step 1 ({TRAIN_RAYS} rays over {mesh.size} ranks)")
+    trainer = Trainer(cfg, mc, mesh=mesh)
+    if r == 0:   # the same steps in one process on a copy of the state, rank 1 waiting
+        from nope_nerf_torch.cli.train import _clone_state
+        alone = Trainer(cfg, mc)
+        copy_ = _clone_state(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alone.run_steps(copy_, scene, order[:PARALLEL_STEPS], refs[:PARALLEL_STEPS], epoch=0,
+                        scheduling_start=10000)
+        torch.cuda.synchronize()
+        out["one_process_step_ms"] = (time.perf_counter() - t0) * 1e3 / PARALLEL_STEPS
+    torch.distributed.barrier()     # both ranks start the timed steps together
+    reduces = collective_meter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (state, lds), _ = counted(
+        lambda: trainer.run_steps(state, scene, order[:PARALLEL_STEPS], refs[:PARALLEL_STEPS],
+                                  epoch=0, scheduling_start=10000),
+        {"render_train": PARALLEL_STEPS, "chamfer_bidir": PARALLEL_STEPS,
+         "dw_sm90": PARALLEL_STEPS},
+        f"[rank {r}] sharded fused train path, {PARALLEL_STEPS} steps of "
+        f"{TRAIN_RAYS // mesh.size} rays on this rank")
+    out["fused_step_ms"] = (time.perf_counter() - t0) * 1e3 / PARALLEL_STEPS
+    calls, reduce_ms = reduces()
+    out["all_reduces_per_step"] = calls / PARALLEL_STEPS
+    out["all_reduce_ms_per_step"] = reduce_ms / PARALLEL_STEPS
+    if not all(bool(torch.isfinite(v).all()) for v in lds.values()):
+        raise RuntimeError("sharded fused train path: a non-finite loss term")
+    alone_text = (f"; the same steps in one process on this card {out['one_process_step_ms']:.2f}"
+                  " ms" if r == 0 else "")
+    rank_print(r, f"sharded fused train path: {out['fused_step_ms']:.2f} ms per step (host "
+               f"clock, synchronised; two ranks share the card), of it "
+               f"{out['all_reduce_ms_per_step']:.2f} ms inside {out['all_reduces_per_step']:.0f} "
+               f"gloo all-reduces a step (host clock: each waits for its operand, then stages it "
+               f"through the host){alone_text}; loss {float(lds['loss'][0]):.4f} -> "
+               f"{float(lds['loss'][-1]):.4f}")
+    torch.save(flat_state(state), os.path.join(work, f"fused_state_{r}.pt"))
+
+    # (d) the eval frame's rows split over the ranks, K3 once per rank
+    batch = batch_for_frame(scene, 0, ref_idx=1)
+    frame, _ = counted(lambda: trainer.render_frame_multihost(state, batch, RESOLUTION),
+                       {"render_fwd": 1},
+                       f"[rank {r}] render_frame_multihost {h}x{w}, this rank's "
+                       f"{-(-h // mesh.size)}-row slab")
+    np.savez(os.path.join(work, f"frame_{r}.npz"), **frame)
+    if r == 0:
+        ref = Trainer(cfg, mc).render_frame(state, batch, RESOLUTION)
+        np.savez(os.path.join(work, "frame_ref.npz"), **ref)
+
+    # (b) the invariant depth loss: K3 and K4 full per rank, the median over the
+    # gathered batch
+    cfg, scene, mc, state, order, refs = sharded_step_check(
+        torch, np, mesh, "sharded invariant-depth step 1", depth_loss_type="invariant")
+    trainer = Trainer(cfg, mc, mesh=mesh)
+    n = PARALLEL_UNFUSED_STEPS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (state, lds), _ = counted(
+        lambda: trainer.run_steps(state, scene, order[:n], refs[:n], epoch=0,
+                                  scheduling_start=10000),
+        {"render_fwd": n, "render_bwd": n, "chamfer_bidir": n, "dw_sm90": n},
+        f"[rank {r}] sharded invariant-depth train path, {n} steps")
+    out["invariant_step_ms"] = (time.perf_counter() - t0) * 1e3 / n
+    if not all(bool(torch.isfinite(v).all()) for v in lds.values()):
+        raise RuntimeError("sharded invariant-depth path: a non-finite loss term")
+    torch.save(flat_state(state), os.path.join(work, f"invariant_state_{r}.pt"))
+    return out
+
+
+def parallel_nccl(torch, np, mesh, work: str) -> dict:
+    """Phase 10 (c): the sharded step on a 1-rank NCCL mesh, bit-equal to the
+    unsharded step (a psum over one rank is the identity)."""
+    from nope_nerf_torch.cli.train import _clone_state
+    from nope_nerf_torch.data import batch_for_frame, epoch_order
+    from nope_nerf_torch.training import Trainer, train_step
+    cfg, scene, mc, state = parallel_setup(torch, mesh.device)
+    weights, lrs, rgb_loss_type = Trainer(cfg, mc)._sched_at(0, 10000)
+    order, refs = epoch_order(scene.n_frames, shuffle=True, seed=SEED)
+    batch = batch_for_frame(scene, int(order[0]), ref_idx=int(refs[0]))
+    plain = _clone_state(state)
+    (state, ld_s), _ = counted(
+        lambda: train_step(state, batch, weights, lrs, mc, rgb_loss_type, mesh=mesh),
+        {"render_train": 1, "chamfer_bidir": 1, "dw_sm90": 1},
+        f"[rank 0] sharded fused step on a 1-rank {mesh.backend} mesh")
+    plain, ld_1 = train_step(plain, batch, weights, lrs, mc, rgb_loss_type)
+    same = (flat_equal(torch, flat_state(state), flat_state(plain))
+            and all(torch.equal(ld_s[k], ld_1[k]) for k in ld_1))
+    rank_print(0, f"sharded step on a 1-rank {mesh.backend} mesh vs the unsharded step: state "
+               f"and loss terms bit-equal: {same}")
+    if not same:
+        raise RuntimeError("the 1-rank NCCL step differs from the unsharded step")
+    return {"nccl_equal": same}
+
+
+def parallel_worker(argv) -> int:
+    """One rank of phase 10 (`chip_smoke.py --parallel-worker <job> <rank> <world>
+    <rendezvous file> <work dir>`): job gloo ((a), (b), (d), 2 ranks on
+    cuda:0 joined by the file:// rendezvous) or nccl ((c), 1 rank). Writes
+    <work>/<job>_<rank>.json."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from nope_nerf_torch.parallel import make_mesh
+    job, rank, world, rendezvous, work = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
+    os.environ["LOCAL_RANK"] = str(rank)
+    if job == "nccl":
+        mesh = make_mesh(1, backend="nccl")        # a group of its own, in memory
+        out = parallel_nccl(torch, np, mesh, work)
+    else:
+        dist.init_process_group("gloo", init_method=f"file://{rendezvous}", rank=rank,
+                                world_size=world,
+                                timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+        mesh = make_mesh(world, backend="gloo")
+        out = parallel_gloo(torch, np, mesh, work)
+    torch.cuda.synchronize()
+    with open(os.path.join(work, f"{job}_{rank}.json"), "w") as f:
+        json.dump({"device": str(mesh.device), "backend": mesh.backend, **out}, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def cli_worker(argv) -> int:
+    """One rank of phase 10 (e), launched by `python3 -m torch.distributed.run
+    --standalone --nproc_per_node 2 chip_smoke.py --cli-worker <config json> <work>`:
+    cli.train with tpu.mesh_shape [2] under gloo for 2 epochs straight, then 1
+    epoch and a resume to 2 in another directory, counting each run's launches
+    and which ranks write a checkpoint. Writes <work>/cli_<rank>.pt."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from nope_nerf_torch.cli.train import train
+    from nope_nerf_torch.config import load_config
+    from nope_nerf_torch.training import checkpoints
+    cfg_path, work = argv
+    with open(cfg_path) as f:
+        over = json.load(f)
+    rank = int(os.environ["RANK"])
+    writes = []
+    real_write = checkpoints._write
+
+    def counting_write(out_dir, filename, payload):
+        writes.append(filename)
+        return real_write(out_dir, filename, payload)
+
+    checkpoints._write = counting_write
+    steps = DISK_FRAMES - 1
+    runs = {}
+    for name, out_dir, epochs in (("straight", "cli_straight", 2), ("first", "cli_resume", 1),
+                                  ("resumed", "cli_resume", 2)):
+        over["training"]["out_dir"] = os.path.join(work, out_dir)
+        cfg = load_config(overrides=over)
+        n = steps * (2 if name == "straight" else 1)
+        (state, _, _), _ = counted(
+            lambda: train(cfg, max_epochs=epochs, backend="gloo"),
+            {"render_train": n, "chamfer_bidir": n, "dw_sm90": n},
+            f"[rank {rank}] cli.train with tpu.mesh_shape [2] on straight_d4, {name} run "
+            f"({n} steps of {TRAIN_RAYS // 2} rays on this rank)")
+        runs[name] = flat_state(state)
+    checkpoints._write = real_write
+    same = flat_equal(torch, runs["resumed"], runs["straight"])
+    rank_print(rank, f"cli.train resume (1 epoch, checkpoint, 1 epoch) vs 2 epochs straight: "
+               f"bit-equal: {same}; checkpoints this rank wrote: {writes}")
+    if not same:
+        raise RuntimeError("cli.train with mesh_shape: the resumed run differs from the straight one")
+    torch.save({"writes": writes, "state": runs["straight"]}, os.path.join(work, f"cli_{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_parallel_phase(torch, np, root: str, smi: str) -> None:
+    """Phase 10: the multi-device layer, in processes of its own (see the module
+    docstring); the kernels are built already, so the ranks only load them."""
+    from nope_nerf_torch.parallel.multihost import run_ranks
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    me = os.path.join(here, "chip_smoke.py")
+    work = os.path.join(root, "parallel")
+    os.makedirs(work)
+    env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+
+    def spawn(job: str, world: int) -> None:
+        rendezvous = os.path.join(work, f"{job}.rendezvous")
+        outs = run_ranks([[sys.executable, me, "--parallel-worker", job, str(r), str(world),
+                           rendezvous, work] for r in range(world)], SPAWN_TIMEOUT_S, env=env,
+                         cwd=here)
+        for out in outs:
+            for line in out.splitlines():
+                if line.startswith("[rank"):
+                    print(line)
+
+    # (a), (b), (d): 2 ranks under gloo on cuda:0
+    spawn("gloo", PARALLEL_RANKS)
+    for name in ("fused", "invariant"):
+        states = [torch.load(os.path.join(work, f"{name}_state_{r}.pt"), weights_only=True)
+                  for r in range(PARALLEL_RANKS)]
+        same = flat_equal(torch, states[0], states[1])
+        print(f"sharded {name} path: the two ranks' states (params, Adam moments, generator) "
+              f"bit-equal after its steps: {same}")
+        if not same:
+            raise RuntimeError(f"sharded {name} path: the ranks' states differ")
+    frames = [np.load(os.path.join(work, f"frame_{r}.npz")) for r in range(PARALLEL_RANKS)]
+    ref = np.load(os.path.join(work, "frame_ref.npz"))
+    same = all(np.array_equal(f[k], ref[k]) for f in frames for k in ("rgb", "depth"))
+    print(f"render_frame_multihost {RESOLUTION[0]}x{RESOLUTION[1]} on {PARALLEL_RANKS} ranks: "
+          f"rgb and depth on every rank bit-equal to render_frame's: {same}")
+    if not (same and np.isfinite(ref["rgb"]).all()):
+        raise RuntimeError("render_frame_multihost differs from render_frame")
+    gloo = [json.load(open(os.path.join(work, f"gloo_{r}.json"))) for r in range(PARALLEL_RANKS)]
+
+    # (c): NCCL on 1 rank
+    spawn("nccl", 1)
+
+    # (e): cli.train through torch.distributed.run on phase 7's straight_d4 scene
+    over = copy.deepcopy(DISK_CONFIGS["straight_d4"])
+    over["dataloading"]["path"] = os.path.join(root, "V_KITTI")
+    over["training"].update(n_training_points=TRAIN_RAYS, vis_geo=False, print_every=0,
+                            validate_every=0, checkpoint_every=0, visualize_every=0,
+                            vis_reprojection_every=0, backup_every=0)
+    over["tpu"] = {"mesh_shape": [PARALLEL_RANKS]}
+    cfg_path = os.path.join(work, "straight_d4_mesh.json")
+    with open(cfg_path, "w") as f:
+        json.dump(over, f)
+    outs = run_ranks([[sys.executable, "-m", "torch.distributed.run", "--standalone",
+                       "--nproc_per_node", str(PARALLEL_RANKS), me, "--cli-worker", cfg_path,
+                       work]], SPAWN_TIMEOUT_S, env=env, cwd=here)
+    for line in outs[0].splitlines():
+        if line.startswith("[rank"):
+            print(line)
+    cli = [torch.load(os.path.join(work, f"cli_{r}.pt"), weights_only=True)
+           for r in range(PARALLEL_RANKS)]
+    ckpt = os.path.join(work, "cli_resume", "model.ckpt")
+    only_rank0 = (not cli[1]["writes"] and "model.ckpt" in cli[0]["writes"]
+                  and os.path.exists(ckpt))
+    same = flat_equal(torch, cli[0]["state"], cli[1]["state"])
+    print(f"cli.train with tpu.mesh_shape [2]: only rank 0 wrote model.ckpt: {only_rank0}; the "
+          f"ranks' states bit-equal: {same}")
+    if not (only_rank0 and same):
+        raise RuntimeError("cli.train with mesh_shape: a checkpoint written by rank 1, or the "
+                           "ranks' states differ")
+    wall = time.perf_counter() - t_phase
+    ms = ", ".join(f"rank {r} {g['fused_step_ms']:.2f}" for r, g in enumerate(gloo))
+    print(f"parallel phase: {wall:.1f} s wall on {smi}; sharded fused step ms per step {ms} "
+          f"(one process {gloo[0]['one_process_step_ms']:.2f}); invariant-depth step rank 0 "
+          f"{gloo[0]['invariant_step_ms']:.2f} ms (two ranks sharing one card under gloo "
+          "measure the code path, not scaling)")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1968,6 +2374,9 @@ def main() -> int:
 
         # ---- 8. scene preparation and the perceptual metric on phase 7's straight scene
         prep = run_scene_preparation(torch, np, dev, disk_root)
+
+        # ---- 10. the multi-device layer, while phase 7's straight scene is on disk
+        run_parallel_phase(torch, np, disk_root, smi)
 
     # ---- 9. timing at the main paths' shapes ---------------------------------
     h, w = RESOLUTION
@@ -2359,4 +2768,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        sys.exit(parallel_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--cli-worker"]:
+        sys.exit(cli_worker(sys.argv[2:]))
     sys.exit(main())

@@ -14,8 +14,13 @@ The state's tensors are updated in place, so the held best state is a copy.
 The scene is one on disk (data/fields.py::DataField: LLFF, Tanks and
 V-KITTI layouts, PNG images) or, with `synthetic`, the built-in generator.
 `dataloading.show_pose_only` draws the preprocessed pose frustums
-(cli/vis_poses.py) and returns without training. What needs a module the port
-does not have yet fails at the top of `train`, by name.
+(cli/vis_poses.py) and returns without training.
+
+`tpu.mesh_shape` shards the ray batch over processes, one per device
+(parallel/): launch `python3 -m torch.distributed.run --nproc_per_node N -m
+nope_nerf_torch.cli.train <config>` with N the product of mesh_shape;
+`--backend gloo` lets several ranks share one card. Every rank trains the
+same replicated state; only rank 0 writes checkpoints.
 """
 
 from __future__ import annotations
@@ -80,14 +85,6 @@ def show_poses(scene, out_dir: str) -> str:
     return out_path
 
 
-def check_supported(cfg: dict) -> None:
-    """Raise for the options whose modules the port does not have yet."""
-    t = cfg["training"]
-    if cfg["tpu"]["mesh_shape"]:
-        raise NotImplementedError("tpu.mesh_shape asks for a device mesh; the multi-device "
-                                  "slice of the port is not there yet")
-
-
 def _clone_state(state):
     """A copy of the state's tensors on their device (the live state is
     updated in place by every step)."""
@@ -111,11 +108,16 @@ def _save_u8(path: str, img: np.ndarray) -> None:
 
 
 def train(cfg: dict, synthetic: bool = False, max_epochs: Optional[int] = None,
-          device: DeviceLike = None):
+          device: DeviceLike = None, backend: Optional[str] = None):
     """Train cfg's model on `device` (CUDA unless told otherwise) until the
     schedule ends or `max_epochs` epochs have run; resumes from the checkpoint
     in training.out_dir when there is one. Returns (state, trainer, scene), or
-    with dataloading.show_pose_only the pose figure's path."""
+    with dataloading.show_pose_only the pose figure's path.
+
+    With tpu.mesh_shape the run is one rank of a process group of that many
+    processes (parallel.default_mesh; `backend` overrides NCCL on CUDA), each
+    on cuda:{LOCAL_RANK % device_count} or on `device` when it is the CPU;
+    a group of another size raises before anything runs."""
     from ..data import batch_for_frame, epoch_order
     from ..evaluation.image_eval import eval_image
     from ..evaluation.pose_eval import full_pose_evaluation
@@ -127,8 +129,13 @@ def train(cfg: dict, synthetic: bool = False, max_epochs: Optional[int] = None,
     from ..utils.metrics import mse2psnr
     from ..utils.profiling import StepTimer
 
-    check_supported(cfg)
-    dev = resolve_device(device)
+    from ..parallel import default_mesh, rank_zero_first
+    mesh = None
+    if cfg["tpu"]["mesh_shape"]:
+        mesh = default_mesh(cfg, backend=backend, device=device)
+        dev = mesh.device
+    else:
+        dev = resolve_device(device)
     t_cfg = cfg["training"]
     out_dir = t_cfg["out_dir"]
     render_path = os.path.join(out_dir, "rendering")
@@ -137,7 +144,8 @@ def train(cfg: dict, synthetic: bool = False, max_epochs: Optional[int] = None,
     seed = cfg["tpu"]["seed"]
     np.random.seed(seed)
 
-    scene = build_scene(cfg, synthetic)
+    with rank_zero_first(mesh):     # rank 0 writes the image caches the others read
+        scene = build_scene(cfg, synthetic)
     if cfg["dataloading"]["show_pose_only"]:
         return show_poses(scene, out_dir)
     n_views = scene.n_frames
@@ -165,7 +173,7 @@ def train(cfg: dict, synthetic: bool = False, max_epochs: Optional[int] = None,
 
     scene = scene.to_device(dev)   # one upload; the steps slice it on the device
     state = create_train_state(seed, mc, init_c2w=init_c2w, init_focal=init_focal, device=dev)
-    trainer = Trainer(cfg, mc)
+    trainer = Trainer(cfg, mc, mesh=mesh)
 
     # resume
     epoch_it, it = -1, -1
@@ -189,6 +197,7 @@ def train(cfg: dict, synthetic: bool = False, max_epochs: Optional[int] = None,
             # the config has the grid off)
             trainer.set_occupancy_grid(scalars["occ_grid"])
         print(f"resumed from {t_cfg['load_dir']} at epoch {epoch_it}, it {it}")
+    trainer._globalize(state)     # rank 0's state on every rank of a mesh
 
     def ckpt_scalars(ep, sched_start):
         sc = {"epoch_it": ep, "scheduling_start": sched_start, "psnr_best": psnr_best,
@@ -360,6 +369,8 @@ def train(cfg: dict, synthetic: bool = False, max_epochs: Optional[int] = None,
             save_checkpoint(out_dir, "model_best.ckpt", *best_held)
 
     save_checkpoint(out_dir, t_cfg["load_dir"], state, ckpt_scalars(epoch_it, scheduling_start))
+    if mesh is not None and mesh.size > 1:
+        torch.distributed.barrier()     # rank 0's checkpoint is on disk for every rank
     return state, trainer, scene
 
 
@@ -372,12 +383,16 @@ def main():
     parser.add_argument("--max-epochs", type=int, default=None)
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA device; 'cpu' to run there)")
+    parser.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                        help="process-group backend with tpu.mesh_shape (default: nccl on "
+                             "CUDA, gloo on the CPU; gloo lets ranks share one card)")
     args = parser.parse_args()
 
     from ..config import load_config
     cfg = load_config(args.config)
     backup(cfg["training"]["out_dir"], args.config)
-    train(cfg, synthetic=args.synthetic, max_epochs=args.max_epochs, device=args.device)
+    train(cfg, synthetic=args.synthetic, max_epochs=args.max_epochs, device=args.device,
+          backend=args.backend)
 
 
 if __name__ == "__main__":

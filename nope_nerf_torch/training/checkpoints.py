@@ -12,7 +12,8 @@ of any JAX checkpoint, and its Adam moments too: "opt_state" there pickles
 optax classes, which the loader stubs instead of importing (as every class of
 optax, jax, jaxlib and chex; classes of modules it does not know are refused),
 and a stubbed ScaleByAdamState still holds (count, mu, nu). The JAX key does
-not convert: the state keeps its own generator then.
+not convert: the state keeps its own generator then. In a multi-process run
+save_checkpoint writes on process 0 only, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from .. import DeviceLike, resolve_device
 from ..convert import params_from_numpy, params_to_numpy, state_to_numpy, tree_from_numpy
+from ..parallel.multihost import process_index
 from .state import AdamState, TrainState
 
 FORMAT_VERSION = 1
@@ -106,7 +108,12 @@ def load_params(out_dir: str, filename: str, device: DeviceLike = None
 def save_checkpoint(out_dir: str, filename: str, state: TrainState,
                     scalars: Optional[Dict[str, Any]] = None) -> str:
     """Atomically write the whole state (params, Adam moments and counts, the
-    iteration counter, the generator's state) and the scalars. Returns the path."""
+    iteration counter, the generator's state) and the scalars. Returns the path.
+    In a multi-process run only process 0 writes (the state is replicated);
+    every process gets the path, and a caller that restores it waits for the
+    write first (torch.distributed.barrier)."""
+    if process_index() != 0:
+        return os.path.join(out_dir, filename)
     params, opt_state, it = state_to_numpy(state)
     return _write(out_dir, filename, {
         "params": params, "opt_state": opt_state, "it": it,

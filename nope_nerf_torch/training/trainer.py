@@ -18,6 +18,17 @@ frame-order select of the JAX package (a traced where) is a plain `if` here.
 Trainer.render_frame renders a whole eval frame, Trainer.render_geo the phong
 geometry view; the Trainer keeps the occupancy grid (ops/occupancy.py) when
 rendering.occupancy_grid is set.
+
+With a mesh (parallel/mesh.py) the step is sharded over processes, as the
+JAX package's shard_map step over its 'data' axis: each rank renders
+n_training_points / world of the rays, the loss sums are psum'd, and the
+replicated inputs of the per-shard render pass pvary, whose backward sums
+the shard's gradient over ranks (parallel/sharding.py). The frame pair runs
+replicated on every rank. Every rank draws the global ray indices and the
+global jitter from its replicated generator and takes its rows, so the
+generators stay in step and a sharded step draws what the one-process step
+draws (the JAX package splits the key per device instead).
+Trainer.render_frame_multihost splits an eval frame's rows over the ranks.
 """
 
 from __future__ import annotations
@@ -42,6 +53,10 @@ from ..ops.fused_render import pack_targets, render_ray_loss_fused
 from ..ops.interp import get_tensor_values, resize_area, resize_bilinear, resize_nearest
 from ..ops.occupancy import make_occupancy_grid, update_occupancy_grid
 from ..ops.render import fused_train_eligible, fused_train_prepare, render_nope_nerf
+from ..parallel.mesh import make_mesh
+from ..parallel.multihost import (globalize_replicated, host_image_tiles, host_ray_slice,
+                                  process_count)
+from ..parallel.sharding import all_gather_tiled, psum, pvary
 from .scheduler import annealed_weights, lr_at_epoch, rgb_loss_type_at
 from .state import ModelConfigs, TrainState, adam_step
 
@@ -73,14 +88,43 @@ def _apply_distortion(depth: torch.Tensor, scale: torch.Tensor, shift: torch.Ten
     return depth * scale + shift
 
 
+def _global_draws(generator: Optional[torch.Generator], n: int, mc: ModelConfigs,
+                  noise: Optional[torch.Tensor], fine_u: Optional[torch.Tensor]):
+    """(noise, fine_u, normal_noise): the draws the render of n rays would
+    take from `generator`, in its order and at its shapes, for those not
+    pinned: the stratified or occupancy jitter (N, S), the hierarchical fine
+    draw (N, n_importance) and the normal output's jitter (N, 3). Without a
+    generator nothing is drawn."""
+    rcfg = mc.render
+    normal_noise = None
+    if generator is None:
+        return noise, fine_u, normal_noise
+
+    def rand(cols):
+        return torch.rand((n, cols), generator=generator, device=generator.device)
+
+    if noise is None and mc.stratified_noise and rcfg.sample_option != "ndc":
+        noise = rand(rcfg.num_points - rcfg.outside_steps)
+    if fine_u is None and rcfg.n_importance > 0 and rcfg.sample_option != "ndc":
+        fine_u = rand(rcfg.n_importance) * (1.0 - 1e-5)
+    if rcfg.normal_loss:
+        normal_noise = rand(3)
+    return noise, fine_u, normal_noise
+
+
 def _ray_terms(nerf_params, pixels, depth_prior, rgb_gt, prior_mask, camera_mat, world_mat,
                scale_mat, generator, mc: ModelConfigs, rgb_loss_type: str, n_total: int,
                weights: Dict[str, float], noise: Optional[torch.Tensor] = None,
-               fine_u: Optional[torch.Tensor] = None, occ_grid: Optional[torch.Tensor] = None):
+               fine_u: Optional[torch.Tensor] = None, occ_grid: Optional[torch.Tensor] = None,
+               normal_noise: Optional[torch.Tensor] = None, mesh=None):
     """Render the ray batch and reduce its loss terms to scalars:
-    (l_rgb, l_depth, l2_mean, ray_total). `noise` and `fine_u` pin the
-    stratified (or occupancy) jitter and the hierarchical fine draw;
-    `occ_grid` guides the sampling when given.
+    (l_rgb, l_depth, l2_mean, ray_total). `noise`, `fine_u` and
+    `normal_noise` pin the stratified (or occupancy) jitter, the hierarchical
+    fine draw and the normal output's jitter; `occ_grid` guides the sampling
+    when given. With `mesh` the rays are this rank's share and every sum is
+    psum'd over the mesh, so each rank returns the global terms; the depth
+    weight of the fused path divides by the global mask count, and the
+    invariant depth loss takes its median over the gathered batch.
 
     On the fused path ray_total is the already-weighted rgb + depth term from
     the one program that also produces every gradient below it, and l_rgb,
@@ -98,7 +142,8 @@ def _ray_terms(nerf_params, pixels, depth_prior, rgb_gt, prior_mask, camera_mat,
         if mc.detach_gt_depth:
             depth_gt = depth_gt.detach()
         mask = object_mask & prior_mask
-        count = mask.to(torch.float32).sum()
+        # the global count, before the kernel: it sets the depth weight
+        count = psum(mask.to(torch.float32).sum(), mesh)
         w_rgb_s = weights["rgb_weight"] / n_total if lcfg.use_rgb else 0.0
         w_depth_s = (weights["depth_weight"] * (count > 0) / count.clamp_min(1.0)
                      if lcfg.use_depth else 0.0)
@@ -106,6 +151,9 @@ def _ray_terms(nerf_params, pixels, depth_prior, rgb_gt, prior_mask, camera_mat,
         total, sums = render_ray_loss_fused(
             nerf_params, ray_table, z_val, tgt, mc.nerf, mc.render.dist_alpha,
             1 if rgb_loss_type == "l1" else 2, mc.render.white_background)
+        # one all-reduce on a mesh: the total with its gradient, the sums without
+        both = psum(torch.cat([total.reshape(1), sums.detach()]), mesh)
+        total, sums = both[0], both[1:]
         l_rgb = sums[0] / n_total if lcfg.use_rgb else zero
         l_depth = (torch.where(count > 0, sums[1] / count.clamp_min(1.0), zero)
                    if lcfg.use_depth else zero)
@@ -113,25 +161,30 @@ def _ray_terms(nerf_params, pixels, depth_prior, rgb_gt, prior_mask, camera_mat,
 
     out = render_nope_nerf(nerf_params, pixels, depth_prior, camera_mat, world_mat, scale_mat,
                            generator, mc.render, mc.nerf, add_noise=mc.stratified_noise,
-                           eval_=False, noise=noise, occ_grid=occ_grid, fine_u=fine_u)
+                           eval_=False, noise=noise, occ_grid=occ_grid, fine_u=fine_u,
+                           normal_noise=normal_noise)
     depth_pred, depth_gt = out["depth_pred"], out["depth_gt"]
     if mc.detach_gt_depth:
         depth_gt = depth_gt.detach()
     mask = out["object_mask"] & prior_mask
     diff = out["rgb"] - rgb_gt
-    if lcfg.use_rgb:
-        l_rgb = (diff.abs() if rgb_loss_type == "l1" else diff * diff).sum() / n_total
-    else:
-        l_rgb = zero
+    l1_depth = lcfg.use_depth and lcfg.depth_loss_type == "l1"
+    # the sums of the batch, psum'd together: rgb, depth, mask count, squared error
+    sums = psum(torch.stack([
+        (diff.abs() if rgb_loss_type == "l1" else diff * diff).sum() if lcfg.use_rgb else zero,
+        torch.where(mask, (depth_pred - depth_gt).abs(), zero).sum() if l1_depth else zero,
+        mask.to(torch.float32).sum() if l1_depth else zero,
+        (diff * diff).sum()]), mesh)
+    l_rgb = sums[0] / n_total if lcfg.use_rgb else zero
     if not lcfg.use_depth:
         l_depth = zero
-    elif lcfg.depth_loss_type == "l1":
-        dsum = torch.where(mask, (depth_pred - depth_gt).abs(), zero).sum()
-        dcount = mask.to(torch.float32).sum()
-        l_depth = torch.where(dcount > 0, dsum / dcount.clamp_min(1.0), zero)
-    else:
-        l_depth = depth_loss_invariant(depth_pred, depth_gt, mask)
-    l2_mean = (diff * diff).sum() / (n_total * 3) if lcfg.use_rgb or lcfg.use_depth else zero
+    elif l1_depth:
+        l_depth = torch.where(sums[2] > 0, sums[1] / sums[2].clamp_min(1.0), zero)
+    else:   # the invariant loss needs the global median: on a mesh, gather the ray batch
+        l_depth = depth_loss_invariant(all_gather_tiled(depth_pred, mesh),
+                                       all_gather_tiled(depth_gt, mesh),
+                                       all_gather_tiled(mask, mesh))
+    l2_mean = sums[3] / (n_total * 3) if lcfg.use_rgb or lcfg.use_depth else zero
     return l_rgb, l_depth, l2_mean, None
 
 
@@ -139,13 +192,14 @@ def compute_step_loss(params: Dict[str, Any], batch: Dict[str, Any], weights: Di
                       ray_idx: torch.Tensor, generator: Optional[torch.Generator],
                       mc: ModelConfigs, rgb_loss_type: str,
                       noise: Optional[torch.Tensor] = None,
-                      fine_u: Optional[torch.Tensor] = None
+                      fine_u: Optional[torch.Tensor] = None, mesh=None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The loss of one frame and its reference frame, differentiable in `params`
     through autograd: (loss, loss_dict). `noise` pins the stratified jitter
     (N, S) and `fine_u` the hierarchical fine draw (N, n_importance) that
     `generator` would otherwise draw. batch["occ_grid"], when present, guides
-    the sampling."""
+    the sampling. With `mesh` this rank renders its share of the rays and
+    every rank returns the global loss; its gradients are the global ones."""
     img = batch["img"]                      # (H, W, 3)
     depth_input = batch["depth"]            # (H, W)
     depth_mask = batch["depth_mask"]        # (H, W) bool
@@ -190,10 +244,24 @@ def compute_step_loss(params: Dict[str, Any], batch: Dict[str, Any], weights: Di
     zero = torch.zeros((), dtype=torch.float32, device=img.device)
     precomputed = {"loss_rgb": zero, "loss_depth": zero, "l2_mean": zero}
     if lcfg.use_rgb or lcfg.use_depth:
+        # the shard's inputs: the whole batch, or with a mesh this rank's rows of the
+        # global batch and of the global draws. Every replicated input passes pvary (its
+        # backward sums over the ranks; without a mesh an alias), so the shard's gradient
+        # reaches it as one sum either way; the pair terms below keep the originals.
+        n = pixels.shape[0]
+        lo, hi = (0, n) if mesh is None else host_ray_slice(n, mesh.rank, mesh.size)
+        draws = (noise, fine_u, None)
+        if mesh is not None:
+            draws = tuple(None if d is None else d[lo:hi]
+                          for d in _global_draws(generator, n, mc, noise, fine_u))
+            generator, scale_mat = None, None   # every draw is pinned; scale_mat: JAX :304
+        shard = [{k: pvary(v, mesh) for k, v in params["nerf"].items()},
+                 pvary(pixels, mesh)[lo:hi], pvary(depth_prior, mesh)[lo:hi], rgb_gt[lo:hi],
+                 depth_mask[iy, ix][lo:hi], pvary(camera_mat, mesh), pvary(world_mat, mesh),
+                 scale_mat, generator]
         l_rgb, l_depth, l2_mean, ray_total = _ray_terms(
-            params["nerf"], pixels, depth_prior, rgb_gt, depth_mask[iy, ix], camera_mat,
-            world_mat, scale_mat, generator, mc, rgb_loss_type, mc.n_training_points,
-            weights, noise=noise, fine_u=fine_u, occ_grid=batch.get("occ_grid"))
+            *shard, mc, rgb_loss_type, mc.n_training_points, weights, noise=draws[0],
+            fine_u=draws[1], occ_grid=batch.get("occ_grid"), normal_noise=draws[2], mesh=mesh)
         precomputed = {"loss_rgb": l_rgb, "loss_depth": l_depth, "l2_mean": l2_mean}
         if ray_total is not None:
             precomputed["ray_total"] = ray_total
@@ -275,14 +343,15 @@ def compute_step_loss(params: Dict[str, Any], batch: Dict[str, Any], weights: Di
 
 
 def step_gradients(params: Dict[str, Dict[str, torch.Tensor]], batch, weights, ray_idx,
-                   generator, mc: ModelConfigs, rgb_loss_type: str, noise=None, fine_u=None):
+                   generator, mc: ModelConfigs, rgb_loss_type: str, noise=None, fine_u=None,
+                   mesh=None):
     """(grads shaped like params, detached loss_dict) of compute_step_loss. A
     tensor the loss does not reach (a frozen init pose) gets a zero gradient,
-    as jax.grad gives it."""
+    as jax.grad gives it. With `mesh` both are the global ones, on every rank."""
     leaves = {g: {k: v.detach().requires_grad_(True) for k, v in group.items()}
               for g, group in params.items()}
     loss, loss_dict = compute_step_loss(leaves, batch, weights, ray_idx, generator, mc,
-                                        rgb_loss_type, noise=noise, fine_u=fine_u)
+                                        rgb_loss_type, noise=noise, fine_u=fine_u, mesh=mesh)
     flat = [(g, k) for g in leaves for k in leaves[g]]
     grads = torch.autograd.grad(loss, [leaves[g][k] for g, k in flat], allow_unused=True)
     out: Dict[str, Dict[str, torch.Tensor]] = {g: {} for g in leaves}
@@ -296,12 +365,17 @@ def train_step(state: TrainState, batch: Dict[str, Any], weights: Dict[str, floa
                lrs: Dict[str, float], mc: ModelConfigs, rgb_loss_type: str,
                ray_idx: Optional[torch.Tensor] = None,
                noise: Optional[torch.Tensor] = None,
-               fine_u: Optional[torch.Tensor] = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+               fine_u: Optional[torch.Tensor] = None,
+               mesh=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One full optimization step: state -> (state, metrics). The state's
     tensors are updated in place and the same state object is returned.
     `ray_idx`, `noise` and `fine_u` pin the random draws (tests); otherwise
-    they come from the state's generator."""
+    they come from the state's generator. With `mesh` the rays shard over its
+    ranks (compute_step_loss); every rank makes the same update."""
     h, w, _ = batch["img"].shape
+    if mesh is not None and mc.n_training_points % mesh.size:
+        raise ValueError(f"n_training_points {mc.n_training_points} must divide evenly across "
+                         f"the mesh's {mesh.size} ranks")
     if ray_idx is None:
         ray_idx = _sample_rays(
             state.generator, h * w, mc.n_training_points,
@@ -309,7 +383,7 @@ def train_step(state: TrainState, batch: Dict[str, Any], weights: Dict[str, floa
             mc.use_sparse_depth_resample)
     ray_idx = ray_idx.to(batch["img"].device)
     grads, loss_dict = step_gradients(state.params, batch, weights, ray_idx, state.generator,
-                                      mc, rgb_loss_type, noise=noise, fine_u=fine_u)
+                                      mc, rgb_loss_type, noise=noise, fine_u=fine_u, mesh=mesh)
     for group in state.params:
         adam_step(state.params[group], grads[group], state.opt_state[group], lrs[group],
                   mc.weight_decay if group == "nerf" else 0.0)
@@ -319,7 +393,7 @@ def train_step(state: TrainState, batch: Dict[str, Any], weights: Dict[str, floa
 
 def train_steps(state: TrainState, scene_stack: Dict[str, torch.Tensor], order, ref_order,
                 weights: Dict[str, float], lrs: Dict[str, float], mc: ModelConfigs,
-                rgb_loss_type: str) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+                rgb_loss_type: str, mesh=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """len(order) train steps over the frame order (the JAX package's lax.scan
     as a loop): (state, loss_dict with a leading step axis). Nothing is read
     back to the host between steps."""
@@ -345,7 +419,7 @@ def train_steps(state: TrainState, scene_stack: Dict[str, torch.Tensor], order, 
             batch["ref_rgb_pc"] = scene_stack["rgb_pc"][ref]
         if "occ_grid" in scene_stack:
             batch["occ_grid"] = scene_stack["occ_grid"]
-        state, loss_dict = train_step(state, batch, weights, lrs, mc, rgb_loss_type)
+        state, loss_dict = train_step(state, batch, weights, lrs, mc, rgb_loss_type, mesh=mesh)
         dicts.append(loss_dict)
     return state, {k: torch.stack([d[k] for d in dicts]) for k in dicts[0]}
 
@@ -353,11 +427,13 @@ def train_steps(state: TrainState, scene_stack: Dict[str, torch.Tensor], order, 
 class Trainer:
     """Host-side orchestration: the epoch's schedule scalars, the per-scene
     warp cache and the occupancy grid. The per-step compute lives in
-    train_step."""
+    train_step; with `mesh` (parallel/mesh.py) it is sharded over the mesh's
+    ranks."""
 
-    def __init__(self, cfg: dict, mc: ModelConfigs):
+    def __init__(self, cfg: dict, mc: ModelConfigs, mesh=None):
         self.cfg = cfg
         self.mc = mc
+        self.mesh = mesh
         t = cfg["training"]
         self.base_lrs = {"nerf": t["learning_rate"], "pose": t["pose_lr"],
                          "focal": t["focal_lr"], "distortion": t["distortion_lr"]}
@@ -391,6 +467,11 @@ class Trainer:
     def rgb_loss_type(self, epoch: int, scheduling_start: int) -> str:
         return rgb_loss_type_at(self.cfg["training"], scheduling_start, epoch)
 
+    def _globalize(self, tree):
+        """`tree` overwritten by rank 0's values on a mesh of several ranks
+        (parallel.globalize_replicated); the identity otherwise."""
+        return globalize_replicated(tree, self.mesh)
+
     def _sched_at(self, epoch: int, scheduling_start: int):
         """(weights, lrs, rgb_loss_type) of this epoch, computed once per epoch."""
         key = (epoch, scheduling_start)
@@ -407,7 +488,7 @@ class Trainer:
         weights, lrs, rgb_loss_type = self._sched_at(epoch, scheduling_start)
         if self.occ_grid is not None and "occ_grid" not in batch:
             batch = {**batch, "occ_grid": self.occ_grid}
-        return train_step(state, batch, weights, lrs, self.mc, rgb_loss_type)
+        return train_step(state, batch, weights, lrs, self.mc, rgb_loss_type, mesh=self.mesh)
 
     def run_steps(self, state: TrainState, scene, order, ref_order, epoch: int,
                   scheduling_start: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -424,7 +505,7 @@ class Trainer:
         if self.occ_grid is not None:
             scene_stack["occ_grid"] = self.occ_grid
         return train_steps(state, scene_stack, order, ref_order, weights, lrs, self.mc,
-                           rgb_loss_type)
+                           rgb_loss_type, mesh=self.mesh)
 
     def _warp_frames(self, scene):
         """Per-frame constants of the photometric warp, computed once per scene:
@@ -457,13 +538,15 @@ class Trainer:
             print(f"WARNING: checkpointed occupancy grid is {grid.shape[0]}^3 but "
                   f"rendering.occupancy_res={self._occ_res}; keeping the checkpoint's "
                   "resolution for this run")
-        self.occ_grid = grid if self.occ_grid is None else grid.to(self.occ_grid.device)
+        self.occ_grid = self._globalize(
+            grid if self.occ_grid is None else grid.to(self.occ_grid.device))
 
     def reset_occupancy(self) -> None:
         """A fresh all-ones grid (scheduling_mode reset discards the field the
         EMA describes)."""
         if self.occ_grid is not None:
-            self.occ_grid = make_occupancy_grid(self._occ_res, self.occ_grid.device)
+            self.occ_grid = self._globalize(make_occupancy_grid(self._occ_res,
+                                                                self.occ_grid.device))
 
     def update_occupancy(self, state: TrainState, epoch: int) -> None:
         """EMA-update the occupancy grid from the current field; call once per
@@ -475,7 +558,7 @@ class Trainer:
             return
         dev = state.params["nerf"]["density_w"].device
         if self.occ_grid is None:
-            self.occ_grid = make_occupancy_grid(self._occ_res, dev)
+            self.occ_grid = self._globalize(make_occupancy_grid(self._occ_res, dev))
             far = self.mc.render.depth_range[1]
             if far > self.mc.render.occ_radius:
                 print(f"WARNING: rendering.depth_range far ({far}) exceeds the occupancy cube "
@@ -485,9 +568,9 @@ class Trainer:
         if self._occ_update_every <= 0 or epoch % self._occ_update_every:
             return
         gen = torch.Generator(device=dev).manual_seed(17 * 1_000_003 + epoch)
-        self.occ_grid = update_occupancy_grid(self.occ_grid, state.params["nerf"], self.mc.nerf,
-                                              radius=self.mc.render.occ_radius,
-                                              decay=self._occ_decay, generator=gen)
+        self.occ_grid = self._globalize(update_occupancy_grid(
+            self.occ_grid, state.params["nerf"], self.mc.nerf, radius=self.mc.render.occ_radius,
+            decay=self._occ_decay, generator=gen))
 
     @torch.no_grad()
     def render_frame(self, state: TrainState, batch: Dict[str, Any],
@@ -558,6 +641,34 @@ class Trainer:
         rgb = torch.cat(pending["rgb_chunks"]).cpu().numpy()
         depth = torch.cat(pending["depth_chunks"]).cpu().numpy()
         return {"rgb": rgb.reshape(h, w, 3), "depth": depth.reshape(h, w)}
+
+    def render_frame_multihost(self, state: TrainState, batch: Dict[str, Any],
+                               resolution: Tuple[int, int], chunk: int = RENDER_CHUNK,
+                               use_learned_pose: bool = True) -> Dict[str, np.ndarray]:
+        """render_frame with the rows split over the ranks: each renders its
+        host_image_tiles slab, the slabs (padded to ceil(h / ranks) rows) are
+        gathered, and every rank returns the same assembled frame (callers
+        gate file IO on rank 0). Per-ray math is independent, so the frame
+        equals render_frame's. With one process: render_frame. The mesh is
+        the Trainer's, else the initialised process group's."""
+        mesh = self.mesh
+        dev = state.params["nerf"]["density_w"].device
+        if mesh is None and process_count() > 1:
+            mesh = make_mesh(device=dev)
+        if mesh is None or mesh.size == 1:
+            return self.render_frame(state, batch, resolution, chunk=chunk,
+                                     use_learned_pose=use_learned_pose)
+        h, w = resolution
+        lo, hi = host_image_tiles(h, mesh.rank, mesh.size)
+        per = -(-h // mesh.size)
+        slab = torch.zeros((per, w, 4), dtype=torch.float32, device=dev)  # rgb and depth
+        if hi > lo:
+            tile = self.render_frame(state, batch, resolution, chunk=chunk,
+                                     use_learned_pose=use_learned_pose, rows=(lo, hi))
+            slab[:hi - lo, :, :3] = torch.from_numpy(tile["rgb"])
+            slab[:hi - lo, :, 3] = torch.from_numpy(tile["depth"])
+        frame = all_gather_tiled(slab, mesh)[:h].cpu().numpy()
+        return {"rgb": frame[..., :3].copy(), "depth": frame[..., 3].copy()}
 
     @torch.no_grad()
     def render_geo(self, state: TrainState, batch: Dict[str, Any], resolution: Tuple[int, int],

@@ -363,9 +363,11 @@ def test_scheduling_mode_reset_reinitializes_the_nerf(tmp_path):
     ("tpu", "mesh_shape", [4], "multi-device"),
 ])
 def test_train_refuses_unported_options_early(tmp_path, section, key, value, match):
-    """tpu.mesh_shape raises before anything runs. dataloading.show_pose_only
-    is ported (cli/vis_poses.py): train stops as early, once the pose figure
-    is drawn, and trains nothing."""
+    """tpu.mesh_shape of 4 in a run of one process raises before anything
+    runs, and names the launch command (the multi-device layer itself is
+    tests/test_torch_parallel.py's). dataloading.show_pose_only is ported
+    (cli/vis_poses.py): train stops as early, once the pose figure is drawn,
+    and trains nothing."""
     extra = {section: {key: value}}
     cfg = _tiny_cfg(tmp_path / "out", **extra)
     if key == "show_pose_only":
@@ -373,8 +375,9 @@ def test_train_refuses_unported_options_early(tmp_path, section, key, value, mat
         assert out == str(tmp_path / "out" / "pose_check.png") and os.path.exists(out)
         assert not (tmp_path / "out" / "model.ckpt").exists()        # nothing trained
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match) as err:
         train(cfg, synthetic=True, max_epochs=1, device="cpu")
+    assert "torch.distributed.run --nproc_per_node 4" in str(err.value)
     assert not (tmp_path / "out").exists()          # nothing ran
 
 

@@ -20,15 +20,16 @@ REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "nope_nerf_torch"
 BLOCKED = ("jax", "jaxlib", "nope_nerf_tpu", "optax", "chex", "yaml", "cv2", "imageio",
            "matplotlib", "PIL")
-# the modules of the third to fifth slices, and those of scene preparation and LPIPS:
-# each must be among those the scan imports
+# the modules of the third to fifth slices, those of scene preparation and LPIPS, and
+# the multi-device layer: each must be among those the scan imports
 REQUIRED = tuple("nope_nerf_torch." + m for m in (
     "cli.train", "cli.eval", "cli.eval_poses", "evaluation.align", "evaluation.artifacts",
     "evaluation.image_eval", "evaluation.pose_eval", "evaluation.pose_opt",
     "tools.backward_noise", "training.checkpoints", "utils.metrics", "utils.profiling",
     "ops.fused_mlp", "ops.occupancy", "ops.phong", "cli.vis_poses", "data.image_io",
     "data.llff", "data.degrade", "data.fields", "evaluation.lpips", "models.dpt",
-    "data.dpt_transforms", "cli.preprocess", "cli.get_vkitti"))
+    "data.dpt_transforms", "cli.preprocess", "cli.get_vkitti", "parallel.mesh",
+    "parallel.multihost", "parallel.sharding"))
 
 torch.set_num_threads(2)
 
