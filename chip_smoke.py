@@ -58,8 +58,16 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    per step asserted (K7 twice on the first two, whose Chamfer clouds exceed
    K2's 8,192 points; K2 once on the third); fern's step 1 against the plain
    versions; then cli.eval_poses (the PLY), cli.render and cli.eval on the fern
-   scene. The one cut: fern is written at its working size with
-   resize_factor 1, not as 3024x4032 originals minified by 4;
+   scene. Ballroom's frames are JPEG files, as the Tanks scenes ship,
+   written by nope_nerf_torch/tools/jpeg_writer.py (4:2:0 at quality 95; one
+   frame 4:4:4, one 4:2:2 with a restart interval, one with an Exif
+   orientation of 1) and each decoded before cli.train: its shape, its PSNR
+   against the source over what a JPEG keeps above 35 dB, two reads
+   identical; fern and straight_d4 stay PNG. The decode times (a Ballroom
+   frame, a 375x1242 Paeth-filtered PNG, one 3024x4032 JPEG frame) and the
+   Ballroom scene's load through DataField go on their own JSON line. The one
+   cut: fern is written at its working size with resize_factor 1, not as
+   3024x4032 originals minified by 4;
 8. prepares a scene and measures it perceptually on phase 7's straight
    scene: LPIPS (VGG16, seeded weights saved as a JAX-layout .npz) on a
    188x621 pair and DPT-Hybrid (default widths, the JAX package's random
@@ -163,6 +171,10 @@ DISK_CONFIGS = {
                            "traj_option": "interp", "bspline_degree": 100}},
 }
 DISK_SIZES = {"fern": (756, 1008), "Ballroom": (540, 960), "straight_d4": (375, 1242)}
+# Ballroom's frames as JPEG files (tools/jpeg_writer.py): 4:2:0 at quality 95 but for
+# these frames
+BALLROOM_JPEG = {0: {"sampling": "4:4:4"}, 1: {"sampling": "4:2:2", "restart_interval": 4},
+                 2: {"orientation": 1}}
 # Phase 8 on phase 7's straight scene: configs/V_KITTI/preprocess_straight.yaml writes its
 # DPT priors, configs/V_KITTI/straight_d2.yaml trains on them (their keys, as above;
 # tests/test_torch_preprocess.py holds them equal to the files)
@@ -1566,6 +1578,43 @@ def write_disk_scenes(np, root: str) -> None:
                          pred=depth[None].astype(np.float32))
 
 
+def write_jpeg_frames(np, root: str):
+    """Rewrite the Ballroom scene's PNG frames as JPEG files (BALLROOM_JPEG's
+    modes) and decode each: the shape (after orientation) and image_shape
+    equal to the source's, its PSNR against the source over what a JPEG
+    keeps above 35 dB, two reads np.array_equal. Returns (the decode times in
+    ms, the source of the last frame)."""
+    from nope_nerf_torch.data.image_io import image_shape, read_png, read_rgb8
+    from nope_nerf_torch.tools.jpeg_writer import kept_psnr, write_jpeg
+    name = "Ballroom"
+    d = DISK_CONFIGS[name]["dataloading"]
+    img_dir = os.path.join(root, os.path.basename(d["path"]), d["scene"][0], "images")
+    times = []
+    for i, png in enumerate(sorted(os.listdir(img_dir))):
+        src = read_png(os.path.join(img_dir, png))
+        os.remove(os.path.join(img_dir, png))
+        mode = {"quality": 95, "sampling": "4:2:0", **BALLROOM_JPEG.get(i, {})}
+        path = os.path.join(img_dir, os.path.splitext(png)[0] + ".jpg")
+        write_jpeg(path, src, **mode)
+        t0 = time.perf_counter()
+        got = read_rgb8(path)
+        times.append((time.perf_counter() - t0) * 1e3)
+        if got.shape != src.shape or image_shape(path) != src.shape[:2]:
+            raise RuntimeError(f"{name} frame {i}: decoded {got.shape}, image_shape "
+                               f"{image_shape(path)}, written {src.shape}")
+        psnr = kept_psnr(got, src, mode["sampling"])
+        if not psnr > 35.0:
+            raise RuntimeError(f"{name} frame {i} ({mode}): PSNR {psnr:.2f} dB against its "
+                               "source, not above 35")
+        if not np.array_equal(read_rgb8(path), got):
+            raise RuntimeError(f"{name} frame {i}: two reads differ")
+        print(f"  {name} {os.path.basename(path)} ({os.path.getsize(path)} bytes, "
+              + ", ".join(f"{k} {v}" for k, v in mode.items()) + f"): {got.shape[0]}x"
+              f"{got.shape[1]}, PSNR {psnr:.2f} dB against its source, decoded in "
+              f"{times[-1]:.1f} ms, two reads equal")
+    return times, src
+
+
 def run_disk_scenes(torch, np, dev, root: str):
     """Phase 7: the three configurations from scenes on disk under `root`
     through the CLIs (see the module docstring). Returns (fern's launch counts,
@@ -1574,8 +1623,9 @@ def run_disk_scenes(torch, np, dev, root: str):
     from nope_nerf_torch.cli.eval_poses import evaluate_poses
     from nope_nerf_torch.cli.render import render
     from nope_nerf_torch.cli.train import train
-    from nope_nerf_torch.data import batch_for_frame
-    from nope_nerf_torch.data.image_io import read_png, write_png
+    from nope_nerf_torch.data import DataField, batch_for_frame
+    from nope_nerf_torch.data.image_io import read_png
+    from nope_nerf_torch.tools.decode_timing import decode_times
     from nope_nerf_torch.ops.fused_render import plain_versions
     from nope_nerf_torch.training.trainer import _sample_rays, step_gradients
 
@@ -1591,6 +1641,11 @@ def run_disk_scenes(torch, np, dev, root: str):
     print(f"on-disk scenes: {DISK_FRAMES} frames each at "
           + ", ".join(f"{n} {h}x{w}" for n, (h, w) in DISK_SIZES.items())
           + f" written in {time.perf_counter() - t0:.1f} s")
+    jpeg_ms, ballroom_frame = write_jpeg_frames(np, root)
+    t0 = time.perf_counter()
+    DataField.from_cfg(disk_config("Ballroom", root), mode="train")
+    load_s = time.perf_counter() - t0
+    print(f"Ballroom: {DISK_FRAMES} JPEG frames loaded through DataField in {load_s:.2f} s")
     for name in DISK_SIZES:
         cfg = disk_config(name, root)
         t0 = time.perf_counter()
@@ -1666,20 +1721,17 @@ def run_disk_scenes(torch, np, dev, root: str):
     print(f"fern: eval_poses ATE_t {metrics['ate_trans']:.6f}, PLY written; eval PSNR "
           f"{summary['mean_psnr']:.3f}")
 
-    # PNG decoding on this machine: a V-KITTI frame Paeth-filtered (cv2's adaptive
-    # writer may choose Paeth rows) against the Up filter the port writes
+    # decoding on this machine's host: a Ballroom frame, a V-KITTI frame with every
+    # row Paeth-filtered (cv2's adaptive writer picks Paeth most) and one LLFF original
     d = DISK_CONFIGS["straight_d4"]["dataloading"]
     img = read_png(os.path.join(root, os.path.basename(d["path"]), d["scene"][0], "images",
                                 "00000.png"))
-    times = {}
-    for filt, label in ((4, "Paeth"), (2, "Up")):
-        path = os.path.join(root, f"{label}.png")
-        write_png(path, img, filter_type=filt)
-        t0 = time.perf_counter()
-        read_png(path)
-        times[label] = time.perf_counter() - t0
+    times = decode_times(ballroom_frame, img, root, large=(3024, 4032))
     print(f"PNG decode of a {img.shape[0]}x{img.shape[1]} RGB frame: Paeth rows "
-          f"{times['Paeth'] * 1e3:.0f} ms, Up rows {times['Up'] * 1e3:.1f} ms (host)")
+          f"{times['png_paeth_375x1242_ms']:.1f} ms, Up rows "
+          f"{times['png_up_375x1242_ms']:.1f} ms (host)")
+    print(json.dumps({"image_decode_host": {"ballroom_jpeg_frames_ms": jpeg_ms, **times,
+                                            "ballroom_datafield_load_s": load_s}}))
     print(f"on-disk phase: {time.perf_counter() - t_phase:.1f} s wall")
     fern_counts, trainer, state, scene = runs["fern"]
     return fern_counts, trainer, state, scene

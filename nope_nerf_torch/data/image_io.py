@@ -1,20 +1,24 @@
-"""PNG files and the image resamplers the scene loader needs, on zlib and numpy.
+"""Image files (PNG both ways, JPEG read) and the resamplers the scene loader
+needs, on zlib and numpy.
 
 The JAX package reads and resizes scene images with cv2 (nope_nerf_tpu/data/
 llff.py). The port keeps its own versions, since the machine with the card
 has no cv2, imageio or PIL:
 
+- `read_rgb8` / `image_shape` take the format from the file's first bytes,
+  as cv2 does, not from its name: PNG, or JPEG through data/jpeg.py
+  (`read_jpeg`, baseline and progressive, bit-equal to cv2.imread with its
+  Exif orientation applied).
 - `read_png` / `write_png`: 8-bit gray, gray+alpha, RGB and RGBA, and 16-bit
   of each (16-bit samples are big-endian in the file). The reader undoes all
-  five row filters: None, Sub and Up are vectorised over a row; Average and
-  Paeth depend on the pixel to the left once it is decoded, so they run a
-  loop over the bytes of a row (about a second for a 375x1242 RGB image that
-  is Paeth-filtered throughout, as cv2's adaptive writer may do). The writer
-  takes any of the five filters, vectorised over the whole image (the
-  forward filter reads only the original pixels), and defaults to Up, so
-  the files the port writes decode without the loop. Colour comes back and
-  goes in as RGB; cv2 reads and writes BGR. Interlaced and palette files are
-  refused.
+  five row filters: None, Sub and Up row by row, vectorised over a row; a
+  file with Average or Paeth rows, whose bytes depend on the decoded pixel
+  to their left, as a wavefront over the image's anti-diagonals, every row
+  at once (row r's pixel x is decoded at step r + x, after its left, upper
+  and upper-left neighbours). The writer takes any of the five filters,
+  vectorised over the whole image (the forward filter reads only the
+  original pixels), and defaults to Up. Colour comes back and goes in as
+  RGB; cv2 reads and writes BGR. Interlaced and palette files are refused.
 - `resize_area` (cv2.INTER_AREA, downscaling), `resize_linear`
   (cv2.INTER_LINEAR), `resize_cubic` (cv2.INTER_CUBIC, which the DPT input
   transform uses on float32 images) and `resize_nearest_exact`
@@ -40,6 +44,8 @@ from typing import Tuple
 
 import numpy as np
 
+from .jpeg import SOI, decode_jpeg, jpeg_shape
+
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}           # PNG colour type -> samples per pixel
 _COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}
@@ -58,8 +64,8 @@ def _chunks(data: bytes):
 
 def _header(data: bytes, path: str):
     if data[:8] != _SIGNATURE:
-        raise NotImplementedError(f"{path}: not a PNG file; the port reads PNG images only "
-                                  "(convert JPEG scenes to PNG first)")
+        raise NotImplementedError(f"{path}: not a PNG file (read_rgb8 and image_shape read "
+                                  "JPEG files too)")
     kind, body = next(_chunks(data))
     if kind != b"IHDR":
         raise ValueError(f"{path}: PNG without IHDR")
@@ -67,44 +73,92 @@ def _header(data: bytes, path: str):
 
 
 def image_shape(path: str) -> Tuple[int, int]:
-    """(height, width) of a PNG file from its header alone."""
+    """(height, width) of a PNG or JPEG file from its headers alone, as
+    cv2.imread would return it (a JPEG's Exif orientation applied)."""
     with open(path, "rb") as f:
         head = f.read(33)
+        if head[:2] == SOI:
+            return jpeg_shape(head + f.read(), path)
     w, h = _header(head, path)[:2]
     return h, w
 
 
-def _paeth(a, b, c):
+def read_jpeg(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 RGB of a JPEG file: cv2.imread(path, IMREAD_COLOR)
+    with its channels reversed, bit for bit (data/jpeg.py)."""
+    with open(path, "rb") as f:
+        return decode_jpeg(f.read(), path)
+
+
+def _unfilter_rows(raw: np.ndarray, kinds: np.ndarray, bpp: int) -> np.ndarray:
+    """Rows filtered with None, Sub or Up only: one row at a time, each
+    vectorised over its bytes."""
+    rows = np.empty_like(raw)
+    prev = np.zeros(raw.shape[1], np.uint8)
+    for r, kind in enumerate(kinds.tolist()):
+        line = raw[r]
+        if kind == 1:   # Sub: a running sum along the row, per byte of the pixel
+            line = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif kind == 2:
+            line = line + prev
+        prev = rows[r] = line
+    return rows
+
+
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
     """The Paeth predictor of each byte from its left (a), upper (b) and
-    upper-left (c) neighbours: elementwise on arrays or on ints."""
-    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
-    if isinstance(pa, np.ndarray):
-        return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-    return a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+    upper-left (c) neighbours, on int16 arrays: whichever of a, b, c is
+    nearest a + b - c, in that order on ties."""
+    d1, d2 = b - c, a - c
+    pa, pb = np.abs(d1), np.abs(d2)
+    d1 += d2
+    pc = np.abs(d1, out=d1)
+    pred = np.where(pb <= pc, b, c)
+    return np.where(pa <= np.minimum(pb, pc, out=pc), a, pred)
 
 
-def _unfilter_row(kind: int, line: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
-    if kind == 0:
-        return line
-    if kind == 1:   # Sub: a running sum along the row, per byte of the pixel
-        return np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
-    if kind == 2:   # Up
-        return line + prev
-    cur, up = line.tolist(), prev.tolist()
-    if kind == 3:   # Average of the decoded left byte and the upper byte
-        for i in range(len(cur)):
-            left = cur[i - bpp] if i >= bpp else 0
-            cur[i] = (cur[i] + ((left + up[i]) >> 1)) & 0xFF
-    elif kind == 4:
-        for i in range(len(cur)):
-            if i >= bpp:
-                pred = _paeth(cur[i - bpp], up[i], up[i - bpp])
-            else:
-                pred = up[i]
-            cur[i] = (cur[i] + pred) & 0xFF
-    else:
-        raise ValueError(f"unknown PNG row filter {kind}")
-    return np.asarray(cur, np.uint8)
+# each row filter's predictor from (left, upper, upper-left)
+_PREDICTORS = (lambda a, b, c: 0, lambda a, b, c: a, lambda a, b, c: b,
+               lambda a, b, c: (a + b) >> 1, _paeth)
+
+
+def _skewed(work: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
+    """The (h, w, bpp) view of a wavefront work array (h + w + 1, h + 1, bpp)
+    in which row r's pixel x sits at [r + x + 2, r + 1]."""
+    s = work.itemsize
+    return np.lib.stride_tricks.as_strided(
+        work[2:, 1:], shape=(h, w, bpp), strides=((h + 2) * bpp * s, (h + 1) * bpp * s, s),
+        writeable=True)
+
+
+def _unfilter_wavefront(raw: np.ndarray, kinds: np.ndarray, bpp: int) -> np.ndarray:
+    """Rows with any of the five filters. Pixel x of row r depends on its left,
+    upper and upper-left neighbours only, so every pixel of the anti-diagonal
+    r + x = t is decoded at step t, all rows at once: h + w - 1 steps of
+    vectorised work instead of a loop over the bytes. The work arrays hold
+    anti-diagonal t at index t + 2 of their first axis (row r at r + 1 of the
+    second), so the neighbours of step t are the slices t + 1 (left, upper)
+    and t (upper-left), with zeros before the first row and column. Only the
+    predictors of the filters the file uses are formed."""
+    h, n = raw.shape
+    w = n // bpp
+    out = np.zeros((h + w + 1, h + 1, bpp), np.int16)
+    filtered = np.zeros_like(out)
+    _skewed(filtered, h, w, bpp)[...] = raw.reshape(h, w, bpp)
+    used = sorted(set(kinds.tolist()))
+    predictors = [_PREDICTORS[k] for k in used]
+    slot = np.searchsorted(used, kinds)[:, None]          # each row's predictor
+    for t in range(h + w - 1):
+        r0, r1 = max(0, t - w + 1), min(h - 1, t) + 1
+        a, b, c = out[t + 1, r0 + 1:r1 + 1], out[t + 1, r0:r1], out[t, r0:r1]
+        if len(predictors) == 1:
+            pred = predictors[0](a, b, c)
+        else:
+            pred = np.choose(slot[r0:r1], [f(a, b, c) for f in predictors])
+        dst = out[t + 2, r0 + 1:r1 + 1]
+        np.add(filtered[t + 2, r0 + 1:r1 + 1], pred, out=dst)
+        dst &= 0xFF
+    return _skewed(out, h, w, bpp).astype(np.uint8).reshape(h, n)
 
 
 def read_png(path: str) -> np.ndarray:
@@ -120,10 +174,11 @@ def read_png(path: str) -> np.ndarray:
     bpp = channels * depth // 8
     raw = zlib.decompress(b"".join(body for kind, body in _chunks(data) if kind == b"IDAT"))
     raw = np.frombuffer(raw, np.uint8).reshape(h, 1 + w * bpp)
-    rows = np.empty((h, w * bpp), np.uint8)
-    prev = np.zeros(w * bpp, np.uint8)
-    for r in range(h):
-        prev = rows[r] = _unfilter_row(int(raw[r, 0]), raw[r, 1:], prev, bpp)
+    kinds = raw[:, 0]
+    if kinds.max(initial=0) > 4:
+        raise ValueError(f"{path}: unknown PNG row filter {kinds.max()}")
+    unfilter = _unfilter_wavefront if (kinds >= 3).any() else _unfilter_rows
+    rows = unfilter(raw[:, 1:], kinds, bpp)
     img = rows.view(">u2").astype(np.uint16) if depth == 16 else rows
     img = img.reshape(h, w, channels)
     return img[..., 0] if channels == 1 else img
@@ -131,7 +186,15 @@ def read_png(path: str) -> np.ndarray:
 
 def read_rgb8(path: str) -> np.ndarray:
     """(H, W, 3) uint8 RGB, what cv2.imread(path, IMREAD_COLOR) gives with its
-    channels reversed: gray is repeated, alpha dropped, 16 bits cut to 8."""
+    channels reversed: gray is repeated, alpha dropped, 16 bits cut to 8. The
+    format is the file's (PNG or JPEG), whatever its name says."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head[:2] == SOI:
+        return read_jpeg(path)
+    if head != _SIGNATURE:
+        raise NotImplementedError(f"{path}: neither PNG nor JPEG; the port reads those two "
+                                  "formats only")
     img = read_png(path)
     if img.dtype == np.uint16:
         img = (img >> 8).astype(np.uint8)

@@ -85,9 +85,16 @@ def camera_matrix_from_focal(fx: torch.Tensor, fy: torch.Tensor) -> torch.Tensor
     return torch.stack(rows, -2)
 
 
+def intrinsics_ndc(fx: float, fy: float, w: int, h: int) -> torch.Tensor:
+    """The dataset-side K build (reference dataloading/dataset.py:83-86):
+    pixel-unit focals to the [-1,1] normalized camera matrix, float32."""
+    return camera_matrix_from_focal(torch.tensor(2.0 * fx / w, dtype=torch.float32),
+                                    torch.tensor(2.0 * fy / h, dtype=torch.float32))
+
+
 def intrinsics_ndc_np(fx: float, fy: float, w: int, h: int) -> np.ndarray:
-    """Pixel-unit focals -> the [-1,1] normalized camera matrix (numpy;
-    reference dataloading/dataset.py:83-86)."""
+    """intrinsics_ndc's numpy twin, for the data layer (data/fields.py and
+    data/synthetic.py build K on the host)."""
     return np.array([[2.0 * fx / w, 0, 0, 0],
                      [0, -2.0 * fy / h, 0, 0],
                      [0, 0, -1, 0],
@@ -127,6 +134,15 @@ def origin_to_world(camera_mat: torch.Tensor, world_mat: torch.Tensor,
     """Camera center in world coordinates, shape (3,) (reference
     model/common.py:186-215)."""
     return _compose_cam_to_world(camera_mat, world_mat, scale_mat, invert)[:3, 3]
+
+
+def image_points_to_world(pixels: torch.Tensor, camera_mat: torch.Tensor,
+                          world_mat: torch.Tensor, scale_mat: Optional[torch.Tensor] = None,
+                          invert: bool = True) -> torch.Tensor:
+    """[-1,1]-pixels (N, 2) at depth 1 lifted to world points (N, 3)
+    (reference model/common.py:218-237)."""
+    ones = torch.ones_like(pixels[:, :1])
+    return transform_to_world(pixels, ones, camera_mat, world_mat, scale_mat, invert)
 
 
 def transform_to_camera_space(p_world: torch.Tensor, camera_mat: torch.Tensor,

@@ -51,3 +51,11 @@ def make_c2w(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     bottom = torch.zeros_like(top[..., :1, :])
     bottom[..., 0, 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
+
+
+def convert3x4_4x4(mat: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 4) -> (..., 4, 4) by appending a [0, 0, 0, 1] row (reference
+    model/common.py:312-330)."""
+    bottom = torch.zeros_like(mat[..., :1, :])
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([mat, bottom], dim=-2)

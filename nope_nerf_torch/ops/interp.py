@@ -114,8 +114,8 @@ def _resize(image: torch.Tensor, size: Tuple[int, int], kind: str) -> torch.Tens
     h_in, w_in, c = image.shape
     if (h_out, w_out) == (h_in, w_in):
         return image
-    wh = _weight(kind, h_out, h_in, image.device)
-    ww = _weight(kind, w_out, w_in, image.device)
+    wh = _weight(kind, h_out, h_in, image.device).to(image.dtype)
+    ww = _weight(kind, w_out, w_in, image.device).to(image.dtype)
     tmp = (wh @ image.reshape(h_in, w_in * c)).reshape(h_out, w_in, c)
     return torch.einsum("hwc,vw->hvc", tmp, ww)
 

@@ -156,3 +156,37 @@ def test_safe_norm_values_and_zero_gradient():
     _close(xt.grad, g_j)
     assert torch.all(xt.grad[3] == 0)
     assert tsafe_norm(_t(x), dim=-1, keepdim=True).shape == (8, 1)
+
+
+@pytest.mark.parametrize("fx,fy,w,h", [(500.0, 480.0, 621, 188), (1.3e3, 1.1e3, 960, 540),
+                                       (407.56, 407.56, 1008, 756)])
+def test_intrinsics_ndc(fx, fy, w, h):
+    _close(tcam.intrinsics_ndc(fx, fy, w, h), jcam.intrinsics_ndc(fx, fy, w, h))
+    assert tcam.intrinsics_ndc(fx, fy, w, h).dtype == torch.float32
+    np.testing.assert_array_equal(tcam.intrinsics_ndc(fx, fy, w, h).numpy(),
+                                  tcam.intrinsics_ndc_np(fx, fy, w, h))
+
+
+@pytest.mark.parametrize("shape", [(3, 4), (5, 3, 4), (2, 7, 3, 4)])
+def test_convert3x4_4x4(shape):
+    m = np.random.default_rng(len(shape)).normal(size=shape).astype(np.float32)
+    got = tlie.convert3x4_4x4(_t(m))
+    assert got.shape == shape[:-2] + (4, 4)
+    _close(got, jlie.convert3x4_4x4(jnp.asarray(m)), atol=0)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("invert", [True, False])
+def test_image_points_to_world(seed, invert):
+    K, world, pix, _ = _frame(seed)
+    _close(tcam.image_points_to_world(_t(pix), _t(K), _t(world), invert=invert),
+           jcam.image_points_to_world(jnp.asarray(pix), jnp.asarray(K), jnp.asarray(world),
+                                      invert=invert))
+
+
+def test_geometry_exports_what_the_jax_package_does():
+    import nope_nerf_torch.geometry as tgeo
+    import nope_nerf_tpu.geometry as jgeo
+    names = {n for n in dir(jgeo) if not n.startswith("_") and callable(getattr(jgeo, n))}
+    missing = sorted(n for n in names if not hasattr(tgeo, n))
+    assert not missing, missing

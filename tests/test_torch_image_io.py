@@ -2,8 +2,9 @@
 (nope_nerf_torch/data/image_io.py) against cv2, on the CPU.
 
 PNG: files cv2 wrote, with each of the five row filters and with its
-adaptive choice, read by the port exactly as cv2.imread reads them (BGR
-reversed); files the port wrote, with each filter, read back exactly by cv2.
+adaptive choice (also at V-KITTI's 375x1242), read by the port exactly as
+cv2.imread reads them (BGR reversed); files the port wrote, with each
+filter, read back exactly by cv2.
 Resamplers: cv2 rounds uint8 results in fixed point, the port in float64 with
 the same weights, so at most one step of 255 apart; each case states the
 share of pixels that differ at all. Float inputs agree to f32 rounding.
@@ -71,6 +72,19 @@ def test_cv2_reads_what_the_port_writes_exactly(tmp_path, filt):
     np.testing.assert_array_equal(image_io.read_png(str(tmp_path / "rgb.png")), rgb)
     np.testing.assert_array_equal(image_io.read_png(str(tmp_path / "rgba.png")), rgba)
     np.testing.assert_array_equal(image_io.read_png(str(tmp_path / "depth.png")), depth)
+
+
+@pytest.mark.parametrize("filt", [3, 4, "adaptive"])
+def test_reads_a_vkitti_sized_frame_exactly(tmp_path, filt):
+    """A 375x1242 RGB frame with Average, Paeth or cv2's adaptive choice of
+    rows: the wavefront over anti-diagonals gives cv2's bytes; the adaptive
+    file mixes row filters, so each row's own predictor is picked."""
+    rgb = _rgb(375, 1242, 5)
+    cv2.imwrite(str(tmp_path / "a.png"), rgb[..., ::-1],
+                [cv2.IMWRITE_PNG_FILTER, CV2_FILTERS[filt]])
+    np.testing.assert_array_equal(image_io.read_png(str(tmp_path / "a.png")),
+                                  cv2.imread(str(tmp_path / "a.png"))[..., ::-1])
+    np.testing.assert_array_equal(image_io.read_rgb8(str(tmp_path / "a.png")), rgb)
 
 
 def test_refuses_what_it_cannot_read(tmp_path):
