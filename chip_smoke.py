@@ -94,6 +94,21 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    scene, only rank 0 writing checkpoints and a resume bit-equal to a
    straight run. A rank that fails, or a collective that times out, fails
    the phase. It runs before phase 9's timings;
+11. replays the train step and the pose-optimisation step as captured CUDA
+   graphs (nope_nerf_torch/training/graphs.py), after phase 10: the phase-4
+   fused path (8 steps: K1, the dW kernel, K2), depth_loss_type invariant (4:
+   K3, K4 full), n_importance 64 (4: K5 twice, K6 full) and fern from phase
+   7's disk (5: K7 twice), each N steps eagerly (Trainer(graphs=False)) and N
+   replayed from copies of one state and generator, twice: states, loss terms
+   and generators torch.equal, launches per step through the replays equal
+   to the eager ones; cli.train with the occupancy grid (2 epochs eager,
+   replayed, and replayed with a resume, bit-equal) and with tpu.scan_steps
+   false against true; optimize_test_poses for 20 epochs on the fused and
+   the hierarchical route, replayed against eager. Each step body also runs
+   once eagerly under torch.cuda.set_sync_debug_mode('error'). The eager and
+   replayed ms per step, capture seconds and graph pool MB go on one JSON
+   line. `python3 chip_smoke.py --step-graphs` builds the kernels and runs
+   this phase alone;
 9. times each path and each kernel at its main path's shapes (CUDA events;
    dw_sm90 also on its own over K1's and K4 full's 11 blocks, beside the
    bytes of the operands those kernels hand it; K2 and K7 through their
@@ -2340,6 +2355,315 @@ def run_parallel_phase(torch, np, root: str, smi: str) -> None:
           "measure the code path, not scaling)")
 
 
+# ---- phase 11: the captured step graphs ------------------------------------------------
+
+GRAPH_STEPS = {"fused": TRAIN_STEPS, "invariant": UNFUSED_STEPS, "hierarchical": HIER_STEPS,
+               "fern": DISK_FRAMES - 1}
+
+
+def events_ms(torch, fn, n: int) -> float:
+    """ms per step of fn() running n steps, by CUDA events around it."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+SURVEY = []    # ["on"] under --step-graphs: report every fault of phase 11, then fail
+
+
+def sync_free(torch, what: str, fn) -> None:
+    """fn() once more under torch.cuda.set_sync_debug_mode('error'): a host
+    readback or a blocking copy left in a step body fails the phase (fn ran
+    once before, so the constants the ops cache are on the card already).
+    Under --step-graphs every synchronisation is printed with its stack."""
+    torch.cuda.synchronize()
+    if SURVEY:
+        import traceback
+        import warnings
+        stacks = []
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = lambda message, *a, **k: stacks.append(
+                "".join(traceback.format_stack(limit=14)[:-1])
+            ) if "synchroniz" in str(message) else None
+            torch.cuda.set_sync_debug_mode("warn")
+            stacks.clear()          # the switch itself warns once
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        for st in stacks:
+            print(f"{what}: a host synchronisation at\n{st}")
+        if stacks:
+            SURVEY.append(f"{what}: {len(stacks)} host synchronisations")
+            return
+        print(f"{what}: one eager pass under set_sync_debug_mode('warn'): none")
+        return
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as err:
+        raise RuntimeError(f"{what}: the step body synchronises with the host: {err}") from err
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"{what}: one eager pass under set_sync_debug_mode('error'): no host synchronisation")
+
+
+def step_body_sync_free(torch, np, dev, name: str, trainer, state, scene) -> None:
+    """scene_step, the body run_steps captures, run twice eagerly on a copy of
+    `state`, the second time under the sync debug mode."""
+    from nope_nerf_torch.cli.train import _clone_state
+    from nope_nerf_torch.training.trainer import scene_step
+    probe = _clone_state(state)
+    weights, lrs, rgb_loss_type = trainer._schedule(0, 10000, dev)
+    stack = trainer.scene_stack(scene)
+    pairs = torch.as_tensor([[0, 1]], dtype=torch.int64, device=dev)
+    counter = torch.zeros((1,), dtype=torch.int64, device=dev)
+
+    def body():
+        scene_step(probe, stack, pairs, counter, weights, lrs, trainer.mc, rgb_loss_type)
+    body()
+    sync_free(torch, f"step graphs, {name} step body", body)
+
+
+def graph_train_path(torch, np, dev, name: str, cfg, mc, scene, state, expected: dict) -> dict:
+    """N eager steps (Trainer(graphs=False)) and N replayed steps
+    (Trainer.run_steps) from copies of one state and generator: states, loss
+    terms and generators torch.equal, launches per step the same; then N more
+    of each, timed by CUDA events. Before them one eager pass of the step body
+    under the sync debug mode."""
+    from nope_nerf_torch.cli.train import _clone_state
+    from nope_nerf_torch.data import epoch_order
+    from nope_nerf_torch.training import Trainer
+
+    n = GRAPH_STEPS[name]
+    order, refs = epoch_order(scene.n_frames, shuffle=True, seed=SEED)
+    order, refs = np.resize(order, n), np.resize(refs, n)
+    eager, graph = Trainer(cfg, mc, graphs=False), Trainer(cfg, mc)
+    step_body_sync_free(torch, np, dev, name, eager, state, scene)
+
+    def run(trainer, st):
+        return trainer.run_steps(st, scene, order, refs, epoch=0, scheduling_start=10000)
+    a, b = _clone_state(state), _clone_state(state)
+    (_, ld_a), counts_a = counted(lambda: run(eager, a), expected,
+                                  f"step graphs, {name}: {n} eager steps")
+    (_, ld_b), counts_b = counted(lambda: run(graph, b), expected,
+                                  f"step graphs, {name}: {n} replayed steps (capture first)")
+    equal = (states_bit_equal(torch, a, b) and set(ld_a) == set(ld_b)
+             and all(torch.equal(ld_a[k], ld_b[k]) for k in ld_a))
+    eager_ms = events_ms(torch, lambda: run(eager, a), n)
+    replay_ms = events_ms(torch, lambda: run(graph, b), n)
+    equal = equal and states_bit_equal(torch, a, b)
+    (captured,) = graph.captured_steps()
+    print(f"step graphs, {name}: {n} replayed steps against {n} eager steps from the same "
+          f"state and generator, twice: states, loss terms and generators torch.equal: {equal}; "
+          f"launches per step {counts_b == counts_a}; eager {eager_ms:.3f} ms, replayed "
+          f"{replay_ms:.3f} ms a step; capture {captured.capture_s:.2f} s, pool "
+          f"{captured.pool_mb:.0f} MB")
+    if not equal:
+        raise RuntimeError(f"step graphs, {name}: the replayed steps differ from the eager ones")
+    graph.release_graphs()
+    return {"path": name, "steps": n, "eager_ms": eager_ms, "replay_ms": replay_ms,
+            "capture_s": captured.capture_s, "pool_mb": captured.pool_mb,
+            "launches_per_step": {k: v / n for k, v in counts_b.items() if v}}
+
+
+def graph_pose_opt(torch, np, dev, name: str, rcfg, nerf, eval_scene, ncfg, per_step: dict):
+    """optimize_test_poses for POSE_OPT_EPOCHS epochs eagerly and replayed:
+    pose parameters and c2ws torch.equal, launches per step the same. The
+    replayed step's time: the difference of two replayed runs of
+    POSE_OPT_EPOCHS and 3 * POSE_OPT_EPOCHS epochs (each captures once)."""
+    from nope_nerf_torch.evaluation.pose_opt import optimize_test_poses, pose_opt_step
+    from nope_nerf_torch.models.poses import PoseConfig, init_pose_params
+    from nope_nerf_torch.training.state import init_adam
+
+    n_eval = eval_scene.n_frames
+    init = np.asarray(eval_scene.c2ws_gt) @ np.array(
+        [[1, 0, 0, 0.05], [0, 1, 0, -0.03], [0, 0, 1, 0.02], [0, 0, 0, 1]], np.float32)
+
+    def opt(epochs, graphs):
+        return optimize_test_poses(nerf, None, eval_scene, ncfg, rcfg, init_c2ws=init,
+                                   n_points=TRAIN_RAYS, n_epochs=epochs, log_every=0,
+                                   device=dev, graphs=graphs)
+
+    # the step body, eagerly under the sync debug mode
+    pcfg = PoseConfig(num_cams=n_eval, use_init_c2w=True)
+    pose = init_pose_params(pcfg, torch.as_tensor(init), device=dev)
+    adam = init_adam(pose)
+    imgs = torch.as_tensor(eval_scene.imgs).to(dev)
+    cam = torch.as_tensor(eval_scene.K).to(dev)
+    frame = torch.zeros((1,), dtype=torch.int64, device=dev)
+    rate = torch.full((), 1e-3, dtype=torch.float64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    hw = imgs.shape[1] * imgs.shape[2]
+
+    def body():
+        rays = torch.randperm(hw, generator=gen, device=dev)[:TRAIN_RAYS]
+        pose_opt_step(pose, adam, nerf, None, imgs.index_select(0, frame)[0], frame, cam, rays,
+                      rate, pcfg, None, ncfg, rcfg)
+    body()
+    sync_free(torch, f"step graphs, {name} pose-opt step body", body)
+
+    steps = POSE_OPT_EPOCHS * n_eval
+    expected = {k: v * steps for k, v in per_step.items()}
+    (p_e, c_e), counts_e = counted(lambda: opt(POSE_OPT_EPOCHS, False), expected,
+                                   f"step graphs, {name} pose-opt: {POSE_OPT_EPOCHS} epochs of "
+                                   f"{n_eval} frames eagerly")
+    (p_g, c_g), counts_g = counted(lambda: opt(POSE_OPT_EPOCHS, True), expected,
+                                   f"step graphs, {name} pose-opt: {POSE_OPT_EPOCHS} epochs of "
+                                   f"{n_eval} frames replayed")
+    equal = np.array_equal(c_e, c_g) and all(torch.equal(p_e[k], p_g[k]) for k in p_e)
+    eager_ms = events_ms(torch, lambda: opt(POSE_OPT_EPOCHS, False), steps)
+    short = events_ms(torch, lambda: opt(POSE_OPT_EPOCHS, True), 1)
+    long = events_ms(torch, lambda: opt(3 * POSE_OPT_EPOCHS, True), 1)
+    replay_ms = (long - short) / (2 * steps)
+    print(f"step graphs, {name} pose-opt: {POSE_OPT_EPOCHS} epochs of {n_eval} frames replayed "
+          f"against eagerly: pose parameters and c2ws torch.equal: {equal}; launches per step "
+          f"{counts_e == counts_g}; eager {eager_ms:.3f} ms, replayed {replay_ms:.3f} ms a step "
+          f"(a replayed run of {POSE_OPT_EPOCHS} epochs, capture included, {short:.1f} ms)")
+    if not equal:
+        raise RuntimeError(f"step graphs, {name} pose-opt: the replayed run differs from the "
+                           "eager one")
+    return {"path": f"pose-opt {name}", "steps": steps, "eager_ms": eager_ms,
+            "replay_ms": replay_ms, "run_with_capture_ms": short,
+            "launches_per_step": per_step}
+
+
+def graph_cli_runs(torch, np, dev) -> None:
+    """cli.train with the occupancy grid for 2 epochs, eagerly and replayed, and
+    a replayed resume (1 epoch + checkpoint + 1 epoch): states and grids
+    bit-equal; then tpu.scan_steps false against true, both replayed."""
+    from nope_nerf_torch.cli.train import train
+    from nope_nerf_torch.config import load_config
+
+    def cfg_for(out_dir, **extra):
+        over = {"training": {"out_dir": out_dir, "n_training_points": TRAIN_RAYS,
+                             "vis_geo": False, "print_every": 0, "validate_every": 0,
+                             "checkpoint_every": 0, "visualize_every": 0,
+                             "vis_reprojection_every": 0},
+                "pose": {"learn_pose": True, "init_pose": True}}
+        for k, v in extra.items():
+            over.setdefault(k, {}).update(v)
+        return load_config(overrides=over)
+
+    steps = 8 * CLI_EPOCHS
+    expected = {"render_train": steps, "chamfer_bidir": steps, "dw_sm90": steps}
+    occ = {"rendering": {"occupancy_grid": True}}
+    with tempfile.TemporaryDirectory() as root:
+        runs = {}
+        for what, graphs in (("eager", False), ("replayed", True)):
+            (state, trainer, scene), _ = counted(
+                lambda: train(cfg_for(os.path.join(root, what), **occ), synthetic=True,
+                              max_epochs=CLI_EPOCHS, device=dev, graphs=graphs),
+                expected, f"step graphs, cli.train with the occupancy grid, {CLI_EPOCHS} "
+                          f"epochs {what}")
+            runs[what] = (state, trainer)
+        step_body_sync_free(torch, np, dev, "cli.train with the occupancy grid", trainer,
+                            state, scene)
+        cfg_r = cfg_for(os.path.join(root, "resumed"), **occ)
+        train(cfg_r, synthetic=True, max_epochs=1, device=dev)
+        runs["resumed"] = train(cfg_r, synthetic=True, max_epochs=CLI_EPOCHS, device=dev)[:2]
+        (s_e, t_e), (s_g, t_g), (s_r, t_r) = runs["eager"], runs["replayed"], runs["resumed"]
+        equal = (states_bit_equal(torch, s_e, s_g) and states_bit_equal(torch, s_e, s_r)
+                 and torch.equal(t_e.occ_grid, t_g.occ_grid)
+                 and torch.equal(t_e.occ_grid, t_r.occ_grid))
+        print(f"step graphs, cli.train with the occupancy grid: {CLI_EPOCHS} epochs replayed, "
+              f"and 1 epoch + resume + 1 epoch replayed, against {CLI_EPOCHS} epochs eagerly: "
+              f"states and grids bit-equal: {equal}")
+        if not equal:
+            raise RuntimeError("step graphs: cli.train with the occupancy grid differs between "
+                               "the eager and the replayed runs")
+        states = {}
+        for scan in (True, False):
+            (states[scan], _, _), _ = counted(
+                lambda: train(cfg_for(os.path.join(root, f"scan_{scan}"),
+                                      tpu={"scan_steps": scan}),
+                              synthetic=True, max_epochs=CLI_EPOCHS, device=dev),
+                expected, f"step graphs, cli.train with tpu.scan_steps {str(scan).lower()}, "
+                          f"{CLI_EPOCHS} epochs")
+        equal = states_bit_equal(torch, states[True], states[False])
+        print(f"step graphs, cli.train with tpu.scan_steps false against true: states "
+              f"bit-equal: {equal}")
+        if not equal:
+            raise RuntimeError("step graphs: tpu.scan_steps false and true give other states")
+
+
+def run_step_graphs(torch, np, dev, root: str, smi: str) -> None:
+    """Phase 11: the captured step graphs (training/graphs.py) on every path of
+    the slice, each against the same steps run eagerly, and their times."""
+    import dataclasses
+    from nope_nerf_torch.cli.train import build_scene
+    from nope_nerf_torch.config import load_config
+    from nope_nerf_torch.data import SceneData, make_synthetic_scene
+    from nope_nerf_torch.models.nerf import init_nerf_params
+    from nope_nerf_torch.training import ModelConfigs, create_train_state
+
+    t_phase = time.perf_counter()
+    h, w = RESOLUTION
+    synth = SceneData.from_dict(make_synthetic_scene(n_frames=4, h=h, w=w)).to_device(dev)
+    base = {"training": {"n_training_points": TRAIN_RAYS},
+            "pose": {"learn_pose": True, "init_pose": True}}
+    paths = {
+        "fused": (load_config(overrides=base), synth,
+                  {"render_train": 1, "chamfer_bidir": 1, "dw_sm90": 1}),
+        "invariant": (load_config(overrides={**base, "training": {
+            "n_training_points": TRAIN_RAYS, "depth_loss_type": "invariant"}}), synth,
+            {"render_fwd": 1, "render_bwd": 1, "chamfer_bidir": 1, "dw_sm90": 1}),
+        "hierarchical": (hier_config(), synth,
+                         {"point_mlp_fwd": 2, "point_mlp_bwd": 1, "chamfer_bidir": 1,
+                          "dw_sm90": 1}),
+    }
+    fern_cfg = disk_config("fern", root)
+    fern = build_scene(fern_cfg, False).to_device(dev)
+    paths["fern"] = (fern_cfg, fern, {"render_train": 1, "chamfer_nearest": 2, "dw_sm90": 1})
+    rows, faults = [], []
+
+    def attempt(what, fn):
+        """fn()'s result; under --step-graphs a fault is printed and counted,
+        and the phase goes on to the next path."""
+        if not SURVEY:
+            return fn()
+        try:
+            return fn()
+        except Exception:       # the survey reports every path's fault, then fails
+            import traceback
+            print(f"step graphs, {what}: FAILED\n{traceback.format_exc()}")
+            faults.append(what)
+            return None
+
+    for name, (cfg, scene, per_step) in paths.items():
+        mc = ModelConfigs.from_cfg(cfg, num_cams=scene.n_frames)
+        init = scene.c2ws_gt if cfg["pose"]["init_pose"] else None
+        state = create_train_state(SEED, mc, init_c2w=init, device=dev)
+        n = GRAPH_STEPS[name]
+        rows.append(attempt(name, lambda: graph_train_path(
+            torch, np, dev, name, cfg, mc, scene, state,
+            {k: v * n for k, v in per_step.items()})))
+        torch.cuda.empty_cache()
+
+    attempt("cli.train", lambda: graph_cli_runs(torch, np, dev))
+
+    mc = ModelConfigs.from_cfg(load_config(overrides=base), num_cams=2)
+    nerf = init_nerf_params(mc.nerf, torch.Generator().manual_seed(SEED), device=dev)
+    eval_scene = SceneData.from_dict(make_synthetic_scene(n_frames=2, h=120, w=160))
+    rows.append(attempt("pose-opt fused", lambda: graph_pose_opt(
+        torch, np, dev, "fused", mc.render, nerf, eval_scene, mc.nerf,
+        {"render_fwd": 1, "render_bwd": 1, "render_bwd_frozen": 1})))
+    rows.append(attempt("pose-opt hierarchical", lambda: graph_pose_opt(
+        torch, np, dev, "hierarchical", dataclasses.replace(mc.render, n_importance=N_IMPORTANCE),
+        nerf, eval_scene, mc.nerf,
+        {"point_mlp_fwd": 2, "point_mlp_bwd": 1, "point_mlp_bwd_frozen": 1})))
+    faults += SURVEY[1:]
+    if faults:
+        raise RuntimeError(f"step graphs: faults in {', '.join(faults)}")
+    print(json.dumps({"step_graphs": rows, "card": smi}))
+    print(f"step-graph phase: {time.perf_counter() - t_phase:.1f} s wall")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2382,6 +2706,14 @@ def main() -> int:
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {lib.source.name}:", line.strip())
+
+    if sys.argv[1:2] == ["--step-graphs"]:
+        # phase 11 alone, for work on the graphs (the full run takes every phase)
+        SURVEY.append("on")
+        with tempfile.TemporaryDirectory() as disk_root:
+            write_disk_scenes(np, disk_root)
+            run_step_graphs(torch, np, dev, disk_root, smi)
+        return 0
 
     # ---- 2. each kernel against its plain version ---------------------------
     gen = torch.Generator().manual_seed(SEED)
@@ -2429,6 +2761,9 @@ def main() -> int:
 
         # ---- 10. the multi-device layer, while phase 7's straight scene is on disk
         run_parallel_phase(torch, np, disk_root, smi)
+
+        # ---- 11. the captured step graphs, fern read from phase 7's scene on disk
+        run_step_graphs(torch, np, dev, disk_root, smi)
 
     # ---- 9. timing at the main paths' shapes ---------------------------------
     h, w = RESOLUTION
@@ -2541,13 +2876,18 @@ def main() -> int:
 
     # one pose-opt step, one unfused train step and one eval frame, end to end
     from nope_nerf_torch.data import batch_for_frame, epoch_order
-    from nope_nerf_torch.evaluation.pose_opt import pose_opt_step
+    from nope_nerf_torch.evaluation.pose_opt import PoseOptRun, pose_opt_step
     from nope_nerf_torch.models.poses import init_pose_params
     from nope_nerf_torch.training.state import init_adam
     pose = init_pose_params(epcfg, torch.as_tensor(eval_scene.c2ws_gt), device=dev)
     adam = init_adam(pose)
     pose_ms = time_ms(lambda: pose_opt_step(pose, adam, enerf, None, eimg, 0, ecam, eray_idx, 1e-3,
                                             epcfg, None, emc.nerf, emc.render), 20)
+    # the same step as cli.eval runs it: replayed from its captured graph
+    prun = PoseOptRun(enerf, None, eval_scene, emc.nerf, emc.render,
+                      init_c2ws=eval_scene.c2ws_gt, n_points=TRAIN_RAYS, seed=SEED, device=dev)
+    prun.rate.fill_(1e-3)
+    pose_replay_ms = time_ms(prun.step, 20)
 
     def unfused_steps():
         utrainer.run_steps(ustate, uscene, uorder, urefs, epoch=0, scheduling_start=10000)
@@ -2555,7 +2895,8 @@ def main() -> int:
     fbatch = batch_for_frame(tscene, 0, ref_idx=1)
     eval_frame_ms = time_ms(lambda: trainer.render_frame(state, fbatch, RESOLUTION), N_VIEWS)
     print(f"pose-opt step, {TRAIN_RAYS} rays of a 120x160 frame: {pose_ms:.2f} ms end to end "
-          f"(render_fwd + render_bwd's frozen-network variant + Adam on the pose); unfused "
+          f"eagerly, {pose_replay_ms:.2f} ms replayed from its captured graph as cli.eval runs "
+          f"it (render_fwd + render_bwd's frozen-network variant + Adam on the pose); unfused "
           f"train step (depth_loss_type invariant) {unfused_ms:.2f} ms end to end beside the "
           f"fused step's {steps_ms:.2f} ms; Trainer.render_frame {h}x{w} {eval_frame_ms:.2f} ms "
           f"end to end")
@@ -2685,6 +3026,10 @@ def main() -> int:
     hier_pose_ms = time_ms(lambda: pose_opt_step(hpose, hadam, henerf, None, heimg, 0, hecam,
                                                  heray_idx, 1e-3, hepcfg, None, hemc.nerf,
                                                  hrcfg), 10)
+    hrun = PoseOptRun(henerf, None, eval_scene, hemc.nerf, hrcfg, init_c2ws=eval_scene.c2ws_gt,
+                      n_points=TRAIN_RAYS, seed=SEED, device=dev)
+    hrun.rate.fill_(1e-3)
+    hier_pose_replay_ms = time_ms(hrun.step, 10)
     geo_ms = time_ms(lambda: gtrainer.render_geo(gstate, gbatch, (120, 160)), 1)
     print(f"hierarchical train step {h}x{w}, {TRAIN_RAYS} rays x ({mc.render.num_points} + "
           f"{N_IMPORTANCE}): {hier_step_ms:.2f} ms end to end ({TRAIN_RAYS / hier_step_ms * 1e3:.0f}"
@@ -2692,7 +3037,8 @@ def main() -> int:
           f"{(pfwd_coarse_ms + pfwd_ms + pbwd_ms) / hier_step_ms:.1%} of it; hierarchical "
           f"Trainer.render_frame {h}x{w} {hier_frame_ms:.2f} ms end to end "
           f"({n_rays / hier_frame_ms * 1e3:.0f} rays/s); hierarchical pose-opt step "
-          f"{hier_pose_ms:.2f} ms; render_geo 120x160 {geo_ms:.1f} ms (plain density queries)")
+          f"{hier_pose_ms:.2f} ms eagerly, {hier_pose_replay_ms:.2f} ms replayed; render_geo "
+          f"120x160 {geo_ms:.1f} ms (plain density queries)")
 
     # K7 at the LLFF and Tanks Chamfer clouds, per direction; the fern train step end to end
     def library_nearest(x, y, rows=8192):

@@ -6,10 +6,14 @@ loop with per-iteration logging, periodic checkpoint/backup/visualization,
 per-epoch train-pose ATE/RPE and PSNR, the held best checkpoint, the
 divergence abort and both scheduler modes.
 
-An epoch is one Trainer.run_steps call with one readback at its end; the
-per-iteration hooks whose boundary falls inside an epoch fire at that epoch's
-end, with the step's own metrics, as in the JAX package's scan-fused loop.
-The state's tensors are updated in place, so the held best state is a copy.
+With `tpu.scan_steps` (the default) an epoch is one Trainer.run_steps call
+with one readback at its end; the per-iteration hooks whose boundary falls
+inside an epoch fire at that epoch's end, with the step's own metrics, as in
+the JAX package's scan-fused loop. With it off the epoch is a loop of
+Trainer.step over data.frame_iterator's batches, each hook firing after its
+own step, as the JAX package's other branch. On the card both replay the
+captured step graph (training/graphs.py) and give the same states. The
+state's tensors are updated in place, so the held best state is a copy.
 
 The scene is one on disk (data/fields.py::DataField: LLFF, Tanks and
 V-KITTI layouts, PNG images) or, with `synthetic`, the built-in generator.
@@ -97,7 +101,7 @@ def _clone_state(state):
     generator.set_state(state.generator.get_state())
     return TrainState(
         params={g: clone(d) for g, d in state.params.items()},
-        opt_state={g: AdamState(mu=clone(o.mu), nu=clone(o.nu), count=o.count)
+        opt_state={g: AdamState(mu=clone(o.mu), nu=clone(o.nu), count=o.count.clone())
                    for g, o in state.opt_state.items()},
         it=state.it, generator=generator)
 
@@ -108,17 +112,18 @@ def _save_u8(path: str, img: np.ndarray) -> None:
 
 
 def train(cfg: dict, synthetic: bool = False, max_epochs: Optional[int] = None,
-          device: DeviceLike = None, backend: Optional[str] = None):
+          device: DeviceLike = None, backend: Optional[str] = None, graphs: bool = True):
     """Train cfg's model on `device` (CUDA unless told otherwise) until the
     schedule ends or `max_epochs` epochs have run; resumes from the checkpoint
     in training.out_dir when there is one. Returns (state, trainer, scene), or
-    with dataloading.show_pose_only the pose figure's path.
+    with dataloading.show_pose_only the pose figure's path. On the card the
+    steps replay captured graphs; graphs=False runs them eagerly (Trainer).
 
     With tpu.mesh_shape the run is one rank of a process group of that many
     processes (parallel.default_mesh; `backend` overrides NCCL on CUDA), each
     on cuda:{LOCAL_RANK % device_count} or on `device` when it is the CPU;
     a group of another size raises before anything runs."""
-    from ..data import batch_for_frame, epoch_order
+    from ..data import batch_for_frame, epoch_order, frame_iterator
     from ..evaluation.image_eval import eval_image
     from ..evaluation.pose_eval import full_pose_evaluation
     from ..models.nerf import reset_linear_params
@@ -173,7 +178,7 @@ def train(cfg: dict, synthetic: bool = False, max_epochs: Optional[int] = None,
 
     scene = scene.to_device(dev)   # one upload; the steps slice it on the device
     state = create_train_state(seed, mc, init_c2w=init_c2w, init_focal=init_focal, device=dev)
-    trainer = Trainer(cfg, mc, mesh=mesh)
+    trainer = Trainer(cfg, mc, mesh=mesh, graphs=graphs)
 
     # resume
     epoch_it, it = -1, -1
@@ -225,6 +230,7 @@ def train(cfg: dict, synthetic: bool = False, max_epochs: Optional[int] = None,
     eval_img_every = t_cfg["eval_img_every"]
     log_scale_shift = t_cfg["log_scale_shift_per_view"]
     vis_reproj_every = t_cfg["vis_reprojection_every"]
+    scan_steps = bool(cfg["tpu"].get("scan_steps", True))   # an epoch per run_steps call
 
     vis_batch = batch_for_frame(scene, 0, rng=np.random.RandomState(seed))
     vis_img = vis_batch["img"].cpu().numpy()
@@ -301,19 +307,35 @@ def train(cfg: dict, synthetic: bool = False, max_epochs: Optional[int] = None,
                           f"--max-epochs to rerun)")
                 break
             trainer.update_occupancy(state, epoch_it)    # no-op unless the grid is on
-            order, refs = epoch_order(scene.n_frames, shuffle=cfg["dataloading"]["shuffle"],
-                                      random_ref=cfg["dataloading"]["random_ref"],
-                                      seed=seed + epoch_it)
-            state, lds = trainer.run_steps(state, scene, order, refs, epoch_it, scheduling_start)
-            # one bulk readback per epoch: it also waits for the device, so the
-            # throughput meter measures completed steps
-            lds_np = {k: v.cpu().numpy() for k, v in lds.items()}
+            if scan_steps:
+                order, refs = epoch_order(scene.n_frames, shuffle=cfg["dataloading"]["shuffle"],
+                                          random_ref=cfg["dataloading"]["random_ref"],
+                                          seed=seed + epoch_it)
+                state, lds = trainer.run_steps(state, scene, order, refs, epoch_it,
+                                               scheduling_start)
+                # one bulk readback per epoch: it also waits for the device, so the
+                # throughput meter measures completed steps
+                lds_np = {k: v.cpu().numpy() for k, v in lds.items()}
+                timer.tick_many(len(order))
+                for j, (fidx, ridx) in enumerate(zip(order, refs)):
+                    it += 1
+                    run_it_hooks(it, lambda j=j: {k: float(v[j]) for k, v in lds_np.items()},
+                                 int(fidx), int(ridx))
+            else:
+                # one step at a time, each with its hooks (JAX's cli/train.py:306-318); the
+                # metrics stay on the device unless a hook reads them
+                lds = []
+                for batch in frame_iterator(scene, shuffle=cfg["dataloading"]["shuffle"],
+                                            random_ref=cfg["dataloading"]["random_ref"],
+                                            seed=seed + epoch_it):
+                    it += 1
+                    state, ld = trainer.step(state, batch, epoch_it, scheduling_start)
+                    timer.tick()
+                    lds.append(ld)
+                    run_it_hooks(it, lambda ld=ld: {k: float(v) for k, v in ld.items()},
+                                 int(batch["idx"]), int(batch["ref_idx"]))
+                lds_np = {k: torch.stack([d[k] for d in lds]).cpu().numpy() for k in lds[0]}
             last_loss = float(lds_np["loss"][-1])
-            timer.tick_many(len(order))
-            for j, (fidx, ridx) in enumerate(zip(order, refs)):
-                it += 1
-                run_it_hooks(it, lambda j=j: {k: float(v[j]) for k, v in lds_np.items()},
-                             int(fidx), int(ridx))
 
             if not np.isfinite(last_loss):
                 # divergence guard: the reference breakpoint()s on a NaN loss

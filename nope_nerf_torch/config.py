@@ -210,7 +210,7 @@ DEFAULTS: Dict[str, Any] = {
         "compute_dtype": "bfloat16",  # MLP matmul operand dtype; 'float32' for exact reference parity
         "use_pallas_renderer": True,
         "use_pallas_chamfer": False,  # scan path measured equally fast on v5e
-        "scan_steps": True,  # epoch as ONE lax.scan dispatch (see trainer.train_steps)
+        "scan_steps": True,  # cli.train: an epoch per Trainer.run_steps, else per-step Trainer.step
         "donate_state": True,
         "profile_dir": None,
         "seed": 42,

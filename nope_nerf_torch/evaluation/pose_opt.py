@@ -12,9 +12,12 @@ A step is one forward launch of the render kernel and one launch of its
 backward kernel (the frozen-network variant: only the ray table's gradient is
 needed, and it carries the pose's); with rendering.n_importance > 0 it is two
 launches of the point-query MLP forward (coarse and fine pass) and one of its
-backward, whose dW/dB the frozen NeRF discards. The JAX package's scan chunks, padding
-mask and jit cache are dispatch devices of that machine; here the epochs and
-frames are a plain loop, and nothing is read back except for the log line.
+backward, whose dW/dB the frozen NeRF discards. The JAX package runs chunks
+of log_every epochs as one dispatch (_pose_opt_epochs); here one step, with
+the frame index, the epoch's rate and the epoch's loss sum as device tensors
+and the ray draw from a generator registered with the graph, is captured in
+a CUDA graph on the card (training/graphs.py) and replayed n_eval times an
+epoch. Nothing is read back except at the log points, as there.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from ..models.intrinsics import FocalConfig, focal_fxfy
 from ..models.nerf import NerfConfig
 from ..models.poses import PoseConfig, init_pose_params, pose_c2w, pose_c2w_all
 from ..ops.render import RenderConfig, render_nope_nerf
+from ..training.graphs import CapturedStep
 from ..training.state import adam_step, init_adam
 from ..utils.metrics import mse2psnr
 
@@ -58,11 +62,12 @@ def init_test_poses(method: str, eval_c2ws_init: Optional[np.ndarray],
 
 
 def pose_opt_loss(pose_params: Dict[str, torch.Tensor], nerf_params, focal_params,
-                  img: torch.Tensor, idx: int, camera_mat: torch.Tensor, ray_idx: torch.Tensor,
+                  img: torch.Tensor, idx, camera_mat: torch.Tensor, ray_idx: torch.Tensor,
                   pcfg: PoseConfig, fcfg: Optional[FocalConfig], ncfg: NerfConfig,
                   rcfg: RenderConfig) -> torch.Tensor:
-    """mean((rgb - gt)^2) over the rays `ray_idx` of frame `idx`, rendered
-    from its current test pose; differentiable in pose_params."""
+    """mean((rgb - gt)^2) over the rays `ray_idx` of frame `idx` (an integer
+    or a one-element index tensor), rendered from its current test pose;
+    differentiable in pose_params."""
     h, w, _ = img.shape
     pixels = pixel_grid_on((h, w), img.device, img.dtype)[ray_idx]
     rgb_gt = img.reshape(-1, 3)[ray_idx]
@@ -77,12 +82,14 @@ def pose_opt_loss(pose_params: Dict[str, torch.Tensor], nerf_params, focal_param
     return ((out["rgb"] - rgb_gt) ** 2).mean()
 
 
-def pose_opt_step(pose_params, opt_state, nerf_params, focal_params, img, idx: int, camera_mat,
-                  ray_idx, lr: float, pcfg: PoseConfig, fcfg, ncfg, rcfg) -> torch.Tensor:
+def pose_opt_step(pose_params, opt_state, nerf_params, focal_params, img, idx, camera_mat,
+                  ray_idx, lr, pcfg: PoseConfig, fcfg, ncfg, rcfg) -> torch.Tensor:
     """One Adam step on frame `idx`'s pose, in place (Adam's moments without
-    the rate, then p -= lr * update); returns the loss before the step. The
-    NeRF and the focal are frozen. A tensor the loss does not reach (the
-    frozen init pose, the other frames' rows) gets a zero gradient."""
+    the rate, then p -= lr * update); returns the loss before the step. `idx`
+    is an integer or a one-element index tensor, `lr` a number or a 0-d
+    tensor. The NeRF and the focal are frozen. A tensor the loss does not
+    reach (the frozen init pose, the other frames' rows) gets a zero
+    gradient."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in pose_params.items()}
     frozen = {k: v.detach() for k, v in nerf_params.items()}
     loss = pose_opt_loss(leaves, frozen, focal_params, img, idx, camera_mat, ray_idx, pcfg, fcfg,
@@ -101,6 +108,60 @@ def pose_opt_lrs(lr: float, n_epochs: int) -> list:
     return [lr * (0.5 ** sum(1 for m in milestones if m <= e)) for e in range(n_epochs)]
 
 
+class PoseOptRun:
+    """A test-pose optimisation in progress: the test poses and their Adam
+    state, the ray generator seeded with `seed`, and on the device the frame
+    counter, the epoch's rate (`rate`, filled once per epoch), the epoch's
+    loss sum (`loss_sum`, restarted at frame 0) and, with `pinned`, the index
+    buffer `rays` the caller fills before each step. `step()` runs one frame's
+    step and moves to the next frame: on CUDA with `graphs` a replay of the
+    step captured in a CUDA graph (training/graphs.py), else the same body
+    eagerly."""
+
+    def __init__(self, nerf_params, focal_params, eval_scene, ncfg: NerfConfig,
+                 rcfg: RenderConfig, init_c2ws: Optional[np.ndarray] = None,
+                 fcfg: Optional[FocalConfig] = None, n_points: int = 1024, seed: int = 0,
+                 device: DeviceLike = None, pinned: bool = False, graphs: bool = True):
+        dev = resolve_device(device)
+        self.n_eval = n_eval = eval_scene.n_frames
+        self.pcfg = pcfg = PoseConfig(num_cams=n_eval, use_init_c2w=init_c2ws is not None)
+        self.pose_params = init_pose_params(
+            pcfg, None if init_c2ws is None
+            else torch.as_tensor(np.asarray(init_c2ws, np.float32)), device=dev)
+        self.opt_state = init_adam(self.pose_params)
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        nerf_params = {k: v.to(dev) for k, v in nerf_params.items()}
+        if focal_params is not None:
+            focal_params = {k: v.to(dev) for k, v in focal_params.items()}
+        imgs = torch.as_tensor(eval_scene.imgs).to(dev)
+        camera_mat = torch.as_tensor(eval_scene.K).to(dev)
+        hw = imgs.shape[1] * imgs.shape[2]
+        self.rate = torch.zeros((), dtype=torch.float64, device=dev)
+        self.loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        frame = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.rays = torch.zeros((n_points,), dtype=torch.int64, device=dev) if pinned else None
+
+        def body():
+            rays = (torch.randperm(hw, generator=generator, device=dev)[:n_points]
+                    if self.rays is None else self.rays)
+            loss = pose_opt_step(self.pose_params, self.opt_state, nerf_params, focal_params,
+                                 imgs.index_select(0, frame)[0], frame, camera_mat, rays,
+                                 self.rate, pcfg, fcfg, ncfg, rcfg)
+            # the epoch's sum starts afresh at its first frame
+            self.loss_sum.copy_(torch.where(frame.reshape(()) == 0,
+                                            torch.zeros_like(self.loss_sum),
+                                            self.loss_sum) + loss)
+            frame.copy_(torch.remainder(frame + 1, n_eval))
+
+        self.step = body
+        self.captured = None
+        if graphs and dev.type == "cuda":
+            mutated = [*self.pose_params.values(), *self.opt_state.mu.values(),
+                       *self.opt_state.nu.values(), self.opt_state.count, frame, self.loss_sum]
+            self.captured = CapturedStep(body, mutated, generator, "the pose-optimisation step")
+            self.step = self.captured.replay
+
+
 def optimize_test_poses(nerf_params, focal_params, eval_scene,
                         ncfg: NerfConfig, rcfg: RenderConfig,
                         init_c2ws: Optional[np.ndarray] = None,
@@ -108,39 +169,32 @@ def optimize_test_poses(nerf_params, focal_params, eval_scene,
                         n_points: int = 1024, n_epochs: int = 1000,
                         lr: float = 0.001, seed: int = 0, log_every: int = 100,
                         device: DeviceLike = None,
-                        ray_idx: Optional[torch.Tensor] = None) -> Tuple[Dict, np.ndarray]:
+                        ray_idx: Optional[torch.Tensor] = None,
+                        graphs: bool = True) -> Tuple[Dict, np.ndarray]:
     """Optimize per-test-frame poses against the frozen NeRF on `device` (CUDA
     unless told otherwise). Returns (pose_params, learned eval c2ws (N,4,4)).
     Each step draws n_points rays without replacement from a generator seeded
-    with `seed`; `ray_idx` (n_epochs, n_eval, n_points) pins the draws."""
+    with `seed`; `ray_idx` (n_epochs, n_eval, n_points) pins the draws, copied
+    step by step into the step's index buffer. One step body serves every
+    frame (PoseOptRun): on CUDA it is captured in a CUDA graph and replayed
+    n_eval times an epoch; graphs=False (and a CPU device) runs it eagerly.
+    Nothing is read back but at the log points."""
     dev = resolve_device(device)
-    n_eval = eval_scene.n_frames
-    pcfg = PoseConfig(num_cams=n_eval, use_init_c2w=init_c2ws is not None)
-    pose_params = init_pose_params(
-        pcfg, None if init_c2ws is None else torch.as_tensor(np.asarray(init_c2ws, np.float32)),
-        device=dev)
-    opt_state = init_adam(pose_params)
-    generator = torch.Generator(device=dev).manual_seed(seed)
-    nerf_params = {k: v.to(dev) for k, v in nerf_params.items()}
-    if focal_params is not None:
-        focal_params = {k: v.to(dev) for k, v in focal_params.items()}
-    imgs = torch.as_tensor(eval_scene.imgs).to(dev)
-    camera_mat = torch.as_tensor(eval_scene.K).to(dev)
-    hw = imgs.shape[1] * imgs.shape[2]
-
+    run = PoseOptRun(nerf_params, focal_params, eval_scene, ncfg, rcfg, init_c2ws=init_c2ws,
+                     fcfg=fcfg, n_points=n_points, seed=seed, device=dev,
+                     pinned=ray_idx is not None, graphs=graphs)
+    if ray_idx is not None:
+        ray_idx = torch.as_tensor(ray_idx).to(device=dev, dtype=torch.int64)
     for epoch, lr_e in enumerate(pose_opt_lrs(lr, n_epochs)):
-        loss_sum = torch.zeros((), device=dev)
-        for i in range(n_eval):
-            if ray_idx is None:
-                idx_i = torch.randperm(hw, generator=generator, device=dev)[:n_points]
-            else:
-                idx_i = ray_idx[epoch, i].to(dev)
-            loss_sum += pose_opt_step(pose_params, opt_state, nerf_params, focal_params, imgs[i],
-                                      i, camera_mat, idx_i, lr_e, pcfg, fcfg, ncfg, rcfg)
+        run.rate.fill_(lr_e)
+        for i in range(run.n_eval):
+            if ray_idx is not None:
+                run.rays.copy_(ray_idx[epoch, i])
+            run.step()
         if log_every and epoch % log_every == 0:
-            l2 = float(loss_sum) / n_eval
+            l2 = float(run.loss_sum) / run.n_eval
             print(f"  pose-opt epoch {epoch}: L2 {l2:.4f} PSNR {float(mse2psnr(l2)):.2f}")
 
     with torch.no_grad():
-        c2ws = pose_c2w_all(pose_params, pcfg).cpu().numpy()
-    return pose_params, c2ws
+        c2ws = pose_c2w_all(run.pose_params, run.pcfg).cpu().numpy()
+    return run.pose_params, c2ws

@@ -49,7 +49,7 @@ def make_c2w(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     (reference model/common.py:301-310)."""
     top = torch.cat([exp_so3(r), t[..., :, None]], dim=-1)   # (..., 3, 4)
     bottom = torch.zeros_like(top[..., :1, :])
-    bottom[..., 0, 3] = 1.0
+    bottom[..., 0, 3].fill_(1.0)      # a fill on the device: no scalar copied in
     return torch.cat([top, bottom], dim=-2)
 
 
@@ -57,5 +57,5 @@ def convert3x4_4x4(mat: torch.Tensor) -> torch.Tensor:
     """(..., 3, 4) -> (..., 4, 4) by appending a [0, 0, 0, 1] row (reference
     model/common.py:312-330)."""
     bottom = torch.zeros_like(mat[..., :1, :])
-    bottom[..., 0, 3] = 1.0
+    bottom[..., 0, 3].fill_(1.0)      # a fill on the device: no scalar copied in
     return torch.cat([mat, bottom], dim=-2)

@@ -67,11 +67,15 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Median over masked entries; torch.median semantics (lower of two middles)."""
+    """Median over masked entries; torch.median semantics (lower of two middles).
+    The count stays on the device and the middle entry is gathered there, so
+    nothing is read back: position max((count - 1) // 2, 0) of the sorted
+    values, the entries outside the mask sorted last."""
     big = torch.full_like(x, torch.finfo(x.dtype).max)
     order = torch.sort(torch.where(mask.to(torch.bool), x, big)).values
-    count = int(mask.to(torch.int64).sum())
-    return order[max((count - 1) // 2, 0)]
+    count = mask.to(torch.int64).sum()
+    middle = torch.div(count - 1, 2, rounding_mode="floor").clamp_min(0)
+    return order.index_select(0, middle.reshape(1))[0]
 
 
 def rgb_loss(rgb_pred: torch.Tensor, rgb_gt: torch.Tensor, loss_type: str) -> torch.Tensor:

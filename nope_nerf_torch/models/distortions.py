@@ -14,6 +14,7 @@ from typing import Dict, Tuple
 import torch
 
 from .. import DeviceLike, resolve_device
+from .poses import take_row
 
 Params = Dict[str, torch.Tensor]
 
@@ -40,17 +41,22 @@ def init_distortion_params(cfg: DistortionConfig, device: DeviceLike = None,
             "shift": torch.zeros((cfg.num_cams, 1), dtype=dtype, device=dev)}
 
 
-def distortion_scale_shift(params: Params, cam_id: int,
+def distortion_scale_shift(params: Params, cam_id,
                            cfg: DistortionConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(scale (1,), shift (1,)) for a camera index.
+    """(scale (1,), shift (1,)) for a camera index, an integer or a
+    one-element index tensor on the params' device (then the pinned last scale
+    is a torch.where on it, and nothing is read back).
 
     The reference's `scale < 0.01 -> 0.01` replacement (distortions.py:21-22)
     cuts the gradient: a clamped scale gets none, as the constant branch of
     torch.where gives here."""
     scale = params["scale"] if cfg.learn_scale else params["scale"].detach()
     shift = params["shift"] if cfg.learn_shift else params["shift"].detach()
-    s = scale[cam_id]
+    s = take_row(scale, cam_id)
     s = torch.where(s < 0.01, torch.full_like(s, 0.01), s)
-    if cfg.fix_scaleN and int(cam_id) == cfg.num_cams - 1:
-        s = torch.ones_like(s)
-    return s, shift[cam_id]
+    if cfg.fix_scaleN:
+        if torch.is_tensor(cam_id):
+            s = torch.where(cam_id.reshape(()) == cfg.num_cams - 1, torch.ones_like(s), s)
+        elif cam_id == cfg.num_cams - 1:
+            s = torch.ones_like(s)
+    return s, take_row(shift, cam_id)

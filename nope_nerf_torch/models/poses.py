@@ -54,12 +54,22 @@ def _gated(params: Params, cfg: PoseConfig):
     return r, t
 
 
-def pose_c2w(params: Params, cam_id: int, cfg: PoseConfig) -> torch.Tensor:
-    """c2w (4, 4) for one camera index (reference poses.py:23-31)."""
+def take_row(table: torch.Tensor, cam_id) -> torch.Tensor:
+    """Row `cam_id` of a per-camera table. An integer indexes it; an index
+    tensor (one element, on the table's device) is gathered with
+    index_select, which reads nothing back to the host (x[t] would)."""
+    if torch.is_tensor(cam_id):
+        return table.index_select(0, cam_id.reshape(1))[0]
+    return table[cam_id]
+
+
+def pose_c2w(params: Params, cam_id, cfg: PoseConfig) -> torch.Tensor:
+    """c2w (4, 4) for one camera index, an integer or a one-element index
+    tensor (reference poses.py:23-31)."""
     r, t = _gated(params, cfg)
-    c2w = make_c2w(r[cam_id], t[cam_id])
+    c2w = make_c2w(take_row(r, cam_id), take_row(t, cam_id))
     if cfg.use_init_c2w:
-        c2w = c2w @ params["init_c2w"].detach()[cam_id]
+        c2w = c2w @ take_row(params["init_c2w"].detach(), cam_id)
     return c2w
 
 

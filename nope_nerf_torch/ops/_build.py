@@ -19,7 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -29,6 +29,10 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-sh
 
 
 _PLAIN_VERSIONS = False
+
+# Every CudaLibrary of the package, in the order the ops modules create them: a
+# captured CUDA graph reads their launch counts (training/graphs.py).
+LIBRARIES: List["CudaLibrary"] = []
 
 
 @contextlib.contextmanager
@@ -69,7 +73,9 @@ class CudaLibrary:
 
     `setup(lib)` declares the ctypes signatures after loading. `launches` is
     the kernel wrappers' launch count: each wrapper adds one where it launches
-    its kernel, and nowhere else. `build_log` is nvcc's output (ptxas usage)."""
+    its kernel, and nowhere else; a replayed CUDA graph adds the launches its
+    capture recorded (training/graphs.py). `build_log` is nvcc's output
+    (ptxas usage)."""
 
     def __init__(self, source: str, setup):
         self.source = CSRC_DIR / source    # an absolute path stands as it is
@@ -77,6 +83,7 @@ class CudaLibrary:
         self._lib: Optional[ctypes.CDLL] = None
         self.launches = 0
         self.build_log = ""
+        LIBRARIES.append(self)
 
     def _target(self, nvcc: str) -> Path:
         """The library's path, named by a hash of the source, of every header

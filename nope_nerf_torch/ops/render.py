@@ -149,12 +149,30 @@ def sample_pdf(z_vals: torch.Tensor, weights: torch.Tensor, n_importance: int,
     return mid_b + t * (mid_a - mid_b)
 
 
+class _CumProd(torch.autograd.Function):
+    """torch.cumprod over the last axis with the backward torch takes for an
+    input without zeros, reversed_cumsum(out * g) / x, but without the check
+    for zeros that torch's cumprod_backward reads back to the host, so that a
+    step captured in a CUDA graph can hold it. composite's input is
+    1 - alpha + 1e-10 (and ones): never zero for alpha in [0, 1]."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return (out * g).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def composite(rgb: torch.Tensor, alpha: torch.Tensor, z_val: torch.Tensor):
     """Alpha compositing with the epsilon inside the cumulative product
     (reference rendering.py:124-126) -> (rgb (N,3), dist (N,), weights (N,S))."""
-    trans = torch.cumprod(
-        torch.cat([torch.ones_like(alpha[:, :1]), 1.0 - alpha + EPSILON], dim=-1),
-        dim=-1)[:, :-1]
+    trans = _CumProd.apply(
+        torch.cat([torch.ones_like(alpha[:, :1]), 1.0 - alpha + EPSILON], dim=-1))[:, :-1]
     weights = alpha * trans
     return (weights[..., None] * rgb).sum(dim=-2), (weights * z_val).sum(dim=-1), weights
 

@@ -4,7 +4,9 @@ Port of nope_nerf_tpu/training/state.py. The reference spreads this across
 four nn.Modules and four torch Adam optimizers (train.py:59-154); here it is
 one object of plain tensors by group, as in the JAX package. Learning rates
 are inputs of the step (the host retunes them every epoch), so Adam is
-written out here: `torch.optim.Adam` bakes the rate in.
+written out here: `torch.optim.Adam` bakes the rate in. Its step count, rate
+and bias corrections live on the device, so a step reads nothing back and can
+be captured in a CUDA graph (training/graphs.py).
 """
 
 from __future__ import annotations
@@ -77,10 +79,16 @@ class ModelConfigs:
 @dataclasses.dataclass
 class AdamState:
     """First and second moments shaped like the group, and the step count
-    (optax.ScaleByAdamState)."""
+    (optax.ScaleByAdamState): a 0-d int64 tensor beside the moments, which
+    adam_step increments in place. A number given as the count becomes one."""
     mu: Group
     nu: Group
-    count: int = 0
+    count: torch.Tensor = 0
+
+    def __post_init__(self):
+        if not torch.is_tensor(self.count):
+            dev = next(iter(self.mu.values())).device if self.mu else None
+            self.count = torch.full((), int(self.count), dtype=torch.int64, device=dev)
 
 
 @dataclasses.dataclass
@@ -97,12 +105,17 @@ def init_adam(group: Group) -> AdamState:
 
 
 @torch.no_grad()
-def adam_step(group: Group, grads: Group, opt: AdamState, lr: float,
+def adam_step(group: Group, grads: Group, opt: AdamState, lr,
               weight_decay: float = 0.0) -> None:
     """One Adam update of `group`, in place: L2 decay added to the gradient
     before the moments (torch.optim.Adam semantics), bias correction as
     optax.scale_by_adam (eps outside the square root of the corrected second
-    moment), then p -= lr * update."""
+    moment), then p -= lr * update.
+
+    `lr` is a number or a 0-d tensor. Nothing is read back: the count is
+    incremented on the device, and the two bias-correction factors are formed
+    there in float64 and cast to float32, the value Python's double arithmetic
+    cast to float32 gave when the count was a host integer."""
     names = sorted(group)
     p = [group[k] for k in names]
     g = [grads[k] for k in names]
@@ -110,15 +123,21 @@ def adam_step(group: Group, grads: Group, opt: AdamState, lr: float,
         g = torch._foreach_add(g, p, alpha=weight_decay)
     mu = [opt.mu[k] for k in names]
     nu = [opt.nu[k] for k in names]
-    opt.count += 1
+    opt.count.add_(1)
+    count = opt.count.to(torch.float64)
+    rate = torch.as_tensor(lr, dtype=torch.float64, device=opt.count.device)
+    second = (1.0 - torch.pow(ADAM_B2, count)).to(torch.float32)
+    step = (-rate / (1.0 - torch.pow(ADAM_B1, count))).to(torch.float32)
     torch._foreach_mul_(mu, ADAM_B1)
     torch._foreach_add_(mu, g, alpha=1.0 - ADAM_B1)
     torch._foreach_mul_(nu, ADAM_B2)
     torch._foreach_addcmul_(nu, g, g, value=1.0 - ADAM_B2)
-    denom = torch._foreach_div(nu, 1.0 - ADAM_B2 ** opt.count)
+    denom = torch._foreach_div(nu, second)
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, ADAM_EPS)
-    torch._foreach_addcdiv_(p, mu, denom, value=-lr / (1.0 - ADAM_B1 ** opt.count))
+    update = torch._foreach_div(mu, denom)
+    torch._foreach_mul_(update, step)
+    torch._foreach_add_(p, update)
 
 
 def create_train_state(seed: int, mc: ModelConfigs, init_c2w=None, init_focal=None,

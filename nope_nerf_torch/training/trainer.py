@@ -6,18 +6,28 @@ guarantee, pose/distortion/focal application, rendering, the inter-frame
 reference pair (point-cloud lift, relative-pose warp, photometric
 reprojection), loss assembly, and one Adam update per parameter group.
 
-The step runs eagerly. With an eligible config the rays go through
+With an eligible config the rays go through
 ops/fused_render.render_ray_loss_fused: one launch of the train kernel gives
 the rgb + depth term and every gradient below it, and autograd carries the
 rest (poses, distortions, the pair losses). Other fused-eligible configs
 render through render_nope_nerf, forward and backward kernels on CUDA; the
 configs the fused render cannot serve (hierarchical sampling, num_points %
 128 != 0) render through its unfused route, whose MLP queries are the
-point-query kernels (ops/fused_mlp.py) on CUDA with use_pallas. The
-frame-order select of the JAX package (a traced where) is a plain `if` here.
-Trainer.render_frame renders a whole eval frame, Trainer.render_geo the phong
-geometry view; the Trainer keeps the occupancy grid (ops/occupancy.py) when
-rendering.occupancy_grid is set.
+point-query kernels (ops/fused_mlp.py) on CUDA with use_pallas.
+
+The step body reads nothing back to the host, as the JAX package's jitted
+step cannot: the frame indices are device tensors (the frame pair is
+gathered from the scene stack with index_select, the frame-order select is a
+torch.where, as JAX's traced where), the schedule scalars are device tensors
+filled once per epoch, and Adam's count lives on the device. So on the card
+the Trainer captures the step once per static signature and replays it as a
+CUDA graph (training/graphs.py), the counterpart of the JAX package's
+jax.jit and lax.scan: run_steps replays it len(order) times from a device
+table of the epoch's order, step replays it on a batch copied into its
+static buffers. Trainer(..., graphs=False), a mesh, or a CPU state run the
+same body eagerly. Trainer.render_frame renders a whole eval frame,
+Trainer.render_geo the phong geometry view; the Trainer keeps the occupancy
+grid (ops/occupancy.py) when rendering.occupancy_grid is set.
 
 With a mesh (parallel/mesh.py) the step is sharded over processes, as the
 JAX package's shard_map step over its 'data' axis: each rank renders
@@ -58,6 +68,7 @@ from ..parallel.multihost import (globalize_replicated, host_image_tiles, host_r
                                   process_count)
 from ..parallel.sharding import all_gather_tiled, psum, pvary
 from .scheduler import annealed_weights, lr_at_epoch, rgb_loss_type_at
+from .graphs import CapturedStep, GraphCache
 from .state import ModelConfigs, TrainState, adam_step
 
 
@@ -86,6 +97,22 @@ def _apply_distortion(depth: torch.Tensor, scale: torch.Tensor, shift: torch.Ten
     if shift_first:
         return (depth + shift) * scale
     return depth * scale + shift
+
+
+def _precedes(idx, num_cams: int):
+    """Whether frame `idx` comes first of its pair (training.py:323): a bool
+    for an integer, a 0-d bool tensor on the device for an index tensor."""
+    if torch.is_tensor(idx):
+        return idx.reshape(()) < num_cams - 1
+    return idx < num_cams - 1
+
+
+def _pick(first, a, b):
+    """`a` where `first` holds, else `b`: a host branch on a bool, a select
+    on the device (both operands computed) on a 0-d bool tensor."""
+    if torch.is_tensor(first):
+        return torch.where(first, a, b)
+    return a if first else b
 
 
 def _global_draws(generator: Optional[torch.Generator], n: int, mc: ModelConfigs,
@@ -203,7 +230,7 @@ def compute_step_loss(params: Dict[str, Any], batch: Dict[str, Any], weights: Di
     img = batch["img"]                      # (H, W, 3)
     depth_input = batch["depth"]            # (H, W)
     depth_mask = batch["depth_mask"]        # (H, W) bool
-    idx = int(batch["idx"])
+    idx = batch["idx"]                      # an integer, or a one-element index tensor
     pose_gt = batch["pose_gt"]              # (4, 4) c2w
     h, w, _ = img.shape
     lcfg = mc.loss
@@ -271,7 +298,7 @@ def compute_step_loss(params: Dict[str, Any], batch: Dict[str, Any], weights: Di
     if lcfg.use_pc or lcfg.use_rgb_s or lcfg.use_t_cycle:
         if mc.pose is None:
             raise ValueError("pair losses require learned poses")
-        ref_idx = int(batch["ref_idx"])
+        ref_idx = batch["ref_idx"]
         ref_img = batch["ref_img"]
         depth_ref = batch["ref_depth"]
         nl = mc.nearest_limit
@@ -288,15 +315,15 @@ def compute_step_loss(params: Dict[str, Any], batch: Dict[str, Any], weights: Di
         ref_Rt = rigid_inverse(c2w_ref)
         ref_Rt_gt = rigid_inverse(batch["ref_pose_gt"])
 
-        # frame ordering: frame 1 must precede frame 2 (training.py:323-352)
-        if idx < mc.pose.num_cams - 1:
-            d1, d2, img1, img2, scale1 = depth_input, depth_ref, img, ref_img, scale_in
-            Rt_rel_12 = ref_Rt @ rigid_inverse(world_mat)
-            Rt_rel_12_gt = ref_Rt_gt @ rigid_inverse(world_mat_gt)
-        else:
-            d1, d2, img1, img2, scale1 = depth_ref, depth_input, ref_img, img, scale_ref
-            Rt_rel_12 = world_mat @ rigid_inverse(ref_Rt)
-            Rt_rel_12_gt = world_mat_gt @ rigid_inverse(ref_Rt_gt)
+        # frame ordering: frame 1 must precede frame 2 (training.py:323-352); with an
+        # index tensor a select on the device, as the JAX package's traced where
+        first = _precedes(idx, mc.pose.num_cams)
+        d1, d2 = _pick(first, depth_input, depth_ref), _pick(first, depth_ref, depth_input)
+        scale1 = _pick(first, scale_in, scale_ref)
+        Rt_rel_12 = _pick(first, ref_Rt @ rigid_inverse(world_mat),
+                          world_mat @ rigid_inverse(ref_Rt))
+        Rt_rel_12_gt = _pick(first, ref_Rt_gt @ rigid_inverse(world_mat_gt),
+                             world_mat_gt @ rigid_inverse(ref_Rt_gt))
         R_rel = Rt_rel_12[:3, :3]
         t_rel = Rt_rel_12[:3, 3]
 
@@ -308,12 +335,12 @@ def compute_step_loss(params: Dict[str, Any], batch: Dict[str, Any], weights: Di
         pc2 = transform_to_world(p_pc, d2s[:, None], camera_mat)
 
         if lcfg.use_rgb_s:
-            first = idx < mc.pose.num_cams - 1
             if "img_small" in batch:
                 # per-frame constants, computed once per scene (Trainer._warp_frames)
-                img2s = batch["ref_img_small"] if first else batch["img_small"]
-                rgb_pc1 = batch["rgb_pc"] if first else batch["ref_rgb_pc"]
+                img2s = _pick(first, batch["ref_img_small"], batch["img_small"])
+                rgb_pc1 = _pick(first, batch["rgb_pc"], batch["ref_rgb_pc"])
             else:
+                img1, img2 = _pick(first, img, ref_img), _pick(first, ref_img, img)
                 img2s = resize_bilinear(img2, (sh, sw))
                 rgb_pc1 = get_tensor_values(resize_bilinear(img1, (sh, sw)), p_pc,
                                             mode="bilinear", scale=False, align_corners=True)
@@ -361,17 +388,20 @@ def step_gradients(params: Dict[str, Dict[str, torch.Tensor]], batch, weights, r
     return out, {k: v.detach().clone() for k, v in loss_dict.items()}
 
 
-def train_step(state: TrainState, batch: Dict[str, Any], weights: Dict[str, float],
-               lrs: Dict[str, float], mc: ModelConfigs, rgb_loss_type: str,
-               ray_idx: Optional[torch.Tensor] = None,
-               noise: Optional[torch.Tensor] = None,
-               fine_u: Optional[torch.Tensor] = None,
-               mesh=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """One full optimization step: state -> (state, metrics). The state's
-    tensors are updated in place and the same state object is returned.
-    `ray_idx`, `noise` and `fine_u` pin the random draws (tests); otherwise
-    they come from the state's generator. With `mesh` the rays shard over its
-    ranks (compute_step_loss); every rank makes the same update."""
+# The loss dict of a step, in compute_step_loss's order: the rows of run_steps'
+# per-step table.
+LOSS_TERMS = ("loss", "loss_rgb", "loss_depth", "l2_mean", "loss_dist_1st", "loss_dist_2nd",
+              "loss_pc", "loss_rgb_s", "loss_depth_consistency", "loss_t_cycle", "scale",
+              "shift")
+
+
+def _update(state: TrainState, batch: Dict[str, Any], weights, lrs, mc: ModelConfigs,
+            rgb_loss_type: str, ray_idx: Optional[torch.Tensor] = None,
+            noise: Optional[torch.Tensor] = None, fine_u: Optional[torch.Tensor] = None,
+            mesh=None) -> Dict[str, torch.Tensor]:
+    """train_step without the host's iteration counter: the work of the device
+    (the ray draw, forward, backward and the four Adam groups, in place on the
+    state's tensors), which a CUDA graph captures. Returns the loss dict."""
     h, w, _ = batch["img"].shape
     if mesh is not None and mc.n_training_points % mesh.size:
         raise ValueError(f"n_training_points {mc.n_training_points} must divide evenly across "
@@ -387,53 +417,124 @@ def train_step(state: TrainState, batch: Dict[str, Any], weights: Dict[str, floa
     for group in state.params:
         adam_step(state.params[group], grads[group], state.opt_state[group], lrs[group],
                   mc.weight_decay if group == "nerf" else 0.0)
+    return loss_dict
+
+
+def train_step(state: TrainState, batch: Dict[str, Any], weights, lrs, mc: ModelConfigs,
+               rgb_loss_type: str, ray_idx: Optional[torch.Tensor] = None,
+               noise: Optional[torch.Tensor] = None,
+               fine_u: Optional[torch.Tensor] = None,
+               mesh=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One full optimization step: state -> (state, metrics). The state's
+    tensors are updated in place and the same state object is returned.
+    `weights` and `lrs` hold numbers or 0-d tensors; batch["idx"] and
+    batch["ref_idx"] are integers or one-element index tensors. `ray_idx`,
+    `noise` and `fine_u` pin the random draws (tests); otherwise they come
+    from the state's generator. With `mesh` the rays shard over its ranks
+    (compute_step_loss); every rank makes the same update."""
+    loss_dict = _update(state, batch, weights, lrs, mc, rgb_loss_type, ray_idx=ray_idx,
+                        noise=noise, fine_u=fine_u, mesh=mesh)
     state.it += 1
     return state, loss_dict
 
 
+def _host_pairs(order, ref_order) -> torch.Tensor:
+    """The epoch's (frame, reference frame) pairs as an (n, 2) int64 host tensor."""
+    return torch.from_numpy(np.stack([np.asarray(order, np.int64),
+                                      np.asarray(ref_order, np.int64)], axis=1))
+
+
+def scene_step(state: TrainState, scene_stack: Dict[str, torch.Tensor], pairs: torch.Tensor,
+               counter: torch.Tensor, weights, lrs, mc: ModelConfigs, rgb_loss_type: str,
+               pins: Optional[Dict[str, torch.Tensor]] = None,
+               mesh=None) -> Dict[str, torch.Tensor]:
+    """Step `counter` (a one-element int64 tensor) of an epoch, the body of
+    the JAX package's lax.scan (trainer.py:493-518 there): the frame pair
+    pairs[counter] gathered from the device-resident scene stack with
+    index_select (lax.dynamic_index_in_dim), then _update. `pins` holds
+    per-step draws with a leading step axis ('ray_idx', 'noise', 'fine_u'),
+    gathered the same way. Reads nothing back; does not advance `counter`."""
+    pair = pairs.index_select(0, counter)[0]
+    idx, ref = pair[0:1], pair[1:2]
+
+    def take(name, i):
+        return scene_stack[name].index_select(0, i)[0]
+
+    batch = {
+        "img": take("imgs", idx),
+        "depth": take("depths", idx),
+        "depth_mask": take("depth_masks", idx),
+        "camera_mat": scene_stack["K"],
+        "pose_gt": take("c2ws_gt", idx),
+        "idx": idx,
+        "ref_img": take("imgs", ref),
+        "ref_depth": take("depths", ref),
+        "ref_pose_gt": take("c2ws_gt", ref),
+        "ref_idx": ref,
+    }
+    if "imgs_small" in scene_stack:
+        batch["img_small"] = take("imgs_small", idx)
+        batch["ref_img_small"] = take("imgs_small", ref)
+        batch["rgb_pc"] = take("rgb_pc", idx)
+        batch["ref_rgb_pc"] = take("rgb_pc", ref)
+    if "occ_grid" in scene_stack:
+        batch["occ_grid"] = scene_stack["occ_grid"]
+    drawn = {k: v.index_select(0, counter)[0] for k, v in (pins or {}).items()}
+    return _update(state, batch, weights, lrs, mc, rgb_loss_type, mesh=mesh, **drawn)
+
+
 def train_steps(state: TrainState, scene_stack: Dict[str, torch.Tensor], order, ref_order,
-                weights: Dict[str, float], lrs: Dict[str, float], mc: ModelConfigs,
-                rgb_loss_type: str, mesh=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """len(order) train steps over the frame order (the JAX package's lax.scan
-    as a loop): (state, loss_dict with a leading step axis). Nothing is read
-    back to the host between steps."""
+                weights, lrs, mc: ModelConfigs, rgb_loss_type: str, mesh=None,
+                pins: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """len(order) train steps over the frame order, eagerly: the JAX
+    package's lax.scan as a loop of scene_step over a device table of the
+    pairs (Trainer.run_steps replays the same body as a CUDA graph on the
+    card). Returns (state, loss_dict with a leading step axis). Nothing is
+    read back to the host between steps."""
+    dev = scene_stack["imgs"].device
+    pairs = _host_pairs(order, ref_order).to(dev)
+    counter = torch.zeros((1,), dtype=torch.int64, device=dev)
     dicts = []
-    for idx, ref in zip(order, ref_order):
-        idx, ref = int(idx), int(ref)
-        batch = {
-            "img": scene_stack["imgs"][idx],
-            "depth": scene_stack["depths"][idx],
-            "depth_mask": scene_stack["depth_masks"][idx],
-            "camera_mat": scene_stack["K"],
-            "pose_gt": scene_stack["c2ws_gt"][idx],
-            "idx": idx,
-            "ref_img": scene_stack["imgs"][ref],
-            "ref_depth": scene_stack["depths"][ref],
-            "ref_pose_gt": scene_stack["c2ws_gt"][ref],
-            "ref_idx": ref,
-        }
-        if "imgs_small" in scene_stack:
-            batch["img_small"] = scene_stack["imgs_small"][idx]
-            batch["ref_img_small"] = scene_stack["imgs_small"][ref]
-            batch["rgb_pc"] = scene_stack["rgb_pc"][idx]
-            batch["ref_rgb_pc"] = scene_stack["rgb_pc"][ref]
-        if "occ_grid" in scene_stack:
-            batch["occ_grid"] = scene_stack["occ_grid"]
-        state, loss_dict = train_step(state, batch, weights, lrs, mc, rgb_loss_type, mesh=mesh)
-        dicts.append(loss_dict)
+    for _ in range(pairs.shape[0]):
+        dicts.append(scene_step(state, scene_stack, pairs, counter, weights, lrs, mc,
+                                rgb_loss_type, pins=pins, mesh=mesh))
+        counter.add_(1)
+        state.it += 1
     return state, {k: torch.stack([d[k] for d in dicts]) for k in dicts[0]}
+
+
+def _device(state: TrainState) -> torch.device:
+    """The device of the state's tensors, with its index (a generator's device
+    may lack it)."""
+    return state.params["nerf"]["density_w"].device
+
+
+def _loss_row(loss_dict: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The step's loss dict as one float32 row in LOSS_TERMS' order."""
+    if set(loss_dict) != set(LOSS_TERMS):
+        raise ValueError(f"the step's loss terms {sorted(loss_dict)} are not LOSS_TERMS")
+    return torch.stack([loss_dict[k].to(torch.float32) for k in LOSS_TERMS])
 
 
 class Trainer:
     """Host-side orchestration: the epoch's schedule scalars, the per-scene
-    warp cache and the occupancy grid. The per-step compute lives in
-    train_step; with `mesh` (parallel/mesh.py) it is sharded over the mesh's
-    ranks."""
+    warp cache, the occupancy grid and the captured step graphs. The per-step
+    compute lives in train_step / scene_step; with `mesh` (parallel/mesh.py)
+    it is sharded over the mesh's ranks.
 
-    def __init__(self, cfg: dict, mc: ModelConfigs, mesh=None):
+    On a CUDA state `step` and `run_steps` replay the step captured in a CUDA
+    graph (training/graphs.py), one graph per static signature: the config,
+    rgb_loss_type, the frame shape, whether the occupancy grid and the warp
+    constants are there, and the tensors it is bound to. graphs=False runs
+    the same body eagerly, as jax.disable_jit would; so does a mesh, whose
+    all-reduces are not captured."""
+
+    def __init__(self, cfg: dict, mc: ModelConfigs, mesh=None, graphs: bool = True):
         self.cfg = cfg
         self.mc = mc
         self.mesh = mesh
+        self.use_graphs = graphs
         t = cfg["training"]
         self.base_lrs = {"nerf": t["learning_rate"], "pose": t["pose_lr"],
                          "focal": t["focal_lr"], "distortion": t["distortion_lr"]}
@@ -442,7 +543,10 @@ class Trainer:
                        "distortion": t["scheduler_gamma_distortion"]}
         self.decay_intervals = {"nerf": 10, "pose": 100, "focal": 100, "distortion": 100}
         self._sched_cache: Dict[Any, Any] = {}
+        self._sched_tensors = None    # (weights, lrs) as device tensors, and what they hold
         self._warp_cache = None   # per-scene photometric-warp constants (_warp_frames)
+        self._graphs = GraphCache()
+        self._said_eager = False
         # occupancy-grid guided sampling (ops/occupancy.py), created by update_occupancy
         r = cfg["rendering"]
         self.occ_grid: Optional[torch.Tensor] = None
@@ -483,35 +587,189 @@ class Trainer:
             self._sched_cache = {key: sched}  # keep only the current epoch
         return sched
 
+    def _schedule(self, epoch: int, scheduling_start: int, dev: torch.device):
+        """(weights, lrs, rgb_loss_type) of this epoch with the scalars as 0-d
+        tensors on `dev` (the weights float32, the rates float64, in which
+        adam_step forms its step), filled once per epoch before any step: a
+        captured step reads them where they lie."""
+        weights, lrs, rgb_loss_type = self._sched_at(epoch, scheduling_start)
+        held = self._sched_tensors
+        if held is None or held[0]["rgb_weight"].device != dev:
+            held = ({k: torch.zeros((), dtype=torch.float32, device=dev) for k in weights},
+                    {g: torch.zeros((), dtype=torch.float64, device=dev) for g in lrs}, None)
+        if held[2] != (epoch, scheduling_start):
+            for k, v in weights.items():
+                held[0][k].fill_(v)
+            for g, v in lrs.items():
+                held[1][g].fill_(v)
+            held = (held[0], held[1], (epoch, scheduling_start))
+        self._sched_tensors = held
+        return held[0], held[1], rgb_loss_type
+
+    def _graphed(self, state: TrainState) -> bool:
+        """Whether the steps of `state` replay captured graphs: on a CUDA
+        state, unless graphs=False or a mesh shards the step (gloo's
+        host-staged all-reduces cannot be captured, NCCL's are not yet)."""
+        if not self.use_graphs or _device(state).type != "cuda":
+            return False
+        if self.mesh is not None:
+            if not self._said_eager:
+                print("the sharded train step runs eagerly: its all-reduces are not captured "
+                      "in a CUDA graph")
+                self._said_eager = True
+            return False
+        return True
+
+    @staticmethod
+    def _state_tensors(state: TrainState):
+        """Every tensor of the state a step updates in place."""
+        out = []
+        for g in sorted(state.params):
+            opt = state.opt_state[g]
+            for k in sorted(state.params[g]):
+                out += [state.params[g][k], opt.mu[k], opt.nu[k]]
+            out.append(opt.count)
+        return out
+
+    def captured_steps(self):
+        """The captured step graphs this Trainer holds (their capture seconds,
+        pool MB and launches per replay)."""
+        return self._graphs.steps()
+
+    def release_graphs(self) -> None:
+        """Drop every captured graph and its memory pool."""
+        self._graphs.clear()
+
     def step(self, state: TrainState, batch: Dict[str, Any], epoch: int,
              scheduling_start: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        weights, lrs, rgb_loss_type = self._sched_at(epoch, scheduling_start)
+        """One step on `batch` (data.batch_for_frame's dict). On a CUDA state
+        the batch is copied into the static buffers of the captured step and
+        the graph replays once."""
+        dev = _device(state)
+        weights, lrs, rgb_loss_type = self._schedule(epoch, scheduling_start, dev)
+        batch = dict(batch)
+        for k in ("idx", "ref_idx"):
+            if k in batch and not torch.is_tensor(batch[k]):
+                batch[k] = torch.full((1,), int(batch[k]), dtype=torch.int64, device=dev)
         if self.occ_grid is not None and "occ_grid" not in batch:
-            batch = {**batch, "occ_grid": self.occ_grid}
-        return train_step(state, batch, weights, lrs, self.mc, rgb_loss_type, mesh=self.mesh)
+            batch["occ_grid"] = self.occ_grid
+        if not self._graphed(state):
+            return train_step(state, batch, weights, lrs, self.mc, rgb_loss_type, mesh=self.mesh)
+        inputs = sorted(k for k, v in batch.items() if torch.is_tensor(v) and k != "occ_grid")
+        static = ("step", rgb_loss_type, "occ_grid" in batch,
+                  tuple((k, tuple(batch[k].shape), batch[k].dtype) for k in inputs))
+        bound = (self._state_tensors(state) + list(weights.values()) + list(lrs.values())
+                 + ([batch["occ_grid"]] if "occ_grid" in batch else []))
+        step = self._graphs.get(
+            GraphCache.key(static, bound, state.generator), state.generator,
+            lambda: self._capture_step(state, batch, inputs, weights, lrs, rgb_loss_type))
+        for k in inputs:
+            step.buffers["batch"][k].copy_(batch[k])
+        step.replay()
+        state.it += 1
+        return state, dict(zip(LOSS_TERMS, step.buffers["losses"].clone().unbind()))
+
+    def _capture_step(self, state, batch, inputs, weights, lrs, rgb_loss_type) -> CapturedStep:
+        static_batch = {k: batch[k].clone() for k in inputs}
+        if "occ_grid" in batch:
+            static_batch["occ_grid"] = batch["occ_grid"]
+        losses = torch.zeros((len(LOSS_TERMS),), dtype=torch.float32,
+                             device=_device(state))
+
+        def body():
+            ld = _update(state, static_batch, weights, lrs, self.mc, rgb_loss_type)
+            losses.copy_(_loss_row(ld))
+
+        return CapturedStep(body, self._state_tensors(state), state.generator,
+                            f"the train step (rgb_loss_type {rgb_loss_type})",
+                            buffers={"batch": static_batch, "losses": losses})
 
     def run_steps(self, state: TrainState, scene, order, ref_order, epoch: int,
-                  scheduling_start: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+                  scheduling_start: int, pins: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """len(order) steps over a device-resident SceneData (see train_steps);
-        order/ref_order come from data.loader.epoch_order."""
-        weights, lrs, rgb_loss_type = self._sched_at(epoch, scheduling_start)
-        scene_stack = {"imgs": scene.imgs, "depths": scene.depths,
-                       "depth_masks": scene.depth_masks, "K": scene.K,
-                       "c2ws_gt": scene.c2ws_gt}
+        order/ref_order come from data.loader.epoch_order. `pins` holds
+        per-step draws with a leading step axis (scene_step). On a CUDA state
+        the epoch's pairs go to the device in one copy and the captured step
+        replays len(order) times: the graph reads pairs[counter] and advances
+        the counter itself; the loss terms are read back by the caller once."""
+        dev = _device(state)
+        weights, lrs, rgb_loss_type = self._schedule(epoch, scheduling_start, dev)
+        scene_stack = self.scene_stack(scene)
+        if not self._graphed(state):
+            return train_steps(state, scene_stack, order, ref_order, weights, lrs, self.mc,
+                               rgb_loss_type, mesh=self.mesh, pins=pins)
+        pairs = _host_pairs(order, ref_order).pin_memory()
+        n = pairs.shape[0]
+        cap = max(64, 1 << max(n - 1, 0).bit_length())     # steps the static table holds
+        static = ("epoch", rgb_loss_type, cap, tuple(sorted(scene_stack)),
+                  None if pins is None else tuple(sorted((k, tuple(v.shape[1:]), v.dtype)
+                                                         for k, v in pins.items())))
+        bound = (self._state_tensors(state) + [scene_stack[k] for k in sorted(scene_stack)]
+                 + list(weights.values()) + list(lrs.values()))
+        step = self._graphs.get(
+            GraphCache.key(static, bound, state.generator), state.generator,
+            lambda: self._capture_epoch(state, scene_stack, pairs, pins, cap, weights, lrs,
+                                        rgb_loss_type))
+        b = step.buffers
+        b["pairs"][:n].copy_(pairs, non_blocking=True)
+        for k, v in (pins or {}).items():
+            b["pins"][k][:n].copy_(v)
+        b["counter"].zero_()
+        for _ in range(n):
+            step.replay()
+            state.it += 1
+        losses = b["losses"][:n].clone()
+        return state, {k: losses[:, j] for j, k in enumerate(LOSS_TERMS)}
+
+    def scene_stack(self, scene) -> Dict[str, torch.Tensor]:
+        """What scene_step reads of a device-resident SceneData: its stacked
+        frames, the warp constants and the occupancy grid when there are."""
+        stack = {"imgs": scene.imgs, "depths": scene.depths, "depth_masks": scene.depth_masks,
+                 "K": scene.K, "c2ws_gt": scene.c2ws_gt}
         small, rgb_pc = self._warp_frames(scene)
         if small is not None:
-            scene_stack["imgs_small"] = small
-            scene_stack["rgb_pc"] = rgb_pc
+            stack["imgs_small"] = small
+            stack["rgb_pc"] = rgb_pc
         if self.occ_grid is not None:
-            scene_stack["occ_grid"] = self.occ_grid
-        return train_steps(state, scene_stack, order, ref_order, weights, lrs, self.mc,
-                           rgb_loss_type, mesh=self.mesh)
+            stack["occ_grid"] = self.occ_grid
+        return stack
+
+    def _capture_epoch(self, state, scene_stack, pairs, pins, cap, weights, lrs,
+                       rgb_loss_type) -> CapturedStep:
+        """The captured scene_step of run_steps with its static buffers: the
+        pairs table and the pinned draws (cap steps each), the step counter
+        and the per-step loss table. The pairs are filled before the warm-up,
+        which reads them."""
+        dev = _device(state)
+        n = pairs.shape[0]
+        b = {"pairs": torch.zeros((cap, 2), dtype=torch.int64, device=dev),
+             "counter": torch.zeros((1,), dtype=torch.int64, device=dev),
+             "losses": torch.zeros((cap, len(LOSS_TERMS)), dtype=torch.float32, device=dev),
+             "pins": None}
+        b["pairs"][:n].copy_(pairs)
+        if pins is not None:
+            b["pins"] = {k: torch.zeros((cap,) + tuple(v.shape[1:]), dtype=v.dtype, device=dev)
+                         for k, v in pins.items()}
+            for k, v in pins.items():
+                b["pins"][k][:n].copy_(v)
+
+        def body():
+            ld = scene_step(state, scene_stack, b["pairs"], b["counter"], weights, lrs, self.mc,
+                            rgb_loss_type, pins=b["pins"])
+            b["losses"].index_copy_(0, b["counter"], _loss_row(ld)[None])
+            b["counter"].add_(1)
+
+        return CapturedStep(body, self._state_tensors(state) + [b["counter"]], state.generator,
+                            f"the train step of run_steps (rgb_loss_type {rgb_loss_type})",
+                            buffers=b)
 
     def _warp_frames(self, scene):
         """Per-frame constants of the photometric warp, computed once per scene:
         the pc_ratio-downsampled images and the source-side samples
         rgb_pc1 = bilinear(img_small, fixed pixel grid): the ops the step
-        would otherwise repeat every time."""
+        would otherwise repeat every time. A captured step reads them where
+        they lie."""
         if self.mc.pose is None:
             return None, None
         # keyed on the tensor object itself (kept alive in the cache tuple)
@@ -526,6 +784,15 @@ class Trainer:
             self._warp_cache = (imgs, small, rgb_pc)
         return self._warp_cache[1], self._warp_cache[2]
 
+    def _install_grid(self, grid: torch.Tensor) -> None:
+        """Make `grid` the occupancy grid: copied into the grid the captured
+        steps read when it has its shape and device, else it replaces it."""
+        if (self.occ_grid is not None and self.occ_grid.shape == grid.shape
+                and self.occ_grid.device == grid.device):
+            self.occ_grid.copy_(grid)
+        else:
+            self.occ_grid = grid
+
     def set_occupancy_grid(self, grid) -> None:
         """Install a grid (a checkpoint's). Ignored when the feature is off: a
         checkpoint of an occupancy run does not turn it on under a config that
@@ -538,22 +805,23 @@ class Trainer:
             print(f"WARNING: checkpointed occupancy grid is {grid.shape[0]}^3 but "
                   f"rendering.occupancy_res={self._occ_res}; keeping the checkpoint's "
                   "resolution for this run")
-        self.occ_grid = self._globalize(
-            grid if self.occ_grid is None else grid.to(self.occ_grid.device))
+        self._install_grid(self._globalize(
+            grid if self.occ_grid is None else grid.to(self.occ_grid.device)))
 
     def reset_occupancy(self) -> None:
         """A fresh all-ones grid (scheduling_mode reset discards the field the
         EMA describes)."""
         if self.occ_grid is not None:
-            self.occ_grid = self._globalize(make_occupancy_grid(self._occ_res,
-                                                                self.occ_grid.device))
+            self._install_grid(self._globalize(make_occupancy_grid(self._occ_res,
+                                                                   self.occ_grid.device)))
 
     def update_occupancy(self, state: TrainState, epoch: int) -> None:
         """EMA-update the occupancy grid from the current field; call once per
         epoch. The grid is created on the first call whenever the feature is
         on, whatever the cadence; update_every <= 0 never updates it. The
         jitter of epoch e comes from a generator seeded with (17, e), so a
-        resumed run draws what the straight run drew."""
+        resumed run draws what the straight run drew. The update is copied
+        into the grid the captured steps read."""
         if not self._occ_enabled:
             return
         dev = state.params["nerf"]["density_w"].device
@@ -564,13 +832,14 @@ class Trainer:
                 print(f"WARNING: rendering.depth_range far ({far}) exceeds the occupancy cube "
                       f"radius ({self.mc.render.occ_radius}); content beyond the cube only gets "
                       "floor-level sampling: set rendering.radius to cover the scene")
-        self.occ_grid = self.occ_grid.to(dev)
+        if self.occ_grid.device != dev:
+            self.occ_grid = self.occ_grid.to(dev)
         if self._occ_update_every <= 0 or epoch % self._occ_update_every:
             return
         gen = torch.Generator(device=dev).manual_seed(17 * 1_000_003 + epoch)
-        self.occ_grid = self._globalize(update_occupancy_grid(
+        self._install_grid(self._globalize(update_occupancy_grid(
             self.occ_grid, state.params["nerf"], self.mc.nerf, radius=self.mc.render.occ_radius,
-            decay=self._occ_decay, generator=gen))
+            decay=self._occ_decay, generator=gen)))
 
     @torch.no_grad()
     def render_frame(self, state: TrainState, batch: Dict[str, Any],

@@ -301,6 +301,36 @@ def test_resume_is_bit_identical(tmp_path):
     assert state_a.it == 31
 
 
+def _payload_equal(a, b) -> bool:
+    """Two checkpoint payloads hold the same keys and bit-equal arrays."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_payload_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_payload_equal(x, y) for x, y in zip(a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_scan_steps_false_matches_true_and_resumes(tmp_path):
+    """tpu.scan_steps false (a loop of Trainer.step over frame_iterator, each
+    step's hooks after it) against true (one Trainer.run_steps an epoch): the
+    checkpoints after 2 epochs are bit-equal, and so is a scan_steps-false
+    run of 1 epoch, checkpoint, resume, 1 epoch."""
+    from nope_nerf_torch.training.checkpoints import _read
+    states = {}
+    for scan in (True, False):
+        cfg = _tiny_cfg(tmp_path / f"scan_{scan}", tpu={"scan_steps": scan})
+        states[scan], _, _ = train(cfg, synthetic=True, max_epochs=2, device="cpu")
+    _assert_states_equal(states[True], states[False])
+    assert _payload_equal(_read(str(tmp_path / "scan_True"), "model.ckpt"),
+                          _read(str(tmp_path / "scan_False"), "model.ckpt"))
+    cfg_r = _tiny_cfg(tmp_path / "resumed", tpu={"scan_steps": False})
+    train(cfg_r, synthetic=True, max_epochs=1, device="cpu")
+    state_r, _, _ = train(cfg_r, synthetic=True, max_epochs=2, device="cpu")
+    _assert_states_equal(states[True], state_r)
+    assert _payload_equal(_read(str(tmp_path / "scan_True"), "model.ckpt"),
+                          _read(str(tmp_path / "resumed"), "model.ckpt"))
+
+
 def test_nan_loss_aborts_training(tmp_path):
     cfg = _tiny_cfg(tmp_path, training={"rgb_weight": [float("nan"), float("nan")]})
     with pytest.raises(FloatingPointError, match="non-finite loss"):

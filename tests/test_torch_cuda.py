@@ -841,3 +841,102 @@ def test_hierarchical_train_step_and_frame_on_card(cuda_device):
     frame = trainer.render_frame(state, batch_for_frame(scene, 1), (48, 64), chunk=1000)
     assert M.POINT_MLP_FWD.launches - counts == 2 * 4                # 3072 rays in 4 chunks
     assert frame["rgb"].shape == (48, 64, 3) and np.isfinite(frame["rgb"]).all()
+
+
+# ---- captured step graphs (training/graphs.py) -----------------------------------------
+
+def _graph_setup(dev, **extra):
+    over = {"training": {"n_training_points": 256},
+            "pose": {"learn_pose": True, "init_pose": True}}
+    for k, v in extra.items():
+        over.setdefault(k, {}).update(v)
+    cfg = load_config(overrides=over)
+    scene = SceneData.from_dict(make_synthetic_scene(n_frames=4, h=48, w=64)).to_device(dev)
+    mc = ModelConfigs.from_cfg(cfg, 4)
+    return cfg, scene, mc
+
+
+def _copy_state(state):
+    from nope_nerf_torch.cli.train import _clone_state
+    return _clone_state(state)
+
+
+@pytest.mark.parametrize("extra", [{}, {"training": {"depth_loss_type": "invariant"}},
+                                   {"rendering": {"n_importance": 64}}])
+def test_replayed_steps_equal_eager_steps(cuda_device, extra):
+    """Trainer.run_steps replays its captured step: states, loss terms and the
+    generator torch.equal to Trainer(graphs=False)'s eager steps from a copy
+    of the same state, the launch counts through the replays equal."""
+    cfg, scene, mc = _graph_setup(cuda_device, **extra)
+    state = create_train_state(0, mc, init_c2w=scene.c2ws_gt, device=cuda_device)
+    a, b = _copy_state(state), _copy_state(state)
+    order, refs = np.array([0, 3, 1, 2]), np.array([1, 2, 2, 3])
+    libs = [lib for lib in (F.RENDER_TRAIN, F.RENDER_FWD, F.RENDER_BWD, M.POINT_MLP_FWD,
+                            M.POINT_MLP_BWD, M.DW_SM90, C.CHAMFER_BIDIR)]
+    counts = []
+    for trainer, st in ((Trainer(cfg, mc, graphs=False), a), (Trainer(cfg, mc), b)):
+        before = [lib.launches for lib in libs]
+        st, lds = trainer.run_steps(st, scene, order, refs, epoch=0, scheduling_start=10000)
+        counts.append([lib.launches - c for lib, c in zip(libs, before)])
+        if trainer.use_graphs:
+            assert len(trainer.captured_steps()) == 1
+            ld_b = lds
+        else:
+            ld_a = lds
+    assert counts[0] == counts[1] and sum(counts[0]) > 0
+    assert all(torch.equal(ld_a[k], ld_b[k]) for k in ld_a)
+    assert torch.equal(a.generator.get_state(), b.generator.get_state()) and a.it == b.it
+    for g in a.params:
+        assert torch.equal(a.opt_state[g].count, b.opt_state[g].count)
+        for k in a.params[g]:
+            assert torch.equal(a.params[g][k], b.params[g][k])
+            assert torch.equal(a.opt_state[g].nu[k], b.opt_state[g].nu[k])
+
+
+def test_replays_draw_from_the_registered_generator(cuda_device):
+    """A replay draws what the eager body draws from the same generator state,
+    and advances the generator as far; a draw after the replays continues
+    where the eager run's would."""
+    from nope_nerf_torch.training.graphs import CapturedStep
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    out = torch.zeros((4, 1000), dtype=torch.int64, device=cuda_device)
+    row = torch.zeros((1,), dtype=torch.int64, device=cuda_device)
+
+    def body():
+        draw = torch.randperm(100_000, generator=gen, device=cuda_device)[:1000]
+        out.index_copy_(0, row, draw[None])
+        row.add_(1)
+    ref_gen = torch.Generator(device=cuda_device).manual_seed(3)
+    ref = [torch.randperm(100_000, generator=ref_gen, device=cuda_device)[:1000] for _ in range(4)]
+    step = CapturedStep(body, [row], gen, "a randperm")
+    for _ in range(4):
+        step.replay()
+    assert torch.equal(out, torch.stack(ref))
+    assert torch.equal(gen.get_state(), ref_gen.get_state())
+    assert torch.equal(torch.rand(8, generator=gen, device=cuda_device),
+                       torch.rand(8, generator=ref_gen, device=cuda_device))
+
+
+def test_a_body_that_reads_back_fails_to_capture_naming_the_operation(cuda_device):
+    from nope_nerf_torch.training.graphs import CapturedStep, GraphCaptureError
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.ones(4, device=cuda_device)
+
+    def body():
+        if float(x.sum()) > 0:          # a host readback: no graph can hold it
+            x.mul_(2.0)
+    with pytest.raises(GraphCaptureError, match=r"test_torch_cuda.py:\d+ in body"):
+        CapturedStep(body, [x], gen, "a readback")
+
+
+def test_pose_opt_replays_equal_eager_run(cuda_device):
+    """optimize_test_poses replayed against graphs=False: equal poses."""
+    from nope_nerf_torch.evaluation.pose_opt import optimize_test_poses
+    cfg, scene, mc = _graph_setup(cuda_device)
+    nerf = init_nerf_params(mc.nerf, torch.Generator().manual_seed(1), device=cuda_device)
+    view = SceneData.from_dict(make_synthetic_scene(n_frames=2, h=48, w=64))
+    runs = [optimize_test_poses(nerf, None, view, mc.nerf, mc.render, init_c2ws=view.c2ws_gt,
+                                n_points=256, n_epochs=3, log_every=0, device=cuda_device,
+                                graphs=graphs) for graphs in (False, True)]
+    assert np.array_equal(runs[0][1], runs[1][1])
+    assert all(torch.equal(runs[0][0][k], runs[1][0][k]) for k in runs[0][0])

@@ -128,6 +128,25 @@ def test_masked_mean_and_median():
     assert np.isfinite(float(tl.masked_mean(*_t(nan, mask))))
 
 
+@pytest.mark.parametrize("case", ["empty", "one", "odd", "even"])
+def test_masked_median_on_the_device_count(case):
+    """The median's count stays a tensor and its middle entry is gathered:
+    bit-equal to torch.median (the lower middle) of the masked values, and 0-th
+    sorted entry (the dtype's largest value) for an empty mask, the index
+    max((count - 1) // 2, 0) of the host-count version."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=64).astype(np.float32))
+    mask = torch.zeros(64, dtype=torch.bool)
+    chosen = {"empty": [], "one": [17], "odd": [1, 5, 9, 30, 63], "even": [0, 2, 4, 8, 40, 41]}
+    mask[chosen[case]] = True
+    got = tl.masked_median(x, mask)
+    if case == "empty":
+        assert got == torch.finfo(torch.float32).max
+    else:
+        assert torch.equal(got, torch.median(x[mask]))
+    assert got.shape == () and got.dtype == torch.float32
+
+
 def test_weight_dist_and_t_cycle():
     rng = _rng(6)
     t = rng.normal(size=(6, 3)).astype(np.float32)

@@ -406,3 +406,35 @@ def test_invariant_depth_step_matches_jax_f32():
     _assert_loss_dict(ld_f, ld_u, 2e-3)
     _assert_blocks(g_f, {g_: {k: v.numpy() for k, v in d.items()} for g_, d in g_u.items()}, 5e-2,
                    "invariant routes")
+
+
+def test_adam_step_with_a_device_count_matches_optax():
+    """adam_step (the count a 0-d int64 tensor advanced in place, the rate a
+    0-d float64 tensor, the bias corrections formed on the device) against
+    optax.scale_by_adam over 5 steps, then p - lr * update; the weight-decay
+    path against the gradient plus decay * p fed to the same transform. atol
+    1e-6: the packages round the bias corrections and the update in another
+    order, an ulp or two of lr-sized steps."""
+    import optax
+    from nope_nerf_torch.training.state import adam_step, init_adam
+    rng = np.random.default_rng(4)
+    for decay in (0.0, 0.01):
+        p = {"a": rng.normal(size=(6, 5)).astype(np.float32),
+             "b": rng.normal(size=(7,)).astype(np.float32)}
+        group = {k: torch.from_numpy(v.copy()) for k, v in p.items()}
+        opt = init_adam(group)
+        tx = optax.scale_by_adam()
+        ref = {k: jnp.asarray(v) for k, v in p.items()}
+        state = tx.init(ref)
+        for step in range(5):
+            g = {k: rng.normal(size=v.shape).astype(np.float32) for k, v in p.items()}
+            lr = 1e-3 * (0.5 ** step)
+            adam_step(group, {k: torch.from_numpy(v) for k, v in g.items()}, opt,
+                      torch.tensor(lr, dtype=torch.float64), weight_decay=decay)
+            gj = {k: jnp.asarray(v) + decay * ref[k] for k, v in g.items()}
+            upd, state = tx.update(gj, state, ref)
+            ref = {k: ref[k] - jnp.float32(lr) * upd[k] for k in ref}
+            for k in p:
+                np.testing.assert_allclose(group[k].numpy(), np.asarray(ref[k]), rtol=0,
+                                           atol=1e-6, err_msg=f"step {step} {k}")
+        assert opt.count.dtype == torch.int64 and int(opt.count) == int(state.count) == 5
