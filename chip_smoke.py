@@ -109,12 +109,31 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    replayed ms per step, capture seconds and graph pool MB go on one JSON
    line. `python3 chip_smoke.py --step-graphs` builds the kernels and runs
    this phase alone;
+12. holds the render kernels at every sample count the JAX kernels take
+   (S % 128 == 0), after phase 11: K1 (two flag sets: softplus, relu with
+   dist_alpha) and K4 full and frozen against their plain versions at
+   S = 256, 384, 1024 and 2048, at D = 256 and 128, on 133 rays (no multiple
+   of the SMs), two launches bit-equal; K3 at S = 2048 and 4096; K1 at
+   1024 rays x 2048, its dW operands in chunks of rays within the budget
+   (ops/fused_render.py::render_chunks), bit-equal over two launches and
+   within tolerance of one chunk, with both peaks of device memory; then the
+   default widths with rendering.num_points 512 through the main path, launch
+   counts asserted: the 188x621 train path eager against replayed
+   (torch.equal), 4 invariant-depth steps (K3, K4 full), cli.train,
+   cli.eval's pose optimisation (K4 frozen), cli.render at 188x621; one
+   Trainer.render_frame at 2048 samples (a row against the plain versions)
+   and one 1024 x 2048 train step (K1 in 8 chunks) with its peak memory.
+   `python3 chip_smoke.py --many-samples` builds the kernels and runs this
+   phase alone;
 9. times each path and each kernel at its main path's shapes (CUDA events;
    dw_sm90 also on its own over K1's and K4 full's 11 blocks, beside the
    bytes of the operands those kernels hand it; K2 and K7 through their
    wrappers and as the bare C call, beside their FLOP bound and the issue
-   floor of their hot loop's SASS), prints one `kernels` JSON line and, last,
-   {"ok": true, "device": {...}}.
+   floor of their hot loop's SASS; K1, K4 full and K4 frozen again at the
+   512-sample path's 1024 x 512 and K3 per 188x621 frame at 2048 samples, each
+   held against its plain version at that shape and timed beside its bound,
+   with a `many_samples` JSON line), prints one `kernels` JSON line and,
+   last, {"ok": true, "device": {...}}.
 It exits non-zero, and prints no result, when CUDA is missing, outside a
 checkout, or when any phase fails. It imports nothing of JAX.
 """
@@ -123,6 +142,7 @@ from __future__ import annotations
 
 import copy
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -256,6 +276,16 @@ def grad_share(got, ref, per_sample: bool) -> float:
 
 def max_err(a, b) -> float:
     return float((a - b).abs().max())
+
+
+def held(got: dict, want: dict, per_sample) -> tuple:
+    """(worst absolute error, the block furthest into its tolerance, its share
+    of it, every block's share) of a kernel's gradient blocks against its plain
+    version's, by grad_share; the blocks named in `per_sample` are per ray or
+    per sample."""
+    shares = {k: grad_share(got[k], want[k], k in per_sample) for k in want}
+    k_worst = max(shares, key=shares.get)
+    return max(max_err(got[k], want[k]) for k in want), k_worst, shares[k_worst], shares
 
 
 def time_ms(fn, reps: int) -> float:
@@ -929,10 +959,11 @@ def run_render_path(torch, np, dev, gen):
     pixels = torch.from_numpy(pixel_grid(RESOLUTION)[1]).to(dev)
     ones = torch.ones((n_rays, 1), device=dev)
 
-    def view0_inputs(rows: int):
+    def view0_inputs(rows: int, points: int = 0):
+        rc = dataclasses.replace(rcfg, num_points=points) if points else rcfg
         geo = _ray_geometry(pixels[:rows * w], ones[:rows * w], camera_mat, world_mat, None,
-                            None, rcfg, False)
-        table, z = fused_inputs(geo, rcfg)
+                            None, rc, False)
+        table, z = fused_inputs(geo, rc)
         return table, z, geo["ray_norm"]
 
     table, z, ray_norm = view0_inputs(8)
@@ -1070,8 +1101,9 @@ def counted(fn, expected: dict, what: str):
     name: 0). render_bwd counts both variants of the render-backward kernel,
     render_bwd_frozen those of its frozen-network variant among them;
     point_mlp_bwd and point_mlp_bwd_frozen likewise for K6; dw_sm90 counts
-    the weight-gradient kernel, which K1, K4's full variant and K6's full
-    variant each launch once.
+    the weight-gradient kernel, which K6's full variant launches once and K1
+    and K4's full variant once per chunk of rays (render_chunks), as they
+    launch their own chain kernel.
     Returns (fn's result, counts)."""
     import torch
     libs = kernel_counters()
@@ -2664,6 +2696,328 @@ def run_step_graphs(torch, np, dev, root: str, smi: str) -> None:
     print(f"step-graph phase: {time.perf_counter() - t_phase:.1f} s wall")
 
 
+# ---- phase 12: every sample count the JAX package's render kernels take -------------------
+
+MANY_S = (256, 384, 1024, 2048)   # K1, K4 full and K4 frozen, at both widths
+MANY_S_FWD = (2048, 4096)         # K3; 4096 spills at both widths
+MANY_S_RAYS = 133                 # no multiple of the card's 132 SMs: one CTA takes two rays
+# (occupancy activation, head and renderer dist_alpha, rgb_p, white_bg)
+MANY_FLAGS = (("softplus", False, 1, False), ("relu", True, 2, True))
+PATH_POINTS = 512                 # rendering.num_points of the phase's path
+FRAME_POINTS = 2048               # one frame (K3) and one train step (K1 in 8 chunks)
+GRAPH_STEPS["fused, num_points 512"] = TRAIN_STEPS
+
+
+def many_params(torch, dev, gen, D: int, occ: str, dist_alpha: bool, S: int):
+    """(NerfConfig, seeded params) for a many-samples case. Occupancy without
+    dist_alpha is per sample, not per unit length: its density bias drops by
+    log(S / 128) beside DENSITY_SHIFT, so that transmittance lasts to the last
+    sample at every S."""
+    from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
+    ncfg = NerfConfig(hidden_dim=D, occ_activation=occ, dist_alpha=dist_alpha, use_pallas=True)
+    params = init_nerf_params(ncfg, gen, device=dev)
+    if occ == "softplus" and not dist_alpha:
+        params["density_b"] = params["density_b"] + DENSITY_SHIFT - math.log(S / 128)
+    return ncfg, params
+
+
+def check_many_samples(torch, dev) -> dict:
+    """Phase 12 (a): K1 and K4 (full and frozen) against their plain versions
+    at every S of MANY_S, at D = 256 and 128, over both flag sets of
+    MANY_FLAGS on MANY_S_RAYS rays: two launches bit-equal, the frozen
+    variant's d(rays) and dz equal to the full one's; then K3 at MANY_S_FWD.
+    Fails if any disagrees."""
+    from nope_nerf_torch.ops.fused_render import (
+        _render_bwd_cuda, _train_cuda, render_chunks, render_ray_loss_fused_plain,
+        render_rays_fused, render_rays_fused_bwd_plain, render_rays_fused_plain, unpack_grads)
+    gen = torch.Generator().manual_seed(SEED + 21)
+    failed = []
+
+    def hold(kernel, case, got, want, per_sample):
+        _, k_worst, share, shares = held(got, want, per_sample)
+        if not share <= 1.0:
+            failed.append(f"{kernel}: {k_worst} at {share:.2f} of its tolerance ({case})")
+        return (f"worst {k_worst} at {share:.3f} of its tolerance (rays "
+                f"{shares['rays']:.3f}, z {shares['z']:.3f})")
+
+    def flat(out):
+        return [t for t in (*(out[0] or []), *(out[1] or []), out[2], out[3])]
+
+    for D in (256, 128):
+        for S in MANY_S:
+            rays, z, tgt = train_inputs(torch, dev, gen, MANY_S_RAYS, S)
+            n_chunks = len(render_chunks(MANY_S_RAYS, S, D))
+            for occ, da, rgb_p, white in MANY_FLAGS:
+                ncfg, params = many_params(torch, dev, gen, D, occ, da, S)
+                case = f"D={D} S={S} occ={occ} dist_alpha={da}"
+                a = _train_cuda(params, rays, z, tgt, ncfg, da, rgb_p, white)
+                b = _train_cuda(params, rays, z, tgt, ncfg, da, rgb_p, white)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(
+                        [a[0], *a[1], *a[2], *a[3:]], [b[0], *b[1], *b[2], *b[3:]])):
+                    raise RuntimeError(f"render_train: two launches differ ({case})")
+                r_total, r_sums, r_grads = render_ray_loss_fused_plain(
+                    params, rays, z, tgt, ncfg, da, rgb_p, white)
+                rel = float(((a[0] - r_sums).abs() / r_sums.abs().clamp_min(1e-12)).max())
+                if not rel <= 2e-3:
+                    failed.append(f"render_train: sums rel {rel:.3g} ({case})")
+                got = dict(unpack_grads(a[1], a[2], ncfg), rays=a[3], z=a[4], tgt=a[5])
+                want = dict(r_grads["params"], rays=r_grads["rays"], z=r_grads["z"],
+                            tgt=r_grads["tgt"])
+                text = hold("render_train", case, got, want, ("rays", "z"))
+                print(f"render_train vs plain, {case}, {MANY_S_RAYS} rays in {n_chunks} "
+                      f"chunk(s): sums rel {rel:.3g}, {text}; two launches bit-equal")
+
+                cot = bwd_cotangents(torch, params, rays, z, tgt, ncfg, da, True)
+                a = _render_bwd_cuda(params, rays, z, *cot, ncfg, da)
+                b = _render_bwd_cuda(params, rays, z, *cot, ncfg, da)
+                frozen = _render_bwd_cuda(params, rays, z, *cot, ncfg, da, want_param_grads=False)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(flat(a), flat(b))):
+                    raise RuntimeError(f"render_bwd: two launches differ ({case})")
+                if not (torch.equal(frozen[2], a[2]) and torch.equal(frozen[3], a[3])):
+                    raise RuntimeError(f"render_bwd: the frozen-network variant's d(rays), dz "
+                                       f"differ from the full variant's ({case})")
+                ref = render_rays_fused_bwd_plain(params, rays, z, *cot, ncfg, da)
+                got = dict(unpack_grads(a[0], a[1], ncfg), rays=a[2], z=a[3])
+                want = dict(unpack_grads(ref[0], ref[1], ncfg), rays=ref[2], z=ref[3])
+                text = hold("render_bwd", case, got, want, ("rays", "z"))
+                print(f"render_bwd vs plain, {case}, cotangents rgb,dist,weights,alpha: {text}; "
+                      f"two launches bit-equal; frozen-network variant equal")
+
+    for D in (256, 128):
+        for S in MANY_S_FWD:
+            rays, z, _ = train_inputs(torch, dev, gen, MANY_S_RAYS, S)
+            for occ, da, _, _ in MANY_FLAGS:
+                ncfg, params = many_params(torch, dev, gen, D, occ, da, S)
+                case = f"D={D} S={S} occ={occ} dist_alpha={da}"
+                got = render_rays_fused(params, rays, z, ncfg, da, True)
+                again = render_rays_fused(params, rays, z, ncfg, da, True)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    raise RuntimeError(f"render_fwd: two launches differ ({case})")
+                ref = render_rays_fused_plain(params, rays, z, ncfg, da, True)
+                report = []
+                for name, g, r in zip(("rgb", "dist", "weights", "alpha"), got, ref):
+                    err, tol = max_err(g, r), tolerance(r)
+                    report.append(f"{name} {err:.3g}/{tol:.3g}")
+                    if not err <= tol:
+                        failed.append(f"render_fwd: {name} err {err:.3g} > {tol:.3g} ({case})")
+                print(f"render_fwd vs plain, {case}, {MANY_S_RAYS} rays: " + ", ".join(report)
+                      + "; two launches bit-equal")
+    if failed:
+        raise RuntimeError("many samples: kernels disagree with their plain versions: "
+                           + "; ".join(failed))
+
+
+def check_chunked_train(torch, dev) -> dict:
+    """Phase 12 (b): K1 at 1024 rays x FRAME_POINTS, whose dW operands (20 GB)
+    go in chunks of rays within OPERAND_BUDGET_BYTES, against a second launch
+    (bit-equal) and against the same call with the budget raised to one chunk:
+    per-ray outputs bit-equal, sums and dW/dB within their tolerances. Prints
+    each call's peak device memory."""
+    from nope_nerf_torch.ops import fused_render as F
+    n, S, D = TRAIN_RAYS, FRAME_POINTS, 256
+    gen = torch.Generator().manual_seed(SEED + 22)
+    rays, z, tgt = train_inputs(torch, dev, gen, n, S)
+    ncfg, params = many_params(torch, dev, gen, D, "softplus", False, S)
+
+    def launch():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = F._train_cuda(params, rays, z, tgt, ncfg, False, 1, False)
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    chunks = F.render_chunks(n, S, D)
+    (a, peak_a), launched = counted(launch, {"render_train": len(chunks), "dw_sm90": len(chunks)},
+                                    f"render_train {n} rays x {S} in {len(chunks)} chunks")
+    b, _ = launch()
+    saved = F.OPERAND_BUDGET_BYTES
+    F.OPERAND_BUDGET_BYTES = sum(F.render_operand_bytes(D, n, S))
+    try:
+        one, peak_one = launch()
+    finally:
+        F.OPERAND_BUDGET_BYTES = saved
+
+    def parts(o):
+        return [o[0], *o[1], *o[2], *o[3:]]
+    twice = all(torch.equal(x, y) for x, y in zip(parts(a), parts(b)))
+    per_ray = all(torch.equal(x, y) for x, y in zip(a[3:], one[3:]))
+    rel = float(((a[0] - one[0]).abs() / one[0].abs().clamp_min(1e-12)).max())
+    got = dict(F.unpack_grads(a[1], a[2], ncfg))
+    want = dict(F.unpack_grads(one[1], one[2], ncfg))
+    shares = {k: grad_share(got[k], want[k], False) for k in want}
+    k_worst = max(shares, key=shares.get)
+    print(f"render_train {n} rays x {S} in {len(chunks)} chunks of {chunks[0][1]} rays "
+          f"(operands {sum(F.render_operand_bytes(D, chunks[0][1], S)) / 1e9:.2f} GB a chunk): "
+          f"two launches bit-equal {twice}; against one chunk ({sum(F.render_operand_bytes(D, n, S)) / 1e9:.2f} GB of operands): "
+          f"d(rays), dz, d(tgt) bit-equal {per_ray}, sums rel {rel:.3g}, worst dW/dB block "
+          f"{k_worst} at {shares[k_worst]:.3f} of its tolerance; peak device memory "
+          f"{peak_a / 1e9:.2f} GB chunked, {peak_one / 1e9:.2f} GB in one chunk")
+    if not (twice and per_ray and rel <= 2e-3 and shares[k_worst] <= 1.0 and len(chunks) >= 2):
+        raise RuntimeError("render_train in chunks of rays disagrees with itself or with one chunk")
+    return {"chunks": len(chunks), "peak_gb_chunked": peak_a / 1e9,
+            "peak_gb_one_chunk": peak_one / 1e9}
+
+
+def run_many_samples_path(torch, np, dev) -> dict:
+    """Phase 12 (c): the default configuration's widths with rendering.num_points
+    PATH_POINTS through the main path: the 188x621 train path eager against
+    replayed (K1 at 1024 x 512, the dW kernel, K2), 4 steps with
+    depth_loss_type invariant (K3, K4 full), cli.train and cli.eval with its
+    pose optimisation (K3, K4 frozen) on the built-in scene, cli.render at
+    188x621 (K3); then Trainer.render_frame at 188x621 and one train step of
+    1024 rays, both at FRAME_POINTS (K1 in chunks of rays). Returns the counts
+    and the inputs of the timings."""
+    from nope_nerf_torch.cli.eval import evaluate
+    from nope_nerf_torch.cli.render import load_scene, render
+    from nope_nerf_torch.cli.train import train
+    from nope_nerf_torch.config import DEFAULTS, load_config, update_recursive
+    from nope_nerf_torch.data import SceneData, batch_for_frame, epoch_order, make_synthetic_scene
+    from nope_nerf_torch.geometry.lie import log_so3
+    from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
+    from nope_nerf_torch.ops.fused_render import plain_versions, render_chunks
+    from nope_nerf_torch.training import ModelConfigs, Trainer, create_train_state
+    from nope_nerf_torch.training.checkpoints import save_params
+
+    t_phase = time.perf_counter()
+    h, w = RESOLUTION
+    out = {}
+
+    def train_cfg(points, **training):
+        return load_config(overrides={"training": {"n_training_points": TRAIN_RAYS, **training},
+                                      "rendering": {"num_points": points},
+                                      "pose": {"learn_pose": True, "init_pose": True}})
+
+    # K1 and K4 full launch their chain and dW kernels once per chunk of rays
+    k = len(render_chunks(TRAIN_RAYS, PATH_POINTS, 256))
+    scene = SceneData.from_dict(make_synthetic_scene(n_frames=4, h=h, w=w)).to_device(dev)
+    cfg = train_cfg(PATH_POINTS)
+    mc = ModelConfigs.from_cfg(cfg, num_cams=scene.n_frames)
+    state = create_train_state(SEED, mc, init_c2w=scene.c2ws_gt, device=dev)
+    out["graph"] = graph_train_path(
+        torch, np, dev, "fused, num_points 512", cfg, mc, scene, state,
+        {"render_train": TRAIN_STEPS * k, "chamfer_bidir": TRAIN_STEPS,
+         "dw_sm90": TRAIN_STEPS * k})
+    out["fused_counts"] = out["graph"]["launches_per_step"]
+
+    icfg = train_cfg(PATH_POINTS, depth_loss_type="invariant")
+    imc = ModelConfigs.from_cfg(icfg, num_cams=scene.n_frames)
+    istate = create_train_state(SEED, imc, init_c2w=scene.c2ws_gt, device=dev)
+    order, refs = epoch_order(scene.n_frames, shuffle=True, seed=SEED)
+    (istate, lds), out["invariant_counts"] = counted(
+        lambda: Trainer(icfg, imc).run_steps(istate, scene, order, refs, epoch=0,
+                                             scheduling_start=10000),
+        {"chamfer_bidir": UNFUSED_STEPS, "render_fwd": UNFUSED_STEPS,
+         "render_bwd": UNFUSED_STEPS * k, "dw_sm90": UNFUSED_STEPS * k},
+        f"train path, num_points {PATH_POINTS}, depth_loss_type invariant, {UNFUSED_STEPS} steps")
+    if not all(bool(torch.isfinite(v).all()) for v in lds.values()):
+        raise RuntimeError("many samples: the invariant-depth steps' loss terms are not finite")
+
+    with tempfile.TemporaryDirectory() as root:
+        ccfg = load_config(overrides={
+            "training": {"out_dir": os.path.join(root, "a"), "n_training_points": TRAIN_RAYS,
+                         "vis_geo": False, "print_every": 8, "validate_every": 0,
+                         "checkpoint_every": 8, "visualize_every": 0,
+                         "vis_reprojection_every": 0},
+            "rendering": {"num_points": PATH_POINTS},
+            "pose": {"learn_pose": True, "init_pose": True},
+            "eval_pose": {"opt_pose_epoch": POSE_OPT_EPOCHS, "n_points": TRAIN_RAYS,
+                          "type_to_eval": "eval"}})
+        (tstate, _, _), _ = counted(
+            lambda: train(ccfg, synthetic=True, max_epochs=1, device=dev),
+            {"render_train": 8 * k, "chamfer_bidir": 8, "dw_sm90": 8 * k},
+            f"cli.train, num_points {PATH_POINTS}, 1 epoch of 8 steps")
+        if not os.path.exists(os.path.join(root, "a", "model.ckpt")):
+            raise RuntimeError("many samples: cli.train wrote no checkpoint")
+        if not all(bool(torch.isfinite(v).all()) for v in tstate.params["nerf"].values()):
+            raise RuntimeError("many samples: cli.train left a non-finite parameter")
+        summary, out["eval_counts"] = counted(
+            lambda: evaluate(ccfg, synthetic=True, device=dev, save=False),
+            {"render_fwd": POSE_OPT_EPOCHS + 1, "render_bwd": POSE_OPT_EPOCHS,
+             "render_bwd_frozen": POSE_OPT_EPOCHS},
+            f"cli.eval, num_points {PATH_POINTS}, {POSE_OPT_EPOCHS} pose-opt epochs on 1 view, "
+            f"then its frame")
+        if not all(math.isfinite(summary[k]) for k in ("mean_mse", "mean_psnr", "mean_ssim")):
+            raise RuntimeError("many samples: cli.eval's metrics are not finite")
+        print(f"cli.eval, num_points {PATH_POINTS}: PSNR {summary['mean_psnr']:.3f} SSIM "
+              f"{summary['mean_ssim']:.4f}")
+
+        rcfg = copy.deepcopy(DEFAULTS)
+        update_recursive(rcfg, {"training": {"out_dir": os.path.join(root, "r")},
+                                "rendering": {"num_points": PATH_POINTS},
+                                "extract_images": {"resolution": list(RESOLUTION),
+                                                   "N_novel_imgs": N_VIEWS}})
+        dscene = load_scene("driving")
+        c2ws = torch.as_tensor(dscene.c2ws_gt)
+        nerf = init_nerf_params(NerfConfig.from_cfg(rcfg), torch.Generator().manual_seed(SEED),
+                                device=dev)
+        nerf["density_b"] = nerf["density_b"] + DENSITY_SHIFT
+        save_params(os.path.join(root, "r"), rcfg["extract_images"]["model_file"],
+                    {"nerf": nerf, "pose": {"r": log_so3(c2ws[:, :3, :3]).to(dev),
+                                            "t": c2ws[:, :3, 3].contiguous().to(dev)}})
+        frames, _ = counted(lambda: render(rcfg, synthetic="driving", device=dev, save=False),
+                            {"render_fwd": N_VIEWS},
+                            f"cli.render, num_points {PATH_POINTS}, {N_VIEWS} views at {h}x{w}")
+        for f in frames:
+            if (f["rgb"].shape != (h, w, 3) or not np.isfinite(f["rgb"]).all()
+                    or not np.isfinite(f["depth"]).all()):
+                raise RuntimeError("many samples: cli.render gave a misshapen or non-finite frame")
+
+    # one frame and one train step at FRAME_POINTS, from the 512-sample path's state
+    fcfg = train_cfg(FRAME_POINTS)
+    fmc = ModelConfigs.from_cfg(fcfg, num_cams=scene.n_frames)
+    ftrainer = Trainer(fcfg, fmc)
+    batch = batch_for_frame(scene, 0)
+    frame, out["frame_counts"] = counted(
+        lambda: ftrainer.render_frame(state, batch, RESOLUTION), {"render_fwd": 1},
+        f"Trainer.render_frame {h}x{w}, num_points {FRAME_POINTS}")
+    with plain_versions():
+        row = ftrainer.render_frame(state, batch, RESOLUTION, rows=(0, 1))
+    report = []
+    for name in ("rgb", "depth"):
+        got, ref = (torch.as_tensor(np.asarray(f[name][:1])) for f in (frame, row))
+        err, tol = max_err(got, ref), tolerance(ref)
+        report.append(f"{name} {err:.3g}/{tol:.3g}")
+        if not (np.isfinite(frame[name]).all() and err <= tol):
+            raise RuntimeError(f"many samples: the {FRAME_POINTS}-sample frame's {name} is not "
+                               f"finite or disagrees with the plain versions' row 0")
+    print(f"Trainer.render_frame {h}x{w} at {FRAME_POINTS} samples: finite; row 0 vs plain "
+          "versions " + ", ".join(report))
+    fstate = create_train_state(SEED, fmc, init_c2w=scene.c2ws_gt, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    k = len(render_chunks(TRAIN_RAYS, FRAME_POINTS, 256))
+    (fstate, flds), _ = counted(
+        lambda: ftrainer.run_steps(fstate, scene, order[:1], refs[:1], epoch=0,
+                                   scheduling_start=10000),
+        {"render_train": k, "chamfer_bidir": 1, "dw_sm90": k},
+        f"train step, {TRAIN_RAYS} rays x {FRAME_POINTS}, replayed (capture first)")
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    if not all(bool(torch.isfinite(v).all()) for v in flds.values()):
+        raise RuntimeError(f"many samples: the {FRAME_POINTS}-sample step's loss is not finite")
+    ftrainer.release_graphs()
+    out["step_peak_gb"] = peak
+    print(f"train step {TRAIN_RAYS} rays x {FRAME_POINTS}: K1 in {k} chunks of rays; peak device "
+          f"memory {peak:.2f} GB above the {base / 1e9:.2f} GB held before it (capture pool "
+          f"included); loss {float(flds['loss'][0]):.5g}")
+    print(f"many-samples path: {time.perf_counter() - t_phase:.1f} s wall")
+    return out
+
+
+def run_many_samples(torch, np, dev) -> dict:
+    """Phase 12: (a), (b) and (c) above."""
+    t_phase = time.perf_counter()
+    check_many_samples(torch, dev)
+    out = {"chunked": check_chunked_train(torch, dev)}
+    out.update(run_many_samples_path(torch, np, dev))
+    print(f"many-samples phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2685,9 +3039,10 @@ def main() -> int:
                                                point_dw_table, point_mlp_bwd_plain,
                                                point_mlp_fwd_plain, render_dw_table)
     from nope_nerf_torch.ops.fused_render import (
-        RENDER_BWD, RENDER_BWD_FROZEN, RENDER_FWD, RENDER_TRAIN, _render_bwd_cuda, pack_weights,
-        render_operand_bytes, render_ray_loss_fused, render_ray_loss_fused_plain,
-        render_rays_fused, render_rays_fused_bwd_plain, render_rays_fused_plain)
+        RENDER_BWD, RENDER_BWD_FROZEN, RENDER_FWD, RENDER_TRAIN, _render_bwd_cuda, _train_cuda,
+        pack_weights, render_chunks, render_operand_bytes, render_ray_loss_fused,
+        render_ray_loss_fused_plain, render_rays_fused, render_rays_fused_bwd_plain,
+        render_rays_fused_plain, unpack_grads)
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2713,6 +3068,10 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as disk_root:
             write_disk_scenes(np, disk_root)
             run_step_graphs(torch, np, dev, disk_root, smi)
+        return 0
+    if sys.argv[1:2] == ["--many-samples"]:
+        # phase 12 alone, for work on the sample counts (the full run takes every phase)
+        run_many_samples(torch, np, dev)
         return 0
 
     # ---- 2. each kernel against its plain version ---------------------------
@@ -2764,6 +3123,9 @@ def main() -> int:
 
         # ---- 11. the captured step graphs, fern read from phase 7's scene on disk
         run_step_graphs(torch, np, dev, disk_root, smi)
+
+    # ---- 12. every sample count: the kernels at 256 to 4096 samples, the path at 512
+    many = run_many_samples(torch, np, dev)
 
     # ---- 9. timing at the main paths' shapes ---------------------------------
     h, w = RESOLUTION
@@ -3083,6 +3445,100 @@ def main() -> int:
           f"x2 {2 * k7_ms:.2f} ms = {2 * k7_ms / fern_step_ms:.1%} of it, render_train "
           f"{train_ms / fern_step_ms:.1%}")
 
+    # K1, K4 full and K4 frozen at the 512-sample path's 1024 x 512, K3 per 188x621 frame
+    # at FRAME_POINTS: each bound counted as above, from this run's shapes
+    gen = torch.Generator().manual_seed(SEED + 23)
+    rays5, z5, tgt5 = train_inputs(torch, dev, gen, TRAIN_RAYS, PATH_POINTS)
+    train5_ms = time_ms(lambda: render_ray_loss_fused(tparams, rays5, z5, tgt5, tcfg, False, 1,
+                                                      False), 5)
+    train5_plain_ms = time_ms(lambda: render_ray_loss_fused_plain(tparams, rays5, z5, tgt5, tcfg,
+                                                                  False, 1, False), 1)
+    t5_flops = train_flops(tcfg.hidden_dim, TRAIN_RAYS, PATH_POINTS)
+    t5_bound, t5_by, t5_ops_ms, _ = bound(
+        t5_flops, PEAK_BF16_FLOPS, 2 * numel_bytes([rays5, z5, tgt5]) + weight_bytes + grad_bytes)
+    cot5 = bwd_cotangents(torch, tparams, rays5, z5, tgt5, tcfg, False, False)
+    bwd5_ms = time_ms(lambda: _render_bwd_cuda(tparams, rays5, z5, *cot5, tcfg, False), 5)
+    bwd5_frozen_ms = time_ms(lambda: _render_bwd_cuda(tparams, rays5, z5, *cot5, tcfg, False,
+                                                      want_param_grads=False), 5)
+    bwd5_plain_ms = time_ms(lambda: render_rays_fused_bwd_plain(tparams, rays5, z5, *cot5, tcfg,
+                                                                False), 1)
+    # the three kernels' outputs at this shape against their plain versions, held as
+    # phase 12 holds them (2 chunks of rays for K1 and K4 full)
+    a5 = _train_cuda(tparams, rays5, z5, tgt5, tcfg, False, 1, False)
+    _, r5_sums, r5_grads = render_ray_loss_fused_plain(tparams, rays5, z5, tgt5, tcfg, False, 1,
+                                                       False)
+    rel5 = float(((a5[0] - r5_sums).abs() / r5_sums.abs().clamp_min(1e-12)).max())
+    train5_err, tk5, ts5, _ = held(
+        dict(unpack_grads(a5[1], a5[2], tcfg), rays=a5[3], z=a5[4], tgt=a5[5]),
+        dict(r5_grads["params"], rays=r5_grads["rays"], z=r5_grads["z"], tgt=r5_grads["tgt"]),
+        ("rays", "z"))
+    train5_err = max(train5_err, max_err(a5[0], r5_sums))
+    b5 = _render_bwd_cuda(tparams, rays5, z5, *cot5, tcfg, False)
+    f5 = _render_bwd_cuda(tparams, rays5, z5, *cot5, tcfg, False, want_param_grads=False)
+    ref5 = render_rays_fused_bwd_plain(tparams, rays5, z5, *cot5, tcfg, False)
+    bwd5_err, bk5, bs5, _ = held(dict(unpack_grads(b5[0], b5[1], tcfg), rays=b5[2], z=b5[3]),
+                                 dict(unpack_grads(ref5[0], ref5[1], tcfg), rays=ref5[2],
+                                      z=ref5[3]), ("rays", "z"))
+    frozen5_err, fk5, fs5, _ = held(dict(rays=f5[2], z=f5[3]), dict(rays=ref5[2], z=ref5[3]),
+                                    ("rays", "z"))
+    print(f"at {TRAIN_RAYS} rays x {PATH_POINTS} against the plain versions: render_train sums "
+          f"rel {rel5:.3g}, worst {tk5} at {ts5:.3f} of its tolerance; render_bwd worst {bk5} at "
+          f"{bs5:.3f}; frozen-network variant worst {fk5} at {fs5:.3f}")
+    if not (rel5 <= 2e-3 and max(ts5, bs5, fs5) <= 1.0):
+        raise RuntimeError(f"render_train or render_bwd at {TRAIN_RAYS} x {PATH_POINTS} "
+                           "disagrees with its plain version")
+    del a5, b5, f5, ref5, r5_grads
+    f5_io = numel_bytes([rays5, z5, cot5[0], cot5[1]]) + numel_bytes([rays5, z5]) + weight_bytes
+    f5_bound, f5_by, _, _ = bound(2 * t5_flops / 3, PEAK_BF16_FLOPS, f5_io)
+    b5_bound, b5_by, _, _ = bound(t5_flops, PEAK_BF16_FLOPS, f5_io + grad_bytes)
+    op5_gb = sum(render_operand_bytes(tcfg.hidden_dim, TRAIN_RAYS, PATH_POINTS)) / 1e9
+    chunks5 = len(render_chunks(TRAIN_RAYS, PATH_POINTS, tcfg.hidden_dim))
+    print(f"render_train {TRAIN_RAYS} rays x {PATH_POINTS}: {train5_ms:.3f} ms "
+          f"({t5_flops / train5_ms / 1e9:.1f} TFLOP/s, {train5_ms / t5_bound:.2f} x the bound "
+          f"{t5_bound:.3f} ms by {t5_by}), plain version {train5_plain_ms:.1f} ms; render_bwd "
+          f"full {bwd5_ms:.3f} ms ({bwd5_ms / b5_bound:.2f} x its bound {b5_bound:.3f} ms), "
+          f"frozen-network variant {bwd5_frozen_ms:.3f} ms ({bwd5_frozen_ms / f5_bound:.2f} x its "
+          f"bound {f5_bound:.3f} ms), plain version {bwd5_plain_ms:.1f} ms; {op5_gb:.3f} GB of dW "
+          f"operands in {chunks5} chunks of rays")
+    table16, z16, _ = view0_inputs(h, FRAME_POINTS)
+    fwd16_ms = time_ms(lambda: render_rays_fused(params["nerf"], table16, z16, ncfg,
+                                                 rcfg.dist_alpha, want_aux=False), 2)
+    # the plain version over the same frame in slices of 512 rays (its activations at
+    # 2048 samples would take tens of GB at once), one timed pass after the 128-sample
+    # one, whose rgb and dist the kernel's are held against
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    slices = [render_rays_fused_plain(params["nerf"], table16[i:i + 512], z16[i:i + 512], ncfg,
+                                      rcfg.dist_alpha, want_aux=False)[:2]
+              for i in range(0, n_rays, 512)]
+    end.record()
+    torch.cuda.synchronize()
+    fwd16_plain_ms = start.elapsed_time(end)
+    got16 = render_rays_fused(params["nerf"], table16, z16, ncfg, rcfg.dist_alpha,
+                              want_aux=False)
+    report, fwd16_err = [], 0.0
+    for j, name in enumerate(("rgb", "dist")):
+        ref = torch.cat([sl[j] for sl in slices])
+        err, tol = max_err(got16[j], ref), tolerance(ref)
+        fwd16_err = max(fwd16_err, err)
+        report.append(f"{name} {err:.3g}/{tol:.3g}")
+        if not err <= tol:
+            raise RuntimeError(f"render_fwd over the {FRAME_POINTS}-sample frame: {name} err "
+                               f"{err:.3g} > {tol:.3g} against the plain version")
+    del slices, got16
+    fwd16_flops = mlp_flops(ncfg.hidden_dim, n_rays, FRAME_POINTS)
+    fwd16_bytes = (table16.numel() + z16.numel() + 4 * n_rays) * 4 + numel_bytes(
+        sum(pack_weights(params["nerf"], ncfg), []))
+    fwd16_bound, fwd16_by, _, _ = bound(fwd16_flops, PEAK_BF16_FLOPS, fwd16_bytes)
+    print(f"render_fwd {h}x{w} frame at {FRAME_POINTS} samples: {fwd16_ms:.2f} ms "
+          f"({fwd16_flops / fwd16_ms / 1e9:.1f} TFLOP/s, {fwd16_ms / fwd16_bound:.2f} x the bound "
+          f"{fwd16_bound:.2f} ms by {fwd16_by}), plain version {fwd16_plain_ms:.0f} ms in slices "
+          f"of 512 rays; against it " + ", ".join(report))
+    print(json.dumps({"many_samples": {
+        "card": smi, "chunked_1024x2048": many["chunked"],
+        "step_1024x2048_peak_gb": many["step_peak_gb"],
+        "step_512": {k: many["graph"][k] for k in ("eager_ms", "replay_ms", "pool_mb")}}}))
+
     # DPT and LPIPS are library calls (F.conv2d, matmul), not hand-written kernels
     print(json.dumps({"card": smi, **prep}))
     print(json.dumps({"kernels": [
@@ -3158,7 +3614,38 @@ def main() -> int:
          "launches": disk_counts["chamfer_nearest"], "max_abs_err": nearest_err,
          "ms": nearest_rows["fern"][0], "plain_ms": nearest_rows["fern"][1],
          "bound_ms": nearest_rows["fern"][3], "bound_by": nearest_rows["fern"][4],
-         "library_ms": nearest_rows["fern"][2]}]}))
+         "library_ms": nearest_rows["fern"][2]},
+        # the kernels at more samples, at the 512-sample path's shapes (launches: that
+        # path's replayed steps, its invariant-depth steps, its cli.eval) and K3 per frame at
+        # 2048 samples (launches: the 2048-sample render_frame); max_abs_err against the
+        # plain versions at those shapes
+        {"name": "render_train (1024 x 512)", "route": "cuda",
+         "source": "nope_nerf_torch/csrc/render_train.cu",
+         "replaces": "nope_nerf_tpu/ops/pallas_render.py:605",
+         "launches": round(many["fused_counts"]["render_train"] * TRAIN_STEPS),
+         "max_abs_err": train5_err, "ms": train5_ms,
+         "plain_ms": train5_plain_ms, "bound_ms": t5_bound, "bound_by": t5_by,
+         "library_ms": None},
+        {"name": "render_bwd (1024 x 512)", "route": "cuda",
+         "source": "nope_nerf_torch/csrc/render_bwd.cu",
+         "replaces": "nope_nerf_tpu/ops/pallas_render.py:535",
+         "launches": many["invariant_counts"]["render_bwd"],
+         "max_abs_err": bwd5_err, "ms": bwd5_ms, "plain_ms": bwd5_plain_ms,
+         "bound_ms": b5_bound, "bound_by": b5_by, "library_ms": None},
+        {"name": "render_bwd_frozen (1024 x 512)", "route": "cuda",
+         "source": "nope_nerf_torch/csrc/render_bwd_frozen.cu",
+         "replaces": "nope_nerf_tpu/ops/pallas_render.py:535",
+         "launches": many["eval_counts"]["render_bwd_frozen"],
+         "max_abs_err": frozen5_err, "ms": bwd5_frozen_ms,
+         "plain_ms": bwd5_plain_ms, "bound_ms": f5_bound, "bound_by": f5_by,
+         "library_ms": None},
+        {"name": "render_fwd (188x621 x 2048)", "route": "cuda",
+         "source": "nope_nerf_torch/csrc/render_fwd.cu",
+         "replaces": "nope_nerf_tpu/ops/pallas_render.py:368",
+         "launches": many["frame_counts"]["render_fwd"],
+         "max_abs_err": fwd16_err, "ms": fwd16_ms,
+         "plain_ms": fwd16_plain_ms, "bound_ms": fwd16_bound, "bound_by": fwd16_by,
+         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

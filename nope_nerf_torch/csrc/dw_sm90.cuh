@@ -280,22 +280,24 @@ dw_sm90_kernel(const __grid_constant__ DwTable tab, long long M, float* __restri
   }
 }
 
-// dst of each block = its chunks' partials summed in chunk order.
+// dst of each block = its chunks' partials summed in chunk order; with `add`,
+// that sum added to what dst holds.
 __global__ void dw_reduce_kernel(const __grid_constant__ DwTable tab, int chunks,
-                                 const float* __restrict__ partials) {
+                                 const float* __restrict__ partials, int add) {
   const DwBlock& bk = tab.b[blockIdx.y];
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= static_cast<long long>(bk.K) * bk.N) return;
   float acc = 0.f;
   for (int c = 0; c < chunks; ++c) acc += partials[c * tab.part_total + bk.part + e];
-  bk.dst[e] = acc;
+  bk.dst[e] = add ? bk.dst[e] + acc : acc;
 }
 
 // Checks the table, fills `first` and `part_total`, and launches both
 // kernels on `stream`. partials: chunks x part_total f32 (scratch).
-// 0 < chunks <= the row tiles of M.
+// 0 < chunks <= the row tiles of M. With `add` each dst gets the product
+// added to what it holds.
 inline cudaError_t dw_sm90_launch(DwTable& tab, long long M, int chunks, float* partials,
-                                  cudaStream_t stream) {
+                                  cudaStream_t stream, bool add = false) {
   const long long nt = (M + kPts - 1) / kPts;
   if (M <= 0 || chunks <= 0 || chunks > nt || tab.n <= 0 || tab.n > kDwMaxBlocks)
     return cudaErrorInvalidValue;
@@ -321,7 +323,8 @@ inline cudaError_t dw_sm90_launch(DwTable& tab, long long M, int chunks, float* 
   dw_sm90_kernel<<<dim3(tiles, chunks), kThreads90, kDwSmem, stream>>>(tab, M, partials);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dw_reduce_kernel<<<dim3((max_kn + 255) / 256, tab.n), 256, 0, stream>>>(tab, chunks, partials);
+  dw_reduce_kernel<<<dim3((max_kn + 255) / 256, tab.n), 256, 0, stream>>>(tab, chunks, partials,
+                                                                           add ? 1 : 0);
   return cudaGetLastError();
 }
 

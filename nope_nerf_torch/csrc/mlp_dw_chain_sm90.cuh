@@ -294,21 +294,23 @@ __device__ __forceinline__ void dx_chain_full(float (&dpe)[32], unsigned char* a
 }
 
 // grads' dW[9] and floats from..from+seg-D = the chain's segments summed in
-// order (CTA, then warpgroup).
+// order (CTA, then warpgroup); with `add`, that sum added to what they hold
+// (the render kernels' later chunks of rays).
 __global__ void chain_reduce_kernel(const float* __restrict__ part, float* __restrict__ grads,
-                                    int seg, int n_seg, int D, int from) {
+                                    int seg, int n_seg, int D, int from, int add) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= seg) return;
   float acc = 0.f;
   for (int s = 0; s < n_seg; ++s) acc += part[static_cast<size_t>(s) * seg + e];
   const GradLayout lay = grad_layout(D);
-  grads[e < D ? lay.w[9] + e : from + (e - D)] = acc;
+  float* dst = grads + (e < D ? lay.w[9] + e : from + (e - D));
+  *dst = add ? *dst + acc : acc;
 }
 
 inline cudaError_t chain_reduce_launch(const float* part, float* grads, int seg, int n_ctas,
-                                       int D, int from, cudaStream_t stream) {
+                                       int D, int from, cudaStream_t stream, bool add = false) {
   chain_reduce_kernel<<<(seg + 255) / 256, 256, 0, stream>>>(part, grads, seg, 2 * n_ctas, D,
-                                                              from);
+                                                              from, add ? 1 : 0);
   return cudaGetLastError();
 }
 

@@ -63,12 +63,16 @@
 //     traffic a tile. (The full kernels read it back from its G operand.)
 //     (Keeping g4 as wgmma A fragments in registers would take 64 registers
 //     a thread beside the 128 of the accumulator.)
-// (b) S = 256 in K4: the composite backward needs the head outputs of the
-//     whole ray before any tile's MLP backward, and the masks of two tiles
-//     (68 KB) do not fit beside the ring. The ray's forward runs once over
-//     every tile for the head outputs and again per tile, before that tile's
-//     backward, for its masks; with one tile (S = 128, the pose-opt path)
-//     the masks of the first forward serve and nothing runs twice.
+// (b) S > 128 in K1 and K4: the composite backward needs the head outputs of
+//     the whole ray before any tile's MLP backward, and the masks of two
+//     tiles (68 KB) do not fit beside the ring. The ray's forward runs once
+//     over every tile for the head outputs and again per tile, before that
+//     tile's backward, for its masks; with one tile (S = 128, the pose-opt
+//     path) the masks of the first forward serve and nothing runs twice. A
+//     ray's per-sample f32 arrays (11 floats a sample of its own, 5 of the
+//     composite's) stay in shared memory while they fit and go to a per-CTA
+//     scratch in device memory past that (mlp_fwd_sm90.cuh's RayPlace), so
+//     S is bounded by nothing but S % 128 == 0.
 //
 // Shared memory at D=256: mlp_fwd_sm90.cuh's Layout90 (activations and
 // cotangents 64 KB, position encodings 16 KB, +16 KB of directions in K6,
@@ -79,7 +83,7 @@
 #pragma once
 
 #include "mlp_fwd_sm90.cuh"
-#include "nerf_bwd.cuh"   // bf16_round, enc_lane_grad, kMaxTrainS
+#include "nerf_bwd.cuh"   // bf16_round, enc_lane_grad
 
 namespace {
 
@@ -584,6 +588,12 @@ __device__ __forceinline__ void block_sum90(float (&part)[N], float* red) {
 // ---- the render's per-ray pieces: K4's frozen variant (render_bwd_frozen.cu)
 // and the kernels with weight gradients (render_full_sm90.cuh) --------------
 
+// A ray's per-sample f32 arrays in those kernels (RayPlace): its own, z (S),
+// the raw heads (4S), graw (S), grgb (4S) and gz (S); the composite's,
+// alpha, weights, transmittance and the two scan buffers (S each).
+constexpr int kRaySampleF32 = 11;
+constexpr int kRayCompositeF32 = 5;
+
 // render_fwd.cu's alpha_and_prefix90 over the consumer threads: alpha, then
 // the f32 exclusive Hillis-Steele prefix sum of log(1 - alpha + eps).
 // Returns the buffer holding the prefix sums.
@@ -629,7 +639,7 @@ __device__ __forceinline__ void stage_w12(unsigned char* dst, const unsigned cha
 // The producer warpgroup of a render backward kernel (persistent CTA,
 // rays blockIdx.x, blockIdx.x + gridDim.x, ...): its first thread loads the
 // heads and streams, per ray, the forward slices of its S/128 tiles, then per
-// tile (after a second forward for its masks when S = 256) the backward's;
+// tile (after a second forward for its masks when S > 128) the backward's;
 // warps 1..3 encode every forward tile's sample positions in the consumers'
 // order, o + v*z by explicitly rounded mul and add.
 template <int D>

@@ -494,6 +494,62 @@ struct Layout90 {
   __host__ __device__ size_t bytes(size_t f32_bytes) const { return f32 + f32_bytes + 1024; }
 };
 
+// Where a render kernel (render_fwd.cu, render_bwd_frozen.cu,
+// render_full_sm90.cuh) keeps a ray's per-sample f32 arrays. Its own arrays
+// (z, the raw heads, ...: `sample_floats` a sample) stay in the kernel's
+// shared f32 area, before its fixed arrays, while they fit there beside two
+// ring stages; the composite's (alpha, the scan buffers, ...:
+// `composite_floats` a sample) borrow `room` bytes of the activation buffer
+// while they fit. Past that, each set goes to the CTA's share of a scratch in
+// device memory, which L1 and the 50 MB L2 keep close: at S = 2048 and 64 B a
+// sample, 17 MB over 132 CTAs. The same threads read and write every array
+// in the same order wherever it lives, so a ray's results do not depend on
+// the place. The kernels find the arrays through ray_arrays at run time;
+// render_bwd_frozen.cu alone is built twice (SPILL), with plain shared-memory
+// addresses for the sizes where both sets fit, which keeps its register
+// allocation, and so its time, at those sizes.
+struct RayPlace {
+  int samples_smem, composite_smem, sample_floats, composite_floats;
+  __host__ __device__ long long spill_floats(int S) const {
+    return static_cast<long long>(S) *
+           ((samples_smem ? 0 : sample_floats) + (composite_smem ? 0 : composite_floats));
+  }
+  __host__ __device__ bool spills(int S) const { return spill_floats(S) > 0; }
+  // The kernel's shared f32 area: `fixed` bytes, and the sample arrays where they fit.
+  __host__ __device__ size_t area(size_t fixed, int S) const {
+    return fixed + (samples_smem ? sizeof(float) * sample_floats * static_cast<size_t>(S) : 0);
+  }
+};
+
+template <int D>
+RayPlace ray_place(int S, int sample_floats, int composite_floats, size_t fixed, size_t room) {
+  RayPlace p{1, 1, sample_floats, composite_floats};
+  p.samples_smem = Layout90<D>(false, p.area(fixed, S)).stages >= 2;
+  p.composite_smem = sizeof(float) * composite_floats * static_cast<size_t>(S) <= room;
+  return p;
+}
+
+// The ray's arrays: `samples` (sample_floats S floats, then the fixed arrays
+// at `fixed`) and `composite` (composite_floats S), from the kernel's shared
+// f32 area `f32`, the activation buffer's free room and its CTA's share of
+// `spill`.
+struct RayArrays {
+  float* samples;
+  float* fixed;
+  float* composite;
+};
+
+__device__ __forceinline__ RayArrays ray_arrays(const RayPlace& p, int S, float* f32, float* room,
+                                                float* spill) {
+  float* own = spill + static_cast<long long>(blockIdx.x) * p.spill_floats(S);
+  RayArrays a;
+  a.samples = p.samples_smem ? f32 : own;
+  a.fixed = p.samples_smem ? f32 + static_cast<size_t>(p.sample_floats) * S : f32;
+  a.composite = p.composite_smem ? room
+                                 : own + (p.samples_smem ? 0 : static_cast<size_t>(p.sample_floats) * S);
+  return a;
+}
+
 // Set up the CTA: align the dynamic shared memory, initialise the barriers
 // (full: one arrival plus the bytes; empty: one arrival per consumer warp;
 // the heads'; the Handoff's). Returns the aligned base. Ends synchronised.

@@ -8,8 +8,6 @@
 
 namespace {
 
-constexpr int kMaxTrainS = 256;         // shared-memory limit on S of the render backward kernels
-
 // Offsets (in floats) of every block of the gradient buffer: 14 dW stored
 // (in, out) with the heads' live columns only, 12 dB, then the 3 loss sums
 // (the train kernel's; the other kernels leave them unused).

@@ -27,28 +27,29 @@ extern "C" int nerf_bwd_grad_layout(int D, int* offsets) {
   return render_grad_layout(D, offsets, false);
 }
 
-// Bytes of nerf_render_bwd's scratch buffers into sizes[0..4], as
+// Bytes of nerf_render_bwd's scratch buffers into sizes[0..5], as
 // nerf_render_train_scratch gives them for the train kernel.
-extern "C" int nerf_render_bwd_scratch(int D, long long n_rays, int S, int n_ctas,
+extern "C" int nerf_render_bwd_scratch(int D, long long chunk_rays, int S, int n_ctas,
                                        long long* sizes) {
-  return static_cast<int>(render_full_scratch(D, n_rays, S, n_ctas, sizes));
+  return static_cast<int>(render_full_scratch(D, chunk_rays, S, n_ctas, sizes));
 }
 
 // rays (n_rays, 9) f32 [origin | ray_vec | mlp_dir], z (n_rays, S) f32, g_rgb
 // (n_rays, 3), g_dist (n_rays) f32, contiguous on the device; g_w, g_a
 // (n_rays, S) f32 or null (a zero cotangent); tiles, tiles_dx, biases, the
-// scratch, grads, drays and dz as nerf_render_train's. Returns a cudaError_t
-// (0 on success); the launches are asynchronous on `stream`.
+// scratch, grads, drays, dz and the chunks of rays as nerf_render_train's.
+// Returns a cudaError_t (0 on success); the launches are asynchronous on
+// `stream`.
 extern "C" int nerf_render_bwd(const float* rays, const float* z, const float* g_rgb,
                                const float* g_dist, const float* g_w, const float* g_a,
                                const void* tiles, const void* tiles_dx,
                                const void* const* biases, void* xops, void* gops,
-                               float* chain_part, float* dw_part, float* grads, float* drays,
-                               float* dz, int n_rays, int S, int D, int n_ctas, int chunks,
-                               int occ_softplus, int head_dist_alpha, int dist_alpha, int total,
-                               void* stream) {
-  cudaError_t err = render_full_check(n_rays, S, D, n_ctas, chunks, total, tiles, tiles_dx, xops,
-                                      gops);
+                               float* chain_part, float* dw_part, float* spill, float* grads,
+                               float* drays, float* dz, int n_rays, int chunk_rays, int S, int D,
+                               int n_ctas, int chunks, int occ_softplus, int head_dist_alpha,
+                               int dist_alpha, int total, void* stream) {
+  cudaError_t err = render_full_check(n_rays, chunk_rays, S, D, n_ctas, chunks, total, tiles,
+                                      tiles_dx, xops, gops);
   if (err != cudaSuccess) return static_cast<int>(err);
   Biases bias;
   for (int i = 0; i < 12; ++i) bias.b[i] = static_cast<const float*>(biases[i]);
@@ -61,9 +62,11 @@ extern "C" int nerf_render_bwd(const float* rays, const float* z, const float* g
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   err = D == 256
       ? render_full_launch<256, false>(rays, z, cin, w, wdx, bias, xo, go, chain_part, dw_part,
-                                       grads, drays, dz, n_rays, S, n_ctas, chunks, fl, st)
+                                       spill, grads, drays, dz, n_rays, chunk_rays, S, n_ctas,
+                                       chunks, fl, st)
       : render_full_launch<128, false>(rays, z, cin, w, wdx, bias, xo, go, chain_part, dw_part,
-                                       grads, drays, dz, n_rays, S, n_ctas, chunks, fl, st);
+                                       spill, grads, drays, dz, n_rays, chunk_rays, S, n_ctas,
+                                       chunks, fl, st);
   return static_cast<int>(err);
 }
 

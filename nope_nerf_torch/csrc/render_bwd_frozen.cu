@@ -23,8 +23,8 @@
 // Design: persistent CTAs, one per SM, walk over the rays blockIdx.x,
 // blockIdx.x + gridDim.x, ...; per ray the S/128 tiles go through the
 // forward on the wgmma trunk (masks kept), then the composite forward and
-// backward run over the ray in shared memory, then each tile goes back
-// through the dX chain (after a second forward for its masks when S = 256).
+// backward run over the ray, then each tile goes back through the dX chain
+// (after a second forward for its masks when the ray has more than one).
 // The producer warpgroup streams the forward and backward weight slices in
 // that order and encodes every tile's sample positions ahead of the
 // consumers. The per-ray sums (d_o, d_v, the direction's) are taken over the
@@ -35,32 +35,45 @@
 // position encodings 16 KB, heads 6 KB, masks 34 KB, f32 arrays 8.3 KB
 // (alpha, weights, transmittance and the two scan buffers borrow the
 // activation buffer between the forward and the backward), three 32 KB ring
-// stages.
+// stages. Any S % 128 == 0 runs: above S = 896 at D = 256 (2,816 at
+// D = 128) the per-sample arrays, and above S = 3,200 (1,536) the
+// composite's, go to the CTA's share of a scratch in device memory
+// (mlp_fwd_sm90.cuh's RayPlace).
 
 #include "mlp_dx_sm90.cuh"
 
 namespace {
 
-// f32 arrays: z (S), heads (4S), graw (S), grgb (4S), gz (S), direction
-// encoding (32), rgb-hidden bias (D/2), ghsum (D/2), reduction scratch
-// (kConsumers), the ray (16), rsum (16), the tile's bf16 graw (128), the
-// ray's cotangents (16).
+// Shared bytes beside the per-sample arrays (z (S), heads (4S), graw (S),
+// grgb (4S), gz (S)): the masks, then the direction encoding (32), the
+// rgb-hidden bias (D/2), ghsum (D/2), reduction scratch (kConsumers), the
+// ray (16), rsum (16), the tile's bf16 graw (128), the ray's cotangents (16).
 template <int D>
-size_t frozen_f32_bytes(int S) {
-  return sizeof(float) * (11 * static_cast<size_t>(S) + kDe + D / 2 + D / 2 + kConsumers + 16 +
-                          16 + kPts + 16);
+size_t frozen_fixed_bytes() {
+  return mask_bytes<D>() +
+         sizeof(float) * (kDe + D / 2 + D / 2 + kConsumers + 16 + 16 + kPts + 16);
 }
 
+// The composite's five arrays (alpha, weights, transmittance, two scan
+// buffers) borrow the whole activation buffer.
 template <int D>
+RayPlace frozen_place(int S) {
+  return ray_place<D>(S, kRaySampleF32, kRayCompositeF32, frozen_fixed_bytes<D>(), kPts * D * 2);
+}
+
+// Built twice: SPILL false for the sizes where the ray's arrays fit in shared
+// memory (plain addresses, the register allocation those sizes were tuned
+// with), SPILL true past them (the addresses from ray_arrays).
+template <int D, bool SPILL>
 __global__ void __launch_bounds__(kThreads90, 1)
 render_bwd_frozen_kernel(const float* __restrict__ rays, const float* __restrict__ z,
                          const float* __restrict__ g_rgb, const float* __restrict__ g_dist,
                          const float* __restrict__ g_w, const float* __restrict__ g_a,
                          const unsigned char* __restrict__ tiles,
                          const unsigned char* __restrict__ tiles_dx, Biases bias,
-                         unsigned char* scratch, float* __restrict__ drays,
+                         unsigned char* scratch, float* spill, float* __restrict__ drays,
                          float* __restrict__ dz, int n_rays, int S, int occ_softplus,
-                         int head_dist_alpha, int dist_alpha, Layout90<D> L) {
+                         int head_dist_alpha, int dist_alpha, Layout90<D> L, RayPlace place) {
   using T = Tiles<D>;
   constexpr int H = D / 2;
   extern __shared__ unsigned char smem_raw[];
@@ -80,12 +93,15 @@ render_bwd_frozen_kernel(const float* __restrict__ rays, const float* __restrict
   }
   set_consumer_regs();
 
-  float* fz = reinterpret_cast<float*>(base + L.f32 + mask_bytes<D>());   // z     (S)
+  float* const f32 = reinterpret_cast<float*>(base + L.f32 + mask_bytes<D>());
+  float* const act = reinterpret_cast<float*>(base + L.act);
+  const RayArrays arr = ray_arrays(place, S, f32, act, spill);   // read with SPILL only
+  float* fz = SPILL ? arr.samples : f32;                // z                      (S)
   float* hout = fz + S;                                 // rgb | raw density      (S,4)
   float* graw = hout + 4 * S;                           // raw-density cotangent  (S)
   float* grgb = graw + S;                               // raw-rgb cotangent      (S,4)
   float* gz = grgb + 4 * S;                             // dz                     (S)
-  float* de = gz + S;                                   // direction encoding     (32)
+  float* de = SPILL ? arr.fixed : gz + S;               // direction encoding     (32)
   float* debias = de + kDe;                             // rgb-hidden bias        (D/2)
   float* ghsum = debias + H;                            // sum of bf16 g_h        (D/2)
   float* red = ghsum + H;                               // scratch                (256)
@@ -95,7 +111,7 @@ render_bwd_frozen_kernel(const float* __restrict__ rays, const float* __restrict
   float* cot = gsbf + kPts;                             // g_rgb (0-2), g_dist    (16)
   // between the forward and the backward: alpha, weights, transmittance and
   // the scan buffers (S each) in the activation buffer
-  float* alpha = reinterpret_cast<float*>(base + L.act);
+  float* alpha = SPILL ? arr.composite : act;
   float* wts = alpha + S;
   float* trans = wts + S;
   float* scan0 = trans + S;
@@ -176,20 +192,24 @@ template <int D>
 cudaError_t launch_frozen(const float* rays, const float* z, const float* g_rgb,
                           const float* g_dist, const float* g_w, const float* g_a,
                           const unsigned char* tiles, const unsigned char* tiles_dx,
-                          const Biases& bias, unsigned char* scratch, float* drays, float* dz,
-                          int n_rays, int S, int n_ctas, int occ_softplus, int head_dist_alpha,
-                          int dist_alpha, cudaStream_t stream) {
-  const size_t area = mask_bytes<D>() + frozen_f32_bytes<D>(S);   // masks, then the f32 arrays
+                          const Biases& bias, unsigned char* scratch, float* spill, float* drays,
+                          float* dz, int n_rays, int S, int n_ctas, int occ_softplus,
+                          int head_dist_alpha, int dist_alpha, cudaStream_t stream) {
+  const RayPlace place = frozen_place<D>(S);
+  const size_t area = place.area(frozen_fixed_bytes<D>(), S);   // masks, then the f32 arrays
   const Layout90<D> L(false, area);
   if (L.stages < 2) return cudaErrorInvalidValue;
+  if (place.spill_floats(S) > 0 && spill == nullptr) return cudaErrorInvalidValue;
   const size_t smem = L.bytes(area);
-  cudaError_t err = cudaFuncSetAttribute(render_bwd_frozen_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto* kernel = place.spills(S) ? render_bwd_frozen_kernel<D, true>
+                                 : render_bwd_frozen_kernel<D, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  render_bwd_frozen_kernel<D><<<n_ctas, kThreads90, smem, stream>>>(
-      rays, z, g_rgb, g_dist, g_w, g_a, tiles, tiles_dx, bias, scratch, drays, dz, n_rays, S,
-      occ_softplus, head_dist_alpha, dist_alpha, L);
+  kernel<<<n_ctas, kThreads90, smem, stream>>>(rays, z, g_rgb, g_dist, g_w, g_a, tiles, tiles_dx,
+                                               bias, scratch, spill, drays, dz, n_rays, S,
+                                               occ_softplus, head_dist_alpha, dist_alpha, L,
+                                               place);
   return cudaGetLastError();
 }
 
@@ -201,19 +221,20 @@ cudaError_t launch_frozen(const float* rays, const float* z, const float* g_rgb,
 // (n_rays, S) f32 or null (a zero cotangent); tiles: pack_tiles' forward
 // weight buffer, tiles_dx: pack_tiles_dx's backward buffer (both 16-byte
 // aligned); biases: 12 f32 device pointers in pack_weights' order. scratch:
-// n_ctas x 128 x D bf16 (the chain's parked g4). drays (n_rays, 9), dz
-// (n_rays, S) f32 (out). 0 < n_ctas <= n_rays. Returns a cudaError_t (0 on
-// success); the launch is asynchronous on `stream`.
+// n_ctas x 128 x D bf16 (the chain's parked g4); spill: the bytes
+// nerf_render_bwd_frozen_spill gives (null where it gives 0). drays
+// (n_rays, 9), dz (n_rays, S) f32 (out). 0 < n_ctas <= n_rays. Returns a
+// cudaError_t (0 on success); the launch is asynchronous on `stream`.
 extern "C" int nerf_render_bwd_frozen(const float* rays, const float* z, const float* g_rgb,
                                       const float* g_dist, const float* g_w, const float* g_a,
                                       const void* tiles, const void* tiles_dx,
-                                      const void* const* biases, void* scratch, float* drays,
-                                      float* dz, int n_rays, int S, int D, int n_ctas,
+                                      const void* const* biases, void* scratch, float* spill,
+                                      float* drays, float* dz, int n_rays, int S, int D, int n_ctas,
                                       int occ_softplus, int head_dist_alpha, int dist_alpha,
                                       void* stream) {
   if (n_rays <= 0 || n_ctas <= 0 || n_ctas > n_rays)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (S <= 0 || S % kPts != 0 || S > kMaxTrainS) return static_cast<int>(cudaErrorInvalidValue);
+  if (S <= 0 || S % kPts != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(tiles) % 16 != 0 || reinterpret_cast<uintptr_t>(tiles_dx) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Biases bias;
@@ -225,17 +246,34 @@ extern "C" int nerf_render_bwd_frozen(const float* rays, const float* z, const f
   cudaError_t err;
   switch (D) {
     case 256:
-      err = launch_frozen<256>(rays, z, g_rgb, g_dist, g_w, g_a, w, wdx, bias, sc, drays, dz,
-                               n_rays, S, n_ctas, occ_softplus, head_dist_alpha, dist_alpha, st);
+      err = launch_frozen<256>(rays, z, g_rgb, g_dist, g_w, g_a, w, wdx, bias, sc, spill, drays,
+                               dz, n_rays, S, n_ctas, occ_softplus, head_dist_alpha, dist_alpha,
+                               st);
       break;
     case 128:
-      err = launch_frozen<128>(rays, z, g_rgb, g_dist, g_w, g_a, w, wdx, bias, sc, drays, dz,
-                               n_rays, S, n_ctas, occ_softplus, head_dist_alpha, dist_alpha, st);
+      err = launch_frozen<128>(rays, z, g_rgb, g_dist, g_w, g_a, w, wdx, bias, sc, spill, drays,
+                               dz, n_rays, S, n_ctas, occ_softplus, head_dist_alpha, dist_alpha,
+                               st);
       break;
     default:
       err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// Bytes of nerf_render_bwd_frozen's spill scratch for S samples at width D
+// over n_ctas CTAs (0 where every per-sample array fits in shared memory:
+// every S <= 896 at D = 256); -1 for a width or an S the kernel does not take.
+extern "C" long long nerf_render_bwd_frozen_spill(int S, int D, int n_ctas) {
+  if (S <= 0 || S % kPts != 0 || n_ctas <= 0) return -1;
+  long long per_cta;
+  if (D == 256)
+    per_cta = frozen_place<256>(S).spill_floats(S);
+  else if (D == 128)
+    per_cta = frozen_place<128>(S).spill_floats(S);
+  else
+    return -1;
+  return static_cast<long long>(sizeof(float)) * per_cta * n_ctas;
 }
 
 extern "C" const char* nerf_error_string(int code) {

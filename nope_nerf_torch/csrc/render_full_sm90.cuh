@@ -29,12 +29,11 @@
 // of G a sample at D = 256, written once and read once) are the kernels'
 // own choice and stay out of the bound.
 //
-// Design, three launches on one stream (render_full_launch):
+// Design, three launches on one stream per chunk of rays (render_full_launch):
 // 1. The chain: render_bwd_frozen.cu's kernel (persistent CTAs over rays;
 //    per ray the S/128 tiles through the wgmma forward, the composite
-//    forward and backward over the ray in shared memory, each tile back
-//    through the dX chain, after a second forward for its masks when
-//    S = 256), which also
+//    forward and backward over the ray, each tile back through the dX
+//    chain, after a second forward for its masks when S > 128), which also
 //    - saves the X operands pe, x0..x7, feat of each tile through the
 //      forward's save hook, in the forward whose masks the dX chain uses, so
 //      each tile's operands are written once (row tile r S/128 + p of every
@@ -49,6 +48,13 @@
 // 2. The chain's partials summed in CTA, then warpgroup, order.
 // 3. dw_sm90.cuh on the 11-block table (mlp_dw_chain_sm90.cuh's
 //    chain_dw_table without its direction block) over the N S samples.
+// The operands take 9,600 B a sample at D = 256 (4,864 at D = 128): 5 GB for
+// 1024 rays x 512 samples, 20 GB at 2048. So the rays go in consecutive
+// chunks whose operands stay within a budget the caller sets
+// (ops/fused_render.py::render_chunks: 2.52 GB, 1024 rays x 256 samples at
+// D = 256, so that every call up to that size is one chunk), each chunk
+// through the three launches on the same scratch; each chunk's dW and dB
+// (and K1's loss sums) are added into the gradient buffer in chunk order.
 // No float atomics: two launches give the same bits. K4 fed K1's own
 // cotangents runs the same arithmetic and reproduces K1's gradients bit for
 // bit, and K4's d(rays) and dz are the frozen variant's bit for bit (the
@@ -57,7 +63,10 @@
 // Shared memory at D=256: the frozen variant's (activations 64 KB, position
 // encodings 16 KB, heads 6 KB, masks 34 KB) with f32 arrays of 15 KB (S=128)
 // or 21 KB (S=256), 8 KB of them the per-warp bias sums, and two 32 KB ring
-// stages.
+// stages. Any S % 128 == 0 runs: above S = 640 at D = 256 (2,688 at
+// D = 128) the per-sample arrays, and above S = 1,536 (768) the
+// composite's, go to the CTA's share of a scratch in device memory
+// (mlp_fwd_sm90.cuh's RayPlace).
 
 #pragma once
 
@@ -93,14 +102,22 @@ __host__ __device__ constexpr int full_red_floats() {
   return 8 * D > 5 * kConsumers ? 8 * D : 5 * kConsumers;
 }
 
-// f32 arrays: z (S), heads (4S), graw (S), grgb (4S), gz (S), direction
-// encoding (32), rgb-hidden bias (D/2), ghsum (D/2), reduction scratch, the
-// ray (16), rsum (16), the tile's bf16 graw (128), the ray's cotangents and
-// the CTA's loss sums (16).
+// Shared bytes beside the per-sample arrays (z (S), heads (4S), graw (S),
+// grgb (4S), gz (S)): the masks, then the direction encoding (32), the
+// rgb-hidden bias (D/2), ghsum (D/2), reduction scratch, the ray (16), rsum
+// (16), the tile's bf16 graw (128), the ray's cotangents and the CTA's loss
+// sums (16).
 template <int D>
-size_t render_full_f32_bytes(int S) {
-  return sizeof(float) * (11 * static_cast<size_t>(S) + kDe + D / 2 + D / 2 +
-                          full_red_floats<D>() + 16 + 16 + kPts + 16);
+size_t render_full_fixed_bytes() {
+  return mask_bytes<D>() + sizeof(float) * (kDe + D / 2 + D / 2 + full_red_floats<D>() + 16 +
+                                            16 + kPts + 16);
+}
+
+// The composite's five arrays borrow the activation buffer's blocks past h.
+template <int D>
+RayPlace full_place(int S) {
+  return ray_place<D>(S, kRaySampleF32, kRayCompositeF32, render_full_fixed_bytes<D>(),
+                      kPts * D * 2 - (D / 128) * kBlockBytes);
 }
 
 // The render kernels' chain segment: dW[9], then dW[12] .. the loss sums.
@@ -114,8 +131,9 @@ __global__ void __launch_bounds__(kThreads90, 1)
 render_full_kernel(const float* __restrict__ rays, const float* __restrict__ z, RayCotangents cin,
                    const unsigned char* __restrict__ tiles,
                    const unsigned char* __restrict__ tiles_dx, Biases bias, unsigned char* xops,
-                   unsigned char* gops, float* chain_part, float* __restrict__ drays,
-                   float* __restrict__ dz, int n_rays, int S, RenderFlags fl, Layout90<D> L) {
+                   unsigned char* gops, float* chain_part, float* spill,
+                   float* __restrict__ drays, float* __restrict__ dz, int n_rays, int S,
+                   RenderFlags fl, Layout90<D> L, RayPlace place) {
   using T = Tiles<D>;
   constexpr int H = D / 2;
   extern __shared__ unsigned char smem_raw[];
@@ -137,12 +155,15 @@ render_full_kernel(const float* __restrict__ rays, const float* __restrict__ z, 
 
   const GradLayout lay = grad_layout(D);
   const int seg = render_seg(D);
-  float* fz = reinterpret_cast<float*>(base + L.f32 + mask_bytes<D>());   // z     (S)
+  float* const f32 = reinterpret_cast<float*>(base + L.f32 + mask_bytes<D>());
+  float* const past_h = reinterpret_cast<float*>(base + L.act + (H / 64) * kBlockBytes);
+  const RayArrays arr = ray_arrays(place, S, f32, past_h, spill);
+  float* fz = arr.samples;                              // z                      (S)
   float* hout = fz + S;                                 // rgb | raw density      (S,4)
   float* graw = hout + 4 * S;                           // raw-density cotangent  (S)
   float* grgb = graw + S;                               // raw-rgb cotangent      (S,4)
   float* gz = grgb + 4 * S;                             // dz                     (S)
-  float* de = gz + S;                                   // direction encoding     (32)
+  float* de = arr.fixed;                                // direction encoding     (32)
   float* debias = de + kDe;                             // rgb-hidden bias        (D/2)
   float* ghsum = debias + H;                            // sum of bf16 g_h        (D/2)
   float* red = ghsum + H;                               // scratch
@@ -153,7 +174,7 @@ render_full_kernel(const float* __restrict__ rays, const float* __restrict__ z, 
   // between the forward and the backward: alpha, weights, transmittance and
   // the scan buffers (S each) in the activation buffer's blocks past h, which
   // the rgb head's backward reads when S = 128
-  float* alpha = reinterpret_cast<float*>(base + L.act + (H / 64) * kBlockBytes);
+  float* alpha = arr.composite;
   float* wts = alpha + S;
   float* trans = wts + S;
   float* scan0 = trans + S;
@@ -297,59 +318,96 @@ render_full_kernel(const float* __restrict__ rays, const float* __restrict__ z, 
   bulk_complete();   // every bulk copy of the CTA's operands, before it exits
 }
 
-// Bytes of the scratch of render_full_launch into sizes[0..3] (the X and G
-// operands, the chain's partial sums, the dW kernel's partials per chunk of
-// samples) and the dW kernel's CTA tiles into sizes[4].
-inline cudaError_t render_full_scratch(int D, long long n_rays, int S, int n_ctas,
+// Bytes of the scratch of render_full_launch for chunks of chunk_rays rays
+// into sizes[0..3] (the X and G operands of one chunk, the chain's partial
+// sums, the dW kernel's partials per chunk of samples), the dW kernel's CTA
+// tiles into sizes[4] and the per-sample arrays' spill (n_ctas CTAs) into
+// sizes[5].
+inline cudaError_t render_full_scratch(int D, long long chunk_rays, int S, int n_ctas,
                                        long long* sizes) {
-  const long long n_pass = n_rays * (S / kPts);
-  if (D == 256)
+  const long long n_pass = chunk_rays * (S / kPts);
+  long long spill;
+  if (D == 256) {
     chain_scratch_sizes<256>(n_pass, n_ctas, render_seg(256), false, sizes);
-  else if (D == 128)
+    spill = full_place<256>(S).spill_floats(S);
+  } else if (D == 128) {
     chain_scratch_sizes<128>(n_pass, n_ctas, render_seg(128), false, sizes);
-  else
+    spill = full_place<128>(S).spill_floats(S);
+  } else {
     return cudaErrorInvalidValue;
+  }
+  sizes[5] = static_cast<long long>(sizeof(float)) * spill * n_ctas;
   return cudaSuccess;
 }
 
-// The chain, the in-order sum of its partials and the dW kernel on
-// `stream`. xops, gops, chain_part, dw_part: scratch of the sizes
-// render_full_scratch gives (dw_part: chunks times its size).
+// The ray cotangents of rays [r0, ...).
+inline RayCotangents cotangents_from(const RayCotangents& c, long long r0, int S) {
+  RayCotangents o = c;
+  if (c.tgt != nullptr) o.tgt = c.tgt + r0 * kTgt;
+  if (c.dtgt != nullptr) o.dtgt = c.dtgt + r0 * kTgt;
+  if (c.g_rgb != nullptr) o.g_rgb = c.g_rgb + r0 * 3;
+  if (c.g_dist != nullptr) o.g_dist = c.g_dist + r0;
+  if (c.g_w != nullptr) o.g_w = c.g_w + r0 * S;
+  if (c.g_a != nullptr) o.g_a = c.g_a + r0 * S;
+  return o;
+}
+
+// For each chunk of chunk_rays consecutive rays (the last one takes the
+// rest): the chain, the in-order sum of its partials and the dW kernel on
+// `stream`, the first chunk writing the gradient buffer and each later one
+// adding to it. xops, gops, chain_part, dw_part, spill: scratch of the sizes
+// render_full_scratch gives (dw_part: chunks times its size). n_ctas and
+// chunks are those of a whole chunk; a shorter last chunk takes at most one
+// CTA a ray and one dW chunk a row tile.
 template <int D, bool LOSS>
 cudaError_t render_full_launch(const float* rays, const float* z, const RayCotangents& cin,
                                const unsigned char* tiles, const unsigned char* tiles_dx,
                                const Biases& bias, unsigned char* xops, unsigned char* gops,
-                               float* chain_part, float* dw_part, float* grads, float* drays,
-                               float* dz, int n_rays, int S, int n_ctas, int chunks,
-                               const RenderFlags& fl, cudaStream_t stream) {
-  const size_t area = mask_bytes<D>() + render_full_f32_bytes<D>(S);   // masks, then the f32 arrays
+                               float* chain_part, float* dw_part, float* spill, float* grads,
+                               float* drays, float* dz, int n_rays, int chunk_rays, int S,
+                               int n_ctas, int chunks, const RenderFlags& fl,
+                               cudaStream_t stream) {
+  const RayPlace place = full_place<D>(S);
+  const size_t area = place.area(render_full_fixed_bytes<D>(), S);   // masks, then the f32 arrays
   const Layout90<D> L(false, area);
   if (L.stages < 2) return cudaErrorInvalidValue;
+  if (place.spill_floats(S) > 0 && spill == nullptr) return cudaErrorInvalidValue;
   const size_t smem = L.bytes(area);
-  cudaError_t err = cudaFuncSetAttribute(render_full_kernel<D, LOSS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto* kernel = render_full_kernel<D, LOSS>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  render_full_kernel<D, LOSS><<<n_ctas, kThreads90, smem, stream>>>(
-      rays, z, cin, tiles, tiles_dx, bias, xops, gops, chain_part, drays, dz, n_rays, S, fl, L);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
   const GradLayout lay = grad_layout(D);
-  err = chain_reduce_launch(chain_part, grads, render_seg(D), n_ctas, D, lay.w[12], stream);
-  if (err != cudaSuccess) return err;
-  const long long n_pass = static_cast<long long>(n_rays) * (S / kPts);
-  DwTable tab = chain_dw_table<D>(xops, gops, grads, n_pass, false);
-  return dw_sm90_launch(tab, n_pass * kPts, chunks, dw_part, stream);
+  for (long long r0 = 0; r0 < n_rays; r0 += chunk_rays) {
+    const int n = static_cast<int>(n_rays - r0 < chunk_rays ? n_rays - r0 : chunk_rays);
+    const int ctas = n < n_ctas ? n : n_ctas;
+    const bool add = r0 > 0;
+    kernel<<<ctas, kThreads90, smem, stream>>>(rays + r0 * 9, z + r0 * S,
+                                               cotangents_from(cin, r0, S), tiles, tiles_dx, bias,
+                                               xops, gops, chain_part, spill, drays + r0 * 9,
+                                               dz + r0 * S, n, S, fl, L, place);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = chain_reduce_launch(chain_part, grads, render_seg(D), ctas, D, lay.w[12], stream, add);
+    if (err != cudaSuccess) return err;
+    const long long n_pass = static_cast<long long>(n) * (S / kPts);
+    DwTable tab = chain_dw_table<D>(xops, gops, grads, n_pass, false);
+    err = dw_sm90_launch(tab, n_pass * kPts, chunks < n_pass ? chunks : static_cast<int>(n_pass),
+                         dw_part, stream, add);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // The checks both C entries make before a launch.
-inline cudaError_t render_full_check(int n_rays, int S, int D, int n_ctas, int chunks, int total,
-                                     const void* tiles, const void* tiles_dx, const void* xops,
-                                     const void* gops) {
-  if (n_rays <= 0 || n_ctas <= 0 || n_ctas > n_rays) return cudaErrorInvalidValue;
-  if (S <= 0 || S % kPts != 0 || S > kMaxTrainS) return cudaErrorInvalidValue;
+inline cudaError_t render_full_check(int n_rays, int chunk_rays, int S, int D, int n_ctas,
+                                     int chunks, int total, const void* tiles,
+                                     const void* tiles_dx, const void* xops, const void* gops) {
+  if (n_rays <= 0 || chunk_rays <= 0 || chunk_rays > n_rays) return cudaErrorInvalidValue;
+  if (n_ctas <= 0 || n_ctas > chunk_rays) return cudaErrorInvalidValue;
+  if (S <= 0 || S % kPts != 0) return cudaErrorInvalidValue;
   if ((D != 128 && D != 256) || total != grad_layout(D).total) return cudaErrorInvalidValue;
-  if (chunks <= 0 || chunks > static_cast<long long>(n_rays) * (S / kPts))
+  if (chunks <= 0 || chunks > static_cast<long long>(chunk_rays) * (S / kPts))
     return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(tiles) | reinterpret_cast<uintptr_t>(tiles_dx) |
        reinterpret_cast<uintptr_t>(xops) | reinterpret_cast<uintptr_t>(gops)) % 16 != 0)

@@ -33,7 +33,7 @@
 // of additions as the TPU kernel's lane scan. Every output is per ray: no
 // atomics, and the result is deterministic.
 //
-// Shared memory at D=256, S=1024 (the tight case), from a 1024-aligned base:
+// Shared memory at D=256, S=1024, from a 1024-aligned base:
 //   activations 128 x 256 bf16                        64 KB
 //   position encodings, one swizzled block             16 KB
 //   resident heads (8 x 256 + 8 x 128 bf16)             6 KB
@@ -43,18 +43,28 @@
 //   weight ring: 3 stages of 32 KB                     96 KB   (-> 204 KB of 227)
 // alpha and the two scan buffers (3S f32, 12 KB) reuse the activation buffer
 // once the ray's last tile is done. Smaller S leaves room for more stages.
+// Any S % 128 == 0 runs: above S = 3,840 at D = 256 (7,168 at D = 128) z and
+// the raw heads, and above S = 5,376 (2,688) alpha and the scan buffers, go
+// to the CTA's share of a scratch in device memory (mlp_fwd_sm90.cuh's
+// RayPlace).
 
 #include "mlp_fwd_sm90.cuh"
 
 namespace {
 
-constexpr int kMaxS = 1024;
+constexpr int kSampleF32 = 5;      // z (S), raw heads (4S)
+constexpr int kCompositeF32 = 3;   // alpha, scan0, scan1 (S each)
 
-// f32 arrays: z (S), raw heads (4S), direction encoding (32), rgb-hidden bias
+// f32 arrays beside the samples': direction encoding (32), rgb-hidden bias
 // (D/2), per-warp sums (4 per warp), the ray (9, padded to 16).
 template <int D>
-size_t f32_bytes(int S) {
-  return sizeof(float) * (5 * static_cast<size_t>(S) + kDe + D / 2 + 4 * kConsumerWarps + 16);
+size_t fixed_bytes() {
+  return sizeof(float) * (kDe + D / 2 + 4 * kConsumerWarps + 16);
+}
+
+template <int D>
+RayPlace fwd_place(int S) {
+  return ray_place<D>(S, kSampleF32, kCompositeF32, fixed_bytes<D>(), kPts * D * 2);
 }
 
 // Over the consumer threads: alpha[s] from the
@@ -94,8 +104,9 @@ __global__ void __launch_bounds__(kThreads90, 1)
 render_fwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
                   const unsigned char* __restrict__ tiles, Biases bias,
                   float* __restrict__ rgb_out, float* __restrict__ dist_out,
-                  float* __restrict__ w_out, float* __restrict__ a_out, int n_rays, int S,
-                  int occ_softplus, int head_dist_alpha, int dist_alpha, Layout90<D> L) {
+                  float* __restrict__ w_out, float* __restrict__ a_out, float* spill,
+                  int n_rays, int S, int occ_softplus, int head_dist_alpha, int dist_alpha,
+                  Layout90<D> L, RayPlace place) {
   using T = Tiles<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = setup90(smem_raw, L.bars, L.stages);
@@ -139,13 +150,16 @@ render_fwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
   }
   set_consumer_regs();
 
-  float* fz = reinterpret_cast<float*>(base + L.f32);   // z            (S)
+  float* const f32 = reinterpret_cast<float*>(base + L.f32);
+  float* const act = reinterpret_cast<float*>(base + L.act);
+  const RayArrays arr = ray_arrays(place, S, f32, act, spill);
+  float* fz = arr.samples;                              // z            (S)
   float* hout = fz + S;                                 // rgb raw|sig (S,4)
-  float* de = hout + 4 * S;                             // dir encoding (32)
+  float* de = arr.fixed;                                // dir encoding (32)
   float* debias = de + kDe;                             // hidden bias  (D/2)
   float* red = debias + D / 2;                          // sums         (4*warps)
   float* ray = red + 4 * kConsumerWarps;                // o | v | dir  (9)
-  float* alpha = reinterpret_cast<float*>(base + L.act);  // after the MLP: alpha (S)
+  float* alpha = arr.composite;                         // after the MLP: alpha (S)
   float* scan0 = alpha + S;                             // scan buffers (S)
   float* scan1 = scan0 + S;
   const uint32_t pe_s = smem_addr(base + L.pe);
@@ -214,24 +228,32 @@ render_fwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
   }
 }
 
+// The grid: one persistent CTA per SM, at most one per ray.
+inline int fwd_grid(int n_rays) {
+  const int sms = sm_count();
+  return n_rays < sms ? n_rays : sms;
+}
+
 template <int D>
 cudaError_t launch(const float* rays, const float* z, const unsigned char* tiles,
                    const Biases& bias, float* rgb, float* dist, float* w_out, float* a_out,
-                   int n_rays, int S, int occ_softplus, int head_dist_alpha, int dist_alpha,
-                   cudaStream_t stream) {
-  const Layout90<D> L(false, f32_bytes<D>(S));
+                   float* spill, int n_rays, int S, int occ_softplus, int head_dist_alpha,
+                   int dist_alpha, cudaStream_t stream) {
+  const RayPlace place = fwd_place<D>(S);
+  const size_t area = place.area(fixed_bytes<D>(), S);
+  const Layout90<D> L(false, area);
   if (L.stages < 2) return cudaErrorInvalidValue;
-  const size_t smem = L.bytes(f32_bytes<D>(S));
-  cudaError_t err = cudaFuncSetAttribute(render_fwd_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (place.spill_floats(S) > 0 && spill == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = L.bytes(area);
+  auto* kernel = render_fwd_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int sms = sm_count();
-  if (sms <= 0) return cudaErrorInvalidDevice;
-  const int grid = n_rays < sms ? n_rays : sms;
-  render_fwd_kernel<D><<<grid, kThreads90, smem, stream>>>(
-      rays, z, tiles, bias, rgb, dist, w_out, a_out, n_rays, S, occ_softplus, head_dist_alpha,
-      dist_alpha, L);
+  const int grid = fwd_grid(n_rays);
+  if (grid <= 0) return cudaErrorInvalidDevice;
+  kernel<<<grid, kThreads90, smem, stream>>>(rays, z, tiles, bias, rgb, dist, w_out, a_out, spill,
+                                             n_rays, S, occ_softplus, head_dist_alpha,
+                                             dist_alpha, L, place);
   return cudaGetLastError();
 }
 
@@ -240,14 +262,16 @@ cudaError_t launch(const float* rays, const float* z, const unsigned char* tiles
 // C interface, bound with ctypes by nope_nerf_torch/ops/fused_render.py.
 // rays (n_rays, 9) f32 [origin | ray_vec | mlp_dir], z (n_rays, S) f32, all
 // contiguous on the device; tiles: the weight buffer of pack_tiles (16-byte
-// aligned); biases: an array of 12 device pointers in pack_weights' order; w_out/a_out may both be null. Returns a cudaError_t (0 on
-// success); the launch is asynchronous on `stream`.
+// aligned); biases: an array of 12 device pointers in pack_weights' order; w_out/a_out may both be null. spill: the bytes
+// nerf_render_fwd_spill gives (null where it gives 0). Returns a cudaError_t
+// (0 on success); the launch is asynchronous on `stream`.
 extern "C" int nerf_render_fwd(const float* rays, const float* z, const void* tiles,
                                const void* const* biases, float* rgb, float* dist, float* w_out,
-                               float* a_out, int n_rays, int S, int D, int occ_softplus,
-                               int head_dist_alpha, int dist_alpha, void* stream) {
+                               float* a_out, void* spill, int n_rays, int S, int D,
+                               int occ_softplus, int head_dist_alpha, int dist_alpha,
+                               void* stream) {
   if (n_rays <= 0) return 0;
-  if (S <= 0 || S % kPts != 0 || S > kMaxS) return static_cast<int>(cudaErrorInvalidValue);
+  if (S <= 0 || S % kPts != 0) return static_cast<int>(cudaErrorInvalidValue);
   if ((w_out == nullptr) != (a_out == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(tiles) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
   Biases bias;
@@ -257,17 +281,37 @@ extern "C" int nerf_render_fwd(const float* rays, const float* z, const void* ti
   cudaError_t err;
   switch (D) {
     case 256:
-      err = launch<256>(rays, z, w, bias, rgb, dist, w_out, a_out, n_rays, S, occ_softplus,
-                        head_dist_alpha, dist_alpha, st);
+      err = launch<256>(rays, z, w, bias, rgb, dist, w_out, a_out, static_cast<float*>(spill),
+                        n_rays, S, occ_softplus, head_dist_alpha, dist_alpha, st);
       break;
     case 128:
-      err = launch<128>(rays, z, w, bias, rgb, dist, w_out, a_out, n_rays, S, occ_softplus,
-                        head_dist_alpha, dist_alpha, st);
+      err = launch<128>(rays, z, w, bias, rgb, dist, w_out, a_out, static_cast<float*>(spill),
+                        n_rays, S, occ_softplus, head_dist_alpha, dist_alpha, st);
       break;
     default:
       err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// Bytes of nerf_render_fwd's spill scratch for n_rays x S at width D: the
+// per-sample arrays that do not fit in shared memory, for each CTA of the
+// grid (0 where everything fits, every S <= 1024); -1 for a width or an S
+// the kernel does not take.
+extern "C" long long nerf_render_fwd_spill(int n_rays, int S, int D) {
+  if (S <= 0 || S % kPts != 0 || n_rays <= 0) return -1;
+  long long per_cta;
+  switch (D) {
+    case 256:
+      per_cta = fwd_place<256>(S).spill_floats(S);
+      break;
+    case 128:
+      per_cta = fwd_place<128>(S).spill_floats(S);
+      break;
+    default:
+      return -1;
+  }
+  return per_cta == 0 ? 0 : static_cast<long long>(sizeof(float)) * per_cta * fwd_grid(n_rays);
 }
 
 extern "C" const char* nerf_error_string(int code) {

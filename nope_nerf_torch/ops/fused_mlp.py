@@ -96,9 +96,10 @@ def _setup_dw(lib: ctypes.CDLL) -> None:
 POINT_MLP_FWD = CudaLibrary("point_mlp_fwd.cu", _setup_fwd)
 POINT_MLP_BWD = CudaLibrary("point_mlp_bwd.cu", _setup_bwd)
 # The weight-gradient kernel (csrc/dw_sm90.cuh). Its `launches` counts every
-# launch of it: by K6 full (point_mlp_bwd.cu's entry), K1 and K4 full
-# (render_train.cu's and render_bwd.cu's), once per launch of each, and by
-# `dw_sm90`, the kernel on its own (dw_sm90.cu).
+# launch of it: by K6 full (point_mlp_bwd.cu's entry) once per launch, by K1
+# and K4 full (render_train.cu's and render_bwd.cu's) once per chunk of rays
+# (fused_render.render_chunks), and by `dw_sm90`, the kernel on its own
+# (dw_sm90.cu).
 DW_SM90 = CudaLibrary("dw_sm90.cu", _setup_dw)
 # K6's frozen-network variant (d(points), d(directions) only) on the wgmma dX
 # chain. Its `launches` counts those launches; each also counts in

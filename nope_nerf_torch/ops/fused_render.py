@@ -55,7 +55,6 @@ PE_DIM = 64             # position encoding 63 -> 64 lanes
 DE_DIM = 32             # direction encoding 27 -> 32 lanes
 HEAD_DIM = 8            # head outputs padded to one mma n-tile
 PTS_PER_PASS = 128      # the kernel's pass over a ray's samples
-MAX_SAMPLES = 1024      # the kernel's shared-memory limit on S
 PLAIN_BLOCK_RAYS = 2048  # rays per block of the plain version (bounds its memory)
 
 Packed = Tuple[List[torch.Tensor], List[torch.Tensor]]
@@ -64,8 +63,10 @@ Packed = Tuple[List[torch.Tensor], List[torch.Tensor]]
 def _setup(lib: ctypes.CDLL) -> None:
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.nerf_render_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.nerf_render_fwd.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.nerf_render_fwd.restype = ctypes.c_int
+    lib.nerf_render_fwd_spill.argtypes = [i, i, i]
+    lib.nerf_render_fwd_spill.restype = ctypes.c_longlong
     lib.nerf_error_string.argtypes = [ctypes.c_int]
     lib.nerf_error_string.restype = ctypes.c_char_p
 
@@ -400,14 +401,8 @@ def _render_cuda(tiles, B, rays, z, cfg: NerfConfig, dist_alpha: bool, want_aux:
     """(rgb, dist, weights, alpha) by one launch of the render kernel, from
     pack_tiles' (tiles, B)."""
     n, S = z.shape
+    _check_kernel_shapes("render", S, cfg.hidden_dim)
     D = cfg.hidden_dim
-    if S % PTS_PER_PASS or S > MAX_SAMPLES:
-        raise NotImplementedError(
-            f"the CUDA render kernel takes S % {PTS_PER_PASS} == 0 and S <= "
-            f"{MAX_SAMPLES}, got S={S}")
-    if D not in (128, 256):
-        raise NotImplementedError(f"the CUDA render kernel is built for hidden_dim 128 "
-                                  f"and 256, got {D}")
     for name, t in (("rays", rays), ("z", z)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
@@ -427,12 +422,15 @@ def _render_cuda(tiles, B, rays, z, cfg: NerfConfig, dist_alpha: bool, want_aux:
         return rgb, dist, weights, alpha
     bptrs = (ctypes.c_void_p * 12)(*[b.data_ptr() for b in B])
     with torch.cuda.device(rays.device):
+        # the per-sample arrays past shared memory's room (S > 3,840 at D = 256)
+        spill = _spill(lib.nerf_render_fwd_spill(n, S, D), rays.device)
         stream = torch.cuda.current_stream(rays.device).cuda_stream
         err = lib.nerf_render_fwd(
             rays.data_ptr(), z.data_ptr(), tiles.data_ptr(), bptrs, rgb.data_ptr(),
             dist.data_ptr(),
             weights.data_ptr() if want_aux else None,
             alpha.data_ptr() if want_aux else None,
+            _ptr(spill),
             n, S, D, int(cfg.occ_activation == "softplus"), int(cfg.dist_alpha),
             int(dist_alpha), stream)
     if err != 0:
@@ -452,8 +450,10 @@ TGT_DEPTH = 3           # depth_gt, in the same (dist) space as the kernel's dis
 TGT_MASK = 4            # depth-loss validity mask, 0.0/1.0
 TGT_WRGB = 5            # annealed rgb_weight / n_total (same value every row)
 TGT_WDEPTH = 6          # annealed depth_weight * (count>0) / max(count, 1)
-TRAIN_MAX_SAMPLES = 256   # the train kernel's shared-memory limit on S
 PLAIN_TRAIN_BLOCK_RAYS = 256
+# The dW operands a launch of K1 or K4 full holds at once (render_chunks):
+# 1024 rays x 256 samples at D = 256, 2.52 GB.
+OPERAND_BUDGET_BYTES = 1024 * 256 * 9600
 
 
 def _setup_train(lib: ctypes.CDLL) -> None:
@@ -463,7 +463,7 @@ def _setup_train(lib: ctypes.CDLL) -> None:
     lib.nerf_train_grad_layout.restype = ctypes.c_int
     lib.nerf_render_train_scratch.argtypes = [i, ctypes.c_longlong, i, i, p]
     lib.nerf_render_train_scratch.restype = ctypes.c_int
-    lib.nerf_render_train.argtypes = [p] * 14 + [i] * 11 + [p]
+    lib.nerf_render_train.argtypes = [p] * 15 + [i] * 12 + [p]
     lib.nerf_render_train.restype = ctypes.c_int
     lib.nerf_error_string.argtypes = [ctypes.c_int]
     lib.nerf_error_string.restype = ctypes.c_char_p
@@ -721,14 +721,26 @@ def _train_plain(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p:
     return sums, dW, dB, drays, dz, dtgt
 
 
-def _check_backward_shapes(kernel: str, S: int, D: int) -> None:
-    if S % PTS_PER_PASS or S > TRAIN_MAX_SAMPLES:
+def _check_kernel_shapes(kernel: str, S: int, D: int) -> None:
+    """What every render kernel takes: any S % 128 == 0 (the JAX kernels'
+    own rule) and hidden_dim 128 or 256; anything else raises before any
+    device work."""
+    if S % PTS_PER_PASS or S <= 0:
         raise NotImplementedError(
-            f"the CUDA {kernel} kernel takes S % {PTS_PER_PASS} == 0 and S <= "
-            f"{TRAIN_MAX_SAMPLES}, got S={S}")
+            f"the CUDA {kernel} kernel takes S % {PTS_PER_PASS} == 0, got S={S}")
     if D not in (128, 256):
-        raise NotImplementedError(f"the CUDA {kernel} kernel is built for hidden_dim 128 "
-                                  f"and 256, got {D}")
+        raise NotImplementedError(
+            f"the CUDA {kernel} kernel is built for hidden_dim 128 and 256, got {D}: other "
+            f"widths need a new tile shape in the shared trunk headers, the port's next "
+            f"slice (ROADMAP.md, Queue 3)")
+
+
+def _spill(nbytes: int, dev: torch.device) -> Optional[torch.Tensor]:
+    """The scratch a render kernel's C entry asks for its per-sample arrays
+    that do not fit in shared memory (None for none)."""
+    if nbytes < 0:
+        raise RuntimeError("the render kernel reports no spill size")
+    return None if nbytes == 0 else torch.empty((nbytes // 4,), dtype=torch.float32, device=dev)
 
 
 def _check_backward_tensors(named, dev: torch.device) -> None:
@@ -755,31 +767,53 @@ def render_operand_bytes(D: int, n_rays: int, S: int) -> Tuple[int, int]:
     return tiles * block * (1 + 9 * (D // 64)), tiles * block * (D // 128 + 9 * (D // 64))
 
 
+def render_chunks(n_rays: int, S: int, D: int) -> List[Tuple[int, int]]:
+    """The chunks of rays [start, stop) a launch of K1 or K4 full goes through,
+    in order: the fewest whose dW operands (render_operand_bytes) each stay
+    within OPERAND_BUDGET_BYTES, all of one size but the last, which takes
+    the rest. One chunk for every call up to 1024 x 256 samples at D = 256."""
+    fit = max(1, OPERAND_BUDGET_BYTES // sum(render_operand_bytes(D, 1, S)))
+    step = -(-n_rays // -(-n_rays // fit))
+    return [(a, min(a + step, n_rays)) for a in range(0, n_rays, step)]
+
+
 def _full_scratch(scratch_fn, D: int, n: int, S: int, dev: torch.device):
-    """(n_ctas, chunks, [xops, gops, chain_part, dw_part]) for one launch of
-    K1 or K4 full: the scratch sizes from the kernel's own entry (its X and G
+    """(chunk_rays, n_ctas, chunks, [xops, gops, chain_part, dw_part, spill])
+    for one launch of K1 or K4 full: the rays' chunks by render_chunks, the
+    scratch sizes of one chunk from the kernel's own entry (its X and G
     operands checked against render_operand_bytes), the dW kernel's chunks
-    of samples by fused_mlp.dw_chunks."""
+    of samples by fused_mlp.dw_chunks; spill is None where the per-sample
+    arrays fit in shared memory."""
     from .fused_mlp import dw_chunks   # fused_mlp imports this module
-    n_ctas = _backward_ctas(n, dev)
-    sizes = (ctypes.c_longlong * 5)()
-    if scratch_fn(D, n, S, n_ctas, sizes) != 0:
+    chunk_rays = render_chunks(n, S, D)[0][1]
+    n_ctas = _backward_ctas(chunk_rays, dev)
+    sizes = (ctypes.c_longlong * 6)()
+    if scratch_fn(D, chunk_rays, S, n_ctas, sizes) != 0:
         raise RuntimeError("the render backward kernel reports no scratch sizes")
-    if (sizes[0], sizes[1]) != render_operand_bytes(D, n, S):
+    if (sizes[0], sizes[1]) != render_operand_bytes(D, chunk_rays, S):
         raise RuntimeError(f"the render backward kernel's operand sizes {sizes[0]}, {sizes[1]} "
-                           f"are not render_operand_bytes' {render_operand_bytes(D, n, S)}")
-    chunks = dw_chunks(sizes[4], n * S, torch.cuda.get_device_properties(dev).multi_processor_count)
+                           f"are not render_operand_bytes' "
+                           f"{render_operand_bytes(D, chunk_rays, S)}")
+    chunks = dw_chunks(sizes[4], chunk_rays * S,
+                       torch.cuda.get_device_properties(dev).multi_processor_count)
     scratch = [torch.empty((sizes[i],), dtype=torch.uint8, device=dev) for i in (0, 1)]
     scratch += [torch.empty((sizes[2] // 4,), dtype=torch.float32, device=dev),
-                torch.empty((chunks * sizes[3] // 4,), dtype=torch.float32, device=dev)]
-    return n_ctas, chunks, scratch
+                torch.empty((chunks * sizes[3] // 4,), dtype=torch.float32, device=dev),
+                _spill(sizes[5], dev)]
+    return chunk_rays, n_ctas, chunks, scratch
 
 
-def _count_dw_launch() -> None:
-    """K1 and K4 full launch the dW kernel from their own C entries: one more
-    launch of it."""
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _count_full_launches(lib, n: int, chunk_rays: int) -> None:
+    """K1 and K4 full launch their chain kernel and the dW kernel once per
+    chunk of rays from their own C entries: that many more launches of each."""
     from .fused_mlp import DW_SM90   # fused_mlp imports this module
-    DW_SM90.launches += 1
+    launched = -(-n // chunk_rays)
+    lib.launches += launched
+    DW_SM90.launches += launched
 
 
 def _grad_blocks(grads: torch.Tensor, offsets, D: int):
@@ -796,11 +830,12 @@ def _grad_blocks(grads: torch.Tensor, offsets, D: int):
 def _train_cuda(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p: int,
                 white_bg: bool):
     """(sums, dWs, dBs, drays, dz, dtgt) by one launch of the train kernel:
-    its C entry issues the chain, the in-order sum of the chain's partial
-    sums and the dW kernel (with its in-order sum of the chunks)."""
+    its C entry issues, for each chunk of rays (render_chunks), the chain,
+    the in-order sum of the chain's partial sums and the dW kernel (with its
+    in-order sum of the chunks of samples)."""
     n, S = z.shape
     D = cfg.hidden_dim
-    _check_backward_shapes("train", S, D)
+    _check_kernel_shapes("train", S, D)
     dev = rays.device
     rays, z, tgt = (t.detach() for t in (rays, z, tgt))
     _check_backward_tensors((("rays", rays), ("z", z), ("tgt", tgt)), dev)
@@ -810,7 +845,8 @@ def _train_cuda(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p: 
     total = lib.nerf_train_grad_layout(D, offsets)
     if total <= 0:
         raise RuntimeError("the train kernel reports no gradient layout")
-    n_ctas, chunks, scratch = _full_scratch(lib.nerf_render_train_scratch, D, n, S, dev)
+    chunk_rays, n_ctas, chunks, scratch = _full_scratch(lib.nerf_render_train_scratch, D, n, S,
+                                                        dev)
     f32 = dict(dtype=torch.float32, device=dev)
     grads = torch.empty((total,), **f32)
     drays = torch.empty((n, RAY_DIM), **f32)
@@ -820,15 +856,14 @@ def _train_cuda(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p: 
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nerf_render_train(
             rays.data_ptr(), z.data_ptr(), tgt.data_ptr(), tiles.data_ptr(), tiles_dx.data_ptr(),
-            bptrs, *[t.data_ptr() for t in scratch], grads.data_ptr(), drays.data_ptr(),
-            dz.data_ptr(), dtgt.data_ptr(), n, S, D, n_ctas, chunks,
+            bptrs, *[_ptr(t) for t in scratch], grads.data_ptr(), drays.data_ptr(),
+            dz.data_ptr(), dtgt.data_ptr(), n, chunk_rays, S, D, n_ctas, chunks,
             int(cfg.occ_activation == "softplus"), int(cfg.dist_alpha), int(dist_alpha),
             int(rgb_p), int(white_bg), total, stream)
     if err != 0:
         raise RuntimeError("train kernel launch failed: "
                            + lib.nerf_error_string(err).decode())
-    RENDER_TRAIN.launches += 1
-    _count_dw_launch()
+    _count_full_launches(RENDER_TRAIN, n, chunk_rays)
     dWs, dBs = _grad_blocks(grads, offsets, D)
     sums = grads[offsets[26]:offsets[26] + 3]
     return sums, dWs, dBs, drays, dz, dtgt
@@ -906,7 +941,7 @@ def _setup_bwd(lib: ctypes.CDLL) -> None:
     lib.nerf_bwd_grad_layout.restype = ctypes.c_int
     lib.nerf_render_bwd_scratch.argtypes = [i, ctypes.c_longlong, i, i, p]
     lib.nerf_render_bwd_scratch.restype = ctypes.c_int
-    lib.nerf_render_bwd.argtypes = [p] * 16 + [i] * 9 + [p]
+    lib.nerf_render_bwd.argtypes = [p] * 17 + [i] * 10 + [p]
     lib.nerf_render_bwd.restype = ctypes.c_int
     lib.nerf_error_string.argtypes = [ctypes.c_int]
     lib.nerf_error_string.restype = ctypes.c_char_p
@@ -918,8 +953,10 @@ RENDER_BWD = CudaLibrary("render_bwd.cu", _setup_bwd)
 def _setup_bwd_frozen(lib: ctypes.CDLL) -> None:
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.nerf_render_bwd_frozen.argtypes = [p] * 12 + [i] * 7 + [p]
+    lib.nerf_render_bwd_frozen.argtypes = [p] * 13 + [i] * 7 + [p]
     lib.nerf_render_bwd_frozen.restype = ctypes.c_int
+    lib.nerf_render_bwd_frozen_spill.argtypes = [i, i, i]
+    lib.nerf_render_bwd_frozen_spill.restype = ctypes.c_longlong
     lib.nerf_error_string.argtypes = [ctypes.c_int]
     lib.nerf_error_string.restype = ctypes.c_char_p
 
@@ -1026,12 +1063,13 @@ def render_dw_operands(params, rays: torch.Tensor, z: torch.Tensor, g_rgb: torch
 def _render_bwd_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig,
                      dist_alpha: bool, want_param_grads: bool = True):
     """(dWs, dBs, drays, dz) by one launch of the render-backward kernel (its
-    C entry issues the chain, the in-order sum of its partials and the dW
-    kernel). With want_param_grads=False its frozen-network variant runs
+    C entry issues, for each chunk of rays (render_chunks), the chain, the
+    in-order sum of its partials and the dW kernel). With
+    want_param_grads=False its frozen-network variant runs
     (render_bwd_frozen.cu): no dW/dB, and dWs, dBs are None."""
     n, S = z.shape
     D = cfg.hidden_dim
-    _check_backward_shapes("render-backward", S, D)
+    _check_kernel_shapes("render-backward", S, D)
     dev = rays.device
     rays, z, g_rgb, g_dist = (t.detach() for t in (rays, z, g_rgb, g_dist))
     g_w, g_a = (None if g is None else g.detach() for g in (g_w, g_a))
@@ -1048,28 +1086,24 @@ def _render_bwd_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig,
     total = lib.nerf_bwd_grad_layout(D, offsets)
     if total <= 0:
         raise RuntimeError("the render-backward kernel reports no gradient layout")
-    n_ctas, chunks, scratch = _full_scratch(lib.nerf_render_bwd_scratch, D, n, S, dev)
+    chunk_rays, n_ctas, chunks, scratch = _full_scratch(lib.nerf_render_bwd_scratch, D, n, S,
+                                                        dev)
     f32 = dict(dtype=torch.float32, device=dev)
     grads = torch.empty((total,), **f32)
     drays = torch.empty((n, RAY_DIM), **f32)
     dz = torch.empty((n, S), **f32)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nerf_render_bwd(
-            rays.data_ptr(), z.data_ptr(), g_rgb.data_ptr(), g_dist.data_ptr(), ptr(g_w),
-            ptr(g_a), tiles.data_ptr(), tiles_dx.data_ptr(), bptrs,
-            *[t.data_ptr() for t in scratch], grads.data_ptr(), drays.data_ptr(), dz.data_ptr(),
-            n, S, D, n_ctas, chunks, int(cfg.occ_activation == "softplus"),
+            rays.data_ptr(), z.data_ptr(), g_rgb.data_ptr(), g_dist.data_ptr(), _ptr(g_w),
+            _ptr(g_a), tiles.data_ptr(), tiles_dx.data_ptr(), bptrs,
+            *[_ptr(t) for t in scratch], grads.data_ptr(), drays.data_ptr(), dz.data_ptr(),
+            n, chunk_rays, S, D, n_ctas, chunks, int(cfg.occ_activation == "softplus"),
             int(cfg.dist_alpha), int(dist_alpha), total, stream)
     if err != 0:
         raise RuntimeError("render-backward kernel launch failed: "
                            + lib.nerf_error_string(err).decode())
-    RENDER_BWD.launches += 1
-    _count_dw_launch()
+    _count_full_launches(RENDER_BWD, n, chunk_rays)
     dWs, dBs = _grad_blocks(grads, offsets, D)
     return dWs, dBs, drays, dz
 
@@ -1088,7 +1122,9 @@ def _packed_tiles_on(params, cfg: NerfConfig, dev: torch.device):
 def _render_bwd_frozen_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig,
                             dist_alpha: bool):
     """(drays, dz) by one launch of K4's frozen-network variant: no operands,
-    no partial sums; a per-CTA scratch of 128 x D bf16 holds the chain's g4."""
+    no partial sums; a per-CTA scratch of 128 x D bf16 holds the chain's g4,
+    and another the per-sample arrays that do not fit in shared memory
+    (S > 896 at D = 256)."""
     n, S = z.shape
     D = cfg.hidden_dim
     dev = rays.device
@@ -1096,15 +1132,16 @@ def _render_bwd_frozen_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfC
     lib = RENDER_BWD_FROZEN.lib()
     n_ctas = _backward_ctas(n, dev)
     scratch = torch.empty((n_ctas, PTS_PER_PASS, D), dtype=torch.bfloat16, device=dev)
+    spill = _spill(lib.nerf_render_bwd_frozen_spill(S, D, n_ctas), dev)
     drays = torch.empty((n, RAY_DIM), dtype=torch.float32, device=dev)
     dz = torch.empty((n, S), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nerf_render_bwd_frozen(
-            rays.data_ptr(), z.data_ptr(), g_rgb.data_ptr(), g_dist.data_ptr(),
-            None if g_w is None else g_w.data_ptr(), None if g_a is None else g_a.data_ptr(),
-            tiles.data_ptr(), tiles_dx.data_ptr(), bptrs, scratch.data_ptr(), drays.data_ptr(),
-            dz.data_ptr(), n, S, D, n_ctas, int(cfg.occ_activation == "softplus"),
+            rays.data_ptr(), z.data_ptr(), g_rgb.data_ptr(), g_dist.data_ptr(), _ptr(g_w),
+            _ptr(g_a), tiles.data_ptr(), tiles_dx.data_ptr(), bptrs, scratch.data_ptr(),
+            _ptr(spill), drays.data_ptr(), dz.data_ptr(), n, S, D, n_ctas,
+            int(cfg.occ_activation == "softplus"),
             int(cfg.dist_alpha), int(dist_alpha), stream)
     if err != 0:
         raise RuntimeError("render-backward kernel (frozen-network variant) launch failed: "
@@ -1136,8 +1173,8 @@ class _RenderFused(torch.autograd.Function):
         params = dict(zip(names, tensors))
         plain = runs_plain(rays)      # read here: the backward takes the forward's route
         if not plain:
-            # the backward kernel's limits are tighter than the forward's: say so now
-            _check_backward_shapes("render-backward", z.shape[1], cfg.hidden_dim)
+            # what the backward kernel cannot take raises now, not after the forward
+            _check_kernel_shapes("render-backward", z.shape[1], cfg.hidden_dim)
         out = _render_forward(params, rays, z, cfg, dist_alpha, want_aux, plain)
         ctx.save_for_backward(rays, z, *tensors)
         ctx.static = (cfg, dist_alpha, plain, names)

@@ -209,8 +209,8 @@ def main() -> int:
         drays, dz = torch.empty(RAYS, 9, device=dev), torch.empty(RAYS, SAMPLES, device=dev)
         err = lib.nerf_render_bwd_frozen(
             rays.data_ptr(), z.data_ptr(), g_rgb.data_ptr(), g_dist.data_ptr(), None, None,
-            tiles.data_ptr(), tiles_dx.data_ptr(), bptrs, scratch.data_ptr(), drays.data_ptr(),
-            dz.data_ptr(), RAYS, SAMPLES, 256, k4_ctas, 1, 0, 0, stream)
+            tiles.data_ptr(), tiles_dx.data_ptr(), bptrs, scratch.data_ptr(), None,
+            drays.data_ptr(), dz.data_ptr(), RAYS, SAMPLES, 256, k4_ctas, 1, 0, 0, stream)
         if err:
             raise RuntimeError(lib.nerf_error_string(err).decode())
         return drays, dz

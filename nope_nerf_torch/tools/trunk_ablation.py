@@ -122,9 +122,10 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
 
     def k3(lib):
+        # no spill scratch: at SAMPLES every per-sample array fits in shared memory
         err = lib.nerf_render_fwd(rays.data_ptr(), z.data_ptr(), tiles.data_ptr(), bptrs,
-                                  rgb.data_ptr(), dist.data_ptr(), None, None, n, SAMPLES, 256,
-                                  1, 0, 0, stream)
+                                  rgb.data_ptr(), dist.data_ptr(), None, None, None, n, SAMPLES,
+                                  256, 1, 0, 0, stream)
         if err:
             raise RuntimeError(lib.nerf_error_string(err).decode())
 

@@ -56,7 +56,8 @@ def _assert_close(got, ref):
 
 
 @pytest.mark.parametrize("hidden", [128, 256])
-@pytest.mark.parametrize("S", [128, 256, 1024])      # 1024: the shared-memory-tight case
+# 4096: z and the raw heads (D = 256) or the composite's arrays (D = 128) past shared memory
+@pytest.mark.parametrize("S", [128, 256, 1024, 2048, 4096])
 @pytest.mark.parametrize("want_aux", [False, True])
 def test_render_fwd_matches_plain(cuda_device, hidden, S, want_aux):
     gen, rays, z = _inputs(cuda_device, 301, S)          # 301: no tile multiple
@@ -146,7 +147,7 @@ def _assert_train_close(params, rays, z, tgt, ncfg, dist_alpha, rgb_p, white_bg)
 
 
 @pytest.mark.parametrize("hidden", [128, 256])
-@pytest.mark.parametrize("S", [128, 256])
+@pytest.mark.parametrize("S", [128, 256, 384, 1024, 2048])
 def test_render_train_matches_plain(cuda_device, hidden, S):
     args = _train_case(cuda_device, 301, S, hidden)          # 301: more rays than SMs, ragged
     _assert_train_close(*args, False, 1, False)
@@ -174,12 +175,12 @@ def test_render_train_bit_equal_counts_launches_and_rejects_bad_inputs(cuda_devi
     assert F.RENDER_TRAIN.launches == before + 2              # the plain route launches nothing
     with pytest.raises(NotImplementedError):
         F.render_ray_loss_fused(params, rays, z[:, :100].contiguous(), tgt, ncfg, False, 1, False)
+    # 384 samples, three tiles a ray: it runs and matches the plain version
     big = torch.sort(torch.rand(200, 384, device=cuda_device) * 8 + 0.1, dim=1).values
-    with pytest.raises(NotImplementedError):
-        F.render_ray_loss_fused(params, rays, big, tgt, ncfg, False, 1, False)
+    _assert_train_close(params, rays, big, tgt, ncfg, False, 1, False)
     with pytest.raises(ValueError):
         F.render_ray_loss_fused(params, rays, z.t().contiguous().t(), tgt, ncfg, False, 1, False)
-    assert F.RENDER_TRAIN.launches == before + 2
+    assert F.RENDER_TRAIN.launches == before + 3
 
 
 # ---- render_bwd (K4) -------------------------------------------------------------
@@ -281,22 +282,24 @@ def test_render_bwd_frozen_variant(cuda_device, hidden, S, occ, head_dist_alpha,
 
 
 @pytest.mark.parametrize("n_rays", [1, 133, 301])
-@pytest.mark.parametrize("S", [128, 256])
+@pytest.mark.parametrize("S", [128, 256, 1024, 2048])
 @pytest.mark.parametrize("hidden", [128, 256])
 def test_render_bwd_full_dx_equals_the_frozen_variant(cuda_device, hidden, S, n_rays):
     """K4 full (render_full_sm90.cuh: the chain that also saves the operands
     of its dW products) gives the frozen variant's d(rays) and dz bit for
     bit: the same dX chain and the same per-ray pieces. It launches the dW
-    kernel once, the frozen variant never. 1 ray: one CTA; 133: one CTA
-    takes a second ray; 301: three rays on some CTAs, two on the others."""
+    kernel once per chunk of rays (3 at 301 x 2048, D = 256), the frozen
+    variant never. 1 ray: one CTA; 133: one CTA takes a second ray; 301:
+    three rays on some CTAs, two on the others."""
     params, rays, z, tgt, ncfg = _train_case(cuda_device, n_rays, S, hidden, seed=5, spread=0.5,
                                              far=6.0)
     cot = _bwd_cotangents(params, rays, z, tgt, ncfg, False, True)
     before = M.DW_SM90.launches
     full = F._render_bwd_cuda(params, rays, z, *cot, ncfg, False)
-    assert M.DW_SM90.launches == before + 1
+    chunks = len(F.render_chunks(n_rays, S, hidden))
+    assert M.DW_SM90.launches == before + chunks
     frozen = F._render_bwd_cuda(params, rays, z, *cot, ncfg, False, want_param_grads=False)
-    assert M.DW_SM90.launches == before + 1
+    assert M.DW_SM90.launches == before + chunks
     assert torch.equal(full[2], frozen[2]) and torch.equal(full[3], frozen[3])
     assert all(torch.isfinite(t).all() for t in (*full[0], *full[1]))
 
@@ -325,12 +328,51 @@ def test_render_full_kernels_bit_equal_and_launch_the_dw_kernel_once(cuda_device
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("kernel", ["train", "bwd"])
+def test_render_full_kernels_in_chunks_of_rays(cuda_device, kernel):
+    """With the operand budget cut to 80 rays, 301 rays go through K1 or K4 full
+    in 4 chunks (76, 76, 76, 73): each launch counts 4 of the chain kernel and
+    of the dW kernel, two launches bit-equal, the per-ray outputs bit-equal to
+    one chunk's, dW and dB (summed over the chunks in order) within the weight
+    gradients' tolerance of one chunk's."""
+    params, rays, z, tgt, ncfg = _train_case(cuda_device, 301, 256, 256, seed=6, spread=0.5,
+                                             far=6.0)
+    if kernel == "train":
+        def run():
+            sums, dWs, dBs, drays, dz, dtgt = F._train_cuda(params, rays, z, tgt, ncfg, False, 1,
+                                                            False)
+            return [sums, *dWs, *dBs], [drays, dz, dtgt]
+    else:
+        cot = _bwd_cotangents(params, rays, z, tgt, ncfg, False, True)
+
+        def run():
+            dWs, dBs, drays, dz = F._render_bwd_cuda(params, rays, z, *cot, ncfg, False)
+            return [*dWs, *dBs], [drays, dz]
+    one = run()
+    saved = F.OPERAND_BUDGET_BYTES
+    F.OPERAND_BUDGET_BYTES = sum(F.render_operand_bytes(ncfg.hidden_dim, 80, 256))
+    try:
+        assert [b - a for a, b in F.render_chunks(301, 256, 256)] == [76, 76, 76, 73]
+        lib = F.RENDER_TRAIN if kernel == "train" else F.RENDER_BWD
+        before = (lib.launches, M.DW_SM90.launches)
+        a, b = run(), run()
+        assert (lib.launches - before[0], M.DW_SM90.launches - before[1]) == (8, 8)
+    finally:
+        F.OPERAND_BUDGET_BYTES = saved
+    for x, y in zip(a[0] + a[1], b[0] + b[1]):
+        assert torch.equal(x, y)
+    for x, y in zip(a[1], one[1]):
+        assert torch.equal(x, y)
+    for x, y in zip(a[0], one[0]):
+        assert float((x - y).abs().max()) <= 5e-3 * float(y.abs().max()) + 1e-6
+
+
 def test_render_rays_fused_differentiates_on_card(cuda_device):
     """Under grad the wrapper launches the forward kernel, then the backward
     kernel: it raises nothing, and its gradients match the plain route's."""
     params, rays, z, tgt, ncfg = _train_case(cuda_device, 301, 128, 256, spread=0.5, far=6.0)
 
-    def grads(frozen):
+    def grads(frozen, z=z):
         leaves = {k: v.clone().requires_grad_(not frozen) for k, v in params.items()}
         r, zz = rays.clone().requires_grad_(True), z.clone().requires_grad_(True)
         rgb, dist, w, a = F.render_rays_fused(leaves, r, zz, ncfg, False, want_aux=True)
@@ -357,9 +399,18 @@ def test_render_rays_fused_differentiates_on_card(cuda_device):
                                   rays, z, ncfg)
     assert all(t.grad_fn is None for t in out)
     assert F.RENDER_BWD.launches == after[1] + 1
+    # 384 samples, three tiles a ray: the kernels' gradients match the plain route's;
+    # S % 128 != 0 raises before any launch
+    z384 = torch.sort(torch.rand(301, 384, device=cuda_device) * 5.9 + 0.1, dim=1).values
+    got = grads(False, z384)
+    with F.plain_versions():
+        plain = grads(False, z384)
+    _assert_grads_close(got, plain)
+    before = [lib.launches for lib in (F.RENDER_FWD, F.RENDER_BWD)]
     with pytest.raises(NotImplementedError):
         F.render_rays_fused(params, rays.clone().requires_grad_(True),
-                            torch.sort(torch.rand(301, 384, device=cuda_device), dim=1).values, ncfg)
+                            torch.sort(torch.rand(301, 100, device=cuda_device), dim=1).values, ncfg)
+    assert [lib.launches for lib in (F.RENDER_FWD, F.RENDER_BWD)] == before
 
 
 def test_render_nope_nerf_gradients_on_card(cuda_device):

@@ -43,10 +43,11 @@ N_FRAMES, H, W, N_RAYS, S = 4, 24, 32, 16, 128
 SCHED_START = 10000
 
 
-def _cfg(fused: bool):
+def _cfg(fused: bool, points: int = S):
     return load_config(overrides={
         "model": {"hidden_dim": 128},
         "training": {"n_training_points": N_RAYS},
+        "rendering": {"num_points": points},
         "pose": {"learn_pose": True, "init_pose": True},
         "tpu": {"use_pallas_renderer": fused,
                 "compute_dtype": "bfloat16" if fused else "float32"}})
@@ -67,22 +68,22 @@ def _numpy_state(state):
     return params, opt
 
 
-def _pins(step: int):
+def _pins(step: int, points: int = S):
     """Pinned draws of one step: ray indices from numpy, and the jitter JAX draws
     from the step's render key."""
     rng = np.random.default_rng(100 + step)
     ray_idx = rng.permutation(H * W)[:N_RAYS].astype(np.int32)
     key = jax.random.key(200 + step)
     _, knoise, _ = jax.random.split(key, 3)
-    return ray_idx, key, np.array(jax.random.uniform(knoise, (N_RAYS, S), jnp.float32))
+    return ray_idx, key, np.array(jax.random.uniform(knoise, (N_RAYS, points), jnp.float32))
 
 
 class _Jax:
     """The JAX side: compute_step_loss and its optimizer update, as
     training/trainer.py::train_step does them, with ray_idx passed in."""
 
-    def __init__(self, fused: bool):
-        self.cfg = _cfg(fused)
+    def __init__(self, fused: bool, points: int = S):
+        self.cfg = _cfg(fused, points)
         self.scene = JSceneData.from_dict(_scene())
         self.mc = JModelConfigs.from_cfg(self.cfg, N_FRAMES)
         self.state, self.optimizers = jax_create(jax.random.key(0), self.mc,
@@ -106,8 +107,8 @@ class _Jax:
         return state.replace(params=new_params, opt_state=new_opt, it=state.it + 1), loss_dict
 
 
-def _port(fused: bool):
-    cfg = _cfg(fused)
+def _port(fused: bool, points: int = S):
+    cfg = _cfg(fused, points)
     scene = SceneData.from_dict(_scene()).to_device("cpu")
     mc = ModelConfigs.from_cfg(cfg, N_FRAMES)
     return cfg, scene, mc, Trainer(cfg, mc)
@@ -198,14 +199,18 @@ def test_step_from_converted_adam_moments(f32_run):
             np.testing.assert_allclose(state.opt_state[g].nu[k].numpy(), r, rtol=1e-3, atol=1e-12)
 
 
-def test_fused_step_matches_jax_fused_bf16():
+@pytest.mark.parametrize("points", [S, 384])
+def test_fused_step_matches_jax_fused_bf16(points):
     """The fused branch (the plain version of the train kernel) against the JAX
-    fused path, the Pallas train kernel in interpret mode."""
+    fused path, the Pallas train kernel in interpret mode; also at 384 samples
+    a ray (three 128-sample tiles), which the JAX fused gate (num_points % 128
+    == 0) admits."""
     from jax.experimental.pallas import tpu as pltpu
-    jx = _Jax(fused=True)
-    cfg, scene, mc, trainer = _port(fused=True)
+    jx = _Jax(fused=True, points=points)
+    cfg, scene, mc, trainer = _port(fused=True, points=points)
+    assert mc.render.num_points == points
     weights = trainer.weights_at(0, SCHED_START)
-    ray_idx, key, noise = _pins(0)
+    ray_idx, key, noise = _pins(0, points)
     with pltpu.force_tpu_interpret_mode():
         g_ref, ld_ref = jx.grads(jx.state.params, 0, 1, weights, ray_idx, key)
     state = state_from_numpy(*_numpy_state(jx.state), device="cpu")
