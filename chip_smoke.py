@@ -125,6 +125,19 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    and one 1024 x 2048 train step (K1 in 8 chunks) with its peak memory.
    `python3 chip_smoke.py --many-samples` builds the kernels and runs this
    phase alone;
+13. holds the forward kernels at hidden_dim 384 and 512 (the 64-point trunk
+   of csrc/mlp_fwd_wide_sm90.cuh), after phase 12: K3 at S = 128 and 1024 on
+   133 rays and K5 at 1, 127 and 196,645 points against their plain
+   versions over two flag sets (softplus; relu with dist_alpha), two
+   launches bit-equal; then at each width the render path from a checkpoint
+   of seeded random weights the port wrote: cli.render over 3 views at
+   188x621 (K3 once a frame, view 0's rows 0-7 against the plain version),
+   Trainer.render_frame fused (K3 once) and with n_importance 64 (K5 twice a
+   chunk), each with rows 0-7 against the plain versions; at 512, K1, K4
+   frozen and K6 raising NotImplementedError with no launch, and point_mlp
+   under autograd raising at its backward after K5's one launch.
+   `python3 chip_smoke.py --wide` builds the kernels and runs this phase
+   alone;
 9. times each path and each kernel at its main path's shapes (CUDA events;
    dw_sm90 also on its own over K1's and K4 full's 11 blocks, beside the
    bytes of the operands those kernels hand it; K2 and K7 through their
@@ -132,8 +145,10 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    floor of their hot loop's SASS; K1, K4 full and K4 frozen again at the
    512-sample path's 1024 x 512 and K3 per 188x621 frame at 2048 samples, each
    held against its plain version at that shape and timed beside its bound,
-   with a `many_samples` JSON line), prints one `kernels` JSON line and,
-   last, {"ok": true, "device": {...}}.
+   with a `many_samples` JSON line; per width of phase 13 a frame end to end,
+   K3 over its rays and K5 at 196,608 points, each held against its plain
+   version and timed beside its bound, with a `wide` JSON line), prints one
+   `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 It exits non-zero, and prints no result, when CUDA is missing, outside a
 checkout, or when any phase fails. It imports nothing of JAX.
 """
@@ -902,16 +917,40 @@ def check_chamfer_nearest(torch, dev, gen) -> float:
     return worst
 
 
+def novel_view0(torch, dev, cfg, rcfg, scene, params):
+    """(the novel trajectory cli.render takes, view0_inputs): view0_inputs(rows,
+    points=0) gives the fused render's (ray table, z, ray norms) of the first
+    `rows` rows of novel view 0 at RESOLUTION (at `points` samples, else
+    rcfg's)."""
+    from nope_nerf_torch.cli.render import novel_trajectory
+    from nope_nerf_torch.geometry.camera import pixel_grid, rigid_inverse
+    from nope_nerf_torch.ops.render import _ray_geometry, fused_inputs
+    h, w = RESOLUTION
+    traj = novel_trajectory(cfg, scene, params)
+    camera_mat = torch.as_tensor(scene.K, device=dev)
+    world_mat = rigid_inverse(torch.as_tensor(traj[0], device=dev))
+    pixels = torch.from_numpy(pixel_grid(RESOLUTION)[1]).to(dev)
+    ones = torch.ones((h * w, 1), device=dev)
+
+    def view0_inputs(rows: int, points: int = 0):
+        rc = dataclasses.replace(rcfg, num_points=points) if points else rcfg
+        geo = _ray_geometry(pixels[:rows * w], ones[:rows * w], camera_mat, world_mat, None,
+                            None, rc, False)
+        table, z = fused_inputs(geo, rc)
+        return table, z, geo["ray_norm"]
+
+    return traj, view0_inputs
+
+
 def run_render_path(torch, np, dev, gen):
     """Phase 3. Returns what the timings need: (launches, params, traj, scene, ncfg, rcfg)."""
-    from nope_nerf_torch.cli.render import load_scene, novel_trajectory, render
+    from nope_nerf_torch.cli.render import load_scene, render
     from nope_nerf_torch.config import DEFAULTS, update_recursive
-    from nope_nerf_torch.geometry.camera import pixel_grid, rigid_inverse
     from nope_nerf_torch.geometry.lie import log_so3
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
     from nope_nerf_torch.ops.fused_render import (RENDER_FWD, render_rays_fused,
                                                   render_rays_fused_plain)
-    from nope_nerf_torch.ops.render import RenderConfig, _ray_geometry, fused_inputs
+    from nope_nerf_torch.ops.render import RenderConfig
     from nope_nerf_torch.training.checkpoints import load_params, save_params
 
     scene = load_scene("driving")
@@ -953,19 +992,7 @@ def run_render_path(torch, np, dev, gen):
           f"{d0.mean():.4f} std {d0.std():.4f} min {d0.min():.4f} max {d0.max():.4f}")
 
     # a row slab of view 0 through the plain version on the card
-    traj = novel_trajectory(cfg, scene, params)
-    camera_mat = torch.as_tensor(scene.K, device=dev)
-    world_mat = rigid_inverse(torch.as_tensor(traj[0], device=dev))
-    pixels = torch.from_numpy(pixel_grid(RESOLUTION)[1]).to(dev)
-    ones = torch.ones((n_rays, 1), device=dev)
-
-    def view0_inputs(rows: int, points: int = 0):
-        rc = dataclasses.replace(rcfg, num_points=points) if points else rcfg
-        geo = _ray_geometry(pixels[:rows * w], ones[:rows * w], camera_mat, world_mat, None,
-                            None, rc, False)
-        table, z = fused_inputs(geo, rc)
-        return table, z, geo["ray_norm"]
-
+    traj, view0_inputs = novel_view0(torch, dev, cfg, rcfg, scene, params)
     table, z, ray_norm = view0_inputs(8)
     ref = render_rays_fused_plain(params["nerf"], table, z, ncfg, rcfg.dist_alpha, want_aux=True)
     got_rgb = torch.as_tensor(frames[0]["rgb"][:8].reshape(-1, 3), device=dev)
@@ -3018,6 +3045,331 @@ def run_many_samples(torch, np, dev) -> dict:
     return out
 
 
+# ---- phase 13: hidden_dim 384 and 512 on the forward trunk (K3, K5) --------------------
+
+WIDE_D = (384, 512)               # the widths of mlp_fwd_wide_sm90.cuh's 64-point trunk
+WIDE_S = (128, 1024)              # K3 on MANY_S_RAYS rays
+WIDE_M = (1, 127, POINT_CHECK_M)  # K5: one point, a ragged tile, the fine pass made ragged
+# (occupancy activation, head and renderer dist_alpha)
+WIDE_FLAGS = (("softplus", False), ("relu", True))
+WIDE_PATH_D = 512                 # model.hidden_dim of the phase's main path
+
+
+def check_wide_kernels(torch, dev) -> dict:
+    """Phase 13 (a): K3 at S = 128 and 1024 on MANY_S_RAYS rays and K5 at the
+    point counts of WIDE_M, at D = 384 and 512, over both flag sets of
+    WIDE_FLAGS: within tolerance() of the plain version, two launches
+    bit-equal. Returns the worst error by kernel and width; fails if any
+    case disagrees."""
+    from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
+    from nope_nerf_torch.ops.fused_mlp import _mlp_fwd_cuda, point_mlp_fwd_plain
+    from nope_nerf_torch.ops.fused_render import render_rays_fused, render_rays_fused_plain
+    gen = torch.Generator().manual_seed(SEED + 31)
+    worst, failed = {}, []
+
+    def hold(kernel, D, case, names, got, again, ref):
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise RuntimeError(f"{kernel}: two launches differ ({case})")
+        report = []
+        for name, g, r in zip(names, got, ref):
+            err, tol = max_err(g, r), tolerance(r)
+            worst[(kernel, D)] = max(worst.get((kernel, D), 0.0), err)
+            report.append(f"{name} {err:.3g}/{tol:.3g}")
+            if not err <= tol:
+                failed.append(f"{kernel}: {name} err {err:.3g} > {tol:.3g} ({case})")
+        return ", ".join(report)
+
+    for D in WIDE_D:
+        for S in WIDE_S:
+            rays, z, _ = train_inputs(torch, dev, gen, MANY_S_RAYS, S)
+            for occ, da in WIDE_FLAGS:
+                ncfg, params = many_params(torch, dev, gen, D, occ, da, S)
+                case = f"D={D} S={S} occ={occ} dist_alpha={da}"
+                got = render_rays_fused(params, rays, z, ncfg, da, True)
+                again = render_rays_fused(params, rays, z, ncfg, da, True)
+                ref = render_rays_fused_plain(params, rays, z, ncfg, da, True)
+                text = hold("render_fwd", D, case, ("rgb", "dist", "weights", "alpha"), got,
+                            again, ref)
+                print(f"render_fwd vs plain, {case}, {MANY_S_RAYS} rays: {text}; two launches "
+                      "bit-equal")
+        for M in WIDE_M:
+            pts, dirs = point_inputs(torch, dev, gen, M)
+            for occ, da in WIDE_FLAGS:
+                ncfg = NerfConfig(hidden_dim=D, occ_activation=occ, dist_alpha=da,
+                                  use_pallas=True)
+                params = init_nerf_params(ncfg, gen, device=dev)
+                case = f"D={D} {M} points occ={occ} head_dist_alpha={da}"
+                got = _mlp_fwd_cuda(params, pts, dirs, ncfg)
+                again = _mlp_fwd_cuda(params, pts, dirs, ncfg)
+                ref = point_mlp_fwd_plain(params, pts, dirs, ncfg)
+                text = hold("point_mlp_fwd", D, case, ("rgb", "density"), got, again, ref)
+                print(f"point_mlp_fwd vs plain, {case}: {text}; two launches bit-equal")
+    if failed:
+        raise RuntimeError("wide widths: kernels disagree with their plain versions: "
+                           + "; ".join(failed))
+    return worst
+
+
+def raises_unlaunched(torch, fn, what: str, expected: dict) -> None:
+    """fn() must raise NotImplementedError with the launch counts, set to 0
+    just before and read just after, equal to `expected` (a kernel it does
+    not name: 0)."""
+    libs = kernel_counters()
+    for lib in libs.values():
+        lib.launches = 0
+    try:
+        fn()
+    except NotImplementedError as e:
+        message = str(e)
+    else:
+        raise RuntimeError(f"{what}: no NotImplementedError")
+    torch.cuda.synchronize()
+    counts = {name: lib.launches for name, lib in libs.items()}
+    if counts != {name: expected.get(name, 0) for name in libs}:
+        raise RuntimeError(f"{what}: launch counts {counts}, expected {expected}")
+    print(f"{what}: NotImplementedError, launches "
+          + (", ".join(f"{k} {v}" for k, v in expected.items()) or "none")
+          + f" ({message.split(':')[0]})")
+
+
+def run_wide_path(torch, np, dev, D: int) -> dict:
+    """Phase 13 (b) at model.hidden_dim D: cli.render over N_VIEWS novel views at
+    188x621 from a checkpoint of seeded random weights written by the port (K3
+    once a frame; frames finite; rows 0-7 of view 0 against the plain version),
+    Trainer.render_frame at 188x621 (K3 once) and with rendering.n_importance
+    N_IMPORTANCE (K5 twice a chunk), each with rows 0-7 against the plain
+    versions; at WIDE_PATH_D, one call each of K1, K4 and K6 raising
+    NotImplementedError before any launch, and point_mlp under autograd
+    raising at its backward after K5's one launch. Returns what the timings
+    need."""
+    from nope_nerf_torch.cli.render import load_scene, render
+    from nope_nerf_torch.config import load_config
+    from nope_nerf_torch.data import SceneData, batch_for_frame, make_synthetic_scene
+    from nope_nerf_torch.geometry.lie import log_so3
+    from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
+    from nope_nerf_torch.ops.fused_mlp import _mlp_bwd_cuda, point_mlp
+    from nope_nerf_torch.ops.fused_render import (_render_bwd_cuda, plain_versions,
+                                                  render_ray_loss_fused,
+                                                  render_rays_fused_plain)
+    from nope_nerf_torch.ops.render import RenderConfig
+    from nope_nerf_torch.training import ModelConfigs, Trainer, create_train_state
+    from nope_nerf_torch.training.checkpoints import load_params, save_params
+
+    h, w = RESOLUTION
+    out = {}
+    scene = load_scene("driving")
+    with tempfile.TemporaryDirectory() as out_dir:
+        cfg = load_config(overrides={"model": {"hidden_dim": D},
+                                     "training": {"out_dir": out_dir},
+                                     "extract_images": {"resolution": list(RESOLUTION),
+                                                        "N_novel_imgs": N_VIEWS}})
+        ncfg, rcfg = NerfConfig.from_cfg(cfg), RenderConfig.from_cfg(cfg)
+        if not ncfg.use_pallas:
+            raise RuntimeError(f"hidden_dim {D}: the config does not take the fused route")
+        c2ws = torch.as_tensor(scene.c2ws_gt)
+        nerf = init_nerf_params(ncfg, torch.Generator().manual_seed(SEED + 32), device=dev)
+        nerf["density_b"] = nerf["density_b"] + DENSITY_SHIFT
+        save_params(out_dir, cfg["extract_images"]["model_file"],
+                    {"nerf": nerf, "pose": {"r": log_so3(c2ws[:, :3, :3]).to(dev),
+                                            "t": c2ws[:, :3, 3].contiguous().to(dev)}})
+        frames, out["render_counts"] = counted(
+            lambda: render(cfg, synthetic="driving", device=dev, save=False),
+            {"render_fwd": N_VIEWS}, f"cli.render, hidden_dim {D}, {N_VIEWS} views at {h}x{w}")
+        params, _ = load_params(out_dir, cfg["extract_images"]["model_file"], device=dev)
+    for f in frames:
+        if (f["rgb"].shape != (h, w, 3) or f["depth"].shape != (h, w)
+                or not (np.isfinite(f["rgb"]).all() and np.isfinite(f["depth"]).all())):
+            raise RuntimeError(f"hidden_dim {D}: cli.render gave a misshapen or non-finite frame")
+    traj, view0_inputs = novel_view0(torch, dev, cfg, rcfg, scene, params)
+    table, z, ray_norm = view0_inputs(8)
+    ref = render_rays_fused_plain(params["nerf"], table, z, ncfg, rcfg.dist_alpha,
+                                  want_aux=False)
+    report = []
+    for name, g, r in (("rgb", frames[0]["rgb"][:8].reshape(-1, 3), ref[0]),
+                       ("depth", frames[0]["depth"][:8].reshape(-1), ref[1] / ray_norm)):
+        err, tol = max_err(torch.as_tensor(g, device=dev), r), tolerance(r)
+        report.append(f"{name} {err:.3g}/{tol:.3g}")
+        if not err <= tol:
+            raise RuntimeError(f"hidden_dim {D}: cli.render's view 0 disagrees with the plain "
+                               f"version: {name}")
+    print(f"cli.render, hidden_dim {D}: frames finite; view 0 rgb mean "
+          f"{frames[0]['rgb'].mean():.4f}, depth mean {frames[0]['depth'].mean():.4f}; rows 0-7 "
+          "vs plain " + ", ".join(report))
+    out.update(params=params, traj=traj, scene=scene, ncfg=ncfg, rcfg=rcfg,
+               view0_inputs=view0_inputs)
+
+    # Trainer.render_frame, fused (K3) and hierarchical (K5 twice a chunk), from one state
+    tscene = SceneData.from_dict(make_synthetic_scene(n_frames=4, h=h, w=w)).to_device(dev)
+    fcfg = load_config(overrides={"model": {"hidden_dim": D},
+                                  "training": {"n_training_points": TRAIN_RAYS},
+                                  "pose": {"learn_pose": True, "init_pose": True}})
+    fmc = ModelConfigs.from_cfg(fcfg, num_cams=tscene.n_frames)
+    hcfg = hier_config(model={"hidden_dim": D})
+    hmc = ModelConfigs.from_cfg(hcfg, num_cams=tscene.n_frames)
+    state = create_train_state(SEED, fmc, init_c2w=tscene.c2ws_gt, device=dev)
+    state.params["nerf"]["density_b"] += DENSITY_SHIFT
+    batch = batch_for_frame(tscene, 1)
+    chunks = math.ceil(h * w / 131072)
+    hier_trainer = Trainer(hcfg, hmc)
+    for name, trainer, expected in (
+            ("fused", Trainer(fcfg, fmc), {"render_fwd": chunks}),
+            (f"hierarchical (n_importance {N_IMPORTANCE})", hier_trainer,
+             {"point_mlp_fwd": 2 * chunks})):
+        frame, counts = counted(lambda: trainer.render_frame(state, batch, RESOLUTION), expected,
+                                f"Trainer.render_frame {h}x{w}, hidden_dim {D}, {name}, "
+                                f"{chunks} chunk")
+        with plain_versions():
+            slab = trainer.render_frame(state, batch, RESOLUTION, rows=(0, 8))
+        report = []
+        for key in ("rgb", "depth"):
+            g, r = torch.as_tensor(frame[key][:8]), torch.as_tensor(slab[key])
+            err, tol = max_err(g, r), tolerance(r)
+            report.append(f"{key} {err:.3g}/{tol:.3g}")
+            if not (np.isfinite(frame[key]).all() and err <= tol):
+                raise RuntimeError(f"hidden_dim {D}: the {name} frame is not finite or its rows "
+                                   f"0-7 disagree with the plain versions: {key}")
+        print(f"Trainer.render_frame, hidden_dim {D}, {name}: finite; rgb mean "
+              f"{frame['rgb'].mean():.4f}; rows 0-7 vs plain versions " + ", ".join(report))
+        out["fused_frame_counts" if name == "fused" else "hier_frame_counts"] = counts
+    out.update(state=state, batch=batch, hier_trainer=hier_trainer)
+
+    if D == WIDE_PATH_D:
+        # the kernels that do not take this width yet raise before any device work
+        gen = torch.Generator().manual_seed(SEED + 33)
+        rays, tz, tgt = train_inputs(torch, dev, gen, 133)
+        nerf = state.params["nerf"]
+        raises_unlaunched(torch, lambda: render_ray_loss_fused(nerf, rays, tz, tgt, ncfg, False, 1,
+                                                               False),
+                          f"render_train (K1) at hidden_dim {D}", {})
+        g_rgb, g_dist = torch.ones(133, 3, device=dev), torch.ones(133, device=dev)
+        raises_unlaunched(torch, lambda: _render_bwd_cuda(nerf, rays, tz, g_rgb, g_dist, None,
+                                                          None, ncfg, False,
+                                                          want_param_grads=False),
+                          f"render_bwd frozen (K4) at hidden_dim {D}", {})
+        pts, dirs = point_inputs(torch, dev, gen, 1000)
+        g_prgb, g_den = torch.ones(1000, 3, device=dev), torch.ones(1000, 1, device=dev)
+        raises_unlaunched(torch, lambda: _mlp_bwd_cuda(nerf, pts, dirs, g_prgb, g_den, ncfg),
+                          f"point_mlp_bwd (K6) at hidden_dim {D}", {})
+        leaf = {k: v.detach().requires_grad_(True) for k, v in nerf.items()}
+
+        def autograd_backward():
+            rgb, den = point_mlp(leaf, pts, dirs, ncfg)
+            (rgb.sum() + den.sum()).backward()
+        raises_unlaunched(torch, autograd_backward,
+                          f"point_mlp under autograd at hidden_dim {D}, its backward",
+                          {"point_mlp_fwd": 1})
+    return out
+
+
+def run_wide(torch, np, dev) -> dict:
+    """Phase 13: (a) the kernels at both widths, (b) the path at each."""
+    t_phase = time.perf_counter()
+    out = {"worst": check_wide_kernels(torch, dev)}
+    for D in WIDE_D:
+        out[D] = run_wide_path(torch, np, dev, D)
+    print(f"wide phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return out
+
+
+def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
+    """Phase 9's part for phase 13: per width, a 188x621 frame end to end
+    (render_trajectory), K3 over the frame's rays at 128 samples and K5 at
+    the fine pass's 196,608 points, each beside its bound and its plain
+    version (timed once, its output held against the kernel's); the
+    hierarchical frame end to end at WIDE_PATH_D. Returns the `kernels` JSON
+    entries."""
+    from nope_nerf_torch.evaluation.extract import render_trajectory
+    from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
+    from nope_nerf_torch.ops.fused_mlp import _mlp_fwd_cuda, point_mlp_fwd_plain
+    from nope_nerf_torch.ops.fused_render import (pack_weights, render_rays_fused,
+                                                  render_rays_fused_plain)
+
+    def timed_once(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    h, w = RESOLUTION
+    n_rays = h * w
+    fine_m = TRAIN_RAYS * (128 + N_IMPORTANCE)
+    gen = torch.Generator().manual_seed(SEED + 34)
+    pts, dirs = point_inputs(torch, dev, gen, fine_m)
+    entries, summary = [], {"card": smi}
+    for D in WIDE_D:
+        p = wide[D]
+        ncfg, rcfg, nerf = p["ncfg"], p["rcfg"], p["params"]["nerf"]
+        frame_ms = time_ms(lambda: render_trajectory(nerf, p["traj"][:1], p["scene"].K,
+                                                     RESOLUTION, ncfg, rcfg, device=dev), 2)
+        fwd_ms = time_ms(lambda: render_rays_fused(nerf, table, z, ncfg, rcfg.dist_alpha,
+                                                   want_aux=False), 3)
+        got = render_rays_fused(nerf, table, z, ncfg, rcfg.dist_alpha, want_aux=False)
+        ref, plain_ms = timed_once(lambda: render_rays_fused_plain(nerf, table, z, ncfg,
+                                                                   rcfg.dist_alpha,
+                                                                   want_aux=False))
+        errs = [max_err(g, r) for g, r in zip(got[:2], ref[:2])]
+        tols = [tolerance(r) for r in ref[:2]]
+        if not all(e <= t for e, t in zip(errs, tols)):
+            raise RuntimeError(f"render_fwd over the frame at hidden_dim {D} disagrees with its "
+                               f"plain version: {errs} > {tols}")
+        del got, ref
+        flops = mlp_flops(D, n_rays, z.shape[1])
+        nbytes = (table.numel() + z.numel() + 4 * n_rays) * 4 + numel_bytes(
+            sum(pack_weights(nerf, ncfg), []))
+        f_bound, f_by, _, _ = bound(flops, PEAK_BF16_FLOPS, nbytes)
+        print(f"hidden_dim {D}: frame {h}x{w} {frame_ms:.2f} ms end to end "
+              f"({n_rays / frame_ms * 1e3:.0f} rays/s), render_fwd {fwd_ms:.2f} ms "
+              f"({flops / fwd_ms / 1e9:.1f} TFLOP/s, {fwd_ms / f_bound:.2f} x the bound "
+              f"{f_bound:.2f} ms by {f_by}, {flops / 1e12:.2f} TFLOP), plain version "
+              f"{plain_ms:.0f} ms; against it rgb {errs[0]:.3g}/{tols[0]:.3g}, dist "
+              f"{errs[1]:.3g}/{tols[1]:.3g}")
+        entries.append({"name": f"render_fwd (hidden_dim {D})", "route": "cuda",
+                        "source": "nope_nerf_torch/csrc/render_fwd.cu",
+                        "replaces": "nope_nerf_tpu/ops/pallas_render.py:368",
+                        "launches": p["render_counts"]["render_fwd"],
+                        "max_abs_err": max(wide["worst"][("render_fwd", D)], *errs),
+                        "ms": fwd_ms, "plain_ms": plain_ms, "bound_ms": f_bound,
+                        "bound_by": f_by, "library_ms": None})
+        summary[f"frame_ms_{D}"] = frame_ms
+        summary[f"render_fwd_ms_{D}"] = fwd_ms
+
+        pcfg = NerfConfig(hidden_dim=D, use_pallas=True)
+        pparams = init_nerf_params(pcfg, gen, device=dev)
+        pf_ms = time_ms(lambda: _mlp_fwd_cuda(pparams, pts, dirs, pcfg), 10)
+        got = _mlp_fwd_cuda(pparams, pts, dirs, pcfg)
+        ref, pplain_ms = timed_once(lambda: point_mlp_fwd_plain(pparams, pts, dirs, pcfg))
+        perr = max(max_err(g, r) for g, r in zip(got, ref))
+        if not all(max_err(g, r) <= tolerance(r) for g, r in zip(got, ref)):
+            raise RuntimeError(f"point_mlp_fwd at {fine_m} points, hidden_dim {D}, disagrees "
+                               "with its plain version")
+        W, B = pack_weights(pparams, pcfg)
+        p_flops = mlp_flops(D, 1, 1) * fine_m
+        p_bound, p_by, _, _ = bound(p_flops, PEAK_BF16_FLOPS,
+                                    40 * fine_m + numel_bytes(W) + numel_bytes(B))
+        print(f"hidden_dim {D}: point_mlp_fwd {fine_m} points {pf_ms:.3f} ms "
+              f"({p_flops / pf_ms / 1e9:.1f} TFLOP/s, {pf_ms / p_bound:.2f} x the bound "
+              f"{p_bound:.3f} ms by {p_by}, {p_flops / 1e12:.3f} TFLOP), plain version "
+              f"{pplain_ms:.1f} ms; max err {perr:.3g}")
+        entries.append({"name": f"point_mlp_fwd (hidden_dim {D})", "route": "cuda",
+                        "source": "nope_nerf_torch/csrc/point_mlp_fwd.cu",
+                        "replaces": "nope_nerf_tpu/ops/pallas_mlp.py:186",
+                        "launches": p["hier_frame_counts"]["point_mlp_fwd"],
+                        "max_abs_err": max(wide["worst"][("point_mlp_fwd", D)], perr),
+                        "ms": pf_ms, "plain_ms": pplain_ms, "bound_ms": p_bound,
+                        "bound_by": p_by, "library_ms": None})
+        summary[f"point_mlp_fwd_ms_{D}"] = pf_ms
+        hier = p["hier_trainer"]
+        summary[f"hier_frame_ms_{D}"] = time_ms(
+            lambda: hier.render_frame(p["state"], p["batch"], RESOLUTION), 2)
+        print(f"hidden_dim {D}: hierarchical render_frame {h}x{w} "
+              f"{summary[f'hier_frame_ms_{D}']:.2f} ms end to end")
+    print(json.dumps({"wide": summary}))
+    return entries
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3073,6 +3425,10 @@ def main() -> int:
         # phase 12 alone, for work on the sample counts (the full run takes every phase)
         run_many_samples(torch, np, dev)
         return 0
+    if sys.argv[1:2] == ["--wide"]:
+        # phase 13 alone, for work on the wide trunk (the full run takes every phase)
+        run_wide(torch, np, dev)
+        return 0
 
     # ---- 2. each kernel against its plain version ---------------------------
     gen = torch.Generator().manual_seed(SEED)
@@ -3126,6 +3482,9 @@ def main() -> int:
 
     # ---- 12. every sample count: the kernels at 256 to 4096 samples, the path at 512
     many = run_many_samples(torch, np, dev)
+
+    # ---- 13. hidden_dim 384 and 512: K3 and K5 on the wide trunk, the render path at each
+    wide = run_wide(torch, np, dev)
 
     # ---- 9. timing at the main paths' shapes ---------------------------------
     h, w = RESOLUTION
@@ -3534,6 +3893,7 @@ def main() -> int:
           f"({fwd16_flops / fwd16_ms / 1e9:.1f} TFLOP/s, {fwd16_ms / fwd16_bound:.2f} x the bound "
           f"{fwd16_bound:.2f} ms by {fwd16_by}), plain version {fwd16_plain_ms:.0f} ms in slices "
           f"of 512 rays; against it " + ", ".join(report))
+    wide_entries = time_wide(torch, dev, wide, table, z, smi)
     print(json.dumps({"many_samples": {
         "card": smi, "chunked_1024x2048": many["chunked"],
         "step_1024x2048_peak_gb": many["step_peak_gb"],
@@ -3645,7 +4005,7 @@ def main() -> int:
          "launches": many["frame_counts"]["render_fwd"],
          "max_abs_err": fwd16_err, "ms": fwd16_ms,
          "plain_ms": fwd16_plain_ms, "bound_ms": fwd16_bound, "bound_by": fwd16_by,
-         "library_ms": None}]}))
+         "library_ms": None}] + wide_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

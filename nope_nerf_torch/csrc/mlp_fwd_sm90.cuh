@@ -448,12 +448,12 @@ __device__ __forceinline__ void mlp_tile90(const float* const* b, uint32_t pe, u
 }
 
 // The producer warpgroup's thread 0: the heads once, then `slices` slices per tile
-// for `tiles` tiles, each into the next free stage of the ring.
-template <int D>
+// for `tiles` tiles, each into the next free stage of the ring. T: the buffer's
+// layout (mlp_fwd_wide_sm90.cuh's TilesW at 384 and 512).
+template <int D, class T = Tiles<D>>
 __device__ __forceinline__ void produce(const unsigned char* __restrict__ w, uint32_t heads,
                                         uint32_t head_bar, Ring ring, long long tiles,
                                         int slices) {
-  using T = Tiles<D>;
   mbar_expect_tx(head_bar, T::kDensHead + T::kRgbHead);
   bulk_load(heads, w + T::kHeads, T::kDensHead + T::kRgbHead, head_bar);
   for (long long tile = 0; tile < tiles; ++tile) {
@@ -521,10 +521,10 @@ struct RayPlace {
   }
 };
 
-template <int D>
+template <int D, class L = Layout90<D>>
 RayPlace ray_place(int S, int sample_floats, int composite_floats, size_t fixed, size_t room) {
   RayPlace p{1, 1, sample_floats, composite_floats};
-  p.samples_smem = Layout90<D>(false, p.area(fixed, S)).stages >= 2;
+  p.samples_smem = L(false, p.area(fixed, S)).stages >= 2;
   p.composite_smem = sizeof(float) * composite_floats * static_cast<size_t>(S) <= room;
   return p;
 }
@@ -601,14 +601,14 @@ __device__ __forceinline__ void wait_free(uint32_t free_bar, long long tile) {
 // dense_lane), bf16, written swizzled into the block `enc`. coord(p, c) is
 // coordinate c of point p. An item is one (level, coordinate) pair of a point,
 // whose sine and cosine come from one sincosf, or the point's identity and
-// zero lanes.
-template <int LEVELS, int LANES, typename Coord>
+// zero lanes. P: the tile's points (64 in mlp_fwd_wide_sm90.cuh's trunk).
+template <int LEVELS, int LANES, int P = kPts, typename Coord>
 __device__ __forceinline__ void encode_tile(unsigned char* enc, int etid, Coord coord) {
   constexpr int kItems = 3 * LEVELS + 1;
   auto put = [enc](int p, int k, float v) {
     *reinterpret_cast<bf16*>(enc + swz(p, k, 0)) = __float2bfloat16_rn(v);
   };
-  for (int e = etid; e < kPts * kItems; e += kEncoders) {
+  for (int e = etid; e < P * kItems; e += kEncoders) {
     const int p = e / kItems, j = e % kItems;
     if (j < 3 * LEVELS) {
       float sn, cs;

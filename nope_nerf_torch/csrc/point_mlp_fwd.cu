@@ -25,7 +25,8 @@
 // and 1.2 MB of weights per launch: at the main path's 131,072 and 196,608
 // points the least time is the FLOPs over the card's dense bf16 rate.
 //
-// Design: the wgmma trunk of mlp_fwd_sm90.cuh over 128 consecutive points.
+// Design: the wgmma trunk of mlp_fwd_sm90.cuh over 128 consecutive points at
+// D = 128 and 256, that of mlp_fwd_wide_sm90.cuh over 64 at 384 and 512.
 // Persistent CTAs, at most one per SM, walk over the passes blockIdx.x,
 // blockIdx.x + gridDim.x, ...; the producer warpgroup streams the weight
 // slices through the ring across passes and encodes the next pass's points
@@ -36,51 +37,61 @@
 // Shared memory at D=256: activations 64 KB, position and direction
 // encodings one 16 KB block each, resident heads 6 KB, raw heads 2 KB,
 // barriers and slack ~1.2 KB, and a ring of 3 stages of 32 KB (201 KB of 227).
+// At D=512: activations 2 x 64 KB, encodings 8 KB each, heads 12 KB, raw
+// heads 1 KB and 2 stages of 32 KB (222 KB); at 384, 4 stages of 24 KB.
+//
+// Bound at the wide widths: 0.514 TFLOP at 196,608 points at D = 384 and
+// 0.905 at D = 512, the FLOPs over the dense bf16 rate.
 
-#include "mlp_fwd_sm90.cuh"
+#include "mlp_fwd_wide_sm90.cuh"
 
 namespace {
 
-// f32 arrays: raw heads (128, 4).
-constexpr size_t kPointF32Bytes = sizeof(float) * kPts * 4;
+// f32 arrays: raw heads (points of a tile, 4).
+template <int D>
+constexpr size_t point_f32_bytes() {
+  return sizeof(float) * FwdTrunk<D>::kRows * 4;
+}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads90, 1)
 point_mlp_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
                      const unsigned char* __restrict__ tiles, Biases bias,
                      float* __restrict__ rgb, float* __restrict__ density, long long M,
-                     int occ_softplus, int head_dist_alpha, Layout90<D> L) {
-  using T = Tiles<D>;
+                     int occ_softplus, int head_dist_alpha, typename FwdTrunk<D>::Layout L) {
+  using F = FwdTrunk<D>;
+  using T = typename F::T;
+  constexpr int P = F::kRows;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = setup90(smem_raw, L.bars, L.stages);
   Ring ring = make_ring(base, L.ring, L.bars, T::kFull, L.stages);
   const uint32_t head_bar = ring.full + 16 * kMaxStages;
   const uint32_t heads = smem_addr(base + L.heads);
   const Handoff hand = make_handoff(ring);
-  const long long n_pass = (M + kPts - 1) / kPts;
+  const long long n_pass = (M + P - 1) / P;
 
   if (threadIdx.x >= kConsumers) {
     set_producer_regs();
     const int etid = threadIdx.x - kConsumers - 32;
     if (threadIdx.x == kConsumers) {
       const long long mine = (n_pass - blockIdx.x + gridDim.x - 1) / gridDim.x;
-      produce<D>(tiles, heads, head_bar, ring, mine, T::kPoint);
+      F::feed(tiles, heads, head_bar, ring, mine, T::kPoint);
     } else if (etid >= 0) {
-      // encoders: the CTA's passes in order, rows n..127 of a ragged last
+      // encoders: the CTA's passes in order, rows n..P-1 of a ragged last
       // pass from zero points and directions
       unsigned char* pe = base + L.pe;
       unsigned char* de = base + L.de;
       long long tile = 0;
       for (long long pass = blockIdx.x; pass < n_pass; pass += gridDim.x, ++tile) {
-        const long long p0 = pass * kPts;
-        const int n = static_cast<int>(M - p0 < kPts ? M - p0 : kPts);
+        const long long p0 = pass * P;
+        const int n = static_cast<int>(M - p0 < P ? M - p0 : P);
         wait_free(hand.pe_free, tile);
-        encode_tile<10, kPe>(pe, etid, [&](int p, int c) {
+        encode_tile<10, kPe, P>(pe, etid, [&](int p, int c) {
           return p < n ? pts[3 * (p0 + p) + c] : 0.f;
         });
         hand_over(hand.pe_full);
         wait_free(hand.de_free, tile);
-        encode_tile<4, kDe>(de, etid, [&](int p, int c) {
+        encode_tile<4, kDe, P>(de, etid, [&](int p, int c) {
           return p < n ? dirs[3 * (p0 + p) + c] : 0.f;
         });
         hand_over(hand.de_full);
@@ -90,17 +101,17 @@ point_mlp_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ di
   }
   set_consumer_regs();
 
-  float* hout = reinterpret_cast<float*>(base + L.f32);   // rgb raw | sigma raw (128, 4)
+  float* hout = reinterpret_cast<float*>(base + L.f32);   // rgb raw | sigma raw (P, 4)
   const uint32_t pe_s = smem_addr(base + L.pe), de_s = smem_addr(base + L.de);
   const int tid = threadIdx.x;
   mbar_wait(head_bar, 0);
 
   long long tile = 0;
   for (long long pass = blockIdx.x; pass < n_pass; pass += gridDim.x, ++tile) {
-    const long long p0 = pass * kPts;
-    const int n = static_cast<int>(M - p0 < kPts ? M - p0 : kPts);
-    mlp_tile90<D>(bias.b, pe_s, de_s, base + L.act, heads, heads + T::kDensHead, bias.b[10],
-                  hout, hand, tile, ring);
+    const long long p0 = pass * P;
+    const int n = static_cast<int>(M - p0 < P ? M - p0 : P);
+    F::tile(bias.b, pe_s, de_s, base + L.act, heads, heads + T::kDensHead, bias.b[10], hout, hand,
+            tile, ring);
     consumer_sync();   // both warpgroups' raw heads are in
     for (int p = tid; p < n; p += kConsumers) {
       const float sigma = density_act(hout[4 * p + 3], occ_softplus);
@@ -116,16 +127,16 @@ template <int D>
 cudaError_t launch_fwd(const float* pts, const float* dirs, const unsigned char* tiles,
                        const Biases& bias, float* rgb, float* density, long long M,
                        int occ_softplus, int head_dist_alpha, cudaStream_t stream) {
-  const Layout90<D> L(true, kPointF32Bytes);
+  const typename FwdTrunk<D>::Layout L(true, point_f32_bytes<D>());
   if (L.stages < 2) return cudaErrorInvalidValue;
-  const size_t smem = L.bytes(kPointF32Bytes);
+  const size_t smem = L.bytes(point_f32_bytes<D>());
   cudaError_t err = cudaFuncSetAttribute(point_mlp_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int sms = sm_count();
   if (sms <= 0) return cudaErrorInvalidDevice;
-  const long long n_pass = (M + kPts - 1) / kPts;
+  const long long n_pass = (M + FwdTrunk<D>::kRows - 1) / FwdTrunk<D>::kRows;
   const int grid = static_cast<int>(n_pass < sms ? n_pass : sms);
   point_mlp_fwd_kernel<D><<<grid, kThreads90, smem, stream>>>(
       pts, dirs, tiles, bias, rgb, density, M, occ_softplus, head_dist_alpha, L);
@@ -152,6 +163,12 @@ extern "C" int nerf_point_mlp_fwd(const float* pts, const float* dirs, const voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
+    case 512:
+      err = launch_fwd<512>(pts, dirs, w, bias, rgb, density, M, occ_softplus, head_dist_alpha, st);
+      break;
+    case 384:
+      err = launch_fwd<384>(pts, dirs, w, bias, rgb, density, M, occ_softplus, head_dist_alpha, st);
+      break;
     case 256:
       err = launch_fwd<256>(pts, dirs, w, bias, rgb, density, M, occ_softplus, head_dist_alpha, st);
       break;

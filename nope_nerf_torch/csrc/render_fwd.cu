@@ -23,12 +23,13 @@
 //
 // Design: persistent CTAs, at most one per SM, each walking over the rays
 // blockIdx.x, blockIdx.x + gridDim.x, ...; a ray's samples go through the MLP
-// in 128-point tiles on the wgmma trunk of mlp_fwd_sm90.cuh (two consumer
-// warpgroups; a producer warpgroup that streams pre-swizzled weight slices
-// through a ring of shared-memory stages by cp.async.bulk and mbarriers, and
-// encodes the next tile's sample positions meanwhile). The direction
-// encoding is per ray, so its rgb-hidden contribution is folded into that
-// layer's bias once per ray (the same fmaf order as before). The composite is
+// in 128-point tiles on the wgmma trunk of mlp_fwd_sm90.cuh at D = 128 and
+// 256, in 64-point tiles on that of mlp_fwd_wide_sm90.cuh at 384 and 512 (two
+// consumer warpgroups; a producer warpgroup that streams pre-swizzled weight
+// slices through a ring of shared-memory stages by cp.async.bulk and
+// mbarriers, and encodes the next tile's sample positions meanwhile). The
+// direction encoding is per ray, so its rgb-hidden contribution is folded into
+// that layer's bias once per ray (the same fmaf order as before). The composite is
 // a block-wide f32 Hillis-Steele scan over S in shared memory: the same order
 // of additions as the TPU kernel's lane scan. Every output is per ray: no
 // atomics, and the result is deterministic.
@@ -46,9 +47,15 @@
 // Any S % 128 == 0 runs: above S = 3,840 at D = 256 (7,168 at D = 128) z and
 // the raw heads, and above S = 5,376 (2,688) alpha and the scan buffers, go
 // to the CTA's share of a scratch in device memory (mlp_fwd_sm90.cuh's
-// RayPlace).
+// RayPlace). At D = 512 the activations take 128 KB and two ring stages 64 KB
+// (mlp_fwd_wide_sm90.cuh), so z and the raw heads leave shared memory above
+// S = 640 (at D = 384, above 3,200), alpha and the scan buffers above 10,880
+// (8,192).
+//
+// Bound at the wide widths: 38.9 TFLOP a 188x621 frame at D = 384 and 68.6 at
+// D = 512, again the FLOPs over the dense bf16 rate.
 
-#include "mlp_fwd_sm90.cuh"
+#include "mlp_fwd_wide_sm90.cuh"
 
 namespace {
 
@@ -64,7 +71,9 @@ size_t fixed_bytes() {
 
 template <int D>
 RayPlace fwd_place(int S) {
-  return ray_place<D>(S, kSampleF32, kCompositeF32, fixed_bytes<D>(), kPts * D * 2);
+  using F = FwdTrunk<D>;
+  return ray_place<D, typename F::Layout>(S, kSampleF32, kCompositeF32, fixed_bytes<D>(),
+                                          F::kActBytes);
 }
 
 // Over the consumer threads: alpha[s] from the
@@ -106,22 +115,23 @@ render_fwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
                   float* __restrict__ rgb_out, float* __restrict__ dist_out,
                   float* __restrict__ w_out, float* __restrict__ a_out, float* spill,
                   int n_rays, int S, int occ_softplus, int head_dist_alpha, int dist_alpha,
-                  Layout90<D> L, RayPlace place) {
-  using T = Tiles<D>;
+                  typename FwdTrunk<D>::Layout L, RayPlace place) {
+  using F = FwdTrunk<D>;
+  using T = typename F::T;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = setup90(smem_raw, L.bars, L.stages);
   Ring ring = make_ring(base, L.ring, L.bars, T::kFull, L.stages);
   const uint32_t head_bar = ring.full + 16 * kMaxStages;
   const uint32_t heads = smem_addr(base + L.heads);
   const Handoff hand = make_handoff(ring);
-  const int passes = S / kPts;
+  const int passes = S / F::kRows;
 
   if (threadIdx.x >= kConsumers) {
     set_producer_regs();
     const long long mine = (n_rays - static_cast<long long>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
     const int etid = threadIdx.x - kConsumers - 32;
     if (threadIdx.x == kConsumers) {
-      produce<D>(tiles, heads, head_bar, ring, mine * passes, T::kRender);
+      F::feed(tiles, heads, head_bar, ring, mine * passes, T::kRender);
     } else if (etid >= 0) {
       // encoders: the position encodings of the CTA's tiles in order, o + v*z
       // by explicitly rounded mul and add
@@ -134,10 +144,10 @@ render_fwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
           o[c] = rays[r * 9 + c];
           v[c] = rays[r * 9 + 3 + c];
         }
-        for (int p0 = 0; p0 < S; p0 += kPts, ++tile) {
+        for (int p0 = 0; p0 < S; p0 += F::kRows, ++tile) {
           wait_free(hand.pe_free, tile);
           const float* zt = z + r * S + p0;
-          encode_tile<10, kPe>(pe, etid, [&](int p, int c) {
+          encode_tile<10, kPe, F::kRows>(pe, etid, [&](int p, int c) {
             const float oc = c == 0 ? o[0] : (c == 1 ? o[1] : o[2]);
             const float vc = c == 0 ? v[0] : (c == 1 ? v[1] : v[2]);
             return __fadd_rn(oc, __fmul_rn(vc, zt[p]));
@@ -179,17 +189,14 @@ render_fwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
     consumer_sync();
     for (int j = tid; j < D / 2; j += kConsumers) {
       float acc = 0.f;
-      for (int k = 0; k < kDe; ++k) {
-        const bf16 wv = *reinterpret_cast<const bf16*>(tiles + T::kW12 + swz(j, k, 0));
-        acc = fmaf(de[k], __bfloat162float(wv), acc);
-      }
+      for (int k = 0; k < kDe; ++k) acc = fmaf(de[k], F::w12(tiles, j, k), acc);
       debias[j] = acc + bias.b[10][j];
     }
     consumer_sync();
 
-    for (int p0 = 0; p0 < S; p0 += kPts, ++tile)
-      mlp_tile90<D>(bias.b, pe_s, 0, base + L.act, heads, heads + T::kDensHead, debias,
-                    hout + 4 * p0, hand, tile, ring);
+    for (int p0 = 0; p0 < S; p0 += F::kRows, ++tile)
+      F::tile(bias.b, pe_s, 0, base + L.act, heads, heads + T::kDensHead, debias, hout + 4 * p0,
+              hand, tile, ring);
     consumer_sync();   // every tile's raw heads are in
 
     // ---- alpha and the f32 composite ----------------------------------------
@@ -241,7 +248,7 @@ cudaError_t launch(const float* rays, const float* z, const unsigned char* tiles
                    int dist_alpha, cudaStream_t stream) {
   const RayPlace place = fwd_place<D>(S);
   const size_t area = place.area(fixed_bytes<D>(), S);
-  const Layout90<D> L(false, area);
+  const typename FwdTrunk<D>::Layout L(false, area);
   if (L.stages < 2) return cudaErrorInvalidValue;
   if (place.spill_floats(S) > 0 && spill == nullptr) return cudaErrorInvalidValue;
   const size_t smem = L.bytes(area);
@@ -280,6 +287,14 @@ extern "C" int nerf_render_fwd(const float* rays, const float* z, const void* ti
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
+    case 512:
+      err = launch<512>(rays, z, w, bias, rgb, dist, w_out, a_out, static_cast<float*>(spill),
+                        n_rays, S, occ_softplus, head_dist_alpha, dist_alpha, st);
+      break;
+    case 384:
+      err = launch<384>(rays, z, w, bias, rgb, dist, w_out, a_out, static_cast<float*>(spill),
+                        n_rays, S, occ_softplus, head_dist_alpha, dist_alpha, st);
+      break;
     case 256:
       err = launch<256>(rays, z, w, bias, rgb, dist, w_out, a_out, static_cast<float*>(spill),
                         n_rays, S, occ_softplus, head_dist_alpha, dist_alpha, st);
@@ -296,12 +311,18 @@ extern "C" int nerf_render_fwd(const float* rays, const float* z, const void* ti
 
 // Bytes of nerf_render_fwd's spill scratch for n_rays x S at width D: the
 // per-sample arrays that do not fit in shared memory, for each CTA of the
-// grid (0 where everything fits, every S <= 1024); -1 for a width or an S
-// the kernel does not take.
+// grid (0 where everything fits, every S <= 1024 at D <= 256 and S <= 640 at
+// D = 512); -1 for a width or an S the kernel does not take.
 extern "C" long long nerf_render_fwd_spill(int n_rays, int S, int D) {
   if (S <= 0 || S % kPts != 0 || n_rays <= 0) return -1;
   long long per_cta;
   switch (D) {
+    case 512:
+      per_cta = fwd_place<512>(S).spill_floats(S);
+      break;
+    case 384:
+      per_cta = fwd_place<384>(S).spill_floats(S);
+      break;
     case 256:
       per_cta = fwd_place<256>(S).spill_floats(S);
       break;

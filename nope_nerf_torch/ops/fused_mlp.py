@@ -44,8 +44,8 @@ import torch
 from ..models.nerf import NerfConfig, _occupancy, bf16_round, softplus
 from ._build import CudaLibrary, runs_plain
 from .fused_render import (DE_DIM, PE_DIM, SWIZZLE_COLS, _backward_ctas, _enc_deriv_to_coords,
-                           _grad_blocks, _mlp_forward, _packed_tiles_on, encode_lanes,
-                           mlp_backward, pack_tiles, pack_weights, unpack_grads)
+                           _grad_blocks, _mlp_forward, _packed_tiles_on, check_kernel_width,
+                           encode_lanes, mlp_backward, pack_tiles, pack_weights, unpack_grads)
 
 PTS_PER_PASS = 128        # the kernels' pass over consecutive points
 PLAIN_BLOCK_POINTS = 65536  # points per block of the plain versions (bounds their memory)
@@ -113,12 +113,15 @@ def _check_inputs(pts: torch.Tensor, dirs: torch.Tensor) -> None:
                          f"{tuple(dirs.shape)}")
 
 
-def _check_width(cfg: NerfConfig) -> None:
-    if cfg.hidden_dim not in (128, 256) or cfg.pos_enc_levels != 10 or cfg.dir_enc_levels != 4:
+def _check_width(cfg: NerfConfig, kernel: str) -> None:
+    """The point-query MLP `kernel` ("forward": K5, 128 to 512; "backward": K6,
+    128 and 256) takes cfg's width and the reference 10/4 encoding levels, or
+    this raises NotImplementedError before any device work."""
+    if cfg.pos_enc_levels != 10 or cfg.dir_enc_levels != 4:
         raise NotImplementedError(
-            "the CUDA point-query MLP kernels are built for hidden_dim 128 and 256 with the "
-            f"reference 10/4 encoding levels, got hidden_dim={cfg.hidden_dim}, levels "
-            f"{cfg.pos_enc_levels}/{cfg.dir_enc_levels}")
+            "the CUDA point-query MLP kernels are built for the reference 10/4 encoding "
+            f"levels, got {cfg.pos_enc_levels}/{cfg.dir_enc_levels}")
+    check_kernel_width(f"point-query MLP {kernel}", cfg.hidden_dim)
 
 
 def _heads(rgb_raw: torch.Tensor, sig_raw: torch.Tensor, cfg: NerfConfig):
@@ -302,7 +305,7 @@ def _check_tensors(named, dev: torch.device) -> None:
 
 def _mlp_fwd_cuda(params, pts: torch.Tensor, dirs: torch.Tensor, cfg: NerfConfig):
     """(rgb (M,3), density (M,1)) by one launch of the forward kernel."""
-    _check_width(cfg)
+    _check_width(cfg, "forward")
     dev = pts.device
     _check_tensors((("pts", pts), ("dirs", dirs)), dev)
     tiles, B = pack_tiles(params, cfg)
@@ -336,7 +339,7 @@ def _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig,
     the dW kernel (with its in-order sum of the chunks). With
     want_param_grads=False its frozen-network variant runs: no dW/dB, and
     dWs, dBs are None."""
-    _check_width(cfg)
+    _check_width(cfg, "backward")
     D = cfg.hidden_dim
     dev = pts.device
     M = pts.shape[0]

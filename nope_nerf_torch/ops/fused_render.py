@@ -28,9 +28,11 @@ switch for checks that hold the kernels' route against the plain one):
 
 The forward kernels (render_fwd here, point_mlp_fwd in fused_mlp.py) take the
 weights as `pack_tiles`' pre-swizzled slices, the layout their wgmma trunk
-(csrc/mlp_fwd_sm90.cuh) streams into shared memory; every backward kernel
-takes those and `pack_tiles_dx`' slices of the (in, out) weights, the B
-operands of its wgmma dX chain (csrc/mlp_dx_sm90.cuh).
+(csrc/mlp_fwd_sm90.cuh; csrc/mlp_fwd_wide_sm90.cuh at hidden_dim 384 and
+512) streams into shared memory; every backward kernel takes those and
+`pack_tiles_dx`' slices of the (in, out) weights, the B operands of its
+wgmma dX chain (csrc/mlp_dx_sm90.cuh). Which kernel takes which hidden_dim
+is KERNEL_WIDTHS'.
 
 The ray table is (N, 9) [origin | ray_vec | mlp_dir]: the TPU's 128-lane
 padding is a layout of that machine and is not carried over. The train
@@ -152,34 +154,47 @@ def pack_weights(params: Dict[str, torch.Tensor], cfg: NerfConfig) -> Packed:
 
 
 SWIZZLE_COLS = 64       # bf16 columns of one 128-byte swizzled block
+WIDE_SLICE_COLS = 32    # bf16 columns of one slice of the wide trunk (64-byte swizzle)
+
+
+def _slice_cols(D: int) -> int:
+    """Columns of one weight slice of the forward buffer: 64 at D <= 256 (the
+    128-row trunk of csrc/mlp_fwd_sm90.cuh), 32 at 384 and 512 (the 64-row
+    trunk of csrc/mlp_fwd_wide_sm90.cuh, whose ring stages would not fit
+    beside its activations at 64 columns)."""
+    return SWIZZLE_COLS if D <= 256 else WIDE_SLICE_COLS
 
 
 def _tile_layout(D: int) -> List[Tuple[int, int, int]]:
     """(pack_weights index, rows N, columns K) of each weight in the order of
-    the forward kernels' tiled buffer (csrc/mlp_fwd_sm90.cuh::Tiles): the
-    trunk's and feature layer's (D-row) slices in the order a pass consumes
-    them, the rgb-hidden layer's (D/2 rows, w12's 32 columns padded to one
-    block), then the two heads (8 rows)."""
+    the forward kernels' tiled buffer (csrc/mlp_fwd_sm90.cuh::Tiles, and
+    csrc/mlp_fwd_wide_sm90.cuh::TilesW at 384 and 512): the trunk's and
+    feature layer's (D-row) slices in the order a pass consumes them, the
+    rgb-hidden layer's (D/2 rows, w12's 32 columns padded to one slice), then
+    the two heads (8 rows)."""
     H = D // 2
     return [(0, D, PE_DIM), (1, D, D), (2, D, D), (3, D, D), (4, D, D), (5, D, PE_DIM),
             (6, D, D), (7, D, D), (8, D, D), (10, D, D), (11, H, D), (12, H, DE_DIM),
             (9, HEAD_DIM, D), (13, HEAD_DIM, H)]
 
 
-def _swizzled_slices(shapes: List[Tuple[int, int]], k_major: bool) -> np.ndarray:
+def _swizzled_slices(shapes: List[Tuple[int, int, int]], k_major: bool) -> np.ndarray:
     """For each bf16 of a buffer of swizzled weight slices, its index in the
     concatenation of the source blocks followed by one zero. shapes: (rows N,
-    columns K) of each weight in buffer order; its source block is (K, N)
-    row-major (stored (in, out) and read transposed) unless k_major, when it
-    is (N, K) row-major. A weight becomes ceil(K/64) blocks of N rows of 64
-    columns; the 16-byte chunk c of row r is stored at chunk c ^ (r % 8) (the
-    128-byte swizzle wgmma and the bulk copies read), columns past K are zero."""
+    columns K, slice columns C) of each weight in buffer order; its source
+    block is (K, N) row-major (stored (in, out) and read transposed) unless
+    k_major, when it is (N, K) row-major. A weight becomes ceil(K/C) slices
+    of N rows of C columns, a row 2C bytes; the 16-byte chunk c of row r is
+    stored at chunk c ^ ((2C r / 128) % (C/8)): the 128-byte swizzle (C = 64,
+    c ^ (r % 8)) or the 64-byte one (C = 32, c ^ ((r / 2) % 4)) that wgmma and
+    the bulk copies read. Columns past K are zero."""
     parts, base = [], 0
-    for N, K in shapes:
-        kblocks = -(-K // SWIZZLE_COLS)
+    for N, K, C in shapes:
+        chunks = C // 8
+        kblocks = -(-K // C)
         r = np.arange(N)[None, :, None, None]
-        chunk = np.arange(8)[None, None, :, None] ^ (r % 8)
-        col = (np.arange(kblocks)[:, None, None, None] * SWIZZLE_COLS + chunk * 8
+        chunk = np.arange(chunks)[None, None, :, None] ^ ((2 * C * r // 128) % chunks)
+        col = (np.arange(kblocks)[:, None, None, None] * C + chunk * 8
                + np.arange(8)[None, None, None, :])
         src = base + r * K + col if k_major else base + col * N + r
         parts.append(np.where(col < K, src, -1).reshape(-1))
@@ -191,8 +206,11 @@ def _swizzled_slices(shapes: List[Tuple[int, int]], k_major: bool) -> np.ndarray
 @functools.lru_cache(maxsize=4)
 def _tile_index(D: int) -> np.ndarray:
     """The forward buffer's gather index (_swizzled_slices) over the
-    _packed_blocks (stored (in, out)) in _tile_layout's order."""
-    return _swizzled_slices([(N, K) for _, N, K in _tile_layout(D)], k_major=False)
+    _packed_blocks (stored (in, out)) in _tile_layout's order: the weights in
+    slices of _slice_cols(D) columns, the heads (resident in the kernels'
+    shared memory) in 64-column blocks at every width."""
+    return _swizzled_slices([(N, K, SWIZZLE_COLS if i in (9, 13) else _slice_cols(D))
+                             for i, N, K in _tile_layout(D)], k_major=False)
 
 
 def pack_tiles(params: Dict[str, torch.Tensor], cfg: NerfConfig) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -223,7 +241,8 @@ def _tile_dx_index(D: int) -> np.ndarray:
     """The backward buffer's gather index (_swizzled_slices): each weight's
     (in, out) block is already (N, K) with K contiguous, the K-major B operand
     of a dX product."""
-    return _swizzled_slices([(N, K) for _, N, K in _tile_dx_layout(D)], k_major=True)
+    return _swizzled_slices([(N, K, SWIZZLE_COLS) for _, N, K in _tile_dx_layout(D)],
+                            k_major=True)
 
 
 @functools.lru_cache(maxsize=16)
@@ -721,18 +740,49 @@ def _train_plain(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p:
     return sums, dW, dB, drays, dz, dtgt
 
 
+# The hidden_dim each CUDA kernel takes, by the name its wrapper raises with.
+# The forward kernels (K3, K5) run 128 and 256 on the 128-row trunk of
+# csrc/mlp_fwd_sm90.cuh and 384 and 512 on the 64-row one of
+# csrc/mlp_fwd_wide_sm90.cuh; every backward kernel is built for 128 and 256.
+FORWARD_WIDTHS = (128, 256, 384, 512)
+BACKWARD_WIDTHS = (128, 256)
+KERNEL_WIDTHS = {"render": FORWARD_WIDTHS, "point-query MLP forward": FORWARD_WIDTHS,
+                 "train": BACKWARD_WIDTHS, "render-backward": BACKWARD_WIDTHS,
+                 "point-query MLP backward": BACKWARD_WIDTHS}
+# The entry of ROADMAP.md's Queue 3 that brings 384 and 512 to each backward
+# kernel.
+_WIDE_BACKWARD_ENTRY = {"train": "(b)", "render-backward": "(a) and (b)",
+                        "point-query MLP backward": "(a) and (b)"}
+
+
+def check_kernel_width(kernel: str, D: int) -> None:
+    """Raise NotImplementedError, before any device work, unless the CUDA
+    `kernel` (a key of KERNEL_WIDTHS) takes hidden_dim D, naming the slice of
+    ROADMAP.md's Queue 3 that brings D to it."""
+    widths = KERNEL_WIDTHS[kernel]
+    if D in widths:
+        return
+    taken = ", ".join(map(str, widths))
+    if D in FORWARD_WIDTHS:
+        raise NotImplementedError(
+            f"the CUDA {kernel} kernel takes hidden_dim {taken}, got {D}: 384 and 512 come to "
+            f"the backward kernels in the port's next slices (ROADMAP.md, Queue 3 "
+            f"{_WIDE_BACKWARD_ENTRY[kernel]}: (a) the frozen-network variants on "
+            f"mlp_dx_sm90.cuh, (b) the full kernels on mlp_dw_chain_sm90.cuh and dw_sm90.cuh)")
+    raise NotImplementedError(
+        f"the CUDA {kernel} kernel takes hidden_dim {taken}, got {D}"
+        + (": widths past 512 need a tile shape of their own in every trunk header "
+           "(ROADMAP.md, Queue 3 (c))" if D > 512 else ""))
+
+
 def _check_kernel_shapes(kernel: str, S: int, D: int) -> None:
-    """What every render kernel takes: any S % 128 == 0 (the JAX kernels'
-    own rule) and hidden_dim 128 or 256; anything else raises before any
-    device work."""
+    """What a render kernel takes: any S % 128 == 0 (the JAX kernels' own
+    rule) and the hidden_dim of KERNEL_WIDTHS; anything else raises before
+    any device work."""
     if S % PTS_PER_PASS or S <= 0:
         raise NotImplementedError(
             f"the CUDA {kernel} kernel takes S % {PTS_PER_PASS} == 0, got S={S}")
-    if D not in (128, 256):
-        raise NotImplementedError(
-            f"the CUDA {kernel} kernel is built for hidden_dim 128 and 256, got {D}: other "
-            f"widths need a new tile shape in the shared trunk headers, the port's next "
-            f"slice (ROADMAP.md, Queue 3)")
+    check_kernel_width(kernel, D)
 
 
 def _spill(nbytes: int, dev: torch.device) -> Optional[torch.Tensor]:

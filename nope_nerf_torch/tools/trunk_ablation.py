@@ -74,6 +74,9 @@ def _variant_libraries(name: str, patches):
     d = BUILD_DIR / "trunk_ablation" / name
     d.mkdir(parents=True, exist_ok=True)
     (d / "mlp_fwd_sm90.cuh").write_text(header)
+    # the sources include the wide trunk's header, which includes this one: a copy
+    # beside the variant's makes the include find the variant
+    (d / "mlp_fwd_wide_sm90.cuh").write_text((CSRC_DIR / "mlp_fwd_wide_sm90.cuh").read_text())
     libs = []
     for source, setup in (("render_fwd.cu", fused_render._setup),
                           ("point_mlp_fwd.cu", fused_mlp._setup_fwd)):

@@ -55,8 +55,10 @@ def _assert_close(got, ref):
             assert float((g - r).abs().max()) <= 2e-3 * max(1.0, float(r.abs().max()))
 
 
-@pytest.mark.parametrize("hidden", [128, 256])
-# 4096: z and the raw heads (D = 256) or the composite's arrays (D = 128) past shared memory
+# 384 and 512: the 64-point trunk of csrc/mlp_fwd_wide_sm90.cuh
+@pytest.mark.parametrize("hidden", [128, 256, 384, 512])
+# 4096: z and the raw heads (D = 256) or the composite's arrays (D = 128) past shared
+# memory; at D = 512 z and the raw heads from 768 samples on
 @pytest.mark.parametrize("S", [128, 256, 1024, 2048, 4096])
 @pytest.mark.parametrize("want_aux", [False, True])
 def test_render_fwd_matches_plain(cuda_device, hidden, S, want_aux):
@@ -651,7 +653,7 @@ def _points(dev, m, seed=0):
     return gen, pts, dirs
 
 
-@pytest.mark.parametrize("hidden", [128, 256])
+@pytest.mark.parametrize("hidden", [128, 256, 384, 512])
 @pytest.mark.parametrize("occ", ["softplus", "relu"])
 @pytest.mark.parametrize("dist_alpha", [False, True])
 def test_point_mlp_fwd_matches_plain(cuda_device, hidden, occ, dist_alpha):
@@ -666,12 +668,12 @@ def test_point_mlp_fwd_matches_plain(cuda_device, hidden, occ, dist_alpha):
     _assert_close(got, M.point_mlp_fwd_plain(params, pts, dirs, ncfg))
 
 
-@pytest.mark.parametrize("hidden", [128, 256])
+@pytest.mark.parametrize("hidden", [128, 256, 384, 512])
 @pytest.mark.parametrize("m", [1, 127, 128, 128 * 265 + 5])
 def test_point_mlp_fwd_point_counts(cuda_device, hidden, m):
-    """Persistent CTAs (one per SM) walk over the 128-point passes: a single
-    point, a ragged and a full single pass, and two waves of the card's 132
-    SMs and more, ending in a ragged pass."""
+    """Persistent CTAs (one per SM) walk over the 128-point passes (64-point
+    ones at 384 and 512): a single point, a ragged and a full single pass,
+    and two waves of the card's 132 SMs and more, ending in a ragged pass."""
     gen, pts, dirs = _points(cuda_device, m, seed=3)
     ncfg = NerfConfig(hidden_dim=hidden, use_pallas=True)
     params = init_nerf_params(ncfg, gen, device=cuda_device)
@@ -991,3 +993,67 @@ def test_pose_opt_replays_equal_eager_run(cuda_device):
                                 graphs=graphs) for graphs in (False, True)]
     assert np.array_equal(runs[0][1], runs[1][1])
     assert all(torch.equal(runs[0][0][k], runs[1][0][k]) for k in runs[0][0])
+
+
+@pytest.mark.parametrize("hidden", [384, 512])
+def test_wide_frames_launch_k3_once_and_k5_twice(cuda_device, hidden):
+    """Trainer.render_frame at hidden_dim 384 and 512 on the card: one K3 launch
+    a chunk of rays, or with n_importance 64 two of K5; rows 0-3 as the plain
+    versions render them."""
+    scene = SceneData.from_dict(make_synthetic_scene(n_frames=2, h=24, w=32)).to_device(
+        cuda_device)
+    state = None
+    for extra, counter in (({}, F.RENDER_FWD), ({"rendering": {"n_importance": 64}},
+                                                M.POINT_MLP_FWD)):
+        cfg = load_config(overrides={"model": {"hidden_dim": hidden},
+                                     "pose": {"learn_pose": True, "init_pose": True}, **extra})
+        mc = ModelConfigs.from_cfg(cfg, num_cams=scene.n_frames)
+        if state is None:
+            state = create_train_state(0, mc, init_c2w=scene.c2ws_gt, device=cuda_device)
+        trainer = Trainer(cfg, mc)
+        batch = batch_for_frame(scene, 1)
+        before = counter.launches
+        frame = trainer.render_frame(state, batch, (24, 32))
+        assert counter.launches == before + (1 if counter is F.RENDER_FWD else 2)
+        with F.plain_versions():
+            slab = trainer.render_frame(state, batch, (24, 32), rows=(0, 4))
+        for key in ("rgb", "depth"):
+            ref = torch.as_tensor(slab[key])
+            assert np.isfinite(frame[key]).all()
+            assert float((torch.as_tensor(frame[key][:4]) - ref).abs().max()) <= 2e-3 * max(
+                1.0, float(ref.abs().max()))
+
+
+def test_wide_backward_kernels_raise_before_any_launch(cuda_device):
+    """At hidden_dim 512 K1, K4 (both variants) and K6 raise NotImplementedError
+    with no launch; point_mlp under autograd runs K5 and raises at its
+    backward, with no fall back to the plain backward."""
+    ncfg = NerfConfig(hidden_dim=512, use_pallas=True)
+    gen, rays, z = _inputs(cuda_device, 133, 128)
+    params = init_nerf_params(ncfg, gen, device=cuda_device)
+    tgt = F.pack_targets(torch.rand(133, 3, device=cuda_device),
+                         torch.ones(133, device=cuda_device),
+                         torch.ones(133, dtype=torch.bool, device=cuda_device), 1.0, 1.0)
+    g_rgb, g_dist = torch.ones(133, 3, device=cuda_device), torch.ones(133, device=cuda_device)
+    libs = (F.RENDER_TRAIN, F.RENDER_BWD, F.RENDER_BWD_FROZEN, M.POINT_MLP_BWD,
+            M.POINT_MLP_BWD_FROZEN, M.DW_SM90, M.POINT_MLP_FWD)
+    before = [lib.launches for lib in libs]
+    with pytest.raises(NotImplementedError, match="Queue 3"):
+        F.render_ray_loss_fused(params, rays, z, tgt, ncfg, False, 1, False)
+    for frozen in (False, True):
+        with pytest.raises(NotImplementedError, match="Queue 3"):
+            F._render_bwd_cuda(params, rays, z, g_rgb, g_dist, None, None, ncfg, False,
+                               want_param_grads=not frozen)
+    _, pts, dirs = _points(cuda_device, 500)
+    for frozen in (False, True):
+        with pytest.raises(NotImplementedError, match="Queue 3"):
+            M._mlp_bwd_cuda(params, pts, dirs, torch.ones(500, 3, device=cuda_device),
+                            torch.ones(500, 1, device=cuda_device), ncfg,
+                            want_param_grads=not frozen)
+    assert [lib.launches for lib in libs] == before
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    rgb, den = M.point_mlp(leaves, pts, dirs, ncfg)
+    assert M.POINT_MLP_FWD.launches == before[-1] + 1
+    with pytest.raises(NotImplementedError, match="point-query MLP backward"):
+        (rgb.sum() + den.sum()).backward()
+    assert [lib.launches for lib in libs[:-1]] == before[:-1]

@@ -1,9 +1,12 @@
 """The tiled weight buffers of the wgmma kernels, on the CPU: the forward
-trunk's (ops/fused_render.py::pack_tiles, read by csrc/mlp_fwd_sm90.cuh) holds
+trunk's (ops/fused_render.py::pack_tiles, read by csrc/mlp_fwd_sm90.cuh at
+hidden_dim 128 and 256 and by csrc/mlp_fwd_wide_sm90.cuh at 384 and 512) holds
 exactly pack_weights' bf16 weights, and the frozen-network backward's
 (pack_tiles_dx, read by csrc/mlp_dx_sm90.cuh) exactly pack_weights_both's
-(in, out) blocks, each in the order and the 128-byte swizzle the kernels'
-bulk copies and wgmma descriptors assume, at both widths the kernels take."""
+(in, out) blocks, each in the order and the swizzle the kernels' bulk copies
+and wgmma descriptors assume (64-column slices in the 128-byte swizzle; the
+wide trunk's 32-column slices in the 64-byte one), at every width the kernels
+take."""
 
 import numpy as np
 import pytest
@@ -37,7 +40,7 @@ def _packed(D):
     return pack_tiles(params, cfg), pack_weights(params, cfg)
 
 
-@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("D", [128, 256, 384, 512])
 def test_unpacking_the_tiles_gives_pack_weights_blocks(D):
     (tiles, biases), (W, B) = _packed(D)
     assert tiles.dtype == torch.bfloat16 and tiles.is_contiguous()
@@ -46,31 +49,47 @@ def test_unpacking_the_tiles_gives_pack_weights_blocks(D):
     assert all(torch.equal(a, b) for a, b in zip(biases, B))
 
 
-@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("D", [128, 256, 384, 512])
 def test_tile_buffer_follows_the_kernels_slice_order(D):
-    """The byte counts of csrc/mlp_fwd_sm90.cuh's Tiles<D>: 2 + 8 D/64 slices
-    of (D x 64), D/64 + 1 of (D/2 x 64), then the two heads of 8 rows."""
+    """The byte counts of csrc/mlp_fwd_sm90.cuh's Tiles<D> (C = 64 columns a
+    slice) and of csrc/mlp_fwd_wide_sm90.cuh's TilesW<D> (C = 32 at 384 and
+    512): 2 (64/C) + 8 D/C slices of (D x C), D/C + 1 of (D/2 x C), then the
+    two heads of 8 rows in 64-column blocks. Each slice's row r holds its
+    16-byte chunk c at c ^ (r % 8) (C = 64) or c ^ ((r / 2) % 4) (C = 32)."""
     (tiles, _), (W, _) = _packed(D)
-    full, half = D * 64, D * 32                   # bf16 elements of a slice
-    trunk = 2 + 8 * (D // 64)
-    heads = trunk * full + (D // 64 + 1) * half
+    C = 64 if D <= 256 else 32
+    chunks = C // 8
+    full, half = D * C, D // 2 * C                # bf16 elements of a slice
+    pe_slices = 64 // C
+    trunk = 2 * pe_slices + 8 * (D // C)
+    heads = trunk * full + (D // C + 1) * half
     assert tiles.numel() == heads + 8 * D + 8 * D // 2
-    # w0 is slice 0, w1 starts at slice 1, w5 follows w4's D/64 slices, feat's
+    # w0 is slice 0, w1 follows its pe_slices, w5 follows w4's D/C slices, feat's
     # slices end the trunk; the rgb-hidden layer's first slice follows them
-    starts = {0: 0, 1: full, 5: (1 + 4 * (D // 64)) * full, 10: (trunk - D // 64) * full,
-              11: trunk * full, 12: trunk * full + (D // 64) * half, 9: heads,
-              13: heads + 8 * D}
+    starts = {0: 0, 1: pe_slices * full, 5: (pe_slices + 4 * (D // C)) * full,
+              10: (trunk - D // C) * full, 11: trunk * full,
+              12: trunk * full + (D // C) * half}
     for i, start in starts.items():
         w = W[i]
         rows = w.shape[0]
-        block = tiles[start:start + rows * 64].view(rows, 8, 8)
-        # row r's 16-byte chunk c sits at chunk c ^ (r % 8); columns past K are zero
-        r = torch.arange(rows)
-        for c in range(8):
-            got = block[r, c ^ (r % 8)]
-            ref = w[:, 8 * c:8 * c + 8] if 8 * c < w.shape[1] else torch.zeros(rows, 8,
-                                                                                 dtype=w.dtype)
-            assert torch.equal(got, ref), (i, c)
+        for kb in range(min(2, -(-w.shape[1] // C))):   # the weight's first slices
+            block = tiles[start + kb * rows * C:start + (kb + 1) * rows * C].view(rows, chunks, 8)
+            r = torch.arange(rows)
+            swizzle = (2 * C * r // 128) % chunks
+            for c in range(chunks):
+                col = kb * C + 8 * c
+                ref = (w[:, col:col + 8] if col < w.shape[1]
+                       else torch.zeros(rows, 8, dtype=w.dtype))   # columns past K are zero
+                assert torch.equal(block[r, c ^ swizzle], ref), (i, kb, c)
+    # the heads: 64-column blocks of 8 rows in the 128-byte swizzle at every width
+    for i, start in ((9, heads), (13, heads + 8 * D)):
+        w = W[i]
+        for kb in range(w.shape[1] // 64):
+            block = tiles[start + kb * 512:start + (kb + 1) * 512].view(8, 8, 8)
+            r = torch.arange(8)
+            for c in range(8):
+                assert torch.equal(block[r, c ^ r], w[:, 64 * kb + 8 * c:64 * kb + 8 * c + 8]), \
+                    (i, kb, c)
 
 
 @pytest.mark.parametrize("D", [128, 256])
