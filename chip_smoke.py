@@ -125,17 +125,25 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    and one 1024 x 2048 train step (K1 in 8 chunks) with its peak memory.
    `python3 chip_smoke.py --many-samples` builds the kernels and runs this
    phase alone;
-13. holds the forward kernels at hidden_dim 384 and 512 (the 64-point trunk
-   of csrc/mlp_fwd_wide_sm90.cuh), after phase 12: K3 at S = 128 and 1024 on
-   133 rays and K5 at 1, 127 and 196,645 points against their plain
-   versions over two flag sets (softplus; relu with dist_alpha), two
-   launches bit-equal; then at each width the render path from a checkpoint
-   of seeded random weights the port wrote: cli.render over 3 views at
-   188x621 (K3 once a frame, view 0's rows 0-7 against the plain version),
-   Trainer.render_frame fused (K3 once) and with n_importance 64 (K5 twice a
-   chunk), each with rows 0-7 against the plain versions; at 512, K1, K4
-   frozen and K6 raising NotImplementedError with no launch, and point_mlp
-   under autograd raising at its backward after K5's one launch.
+13. holds the kernels at hidden_dim 384 and 512 (the 64-point trunk of
+   csrc/mlp_fwd_wide_sm90.cuh and the 64-point dX chain of
+   csrc/mlp_dx_wide_sm90.cuh), after phase 12: K3 at S = 128 and 1024 on
+   133 rays and K5 at 1, 127 and 196,645 points, K4's frozen-network
+   variant at S = 128, 256 and 1024 on the pose-opt step's 1024 rays and
+   K6's at 1, 63, 64, 65,
+   127 and 196,645 points, against their plain versions over two flag sets
+   (softplus; relu with dist_alpha), two launches bit-equal; then at each
+   width the render path from a checkpoint of seeded random weights the port
+   wrote: cli.render over 3 views at 188x621 (K3 once a frame, view 0's rows
+   0-7 against the plain version), Trainer.render_frame fused (K3 once) and
+   with n_importance 64 (K5 twice a chunk), each with rows 0-7 against the
+   plain versions; and from the same weights cli.eval's test-time pose
+   optimisation (K3 and K4 frozen once a step, its metrics finite),
+   optimize_test_poses replayed from its captured step against eager runs
+   (torch.equal), fused and hierarchical, and 4 hierarchical pose-opt steps
+   (K5 twice and K6 frozen once a step); at 512, K1, K4 full and K6 full
+   raising NotImplementedError with no launch, and so render_rays_fused and
+   point_mlp under autograd with nerf parameters that want gradients.
    `python3 chip_smoke.py --wide` builds the kernels and runs this phase
    alone;
 9. times each path and each kernel at its main path's shapes (CUDA events;
@@ -146,8 +154,10 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    512-sample path's 1024 x 512 and K3 per 188x621 frame at 2048 samples, each
    held against its plain version at that shape and timed beside its bound,
    with a `many_samples` JSON line; per width of phase 13 a frame end to end,
-   K3 over its rays and K5 at 196,608 points, each held against its plain
-   version and timed beside its bound, with a `wide` JSON line), prints one
+   K3 over its rays, K5 at 196,608 points, K4 frozen at 1024 x 128 and K6
+   frozen at 196,608 points, each held against its plain version and timed
+   beside its bound, and the replayed pose-opt steps, with a `wide` JSON
+   line), prints one
    `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 It exits non-zero, and prints no result, when CUDA is missing, outside a
 checkout, or when any phase fails. It imports nothing of JAX.
@@ -2534,9 +2544,12 @@ def graph_train_path(torch, np, dev, name: str, cfg, mc, scene, state, expected:
 def graph_pose_opt(torch, np, dev, name: str, rcfg, nerf, eval_scene, ncfg, per_step: dict):
     """optimize_test_poses for POSE_OPT_EPOCHS epochs eagerly and replayed:
     pose parameters and c2ws torch.equal, launches per step the same. The
-    replayed step's time: the difference of two replayed runs of
-    POSE_OPT_EPOCHS and 3 * POSE_OPT_EPOCHS epochs (each captures once)."""
-    from nope_nerf_torch.evaluation.pose_opt import optimize_test_poses, pose_opt_step
+    replayed step's time: CUDA events around 3 * POSE_OPT_EPOCHS replays of a
+    PoseOptRun's step, captured beforehand (a difference of two runs that
+    each capture once carries the captures' spread, which at 384 and 512 can
+    exceed the replays' own time)."""
+    from nope_nerf_torch.evaluation.pose_opt import (PoseOptRun, optimize_test_poses,
+                                                     pose_opt_step)
     from nope_nerf_torch.models.poses import PoseConfig, init_pose_params
     from nope_nerf_torch.training.state import init_adam
 
@@ -2578,8 +2591,15 @@ def graph_pose_opt(torch, np, dev, name: str, rcfg, nerf, eval_scene, ncfg, per_
     equal = np.array_equal(c_e, c_g) and all(torch.equal(p_e[k], p_g[k]) for k in p_e)
     eager_ms = events_ms(torch, lambda: opt(POSE_OPT_EPOCHS, False), steps)
     short = events_ms(torch, lambda: opt(POSE_OPT_EPOCHS, True), 1)
-    long = events_ms(torch, lambda: opt(3 * POSE_OPT_EPOCHS, True), 1)
-    replay_ms = (long - short) / (2 * steps)
+    run = PoseOptRun(nerf, None, eval_scene, ncfg, rcfg, init_c2ws=init, n_points=TRAIN_RAYS,
+                     device=dev)
+    run.rate.fill_(1e-3)
+
+    def replays():
+        for _ in range(3 * steps):
+            run.step()
+    replays()
+    replay_ms = events_ms(torch, replays, 3 * steps)
     print(f"step graphs, {name} pose-opt: {POSE_OPT_EPOCHS} epochs of {n_eval} frames replayed "
           f"against eagerly: pose parameters and c2ws torch.equal: {equal}; launches per step "
           f"{counts_e == counts_g}; eager {eager_ms:.3f} ms, replayed {replay_ms:.3f} ms a step "
@@ -3053,6 +3073,83 @@ WIDE_M = (1, 127, POINT_CHECK_M)  # K5: one point, a ragged tile, the fine pass 
 # (occupancy activation, head and renderer dist_alpha)
 WIDE_FLAGS = (("softplus", False), ("relu", True))
 WIDE_PATH_D = 512                 # model.hidden_dim of the phase's main path
+WIDE_BWD_S = (128, 256, 1024)     # K4 frozen on WIDE_BWD_RAYS rays (one ray is 2 to 16 tiles)
+WIDE_BWD_RAYS = 1024              # the pose-opt step's rays (7 or 8 a CTA on 132 SMs)
+# K6 frozen: one point, a ragged 64-point tile, one, one and a point, a ragged second tile,
+# the fine pass made ragged
+WIDE_BWD_M = (1, 63, 64, 65, 127, POINT_CHECK_M)
+
+
+def per_sample_share(got, ref) -> float:
+    """grad_share of a per-sample block; under 1000 entries the L2 rule alone
+    (the "1 entry in 1000" outlier allowance admits no flip at all there)."""
+    if ref.numel() >= 1000:
+        return grad_share(got, ref, True)
+    return float((got - ref).norm()) / (2e-2 * float(ref.norm()) + 1e-12)
+
+
+def check_wide_frozen(torch, dev) -> dict:
+    """Phase 13 (a'): K4's frozen-network variant at S of WIDE_BWD_S on
+    WIDE_BWD_RAYS rays and K6's at the point counts of WIDE_BWD_M, at D = 384
+    and 512 (csrc/mlp_dx_wide_sm90.cuh's 64-point chain), over both flag sets
+    of WIDE_FLAGS: d(rays), dz and d(points), d(directions) within the
+    per-sample rule of their plain versions (per_sample_share), two launches
+    bit-equal. K4 runs on the pose-opt step's 1024 rays: one flipped ReLU
+    mask or bf16 rounding at one sample moves up to six entries of its ray's
+    d(rays) at once, and on 133 rays (1,197 entries) the rule's 1 entry in
+    1000 admits one, which the f32 plain version itself misses against the
+    f64 sum (PERF.md sections 2 and 6, PR 20). Returns the worst absolute
+    error by kernel and width; fails if any case disagrees."""
+    from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
+    from nope_nerf_torch.ops.fused_mlp import _mlp_bwd_cuda, point_mlp_bwd_plain
+    from nope_nerf_torch.ops.fused_render import _render_bwd_cuda, render_rays_fused_bwd_plain
+    gen = torch.Generator().manual_seed(SEED + 35)
+    worst, failed = {}, []
+
+    def hold(kernel, D, case, names, got, again, ref):
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise RuntimeError(f"{kernel}: two launches differ ({case})")
+        report = []
+        for name, g, r in zip(names, got, ref):
+            worst[(kernel, D)] = max(worst.get((kernel, D), 0.0), max_err(g, r))
+            share = per_sample_share(g, r)
+            report.append(f"{name} at {share:.3f}")
+            if not share <= 1.0:
+                failed.append(f"{kernel}: {name} at {share:.2f} of its tolerance ({case})")
+        return ", ".join(report) + " of its tolerance"
+
+    for D in WIDE_D:
+        for S in WIDE_BWD_S:
+            rays, z, tgt = train_inputs(torch, dev, gen, WIDE_BWD_RAYS, S)
+            for occ, da in WIDE_FLAGS:
+                ncfg, params = many_params(torch, dev, gen, D, occ, da, S)
+                case = f"D={D} S={S} occ={occ} dist_alpha={da}"
+                cot = bwd_cotangents(torch, params, rays, z, tgt, ncfg, da, True)
+                a = _render_bwd_cuda(params, rays, z, *cot, ncfg, da, want_param_grads=False)
+                b = _render_bwd_cuda(params, rays, z, *cot, ncfg, da, want_param_grads=False)
+                ref = render_rays_fused_bwd_plain(params, rays, z, *cot, ncfg, da)
+                text = hold("render_bwd_frozen", D, case, ("rays", "z"), a[2:], b[2:], ref[2:])
+                print(f"render_bwd_frozen vs plain, {case}, {WIDE_BWD_RAYS} rays, cotangents "
+                      f"rgb,dist,weights,alpha: {text}; two launches bit-equal")
+        for M in WIDE_BWD_M:
+            pts, dirs = point_inputs(torch, dev, gen, M)
+            for occ, da in WIDE_FLAGS:
+                ncfg = NerfConfig(hidden_dim=D, occ_activation=occ, dist_alpha=da,
+                                  use_pallas=True)
+                params = init_nerf_params(ncfg, gen, device=dev)
+                case = f"D={D} {M} points occ={occ} head_dist_alpha={da}"
+                cot = point_cotangents(torch, params, pts, dirs, ncfg)
+                a = _mlp_bwd_cuda(params, pts, dirs, *cot, ncfg, want_param_grads=False)
+                b = _mlp_bwd_cuda(params, pts, dirs, *cot, ncfg, want_param_grads=False)
+                ref = point_mlp_bwd_plain(params, pts, dirs, *cot, ncfg, want_param_grads=False)
+                text = hold("point_mlp_bwd_frozen", D, case, ("points", "directions"), a[2:],
+                            b[2:], ref[2:])
+                print(f"point_mlp_bwd_frozen vs plain, {case}: {text}; two launches bit-equal")
+    if failed:
+        raise RuntimeError("wide widths: frozen-network backward kernels disagree with their "
+                           "plain versions: " + "; ".join(failed))
+    return worst
 
 
 def check_wide_kernels(torch, dev) -> dict:
@@ -3133,16 +3230,94 @@ def raises_unlaunched(torch, fn, what: str, expected: dict) -> None:
           + f" ({message.split(':')[0]})")
 
 
+def run_wide_eval(torch, np, dev, D: int, nerf) -> dict:
+    """Phase 13 (b'): test-time pose optimisation at model.hidden_dim D from
+    phase 13's seeded weights, written as a checkpoint of the built-in 8-frame
+    120x160 scene's train split: cli.eval with POSE_OPT_EPOCHS pose-opt
+    epochs on its held-out view (K3 and K4's frozen variant once a step, K3
+    once more for the frame; its metrics finite); optimize_test_poses
+    replayed from its captured step against eager runs (graph_pose_opt:
+    torch.equal), fused and with n_importance N_IMPORTANCE; HIER_STEPS
+    hierarchical pose-opt steps (K5 twice and K6's frozen variant once a
+    step). Returns the counts and the replay timings."""
+    from nope_nerf_torch.cli.eval import evaluate, split_synthetic_scene
+    from nope_nerf_torch.config import load_config
+    from nope_nerf_torch.evaluation.pose_opt import pose_opt_step
+    from nope_nerf_torch.models.poses import PoseConfig, init_pose_params
+    from nope_nerf_torch.training import ModelConfigs, create_train_state
+    from nope_nerf_torch.training.checkpoints import save_params
+    from nope_nerf_torch.training.state import init_adam
+
+    out = {}
+    train_scene, eval_scene, _ = split_synthetic_scene()
+    n_eval = eval_scene.n_frames
+    with tempfile.TemporaryDirectory() as out_dir:
+        cfg = load_config(overrides={
+            "model": {"hidden_dim": D}, "training": {"out_dir": out_dir},
+            "pose": {"learn_pose": True, "init_pose": True},
+            "eval_pose": {"opt_pose_epoch": POSE_OPT_EPOCHS, "n_points": TRAIN_RAYS,
+                          "type_to_eval": "eval"}})
+        mc = ModelConfigs.from_cfg(cfg, num_cams=train_scene.n_frames)
+        state = create_train_state(SEED, mc, init_c2w=torch.as_tensor(train_scene.c2ws_gt),
+                                   device=dev)
+        state.params["nerf"] = {k: v.detach().clone() for k, v in nerf.items()}
+        save_params(out_dir, cfg["training"]["load_dir"], state.params)
+        steps = n_eval * POSE_OPT_EPOCHS
+        summary, out["eval_counts"] = counted(
+            lambda: evaluate(cfg, synthetic=True, device=dev, save=False),
+            {"render_fwd": steps + n_eval, "render_bwd": steps, "render_bwd_frozen": steps},
+            f"cli.eval, hidden_dim {D}, {POSE_OPT_EPOCHS} pose-opt epochs on {n_eval} view, "
+            "then its frame")
+    for k in ("mean_mse", "mean_psnr", "mean_ssim"):
+        if not math.isfinite(summary[k]):
+            raise RuntimeError(f"cli.eval at hidden_dim {D}: {k} is not finite")
+    print(f"cli.eval, hidden_dim {D}: PSNR {summary['mean_psnr']:.3f} SSIM "
+          f"{summary['mean_ssim']:.4f} (finite)")
+    nerf = {k: v.detach() for k, v in nerf.items()}
+    hcfg = dataclasses.replace(mc.render, n_importance=N_IMPORTANCE)
+    out["graph_fused"] = graph_pose_opt(
+        torch, np, dev, f"fused, hidden_dim {D}", mc.render, nerf, eval_scene, mc.nerf,
+        {"render_fwd": 1, "render_bwd": 1, "render_bwd_frozen": 1})
+    out["graph_hier"] = graph_pose_opt(
+        torch, np, dev, f"hierarchical, hidden_dim {D}", hcfg, nerf, eval_scene, mc.nerf,
+        {"point_mlp_fwd": 2, "point_mlp_bwd": 1, "point_mlp_bwd_frozen": 1})
+
+    img = torch.as_tensor(eval_scene.imgs[0]).to(dev)
+    cam = torch.as_tensor(eval_scene.K).to(dev)
+    pcfg = PoseConfig(num_cams=1, use_init_c2w=True)
+    ray_idx = torch.randperm(img.shape[0] * img.shape[1],
+                             generator=torch.Generator(device=dev).manual_seed(SEED + 36),
+                             device=dev)[:TRAIN_RAYS]
+    pose = init_pose_params(pcfg, torch.as_tensor(eval_scene.c2ws_gt), device=dev)
+    adam = init_adam(pose)
+
+    def hier_steps():
+        return [float(pose_opt_step(pose, adam, nerf, None, img, 0, cam, ray_idx, 1e-3, pcfg,
+                                    None, mc.nerf, hcfg)) for _ in range(HIER_STEPS)]
+    losses, out["hier_pose_counts"] = counted(
+        hier_steps, {"point_mlp_fwd": 2 * HIER_STEPS, "point_mlp_bwd": HIER_STEPS,
+                     "point_mlp_bwd_frozen": HIER_STEPS},
+        f"hierarchical pose-opt, hidden_dim {D}, {HIER_STEPS} steps")
+    if not all(math.isfinite(v) for v in losses) or not bool(pose["t"].abs().max() > 0):
+        raise RuntimeError(f"hierarchical pose optimisation at hidden_dim {D}: non-finite loss "
+                           "or a pose that did not move")
+    print(f"hierarchical pose-opt, hidden_dim {D}: loss per step "
+          + " ".join(f"{v:.5f}" for v in losses))
+    return out
+
+
 def run_wide_path(torch, np, dev, D: int) -> dict:
     """Phase 13 (b) at model.hidden_dim D: cli.render over N_VIEWS novel views at
     188x621 from a checkpoint of seeded random weights written by the port (K3
     once a frame; frames finite; rows 0-7 of view 0 against the plain version),
     Trainer.render_frame at 188x621 (K3 once) and with rendering.n_importance
     N_IMPORTANCE (K5 twice a chunk), each with rows 0-7 against the plain
-    versions; at WIDE_PATH_D, one call each of K1, K4 and K6 raising
-    NotImplementedError before any launch, and point_mlp under autograd
-    raising at its backward after K5's one launch. Returns what the timings
-    need."""
+    versions; cli.eval's pose optimisation and the pose-opt steps from the
+    same weights (run_wide_eval); at WIDE_PATH_D, one call each of K1, K4 full
+    and K6 full raising NotImplementedError before any launch, and
+    render_rays_fused and point_mlp under autograd with nerf parameters that
+    want a gradient raising before K3 or K5 launches. Returns what the
+    timings need."""
     from nope_nerf_torch.cli.render import load_scene, render
     from nope_nerf_torch.config import load_config
     from nope_nerf_torch.data import SceneData, batch_for_frame, make_synthetic_scene
@@ -3150,7 +3325,7 @@ def run_wide_path(torch, np, dev, D: int) -> dict:
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
     from nope_nerf_torch.ops.fused_mlp import _mlp_bwd_cuda, point_mlp
     from nope_nerf_torch.ops.fused_render import (_render_bwd_cuda, plain_versions,
-                                                  render_ray_loss_fused,
+                                                  render_ray_loss_fused, render_rays_fused,
                                                   render_rays_fused_plain)
     from nope_nerf_torch.ops.render import RenderConfig
     from nope_nerf_torch.training import ModelConfigs, Trainer, create_train_state
@@ -3233,9 +3408,11 @@ def run_wide_path(torch, np, dev, D: int) -> dict:
               f"{frame['rgb'].mean():.4f}; rows 0-7 vs plain versions " + ", ".join(report))
         out["fused_frame_counts" if name == "fused" else "hier_frame_counts"] = counts
     out.update(state=state, batch=batch, hier_trainer=hier_trainer)
+    out.update(run_wide_eval(torch, np, dev, D, params["nerf"]))
 
     if D == WIDE_PATH_D:
-        # the kernels that do not take this width yet raise before any device work
+        # the kernels that form weight gradients do not take this width yet: they, and
+        # the autograd routes that would reach them, raise before any device work
         gen = torch.Generator().manual_seed(SEED + 33)
         rays, tz, tgt = train_inputs(torch, dev, gen, 133)
         nerf = state.params["nerf"]
@@ -3244,28 +3421,28 @@ def run_wide_path(torch, np, dev, D: int) -> dict:
                           f"render_train (K1) at hidden_dim {D}", {})
         g_rgb, g_dist = torch.ones(133, 3, device=dev), torch.ones(133, device=dev)
         raises_unlaunched(torch, lambda: _render_bwd_cuda(nerf, rays, tz, g_rgb, g_dist, None,
-                                                          None, ncfg, False,
-                                                          want_param_grads=False),
-                          f"render_bwd frozen (K4) at hidden_dim {D}", {})
+                                                          None, ncfg, False),
+                          f"render_bwd full (K4) at hidden_dim {D}", {})
         pts, dirs = point_inputs(torch, dev, gen, 1000)
         g_prgb, g_den = torch.ones(1000, 3, device=dev), torch.ones(1000, 1, device=dev)
         raises_unlaunched(torch, lambda: _mlp_bwd_cuda(nerf, pts, dirs, g_prgb, g_den, ncfg),
-                          f"point_mlp_bwd (K6) at hidden_dim {D}", {})
+                          f"point_mlp_bwd full (K6) at hidden_dim {D}", {})
         leaf = {k: v.detach().requires_grad_(True) for k, v in nerf.items()}
-
-        def autograd_backward():
-            rgb, den = point_mlp(leaf, pts, dirs, ncfg)
-            (rgb.sum() + den.sum()).backward()
-        raises_unlaunched(torch, autograd_backward,
-                          f"point_mlp under autograd at hidden_dim {D}, its backward",
-                          {"point_mlp_fwd": 1})
+        raises_unlaunched(torch, lambda: point_mlp(leaf, pts, dirs, ncfg),
+                          f"point_mlp under autograd at hidden_dim {D}, parameters wanting "
+                          "gradients", {})
+        raises_unlaunched(torch, lambda: render_rays_fused(leaf, rays, tz, ncfg, False, False),
+                          f"render_rays_fused under autograd at hidden_dim {D}, parameters "
+                          "wanting gradients", {})
     return out
 
 
 def run_wide(torch, np, dev) -> dict:
-    """Phase 13: (a) the kernels at both widths, (b) the path at each."""
+    """Phase 13: (a) the kernels at both widths, forward and frozen backward,
+    (b) the path at each: render, eval and pose optimisation."""
     t_phase = time.perf_counter()
     out = {"worst": check_wide_kernels(torch, dev)}
+    out["worst"].update(check_wide_frozen(torch, dev))
     for D in WIDE_D:
         out[D] = run_wide_path(torch, np, dev, D)
     print(f"wide phase: {time.perf_counter() - t_phase:.1f} s wall")
@@ -3277,12 +3454,17 @@ def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
     (render_trajectory), K3 over the frame's rays at 128 samples and K5 at
     the fine pass's 196,608 points, each beside its bound and its plain
     version (timed once, its output held against the kernel's); the
-    hierarchical frame end to end at WIDE_PATH_D. Returns the `kernels` JSON
-    entries."""
+    hierarchical frame end to end at WIDE_PATH_D; K4's frozen variant at the
+    pose-opt batch's 1024 rays x 128 and K6's at the fine pass's 196,608
+    points, each beside its bound (forward + dX, 2 mlp_flops) and its plain
+    version; the replayed pose-opt steps of phase 13 (fused and
+    hierarchical). Returns the `kernels` JSON entries."""
     from nope_nerf_torch.evaluation.extract import render_trajectory
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
-    from nope_nerf_torch.ops.fused_mlp import _mlp_fwd_cuda, point_mlp_fwd_plain
-    from nope_nerf_torch.ops.fused_render import (pack_weights, render_rays_fused,
+    from nope_nerf_torch.ops.fused_mlp import (_mlp_bwd_cuda, _mlp_fwd_cuda, point_mlp_bwd_plain,
+                                               point_mlp_fwd_plain)
+    from nope_nerf_torch.ops.fused_render import (_render_bwd_cuda, pack_weights,
+                                                  render_rays_fused, render_rays_fused_bwd_plain,
                                                   render_rays_fused_plain)
 
     def timed_once(fn):
@@ -3298,6 +3480,7 @@ def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
     fine_m = TRAIN_RAYS * (128 + N_IMPORTANCE)
     gen = torch.Generator().manual_seed(SEED + 34)
     pts, dirs = point_inputs(torch, dev, gen, fine_m)
+    bgen = torch.Generator().manual_seed(SEED + 37)   # the frozen backward's inputs
     entries, summary = [], {"card": smi}
     for D in WIDE_D:
         p = wide[D]
@@ -3366,6 +3549,72 @@ def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
             lambda: hier.render_frame(p["state"], p["batch"], RESOLUTION), 2)
         print(f"hidden_dim {D}: hierarchical render_frame {h}x{w} "
               f"{summary[f'hier_frame_ms_{D}']:.2f} ms end to end")
+
+        # K4's frozen variant at the pose-opt batch, on a colour and depth loss's cotangents
+        rays, tz, tgt = train_inputs(torch, dev, bgen, TRAIN_RAYS)
+        bcfg, bparams = many_params(torch, dev, bgen, D, "softplus", False, 128)
+        cot = bwd_cotangents(torch, bparams, rays, tz, tgt, bcfg, False, False)
+        fz_ms = time_ms(lambda: _render_bwd_cuda(bparams, rays, tz, *cot, bcfg, False,
+                                                 want_param_grads=False), 10)
+        got = _render_bwd_cuda(bparams, rays, tz, *cot, bcfg, False, want_param_grads=False)
+        ref, fz_plain_ms = timed_once(lambda: render_rays_fused_bwd_plain(bparams, rays, tz, *cot,
+                                                                          bcfg, False))
+        fz_err, fk, fshare, _ = held(dict(rays=got[2], z=got[3]), dict(rays=ref[2], z=ref[3]),
+                                     ("rays", "z"))
+        if not fshare <= 1.0:
+            raise RuntimeError(f"render_bwd_frozen at {TRAIN_RAYS} x 128, hidden_dim {D}: {fk} at "
+                               f"{fshare:.2f} of its tolerance")
+        W, B = pack_weights(bparams, bcfg)
+        fz_flops = 2 * mlp_flops(D, TRAIN_RAYS, 128)
+        fz_io = (numel_bytes([rays, tz, cot[0], cot[1]]) + numel_bytes([rays, tz])
+                 + numel_bytes(W) + numel_bytes(B))
+        fz_bound, fz_by, _, _ = bound(fz_flops, PEAK_BF16_FLOPS, fz_io)
+        print(f"hidden_dim {D}: render_bwd_frozen {TRAIN_RAYS} rays x 128 {fz_ms:.3f} ms "
+              f"({fz_flops / fz_ms / 1e9:.1f} TFLOP/s, {fz_ms / fz_bound:.2f} x the bound "
+              f"{fz_bound:.3f} ms by {fz_by}, {fz_flops / 1e12:.3f} TFLOP), plain version "
+              f"{fz_plain_ms:.1f} ms; against it {fk} at {fshare:.3f} of its tolerance")
+        entries.append({"name": f"render_bwd_frozen (hidden_dim {D})", "route": "cuda",
+                        "source": "nope_nerf_torch/csrc/render_bwd_frozen.cu",
+                        "replaces": "nope_nerf_tpu/ops/pallas_render.py:535",
+                        "launches": p["eval_counts"]["render_bwd_frozen"],
+                        "max_abs_err": max(wide["worst"][("render_bwd_frozen", D)], fz_err),
+                        "ms": fz_ms, "plain_ms": fz_plain_ms, "bound_ms": fz_bound,
+                        "bound_by": fz_by, "library_ms": None})
+        summary[f"render_bwd_frozen_ms_{D}"] = fz_ms
+        del got, ref
+
+        # K6's frozen variant at the fine pass's points, on a smooth loss's cotangents
+        g_rgb, g_den = point_cotangents(torch, pparams, pts, dirs, pcfg)
+        pz_ms = time_ms(lambda: _mlp_bwd_cuda(pparams, pts, dirs, g_rgb, g_den, pcfg,
+                                              want_param_grads=False), 10)
+        got = _mlp_bwd_cuda(pparams, pts, dirs, g_rgb, g_den, pcfg, want_param_grads=False)
+        ref, pz_plain_ms = timed_once(lambda: point_mlp_bwd_plain(
+            pparams, pts, dirs, g_rgb, g_den, pcfg, want_param_grads=False))
+        pz_err, pk, pshare, _ = held(dict(points=got[2], directions=got[3]),
+                                     dict(points=ref[2], directions=ref[3]),
+                                     ("points", "directions"))
+        if not pshare <= 1.0:
+            raise RuntimeError(f"point_mlp_bwd_frozen at {fine_m} points, hidden_dim {D}: {pk} at "
+                               f"{pshare:.2f} of its tolerance")
+        pz_flops = 2 * mlp_flops(D, 1, 1) * fine_m
+        pz_bound, pz_by, _, _ = bound(pz_flops, PEAK_BF16_FLOPS,
+                                      64 * fine_m + numel_bytes(W) + numel_bytes(B))
+        print(f"hidden_dim {D}: point_mlp_bwd_frozen {fine_m} points {pz_ms:.3f} ms "
+              f"({pz_flops / pz_ms / 1e9:.1f} TFLOP/s, {pz_ms / pz_bound:.2f} x the bound "
+              f"{pz_bound:.3f} ms by {pz_by}, {pz_flops / 1e12:.3f} TFLOP), plain version "
+              f"{pz_plain_ms:.1f} ms; against it {pk} at {pshare:.3f} of its tolerance")
+        entries.append({"name": f"point_mlp_bwd_frozen (hidden_dim {D})", "route": "cuda",
+                        "source": "nope_nerf_torch/csrc/point_mlp_bwd_frozen.cu",
+                        "replaces": "nope_nerf_tpu/ops/pallas_mlp.py:273",
+                        "launches": p["hier_pose_counts"]["point_mlp_bwd_frozen"],
+                        "max_abs_err": max(wide["worst"][("point_mlp_bwd_frozen", D)], pz_err),
+                        "ms": pz_ms, "plain_ms": pz_plain_ms, "bound_ms": pz_bound,
+                        "bound_by": pz_by, "library_ms": None})
+        summary[f"point_mlp_bwd_frozen_ms_{D}"] = pz_ms
+        del got, ref
+        for path in ("fused", "hier"):
+            g = p[f"graph_{path}"]
+            summary[f"pose_opt_{path}_ms_{D}"] = {"eager": g["eager_ms"], "replay": g["replay_ms"]}
     print(json.dumps({"wide": summary}))
     return entries
 

@@ -17,9 +17,11 @@
 // f32 sin/cos. Inputs: points and directions (M, 3), the cotangents of rgb
 // (M, 3) and density (M, 1), f32. Outputs: d(points), d(directions) (M, 3).
 //
-// Bound: compute. Forward + dX, 2.37 MFLOP a point at D=256 (the direction
-// product per point), against 64 bytes of input and output a point and the
-// weights once. No activation goes to device memory (mlp_dx_sm90.cuh).
+// Bound: compute. Forward + dX, 2.37 MFLOP a point at D=256 (5.23 at 384,
+// 9.20 at 512; the direction product per point), against 64 bytes of input
+// and output a point and the weights once. No activation goes to device
+// memory (mlp_dx_sm90.cuh); at 384 and 512 the ReLU masks and g4 do, to a
+// per-CTA scratch that stays in L2.
 //
 // Design: the chain over 128 consecutive points, as point_mlp_fwd.cu walks
 // them: persistent CTAs, one per SM, over the passes blockIdx.x, blockIdx.x +
@@ -32,8 +34,17 @@
 // Shared memory at D=256: activations 64 KB, position and direction
 // encodings 16 KB each, heads 6 KB, masks 34 KB, f32 arrays 5 KB, two 32 KB
 // ring stages.
+//
+// At D = 384 and 512, point_mlp_bwd_frozen_wide_kernel runs the 64-point
+// chain of mlp_dx_wide_sm90.cuh over 64-point passes; a pass's ReLU masks go
+// to the CTA's scratch in device memory (26 KB at 384, 34 KB at 512, after
+// the parked g4 of 48 or 64 KB). Shared memory at D = 512: activations 2 x
+// 64 KB, position and direction encodings 8 KB each, heads 12 KB, f32
+// arrays 2.5 KB, two 32 KB ring stages (222.5 KB of 227); at 384, 96 + 8 +
+// 8 + 9 KB, 2.5 KB and four 24 KB stages. The direction product (N = 32)
+// and the encoding VJPs run in warpgroup 0.
 
-#include "mlp_dx_sm90.cuh"
+#include "mlp_dx_wide_sm90.cuh"
 
 namespace {
 
@@ -150,6 +161,157 @@ point_mlp_bwd_frozen_kernel(const float* __restrict__ pts, const float* __restri
   }
 }
 
+// ---- hidden_dim 384 and 512: the 64-point tiles of mlp_dx_wide_sm90.cuh -------
+
+// f32 arrays: raw heads (64, 4), raw-rgb cotangents (64, 4), raw-density
+// cotangents and their bf16 values (64 each).
+constexpr size_t kFrozenF32BytesW = sizeof(float) * kWRows * (4 + 4 + 1 + 1);
+
+// A CTA's scratch at the wide widths: g4's parked copy, then one tile's masks.
+template <int D>
+__host__ __device__ constexpr size_t frozen_scratch_w() {
+  return g4_bytes_w<D>() + mask_tile_bytes_w<D>();
+}
+
+// K6's frozen variant at D = 384 and 512: per 64-point pass, the forward
+// with its masks kept in the CTA's scratch, the head VJP, the rgb head's
+// backward, the direction product and the dX chain, each encoding's VJP by
+// warpgroup 0.
+template <int D>
+__global__ void __launch_bounds__(kThreads90, 1)
+point_mlp_bwd_frozen_wide_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
+                                 const float* __restrict__ g_rgb,
+                                 const float* __restrict__ g_density,
+                                 const unsigned char* __restrict__ tiles,
+                                 const unsigned char* __restrict__ tiles_dx, Biases bias,
+                                 unsigned char* scratch, float* __restrict__ dpts,
+                                 float* __restrict__ ddirs, long long M, int occ_softplus,
+                                 int head_dist_alpha, LayoutW<D> L) {
+  using T = TilesW<D>;
+  constexpr int H = D / 2;
+  constexpr uint32_t kBuf = kWRows * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = setup90(smem_raw, L.bars, L.stages);
+  Ring ring = make_ring(base, L.ring, L.bars, T::kFull, L.stages);
+  const uint32_t head_bar = ring.full + 16 * kMaxStages;
+  const uint32_t heads = smem_addr(base + L.heads);
+  const Handoff hand = make_handoff(ring);
+  const long long n_pass = (M + kWRows - 1) / kWRows;
+
+  if (threadIdx.x >= kConsumers) {
+    set_producer_regs();
+    const int etid = threadIdx.x - kConsumers - 32;
+    if (threadIdx.x == kConsumers) {
+      const long long mine = (n_pass - blockIdx.x + gridDim.x - 1) / gridDim.x;
+      mbar_expect_tx(head_bar, T::kDensHead + T::kRgbHead);
+      bulk_load(heads, tiles + T::kHeads, T::kDensHead + T::kRgbHead, head_bar);
+      Feeder f{ring};
+      for (long long k = 0; k < mine; ++k) {
+        push_forward_w<D>(f, tiles, T::kPoint);
+        push_backward_w<D, true>(f, tiles_dx);
+      }
+    } else if (etid >= 0) {
+      unsigned char* pe = base + L.pe;
+      unsigned char* de = base + L.de;
+      long long tile = 0;
+      for (long long pass = blockIdx.x; pass < n_pass; pass += gridDim.x, ++tile) {
+        const long long p0 = pass * kWRows;
+        const int n = static_cast<int>(M - p0 < kWRows ? M - p0 : kWRows);
+        wait_free(hand.pe_free, tile);
+        encode_tile<10, kPe, kWRows>(pe, etid, [&](int p, int c) {
+          return p < n ? pts[3 * (p0 + p) + c] : 0.f;
+        });
+        hand_over(hand.pe_full);
+        wait_free(hand.de_free, tile);
+        encode_tile<4, kDe, kWRows>(de, etid, [&](int p, int c) {
+          return p < n ? dirs[3 * (p0 + p) + c] : 0.f;
+        });
+        hand_over(hand.de_full);
+      }
+    }
+    return;
+  }
+  set_consumer_regs();
+
+  float* hout = reinterpret_cast<float*>(base + L.f32);   // (64, 4) raw
+  float* grgb = hout + 4 * kWRows;                        // raw-rgb cotangent     (64, 4)
+  float* graw = grgb + 4 * kWRows;                        // raw-density cotangent (64)
+  float* gsbf = graw + kWRows;                            // its bf16 value        (64)
+  unsigned char* save = scratch + static_cast<size_t>(blockIdx.x) * frozen_scratch_w<D>();
+  uint32_t* masks = reinterpret_cast<uint32_t*>(save + g4_bytes_w<D>());
+  const unsigned char* dens_head = base + L.heads;
+  const unsigned char* rgb_head = dens_head + T::kDensHead;
+  const uint32_t pe_s = smem_addr(base + L.pe), de_s = smem_addr(base + L.de);
+  const uint32_t act_s = smem_addr(base + L.act);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  mbar_wait(head_bar, 0);
+
+  long long tile = 0;
+  for (long long pass = blockIdx.x; pass < n_pass; pass += gridDim.x, ++tile) {
+    const long long p0 = pass * kWRows;
+    const int n = static_cast<int>(M - p0 < kWRows ? M - p0 : kWRows);
+    mlp_tile_w_masks<D>(bias.b, pe_s, de_s, base + L.act, heads, heads + T::kDensHead,
+                        bias.b[10], hout, hand, tile, ring, masks);
+    consumer_sync();   // both warpgroups' raw heads are in
+
+    // ---- head VJP (f32); rows of a ragged pass get zero cotangents -------------
+    if (tid < kWRows) {
+      const bool live = tid < n;
+      const float raw = hout[4 * tid + 3];
+      const float gd = live ? g_density[p0 + tid] : 0.f;
+      const float sigma = density_act(raw, occ_softplus);
+      const float g_sigma = head_dist_alpha ? gd : gd * expf(-sigma);
+      const float gr =
+          occ_softplus ? g_sigma * (1.f / (1.f + expf(-raw))) : (raw > 0.f ? g_sigma : 0.f);
+      graw[tid] = gr;
+      gsbf[tid] = bf16_round(gr);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float s = 1.f / (1.f + expf(-hout[4 * tid + k]));
+        grgb[4 * tid + k] = (live ? g_rgb[3 * (p0 + tid) + k] : 0.f) * (s * (1.f - s));
+      }
+    }
+    rgb_head_bwd_w<D>(base + L.act, grgb, masks + 8 * mask_layer_words_w<D>(), rgb_head,
+                      nullptr, nullptr);
+
+    // d(directions) = (g_h wrde^T) through the direction encoding, by warpgroup 0
+    if (wg == 0) {
+      float acc[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+      ring_products_w<32>(acc, act_s + kBuf, H / kWSliceCols, 0, ring);
+      coord_grad90<4>(acc, dirs, 4, n, p0, ddirs);
+    } else {
+      ring_skip(H / kWSliceCols, ring);
+    }
+    float dpe[32];
+    dx_chain_w<D>(dpe, base + L.act, ring, masks, gsbf, dens_head, save);
+    if (wg == 0) coord_grad90<8>(dpe, pts, 10, n, p0, dpts);
+    consumer_sync();   // the pass is done with every buffer before the next one's forward
+  }
+}
+
+template <int D>
+cudaError_t launch_frozen_w(const float* pts, const float* dirs, const float* g_rgb,
+                            const float* g_density, const unsigned char* tiles,
+                            const unsigned char* tiles_dx, const Biases& bias,
+                            unsigned char* scratch, float* dpts, float* ddirs, long long M,
+                            int n_ctas, int occ_softplus, int head_dist_alpha,
+                            cudaStream_t stream) {
+  const LayoutW<D> L(true, kFrozenF32BytesW);
+  if (L.stages < 2) return cudaErrorInvalidValue;
+  const size_t smem = L.bytes(kFrozenF32BytesW);
+  cudaError_t err = cudaFuncSetAttribute(point_mlp_bwd_frozen_wide_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  point_mlp_bwd_frozen_wide_kernel<D><<<n_ctas, kThreads90, smem, stream>>>(
+      pts, dirs, g_rgb, g_density, tiles, tiles_dx, bias, scratch, dpts, ddirs, M, occ_softplus,
+      head_dist_alpha, L);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_frozen(const float* pts, const float* dirs, const float* g_rgb,
                           const float* g_density, const unsigned char* tiles,
@@ -177,9 +339,10 @@ cudaError_t launch_frozen(const float* pts, const float* dirs, const float* g_rg
 // pts, dirs, g_rgb (M, 3) and g_density (M, 1) f32, contiguous on the device;
 // tiles: pack_tiles' forward weight buffer, tiles_dx: pack_tiles_dx's
 // backward buffer (both 16-byte aligned); biases: 12 f32 device pointers in
-// pack_weights' order. scratch: n_ctas x 128 x D bf16 (the chain's parked g4).
-// dpts, ddirs (M, 3) f32 (out). 0 < n_ctas <= the number of 128-point
-// passes. Returns a cudaError_t (0 on success); the launch is asynchronous
+// pack_weights' order. scratch: the bytes nerf_point_mlp_bwd_frozen_scratch
+// gives (the chain's parked g4, and at 384 and 512 one tile's masks). dpts,
+// ddirs (M, 3) f32 (out). 0 < n_ctas <= the number of passes (128 points at
+// D = 128 and 256, 64 at 384 and 512). Returns a cudaError_t (0 on success); the launch is asynchronous
 // on `stream`.
 extern "C" int nerf_point_mlp_bwd_frozen(const float* pts, const float* dirs, const float* g_rgb,
                                          const float* g_density, const void* tiles,
@@ -187,7 +350,8 @@ extern "C" int nerf_point_mlp_bwd_frozen(const float* pts, const float* dirs, co
                                          void* scratch, float* dpts, float* ddirs, long long M,
                                          int D, int n_ctas, int occ_softplus, int head_dist_alpha,
                                          void* stream) {
-  const long long n_pass = (M + kPts - 1) / kPts;
+  const int rows = D > 256 ? kWRows : kPts;   // points of a pass at this width
+  const long long n_pass = (M + rows - 1) / rows;
   if (M <= 0 || n_ctas <= 0 || n_ctas > n_pass) return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(tiles) % 16 != 0 || reinterpret_cast<uintptr_t>(tiles_dx) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -199,6 +363,14 @@ extern "C" int nerf_point_mlp_bwd_frozen(const float* pts, const float* dirs, co
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
+    case 512:
+      err = launch_frozen_w<512>(pts, dirs, g_rgb, g_density, w, wdx, bias, sc, dpts, ddirs, M,
+                                 n_ctas, occ_softplus, head_dist_alpha, st);
+      break;
+    case 384:
+      err = launch_frozen_w<384>(pts, dirs, g_rgb, g_density, w, wdx, bias, sc, dpts, ddirs, M,
+                                 n_ctas, occ_softplus, head_dist_alpha, st);
+      break;
     case 256:
       err = launch_frozen<256>(pts, dirs, g_rgb, g_density, w, wdx, bias, sc, dpts, ddirs, M,
                                n_ctas, occ_softplus, head_dist_alpha, st);
@@ -211,6 +383,25 @@ extern "C" int nerf_point_mlp_bwd_frozen(const float* pts, const float* dirs, co
       err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// Bytes of nerf_point_mlp_bwd_frozen's scratch at width D over n_ctas CTAs:
+// each CTA's parked g4 (128 x D bf16 at D = 128 and 256; 64 x D at 384 and
+// 512, followed by one tile's ReLU masks); -1 for a width the kernel does
+// not take.
+extern "C" long long nerf_point_mlp_bwd_frozen_scratch(int D, int n_ctas) {
+  if (n_ctas <= 0) return -1;
+  switch (D) {
+    case 512:
+      return static_cast<long long>(frozen_scratch_w<512>()) * n_ctas;
+    case 384:
+      return static_cast<long long>(frozen_scratch_w<384>()) * n_ctas;
+    case 256:
+    case 128:
+      return static_cast<long long>(kPts) * D * 2 * n_ctas;
+    default:
+      return -1;
+  }
 }
 
 extern "C" const char* nerf_error_string(int code) {

@@ -17,8 +17,10 @@
 // (N,S). Outputs: d(rays) (N,9), dz (N,S).
 //
 // Bound: compute. Forward + dX are two products per layer, 2.36 MFLOP a
-// point at D=256, against 52 bytes a sample of input and output and the
-// weights once. No activation goes to device memory (mlp_dx_sm90.cuh).
+// point at D=256 (5.21 at 384, 9.18 at 512), against 52 bytes a sample of
+// input and output and the weights once. No activation goes to device
+// memory (mlp_dx_sm90.cuh); at 384 and 512 the ReLU masks and g4 do, to a
+// per-CTA scratch that L2 keeps.
 //
 // Design: persistent CTAs, one per SM, walk over the rays blockIdx.x,
 // blockIdx.x + gridDim.x, ...; per ray the S/128 tiles go through the
@@ -39,8 +41,20 @@
 // D = 128) the per-sample arrays, and above S = 3,200 (1,536) the
 // composite's, go to the CTA's share of a scratch in device memory
 // (mlp_fwd_sm90.cuh's RayPlace).
+//
+// At D = 384 and 512, render_bwd_frozen_wide_kernel runs the 64-point chain
+// of mlp_dx_wide_sm90.cuh: a ray of S samples is S/64 tiles, whose forwards
+// run once, each tile's ReLU masks kept in the CTA's scratch in device
+// memory (26 KB a tile at 384, 34 KB at 512, after the parked g4 of 48 or
+// 64 KB), so no tile runs its forward twice. Shared memory at D = 512, S =
+// 128: activations 2 x 64 KB, position encodings 8 KB, heads 12 KB, f32
+// arrays 12.1 KB (the samples' 5.5 KB, the fixed 6.6 KB with rgb_head_bwd_w's
+// 4 KB of column sums), two 32 KB ring stages; the per-sample arrays go to
+// the spill scratch above S = 128, the composite's above S = 6,528. At
+// D = 384, S = 128: 96 + 8 + 9 KB, f32 10.6 KB and four 24 KB stages; the
+// per-sample arrays spill above S = 1,280, the composite's above 4,864.
 
-#include "mlp_dx_sm90.cuh"
+#include "mlp_dx_wide_sm90.cuh"
 
 namespace {
 
@@ -188,6 +202,179 @@ render_bwd_frozen_kernel(const float* __restrict__ rays, const float* __restrict
   }
 }
 
+// ---- hidden_dim 384 and 512: the 64-point tiles of mlp_dx_wide_sm90.cuh -------
+
+// Shared bytes beside the per-sample arrays at the wide widths: the direction
+// encoding (32), the rgb-hidden bias (D/2), ghsum (D/2), reduction scratch
+// (4 x D/2: rgb_head_bwd_w's per-warp column sums), the ray (16), rsum (16),
+// the tile's bf16 graw (64), the ray's cotangents (16).
+template <int D>
+size_t frozen_fixed_bytes_w() {
+  return sizeof(float) * (kDe + D / 2 + D / 2 + 4 * (D / 2) + 16 + 16 + kWRows + 16);
+}
+
+template <int D>
+RayPlace frozen_place_w(int S) {
+  return ray_place<D, LayoutW<D>>(S, kRaySampleF32, kRayCompositeF32, frozen_fixed_bytes_w<D>(),
+                                  FwdTrunk<D>::kActBytes);
+}
+
+// A CTA's scratch at the wide widths: g4's parked copy, then the masks of
+// every tile of a ray.
+template <int D>
+__host__ __device__ size_t frozen_scratch_w(int S) {
+  return g4_bytes_w<D>() + static_cast<size_t>(S / kWRows) * mask_tile_bytes_w<D>();
+}
+
+// K4's frozen variant at D = 384 and 512, on 64-point tiles: per ray, every
+// tile's forward with its masks kept in the CTA's scratch, the composite
+// forward and backward over the ray, then each tile's rgb head backward, dX
+// chain and encoding VJP. Its per-sample arrays are placed by RayPlace at run
+// time (one build per width).
+template <int D>
+__global__ void __launch_bounds__(kThreads90, 1)
+render_bwd_frozen_wide_kernel(const float* __restrict__ rays, const float* __restrict__ z,
+                              const float* __restrict__ g_rgb, const float* __restrict__ g_dist,
+                              const float* __restrict__ g_w, const float* __restrict__ g_a,
+                              const unsigned char* __restrict__ tiles,
+                              const unsigned char* __restrict__ tiles_dx, Biases bias,
+                              unsigned char* scratch, float* spill, float* __restrict__ drays,
+                              float* __restrict__ dz, int n_rays, int S, int occ_softplus,
+                              int head_dist_alpha, int dist_alpha, LayoutW<D> L, RayPlace place) {
+  using T = TilesW<D>;
+  constexpr int H = D / 2;
+  constexpr size_t kMaskTileWords = mask_tile_bytes_w<D>() / sizeof(uint32_t);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = setup90(smem_raw, L.bars, L.stages);
+  Ring ring = make_ring(base, L.ring, L.bars, T::kFull, L.stages);
+  const uint32_t head_bar = ring.full + 16 * kMaxStages;
+  const uint32_t heads = smem_addr(base + L.heads);
+  const Handoff hand = make_handoff(ring);
+  const int passes = S / kWRows;
+
+  if (threadIdx.x >= kConsumers) {
+    set_producer_regs();
+    render_producer_w<D>(rays, z, tiles, tiles_dx, ring, heads, head_bar, hand, base + L.pe,
+                         n_rays, S);
+    return;
+  }
+  set_consumer_regs();
+
+  float* const f32 = reinterpret_cast<float*>(base + L.f32);
+  float* const act = reinterpret_cast<float*>(base + L.act);
+  const RayArrays arr = ray_arrays(place, S, f32, act, spill);
+  float* fz = arr.samples;                              // z                      (S)
+  float* hout = fz + S;                                 // rgb | raw density      (S,4)
+  float* graw = hout + 4 * S;                           // raw-density cotangent  (S)
+  float* grgb = graw + S;                               // raw-rgb cotangent      (S,4)
+  float* gz = grgb + 4 * S;                             // dz                     (S)
+  float* de = arr.fixed;                                // direction encoding     (32)
+  float* debias = de + kDe;                             // rgb-hidden bias        (D/2)
+  float* ghsum = debias + H;                            // sum of bf16 g_h        (D/2)
+  float* red = ghsum + H;                               // scratch                (4 D/2)
+  float* ray = red + 4 * H;                             // o | v | dir            (16)
+  float* rsum = ray + 16;                               // d_o, d_v, d_dir        (16)
+  float* gsbf = rsum + 16;                              // the tile's bf16 graw   (64)
+  float* cot = gsbf + kWRows;                           // g_rgb (0-2), g_dist    (16)
+  // between the forward and the backward: alpha, weights, transmittance and
+  // the scan buffers (S each), in the activation buffers while they fit
+  float* alpha = arr.composite;
+  float* wts = alpha + S;
+  float* trans = wts + S;
+  float* scan0 = trans + S;
+  float* scan1 = scan0 + S;
+  unsigned char* save = scratch + static_cast<size_t>(blockIdx.x) * frozen_scratch_w<D>(S);
+  uint32_t* masks = reinterpret_cast<uint32_t*>(save + g4_bytes_w<D>());
+  const unsigned char* dens_head = base + L.heads;
+  const unsigned char* rgb_head = dens_head + T::kDensHead;
+  // w12 staged for the per-ray bias and dde where the activation buffers are
+  // free: at the ray's start and end
+  unsigned char* w12 = base + L.act;
+  const uint32_t pe_s = smem_addr(base + L.pe);
+  const int tid = threadIdx.x;
+  mbar_wait(head_bar, 0);
+
+  long long tile = 0;
+  for (long long r = blockIdx.x; r < n_rays; r += gridDim.x) {
+    consumer_sync();   // the previous ray is done with every buffer
+    if (tid < 9) ray[tid] = rays[r * 9 + tid];
+    if (tid < 3) cot[tid] = g_rgb[r * 3 + tid];
+    if (tid == 3) cot[3] = g_dist[r];
+    for (int s = tid; s < S; s += kConsumers) fz[s] = z[r * S + s];
+    consumer_sync();
+    if (tid < kDe) de[tid] = __bfloat162float(__float2bfloat16_rn(dense_lane(ray + 6, tid, 4)));
+    stage_w12_w<D>(w12, tiles + T::kW12);
+    consumer_sync();
+    for (int j = tid; j < H; j += kConsumers) {   // render_fwd.cu's order: the same bits
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < kDe; ++k) {
+        const bf16 wv = *reinterpret_cast<const bf16*>(w12 + swz64(j, k));
+        acc = fmaf(de[k], __bfloat162float(wv), acc);
+      }
+      debias[j] = acc + bias.b[10][j];
+    }
+    consumer_sync();
+
+    // ---- forward: every tile's raw heads, its masks kept --------------------
+    for (int p = 0; p < passes; ++p, ++tile)
+      mlp_tile_w_masks<D>(bias.b, pe_s, 0, base + L.act, heads, heads + T::kDensHead, debias,
+                          hout + 4 * kWRows * p, hand, tile, ring, masks + p * kMaskTileWords);
+    consumer_sync();
+    composite_fwd90(hout, fz, alpha, trans, wts, scan0, scan1, S, occ_softplus, head_dist_alpha,
+                    dist_alpha);
+
+    // ---- composite backward (f32) ---------------------------------------------
+    composite_bwd90(cot, cot[3], 0, g_w == nullptr ? nullptr : g_w + r * S,
+                    g_a == nullptr ? nullptr : g_a + r * S, hout, fz, alpha, trans, wts, scan0,
+                    scan1, graw, grgb, gz, S, occ_softplus, head_dist_alpha, dist_alpha);
+    if (tid < H) ghsum[tid] = 0.f;
+    if (tid < 16) rsum[tid] = 0.f;
+    consumer_sync();
+
+    // ---- heads -> MLP -> encoding, tile by tile -------------------------------
+    for (int p = 0; p < passes; ++p) {
+      const int p0 = p * kWRows;
+      const uint32_t* tmask = masks + p * kMaskTileWords;
+      if (tid < kWRows) gsbf[tid] = bf16_round(graw[p0 + tid]);
+      rgb_head_bwd_w<D>(base + L.act, grgb + 4 * p0, tmask + 8 * mask_layer_words_w<D>(),
+                        rgb_head, red, ghsum);
+      float dpe[32];
+      dx_chain_w<D>(dpe, base + L.act, ring, tmask, gsbf, dens_head, save);
+      tile_enc_vjp_w(dpe, ray, fz, gz, rsum, red, p0);
+    }
+
+    // ---- direction encoding, once per ray: dde = (sum_s bf16 g_h) wrde^T -----
+    ray_dir_vjp_w<D>(w12, tiles + T::kW12, ghsum, ray, rsum, red);
+    if (tid < 9) drays[r * 9 + tid] = rsum[tid];
+    for (int s = tid; s < S; s += kConsumers) dz[r * S + s] = gz[s];
+  }
+}
+
+template <int D>
+cudaError_t launch_frozen_w(const float* rays, const float* z, const float* g_rgb,
+                            const float* g_dist, const float* g_w, const float* g_a,
+                            const unsigned char* tiles, const unsigned char* tiles_dx,
+                            const Biases& bias, unsigned char* scratch, float* spill,
+                            float* drays, float* dz, int n_rays, int S, int n_ctas,
+                            int occ_softplus, int head_dist_alpha, int dist_alpha,
+                            cudaStream_t stream) {
+  const RayPlace place = frozen_place_w<D>(S);
+  const size_t area = place.area(frozen_fixed_bytes_w<D>(), S);
+  const LayoutW<D> L(false, area);
+  if (L.stages < 2) return cudaErrorInvalidValue;
+  if (place.spill_floats(S) > 0 && spill == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = L.bytes(area);
+  cudaError_t err = cudaFuncSetAttribute(render_bwd_frozen_wide_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  render_bwd_frozen_wide_kernel<D><<<n_ctas, kThreads90, smem, stream>>>(
+      rays, z, g_rgb, g_dist, g_w, g_a, tiles, tiles_dx, bias, scratch, spill, drays, dz, n_rays,
+      S, occ_softplus, head_dist_alpha, dist_alpha, L, place);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_frozen(const float* rays, const float* z, const float* g_rgb,
                           const float* g_dist, const float* g_w, const float* g_a,
@@ -221,7 +408,8 @@ cudaError_t launch_frozen(const float* rays, const float* z, const float* g_rgb,
 // (n_rays, S) f32 or null (a zero cotangent); tiles: pack_tiles' forward
 // weight buffer, tiles_dx: pack_tiles_dx's backward buffer (both 16-byte
 // aligned); biases: 12 f32 device pointers in pack_weights' order. scratch:
-// n_ctas x 128 x D bf16 (the chain's parked g4); spill: the bytes
+// the bytes nerf_render_bwd_frozen_scratch gives (the chain's parked g4, and
+// at 384 and 512 the masks); spill: the bytes
 // nerf_render_bwd_frozen_spill gives (null where it gives 0). drays
 // (n_rays, 9), dz (n_rays, S) f32 (out). 0 < n_ctas <= n_rays. Returns a
 // cudaError_t (0 on success); the launch is asynchronous on `stream`.
@@ -245,6 +433,16 @@ extern "C" int nerf_render_bwd_frozen(const float* rays, const float* z, const f
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
+    case 512:
+      err = launch_frozen_w<512>(rays, z, g_rgb, g_dist, g_w, g_a, w, wdx, bias, sc, spill, drays,
+                                 dz, n_rays, S, n_ctas, occ_softplus, head_dist_alpha, dist_alpha,
+                                 st);
+      break;
+    case 384:
+      err = launch_frozen_w<384>(rays, z, g_rgb, g_dist, g_w, g_a, w, wdx, bias, sc, spill, drays,
+                                 dz, n_rays, S, n_ctas, occ_softplus, head_dist_alpha, dist_alpha,
+                                 st);
+      break;
     case 256:
       err = launch_frozen<256>(rays, z, g_rgb, g_dist, g_w, g_a, w, wdx, bias, sc, spill, drays,
                                dz, n_rays, S, n_ctas, occ_softplus, head_dist_alpha, dist_alpha,
@@ -267,13 +465,47 @@ extern "C" int nerf_render_bwd_frozen(const float* rays, const float* z, const f
 extern "C" long long nerf_render_bwd_frozen_spill(int S, int D, int n_ctas) {
   if (S <= 0 || S % kPts != 0 || n_ctas <= 0) return -1;
   long long per_cta;
-  if (D == 256)
-    per_cta = frozen_place<256>(S).spill_floats(S);
-  else if (D == 128)
-    per_cta = frozen_place<128>(S).spill_floats(S);
-  else
-    return -1;
+  switch (D) {
+    case 512:
+      per_cta = frozen_place_w<512>(S).spill_floats(S);
+      break;
+    case 384:
+      per_cta = frozen_place_w<384>(S).spill_floats(S);
+      break;
+    case 256:
+      per_cta = frozen_place<256>(S).spill_floats(S);
+      break;
+    case 128:
+      per_cta = frozen_place<128>(S).spill_floats(S);
+      break;
+    default:
+      return -1;
+  }
   return static_cast<long long>(sizeof(float)) * per_cta * n_ctas;
+}
+
+// Bytes of nerf_render_bwd_frozen's scratch for S samples at width D over
+// n_ctas CTAs: each CTA's parked g4 (128 x D bf16 at D = 128 and 256; 64 x D
+// at 384 and 512, followed by the ReLU masks of the ray's S/64 tiles); -1 for
+// a width or an S the kernel does not take.
+extern "C" long long nerf_render_bwd_frozen_scratch(int S, int D, int n_ctas) {
+  if (S <= 0 || S % kPts != 0 || n_ctas <= 0) return -1;
+  long long per_cta;
+  switch (D) {
+    case 512:
+      per_cta = static_cast<long long>(frozen_scratch_w<512>(S));
+      break;
+    case 384:
+      per_cta = static_cast<long long>(frozen_scratch_w<384>(S));
+      break;
+    case 256:
+    case 128:
+      per_cta = static_cast<long long>(kPts) * D * 2;
+      break;
+    default:
+      return -1;
+  }
+  return per_cta * n_ctas;
 }
 
 extern "C" const char* nerf_error_string(int code) {

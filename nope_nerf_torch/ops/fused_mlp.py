@@ -44,8 +44,9 @@ import torch
 from ..models.nerf import NerfConfig, _occupancy, bf16_round, softplus
 from ._build import CudaLibrary, runs_plain
 from .fused_render import (DE_DIM, PE_DIM, SWIZZLE_COLS, _backward_ctas, _enc_deriv_to_coords,
-                           _grad_blocks, _mlp_forward, _packed_tiles_on, check_kernel_width,
-                           encode_lanes, mlp_backward, pack_tiles, pack_weights, unpack_grads)
+                           _grad_blocks, _mlp_forward, _packed_tiles_on, _scratch_bytes,
+                           check_kernel_width, encode_lanes, mlp_backward, pack_tiles,
+                           pack_weights, tile_rows, unpack_grads)
 
 PTS_PER_PASS = 128        # the kernels' pass over consecutive points
 PLAIN_BLOCK_POINTS = 65536  # points per block of the plain versions (bounds their memory)
@@ -80,6 +81,8 @@ def _setup_bwd_frozen(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
     lib.nerf_point_mlp_bwd_frozen.argtypes = [p] * 10 + [ctypes.c_longlong] + [i] * 4 + [p]
     lib.nerf_point_mlp_bwd_frozen.restype = ctypes.c_int
+    lib.nerf_point_mlp_bwd_frozen_scratch.argtypes = [i, i]
+    lib.nerf_point_mlp_bwd_frozen_scratch.restype = ctypes.c_longlong
     lib.nerf_error_string.argtypes = [ctypes.c_int]
     lib.nerf_error_string.restype = ctypes.c_char_p
 
@@ -114,9 +117,10 @@ def _check_inputs(pts: torch.Tensor, dirs: torch.Tensor) -> None:
 
 
 def _check_width(cfg: NerfConfig, kernel: str) -> None:
-    """The point-query MLP `kernel` ("forward": K5, 128 to 512; "backward": K6,
-    128 and 256) takes cfg's width and the reference 10/4 encoding levels, or
-    this raises NotImplementedError before any device work."""
+    """The point-query MLP `kernel` ("forward": K5, 128 to 512; "backward
+    (frozen network)": K6's frozen-network variant, 128 to 512; "backward":
+    K6 full, 128 and 256) takes cfg's width and the reference 10/4 encoding
+    levels, or this raises NotImplementedError before any device work."""
     if cfg.pos_enc_levels != 10 or cfg.dir_enc_levels != 4:
         raise NotImplementedError(
             "the CUDA point-query MLP kernels are built for the reference 10/4 encoding "
@@ -332,6 +336,12 @@ def _mlp_fwd_cuda(params, pts: torch.Tensor, dirs: torch.Tensor, cfg: NerfConfig
     return rgb, density
 
 
+def mlp_bwd_kernel(want_param_grads: bool) -> str:
+    """_check_width's name of the backward's variant: K6 full when a nerf
+    parameter wants a gradient, else its frozen-network variant."""
+    return "backward" if want_param_grads else "backward (frozen network)"
+
+
 def _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig,
                   want_param_grads: bool = True):
     """(dWs, dBs, dpts, ddirs) by one launch of the backward kernel: its C
@@ -339,7 +349,7 @@ def _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig,
     the dW kernel (with its in-order sum of the chunks). With
     want_param_grads=False its frozen-network variant runs: no dW/dB, and
     dWs, dBs are None."""
-    _check_width(cfg, "backward")
+    _check_width(cfg, mlp_bwd_kernel(want_param_grads))
     D = cfg.hidden_dim
     dev = pts.device
     M = pts.shape[0]
@@ -426,15 +436,16 @@ def dw_sm90(xs: Sequence[torch.Tensor], gs: Sequence[torch.Tensor], Ks: Sequence
 
 def _mlp_bwd_frozen_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig):
     """(dpts, ddirs) by one launch of K6's frozen-network variant: no
-    operands, no partial sums; a per-CTA scratch of 128 x D bf16 holds the
-    chain's g4."""
+    operands, no partial sums; a per-CTA scratch holds the chain's g4 (one
+    tile x D bf16) and, at 384 and 512, the tile's ReLU masks (the kernel's
+    entry gives its size)."""
     D = cfg.hidden_dim
     dev = pts.device
     M = pts.shape[0]
     tiles, tiles_dx, _B, bptrs = _packed_tiles_on(params, cfg, dev)
     lib = POINT_MLP_BWD_FROZEN.lib()
-    n_ctas = _backward_ctas(-(-M // PTS_PER_PASS), dev)
-    scratch = torch.empty((n_ctas, PTS_PER_PASS, D), dtype=torch.bfloat16, device=dev)
+    n_ctas = _backward_ctas(-(-M // tile_rows(D)), dev)
+    scratch = _scratch_bytes(lib.nerf_point_mlp_bwd_frozen_scratch(D, n_ctas), dev)
     dpts = torch.empty((M, 3), dtype=torch.float32, device=dev)
     ddirs = torch.empty((M, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -469,6 +480,10 @@ class _PointMLP(torch.autograd.Function):
     def forward(ctx, pts, dirs, cfg, names, *tensors):
         params = dict(zip(names, tensors))
         plain = runs_plain(pts)       # read here: the backward takes the forward's route
+        if not plain:
+            # what the backward kernel cannot take raises now, not after the forward: the
+            # variant the backward will run, full when a nerf parameter wants a gradient
+            _check_width(cfg, mlp_bwd_kernel(any(ctx.needs_input_grad[4:])))
         out = _forward(params, pts, dirs, cfg, plain)
         ctx.save_for_backward(pts, dirs, *tensors)
         ctx.static = (cfg, plain, names)

@@ -31,8 +31,11 @@ weights as `pack_tiles`' pre-swizzled slices, the layout their wgmma trunk
 (csrc/mlp_fwd_sm90.cuh; csrc/mlp_fwd_wide_sm90.cuh at hidden_dim 384 and
 512) streams into shared memory; every backward kernel takes those and
 `pack_tiles_dx`' slices of the (in, out) weights, the B operands of its
-wgmma dX chain (csrc/mlp_dx_sm90.cuh). Which kernel takes which hidden_dim
-is KERNEL_WIDTHS'.
+wgmma dX chain (csrc/mlp_dx_sm90.cuh; at 384 and 512, for the
+frozen-network variants, csrc/mlp_dx_wide_sm90.cuh's 64-point chain). Which
+kernel takes which hidden_dim is KERNEL_WIDTHS': the forward kernels and
+the frozen-network backward variants 128 to 512, the kernels that form
+weight gradients (K1, K4 full, K6 full) 128 and 256.
 
 The ray table is (N, 9) [origin | ray_vec | mlp_dir]: the TPU's 128-lane
 padding is a layout of that machine and is not carried over. The train
@@ -57,6 +60,7 @@ PE_DIM = 64             # position encoding 63 -> 64 lanes
 DE_DIM = 32             # direction encoding 27 -> 32 lanes
 HEAD_DIM = 8            # head outputs padded to one mma n-tile
 PTS_PER_PASS = 128      # the kernel's pass over a ray's samples
+WIDE_TILE_ROWS = 64     # points of a tile of the 64-point trunk and chain (D 384, 512)
 PLAIN_BLOCK_RAYS = 2048  # rays per block of the plain version (bounds its memory)
 
 Packed = Tuple[List[torch.Tensor], List[torch.Tensor]]
@@ -223,10 +227,17 @@ def pack_tiles(params: Dict[str, torch.Tensor], cfg: NerfConfig) -> Tuple[torch.
     return _gather_slices(blocks, cfg.hidden_dim, _tile_layout, _tile_index), biases
 
 
+def tile_rows(D: int) -> int:
+    """Points of one tile of the kernels' trunk and dX chain at width D: 128
+    at 128 and 256, 64 at 384 and 512."""
+    return PTS_PER_PASS if D <= 256 else WIDE_TILE_ROWS
+
+
 def _tile_dx_layout(D: int) -> List[Tuple[int, int, int]]:
     """(pack_weights index, rows N = inputs, columns K = outputs) of each
     weight of the frozen-network backward's buffer (csrc/mlp_dx_sm90.cuh::
-    TilesDx), in the order its dX products g_in = g_out W consume them: the
+    TilesDx; csrc/mlp_dx_wide_sm90.cuh::TilesDxW at 384 and 512), in the
+    order its dX products g_in = g_out W consume them: the
     rgb-hidden layer's direction part (K6 only; K4 starts after it) and x
     part, the feature layer, the trunk from layer 7 down to 1 (w8, w7, w6,
     w4, w3, w2, w1), then the encoding's two products, w0 and the skip's
@@ -240,8 +251,10 @@ def _tile_dx_layout(D: int) -> List[Tuple[int, int, int]]:
 def _tile_dx_index(D: int) -> np.ndarray:
     """The backward buffer's gather index (_swizzled_slices): each weight's
     (in, out) block is already (N, K) with K contiguous, the K-major B operand
-    of a dX product."""
-    return _swizzled_slices([(N, K, SWIZZLE_COLS) for _, N, K in _tile_dx_layout(D)],
+    of a dX product, cut into slices of _slice_cols(D) columns: 64 in the
+    128-byte swizzle at 128 and 256, 32 in the 64-byte one at 384 and 512
+    (the wide chain's ring stages hold the forward's 32-column slices)."""
+    return _swizzled_slices([(N, K, _slice_cols(D)) for _, N, K in _tile_dx_layout(D)],
                             k_major=True)
 
 
@@ -263,8 +276,8 @@ def pack_tiles_dx(params: Dict[str, torch.Tensor], cfg: NerfConfig):
     """nerf params -> (the forward buffer of pack_tiles, the frozen-network
     backward's buffer, 12 f32 biases), from one _packed_blocks. The backward
     buffer holds each weight of _tile_dx_layout as 64-column (output) slices
-    of its (in, out) storage, pre-swizzled, in the order the chain's producer
-    streams them."""
+    of its (in, out) storage (32-column ones at 384 and 512), pre-swizzled,
+    in the order the chain's producer streams them."""
     blocks, biases = _packed_blocks(params, cfg)
     D = cfg.hidden_dim
     return (_gather_slices(blocks, D, _tile_layout, _tile_index),
@@ -743,16 +756,18 @@ def _train_plain(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p:
 # The hidden_dim each CUDA kernel takes, by the name its wrapper raises with.
 # The forward kernels (K3, K5) run 128 and 256 on the 128-row trunk of
 # csrc/mlp_fwd_sm90.cuh and 384 and 512 on the 64-row one of
-# csrc/mlp_fwd_wide_sm90.cuh; every backward kernel is built for 128 and 256.
+# csrc/mlp_fwd_wide_sm90.cuh. The frozen-network variants of the backward
+# kernels (K4, K6: no weight gradient) run 128 and 256 on the dX chain of
+# csrc/mlp_dx_sm90.cuh and 384 and 512 on the 64-row chain of
+# csrc/mlp_dx_wide_sm90.cuh; the kernels that form weight gradients (K1, K4
+# full, K6 full) are built for 128 and 256.
 FORWARD_WIDTHS = (128, 256, 384, 512)
 BACKWARD_WIDTHS = (128, 256)
 KERNEL_WIDTHS = {"render": FORWARD_WIDTHS, "point-query MLP forward": FORWARD_WIDTHS,
+                 "render-backward (frozen network)": FORWARD_WIDTHS,
+                 "point-query MLP backward (frozen network)": FORWARD_WIDTHS,
                  "train": BACKWARD_WIDTHS, "render-backward": BACKWARD_WIDTHS,
                  "point-query MLP backward": BACKWARD_WIDTHS}
-# The entry of ROADMAP.md's Queue 3 that brings 384 and 512 to each backward
-# kernel.
-_WIDE_BACKWARD_ENTRY = {"train": "(b)", "render-backward": "(a) and (b)",
-                        "point-query MLP backward": "(a) and (b)"}
 
 
 def check_kernel_width(kernel: str, D: int) -> None:
@@ -766,13 +781,19 @@ def check_kernel_width(kernel: str, D: int) -> None:
     if D in FORWARD_WIDTHS:
         raise NotImplementedError(
             f"the CUDA {kernel} kernel takes hidden_dim {taken}, got {D}: 384 and 512 come to "
-            f"the backward kernels in the port's next slices (ROADMAP.md, Queue 3 "
-            f"{_WIDE_BACKWARD_ENTRY[kernel]}: (a) the frozen-network variants on "
-            f"mlp_dx_sm90.cuh, (b) the full kernels on mlp_dw_chain_sm90.cuh and dw_sm90.cuh)")
+            f"the kernels that form weight gradients in the port's next slice (ROADMAP.md, "
+            f"Queue 3 (b): the full kernels on mlp_dx_wide_sm90.cuh's chain, "
+            f"mlp_dw_chain_sm90.cuh and dw_sm90.cuh); a frozen network's backward takes them")
     raise NotImplementedError(
         f"the CUDA {kernel} kernel takes hidden_dim {taken}, got {D}"
         + (": widths past 512 need a tile shape of their own in every trunk header "
            "(ROADMAP.md, Queue 3 (c))" if D > 512 else ""))
+
+
+def render_bwd_kernel(want_param_grads: bool) -> str:
+    """The KERNEL_WIDTHS name of the render backward's variant: the full
+    kernel when a nerf parameter wants a gradient, else the frozen one."""
+    return "render-backward" if want_param_grads else "render-backward (frozen network)"
 
 
 def _check_kernel_shapes(kernel: str, S: int, D: int) -> None:
@@ -783,6 +804,13 @@ def _check_kernel_shapes(kernel: str, S: int, D: int) -> None:
         raise NotImplementedError(
             f"the CUDA {kernel} kernel takes S % {PTS_PER_PASS} == 0, got S={S}")
     check_kernel_width(kernel, D)
+
+
+def _scratch_bytes(nbytes: int, dev: torch.device) -> torch.Tensor:
+    """The per-CTA scratch a frozen-network backward kernel's C entry asks for."""
+    if nbytes <= 0:
+        raise RuntimeError("the backward kernel reports no scratch size")
+    return torch.empty((nbytes,), dtype=torch.uint8, device=dev)
 
 
 def _spill(nbytes: int, dev: torch.device) -> Optional[torch.Tensor]:
@@ -1007,6 +1035,8 @@ def _setup_bwd_frozen(lib: ctypes.CDLL) -> None:
     lib.nerf_render_bwd_frozen.restype = ctypes.c_int
     lib.nerf_render_bwd_frozen_spill.argtypes = [i, i, i]
     lib.nerf_render_bwd_frozen_spill.restype = ctypes.c_longlong
+    lib.nerf_render_bwd_frozen_scratch.argtypes = [i, i, i]
+    lib.nerf_render_bwd_frozen_scratch.restype = ctypes.c_longlong
     lib.nerf_error_string.argtypes = [ctypes.c_int]
     lib.nerf_error_string.restype = ctypes.c_char_p
 
@@ -1119,7 +1149,7 @@ def _render_bwd_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig,
     (render_bwd_frozen.cu): no dW/dB, and dWs, dBs are None."""
     n, S = z.shape
     D = cfg.hidden_dim
-    _check_kernel_shapes("render-backward", S, D)
+    _check_kernel_shapes(render_bwd_kernel(want_param_grads), S, D)
     dev = rays.device
     rays, z, g_rgb, g_dist = (t.detach() for t in (rays, z, g_rgb, g_dist))
     g_w, g_a = (None if g is None else g.detach() for g in (g_w, g_a))
@@ -1172,16 +1202,17 @@ def _packed_tiles_on(params, cfg: NerfConfig, dev: torch.device):
 def _render_bwd_frozen_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig,
                             dist_alpha: bool):
     """(drays, dz) by one launch of K4's frozen-network variant: no operands,
-    no partial sums; a per-CTA scratch of 128 x D bf16 holds the chain's g4,
-    and another the per-sample arrays that do not fit in shared memory
-    (S > 896 at D = 256)."""
+    no partial sums; a per-CTA scratch holds the chain's g4 (one tile x D
+    bf16) and, at 384 and 512, the ReLU masks of a ray's S/64 tiles (the
+    kernel's entry gives its size), and another the per-sample arrays that do
+    not fit in shared memory (S > 896 at D = 256, S > 128 at 512)."""
     n, S = z.shape
     D = cfg.hidden_dim
     dev = rays.device
     tiles, tiles_dx, _B, bptrs = _packed_tiles_on(params, cfg, dev)
     lib = RENDER_BWD_FROZEN.lib()
     n_ctas = _backward_ctas(n, dev)
-    scratch = torch.empty((n_ctas, PTS_PER_PASS, D), dtype=torch.bfloat16, device=dev)
+    scratch = _scratch_bytes(lib.nerf_render_bwd_frozen_scratch(S, D, n_ctas), dev)
     spill = _spill(lib.nerf_render_bwd_frozen_spill(S, D, n_ctas), dev)
     drays = torch.empty((n, RAY_DIM), dtype=torch.float32, device=dev)
     dz = torch.empty((n, S), dtype=torch.float32, device=dev)
@@ -1223,8 +1254,10 @@ class _RenderFused(torch.autograd.Function):
         params = dict(zip(names, tensors))
         plain = runs_plain(rays)      # read here: the backward takes the forward's route
         if not plain:
-            # what the backward kernel cannot take raises now, not after the forward
-            _check_kernel_shapes("render-backward", z.shape[1], cfg.hidden_dim)
+            # what the backward kernel cannot take raises now, not after the forward: the
+            # variant the backward will run, full when a nerf parameter wants a gradient
+            _check_kernel_shapes(render_bwd_kernel(any(ctx.needs_input_grad[6:])), z.shape[1],
+                                 cfg.hidden_dim)
         out = _render_forward(params, rays, z, cfg, dist_alpha, want_aux, plain)
         ctx.save_for_backward(rays, z, *tensors)
         ctx.static = (cfg, dist_alpha, plain, names)

@@ -33,11 +33,35 @@ f64 pre-activation lies within MARGIN of zero for at most three whose g_h,
 added where f64 masks them and removed where it keeps them, make up the
 deviation. A deviation that such flips reproduce is the function's noise; one
 they do not is a fault.
+With `--frozen`, the frozen-network variant (csrc/render_bwd_frozen.cu: the
+dX chain of csrc/mlp_dx_sm90.cuh at hidden_dim 128 and 256, of
+csrc/mlp_dx_wide_sm90.cuh at 384 and 512) in two parts instead:
+1. the same yardstick at every width: chip_smoke.py phase 13's inputs
+   (train_inputs, many_params, bwd_cotangents with all four cotangents),
+   S = 128, both flag sets of WIDE_FLAGS, FROZEN_SEEDS seeds, on 133 rays
+   (d(rays) has 1,197 entries, so the per-sample rule's 1 entry in 1000
+   admits one) and on the pose-opt step's 1024. Per case the share of the
+   per-sample rule (grad_share; <= 1 passes) and the entries off by more
+   than 2e-2 of the block's largest, for kernel vs f32 plain, kernel vs f64
+   and f32 plain vs f64; per width and ray count the worst shares, the
+   blocks beyond the rule and the mean L2 distance from f64 of the kernel
+   over that of the f32 plain version;
+2. what the tensor cores' f32 accumulation does to one product: the chain's
+   own products at each width (one seeded case's bf16 operands from
+   render_dw_operands: the forward's trunk layers x_l = x_(l-1) W_l^T and
+   the dX layers g_(l-1) = g_l W_l, K = D) computed by the wgmma dW kernel
+   (dw_sm90, one chunk: one accumulator chain over K), by cuBLAS in f32
+   (TF32 off: the plain version's products) and in f64. Per width: the
+   mean |error| in ulps of the exact value, its mean signed part towards
+   zero, the share of entries whose bf16 rounding differs from the exact
+   value's, and the forward's pre-activations (+ bias in f32) whose sign
+   differs from the exact one's (a flipped ReLU mask).
 Prints plain text; PERF.md quotes it.
 """
 
 from __future__ import annotations
 
+import argparse
 import itertools
 import os
 import sys
@@ -45,6 +69,9 @@ import sys
 MARGIN = 2e-3      # |pre-activation| below which a ReLU mask counts as ambiguous
 N_RAYS, SAMPLES, HIDDEN, SEED = 301, 128, 256, 1
 INPUT_SETS = {"wide": (3.0, 8.1), "scene": (0.5, 6.0)}
+FROZEN_WIDTHS = (128, 256, 384, 512)
+FROZEN_RAYS = (133, 1024)
+FROZEN_SEEDS = 6
 
 
 def case_inputs(torch, dev, name: str, occ: str, head_da: bool, dist_alpha: bool):
@@ -113,13 +140,139 @@ def explain_rgb_hidden_bias(torch, chip_smoke, dev, name, occ, head_da, dist_alp
               f"{margins or 'none'}) leave {left / tol:.3f} of the tolerance unexplained")
 
 
-def main() -> int:
+def frozen_yardstick(torch, chip_smoke, dev) -> None:
+    """Part 1 of --frozen: K4 frozen, its f32 plain version and the f64 sum,
+    at every width and ray count (see the module text)."""
+    from nope_nerf_torch.ops.fused_render import _render_bwd_cuda, render_rays_fused_bwd_plain
+    pairs = ("kernel~f32", "kernel~f64", "f32~f64")
+    for D in FROZEN_WIDTHS:
+        for n_rays in FROZEN_RAYS:
+            worst = {(p, b): 0.0 for p in pairs for b in ("rays", "z")}
+            beyond = dict.fromkeys(pairs, 0)
+            l2 = dict.fromkeys(pairs, 0.0)
+            for occ, da in chip_smoke.WIDE_FLAGS:
+                for seed in range(FROZEN_SEEDS):
+                    gen = torch.Generator().manual_seed(100 + seed)
+                    rays, z, tgt = chip_smoke.train_inputs(torch, dev, gen, n_rays, SAMPLES)
+                    ncfg, params = chip_smoke.many_params(torch, dev, gen, D, occ, da, SAMPLES)
+                    cot = chip_smoke.bwd_cotangents(torch, params, rays, z, tgt, ncfg, da, True)
+                    k = _render_bwd_cuda(params, rays, z, *cot, ncfg, da,
+                                         want_param_grads=False)[2:]
+                    p32 = render_rays_fused_bwd_plain(params, rays, z, *cot, ncfg, da)[2:]
+                    p64 = [t.float() for t in render_rays_fused_bwd_plain(
+                        params, rays, z, *cot, ncfg, da, dtype=torch.float64)[2:]]
+                    row = []
+                    for b, i in (("rays", 0), ("z", 1)):
+                        parts = []
+                        for what, got, ref in zip(pairs, (k[i], k[i], p32[i]),
+                                                  (p32[i], p64[i], p64[i])):
+                            share = chip_smoke.grad_share(got, ref, True)
+                            err = (got - ref).abs()
+                            off = int((err > 2e-2 * float(ref.abs().max()) + 1e-6).sum())
+                            norm = float(err.norm()) / (2e-2 * float(ref.norm()) + 1e-12)
+                            worst[(what, b)] = max(worst[(what, b)], share)
+                            beyond[what] += share > 1.0
+                            l2[what] += norm
+                            parts.append(f"{what} {share:.3f} ({off} off)")
+                        row.append(f"{b}: " + ", ".join(parts))
+                    print(f"frozen D={D} {n_rays} rays occ={occ} dist_alpha={da} seed {seed}: "
+                          + "; ".join(row), flush=True)
+            cases = 2 * len(chip_smoke.WIDE_FLAGS) * FROZEN_SEEDS
+            print(f"frozen D={D} {n_rays} rays, summary over {cases // 2} cases: worst share "
+                  + ", ".join(f"{p} rays {worst[(p, 'rays')]:.3f} z {worst[(p, 'z')]:.3f}"
+                              for p in pairs)
+                  + "; blocks beyond the rule " + ", ".join(f"{p} {beyond[p]}" for p in pairs)
+                  + f"; mean L2 share kernel~f64 {l2['kernel~f64'] / cases:.3f}, f32~f64 "
+                  f"{l2['f32~f64'] / cases:.3f}, ratio {l2['kernel~f64'] / l2['f32~f64']:.2f}",
+                  flush=True)
+
+
+def tensor_core_products(torch, chip_smoke, dev) -> None:
+    """Part 2 of --frozen: the chain's own products by the tensor cores (the
+    dW kernel, one accumulator chain over K), by cuBLAS in f32 and in f64."""
+    from nope_nerf_torch.models.nerf import bf16_round
+    from nope_nerf_torch.ops.fused_mlp import dw_sm90, tile_operand
+    from nope_nerf_torch.ops.fused_render import pack_weights, render_dw_operands
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def on_tensor_cores(a, b):
+        """a (T, K) @ b (K, N) by dw_sm90: X = a^T, G = b in blocks of 256 columns."""
+        T, K = a.shape
+        x = tile_operand(a.t().contiguous())
+        cols = [(c, min(c + 256, b.shape[1])) for c in range(0, b.shape[1], 256)]
+        gs = [tile_operand(b[:, c0:c1].contiguous()) for c0, c1 in cols]
+        return torch.cat(dw_sm90([x] * len(gs), gs, [T] * len(gs), K, 1), dim=1)
+
+    def ulps(v, exact):
+        """v - exact in ulps of the f32 exact value (f64)."""
+        _, e = torch.frexp(exact.float())
+        return (v.double() - exact) / torch.ldexp(torch.ones_like(exact), e.double() - 24)
+
+    for D in FROZEN_WIDTHS:
+        gen = torch.Generator().manual_seed(200 + D)
+        rays, z, tgt = chip_smoke.train_inputs(torch, dev, gen, 8, SAMPLES)
+        ncfg, params = chip_smoke.many_params(torch, dev, gen, D, "relu", True, SAMPLES)
+        cot = chip_smoke.bwd_cotangents(torch, params, rays, z, tgt, ncfg, True, True)
+        X, G, _ = render_dw_operands(params, rays, z, *cot, ncfg, True)
+        W, B = pack_weights(params, ncfg)
+        Wf = [w.float() for w in W]
+        # forward: x_(i-1) -> x_i by (out, in) weight i, bias i; dX: g_l -> g_(l-1) by Wf[wi]
+        fwd = [(X[f"x{i - 1}"], Wf[i].t(), B[i]) for i in (1, 2, 3)]
+        fwd += [(X[f"x{i - 2}"], Wf[i].t(), B[i - 1]) for i in (6, 7, 8)]
+        bwd = [(G[f"g{wi - 1}"], Wf[wi]) for wi in (8, 7, 6)]
+        bwd += [(G[f"g{wi}"], Wf[wi]) for wi in (4, 3, 2, 1)]
+        stats = {"tensor cores": [0.0, 0.0, 0, 0], "cuBLAS f32": [0.0, 0.0, 0, 0]}
+        entries = masks = flips_tc = flips_f32 = 0
+        for a, b, *bias in fwd + bwd:
+            exact = a.double() @ b.double()
+            got = {"tensor cores": on_tensor_cores(a, b), "cuBLAS f32": a @ b}
+            ref_bf = exact.to(torch.bfloat16)
+            towards = -torch.sign(exact)
+            for name, v in got.items():
+                u = ulps(v, exact)
+                st = stats[name]
+                st[0] += float(u.abs().sum())
+                st[1] += float((u * towards).sum())
+                st[2] += int((v.to(torch.bfloat16) != ref_bf).sum())
+            entries += exact.numel()
+            if bias:
+                pre = exact + bias[0].double()
+                masks += pre.numel()
+                flips_tc += int(((got["tensor cores"] + bias[0]) > 0).ne(pre > 0).sum())
+                flips_f32 += int(((got["cuBLAS f32"] + bias[0]) > 0).ne(pre > 0).sum())
+        print(f"products D={D} (K = {D}; {len(fwd)} forward and {len(bwd)} dX products over "
+              f"{a.shape[0]} points, {entries} entries): "
+              + "; ".join(f"{name} mean |error| {st[0] / entries:.3f} ulp, towards zero "
+                          f"{st[1] / entries:+.3f} ulp, bf16 rounding differs from the exact "
+                          f"value's in {st[2]} ({st[2] / entries:.2e})"
+                          for name, st in stats.items())
+              + f"; pre-activation signs differing from the exact ones: tensor cores "
+              f"{flips_tc}, cuBLAS f32 {flips_f32} of {masks}", flush=True)
+
+
+def main(argv=None) -> int:
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frozen", action="store_true",
+                    help="the frozen-network variant at every width (see the module text)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("backward_noise: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     sys.path.insert(0, os.getcwd())   # chip_smoke.py sits at the root of the checkout
     import chip_smoke
+    if args.frozen:
+        import subprocess
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             check=True).stdout.strip(), flush=True)
+        from nope_nerf_torch.ops import fused_mlp, fused_render
+        from nope_nerf_torch.ops._build import build_all
+        build_all((fused_render.RENDER_BWD_FROZEN, fused_mlp.DW_SM90))
+        dev = torch.device("cuda")
+        tensor_core_products(torch, chip_smoke, dev)
+        frozen_yardstick(torch, chip_smoke, dev)
+        return 0
     from nope_nerf_torch.ops.fused_render import (_render_bwd_cuda, render_rays_fused_bwd_plain,
                                                   unpack_grads)
     dev = torch.device("cuda")

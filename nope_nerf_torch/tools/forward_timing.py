@@ -1,23 +1,32 @@
-"""Times the forward kernels K3 (render_fwd.cu) and K5 (point_mlp_fwd.cu) of
-the checkout it runs from, at each hidden_dim asked for, and prints a digest
-of their outputs' bits, so that two checkouts run one after the other on one
-card compare both in time and in bits:
+"""Times the forward kernels (K3, K5) or the frozen-network backward kernels
+(K4's and K6's variants) of the checkout it runs from, at each hidden_dim
+asked for, and prints a digest of their outputs' bits, so that two checkouts
+run one after the other on one card compare both in time and in bits:
 
     python3 -m nope_nerf_torch.tools.forward_timing --widths 256 384 512
+    python3 -m nope_nerf_torch.tools.forward_timing --kernels frozen --widths 256 384 512 --sass
 
 from the root of a checkout, on a machine with one NVIDIA GPU (it uses only
-the wrappers `render_rays_fused` and `_mlp_fwd_cuda`, so a copy of this file
-runs in a checkout that predates it, at the widths that checkout takes). Per
-width, on seeded weights (softplus, no dist_alpha) and inputs: K3 over a
-188x621 frame of rays at 128 samples (the render path's launch) and K5 at
-196,608 points (the fine pass of a hierarchical train step), each by CUDA
-events over `--reps` calls after one warm-up, through its wrapper (K5's packs
-the weights on every call, as the path does); K5 also as the bare C call on
-weights packed once ("kernel alone"). Prints the card's name and
-power limit, then one JSON line: ms and SHA-256 of the outputs per case,
-and with `--sass` the SHA-256 of each kernel instance's SASS instructions
-(`cuobjdump -sass`, function names left out), which shows whether two
-checkouts compiled a width to the same code.
+the wrappers, so a copy of this file runs in a checkout that predates it, at
+the widths that checkout takes). Per width, on seeded weights (softplus, no
+dist_alpha) and inputs, each case by CUDA events over `--reps` calls after
+one warm-up:
+- `--kernels forward` (the default): K3 (render_fwd.cu) over a 188x621
+  frame of rays at 128 samples (the render path's launch) and K5
+  (point_mlp_fwd.cu) at 196,608 points (the fine pass of a hierarchical
+  train step), through its wrapper (which packs the weights on every call,
+  as the path does) and as the bare C call on weights packed once ("kernel
+  alone");
+- `--kernels frozen`: the frozen-network backward variants through
+  `_render_bwd_cuda` and `_mlp_bwd_cuda` with want_param_grads=False: K4's
+  (render_bwd_frozen.cu) at 1024 rays x 128 samples (the pose-opt step's
+  launch) and 1024 x 512, on the cotangents of a colour and depth loss, and
+  K6's (point_mlp_bwd_frozen.cu) at 196,608 points (the fine pass of a
+  hierarchical pose-opt step).
+Prints the card's name and power limit, then one JSON line: ms and SHA-256
+of the outputs per case, and with `--sass` the SHA-256 of each kernel
+instance's SASS instructions (`cuobjdump -sass`, function names left out),
+which shows whether two checkouts compiled a width to the same code.
 """
 
 from __future__ import annotations
@@ -42,6 +51,11 @@ DENSITY_SHIFT = -4.0    # keeps transmittance alive over the ray at 128 samples
 FRAME = (188, 621)
 SAMPLES = 128
 POINTS = 196_608
+BWD_RAYS = 1024
+BWD_SAMPLES = (128, 512)
+# the mangled names of each set's kernel instances: kernel, template arguments
+SASS_NAMES = {"forward": r"(render_fwd_kernel|point_mlp_fwd_kernel)I(Li\d+E)",
+              "frozen": r"((?:render|point_mlp)_bwd_frozen(?:_wide)?_kernel)I(Li\d+E(?:Lb\d)?)"}
 
 
 def _digest(outs) -> str:
@@ -62,9 +76,11 @@ def _time(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def sass_digests(libraries) -> dict:
-    """{"<kernel> D=<width>": SHA-256 of its SASS instructions} for every
-    kernel template instance in the built libraries; {} without cuobjdump."""
+def sass_digests(libraries, pattern: str) -> dict:
+    """{"<kernel> <template arguments>": SHA-256 of its SASS instructions} for
+    every kernel template instance in the built libraries whose mangled name
+    `pattern` finds (group 1 the kernel, group 2 its arguments); {} without
+    cuobjdump."""
     tool = cuobjdump()
     if tool is None:
         return {}
@@ -73,29 +89,15 @@ def sass_digests(libraries) -> dict:
         sass = subprocess.run([tool, "-sass", str(lib._target(find_nvcc()))], capture_output=True,
                               text=True, check=True).stdout
         for fname, instrs in sass_functions(sass).items():
-            m = re.search(r"(render_fwd_kernel|point_mlp_fwd_kernel)ILi(\d+)E", fname)
+            m = re.search(pattern, fname)
             if m:
                 text = "\n".join(instr for _, instr in instrs)
-                out[f"{m.group(1)} D={m.group(2)}"] = hashlib.sha256(text.encode()).hexdigest()[:16]
+                out[f"{m.group(1)} {m.group(2)}"] = hashlib.sha256(text.encode()).hexdigest()[:16]
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--widths", type=int, nargs="+", default=[256])
-    ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--sass", action="store_true")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("forward_timing needs a CUDA device")
-    dev = torch.device("cuda")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
-    libraries = (F.RENDER_FWD, FM.POINT_MLP_FWD)
-    build_all(libraries)
-    if args.sass:
-        print(json.dumps({"sass": sass_digests(libraries)}))
-    gen = torch.Generator().manual_seed(SEED + 1)
+def forward_cases(dev, gen, widths, reps: int):
+    """{name: (call, reps)} of K3 and K5 at each width (see the module text)."""
     n = FRAME[0] * FRAME[1]
     origin = torch.randn(n, 3, generator=gen) * 0.5
     ray_vec = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=1)
@@ -103,16 +105,13 @@ def main(argv=None) -> int:
     z = torch.sort(0.1 + 5.9 * torch.rand(n, SAMPLES, generator=gen), dim=1).values.to(dev)
     pts = (torch.randn(POINTS, 3, generator=gen) * 1.5).to(dev)
     dirs = torch.nn.functional.normalize(torch.randn(POINTS, 3, generator=gen), dim=1).to(dev)
-    ms, digest = {}, {}
-    for D in args.widths:
-        ncfg = NerfConfig(hidden_dim=D, use_pallas=True)
-        params = init_nerf_params(ncfg, torch.Generator().manual_seed(SEED + D), device=dev)
-        params["density_b"] = params["density_b"] + DENSITY_SHIFT
+    cases = {}
+    for D, ncfg, params in _width_params(dev, widths):
         tiles, biases = F.pack_tiles(params, ncfg)
         bptrs = (ctypes.c_void_p * 12)(*[b.data_ptr() for b in biases])
         rgb, density = torch.empty(POINTS, 3, device=dev), torch.empty(POINTS, 1, device=dev)
 
-        def k5_alone():
+        def k5_alone(D=D, tiles=tiles, bptrs=bptrs, rgb=rgb, density=density):
             err = FM.POINT_MLP_FWD.lib().nerf_point_mlp_fwd(
                 pts.data_ptr(), dirs.data_ptr(), tiles.data_ptr(), bptrs, rgb.data_ptr(),
                 density.data_ptr(), POINTS, D, 1, 0, torch.cuda.current_stream().cuda_stream)
@@ -120,15 +119,76 @@ def main(argv=None) -> int:
                 raise RuntimeError(FM.POINT_MLP_FWD.lib().nerf_error_string(err).decode())
             return rgb, density
 
-        cases = {f"render_fwd D={D} {n}x{SAMPLES}":
-                 (lambda: F.render_rays_fused(params, rays, z, ncfg, False, want_aux=False)[:2],
-                  args.reps),
-                 f"point_mlp_fwd D={D} {POINTS}":
-                 (lambda: FM._mlp_fwd_cuda(params, pts, dirs, ncfg), 4 * args.reps),
-                 f"point_mlp_fwd kernel alone D={D} {POINTS}": (k5_alone, 4 * args.reps)}
-        for name, (fn, reps) in cases.items():
-            digest[name] = _digest(fn())
-            ms[name] = _time(fn, reps)
+        cases[f"render_fwd D={D} {n}x{SAMPLES}"] = (
+            lambda p=params, c=ncfg: F.render_rays_fused(p, rays, z, c, False, want_aux=False)[:2],
+            reps)
+        cases[f"point_mlp_fwd D={D} {POINTS}"] = (
+            lambda p=params, c=ncfg: FM._mlp_fwd_cuda(p, pts, dirs, c), 4 * reps)
+        cases[f"point_mlp_fwd kernel alone D={D} {POINTS}"] = (k5_alone, 4 * reps)
+    return cases
+
+
+def frozen_cases(dev, gen, widths, reps: int):
+    """{name: (call, reps)} of K4 frozen and K6 frozen at each width."""
+    origin = torch.randn(BWD_RAYS, 3, generator=gen) * 0.5
+    ray_vec = torch.nn.functional.normalize(torch.randn(BWD_RAYS, 3, generator=gen), dim=1)
+    rays = F.pack_rays(origin, ray_vec, -ray_vec).to(dev)
+    zs = {S: torch.sort(0.1 + 5.9 * torch.rand(BWD_RAYS, S, generator=gen), dim=1).values.to(dev)
+          for S in BWD_SAMPLES}
+    g_rgb = (torch.randn(BWD_RAYS, 3, generator=gen) * 1e-3).to(dev)
+    g_dist = (torch.randn(BWD_RAYS, generator=gen) * 1e-3).to(dev)
+    pts = (torch.randn(POINTS, 3, generator=gen) * 1.5).to(dev)
+    dirs = torch.nn.functional.normalize(torch.randn(POINTS, 3, generator=gen), dim=1).to(dev)
+    p_rgb = (torch.randn(POINTS, 3, generator=gen) * 1e-6).to(dev)
+    p_den = torch.full((POINTS, 1), 0.1 / POINTS, device=dev)
+    cases = {}
+    for D, ncfg, params in _width_params(dev, widths):
+        for S, z in zs.items():
+            cases[f"render_bwd_frozen D={D} {BWD_RAYS}x{S}"] = (
+                lambda p=params, c=ncfg, z=z: F._render_bwd_cuda(
+                    p, rays, z, g_rgb, g_dist, None, None, c, False, want_param_grads=False)[2:],
+                reps)
+        cases[f"point_mlp_bwd_frozen D={D} {POINTS}"] = (
+            lambda p=params, c=ncfg: FM._mlp_bwd_cuda(p, pts, dirs, p_rgb, p_den, c,
+                                                      want_param_grads=False)[2:], reps)
+    return cases
+
+
+def _width_params(dev, widths):
+    """(D, NerfConfig, seeded params) per width, the density bias lowered."""
+    for D in widths:
+        ncfg = NerfConfig(hidden_dim=D, use_pallas=True)
+        params = init_nerf_params(ncfg, torch.Generator().manual_seed(SEED + D), device=dev)
+        params["density_b"] = params["density_b"] + DENSITY_SHIFT
+        yield D, ncfg, params
+
+
+KERNEL_SETS = {"forward": ((F.RENDER_FWD, FM.POINT_MLP_FWD), forward_cases, 5),
+               "frozen": ((F.RENDER_BWD_FROZEN, FM.POINT_MLP_BWD_FROZEN), frozen_cases, 10)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", choices=sorted(KERNEL_SETS), default="forward")
+    ap.add_argument("--widths", type=int, nargs="+", default=[256])
+    ap.add_argument("--reps", type=int, default=None,
+                    help="calls timed per case (default 5 forward, 10 frozen)")
+    ap.add_argument("--sass", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("forward_timing needs a CUDA device")
+    dev = torch.device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    libraries, make_cases, reps = KERNEL_SETS[args.kernels]
+    build_all(libraries)
+    if args.sass:
+        print(json.dumps({"sass": sass_digests(libraries, SASS_NAMES[args.kernels])}))
+    gen = torch.Generator().manual_seed(SEED + 1)
+    ms, digest = {}, {}
+    for name, (fn, n) in make_cases(dev, gen, args.widths, args.reps or reps).items():
+        digest[name] = _digest(fn())
+        ms[name] = _time(fn, n)
     print(json.dumps({"ms": ms, "digest": digest}))
     return 0
 

@@ -1025,9 +1025,11 @@ def test_wide_frames_launch_k3_once_and_k5_twice(cuda_device, hidden):
 
 
 def test_wide_backward_kernels_raise_before_any_launch(cuda_device):
-    """At hidden_dim 512 K1, K4 (both variants) and K6 raise NotImplementedError
-    with no launch; point_mlp under autograd runs K5 and raises at its
-    backward, with no fall back to the plain backward."""
+    """At hidden_dim 512 the kernels that form weight gradients (K1, K4 full,
+    K6 full) raise NotImplementedError naming Queue 3 (b) with no launch, and
+    so do render_rays_fused and point_mlp under autograd when a nerf
+    parameter wants a gradient: their forwards check the backward's variant
+    before K3 or K5 launches."""
     ncfg = NerfConfig(hidden_dim=512, use_pallas=True)
     gen, rays, z = _inputs(cuda_device, 133, 128)
     params = init_nerf_params(ncfg, gen, device=cuda_device)
@@ -1036,24 +1038,81 @@ def test_wide_backward_kernels_raise_before_any_launch(cuda_device):
                          torch.ones(133, dtype=torch.bool, device=cuda_device), 1.0, 1.0)
     g_rgb, g_dist = torch.ones(133, 3, device=cuda_device), torch.ones(133, device=cuda_device)
     libs = (F.RENDER_TRAIN, F.RENDER_BWD, F.RENDER_BWD_FROZEN, M.POINT_MLP_BWD,
-            M.POINT_MLP_BWD_FROZEN, M.DW_SM90, M.POINT_MLP_FWD)
+            M.POINT_MLP_BWD_FROZEN, M.DW_SM90, M.POINT_MLP_FWD, F.RENDER_FWD)
     before = [lib.launches for lib in libs]
-    with pytest.raises(NotImplementedError, match="Queue 3"):
+    with pytest.raises(NotImplementedError, match=r"Queue 3 \(b\)"):
         F.render_ray_loss_fused(params, rays, z, tgt, ncfg, False, 1, False)
-    for frozen in (False, True):
-        with pytest.raises(NotImplementedError, match="Queue 3"):
-            F._render_bwd_cuda(params, rays, z, g_rgb, g_dist, None, None, ncfg, False,
-                               want_param_grads=not frozen)
+    with pytest.raises(NotImplementedError, match=r"Queue 3 \(b\)"):
+        F._render_bwd_cuda(params, rays, z, g_rgb, g_dist, None, None, ncfg, False)
     _, pts, dirs = _points(cuda_device, 500)
-    for frozen in (False, True):
-        with pytest.raises(NotImplementedError, match="Queue 3"):
-            M._mlp_bwd_cuda(params, pts, dirs, torch.ones(500, 3, device=cuda_device),
-                            torch.ones(500, 1, device=cuda_device), ncfg,
-                            want_param_grads=not frozen)
-    assert [lib.launches for lib in libs] == before
+    with pytest.raises(NotImplementedError, match=r"Queue 3 \(b\)"):
+        M._mlp_bwd_cuda(params, pts, dirs, torch.ones(500, 3, device=cuda_device),
+                        torch.ones(500, 1, device=cuda_device), ncfg)
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    rgb, den = M.point_mlp(leaves, pts, dirs, ncfg)
-    assert M.POINT_MLP_FWD.launches == before[-1] + 1
-    with pytest.raises(NotImplementedError, match="point-query MLP backward"):
-        (rgb.sum() + den.sum()).backward()
-    assert [lib.launches for lib in libs[:-1]] == before[:-1]
+    with pytest.raises(NotImplementedError, match=r"Queue 3 \(b\)"):
+        M.point_mlp(leaves, pts, dirs, ncfg)
+    with pytest.raises(NotImplementedError, match=r"Queue 3 \(b\)"):
+        F.render_rays_fused(leaves, rays, z, ncfg, False, False)
+    assert [lib.launches for lib in libs] == before
+
+
+@pytest.mark.parametrize("flags", [("softplus", False), ("relu", True)], ids=["softplus", "relu"])
+@pytest.mark.parametrize("S", [128, 256, 1024])
+@pytest.mark.parametrize("hidden", [384, 512])
+def test_render_bwd_frozen_wide(cuda_device, hidden, S, flags):
+    """K4's frozen-network variant at 384 and 512 (csrc/mlp_dx_wide_sm90.cuh's
+    64-point chain; the masks of a ray's tiles in device memory, its arrays
+    past shared memory from S = 256 at 512): two launches bit-equal, within
+    the per-sample tolerance of the plain version. The pose-opt step's 1024
+    rays (7 or 8 a CTA): on 133 the rule's 1 entry in 1000 of d(rays) is less
+    than one flipped bf16 rounding moves, and the f32 plain version itself
+    misses it against the f64 sum (PERF.md section 2)."""
+    occ, dist_alpha = flags
+    params, rays, z, tgt, ncfg = _train_case(cuda_device, 1024, S, hidden, seed=8, occ=occ,
+                                             dist_alpha=dist_alpha, render_dist_alpha=dist_alpha,
+                                             spread=0.5, far=6.0)
+    cot = _bwd_cotangents(params, rays, z, tgt, ncfg, dist_alpha, True)
+    counts = (F.RENDER_BWD.launches, F.RENDER_BWD_FROZEN.launches)
+    runs = [F._render_bwd_cuda(params, rays, z, *cot, ncfg, dist_alpha, want_param_grads=False)
+            for _ in range(2)]
+    assert (F.RENDER_BWD.launches - counts[0], F.RENDER_BWD_FROZEN.launches - counts[1]) == (2, 2)
+    assert torch.equal(runs[0][2], runs[1][2]) and torch.equal(runs[0][3], runs[1][3])
+    ref = F.render_rays_fused_bwd_plain(params, rays, z, *cot, ncfg, dist_alpha)
+    _assert_grads_close(dict(rays=runs[0][2], z=runs[0][3]), dict(rays=ref[2], z=ref[3]))
+
+
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 127, 64 * 265 + 5])
+@pytest.mark.parametrize("hidden", [384, 512])
+def test_point_mlp_bwd_frozen_wide(cuda_device, hidden, m):
+    """K6's frozen-network variant at 384 and 512 on 64-point passes: one
+    point, a ragged, a full and a two-pass count, and two waves of the SMs
+    ending ragged; two launches bit-equal, within the per-sample tolerance of
+    the plain version (the L2 rule alone under 1000 entries)."""
+    gen, pts, dirs = _points(cuda_device, m, seed=9)
+    ncfg = NerfConfig(hidden_dim=hidden, use_pallas=True)
+    params = init_nerf_params(ncfg, gen, device=cuda_device)
+    g_rgb, g_den = _point_cotangents(params, pts, dirs, ncfg)
+    runs = [M._mlp_bwd_cuda(params, pts, dirs, g_rgb, g_den, ncfg, want_param_grads=False)
+            for _ in range(2)]
+    assert torch.equal(runs[0][2], runs[1][2]) and torch.equal(runs[0][3], runs[1][3])
+    ref = M.point_mlp_bwd_plain(params, pts, dirs, g_rgb, g_den, ncfg, want_param_grads=False)
+    if ref[2].numel() >= 1000:
+        _assert_grads_close(dict(rays=runs[0][2], z=runs[0][3]), dict(rays=ref[2], z=ref[3]))
+    else:
+        for got, r in ((runs[0][2], ref[2]), (runs[0][3], ref[3])):
+            assert torch.isfinite(got).all()
+            assert float((got - r).norm()) <= 2e-2 * float(r.norm()) + 1e-9
+
+
+def test_wide_frozen_autograd_launches_k3_and_k4_frozen(cuda_device):
+    """render_rays_fused under autograd at hidden_dim 512 with a frozen nerf
+    and the rays wanting a gradient: K3 once, K4's frozen variant once."""
+    ncfg = NerfConfig(hidden_dim=512, use_pallas=True)
+    gen, rays, z = _inputs(cuda_device, 133, 128, spread=0.5, far=6.0)
+    params = init_nerf_params(ncfg, gen, device=cuda_device)
+    x = rays.clone().requires_grad_(True)
+    counts = (F.RENDER_FWD.launches, F.RENDER_BWD_FROZEN.launches)
+    rgb, dist, _, _ = F.render_rays_fused(params, x, z, ncfg, False, False)
+    (rgb.sum() + dist.sum()).backward()
+    assert (F.RENDER_FWD.launches - counts[0], F.RENDER_BWD_FROZEN.launches - counts[1]) == (1, 1)
+    assert torch.isfinite(x.grad).all()

@@ -4,7 +4,8 @@ point_mlp) against the JAX package's Pallas kernels in interpret mode at both
 widths, the renderer through Trainer.render_frame's route at 384 against
 JAX's unfused renderer, NerfConfig's gate at 512, and the per-kernel width
 gates of the CUDA wrappers (csrc/mlp_fwd_wide_sm90.cuh serves K3 and K5 at
-384 and 512; the backward kernels keep 128 and 256).
+384 and 512, csrc/mlp_dx_wide_sm90.cuh the frozen-network variants of K4 and
+K6; the kernels that form weight gradients keep 128 and 256).
 
 Tolerances: K3's outputs within 2e-3 of the largest entry (at least 1e-3), as
 tests/test_torch_render.py holds it at 256; K5's within 1e-4 absolute, as
@@ -16,6 +17,7 @@ at 512, so the grid is the two flag sets the card's checks use.
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -31,6 +33,7 @@ from nope_nerf_tpu.ops import render as jrender
 
 from nope_nerf_torch.config import load_config
 from nope_nerf_torch.models.nerf import NerfConfig
+from nope_nerf_torch.models.nerf import init_nerf_params as init_torch_params
 from nope_nerf_torch.ops import fused_mlp as FM
 from nope_nerf_torch.ops import fused_render as F
 from nope_nerf_torch.ops import render as trender
@@ -139,17 +142,22 @@ def test_nerf_config_gate_at_512_is_jax_s():
 
 @pytest.mark.parametrize("D", [128, 256, 384, 512, 640, 1024, 64])
 def test_width_gates(D):
-    """K3 and K5 take 128 to 512; K1, K4 and K6 raise NotImplementedError at 384
-    and 512 naming the Queue 3 slice that brings the width, and every kernel
+    """K3, K5 and the frozen-network variants of K4 and K6 take 128 to 512;
+    K1, K4 full and K6 full raise NotImplementedError at 384 and 512 naming
+    Queue 3 (b), the slice that brings the width to them, and every kernel
     raises for 640 and past (Queue 3 (c)) and for a width JAX's kernels do not
     take. The checks run before any device work, here on the CPU."""
-    for kernel in ("render", "point-query MLP forward"):
+    wide_ok = ("render", "point-query MLP forward", "render-backward (frozen network)",
+               "point-query MLP backward (frozen network)")
+    for kernel in wide_ok:
         if D in (128, 256, 384, 512):
             F.check_kernel_width(kernel, D)
             F._check_kernel_shapes(kernel, 128, D)
         else:
             with pytest.raises(NotImplementedError, match="hidden_dim"):
                 F.check_kernel_width(kernel, D)
+    assert F.render_bwd_kernel(False) == "render-backward (frozen network)"
+    assert F.render_bwd_kernel(True) == "render-backward"
     for kernel in ("train", "render-backward", "point-query MLP backward"):
         if D in (128, 256):
             F.check_kernel_width(kernel, D)
@@ -157,38 +165,66 @@ def test_width_gates(D):
         with pytest.raises(NotImplementedError, match="hidden_dim") as info:
             F.check_kernel_width(kernel, D)
         if D in (384, 512):
-            assert "Queue 3 (a)" in str(info.value) or "Queue 3 (b)" in str(info.value)
+            assert "Queue 3 (b)" in str(info.value)
     if D > 512:
         for kernel in F.KERNEL_WIDTHS:
             with pytest.raises(NotImplementedError, match=r"Queue 3 \(c\)"):
                 F.check_kernel_width(kernel, D)
     cfg = NerfConfig(hidden_dim=D, use_pallas=True)
-    if D in (128, 256, 384, 512):
-        FM._check_width(cfg, "forward")
-    else:
-        with pytest.raises(NotImplementedError):
-            FM._check_width(cfg, "forward")
+    for kernel in ("forward", FM.mlp_bwd_kernel(False)):
+        if D in (128, 256, 384, 512):
+            FM._check_width(cfg, kernel)
+        else:
+            with pytest.raises(NotImplementedError):
+                FM._check_width(cfg, kernel)
     if D not in (128, 256):
         with pytest.raises(NotImplementedError):
-            FM._check_width(cfg, "backward")
+            FM._check_width(cfg, FM.mlp_bwd_kernel(True))
+
+
+def _meta_params(cfg):
+    gen = torch.Generator().manual_seed(0)
+    return {k: v.to("meta") for k, v in init_torch_params(cfg, gen, device="cpu").items()}
 
 
 def test_wide_gates_fire_before_device_work():
     """On a device the kernels serve (a meta tensor stands in for a CUDA one:
-    the checks come before any launch or build), K1, K4 and K6 at 512 raise
-    NotImplementedError, and so does K3's differentiable route, whose forward
-    checks what its backward kernel takes."""
+    the checks come before any launch or build), K1, K4 full and K6 full at
+    512 raise NotImplementedError naming Queue 3 (b), and so do the
+    differentiable routes of K3 and K5 when a nerf parameter wants a
+    gradient: their forwards check the backward's variant. With a frozen
+    network the frozen variants' gates and those forwards pass, and the calls
+    go on to the kernel's build (no nvcc on this machine)."""
     cfg = NerfConfig(hidden_dim=512, use_pallas=True)
     meta = dict(device="meta")
     rays, z = torch.empty(4, 9, **meta), torch.empty(4, 128, **meta)
     tgt = torch.empty(4, F.TGT_DIM, **meta)
+    g_rgb, g_dist = torch.empty(4, 3, **meta), torch.empty(4, **meta)
     with pytest.raises(NotImplementedError, match="Queue 3 \\(b\\)"):
         F._train_cuda({}, rays, z, tgt, cfg, False, 1, False)
-    with pytest.raises(NotImplementedError, match="Queue 3 \\(a\\)"):
-        F._render_bwd_cuda({}, rays, z, torch.empty(4, 3, **meta), torch.empty(4, **meta), None,
-                           None, cfg, False, want_param_grads=False)
+    with pytest.raises(NotImplementedError, match="Queue 3 \\(b\\)"):
+        F._render_bwd_cuda({}, rays, z, g_rgb, g_dist, None, None, cfg, False)
     pts = torch.empty(4, 3, **meta)
-    with pytest.raises(NotImplementedError, match="Queue 3 \\(a\\)"):
+    with pytest.raises(NotImplementedError, match="Queue 3 \\(b\\)"):
         FM._mlp_bwd_cuda({}, pts, pts, pts, torch.empty(4, 1, **meta), cfg)
-    with pytest.raises(NotImplementedError, match="render-backward"):
-        F._RenderFused.forward(None, rays, z, cfg, False, True, ())
+    params = _meta_params(cfg)
+    names = tuple(sorted(params))
+    tensors = [params[k] for k in names]
+    wants = SimpleNamespace(needs_input_grad=(True,) * 6 + (True,) * len(names))
+    frozen = SimpleNamespace(needs_input_grad=(True,) * 6 + (False,) * len(names))
+    with pytest.raises(NotImplementedError, match="render-backward.*Queue 3 \\(b\\)"):
+        F._RenderFused.forward(wants, rays, z, cfg, False, True, names, *tensors)
+    with pytest.raises(NotImplementedError, match="MLP backward.*Queue 3 \\(b\\)"):
+        FM._PointMLP.forward(SimpleNamespace(needs_input_grad=wants.needs_input_grad[2:]),
+                             pts, pts, cfg, names, *tensors)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        F._RenderFused.forward(frozen, rays, z, cfg, False, True, names, *tensors)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        FM._PointMLP.forward(SimpleNamespace(needs_input_grad=frozen.needs_input_grad[2:]),
+                             pts, pts, cfg, names, *tensors)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        F._render_bwd_cuda(params, rays, z, g_rgb, g_dist, None, None, cfg, False,
+                           want_param_grads=False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        FM._mlp_bwd_cuda(params, pts, pts, pts, torch.empty(4, 1, **meta), cfg,
+                         want_param_grads=False)
