@@ -131,8 +131,10 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    133 rays and K5 at 1, 127 and 196,645 points, K4's frozen-network
    variant at S = 128, 256 and 1024 on the pose-opt step's 1024 rays and
    K6's at 1, 63, 64, 65,
-   127 and 196,645 points, against their plain versions over two flag sets
-   (softplus; relu with dist_alpha), two launches bit-equal; then at each
+   127 and 196,645 points, and K6 full (every dW and dB block, d(points)
+   and d(directions): those torch.equal to K6 frozen's) at 1, 63, 64, 65,
+   127, 129 and 196,645 points, against their plain versions over two flag
+   sets (softplus; relu with dist_alpha), two launches bit-equal; then at each
    width the render path from a checkpoint of seeded random weights the port
    wrote: cli.render over 3 views at 188x621 (K3 once a frame, view 0's rows
    0-7 against the plain version), Trainer.render_frame fused (K3 once) and
@@ -141,9 +143,12 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    optimisation (K3 and K4 frozen once a step, its metrics finite),
    optimize_test_poses replayed from its captured step against eager runs
    (torch.equal), fused and hierarchical, and 4 hierarchical pose-opt steps
-   (K5 twice and K6 frozen once a step); at 512, K1, K4 full and K6 full
-   raising NotImplementedError with no launch, and so render_rays_fused and
-   point_mlp under autograd with nerf parameters that want gradients.
+   (K5 twice and K6 frozen once a step); hierarchical training from the same
+   weights: cli.train, one epoch of 8 steps (K5 twice, K6 full, the dW
+   kernel and K2 once a step; K1 and K4 full never), and 4 replayed steps of
+   Trainer.run_steps against the same steps eager (torch.equal); at 512, K1
+   and K4 full raising NotImplementedError with no launch, and so
+   render_rays_fused under autograd with nerf parameters that want gradients.
    `python3 chip_smoke.py --wide` builds the kernels and runs this phase
    alone;
 9. times each path and each kernel at its main path's shapes (CUDA events;
@@ -154,10 +159,11 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    512-sample path's 1024 x 512 and K3 per 188x621 frame at 2048 samples, each
    held against its plain version at that shape and timed beside its bound,
    with a `many_samples` JSON line; per width of phase 13 a frame end to end,
-   K3 over its rays, K5 at 196,608 points, K4 frozen at 1024 x 128 and K6
-   frozen at 196,608 points, each held against its plain version and timed
-   beside its bound, and the replayed pose-opt steps, with a `wide` JSON
-   line), prints one
+   K3 over its rays, K5 at 196,608 points, K4 frozen at 1024 x 128, K6
+   frozen and K6 full at 196,608 points (K6 full with the dW kernel's share
+   by torch.profiler and its operand bytes), each held against its plain
+   version and timed beside its bound, and the replayed pose-opt and
+   hierarchical train steps, with a `wide` JSON line), prints one
    `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 It exits non-zero, and prints no result, when CUDA is missing, outside a
 checkout, or when any phase fails. It imports nothing of JAX.
@@ -2524,7 +2530,9 @@ def graph_train_path(torch, np, dev, name: str, cfg, mc, scene, state, expected:
                                   f"step graphs, {name}: {n} replayed steps (capture first)")
     equal = (states_bit_equal(torch, a, b) and set(ld_a) == set(ld_b)
              and all(torch.equal(ld_a[k], ld_b[k]) for k in ld_a))
+    torch.cuda.reset_peak_memory_stats(dev)
     eager_ms = events_ms(torch, lambda: run(eager, a), n)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9   # a replay allocates nothing
     replay_ms = events_ms(torch, lambda: run(graph, b), n)
     equal = equal and states_bit_equal(torch, a, b)
     (captured,) = graph.captured_steps()
@@ -2532,12 +2540,13 @@ def graph_train_path(torch, np, dev, name: str, cfg, mc, scene, state, expected:
           f"state and generator, twice: states, loss terms and generators torch.equal: {equal}; "
           f"launches per step {counts_b == counts_a}; eager {eager_ms:.3f} ms, replayed "
           f"{replay_ms:.3f} ms a step; capture {captured.capture_s:.2f} s, pool "
-          f"{captured.pool_mb:.0f} MB")
+          f"{captured.pool_mb:.0f} MB; peak device memory of the eager steps {peak_gb:.2f} GB "
+          f"(max_memory_allocated: the step's working set, which the pool holds for a replay)")
     if not equal:
         raise RuntimeError(f"step graphs, {name}: the replayed steps differ from the eager ones")
     graph.release_graphs()
     return {"path": name, "steps": n, "eager_ms": eager_ms, "replay_ms": replay_ms,
-            "capture_s": captured.capture_s, "pool_mb": captured.pool_mb,
+            "capture_s": captured.capture_s, "pool_mb": captured.pool_mb, "peak_gb": peak_gb,
             "launches_per_step": {k: v / n for k, v in counts_b.items() if v}}
 
 
@@ -3065,7 +3074,7 @@ def run_many_samples(torch, np, dev) -> dict:
     return out
 
 
-# ---- phase 13: hidden_dim 384 and 512 on the forward trunk (K3, K5) --------------------
+# ---- phase 13: hidden_dim 384 and 512 (K3, K5, K4 and K6 frozen, K6 full) ---------------
 
 WIDE_D = (384, 512)               # the widths of mlp_fwd_wide_sm90.cuh's 64-point trunk
 WIDE_S = (128, 1024)              # K3 on MANY_S_RAYS rays
@@ -3078,6 +3087,14 @@ WIDE_BWD_RAYS = 1024              # the pose-opt step's rays (7 or 8 a CTA on 13
 # K6 frozen: one point, a ragged 64-point tile, one, one and a point, a ragged second tile,
 # the fine pass made ragged
 WIDE_BWD_M = (1, 63, 64, 65, 127, POINT_CHECK_M)
+# K6 full: those, and a 128-point row tile of the dW operands and a point (129)
+WIDE_FULL_M = (1, 63, 64, 65, 127, 129, POINT_CHECK_M)
+# points below which a dW or dB block is held by the L2 part of the per-sample rule
+# (wide_full_share): a block summed over this few points moves by one flipped bf16
+# rounding of a single point's product, which 5e-3 of its largest entry does not admit
+WIDE_FULL_SUM_POINTS = 1000
+for _D in WIDE_D:
+    GRAPH_STEPS[f"hierarchical, hidden_dim {_D}"] = HIER_STEPS
 
 
 def per_sample_share(got, ref) -> float:
@@ -3149,6 +3166,71 @@ def check_wide_frozen(torch, dev) -> dict:
     if failed:
         raise RuntimeError("wide widths: frozen-network backward kernels disagree with their "
                            "plain versions: " + "; ".join(failed))
+    return worst
+
+
+def wide_full_share(got, ref, name: str, m: int) -> float:
+    """K6 full's block `name` over m points as a share of its tolerance:
+    d(points), d(directions) by per_sample_share; a dW or dB block by
+    grad_tolerance (5e-3 of its largest entry), or under WIDE_FULL_SUM_POINTS
+    points by the L2 part of the per-sample rule."""
+    if name in ("points", "directions"):
+        return per_sample_share(got, ref)
+    if m < WIDE_FULL_SUM_POINTS:
+        return float((got - ref).norm()) / (2e-2 * float(ref.norm()) + 1e-12)
+    return grad_share(got, ref, False)
+
+
+def check_wide_full(torch, dev) -> dict:
+    """Phase 13 (a''): K6 full at the point counts of WIDE_FULL_M, at D = 384
+    and 512 (csrc/mlp_dx_wide_sm90.cuh's chain with mlp_dw_chain_sm90.cuh's
+    OperandSaveW and dw_sm90.cuh's column pieces), over both flag sets of
+    WIDE_FLAGS, on the cotangents of a smooth loss: every dW and dB block and
+    d(points), d(directions) against the plain version (wide_full_share), two
+    launches bit-equal, d(points) and d(directions) torch.equal to K6
+    frozen's. Returns the worst absolute error by width; fails if any case
+    disagrees."""
+    from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
+    from nope_nerf_torch.ops.fused_mlp import _mlp_bwd_cuda, point_mlp_bwd_plain
+    from nope_nerf_torch.ops.fused_render import unpack_grads
+    gen = torch.Generator().manual_seed(SEED + 38)
+    worst, failed = {}, []
+    for D in WIDE_D:
+        for M in WIDE_FULL_M:
+            pts, dirs = point_inputs(torch, dev, gen, M)
+            for occ, da in WIDE_FLAGS:
+                ncfg = NerfConfig(hidden_dim=D, occ_activation=occ, dist_alpha=da,
+                                  use_pallas=True)
+                params = init_nerf_params(ncfg, gen, device=dev)
+                case = f"D={D} {M} points occ={occ} head_dist_alpha={da}"
+                cot = point_cotangents(torch, params, pts, dirs, ncfg)
+                a = _mlp_bwd_cuda(params, pts, dirs, *cot, ncfg)
+                b = _mlp_bwd_cuda(params, pts, dirs, *cot, ncfg)
+                frozen = _mlp_bwd_cuda(params, pts, dirs, *cot, ncfg, want_param_grads=False)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip([*a[0], *a[1], a[2], a[3]],
+                                                              [*b[0], *b[1], b[2], b[3]])):
+                    raise RuntimeError(f"point_mlp_bwd: two launches differ ({case})")
+                if not (torch.equal(frozen[2], a[2]) and torch.equal(frozen[3], a[3])):
+                    raise RuntimeError(f"point_mlp_bwd: d(points), d(directions) differ from the "
+                                       f"frozen-network variant's ({case})")
+                ref = point_mlp_bwd_plain(params, pts, dirs, *cot, ncfg)
+                got = dict(unpack_grads(a[0], a[1], ncfg), points=a[2], directions=a[3])
+                want = dict(unpack_grads(ref[0], ref[1], ncfg), points=ref[2], directions=ref[3])
+                shares = {k: wide_full_share(got[k], want[k], k, M) for k in want}
+                k_worst = max(shares, key=shares.get)
+                worst[D] = max(worst.get(D, 0.0), max(max_err(got[k], want[k]) for k in want))
+                rule = "L2" if M < WIDE_FULL_SUM_POINTS else "5e-3"
+                print(f"point_mlp_bwd vs plain, {case}: {len(shares)} gradient blocks (dW, dB by "
+                      f"{rule}), worst {k_worst} at {shares[k_worst]:.3f} of its tolerance "
+                      f"(points {shares['points']:.3f}, directions {shares['directions']:.3f}); "
+                      f"two launches bit-equal; d(points), d(directions) equal to the "
+                      f"frozen-network variant's")
+                if not shares[k_worst] <= 1.0:
+                    failed.append(f"{k_worst} at {shares[k_worst]:.2f} of its tolerance ({case})")
+    if failed:
+        raise RuntimeError("wide widths: point_mlp_bwd disagrees with its plain version: "
+                           + "; ".join(failed))
     return worst
 
 
@@ -3306,6 +3388,62 @@ def run_wide_eval(torch, np, dev, D: int, nerf) -> dict:
     return out
 
 
+def run_wide_train(torch, np, dev, D: int, nerf) -> dict:
+    """Phase 13 (c): hierarchical training (rendering.n_importance
+    N_IMPORTANCE) at model.hidden_dim D from phase 13's seeded weights,
+    written as a checkpoint that cli.train loads (training.
+    load_ckpt_model_only): one epoch of the built-in 8-frame 120x160 scene
+    through cli.train (its replayed step graph), per step K5 twice, K6 full
+    and the dW kernel once, Chamfer once, K1 and K4 full never, the loss
+    finite; then HIER_STEPS steps of Trainer.run_steps replayed against the
+    same steps eager on the 188x621 4-frame scene (graph_train_path: states
+    torch.equal), with the replayed steps' peak device memory. Returns the
+    counts and the step-graph result."""
+    from nope_nerf_torch.cli.train import train
+    from nope_nerf_torch.data import SceneData, make_synthetic_scene
+    from nope_nerf_torch.training import ModelConfigs, create_train_state
+    from nope_nerf_torch.training.checkpoints import save_params
+
+    out = {}
+    steps = 8   # one epoch of the built-in scene
+    with tempfile.TemporaryDirectory() as out_dir:
+        cfg = hier_config(model={"hidden_dim": D},
+                          training={"out_dir": out_dir, "load_ckpt_model_only": True,
+                                    "vis_geo": False, "print_every": steps,
+                                    "validate_every": 0, "checkpoint_every": steps,
+                                    "visualize_every": 0, "vis_reprojection_every": 0})
+        scene = SceneData.from_dict(make_synthetic_scene(n_frames=steps, h=120, w=160))
+        mc = ModelConfigs.from_cfg(cfg, num_cams=scene.n_frames)
+        seeded = create_train_state(SEED, mc, init_c2w=torch.as_tensor(scene.c2ws_gt),
+                                    device=dev)
+        seeded.params["nerf"] = {k: v.detach().clone() for k, v in nerf.items()}
+        save_params(out_dir, cfg["training"]["load_dir"], seeded.params)
+        (state, _, _), out["train_counts"] = counted(
+            lambda: train(cfg, synthetic=True, max_epochs=1, device=dev),
+            {"point_mlp_fwd": 2 * steps, "point_mlp_bwd": steps, "dw_sm90": steps,
+             "chamfer_bidir": steps},
+            f"cli.train, hidden_dim {D}, n_importance {N_IMPORTANCE}, 1 epoch of {steps} steps "
+            "from the seeded checkpoint")
+    moved = any(not torch.equal(state.params["nerf"][k], v) for k, v in nerf.items())
+    finite = all(bool(torch.isfinite(v).all()) for d in state.params.values() for v in d.values())
+    if not (moved and finite):
+        raise RuntimeError(f"cli.train at hidden_dim {D}: the nerf parameters did not move or are "
+                           "not finite")
+    print(f"cli.train, hidden_dim {D}: parameters finite and moved from the checkpoint's")
+
+    h, w = RESOLUTION
+    hcfg = hier_config(model={"hidden_dim": D})
+    tscene = SceneData.from_dict(make_synthetic_scene(n_frames=4, h=h, w=w)).to_device(dev)
+    hmc = ModelConfigs.from_cfg(hcfg, num_cams=tscene.n_frames)
+    hstate = create_train_state(SEED, hmc, init_c2w=tscene.c2ws_gt, device=dev)
+    hstate.params["nerf"] = {k: v.detach().clone() for k, v in nerf.items()}
+    out["graph"] = graph_train_path(
+        torch, np, dev, f"hierarchical, hidden_dim {D}", hcfg, hmc, tscene, hstate,
+        {"point_mlp_fwd": 2 * HIER_STEPS, "point_mlp_bwd": HIER_STEPS, "dw_sm90": HIER_STEPS,
+         "chamfer_bidir": HIER_STEPS})
+    return out
+
+
 def run_wide_path(torch, np, dev, D: int) -> dict:
     """Phase 13 (b) at model.hidden_dim D: cli.render over N_VIEWS novel views at
     188x621 from a checkpoint of seeded random weights written by the port (K3
@@ -3313,17 +3451,16 @@ def run_wide_path(torch, np, dev, D: int) -> dict:
     Trainer.render_frame at 188x621 (K3 once) and with rendering.n_importance
     N_IMPORTANCE (K5 twice a chunk), each with rows 0-7 against the plain
     versions; cli.eval's pose optimisation and the pose-opt steps from the
-    same weights (run_wide_eval); at WIDE_PATH_D, one call each of K1, K4 full
-    and K6 full raising NotImplementedError before any launch, and
-    render_rays_fused and point_mlp under autograd with nerf parameters that
-    want a gradient raising before K3 or K5 launches. Returns what the
-    timings need."""
+    same weights (run_wide_eval); hierarchical training from them (K6 full;
+    run_wide_train); at WIDE_PATH_D, one call each of K1 and K4 full raising
+    NotImplementedError before any launch, and render_rays_fused under
+    autograd with nerf parameters that want a gradient raising before K3
+    launches. Returns what the timings need."""
     from nope_nerf_torch.cli.render import load_scene, render
     from nope_nerf_torch.config import load_config
     from nope_nerf_torch.data import SceneData, batch_for_frame, make_synthetic_scene
     from nope_nerf_torch.geometry.lie import log_so3
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
-    from nope_nerf_torch.ops.fused_mlp import _mlp_bwd_cuda, point_mlp
     from nope_nerf_torch.ops.fused_render import (_render_bwd_cuda, plain_versions,
                                                   render_ray_loss_fused, render_rays_fused,
                                                   render_rays_fused_plain)
@@ -3409,10 +3546,11 @@ def run_wide_path(torch, np, dev, D: int) -> dict:
         out["fused_frame_counts" if name == "fused" else "hier_frame_counts"] = counts
     out.update(state=state, batch=batch, hier_trainer=hier_trainer)
     out.update(run_wide_eval(torch, np, dev, D, params["nerf"]))
+    out.update(run_wide_train(torch, np, dev, D, params["nerf"]))
 
     if D == WIDE_PATH_D:
-        # the kernels that form weight gradients do not take this width yet: they, and
-        # the autograd routes that would reach them, raise before any device work
+        # the render kernels that form weight gradients do not take this width yet: they,
+        # and the autograd route that would reach them, raise before any device work
         gen = torch.Generator().manual_seed(SEED + 33)
         rays, tz, tgt = train_inputs(torch, dev, gen, 133)
         nerf = state.params["nerf"]
@@ -3423,14 +3561,7 @@ def run_wide_path(torch, np, dev, D: int) -> dict:
         raises_unlaunched(torch, lambda: _render_bwd_cuda(nerf, rays, tz, g_rgb, g_dist, None,
                                                           None, ncfg, False),
                           f"render_bwd full (K4) at hidden_dim {D}", {})
-        pts, dirs = point_inputs(torch, dev, gen, 1000)
-        g_prgb, g_den = torch.ones(1000, 3, device=dev), torch.ones(1000, 1, device=dev)
-        raises_unlaunched(torch, lambda: _mlp_bwd_cuda(nerf, pts, dirs, g_prgb, g_den, ncfg),
-                          f"point_mlp_bwd full (K6) at hidden_dim {D}", {})
         leaf = {k: v.detach().requires_grad_(True) for k, v in nerf.items()}
-        raises_unlaunched(torch, lambda: point_mlp(leaf, pts, dirs, ncfg),
-                          f"point_mlp under autograd at hidden_dim {D}, parameters wanting "
-                          "gradients", {})
         raises_unlaunched(torch, lambda: render_rays_fused(leaf, rays, tz, ncfg, False, False),
                           f"render_rays_fused under autograd at hidden_dim {D}, parameters "
                           "wanting gradients", {})
@@ -3438,11 +3569,13 @@ def run_wide_path(torch, np, dev, D: int) -> dict:
 
 
 def run_wide(torch, np, dev) -> dict:
-    """Phase 13: (a) the kernels at both widths, forward and frozen backward,
-    (b) the path at each: render, eval and pose optimisation."""
+    """Phase 13: (a) the kernels at both widths, forward, frozen backward and
+    K6 full, (b) the path at each: render, eval, pose optimisation and
+    hierarchical training."""
     t_phase = time.perf_counter()
     out = {"worst": check_wide_kernels(torch, dev)}
     out["worst"].update(check_wide_frozen(torch, dev))
+    out["worst_full"] = check_wide_full(torch, dev)
     for D in WIDE_D:
         out[D] = run_wide_path(torch, np, dev, D)
     print(f"wide phase: {time.perf_counter() - t_phase:.1f} s wall")
@@ -3457,15 +3590,22 @@ def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
     hierarchical frame end to end at WIDE_PATH_D; K4's frozen variant at the
     pose-opt batch's 1024 rays x 128 and K6's at the fine pass's 196,608
     points, each beside its bound (forward + dX, 2 mlp_flops) and its plain
-    version; the replayed pose-opt steps of phase 13 (fused and
-    hierarchical). Returns the `kernels` JSON entries."""
+    version; K6 full at those points beside its bound (forward + dX + dW, 3
+    mlp_flops) and its plain version, with the dW kernel's share of its device
+    time (torch.profiler), the dW kernel's CTAs and the operand bytes; the
+    replayed pose-opt steps of phase 13 (fused and hierarchical) and its
+    hierarchical train steps (eager, replayed, peak device memory). Returns
+    the `kernels` JSON entries."""
+    from torch.profiler import ProfilerActivity, profile
     from nope_nerf_torch.evaluation.extract import render_trajectory
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
-    from nope_nerf_torch.ops.fused_mlp import (_mlp_bwd_cuda, _mlp_fwd_cuda, point_mlp_bwd_plain,
+    from nope_nerf_torch.ops.fused_mlp import (POINT_MLP_BWD, _mlp_bwd_cuda, _mlp_fwd_cuda,
+                                               dw_chunks, point_mlp_bwd_plain,
                                                point_mlp_fwd_plain)
     from nope_nerf_torch.ops.fused_render import (_render_bwd_cuda, pack_weights,
                                                   render_rays_fused, render_rays_fused_bwd_plain,
-                                                  render_rays_fused_plain)
+                                                  render_rays_fused_plain, unpack_grads)
+    from nope_nerf_torch.tools.profile_train import _self_device_us
 
     def timed_once(fn):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -3612,6 +3752,64 @@ def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
                         "bound_by": pz_by, "library_ms": None})
         summary[f"point_mlp_bwd_frozen_ms_{D}"] = pz_ms
         del got, ref
+
+        # K6 full at the fine pass's points on the same cotangents: its chain, the in-order
+        # sum of the chain's partials and the dW kernel (column pieces) in one call
+        pk_ms = time_ms(lambda: _mlp_bwd_cuda(pparams, pts, dirs, g_rgb, g_den, pcfg), 10)
+        got = _mlp_bwd_cuda(pparams, pts, dirs, g_rgb, g_den, pcfg)
+        ref, pk_plain_ms = timed_once(lambda: point_mlp_bwd_plain(pparams, pts, dirs, g_rgb,
+                                                                  g_den, pcfg))
+        pk_err, pkk, pkshare, _ = held(
+            dict(unpack_grads(got[0], got[1], pcfg), points=got[2], directions=got[3]),
+            dict(unpack_grads(ref[0], ref[1], pcfg), points=ref[2], directions=ref[3]),
+            ("points", "directions"))
+        if not pkshare <= 1.0:
+            raise RuntimeError(f"point_mlp_bwd at {fine_m} points, hidden_dim {D}: {pkk} at "
+                               f"{pkshare:.2f} of its tolerance")
+        W, B = pack_weights(pparams, pcfg)
+        pk_flops = 3 * mlp_flops(D, 1, 1) * fine_m
+        pk_bound, pk_by, _, _ = bound(pk_flops, PEAK_BF16_FLOPS,
+                                      64 * fine_m + numel_bytes(W) + numel_bytes(B)
+                                      + numel_bytes(got[0] + got[1]))
+        del got, ref
+        sizes = (ctypes.c_longlong * 6)()
+        POINT_MLP_BWD.lib().nerf_point_mlp_bwd_scratch(D, fine_m, 1, sizes)
+        operand_bytes = sizes[0] + sizes[1]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        dw_ctas = sizes[4] * dw_chunks(sizes[4], fine_m, sms)
+        # where K6 full's device time goes: the chain, the partials' sum, the dW kernel
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                _mlp_bwd_cuda(pparams, pts, dirs, g_rgb, g_den, pcfg)
+            torch.cuda.synchronize()
+        kt = {e.key: _self_device_us(e) / 3e3 for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA}
+        dw_ms = sum(v for k, v in kt.items() if "dw_sm90_kernel" in k or "dw_reduce_kernel" in k)
+        chain_ms = sum(v for k, v in kt.items() if "point_mlp_bwd_wide_kernel" in k)
+        dw_text = (f"dW kernel {dw_ms:.3f} ms ({dw_ms / pk_ms:.1%} of the call; {sizes[4]} CTA "
+                   f"tiles x {dw_ctas // sizes[4]} chunks = {dw_ctas} CTAs on {sms} SMs), chain "
+                   f"{chain_ms:.3f} ms (torch.profiler)" if kt else
+                   "dW kernel's share not measured (torch.profiler saw no device time)")
+        print(f"hidden_dim {D}: point_mlp_bwd {fine_m} points {pk_ms:.3f} ms "
+              f"({pk_flops / pk_ms / 1e9:.1f} TFLOP/s, {pk_ms / pk_bound:.2f} x the bound "
+              f"{pk_bound:.3f} ms by {pk_by}, {pk_flops / 1e12:.3f} TFLOP), plain version "
+              f"{pk_plain_ms:.1f} ms; against it {pkk} at {pkshare:.3f} of its tolerance; "
+              f"{dw_text}; operands the chain hands the dW kernel {operand_bytes / 1e9:.3f} GB "
+              f"({operand_bytes / fine_m:.0f} B a point, outside the bound)")
+        entries.append({"name": f"point_mlp_bwd (hidden_dim {D})", "route": "cuda",
+                        "source": "nope_nerf_torch/csrc/point_mlp_bwd.cu",
+                        "replaces": "nope_nerf_tpu/ops/pallas_mlp.py:273",
+                        "launches": p["train_counts"]["point_mlp_bwd"],
+                        "max_abs_err": max(wide["worst_full"][D], pk_err),
+                        "ms": pk_ms, "plain_ms": pk_plain_ms, "bound_ms": pk_bound,
+                        "bound_by": pk_by, "library_ms": None})
+        summary[f"point_mlp_bwd_{D}"] = {
+            "ms": pk_ms, "bound_ms": pk_bound, "dw_ms": dw_ms if kt else None,
+            "chain_ms": chain_ms if kt else None, "dw_ctas": dw_ctas,
+            "operand_bytes": operand_bytes}
+        g = p["graph"]
+        summary[f"hier_step_ms_{D}"] = {"eager": g["eager_ms"], "replay": g["replay_ms"],
+                                        "peak_gb": g["peak_gb"], "pool_mb": g["pool_mb"]}
         for path in ("fused", "hier"):
             g = p[f"graph_{path}"]
             summary[f"pose_opt_{path}_ms_{D}"] = {"eager": g["eager_ms"], "replay": g["replay_ms"]}
@@ -3732,7 +3930,7 @@ def main() -> int:
     # ---- 12. every sample count: the kernels at 256 to 4096 samples, the path at 512
     many = run_many_samples(torch, np, dev)
 
-    # ---- 13. hidden_dim 384 and 512: K3 and K5 on the wide trunk, the render path at each
+    # ---- 13. hidden_dim 384 and 512: K3, K5, K4 and K6 frozen, K6 full; render, eval, train
     wide = run_wide(torch, np, dev)
 
     # ---- 9. timing at the main paths' shapes ---------------------------------
@@ -3937,7 +4135,7 @@ def main() -> int:
     pz_bound, pz_by, pz_ops_ms, pz_bytes_ms = bound(pz_flops, PEAK_BF16_FLOPS,
                                                     64 * fine_m + pweight_bytes)
     # the operands K6 full writes for its dW kernel and reads back: outside the bound
-    psizes = (ctypes.c_longlong * 5)()
+    psizes = (ctypes.c_longlong * 6)()
     POINT_MLP_BWD.lib().nerf_point_mlp_bwd_scratch(pcfg.hidden_dim, fine_m, 1, psizes)
     poperand_bytes = psizes[0] + psizes[1]
     poperand_ms = 2 * poperand_bytes / PEAK_BYTES * 1e3

@@ -22,8 +22,10 @@ extern "C" int nerf_dw_sm90(int n, const void* const* x, const void* const* g, v
     tab.b[i].dst = static_cast<float*>(dst[i]);
     tab.b[i].xblocks = xblocks[i];
     tab.b[i].gblocks = N[i] / 64;
+    tab.b[i].gstride = N[i] / 64;
     tab.b[i].K = K[i];
     tab.b[i].N = N[i];
+    tab.b[i].ldd = N[i];
   }
   return static_cast<int>(
       dw_sm90_launch(tab, M, chunks, partials, static_cast<cudaStream_t>(stream)));

@@ -36,6 +36,11 @@
 //   and the SM count, ops/fused_mlp.py::dw_chunks); the grid is (CTA tiles,
 //   chunks), each writes an f32 partial dW, and a second launch sums the
 //   partials in chunk order. No float atomics: two launches give the same bits.
+// - A block wider than 256 columns (N = 384 or 512, and 192 for the rgb-hidden
+//   layer, at hidden_dim 384 and 512) is split into column pieces of 256, 128
+//   or 64 (mlp_dw_chain_sm90.cuh's chain_dw_table): each piece reads its
+//   columns of G's row tiles (gstride blocks apart) and writes its columns of
+//   dW (rows ldd floats apart).
 
 #pragma once
 
@@ -43,22 +48,24 @@
 
 namespace {
 
-constexpr int kDwMaxBlocks = 16;
+constexpr int kDwMaxBlocks = 24;   // K6's column pieces at hidden_dim 384
 constexpr int kDwStageX = 2 * kBlockBytes;          // the CTA's two 64-column blocks of X
 constexpr int kDwStageG = 4 * kBlockBytes;          // G's blocks: N <= 256
 constexpr int kDwStage = kDwStageX + kDwStageG;     // 96 KB
 constexpr int kDwStages = 2;
 constexpr size_t kDwSmem = static_cast<size_t>(kDwStages) * kDwStage + 8 * 2 * kDwStages + 1024;
 
-// One dW block: X and G (tiled, xblocks and gblocks 64-column blocks per row
-// tile), dW (K, N) f32 row-major at dst, and its place in a chunk's partial
-// buffer. K <= 64 xblocks, N = 64 gblocks in {64, 128, 256}.
+// One dW block, or a column piece of one: X (tiled, xblocks 64-column blocks
+// per row tile) and the piece's gblocks blocks of G (tiled, gstride blocks per
+// row tile, from g on), dW (K, N) f32 at dst with rows ldd floats apart, and
+// its place in a chunk's partial buffer. K <= 64 xblocks, N = 64 gblocks in
+// {64, 128, 256}; a whole block has gstride = gblocks and ldd = N.
 struct DwBlock {
   const unsigned char* x;
   const unsigned char* g;
   float* dst;
   long long part;
-  int xblocks, gblocks, K, N;
+  int xblocks, gblocks, gstride, K, N, ldd;
 };
 
 struct DwTable {
@@ -261,7 +268,7 @@ dw_sm90_kernel(const __grid_constant__ DwTable tab, long long M, float* __restri
                   kBlockBytes, full + 8 * stage);
       for (int j = 0; j < bk.gblocks; ++j)
         bulk_load(dst + kDwStageX + j * kBlockBytes,
-                  bk.g + (static_cast<size_t>(t) * bk.gblocks + j) * kBlockBytes, kBlockBytes,
+                  bk.g + (static_cast<size_t>(t) * bk.gstride + j) * kBlockBytes, kBlockBytes,
                   full + 8 * stage);
     }
     return;
@@ -289,7 +296,8 @@ __global__ void dw_reduce_kernel(const __grid_constant__ DwTable tab, int chunks
   if (e >= static_cast<long long>(bk.K) * bk.N) return;
   float acc = 0.f;
   for (int c = 0; c < chunks; ++c) acc += partials[c * tab.part_total + bk.part + e];
-  bk.dst[e] = add ? bk.dst[e] + acc : acc;
+  float* d = bk.dst + (e / bk.N) * bk.ldd + e % bk.N;
+  *d = add ? *d + acc : acc;
 }
 
 // Checks the table, fills `first` and `part_total`, and launches both
@@ -306,6 +314,7 @@ inline cudaError_t dw_sm90_launch(DwTable& tab, long long M, int chunks, float* 
   for (int i = 0; i < tab.n; ++i) {
     DwBlock& b = tab.b[i];
     if ((b.N != 64 && b.N != 128 && b.N != 256) || b.gblocks * 64 != b.N || b.K <= 0 ||
+        b.gstride < b.gblocks || b.ldd < b.N ||
         b.K > 64 * b.xblocks || b.x == nullptr || b.g == nullptr || b.dst == nullptr ||
         reinterpret_cast<uintptr_t>(b.x) % 16 != 0 || reinterpret_cast<uintptr_t>(b.g) % 16 != 0)
       return cudaErrorInvalidValue;

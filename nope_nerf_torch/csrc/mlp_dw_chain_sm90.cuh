@@ -16,12 +16,15 @@
 //   (dW[9], dW[13], dB[8], dB[10], dB[11]; rgb_head_bwd_full), summed at the
 //   end in CTA and warpgroup order (chain_reduce_kernel);
 // - the work table of dw_sm90.cuh over those operands (chain_dw_table).
+// At hidden_dim 384 and 512 the same hand-off runs on the 64-point chain of
+// mlp_dx_wide_sm90.cuh (OperandSaveW and the heads below it; K6 full only).
 // No float atomics: two launches give the same bits.
 
 #pragma once
 
 #include "dw_sm90.cuh"
 #include "mlp_dx_sm90.cuh"
+#include "mlp_dx_wide_sm90.cuh"
 
 namespace {
 
@@ -317,7 +320,10 @@ inline cudaError_t chain_reduce_launch(const float* part, float* grads, int seg,
 // dw_sm90.cuh's work table of the dW blocks past the heads over a chain's
 // operands, each (pack_weights index, X operand, G operand, K, N): K6's 12,
 // or, without the direction block (dW[12] = de^T g_h, which the render
-// kernels form per ray), the render kernels' first 11.
+// kernels form per ray), the render kernels' first 11. A block wider than the
+// dW kernel's 256 columns (at hidden_dim 384 and 512) goes in column pieces of
+// 256, then 128, then 64 (ops/fused_mlp.py::point_dw_pieces): 24 pieces at
+// 384, 22 at 512; at 128 and 256 every block is one piece.
 template <int D>
 DwTable chain_dw_table(const unsigned char* xops, const unsigned char* gops, float* grads,
                        long long n_pass, bool de) {
@@ -330,16 +336,23 @@ DwTable chain_dw_table(const unsigned char* xops, const unsigned char* gops, flo
                            {10, 8, 1, D, D},  {11, 9, 0, D, H}, {12, 10, 0, 32, H}};
   const size_t tile_bytes = static_cast<size_t>(n_pass) * kBlockBytes;
   DwTable tab;
-  tab.n = de ? 12 : 11;
-  for (int i = 0; i < tab.n; ++i) {
-    DwBlock& b = tab.b[i];
-    b.x = xops + tile_bytes * O::xbefore(rows[i][1]);
-    b.g = gops + tile_bytes * O::gbefore(rows[i][2]);
-    b.xblocks = O::xblocks(rows[i][1]);
-    b.gblocks = O::gblocks(rows[i][2]);
-    b.K = rows[i][3];
-    b.N = rows[i][4];
-    b.dst = grads + lay.w[rows[i][0]];
+  tab.n = 0;
+  for (int i = 0; i < (de ? 12 : 11); ++i) {
+    for (int c0 = 0; c0 < rows[i][4];) {
+      const int rest = rows[i][4] - c0;
+      const int n = rest >= 256 ? 256 : (rest >= 128 ? 128 : 64);
+      DwBlock& b = tab.b[tab.n++];
+      b.x = xops + tile_bytes * O::xbefore(rows[i][1]);
+      b.g = gops + tile_bytes * O::gbefore(rows[i][2]) + (c0 / 64) * kBlockBytes;
+      b.xblocks = O::xblocks(rows[i][1]);
+      b.gblocks = n / 64;
+      b.gstride = O::gblocks(rows[i][2]);
+      b.K = rows[i][3];
+      b.N = n;
+      b.ldd = rows[i][4];
+      b.dst = grads + lay.w[rows[i][0]] + c0;
+      c0 += n;
+    }
   }
   return tab;
 }
@@ -363,6 +376,241 @@ void chain_scratch_sizes(long long n_pass, int n_ctas, int seg, bool de, long lo
   }
   sizes[3] = 4ll * kn;
   sizes[4] = tiles;
+}
+
+// ---- hidden_dim 384 and 512: the hand-off from the 64-point chain ----------------
+//
+// The wide chain's tile is 64 points, the dW kernel's row tile 128: pass t
+// writes half t % 2 of row tile t / 2 of each operand. A 64-column block of a
+// wide buffer (64 rows, kWBlockBytes) and one of a row tile (128 rows,
+// kBlockBytes) share the 128-byte swizzle, whose pattern repeats every 8
+// rows, so a block goes to its row tile as one contiguous 8 KB copy,
+// kWBlockBytes into the block for the second half. Where M % 128 is 1 to 64
+// the last row tile's second half is never written: the dW kernel reads rows
+// past M as zero (dw_consume).
+
+// The operand tiles of one 64-point pass: X operand i's 64-column block j at
+// x(i) + j kBlockBytes (PassTiles' operands).
+template <int D>
+struct PassTilesW {
+  unsigned char* xops;
+  unsigned char* gops;
+  size_t tile_bytes;   // one 64-column block over every row tile
+  long long pass;
+  __device__ __forceinline__ unsigned char* x(int i) const {
+    return xops + tile_bytes * Operands<D>::xbefore(i) +
+           (pass >> 1) * Operands<D>::xblocks(i) * kBlockBytes + (pass & 1) * kWBlockBytes;
+  }
+  __device__ __forceinline__ unsigned char* g(int i) const {
+    return gops + tile_bytes * Operands<D>::gbefore(i) +
+           (pass >> 1) * Operands<D>::gblocks(i) * kBlockBytes + (pass & 1) * kWBlockBytes;
+  }
+};
+
+// `blocks` 64-column blocks of a wide buffer (generic pointer to the first;
+// kWBlockBytes apart) to their place in a row tile (kBlockBytes apart), by
+// bulk copies that the warpgroup's first thread issues and commits
+// (copy_rows_async's rules: the rows fenced for the async proxy and the
+// warpgroup synchronised before; nothing writes over them until bulk_drain).
+__device__ __forceinline__ void copy_blocks_w_async(const unsigned char* src, unsigned char* dst,
+                                                    int blocks) {
+  if ((threadIdx.x & 127) != 0) return;
+  for (int blk = 0; blk < blocks; ++blk)
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                     dst + static_cast<size_t>(blk) * kBlockBytes),
+                 "r"(smem_addr(src + blk * kWBlockBytes)), "r"(kWBlockBytes)
+                 : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// The same by the warpgroup's own 16-byte stores past L1.
+__device__ __forceinline__ void copy_blocks_w(const unsigned char* src, unsigned char* dst,
+                                              int blocks) {
+  for (int e = threadIdx.x & 127; e < blocks * (kWBlockBytes / 16); e += 128) {
+    const int blk = e / (kWBlockBytes / 16), off = (e % (kWBlockBytes / 16)) * 16;
+    __stcg(reinterpret_cast<int4*>(dst + static_cast<size_t>(blk) * kBlockBytes + off),
+           *reinterpret_cast<const int4*>(src + blk * kWBlockBytes + off));
+  }
+}
+
+// A CTA's per-warp column sums in device memory: two buffers (one layer's,
+// the next layer's) x 2 warpgroups x 4 warps x D/2 floats. The rgb head's
+// backward takes all of it: 4 sums x 4 warps x D/4 floats a warpgroup.
+template <int D>
+__host__ __device__ constexpr size_t red_bytes_w() { return sizeof(float) * 8 * D; }
+
+// mlp_tile_w_masks' and dx_chain_w's hook in K6 full at 384 and 512. Each
+// warpgroup saves the 64-column blocks it wrote (its D/2 columns of a layer),
+// since it is the one that writes over them next; pe and de (one block each)
+// go by warpgroup 0, and so does g_h (D/2 columns from both warpgroups, all of
+// which warpgroup 0 writes over in g7). Bulk copies, but x7 (X operand 8),
+// which the chain reads back for dW[9], by the warpgroup's own stores. grad(i)
+// also sums the layer's bias gradient: its four warps' column sums from
+// red_at(i) in warp order, added to the warpgroup's segment (chain_seg:
+// dW[9], then the gradient buffer from dW[13] to the end of dB[11]).
+template <int D>
+struct OperandSaveW {
+  static constexpr bool kSum = true;
+  static constexpr int kBlocks = D / 128;   // a warpgroup's 64-column blocks of a layer
+  PassTilesW<D> tiles;
+  float* red;    // the CTA's column sums (red_bytes_w)
+  float* part;   // the CTA's two segments, warpgroup 0's first
+  int seg;       // floats of a segment
+  __device__ __forceinline__ void operator()(int i, int wg, const unsigned char* src) const {
+    if (i == 0 || i == 10) {
+      if (wg == 0) copy_blocks_w_async(src, tiles.x(i), 1);
+      return;
+    }
+    const unsigned char* s = src + wg * kBlocks * kWBlockBytes;
+    unsigned char* d = tiles.x(i) + wg * kBlocks * kBlockBytes;
+    if (i == 8)
+      copy_blocks_w(s, d, kBlocks);
+    else
+      copy_blocks_w_async(s, d, kBlocks);
+  }
+  __device__ __forceinline__ void grad(int i, int wg, const unsigned char* src) const {
+    if (i == 0) {
+      if (wg == 0) copy_blocks_w_async(src, tiles.g(0), kBlocks);
+      return;
+    }
+    copy_blocks_w_async(src + wg * kBlocks * kWBlockBytes,
+                        tiles.g(i) + wg * kBlocks * kBlockBytes, kBlocks);
+    constexpr int N = D / 2;
+    const GradLayout lay = grad_layout(D);
+    const int k = i == 1 ? 9 : 9 - i;   // the layer's dB block: g_feat's 9, g_l's l
+    const float* r = red_at(i, wg);
+    float* b = part + wg * seg + D + (lay.b[0] - lay.w[13]) +
+               (k == 9 ? lay.b[9] - lay.b[0] : k * D) + wg * N;
+    for (int c = threadIdx.x & 127; c < N; c += 128)
+      b[c] += ((__ldcg(r + c) + __ldcg(r + N + c)) + __ldcg(r + 2 * N + c)) + __ldcg(r + 3 * N + c);
+  }
+  __device__ __forceinline__ void drain(int) const { bulk_drain(); }
+  __device__ __forceinline__ float* red_at(int i, int wg) const {
+    return red + ((i & 1) * 2 + wg) * 4 * (D / 2);
+  }
+};
+
+// mlp_dx_wide_sm90.cuh's rgb_head_bwd_w (the same g_h bits) with the
+// gradients that stay in the chain (rgb_head_bwd_full's at these widths):
+// each thread also reads h under its cells before it writes g_h over them,
+// and sums over its two rows the masked f32 g_h (dB[10]) and h bf16(g_rgb[k])
+// (dW[13]); then the warp's eight row groups by shfl_xor over 4, 8, 16, and
+// the warpgroup's four warps in order through red, added to the warpgroup's
+// segment seg_wg. dB[11] and dB[8], the tile's f32 sums of the raw-rgb and
+// raw-density cotangents in row order, by four threads into seg0 (the CTA's
+// first segment). Starts and ends synchronised (both warpgroups), the buffer
+// fenced for wgmma.
+template <int D>
+__device__ __forceinline__ void rgb_head_bwd_w_full(unsigned char* act, const float* grgb,
+                                                    const float* graw, const uint32_t* mask_h,
+                                                    const unsigned char* rgb_head, float* red,
+                                                    float* seg0, float* seg_wg) {
+  constexpr int N = D / 4;   // a warpgroup's columns of h
+  constexpr int W = mask_words_w<N>();
+  const GradLayout lay = grad_layout(D);
+  unsigned char* buf = act + kWRows * D * 2;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int lane = tid & 31, w = (tid >> 5) & 3;
+  const int row = 16 * w + (lane >> 2), t = lane & 3;
+  float* red_wg = red + wg * 16 * N;   // [sum][warp][column]
+  consumer_sync();   // the forward is done with the buffers, the cotangents are in
+  uint32_t bits[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) bits[k] = __ldcg(mask_h + k * kConsumers + tid);
+  float g[2][3];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) g[r][c] = bf16_round(grgb[4 * (row + 8 * r) + c]);
+  }
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = wg * N + 8 * j + 2 * t;
+    const uint32_t m = bits[(4 * j) >> 5] >> ((4 * j) & 31);
+    const __nv_bfloat162 h0 = *reinterpret_cast<const __nv_bfloat162*>(buf + swz(row, col, kWBlockBytes));
+    const __nv_bfloat162 h1 =
+        *reinterpret_cast<const __nv_bfloat162*>(buf + swz(row + 8, col, kWBlockBytes));
+    const float hv[2][2] = {{__low2float(h0), __high2float(h0)}, {__low2float(h1), __high2float(h1)}};
+    float v[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float wo0 = __bfloat162float(*reinterpret_cast<const bf16*>(rgb_head + swz(0, col + h, 1024)));
+      const float wo1 = __bfloat162float(*reinterpret_cast<const bf16*>(rgb_head + swz(1, col + h, 1024)));
+      const float wo2 = __bfloat162float(*reinterpret_cast<const bf16*>(rgb_head + swz(2, col + h, 1024)));
+      v[h] = (m >> h) & 1u ? g[0][0] * wo0 + g[0][1] * wo1 + g[0][2] * wo2 : 0.f;
+      v[2 + h] = (m >> (2 + h)) & 1u ? g[1][0] * wo0 + g[1][1] * wo1 + g[1][2] * wo2 : 0.f;
+    }
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]), hi = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<__nv_bfloat162*>(buf + swz(row, col, kWBlockBytes)) = lo;
+    *reinterpret_cast<__nv_bfloat162*>(buf + swz(row + 8, col, kWBlockBytes)) = hi;
+    float s[2][4];   // per column h: the masked g_h, then h bf16(g_rgb[k])
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      s[h][0] = v[h] + v[2 + h];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) s[h][1 + k] = hv[0][h] * g[0][k] + hv[1][h] * g[1][k];
+    }
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) s[h][q] += __shfl_xor_sync(0xffffffffu, s[h][q], off);
+      }
+    }
+    if ((lane >> 2) == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) __stcg(red_wg + (4 * q + w) * N + 8 * j + 2 * t + h, s[h][q]);
+      }
+    }
+  }
+  fence_proxy_async();
+  consumer_sync();
+  const int lt = tid & 127;
+  if (lt < N) {
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float* r = red_wg + 4 * q * N + lt;
+      v[q] = ((__ldcg(r) + __ldcg(r + N)) + __ldcg(r + 2 * N)) + __ldcg(r + 3 * N);
+    }
+    const int c = wg * N + lt;   // the column of h
+    seg_wg[D + (lay.b[10] - lay.w[13]) + c] += v[0];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) seg_wg[D + 3 * c + k] += v[1 + k];
+  }
+  if (tid < 4) {   // dB[11] (3) and dB[8]
+    float acc = 0.f;
+    if (tid < 3) {
+      for (int m = 0; m < kWRows; ++m) acc += grgb[4 * m + tid];
+      seg0[D + (lay.b[11] - lay.w[13]) + tid] += acc;
+    } else {
+      for (int m = 0; m < kWRows; ++m) acc += graw[m];
+      seg0[D + (lay.b[8] - lay.w[13])] += acc;
+    }
+  }
+  consumer_sync();   // red is free again
+}
+
+// dW[9] += x7^T bf16(g_sigma) over the 64-point pass (columns tid and tid +
+// 256): x7 read back from its operand tile (the warpgroups' own stores,
+// fenced before the caller's barrier), gsbf the pass's 64 bf16-valued
+// raw-density cotangents, w9 the CTA's first segment.
+template <int D>
+__device__ __forceinline__ void density_head_dw_w(const PassTilesW<D>& tiles, const float* gsbf,
+                                                  float* w9) {
+  const unsigned char* x7 = tiles.x(8);
+  for (int c = threadIdx.x; c < D; c += kConsumers) {
+    float acc = 0.f;
+#pragma unroll 16
+    for (int m = 0; m < kWRows; ++m)
+      acc += __bfloat162float(__ushort_as_bfloat16(__ldcg(
+                 reinterpret_cast<const unsigned short*>(x7 + swz(m, c, kBlockBytes))))) *
+             gsbf[m];
+    w9[c] += acc;
+  }
 }
 
 }  // namespace

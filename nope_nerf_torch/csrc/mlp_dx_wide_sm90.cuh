@@ -58,10 +58,12 @@
 //   scratch from the epilogue's registers (64 x D bf16: 64 KB at 512), and
 //   the consumers copy it back by cp.async into the free buffer while
 //   warpgroup 0 runs g0 W0.
-// - The forward and the chain take a Save hook (NoSaveW): where the kernels
-//   that form the weight gradients will save each dW operand (X: operator()
-//   in the forward; G: grad() after each dX epilogue) and drain before the
-//   next write over a saved buffer, without reordering any sum.
+// - The forward and the chain take a Save hook: NoSaveW here, and
+//   mlp_dw_chain_sm90.cuh's OperandSaveW in K6 full, which saves each dW
+//   operand where the hook is called (X: operator() in the forward; G: grad()
+//   after each dX epilogue), drains before the next write over a saved
+//   buffer, and has each dX epilogue form its bias gradient's column sums
+//   (store_dx_w's SUM), without reordering any sum of the chain.
 
 #pragma once
 
@@ -191,10 +193,14 @@ __device__ __forceinline__ void store_w_mask(const float (&acc)[N / 2], unsigned
 // buffer `src` once it is written (operator()), G operand i (0 g_h, 1
 // g_feat, 2..9 g7..g0) from `src` after its epilogue (grad), and finishes
 // reading shared memory before the next write over a saved buffer (drain).
+// With kSum each dX epilogue also writes its warps' column sums to
+// red_at(i, wg), which grad(i) reads.
 struct NoSaveW {
+  static constexpr bool kSum = false;
   __device__ __forceinline__ void operator()(int, int, const unsigned char*) const {}
   __device__ __forceinline__ void grad(int, int, const unsigned char*) const {}
   __device__ __forceinline__ void drain(int) const {}
+  __device__ __forceinline__ float* red_at(int, int) const { return nullptr; }
 };
 
 // mlp_fwd_wide_sm90.cuh's mlp_tile_w with the ReLU layers' masks kept in
@@ -273,11 +279,16 @@ __device__ __forceinline__ void mlp_tile_w_masks(const float* const* b, uint32_t
 // This warpgroup's columns col0..col0+N-1 of the new cotangent, all 64 rows,
 // = bf16(mask * (acc [+ gs wd])) into `out` (a wide buffer); with SAVE also
 // to `save` (device memory, the buffer's layout), in the epilogue's order.
-// gs: the tile's 64 bf16-valued raw-density cotangents.
-template <int N, bool MASK, bool RANK1, bool SAVE>
+// gs: the tile's 64 bf16-valued raw-density cotangents. With SUM, the f32
+// column sums of mask * (acc [+ gs wd]) before the rounding (the bias
+// gradient's terms) go to red[w][N] (device memory, past L1) for each warp w
+// of the warpgroup: over the thread's two rows, then the warp's eight row
+// groups by shfl_xor over 4, 8, 16.
+template <int N, bool MASK, bool RANK1, bool SAVE, bool SUM = false>
 __device__ __forceinline__ void store_dx_w(const float (&acc)[N / 2], unsigned char* out,
                                            int col0, const uint32_t* mask, const float* gs,
-                                           const unsigned char* dens_head, unsigned char* save) {
+                                           const unsigned char* dens_head, unsigned char* save,
+                                           float* red = nullptr) {
   constexpr int W = mask_words_w<N>();
   const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
   const int row = 16 * w + (lane >> 2), t = lane & 3;
@@ -311,6 +322,18 @@ __device__ __forceinline__ void store_dx_w(const float (&acc)[N / 2], unsigned c
       if (!(m & 4u)) v2 = 0.f;
       if (!(m & 8u)) v3 = 0.f;
     }
+    if (SUM) {
+      float s0 = v0 + v2, s1 = v1 + v3;
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      }
+      if ((lane >> 2) == 0) {
+        __stcg(red + w * N + col - col0, s0);
+        __stcg(red + w * N + col - col0 + 1, s1);
+      }
+    }
     const __nv_bfloat162 lo = __floats2bfloat162_rn(v0, v1), hi = __floats2bfloat162_rn(v2, v3);
     *reinterpret_cast<__nv_bfloat162*>(out + swz(row, col, kWBlockBytes)) = lo;
     *reinterpret_cast<__nv_bfloat162*>(out + swz(row + 8, col, kWBlockBytes)) = hi;
@@ -325,21 +348,26 @@ __device__ __forceinline__ void store_dx_w(const float (&acc)[N / 2], unsigned c
 }
 
 // One dX layer: out = epilogue(in W) over the next K/32 ring slices, this
-// warpgroup's D/2 of each slice's rows; ends synchronised (both halves of
-// `out` written, every read of `in` done).
-template <int D, int K, bool MASK, bool RANK1, bool SAVE>
+// warpgroup's D/2 of each slice's rows; the hook drains before the epilogue
+// writes `out` and takes G operand `op` from it once both halves are
+// written (grad). Ends with every read of `in` done.
+template <int D, int K, bool MASK, bool RANK1, bool SAVE, typename Save>
 __device__ __forceinline__ void dx_layer_w(uint32_t in_s, unsigned char* out, Ring& ring,
                                            const uint32_t* mask, const float* gs,
-                                           const unsigned char* dens_head, unsigned char* save) {
+                                           const unsigned char* dens_head, unsigned char* save,
+                                           const Save& hook, int op) {
   constexpr int N = D / 2;
   const int wg = threadIdx.x >> 7;
   float acc[N / 2];
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
   ring_products_w<N>(acc, in_s, K / kWSliceCols, wg * N * kWSliceCols * 2, ring);
-  store_dx_w<N, MASK, RANK1, SAVE>(acc, out, wg * N, mask, gs, dens_head, save);
+  hook.drain(wg);
+  store_dx_w<N, MASK, RANK1, SAVE, Save::kSum>(acc, out, wg * N, mask, gs, dens_head, save,
+                                               hook.red_at(op, wg));
   if (SAVE) __threadfence_block();   // g4's device-memory writes, before others read them back
   consumer_sync();
+  hook.grad(op, wg, out);
 }
 
 // The rgb head's backward for the tile on the rgb-hidden layer's fragment:
@@ -432,23 +460,19 @@ __device__ __forceinline__ void dx_chain_w(float (&dpe)[32], unsigned char* act,
   // g_h (buffer 1) -> g_feat (0) -> g7 (1) -> g6 (0) -> ... -> g0 (0)
   hook.grad(0, wg, buf[1]);
   dx_layer_w<D, H, false, false, false>(act_s + kBuf, buf[0], ring, nullptr, nullptr, nullptr,
-                                        nullptr);
-  hook.grad(1, wg, buf[0]);
+                                        nullptr, hook, 1);
   dx_layer_w<D, D, true, true, false>(act_s, buf[1], ring, masks + 7 * LW, gsbf, dens_head,
-                                      nullptr);
-  hook.grad(2, wg, buf[1]);
+                                      nullptr, hook, 2);
 #pragma unroll 1
   for (int l = 7; l >= 1; --l) {
     const int in = (l & 1);          // g_l lands in buffer l % 2
     const uint32_t in_s = act_s + in * kBuf;
-    hook.drain(wg);
     if (l == 5)
       dx_layer_w<D, D, true, false, true>(in_s, buf[in ^ 1], ring, masks + 4 * LW, nullptr,
-                                          nullptr, save);
+                                          nullptr, save, hook, 10 - l);
     else
       dx_layer_w<D, D, true, false, false>(in_s, buf[in ^ 1], ring, masks + (l - 1) * LW,
-                                           nullptr, nullptr, nullptr);
-    hook.grad(10 - l, wg, buf[in ^ 1]);
+                                           nullptr, nullptr, nullptr, hook, 10 - l);
   }
   hook.drain(wg);
   // g4 back into buffer 1 by cp.async, while warpgroup 0 runs g0 W0

@@ -11,10 +11,12 @@ On a CUDA tensor `point_mlp` launches the hand-written Hopper kernels in
 `nope_nerf_torch/csrc/point_mlp_fwd.cu` and `csrc/point_mlp_bwd.cu` (or,
 when no nerf parameter wants a gradient, K6's frozen-network variant
 `csrc/point_mlp_bwd_frozen.cu`), or raises. Both backward variants run the
-wgmma dX chain (`csrc/mlp_dx_sm90.cuh`); the full one also writes every
-operand of a weight-gradient product to device memory and forms the dW
-blocks with the generic weight-gradient kernel `csrc/dw_sm90.cuh`
-(dW = X^T G over the points, split into chunks of points summed in order;
+wgmma dX chain (`csrc/mlp_dx_sm90.cuh`; at hidden_dim 384 and 512 the
+64-point chain of `csrc/mlp_dx_wide_sm90.cuh`); the full one also writes
+every operand of a weight-gradient product to device memory and forms the
+dW blocks with the generic weight-gradient kernel `csrc/dw_sm90.cuh`
+(dW = X^T G over the points, split into chunks of points summed in order,
+blocks wider than 256 columns in column pieces, `point_dw_pieces`;
 standalone as `dw_sm90`, plain version `dw_plain`). On a CPU
 tensor, and on any tensor inside `with plain_versions():`, it runs
 `point_mlp_fwd_plain` and `point_mlp_bwd_plain`, the same arithmetic in
@@ -70,7 +72,7 @@ def _setup_bwd(lib: ctypes.CDLL) -> None:
     lib.nerf_point_mlp_grad_layout.restype = ctypes.c_int
     lib.nerf_point_mlp_bwd_scratch.argtypes = [i, ctypes.c_longlong, i, p]
     lib.nerf_point_mlp_bwd_scratch.restype = ctypes.c_int
-    lib.nerf_point_mlp_bwd.argtypes = [p] * 14 + [ctypes.c_longlong] + [i] * 6 + [p]
+    lib.nerf_point_mlp_bwd.argtypes = [p] * 15 + [ctypes.c_longlong] + [i] * 6 + [p]
     lib.nerf_point_mlp_bwd.restype = ctypes.c_int
     lib.nerf_error_string.argtypes = [ctypes.c_int]
     lib.nerf_error_string.restype = ctypes.c_char_p
@@ -117,10 +119,10 @@ def _check_inputs(pts: torch.Tensor, dirs: torch.Tensor) -> None:
 
 
 def _check_width(cfg: NerfConfig, kernel: str) -> None:
-    """The point-query MLP `kernel` ("forward": K5, 128 to 512; "backward
-    (frozen network)": K6's frozen-network variant, 128 to 512; "backward":
-    K6 full, 128 and 256) takes cfg's width and the reference 10/4 encoding
-    levels, or this raises NotImplementedError before any device work."""
+    """The point-query MLP `kernel` ("forward": K5; "backward (frozen
+    network)": K6's frozen-network variant; "backward": K6 full; each 128 to
+    512) takes cfg's width and the reference 10/4 encoding levels, or this
+    raises NotImplementedError before any device work."""
     if cfg.pos_enc_levels != 10 or cfg.dir_enc_levels != 4:
         raise NotImplementedError(
             "the CUDA point-query MLP kernels are built for the reference 10/4 encoding "
@@ -134,9 +136,10 @@ def _heads(rgb_raw: torch.Tensor, sig_raw: torch.Tensor, cfg: NerfConfig):
 
 
 def _plain_forward(Wf, B, pts, dirs):
-    """(rgb_raw (T,3), sig_raw (T,), activations, pe, de) of one block."""
-    pe = bf16_round(encode_lanes(pts, 10, PE_DIM))
-    de = bf16_round(encode_lanes(dirs, 4, DE_DIM))
+    """(rgb_raw (T,3), sig_raw (T,), activations, pe, de) of one block, summed
+    in the weights' dtype (the encodings formed from the coordinates' f32)."""
+    pe = bf16_round(encode_lanes(pts, 10, PE_DIM)).to(Wf[0].dtype)
+    de = bf16_round(encode_lanes(dirs, 4, DE_DIM)).to(Wf[0].dtype)
     rgb_raw, sig_raw, acts = _mlp_forward(Wf, B, pe, de, pts.shape[0], 1)
     return rgb_raw, sig_raw, acts, pe, de
 
@@ -180,6 +183,27 @@ def point_dw_table(D: int) -> List[Tuple[int, str, str, int, int]]:
             (3, "x2", "g3", D, D), (4, "x3", "g4", D, D), (5, "pe", "g4", PE_DIM, D),
             (6, "x4", "g5", D, D), (7, "x5", "g6", D, D), (8, "x6", "g7", D, D),
             (10, "x7", "g_feat", D, D), (11, "feat", "g_h", D, H), (12, "de", "g_h", DE_DIM, H)]
+
+
+DW_MAX_N = 256            # the dW kernel's widest block (its wgmma's N)
+DW_MAX_PIECES = 24        # the blocks of one launch of the dW kernel (dw_sm90.cuh's kDwMaxBlocks)
+
+
+def point_dw_pieces(D: int) -> List[Tuple[int, str, str, int, int, int]]:
+    """The dW kernel's work table for K6 full at width D
+    (mlp_dw_chain_sm90.cuh's chain_dw_table): each block of point_dw_table
+    in column pieces of 256, then 128, then 64 columns, as (pack_weights
+    index, X operand, G operand, K, first column, N). At 128 and 256 every
+    block is one piece; 24 pieces at 384, 22 at 512."""
+    pieces = []
+    for idx, x, g, K, N in point_dw_table(D):
+        c0 = 0
+        while c0 < N:
+            rest = N - c0
+            n = DW_MAX_N if rest >= DW_MAX_N else (128 if rest >= 128 else 64)
+            pieces.append((idx, x, g, K, c0, n))
+            c0 += n
+    return pieces
 
 
 # K1's and K4 full's (render_full_sm90.cuh): K6's table without its direction
@@ -268,20 +292,23 @@ def point_mlp_dw_operands(params: Dict[str, torch.Tensor], pts: torch.Tensor,
 
 def point_mlp_bwd_plain(params: Dict[str, torch.Tensor], pts: torch.Tensor, dirs: torch.Tensor,
                         g_rgb: torch.Tensor, g_density: torch.Tensor, cfg: NerfConfig,
-                        want_param_grads: bool = True):
+                        want_param_grads: bool = True, dtype: torch.dtype = torch.float32):
     """Plain PyTorch version of the backward kernel, on any device: the VJP of
     point_mlp at cotangents g_rgb (M,3) and g_density (M,1). It recomputes the
     forward and returns (dWs [14] stored (in, out), dBs [12], dpts (M,3),
     ddirs (M,3)); unpack_grads turns the first two into the nerf params'
     layout. Blocks of points are summed in order: two runs give the same bits.
     With want_param_grads=False, the frozen-network variant's version: the
-    same dX arithmetic with the dW/dB work skipped, and dWs, dBs None."""
+    same dX arithmetic with the dW/dB work skipped, and dWs, dBs None.
+    `dtype` float64 gives the same function summed in f64 (same bf16 operands
+    and rounding points, the encodings formed in f32 as before; gradients
+    returned as f64): the yardstick of tools/backward_noise.py --full."""
     _check_inputs(pts, dirs)
     with torch.no_grad():
         W, B = pack_weights(params, cfg)
-        Wf = [w.to(torch.float32) for w in W]
-        pts, dirs, g_rgb, g_density = (t.detach().to(torch.float32)
-                                       for t in (pts, dirs, g_rgb, g_density))
+        Wf = [w.to(dtype) for w in W]
+        pts, dirs = (t.detach().to(torch.float32) for t in (pts, dirs))
+        g_rgb, g_density = (t.detach().to(dtype) for t in (g_rgb, g_density))
         dW = dB = None
         dpts, ddirs = [], []
         for i in range(0, pts.shape[0], PLAIN_BLOCK_POINTS):
@@ -345,8 +372,10 @@ def mlp_bwd_kernel(want_param_grads: bool) -> str:
 def _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig,
                   want_param_grads: bool = True):
     """(dWs, dBs, dpts, ddirs) by one launch of the backward kernel: its C
-    entry issues the chain, the in-order sum of the chain's partial sums and
-    the dW kernel (with its in-order sum of the chunks). With
+    entry issues the chain (one CTA per SM over tile_rows(D)-point passes),
+    the in-order sum of the chain's partial sums and the dW kernel (with its
+    in-order sum of the chunks). At 384 and 512 the chain also takes a
+    per-CTA scratch (the ReLU masks, the parked g4, the bias column sums). With
     want_param_grads=False its frozen-network variant runs: no dW/dB, and
     dWs, dBs are None."""
     _check_width(cfg, mlp_bwd_kernel(want_param_grads))
@@ -365,15 +394,15 @@ def _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig,
     total = lib.nerf_point_mlp_grad_layout(D, offsets)
     if total <= 0:
         raise RuntimeError("the point-query MLP backward kernel reports no gradient layout")
-    n_pass = -(-M // PTS_PER_PASS)
-    n_ctas = _backward_ctas(n_pass, dev)
-    sizes = (ctypes.c_longlong * 5)()
+    n_ctas = _backward_ctas(-(-M // tile_rows(D)), dev)
+    sizes = (ctypes.c_longlong * 6)()
     if lib.nerf_point_mlp_bwd_scratch(D, M, n_ctas, sizes) != 0:
         raise RuntimeError("the point-query MLP backward kernel reports no scratch sizes")
     chunks = dw_chunks(sizes[4], M, torch.cuda.get_device_properties(dev).multi_processor_count)
     xops, gops = (torch.empty((sizes[i],), dtype=torch.uint8, device=dev) for i in (0, 1))
     chain_part = torch.empty((sizes[2] // 4,), dtype=torch.float32, device=dev)
     dw_part = torch.empty((chunks * sizes[3] // 4,), dtype=torch.float32, device=dev)
+    scratch = _scratch_bytes(sizes[5], dev) if sizes[5] else None   # the wide chain's
     f32 = dict(dtype=torch.float32, device=dev)
     grads = torch.empty((total,), **f32)
     dpts = torch.empty((M, 3), **f32)
@@ -383,7 +412,8 @@ def _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig,
         err = lib.nerf_point_mlp_bwd(
             pts.data_ptr(), dirs.data_ptr(), g_rgb.data_ptr(), g_density.data_ptr(),
             tiles.data_ptr(), tiles_dx.data_ptr(), bptrs, xops.data_ptr(), gops.data_ptr(),
-            chain_part.data_ptr(), dw_part.data_ptr(), grads.data_ptr(), dpts.data_ptr(),
+            chain_part.data_ptr(), dw_part.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), grads.data_ptr(), dpts.data_ptr(),
             ddirs.data_ptr(), M, D, n_ctas, chunks, int(cfg.occ_activation == "softplus"),
             int(cfg.dist_alpha), total, stream)
     if err != 0:

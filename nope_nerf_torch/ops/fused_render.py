@@ -32,10 +32,10 @@ weights as `pack_tiles`' pre-swizzled slices, the layout their wgmma trunk
 512) streams into shared memory; every backward kernel takes those and
 `pack_tiles_dx`' slices of the (in, out) weights, the B operands of its
 wgmma dX chain (csrc/mlp_dx_sm90.cuh; at 384 and 512, for the
-frozen-network variants, csrc/mlp_dx_wide_sm90.cuh's 64-point chain). Which
-kernel takes which hidden_dim is KERNEL_WIDTHS': the forward kernels and
-the frozen-network backward variants 128 to 512, the kernels that form
-weight gradients (K1, K4 full, K6 full) 128 and 256.
+frozen-network variants and K6 full, csrc/mlp_dx_wide_sm90.cuh's 64-point
+chain). Which kernel takes which hidden_dim is KERNEL_WIDTHS': the forward
+kernels, the frozen-network backward variants and K6 full 128 to 512, the
+render kernels that form weight gradients (K1, K4 full) 128 and 256.
 
 The ray table is (N, 9) [origin | ray_vec | mlp_dir]: the TPU's 128-lane
 padding is a layout of that machine and is not carried over. The train
@@ -759,15 +759,16 @@ def _train_plain(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p:
 # csrc/mlp_fwd_wide_sm90.cuh. The frozen-network variants of the backward
 # kernels (K4, K6: no weight gradient) run 128 and 256 on the dX chain of
 # csrc/mlp_dx_sm90.cuh and 384 and 512 on the 64-row chain of
-# csrc/mlp_dx_wide_sm90.cuh; the kernels that form weight gradients (K1, K4
-# full, K6 full) are built for 128 and 256.
+# csrc/mlp_dx_wide_sm90.cuh, and so does K6 full, which forms the weight
+# gradients there with csrc/mlp_dw_chain_sm90.cuh's OperandSaveW; the render
+# kernels that form weight gradients (K1, K4 full) are built for 128 and 256.
 FORWARD_WIDTHS = (128, 256, 384, 512)
 BACKWARD_WIDTHS = (128, 256)
 KERNEL_WIDTHS = {"render": FORWARD_WIDTHS, "point-query MLP forward": FORWARD_WIDTHS,
                  "render-backward (frozen network)": FORWARD_WIDTHS,
                  "point-query MLP backward (frozen network)": FORWARD_WIDTHS,
-                 "train": BACKWARD_WIDTHS, "render-backward": BACKWARD_WIDTHS,
-                 "point-query MLP backward": BACKWARD_WIDTHS}
+                 "point-query MLP backward": FORWARD_WIDTHS,
+                 "train": BACKWARD_WIDTHS, "render-backward": BACKWARD_WIDTHS}
 
 
 def check_kernel_width(kernel: str, D: int) -> None:
@@ -781,9 +782,10 @@ def check_kernel_width(kernel: str, D: int) -> None:
     if D in FORWARD_WIDTHS:
         raise NotImplementedError(
             f"the CUDA {kernel} kernel takes hidden_dim {taken}, got {D}: 384 and 512 come to "
-            f"the kernels that form weight gradients in the port's next slice (ROADMAP.md, "
-            f"Queue 3 (b): the full kernels on mlp_dx_wide_sm90.cuh's chain, "
-            f"mlp_dw_chain_sm90.cuh and dw_sm90.cuh); a frozen network's backward takes them")
+            f"the render kernels that form weight gradients, K1 and K4 full, in the port's next "
+            f"slice (ROADMAP.md, Queue 3 (b): on mlp_dx_wide_sm90.cuh's chain with "
+            f"mlp_dw_chain_sm90.cuh's wide operand saves and dw_sm90.cuh's column pieces); a "
+            f"frozen network's render backward and the point-query MLP backward take them")
     raise NotImplementedError(
         f"the CUDA {kernel} kernel takes hidden_dim {taken}, got {D}"
         + (": widths past 512 need a tile shape of their own in every trunk header "

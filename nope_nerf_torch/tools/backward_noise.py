@@ -56,6 +56,16 @@ csrc/mlp_dx_wide_sm90.cuh at 384 and 512) in two parts instead:
    zero, the share of entries whose bf16 rounding differs from the exact
    value's, and the forward's pre-activations (+ bias in f32) whose sign
    differs from the exact one's (a flipped ReLU mask).
+With `--full`, K6 full (csrc/point_mlp_bwd.cu) at hidden_dim 384 and 512 on
+chip_smoke.py phase 13's inputs (point_inputs, point_cotangents, both flag
+sets of WIDE_FLAGS) at its point counts WIDE_FULL_M, FULL_SEEDS seeds: per
+case the worst dW or dB block by grad_share (5e-3 of its largest entry; <= 1
+passes) and the number beyond it, for kernel vs f32 plain, kernel vs f64
+(`point_mlp_bwd_plain(..., dtype=torch.float64)`) and f32 plain vs f64; per
+width and point count the worst shares and the blocks beyond the rule. Below
+a few hundred points a block sums too few products for one flipped bf16
+rounding to average away: where the f32 plain version misses the 5e-3 rule
+against the f64 sum, no f32 evaluation can be held to it.
 Prints plain text; PERF.md quotes it.
 """
 
@@ -72,6 +82,7 @@ INPUT_SETS = {"wide": (3.0, 8.1), "scene": (0.5, 6.0)}
 FROZEN_WIDTHS = (128, 256, 384, 512)
 FROZEN_RAYS = (133, 1024)
 FROZEN_SEEDS = 6
+FULL_SEEDS = 4
 
 
 def case_inputs(torch, dev, name: str, occ: str, head_da: bool, dist_alpha: bool):
@@ -187,6 +198,47 @@ def frozen_yardstick(torch, chip_smoke, dev) -> None:
                   flush=True)
 
 
+def full_yardstick(torch, chip_smoke, dev) -> None:
+    """--full: K6 full, its f32 plain version and the f64 sum, on the dW and
+    dB blocks at each width and point count (see the module text)."""
+    from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
+    from nope_nerf_torch.ops.fused_mlp import _mlp_bwd_cuda, point_mlp_bwd_plain
+    from nope_nerf_torch.ops.fused_render import unpack_grads
+    pairs = ("kernel~f32", "kernel~f64", "f32~f64")
+    for D in chip_smoke.WIDE_D:
+        for M in chip_smoke.WIDE_FULL_M:
+            worst = dict.fromkeys(pairs, 0.0)
+            beyond = dict.fromkeys(pairs, 0)
+            for seed in range(FULL_SEEDS):
+                gen = torch.Generator().manual_seed(200 + seed)
+                pts, dirs = chip_smoke.point_inputs(torch, dev, gen, M)
+                for occ, da in chip_smoke.WIDE_FLAGS:
+                    ncfg = NerfConfig(hidden_dim=D, occ_activation=occ, dist_alpha=da,
+                                      use_pallas=True)
+                    params = init_nerf_params(ncfg, gen, device=dev)
+                    cot = chip_smoke.point_cotangents(torch, params, pts, dirs, ncfg)
+                    outs = [_mlp_bwd_cuda(params, pts, dirs, *cot, ncfg),
+                            point_mlp_bwd_plain(params, pts, dirs, *cot, ncfg),
+                            point_mlp_bwd_plain(params, pts, dirs, *cot, ncfg,
+                                                dtype=torch.float64)]
+                    k, p32, p64 = (unpack_grads([w.float() for w in o[0]],
+                                                [b.float() for b in o[1]], ncfg) for o in outs)
+                    parts = []
+                    for what, got, ref in zip(pairs, (k, k, p32), (p32, p64, p64)):
+                        shares = {n: chip_smoke.grad_share(got[n], ref[n], False) for n in ref}
+                        n_worst = max(shares, key=shares.get)
+                        worst[what] = max(worst[what], shares[n_worst])
+                        over = sum(v > 1.0 for v in shares.values())
+                        beyond[what] += over
+                        parts.append(f"{what} {shares[n_worst]:.3f} ({n_worst}, {over} beyond)")
+                    print(f"full D={D} {M} points occ={occ} head_dist_alpha={da} seed {seed}: "
+                          + "; ".join(parts), flush=True)
+            print(f"full D={D} {M} points, summary over {FULL_SEEDS * len(chip_smoke.WIDE_FLAGS)}"
+                  " cases x 26 blocks: worst share "
+                  + ", ".join(f"{p} {worst[p]:.3f}" for p in pairs) + "; blocks beyond 5e-3 "
+                  + ", ".join(f"{p} {beyond[p]}" for p in pairs), flush=True)
+
+
 def tensor_core_products(torch, chip_smoke, dev) -> None:
     """Part 2 of --frozen: the chain's own products by the tensor cores (the
     dW kernel, one accumulator chain over K), by cuBLAS in f32 and in f64."""
@@ -255,21 +307,27 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frozen", action="store_true",
                     help="the frozen-network variant at every width (see the module text)")
+    ap.add_argument("--full", action="store_true",
+                    help="K6 full at 384 and 512 and small point counts (see the module text)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("backward_noise: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     sys.path.insert(0, os.getcwd())   # chip_smoke.py sits at the root of the checkout
     import chip_smoke
-    if args.frozen:
+    if args.frozen or args.full:
         import subprocess
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True).stdout.strip(), flush=True)
         from nope_nerf_torch.ops import fused_mlp, fused_render
         from nope_nerf_torch.ops._build import build_all
-        build_all((fused_render.RENDER_BWD_FROZEN, fused_mlp.DW_SM90))
         dev = torch.device("cuda")
+        if args.full:
+            build_all((fused_mlp.POINT_MLP_BWD,))
+            full_yardstick(torch, chip_smoke, dev)
+            return 0
+        build_all((fused_render.RENDER_BWD_FROZEN, fused_mlp.DW_SM90))
         tensor_core_products(torch, chip_smoke, dev)
         frozen_yardstick(torch, chip_smoke, dev)
         return 0

@@ -1,10 +1,13 @@
-"""Times the forward kernels (K3, K5) or the frozen-network backward kernels
-(K4's and K6's variants) of the checkout it runs from, at each hidden_dim
-asked for, and prints a digest of their outputs' bits, so that two checkouts
-run one after the other on one card compare both in time and in bits:
+"""Times the forward kernels (K3, K5), the frozen-network backward kernels
+(K4's and K6's variants) or the kernels that form weight gradients (K1, K4
+full, K6 full, the dW kernel) of the checkout it runs from, at each
+hidden_dim asked for, and prints a digest of their outputs' bits, so that two
+checkouts run one after the other on one card compare both in time and in
+bits:
 
     python3 -m nope_nerf_torch.tools.forward_timing --widths 256 384 512
     python3 -m nope_nerf_torch.tools.forward_timing --kernels frozen --widths 256 384 512 --sass
+    python3 -m nope_nerf_torch.tools.forward_timing --kernels full --widths 128 256 384 512 --sass
 
 from the root of a checkout, on a machine with one NVIDIA GPU (it uses only
 the wrappers, so a copy of this file runs in a checkout that predates it, at
@@ -22,7 +25,15 @@ one warm-up:
   (render_bwd_frozen.cu) at 1024 rays x 128 samples (the pose-opt step's
   launch) and 1024 x 512, on the cotangents of a colour and depth loss, and
   K6's (point_mlp_bwd_frozen.cu) at 196,608 points (the fine pass of a
-  hierarchical pose-opt step).
+  hierarchical pose-opt step);
+- `--kernels full`: K6 full through `_mlp_bwd_cuda` at 196,608 points (the
+  fine pass of a hierarchical train step: every dW, dB, d(points),
+  d(directions)); at the widths K1 and K4 full take (128, 256), K1 through
+  `_train_cuda` and K4 full through `_render_bwd_cuda` at 1024 rays x 128
+  samples (the train step's launch); and the dW kernel on its own
+  (`dw_sm90`) over K6's blocks at 256 on 196,608 rows of seeded operands.
+  Its SASS digests are per library (each source builds its own copy of the
+  dW kernel and of the sums of the partials).
 Prints the card's name and power limit, then one JSON line: ms and SHA-256
 of the outputs per case, and with `--sass` the SHA-256 of each kernel
 instance's SASS instructions (`cuobjdump -sass`, function names left out),
@@ -55,7 +66,9 @@ BWD_RAYS = 1024
 BWD_SAMPLES = (128, 512)
 # the mangled names of each set's kernel instances: kernel, template arguments
 SASS_NAMES = {"forward": r"(render_fwd_kernel|point_mlp_fwd_kernel)I(Li\d+E)",
-              "frozen": r"((?:render|point_mlp)_bwd_frozen(?:_wide)?_kernel)I(Li\d+E(?:Lb\d)?)"}
+              "frozen": r"((?:render|point_mlp)_bwd_frozen(?:_wide)?_kernel)I(Li\d+E(?:Lb\d)?)",
+              "full": r"((?:point_mlp_bwd(?:_wide)?|render_full|dw_sm90|dw_reduce|chain_reduce)"
+                      r"_kernel)(I(?:Li\d+E|Lb\d+E)+E|E)"}
 
 
 def _digest(outs) -> str:
@@ -76,11 +89,11 @@ def _time(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def sass_digests(libraries, pattern: str) -> dict:
+def sass_digests(libraries, pattern: str, per_library: bool = False) -> dict:
     """{"<kernel> <template arguments>": SHA-256 of its SASS instructions} for
     every kernel template instance in the built libraries whose mangled name
-    `pattern` finds (group 1 the kernel, group 2 its arguments); {} without
-    cuobjdump."""
+    `pattern` finds (group 1 the kernel, group 2 its arguments), each key led
+    by its library's source with per_library; {} without cuobjdump."""
     tool = cuobjdump()
     if tool is None:
         return {}
@@ -92,7 +105,9 @@ def sass_digests(libraries, pattern: str) -> dict:
             m = re.search(pattern, fname)
             if m:
                 text = "\n".join(instr for _, instr in instrs)
-                out[f"{m.group(1)} {m.group(2)}"] = hashlib.sha256(text.encode()).hexdigest()[:16]
+                key = f"{m.group(1)} {m.group(2)}"
+                out[f"{lib.source.name}: {key}" if per_library else key] = hashlib.sha256(
+                    text.encode()).hexdigest()[:16]
     return out
 
 
@@ -154,6 +169,50 @@ def frozen_cases(dev, gen, widths, reps: int):
     return cases
 
 
+def full_cases(dev, gen, widths, reps: int):
+    """{name: (call, reps)} of K6 full at each width, K1 and K4 full at the
+    widths they take, and the dW kernel on its own."""
+    n = BWD_RAYS
+    origin = torch.randn(n, 3, generator=gen) * 0.5
+    ray_vec = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=1)
+    rays = F.pack_rays(origin, ray_vec, -ray_vec).to(dev)
+    z = torch.sort(0.1 + 5.9 * torch.rand(n, SAMPLES, generator=gen), dim=1).values.to(dev)
+    mask = (torch.arange(n) % 3 != 0).to(dev)
+    tgt = F.pack_targets(torch.rand(n, 3, generator=gen).to(dev),
+                         (1.0 + 4.0 * torch.rand(n, generator=gen)).to(dev), mask, 0.7 / n,
+                         0.3 / float(mask.sum()))
+    g_rgb = (torch.randn(n, 3, generator=gen) * 1e-3).to(dev)
+    g_dist = (torch.randn(n, generator=gen) * 1e-3).to(dev)
+    pts = (torch.randn(POINTS, 3, generator=gen) * 1.5).to(dev)
+    dirs = torch.nn.functional.normalize(torch.randn(POINTS, 3, generator=gen), dim=1).to(dev)
+    p_rgb = (torch.randn(POINTS, 3, generator=gen) * 1e-6).to(dev)
+    p_den = torch.full((POINTS, 1), 0.1 / POINTS, device=dev)
+
+    def flat(out):
+        return [t for o in out for t in (o if isinstance(o, (list, tuple)) else [o])]
+
+    cases = {}
+    for D, ncfg, params in _width_params(dev, widths):
+        cases[f"point_mlp_bwd D={D} {POINTS}"] = (
+            lambda p=params, c=ncfg: flat(FM._mlp_bwd_cuda(p, pts, dirs, p_rgb, p_den, c)), reps)
+        if D in F.BACKWARD_WIDTHS:
+            cases[f"render_train D={D} {n}x{SAMPLES}"] = (
+                lambda p=params, c=ncfg: flat(F._train_cuda(p, rays, z, tgt, c, False, 1, False)),
+                reps)
+            cases[f"render_bwd D={D} {n}x{SAMPLES}"] = (
+                lambda p=params, c=ncfg: flat(F._render_bwd_cuda(p, rays, z, g_rgb, g_dist, None,
+                                                                 None, c, False)), reps)
+    shapes = [(K, N) for *_, K, N in FM.point_dw_table(256)]
+    xt = [FM.tile_operand(torch.randn(POINTS, K, generator=gen).to(dev)) for K, _ in shapes]
+    gt = [FM.tile_operand(torch.randn(POINTS, N, generator=gen).to(dev)) for _, N in shapes]
+    Ks = [K for K, _ in shapes]
+    chunks = FM.dw_chunks(FM.dw_cta_tiles(Ks), POINTS,
+                          torch.cuda.get_device_properties(dev).multi_processor_count)
+    cases[f"dw_sm90 K6's blocks at 256, {POINTS} rows"] = (
+        lambda: FM.dw_sm90(xt, gt, Ks, POINTS, chunks), reps)
+    return cases
+
+
 def _width_params(dev, widths):
     """(D, NerfConfig, seeded params) per width, the density bias lowered."""
     for D in widths:
@@ -164,7 +223,9 @@ def _width_params(dev, widths):
 
 
 KERNEL_SETS = {"forward": ((F.RENDER_FWD, FM.POINT_MLP_FWD), forward_cases, 5),
-               "frozen": ((F.RENDER_BWD_FROZEN, FM.POINT_MLP_BWD_FROZEN), frozen_cases, 10)}
+               "frozen": ((F.RENDER_BWD_FROZEN, FM.POINT_MLP_BWD_FROZEN), frozen_cases, 10),
+               "full": ((FM.POINT_MLP_BWD, F.RENDER_TRAIN, F.RENDER_BWD, FM.DW_SM90), full_cases,
+                        5)}
 
 
 def main(argv=None) -> int:
@@ -172,7 +233,7 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", choices=sorted(KERNEL_SETS), default="forward")
     ap.add_argument("--widths", type=int, nargs="+", default=[256])
     ap.add_argument("--reps", type=int, default=None,
-                    help="calls timed per case (default 5 forward, 10 frozen)")
+                    help="calls timed per case (default 5 forward and full, 10 frozen)")
     ap.add_argument("--sass", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -183,7 +244,8 @@ def main(argv=None) -> int:
     libraries, make_cases, reps = KERNEL_SETS[args.kernels]
     build_all(libraries)
     if args.sass:
-        print(json.dumps({"sass": sass_digests(libraries, SASS_NAMES[args.kernels])}))
+        print(json.dumps({"sass": sass_digests(libraries, SASS_NAMES[args.kernels],
+                                               per_library=args.kernels == "full")}))
     gen = torch.Generator().manual_seed(SEED + 1)
     ms, digest = {}, {}
     for name, (fn, n) in make_cases(dev, gen, args.widths, args.reps or reps).items():

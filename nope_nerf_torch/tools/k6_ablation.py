@@ -131,7 +131,7 @@ def main() -> int:
     base = libs["base"].lib()
     offsets = (ctypes.c_int * 26)()
     total = base.nerf_point_mlp_grad_layout(D, offsets)
-    sizes = (ctypes.c_longlong * 5)()
+    sizes = (ctypes.c_longlong * 6)()
     base.nerf_point_mlp_bwd_scratch(D, POINTS, n_ctas, sizes)
     chunks = fused_mlp.dw_chunks(sizes[4], POINTS, sms)
     xops, gops = (torch.empty(sizes[i], dtype=torch.uint8, device=dev) for i in (0, 1))
@@ -146,7 +146,7 @@ def main() -> int:
         err = lib.nerf_point_mlp_bwd(
             pts.data_ptr(), dirs.data_ptr(), g_rgb.data_ptr(), g_den.data_ptr(),
             tiles.data_ptr(), tiles_dx.data_ptr(), bptrs, xops.data_ptr(), gops.data_ptr(),
-            chain_part.data_ptr(), dw_part.data_ptr(), grads.data_ptr(), dpts.data_ptr(),
+            chain_part.data_ptr(), dw_part.data_ptr(), None, grads.data_ptr(), dpts.data_ptr(),
             ddirs.data_ptr(), POINTS, D, n_ctas, chunks, 1, 0, total, stream)
         if err:
             raise RuntimeError(lib.nerf_error_string(err).decode())

@@ -1025,11 +1025,10 @@ def test_wide_frames_launch_k3_once_and_k5_twice(cuda_device, hidden):
 
 
 def test_wide_backward_kernels_raise_before_any_launch(cuda_device):
-    """At hidden_dim 512 the kernels that form weight gradients (K1, K4 full,
-    K6 full) raise NotImplementedError naming Queue 3 (b) with no launch, and
-    so do render_rays_fused and point_mlp under autograd when a nerf
-    parameter wants a gradient: their forwards check the backward's variant
-    before K3 or K5 launches."""
+    """At hidden_dim 512 the render kernels that form weight gradients (K1,
+    K4 full) raise NotImplementedError naming Queue 3 (b) with no launch, and
+    so does render_rays_fused under autograd when a nerf parameter wants a
+    gradient: its forward checks the backward's variant before K3 launches."""
     ncfg = NerfConfig(hidden_dim=512, use_pallas=True)
     gen, rays, z = _inputs(cuda_device, 133, 128)
     params = init_nerf_params(ncfg, gen, device=cuda_device)
@@ -1044,13 +1043,7 @@ def test_wide_backward_kernels_raise_before_any_launch(cuda_device):
         F.render_ray_loss_fused(params, rays, z, tgt, ncfg, False, 1, False)
     with pytest.raises(NotImplementedError, match=r"Queue 3 \(b\)"):
         F._render_bwd_cuda(params, rays, z, g_rgb, g_dist, None, None, ncfg, False)
-    _, pts, dirs = _points(cuda_device, 500)
-    with pytest.raises(NotImplementedError, match=r"Queue 3 \(b\)"):
-        M._mlp_bwd_cuda(params, pts, dirs, torch.ones(500, 3, device=cuda_device),
-                        torch.ones(500, 1, device=cuda_device), ncfg)
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    with pytest.raises(NotImplementedError, match=r"Queue 3 \(b\)"):
-        M.point_mlp(leaves, pts, dirs, ncfg)
     with pytest.raises(NotImplementedError, match=r"Queue 3 \(b\)"):
         F.render_rays_fused(leaves, rays, z, ncfg, False, False)
     assert [lib.launches for lib in libs] == before
@@ -1116,3 +1109,59 @@ def test_wide_frozen_autograd_launches_k3_and_k4_frozen(cuda_device):
     (rgb.sum() + dist.sum()).backward()
     assert (F.RENDER_FWD.launches - counts[0], F.RENDER_BWD_FROZEN.launches - counts[1]) == (1, 1)
     assert torch.isfinite(x.grad).all()
+
+
+@pytest.mark.parametrize("m", [1, 63, 65, 129, 64 * 265 + 37])
+@pytest.mark.parametrize("hidden", [384, 512])
+def test_point_mlp_bwd_full_wide(cuda_device, hidden, m):
+    """K6 full at 384 and 512 (csrc/mlp_dx_wide_sm90.cuh's 64-point chain with
+    mlp_dw_chain_sm90.cuh's OperandSaveW; the dW kernel's column pieces; half
+    a 128-row operand tile per 64-point pass): two launches bit-equal,
+    d(points) and d(directions) torch.equal to the frozen-network variant's,
+    the dW kernel launched once, and against the plain version: at two waves
+    of the SMs every dW and dB block within 5e-3 of its largest entry and
+    the per-sample rule; at the small counts, where one flipped bf16 rounding
+    at a single point moves a block by more than 5e-3 of its largest entry
+    (tools/backward_noise.py --full), each block by the L2 rule."""
+    gen, pts, dirs = _points(cuda_device, m, seed=10)
+    ncfg = NerfConfig(hidden_dim=hidden, use_pallas=True)
+    params = init_nerf_params(ncfg, gen, device=cuda_device)
+    g_rgb, g_den = _point_cotangents(params, pts, dirs, ncfg)
+    count = M.DW_SM90.launches
+    a = M._mlp_bwd_cuda(params, pts, dirs, g_rgb, g_den, ncfg)
+    assert M.DW_SM90.launches - count == 1
+    b = M._mlp_bwd_cuda(params, pts, dirs, g_rgb, g_den, ncfg)
+    for x, y in zip([*a[0], *a[1], a[2], a[3]], [*b[0], *b[1], b[2], b[3]]):
+        assert torch.equal(x, y)
+    frozen = M._mlp_bwd_cuda(params, pts, dirs, g_rgb, g_den, ncfg, want_param_grads=False)
+    assert torch.equal(frozen[2], a[2]) and torch.equal(frozen[3], a[3])
+    ref = M.point_mlp_bwd_plain(params, pts, dirs, g_rgb, g_den, ncfg)
+    if m >= 1000:
+        _assert_point_grads_close(a, ref, ncfg)
+        return
+    got = dict(F.unpack_grads(a[0], a[1], ncfg), points=a[2], directions=a[3])
+    want = dict(F.unpack_grads(ref[0], ref[1], ncfg), points=ref[2], directions=ref[3])
+    for k, r in want.items():
+        assert torch.isfinite(got[k]).all(), k
+        assert float((got[k] - r).norm()) <= 2e-2 * float(r.norm()) + 1e-9, k
+
+
+@pytest.mark.parametrize("hidden", [384, 512])
+def test_point_mlp_autograd_trains_wide(cuda_device, hidden):
+    """point_mlp under autograd with nerf parameters that want gradients at
+    384 and 512: K5 once, K6 full once (with the dW kernel), every parameter
+    gradient finite and equal to _mlp_bwd_cuda's unpacked blocks."""
+    gen, pts, dirs = _points(cuda_device, 3000, seed=11)
+    ncfg = NerfConfig(hidden_dim=hidden, use_pallas=True)
+    params = init_nerf_params(ncfg, gen, device=cuda_device)
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    counts = (M.POINT_MLP_FWD.launches, M.POINT_MLP_BWD.launches, M.DW_SM90.launches)
+    rgb, den = M.point_mlp(leaves, pts, dirs, ncfg)
+    g_rgb, g_den = torch.full_like(rgb, 1e-3), torch.full_like(den, 1e-4)
+    torch.autograd.backward((rgb, den), (g_rgb, g_den))
+    assert (M.POINT_MLP_FWD.launches - counts[0], M.POINT_MLP_BWD.launches - counts[1],
+            M.DW_SM90.launches - counts[2]) == (1, 1, 1)
+    ref = F.unpack_grads(*M._mlp_bwd_cuda(params, pts, dirs, g_rgb, g_den, ncfg)[:2], ncfg)
+    for k, v in leaves.items():
+        assert torch.isfinite(v.grad).all(), k
+        assert torch.equal(v.grad, ref[k].to(v.dtype)), k

@@ -230,6 +230,7 @@ def _job_checkpoint(mesh, work):
             seen[f"path after rank {writer}"] = path
         dist.barrier()
         seen[f"exists after rank {writer}"] = os.path.exists(os.path.join(ckpt_dir, "model.ckpt"))
+        dist.barrier()   # every rank has looked before the next writer's turn
     _, _, _, _, fresh = _port_setup("unfused", noise=True)
     resumed, scalars = load_checkpoint(ckpt_dir, "model.ckpt", fresh)
     resumed = _adam_steps(trainer, resumed, scene, frames[2:])

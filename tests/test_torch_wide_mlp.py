@@ -142,13 +142,13 @@ def test_nerf_config_gate_at_512_is_jax_s():
 
 @pytest.mark.parametrize("D", [128, 256, 384, 512, 640, 1024, 64])
 def test_width_gates(D):
-    """K3, K5 and the frozen-network variants of K4 and K6 take 128 to 512;
-    K1, K4 full and K6 full raise NotImplementedError at 384 and 512 naming
+    """K3, K5, the frozen-network variants of K4 and K6, and K6 full take 128
+    to 512; K1 and K4 full raise NotImplementedError at 384 and 512 naming
     Queue 3 (b), the slice that brings the width to them, and every kernel
     raises for 640 and past (Queue 3 (c)) and for a width JAX's kernels do not
     take. The checks run before any device work, here on the CPU."""
     wide_ok = ("render", "point-query MLP forward", "render-backward (frozen network)",
-               "point-query MLP backward (frozen network)")
+               "point-query MLP backward (frozen network)", "point-query MLP backward")
     for kernel in wide_ok:
         if D in (128, 256, 384, 512):
             F.check_kernel_width(kernel, D)
@@ -158,7 +158,7 @@ def test_width_gates(D):
                 F.check_kernel_width(kernel, D)
     assert F.render_bwd_kernel(False) == "render-backward (frozen network)"
     assert F.render_bwd_kernel(True) == "render-backward"
-    for kernel in ("train", "render-backward", "point-query MLP backward"):
+    for kernel in ("train", "render-backward"):
         if D in (128, 256):
             F.check_kernel_width(kernel, D)
             continue
@@ -166,20 +166,18 @@ def test_width_gates(D):
             F.check_kernel_width(kernel, D)
         if D in (384, 512):
             assert "Queue 3 (b)" in str(info.value)
+            assert "K1 and K4 full" in str(info.value)
     if D > 512:
         for kernel in F.KERNEL_WIDTHS:
             with pytest.raises(NotImplementedError, match=r"Queue 3 \(c\)"):
                 F.check_kernel_width(kernel, D)
     cfg = NerfConfig(hidden_dim=D, use_pallas=True)
-    for kernel in ("forward", FM.mlp_bwd_kernel(False)):
+    for kernel in ("forward", FM.mlp_bwd_kernel(False), FM.mlp_bwd_kernel(True)):
         if D in (128, 256, 384, 512):
             FM._check_width(cfg, kernel)
         else:
             with pytest.raises(NotImplementedError):
                 FM._check_width(cfg, kernel)
-    if D not in (128, 256):
-        with pytest.raises(NotImplementedError):
-            FM._check_width(cfg, FM.mlp_bwd_kernel(True))
 
 
 def _meta_params(cfg):
@@ -189,11 +187,12 @@ def _meta_params(cfg):
 
 def test_wide_gates_fire_before_device_work():
     """On a device the kernels serve (a meta tensor stands in for a CUDA one:
-    the checks come before any launch or build), K1, K4 full and K6 full at
-    512 raise NotImplementedError naming Queue 3 (b), and so do the
-    differentiable routes of K3 and K5 when a nerf parameter wants a
-    gradient: their forwards check the backward's variant. With a frozen
-    network the frozen variants' gates and those forwards pass, and the calls
+    the checks come before any launch or build), K1 and K4 full at 512 raise
+    NotImplementedError naming Queue 3 (b), and so does the differentiable
+    route of K3 when a nerf parameter wants a gradient: its forward checks the
+    backward's variant. K6 full's gate and the differentiable route of K5
+    pass with or without parameters that want gradients, and so do the
+    frozen variants' gates and K3's forward for a frozen network: the calls
     go on to the kernel's build (no nvcc on this machine)."""
     cfg = NerfConfig(hidden_dim=512, use_pallas=True)
     meta = dict(device="meta")
@@ -205,8 +204,6 @@ def test_wide_gates_fire_before_device_work():
     with pytest.raises(NotImplementedError, match="Queue 3 \\(b\\)"):
         F._render_bwd_cuda({}, rays, z, g_rgb, g_dist, None, None, cfg, False)
     pts = torch.empty(4, 3, **meta)
-    with pytest.raises(NotImplementedError, match="Queue 3 \\(b\\)"):
-        FM._mlp_bwd_cuda({}, pts, pts, pts, torch.empty(4, 1, **meta), cfg)
     params = _meta_params(cfg)
     names = tuple(sorted(params))
     tensors = [params[k] for k in names]
@@ -214,9 +211,11 @@ def test_wide_gates_fire_before_device_work():
     frozen = SimpleNamespace(needs_input_grad=(True,) * 6 + (False,) * len(names))
     with pytest.raises(NotImplementedError, match="render-backward.*Queue 3 \\(b\\)"):
         F._RenderFused.forward(wants, rays, z, cfg, False, True, names, *tensors)
-    with pytest.raises(NotImplementedError, match="MLP backward.*Queue 3 \\(b\\)"):
+    with pytest.raises(RuntimeError, match="nvcc"):
         FM._PointMLP.forward(SimpleNamespace(needs_input_grad=wants.needs_input_grad[2:]),
                              pts, pts, cfg, names, *tensors)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        FM._mlp_bwd_cuda(params, pts, pts, pts, torch.empty(4, 1, **meta), cfg)
     with pytest.raises(RuntimeError, match="nvcc"):
         F._RenderFused.forward(frozen, rays, z, cfg, False, True, names, *tensors)
     with pytest.raises(RuntimeError, match="nvcc"):
