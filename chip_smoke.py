@@ -133,8 +133,12 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    K6's at 1, 63, 64, 65,
    127 and 196,645 points, and K6 full (every dW and dB block, d(points)
    and d(directions): those torch.equal to K6 frozen's) at 1, 63, 64, 65,
-   127, 129 and 196,645 points, against their plain versions over two flag
-   sets (softplus; relu with dist_alpha), two launches bit-equal; then at each
+   127, 129 and 196,645 points, and K1 and K4 full (every dW and dB block;
+   K1's loss sums and d(target)) on 1024 rays x 128 and 512, 4096 x 256 and
+   4097 x 128, in chunks of rays, with K4 full's d(rays), dz
+   torch.equal to K4 frozen's and K4 full fed K1's cotangents bit-equal to
+   K1, against their plain versions over two flag sets (softplus; relu with
+   dist_alpha), two launches bit-equal; then at each
    width the render path from a checkpoint of seeded random weights the port
    wrote: cli.render over 3 views at 188x621 (K3 once a frame, view 0's rows
    0-7 against the plain version), Trainer.render_frame fused (K3 once) and
@@ -146,9 +150,11 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    (K5 twice and K6 frozen once a step); hierarchical training from the same
    weights: cli.train, one epoch of 8 steps (K5 twice, K6 full, the dW
    kernel and K2 once a step; K1 and K4 full never), and 4 replayed steps of
-   Trainer.run_steps against the same steps eager (torch.equal); at 512, K1
-   and K4 full raising NotImplementedError with no launch, and so
-   render_rays_fused under autograd with nerf parameters that want gradients.
+   Trainer.run_steps against the same steps eager (torch.equal); the default
+   config's training from the same weights: cli.train, one epoch of 8 fused
+   steps (K1, the dW kernel and K2 once a step), and at 188x621 4 fused and
+   4 depth_loss_type invariant steps (K3 and K4 full) replayed against the
+   same steps eager (torch.equal).
    `python3 chip_smoke.py --wide` builds the kernels and runs this phase
    alone;
 9. times each path and each kernel at its main path's shapes (CUDA events;
@@ -160,10 +166,11 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    held against its plain version at that shape and timed beside its bound,
    with a `many_samples` JSON line; per width of phase 13 a frame end to end,
    K3 over its rays, K5 at 196,608 points, K4 frozen at 1024 x 128, K6
-   frozen and K6 full at 196,608 points (K6 full with the dW kernel's share
-   by torch.profiler and its operand bytes), each held against its plain
-   version and timed beside its bound, and the replayed pose-opt and
-   hierarchical train steps, with a `wide` JSON line), prints one
+   frozen and K6 full at 196,608 points, K1 and K4 full at 1024 x 128 (K6
+   full, K1 and K4 full with the dW kernel's share by torch.profiler and
+   their operand bytes), each held against its plain version and timed
+   beside its bound, and the replayed pose-opt, hierarchical, fused and
+   invariant-depth train steps, with a `wide` JSON line), prints one
    `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 It exits non-zero, and prints no result, when CUDA is missing, outside a
 checkout, or when any phase fails. It imports nothing of JAX.
@@ -3074,7 +3081,7 @@ def run_many_samples(torch, np, dev) -> dict:
     return out
 
 
-# ---- phase 13: hidden_dim 384 and 512 (K3, K5, K4 and K6 frozen, K6 full) ---------------
+# ---- phase 13: hidden_dim 384 and 512 (K3, K5, K4 and K6 frozen, K6 full, K1, K4 full) ----
 
 WIDE_D = (384, 512)               # the widths of mlp_fwd_wide_sm90.cuh's 64-point trunk
 WIDE_S = (128, 1024)              # K3 on MANY_S_RAYS rays
@@ -3089,12 +3096,23 @@ WIDE_BWD_RAYS = 1024              # the pose-opt step's rays (7 or 8 a CTA on 13
 WIDE_BWD_M = (1, 63, 64, 65, 127, POINT_CHECK_M)
 # K6 full: those, and a 128-point row tile of the dW operands and a point (129)
 WIDE_FULL_M = (1, 63, 64, 65, 127, 129, POINT_CHECK_M)
+# K1 and K4 full: (rays, S) of each case: the train step's 1,024 rays at S = 128 and 512 (a
+# ray is 2 or 8 tiles, 7 or 8 rays a CTA on 132 SMs; render_chunks splits 1,024 x 512 into
+# 3 or 4 chunks: the chunked dW adds), 4,096 rays at S = 256 and 4,097 at S = 128 (a last
+# chunk of another size). The issue's 1,024 x 256 and 133 x 128 went to 4,096 because the
+# f32 plain version itself missed the 5e-3 rule against the f64 sum there, at 512 on the
+# relu / dist_alpha flag set (PERF.md sections 2 and 6, tools/backward_noise.py
+# --render-full)
+WIDE_RENDER_CASES = ((1024, 128), (4096, 256), (4097, 128), (1024, 512))
 # points below which a dW or dB block is held by the L2 part of the per-sample rule
 # (wide_full_share): a block summed over this few points moves by one flipped bf16
 # rounding of a single point's product, which 5e-3 of its largest entry does not admit
 WIDE_FULL_SUM_POINTS = 1000
+WIDE_TRAIN_STEPS = 4              # replayed fused steps against eager ones, at each width
 for _D in WIDE_D:
     GRAPH_STEPS[f"hierarchical, hidden_dim {_D}"] = HIER_STEPS
+    GRAPH_STEPS[f"fused, hidden_dim {_D}"] = WIDE_TRAIN_STEPS
+    GRAPH_STEPS[f"invariant, hidden_dim {_D}"] = UNFUSED_STEPS
 
 
 def per_sample_share(got, ref) -> float:
@@ -3234,6 +3252,106 @@ def check_wide_full(torch, dev) -> dict:
     return worst
 
 
+def check_wide_render_full(torch, dev) -> dict:
+    """Phase 13 (a'''): K1 and K4 full at D = 384 and 512
+    (render_full_sm90.cuh's wide kernel: mlp_dx_wide_sm90.cuh's chain with
+    mlp_dw_chain_sm90.cuh's OperandSaveW<D, true> and dw_sm90.cuh's column
+    pieces) on the cases of WIDE_RENDER_CASES, over both flag sets of
+    WIDE_FLAGS (K1 with rgb_p 1 and 2 in turn). Per case, by PERF.md
+    section 2's rules: K1's loss sums within 2e-3 relative, its dW and dB
+    within 5e-3 of each block's largest entry (grad_share; every case sums
+    over 131,072 samples or more) and d(target) by the per-sample rule,
+    against _train_plain; K4 full on the cotangents of a smooth loss
+    (bwd_cotangents) with its dW and dB by the same rule against the plain
+    version. The invariants fixed for these kernels: (I1) K4 full's d(rays)
+    and dz torch.equal to its frozen-network variant's, so held by that
+    variant's checks (check_wide_frozen); (I2) K4 full fed K1's own
+    cotangents gives K1's dW, dB, d(rays) and dz bit for bit; (I3) two
+    launches of each give the same bits, the chunked case included. A case
+    that misses is reported, never retried or drawn anew. Returns the worst
+    absolute error by kernel and width; fails if any case disagrees."""
+    from nope_nerf_torch.ops.fused_render import (_render_bwd_cuda, _train_cuda, _train_plain,
+                                                  render_chunks, render_rays_fused_bwd_plain,
+                                                  unpack_grads)
+    gen = torch.Generator().manual_seed(SEED + 39)
+    worst, failed = {}, []
+
+    def bits_equal(a, b) -> bool:
+        flat = [(x, y) for u, v in zip(a, b)
+                for x, y in (zip(u, v) if isinstance(u, (list, tuple)) else [(u, v)])]
+        return all(torch.equal(x, y) for x, y in flat)
+
+    def blocks(ncfg, dWs, dBs, **per_sample):
+        return dict(unpack_grads(dWs, dBs, ncfg), **per_sample)
+
+    for D in WIDE_D:
+        for n, S in WIDE_RENDER_CASES:
+            rays, z, tgt = train_inputs(torch, dev, gen, n, S)
+            n_chunks = len(render_chunks(n, S, D))
+            for (occ, da), rgb_p in zip(WIDE_FLAGS, (1, 2)):
+                ncfg, params = many_params(torch, dev, gen, D, occ, da, S)
+                case = (f"D={D} {n} rays x {S} ({n_chunks} chunk{'s' if n_chunks > 1 else ''}) "
+                        f"occ={occ} dist_alpha={da}")
+                # K1, twice; K4 full on K1's cotangents (its d(target) holds their negatives)
+                k1 = _train_cuda(params, rays, z, tgt, ncfg, da, rgb_p, False)
+                k1_again = _train_cuda(params, rays, z, tgt, ncfg, da, rgb_p, False)
+                fed = _render_bwd_cuda(params, rays, z, (-k1[5][:, 0:3]).contiguous(),
+                                       (-k1[5][:, 3]).contiguous(), None, None, ncfg, da)
+                # K4 full, twice, and its frozen variant, on a smooth loss's cotangents
+                cot = bwd_cotangents(torch, params, rays, z, tgt, ncfg, da, True)
+                k4 = _render_bwd_cuda(params, rays, z, *cot, ncfg, da)
+                k4_again = _render_bwd_cuda(params, rays, z, *cot, ncfg, da)
+                frozen = _render_bwd_cuda(params, rays, z, *cot, ncfg, da,
+                                          want_param_grads=False)
+                torch.cuda.synchronize()
+                if not bits_equal(k1, k1_again):
+                    raise RuntimeError(f"render_train: two launches differ ({case})")
+                if not bits_equal(k4, k4_again):
+                    raise RuntimeError(f"render_bwd: two launches differ ({case})")
+                if not bits_equal(fed, k1[1:5]):
+                    raise RuntimeError(f"render_bwd fed render_train's cotangents: dW, dB, "
+                                       f"d(rays), dz differ from render_train's ({case})")
+                if not (torch.equal(frozen[2], k4[2]) and torch.equal(frozen[3], k4[3])):
+                    raise RuntimeError(f"render_bwd: d(rays), dz differ from the frozen-network "
+                                       f"variant's ({case})")
+                ref1 = _train_plain(params, rays, z, tgt, ncfg, da, rgb_p, False)
+                rel = float(((k1[0] - ref1[0]).abs() / ref1[0].abs().clamp_min(1e-12)).max())
+                got1 = blocks(ncfg, k1[1], k1[2], tgt=k1[5])
+                want1 = blocks(ncfg, ref1[1], ref1[2], tgt=ref1[5])
+                s1 = {k: grad_share(got1[k], want1[k], k == "tgt") for k in want1}
+                w1 = max((k for k in s1 if k != "tgt"), key=s1.get)
+                ref4 = render_rays_fused_bwd_plain(params, rays, z, *cot, ncfg, da)
+                got4, want4 = blocks(ncfg, k4[0], k4[1]), blocks(ncfg, ref4[0], ref4[1])
+                s4 = {k: grad_share(got4[k], want4[k], False) for k in want4}
+                w4 = max(s4, key=s4.get)
+                worst[("render_train", D)] = max(
+                    worst.get(("render_train", D), 0.0), max_err(k1[0], ref1[0]),
+                    max(max_err(got1[k], want1[k]) for k in want1))
+                worst[("render_bwd", D)] = max(worst.get(("render_bwd", D), 0.0),
+                                               max(max_err(got4[k], want4[k]) for k in want4))
+                print(f"render_train vs plain, {case}, rgb_p={rgb_p}: sums at {rel / 2e-3:.3f} "
+                      f"of 2e-3 relative, {len(s1) - 1} gradient blocks (dW, dB by 5e-3), worst "
+                      f"{w1} at {s1[w1]:.3f} of its tolerance, d(target) at {s1['tgt']:.3f} "
+                      f"(per sample); two launches bit-equal; render_bwd fed its cotangents "
+                      f"bit-equal in dW, dB, d(rays), dz")
+                print(f"render_bwd vs plain, {case}, cotangents rgb,dist,weights,alpha: "
+                      f"{len(s4)} gradient blocks (dW, dB by 5e-3), worst {w4} at {s4[w4]:.3f} "
+                      f"of its tolerance; two launches bit-equal; d(rays), dz equal to the "
+                      f"frozen-network variant's")
+                if not rel <= 2e-3:
+                    failed.append(f"render_train: sums at {rel:.3g} relative ({case})")
+                for kernel, shares, k in (("render_train", s1, w1), ("render_train", s1, "tgt"),
+                                          ("render_bwd", s4, w4)):
+                    if not shares[k] <= 1.0:
+                        failed.append(f"{kernel}: {k} at {shares[k]:.2f} of its tolerance "
+                                      f"({case})")
+                del k1, k1_again, fed, k4, k4_again, frozen, ref1, ref4
+    if failed:
+        raise RuntimeError("wide widths: render_train / render_bwd disagree with their plain "
+                           "versions: " + "; ".join(failed))
+    return worst
+
+
 def check_wide_kernels(torch, dev) -> dict:
     """Phase 13 (a): K3 at S = 128 and 1024 on MANY_S_RAYS rays and K5 at the
     point counts of WIDE_M, at D = 384 and 512, over both flag sets of
@@ -3288,28 +3406,6 @@ def check_wide_kernels(torch, dev) -> dict:
         raise RuntimeError("wide widths: kernels disagree with their plain versions: "
                            + "; ".join(failed))
     return worst
-
-
-def raises_unlaunched(torch, fn, what: str, expected: dict) -> None:
-    """fn() must raise NotImplementedError with the launch counts, set to 0
-    just before and read just after, equal to `expected` (a kernel it does
-    not name: 0)."""
-    libs = kernel_counters()
-    for lib in libs.values():
-        lib.launches = 0
-    try:
-        fn()
-    except NotImplementedError as e:
-        message = str(e)
-    else:
-        raise RuntimeError(f"{what}: no NotImplementedError")
-    torch.cuda.synchronize()
-    counts = {name: lib.launches for name, lib in libs.items()}
-    if counts != {name: expected.get(name, 0) for name in libs}:
-        raise RuntimeError(f"{what}: launch counts {counts}, expected {expected}")
-    print(f"{what}: NotImplementedError, launches "
-          + (", ".join(f"{k} {v}" for k, v in expected.items()) or "none")
-          + f" ({message.split(':')[0]})")
 
 
 def run_wide_eval(torch, np, dev, D: int, nerf) -> dict:
@@ -3444,6 +3540,73 @@ def run_wide_train(torch, np, dev, D: int, nerf) -> dict:
     return out
 
 
+def run_wide_fused_train(torch, np, dev, D: int, nerf) -> dict:
+    """Phase 13 (c'): the default config's training at model.hidden_dim D from
+    phase 13's seeded weights, through K1 and K4 full's wide kernel: cli.train,
+    one epoch of the fused config on the built-in 8-frame 120x160 scene from
+    the seeded checkpoint (K1, K2 and the dW kernel once a step, the nerf
+    parameters finite and moved); then on the 188x621 4-frame scene
+    WIDE_TRAIN_STEPS fused steps (K1, the dW kernel, K2) and UNFUSED_STEPS
+    depth_loss_type invariant steps (K3, K4 full, the dW kernel, K2) of
+    Trainer.run_steps replayed from their captured graphs against the same
+    steps eager (graph_train_path: states torch.equal), with their times,
+    pool and peak device memory. Returns the counts and both step-graph
+    results."""
+    from nope_nerf_torch.cli.train import train
+    from nope_nerf_torch.config import load_config
+    from nope_nerf_torch.data import SceneData, make_synthetic_scene
+    from nope_nerf_torch.training import ModelConfigs, create_train_state
+    from nope_nerf_torch.training.checkpoints import save_params
+
+    out = {}
+    steps = 8   # one epoch of the built-in scene
+    with tempfile.TemporaryDirectory() as out_dir:
+        cfg = load_config(overrides={
+            "model": {"hidden_dim": D},
+            "training": {"out_dir": out_dir, "n_training_points": TRAIN_RAYS,
+                         "load_ckpt_model_only": True, "vis_geo": False, "print_every": steps,
+                         "validate_every": 0, "checkpoint_every": steps, "visualize_every": 0,
+                         "vis_reprojection_every": 0},
+            "pose": {"learn_pose": True, "init_pose": True}})
+        scene = SceneData.from_dict(make_synthetic_scene(n_frames=steps, h=120, w=160))
+        mc = ModelConfigs.from_cfg(cfg, num_cams=scene.n_frames)
+        seeded = create_train_state(SEED, mc, init_c2w=torch.as_tensor(scene.c2ws_gt),
+                                    device=dev)
+        seeded.params["nerf"] = {k: v.detach().clone() for k, v in nerf.items()}
+        save_params(out_dir, cfg["training"]["load_dir"], seeded.params)
+        (state, _, _), out["fused_train_counts"] = counted(
+            lambda: train(cfg, synthetic=True, max_epochs=1, device=dev),
+            {"render_train": steps, "chamfer_bidir": steps, "dw_sm90": steps},
+            f"cli.train, hidden_dim {D}, the default fused config, 1 epoch of {steps} steps from "
+            "the seeded checkpoint")
+    moved = any(not torch.equal(state.params["nerf"][k], v) for k, v in nerf.items())
+    finite = all(bool(torch.isfinite(v).all()) for d in state.params.values() for v in d.values())
+    if not (moved and finite):
+        raise RuntimeError(f"cli.train (fused) at hidden_dim {D}: the nerf parameters did not "
+                           "move or are not finite")
+    print(f"cli.train (fused), hidden_dim {D}: parameters finite and moved from the "
+          "checkpoint's")
+
+    h, w = RESOLUTION
+    tscene = SceneData.from_dict(make_synthetic_scene(n_frames=4, h=h, w=w)).to_device(dev)
+    base = {"model": {"hidden_dim": D}, "pose": {"learn_pose": True, "init_pose": True}}
+    for name, training, per_step in (
+            ("fused", {}, {"render_train": 1, "chamfer_bidir": 1, "dw_sm90": 1}),
+            ("invariant", {"depth_loss_type": "invariant"},
+             {"render_fwd": 1, "render_bwd": 1, "chamfer_bidir": 1, "dw_sm90": 1})):
+        gcfg = load_config(overrides={**base, "training": {"n_training_points": TRAIN_RAYS,
+                                                           **training}})
+        gmc = ModelConfigs.from_cfg(gcfg, num_cams=tscene.n_frames)
+        gstate = create_train_state(SEED, gmc, init_c2w=tscene.c2ws_gt, device=dev)
+        gstate.params["nerf"] = {k: v.detach().clone() for k, v in nerf.items()}
+        key = f"{name}, hidden_dim {D}"
+        n = GRAPH_STEPS[key]
+        out[f"graph_{name}"] = graph_train_path(torch, np, dev, key, gcfg, gmc, tscene, gstate,
+                                                {k: v * n for k, v in per_step.items()})
+        torch.cuda.empty_cache()
+    return out
+
+
 def run_wide_path(torch, np, dev, D: int) -> dict:
     """Phase 13 (b) at model.hidden_dim D: cli.render over N_VIEWS novel views at
     188x621 from a checkpoint of seeded random weights written by the port (K3
@@ -3452,18 +3615,15 @@ def run_wide_path(torch, np, dev, D: int) -> dict:
     N_IMPORTANCE (K5 twice a chunk), each with rows 0-7 against the plain
     versions; cli.eval's pose optimisation and the pose-opt steps from the
     same weights (run_wide_eval); hierarchical training from them (K6 full;
-    run_wide_train); at WIDE_PATH_D, one call each of K1 and K4 full raising
-    NotImplementedError before any launch, and render_rays_fused under
-    autograd with nerf parameters that want a gradient raising before K3
-    launches. Returns what the timings need."""
+    run_wide_train); the default config's fused and invariant-depth training
+    from them (K1, K4 full; run_wide_fused_train). Returns what the timings
+    need."""
     from nope_nerf_torch.cli.render import load_scene, render
     from nope_nerf_torch.config import load_config
     from nope_nerf_torch.data import SceneData, batch_for_frame, make_synthetic_scene
     from nope_nerf_torch.geometry.lie import log_so3
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
-    from nope_nerf_torch.ops.fused_render import (_render_bwd_cuda, plain_versions,
-                                                  render_ray_loss_fused, render_rays_fused,
-                                                  render_rays_fused_plain)
+    from nope_nerf_torch.ops.fused_render import plain_versions, render_rays_fused_plain
     from nope_nerf_torch.ops.render import RenderConfig
     from nope_nerf_torch.training import ModelConfigs, Trainer, create_train_state
     from nope_nerf_torch.training.checkpoints import load_params, save_params
@@ -3548,34 +3708,19 @@ def run_wide_path(torch, np, dev, D: int) -> dict:
     out.update(run_wide_eval(torch, np, dev, D, params["nerf"]))
     out.update(run_wide_train(torch, np, dev, D, params["nerf"]))
 
-    if D == WIDE_PATH_D:
-        # the render kernels that form weight gradients do not take this width yet: they,
-        # and the autograd route that would reach them, raise before any device work
-        gen = torch.Generator().manual_seed(SEED + 33)
-        rays, tz, tgt = train_inputs(torch, dev, gen, 133)
-        nerf = state.params["nerf"]
-        raises_unlaunched(torch, lambda: render_ray_loss_fused(nerf, rays, tz, tgt, ncfg, False, 1,
-                                                               False),
-                          f"render_train (K1) at hidden_dim {D}", {})
-        g_rgb, g_dist = torch.ones(133, 3, device=dev), torch.ones(133, device=dev)
-        raises_unlaunched(torch, lambda: _render_bwd_cuda(nerf, rays, tz, g_rgb, g_dist, None,
-                                                          None, ncfg, False),
-                          f"render_bwd full (K4) at hidden_dim {D}", {})
-        leaf = {k: v.detach().requires_grad_(True) for k, v in nerf.items()}
-        raises_unlaunched(torch, lambda: render_rays_fused(leaf, rays, tz, ncfg, False, False),
-                          f"render_rays_fused under autograd at hidden_dim {D}, parameters "
-                          "wanting gradients", {})
+    out.update(run_wide_fused_train(torch, np, dev, D, params["nerf"]))
     return out
 
 
 def run_wide(torch, np, dev) -> dict:
-    """Phase 13: (a) the kernels at both widths, forward, frozen backward and
-    K6 full, (b) the path at each: render, eval, pose optimisation and
-    hierarchical training."""
+    """Phase 13: (a) the kernels at both widths, forward, frozen backward, K6
+    full, K1 and K4 full, (b) the path at each: render, eval, pose
+    optimisation, hierarchical, fused and invariant-depth training."""
     t_phase = time.perf_counter()
     out = {"worst": check_wide_kernels(torch, dev)}
     out["worst"].update(check_wide_frozen(torch, dev))
     out["worst_full"] = check_wide_full(torch, dev)
+    out["worst"].update(check_wide_render_full(torch, dev))
     for D in WIDE_D:
         out[D] = run_wide_path(torch, np, dev, D)
     print(f"wide phase: {time.perf_counter() - t_phase:.1f} s wall")
@@ -3592,18 +3737,21 @@ def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
     points, each beside its bound (forward + dX, 2 mlp_flops) and its plain
     version; K6 full at those points beside its bound (forward + dX + dW, 3
     mlp_flops) and its plain version, with the dW kernel's share of its device
-    time (torch.profiler), the dW kernel's CTAs and the operand bytes; the
-    replayed pose-opt steps of phase 13 (fused and hierarchical) and its
-    hierarchical train steps (eager, replayed, peak device memory). Returns
-    the `kernels` JSON entries."""
+    time (torch.profiler), the dW kernel's CTAs and the operand bytes; K1
+    and K4 full at the train step's 1024 rays x 128 the same way (K1 on its
+    own loss, K4 full on a colour and depth loss's cotangents); the replayed
+    pose-opt steps of phase 13 (fused and hierarchical) and its hierarchical,
+    fused and invariant-depth train steps (eager, replayed, pool, peak device
+    memory). Returns the `kernels` JSON entries."""
     from torch.profiler import ProfilerActivity, profile
     from nope_nerf_torch.evaluation.extract import render_trajectory
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
     from nope_nerf_torch.ops.fused_mlp import (POINT_MLP_BWD, _mlp_bwd_cuda, _mlp_fwd_cuda,
                                                dw_chunks, point_mlp_bwd_plain,
                                                point_mlp_fwd_plain)
-    from nope_nerf_torch.ops.fused_render import (_render_bwd_cuda, pack_weights,
-                                                  render_rays_fused, render_rays_fused_bwd_plain,
+    from nope_nerf_torch.ops.fused_render import (RENDER_TRAIN, _render_bwd_cuda, _train_cuda,
+                                                  _train_plain, pack_weights, render_rays_fused,
+                                                  render_rays_fused_bwd_plain,
                                                   render_rays_fused_plain, unpack_grads)
     from nope_nerf_torch.tools.profile_train import _self_device_us
 
@@ -3621,6 +3769,7 @@ def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
     gen = torch.Generator().manual_seed(SEED + 34)
     pts, dirs = point_inputs(torch, dev, gen, fine_m)
     bgen = torch.Generator().manual_seed(SEED + 37)   # the frozen backward's inputs
+    kgen = torch.Generator().manual_seed(SEED + 40)   # K1's and K4 full's
     entries, summary = [], {"card": smi}
     for D in WIDE_D:
         p = wide[D]
@@ -3807,9 +3956,89 @@ def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
             "ms": pk_ms, "bound_ms": pk_bound, "dw_ms": dw_ms if kt else None,
             "chain_ms": chain_ms if kt else None, "dw_ctas": dw_ctas,
             "operand_bytes": operand_bytes}
+        # K1 and K4 full at the train step's 1024 rays x 128 (render_full_sm90.cuh's wide
+        # kernel, the in-order sum of its partials and the dW kernel's column pieces in one
+        # call): K1 on its own loss, K4 full on a colour and depth loss's cotangents
+        rays, tz, tgt = train_inputs(torch, dev, kgen, TRAIN_RAYS)
+        kcfg, kparams = many_params(torch, dev, kgen, D, "softplus", False, 128)
+        kcot = bwd_cotangents(torch, kparams, rays, tz, tgt, kcfg, False, False)
+        W, B = pack_weights(kparams, kcfg)
+        r_flops = train_flops(D, TRAIN_RAYS, 128)
+        r_grad_bytes = 4 * sum(v.numel() for v in kparams.values())
+        sizes = (ctypes.c_longlong * 7)()
+        RENDER_TRAIN.lib().nerf_render_train_scratch(D, TRAIN_RAYS, 128, sms, sizes)
+        r_operand_bytes = sizes[0] + sizes[1]
+        r_dw_ctas = sizes[4] * dw_chunks(sizes[4], TRAIN_RAYS * 128, sms)
+        for kname, call, plain, io, launches in (
+                ("render_train",
+                 lambda: _train_cuda(kparams, rays, tz, tgt, kcfg, False, 1, False),
+                 lambda: _train_plain(kparams, rays, tz, tgt, kcfg, False, 1, False),
+                 2 * numel_bytes([rays, tz, tgt]), p["fused_train_counts"]["render_train"]),
+                ("render_bwd", lambda: _render_bwd_cuda(kparams, rays, tz, *kcot, kcfg, False),
+                 lambda: render_rays_fused_bwd_plain(kparams, rays, tz, *kcot, kcfg, False),
+                 numel_bytes([rays, tz, kcot[0], kcot[1]]) + numel_bytes([rays, tz]),
+                 round(p["graph_invariant"]["launches_per_step"]["render_bwd"]
+                       * p["graph_invariant"]["steps"]))):
+            k_ms = time_ms(call, 10)
+            got = call()
+            ref, k_plain_ms = timed_once(plain)
+            at = 1 if kname == "render_train" else 0   # where dWs sit in the result
+            k_err, kk, kshare, _ = held(unpack_grads(got[at], got[at + 1], kcfg),
+                                        unpack_grads(ref[at], ref[at + 1], kcfg), ())
+            if kname == "render_train":
+                rel = float(((got[0] - ref[0]).abs() / ref[0].abs().clamp_min(1e-12)).max())
+                if not rel <= 2e-3:
+                    raise RuntimeError(f"render_train at {TRAIN_RAYS} x 128, hidden_dim {D}: "
+                                       f"loss sums at {rel:.3g} relative")
+            if not kshare <= 1.0:
+                raise RuntimeError(f"{kname} at {TRAIN_RAYS} x 128, hidden_dim {D}: {kk} at "
+                                   f"{kshare:.2f} of its tolerance")
+            del got, ref
+            k_bound, k_by, _, _ = bound(r_flops, PEAK_BF16_FLOPS,
+                                        io + numel_bytes(W) + numel_bytes(B) + r_grad_bytes)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    call()
+                torch.cuda.synchronize()
+            kt = {e.key: _self_device_us(e) / 3e3 for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA}
+            k_dw_ms = sum(v for k, v in kt.items()
+                          if "dw_sm90_kernel" in k or "dw_reduce_kernel" in k)
+            k_chain_ms = sum(v for k, v in kt.items() if "render_full_wide_kernel" in k)
+            dw_text = (f"dW kernel {k_dw_ms:.3f} ms ({k_dw_ms / k_ms:.1%} of the call; "
+                       f"{sizes[4]} CTA tiles x {r_dw_ctas // sizes[4]} chunks = {r_dw_ctas} "
+                       f"CTAs on {sms} SMs), chain {k_chain_ms:.3f} ms (torch.profiler)" if kt
+                       else "dW kernel's share not measured (torch.profiler saw no device time)")
+            print(f"hidden_dim {D}: {kname} {TRAIN_RAYS} rays x 128 {k_ms:.3f} ms "
+                  f"({r_flops / k_ms / 1e9:.1f} TFLOP/s, {k_ms / k_bound:.2f} x the bound "
+                  f"{k_bound:.3f} ms by {k_by}, {r_flops / 1e12:.3f} TFLOP), plain version "
+                  f"{k_plain_ms:.1f} ms; against it {kk} at {kshare:.3f} of its tolerance; "
+                  f"{dw_text}; operands the chain hands the dW kernel "
+                  f"{r_operand_bytes / 1e9:.3f} GB ({r_operand_bytes / (TRAIN_RAYS * 128):.0f} "
+                  f"B a sample, outside the bound); launches on the main path {launches}")
+            entries.append({"name": f"{kname} (hidden_dim {D})", "route": "cuda",
+                            "source": f"nope_nerf_torch/csrc/{kname}.cu",
+                            "replaces": "nope_nerf_tpu/ops/pallas_render.py:"
+                                        + ("605" if kname == "render_train" else "535"),
+                            "launches": launches,
+                            "max_abs_err": max(wide["worst"][(kname, D)], k_err),
+                            "ms": k_ms, "plain_ms": k_plain_ms, "bound_ms": k_bound,
+                            "bound_by": k_by, "library_ms": None})
+            summary[f"{kname}_{D}"] = {
+                "ms": k_ms, "bound_ms": k_bound, "dw_ms": k_dw_ms if kt else None,
+                "chain_ms": k_chain_ms if kt else None, "dw_ctas": r_dw_ctas,
+                "operand_bytes": r_operand_bytes}
         g = p["graph"]
         summary[f"hier_step_ms_{D}"] = {"eager": g["eager_ms"], "replay": g["replay_ms"],
                                         "peak_gb": g["peak_gb"], "pool_mb": g["pool_mb"]}
+        for path in ("fused", "invariant"):
+            g = p[f"graph_{path}"]
+            summary[f"{path}_step_ms_{D}"] = {"eager": g["eager_ms"], "replay": g["replay_ms"],
+                                              "peak_gb": g["peak_gb"], "pool_mb": g["pool_mb"]}
+            print(f"hidden_dim {D}: {path} train step, {TRAIN_RAYS} rays on {h}x{w} frames, "
+                  f"replayed {g['replay_ms']:.3f} ms, eager {g['eager_ms']:.3f} ms a step; pool "
+                  f"{g['pool_mb']:.0f} MB, peak device memory of the eager steps "
+                  f"{g['peak_gb']:.2f} GB")
         for path in ("fused", "hier"):
             g = p[f"graph_{path}"]
             summary[f"pose_opt_{path}_ms_{D}"] = {"eager": g["eager_ms"], "replay": g["replay_ms"]}
@@ -3930,7 +4159,7 @@ def main() -> int:
     # ---- 12. every sample count: the kernels at 256 to 4096 samples, the path at 512
     many = run_many_samples(torch, np, dev)
 
-    # ---- 13. hidden_dim 384 and 512: K3, K5, K4 and K6 frozen, K6 full; render, eval, train
+    # ---- 13. hidden_dim 384 and 512: every kernel of the MLP; render, eval, train
     wide = run_wide(torch, np, dev)
 
     # ---- 9. timing at the main paths' shapes ---------------------------------

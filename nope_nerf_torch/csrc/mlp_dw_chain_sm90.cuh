@@ -17,7 +17,8 @@
 //   end in CTA and warpgroup order (chain_reduce_kernel);
 // - the work table of dw_sm90.cuh over those operands (chain_dw_table).
 // At hidden_dim 384 and 512 the same hand-off runs on the 64-point chain of
-// mlp_dx_wide_sm90.cuh (OperandSaveW and the heads below it; K6 full only).
+// mlp_dx_wide_sm90.cuh (OperandSaveW and the heads below it; K6 full, and with
+// RENDER the render kernels, whose segment starts at dW[12]).
 // No float atomics: two launches give the same bits.
 
 #pragma once
@@ -323,7 +324,8 @@ inline cudaError_t chain_reduce_launch(const float* part, float* grads, int seg,
 // kernels form per ray), the render kernels' first 11. A block wider than the
 // dW kernel's 256 columns (at hidden_dim 384 and 512) goes in column pieces of
 // 256, then 128, then 64 (ops/fused_mlp.py::point_dw_pieces): 24 pieces at
-// 384, 22 at 512; at 128 and 256 every block is one piece.
+// 384, 22 at 512 (the render kernels' table: 22 and 21,
+// fused_mlp.render_dw_pieces); at 128 and 256 every block is one piece.
 template <int D>
 DwTable chain_dw_table(const unsigned char* xops, const unsigned char* gops, float* grads,
                        long long n_pass, bool de) {
@@ -435,9 +437,10 @@ __device__ __forceinline__ void copy_blocks_w(const unsigned char* src, unsigned
 
 // A CTA's per-warp column sums in device memory: two buffers (one layer's,
 // the next layer's) x 2 warpgroups x 4 warps x D/2 floats. The rgb head's
-// backward takes all of it: 4 sums x 4 warps x D/4 floats a warpgroup.
-template <int D>
-__host__ __device__ constexpr size_t red_bytes_w() { return sizeof(float) * 8 * D; }
+// backward takes all of it: 4 sums x 4 warps x D/4 floats a warpgroup; with
+// RENDER, 5 sums, which take red_bytes_w<D, true>'s 10 D floats.
+template <int D, bool RENDER = false>
+__host__ __device__ constexpr size_t red_bytes_w() { return sizeof(float) * (RENDER ? 10 : 8) * D; }
 
 // mlp_tile_w_masks' and dx_chain_w's hook in K6 full at 384 and 512. Each
 // warpgroup saves the 64-column blocks it wrote (its D/2 columns of a layer),
@@ -447,8 +450,9 @@ __host__ __device__ constexpr size_t red_bytes_w() { return sizeof(float) * 8 * 
 // which the chain reads back for dW[9], by the warpgroup's own stores. grad(i)
 // also sums the layer's bias gradient: its four warps' column sums from
 // red_at(i) in warp order, added to the warpgroup's segment (chain_seg:
-// dW[9], then the gradient buffer from dW[13] to the end of dB[11]).
-template <int D>
+// dW[9], then the gradient buffer from dW[13] to the end of dB[11]; with
+// RENDER, the render kernels', from dW[12] to the end of the loss sums).
+template <int D, bool RENDER = false>
 struct OperandSaveW {
   static constexpr bool kSum = true;
   static constexpr int kBlocks = D / 128;   // a warpgroup's 64-column blocks of a layer
@@ -479,7 +483,7 @@ struct OperandSaveW {
     const GradLayout lay = grad_layout(D);
     const int k = i == 1 ? 9 : 9 - i;   // the layer's dB block: g_feat's 9, g_l's l
     const float* r = red_at(i, wg);
-    float* b = part + wg * seg + D + (lay.b[0] - lay.w[13]) +
+    float* b = part + wg * seg + D + (lay.b[0] - (RENDER ? lay.w[12] : lay.w[13])) +
                (k == 9 ? lay.b[9] - lay.b[0] : k * D) + wg * N;
     for (int c = threadIdx.x & 127; c < N; c += 128)
       b[c] += ((__ldcg(r + c) + __ldcg(r + N + c)) + __ldcg(r + 2 * N + c)) + __ldcg(r + 3 * N + c);
@@ -490,6 +494,12 @@ struct OperandSaveW {
   }
 };
 
+// h's two bf16 under a thread's cell of a buffer parked in device memory, past L1.
+__device__ __forceinline__ __nv_bfloat162 ldcg_bf162(const unsigned char* p) {
+  const unsigned int u = __ldcg(reinterpret_cast<const unsigned int*>(p));
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+
 // mlp_dx_wide_sm90.cuh's rgb_head_bwd_w (the same g_h bits) with the
 // gradients that stay in the chain (rgb_head_bwd_full's at these widths):
 // each thread also reads h under its cells before it writes g_h over them,
@@ -498,21 +508,30 @@ struct OperandSaveW {
 // the warpgroup's four warps in order through red, added to the warpgroup's
 // segment seg_wg. dB[11] and dB[8], the tile's f32 sums of the raw-rgb and
 // raw-density cotangents in row order, by four threads into seg0 (the CTA's
-// first segment). Starts and ends synchronised (both warpgroups), the buffer
-// fenced for wgmma.
-template <int D>
+// first segment). With RENDER (K1 and K4 full: segments from dW[12]) h comes
+// from `hsrc`, the tile's h parked in device memory in the buffer's layout
+// (the composite has had the buffers since the tile's forward), and each
+// thread also sums its two rows' bf16 g_h, which go through the same warp
+// and warpgroup order as rgb_head_bwd_w's into ghsum: the same bits; red then
+// holds five sums a column, not four. Starts and ends synchronised (both
+// warpgroups), the buffer fenced for wgmma.
+template <int D, bool RENDER = false>
 __device__ __forceinline__ void rgb_head_bwd_w_full(unsigned char* act, const float* grgb,
                                                     const float* graw, const uint32_t* mask_h,
                                                     const unsigned char* rgb_head, float* red,
-                                                    float* seg0, float* seg_wg) {
+                                                    float* seg0, float* seg_wg,
+                                                    const unsigned char* hsrc = nullptr,
+                                                    float* ghsum = nullptr) {
   constexpr int N = D / 4;   // a warpgroup's columns of h
   constexpr int W = mask_words_w<N>();
+  constexpr int R = RENDER ? 5 : 4;   // sums a column
   const GradLayout lay = grad_layout(D);
+  const int from = RENDER ? lay.w[12] : lay.w[13];   // the segments' first float
   unsigned char* buf = act + kWRows * D * 2;
   const int tid = threadIdx.x, wg = tid >> 7;
   const int lane = tid & 31, w = (tid >> 5) & 3;
   const int row = 16 * w + (lane >> 2), t = lane & 3;
-  float* red_wg = red + wg * 16 * N;   // [sum][warp][column]
+  float* red_wg = red + wg * 4 * R * N;   // [sum][warp][column]
   consumer_sync();   // the forward is done with the buffers, the cotangents are in
   uint32_t bits[W];
 #pragma unroll
@@ -527,9 +546,12 @@ __device__ __forceinline__ void rgb_head_bwd_w_full(unsigned char* act, const fl
   for (int j = 0; j < N / 8; ++j) {
     const int col = wg * N + 8 * j + 2 * t;
     const uint32_t m = bits[(4 * j) >> 5] >> ((4 * j) & 31);
-    const __nv_bfloat162 h0 = *reinterpret_cast<const __nv_bfloat162*>(buf + swz(row, col, kWBlockBytes));
+    const __nv_bfloat162 h0 =
+        RENDER ? ldcg_bf162(hsrc + swz(row, col, kWBlockBytes))
+               : *reinterpret_cast<const __nv_bfloat162*>(buf + swz(row, col, kWBlockBytes));
     const __nv_bfloat162 h1 =
-        *reinterpret_cast<const __nv_bfloat162*>(buf + swz(row + 8, col, kWBlockBytes));
+        RENDER ? ldcg_bf162(hsrc + swz(row + 8, col, kWBlockBytes))
+               : *reinterpret_cast<const __nv_bfloat162*>(buf + swz(row + 8, col, kWBlockBytes));
     const float hv[2][2] = {{__low2float(h0), __high2float(h0)}, {__low2float(h1), __high2float(h1)}};
     float v[4];
 #pragma unroll
@@ -543,26 +565,30 @@ __device__ __forceinline__ void rgb_head_bwd_w_full(unsigned char* act, const fl
     const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]), hi = __floats2bfloat162_rn(v[2], v[3]);
     *reinterpret_cast<__nv_bfloat162*>(buf + swz(row, col, kWBlockBytes)) = lo;
     *reinterpret_cast<__nv_bfloat162*>(buf + swz(row + 8, col, kWBlockBytes)) = hi;
-    float s[2][4];   // per column h: the masked g_h, then h bf16(g_rgb[k])
+    float s[2][R];   // per column h: the masked g_h, then h bf16(g_rgb[k]), then bf16 g_h
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       s[h][0] = v[h] + v[2 + h];
 #pragma unroll
       for (int k = 0; k < 3; ++k) s[h][1 + k] = hv[0][h] * g[0][k] + hv[1][h] * g[1][k];
     }
+    if (RENDER) {
+      s[0][R - 1] = __low2float(lo) + __low2float(hi);
+      s[1][R - 1] = __high2float(lo) + __high2float(hi);
+    }
 #pragma unroll
     for (int off = 4; off < 32; off <<= 1) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) s[h][q] += __shfl_xor_sync(0xffffffffu, s[h][q], off);
+        for (int q = 0; q < R; ++q) s[h][q] += __shfl_xor_sync(0xffffffffu, s[h][q], off);
       }
     }
     if ((lane >> 2) == 0) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) __stcg(red_wg + (4 * q + w) * N + 8 * j + 2 * t + h, s[h][q]);
+        for (int q = 0; q < R; ++q) __stcg(red_wg + (4 * q + w) * N + 8 * j + 2 * t + h, s[h][q]);
       }
     }
   }
@@ -570,25 +596,26 @@ __device__ __forceinline__ void rgb_head_bwd_w_full(unsigned char* act, const fl
   consumer_sync();
   const int lt = tid & 127;
   if (lt < N) {
-    float v[4];
+    float v[R];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int q = 0; q < R; ++q) {
       const float* r = red_wg + 4 * q * N + lt;
       v[q] = ((__ldcg(r) + __ldcg(r + N)) + __ldcg(r + 2 * N)) + __ldcg(r + 3 * N);
     }
     const int c = wg * N + lt;   // the column of h
-    seg_wg[D + (lay.b[10] - lay.w[13]) + c] += v[0];
+    seg_wg[D + (lay.b[10] - from) + c] += v[0];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) seg_wg[D + 3 * c + k] += v[1 + k];
+    for (int k = 0; k < 3; ++k) seg_wg[D + (lay.w[13] - from) + 3 * c + k] += v[1 + k];
+    if (RENDER) ghsum[c] += v[R - 1];
   }
   if (tid < 4) {   // dB[11] (3) and dB[8]
     float acc = 0.f;
     if (tid < 3) {
       for (int m = 0; m < kWRows; ++m) acc += grgb[4 * m + tid];
-      seg0[D + (lay.b[11] - lay.w[13]) + tid] += acc;
+      seg0[D + (lay.b[11] - from) + tid] += acc;
     } else {
       for (int m = 0; m < kWRows; ++m) acc += graw[m];
-      seg0[D + (lay.b[8] - lay.w[13])] += acc;
+      seg0[D + (lay.b[8] - from)] += acc;
     }
   }
   consumer_sync();   // red is free again

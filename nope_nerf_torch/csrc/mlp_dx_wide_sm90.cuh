@@ -10,8 +10,10 @@
 //
 // Numerics are those of mlp_dx_sm90.cuh (and of the plain version,
 // ops/fused_render.py::mlp_backward), in a fixed order:
-// - the forward as mlp_fwd_wide_sm90.cuh's (each product summed from the
-//   bias, then 16-column steps of K in order);
+// - the forward's products as mlp_fwd_wide_sm90.cuh's, but each 32-column
+//   slice of K summed from zero by the tensor cores, then added in f32 to the
+//   accumulator, which starts at the bias, slice by slice in order
+//   (ring_products_wp below);
 // - every cotangent rounded to bf16 before it enters a product, each product
 //   summed from zero over 16-column steps of K in order, then in the
 //   epilogue's order: + gs wd (the density head's rank-1 term), the ReLU
@@ -188,6 +190,42 @@ __device__ __forceinline__ void store_w_mask(const float (&acc)[N / 2], unsigned
 
 // ---- the forward, masks kept ----------------------------------------------------
 
+// ring_products_w with each slice's product summed from zero, P columns at a
+// time, and added to acc by the CUDA cores (round to nearest). The tensor
+// cores truncate as they accumulate, so a sum carried across all of K drifts
+// towards zero, one step of 16 columns at a time: at K = 512 that flipped 2 to
+// 3 x as many bf16 roundings and ReLU masks as an f32 evaluation. A slice's
+// sum starts from zero, so its truncation is on the scale of 32 products and
+// of either sign, and the running sum is rounded to nearest.
+template <int N>
+__device__ __forceinline__ void ring_products_wp(float (&acc)[N / 2], uint32_t a, int slices,
+                                                 uint32_t b_off, Ring& ring) {
+  constexpr int P = N % 64 == 0 ? 64 : 32;   // N = 96: three pieces of 32
+  const bool leader = (threadIdx.x & 31) == 0;
+  for (int s = 0; s < slices; ++s) {
+    const uint32_t stage = ring.it % ring.stages;
+    mbar_wait(ring.full + 8 * stage, (ring.it / ring.stages) & 1);
+    const uint32_t b = ring.base + stage * ring.stride + b_off;
+    const uint32_t as = a + (s >> 1) * kWBlockBytes + (s & 1) * 64;
+#pragma unroll
+    for (int c = 0; c < N / P; ++c) {
+      float t[P / 2];
+#pragma unroll
+      for (int i = 0; i < P / 2; ++i) t[i] = 0.f;
+      const uint32_t bc = b + c * P * 64;   // the piece's rows of the slice (64 bytes each)
+      wgmma_fence();
+      wgmma_bf16<P>(t, sw128_desc(as), sw64_desc(bc));
+      wgmma_bf16<P>(t, sw128_desc(as + 32), sw64_desc(bc + 32));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < P / 2; ++i) acc[c * (P / 2) + i] += t[i];
+    }
+    if (leader) mbar_arrive(ring.empty + 8 * stage);
+    ++ring.it;
+  }
+}
+
 // No operand leaves the tile. A hook of the kernels with weight gradients
 // saves X operand i (0 pe, 1..8 x0..x7, 9 feat, 10 de) from the shared
 // buffer `src` once it is written (operator()), G operand i (0 g_h, 1
@@ -205,10 +243,11 @@ struct NoSaveW {
 
 // mlp_fwd_wide_sm90.cuh's mlp_tile_w with the ReLU layers' masks kept in
 // `masks` (one tile's words, device memory): the same products in the same
-// order, the same roundings. x_l lands in buffer l % 2, feat in buffer 0 and
-// h in buffer 1. Raw rgb and density go to hout[4p + 0..3]; ends with every
-// product done and hout's rows written, by warpgroup 0 (rgb) and 1
-// (density): the caller synchronises the consumers before it reads them.
+// order, each slice's summed from zero (ring_products_wp), the same
+// roundings. x_l lands in buffer l % 2, feat in buffer 0 and h in buffer 1.
+// Raw rgb and density go to hout[4p + 0..3]; ends with every product done
+// and hout's rows written, by warpgroup 0 (rgb) and 1 (density): the caller
+// synchronises the consumers before it reads them.
 template <int D, typename Save = NoSaveW>
 __device__ __forceinline__ void mlp_tile_w_masks(const float* const* b, uint32_t pe, uint32_t de,
                                                  unsigned char* act, uint32_t dens_w,
@@ -232,7 +271,7 @@ __device__ __forceinline__ void mlp_tile_w_masks(const float* const* b, uint32_t
   {
     float acc[N / 2];
     acc_bias<N>(acc, b[0] + wg * N);
-    ring_products_w<N>(acc, pe, T::kPeSlices, b_full, ring);
+    ring_products_wp<N>(acc, pe, T::kPeSlices, b_full, ring);
     store_w_mask<N, true>(acc, act, wg * N, masks);
     consumer_sync();
     save(1, wg, act);
@@ -240,9 +279,9 @@ __device__ __forceinline__ void mlp_tile_w_masks(const float* const* b, uint32_t
     for (int l = 1; l < 8; ++l) {
       const uint32_t in = (l & 1) ? 0u : kBuf;
       acc_bias<N>(acc, b[l] + wg * N);
-      ring_products_w<N>(acc, act_s + in, T::kK, b_full, ring);
+      ring_products_wp<N>(acc, act_s + in, T::kK, b_full, ring);
       if (l == 4) {
-        ring_products_w<N>(acc, pe, T::kPeSlices, b_full, ring);
+        ring_products_wp<N>(acc, pe, T::kPeSlices, b_full, ring);
         if (leader) mbar_arrive(hand.pe_free);
       }
       save.drain(wg);
@@ -252,7 +291,7 @@ __device__ __forceinline__ void mlp_tile_w_masks(const float* const* b, uint32_t
     }
     if (wg == 1) head_w<D>(act_s + kBuf, dens_w, b[8], hout, 3, 1);
     acc_bias<N>(acc, b[9] + wg * N);
-    ring_products_w<N>(acc, act_s + kBuf, T::kK, b_full, ring);
+    ring_products_wp<N>(acc, act_s + kBuf, T::kK, b_full, ring);
     save.drain(wg);
     store_w<N, false>(acc, act, wg * N);
     consumer_sync();
@@ -260,11 +299,11 @@ __device__ __forceinline__ void mlp_tile_w_masks(const float* const* b, uint32_t
   }
   float acc[H / 2];
   acc_bias<H>(acc, hbias + wg * H);
-  ring_products_w<H>(acc, act_s, T::kK, b_half, ring);
+  ring_products_wp<H>(acc, act_s, T::kK, b_half, ring);
   if (de != 0) {
     mbar_wait(hand.de_full, parity);
     save(10, wg, act + (de - act_s));
-    ring_products_w<H>(acc, de, 1, b_half, ring);
+    ring_products_wp<H>(acc, de, 1, b_half, ring);
     save.drain(wg);
     if (leader) mbar_arrive(hand.de_free);
   }

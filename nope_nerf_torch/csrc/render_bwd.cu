@@ -27,7 +27,7 @@ extern "C" int nerf_bwd_grad_layout(int D, int* offsets) {
   return render_grad_layout(D, offsets, false);
 }
 
-// Bytes of nerf_render_bwd's scratch buffers into sizes[0..5], as
+// Bytes of nerf_render_bwd's scratch buffers into sizes[0..6], as
 // nerf_render_train_scratch gives them for the train kernel.
 extern "C" int nerf_render_bwd_scratch(int D, long long chunk_rays, int S, int n_ctas,
                                        long long* sizes) {
@@ -44,10 +44,10 @@ extern "C" int nerf_render_bwd(const float* rays, const float* z, const float* g
                                const float* g_dist, const float* g_w, const float* g_a,
                                const void* tiles, const void* tiles_dx,
                                const void* const* biases, void* xops, void* gops,
-                               float* chain_part, float* dw_part, float* spill, float* grads,
-                               float* drays, float* dz, int n_rays, int chunk_rays, int S, int D,
-                               int n_ctas, int chunks, int occ_softplus, int head_dist_alpha,
-                               int dist_alpha, int total, void* stream) {
+                               float* chain_part, float* dw_part, float* spill, void* scratch,
+                               float* grads, float* drays, float* dz, int n_rays, int chunk_rays,
+                               int S, int D, int n_ctas, int chunks, int occ_softplus,
+                               int head_dist_alpha, int dist_alpha, int total, void* stream) {
   cudaError_t err = render_full_check(n_rays, chunk_rays, S, D, n_ctas, chunks, total, tiles,
                                       tiles_dx, xops, gops);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -60,13 +60,9 @@ extern "C" int nerf_render_bwd(const float* rays, const float* z, const float* g
   auto* xo = static_cast<unsigned char*>(xops);
   auto* go = static_cast<unsigned char*>(gops);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = D == 256
-      ? render_full_launch<256, false>(rays, z, cin, w, wdx, bias, xo, go, chain_part, dw_part,
-                                       spill, grads, drays, dz, n_rays, chunk_rays, S, n_ctas,
-                                       chunks, fl, st)
-      : render_full_launch<128, false>(rays, z, cin, w, wdx, bias, xo, go, chain_part, dw_part,
-                                       spill, grads, drays, dz, n_rays, chunk_rays, S, n_ctas,
-                                       chunks, fl, st);
+  err = render_full_run<false>(D, rays, z, cin, w, wdx, bias, xo, go, chain_part, dw_part,
+                               spill, static_cast<unsigned char*>(scratch), grads, drays, dz,
+                               n_rays, chunk_rays, S, n_ctas, chunks, fl, st);
   return static_cast<int>(err);
 }
 

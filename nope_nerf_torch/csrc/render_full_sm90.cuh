@@ -67,6 +67,29 @@
 // D = 128) the per-sample arrays, and above S = 1,536 (768) the
 // composite's, go to the CTA's share of a scratch in device memory
 // (mlp_fwd_sm90.cuh's RayPlace).
+//
+// At D = 384 and 512, render_full_wide_kernel takes the chain's place: the
+// 64-point chain of mlp_dx_wide_sm90.cuh, as render_bwd_frozen.cu's wide
+// kernel runs it (a ray is S/64 tiles; each tile's forward runs once, its
+// ReLU masks kept in the CTA's scratch in device memory, the parked g4 in
+// the same scratch), with mlp_dw_chain_sm90.cuh's OperandSaveW<D, true> as
+// the forward's and the chain's hook: pass t of a chunk (tile t % (S/64) of
+// ray t / (S/64)) writes half t % 2 of row tile t / 2 of each operand, in
+// that single forward for the X operands; each dX epilogue's column sums go
+// through the scratch in warp order into the warpgroup's segment. What the
+// narrow kernel reads from its activation buffer after the composite, the
+// wide one reads from the scratch: each tile's h, copied there after its
+// forward (the composite borrows both buffers), for dW[13]
+// (rgb_head_bwd_w_full<D, true>, which also forms the per-ray sum of bf16
+// g_h for dW[12] and the direction's VJP in rgb_head_bwd_w's order), and x7
+// from its operand tile for dW[9] (density_head_dw_w). The per-CTA scratch:
+// g4 (64 x D bf16), the column sums (10 D floats), then the masks and h of
+// the ray's S/64 tiles: 1.2 MB at D = 512, S = 1024. The same three launches
+// per chunk of rays, the same partial sums and dW table (22 column pieces at
+// 384, 21 at 512), so the same invariants: two launches give the same bits,
+// K4 fed K1's cotangents gives K1's gradients, and d(rays), dz are the wide
+// frozen variant's bit for bit (the hook adds stores and sums and reorders
+// no sum of the chain). Shared memory is that frozen kernel's.
 
 #pragma once
 
@@ -318,26 +341,283 @@ render_full_kernel(const float* __restrict__ rays, const float* __restrict__ z, 
   bulk_complete();   // every bulk copy of the CTA's operands, before it exits
 }
 
+// ---- hidden_dim 384 and 512: the 64-point chain of mlp_dx_wide_sm90.cuh ----------
+
+// Shared bytes beside the per-sample arrays at the wide widths (render_bwd_frozen.cu's
+// wide kernel's): the direction encoding (32), the rgb-hidden bias (D/2), ghsum (D/2),
+// reduction scratch (4 x D/2), the ray (16), rsum (16), the tile's bf16 graw (64), the
+// ray's cotangents and the CTA's loss sums (16).
+template <int D>
+size_t render_full_fixed_bytes_w() {
+  return sizeof(float) * (kDe + D / 2 + D / 2 + 4 * (D / 2) + 16 + 16 + kWRows + 16);
+}
+
+template <int D>
+RayPlace full_place_w(int S) {
+  return ray_place<D, LayoutW<D>>(S, kRaySampleF32, kRayCompositeF32,
+                                  render_full_fixed_bytes_w<D>(), FwdTrunk<D>::kActBytes);
+}
+
+// One tile's h (64 x D/2 bf16, the buffer's first D/128 blocks), parked.
+template <int D>
+__host__ __device__ constexpr size_t h_tile_bytes_w() {
+  return static_cast<size_t>(kWRows) * (D / 2) * 2;
+}
+
+// A CTA's scratch: the parked g4, the column sums, then the masks and the h of
+// each of a ray's S/64 tiles.
+template <int D>
+__host__ __device__ size_t render_scratch_w(int S) {
+  return g4_bytes_w<D>() + red_bytes_w<D, true>() +
+         static_cast<size_t>(S / kWRows) * (mask_tile_bytes_w<D>() + h_tile_bytes_w<D>());
+}
+
+// The per-ray arrays' place and the shared bytes beside them at width D: the
+// narrow kernel's at 128 and 256, the wide kernel's at 384 and 512.
+template <int D>
+RayPlace full_place_at(int S) {
+  if constexpr (D > 256)
+    return full_place_w<D>(S);
+  else
+    return full_place<D>(S);
+}
+template <int D>
+size_t full_fixed_bytes_at() {
+  if constexpr (D > 256)
+    return render_full_fixed_bytes_w<D>();
+  else
+    return render_full_fixed_bytes<D>();
+}
+
+// The tile's h from buffer 1 to `dst` (device memory), by the consumers'
+// 16-byte stores past L1. h is complete when mlp_tile_w_masks returns, and
+// the next write over it follows the next tile's first consumer barrier.
+template <int D>
+__device__ __forceinline__ void park_h_w(const unsigned char* buf1, unsigned char* dst) {
+  for (int e = threadIdx.x; e < static_cast<int>(h_tile_bytes_w<D>() / 16); e += kConsumers)
+    __stcg(reinterpret_cast<int4*>(dst) + e, reinterpret_cast<const int4*>(buf1)[e]);
+}
+
+// K1 (LOSS) and K4 full at D = 384 and 512: render_full_kernel's work per ray
+// on 64-point tiles. tile_bytes: one 64-column block over the chunk's row
+// tiles (PassTilesW).
+template <int D, bool LOSS>
+__global__ void __launch_bounds__(kThreads90, 1)
+render_full_wide_kernel(const float* __restrict__ rays, const float* __restrict__ z,
+                        RayCotangents cin, const unsigned char* __restrict__ tiles,
+                        const unsigned char* __restrict__ tiles_dx, Biases bias,
+                        unsigned char* xops, unsigned char* gops, float* chain_part,
+                        unsigned char* scratch, float* spill, float* __restrict__ drays,
+                        float* __restrict__ dz, int n_rays, int S, RenderFlags fl, LayoutW<D> L,
+                        RayPlace place, size_t tile_bytes) {
+  using T = TilesW<D>;
+  constexpr int H = D / 2;
+  constexpr size_t kMaskTileWords = mask_tile_bytes_w<D>() / sizeof(uint32_t);
+  constexpr uint32_t kBuf = kWRows * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = setup90(smem_raw, L.bars, L.stages);
+  Ring ring = make_ring(base, L.ring, L.bars, T::kFull, L.stages);
+  const uint32_t head_bar = ring.full + 16 * kMaxStages;
+  const uint32_t heads = smem_addr(base + L.heads);
+  const Handoff hand = make_handoff(ring);
+  const int passes = S / kWRows;
+
+  if (threadIdx.x >= kConsumers) {
+    set_producer_regs();
+    render_producer_w<D>(rays, z, tiles, tiles_dx, ring, heads, head_bar, hand, base + L.pe,
+                         n_rays, S);
+    return;
+  }
+  set_consumer_regs();
+
+  const GradLayout lay = grad_layout(D);
+  const int seg = render_seg(D);
+  float* const f32 = reinterpret_cast<float*>(base + L.f32);
+  float* const act = reinterpret_cast<float*>(base + L.act);
+  const RayArrays arr = ray_arrays(place, S, f32, act, spill);
+  float* fz = arr.samples;                              // z                      (S)
+  float* hout = fz + S;                                 // rgb | raw density      (S,4)
+  float* graw = hout + 4 * S;                           // raw-density cotangent  (S)
+  float* grgb = graw + S;                               // raw-rgb cotangent      (S,4)
+  float* gz = grgb + 4 * S;                             // dz                     (S)
+  float* de = arr.fixed;                                // direction encoding     (32)
+  float* debias = de + kDe;                             // rgb-hidden bias        (D/2)
+  float* ghsum = debias + H;                            // sum of bf16 g_h        (D/2)
+  float* red = ghsum + H;                               // scratch                (4 D/2)
+  float* ray = red + 4 * H;                             // o | v | dir            (16)
+  float* rsum = ray + 16;                               // d_o, d_v, d_dir        (16)
+  float* gsbf = rsum + 16;                              // the tile's bf16 graw   (64)
+  float* cot = gsbf + kWRows;   // g_rgb (0-2), g_dist (3), the CTA's loss sums (8-10)
+  // between the forward and the backward: alpha, weights, transmittance and
+  // the scan buffers (S each), in the activation buffers while they fit
+  float* alpha = arr.composite;
+  float* wts = alpha + S;
+  float* trans = wts + S;
+  float* scan0 = trans + S;
+  float* scan1 = scan0 + S;
+  unsigned char* own = scratch + static_cast<size_t>(blockIdx.x) * render_scratch_w<D>(S);
+  unsigned char* g4 = own;
+  float* red_d = reinterpret_cast<float*>(own + g4_bytes_w<D>());   // the column sums
+  uint32_t* masks = reinterpret_cast<uint32_t*>(own + g4_bytes_w<D>() + red_bytes_w<D, true>());
+  unsigned char* h_park = own + g4_bytes_w<D>() + red_bytes_w<D, true>() +
+                          static_cast<size_t>(passes) * mask_tile_bytes_w<D>();
+  const unsigned char* dens_head = base + L.heads;
+  const unsigned char* rgb_head = dens_head + T::kDensHead;
+  // w12 staged for the per-ray bias and dde where the activation buffers are
+  // free: at the ray's start and end
+  unsigned char* w12 = base + L.act;
+  const uint32_t pe_s = smem_addr(base + L.pe);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  // the segments: CTA-wide sums in the first, each warpgroup's dB in its own
+  float* part0 = chain_part + static_cast<size_t>(blockIdx.x) * 2 * seg;
+  const int w12_at = D, sums_at = D + (lay.sums - lay.w[12]);
+  for (int e = tid; e < 2 * seg; e += kConsumers) part0[e] = 0.f;
+  __threadfence_block();
+  if (tid < 16) cot[tid] = 0.f;
+  OperandSaveW<D, true> hook;
+  hook.tiles = PassTilesW<D>{xops, gops, tile_bytes, 0};
+  hook.red = red_d;
+  hook.part = part0;
+  hook.seg = seg;
+  mbar_wait(head_bar, 0);
+
+  long long tile = 0;
+  for (long long r = blockIdx.x; r < n_rays; r += gridDim.x) {
+    consumer_sync();   // the previous ray is done with every buffer
+    if (tid < 9) ray[tid] = rays[r * 9 + tid];
+    if (!LOSS) {
+      if (tid < 3) cot[tid] = cin.g_rgb[r * 3 + tid];
+      if (tid == 3) cot[3] = cin.g_dist[r];
+    }
+    for (int s = tid; s < S; s += kConsumers) fz[s] = z[r * S + s];
+    consumer_sync();
+    if (tid < kDe) de[tid] = __bfloat162float(__float2bfloat16_rn(dense_lane(ray + 6, tid, 4)));
+    stage_w12_w<D>(w12, tiles + T::kW12);
+    consumer_sync();
+    for (int j = tid; j < H; j += kConsumers) {   // render_fwd.cu's order: the same bits
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < kDe; ++k) {
+        const bf16 wv = *reinterpret_cast<const bf16*>(w12 + swz64(j, k));
+        acc = fmaf(de[k], __bfloat162float(wv), acc);
+      }
+      debias[j] = acc + bias.b[10][j];
+    }
+    consumer_sync();
+
+    // ---- forward: every tile's raw heads, masks, X operands and h, once ------
+    for (int p = 0; p < passes; ++p, ++tile) {
+      hook.tiles.pass = r * passes + p;
+      mlp_tile_w_masks<D>(bias.b, pe_s, 0, base + L.act, heads, heads + T::kDensHead, debias,
+                          hout + 4 * kWRows * p, hand, tile, ring, masks + p * kMaskTileWords,
+                          hook);
+      park_h_w<D>(base + L.act + kBuf, h_park + p * h_tile_bytes_w<D>());
+      __threadfence_block();   // x7's operand tile and h, before other threads read them back
+    }
+    hook.drain(wg);   // the composite borrows the buffers the forward's copies read
+    consumer_sync();
+    float ray_sums[5] = {0.f, 0.f, 0.f, 0.f, 0.f};   // rgb (3), dist, sum of weights
+    composite_fwd90(hout, fz, alpha, trans, wts, scan0, scan1, S, fl.occ_softplus,
+                    fl.head_dist_alpha, fl.dist_alpha, LOSS ? ray_sums : nullptr);
+
+    // ---- with LOSS: the loss rows and the analytic cotangents (render_train's)
+    if (LOSS) {
+      block_sum90<5>(ray_sums, red);
+      if (tid == 0) {
+        const float* tg = cin.tgt + r * kTgt;
+        const float m = tg[kTgtMask], w_rgb = tg[kTgtWrgb], w_depth = tg[kTgtWdepth];
+        float row_rgb = 0.f, row_l2 = 0.f;
+        float* dt = cin.dtgt + r * kTgt;
+        for (int c = 0; c < 3; ++c) {
+          float v = red[c];
+          if (cin.white_bg) v += 1.f - red[4];
+          const float diff = v - tg[c];
+          row_rgb += cin.rgb_p == 1 ? fabsf(diff) : diff * diff;
+          row_l2 += diff * diff;
+          const float sgn = static_cast<float>((diff > 0.f) - (diff < 0.f));
+          cot[c] = w_rgb * (cin.rgb_p == 1 ? sgn : 2.f * diff);
+          dt[c] = -cot[c];
+        }
+        const float ddiff = red[3] - tg[kTgtDepth];
+        const float row_depth = m * fabsf(ddiff);
+        cot[3] = w_depth * m * static_cast<float>((ddiff > 0.f) - (ddiff < 0.f));
+        dt[kTgtDepth] = -cot[3];
+        dt[kTgtMask] = 0.f;
+        dt[kTgtWrgb] = row_rgb;
+        dt[kTgtWdepth] = row_depth;
+        cot[8] += row_rgb;
+        cot[9] += row_depth;
+        cot[10] += row_l2;
+      }
+      consumer_sync();
+    }
+
+    // ---- composite backward (f32) ---------------------------------------------
+    composite_bwd90(cot, cot[3], LOSS ? cin.white_bg : 0,
+                    LOSS || cin.g_w == nullptr ? nullptr : cin.g_w + r * S,
+                    LOSS || cin.g_a == nullptr ? nullptr : cin.g_a + r * S, hout, fz, alpha,
+                    trans, wts, scan0, scan1, graw, grgb, gz, S, fl.occ_softplus,
+                    fl.head_dist_alpha, fl.dist_alpha);
+    if (tid < H) ghsum[tid] = 0.f;
+    if (tid < 16) rsum[tid] = 0.f;
+    consumer_sync();
+
+    // ---- heads -> MLP -> encoding, tile by tile -------------------------------
+    for (int p = 0; p < passes; ++p) {
+      const int p0 = p * kWRows;
+      const uint32_t* tmask = masks + p * kMaskTileWords;
+      hook.tiles.pass = r * passes + p;
+      if (tid < kWRows) gsbf[tid] = bf16_round(graw[p0 + tid]);
+      rgb_head_bwd_w_full<D, true>(base + L.act, grgb + 4 * p0, graw + p0,
+                                   tmask + 8 * mask_layer_words_w<D>(), rgb_head, red_d, part0,
+                                   part0 + wg * seg, h_park + p * h_tile_bytes_w<D>(), ghsum);
+      density_head_dw_w<D>(hook.tiles, gsbf, part0);
+      float dpe[32];
+      dx_chain_w<D>(dpe, base + L.act, ring, tmask, gsbf, dens_head, g4, hook);
+      tile_enc_vjp_w(dpe, ray, fz, gz, rsum, red, p0);
+    }
+
+    // ---- the direction's part, once per ray: dW[12] += bf16(de)^T ghsum, dde --
+    for (int e = tid; e < kDe * H; e += kConsumers) part0[w12_at + e] += de[e / H] * ghsum[e % H];
+    ray_dir_vjp_w<D>(w12, tiles + T::kW12, ghsum, ray, rsum, red);
+    if (tid < 9) drays[r * 9 + tid] = rsum[tid];
+    for (int s = tid; s < S; s += kConsumers) dz[r * S + s] = gz[s];
+  }
+  if (LOSS && tid < 3) part0[sums_at + tid] = cot[8 + tid];
+  bulk_complete();   // every bulk copy of the CTA's operands, before it exits
+}
+
+// f(std::integral_constant<int, D>()) at D, one of the kernels' widths;
+// cudaErrorInvalidValue at any other.
+template <typename F>
+cudaError_t at_width(int D, F&& f) {
+  switch (D) {
+    case 128: return f(std::integral_constant<int, 128>());
+    case 256: return f(std::integral_constant<int, 256>());
+    case 384: return f(std::integral_constant<int, 384>());
+    case 512: return f(std::integral_constant<int, 512>());
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // Bytes of the scratch of render_full_launch for chunks of chunk_rays rays
 // into sizes[0..3] (the X and G operands of one chunk, the chain's partial
 // sums, the dW kernel's partials per chunk of samples), the dW kernel's CTA
-// tiles into sizes[4] and the per-sample arrays' spill (n_ctas CTAs) into
-// sizes[5].
+// tiles into sizes[4], the per-sample arrays' spill (n_ctas CTAs) into
+// sizes[5] and, at 384 and 512, the wide chain's per-CTA scratch
+// (render_scratch_w) into sizes[6] (0 at 128 and 256).
 inline cudaError_t render_full_scratch(int D, long long chunk_rays, int S, int n_ctas,
                                        long long* sizes) {
-  const long long n_pass = chunk_rays * (S / kPts);
-  long long spill;
-  if (D == 256) {
-    chain_scratch_sizes<256>(n_pass, n_ctas, render_seg(256), false, sizes);
-    spill = full_place<256>(S).spill_floats(S);
-  } else if (D == 128) {
-    chain_scratch_sizes<128>(n_pass, n_ctas, render_seg(128), false, sizes);
-    spill = full_place<128>(S).spill_floats(S);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  sizes[5] = static_cast<long long>(sizeof(float)) * spill * n_ctas;
-  return cudaSuccess;
+  return at_width(D, [&](auto width) {
+    constexpr int W = decltype(width)::value;
+    chain_scratch_sizes<W>(chunk_rays * (S / kPts), n_ctas, render_seg(W), false, sizes);
+    const long long spill = full_place_at<W>(S).spill_floats(S);
+    sizes[5] = static_cast<long long>(sizeof(float)) * spill * n_ctas;
+    long long wide = 0;
+    if constexpr (W > 256) wide = static_cast<long long>(render_scratch_w<W>(S));
+    sizes[6] = wide * n_ctas;
+    return cudaSuccess;
+  });
 }
 
 // The ray cotangents of rays [r0, ...).
@@ -355,25 +635,32 @@ inline RayCotangents cotangents_from(const RayCotangents& c, long long r0, int S
 // For each chunk of chunk_rays consecutive rays (the last one takes the
 // rest): the chain, the in-order sum of its partials and the dW kernel on
 // `stream`, the first chunk writing the gradient buffer and each later one
-// adding to it. xops, gops, chain_part, dw_part, spill: scratch of the sizes
-// render_full_scratch gives (dw_part: chunks times its size). n_ctas and
-// chunks are those of a whole chunk; a shorter last chunk takes at most one
-// CTA a ray and one dW chunk a row tile.
+// adding to it. xops, gops, chain_part, dw_part, spill, scratch: scratch of
+// the sizes render_full_scratch gives (dw_part: chunks times its size;
+// scratch, the wide kernel's per-CTA g4, column sums, masks and h, at 384
+// and 512 only). n_ctas and chunks are those of a whole chunk; a shorter
+// last chunk takes at most one CTA a ray and one dW chunk a row tile.
 template <int D, bool LOSS>
 cudaError_t render_full_launch(const float* rays, const float* z, const RayCotangents& cin,
                                const unsigned char* tiles, const unsigned char* tiles_dx,
                                const Biases& bias, unsigned char* xops, unsigned char* gops,
-                               float* chain_part, float* dw_part, float* spill, float* grads,
-                               float* drays, float* dz, int n_rays, int chunk_rays, int S,
-                               int n_ctas, int chunks, const RenderFlags& fl,
-                               cudaStream_t stream) {
-  const RayPlace place = full_place<D>(S);
-  const size_t area = place.area(render_full_fixed_bytes<D>(), S);   // masks, then the f32 arrays
-  const Layout90<D> L(false, area);
-  if (L.stages < 2) return cudaErrorInvalidValue;
+                               float* chain_part, float* dw_part, float* spill,
+                               unsigned char* scratch, float* grads, float* drays, float* dz,
+                               int n_rays, int chunk_rays, int S, int n_ctas, int chunks,
+                               const RenderFlags& fl, cudaStream_t stream) {
+  constexpr bool kWide = D > 256;
+  const RayPlace place = full_place_at<D>(S);
+  const size_t area = place.area(full_fixed_bytes_at<D>(), S);   // (masks,) the f32 arrays
+  const std::conditional_t<kWide, LayoutW<D>, Layout90<D>> L(false, area);
+  if (L.stages < 2 || (kWide && scratch == nullptr)) return cudaErrorInvalidValue;
   if (place.spill_floats(S) > 0 && spill == nullptr) return cudaErrorInvalidValue;
   const size_t smem = L.bytes(area);
-  auto* kernel = render_full_kernel<D, LOSS>;
+  auto* kernel = [] {
+    if constexpr (D > 256)
+      return render_full_wide_kernel<D, LOSS>;
+    else
+      return render_full_kernel<D, LOSS>;
+  }();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -382,21 +669,35 @@ cudaError_t render_full_launch(const float* rays, const float* z, const RayCotan
     const int n = static_cast<int>(n_rays - r0 < chunk_rays ? n_rays - r0 : chunk_rays);
     const int ctas = n < n_ctas ? n : n_ctas;
     const bool add = r0 > 0;
-    kernel<<<ctas, kThreads90, smem, stream>>>(rays + r0 * 9, z + r0 * S,
-                                               cotangents_from(cin, r0, S), tiles, tiles_dx, bias,
-                                               xops, gops, chain_part, spill, drays + r0 * 9,
-                                               dz + r0 * S, n, S, fl, L, place);
+    const long long n_pass = static_cast<long long>(n) * (S / kPts);   // 128-row tiles
+    const RayCotangents c = cotangents_from(cin, r0, S);
+    if constexpr (kWide)
+      kernel<<<ctas, kThreads90, smem, stream>>>(
+          rays + r0 * 9, z + r0 * S, c, tiles, tiles_dx, bias, xops, gops, chain_part, scratch,
+          spill, drays + r0 * 9, dz + r0 * S, n, S, fl, L, place,
+          static_cast<size_t>(n_pass) * kBlockBytes);
+    else
+      kernel<<<ctas, kThreads90, smem, stream>>>(rays + r0 * 9, z + r0 * S, c, tiles, tiles_dx,
+                                                 bias, xops, gops, chain_part, spill,
+                                                 drays + r0 * 9, dz + r0 * S, n, S, fl, L, place);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     err = chain_reduce_launch(chain_part, grads, render_seg(D), ctas, D, lay.w[12], stream, add);
     if (err != cudaSuccess) return err;
-    const long long n_pass = static_cast<long long>(n) * (S / kPts);
     DwTable tab = chain_dw_table<D>(xops, gops, grads, n_pass, false);
     err = dw_sm90_launch(tab, n_pass * kPts, chunks < n_pass ? chunks : static_cast<int>(n_pass),
                          dw_part, stream, add);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+// Both C entries' launch at width D (a width render_full_check passed).
+template <bool LOSS, typename... Args>
+cudaError_t render_full_run(int D, Args... args) {
+  return at_width(D, [&](auto width) {
+    return render_full_launch<decltype(width)::value, LOSS>(args...);
+  });
 }
 
 // The checks both C entries make before a launch.
@@ -406,7 +707,8 @@ inline cudaError_t render_full_check(int n_rays, int chunk_rays, int S, int D, i
   if (n_rays <= 0 || chunk_rays <= 0 || chunk_rays > n_rays) return cudaErrorInvalidValue;
   if (n_ctas <= 0 || n_ctas > chunk_rays) return cudaErrorInvalidValue;
   if (S <= 0 || S % kPts != 0) return cudaErrorInvalidValue;
-  if ((D != 128 && D != 256) || total != grad_layout(D).total) return cudaErrorInvalidValue;
+  if ((D != 128 && D != 256 && D != 384 && D != 512) || total != grad_layout(D).total)
+    return cudaErrorInvalidValue;
   if (chunks <= 0 || chunks > static_cast<long long>(chunk_rays) * (S / kPts))
     return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(tiles) | reinterpret_cast<uintptr_t>(tiles_dx) |
@@ -419,7 +721,7 @@ inline cudaError_t render_full_check(int n_rays, int chunk_rays, int S, int D, i
 // loss sums' offset last; returns the buffer's length, or 0 for a width the
 // kernels are not built for.
 inline int render_grad_layout(int D, int* offsets, bool sums) {
-  if (D != 128 && D != 256) return 0;
+  if (D != 128 && D != 256 && D != 384 && D != 512) return 0;
   const GradLayout lay = grad_layout(D);
   for (int i = 0; i < 14; ++i) offsets[i] = lay.w[i];
   for (int i = 0; i < 12; ++i) offsets[14 + i] = lay.b[i];

@@ -25,8 +25,10 @@ extern "C" int nerf_train_grad_layout(int D, int* offsets) {
 // into sizes[0..3]: the X and G operands of one chunk, the chain's partial
 // sums, the dW kernel's partials per chunk of samples; the dW kernel's CTA
 // tiles into sizes[4], from which the caller picks the chunks; the per-sample
-// arrays' spill into sizes[5] (0 where they fit in shared memory). Returns 0,
-// or cudaErrorInvalidValue for a width the kernel is not built for.
+// arrays' spill into sizes[5] (0 where they fit in shared memory); at
+// hidden_dim 384 and 512 the wide chain's per-CTA scratch into sizes[6] (the
+// parked g4, the column sums, a ray's masks and h; 0 at 128 and 256). Returns
+// 0, or cudaErrorInvalidValue for a width the kernel is not built for.
 extern "C" int nerf_render_train_scratch(int D, long long chunk_rays, int S, int n_ctas,
                                          long long* sizes) {
   return static_cast<int>(render_full_scratch(D, chunk_rays, S, n_ctas, sizes));
@@ -37,8 +39,9 @@ extern "C" int nerf_render_train_scratch(int D, long long chunk_rays, int S, int
 // weight buffer, tiles_dx: pack_tiles_dx's backward buffer (both 16-byte
 // aligned); biases: 12 f32 device pointers in pack_weights' order. xops, gops,
 // chain_part, dw_part, spill: scratch of the sizes nerf_render_train_scratch
-// gives for chunk_rays (dw_part: chunks times its size; all 16-byte aligned;
-// spill null where its size is 0). grads: total f32 (out); drays (n_rays, 9),
+// gives for chunk_rays (dw_part: chunks times its size; scratch: sizes[6];
+// all 16-byte aligned; spill and scratch null where their sizes are 0).
+// grads: total f32 (out); drays (n_rays, 9),
 // dz (n_rays, S), dtgt (n_rays, 7) f32 (out). The rays go in chunks of
 // chunk_rays (the last one takes the rest); 0 < n_ctas <= chunk_rays <=
 // n_rays, 0 < chunks <= chunk_rays S / 128. Returns a cudaError_t (0 on
@@ -46,11 +49,11 @@ extern "C" int nerf_render_train_scratch(int D, long long chunk_rays, int S, int
 extern "C" int nerf_render_train(const float* rays, const float* z, const float* tgt,
                                  const void* tiles, const void* tiles_dx,
                                  const void* const* biases, void* xops, void* gops,
-                                 float* chain_part, float* dw_part, float* spill, float* grads,
-                                 float* drays, float* dz, float* dtgt, int n_rays, int chunk_rays,
-                                 int S, int D, int n_ctas, int chunks, int occ_softplus,
-                                 int head_dist_alpha, int dist_alpha, int rgb_p, int white_bg,
-                                 int total, void* stream) {
+                                 float* chain_part, float* dw_part, float* spill, void* scratch,
+                                 float* grads, float* drays, float* dz, float* dtgt, int n_rays,
+                                 int chunk_rays, int S, int D, int n_ctas, int chunks,
+                                 int occ_softplus, int head_dist_alpha, int dist_alpha, int rgb_p,
+                                 int white_bg, int total, void* stream) {
   cudaError_t err = render_full_check(n_rays, chunk_rays, S, D, n_ctas, chunks, total, tiles,
                                       tiles_dx, xops, gops);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -64,13 +67,9 @@ extern "C" int nerf_render_train(const float* rays, const float* z, const float*
   auto* xo = static_cast<unsigned char*>(xops);
   auto* go = static_cast<unsigned char*>(gops);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = D == 256
-      ? render_full_launch<256, true>(rays, z, cin, w, wdx, bias, xo, go, chain_part, dw_part,
-                                      spill, grads, drays, dz, n_rays, chunk_rays, S, n_ctas,
-                                      chunks, fl, st)
-      : render_full_launch<128, true>(rays, z, cin, w, wdx, bias, xo, go, chain_part, dw_part,
-                                      spill, grads, drays, dz, n_rays, chunk_rays, S, n_ctas,
-                                      chunks, fl, st);
+  err = render_full_run<true>(D, rays, z, cin, w, wdx, bias, xo, go, chain_part, dw_part, spill,
+                              static_cast<unsigned char*>(scratch), grads, drays, dz, n_rays,
+                              chunk_rays, S, n_ctas, chunks, fl, st);
   return static_cast<int>(err);
 }
 

@@ -189,14 +189,11 @@ DW_MAX_N = 256            # the dW kernel's widest block (its wgmma's N)
 DW_MAX_PIECES = 24        # the blocks of one launch of the dW kernel (dw_sm90.cuh's kDwMaxBlocks)
 
 
-def point_dw_pieces(D: int) -> List[Tuple[int, str, str, int, int, int]]:
-    """The dW kernel's work table for K6 full at width D
-    (mlp_dw_chain_sm90.cuh's chain_dw_table): each block of point_dw_table
-    in column pieces of 256, then 128, then 64 columns, as (pack_weights
-    index, X operand, G operand, K, first column, N). At 128 and 256 every
-    block is one piece; 24 pieces at 384, 22 at 512."""
+def _dw_pieces(table) -> List[Tuple[int, str, str, int, int, int]]:
+    """Each block of a dW table in column pieces of 256, then 128, then 64
+    columns, as (pack_weights index, X operand, G operand, K, first column, N)."""
     pieces = []
-    for idx, x, g, K, N in point_dw_table(D):
+    for idx, x, g, K, N in table:
         c0 = 0
         while c0 < N:
             rest = N - c0
@@ -206,12 +203,28 @@ def point_dw_pieces(D: int) -> List[Tuple[int, str, str, int, int, int]]:
     return pieces
 
 
+def point_dw_pieces(D: int) -> List[Tuple[int, str, str, int, int, int]]:
+    """The dW kernel's work table for K6 full at width D
+    (mlp_dw_chain_sm90.cuh's chain_dw_table): each block of point_dw_table
+    in column pieces of 256, then 128, then 64 columns, as (pack_weights
+    index, X operand, G operand, K, first column, N). At 128 and 256 every
+    block is one piece; 24 pieces at 384, 22 at 512."""
+    return _dw_pieces(point_dw_table(D))
+
+
 # K1's and K4 full's (render_full_sm90.cuh): K6's table without its direction
 # block. The render kernels fold the direction into a per-ray bias, so the
 # right factor of dW[12] is a per-ray f32 sum of bf16 g_h, not a bf16 operand:
 # they form dW[12] in the chain, with dW[9] and dW[13].
 def render_dw_table(D: int) -> List[Tuple[int, str, str, int, int]]:
     return point_dw_table(D)[:11]
+
+
+def render_dw_pieces(D: int) -> List[Tuple[int, str, str, int, int, int]]:
+    """K1's and K4 full's work table for the dW kernel at width D
+    (chain_dw_table without the direction block): render_dw_table in
+    point_dw_pieces' column pieces; 11 at 128 and 256, 22 at 384, 21 at 512."""
+    return _dw_pieces(render_dw_table(D))
 
 
 def dw_cta_tiles(Ks) -> int:

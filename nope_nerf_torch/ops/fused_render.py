@@ -31,11 +31,9 @@ weights as `pack_tiles`' pre-swizzled slices, the layout their wgmma trunk
 (csrc/mlp_fwd_sm90.cuh; csrc/mlp_fwd_wide_sm90.cuh at hidden_dim 384 and
 512) streams into shared memory; every backward kernel takes those and
 `pack_tiles_dx`' slices of the (in, out) weights, the B operands of its
-wgmma dX chain (csrc/mlp_dx_sm90.cuh; at 384 and 512, for the
-frozen-network variants and K6 full, csrc/mlp_dx_wide_sm90.cuh's 64-point
-chain). Which kernel takes which hidden_dim is KERNEL_WIDTHS': the forward
-kernels, the frozen-network backward variants and K6 full 128 to 512, the
-render kernels that form weight gradients (K1, K4 full) 128 and 256.
+wgmma dX chain (csrc/mlp_dx_sm90.cuh; csrc/mlp_dx_wide_sm90.cuh's 64-point
+chain at 384 and 512). Which kernel takes which hidden_dim is
+KERNEL_WIDTHS': every kernel 128 to 512.
 
 The ray table is (N, 9) [origin | ray_vec | mlp_dir]: the TPU's 128-lane
 padding is a layout of that machine and is not carried over. The train
@@ -495,7 +493,7 @@ def _setup_train(lib: ctypes.CDLL) -> None:
     lib.nerf_train_grad_layout.restype = ctypes.c_int
     lib.nerf_render_train_scratch.argtypes = [i, ctypes.c_longlong, i, i, p]
     lib.nerf_render_train_scratch.restype = ctypes.c_int
-    lib.nerf_render_train.argtypes = [p] * 15 + [i] * 12 + [p]
+    lib.nerf_render_train.argtypes = [p] * 16 + [i] * 12 + [p]
     lib.nerf_render_train.restype = ctypes.c_int
     lib.nerf_error_string.argtypes = [ctypes.c_int]
     lib.nerf_error_string.restype = ctypes.c_char_p
@@ -753,41 +751,29 @@ def _train_plain(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p:
     return sums, dW, dB, drays, dz, dtgt
 
 
-# The hidden_dim each CUDA kernel takes, by the name its wrapper raises with.
-# The forward kernels (K3, K5) run 128 and 256 on the 128-row trunk of
-# csrc/mlp_fwd_sm90.cuh and 384 and 512 on the 64-row one of
-# csrc/mlp_fwd_wide_sm90.cuh. The frozen-network variants of the backward
-# kernels (K4, K6: no weight gradient) run 128 and 256 on the dX chain of
-# csrc/mlp_dx_sm90.cuh and 384 and 512 on the 64-row chain of
-# csrc/mlp_dx_wide_sm90.cuh, and so does K6 full, which forms the weight
-# gradients there with csrc/mlp_dw_chain_sm90.cuh's OperandSaveW; the render
-# kernels that form weight gradients (K1, K4 full) are built for 128 and 256.
+# The hidden_dim each CUDA kernel takes, by the name its wrapper raises with:
+# 128 to 512 for every kernel, 128 and 256 on the 128-row trunk and dX chain
+# of csrc/mlp_fwd_sm90.cuh and csrc/mlp_dx_sm90.cuh, 384 and 512 on the
+# 64-row ones of csrc/mlp_fwd_wide_sm90.cuh and csrc/mlp_dx_wide_sm90.cuh (the
+# kernels that form weight gradients, K1, K4 full and K6 full, with
+# csrc/mlp_dw_chain_sm90.cuh's OperandSaveW there).
 FORWARD_WIDTHS = (128, 256, 384, 512)
-BACKWARD_WIDTHS = (128, 256)
 KERNEL_WIDTHS = {"render": FORWARD_WIDTHS, "point-query MLP forward": FORWARD_WIDTHS,
                  "render-backward (frozen network)": FORWARD_WIDTHS,
                  "point-query MLP backward (frozen network)": FORWARD_WIDTHS,
                  "point-query MLP backward": FORWARD_WIDTHS,
-                 "train": BACKWARD_WIDTHS, "render-backward": BACKWARD_WIDTHS}
+                 "train": FORWARD_WIDTHS, "render-backward": FORWARD_WIDTHS}
 
 
 def check_kernel_width(kernel: str, D: int) -> None:
     """Raise NotImplementedError, before any device work, unless the CUDA
-    `kernel` (a key of KERNEL_WIDTHS) takes hidden_dim D, naming the slice of
-    ROADMAP.md's Queue 3 that brings D to it."""
+    `kernel` (a key of KERNEL_WIDTHS) takes hidden_dim D; past 512 naming the
+    slice of ROADMAP.md's Queue 3 that would bring D to it."""
     widths = KERNEL_WIDTHS[kernel]
     if D in widths:
         return
-    taken = ", ".join(map(str, widths))
-    if D in FORWARD_WIDTHS:
-        raise NotImplementedError(
-            f"the CUDA {kernel} kernel takes hidden_dim {taken}, got {D}: 384 and 512 come to "
-            f"the render kernels that form weight gradients, K1 and K4 full, in the port's next "
-            f"slice (ROADMAP.md, Queue 3 (b): on mlp_dx_wide_sm90.cuh's chain with "
-            f"mlp_dw_chain_sm90.cuh's wide operand saves and dw_sm90.cuh's column pieces); a "
-            f"frozen network's render backward and the point-query MLP backward take them")
     raise NotImplementedError(
-        f"the CUDA {kernel} kernel takes hidden_dim {taken}, got {D}"
+        f"the CUDA {kernel} kernel takes hidden_dim {', '.join(map(str, widths))}, got {D}"
         + (": widths past 512 need a tile shape of their own in every trunk header "
            "(ROADMAP.md, Queue 3 (c))" if D > 512 else ""))
 
@@ -839,9 +825,10 @@ def _backward_ctas(n: int, dev: torch.device) -> int:
 def render_operand_bytes(D: int, n_rays: int, S: int) -> Tuple[int, int]:
     """Bytes of the X and G operands K1 and K4 full hand the dW kernel for
     n_rays x S samples: every operand is one 128-row tile per 128 samples of
-    64-column bf16 blocks (16 KB each). X: pe (1 block), x0..x7 and feat
-    (D/64 each); G: g_h (D/128), g_feat and g7..g0 (D/64 each). At D = 256,
-    4,736 and 4,864 B a sample."""
+    64-column bf16 blocks (16 KB each; at 384 and 512 two 64-point passes
+    fill a row tile's halves). X: pe (1 block), x0..x7 and feat (D/64 each);
+    G: g_h (D/128), g_feat and g7..g0 (D/64 each). At D = 256, 4,736 and
+    4,864 B a sample; 14,336 B in all at 384, 19,072 at 512."""
     tiles = n_rays * (S // PTS_PER_PASS)
     block = PTS_PER_PASS * 2 * SWIZZLE_COLS
     return tiles * block * (1 + 9 * (D // 64)), tiles * block * (D // 128 + 9 * (D // 64))
@@ -851,35 +838,41 @@ def render_chunks(n_rays: int, S: int, D: int) -> List[Tuple[int, int]]:
     """The chunks of rays [start, stop) a launch of K1 or K4 full goes through,
     in order: the fewest whose dW operands (render_operand_bytes) each stay
     within OPERAND_BUDGET_BYTES, all of one size but the last, which takes
-    the rest. One chunk for every call up to 1024 x 256 samples at D = 256."""
+    the rest. One chunk for every call up to 1024 x 256 samples at D = 256,
+    and up to 1024 x 128 at 384 and 512."""
     fit = max(1, OPERAND_BUDGET_BYTES // sum(render_operand_bytes(D, 1, S)))
     step = -(-n_rays // -(-n_rays // fit))
     return [(a, min(a + step, n_rays)) for a in range(0, n_rays, step)]
 
 
 def _full_scratch(scratch_fn, D: int, n: int, S: int, dev: torch.device):
-    """(chunk_rays, n_ctas, chunks, [xops, gops, chain_part, dw_part, spill])
-    for one launch of K1 or K4 full: the rays' chunks by render_chunks, the
-    scratch sizes of one chunk from the kernel's own entry (its X and G
-    operands checked against render_operand_bytes), the dW kernel's chunks
-    of samples by fused_mlp.dw_chunks; spill is None where the per-sample
-    arrays fit in shared memory."""
+    """(chunk_rays, n_ctas, chunks, [xops, gops, chain_part, dw_part, spill,
+    scratch]) for one launch of K1 or K4 full: the rays' chunks by
+    render_chunks, the scratch sizes of one chunk from the kernel's own entry
+    (its X and G operands checked against render_operand_bytes), the dW
+    kernel's chunks of samples by fused_mlp.dw_chunks; spill is None where
+    the per-sample arrays fit in shared memory, scratch (the wide chain's
+    per-CTA g4, column sums, masks and h) None at 128 and 256."""
     from .fused_mlp import dw_chunks   # fused_mlp imports this module
     chunk_rays = render_chunks(n, S, D)[0][1]
     n_ctas = _backward_ctas(chunk_rays, dev)
-    sizes = (ctypes.c_longlong * 6)()
+    sizes = (ctypes.c_longlong * 7)()
     if scratch_fn(D, chunk_rays, S, n_ctas, sizes) != 0:
         raise RuntimeError("the render backward kernel reports no scratch sizes")
     if (sizes[0], sizes[1]) != render_operand_bytes(D, chunk_rays, S):
         raise RuntimeError(f"the render backward kernel's operand sizes {sizes[0]}, {sizes[1]} "
                            f"are not render_operand_bytes' "
                            f"{render_operand_bytes(D, chunk_rays, S)}")
+    if (sizes[6] > 0) != (D > 256):
+        raise RuntimeError(f"the render backward kernel reports {sizes[6]} B of wide-chain "
+                           f"scratch at hidden_dim {D}")
     chunks = dw_chunks(sizes[4], chunk_rays * S,
                        torch.cuda.get_device_properties(dev).multi_processor_count)
     scratch = [torch.empty((sizes[i],), dtype=torch.uint8, device=dev) for i in (0, 1)]
     scratch += [torch.empty((sizes[2] // 4,), dtype=torch.float32, device=dev),
                 torch.empty((chunks * sizes[3] // 4,), dtype=torch.float32, device=dev),
-                _spill(sizes[5], dev)]
+                _spill(sizes[5], dev),
+                torch.empty((sizes[6],), dtype=torch.uint8, device=dev) if sizes[6] else None]
     return chunk_rays, n_ctas, chunks, scratch
 
 
@@ -1021,7 +1014,7 @@ def _setup_bwd(lib: ctypes.CDLL) -> None:
     lib.nerf_bwd_grad_layout.restype = ctypes.c_int
     lib.nerf_render_bwd_scratch.argtypes = [i, ctypes.c_longlong, i, i, p]
     lib.nerf_render_bwd_scratch.restype = ctypes.c_int
-    lib.nerf_render_bwd.argtypes = [p] * 17 + [i] * 10 + [p]
+    lib.nerf_render_bwd.argtypes = [p] * 18 + [i] * 10 + [p]
     lib.nerf_render_bwd.restype = ctypes.c_int
     lib.nerf_error_string.argtypes = [ctypes.c_int]
     lib.nerf_error_string.restype = ctypes.c_char_p

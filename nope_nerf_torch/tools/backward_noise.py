@@ -66,6 +66,35 @@ width and point count the worst shares and the blocks beyond the rule. Below
 a few hundred points a block sums too few products for one flipped bf16
 rounding to average away: where the f32 plain version misses the 5e-3 rule
 against the f64 sum, no f32 evaluation can be held to it.
+With `--render-full`, K1 (csrc/render_train.cu) and K4 full
+(csrc/render_bwd.cu), both instances of csrc/render_full_sm90.cuh (its wide
+kernel at 384 and 512), at hidden_dim 128 to 512 on chip_smoke.py phase
+13's cases WIDE_RENDER_CASES (train_inputs, many_params, both flag sets of
+WIDE_FLAGS with K1's rgb_p 1 and 2 in turn; K4 full on bwd_cotangents' four
+cotangents), RENDER_FULL_SEEDS seeds: per case the worst dW or dB block by
+grad_share (5e-3 of its largest entry; <= 1 passes) and the number beyond
+it, for kernel vs f32 plain, kernel vs f64 and f32 plain vs f64. The f64
+sum is render_rays_fused_bwd_plain(..., dtype=torch.float64) at each side's
+own cotangents (K1's are the negatives of the first four columns of its
+d(target), which a sign flip of a ray's colour or depth error makes differ
+between the kernel and its plain version). Per width, case and kernel the
+worst shares, the blocks beyond the rule and the mean L2 distance from f64
+of the kernel over that of the f32 plain version. Then what that distance is
+made of, at each width (--widths) on 1024 rays x 128 and the second flag set (relu,
+dist_alpha) of each seed: per layer the bf16 activations (pe, x0..x7, feat)
+that differ from the f64 forward's, per sample, for the kernel (K4 full's
+own X operands, read back from the buffer it hands the dW kernel) and for
+the f32 plain version; the h masks that differ; and how far one flipped h
+mask at one sample can move the rgb-hidden bias gradient: the largest
+single-sample term of that block over its largest entry, and the samples
+whose term alone exceeds the 5e-3 rule. With `--attribute` (and `--cases`,
+`--widths`, `--seeds`), on the relu / dist_alpha flag set of the same draws:
+K4 full's and the f32 plain version's rgb-hidden bias gradient against the
+f64 sum, then every ray alone through K4 full against f64: the ray and
+column that move furthest, that move over the unmasked g_h of the sample it
+matches (1 where one flipped h mask makes it), the sample's weight, and the
+f64 pre-activation there in half-ulps of f32 at the sum of its terms'
+magnitudes (what an f32 evaluation in any order can move it by).
 Prints plain text; PERF.md quotes it.
 """
 
@@ -83,6 +112,7 @@ FROZEN_WIDTHS = (128, 256, 384, 512)
 FROZEN_RAYS = (133, 1024)
 FROZEN_SEEDS = 6
 FULL_SEEDS = 4
+RENDER_FULL_SEEDS = 2
 
 
 def case_inputs(torch, dev, name: str, occ: str, head_da: bool, dist_alpha: bool):
@@ -239,6 +269,228 @@ def full_yardstick(torch, chip_smoke, dev) -> None:
                   + ", ".join(f"{p} {beyond[p]}" for p in pairs), flush=True)
 
 
+def render_full_yardstick(torch, chip_smoke, dev, widths=FROZEN_WIDTHS, cases=None,
+                          seeds=RENDER_FULL_SEEDS, flags=None) -> None:
+    """--render-full: K1 and K4 full, their f32 plain versions and the f64
+    sum, on the dW and dB blocks at every width on phase 13's cases, or on
+    the given widths, (rays, S) cases, seed count and flag sets (indices
+    into WIDE_FLAGS) (see the module text)."""
+    from nope_nerf_torch.ops.fused_render import (_render_bwd_cuda, _train_cuda, _train_plain,
+                                                  render_rays_fused_bwd_plain, unpack_grads)
+    pairs = ("kernel~f32", "kernel~f64", "f32~f64")
+
+    def exact(params, rays, z, cot, ncfg, da):
+        return render_rays_fused_bwd_plain(params, rays, z, *cot, ncfg, da,
+                                           dtype=torch.float64)[:2]
+
+    def own_cotangents(dtgt):
+        return (-dtgt[:, 0:3]).contiguous(), (-dtgt[:, 3]).contiguous(), None, None
+
+    flags = range(len(chip_smoke.WIDE_FLAGS)) if flags is None else flags
+    for D in widths:
+        for n, S in chip_smoke.WIDE_RENDER_CASES if cases is None else cases:
+            for kname in ("render_train", "render_bwd"):
+                worst = dict.fromkeys(pairs, 0.0)
+                beyond = dict.fromkeys(pairs, 0)
+                l2 = dict.fromkeys(pairs, 0.0)
+                for seed in range(seeds):
+                    gen = torch.Generator().manual_seed(300 + seed)
+                    rays, z, tgt = chip_smoke.train_inputs(torch, dev, gen, n, S)
+                    for f, ((occ, da), rgb_p) in enumerate(zip(chip_smoke.WIDE_FLAGS, (1, 2))):
+                        ncfg, params = chip_smoke.many_params(torch, dev, gen, D, occ, da, S)
+                        if f not in flags:
+                            continue
+                        note = ""
+                        if kname == "render_train":
+                            k = _train_cuda(params, rays, z, tgt, ncfg, da, rgb_p, False)
+                            p = _train_plain(params, rays, z, tgt, ncfg, da, rgb_p, False)
+                            same = torch.equal(k[5][:, :4], p[5][:, :4])
+                            e_k = exact(params, rays, z, own_cotangents(k[5]), ncfg, da)
+                            e_p = e_k if same else exact(params, rays, z, own_cotangents(p[5]),
+                                                         ncfg, da)
+                            note = f" rgb_p={rgb_p}, cotangents equal {same}"
+                            k, p = k[1:3], p[1:3]
+                        else:
+                            cot = chip_smoke.bwd_cotangents(torch, params, rays, z, tgt, ncfg,
+                                                            da, True)
+                            k = _render_bwd_cuda(params, rays, z, *cot, ncfg, da)[:2]
+                            p = render_rays_fused_bwd_plain(params, rays, z, *cot, ncfg, da)[:2]
+                            e_k = e_p = exact(params, rays, z, cot, ncfg, da)
+                        K, P, EK, EP = (unpack_grads([w.float() for w in o[0]],
+                                                     [b.float() for b in o[1]], ncfg)
+                                        for o in (k, p, e_k, e_p))
+                        parts = []
+                        for what, got, ref in zip(pairs, (K, K, P), (P, EK, EP)):
+                            shares = {b: chip_smoke.grad_share(got[b], ref[b], False) for b in ref}
+                            b_worst = max(shares, key=shares.get)
+                            over = sum(v > 1.0 for v in shares.values())
+                            worst[what] = max(worst[what], shares[b_worst])
+                            beyond[what] += over
+                            l2[what] += sum(float((got[b] - ref[b]).norm())
+                                            / (float(ref[b].norm()) + 1e-30) for b in ref)
+                            parts.append(f"{what} {shares[b_worst]:.3f} ({b_worst}, "
+                                         f"{over} beyond)")
+                        print(f"{kname} D={D} {n} rays x {S} occ={occ} dist_alpha={da}{note} "
+                              f"seed {seed}: " + "; ".join(parts), flush=True)
+                        del k, p, e_k, e_p
+                runs = seeds * len(flags)
+                print(f"{kname} D={D} {n} rays x {S}, summary over {runs} cases x 26 blocks: "
+                      "worst share " + ", ".join(f"{q} {worst[q]:.3f}" for q in pairs)
+                      + "; blocks beyond 5e-3 " + ", ".join(f"{q} {beyond[q]}" for q in pairs)
+                      + f"; mean relative L2 distance from f64, kernel over f32 plain "
+                      f"{l2['kernel~f64'] / max(l2['f32~f64'], 1e-30):.2f}", flush=True)
+                torch.cuda.empty_cache()
+
+
+def render_full_flips(torch, chip_smoke, dev, widths=FROZEN_WIDTHS) -> None:
+    """Part 2 of --render-full: per layer, the kernel's and the f32 plain
+    version's bf16 activations that differ from the f64 forward's, and the
+    rgb-hidden bias gradient's sensitivity to one flipped h mask (see the
+    module text)."""
+    import ctypes
+    from nope_nerf_torch.ops import fused_mlp as FM
+    from nope_nerf_torch.ops import fused_render as F
+    n, S = 1024, 128
+    names = ["pe"] + [f"x{i}" for i in range(8)] + ["feat"]
+    for D in widths:
+        for seed in range(RENDER_FULL_SEEDS):
+            gen = torch.Generator().manual_seed(300 + seed)   # the yardstick's draws
+            rays, z, tgt = chip_smoke.train_inputs(torch, dev, gen, n, S)
+            chip_smoke.many_params(torch, dev, gen, D, *chip_smoke.WIDE_FLAGS[0], S)
+            occ, da = chip_smoke.WIDE_FLAGS[1]
+            ncfg, params = chip_smoke.many_params(torch, dev, gen, D, occ, da, S)
+            cot = chip_smoke.bwd_cotangents(torch, params, rays, z, tgt, ncfg, da, True)
+            # K4 full through its C entry, keeping the X operands it hands the dW kernel
+            dev = rays.device
+            tiles, tiles_dx, _, bptrs = F._packed_tiles_on(params, ncfg, dev)
+            lib = F.RENDER_BWD.lib()
+            offsets = (ctypes.c_int * 26)()
+            total = lib.nerf_bwd_grad_layout(D, offsets)
+            chunk_rays, n_ctas, chunks, scratch = F._full_scratch(lib.nerf_render_bwd_scratch, D,
+                                                                  n, S, dev)
+            if chunk_rays != n:
+                raise RuntimeError("render_full_flips needs the call in one chunk of rays")
+            f32 = dict(dtype=torch.float32, device=dev)
+            grads, drays, dz = (torch.empty(total, **f32), torch.empty(n, 9, **f32),
+                                torch.empty(n, S, **f32))
+            err = lib.nerf_render_bwd(
+                rays.data_ptr(), z.data_ptr(), cot[0].data_ptr(), cot[1].data_ptr(),
+                F._ptr(cot[2]), F._ptr(cot[3]), tiles.data_ptr(), tiles_dx.data_ptr(), bptrs,
+                *[F._ptr(t) for t in scratch], grads.data_ptr(), drays.data_ptr(), dz.data_ptr(),
+                n, chunk_rays, S, D, n_ctas, chunks, int(occ == "softplus"), int(da), int(da),
+                total, torch.cuda.current_stream(dev).cuda_stream)
+            if err != 0:
+                raise RuntimeError(lib.nerf_error_string(err).decode())
+            torch.cuda.synchronize()
+            xk = scratch[0].view(torch.bfloat16)
+            W, B = F.pack_weights(params, ncfg)
+            acts = {}
+            for dtype in (torch.float32, torch.float64):
+                Wf = [w.to(dtype) for w in W]
+                parts = [F._plain_forward(Wf, B, rays[i:i + 256], z[i:i + 256], ncfg, da, dtype)
+                         for i in range(0, n, 256)]
+                acts[dtype] = {name: torch.cat([p["pe"] if name == "pe" else
+                                                p["acts"][names.index(name) - 1]
+                                                for p in parts]).float() for name in names}
+                acts[dtype]["h"] = torch.cat([p["acts"][9] for p in parts]).float()
+            at, rows = 0, []
+            for name in names:
+                ref = FM.tile_operand(acts[torch.float64][name])
+                mine = xk[at:at + ref.numel()].view(ref.shape)
+                at += ref.numel()
+                plain = FM.tile_operand(acts[torch.float32][name])
+                rows.append(f"{name} {int((mine != ref).sum()) / (n * S):.3g} / "
+                            f"{int((plain != ref).sum()) / (n * S):.3g}")
+            h_flips = int(((acts[torch.float32]["h"] > 0) != (acts[torch.float64]["h"] > 0)).sum())
+            # the rgb-hidden bias gradient's terms, one a sample (f64 backward's masked g_h)
+            taps = {}
+            Wf = [w.double() for w in W]
+            fwd = F._plain_forward(Wf, B, rays[:256], z[:256], ncfg, da, torch.float64)
+            _, dBs, _, _ = F._plain_backward_tail(Wf, rays[:256].double(), z[:256].double(), fwd,
+                                                  ncfg, da, *(None if c is None else
+                                                              c[:256].double() for c in cot),
+                                                  False, taps)
+            block = F._bwd_plain(params, rays, z, *cot, ncfg, da, dtype=torch.float64)[1][10]
+            g_rgb = taps["g_rgb"]
+            terms = ((g_rgb @ Wf[13][:3]) * (fwd["acts"][9] > 0)).abs()
+            share = terms / block.abs().max()
+            print(f"flips D={D} {n} rays x {S} occ={occ} dist_alpha={da} seed {seed}: bf16 "
+                  "activations differing from f64 a sample, kernel / f32 plain: "
+                  + ", ".join(rows) + f"; h masks differing (f32 plain) {h_flips}; one flipped h "
+                  f"mask moves rgb_hidden_b by up to {float(share.max()) / 5e-3:.2f} of its "
+                  f"tolerance, {int((share > 5e-3).any(dim=1).sum())} of the first 256 rays' "
+                  f"{256 * S} samples by more than it", flush=True)
+            del scratch, xk, acts
+            torch.cuda.empty_cache()
+
+
+def render_full_attribution(torch, chip_smoke, dev, widths, cases, seeds) -> None:
+    """--render-full --attribute: where K4 full's rgb-hidden bias gradient
+    leaves the f64 sum, on the relu / dist_alpha flag set of the yardstick's
+    draws (see the module text)."""
+    from nope_nerf_torch.ops import fused_render as F
+    occ, da = chip_smoke.WIDE_FLAGS[1]
+    blk = "rgb_hidden_b"
+
+    def bias_grad(out, ncfg):
+        return F.unpack_grads([w.float() for w in out[0]], [b.float() for b in out[1]],
+                              ncfg)[blk]
+
+    for D in widths:
+        for n, S in cases:
+            for seed in range(seeds):
+                gen = torch.Generator().manual_seed(300 + seed)   # the yardstick's draws
+                rays, z, tgt = chip_smoke.train_inputs(torch, dev, gen, n, S)
+                chip_smoke.many_params(torch, dev, gen, D, *chip_smoke.WIDE_FLAGS[0], S)
+                ncfg, params = chip_smoke.many_params(torch, dev, gen, D, occ, da, S)
+                cot = chip_smoke.bwd_cotangents(torch, params, rays, z, tgt, ncfg, da, True)
+                exact = bias_grad(F.render_rays_fused_bwd_plain(params, rays, z, *cot, ncfg, da,
+                                                                dtype=torch.float64), ncfg)
+                tol = 5e-3 * float(exact.abs().max())
+                shares = {}
+                for what, out in (("kernel", F._render_bwd_cuda(params, rays, z, *cot, ncfg, da)),
+                                  ("f32", F.render_rays_fused_bwd_plain(params, rays, z, *cot,
+                                                                        ncfg, da))):
+                    shares[what] = float((bias_grad(out, ncfg) - exact).abs().max()) / tol
+                # each ray alone, kernel against f64: the ray and column that move most
+                worst = (0.0, 0, 0, 0.0)
+                for i in range(n):
+                    c = tuple(None if t is None else t[i:i + 1].contiguous() for t in cot)
+                    k = bias_grad(F._render_bwd_cuda(params, rays[i:i + 1], z[i:i + 1], *c,
+                                                     ncfg, da), ncfg)
+                    e = bias_grad(F.render_rays_fused_bwd_plain(
+                        params, rays[i:i + 1], z[i:i + 1], *c, ncfg, da, dtype=torch.float64),
+                        ncfg)
+                    j = int((k - e).abs().argmax())
+                    if abs(float(k[j] - e[j])) > abs(worst[0]):
+                        worst = (float(k[j] - e[j]), i, j, float(e[j]))
+                delta, r, j, _ = worst
+                # that ray's f64 forward and its rgb-hidden cotangent before the mask
+                W, B = F.pack_weights(params, ncfg)
+                Wf = [w.double() for w in W]
+                rr, zz = rays[r:r + 1], z[r:r + 1]
+                fwd = F._plain_forward(Wf, B, rr, zz, ncfg, da, torch.float64)
+                taps = {}
+                F._plain_backward_tail(Wf, rr.double(), zz.double(), fwd, ncfg, da,
+                                       *(None if t is None else t[r:r + 1].double()
+                                         for t in cot), False, taps)
+                g = (taps["g_rgb"] @ Wf[13][:3])[:, j]               # (S,) g_h unmasked
+                s = int((g.abs() - abs(delta)).abs().argmin())
+                feat = fwd["acts"][8][s]
+                de_h = fwd["de"][0] @ Wf[12][j]
+                pre = float(feat @ Wf[11][j] + de_h + B[10][j].double())
+                scale = float(feat.abs() @ Wf[11][j].abs() + de_h.abs() + B[10][j].abs())
+                print(f"attribution D={D} {n} rays x {S} occ={occ} dist_alpha={da} seed {seed}: "
+                      f"{blk} kernel~f64 {shares['kernel']:.3f}, f32~f64 {shares['f32']:.3f} of "
+                      f"the rule; the ray moving it most alone: ray {r}, column {j}, kernel - "
+                      f"f64 {delta / tol:.3f} of the rule = {delta / float(g[s]):.4f} x the "
+                      f"unmasked g_h of its sample {s} (weight {float(fwd['weights'][0, s]):.4f}"
+                      f"); that sample's f64 pre-activation {pre:.3e}, "
+                      f"{abs(pre) / (scale * 2.0 ** -24):.1f} f32 half-ulps of the sum of its "
+                      f"terms' magnitudes {scale:.3e}", flush=True)
+                torch.cuda.empty_cache()
+
+
 def tensor_core_products(torch, chip_smoke, dev) -> None:
     """Part 2 of --frozen: the chain's own products by the tensor cores (the
     dW kernel, one accumulator chain over K), by cuBLAS in f32 and in f64."""
@@ -309,13 +561,29 @@ def main(argv=None) -> int:
                     help="the frozen-network variant at every width (see the module text)")
     ap.add_argument("--full", action="store_true",
                     help="K6 full at 384 and 512 and small point counts (see the module text)")
+    ap.add_argument("--render-full", action="store_true",
+                    help="K1 and K4 full at every width on phase 13's cases (see the module "
+                         "text)")
+    ap.add_argument("--cases", nargs="+", default=None, metavar="RAYSxS",
+                    help="with --render-full: these cases instead of phase 13's, and no part 2")
+    ap.add_argument("--widths", type=int, nargs="+", default=list(FROZEN_WIDTHS),
+                    help="with --render-full: the widths")
+    ap.add_argument("--seeds", type=int, default=RENDER_FULL_SEEDS,
+                    help="with --render-full: seeds a case")
+    ap.add_argument("--attribute", action="store_true",
+                    help="with --render-full and --cases: K4 full's rgb-hidden bias gradient "
+                         "against f64 ray by ray on the relu / dist_alpha flag set (see the "
+                         "module text)")
+    ap.add_argument("--flag-set", type=int, choices=(0, 1), default=None,
+                    help="with --render-full: one flag set of WIDE_FLAGS (0 softplus, 1 relu "
+                         "with dist_alpha) instead of both")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("backward_noise: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     sys.path.insert(0, os.getcwd())   # chip_smoke.py sits at the root of the checkout
     import chip_smoke
-    if args.frozen or args.full:
+    if args.frozen or args.full or args.render_full:
         import subprocess
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
@@ -326,6 +594,19 @@ def main(argv=None) -> int:
         if args.full:
             build_all((fused_mlp.POINT_MLP_BWD,))
             full_yardstick(torch, chip_smoke, dev)
+            return 0
+        if args.render_full:
+            build_all((fused_render.RENDER_TRAIN, fused_render.RENDER_BWD))
+            cases = None if args.cases is None else [
+                tuple(int(v) for v in c.split("x")) for c in args.cases]
+            if args.attribute:
+                render_full_attribution(torch, chip_smoke, dev, args.widths,
+                                        cases or chip_smoke.WIDE_RENDER_CASES, args.seeds)
+                return 0
+            render_full_yardstick(torch, chip_smoke, dev, args.widths, cases, args.seeds,
+                                  None if args.flag_set is None else (args.flag_set,))
+            if cases is None:
+                render_full_flips(torch, chip_smoke, dev, args.widths)
             return 0
         build_all((fused_render.RENDER_BWD_FROZEN, fused_mlp.DW_SM90))
         tensor_core_products(torch, chip_smoke, dev)

@@ -28,9 +28,10 @@ one warm-up:
   hierarchical pose-opt step);
 - `--kernels full`: K6 full through `_mlp_bwd_cuda` at 196,608 points (the
   fine pass of a hierarchical train step: every dW, dB, d(points),
-  d(directions)); at the widths K1 and K4 full take (128, 256), K1 through
-  `_train_cuda` and K4 full through `_render_bwd_cuda` at 1024 rays x 128
-  samples (the train step's launch); and the dW kernel on its own
+  d(directions)); at the widths K1 and K4 full take (128 to 512; 128 and
+  256 in a checkout before their wide kernel), K1 through `_train_cuda` and
+  K4 full through `_render_bwd_cuda` at 1024 rays x 128 samples (the train
+  step's launch); and the dW kernel on its own
   (`dw_sm90`) over K6's blocks at 256 on 196,608 rows of seeded operands.
   Its SASS digests are per library (each source builds its own copy of the
   dW kernel and of the sums of the partials).
@@ -67,8 +68,8 @@ BWD_SAMPLES = (128, 512)
 # the mangled names of each set's kernel instances: kernel, template arguments
 SASS_NAMES = {"forward": r"(render_fwd_kernel|point_mlp_fwd_kernel)I(Li\d+E)",
               "frozen": r"((?:render|point_mlp)_bwd_frozen(?:_wide)?_kernel)I(Li\d+E(?:Lb\d)?)",
-              "full": r"((?:point_mlp_bwd(?:_wide)?|render_full|dw_sm90|dw_reduce|chain_reduce)"
-                      r"_kernel)(I(?:Li\d+E|Lb\d+E)+E|E)"}
+              "full": r"((?:point_mlp_bwd(?:_wide)?|render_full(?:_wide)?|dw_sm90|dw_reduce|"
+                      r"chain_reduce)_kernel)(I(?:Li\d+E|Lb\d+E)+E|E)"}
 
 
 def _digest(outs) -> str:
@@ -195,7 +196,7 @@ def full_cases(dev, gen, widths, reps: int):
     for D, ncfg, params in _width_params(dev, widths):
         cases[f"point_mlp_bwd D={D} {POINTS}"] = (
             lambda p=params, c=ncfg: flat(FM._mlp_bwd_cuda(p, pts, dirs, p_rgb, p_den, c)), reps)
-        if D in F.BACKWARD_WIDTHS:
+        if D in F.KERNEL_WIDTHS["train"]:
             cases[f"render_train D={D} {n}x{SAMPLES}"] = (
                 lambda p=params, c=ncfg: flat(F._train_cuda(p, rays, z, tgt, c, False, 1, False)),
                 reps)

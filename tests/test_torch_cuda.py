@@ -285,14 +285,15 @@ def test_render_bwd_frozen_variant(cuda_device, hidden, S, occ, head_dist_alpha,
 
 @pytest.mark.parametrize("n_rays", [1, 133, 301])
 @pytest.mark.parametrize("S", [128, 256, 1024, 2048])
-@pytest.mark.parametrize("hidden", [128, 256])
+@pytest.mark.parametrize("hidden", [128, 256, 384, 512])
 def test_render_bwd_full_dx_equals_the_frozen_variant(cuda_device, hidden, S, n_rays):
     """K4 full (render_full_sm90.cuh: the chain that also saves the operands
-    of its dW products) gives the frozen variant's d(rays) and dz bit for
-    bit: the same dX chain and the same per-ray pieces. It launches the dW
-    kernel once per chunk of rays (3 at 301 x 2048, D = 256), the frozen
-    variant never. 1 ray: one CTA; 133: one CTA takes a second ray; 301:
-    three rays on some CTAs, two on the others."""
+    of its dW products; at 384 and 512 its wide kernel on the 64-point
+    chain) gives the frozen variant's d(rays) and dz bit for bit: the same
+    dX chain and the same per-ray pieces. It launches the dW kernel once per
+    chunk of rays (3 at 301 x 2048, D = 256), the frozen variant never. 1
+    ray: one CTA; 133: one CTA takes a second ray; 301: three rays on some
+    CTAs, two on the others."""
     params, rays, z, tgt, ncfg = _train_case(cuda_device, n_rays, S, hidden, seed=5, spread=0.5,
                                              far=6.0)
     cot = _bwd_cotangents(params, rays, z, tgt, ncfg, False, True)
@@ -328,6 +329,42 @@ def test_render_full_kernels_bit_equal_and_launch_the_dw_kernel_once(cuda_device
     assert (lib.launches - before[0], M.DW_SM90.launches - before[1]) == (2, 2)
     for x, y in zip(_flat(a), _flat(b)):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kernel", ["render_train", "render_bwd"])
+@pytest.mark.parametrize("hidden", [384, 512])
+def test_render_full_wide(cuda_device, hidden, kernel):
+    """K1 and K4 full at 384 and 512 (render_full_sm90.cuh's wide kernel):
+    two launches bit-equal, the dW kernel launched once a launch, K4 full fed
+    K1's cotangents giving K1's dW, dB, d(rays) and dz bit for bit, and dW,
+    dB within 5e-3 of each block's largest entry of the plain version's on
+    the train step's 1024 rays."""
+    params, rays, z, tgt, ncfg = _train_case(cuda_device, 1024, 128, hidden, seed=11,
+                                             spread=0.5, far=6.0)
+    if kernel == "render_train":
+        lib = F.RENDER_TRAIN
+        run = lambda: F._train_cuda(params, rays, z, tgt, ncfg, False, 1, False)   # noqa: E731
+    else:
+        lib = F.RENDER_BWD
+        cot = _bwd_cotangents(params, rays, z, tgt, ncfg, False, True)
+        run = lambda: F._render_bwd_cuda(params, rays, z, *cot, ncfg, False)    # noqa: E731
+    before = (lib.launches, M.DW_SM90.launches)
+    a, b = run(), run()
+    assert (lib.launches - before[0], M.DW_SM90.launches - before[1]) == (2, 2)
+    for x, y in zip(_flat(a), _flat(b)):
+        assert torch.equal(x, y)
+    if kernel == "render_train":
+        fed = F._render_bwd_cuda(params, rays, z, (-a[5][:, 0:3]).contiguous(),
+                                 (-a[5][:, 3]).contiguous(), None, None, ncfg, False)
+        for x, y in zip(_flat(fed), _flat(a[1:5])):
+            assert torch.equal(x, y)
+        ref = F._train_plain(params, rays, z, tgt, ncfg, False, 1, False)[1:3]
+        got = a[1:3]
+    else:
+        ref = F.render_rays_fused_bwd_plain(params, rays, z, *cot, ncfg, False)[:2]
+        got = a[:2]
+    for x, y in zip(_flat(got), _flat(ref)):
+        assert float((x - y).abs().max()) <= 5e-3 * float(y.abs().max()) + 1e-6
 
 
 @pytest.mark.parametrize("kernel", ["train", "bwd"])
@@ -1025,28 +1062,39 @@ def test_wide_frames_launch_k3_once_and_k5_twice(cuda_device, hidden):
 
 
 def test_wide_backward_kernels_raise_before_any_launch(cuda_device):
-    """At hidden_dim 512 the render kernels that form weight gradients (K1,
-    K4 full) raise NotImplementedError naming Queue 3 (b) with no launch, and
+    """Past hidden_dim 512 the render kernels that form weight gradients (K1,
+    K4 full) raise NotImplementedError naming Queue 3 (c) with no launch, and
     so does render_rays_fused under autograd when a nerf parameter wants a
-    gradient: its forward checks the backward's variant before K3 launches."""
-    ncfg = NerfConfig(hidden_dim=512, use_pallas=True)
+    gradient: its forward checks the backward's variant before K3 launches.
+    At 512 the same three calls launch: K1 once, K4 full once (after K3),
+    each with the dW kernel once."""
     gen, rays, z = _inputs(cuda_device, 133, 128)
-    params = init_nerf_params(ncfg, gen, device=cuda_device)
     tgt = F.pack_targets(torch.rand(133, 3, device=cuda_device),
                          torch.ones(133, device=cuda_device),
                          torch.ones(133, dtype=torch.bool, device=cuda_device), 1.0, 1.0)
     g_rgb, g_dist = torch.ones(133, 3, device=cuda_device), torch.ones(133, device=cuda_device)
     libs = (F.RENDER_TRAIN, F.RENDER_BWD, F.RENDER_BWD_FROZEN, M.POINT_MLP_BWD,
             M.POINT_MLP_BWD_FROZEN, M.DW_SM90, M.POINT_MLP_FWD, F.RENDER_FWD)
+    params = init_nerf_params(NerfConfig(hidden_dim=512, use_pallas=True), gen,
+                              device=cuda_device)
+    past = NerfConfig(hidden_dim=640, use_pallas=True)
     before = [lib.launches for lib in libs]
-    with pytest.raises(NotImplementedError, match=r"Queue 3 \(b\)"):
-        F.render_ray_loss_fused(params, rays, z, tgt, ncfg, False, 1, False)
-    with pytest.raises(NotImplementedError, match=r"Queue 3 \(b\)"):
-        F._render_bwd_cuda(params, rays, z, g_rgb, g_dist, None, None, ncfg, False)
+    with pytest.raises(NotImplementedError, match=r"Queue 3 \(c\)"):
+        F.render_ray_loss_fused(params, rays, z, tgt, past, False, 1, False)
+    with pytest.raises(NotImplementedError, match=r"Queue 3 \(c\)"):
+        F._render_bwd_cuda(params, rays, z, g_rgb, g_dist, None, None, past, False)
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    with pytest.raises(NotImplementedError, match=r"Queue 3 \(b\)"):
-        F.render_rays_fused(leaves, rays, z, ncfg, False, False)
+    with pytest.raises(NotImplementedError, match=r"Queue 3 \(c\)"):
+        F.render_rays_fused(leaves, rays, z, past, False, False)
     assert [lib.launches for lib in libs] == before
+    ncfg = NerfConfig(hidden_dim=512, use_pallas=True)
+    F.render_ray_loss_fused(params, rays, z, tgt, ncfg, False, 1, False)
+    F._render_bwd_cuda(params, rays, z, g_rgb, g_dist, None, None, ncfg, False)
+    rgb, dist, _, _ = F.render_rays_fused(leaves, rays, z, ncfg, False, False)
+    (rgb.sum() + dist.sum()).backward()
+    torch.cuda.synchronize()
+    assert [lib.launches - b for lib, b in zip(libs, before)] == [1, 2, 0, 0, 0, 3, 0, 1]
+    assert all(torch.isfinite(v.grad).all() for v in leaves.values())
 
 
 @pytest.mark.parametrize("flags", [("softplus", False), ("relu", True)], ids=["softplus", "relu"])

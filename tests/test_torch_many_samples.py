@@ -228,16 +228,13 @@ def test_chunks_at_the_main_paths_shapes():
 @pytest.mark.parametrize("S", [100, 200, 0])
 def test_every_kernel_refuses_an_s_the_tpu_kernels_refuse(S):
     """S % 128 != 0 raises NotImplementedError before any device work, as does a
-    width a kernel is not built for (512 for the backward kernels, 640 for
-    every kernel); any S % 128 == 0 passes the check."""
+    width no kernel is built for (640); any S % 128 == 0 passes the check, at
+    every width the kernels take (512 included, for the backward kernels too)."""
     for kernel in ("render", "train", "render-backward"):
         with pytest.raises(NotImplementedError, match="S % 128"):
             F._check_kernel_shapes(kernel, S, 256)
         with pytest.raises(NotImplementedError, match="hidden_dim"):
             F._check_kernel_shapes(kernel, 384, 640)
-        if kernel != "render":
-            with pytest.raises(NotImplementedError, match="hidden_dim"):
-                F._check_kernel_shapes(kernel, 384, 512)
         for ok in (128, 384, 2048, 8192):
             F._check_kernel_shapes(kernel, ok, 128)
-    F._check_kernel_shapes("render", 384, 512)
+        F._check_kernel_shapes(kernel, 384, 512)

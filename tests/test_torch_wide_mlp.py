@@ -4,8 +4,9 @@ point_mlp) against the JAX package's Pallas kernels in interpret mode at both
 widths, the renderer through Trainer.render_frame's route at 384 against
 JAX's unfused renderer, NerfConfig's gate at 512, and the per-kernel width
 gates of the CUDA wrappers (csrc/mlp_fwd_wide_sm90.cuh serves K3 and K5 at
-384 and 512, csrc/mlp_dx_wide_sm90.cuh the frozen-network variants of K4 and
-K6; the kernels that form weight gradients keep 128 and 256).
+384 and 512, csrc/mlp_dx_wide_sm90.cuh the backward kernels, the frozen-network
+variants of K4 and K6 and the kernels that form weight gradients, K1, K4 full
+and K6 full).
 
 Tolerances: K3's outputs within 2e-3 of the largest entry (at least 1e-3), as
 tests/test_torch_render.py holds it at 256; K5's within 1e-4 absolute, as
@@ -142,35 +143,28 @@ def test_nerf_config_gate_at_512_is_jax_s():
 
 @pytest.mark.parametrize("D", [128, 256, 384, 512, 640, 1024, 64])
 def test_width_gates(D):
-    """K3, K5, the frozen-network variants of K4 and K6, and K6 full take 128
-    to 512; K1 and K4 full raise NotImplementedError at 384 and 512 naming
-    Queue 3 (b), the slice that brings the width to them, and every kernel
-    raises for 640 and past (Queue 3 (c)) and for a width JAX's kernels do not
-    take. The checks run before any device work, here on the CPU."""
-    wide_ok = ("render", "point-query MLP forward", "render-backward (frozen network)",
-               "point-query MLP backward (frozen network)", "point-query MLP backward")
-    for kernel in wide_ok:
+    """Every CUDA kernel takes 128 to 512: K3, K5, the frozen-network
+    variants of K4 and K6, K6 full, and the render kernels that form weight
+    gradients, K1 and K4 full (their wide kernel on csrc/mlp_dx_wide_sm90.cuh's
+    chain). Every kernel raises NotImplementedError for 640 and past, naming
+    Queue 3 (c), and for a width JAX's kernels do not take; no message names
+    Queue 3 (b) any more. The checks run before any device work, here on the
+    CPU."""
+    for kernel in F.KERNEL_WIDTHS:
         if D in (128, 256, 384, 512):
             F.check_kernel_width(kernel, D)
             F._check_kernel_shapes(kernel, 128, D)
-        else:
-            with pytest.raises(NotImplementedError, match="hidden_dim"):
-                F.check_kernel_width(kernel, D)
-    assert F.render_bwd_kernel(False) == "render-backward (frozen network)"
-    assert F.render_bwd_kernel(True) == "render-backward"
-    for kernel in ("train", "render-backward"):
-        if D in (128, 256):
-            F.check_kernel_width(kernel, D)
             continue
         with pytest.raises(NotImplementedError, match="hidden_dim") as info:
             F.check_kernel_width(kernel, D)
-        if D in (384, 512):
-            assert "Queue 3 (b)" in str(info.value)
-            assert "K1 and K4 full" in str(info.value)
-    if D > 512:
-        for kernel in F.KERNEL_WIDTHS:
-            with pytest.raises(NotImplementedError, match=r"Queue 3 \(c\)"):
-                F.check_kernel_width(kernel, D)
+        assert "Queue 3 (b)" not in str(info.value)
+        assert ("Queue 3 (c)" in str(info.value)) == (D > 512)
+    assert set(F.KERNEL_WIDTHS) == {
+        "render", "point-query MLP forward", "render-backward (frozen network)",
+        "point-query MLP backward (frozen network)", "point-query MLP backward", "train",
+        "render-backward"}
+    assert F.render_bwd_kernel(False) == "render-backward (frozen network)"
+    assert F.render_bwd_kernel(True) == "render-backward"
     cfg = NerfConfig(hidden_dim=D, use_pallas=True)
     for kernel in ("forward", FM.mlp_bwd_kernel(False), FM.mlp_bwd_kernel(True)):
         if D in (128, 256, 384, 512):
@@ -187,29 +181,31 @@ def _meta_params(cfg):
 
 def test_wide_gates_fire_before_device_work():
     """On a device the kernels serve (a meta tensor stands in for a CUDA one:
-    the checks come before any launch or build), K1 and K4 full at 512 raise
-    NotImplementedError naming Queue 3 (b), and so does the differentiable
-    route of K3 when a nerf parameter wants a gradient: its forward checks the
-    backward's variant. K6 full's gate and the differentiable route of K5
-    pass with or without parameters that want gradients, and so do the
-    frozen variants' gates and K3's forward for a frozen network: the calls
-    go on to the kernel's build (no nvcc on this machine)."""
+    the checks come before any launch or build), K1 and K4 full at 512 pass
+    their width gate, and so does the differentiable route of K3 when a nerf
+    parameter wants a gradient (its forward checks the backward's variant),
+    K6 full's gate, the differentiable route of K5 with or without parameters
+    that want gradients, the frozen variants' gates and K3's forward for a
+    frozen network: every call goes on to the kernel's build (no nvcc on this
+    machine). At 640 K1 and K4 full, and the differentiable route of K3 with
+    parameters that want gradients, raise NotImplementedError naming Queue 3
+    (c) before any build."""
     cfg = NerfConfig(hidden_dim=512, use_pallas=True)
     meta = dict(device="meta")
     rays, z = torch.empty(4, 9, **meta), torch.empty(4, 128, **meta)
     tgt = torch.empty(4, F.TGT_DIM, **meta)
     g_rgb, g_dist = torch.empty(4, 3, **meta), torch.empty(4, **meta)
-    with pytest.raises(NotImplementedError, match="Queue 3 \\(b\\)"):
-        F._train_cuda({}, rays, z, tgt, cfg, False, 1, False)
-    with pytest.raises(NotImplementedError, match="Queue 3 \\(b\\)"):
-        F._render_bwd_cuda({}, rays, z, g_rgb, g_dist, None, None, cfg, False)
     pts = torch.empty(4, 3, **meta)
     params = _meta_params(cfg)
     names = tuple(sorted(params))
     tensors = [params[k] for k in names]
     wants = SimpleNamespace(needs_input_grad=(True,) * 6 + (True,) * len(names))
     frozen = SimpleNamespace(needs_input_grad=(True,) * 6 + (False,) * len(names))
-    with pytest.raises(NotImplementedError, match="render-backward.*Queue 3 \\(b\\)"):
+    with pytest.raises(RuntimeError, match="nvcc"):
+        F._train_cuda(params, rays, z, tgt, cfg, False, 1, False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        F._render_bwd_cuda(params, rays, z, g_rgb, g_dist, None, None, cfg, False)
+    with pytest.raises(RuntimeError, match="nvcc"):
         F._RenderFused.forward(wants, rays, z, cfg, False, True, names, *tensors)
     with pytest.raises(RuntimeError, match="nvcc"):
         FM._PointMLP.forward(SimpleNamespace(needs_input_grad=wants.needs_input_grad[2:]),
@@ -227,3 +223,10 @@ def test_wide_gates_fire_before_device_work():
     with pytest.raises(RuntimeError, match="nvcc"):
         FM._mlp_bwd_cuda(params, pts, pts, pts, torch.empty(4, 1, **meta), cfg,
                          want_param_grads=False)
+    past = NerfConfig(hidden_dim=640, use_pallas=True)
+    with pytest.raises(NotImplementedError, match="Queue 3 \\(c\\)"):
+        F._train_cuda({}, rays, z, tgt, past, False, 1, False)
+    with pytest.raises(NotImplementedError, match="Queue 3 \\(c\\)"):
+        F._render_bwd_cuda({}, rays, z, g_rgb, g_dist, None, None, past, False)
+    with pytest.raises(NotImplementedError, match="render-backward.*Queue 3 \\(c\\)"):
+        F._RenderFused.forward(wants, rays, z, past, False, True, names, *tensors)
