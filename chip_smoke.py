@@ -157,6 +157,18 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    same steps eager (torch.equal).
    `python3 chip_smoke.py --wide` builds the kernels and runs this phase
    alone;
+14. holds the backward kernels at hidden_dim 128 and 256 (the 128-point
+   chain of csrc/mlp_dx_sm90.cuh, its forward summed ring slice by ring
+   slice from zero) on phase 13's cases, by its rules and invariants, after
+   phase 13: K1 and K4 full on 1024 rays x 128 and 512, 4096 x 256 and 4097
+   x 128 over both flag sets (every dW and dB block by 5e-3, K1's sums and
+   d(target); K4 full's d(rays), dz torch.equal to K4 frozen's, K4 full fed
+   K1's cotangents bit-equal to K1, two launches bit-equal), K4 frozen at S
+   = 128, 256 and 1024 on 1024 rays (beside phase 12's 133), K6 frozen at
+   1 to 196,645 points and K6 full at 1 to 196,645 points (d(points),
+   d(directions) torch.equal to K6 frozen's). Every hold reports before the
+   phase fails. `python3 chip_smoke.py --narrow` builds the kernels and runs
+   this phase alone;
 9. times each path and each kernel at its main path's shapes (CUDA events;
    dw_sm90 also on its own over K1's and K4 full's 11 blocks, beside the
    bytes of the operands those kernels hand it; K2 and K7 through their
@@ -3123,18 +3135,20 @@ def per_sample_share(got, ref) -> float:
     return float((got - ref).norm()) / (2e-2 * float(ref.norm()) + 1e-12)
 
 
-def check_wide_frozen(torch, dev) -> dict:
+def check_wide_frozen(torch, dev, widths=WIDE_D) -> dict:
     """Phase 13 (a'): K4's frozen-network variant at S of WIDE_BWD_S on
-    WIDE_BWD_RAYS rays and K6's at the point counts of WIDE_BWD_M, at D = 384
-    and 512 (csrc/mlp_dx_wide_sm90.cuh's 64-point chain), over both flag sets
-    of WIDE_FLAGS: d(rays), dz and d(points), d(directions) within the
-    per-sample rule of their plain versions (per_sample_share), two launches
-    bit-equal. K4 runs on the pose-opt step's 1024 rays: one flipped ReLU
-    mask or bf16 rounding at one sample moves up to six entries of its ray's
-    d(rays) at once, and on 133 rays (1,197 entries) the rule's 1 entry in
-    1000 admits one, which the f32 plain version itself misses against the
-    f64 sum (PERF.md sections 2 and 6, PR 20). Returns the worst absolute
-    error by kernel and width; fails if any case disagrees."""
+    WIDE_BWD_RAYS rays and K6's at the point counts of WIDE_BWD_M, at each
+    width of `widths` (phase 13: 384 and 512, csrc/mlp_dx_wide_sm90.cuh's
+    64-point chain; phase 14: 128 and 256, csrc/mlp_dx_sm90.cuh's 128-point
+    chain), over both flag sets of WIDE_FLAGS: d(rays), dz and d(points),
+    d(directions) within the per-sample rule of their plain versions
+    (per_sample_share), two launches bit-equal. K4 runs on the pose-opt
+    step's 1024 rays: one flipped ReLU mask or bf16 rounding at one sample
+    moves up to six entries of its ray's d(rays) at once, and on 133 rays
+    (1,197 entries) the rule's 1 entry in 1000 admits one, which the f32
+    plain version itself misses against the f64 sum (PERF.md sections 2 and
+    6). Returns the worst absolute error by kernel and width; fails if
+    any case disagrees."""
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
     from nope_nerf_torch.ops.fused_mlp import _mlp_bwd_cuda, point_mlp_bwd_plain
     from nope_nerf_torch.ops.fused_render import _render_bwd_cuda, render_rays_fused_bwd_plain
@@ -3154,7 +3168,7 @@ def check_wide_frozen(torch, dev) -> dict:
                 failed.append(f"{kernel}: {name} at {share:.2f} of its tolerance ({case})")
         return ", ".join(report) + " of its tolerance"
 
-    for D in WIDE_D:
+    for D in widths:
         for S in WIDE_BWD_S:
             rays, z, tgt = train_inputs(torch, dev, gen, WIDE_BWD_RAYS, S)
             for occ, da in WIDE_FLAGS:
@@ -3182,8 +3196,8 @@ def check_wide_frozen(torch, dev) -> dict:
                             b[2:], ref[2:])
                 print(f"point_mlp_bwd_frozen vs plain, {case}: {text}; two launches bit-equal")
     if failed:
-        raise RuntimeError("wide widths: frozen-network backward kernels disagree with their "
-                           "plain versions: " + "; ".join(failed))
+        raise RuntimeError(f"widths {widths}: frozen-network backward kernels disagree with "
+                           "their plain versions: " + "; ".join(failed))
     return worst
 
 
@@ -3199,21 +3213,22 @@ def wide_full_share(got, ref, name: str, m: int) -> float:
     return grad_share(got, ref, False)
 
 
-def check_wide_full(torch, dev) -> dict:
-    """Phase 13 (a''): K6 full at the point counts of WIDE_FULL_M, at D = 384
-    and 512 (csrc/mlp_dx_wide_sm90.cuh's chain with mlp_dw_chain_sm90.cuh's
-    OperandSaveW and dw_sm90.cuh's column pieces), over both flag sets of
-    WIDE_FLAGS, on the cotangents of a smooth loss: every dW and dB block and
-    d(points), d(directions) against the plain version (wide_full_share), two
-    launches bit-equal, d(points) and d(directions) torch.equal to K6
-    frozen's. Returns the worst absolute error by width; fails if any case
-    disagrees."""
+def check_wide_full(torch, dev, widths=WIDE_D) -> dict:
+    """Phase 13 (a''): K6 full at the point counts of WIDE_FULL_M, at each
+    width of `widths` (phase 13: 384 and 512, csrc/mlp_dx_wide_sm90.cuh's
+    chain with mlp_dw_chain_sm90.cuh's OperandSaveW and dw_sm90.cuh's column
+    pieces; phase 14: 128 and 256, csrc/mlp_dx_sm90.cuh's chain with
+    OperandSave), over both flag sets of WIDE_FLAGS, on the cotangents of a
+    smooth loss: every dW and dB block and d(points), d(directions) against
+    the plain version (wide_full_share), two launches bit-equal, d(points)
+    and d(directions) torch.equal to K6 frozen's. Returns the worst absolute
+    error by width; fails if any case disagrees."""
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
     from nope_nerf_torch.ops.fused_mlp import _mlp_bwd_cuda, point_mlp_bwd_plain
     from nope_nerf_torch.ops.fused_render import unpack_grads
     gen = torch.Generator().manual_seed(SEED + 38)
     worst, failed = {}, []
-    for D in WIDE_D:
+    for D in widths:
         for M in WIDE_FULL_M:
             pts, dirs = point_inputs(torch, dev, gen, M)
             for occ, da in WIDE_FLAGS:
@@ -3247,17 +3262,18 @@ def check_wide_full(torch, dev) -> dict:
                 if not shares[k_worst] <= 1.0:
                     failed.append(f"{k_worst} at {shares[k_worst]:.2f} of its tolerance ({case})")
     if failed:
-        raise RuntimeError("wide widths: point_mlp_bwd disagrees with its plain version: "
+        raise RuntimeError(f"widths {widths}: point_mlp_bwd disagrees with its plain version: "
                            + "; ".join(failed))
     return worst
 
 
-def check_wide_render_full(torch, dev) -> dict:
-    """Phase 13 (a'''): K1 and K4 full at D = 384 and 512
-    (render_full_sm90.cuh's wide kernel: mlp_dx_wide_sm90.cuh's chain with
-    mlp_dw_chain_sm90.cuh's OperandSaveW<D, true> and dw_sm90.cuh's column
-    pieces) on the cases of WIDE_RENDER_CASES, over both flag sets of
-    WIDE_FLAGS (K1 with rgb_p 1 and 2 in turn). Per case, by PERF.md
+def check_wide_render_full(torch, dev, widths=WIDE_D) -> dict:
+    """Phase 13 (a'''): K1 and K4 full at each width of `widths` (phase 13:
+    384 and 512, render_full_sm90.cuh's wide kernel: mlp_dx_wide_sm90.cuh's
+    chain with mlp_dw_chain_sm90.cuh's OperandSaveW<D, true> and
+    dw_sm90.cuh's column pieces; phase 14: 128 and 256, its 128-point kernel
+    on mlp_dx_sm90.cuh's chain) on the cases of WIDE_RENDER_CASES, over both
+    flag sets of WIDE_FLAGS (K1 with rgb_p 1 and 2 in turn). Per case, by PERF.md
     section 2's rules: K1's loss sums within 2e-3 relative, its dW and dB
     within 5e-3 of each block's largest entry (grad_share; every case sums
     over 131,072 samples or more) and d(target) by the per-sample rule,
@@ -3284,7 +3300,7 @@ def check_wide_render_full(torch, dev) -> dict:
     def blocks(ncfg, dWs, dBs, **per_sample):
         return dict(unpack_grads(dWs, dBs, ncfg), **per_sample)
 
-    for D in WIDE_D:
+    for D in widths:
         for n, S in WIDE_RENDER_CASES:
             rays, z, tgt = train_inputs(torch, dev, gen, n, S)
             n_chunks = len(render_chunks(n, S, D))
@@ -3347,8 +3363,8 @@ def check_wide_render_full(torch, dev) -> dict:
                                       f"({case})")
                 del k1, k1_again, fed, k4, k4_again, frozen, ref1, ref4
     if failed:
-        raise RuntimeError("wide widths: render_train / render_bwd disagree with their plain "
-                           "versions: " + "; ".join(failed))
+        raise RuntimeError(f"widths {widths}: render_train / render_bwd disagree with their "
+                           "plain versions: " + "; ".join(failed))
     return worst
 
 
@@ -3727,6 +3743,36 @@ def run_wide(torch, np, dev) -> dict:
     return out
 
 
+# ---- phase 14: hidden_dim 128 and 256 on phase 13's backward holds ----------------
+
+NARROW_D = (128, 256)             # the widths of csrc/mlp_dx_sm90.cuh's 128-point chain
+
+
+def run_narrow(torch, dev) -> dict:
+    """Phase 14: K1 and K4 full, K4 frozen, K6 full and K6 frozen at
+    NARROW_D (csrc/mlp_dx_sm90.cuh's 128-point chain, whose forward sums each
+    ring slice from zero) on phase 13's cases, by its rules and with its
+    invariants, none loosened: check_wide_render_full (WIDE_RENDER_CASES,
+    both flag sets, (I1) to (I3)), check_wide_frozen (K4 frozen on
+    WIDE_BWD_RAYS rays x WIDE_BWD_S beside phase 12's 133 rays, K6 frozen at
+    WIDE_BWD_M) and check_wide_full (K6 full at WIDE_FULL_M, d(points) and
+    d(directions) torch.equal to K6 frozen's). Every hold runs and reports
+    before the phase fails on any that missed; a miss is never retried.
+    Returns the worst absolute errors."""
+    t_phase = time.perf_counter()
+    out, missed = {}, []
+    for name, check in (("render_full", check_wide_render_full), ("frozen", check_wide_frozen),
+                        ("full", check_wide_full)):
+        try:
+            out[name] = check(torch, dev, NARROW_D)
+        except RuntimeError as e:
+            missed.append(str(e))
+    print(f"narrow phase: {time.perf_counter() - t_phase:.1f} s wall")
+    if missed:
+        raise RuntimeError("phase 14: " + " | ".join(missed))
+    return out
+
+
 def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
     """Phase 9's part for phase 13: per width, a 188x621 frame end to end
     (render_trajectory), K3 over the frame's rays at 128 samples and K5 at
@@ -4087,7 +4133,7 @@ def main() -> int:
           + ", ".join(lib.source.name for lib in libraries) + " (side by side)")
     for lib in libraries:
         for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "serialized" in line:
                 print(f"  ptxas {lib.source.name}:", line.strip())
 
     if sys.argv[1:2] == ["--step-graphs"]:
@@ -4104,6 +4150,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--wide"]:
         # phase 13 alone, for work on the wide trunk (the full run takes every phase)
         run_wide(torch, np, dev)
+        return 0
+    if sys.argv[1:2] == ["--narrow"]:
+        # phase 14 alone, for work on the 128-point chain (the full run takes every phase)
+        run_narrow(torch, dev)
         return 0
 
     # ---- 2. each kernel against its plain version ---------------------------
@@ -4161,6 +4211,9 @@ def main() -> int:
 
     # ---- 13. hidden_dim 384 and 512: every kernel of the MLP; render, eval, train
     wide = run_wide(torch, np, dev)
+
+    # ---- 14. hidden_dim 128 and 256: the backward kernels on phase 13's holds
+    run_narrow(torch, dev)
 
     # ---- 9. timing at the main paths' shapes ---------------------------------
     h, w = RESOLUTION

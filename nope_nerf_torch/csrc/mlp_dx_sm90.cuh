@@ -13,8 +13,14 @@
 //
 // Numerics are the TPU kernels' (pallas_mlp.py::_bwd_chain_core), in a
 // fixed order:
-// - the forward as mlp_fwd_sm90.cuh (each product summed from the bias,
-//   then 16-column steps of K in order);
+// - the forward's products as mlp_fwd_sm90.cuh's, but each 64-column ring
+//   slice of K summed from zero by the tensor cores, then added in f32 to the
+//   accumulator, which starts at the bias, slice by slice in order
+//   (ring_products_p below). So the forward inside these kernels no longer
+//   sums in K3's and K5's order: the tensor cores truncate as they
+//   accumulate, and a sum carried from the bias over all of K drifts towards
+//   zero (mlp_dx_wide_sm90.cuh's forward sums its 32-column slices the same
+//   way);
 // - every cotangent rounded to bf16 before it enters a product, each product
 //   summed from zero over 16-column steps of K in order, then in the
 //   epilogue's order: + gs wd (the density head's rank-1 term), the ReLU
@@ -250,6 +256,62 @@ __device__ __forceinline__ bool hidden_mask(const uint32_t* mask_h, int m, int j
 
 // ---- the forward, masks kept ----------------------------------------------------
 
+// Piece c (P output columns: rows cP..cP+P-1 of the ring slice at b, 128
+// bytes each) of one slice's product, summed from zero on the tensor cores
+// into t over the slice's `ksteps` steps of 16 columns (A at `as`); one
+// committed group.
+template <int P>
+__device__ __forceinline__ void piece_issue(float (&t)[P / 2], uint32_t as, uint32_t b, int c,
+                                            int ksteps) {
+#pragma unroll
+  for (int i = 0; i < P / 2; ++i) t[i] = 0.f;
+  wgmma_fence();
+  const uint32_t bc = b + c * P * 128;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (k < ksteps) wgmma_bf16<P>(t, sw128_desc(as + 32 * k), sw128_desc(bc + 32 * k));
+  }
+  wgmma_commit();
+}
+
+// acc's columns of piece c += t, by the CUDA cores (round to nearest).
+template <int N, int P>
+__device__ __forceinline__ void piece_add(float (&acc)[N / 2], const float (&t)[P / 2], int c) {
+#pragma unroll
+  for (int i = 0; i < P / 2; ++i) acc[c * (P / 2) + i] += t[i];
+}
+
+// ring_products with each ring slice's product summed from zero, P output
+// columns at a time, and added to acc by the CUDA cores. The tensor cores
+// truncate as they accumulate, so a sum carried from the bias across all of
+// K drifts towards zero, one step of 16 columns at a time: at D = 256 the
+// kernels' bf16 activations differed from an exact sum's 2.0 to 2.9 x as
+// often as an f32 evaluation's. A slice's sum starts from zero, so its
+// truncation is on the scale of 64 products and of either sign, and the
+// running sum is rounded to nearest. How N is cut into pieces changes no
+// sum. Each piece waits for its own products before it is added: two pieces
+// in flight spilled more and ran no faster on an H100 (PERF.md section 6).
+template <int N>
+__device__ __forceinline__ void ring_products_p(float (&acc)[N / 2], uint32_t a, int kblocks,
+                                                int ksteps, Ring& ring) {
+  const bool leader = (threadIdx.x & 31) == 0;
+  constexpr int P = N >= 128 ? 64 : 32;
+  float t[P / 2];
+  for (int kb = 0; kb < kblocks; ++kb) {
+    const uint32_t stage = ring.it % ring.stages;
+    mbar_wait(ring.full + 8 * stage, (ring.it / ring.stages) & 1);
+    const uint32_t b = ring.base + stage * ring.stride;
+#pragma unroll
+    for (int c = 0; c < N / P; ++c) {
+      piece_issue<P>(t, a + kb * kBlockBytes, b, c, ksteps);
+      wgmma_wait<0>();
+      piece_add<N, P>(acc, t, c);
+    }
+    if (leader) mbar_arrive(ring.empty + 8 * stage);
+    ++ring.it;
+  }
+}
+
 // No operand leaves the tile.
 struct NoSave {
   __device__ __forceinline__ void operator()(int, int) const {}
@@ -257,8 +319,9 @@ struct NoSave {
 };
 
 // mlp_fwd_sm90.cuh's mlp_tile90 with the ReLU layers' masks kept in `masks`:
-// the same products in the same order, the same roundings. Raw rgb and
-// density go to hout[4p + 0..3]. save(i, wg) is called by each warpgroup
+// the same products in the same order, each slice's summed from zero
+// (ring_products_p), the same roundings. Raw rgb and density go to
+// hout[4p + 0..3]. save(i, wg) is called by each warpgroup
 // once an operand of the weight gradients is in shared memory, with its rows
 // of it: i = 0 the position encodings (the `pe` block), 1..8 x0..x7 and
 // 9 feat (the activation buffer), 10 the direction encodings (the `de`
@@ -285,7 +348,7 @@ __device__ __forceinline__ void mlp_tile_masks(const float* const* b, uint32_t p
   {
     float acc[D / 2];
     acc_bias<D>(acc, b[0]);
-    ring_products<D>(acc, pe_s, 1, 4, ring);
+    ring_products_p<D>(acc, pe_s, 1, 4, ring);
     wg_sync(wg);
     store_act_mask<D, true>(acc, act_g, masks);
     wg_sync(wg);
@@ -293,9 +356,9 @@ __device__ __forceinline__ void mlp_tile_masks(const float* const* b, uint32_t p
 #pragma unroll 1
     for (int l = 1; l < 8; ++l) {
       acc_bias<D>(acc, b[l]);
-      ring_products<D>(acc, act_s, D / 64, 4, ring);
+      ring_products_p<D>(acc, act_s, D / 64, 4, ring);
       if (l == 4) {
-        ring_products<D>(acc, pe_s, 1, 4, ring);   // the skip: pe @ w5, pe's last use
+        ring_products_p<D>(acc, pe_s, 1, 4, ring);   // the skip: pe @ w5, pe's last use
         if (leader) mbar_arrive(hand.pe_free);
       }
       save.drain(wg);
@@ -306,7 +369,7 @@ __device__ __forceinline__ void mlp_tile_masks(const float* const* b, uint32_t p
     }
     head90<D>(act_s, dens_w, b[8], hout_wg, 3, 1);
     acc_bias<D>(acc, b[9]);
-    ring_products<D>(acc, act_s, D / 64, 4, ring);
+    ring_products_p<D>(acc, act_s, D / 64, 4, ring);
     save.drain(wg);
     wg_sync(wg);
     store_act<D, false>(acc, act_g);
@@ -315,11 +378,11 @@ __device__ __forceinline__ void mlp_tile_masks(const float* const* b, uint32_t p
   }
   float acc[D / 4];
   acc_bias<D / 2>(acc, hbias);
-  ring_products<D / 2>(acc, act_s, D / 64, 4, ring);
+  ring_products_p<D / 2>(acc, act_s, D / 64, 4, ring);
   if (de != 0) {
     mbar_wait(hand.de_full, parity);
     save(10, wg);
-    ring_products<D / 2>(acc, de + wg * kWgRowBytes, 1, kDe / 16, ring);
+    ring_products_p<D / 2>(acc, de + wg * kWgRowBytes, 1, kDe / 16, ring);
     save.drain(wg);
     if (leader) mbar_arrive(hand.de_free);
   }

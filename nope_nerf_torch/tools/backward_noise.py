@@ -56,16 +56,17 @@ csrc/mlp_dx_wide_sm90.cuh at 384 and 512) in two parts instead:
    zero, the share of entries whose bf16 rounding differs from the exact
    value's, and the forward's pre-activations (+ bias in f32) whose sign
    differs from the exact one's (a flipped ReLU mask).
-With `--full`, K6 full (csrc/point_mlp_bwd.cu) at hidden_dim 384 and 512 on
-chip_smoke.py phase 13's inputs (point_inputs, point_cotangents, both flag
-sets of WIDE_FLAGS) at its point counts WIDE_FULL_M, FULL_SEEDS seeds: per
-case the worst dW or dB block by grad_share (5e-3 of its largest entry; <= 1
-passes) and the number beyond it, for kernel vs f32 plain, kernel vs f64
-(`point_mlp_bwd_plain(..., dtype=torch.float64)`) and f32 plain vs f64; per
-width and point count the worst shares and the blocks beyond the rule. Below
-a few hundred points a block sums too few products for one flipped bf16
-rounding to average away: where the f32 plain version misses the 5e-3 rule
-against the f64 sum, no f32 evaluation can be held to it.
+With `--full`, K6 full (csrc/point_mlp_bwd.cu) at hidden_dim 384 and 512 (or
+the `--widths` given) on chip_smoke.py phase 13's inputs (point_inputs,
+point_cotangents, both flag sets of WIDE_FLAGS) at its point counts
+WIDE_FULL_M, FULL_SEEDS seeds: per case the worst dW or dB block by
+grad_share (5e-3 of its largest entry; <= 1 passes) and the number beyond
+it, for kernel vs f32 plain, kernel vs f64 (`point_mlp_bwd_plain(...,
+dtype=torch.float64)`) and f32 plain vs f64; per width and point count the
+worst shares, the blocks beyond the rule and the case's class (classify).
+Below a few hundred points a block sums too few products for one flipped
+bf16 rounding to average away: where the f32 plain version misses the 5e-3
+rule against the f64 sum, no f32 evaluation can be held to it.
 With `--render-full`, K1 (csrc/render_train.cu) and K4 full
 (csrc/render_bwd.cu), both instances of csrc/render_full_sm90.cuh (its wide
 kernel at 384 and 512), at hidden_dim 128 to 512 on chip_smoke.py phase
@@ -79,8 +80,9 @@ own cotangents (K1's are the negatives of the first four columns of its
 d(target), which a sign flip of a ray's colour or depth error makes differ
 between the kernel and its plain version). Per width, case and kernel the
 worst shares, the blocks beyond the rule and the mean L2 distance from f64
-of the kernel over that of the f32 plain version. Then what that distance is
-made of, at each width (--widths) on 1024 rays x 128 and the second flag set (relu,
+of the kernel over that of the f32 plain version, and the case's class by the
+decision rule fixed before the tool's first run (classify). Then what that
+distance is made of, at each width (--widths) on 1024 rays x 128 and the second flag set (relu,
 dist_alpha) of each seed: per layer the bf16 activations (pe, x0..x7, feat)
 that differ from the f64 forward's, per sample, for the kernel (K4 full's
 own X operands, read back from the buffer it hands the dW kernel) and for
@@ -113,6 +115,24 @@ FROZEN_RAYS = (133, 1024)
 FROZEN_SEEDS = 6
 FULL_SEEDS = 4
 RENDER_FULL_SEEDS = 2
+
+
+def classify(kernel_f64: float, f32_f64: float) -> str:
+    """The decision rule's class of one draw from the worst dW or dB block's
+    share of the 5e-3 rule (<= 1 holds), kernel against the f64 sum and the
+    f32 plain version against it: "a" the kernel holds against f64 in every
+    block, a faithful f32 evaluation there; "b" it misses where the f32 plain
+    version misses too, the draw is too small for the rule; "c" it misses
+    alone, the kernel is at fault and gets fixed, the check stays."""
+    if kernel_f64 <= 1.0:
+        return "a"
+    return "b" if f32_f64 > 1.0 else "c"
+
+
+def case_class(classes) -> str:
+    """A case's class from its draws': (c) if any draw is (c), else (b) if
+    any is, else (a)."""
+    return max(classes, key="abc".index)
 
 
 def case_inputs(torch, dev, name: str, occ: str, head_da: bool, dist_alpha: bool):
@@ -228,17 +248,18 @@ def frozen_yardstick(torch, chip_smoke, dev) -> None:
                   flush=True)
 
 
-def full_yardstick(torch, chip_smoke, dev) -> None:
+def full_yardstick(torch, chip_smoke, dev, widths) -> None:
     """--full: K6 full, its f32 plain version and the f64 sum, on the dW and
     dB blocks at each width and point count (see the module text)."""
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
     from nope_nerf_torch.ops.fused_mlp import _mlp_bwd_cuda, point_mlp_bwd_plain
     from nope_nerf_torch.ops.fused_render import unpack_grads
     pairs = ("kernel~f32", "kernel~f64", "f32~f64")
-    for D in chip_smoke.WIDE_D:
+    for D in widths:
         for M in chip_smoke.WIDE_FULL_M:
             worst = dict.fromkeys(pairs, 0.0)
             beyond = dict.fromkeys(pairs, 0)
+            classes = []
             for seed in range(FULL_SEEDS):
                 gen = torch.Generator().manual_seed(200 + seed)
                 pts, dirs = chip_smoke.point_inputs(torch, dev, gen, M)
@@ -253,20 +274,23 @@ def full_yardstick(torch, chip_smoke, dev) -> None:
                                                 dtype=torch.float64)]
                     k, p32, p64 = (unpack_grads([w.float() for w in o[0]],
                                                 [b.float() for b in o[1]], ncfg) for o in outs)
-                    parts = []
+                    parts, top = [], {}
                     for what, got, ref in zip(pairs, (k, k, p32), (p32, p64, p64)):
                         shares = {n: chip_smoke.grad_share(got[n], ref[n], False) for n in ref}
                         n_worst = max(shares, key=shares.get)
+                        top[what] = shares[n_worst]
                         worst[what] = max(worst[what], shares[n_worst])
                         over = sum(v > 1.0 for v in shares.values())
                         beyond[what] += over
                         parts.append(f"{what} {shares[n_worst]:.3f} ({n_worst}, {over} beyond)")
+                    classes.append(classify(top["kernel~f64"], top["f32~f64"]))
                     print(f"full D={D} {M} points occ={occ} head_dist_alpha={da} seed {seed}: "
-                          + "; ".join(parts), flush=True)
+                          + "; ".join(parts) + f"; class ({classes[-1]})", flush=True)
             print(f"full D={D} {M} points, summary over {FULL_SEEDS * len(chip_smoke.WIDE_FLAGS)}"
                   " cases x 26 blocks: worst share "
                   + ", ".join(f"{p} {worst[p]:.3f}" for p in pairs) + "; blocks beyond 5e-3 "
-                  + ", ".join(f"{p} {beyond[p]}" for p in pairs), flush=True)
+                  + ", ".join(f"{p} {beyond[p]}" for p in pairs)
+                  + f"; class ({case_class(classes)})", flush=True)
 
 
 def render_full_yardstick(torch, chip_smoke, dev, widths=FROZEN_WIDTHS, cases=None,
@@ -293,6 +317,7 @@ def render_full_yardstick(torch, chip_smoke, dev, widths=FROZEN_WIDTHS, cases=No
                 worst = dict.fromkeys(pairs, 0.0)
                 beyond = dict.fromkeys(pairs, 0)
                 l2 = dict.fromkeys(pairs, 0.0)
+                classes = []
                 for seed in range(seeds):
                     gen = torch.Generator().manual_seed(300 + seed)
                     rays, z, tgt = chip_smoke.train_inputs(torch, dev, gen, n, S)
@@ -319,26 +344,30 @@ def render_full_yardstick(torch, chip_smoke, dev, widths=FROZEN_WIDTHS, cases=No
                         K, P, EK, EP = (unpack_grads([w.float() for w in o[0]],
                                                      [b.float() for b in o[1]], ncfg)
                                         for o in (k, p, e_k, e_p))
-                        parts = []
+                        parts, top = [], {}
                         for what, got, ref in zip(pairs, (K, K, P), (P, EK, EP)):
                             shares = {b: chip_smoke.grad_share(got[b], ref[b], False) for b in ref}
                             b_worst = max(shares, key=shares.get)
                             over = sum(v > 1.0 for v in shares.values())
+                            top[what] = shares[b_worst]
                             worst[what] = max(worst[what], shares[b_worst])
                             beyond[what] += over
                             l2[what] += sum(float((got[b] - ref[b]).norm())
                                             / (float(ref[b].norm()) + 1e-30) for b in ref)
                             parts.append(f"{what} {shares[b_worst]:.3f} ({b_worst}, "
                                          f"{over} beyond)")
+                        classes.append(classify(top["kernel~f64"], top["f32~f64"]))
                         print(f"{kname} D={D} {n} rays x {S} occ={occ} dist_alpha={da}{note} "
-                              f"seed {seed}: " + "; ".join(parts), flush=True)
+                              f"seed {seed}: " + "; ".join(parts) + f"; class ({classes[-1]})",
+                              flush=True)
                         del k, p, e_k, e_p
                 runs = seeds * len(flags)
                 print(f"{kname} D={D} {n} rays x {S}, summary over {runs} cases x 26 blocks: "
                       "worst share " + ", ".join(f"{q} {worst[q]:.3f}" for q in pairs)
                       + "; blocks beyond 5e-3 " + ", ".join(f"{q} {beyond[q]}" for q in pairs)
                       + f"; mean relative L2 distance from f64, kernel over f32 plain "
-                      f"{l2['kernel~f64'] / max(l2['f32~f64'], 1e-30):.2f}", flush=True)
+                      f"{l2['kernel~f64'] / max(l2['f32~f64'], 1e-30):.2f}"
+                      f"; class ({case_class(classes)})", flush=True)
                 torch.cuda.empty_cache()
 
 
@@ -566,8 +595,9 @@ def main(argv=None) -> int:
                          "text)")
     ap.add_argument("--cases", nargs="+", default=None, metavar="RAYSxS",
                     help="with --render-full: these cases instead of phase 13's, and no part 2")
-    ap.add_argument("--widths", type=int, nargs="+", default=list(FROZEN_WIDTHS),
-                    help="with --render-full: the widths")
+    ap.add_argument("--widths", type=int, nargs="+", default=None,
+                    help="with --render-full (default 128 to 512) or --full (default 384 and "
+                         "512): the widths")
     ap.add_argument("--seeds", type=int, default=RENDER_FULL_SEEDS,
                     help="with --render-full: seeds a case")
     ap.add_argument("--attribute", action="store_true",
@@ -593,20 +623,21 @@ def main(argv=None) -> int:
         dev = torch.device("cuda")
         if args.full:
             build_all((fused_mlp.POINT_MLP_BWD,))
-            full_yardstick(torch, chip_smoke, dev)
+            full_yardstick(torch, chip_smoke, dev, args.widths or chip_smoke.WIDE_D)
             return 0
         if args.render_full:
+            widths = args.widths or list(FROZEN_WIDTHS)
             build_all((fused_render.RENDER_TRAIN, fused_render.RENDER_BWD))
             cases = None if args.cases is None else [
                 tuple(int(v) for v in c.split("x")) for c in args.cases]
             if args.attribute:
-                render_full_attribution(torch, chip_smoke, dev, args.widths,
+                render_full_attribution(torch, chip_smoke, dev, widths,
                                         cases or chip_smoke.WIDE_RENDER_CASES, args.seeds)
                 return 0
-            render_full_yardstick(torch, chip_smoke, dev, args.widths, cases, args.seeds,
+            render_full_yardstick(torch, chip_smoke, dev, widths, cases, args.seeds,
                                   None if args.flag_set is None else (args.flag_set,))
             if cases is None:
-                render_full_flips(torch, chip_smoke, dev, args.widths)
+                render_full_flips(torch, chip_smoke, dev, widths)
             return 0
         build_all((fused_render.RENDER_BWD_FROZEN, fused_mlp.DW_SM90))
         tensor_core_products(torch, chip_smoke, dev)

@@ -34,11 +34,16 @@ one warm-up:
   step's launch); and the dW kernel on its own
   (`dw_sm90`) over K6's blocks at 256 on 196,608 rows of seeded operands.
   Its SASS digests are per library (each source builds its own copy of the
-  dW kernel and of the sums of the partials).
-Prints the card's name and power limit, then one JSON line: ms and SHA-256
-of the outputs per case, and with `--sass` the SHA-256 of each kernel
-instance's SASS instructions (`cuobjdump -sass`, function names left out),
-which shows whether two checkouts compiled a width to the same code.
+  dW kernel and of the sums of the partials). Per case of K1, K4 full and
+  K6 full it also gives the dW kernel's share of the call's device time
+  (its launch and the sums of its partials, by torch.profiler over two
+  calls).
+Prints the card's name and power limit, ptxas's lines of each library's
+build that name a kernel instance or give its registers and spills, then one
+JSON line: ms and SHA-256 of the outputs per case, and with `--sass` the
+SHA-256 of each kernel instance's SASS instructions (`cuobjdump -sass`,
+function names left out), which shows whether two checkouts compiled a width
+to the same code.
 """
 
 from __future__ import annotations
@@ -127,7 +132,7 @@ def forward_cases(dev, gen, widths, reps: int):
         bptrs = (ctypes.c_void_p * 12)(*[b.data_ptr() for b in biases])
         rgb, density = torch.empty(POINTS, 3, device=dev), torch.empty(POINTS, 1, device=dev)
 
-        def k5_alone(D=D, tiles=tiles, bptrs=bptrs, rgb=rgb, density=density):
+        def k5_alone(D=D, tiles=tiles, biases=biases, bptrs=bptrs, rgb=rgb, density=density):
             err = FM.POINT_MLP_FWD.lib().nerf_point_mlp_fwd(
                 pts.data_ptr(), dirs.data_ptr(), tiles.data_ptr(), bptrs, rgb.data_ptr(),
                 density.data_ptr(), POINTS, D, 1, 0, torch.cuda.current_stream().cuda_stream)
@@ -214,6 +219,28 @@ def full_cases(dev, gen, widths, reps: int):
     return cases
 
 
+def dw_shares(cases) -> dict:
+    """{case: the dW kernel's share of its device time} for the cases that
+    launch it with a chain (K1, K4 full, K6 full), by torch.profiler over two
+    calls each; {} where the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    shares = {}
+    for name, (fn, _) in cases.items():
+        if name.startswith("dw_sm90"):
+            continue
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                fn()
+            torch.cuda.synchronize()
+        kt = {e.key: e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA}
+        dw = sum(v for k, v in kt.items() if "dw_sm90_kernel" in k or "dw_reduce_kernel" in k)
+        total = sum(kt.values())
+        if total > 0:
+            shares[name] = dw / total
+    return shares
+
+
 def _width_params(dev, widths):
     """(D, NerfConfig, seeded params) per width, the density bias lowered."""
     for D in widths:
@@ -244,6 +271,10 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip())
     libraries, make_cases, reps = KERNEL_SETS[args.kernels]
     build_all(libraries)
+    for lib in libraries:
+        for line in lib.build_log.splitlines():
+            if any(w in line for w in ("entry function", "registers", "spill", "serialized")):
+                print(f"ptxas {lib.source.name}: {line.strip()}")
     if args.sass:
         print(json.dumps({"sass": sass_digests(libraries, SASS_NAMES[args.kernels],
                                                per_library=args.kernels == "full")}))
@@ -252,7 +283,11 @@ def main(argv=None) -> int:
     for name, (fn, n) in make_cases(dev, gen, args.widths, args.reps or reps).items():
         digest[name] = _digest(fn())
         ms[name] = _time(fn, n)
-    print(json.dumps({"ms": ms, "digest": digest}))
+    out = {"ms": ms, "digest": digest}
+    if args.kernels == "full":
+        out["dw_share"] = dw_shares(make_cases(dev, torch.Generator().manual_seed(SEED + 1),
+                                               args.widths, 1))
+    print(json.dumps(out))
     return 0
 
 

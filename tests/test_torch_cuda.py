@@ -367,6 +367,34 @@ def test_render_full_wide(cuda_device, hidden, kernel):
         assert float((x - y).abs().max()) <= 5e-3 * float(y.abs().max()) + 1e-6
 
 
+@pytest.mark.parametrize("hidden", [128, 256])
+def test_render_full_narrow_relu_dist_alpha(cuda_device, hidden):
+    """K1 and K4 full at 128 and 256 on the train step's 1024 rays x 128, relu
+    with dist_alpha (the second flag set of chip_smoke.py's phases 13 and 14,
+    whose seeded weights, unshifted on this set, put most of a ray's weight on
+    its forced last sample): every dW and dB block within 5e-3 of its largest
+    entry of the plain version's; K4 full's d(rays) and dz torch.equal to the
+    frozen-network variant's (I1); K4 full fed K1's cotangents gives K1's dW,
+    dB, d(rays) and dz bit for bit (I2)."""
+    params, rays, z, tgt, ncfg = _train_case(cuda_device, 1024, 128, hidden, seed=13, occ="relu",
+                                             dist_alpha=True, render_dist_alpha=True,
+                                             spread=0.5, far=6.0)
+    k1 = F._train_cuda(params, rays, z, tgt, ncfg, True, 2, False)
+    fed = F._render_bwd_cuda(params, rays, z, (-k1[5][:, 0:3]).contiguous(),
+                             (-k1[5][:, 3]).contiguous(), None, None, ncfg, True)
+    for x, y in zip(_flat(fed), _flat(k1[1:5])):
+        assert torch.equal(x, y)
+    cot = _bwd_cotangents(params, rays, z, tgt, ncfg, True, True)
+    k4 = F._render_bwd_cuda(params, rays, z, *cot, ncfg, True)
+    frozen = F._render_bwd_cuda(params, rays, z, *cot, ncfg, True, want_param_grads=False)
+    assert torch.equal(frozen[2], k4[2]) and torch.equal(frozen[3], k4[3])
+    ref1 = F._train_plain(params, rays, z, tgt, ncfg, True, 2, False)
+    ref4 = F.render_rays_fused_bwd_plain(params, rays, z, *cot, ncfg, True)
+    for got, ref in ((k1[1:3], ref1[1:3]), (k4[:2], ref4[:2])):
+        for x, y in zip(_flat(got), _flat(ref)):
+            assert float((x - y).abs().max()) <= 5e-3 * float(y.abs().max()) + 1e-6
+
+
 @pytest.mark.parametrize("kernel", ["train", "bwd"])
 def test_render_full_kernels_in_chunks_of_rays(cuda_device, kernel):
     """With the operand budget cut to 80 rays, 301 rays go through K1 or K4 full
@@ -1192,6 +1220,39 @@ def test_point_mlp_bwd_full_wide(cuda_device, hidden, m):
     for k, r in want.items():
         assert torch.isfinite(got[k]).all(), k
         assert float((got[k] - r).norm()) <= 2e-2 * float(r.norm()) + 1e-9, k
+
+
+def test_point_mlp_bwd_full_narrow_ragged_relu(cuda_device):
+    """K6 full at 128 on chip_smoke.py phase 14's draw of 127 points, relu with
+    dist_alpha (its generator replayed through check_wide_full's cases before
+    this one), where the narrow chain's forward, summed from the bias over all
+    of K, put d(points) at 1.98 of the per-sample rule: every block within
+    phase 14's rule (wide_full_share) of the plain version's, d(points) and
+    d(directions) torch.equal to the frozen-network variant's."""
+    import chip_smoke as cs
+    gen = torch.Generator().manual_seed(cs.SEED + 38)
+    case = None
+    for m in cs.WIDE_FULL_M:
+        pts, dirs = cs.point_inputs(torch, cuda_device, gen, m)
+        for occ, da in cs.WIDE_FLAGS:
+            ncfg = NerfConfig(hidden_dim=128, occ_activation=occ, dist_alpha=da, use_pallas=True)
+            params = init_nerf_params(ncfg, gen, device=cuda_device)
+            if (m, occ) == (127, "relu"):
+                case = params, pts, dirs, ncfg
+                break
+        if case is not None:
+            break
+    params, pts, dirs, ncfg = case
+    cot = cs.point_cotangents(torch, params, pts, dirs, ncfg)
+    a = M._mlp_bwd_cuda(params, pts, dirs, *cot, ncfg)
+    frozen = M._mlp_bwd_cuda(params, pts, dirs, *cot, ncfg, want_param_grads=False)
+    assert torch.equal(frozen[2], a[2]) and torch.equal(frozen[3], a[3])
+    ref = M.point_mlp_bwd_plain(params, pts, dirs, *cot, ncfg)
+    got = dict(F.unpack_grads(a[0], a[1], ncfg), points=a[2], directions=a[3])
+    want = dict(F.unpack_grads(ref[0], ref[1], ncfg), points=ref[2], directions=ref[3])
+    for k, r in want.items():
+        assert torch.isfinite(got[k]).all(), k
+        assert cs.wide_full_share(got[k], r, k, 127) <= 1.0, k
 
 
 @pytest.mark.parametrize("hidden", [384, 512])
