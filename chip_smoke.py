@@ -169,6 +169,14 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    d(directions) torch.equal to K6 frozen's). Every hold reports before the
    phase fails. `python3 chip_smoke.py --narrow` builds the kernels and runs
    this phase alone;
+15. holds the one forward that every kernel runs, after phase 14: at
+   hidden_dim 128, 256, 384 and 512 over both flag sets, the X operands of
+   the dW products (pe, x0..x7, feat; and de) that the check builds of K3
+   and K5 write, torch.equal to those K4 full and K1 hand their dW kernel on
+   1024 rays x 128 and x 256 and 133 x 128, and to those K6 full hands it on
+   1 to 196,645 points; the check builds' outputs torch.equal to the main
+   builds'. Every hold reports before the phase fails. `python3 chip_smoke.py
+   --forward` builds the kernels and runs this phase alone;
 9. times each path and each kernel at its main path's shapes (CUDA events;
    dw_sm90 also on its own over K1's and K4 full's 11 blocks, beside the
    bytes of the operands those kernels hand it; K2 and K7 through their
@@ -3773,6 +3781,116 @@ def run_narrow(torch, dev) -> dict:
     return out
 
 
+# ---- phase 15: one forward, K3's and K5's operands against the backward kernels' --
+
+FORWARD_D = (128, 256, 384, 512)  # every width the kernels take
+FORWARD_RENDER_CASES = ((1024, 128), (1024, 256), (133, 128))   # rays x S: (F1), (F2)
+
+
+def operands_differ(torch, a, b, D: int, rows: int, de: bool) -> list:
+    """The X operands (fused_mlp.x_operand_views: every row of the written
+    row tiles, each operand's own columns) in which two flat buffers differ."""
+    from nope_nerf_torch.ops.fused_mlp import x_operand_views
+    va, vb = x_operand_views(a, D, rows, de), x_operand_views(b, D, rows, de)
+    return [name for name in va if not torch.equal(va[name], vb[name])]
+
+
+def differ_text(names: list) -> str:
+    return "True" if not names else "False (" + ", ".join(names) + ")"
+
+
+def run_one_forward(torch, dev) -> dict:
+    """Phase 15: every kernel runs one forward (mlp_fwd_sm90.cuh's
+    mlp_tile_masks, mlp_fwd_wide_sm90.cuh's mlp_tile_w_masks), as the JAX
+    kernels run _fwd_tail. At each width of FORWARD_D and both flag sets of
+    WIDE_FLAGS (many_params' weights), the check builds of K3 and K5, which
+    write the X operands of the dW products (pe, x0..x7, feat; K5 also de),
+    are held torch.equal to the operands the backward kernels hand their dW
+    kernel from the same inputs and weights, operand by operand
+    (operands_differ): (F1) K3's against K4 full's and (F2) against K1's
+    (train_inputs' targets) on FORWARD_RENDER_CASES, one chunk of rays
+    (render_chunks) at a time; (F3) K5's against K6 full's at WIDE_FULL_M
+    points. Each also holds the check build's outputs torch.equal to the main
+    build's. Every hold runs and reports before the phase fails
+    on any that missed; a miss is never retried or drawn anew. Returns the
+    holds' count."""
+    from nope_nerf_torch.ops import fused_mlp as FM
+    from nope_nerf_torch.ops import fused_render as F
+    from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 40)
+    missed, held = [], 0
+
+    def hold(what: str, ok: bool) -> None:
+        nonlocal held
+        held += 1
+        if not ok:
+            missed.append(what)
+
+    for D in FORWARD_D:
+        for occ, da in WIDE_FLAGS:
+            for n, S in FORWARD_RENDER_CASES:
+                rays, z, tgt = train_inputs(torch, dev, gen, n, S)
+                ncfg, params = many_params(torch, dev, gen, D, occ, da, S)
+                g_rgb = (torch.randn(n, 3, generator=gen) * 1e-3).to(dev)
+                g_dist = (torch.randn(n, generator=gen) * 1e-3).to(dev)
+                rgb, dist, _, _ = F.render_rays_fused(params, rays, z, ncfg, da, want_aux=False)
+                chunks = F.render_chunks(n, S, D)
+                same = {"outputs": True, "F1": [], "F2": []}
+                for a, b in chunks:
+                    k3_rgb, k3_dist, k3 = F.render_fwd_operands(params, rays[a:b], z[a:b], ncfg,
+                                                                da)
+                    k4, k1 = [], []
+                    F._render_bwd_cuda(params, rays[a:b], z[a:b], g_rgb[a:b], g_dist[a:b], None,
+                                       None, ncfg, da, operands=k4)
+                    F._train_cuda(params, rays[a:b], z[a:b], tgt[a:b], ncfg, da, 1, False,
+                                  operands=k1)
+                    torch.cuda.synchronize()
+                    same["outputs"] &= torch.equal(k3_rgb, rgb[a:b]) and torch.equal(k3_dist,
+                                                                                     dist[a:b])
+                    for k, other in (("F1", k4[0]), ("F2", k1[0])):
+                        same[k] += [name for name in operands_differ(torch, k3, other, D,
+                                                                     (b - a) * S, False)
+                                    if name not in same[k]]
+                    del k3, k4, k1
+                case = f"D={D} {n} rays x {S} occ={occ} dist_alpha={da}"
+                print(f"one forward, {case} in {len(chunks)} chunk(s) of rays: (F1) K3's X "
+                      f"operands torch.equal to K4 full's: {differ_text(same['F1'])}; (F2) to "
+                      f"K1's: {differ_text(same['F2'])}; the check build's rgb, dist "
+                      f"torch.equal to render_fwd's: {same['outputs']}")
+                hold(f"F1 K3 {case}", not same["F1"])
+                hold(f"F2 K3 {case}", not same["F2"])
+                hold(f"outputs K3 {case}", same["outputs"])
+            for M in WIDE_FULL_M:
+                pts, dirs = point_inputs(torch, dev, gen, M)
+                ncfg = NerfConfig(hidden_dim=D, occ_activation=occ, dist_alpha=da,
+                                  use_pallas=True)
+                params = init_nerf_params(ncfg, gen, device=dev)
+                p_rgb = (torch.randn(M, 3, generator=gen) * 1e-6).to(dev)
+                p_den = torch.full((M, 1), 0.1 / M, device=dev)
+                with torch.no_grad():
+                    rgb, density = FM.point_mlp(params, pts, dirs, ncfg)
+                k5_rgb, k5_density, k5 = FM.point_mlp_fwd_operands(params, pts, dirs, ncfg)
+                k6 = []
+                FM._mlp_bwd_cuda(params, pts, dirs, p_rgb, p_den, ncfg, operands=k6)
+                torch.cuda.synchronize()
+                f3 = operands_differ(torch, k5, k6[0], D, M, True)
+                outs = torch.equal(k5_rgb, rgb) and torch.equal(k5_density, density)
+                case = f"D={D} {M} points occ={occ} head_dist_alpha={da}"
+                print(f"one forward, {case}: (F3) K5's X operands torch.equal to K6 full's: "
+                      f"{differ_text(f3)}; the check build's rgb, density torch.equal to "
+                      f"point_mlp_fwd's: {outs}")
+                hold(f"F3 K5 {case}", not f3)
+                hold(f"outputs K5 {case}", outs)
+                del k5, k6
+            torch.cuda.empty_cache()
+    print(f"one-forward phase: {held - len(missed)} of {held} holds, "
+          f"{time.perf_counter() - t_phase:.1f} s wall")
+    if missed:
+        raise RuntimeError("phase 15: missed " + "; ".join(missed))
+    return {"holds": held}
+
+
 def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
     """Phase 9's part for phase 13: per width, a 188x621 frame end to end
     (render_trajectory), K3 over the frame's rays at 128 samples and K5 at
@@ -4155,6 +4273,10 @@ def main() -> int:
         # phase 14 alone, for work on the 128-point chain (the full run takes every phase)
         run_narrow(torch, dev)
         return 0
+    if sys.argv[1:2] == ["--forward"]:
+        # phase 15 alone, for work on the one forward (the full run takes every phase)
+        run_one_forward(torch, dev)
+        return 0
 
     # ---- 2. each kernel against its plain version ---------------------------
     gen = torch.Generator().manual_seed(SEED)
@@ -4214,6 +4336,9 @@ def main() -> int:
 
     # ---- 14. hidden_dim 128 and 256: the backward kernels on phase 13's holds
     run_narrow(torch, dev)
+
+    # ---- 15. one forward: K3's and K5's operands against the backward kernels'
+    run_one_forward(torch, dev)
 
     # ---- 9. timing at the main paths' shapes ---------------------------------
     h, w = RESOLUTION

@@ -494,6 +494,34 @@ struct OperandSaveW {
   }
 };
 
+// ---- the forward kernels' check builds -----------------------------------------
+//
+// render_fwd.cu (K3) and point_mlp_fwd.cu (K5) are also built with the X
+// operands' part of the hook K1, K4 full and K6 full pass their forward
+// (OperandSave at 128 and 256, OperandSaveW at 384 and 512): pe, x0..x7,
+// feat and K5's de, in the dW kernel's tiled layout over `tile_bytes` per
+// 64-column block, so a check holds them against the backward kernels' own,
+// operand for operand. No main path runs those builds.
+template <int D>
+struct FwdOperandSave {
+  using Save = std::conditional_t<(D > 256), OperandSaveW<D>, OperandSave<D>>;
+  // The hook at pass 0: the activation buffer `act` and the encoding blocks
+  // `pe` and `de` (null in K3, whose direction product is per ray).
+  __device__ static Save make(const unsigned char* act, const unsigned char* pe,
+                              const unsigned char* de, unsigned char* xops, size_t tile_bytes) {
+    Save s{};
+    if constexpr (D > 256) {
+      s.tiles = PassTilesW<D>{xops, nullptr, tile_bytes, 0};
+    } else {
+      s.act = act;
+      s.pe = pe;
+      s.de = de;
+      s.tiles = PassTiles<D>{xops, nullptr, tile_bytes, 0};
+    }
+    return s;
+  }
+};
+
 // h's two bf16 under a thread's cell of a buffer parked in device memory, past L1.
 __device__ __forceinline__ __nv_bfloat162 ldcg_bf162(const unsigned char* p) {
   const unsigned int u = __ldcg(reinterpret_cast<const unsigned int*>(p));

@@ -2,25 +2,20 @@
 // NeRF MLP: render_bwd_frozen.cu (K4's frozen-network variant),
 // point_mlp_bwd_frozen.cu (K6's), point_mlp_bwd.cu (K6 full) and
 // render_full_sm90.cuh (K1 and K4 full): one 128-point tile through the
-// forward on the wgmma trunk of mlp_fwd_sm90.cuh, then back through every
-// layer's dX = g W product to the cotangent of the position encoding. No
-// weight gradient is formed here: the full kernels save the operands of
-// their dW products through the forward's save hook and their own dX layers,
-// sum their bias gradients in store_dx's epilogue (SUM) and hand the
-// products to dw_sm90.cuh (mlp_dw_chain_sm90.cuh). The render kernels' per-ray
-// pieces (the producer, the composite forward and backward, the encoding
-// VJPs) close this file.
+// forward of mlp_fwd_sm90.cuh (mlp_tile_masks, the one K3 and K5 run, with
+// its ReLU masks kept), then back through every layer's dX = g W product to
+// the cotangent of the position encoding. No weight gradient is formed here:
+// the full kernels save the operands of their dW products through the
+// forward's save hook and their own dX layers, sum their bias gradients in
+// store_dx's epilogue (SUM) and hand the products to dw_sm90.cuh
+// (mlp_dw_chain_sm90.cuh). The render kernels' per-ray pieces (the producer,
+// the composite forward and backward, the encoding VJPs) close this file.
 //
 // Numerics are the TPU kernels' (pallas_mlp.py::_bwd_chain_core), in a
 // fixed order:
-// - the forward's products as mlp_fwd_sm90.cuh's, but each 64-column ring
-//   slice of K summed from zero by the tensor cores, then added in f32 to the
-//   accumulator, which starts at the bias, slice by slice in order
-//   (ring_products_p below). So the forward inside these kernels no longer
-//   sums in K3's and K5's order: the tensor cores truncate as they
-//   accumulate, and a sum carried from the bias over all of K drifts towards
-//   zero (mlp_dx_wide_sm90.cuh's forward sums its 32-column slices the same
-//   way);
+// - the forward's, K3's and K5's bits (mlp_fwd_sm90.cuh: each 64-column
+//   ring slice of K summed from zero, added in f32 to the accumulator that
+//   starts at the bias, slice by slice in order);
 // - every cotangent rounded to bf16 before it enters a product, each product
 //   summed from zero over 16-column steps of K in order, then in the
 //   epilogue's order: + gs wd (the density head's rank-1 term), the ReLU
@@ -185,66 +180,7 @@ __device__ __forceinline__ float enc_lane_grad90(float g, const float* x, int e,
   return (is_sin ? g * tr : -(g * tr)) * scale;
 }
 
-// ---- ReLU masks ---------------------------------------------------------------
-
-// 32-bit words a consumer thread keeps per row half for an N-wide layer: bit
-// 2j + h (mod 32) of word (2j + h) / 32 is column 8j + 2t + h of the
-// accumulator fragment (wgmma_bf16's d[4j + h] and d[4j + 2 + h]).
-template <int N>
-__host__ __device__ constexpr int mask_words() { return N >= 128 ? N / 128 : 1; }
-
-// Words of the mask region: x0..x7 (D wide) then h (D/2 wide), each as
-// [row half][word][consumer thread].
-template <int D>
-__host__ __device__ constexpr int mask_layer_words() { return 2 * mask_words<D>() * kConsumers; }
-template <int D>
-__host__ __device__ constexpr size_t mask_bytes() {
-  return sizeof(uint32_t) * (8 * static_cast<size_t>(mask_layer_words<D>()) +
-                             2 * mask_words<D / 2>() * kConsumers);
-}
-
-// store_act's output and, for a ReLU layer, the mask of the stored bf16
-// values into `mask` (this layer's words), then fenced for the async proxy.
-template <int N, bool RELU>
-__device__ __forceinline__ void store_act_mask(const float (&acc)[N / 2], unsigned char* act_wg,
-                                               uint32_t* mask) {
-  constexpr int W = mask_words<N>();
-  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
-  const int row = 16 * w + (lane >> 2), t = lane & 3;
-  uint32_t bits[2][W];
-#pragma unroll
-  for (int k = 0; k < W; ++k) bits[0][k] = bits[1][k] = 0u;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    float v0 = acc[4 * j], v1 = acc[4 * j + 1], v2 = acc[4 * j + 2], v3 = acc[4 * j + 3];
-    if (RELU) {
-      v0 = fmaxf(v0, 0.f);
-      v1 = fmaxf(v1, 0.f);
-      v2 = fmaxf(v2, 0.f);
-      v3 = fmaxf(v3, 0.f);
-    }
-    const int col = 8 * j + 2 * t;
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v0, v1), hi = __floats2bfloat162_rn(v2, v3);
-    *reinterpret_cast<__nv_bfloat162*>(act_wg + swz(row, col, kBlockBytes)) = lo;
-    *reinterpret_cast<__nv_bfloat162*>(act_wg + swz(row + 8, col, kBlockBytes)) = hi;
-    if (RELU) {
-      const int b = (2 * j) & 31;
-      bits[0][(2 * j) >> 5] |= (__low2float(lo) > 0.f ? 1u : 0u) << b;
-      bits[0][(2 * j) >> 5] |= (__high2float(lo) > 0.f ? 1u : 0u) << (b + 1);
-      bits[1][(2 * j) >> 5] |= (__low2float(hi) > 0.f ? 1u : 0u) << b;
-      bits[1][(2 * j) >> 5] |= (__high2float(hi) > 0.f ? 1u : 0u) << (b + 1);
-    }
-  }
-  if (RELU) {
-    const int tid = threadIdx.x;
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      mask[k * kConsumers + tid] = bits[0][k];
-      mask[(W + k) * kConsumers + tid] = bits[1][k];
-    }
-  }
-  fence_proxy_async();
-}
+// ---- ReLU masks (mlp_fwd_sm90.cuh's layout) ------------------------------------
 
 // The mask bit of row m (of the tile), column j of the rgb-hidden layer,
 // whoever wrote it (the scalar rgb-head backward reads other threads' bits).
@@ -252,145 +188,6 @@ __device__ __forceinline__ bool hidden_mask(const uint32_t* mask_h, int m, int j
   const int thread = (m >> 6) * 128 + ((m & 63) >> 4) * 32 + (m & 7) * 4 + ((j & 7) >> 1);
   const int half = (m >> 3) & 1;
   return (mask_h[half * kConsumers + thread] >> (2 * (j >> 3) + (j & 1))) & 1u;
-}
-
-// ---- the forward, masks kept ----------------------------------------------------
-
-// Piece c (P output columns: rows cP..cP+P-1 of the ring slice at b, 128
-// bytes each) of one slice's product, summed from zero on the tensor cores
-// into t over the slice's `ksteps` steps of 16 columns (A at `as`); one
-// committed group.
-template <int P>
-__device__ __forceinline__ void piece_issue(float (&t)[P / 2], uint32_t as, uint32_t b, int c,
-                                            int ksteps) {
-#pragma unroll
-  for (int i = 0; i < P / 2; ++i) t[i] = 0.f;
-  wgmma_fence();
-  const uint32_t bc = b + c * P * 128;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (k < ksteps) wgmma_bf16<P>(t, sw128_desc(as + 32 * k), sw128_desc(bc + 32 * k));
-  }
-  wgmma_commit();
-}
-
-// acc's columns of piece c += t, by the CUDA cores (round to nearest).
-template <int N, int P>
-__device__ __forceinline__ void piece_add(float (&acc)[N / 2], const float (&t)[P / 2], int c) {
-#pragma unroll
-  for (int i = 0; i < P / 2; ++i) acc[c * (P / 2) + i] += t[i];
-}
-
-// ring_products with each ring slice's product summed from zero, P output
-// columns at a time, and added to acc by the CUDA cores. The tensor cores
-// truncate as they accumulate, so a sum carried from the bias across all of
-// K drifts towards zero, one step of 16 columns at a time: at D = 256 the
-// kernels' bf16 activations differed from an exact sum's 2.0 to 2.9 x as
-// often as an f32 evaluation's. A slice's sum starts from zero, so its
-// truncation is on the scale of 64 products and of either sign, and the
-// running sum is rounded to nearest. How N is cut into pieces changes no
-// sum. Each piece waits for its own products before it is added: two pieces
-// in flight spilled more and ran no faster on an H100 (PERF.md section 6).
-template <int N>
-__device__ __forceinline__ void ring_products_p(float (&acc)[N / 2], uint32_t a, int kblocks,
-                                                int ksteps, Ring& ring) {
-  const bool leader = (threadIdx.x & 31) == 0;
-  constexpr int P = N >= 128 ? 64 : 32;
-  float t[P / 2];
-  for (int kb = 0; kb < kblocks; ++kb) {
-    const uint32_t stage = ring.it % ring.stages;
-    mbar_wait(ring.full + 8 * stage, (ring.it / ring.stages) & 1);
-    const uint32_t b = ring.base + stage * ring.stride;
-#pragma unroll
-    for (int c = 0; c < N / P; ++c) {
-      piece_issue<P>(t, a + kb * kBlockBytes, b, c, ksteps);
-      wgmma_wait<0>();
-      piece_add<N, P>(acc, t, c);
-    }
-    if (leader) mbar_arrive(ring.empty + 8 * stage);
-    ++ring.it;
-  }
-}
-
-// No operand leaves the tile.
-struct NoSave {
-  __device__ __forceinline__ void operator()(int, int) const {}
-  __device__ __forceinline__ void drain(int) const {}
-};
-
-// mlp_fwd_sm90.cuh's mlp_tile90 with the ReLU layers' masks kept in `masks`:
-// the same products in the same order, each slice's summed from zero
-// (ring_products_p), the same roundings. Raw rgb and density go to
-// hout[4p + 0..3]. save(i, wg) is called by each warpgroup
-// once an operand of the weight gradients is in shared memory, with its rows
-// of it: i = 0 the position encodings (the `pe` block), 1..8 x0..x7 and
-// 9 feat (the activation buffer), 10 the direction encodings (the `de`
-// block). save.drain(wg) is called by each warpgroup before its next write
-// over a saved buffer (the next epilogue's warpgroup barrier) and before it
-// frees the direction encodings: a save that still reads shared memory
-// finishes reading there.
-template <int D, typename Save = NoSave>
-__device__ __forceinline__ void mlp_tile_masks(const float* const* b, uint32_t pe, uint32_t de,
-                                               unsigned char* act, uint32_t dens_w,
-                                               uint32_t rgb_w, const float* hbias, float* hout,
-                                               const Handoff& hand, long long tile, Ring& ring,
-                                               uint32_t* masks, const Save& save = Save()) {
-  const int wg = threadIdx.x >> 7;
-  const bool leader = (threadIdx.x & 31) == 0;
-  const uint32_t parity = static_cast<uint32_t>(tile & 1);
-  unsigned char* act_g = act + wg * kWgRowBytes;
-  const uint32_t act_s = smem_addr(act) + wg * kWgRowBytes;
-  const uint32_t pe_s = pe + wg * kWgRowBytes;
-  float* hout_wg = hout + 4 * 64 * wg;
-  constexpr int LW = mask_layer_words<D>();
-  mbar_wait(hand.pe_full, parity);
-  save(0, wg);
-  {
-    float acc[D / 2];
-    acc_bias<D>(acc, b[0]);
-    ring_products_p<D>(acc, pe_s, 1, 4, ring);
-    wg_sync(wg);
-    store_act_mask<D, true>(acc, act_g, masks);
-    wg_sync(wg);
-    save(1, wg);
-#pragma unroll 1
-    for (int l = 1; l < 8; ++l) {
-      acc_bias<D>(acc, b[l]);
-      ring_products_p<D>(acc, act_s, D / 64, 4, ring);
-      if (l == 4) {
-        ring_products_p<D>(acc, pe_s, 1, 4, ring);   // the skip: pe @ w5, pe's last use
-        if (leader) mbar_arrive(hand.pe_free);
-      }
-      save.drain(wg);
-      wg_sync(wg);
-      store_act_mask<D, true>(acc, act_g, masks + l * LW);
-      wg_sync(wg);
-      save(1 + l, wg);
-    }
-    head90<D>(act_s, dens_w, b[8], hout_wg, 3, 1);
-    acc_bias<D>(acc, b[9]);
-    ring_products_p<D>(acc, act_s, D / 64, 4, ring);
-    save.drain(wg);
-    wg_sync(wg);
-    store_act<D, false>(acc, act_g);
-    wg_sync(wg);
-    save(9, wg);
-  }
-  float acc[D / 4];
-  acc_bias<D / 2>(acc, hbias);
-  ring_products_p<D / 2>(acc, act_s, D / 64, 4, ring);
-  if (de != 0) {
-    mbar_wait(hand.de_full, parity);
-    save(10, wg);
-    ring_products_p<D / 2>(acc, de + wg * kWgRowBytes, 1, kDe / 16, ring);
-    save.drain(wg);
-    if (leader) mbar_arrive(hand.de_free);
-  }
-  save.drain(wg);
-  wg_sync(wg);
-  store_act_mask<D / 2, true>(acc, act_g, masks + 8 * LW);
-  wg_sync(wg);
-  head90<D / 2>(act_s, rgb_w, b[11], hout_wg, 0, 3);
 }
 
 // ---- the dX chain ---------------------------------------------------------------

@@ -10,10 +10,10 @@
 //
 // Numerics are those of mlp_dx_sm90.cuh (and of the plain version,
 // ops/fused_render.py::mlp_backward), in a fixed order:
-// - the forward's products as mlp_fwd_wide_sm90.cuh's, but each 32-column
-//   slice of K summed from zero by the tensor cores, then added in f32 to the
-//   accumulator, which starts at the bias, slice by slice in order
-//   (ring_products_wp below);
+// - the forward's, K3's and K5's bits (mlp_fwd_wide_sm90.cuh's
+//   mlp_tile_w_masks with its ReLU masks kept: each 32-column slice of K
+//   summed from zero, added in f32 to the accumulator that starts at the
+//   bias, slice by slice in order);
 // - every cotangent rounded to bf16 before it enters a product, each product
 //   summed from zero over 16-column steps of K in order, then in the
 //   epilogue's order: + gs wd (the density head's rank-1 term), the ReLU
@@ -60,12 +60,12 @@
 //   scratch from the epilogue's registers (64 x D bf16: 64 KB at 512), and
 //   the consumers copy it back by cp.async into the free buffer while
 //   warpgroup 0 runs g0 W0.
-// - The forward and the chain take a Save hook: NoSaveW here, and
-//   mlp_dw_chain_sm90.cuh's OperandSaveW in K6 full, which saves each dW
-//   operand where the hook is called (X: operator() in the forward; G: grad()
-//   after each dX epilogue), drains before the next write over a saved
-//   buffer, and has each dX epilogue form its bias gradient's column sums
-//   (store_dx_w's SUM), without reordering any sum of the chain.
+// - The forward and the chain take a Save hook: mlp_fwd_wide_sm90.cuh's
+//   NoSaveW, and mlp_dw_chain_sm90.cuh's OperandSaveW in K6 full, which
+//   saves each dW operand where the hook is called (X: operator() in the
+//   forward; G: grad() after each dX epilogue), drains before the next write
+//   over a saved buffer, and has each dX epilogue form its bias gradient's
+//   column sums (store_dx_w's SUM), without reordering any sum of the chain.
 
 #pragma once
 
@@ -127,191 +127,11 @@ __device__ __forceinline__ void ring_skip(int slices, Ring& ring) {
   }
 }
 
-// ---- ReLU masks in device memory ------------------------------------------------
-
-// 32-bit words a consumer thread keeps for an N-column share of a layer
-// (N / 2 accumulators, one bit each).
-template <int N>
-__host__ __device__ constexpr int mask_words_w() { return (N / 2 + 31) / 32; }
-
-// Words of one tile's masks: x0..x7 (N = D/2 a warpgroup) then h (D/4), each
-// as [word][consumer thread].
-template <int D>
-__host__ __device__ constexpr int mask_layer_words_w() { return mask_words_w<D / 2>() * kConsumers; }
-template <int D>
-__host__ __device__ constexpr size_t mask_tile_bytes_w() {
-  return sizeof(uint32_t) *
-         (8 * static_cast<size_t>(mask_layer_words_w<D>()) + mask_words_w<D / 4>() * kConsumers);
-}
+// ---- the chain's scratch ---------------------------------------------------------
 
 // g4's parked copy (64 x D bf16, the activation buffer's layout), per CTA.
 template <int D>
 __host__ __device__ constexpr size_t g4_bytes_w() { return static_cast<size_t>(kWRows) * D * 2; }
-
-// store_w's output and, for a ReLU layer, the mask of the stored bf16 values
-// to `mask` (this layer's words, device memory: past L1), then fenced for the
-// async proxy.
-template <int N, bool RELU>
-__device__ __forceinline__ void store_w_mask(const float (&acc)[N / 2], unsigned char* buf,
-                                             int col0, uint32_t* mask) {
-  constexpr int W = mask_words_w<N>();
-  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
-  const int row = 16 * w + (lane >> 2), t = lane & 3;
-  uint32_t bits[W];
-#pragma unroll
-  for (int k = 0; k < W; ++k) bits[k] = 0u;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    float v0 = acc[4 * j], v1 = acc[4 * j + 1], v2 = acc[4 * j + 2], v3 = acc[4 * j + 3];
-    if (RELU) {
-      v0 = fmaxf(v0, 0.f);
-      v1 = fmaxf(v1, 0.f);
-      v2 = fmaxf(v2, 0.f);
-      v3 = fmaxf(v3, 0.f);
-    }
-    const int col = col0 + 8 * j + 2 * t;
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v0, v1), hi = __floats2bfloat162_rn(v2, v3);
-    *reinterpret_cast<__nv_bfloat162*>(buf + swz(row, col, kWBlockBytes)) = lo;
-    *reinterpret_cast<__nv_bfloat162*>(buf + swz(row + 8, col, kWBlockBytes)) = hi;
-    if (RELU) {
-      const int b = (4 * j) & 31, k = (4 * j) >> 5;
-      bits[k] |= ((__low2float(lo) > 0.f ? 1u : 0u) << b) |
-                 ((__high2float(lo) > 0.f ? 1u : 0u) << (b + 1)) |
-                 ((__low2float(hi) > 0.f ? 1u : 0u) << (b + 2)) |
-                 ((__high2float(hi) > 0.f ? 1u : 0u) << (b + 3));
-    }
-  }
-  if (RELU) {
-#pragma unroll
-    for (int k = 0; k < W; ++k) __stcg(mask + k * kConsumers + threadIdx.x, bits[k]);
-  }
-  fence_proxy_async();
-}
-
-// ---- the forward, masks kept ----------------------------------------------------
-
-// ring_products_w with each slice's product summed from zero, P columns at a
-// time, and added to acc by the CUDA cores (round to nearest). The tensor
-// cores truncate as they accumulate, so a sum carried across all of K drifts
-// towards zero, one step of 16 columns at a time: at K = 512 that flipped 2 to
-// 3 x as many bf16 roundings and ReLU masks as an f32 evaluation. A slice's
-// sum starts from zero, so its truncation is on the scale of 32 products and
-// of either sign, and the running sum is rounded to nearest.
-template <int N>
-__device__ __forceinline__ void ring_products_wp(float (&acc)[N / 2], uint32_t a, int slices,
-                                                 uint32_t b_off, Ring& ring) {
-  constexpr int P = N % 64 == 0 ? 64 : 32;   // N = 96: three pieces of 32
-  const bool leader = (threadIdx.x & 31) == 0;
-  for (int s = 0; s < slices; ++s) {
-    const uint32_t stage = ring.it % ring.stages;
-    mbar_wait(ring.full + 8 * stage, (ring.it / ring.stages) & 1);
-    const uint32_t b = ring.base + stage * ring.stride + b_off;
-    const uint32_t as = a + (s >> 1) * kWBlockBytes + (s & 1) * 64;
-#pragma unroll
-    for (int c = 0; c < N / P; ++c) {
-      float t[P / 2];
-#pragma unroll
-      for (int i = 0; i < P / 2; ++i) t[i] = 0.f;
-      const uint32_t bc = b + c * P * 64;   // the piece's rows of the slice (64 bytes each)
-      wgmma_fence();
-      wgmma_bf16<P>(t, sw128_desc(as), sw64_desc(bc));
-      wgmma_bf16<P>(t, sw128_desc(as + 32), sw64_desc(bc + 32));
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int i = 0; i < P / 2; ++i) acc[c * (P / 2) + i] += t[i];
-    }
-    if (leader) mbar_arrive(ring.empty + 8 * stage);
-    ++ring.it;
-  }
-}
-
-// No operand leaves the tile. A hook of the kernels with weight gradients
-// saves X operand i (0 pe, 1..8 x0..x7, 9 feat, 10 de) from the shared
-// buffer `src` once it is written (operator()), G operand i (0 g_h, 1
-// g_feat, 2..9 g7..g0) from `src` after its epilogue (grad), and finishes
-// reading shared memory before the next write over a saved buffer (drain).
-// With kSum each dX epilogue also writes its warps' column sums to
-// red_at(i, wg), which grad(i) reads.
-struct NoSaveW {
-  static constexpr bool kSum = false;
-  __device__ __forceinline__ void operator()(int, int, const unsigned char*) const {}
-  __device__ __forceinline__ void grad(int, int, const unsigned char*) const {}
-  __device__ __forceinline__ void drain(int) const {}
-  __device__ __forceinline__ float* red_at(int, int) const { return nullptr; }
-};
-
-// mlp_fwd_wide_sm90.cuh's mlp_tile_w with the ReLU layers' masks kept in
-// `masks` (one tile's words, device memory): the same products in the same
-// order, each slice's summed from zero (ring_products_wp), the same
-// roundings. x_l lands in buffer l % 2, feat in buffer 0 and h in buffer 1.
-// Raw rgb and density go to hout[4p + 0..3]; ends with every product done
-// and hout's rows written, by warpgroup 0 (rgb) and 1 (density): the caller
-// synchronises the consumers before it reads them.
-template <int D, typename Save = NoSaveW>
-__device__ __forceinline__ void mlp_tile_w_masks(const float* const* b, uint32_t pe, uint32_t de,
-                                                 unsigned char* act, uint32_t dens_w,
-                                                 uint32_t rgb_w, const float* hbias, float* hout,
-                                                 const Handoff& hand, long long tile, Ring& ring,
-                                                 uint32_t* masks, const Save& save = Save()) {
-  using T = TilesW<D>;
-  constexpr int N = D / 2;
-  constexpr int H = D / 4;
-  constexpr uint32_t kBuf = kWRows * D * 2;
-  constexpr int LW = mask_layer_words_w<D>();
-  const int wg = threadIdx.x >> 7;
-  const bool leader = (threadIdx.x & 31) == 0;
-  const uint32_t parity = static_cast<uint32_t>(tile & 1);
-  const uint32_t act_s = smem_addr(act);
-  const uint32_t b_full = wg * N * kWSliceCols * 2;
-  const uint32_t b_half = wg * H * kWSliceCols * 2;
-  const unsigned char* pe_g = act + (pe - act_s);
-  mbar_wait(hand.pe_full, parity);
-  save(0, wg, pe_g);
-  {
-    float acc[N / 2];
-    acc_bias<N>(acc, b[0] + wg * N);
-    ring_products_wp<N>(acc, pe, T::kPeSlices, b_full, ring);
-    store_w_mask<N, true>(acc, act, wg * N, masks);
-    consumer_sync();
-    save(1, wg, act);
-#pragma unroll 1
-    for (int l = 1; l < 8; ++l) {
-      const uint32_t in = (l & 1) ? 0u : kBuf;
-      acc_bias<N>(acc, b[l] + wg * N);
-      ring_products_wp<N>(acc, act_s + in, T::kK, b_full, ring);
-      if (l == 4) {
-        ring_products_wp<N>(acc, pe, T::kPeSlices, b_full, ring);
-        if (leader) mbar_arrive(hand.pe_free);
-      }
-      save.drain(wg);
-      store_w_mask<N, true>(acc, act + (kBuf - in), wg * N, masks + l * LW);
-      consumer_sync();
-      save(1 + l, wg, act + (kBuf - in));
-    }
-    if (wg == 1) head_w<D>(act_s + kBuf, dens_w, b[8], hout, 3, 1);
-    acc_bias<N>(acc, b[9] + wg * N);
-    ring_products_wp<N>(acc, act_s + kBuf, T::kK, b_full, ring);
-    save.drain(wg);
-    store_w<N, false>(acc, act, wg * N);
-    consumer_sync();
-    save(9, wg, act);
-  }
-  float acc[H / 2];
-  acc_bias<H>(acc, hbias + wg * H);
-  ring_products_wp<H>(acc, act_s, T::kK, b_half, ring);
-  if (de != 0) {
-    mbar_wait(hand.de_full, parity);
-    save(10, wg, act + (de - act_s));
-    ring_products_wp<H>(acc, de, 1, b_half, ring);
-    save.drain(wg);
-    if (leader) mbar_arrive(hand.de_free);
-  }
-  save.drain(wg);
-  store_w_mask<H, true>(acc, act + kBuf, wg * H, masks + 8 * LW);
-  consumer_sync();
-  if (wg == 0) head_w<D / 2>(act_s + kBuf, rgb_w, b[11], hout, 0, 3);
-}
 
 // ---- the dX chain ---------------------------------------------------------------
 

@@ -1,27 +1,35 @@
-// The forward NeRF MLP trunk on Hopper (sm_90a), shared by render_fwd.cu (K3)
-// and point_mlp_fwd.cu (K5): one 128-point tile through the 9-layer MLP with
-// its layer-4 skip, the feature and rgb-hidden layers and the f32 heads.
+// The forward NeRF MLP trunk on Hopper (sm_90a) at hidden_dim 128 and 256:
+// one 128-point tile through the 9-layer MLP with its layer-4 skip, the
+// feature and rgb-hidden layers and the f32 heads (mlp_tile_masks). It is the
+// one forward of every kernel, as the JAX kernels have one (_fwd_tail):
+// render_fwd.cu (K3) and point_mlp_fwd.cu (K5) run it, and so does every
+// backward kernel before its dX chain (mlp_dx_sm90.cuh), which keeps its
+// ReLU masks; so a loss's forward and the forward its gradient recomputes
+// give the same bits.
 //
 // Numerics are those of the TPU kernels: bf16 operands, f32 accumulators
 // that start at the bias, activations rounded to bf16 after each ReLU,
 // `feat` rounded without one, the skip as a second product into the same
-// accumulators, heads f32. Only the order in which the tensor cores sum a
-// product's terms differs.
+// accumulators, heads f32. Only the order of the sums differs: each
+// 64-column ring slice of a product's K is summed from zero on the tensor
+// cores and added to the accumulator in f32, slice by slice in order
+// (ring_products_p).
 //
 // Design:
 // - A CTA is two consumer warpgroups and one producer warpgroup (384
 //   threads). It is persistent: the kernel launches at most one CTA per SM,
 //   and each walks over its share of the tiles. `setmaxnreg` moves registers
 //   from the producer (56 a thread) to the consumers (224), whose layer
-//   accumulators take 128 at D=256.
+//   accumulators take 128 at D=256, and a piece's sum 32 more.
 // - The producer's first warp feeds the weight ring (below); its other three
 //   warps encode the next tile's inputs (positions, and in K5 directions)
 //   into shared memory while the consumers run the current tile, handing
 //   each buffer over by a pair of mbarriers (full: the encoding is written;
 //   free: the consumers' last product on it is done).
-// - Warpgroup g owns rows 64g..64g+63 of the tile. Every layer is one
-//   `wgmma.mma_async` m64nNk16 (N = the layer's full width) per 16 columns of
-//   K, with A, the activations, and B, the weights, both read from shared
+// - Warpgroup g owns rows 64g..64g+63 of the tile. Every ring slice of a
+//   layer is summed in pieces of P = 64 output columns (32 where the layer
+//   is 64 wide), one `wgmma.mma_async` m64nPk16 per 16 columns of the
+//   slice, with A, the activations, and B, the weights, both read from shared
 //   memory in the canonical K-major layout with the 128-byte swizzle: a
 //   64-column block of R rows is R rows of 128 bytes, whose 16-byte chunk c
 //   of row r sits at chunk c ^ (r % 8). A warpgroup reads only its own rows,
@@ -281,9 +289,11 @@ struct Ring {
 };
 
 // acc += A[rows of this warpgroup, 64 kblocks] B^T over the next `kblocks`
-// slices of the ring (`ksteps` products of 16 columns each). A starts at the
-// shared address `a` (its blocks kBlockBytes apart). Waits for every product
-// and releases every slice before it returns.
+// slices of the ring (`ksteps` products of 16 columns each), on the tensor
+// cores' accumulator across all of K: the backward's dX products (the
+// forward sums slice by slice, ring_products_p). A starts at the shared
+// address `a` (its blocks kBlockBytes apart). Waits for every product and
+// releases every slice before it returns.
 template <int N>
 __device__ __forceinline__ void ring_products(float (&acc)[N / 2], uint32_t a, int kblocks,
                                               int ksteps, Ring& ring) {
@@ -378,6 +388,137 @@ __device__ __forceinline__ void head90(uint32_t act_wg, uint32_t w, const float*
   }
 }
 
+// ---- ReLU masks ---------------------------------------------------------------
+
+// 32-bit words a consumer thread keeps per row half for an N-wide layer: bit
+// 2j + h (mod 32) of word (2j + h) / 32 is column 8j + 2t + h of the
+// accumulator fragment (wgmma_bf16's d[4j + h] and d[4j + 2 + h]).
+template <int N>
+__host__ __device__ constexpr int mask_words() { return N >= 128 ? N / 128 : 1; }
+
+// Words of the mask region: x0..x7 (D wide) then h (D/2 wide), each as
+// [row half][word][consumer thread].
+template <int D>
+__host__ __device__ constexpr int mask_layer_words() { return 2 * mask_words<D>() * kConsumers; }
+template <int D>
+__host__ __device__ constexpr size_t mask_bytes() {
+  return sizeof(uint32_t) * (8 * static_cast<size_t>(mask_layer_words<D>()) +
+                             2 * mask_words<D / 2>() * kConsumers);
+}
+
+// store_act's output and, for a ReLU layer, the mask of the stored bf16
+// values into `mask` (this layer's words), then fenced for the async proxy.
+template <int N, bool RELU>
+__device__ __forceinline__ void store_act_mask(const float (&acc)[N / 2], unsigned char* act_wg,
+                                               uint32_t* mask) {
+  constexpr int W = mask_words<N>();
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int row = 16 * w + (lane >> 2), t = lane & 3;
+  uint32_t bits[2][W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) bits[0][k] = bits[1][k] = 0u;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    float v0 = acc[4 * j], v1 = acc[4 * j + 1], v2 = acc[4 * j + 2], v3 = acc[4 * j + 3];
+    if (RELU) {
+      v0 = fmaxf(v0, 0.f);
+      v1 = fmaxf(v1, 0.f);
+      v2 = fmaxf(v2, 0.f);
+      v3 = fmaxf(v3, 0.f);
+    }
+    const int col = 8 * j + 2 * t;
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v0, v1), hi = __floats2bfloat162_rn(v2, v3);
+    *reinterpret_cast<__nv_bfloat162*>(act_wg + swz(row, col, kBlockBytes)) = lo;
+    *reinterpret_cast<__nv_bfloat162*>(act_wg + swz(row + 8, col, kBlockBytes)) = hi;
+    if (RELU) {
+      const int b = (2 * j) & 31;
+      bits[0][(2 * j) >> 5] |= (__low2float(lo) > 0.f ? 1u : 0u) << b;
+      bits[0][(2 * j) >> 5] |= (__high2float(lo) > 0.f ? 1u : 0u) << (b + 1);
+      bits[1][(2 * j) >> 5] |= (__low2float(hi) > 0.f ? 1u : 0u) << b;
+      bits[1][(2 * j) >> 5] |= (__high2float(hi) > 0.f ? 1u : 0u) << (b + 1);
+    }
+  }
+  if (RELU) {
+    const int tid = threadIdx.x;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      mask[k * kConsumers + tid] = bits[0][k];
+      mask[(W + k) * kConsumers + tid] = bits[1][k];
+    }
+  }
+  fence_proxy_async();
+}
+
+// A ReLU layer's epilogue: store_act's output, with MASKS also its mask
+// (store_act_mask).
+template <int N, bool MASKS>
+__device__ __forceinline__ void store_relu(const float (&acc)[N / 2], unsigned char* act_wg,
+                                           uint32_t* mask) {
+  if constexpr (MASKS)
+    store_act_mask<N, true>(acc, act_wg, mask);
+  else
+    store_act<N, true>(acc, act_wg);
+}
+
+// ---- the forward ----------------------------------------------------------------
+
+// Piece c (P output columns: rows cP..cP+P-1 of the ring slice at b, 128
+// bytes each) of one slice's product, summed from zero on the tensor cores
+// into t over the slice's `ksteps` steps of 16 columns (A at `as`); one
+// committed group.
+template <int P>
+__device__ __forceinline__ void piece_issue(float (&t)[P / 2], uint32_t as, uint32_t b, int c,
+                                            int ksteps) {
+#pragma unroll
+  for (int i = 0; i < P / 2; ++i) t[i] = 0.f;
+  wgmma_fence();
+  const uint32_t bc = b + c * P * 128;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (k < ksteps) wgmma_bf16<P>(t, sw128_desc(as + 32 * k), sw128_desc(bc + 32 * k));
+  }
+  wgmma_commit();
+}
+
+// acc's columns of piece c += t, by the CUDA cores (round to nearest).
+template <int N, int P>
+__device__ __forceinline__ void piece_add(float (&acc)[N / 2], const float (&t)[P / 2], int c) {
+#pragma unroll
+  for (int i = 0; i < P / 2; ++i) acc[c * (P / 2) + i] += t[i];
+}
+
+// ring_products with each ring slice's product summed from zero, P output
+// columns at a time, and added to acc by the CUDA cores. The tensor cores
+// truncate as they accumulate, so a sum carried from the bias across all of
+// K drifts towards zero, one step of 16 columns at a time: at D = 256 the
+// bf16 activations differed from an exact sum's 2.0 to 2.9 x as often as an
+// f32 evaluation's. A slice's sum starts from zero, so its truncation is on
+// the scale of 64 products and of either sign, and the running sum is
+// rounded to nearest. How N is cut into pieces changes no sum. Each piece
+// waits for its own products before it is added: two pieces in flight
+// spilled more and ran slower on an H100, in the backward kernels and in K3
+// and K5 (PERF.md section 6).
+template <int N>
+__device__ __forceinline__ void ring_products_p(float (&acc)[N / 2], uint32_t a, int kblocks,
+                                                int ksteps, Ring& ring) {
+  const bool leader = (threadIdx.x & 31) == 0;
+  constexpr int P = N >= 128 ? 64 : 32;
+  float t[P / 2];
+  for (int kb = 0; kb < kblocks; ++kb) {
+    const uint32_t stage = ring.it % ring.stages;
+    mbar_wait(ring.full + 8 * stage, (ring.it / ring.stages) & 1);
+    const uint32_t b = ring.base + stage * ring.stride;
+#pragma unroll
+    for (int c = 0; c < N / P; ++c) {
+      piece_issue<P>(t, a + kb * kBlockBytes, b, c, ksteps);
+      wgmma_wait<0>();
+      piece_add<N, P>(acc, t, c);
+    }
+    if (leader) mbar_arrive(ring.empty + 8 * stage);
+    ++ring.it;
+  }
+}
+
 // Shared addresses of the encoders' handshakes: the position and direction
 // encoding buffers, each with a full (kEncoders arrivals) and a free
 // (kConsumerWarps arrivals) barrier. Tile t of a CTA waits on phase t & 1.
@@ -385,19 +526,43 @@ struct Handoff {
   uint32_t pe_full, pe_free, de_full, de_free;
 };
 
-// The MLP over one 128-point tile (the CTA's tile number `tile`), run by each
-// consumer warpgroup on its 64 rows: position encodings in `pe` (one block),
-// the activation buffer `act` (D/64 blocks), the heads resident at dens_w /
-// rgb_w (shared addresses). The rgb-hidden layer starts from `hbias` and, when
-// de != 0, adds the product of the direction encodings (one block at shared
-// address de, 32 live columns) with w12. Raw rgb and density go to
-// hout[4p + 0..3]; ends with the warpgroup's products done and its hout rows
-// written. Waits for the encodings and frees them after their last product.
-template <int D>
-__device__ __forceinline__ void mlp_tile90(const float* const* b, uint32_t pe, uint32_t de,
-                                           unsigned char* act, uint32_t dens_w, uint32_t rgb_w,
-                                           const float* hbias, float* hout, const Handoff& hand,
-                                           long long tile, Ring& ring) {
+// No operand leaves the tile.
+struct NoSave {
+  __device__ __forceinline__ void operator()(int, int) const {}
+  __device__ __forceinline__ void drain(int) const {}
+};
+
+// The forward of every kernel at D = 128 and 256 (K3, K5, and inside K1, K4
+// and K6, full and frozen), the port of the JAX kernels' one forward
+// (pallas_mlp.py::_fwd_tail): the MLP over one 128-point tile (the CTA's
+// tile number `tile`), run by each consumer warpgroup on its 64 rows.
+// Position encodings in `pe` (one block), the activation buffer `act` (D/64
+// blocks), the heads resident at dens_w / rgb_w (shared addresses). Each layer
+// starts from its bias; each ring slice's product is summed from zero and
+// added in slice order (ring_products_p); x0..x7 and h are rounded to bf16
+// after their ReLU, feat without one; the skip is a second product into the
+// layer-4 accumulators; the heads are f32. The rgb-hidden layer starts from
+// `hbias` and, when de != 0, adds the product of the direction encodings (one
+// block at shared address de, 32 live columns) with w12. Raw rgb and density
+// go to hout[4p + 0..3]; ends with the warpgroup's products done and its hout
+// rows written. Waits for the encodings and frees them after their last
+// product.
+//
+// With MASKS (the backward kernels) the ReLU layers' masks go to `masks`.
+// save(i, wg) is called by each warpgroup once an operand of the weight
+// gradients is in shared memory, with its rows of it: i = 0 the position
+// encodings (the `pe` block), 1..8 x0..x7 and 9 feat (the activation buffer),
+// 10 the direction encodings (the `de` block). save.drain(wg) is called by
+// each warpgroup before its next write over a saved buffer (the next
+// epilogue's warpgroup barrier) and before it frees the direction encodings:
+// a save that still reads shared memory finishes reading there. K3 and K5
+// keep no masks and save nothing (NoSave), but in their check builds.
+template <int D, bool MASKS = true, typename Save = NoSave>
+__device__ __forceinline__ void mlp_tile_masks(const float* const* b, uint32_t pe, uint32_t de,
+                                               unsigned char* act, uint32_t dens_w,
+                                               uint32_t rgb_w, const float* hbias, float* hout,
+                                               const Handoff& hand, long long tile, Ring& ring,
+                                               uint32_t* masks, const Save& save = Save()) {
   const int wg = threadIdx.x >> 7;
   const bool leader = (threadIdx.x & 31) == 0;
   const uint32_t parity = static_cast<uint32_t>(tile & 1);
@@ -405,44 +570,54 @@ __device__ __forceinline__ void mlp_tile90(const float* const* b, uint32_t pe, u
   const uint32_t act_s = smem_addr(act) + wg * kWgRowBytes;
   const uint32_t pe_s = pe + wg * kWgRowBytes;
   float* hout_wg = hout + 4 * 64 * wg;
+  constexpr int LW = mask_layer_words<D>();
   mbar_wait(hand.pe_full, parity);
+  save(0, wg);
   {
     float acc[D / 2];
     acc_bias<D>(acc, b[0]);
-    ring_products<D>(acc, pe_s, 1, 4, ring);
+    ring_products_p<D>(acc, pe_s, 1, 4, ring);
     wg_sync(wg);
-    store_act<D, true>(acc, act_g);
+    store_relu<D, MASKS>(acc, act_g, masks);
     wg_sync(wg);
+    save(1, wg);
 #pragma unroll 1
     for (int l = 1; l < 8; ++l) {
       acc_bias<D>(acc, b[l]);
-      ring_products<D>(acc, act_s, D / 64, 4, ring);
+      ring_products_p<D>(acc, act_s, D / 64, 4, ring);
       if (l == 4) {
-        ring_products<D>(acc, pe_s, 1, 4, ring);   // the skip: pe @ w5, pe's last use
+        ring_products_p<D>(acc, pe_s, 1, 4, ring);   // the skip: pe @ w5, pe's last use
         if (leader) mbar_arrive(hand.pe_free);
       }
+      save.drain(wg);
       wg_sync(wg);
-      store_act<D, true>(acc, act_g);
+      store_relu<D, MASKS>(acc, act_g, masks + l * LW);
       wg_sync(wg);
+      save(1 + l, wg);
     }
     // x7: density head (raw, f32) and feat (bf16, no ReLU)
     head90<D>(act_s, dens_w, b[8], hout_wg, 3, 1);
     acc_bias<D>(acc, b[9]);
-    ring_products<D>(acc, act_s, D / 64, 4, ring);
+    ring_products_p<D>(acc, act_s, D / 64, 4, ring);
+    save.drain(wg);
     wg_sync(wg);
     store_act<D, false>(acc, act_g);
     wg_sync(wg);
+    save(9, wg);
   }
   float acc[D / 4];
   acc_bias<D / 2>(acc, hbias);
-  ring_products<D / 2>(acc, act_s, D / 64, 4, ring);
+  ring_products_p<D / 2>(acc, act_s, D / 64, 4, ring);
   if (de != 0) {
     mbar_wait(hand.de_full, parity);
-    ring_products<D / 2>(acc, de + wg * kWgRowBytes, 1, kDe / 16, ring);
+    save(10, wg);
+    ring_products_p<D / 2>(acc, de + wg * kWgRowBytes, 1, kDe / 16, ring);
+    save.drain(wg);
     if (leader) mbar_arrive(hand.de_free);
   }
+  save.drain(wg);
   wg_sync(wg);
-  store_act<D / 2, true>(acc, act_g);
+  store_relu<D / 2, MASKS>(acc, act_g, masks + 8 * LW);
   wg_sync(wg);
   head90<D / 2>(act_s, rgb_w, b[11], hout_wg, 0, 3);
 }

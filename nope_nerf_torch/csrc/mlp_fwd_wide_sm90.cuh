@@ -1,12 +1,17 @@
-// The forward NeRF MLP trunk at hidden_dim 384 and 512 on Hopper (sm_90a),
-// for render_fwd.cu (K3) and point_mlp_fwd.cu (K5): one 64-point tile through
-// the 9-layer MLP with its layer-4 skip, the feature and rgb-hidden layers and
-// the f32 heads. At 128 and 256 both kernels run mlp_fwd_sm90.cuh's 128-point
-// trunk; FwdTrunk<D> (below) picks one or the other.
+// The forward NeRF MLP trunk at hidden_dim 384 and 512 on Hopper (sm_90a):
+// one 64-point tile through the 9-layer MLP with its layer-4 skip, the
+// feature and rgb-hidden layers and the f32 heads (mlp_tile_w_masks), the one
+// forward of every kernel at these widths: render_fwd.cu (K3) and
+// point_mlp_fwd.cu (K5) run it, and so does every backward kernel before its
+// dX chain (mlp_dx_wide_sm90.cuh), which keeps its ReLU masks. At 128 and 256
+// every kernel runs mlp_fwd_sm90.cuh's 128-point trunk; FwdTrunk<D> (below)
+// picks one or the other for K3 and K5.
 //
 // Numerics are those of mlp_fwd_sm90.cuh and the TPU kernels: bf16 operands,
-// f32 accumulators that start at the bias, activations rounded to bf16 after
-// each ReLU, `feat` rounded without one, heads f32.
+// f32 accumulators that start at the bias, each 32-column weight slice's
+// product summed from zero and added in slice order (ring_products_wp),
+// activations rounded to bf16 after each ReLU, `feat` rounded without one,
+// heads f32.
 //
 // Why a tile shape of its own. In the 128-point trunk each consumer
 // warpgroup owns 64 rows and computes every column of a layer as one wgmma of
@@ -19,9 +24,11 @@
 // Design:
 // - A tile is 64 points. Its two consumer warpgroups split each layer's
 //   output columns: warpgroup g computes columns [gD/2, (g+1)D/2) of all 64
-//   rows, one `wgmma.mma_async` m64nNk16 with N = D/2 per 16 columns of K:
-//   96 and 128 accumulators a thread, as D = 256 takes in the 128-point trunk.
-//   The rgb-hidden layer (D/2 wide) splits the same way, N = D/4.
+//   rows, N = D/2: 96 and 128 accumulators a thread, as D = 256 takes in the
+//   128-point trunk, each 32-column slice of K summed in pieces of 64 of
+//   those columns (32 where N = 96), one `wgmma.mma_async` m64nPk16 per 16
+//   columns of the slice. The rgb-hidden layer (D/2 wide) splits the same
+//   way, N = D/4.
 // - Both warpgroups read every column of a layer's input, so neither may
 //   write over it: two activation buffers of 64 x D bf16 take turns (ten
 //   stores a tile, so a tile starts in buffer 0), and one 256-thread barrier
@@ -232,66 +239,207 @@ __device__ __forceinline__ void head_w(uint32_t act, uint32_t w, const float* __
   }
 }
 
-// The MLP over one 64-point tile (the CTA's tile number `tile`), run by both
-// consumer warpgroups: position encodings in `pe` (one block of 64 rows), the
-// two activation buffers at `act` (64 x D bf16 each), the heads resident at
-// dens_w / rgb_w (shared addresses). The rgb-hidden layer starts from `hbias`
-// and, when de != 0, adds the product of the direction encodings (one block
-// at shared address de, 32 live columns) with w12. Raw rgb and density go to
-// hout[4p + 0..3]; ends with every product done and hout's rows written, by
-// warpgroup 0 (rgb) and 1 (density): the caller synchronises the consumers
-// before it reads them. Waits for the encodings and frees them after their
-// last product.
+// ---- ReLU masks in device memory ------------------------------------------------
+
+// 32-bit words a consumer thread keeps for an N-column share of a layer
+// (N / 2 accumulators, one bit each).
+template <int N>
+__host__ __device__ constexpr int mask_words_w() { return (N / 2 + 31) / 32; }
+
+// Words of one tile's masks: x0..x7 (N = D/2 a warpgroup) then h (D/4), each
+// as [word][consumer thread].
 template <int D>
-__device__ __forceinline__ void mlp_tile_w(const float* const* b, uint32_t pe, uint32_t de,
-                                           unsigned char* act, uint32_t dens_w, uint32_t rgb_w,
-                                           const float* hbias, float* hout, const Handoff& hand,
-                                           long long tile, Ring& ring) {
+__host__ __device__ constexpr int mask_layer_words_w() { return mask_words_w<D / 2>() * kConsumers; }
+template <int D>
+__host__ __device__ constexpr size_t mask_tile_bytes_w() {
+  return sizeof(uint32_t) *
+         (8 * static_cast<size_t>(mask_layer_words_w<D>()) + mask_words_w<D / 4>() * kConsumers);
+}
+
+// store_w's output and, for a ReLU layer, the mask of the stored bf16 values
+// to `mask` (this layer's words, device memory: past L1), then fenced for the
+// async proxy.
+template <int N, bool RELU>
+__device__ __forceinline__ void store_w_mask(const float (&acc)[N / 2], unsigned char* buf,
+                                             int col0, uint32_t* mask) {
+  constexpr int W = mask_words_w<N>();
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int row = 16 * w + (lane >> 2), t = lane & 3;
+  uint32_t bits[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) bits[k] = 0u;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    float v0 = acc[4 * j], v1 = acc[4 * j + 1], v2 = acc[4 * j + 2], v3 = acc[4 * j + 3];
+    if (RELU) {
+      v0 = fmaxf(v0, 0.f);
+      v1 = fmaxf(v1, 0.f);
+      v2 = fmaxf(v2, 0.f);
+      v3 = fmaxf(v3, 0.f);
+    }
+    const int col = col0 + 8 * j + 2 * t;
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v0, v1), hi = __floats2bfloat162_rn(v2, v3);
+    *reinterpret_cast<__nv_bfloat162*>(buf + swz(row, col, kWBlockBytes)) = lo;
+    *reinterpret_cast<__nv_bfloat162*>(buf + swz(row + 8, col, kWBlockBytes)) = hi;
+    if (RELU) {
+      const int b = (4 * j) & 31, k = (4 * j) >> 5;
+      bits[k] |= ((__low2float(lo) > 0.f ? 1u : 0u) << b) |
+                 ((__high2float(lo) > 0.f ? 1u : 0u) << (b + 1)) |
+                 ((__low2float(hi) > 0.f ? 1u : 0u) << (b + 2)) |
+                 ((__high2float(hi) > 0.f ? 1u : 0u) << (b + 3));
+    }
+  }
+  if (RELU) {
+#pragma unroll
+    for (int k = 0; k < W; ++k) __stcg(mask + k * kConsumers + threadIdx.x, bits[k]);
+  }
+  fence_proxy_async();
+}
+
+// A ReLU layer's epilogue: store_w's output, with MASKS also its mask
+// (store_w_mask).
+template <int N, bool MASKS>
+__device__ __forceinline__ void store_w_relu(const float (&acc)[N / 2], unsigned char* buf,
+                                             int col0, uint32_t* mask) {
+  if constexpr (MASKS)
+    store_w_mask<N, true>(acc, buf, col0, mask);
+  else
+    store_w<N, true>(acc, buf, col0);
+}
+
+// ---- the forward ----------------------------------------------------------------
+
+// ring_products_w with each slice's product summed from zero, P columns at a
+// time, and added to acc by the CUDA cores (round to nearest). The tensor
+// cores truncate as they accumulate, so a sum carried across all of K drifts
+// towards zero, one step of 16 columns at a time: at K = 512 that flipped 2 to
+// 3 x as many bf16 roundings and ReLU masks as an f32 evaluation. A slice's
+// sum starts from zero, so its truncation is on the scale of 32 products and
+// of either sign, and the running sum is rounded to nearest. Each piece waits
+// for its own products before it is added (mlp_fwd_sm90.cuh's
+// ring_products_p: the schedule measured faster, PERF.md section 6).
+template <int N>
+__device__ __forceinline__ void ring_products_wp(float (&acc)[N / 2], uint32_t a, int slices,
+                                                 uint32_t b_off, Ring& ring) {
+  constexpr int P = N % 64 == 0 ? 64 : 32;   // N = 96: three pieces of 32
+  const bool leader = (threadIdx.x & 31) == 0;
+  for (int s = 0; s < slices; ++s) {
+    const uint32_t stage = ring.it % ring.stages;
+    mbar_wait(ring.full + 8 * stage, (ring.it / ring.stages) & 1);
+    const uint32_t b = ring.base + stage * ring.stride + b_off;
+    const uint32_t as = a + (s >> 1) * kWBlockBytes + (s & 1) * 64;
+#pragma unroll
+    for (int c = 0; c < N / P; ++c) {
+      float t[P / 2];
+#pragma unroll
+      for (int i = 0; i < P / 2; ++i) t[i] = 0.f;
+      const uint32_t bc = b + c * P * 64;   // the piece's rows of the slice (64 bytes each)
+      wgmma_fence();
+      wgmma_bf16<P>(t, sw128_desc(as), sw64_desc(bc));
+      wgmma_bf16<P>(t, sw128_desc(as + 32), sw64_desc(bc + 32));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < P / 2; ++i) acc[c * (P / 2) + i] += t[i];
+    }
+    if (leader) mbar_arrive(ring.empty + 8 * stage);
+    ++ring.it;
+  }
+}
+
+// No operand leaves the tile. A hook of the kernels with weight gradients
+// saves X operand i (0 pe, 1..8 x0..x7, 9 feat, 10 de) from the shared
+// buffer `src` once it is written (operator()), G operand i (0 g_h, 1
+// g_feat, 2..9 g7..g0) from `src` after its epilogue (grad), and finishes
+// reading shared memory before the next write over a saved buffer (drain).
+// With kSum each dX epilogue also writes its warps' column sums to
+// red_at(i, wg), which grad(i) reads.
+struct NoSaveW {
+  static constexpr bool kSum = false;
+  __device__ __forceinline__ void operator()(int, int, const unsigned char*) const {}
+  __device__ __forceinline__ void grad(int, int, const unsigned char*) const {}
+  __device__ __forceinline__ void drain(int) const {}
+  __device__ __forceinline__ float* red_at(int, int) const { return nullptr; }
+};
+
+// The forward of every kernel at D = 384 and 512 (K3, K5, and inside K1, K4
+// and K6, full and frozen; mlp_fwd_sm90.cuh's mlp_tile_masks at 128 and
+// 256): the MLP over one 64-point tile (the CTA's tile number `tile`), run
+// by both consumer warpgroups. Position encodings in `pe` (one block of 64
+// rows), the two activation buffers at `act` (64 x D bf16 each), the heads
+// resident at dens_w / rgb_w (shared addresses). Each layer starts from its
+// bias; each 32-column slice's product is summed from zero and added in slice
+// order (ring_products_wp); the same roundings as at 128 and 256. The
+// rgb-hidden layer starts from `hbias` and, when de != 0, adds the product of
+// the direction encodings (one block at shared address de, 32 live columns)
+// with w12. x_l lands in buffer l % 2, feat in buffer 0 and h in buffer 1.
+// Raw rgb and density go to hout[4p + 0..3]; ends with every product done
+// and hout's rows written, by warpgroup 0 (rgb) and 1 (density): the caller
+// synchronises the consumers before it reads them. Waits for the encodings
+// and frees them after their last product. With MASKS (the backward kernels)
+// the ReLU layers' masks go to `masks` (one tile's words, device memory);
+// `save` is NoSaveW's kind of hook (the X operands' part of it).
+template <int D, bool MASKS = true, typename Save = NoSaveW>
+__device__ __forceinline__ void mlp_tile_w_masks(const float* const* b, uint32_t pe, uint32_t de,
+                                                 unsigned char* act, uint32_t dens_w,
+                                                 uint32_t rgb_w, const float* hbias, float* hout,
+                                                 const Handoff& hand, long long tile, Ring& ring,
+                                                 uint32_t* masks, const Save& save = Save()) {
   using T = TilesW<D>;
-  constexpr int N = D / 2;                           // a warpgroup's columns of a layer
-  constexpr int H = D / 4;                           // ... of the rgb-hidden layer
-  constexpr uint32_t kBuf = kWRows * D * 2;          // one activation buffer
+  constexpr int N = D / 2;
+  constexpr int H = D / 4;
+  constexpr uint32_t kBuf = kWRows * D * 2;
+  constexpr int LW = mask_layer_words_w<D>();
   const int wg = threadIdx.x >> 7;
   const bool leader = (threadIdx.x & 31) == 0;
   const uint32_t parity = static_cast<uint32_t>(tile & 1);
   const uint32_t act_s = smem_addr(act);
-  const uint32_t b_full = wg * N * kWSliceCols * 2;  // this warpgroup's rows of a slice
+  const uint32_t b_full = wg * N * kWSliceCols * 2;
   const uint32_t b_half = wg * H * kWSliceCols * 2;
+  const unsigned char* pe_g = act + (pe - act_s);
   mbar_wait(hand.pe_full, parity);
+  save(0, wg, pe_g);
   {
     float acc[N / 2];
     acc_bias<N>(acc, b[0] + wg * N);
-    ring_products_w<N>(acc, pe, T::kPeSlices, b_full, ring);
-    store_w<N, true>(acc, act, wg * N);              // x0 -> buffer 0
+    ring_products_wp<N>(acc, pe, T::kPeSlices, b_full, ring);
+    store_w_relu<N, MASKS>(acc, act, wg * N, masks);
     consumer_sync();
+    save(1, wg, act);
 #pragma unroll 1
     for (int l = 1; l < 8; ++l) {
-      const uint32_t in = (l & 1) ? 0u : kBuf;       // x(l-1) in buffer (l-1) % 2
+      const uint32_t in = (l & 1) ? 0u : kBuf;
       acc_bias<N>(acc, b[l] + wg * N);
-      ring_products_w<N>(acc, act_s + in, T::kK, b_full, ring);
+      ring_products_wp<N>(acc, act_s + in, T::kK, b_full, ring);
       if (l == 4) {
-        ring_products_w<N>(acc, pe, T::kPeSlices, b_full, ring);   // the skip: pe's last use
+        ring_products_wp<N>(acc, pe, T::kPeSlices, b_full, ring);
         if (leader) mbar_arrive(hand.pe_free);
       }
-      store_w<N, true>(acc, act + (kBuf - in), wg * N);
+      save.drain(wg);
+      store_w_relu<N, MASKS>(acc, act + (kBuf - in), wg * N, masks + l * LW);
       consumer_sync();
+      save(1 + l, wg, act + (kBuf - in));
     }
-    // x7 in buffer 1: the density head (raw, f32) and feat (bf16, no ReLU) -> buffer 0
     if (wg == 1) head_w<D>(act_s + kBuf, dens_w, b[8], hout, 3, 1);
     acc_bias<N>(acc, b[9] + wg * N);
-    ring_products_w<N>(acc, act_s + kBuf, T::kK, b_full, ring);
+    ring_products_wp<N>(acc, act_s + kBuf, T::kK, b_full, ring);
+    save.drain(wg);
     store_w<N, false>(acc, act, wg * N);
     consumer_sync();
+    save(9, wg, act);
   }
   float acc[H / 2];
   acc_bias<H>(acc, hbias + wg * H);
-  ring_products_w<H>(acc, act_s, T::kK, b_half, ring);
+  ring_products_wp<H>(acc, act_s, T::kK, b_half, ring);
   if (de != 0) {
     mbar_wait(hand.de_full, parity);
-    ring_products_w<H>(acc, de, 1, b_half, ring);
+    save(10, wg, act + (de - act_s));
+    ring_products_wp<H>(acc, de, 1, b_half, ring);
+    save.drain(wg);
     if (leader) mbar_arrive(hand.de_free);
   }
-  store_w<H, true>(acc, act + kBuf, wg * H);         // h -> buffer 1
+  save.drain(wg);
+  store_w_relu<H, MASKS>(acc, act + kBuf, wg * H, masks + 8 * LW);
   consumer_sync();
   if (wg == 0) head_w<D / 2>(act_s + kBuf, rgb_w, b[11], hout, 0, 3);
 }
@@ -324,10 +472,15 @@ struct LayoutW {
 // mlp_fwd_sm90.cuh at 128 and 256, the 64-point one above at 384 and 512.
 // kRows: points of a tile; kActBytes: the activation buffers' bytes (which
 // K3's composite borrows once a ray's tiles are done); w12(j, k): element
-// (j, k) of the direction part of the rgb-hidden weight in the buffer.
+// (j, k) of the direction part of the rgb-hidden weight in the buffer;
+// tile(..., save): the backward kernels' forward without its masks, with
+// the trunk's kind of save hook (NoHook on the main paths).
 template <int D, bool WIDE = (D > 256)>
-struct FwdTrunk {
+struct FwdTrunk;
+template <int D>
+struct FwdTrunk<D, false> {
   using T = Tiles<D>;
+  using NoHook = NoSave;
   using Layout = Layout90<D>;
   static constexpr int kRows = kPts;
   static constexpr size_t kActBytes = static_cast<size_t>(kPts) * D * 2;
@@ -335,10 +488,12 @@ struct FwdTrunk {
                               long long tiles, int slices) {
     produce<D>(w, heads, head_bar, ring, tiles, slices);
   }
+  template <typename Save>
   __device__ static void tile(const float* const* b, uint32_t pe, uint32_t de, unsigned char* act,
                               uint32_t dens_w, uint32_t rgb_w, const float* hbias, float* hout,
-                              const Handoff& hand, long long t, Ring& ring) {
-    mlp_tile90<D>(b, pe, de, act, dens_w, rgb_w, hbias, hout, hand, t, ring);
+                              const Handoff& hand, long long t, Ring& ring, const Save& save) {
+    mlp_tile_masks<D, false>(b, pe, de, act, dens_w, rgb_w, hbias, hout, hand, t, ring, nullptr,
+                             save);
   }
   __device__ static float w12(const unsigned char* w, int j, int k) {
     return __bfloat162float(*reinterpret_cast<const bf16*>(w + T::kW12 + swz(j, k, 0)));
@@ -348,6 +503,7 @@ struct FwdTrunk {
 template <int D>
 struct FwdTrunk<D, true> {
   using T = TilesW<D>;
+  using NoHook = NoSaveW;
   using Layout = LayoutW<D>;
   static constexpr int kRows = kWRows;
   static constexpr size_t kActBytes = static_cast<size_t>(2 * kWRows) * D * 2;
@@ -355,10 +511,12 @@ struct FwdTrunk<D, true> {
                               long long tiles, int slices) {
     produce<D, TilesW<D>>(w, heads, head_bar, ring, tiles, slices);
   }
+  template <typename Save>
   __device__ static void tile(const float* const* b, uint32_t pe, uint32_t de, unsigned char* act,
                               uint32_t dens_w, uint32_t rgb_w, const float* hbias, float* hout,
-                              const Handoff& hand, long long t, Ring& ring) {
-    mlp_tile_w<D>(b, pe, de, act, dens_w, rgb_w, hbias, hout, hand, t, ring);
+                              const Handoff& hand, long long t, Ring& ring, const Save& save) {
+    mlp_tile_w_masks<D, false>(b, pe, de, act, dens_w, rgb_w, hbias, hout, hand, t, ring, nullptr,
+                               save);
   }
   __device__ static float w12(const unsigned char* w, int j, int k) {
     return __bfloat162float(*reinterpret_cast<const bf16*>(w + T::kW12 + swz64(j, k)));

@@ -14,7 +14,10 @@
 //
 // Numerics follow the TPU kernel: bf16 matmul operands with f32 accumulation,
 // activations rounded to bf16 after each ReLU, `feat` rounded without one,
-// heads f32. Where the TPU kernel takes (M, 64) and (M, 32) padded encodings
+// heads f32. The MLP is the point-query backward kernels' own forward
+// (mlp_tile_masks / mlp_tile_w_masks without the masks), so K6 recomputes
+// this kernel's activations bit for bit, as the JAX kernels share _fwd_tail.
+// Where the TPU kernel takes (M, 64) and (M, 32) padded encodings
 // from device memory and writes (M, 128) padded head outputs, this kernel
 // encodes each pass from the (M, 3) inputs in shared memory and writes only
 // the 4 live outputs per point; it masks its own ragged last pass (rows
@@ -43,6 +46,7 @@
 // Bound at the wide widths: 0.514 TFLOP at 196,608 points at D = 384 and
 // 0.905 at D = 512, the FLOPs over the dense bf16 rate.
 
+#include "mlp_dw_chain_sm90.cuh"   // FwdOperandSave (the check build)
 #include "mlp_fwd_wide_sm90.cuh"
 
 namespace {
@@ -53,14 +57,18 @@ constexpr size_t point_f32_bytes() {
   return sizeof(float) * FwdTrunk<D>::kRows * 4;
 }
 
-template <int D>
+// SAVE: the check build, which also writes the X operands of every pass to
+// `xops` (FwdOperandSave).
+template <int D, bool SAVE>
 __global__ void __launch_bounds__(kThreads90, 1)
 point_mlp_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
                      const unsigned char* __restrict__ tiles, Biases bias,
-                     float* __restrict__ rgb, float* __restrict__ density, long long M,
-                     int occ_softplus, int head_dist_alpha, typename FwdTrunk<D>::Layout L) {
+                     float* __restrict__ rgb, float* __restrict__ density, unsigned char* xops,
+                     long long M, int occ_softplus, int head_dist_alpha,
+                     typename FwdTrunk<D>::Layout L) {
   using F = FwdTrunk<D>;
   using T = typename F::T;
+  using Save = std::conditional_t<SAVE, typename FwdOperandSave<D>::Save, typename F::NoHook>;
   constexpr int P = F::kRows;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = setup90(smem_raw, L.bars, L.stages);
@@ -104,14 +112,19 @@ point_mlp_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ di
   float* hout = reinterpret_cast<float*>(base + L.f32);   // rgb raw | sigma raw (P, 4)
   const uint32_t pe_s = smem_addr(base + L.pe), de_s = smem_addr(base + L.de);
   const int tid = threadIdx.x;
+  Save save{};
+  if constexpr (SAVE)
+    save = FwdOperandSave<D>::make(base + L.act, base + L.pe, base + L.de, xops,
+                                   static_cast<size_t>((M + kPts - 1) / kPts) * kBlockBytes);
   mbar_wait(head_bar, 0);
 
   long long tile = 0;
   for (long long pass = blockIdx.x; pass < n_pass; pass += gridDim.x, ++tile) {
     const long long p0 = pass * P;
     const int n = static_cast<int>(M - p0 < P ? M - p0 : P);
+    if constexpr (SAVE) save.tiles.pass = pass;
     F::tile(bias.b, pe_s, de_s, base + L.act, heads, heads + T::kDensHead, bias.b[10], hout, hand,
-            tile, ring);
+            tile, ring, save);
     consumer_sync();   // both warpgroups' raw heads are in
     for (int p = tid; p < n; p += kConsumers) {
       const float sigma = density_act(hout[4 * p + 3], occ_softplus);
@@ -121,16 +134,17 @@ point_mlp_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ di
     }
     consumer_sync();   // hout is read before the next pass's heads overwrite it
   }
+  if constexpr (SAVE) bulk_complete();   // every bulk copy of the CTA's operands, before it exits
 }
 
-template <int D>
+template <int D, bool SAVE>
 cudaError_t launch_fwd(const float* pts, const float* dirs, const unsigned char* tiles,
-                       const Biases& bias, float* rgb, float* density, long long M,
-                       int occ_softplus, int head_dist_alpha, cudaStream_t stream) {
+                       const Biases& bias, float* rgb, float* density, unsigned char* xops,
+                       long long M, int occ_softplus, int head_dist_alpha, cudaStream_t stream) {
   const typename FwdTrunk<D>::Layout L(true, point_f32_bytes<D>());
   if (L.stages < 2) return cudaErrorInvalidValue;
   const size_t smem = L.bytes(point_f32_bytes<D>());
-  cudaError_t err = cudaFuncSetAttribute(point_mlp_fwd_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(point_mlp_fwd_kernel<D, SAVE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -138,9 +152,44 @@ cudaError_t launch_fwd(const float* pts, const float* dirs, const unsigned char*
   if (sms <= 0) return cudaErrorInvalidDevice;
   const long long n_pass = (M + FwdTrunk<D>::kRows - 1) / FwdTrunk<D>::kRows;
   const int grid = static_cast<int>(n_pass < sms ? n_pass : sms);
-  point_mlp_fwd_kernel<D><<<grid, kThreads90, smem, stream>>>(
-      pts, dirs, tiles, bias, rgb, density, M, occ_softplus, head_dist_alpha, L);
+  point_mlp_fwd_kernel<D, SAVE><<<grid, kThreads90, smem, stream>>>(
+      pts, dirs, tiles, bias, rgb, density, xops, M, occ_softplus, head_dist_alpha, L);
   return cudaGetLastError();
+}
+
+// Both C entries: the main build (xops null) or the check build.
+template <bool SAVE>
+int point_fwd_entry(const float* pts, const float* dirs, const void* tiles,
+                    const void* const* biases, float* rgb, float* density, unsigned char* xops,
+                    long long M, int D, int occ_softplus, int head_dist_alpha, void* stream) {
+  if (M <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(tiles) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  Biases bias;
+  for (int i = 0; i < 12; ++i) bias.b[i] = static_cast<const float*>(biases[i]);
+  const auto* w = static_cast<const unsigned char*>(tiles);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (D) {
+    case 512:
+      err = launch_fwd<512, SAVE>(pts, dirs, w, bias, rgb, density, xops, M, occ_softplus,
+                                  head_dist_alpha, st);
+      break;
+    case 384:
+      err = launch_fwd<384, SAVE>(pts, dirs, w, bias, rgb, density, xops, M, occ_softplus,
+                                  head_dist_alpha, st);
+      break;
+    case 256:
+      err = launch_fwd<256, SAVE>(pts, dirs, w, bias, rgb, density, xops, M, occ_softplus,
+                                  head_dist_alpha, st);
+      break;
+    case 128:
+      err = launch_fwd<128, SAVE>(pts, dirs, w, bias, rgb, density, xops, M, occ_softplus,
+                                  head_dist_alpha, st);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -155,30 +204,24 @@ extern "C" int nerf_point_mlp_fwd(const float* pts, const float* dirs, const voi
                                   const void* const* biases, float* rgb, float* density,
                                   long long M, int D, int occ_softplus, int head_dist_alpha,
                                   void* stream) {
-  if (M <= 0) return 0;
-  if (reinterpret_cast<uintptr_t>(tiles) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  Biases bias;
-  for (int i = 0; i < 12; ++i) bias.b[i] = static_cast<const float*>(biases[i]);
-  const auto* w = static_cast<const unsigned char*>(tiles);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (D) {
-    case 512:
-      err = launch_fwd<512>(pts, dirs, w, bias, rgb, density, M, occ_softplus, head_dist_alpha, st);
-      break;
-    case 384:
-      err = launch_fwd<384>(pts, dirs, w, bias, rgb, density, M, occ_softplus, head_dist_alpha, st);
-      break;
-    case 256:
-      err = launch_fwd<256>(pts, dirs, w, bias, rgb, density, M, occ_softplus, head_dist_alpha, st);
-      break;
-    case 128:
-      err = launch_fwd<128>(pts, dirs, w, bias, rgb, density, M, occ_softplus, head_dist_alpha, st);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return point_fwd_entry<false>(pts, dirs, tiles, biases, rgb, density, nullptr, M, D,
+                                occ_softplus, head_dist_alpha, stream);
+}
+
+// The check build: nerf_point_mlp_fwd, which also writes the X operands (pe,
+// x0..x7, feat, de) of every point to `xops` in the dW kernel's tiled layout
+// (fused_mlp.tile_operand, the operands one after the other, ceil(M / 128)
+// row tiles each), as K6 full hands them to the dW kernel. For checks only:
+// no main path calls it.
+extern "C" int nerf_point_mlp_fwd_operands(const float* pts, const float* dirs,
+                                           const void* tiles, const void* const* biases,
+                                           float* rgb, float* density, void* xops, long long M,
+                                           int D, int occ_softplus, int head_dist_alpha,
+                                           void* stream) {
+  if (xops == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return point_fwd_entry<true>(pts, dirs, tiles, biases, rgb, density,
+                               static_cast<unsigned char*>(xops), M, D, occ_softplus,
+                               head_dist_alpha, stream);
 }
 
 extern "C" const char* nerf_error_string(int code) {

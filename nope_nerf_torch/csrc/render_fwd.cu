@@ -14,7 +14,11 @@
 // rounded without one; heads, alpha and the composite stay f32. Positions are
 // formed with explicitly rounded mul/add (no FMA contraction) and the encoding
 // uses the accurate sinf/cosf: arguments reach 2^9 * |coord|, far outside the
-// range where the fast intrinsics are accurate.
+// range where the fast intrinsics are accurate. The MLP is the render backward
+// kernels' own forward (mlp_tile_masks / mlp_tile_w_masks without the masks),
+// the per-ray direction bias the same fmaf chain as theirs, so K4 and K1
+// recompute this kernel's activations bit for bit, as the JAX kernels share
+// _fwd_tail.
 //
 // Bound: the work is compute. A 188x621 frame at 128 samples is 14.94 M points
 // x 1.180 MFLOP of MLP, plus the direction part of the rgb-hidden layer once
@@ -55,6 +59,7 @@
 // Bound at the wide widths: 38.9 TFLOP a 188x621 frame at D = 384 and 68.6 at
 // D = 512, again the FLOPs over the dense bf16 rate.
 
+#include "mlp_dw_chain_sm90.cuh"   // FwdOperandSave (the check build)
 #include "mlp_fwd_wide_sm90.cuh"
 
 namespace {
@@ -108,16 +113,20 @@ __device__ __forceinline__ float* alpha_and_prefix90(const float* hout, const fl
   return src;
 }
 
-template <int D>
+// SAVE: the check build, which also writes the X operands of every tile to
+// `xops` (FwdOperandSave; pass r S / kRows + p of tile p of ray r).
+template <int D, bool SAVE>
 __global__ void __launch_bounds__(kThreads90, 1)
 render_fwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
                   const unsigned char* __restrict__ tiles, Biases bias,
                   float* __restrict__ rgb_out, float* __restrict__ dist_out,
                   float* __restrict__ w_out, float* __restrict__ a_out, float* spill,
-                  int n_rays, int S, int occ_softplus, int head_dist_alpha, int dist_alpha,
-                  typename FwdTrunk<D>::Layout L, RayPlace place) {
+                  unsigned char* xops, int n_rays, int S, int occ_softplus,
+                  int head_dist_alpha, int dist_alpha, typename FwdTrunk<D>::Layout L,
+                  RayPlace place) {
   using F = FwdTrunk<D>;
   using T = typename F::T;
+  using Save = std::conditional_t<SAVE, typename FwdOperandSave<D>::Save, typename F::NoHook>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = setup90(smem_raw, L.bars, L.stages);
   Ring ring = make_ring(base, L.ring, L.bars, T::kFull, L.stages);
@@ -174,6 +183,10 @@ render_fwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
   float* scan1 = scan0 + S;
   const uint32_t pe_s = smem_addr(base + L.pe);
   const int tid = threadIdx.x;
+  Save save{};
+  if constexpr (SAVE)
+    save = FwdOperandSave<D>::make(base + L.act, base + L.pe, nullptr, xops,
+                                   static_cast<size_t>(n_rays) * (S / kPts) * kBlockBytes);
   mbar_wait(head_bar, 0);
 
   long long tile = 0;
@@ -194,9 +207,11 @@ render_fwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
     }
     consumer_sync();
 
-    for (int p0 = 0; p0 < S; p0 += F::kRows, ++tile)
+    for (int p0 = 0; p0 < S; p0 += F::kRows, ++tile) {
+      if constexpr (SAVE) save.tiles.pass = r * (S / F::kRows) + p0 / F::kRows;
       F::tile(bias.b, pe_s, 0, base + L.act, heads, heads + T::kDensHead, debias, hout + 4 * p0,
-              hand, tile, ring);
+              hand, tile, ring, save);
+    }
     consumer_sync();   // every tile's raw heads are in
 
     // ---- alpha and the f32 composite ----------------------------------------
@@ -233,6 +248,7 @@ render_fwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
         dist_out[r] = acc;
     }
   }
+  if constexpr (SAVE) bulk_complete();   // every bulk copy of the CTA's operands, before it exits
 }
 
 // The grid: one persistent CTA per SM, at most one per ray.
@@ -241,27 +257,73 @@ inline int fwd_grid(int n_rays) {
   return n_rays < sms ? n_rays : sms;
 }
 
-template <int D>
+template <int D, bool SAVE>
 cudaError_t launch(const float* rays, const float* z, const unsigned char* tiles,
                    const Biases& bias, float* rgb, float* dist, float* w_out, float* a_out,
-                   float* spill, int n_rays, int S, int occ_softplus, int head_dist_alpha,
-                   int dist_alpha, cudaStream_t stream) {
+                   float* spill, unsigned char* xops, int n_rays, int S, int occ_softplus,
+                   int head_dist_alpha, int dist_alpha, cudaStream_t stream) {
   const RayPlace place = fwd_place<D>(S);
   const size_t area = place.area(fixed_bytes<D>(), S);
   const typename FwdTrunk<D>::Layout L(false, area);
   if (L.stages < 2) return cudaErrorInvalidValue;
   if (place.spill_floats(S) > 0 && spill == nullptr) return cudaErrorInvalidValue;
   const size_t smem = L.bytes(area);
-  auto* kernel = render_fwd_kernel<D>;
+  auto* kernel = render_fwd_kernel<D, SAVE>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int grid = fwd_grid(n_rays);
   if (grid <= 0) return cudaErrorInvalidDevice;
   kernel<<<grid, kThreads90, smem, stream>>>(rays, z, tiles, bias, rgb, dist, w_out, a_out, spill,
-                                             n_rays, S, occ_softplus, head_dist_alpha,
+                                             xops, n_rays, S, occ_softplus, head_dist_alpha,
                                              dist_alpha, L, place);
   return cudaGetLastError();
+}
+
+template <bool SAVE>
+cudaError_t launch_at(int D, const float* rays, const float* z, const unsigned char* w,
+                      const Biases& bias, float* rgb, float* dist, float* w_out, float* a_out,
+                      float* spill, unsigned char* xops, int n_rays, int S, int occ_softplus,
+                      int head_dist_alpha, int dist_alpha, cudaStream_t st) {
+  switch (D) {
+    case 512:
+      return launch<512, SAVE>(rays, z, w, bias, rgb, dist, w_out, a_out, spill, xops, n_rays, S,
+                               occ_softplus, head_dist_alpha, dist_alpha, st);
+    case 384:
+      return launch<384, SAVE>(rays, z, w, bias, rgb, dist, w_out, a_out, spill, xops, n_rays, S,
+                               occ_softplus, head_dist_alpha, dist_alpha, st);
+    case 256:
+      return launch<256, SAVE>(rays, z, w, bias, rgb, dist, w_out, a_out, spill, xops, n_rays, S,
+                               occ_softplus, head_dist_alpha, dist_alpha, st);
+    case 128:
+      return launch<128, SAVE>(rays, z, w, bias, rgb, dist, w_out, a_out, spill, xops, n_rays, S,
+                               occ_softplus, head_dist_alpha, dist_alpha, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Both C entries: the main build (xops null) or the check build.
+int render_fwd_entry(const float* rays, const float* z, const void* tiles,
+                     const void* const* biases, float* rgb, float* dist, float* w_out,
+                     float* a_out, void* spill, unsigned char* xops, int n_rays, int S, int D,
+                     int occ_softplus, int head_dist_alpha, int dist_alpha, void* stream) {
+  if (n_rays <= 0) return 0;
+  if (S <= 0 || S % kPts != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if ((w_out == nullptr) != (a_out == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(tiles) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  Biases bias;
+  for (int i = 0; i < 12; ++i) bias.b[i] = static_cast<const float*>(biases[i]);
+  const auto* w = static_cast<const unsigned char*>(tiles);
+  float* sp = static_cast<float*>(spill);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      xops == nullptr
+          ? launch_at<false>(D, rays, z, w, bias, rgb, dist, w_out, a_out, sp, xops, n_rays, S,
+                             occ_softplus, head_dist_alpha, dist_alpha, st)
+          : launch_at<true>(D, rays, z, w, bias, rgb, dist, w_out, a_out, sp, xops, n_rays, S,
+                            occ_softplus, head_dist_alpha, dist_alpha, st);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -277,36 +339,24 @@ extern "C" int nerf_render_fwd(const float* rays, const float* z, const void* ti
                                float* a_out, void* spill, int n_rays, int S, int D,
                                int occ_softplus, int head_dist_alpha, int dist_alpha,
                                void* stream) {
-  if (n_rays <= 0) return 0;
-  if (S <= 0 || S % kPts != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if ((w_out == nullptr) != (a_out == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  if (reinterpret_cast<uintptr_t>(tiles) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  Biases bias;
-  for (int i = 0; i < 12; ++i) bias.b[i] = static_cast<const float*>(biases[i]);
-  const auto* w = static_cast<const unsigned char*>(tiles);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (D) {
-    case 512:
-      err = launch<512>(rays, z, w, bias, rgb, dist, w_out, a_out, static_cast<float*>(spill),
-                        n_rays, S, occ_softplus, head_dist_alpha, dist_alpha, st);
-      break;
-    case 384:
-      err = launch<384>(rays, z, w, bias, rgb, dist, w_out, a_out, static_cast<float*>(spill),
-                        n_rays, S, occ_softplus, head_dist_alpha, dist_alpha, st);
-      break;
-    case 256:
-      err = launch<256>(rays, z, w, bias, rgb, dist, w_out, a_out, static_cast<float*>(spill),
-                        n_rays, S, occ_softplus, head_dist_alpha, dist_alpha, st);
-      break;
-    case 128:
-      err = launch<128>(rays, z, w, bias, rgb, dist, w_out, a_out, static_cast<float*>(spill),
-                        n_rays, S, occ_softplus, head_dist_alpha, dist_alpha, st);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return render_fwd_entry(rays, z, tiles, biases, rgb, dist, w_out, a_out, spill, nullptr, n_rays,
+                          S, D, occ_softplus, head_dist_alpha, dist_alpha, stream);
+}
+
+// The check build: nerf_render_fwd without weights and alpha, which also
+// writes the X operands (pe, x0..x7, feat) of every 128-sample row tile to
+// `xops` in the dW kernel's tiled layout (fused_mlp.tile_operand, the operands
+// one after the other, n_rays S / 128 row tiles each), as K1 and K4 full hand
+// them to the dW kernel. For checks only: no main path calls it.
+extern "C" int nerf_render_fwd_operands(const float* rays, const float* z, const void* tiles,
+                                        const void* const* biases, float* rgb, float* dist,
+                                        void* spill, void* xops, int n_rays, int S, int D,
+                                        int occ_softplus, int head_dist_alpha, int dist_alpha,
+                                        void* stream) {
+  if (xops == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return render_fwd_entry(rays, z, tiles, biases, rgb, dist, nullptr, nullptr, spill,
+                          static_cast<unsigned char*>(xops), n_rays, S, D, occ_softplus,
+                          head_dist_alpha, dist_alpha, stream);
 }
 
 // Bytes of nerf_render_fwd's spill scratch for n_rays x S at width D: the

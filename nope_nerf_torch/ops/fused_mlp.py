@@ -39,7 +39,7 @@ carried over: the kernels take (M, 3) and write (M, 3) and (M, 1).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,7 +48,7 @@ from ._build import CudaLibrary, runs_plain
 from .fused_render import (DE_DIM, PE_DIM, SWIZZLE_COLS, _backward_ctas, _enc_deriv_to_coords,
                            _grad_blocks, _mlp_forward, _packed_tiles_on, _scratch_bytes,
                            check_kernel_width, encode_lanes, mlp_backward, pack_tiles,
-                           pack_weights, tile_rows, unpack_grads)
+                           pack_weights, tile_rows, unpack_grads, x_operands)
 
 PTS_PER_PASS = 128        # the kernels' pass over consecutive points
 PLAIN_BLOCK_POINTS = 65536  # points per block of the plain versions (bounds their memory)
@@ -61,6 +61,8 @@ def _setup_fwd(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
     lib.nerf_point_mlp_fwd.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, i, i, i, p]
     lib.nerf_point_mlp_fwd.restype = ctypes.c_int
+    lib.nerf_point_mlp_fwd_operands.argtypes = [p] * 7 + [ctypes.c_longlong, i, i, i, p]
+    lib.nerf_point_mlp_fwd_operands.restype = ctypes.c_int
     lib.nerf_error_string.argtypes = [ctypes.c_int]
     lib.nerf_error_string.restype = ctypes.c_char_p
 
@@ -279,6 +281,39 @@ def tile_operand(X: torch.Tensor) -> torch.Tensor:
     return torch.gather(t, 3, idx).reshape(nt, cb, DW_ROWS, SWIZZLE_COLS).contiguous()
 
 
+def untile_operand(T: torch.Tensor, C: int) -> torch.Tensor:
+    """tile_operand undone: (nt, cb, 128, 64) tiled bf16 -> (nt * 128, C), the
+    first C columns (padding rows kept)."""
+    nt, cb = T.shape[:2]
+    t = T.reshape(nt, cb, DW_ROWS, 8, 8)
+    r = torch.arange(DW_ROWS, device=T.device)[:, None]
+    src = (torch.arange(8, device=T.device)[None, :] ^ (r % 8))     # logical chunk c at c ^ (r % 8)
+    idx = src[None, None, :, :, None].expand(nt, cb, DW_ROWS, 8, 8)
+    t = torch.gather(t, 3, idx).permute(0, 2, 1, 3, 4)               # (nt, r, cb, chunk, 8)
+    return t.reshape(nt * DW_ROWS, cb * SWIZZLE_COLS)[:, :C]
+
+
+def x_operand_views(xops: torch.Tensor, D: int, rows: int, de: bool) -> Dict[str, torch.Tensor]:
+    """{name: (row tiles x 128, width)} of a flat X operand buffer
+    (x_operands' layout over `rows` rows): pe (64 lanes), x0..x7 and feat
+    (D), and with `de` the direction encodings' 32 lanes. The 32 columns past
+    de's lanes are layout padding (the dW kernel reads K = 32 of them) that
+    the kernels copy from shared memory as they find it, so they are left
+    out."""
+    nt = -(-rows // DW_ROWS)
+    names = [("pe", PE_DIM)] + [(f"x{i}", D) for i in range(8)] + [("feat", D)]
+    names += [("de", DE_DIM)] if de else []
+    out, at = {}, 0
+    for name, width in names:
+        cb = -(-width // SWIZZLE_COLS)
+        n = nt * cb * DW_ROWS * SWIZZLE_COLS
+        out[name] = untile_operand(xops[at:at + n].view(nt, cb, DW_ROWS, SWIZZLE_COLS), width)
+        at += n
+    if at != xops.numel():
+        raise ValueError(f"{xops.numel()} bf16 are not the X operands of {rows} rows at {D}")
+    return out
+
+
 def point_mlp_dw_operands(params: Dict[str, torch.Tensor], pts: torch.Tensor,
                           dirs: torch.Tensor, g_rgb: torch.Tensor, g_density: torch.Tensor,
                           cfg: NerfConfig):
@@ -347,8 +382,12 @@ def _check_tensors(named, dev: torch.device) -> None:
             raise ValueError(f"{name} must be on the points' device")
 
 
-def _mlp_fwd_cuda(params, pts: torch.Tensor, dirs: torch.Tensor, cfg: NerfConfig):
-    """(rgb (M,3), density (M,1)) by one launch of the forward kernel."""
+def _mlp_fwd_cuda(params, pts: torch.Tensor, dirs: torch.Tensor, cfg: NerfConfig,
+                  xops: Optional[torch.Tensor] = None):
+    """(rgb (M,3), density (M,1)) by one launch of the forward kernel. With
+    `xops` (point_operand_bytes' X bytes) the kernel's check build runs
+    instead and also writes the X operands there (point_mlp_fwd_operands):
+    not counted."""
     _check_width(cfg, "forward")
     dev = pts.device
     _check_tensors((("pts", pts), ("dirs", dirs)), dev)
@@ -365,15 +404,52 @@ def _mlp_fwd_cuda(params, pts: torch.Tensor, dirs: torch.Tensor, cfg: NerfConfig
     bptrs = (ctypes.c_void_p * 12)(*[b.data_ptr() for b in B])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.nerf_point_mlp_fwd(pts.data_ptr(), dirs.data_ptr(), tiles.data_ptr(), bptrs,
-                                     rgb.data_ptr(), density.data_ptr(), M, cfg.hidden_dim,
-                                     int(cfg.occ_activation == "softplus"), int(cfg.dist_alpha),
-                                     stream)
+        flags = (int(cfg.occ_activation == "softplus"), int(cfg.dist_alpha))
+        if xops is None:
+            err = lib.nerf_point_mlp_fwd(pts.data_ptr(), dirs.data_ptr(), tiles.data_ptr(),
+                                         bptrs, rgb.data_ptr(), density.data_ptr(), M,
+                                         cfg.hidden_dim, *flags, stream)
+        else:
+            err = lib.nerf_point_mlp_fwd_operands(pts.data_ptr(), dirs.data_ptr(),
+                                                  tiles.data_ptr(), bptrs, rgb.data_ptr(),
+                                                  density.data_ptr(), xops.data_ptr(), M,
+                                                  cfg.hidden_dim, *flags, stream)
     if err != 0:
         raise RuntimeError("point-query MLP forward kernel launch failed: "
                            + lib.nerf_error_string(err).decode())
-    POINT_MLP_FWD.launches += 1
+    if xops is None:
+        POINT_MLP_FWD.launches += 1
     return rgb, density
+
+
+def point_operand_bytes(D: int, M: int) -> int:
+    """Bytes of the X operands K6 full hands the dW kernel for M points:
+    ceil(M/128) row tiles of 64-column bf16 blocks (16 KB each) of pe and de
+    (1 block each), x0..x7 and feat (D/64 each)."""
+    return -(-M // DW_ROWS) * DW_ROWS * 2 * SWIZZLE_COLS * (2 + 9 * (D // 64))
+
+
+def point_mlp_fwd_operands(params: Dict[str, torch.Tensor], pts: torch.Tensor,
+                           dirs: torch.Tensor, cfg: NerfConfig):
+    """(rgb (M,3), density (M,1), X) by the forward kernel's check build:
+    the forward of point_mlp that also writes the X operands of the points
+    (fused_render.x_operands' layout: pe, x0..x7, feat, de; rows past M those
+    of zero points), which K6 full writes for its dW products from the same
+    forward. For checks only; no main path calls it, and its launches are not
+    counted. On the CPU the plain version's (_plain_forward's, rows past M
+    zero)."""
+    _check_inputs(pts, dirs)
+    with torch.no_grad():
+        if runs_plain(pts):
+            W, B = pack_weights(params, cfg)
+            rgb_raw, sig_raw, acts, pe, de = _plain_forward(
+                [w.to(torch.float32) for w in W], B, pts.to(torch.float32),
+                dirs.to(torch.float32))
+            return (*_heads(rgb_raw, sig_raw, cfg), x_operands(pe, acts, de))
+        xops = torch.zeros((point_operand_bytes(cfg.hidden_dim, pts.shape[0]) // 2,),
+                           dtype=torch.bfloat16, device=pts.device)
+        rgb, density = _mlp_fwd_cuda(params, pts.detach(), dirs.detach(), cfg, xops)
+        return rgb, density, xops
 
 
 def mlp_bwd_kernel(want_param_grads: bool) -> str:
@@ -383,14 +459,16 @@ def mlp_bwd_kernel(want_param_grads: bool) -> str:
 
 
 def _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig,
-                  want_param_grads: bool = True):
+                  want_param_grads: bool = True, operands: Optional[list] = None):
     """(dWs, dBs, dpts, ddirs) by one launch of the backward kernel: its C
     entry issues the chain (one CTA per SM over tile_rows(D)-point passes),
     the in-order sum of the chain's partial sums and the dW kernel (with its
     in-order sum of the chunks). At 384 and 512 the chain also takes a
     per-CTA scratch (the ReLU masks, the parked g4, the bias column sums). With
     want_param_grads=False its frozen-network variant runs: no dW/dB, and
-    dWs, dBs are None."""
+    dWs, dBs are None. For checks, a list given as `operands` gets the X
+    operands the chain handed the dW kernel (point_mlp_fwd_operands' layout,
+    flat bf16, zeroed first)."""
     _check_width(cfg, mlp_bwd_kernel(want_param_grads))
     D = cfg.hidden_dim
     dev = pts.device
@@ -413,6 +491,9 @@ def _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig,
         raise RuntimeError("the point-query MLP backward kernel reports no scratch sizes")
     chunks = dw_chunks(sizes[4], M, torch.cuda.get_device_properties(dev).multi_processor_count)
     xops, gops = (torch.empty((sizes[i],), dtype=torch.uint8, device=dev) for i in (0, 1))
+    if operands is not None:
+        xops.zero_()
+        operands.append(xops.view(torch.bfloat16))
     chain_part = torch.empty((sizes[2] // 4,), dtype=torch.float32, device=dev)
     dw_part = torch.empty((chunks * sizes[3] // 4,), dtype=torch.float32, device=dev)
     scratch = _scratch_bytes(sizes[5], dev) if sizes[5] else None   # the wide chain's

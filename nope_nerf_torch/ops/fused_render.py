@@ -69,6 +69,8 @@ def _setup(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
     lib.nerf_render_fwd.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.nerf_render_fwd.restype = ctypes.c_int
+    lib.nerf_render_fwd_operands.argtypes = [p] * 8 + [i] * 6 + [p]
+    lib.nerf_render_fwd_operands.restype = ctypes.c_int
     lib.nerf_render_fwd_spill.argtypes = [i, i, i]
     lib.nerf_render_fwd_spill.restype = ctypes.c_longlong
     lib.nerf_error_string.argtypes = [ctypes.c_int]
@@ -427,9 +429,12 @@ def render_rays_fused_plain(params, rays: torch.Tensor, z: torch.Tensor,
     return rgb, dist, weights, alpha
 
 
-def _render_cuda(tiles, B, rays, z, cfg: NerfConfig, dist_alpha: bool, want_aux: bool):
+def _render_cuda(tiles, B, rays, z, cfg: NerfConfig, dist_alpha: bool, want_aux: bool,
+                 xops: Optional[torch.Tensor] = None):
     """(rgb, dist, weights, alpha) by one launch of the render kernel, from
-    pack_tiles' (tiles, B)."""
+    pack_tiles' (tiles, B). With `xops` (render_operand_bytes' X bytes) the
+    kernel's check build runs instead and also writes the X operands there
+    (render_fwd_operands): not counted, and no weights or alpha."""
     n, S = z.shape
     _check_kernel_shapes("render", S, cfg.hidden_dim)
     D = cfg.hidden_dim
@@ -455,19 +460,59 @@ def _render_cuda(tiles, B, rays, z, cfg: NerfConfig, dist_alpha: bool, want_aux:
         # the per-sample arrays past shared memory's room (S > 3,840 at D = 256)
         spill = _spill(lib.nerf_render_fwd_spill(n, S, D), rays.device)
         stream = torch.cuda.current_stream(rays.device).cuda_stream
-        err = lib.nerf_render_fwd(
-            rays.data_ptr(), z.data_ptr(), tiles.data_ptr(), bptrs, rgb.data_ptr(),
-            dist.data_ptr(),
-            weights.data_ptr() if want_aux else None,
-            alpha.data_ptr() if want_aux else None,
-            _ptr(spill),
-            n, S, D, int(cfg.occ_activation == "softplus"), int(cfg.dist_alpha),
-            int(dist_alpha), stream)
+        flags = (int(cfg.occ_activation == "softplus"), int(cfg.dist_alpha), int(dist_alpha))
+        if xops is None:
+            err = lib.nerf_render_fwd(
+                rays.data_ptr(), z.data_ptr(), tiles.data_ptr(), bptrs, rgb.data_ptr(),
+                dist.data_ptr(),
+                weights.data_ptr() if want_aux else None,
+                alpha.data_ptr() if want_aux else None,
+                _ptr(spill), n, S, D, *flags, stream)
+        else:
+            err = lib.nerf_render_fwd_operands(
+                rays.data_ptr(), z.data_ptr(), tiles.data_ptr(), bptrs, rgb.data_ptr(),
+                dist.data_ptr(), _ptr(spill), xops.data_ptr(), n, S, D, *flags, stream)
     if err != 0:
         raise RuntimeError("render kernel launch failed: "
                            + lib.nerf_error_string(err).decode())
-    RENDER_FWD.launches += 1
+    if xops is None:
+        RENDER_FWD.launches += 1
     return rgb, dist, weights, alpha
+
+
+def x_operands(pe: torch.Tensor, acts: List[torch.Tensor],
+               de: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The X operands of the dW products (pe, x0..x7, feat and, for the
+    point-query MLP, de) from a plain forward's encodings and activations, as
+    the kernels write them: each in fused_mlp.tile_operand's layout, the
+    operands one after the other, flat bf16."""
+    from .fused_mlp import tile_operand   # fused_mlp imports this module
+    ops = [pe] + list(acts[:9]) + ([] if de is None else [de])
+    return torch.cat([tile_operand(x).reshape(-1) for x in ops])
+
+
+def render_fwd_operands(params, rays: torch.Tensor, z: torch.Tensor, cfg: NerfConfig,
+                        dist_alpha: bool = False):
+    """(rgb (N,3), dist (N,), X) by the render kernel's check build: the
+    forward of render_rays_fused that also writes the X operands of the
+    rays' samples (x_operands' layout, rows in the order r S + s: pe, x0..x7,
+    feat), which K1 and K4 full write for their dW products from the same
+    forward. For checks only; no main path calls it, and its launches are not
+    counted. On the CPU the plain version's (_plain_forward's)."""
+    _check_inputs(rays, z)
+    n, S = z.shape
+    with torch.no_grad():
+        if runs_plain(rays):
+            W, B = pack_weights(params, cfg)
+            fwd = _plain_forward([w.to(torch.float32) for w in W], B, rays.to(torch.float32),
+                                 z.to(torch.float32), cfg, dist_alpha)
+            return fwd["ray_rgb"], fwd["dist"], x_operands(fwd["pe"], fwd["acts"])
+        tiles, B = pack_tiles(params, cfg)
+        xops = torch.zeros((render_operand_bytes(cfg.hidden_dim, n, S)[0] // 2,),
+                           dtype=torch.bfloat16, device=rays.device)
+        rgb, dist, _, _ = _render_cuda(tiles, B, rays.detach(), z.detach(), cfg, dist_alpha,
+                                       False, xops)
+        return rgb, dist, xops
 
 
 # ---------------------------------------------------------------------------
@@ -880,6 +925,20 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _full_operands(operands: Optional[list], scratch, chunk_rays: int, n: int) -> None:
+    """For checks: hand the caller (a list given as `operands`) the buffer
+    of X operands a launch of K1 or K4 full fills for the dW kernel, flat
+    bf16 in render_fwd_operands' layout, zeroed first. A call in more than
+    one chunk of rays keeps only its last chunk's there, so it raises."""
+    if operands is None:
+        return
+    if chunk_rays != n:
+        raise ValueError(f"the operands of {n} rays come in chunks of {chunk_rays}: pass one "
+                         "chunk of rays at a time (render_chunks)")
+    scratch[0].zero_()
+    operands.append(scratch[0].view(torch.bfloat16))
+
+
 def _count_full_launches(lib, n: int, chunk_rays: int) -> None:
     """K1 and K4 full launch their chain kernel and the dW kernel once per
     chunk of rays from their own C entries: that many more launches of each."""
@@ -901,11 +960,12 @@ def _grad_blocks(grads: torch.Tensor, offsets, D: int):
 
 
 def _train_cuda(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p: int,
-                white_bg: bool):
+                white_bg: bool, operands: Optional[list] = None):
     """(sums, dWs, dBs, drays, dz, dtgt) by one launch of the train kernel:
     its C entry issues, for each chunk of rays (render_chunks), the chain,
     the in-order sum of the chain's partial sums and the dW kernel (with its
-    in-order sum of the chunks of samples)."""
+    in-order sum of the chunks of samples). A list given as `operands` gets
+    the X operands the chain handed the dW kernel (_full_operands)."""
     n, S = z.shape
     D = cfg.hidden_dim
     _check_kernel_shapes("train", S, D)
@@ -920,6 +980,7 @@ def _train_cuda(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p: 
         raise RuntimeError("the train kernel reports no gradient layout")
     chunk_rays, n_ctas, chunks, scratch = _full_scratch(lib.nerf_render_train_scratch, D, n, S,
                                                         dev)
+    _full_operands(operands, scratch, chunk_rays, n)
     f32 = dict(dtype=torch.float32, device=dev)
     grads = torch.empty((total,), **f32)
     drays = torch.empty((n, RAY_DIM), **f32)
@@ -1136,12 +1197,14 @@ def render_dw_operands(params, rays: torch.Tensor, z: torch.Tensor, g_rgb: torch
 
 
 def _render_bwd_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig,
-                     dist_alpha: bool, want_param_grads: bool = True):
+                     dist_alpha: bool, want_param_grads: bool = True,
+                     operands: Optional[list] = None):
     """(dWs, dBs, drays, dz) by one launch of the render-backward kernel (its
     C entry issues, for each chunk of rays (render_chunks), the chain, the
     in-order sum of its partials and the dW kernel). With
     want_param_grads=False its frozen-network variant runs
-    (render_bwd_frozen.cu): no dW/dB, and dWs, dBs are None."""
+    (render_bwd_frozen.cu): no dW/dB, and dWs, dBs are None. A list given as
+    `operands` gets the full variant's X operands (_full_operands)."""
     n, S = z.shape
     D = cfg.hidden_dim
     _check_kernel_shapes(render_bwd_kernel(want_param_grads), S, D)
@@ -1163,6 +1226,7 @@ def _render_bwd_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig,
         raise RuntimeError("the render-backward kernel reports no gradient layout")
     chunk_rays, n_ctas, chunks, scratch = _full_scratch(lib.nerf_render_bwd_scratch, D, n, S,
                                                         dev)
+    _full_operands(operands, scratch, chunk_rays, n)
     f32 = dict(dtype=torch.float32, device=dev)
     grads = torch.empty((total,), **f32)
     drays = torch.empty((n, RAY_DIM), **f32)

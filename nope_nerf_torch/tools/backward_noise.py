@@ -97,6 +97,19 @@ column that move furthest, that move over the unmasked g_h of the sample it
 matches (1 where one flipped h mask makes it), the sample's weight, and the
 f64 pre-activation there in half-ulps of f32 at the sum of its terms'
 magnitudes (what an f32 evaluation in any order can move it by).
+With `--forward` (and `--widths`), the forward kernels K3 (csrc/render_fwd.cu)
+and K5 (csrc/point_mlp_fwd.cu), which run the backward kernels' forward, on
+--render-full's draws (1024 rays x 128, both flag sets of WIDE_FLAGS,
+RENDER_FULL_SEEDS seeds; K5 on FORWARD_POINTS points of the scene cube drawn
+after them) at every width: K3's rgb and dist and K5's rgb and density
+against the f64 forward (`_plain_forward` with f64 weights: the same
+bf16 operands and rounding points, exact sums) beside the f32 plain
+version's distance, and, through the kernels' check builds
+(render_fwd_operands, point_mlp_fwd_operands), per layer the bf16
+activations (pe, x0..x7, feat; and de) that differ from the f64 forward's,
+per sample, for the kernel and for the f32 plain version, with the ratio's
+range per width. In a checkout without the check builds it prints the
+outputs' distances only.
 Prints plain text; PERF.md quotes it.
 """
 
@@ -376,7 +389,6 @@ def render_full_flips(torch, chip_smoke, dev, widths=FROZEN_WIDTHS) -> None:
     version's bf16 activations that differ from the f64 forward's, and the
     rgb-hidden bias gradient's sensitivity to one flipped h mask (see the
     module text)."""
-    import ctypes
     from nope_nerf_torch.ops import fused_mlp as FM
     from nope_nerf_torch.ops import fused_render as F
     n, S = 1024, 128
@@ -389,29 +401,11 @@ def render_full_flips(torch, chip_smoke, dev, widths=FROZEN_WIDTHS) -> None:
             occ, da = chip_smoke.WIDE_FLAGS[1]
             ncfg, params = chip_smoke.many_params(torch, dev, gen, D, occ, da, S)
             cot = chip_smoke.bwd_cotangents(torch, params, rays, z, tgt, ncfg, da, True)
-            # K4 full through its C entry, keeping the X operands it hands the dW kernel
-            dev = rays.device
-            tiles, tiles_dx, _, bptrs = F._packed_tiles_on(params, ncfg, dev)
-            lib = F.RENDER_BWD.lib()
-            offsets = (ctypes.c_int * 26)()
-            total = lib.nerf_bwd_grad_layout(D, offsets)
-            chunk_rays, n_ctas, chunks, scratch = F._full_scratch(lib.nerf_render_bwd_scratch, D,
-                                                                  n, S, dev)
-            if chunk_rays != n:
-                raise RuntimeError("render_full_flips needs the call in one chunk of rays")
-            f32 = dict(dtype=torch.float32, device=dev)
-            grads, drays, dz = (torch.empty(total, **f32), torch.empty(n, 9, **f32),
-                                torch.empty(n, S, **f32))
-            err = lib.nerf_render_bwd(
-                rays.data_ptr(), z.data_ptr(), cot[0].data_ptr(), cot[1].data_ptr(),
-                F._ptr(cot[2]), F._ptr(cot[3]), tiles.data_ptr(), tiles_dx.data_ptr(), bptrs,
-                *[F._ptr(t) for t in scratch], grads.data_ptr(), drays.data_ptr(), dz.data_ptr(),
-                n, chunk_rays, S, D, n_ctas, chunks, int(occ == "softplus"), int(da), int(da),
-                total, torch.cuda.current_stream(dev).cuda_stream)
-            if err != 0:
-                raise RuntimeError(lib.nerf_error_string(err).decode())
+            # K4 full, keeping the X operands it hands the dW kernel
+            kept = []
+            F._render_bwd_cuda(params, rays, z, *cot, ncfg, da, operands=kept)
             torch.cuda.synchronize()
-            xk = scratch[0].view(torch.bfloat16)
+            xk = kept[0]
             W, B = F.pack_weights(params, ncfg)
             acts = {}
             for dtype in (torch.float32, torch.float64):
@@ -449,8 +443,108 @@ def render_full_flips(torch, chip_smoke, dev, widths=FROZEN_WIDTHS) -> None:
                   f"mask moves rgb_hidden_b by up to {float(share.max()) / 5e-3:.2f} of its "
                   f"tolerance, {int((share > 5e-3).any(dim=1).sum())} of the first 256 rays' "
                   f"{256 * S} samples by more than it", flush=True)
-            del scratch, xk, acts
+            del kept, xk, acts
             torch.cuda.empty_cache()
+
+
+X_NAMES = ["pe"] + [f"x{i}" for i in range(8)] + ["feat"]
+FORWARD_POINTS = 65_536     # K5's points a draw: one block of the plain version
+
+
+def _flips(torch, got: dict, acts64: dict, rows: int) -> dict:
+    """Per operand of `got` ({name: bf16-valued tensor, its first `rows`
+    rows the points'}), the share of its activations whose bf16 value
+    differs from the f64 forward's, per row."""
+    return {name: int((v[:rows].to(torch.bfloat16) != acts64[name].to(torch.bfloat16)).sum())
+            / rows for name, v in got.items()}
+
+
+def forward_flips(torch, chip_smoke, dev, widths=FROZEN_WIDTHS, seeds=RENDER_FULL_SEEDS) -> None:
+    """--forward: K3 and K5 against the f64 forward (see the module text)."""
+    from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
+    from nope_nerf_torch.ops import fused_mlp as FM
+    from nope_nerf_torch.ops import fused_render as F
+    check = hasattr(F, "render_fwd_operands")   # a checkout before it has no check build
+    n, S = 1024, 128
+    for D in widths:
+        ratios = {"K3": [], "K5": []}
+        for seed in range(seeds):
+            gen = torch.Generator().manual_seed(300 + seed)   # --render-full's draws
+            rays, z, _ = chip_smoke.train_inputs(torch, dev, gen, n, S)
+            for occ, da in chip_smoke.WIDE_FLAGS:
+                ncfg, params = chip_smoke.many_params(torch, dev, gen, D, occ, da, S)
+                W, B = F.pack_weights(params, ncfg)
+                ref = {}
+                for dtype in (torch.float32, torch.float64):
+                    Wf = [w.to(dtype) for w in W]
+                    parts = [F._plain_forward(Wf, B, rays[i:i + 256], z[i:i + 256], ncfg, da,
+                                              dtype) for i in range(0, n, 256)]
+                    ref[dtype] = {"rgb": torch.cat([p["ray_rgb"] for p in parts]),
+                                  "dist": torch.cat([p["dist"] for p in parts])}
+                    ref[dtype].update({name: torch.cat([p["pe"] if name == "pe" else
+                                                        p["acts"][X_NAMES.index(name) - 1]
+                                                        for p in parts]) for name in X_NAMES})
+                if check:
+                    rgb, dist, xk = F.render_fwd_operands(params, rays, z, ncfg, da)
+                else:
+                    rgb, dist, _, _ = F.render_rays_fused(params, rays, z, ncfg, da,
+                                                          want_aux=False)
+                e64 = ref[torch.float64]
+                dists = []
+                for what in ("rgb", "dist"):
+                    k = float((rgb if what == "rgb" else dist).double().sub(e64[what]).abs().max())
+                    p = float(ref[torch.float32][what].double().sub(e64[what]).abs().max())
+                    dists.append(f"{what} max |K3 - f64| {k:.3g}, |f32 plain - f64| {p:.3g}")
+                text = "; ".join(dists)
+                if check:
+                    kf = _flips(torch, FM.x_operand_views(xk, D, n * S, False), e64, n * S)
+                    pf = _flips(torch, {k: ref[torch.float32][k] for k in X_NAMES}, e64, n * S)
+                    ratios["K3"] += [kf[k] / max(pf[k], 1e-12) for k in X_NAMES[1:]]
+                    text += "; bf16 activations off the f64 forward's a sample, K3 / f32 plain: " \
+                        + ", ".join(f"{k} {kf[k]:.3g} / {pf[k]:.3g}" for k in X_NAMES)
+                print(f"forward D={D} {n} rays x {S} occ={occ} dist_alpha={da} seed {seed}: "
+                      + text, flush=True)
+                # K5 on points of the scene cube at the same width and flags
+                pts, dirs = chip_smoke.point_inputs(torch, dev, gen, FORWARD_POINTS)
+                pcfg = NerfConfig(hidden_dim=D, occ_activation=occ, dist_alpha=da,
+                                  use_pallas=True)
+                pparams = init_nerf_params(pcfg, gen, device=dev)
+                PW, PB = F.pack_weights(pparams, pcfg)
+                pref = {}
+                for dtype in (torch.float32, torch.float64):
+                    rgb_raw, sig_raw, acts, pe, de = FM._plain_forward(
+                        [w.to(dtype) for w in PW], PB, pts, dirs)
+                    pref[dtype] = dict(zip(X_NAMES + ["de"], [pe] + list(acts[:9]) + [de]))
+                    pref[dtype]["rgb"], pref[dtype]["density"] = FM._heads(rgb_raw, sig_raw,
+                                                                            pcfg)
+                if check:
+                    prgb, pden, pxk = FM.point_mlp_fwd_operands(pparams, pts, dirs, pcfg)
+                else:
+                    with torch.no_grad():
+                        prgb, pden = FM.point_mlp(pparams, pts, dirs, pcfg)
+                p64 = pref[torch.float64]
+                dists = []
+                for what, got in (("rgb", prgb), ("density", pden)):
+                    k = float(got.double().sub(p64[what]).abs().max())
+                    p = float(pref[torch.float32][what].double().sub(p64[what]).abs().max())
+                    dists.append(f"{what} max |K5 - f64| {k:.3g}, |f32 plain - f64| {p:.3g}")
+                text = "; ".join(dists)
+                if check:
+                    kf = _flips(torch, FM.x_operand_views(pxk, D, FORWARD_POINTS, True), p64,
+                                FORWARD_POINTS)
+                    pf = _flips(torch, {k: pref[torch.float32][k] for k in X_NAMES}, p64,
+                                FORWARD_POINTS)
+                    ratios["K5"] += [kf[k] / max(pf[k], 1e-12) for k in X_NAMES[1:]]
+                    text += "; bf16 activations off the f64 forward's a point, K5 / f32 plain: " \
+                        + ", ".join(f"{k} {kf[k]:.3g} / {pf[k]:.3g}" for k in X_NAMES)
+                print(f"forward D={D} {FORWARD_POINTS} points occ={occ} head_dist_alpha={da} "
+                      f"seed {seed}: " + text, flush=True)
+                torch.cuda.empty_cache()
+        if check:
+            print(f"forward D={D}: flips, kernel over f32 plain, x0 to feat over both flag sets "
+                  f"and {seeds} seeds: " + "; ".join(
+                      f"{k} {min(v):.2f} to {max(v):.2f}" for k, v in ratios.items() if v),
+                  flush=True)
 
 
 def render_full_attribution(torch, chip_smoke, dev, widths, cases, seeds) -> None:
@@ -593,11 +687,14 @@ def main(argv=None) -> int:
     ap.add_argument("--render-full", action="store_true",
                     help="K1 and K4 full at every width on phase 13's cases (see the module "
                          "text)")
+    ap.add_argument("--forward", action="store_true",
+                    help="K3 and K5 against the f64 forward at every width (see the module "
+                         "text)")
     ap.add_argument("--cases", nargs="+", default=None, metavar="RAYSxS",
                     help="with --render-full: these cases instead of phase 13's, and no part 2")
     ap.add_argument("--widths", type=int, nargs="+", default=None,
-                    help="with --render-full (default 128 to 512) or --full (default 384 and "
-                         "512): the widths")
+                    help="with --render-full or --forward (default 128 to 512) or --full "
+                         "(default 384 and 512): the widths")
     ap.add_argument("--seeds", type=int, default=RENDER_FULL_SEEDS,
                     help="with --render-full: seeds a case")
     ap.add_argument("--attribute", action="store_true",
@@ -613,7 +710,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, os.getcwd())   # chip_smoke.py sits at the root of the checkout
     import chip_smoke
-    if args.frozen or args.full or args.render_full:
+    if args.frozen or args.full or args.render_full or args.forward:
         import subprocess
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
@@ -621,6 +718,10 @@ def main(argv=None) -> int:
         from nope_nerf_torch.ops import fused_mlp, fused_render
         from nope_nerf_torch.ops._build import build_all
         dev = torch.device("cuda")
+        if args.forward:
+            build_all((fused_render.RENDER_FWD, fused_mlp.POINT_MLP_FWD))
+            forward_flips(torch, chip_smoke, dev, args.widths or FROZEN_WIDTHS)
+            return 0
         if args.full:
             build_all((fused_mlp.POINT_MLP_BWD,))
             full_yardstick(torch, chip_smoke, dev, args.widths or chip_smoke.WIDE_D)

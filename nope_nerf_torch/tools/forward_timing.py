@@ -71,7 +71,7 @@ POINTS = 196_608
 BWD_RAYS = 1024
 BWD_SAMPLES = (128, 512)
 # the mangled names of each set's kernel instances: kernel, template arguments
-SASS_NAMES = {"forward": r"(render_fwd_kernel|point_mlp_fwd_kernel)I(Li\d+E)",
+SASS_NAMES = {"forward": r"(render_fwd_kernel|point_mlp_fwd_kernel)I(Li\d+E(?:Lb\d)?)",
               "frozen": r"((?:render|point_mlp)_bwd_frozen(?:_wide)?_kernel)I(Li\d+E(?:Lb\d)?)",
               "full": r"((?:point_mlp_bwd(?:_wide)?|render_full(?:_wide)?|dw_sm90|dw_reduce|"
                       r"chain_reduce)_kernel)(I(?:Li\d+E|Lb\d+E)+E|E)"}

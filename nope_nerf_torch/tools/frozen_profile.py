@@ -54,13 +54,16 @@ extern "C" int marks_copy(void* dst) {{
 """
 
 # (anchor, text, before): the text goes before the anchor when `before`, else after it.
-_HEADER = [
+# The forward (mlp_fwd_sm90.cuh's mlp_tile_masks), then the dX chain (mlp_dx_sm90.cuh).
+_FORWARD = [
     ("  mbar_wait(hand.pe_full, parity);\n  save(0, wg);\n  {", "\n    MARK(1);", False),
-    ("    store_act_mask<D, true>(acc, act_g, masks);\n    wg_sync(wg);", "\n    MARK(2);", False),
-    ("      store_act_mask<D, true>(acc, act_g, masks + l * LW);\n      wg_sync(wg);",
+    ("    store_relu<D, MASKS>(acc, act_g, masks);\n    wg_sync(wg);", "\n    MARK(2);", False),
+    ("      store_relu<D, MASKS>(acc, act_g, masks + l * LW);\n      wg_sync(wg);",
      "\n      if (l == 4) MARK(3);", False),
     ("    store_act<D, false>(acc, act_g);\n    wg_sync(wg);", "\n    MARK(4);", False),
     ("  head90<D / 2>(act_s, rgb_w, b[11], hout_wg, 0, 3);", "\n  MARK(5);", False),
+]
+_HEADER = [
     ("  dx_layer<H, D, false, false, false>(act_g, act_s, ring, nullptr, nullptr, nullptr, nullptr);",
      "\n  MARK(20);", False),
     ("#pragma unroll 1\n  for (int l = 7; l >= 1; --l) {", "  MARK(21);\n", True),
@@ -92,7 +95,7 @@ _K6 = [
     ("    float dpe[32];", "    MARK(14);\n", True),
     ("    coord_grad90<8>(dpe, pts, 10, n, p0, dpts);", "\n    MARK(26);", False),
 ]
-_FORWARD = [
+_FORWARD_PHASES = [
     ("forward: layer 0", 1, 2),
     ("forward: layers 1-4 and the skip", 2, 3),
     ("forward: layers 5-7, density head, feat", 3, 4),
@@ -107,12 +110,12 @@ _CHAIN = [
 ]
 # (name, first slot, last slot) of each phase of a ray (K4) or a pass (K6)
 _K4_PHASES = ([("start of the ray: z, ray, w12 staged, per-ray bias", 0, 10),
-               ("forward: wait for the encodings", 10, 1)] + _FORWARD
+               ("forward: wait for the encodings", 10, 1)] + _FORWARD_PHASES
               + [("composite forward and backward", 6, 11), ("the tile's bf16 graw", 11, 12),
                  ("rgb head backward (scalar)", 12, 13), ("dX: w11", 13, 20)] + _CHAIN
               + [("dX: g4 W5", 24, 25), ("encoding VJP to the ray and dz", 25, 26),
                  ("per-ray sums", 26, 27), ("direction's dde", 27, 28)])
-_K6_PHASES = ([("forward: wait for the encodings", 0, 1)] + _FORWARD
+_K6_PHASES = ([("forward: wait for the encodings", 0, 1)] + _FORWARD_PHASES
               + [("head VJP", 6, 12), ("rgb head backward (scalar)", 12, 13),
                  ("direction product and its encoding VJP", 13, 14), ("dX: w11", 14, 20)]
               + _CHAIN + [("dX: g4 W5, encoding VJP to the points", 24, 26)])
@@ -133,12 +136,15 @@ def _libraries():
     d.mkdir(parents=True, exist_ok=True)
     for header in CSRC_DIR.glob("*.cuh"):
         (d / header.name).write_text(header.read_text())
+    (d / "mlp_fwd_sm90.cuh").write_text(
+        _patched((CSRC_DIR / "mlp_fwd_sm90.cuh").read_text(), _FORWARD, "mlp_fwd_sm90.cuh"))
     (d / "mlp_dx_sm90.cuh").write_text(
         _patched((CSRC_DIR / "mlp_dx_sm90.cuh").read_text(), _HEADER, "mlp_dx_sm90.cuh"))
 
     def marked(source, patches, setup):
         text = _patched((CSRC_DIR / source).read_text(), patches, source)
-        text = text.replace('#include "mlp_dx_sm90.cuh"', _PRELUDE + '#include "mlp_dx_sm90.cuh"', 1)
+        first = text.index('#include "')   # the markers before every header
+        text = text[:first] + _PRELUDE + text[first:]
         (d / source).write_text("// phase markers\n" + text + _EPILOGUE)
 
         def set_up(lib):

@@ -73,10 +73,11 @@ def _variant_libraries(name: str, patches):
         header = header.replace(old, new)
     d = BUILD_DIR / "trunk_ablation" / name
     d.mkdir(parents=True, exist_ok=True)
+    # every header beside the variant's, so that each include (the headers include
+    # one another) finds the variant
+    for other in CSRC_DIR.glob("*.cuh"):
+        (d / other.name).write_text(other.read_text())
     (d / "mlp_fwd_sm90.cuh").write_text(header)
-    # the sources include the wide trunk's header, which includes this one: a copy
-    # beside the variant's makes the include find the variant
-    (d / "mlp_fwd_wide_sm90.cuh").write_text((CSRC_DIR / "mlp_fwd_wide_sm90.cuh").read_text())
     libs = []
     for source, setup in (("render_fwd.cu", fused_render._setup),
                           ("point_mlp_fwd.cu", fused_mlp._setup_fwd)):

@@ -1274,3 +1274,49 @@ def test_point_mlp_autograd_trains_wide(cuda_device, hidden):
     for k, v in leaves.items():
         assert torch.isfinite(v.grad).all(), k
         assert torch.equal(v.grad, ref[k].to(v.dtype)), k
+
+
+# One forward: the check builds of K3 and K5 write the X operands of the dW
+# products from the forward they run, which must be the backward kernels' own
+# (chip_smoke.py phase 15 holds every width and case).
+@pytest.mark.parametrize("hidden, n_rays, occ, dist_alpha",
+                         [(256, 133, "softplus", False), (512, 1024, "relu", True)])
+def test_render_fwd_operands_equal_the_render_backward_kernels(cuda_device, hidden, n_rays, occ,
+                                                               dist_alpha):
+    """K3's check build on n_rays x 128: its X operands torch.equal to those K4
+    full and K1 hand the dW kernel (chip_smoke.operands_differ), its rgb and
+    dist to the main build's."""
+    import chip_smoke as cs
+    gen = torch.Generator().manual_seed(25)
+    rays, z, tgt = cs.train_inputs(torch, cuda_device, gen, n_rays, 128)
+    ncfg, params = cs.many_params(torch, cuda_device, gen, hidden, occ, dist_alpha, 128)
+    g_rgb = (torch.randn(n_rays, 3, generator=gen) * 1e-3).to(cuda_device)
+    g_dist = (torch.randn(n_rays, generator=gen) * 1e-3).to(cuda_device)
+    rgb, dist, xk3 = F.render_fwd_operands(params, rays, z, ncfg, dist_alpha)
+    k4, k1 = [], []
+    F._render_bwd_cuda(params, rays, z, g_rgb, g_dist, None, None, ncfg, dist_alpha, operands=k4)
+    F._train_cuda(params, rays, z, tgt, ncfg, dist_alpha, 1, False, operands=k1)
+    main = F.render_rays_fused(params, rays, z, ncfg, dist_alpha, want_aux=False)
+    assert xk3.numel() * 2 == F.render_operand_bytes(hidden, n_rays, 128)[0]
+    assert cs.operands_differ(torch, xk3, k4[0], hidden, n_rays * 128, False) == []
+    assert cs.operands_differ(torch, xk3, k1[0], hidden, n_rays * 128, False) == []
+    assert torch.equal(rgb, main[0]) and torch.equal(dist, main[1])
+
+
+@pytest.mark.parametrize("hidden", [128, 384])
+def test_point_mlp_fwd_operands_equal_k6_full(cuda_device, hidden):
+    """K5's check build on a ragged 127 points: its X operands torch.equal to
+    those K6 full hands the dW kernel (each operand's own columns:
+    chip_smoke.operands_differ), its outputs to the main build's."""
+    import chip_smoke as cs
+    gen, pts, dirs = _points(cuda_device, 127, seed=25)
+    ncfg = NerfConfig(hidden_dim=hidden, occ_activation="relu", use_pallas=True)
+    params = init_nerf_params(ncfg, gen, device=cuda_device)
+    rgb, density, xk5 = M.point_mlp_fwd_operands(params, pts, dirs, ncfg)
+    k6 = []
+    M._mlp_bwd_cuda(params, pts, dirs, torch.full_like(pts, 1e-6),
+                    torch.full((127, 1), 1e-3, device=cuda_device), ncfg, operands=k6)
+    main = M._mlp_fwd_cuda(params, pts, dirs, ncfg)
+    assert xk5.numel() * 2 == M.point_operand_bytes(hidden, 127)
+    assert cs.operands_differ(torch, xk5, k6[0], hidden, 127, True) == []
+    assert torch.equal(rgb, main[0]) and torch.equal(density, main[1])
