@@ -3376,22 +3376,25 @@ def check_wide_render_full(torch, dev, widths=WIDE_D) -> dict:
     return worst
 
 
-def check_wide_kernels(torch, dev) -> dict:
-    """Phase 13 (a): K3 at S = 128 and 1024 on MANY_S_RAYS rays and K5 at the
-    point counts of WIDE_M, at D = 384 and 512, over both flag sets of
-    WIDE_FLAGS: within tolerance() of the plain version, two launches
-    bit-equal. Returns the worst error by kernel and width; fails if any
-    case disagrees."""
+def check_wide_kernels(torch, dev, widths=WIDE_D, seed=SEED + 31,
+                       phase="wide widths", samples=WIDE_S) -> dict:
+    """Phase 13 (a): K3 at each S of `samples` (WIDE_S: 128 and 1024) on
+    MANY_S_RAYS rays and K5 at the point counts of WIDE_M, at each width of
+    `widths` (phase 13: 384 and 512; phase 16: 640 to 1024, and S = 2048 as
+    well), over both flag sets of WIDE_FLAGS: within
+    tolerance() of the plain version, two launches bit-equal. Returns the
+    worst error by kernel and width; every case reports before it fails if
+    any disagrees."""
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
     from nope_nerf_torch.ops.fused_mlp import _mlp_fwd_cuda, point_mlp_fwd_plain
     from nope_nerf_torch.ops.fused_render import render_rays_fused, render_rays_fused_plain
-    gen = torch.Generator().manual_seed(SEED + 31)
+    gen = torch.Generator().manual_seed(seed)
     worst, failed = {}, []
 
     def hold(kernel, D, case, names, got, again, ref):
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(got, again)):
-            raise RuntimeError(f"{kernel}: two launches differ ({case})")
+            failed.append(f"{kernel}: two launches differ ({case})")
         report = []
         for name, g, r in zip(names, got, ref):
             err, tol = max_err(g, r), tolerance(r)
@@ -3401,8 +3404,8 @@ def check_wide_kernels(torch, dev) -> dict:
                 failed.append(f"{kernel}: {name} err {err:.3g} > {tol:.3g} ({case})")
         return ", ".join(report)
 
-    for D in WIDE_D:
-        for S in WIDE_S:
+    for D in widths:
+        for S in samples:
             rays, z, _ = train_inputs(torch, dev, gen, MANY_S_RAYS, S)
             for occ, da in WIDE_FLAGS:
                 ncfg, params = many_params(torch, dev, gen, D, occ, da, S)
@@ -3413,7 +3416,7 @@ def check_wide_kernels(torch, dev) -> dict:
                 text = hold("render_fwd", D, case, ("rgb", "dist", "weights", "alpha"), got,
                             again, ref)
                 print(f"render_fwd vs plain, {case}, {MANY_S_RAYS} rays: {text}; two launches "
-                      "bit-equal")
+                      f"bit-equal: {all(torch.equal(x, y) for x, y in zip(got, again))}")
         for M in WIDE_M:
             pts, dirs = point_inputs(torch, dev, gen, M)
             for occ, da in WIDE_FLAGS:
@@ -3425,9 +3428,10 @@ def check_wide_kernels(torch, dev) -> dict:
                 again = _mlp_fwd_cuda(params, pts, dirs, ncfg)
                 ref = point_mlp_fwd_plain(params, pts, dirs, ncfg)
                 text = hold("point_mlp_fwd", D, case, ("rgb", "density"), got, again, ref)
-                print(f"point_mlp_fwd vs plain, {case}: {text}; two launches bit-equal")
+                print(f"point_mlp_fwd vs plain, {case}: {text}; two launches bit-equal: "
+                      f"{all(torch.equal(x, y) for x, y in zip(got, again))}")
     if failed:
-        raise RuntimeError("wide widths: kernels disagree with their plain versions: "
+        raise RuntimeError(f"{phase}: kernels disagree with their plain versions: "
                            + "; ".join(failed))
     return worst
 
@@ -3631,17 +3635,13 @@ def run_wide_fused_train(torch, np, dev, D: int, nerf) -> dict:
     return out
 
 
-def run_wide_path(torch, np, dev, D: int) -> dict:
-    """Phase 13 (b) at model.hidden_dim D: cli.render over N_VIEWS novel views at
-    188x621 from a checkpoint of seeded random weights written by the port (K3
-    once a frame; frames finite; rows 0-7 of view 0 against the plain version),
-    Trainer.render_frame at 188x621 (K3 once) and with rendering.n_importance
-    N_IMPORTANCE (K5 twice a chunk), each with rows 0-7 against the plain
-    versions; cli.eval's pose optimisation and the pose-opt steps from the
-    same weights (run_wide_eval); hierarchical training from them (K6 full;
-    run_wide_train); the default config's fused and invariant-depth training
-    from them (K1, K4 full; run_wide_fused_train). Returns what the timings
-    need."""
+def run_wide_render(torch, np, dev, D: int) -> dict:
+    """Phase 13 (b) and phase 16 (b) at model.hidden_dim D: cli.render over
+    N_VIEWS novel views at 188x621 from a checkpoint of seeded random weights
+    written by the port (K3 once a frame; frames finite; rows 0-7 of view 0
+    against the plain version), Trainer.render_frame at 188x621 (K3 once) and
+    with rendering.n_importance N_IMPORTANCE (K5 twice a chunk), each with
+    rows 0-7 against the plain versions. Returns what the timings need."""
     from nope_nerf_torch.cli.render import load_scene, render
     from nope_nerf_torch.config import load_config
     from nope_nerf_torch.data import SceneData, batch_for_frame, make_synthetic_scene
@@ -3729,6 +3729,18 @@ def run_wide_path(torch, np, dev, D: int) -> dict:
               f"{frame['rgb'].mean():.4f}; rows 0-7 vs plain versions " + ", ".join(report))
         out["fused_frame_counts" if name == "fused" else "hier_frame_counts"] = counts
     out.update(state=state, batch=batch, hier_trainer=hier_trainer)
+    return out
+
+
+def run_wide_path(torch, np, dev, D: int) -> dict:
+    """Phase 13 (b) at model.hidden_dim D: the render path (run_wide_render);
+    cli.eval's pose optimisation and the pose-opt steps from the same weights
+    (run_wide_eval); hierarchical training from them (K6 full;
+    run_wide_train); the default config's fused and invariant-depth training
+    from them (K1, K4 full; run_wide_fused_train). Returns what the timings
+    need."""
+    out = run_wide_render(torch, np, dev, D)
+    params = out["params"]
     out.update(run_wide_eval(torch, np, dev, D, params["nerf"]))
     out.update(run_wide_train(torch, np, dev, D, params["nerf"]))
 
@@ -3891,6 +3903,195 @@ def run_one_forward(torch, dev) -> dict:
     return {"holds": held}
 
 
+# ---- phase 16: hidden_dim 640 to 1024 on the forward trunk (K3, K5) --------------------
+
+XWIDE_D = (640, 768, 896, 1024)   # the widths of mlp_fwd_xwide_sm90.cuh's trunk
+# K3 on MANY_S_RAYS rays: at 2048 samples, past 1,536 at 1024 (4,480 at 640), z and the
+# raw heads leave shared memory for the spill scratch, which the staging follows
+XWIDE_S = WIDE_S + (2048,)
+XWIDE_PATH_D = (1024, 640)        # model.hidden_dim of the phase's main path; phase 9 times both
+
+
+def check_xwide_backward_raises(torch, dev, D: int) -> list:
+    """Phase 16 (c): at hidden_dim D the five backward kernels stop before any
+    device work, through the calls a user makes: render_ray_loss_fused (K1),
+    render_rays_fused under autograd with parameters that want gradients (K4
+    full) and with only the rays wanting them (K4 frozen), point_mlp the same
+    way (K6 full, K6 frozen). Each raises NotImplementedError naming its entry
+    of Queue 3 (c), and no kernel launches. Returns the misses."""
+    from nope_nerf_torch.ops import fused_mlp as FM
+    from nope_nerf_torch.ops import fused_render as F
+    gen = torch.Generator().manual_seed(SEED + 42)
+    rays, z, tgt = train_inputs(torch, dev, gen, MANY_S_RAYS, 128)
+    ncfg, params = many_params(torch, dev, gen, D, "softplus", False, 128)
+    pts, dirs = point_inputs(torch, dev, gen, 127)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    calls = {
+        "render_train (K1)": ("item 4", lambda: F.render_ray_loss_fused(params, rays, z, tgt,
+                                                                      ncfg, False, 1, False)),
+        "render_bwd (K4 full)": ("item 4", lambda: F.render_rays_fused(leaves, rays, z, ncfg)),
+        "render_bwd_frozen (K4 frozen)": ("item 2", lambda: F.render_rays_fused(
+            params, rays.detach().requires_grad_(True), z, ncfg)),
+        "point_mlp_bwd (K6 full)": ("item 3", lambda: FM.point_mlp(leaves, pts, dirs, ncfg)),
+        "point_mlp_bwd_frozen (K6 frozen)": ("item 2", lambda: FM.point_mlp(
+            params, pts.detach().requires_grad_(True), dirs, ncfg))}
+    missed = []
+    for name, (item, fn) in calls.items():
+        def attempt(fn=fn):
+            try:
+                fn()
+            except NotImplementedError as e:
+                return str(e)
+            return None
+        try:
+            text, _ = counted(attempt, {}, f"{name} at hidden_dim {D}")
+        except RuntimeError as e:   # a launch
+            missed.append(f"{name}: {e}")
+            continue
+        ok = text is not None and f"Queue 3 (c), {item}" in text
+        print(f"{name} at hidden_dim {D}: raises before any launch: {ok} ({text})")
+        if not ok:
+            missed.append(f"{name} at hidden_dim {D} did not raise naming Queue 3 (c), {item}")
+    return missed
+
+
+def run_xwide(torch, np, dev) -> dict:
+    """Phase 16: (a) K3 and K5 at every width of XWIDE_D against their plain
+    versions (check_wide_kernels' cases, K3 also at 2048 samples); (b) the
+    render path at each width of XWIDE_PATH_D from a checkpoint of seeded
+    weights (run_wide_render:
+    cli.render over N_VIEWS views, Trainer.render_frame fused and with
+    n_importance N_IMPORTANCE); (c) the backward kernels stopping there
+    (check_xwide_backward_raises). Every part reports before the phase fails."""
+    t_phase = time.perf_counter()
+    out, missed = {}, []
+    for what, fn in (("kernels", lambda: check_wide_kernels(torch, dev, XWIDE_D, SEED + 41,
+                                                          "past 512", XWIDE_S)),
+                     *((D, lambda D=D: run_wide_render(torch, np, dev, D))
+                       for D in XWIDE_PATH_D)):
+        try:
+            out["worst" if what == "kernels" else what] = fn()
+        except Exception as e:   # every part runs and reports; the phase fails below
+            missed.append(f"{what}: {type(e).__name__}: {e}")
+            print(f"phase 16 ({what}) failed: {type(e).__name__}: {e}")
+    missed += check_xwide_backward_raises(torch, dev, XWIDE_PATH_D[0])
+    print(f"xwide phase: {time.perf_counter() - t_phase:.1f} s wall")
+    if missed:
+        raise RuntimeError("phase 16: " + " | ".join(missed))
+    return out
+
+
+def timed_once(torch, fn):
+    """(fn(), its ms by CUDA events): one run, for the plain versions."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def time_forward(torch, dev, p: dict, worst: dict, D: int, table, z, pts, dirs, pcfg,
+                 pparams):
+    """At width D from a render path's state p (run_wide_render): a 188x621
+    frame end to end (render_trajectory), K3 over the frame's rays (table, z)
+    and K5 at the points pts, dirs (weights pparams), each beside its
+    bound and its plain version (timed once, its output held against the
+    kernel's), and the hierarchical frame end to end. Returns (the `kernels`
+    JSON entries of K3 and K5, their times by name)."""
+    from nope_nerf_torch.evaluation.extract import render_trajectory
+    from nope_nerf_torch.ops.fused_mlp import _mlp_fwd_cuda, point_mlp_fwd_plain
+    from nope_nerf_torch.ops.fused_render import (pack_weights, render_rays_fused,
+                                                  render_rays_fused_plain)
+    h, w = RESOLUTION
+    n_rays, fine_m = h * w, pts.shape[0]
+    entries, summary = [], {}
+    ncfg, rcfg, nerf = p["ncfg"], p["rcfg"], p["params"]["nerf"]
+    frame_ms = time_ms(lambda: render_trajectory(nerf, p["traj"][:1], p["scene"].K,
+                                                 RESOLUTION, ncfg, rcfg, device=dev), 2)
+    fwd_ms = time_ms(lambda: render_rays_fused(nerf, table, z, ncfg, rcfg.dist_alpha,
+                                               want_aux=False), 3)
+    got = render_rays_fused(nerf, table, z, ncfg, rcfg.dist_alpha, want_aux=False)
+    ref, plain_ms = timed_once(torch, lambda: render_rays_fused_plain(nerf, table, z, ncfg,
+                                                                      rcfg.dist_alpha,
+                                                                      want_aux=False))
+    errs = [max_err(g, r) for g, r in zip(got[:2], ref[:2])]
+    tols = [tolerance(r) for r in ref[:2]]
+    if not all(e <= t for e, t in zip(errs, tols)):
+        raise RuntimeError(f"render_fwd over the frame at hidden_dim {D} disagrees with its "
+                           f"plain version: {errs} > {tols}")
+    del got, ref
+    flops = mlp_flops(D, n_rays, z.shape[1])
+    nbytes = (table.numel() + z.numel() + 4 * n_rays) * 4 + numel_bytes(
+        sum(pack_weights(nerf, ncfg), []))
+    f_bound, f_by, _, _ = bound(flops, PEAK_BF16_FLOPS, nbytes)
+    print(f"hidden_dim {D}: frame {h}x{w} {frame_ms:.2f} ms end to end "
+          f"({n_rays / frame_ms * 1e3:.0f} rays/s), render_fwd {fwd_ms:.2f} ms "
+          f"({flops / fwd_ms / 1e9:.1f} TFLOP/s, {fwd_ms / f_bound:.2f} x the bound "
+          f"{f_bound:.2f} ms by {f_by}, {flops / 1e12:.2f} TFLOP), plain version "
+          f"{plain_ms:.0f} ms; against it rgb {errs[0]:.3g}/{tols[0]:.3g}, dist "
+          f"{errs[1]:.3g}/{tols[1]:.3g}")
+    entries.append({"name": f"render_fwd (hidden_dim {D})", "route": "cuda",
+                    "source": "nope_nerf_torch/csrc/render_fwd.cu",
+                    "replaces": "nope_nerf_tpu/ops/pallas_render.py:368",
+                    "launches": p["render_counts"]["render_fwd"],
+                    "max_abs_err": max(worst[("render_fwd", D)], *errs),
+                    "ms": fwd_ms, "plain_ms": plain_ms, "bound_ms": f_bound,
+                    "bound_by": f_by, "library_ms": None})
+    summary[f"frame_ms_{D}"] = frame_ms
+    summary[f"render_fwd_ms_{D}"] = fwd_ms
+
+    pf_ms = time_ms(lambda: _mlp_fwd_cuda(pparams, pts, dirs, pcfg), 10)
+    got = _mlp_fwd_cuda(pparams, pts, dirs, pcfg)
+    ref, pplain_ms = timed_once(torch, lambda: point_mlp_fwd_plain(pparams, pts, dirs, pcfg))
+    perr = max(max_err(g, r) for g, r in zip(got, ref))
+    if not all(max_err(g, r) <= tolerance(r) for g, r in zip(got, ref)):
+        raise RuntimeError(f"point_mlp_fwd at {fine_m} points, hidden_dim {D}, disagrees "
+                           "with its plain version")
+    W, B = pack_weights(pparams, pcfg)
+    p_flops = mlp_flops(D, 1, 1) * fine_m
+    p_bound, p_by, _, _ = bound(p_flops, PEAK_BF16_FLOPS,
+                                40 * fine_m + numel_bytes(W) + numel_bytes(B))
+    print(f"hidden_dim {D}: point_mlp_fwd {fine_m} points {pf_ms:.3f} ms "
+          f"({p_flops / pf_ms / 1e9:.1f} TFLOP/s, {pf_ms / p_bound:.2f} x the bound "
+          f"{p_bound:.3f} ms by {p_by}, {p_flops / 1e12:.3f} TFLOP), plain version "
+          f"{pplain_ms:.1f} ms; max err {perr:.3g}")
+    entries.append({"name": f"point_mlp_fwd (hidden_dim {D})", "route": "cuda",
+                    "source": "nope_nerf_torch/csrc/point_mlp_fwd.cu",
+                    "replaces": "nope_nerf_tpu/ops/pallas_mlp.py:186",
+                    "launches": p["hier_frame_counts"]["point_mlp_fwd"],
+                    "max_abs_err": max(worst[("point_mlp_fwd", D)], perr),
+                    "ms": pf_ms, "plain_ms": pplain_ms, "bound_ms": p_bound,
+                    "bound_by": p_by, "library_ms": None})
+    summary[f"point_mlp_fwd_ms_{D}"] = pf_ms
+    del got, ref
+    hier = p["hier_trainer"]
+    summary[f"hier_frame_ms_{D}"] = time_ms(
+        lambda: hier.render_frame(p["state"], p["batch"], RESOLUTION), 2)
+    print(f"hidden_dim {D}: hierarchical render_frame {h}x{w} "
+          f"{summary[f'hier_frame_ms_{D}']:.2f} ms end to end")
+    return entries, summary
+
+
+def time_xwide(torch, dev, xwide: dict, table, z, smi: str) -> list:
+    """Phase 9's part for phase 16: time_forward at each width of
+    XWIDE_PATH_D, K5 at the fine pass's 196,608 points. Prints an `xwide`
+    JSON line; returns the `kernels` JSON entries."""
+    from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
+    gen = torch.Generator().manual_seed(SEED + 43)
+    pts, dirs = point_inputs(torch, dev, gen, TRAIN_RAYS * (128 + N_IMPORTANCE))
+    entries, summary = [], {"card": smi}
+    for D in sorted(XWIDE_PATH_D):
+        pcfg = NerfConfig(hidden_dim=D, use_pallas=True)
+        e, times = time_forward(torch, dev, xwide[D], xwide["worst"], D, table, z, pts, dirs,
+                                pcfg, init_nerf_params(pcfg, gen, device=dev))
+        entries += e
+        summary.update(times)
+        torch.cuda.empty_cache()
+    print(json.dumps({"xwide": summary}))
+    return entries
+
+
 def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
     """Phase 9's part for phase 13: per width, a 188x621 frame end to end
     (render_trajectory), K3 over the frame's rays at 128 samples and K5 at
@@ -3908,27 +4109,15 @@ def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
     fused and invariant-depth train steps (eager, replayed, pool, peak device
     memory). Returns the `kernels` JSON entries."""
     from torch.profiler import ProfilerActivity, profile
-    from nope_nerf_torch.evaluation.extract import render_trajectory
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
-    from nope_nerf_torch.ops.fused_mlp import (POINT_MLP_BWD, _mlp_bwd_cuda, _mlp_fwd_cuda,
-                                               dw_chunks, point_mlp_bwd_plain,
-                                               point_mlp_fwd_plain)
+    from nope_nerf_torch.ops.fused_mlp import (POINT_MLP_BWD, _mlp_bwd_cuda, dw_chunks,
+                                               point_mlp_bwd_plain)
     from nope_nerf_torch.ops.fused_render import (RENDER_TRAIN, _render_bwd_cuda, _train_cuda,
-                                                  _train_plain, pack_weights, render_rays_fused,
-                                                  render_rays_fused_bwd_plain,
-                                                  render_rays_fused_plain, unpack_grads)
+                                                  _train_plain, pack_weights,
+                                                  render_rays_fused_bwd_plain, unpack_grads)
     from nope_nerf_torch.tools.profile_train import _self_device_us
 
-    def timed_once(fn):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return out, start.elapsed_time(end)
-
     h, w = RESOLUTION
-    n_rays = h * w
     fine_m = TRAIN_RAYS * (128 + N_IMPORTANCE)
     gen = torch.Generator().manual_seed(SEED + 34)
     pts, dirs = point_inputs(torch, dev, gen, fine_m)
@@ -3937,71 +4126,12 @@ def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
     entries, summary = [], {"card": smi}
     for D in WIDE_D:
         p = wide[D]
-        ncfg, rcfg, nerf = p["ncfg"], p["rcfg"], p["params"]["nerf"]
-        frame_ms = time_ms(lambda: render_trajectory(nerf, p["traj"][:1], p["scene"].K,
-                                                     RESOLUTION, ncfg, rcfg, device=dev), 2)
-        fwd_ms = time_ms(lambda: render_rays_fused(nerf, table, z, ncfg, rcfg.dist_alpha,
-                                                   want_aux=False), 3)
-        got = render_rays_fused(nerf, table, z, ncfg, rcfg.dist_alpha, want_aux=False)
-        ref, plain_ms = timed_once(lambda: render_rays_fused_plain(nerf, table, z, ncfg,
-                                                                   rcfg.dist_alpha,
-                                                                   want_aux=False))
-        errs = [max_err(g, r) for g, r in zip(got[:2], ref[:2])]
-        tols = [tolerance(r) for r in ref[:2]]
-        if not all(e <= t for e, t in zip(errs, tols)):
-            raise RuntimeError(f"render_fwd over the frame at hidden_dim {D} disagrees with its "
-                               f"plain version: {errs} > {tols}")
-        del got, ref
-        flops = mlp_flops(D, n_rays, z.shape[1])
-        nbytes = (table.numel() + z.numel() + 4 * n_rays) * 4 + numel_bytes(
-            sum(pack_weights(nerf, ncfg), []))
-        f_bound, f_by, _, _ = bound(flops, PEAK_BF16_FLOPS, nbytes)
-        print(f"hidden_dim {D}: frame {h}x{w} {frame_ms:.2f} ms end to end "
-              f"({n_rays / frame_ms * 1e3:.0f} rays/s), render_fwd {fwd_ms:.2f} ms "
-              f"({flops / fwd_ms / 1e9:.1f} TFLOP/s, {fwd_ms / f_bound:.2f} x the bound "
-              f"{f_bound:.2f} ms by {f_by}, {flops / 1e12:.2f} TFLOP), plain version "
-              f"{plain_ms:.0f} ms; against it rgb {errs[0]:.3g}/{tols[0]:.3g}, dist "
-              f"{errs[1]:.3g}/{tols[1]:.3g}")
-        entries.append({"name": f"render_fwd (hidden_dim {D})", "route": "cuda",
-                        "source": "nope_nerf_torch/csrc/render_fwd.cu",
-                        "replaces": "nope_nerf_tpu/ops/pallas_render.py:368",
-                        "launches": p["render_counts"]["render_fwd"],
-                        "max_abs_err": max(wide["worst"][("render_fwd", D)], *errs),
-                        "ms": fwd_ms, "plain_ms": plain_ms, "bound_ms": f_bound,
-                        "bound_by": f_by, "library_ms": None})
-        summary[f"frame_ms_{D}"] = frame_ms
-        summary[f"render_fwd_ms_{D}"] = fwd_ms
-
         pcfg = NerfConfig(hidden_dim=D, use_pallas=True)
         pparams = init_nerf_params(pcfg, gen, device=dev)
-        pf_ms = time_ms(lambda: _mlp_fwd_cuda(pparams, pts, dirs, pcfg), 10)
-        got = _mlp_fwd_cuda(pparams, pts, dirs, pcfg)
-        ref, pplain_ms = timed_once(lambda: point_mlp_fwd_plain(pparams, pts, dirs, pcfg))
-        perr = max(max_err(g, r) for g, r in zip(got, ref))
-        if not all(max_err(g, r) <= tolerance(r) for g, r in zip(got, ref)):
-            raise RuntimeError(f"point_mlp_fwd at {fine_m} points, hidden_dim {D}, disagrees "
-                               "with its plain version")
-        W, B = pack_weights(pparams, pcfg)
-        p_flops = mlp_flops(D, 1, 1) * fine_m
-        p_bound, p_by, _, _ = bound(p_flops, PEAK_BF16_FLOPS,
-                                    40 * fine_m + numel_bytes(W) + numel_bytes(B))
-        print(f"hidden_dim {D}: point_mlp_fwd {fine_m} points {pf_ms:.3f} ms "
-              f"({p_flops / pf_ms / 1e9:.1f} TFLOP/s, {pf_ms / p_bound:.2f} x the bound "
-              f"{p_bound:.3f} ms by {p_by}, {p_flops / 1e12:.3f} TFLOP), plain version "
-              f"{pplain_ms:.1f} ms; max err {perr:.3g}")
-        entries.append({"name": f"point_mlp_fwd (hidden_dim {D})", "route": "cuda",
-                        "source": "nope_nerf_torch/csrc/point_mlp_fwd.cu",
-                        "replaces": "nope_nerf_tpu/ops/pallas_mlp.py:186",
-                        "launches": p["hier_frame_counts"]["point_mlp_fwd"],
-                        "max_abs_err": max(wide["worst"][("point_mlp_fwd", D)], perr),
-                        "ms": pf_ms, "plain_ms": pplain_ms, "bound_ms": p_bound,
-                        "bound_by": p_by, "library_ms": None})
-        summary[f"point_mlp_fwd_ms_{D}"] = pf_ms
-        hier = p["hier_trainer"]
-        summary[f"hier_frame_ms_{D}"] = time_ms(
-            lambda: hier.render_frame(p["state"], p["batch"], RESOLUTION), 2)
-        print(f"hidden_dim {D}: hierarchical render_frame {h}x{w} "
-              f"{summary[f'hier_frame_ms_{D}']:.2f} ms end to end")
+        e, times = time_forward(torch, dev, p, wide["worst"], D, table, z, pts, dirs, pcfg,
+                                pparams)
+        entries += e
+        summary.update(times)
 
         # K4's frozen variant at the pose-opt batch, on a colour and depth loss's cotangents
         rays, tz, tgt = train_inputs(torch, dev, bgen, TRAIN_RAYS)
@@ -4010,8 +4140,8 @@ def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
         fz_ms = time_ms(lambda: _render_bwd_cuda(bparams, rays, tz, *cot, bcfg, False,
                                                  want_param_grads=False), 10)
         got = _render_bwd_cuda(bparams, rays, tz, *cot, bcfg, False, want_param_grads=False)
-        ref, fz_plain_ms = timed_once(lambda: render_rays_fused_bwd_plain(bparams, rays, tz, *cot,
-                                                                          bcfg, False))
+        ref, fz_plain_ms = timed_once(torch, lambda: render_rays_fused_bwd_plain(
+            bparams, rays, tz, *cot, bcfg, False))
         fz_err, fk, fshare, _ = held(dict(rays=got[2], z=got[3]), dict(rays=ref[2], z=ref[3]),
                                      ("rays", "z"))
         if not fshare <= 1.0:
@@ -4041,7 +4171,7 @@ def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
         pz_ms = time_ms(lambda: _mlp_bwd_cuda(pparams, pts, dirs, g_rgb, g_den, pcfg,
                                               want_param_grads=False), 10)
         got = _mlp_bwd_cuda(pparams, pts, dirs, g_rgb, g_den, pcfg, want_param_grads=False)
-        ref, pz_plain_ms = timed_once(lambda: point_mlp_bwd_plain(
+        ref, pz_plain_ms = timed_once(torch, lambda: point_mlp_bwd_plain(
             pparams, pts, dirs, g_rgb, g_den, pcfg, want_param_grads=False))
         pz_err, pk, pshare, _ = held(dict(points=got[2], directions=got[3]),
                                      dict(points=ref[2], directions=ref[3]),
@@ -4070,8 +4200,8 @@ def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
         # sum of the chain's partials and the dW kernel (column pieces) in one call
         pk_ms = time_ms(lambda: _mlp_bwd_cuda(pparams, pts, dirs, g_rgb, g_den, pcfg), 10)
         got = _mlp_bwd_cuda(pparams, pts, dirs, g_rgb, g_den, pcfg)
-        ref, pk_plain_ms = timed_once(lambda: point_mlp_bwd_plain(pparams, pts, dirs, g_rgb,
-                                                                  g_den, pcfg))
+        ref, pk_plain_ms = timed_once(torch, lambda: point_mlp_bwd_plain(
+            pparams, pts, dirs, g_rgb, g_den, pcfg))
         pk_err, pkk, pkshare, _ = held(
             dict(unpack_grads(got[0], got[1], pcfg), points=got[2], directions=got[3]),
             dict(unpack_grads(ref[0], ref[1], pcfg), points=ref[2], directions=ref[3]),
@@ -4145,7 +4275,7 @@ def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
                        * p["graph_invariant"]["steps"]))):
             k_ms = time_ms(call, 10)
             got = call()
-            ref, k_plain_ms = timed_once(plain)
+            ref, k_plain_ms = timed_once(torch, plain)
             at = 1 if kname == "render_train" else 0   # where dWs sit in the result
             k_err, kk, kshare, _ = held(unpack_grads(got[at], got[at + 1], kcfg),
                                         unpack_grads(ref[at], ref[at + 1], kcfg), ())
@@ -4277,6 +4407,10 @@ def main() -> int:
         # phase 15 alone, for work on the one forward (the full run takes every phase)
         run_one_forward(torch, dev)
         return 0
+    if sys.argv[1:2] == ["--xwide"]:
+        # phase 16 alone, for work on the trunk past 512 (the full run takes every phase)
+        run_xwide(torch, np, dev)
+        return 0
 
     # ---- 2. each kernel against its plain version ---------------------------
     gen = torch.Generator().manual_seed(SEED)
@@ -4339,6 +4473,9 @@ def main() -> int:
 
     # ---- 15. one forward: K3's and K5's operands against the backward kernels'
     run_one_forward(torch, dev)
+
+    # ---- 16. hidden_dim 640 to 1024: K3 and K5 on the trunk past 512; the render path
+    xwide = run_xwide(torch, np, dev)
 
     # ---- 9. timing at the main paths' shapes ---------------------------------
     h, w = RESOLUTION
@@ -4748,6 +4885,7 @@ def main() -> int:
           f"{fwd16_bound:.2f} ms by {fwd16_by}), plain version {fwd16_plain_ms:.0f} ms in slices "
           f"of 512 rays; against it " + ", ".join(report))
     wide_entries = time_wide(torch, dev, wide, table, z, smi)
+    xwide_entries = time_xwide(torch, dev, xwide, table, z, smi)
     print(json.dumps({"many_samples": {
         "card": smi, "chunked_1024x2048": many["chunked"],
         "step_1024x2048_peak_gb": many["step_peak_gb"],
@@ -4859,7 +4997,7 @@ def main() -> int:
          "launches": many["frame_counts"]["render_fwd"],
          "max_abs_err": fwd16_err, "ms": fwd16_ms,
          "plain_ms": fwd16_plain_ms, "bound_ms": fwd16_bound, "bound_by": fwd16_by,
-         "library_ms": None}] + wide_entries}))
+         "library_ms": None}] + wide_entries + xwide_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

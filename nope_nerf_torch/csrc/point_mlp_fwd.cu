@@ -45,9 +45,16 @@
 //
 // Bound at the wide widths: 0.514 TFLOP at 196,608 points at D = 384 and
 // 0.905 at D = 512, the FLOPs over the dense bf16 rate.
+//
+// At 640 to 1024 the passes run on mlp_fwd_xwide_sm90.cuh's trunk (64
+// points, one activation buffer, each layer in passes of 128 columns), whose
+// staging in device memory the wrapper allocates (nerf_point_mlp_fwd_stage).
+// Shared memory at D = 1024: activations 128 KB, encodings 8 KB each, heads
+// 24 KB, 3 ring stages of 16 KB. Bound: 1.405 TFLOP at 196,608 points at 640,
+// 3.562 at 1024.
 
 #include "mlp_dw_chain_sm90.cuh"   // FwdOperandSave (the check build)
-#include "mlp_fwd_wide_sm90.cuh"
+#include "mlp_fwd_xwide_sm90.cuh"
 
 namespace {
 
@@ -123,8 +130,12 @@ point_mlp_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ di
     const long long p0 = pass * P;
     const int n = static_cast<int>(M - p0 < P ? M - p0 : P);
     if constexpr (SAVE) save.tiles.pass = pass;
-    F::tile(bias.b, pe_s, de_s, base + L.act, heads, heads + T::kDensHead, bias.b[10], hout, hand,
-            tile, ring, save);
+    if constexpr (D > 512)   // the trunk past 512 also takes the CTA's staging
+      F::tile(bias.b, pe_s, de_s, base + L.act, heads, heads + T::kDensHead, bias.b[10], hout,
+              hand, tile, ring, save, L.cta_stage());
+    else
+      F::tile(bias.b, pe_s, de_s, base + L.act, heads, heads + T::kDensHead, bias.b[10], hout,
+              hand, tile, ring, save);
     consumer_sync();   // both warpgroups' raw heads are in
     for (int p = tid; p < n; p += kConsumers) {
       const float sigma = density_act(hout[4 * p + 3], occ_softplus);
@@ -137,21 +148,41 @@ point_mlp_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ di
   if constexpr (SAVE) bulk_complete();   // every bulk copy of the CTA's operands, before it exits
 }
 
+// The grid: one persistent CTA per SM, at most one per pass of D's trunk.
+template <int D>
+int point_grid(long long M) {
+  const int sms = sm_count();
+  const long long n_pass = (M + FwdTrunk<D>::kRows - 1) / FwdTrunk<D>::kRows;
+  return static_cast<int>(n_pass < sms ? n_pass : sms);
+}
+
+// Bytes of the staging of the trunk past 512 for M points (0 at 128 to 512).
+template <int D>
+long long point_stage_bytes(long long M) {
+  if constexpr (D > 512)
+    return static_cast<long long>(point_grid<D>(M)) *
+           static_cast<long long>(TilesX<D>::kStageBytes);
+  return 0;
+}
+
 template <int D, bool SAVE>
 cudaError_t launch_fwd(const float* pts, const float* dirs, const unsigned char* tiles,
-                       const Biases& bias, float* rgb, float* density, unsigned char* xops,
-                       long long M, int occ_softplus, int head_dist_alpha, cudaStream_t stream) {
-  const typename FwdTrunk<D>::Layout L(true, point_f32_bytes<D>());
+                       const Biases& bias, float* rgb, float* density, unsigned char* stage,
+                       unsigned char* xops, long long M, int occ_softplus, int head_dist_alpha,
+                       cudaStream_t stream) {
+  typename FwdTrunk<D>::Layout L(true, point_f32_bytes<D>());
   if (L.stages < 2) return cudaErrorInvalidValue;
+  if constexpr (D > 512) {
+    if (stage == nullptr) return cudaErrorInvalidValue;
+    L.stage = stage;
+  }
   const size_t smem = L.bytes(point_f32_bytes<D>());
   cudaError_t err = cudaFuncSetAttribute(point_mlp_fwd_kernel<D, SAVE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int sms = sm_count();
-  if (sms <= 0) return cudaErrorInvalidDevice;
-  const long long n_pass = (M + FwdTrunk<D>::kRows - 1) / FwdTrunk<D>::kRows;
-  const int grid = static_cast<int>(n_pass < sms ? n_pass : sms);
+  const int grid = point_grid<D>(M);
+  if (grid <= 0) return cudaErrorInvalidDevice;
   point_mlp_fwd_kernel<D, SAVE><<<grid, kThreads90, smem, stream>>>(
       pts, dirs, tiles, bias, rgb, density, xops, M, occ_softplus, head_dist_alpha, L);
   return cudaGetLastError();
@@ -160,31 +191,49 @@ cudaError_t launch_fwd(const float* pts, const float* dirs, const unsigned char*
 // Both C entries: the main build (xops null) or the check build.
 template <bool SAVE>
 int point_fwd_entry(const float* pts, const float* dirs, const void* tiles,
-                    const void* const* biases, float* rgb, float* density, unsigned char* xops,
-                    long long M, int D, int occ_softplus, int head_dist_alpha, void* stream) {
+                    const void* const* biases, float* rgb, float* density, void* stage_v,
+                    unsigned char* xops, long long M, int D, int occ_softplus,
+                    int head_dist_alpha, void* stream) {
   if (M <= 0) return 0;
   if (reinterpret_cast<uintptr_t>(tiles) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
   Biases bias;
   for (int i = 0; i < 12; ++i) bias.b[i] = static_cast<const float*>(biases[i]);
   const auto* w = static_cast<const unsigned char*>(tiles);
+  auto* stage = static_cast<unsigned char*>(stage_v);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
+    case 1024:
+      err = launch_fwd<1024, SAVE>(pts, dirs, w, bias, rgb, density, stage, xops, M,
+                                   occ_softplus, head_dist_alpha, st);
+      break;
+    case 896:
+      err = launch_fwd<896, SAVE>(pts, dirs, w, bias, rgb, density, stage, xops, M,
+                                  occ_softplus, head_dist_alpha, st);
+      break;
+    case 768:
+      err = launch_fwd<768, SAVE>(pts, dirs, w, bias, rgb, density, stage, xops, M,
+                                  occ_softplus, head_dist_alpha, st);
+      break;
+    case 640:
+      err = launch_fwd<640, SAVE>(pts, dirs, w, bias, rgb, density, stage, xops, M,
+                                  occ_softplus, head_dist_alpha, st);
+      break;
     case 512:
-      err = launch_fwd<512, SAVE>(pts, dirs, w, bias, rgb, density, xops, M, occ_softplus,
-                                  head_dist_alpha, st);
+      err = launch_fwd<512, SAVE>(pts, dirs, w, bias, rgb, density, stage, xops, M,
+                                  occ_softplus, head_dist_alpha, st);
       break;
     case 384:
-      err = launch_fwd<384, SAVE>(pts, dirs, w, bias, rgb, density, xops, M, occ_softplus,
-                                  head_dist_alpha, st);
+      err = launch_fwd<384, SAVE>(pts, dirs, w, bias, rgb, density, stage, xops, M,
+                                  occ_softplus, head_dist_alpha, st);
       break;
     case 256:
-      err = launch_fwd<256, SAVE>(pts, dirs, w, bias, rgb, density, xops, M, occ_softplus,
-                                  head_dist_alpha, st);
+      err = launch_fwd<256, SAVE>(pts, dirs, w, bias, rgb, density, stage, xops, M,
+                                  occ_softplus, head_dist_alpha, st);
       break;
     case 128:
-      err = launch_fwd<128, SAVE>(pts, dirs, w, bias, rgb, density, xops, M, occ_softplus,
-                                  head_dist_alpha, st);
+      err = launch_fwd<128, SAVE>(pts, dirs, w, bias, rgb, density, stage, xops, M,
+                                  occ_softplus, head_dist_alpha, st);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -198,14 +247,39 @@ int point_fwd_entry(const float* pts, const float* dirs, const void* tiles,
 // pts, dirs (M, 3) f32 contiguous on the device; tiles: the weight buffer of
 // fused_render.pack_tiles (16-byte aligned); biases: an array of 12 device
 // pointers in pack_weights' order; rgb (M, 3) and density (M, 1) f32
-// (out). Returns a cudaError_t (0 on success); the launch is asynchronous on
-// `stream`.
+// (out); stage: the bytes nerf_point_mlp_fwd_stage gives (null where it
+// gives 0). Returns a cudaError_t (0 on success); the launch is asynchronous
+// on `stream`.
 extern "C" int nerf_point_mlp_fwd(const float* pts, const float* dirs, const void* tiles,
                                   const void* const* biases, float* rgb, float* density,
-                                  long long M, int D, int occ_softplus, int head_dist_alpha,
-                                  void* stream) {
-  return point_fwd_entry<false>(pts, dirs, tiles, biases, rgb, density, nullptr, M, D,
+                                  void* stage, long long M, int D, int occ_softplus,
+                                  int head_dist_alpha, void* stream) {
+  return point_fwd_entry<false>(pts, dirs, tiles, biases, rgb, density, stage, nullptr, M, D,
                                 occ_softplus, head_dist_alpha, stream);
+}
+
+// Bytes of nerf_point_mlp_fwd's staging for M points at width D: 64 x (D -
+// 128) bf16 for each CTA of the grid at 640 to 1024, 0 at 128 to 512; -1 for
+// a width the kernel does not take.
+extern "C" long long nerf_point_mlp_fwd_stage(long long M, int D) {
+  if (M <= 0) return 0;
+  switch (D) {
+    case 1024:
+      return point_stage_bytes<1024>(M);
+    case 896:
+      return point_stage_bytes<896>(M);
+    case 768:
+      return point_stage_bytes<768>(M);
+    case 640:
+      return point_stage_bytes<640>(M);
+    case 512:
+    case 384:
+    case 256:
+    case 128:
+      return 0;
+    default:
+      return -1;
+  }
 }
 
 // The check build: nerf_point_mlp_fwd, which also writes the X operands (pe,
@@ -215,11 +289,11 @@ extern "C" int nerf_point_mlp_fwd(const float* pts, const float* dirs, const voi
 // no main path calls it.
 extern "C" int nerf_point_mlp_fwd_operands(const float* pts, const float* dirs,
                                            const void* tiles, const void* const* biases,
-                                           float* rgb, float* density, void* xops, long long M,
-                                           int D, int occ_softplus, int head_dist_alpha,
-                                           void* stream) {
+                                           float* rgb, float* density, void* stage, void* xops,
+                                           long long M, int D, int occ_softplus,
+                                           int head_dist_alpha, void* stream) {
   if (xops == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return point_fwd_entry<true>(pts, dirs, tiles, biases, rgb, density,
+  return point_fwd_entry<true>(pts, dirs, tiles, biases, rgb, density, stage,
                                static_cast<unsigned char*>(xops), M, D, occ_softplus,
                                head_dist_alpha, stream);
 }

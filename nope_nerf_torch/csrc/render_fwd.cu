@@ -58,9 +58,17 @@
 //
 // Bound at the wide widths: 38.9 TFLOP a 188x621 frame at D = 384 and 68.6 at
 // D = 512, again the FLOPs over the dense bf16 rate.
+//
+// At 640 to 1024 the tiles run on mlp_fwd_xwide_sm90.cuh's trunk: one 64 x D
+// activation buffer, each layer in passes of 128 columns, every pass but the
+// last staged in a per-CTA scratch of device memory that follows the ray
+// arrays' spill in the same allocation (nerf_render_fwd_spill gives both). z
+// and the raw heads leave shared memory above S = 1,536 at 1024 (4,480 at
+// 640), alpha and the scan buffers above 10,880 (6,784).
+// Bound: 106.5 TFLOP a 188x621 frame at 640, 270.3 at 1024.
 
 #include "mlp_dw_chain_sm90.cuh"   // FwdOperandSave (the check build)
-#include "mlp_fwd_wide_sm90.cuh"
+#include "mlp_fwd_xwide_sm90.cuh"
 
 namespace {
 
@@ -209,8 +217,12 @@ render_fwd_kernel(const float* __restrict__ rays, const float* __restrict__ z,
 
     for (int p0 = 0; p0 < S; p0 += F::kRows, ++tile) {
       if constexpr (SAVE) save.tiles.pass = r * (S / F::kRows) + p0 / F::kRows;
-      F::tile(bias.b, pe_s, 0, base + L.act, heads, heads + T::kDensHead, debias, hout + 4 * p0,
-              hand, tile, ring, save);
+      if constexpr (D > 512)   // the trunk past 512 also takes the CTA's staging
+        F::tile(bias.b, pe_s, 0, base + L.act, heads, heads + T::kDensHead, debias,
+                hout + 4 * p0, hand, tile, ring, save, L.cta_stage());
+      else
+        F::tile(bias.b, pe_s, 0, base + L.act, heads, heads + T::kDensHead, debias,
+                hout + 4 * p0, hand, tile, ring, save);
     }
     consumer_sync();   // every tile's raw heads are in
 
@@ -257,6 +269,25 @@ inline int fwd_grid(int n_rays) {
   return n_rays < sms ? n_rays : sms;
 }
 
+// Bytes of the per-sample arrays that do not fit in shared memory, for each
+// CTA of the grid; past 512 rounded up to 256, where the trunk's staging
+// follows them in the same scratch.
+template <int D>
+long long ray_spill_bytes(int n_rays, int S) {
+  const long long b =
+      static_cast<long long>(sizeof(float)) * fwd_place<D>(S).spill_floats(S) * fwd_grid(n_rays);
+  return D > 512 ? (b + 255) / 256 * 256 : b;
+}
+
+// Bytes of the spill scratch for n_rays x S at width D: the per-sample arrays
+// and, past 512, the staging of each CTA of the grid.
+template <int D>
+long long fwd_scratch_bytes(int n_rays, int S) {
+  long long b = ray_spill_bytes<D>(n_rays, S);
+  if constexpr (D > 512) b += fwd_grid(n_rays) * static_cast<long long>(TilesX<D>::kStageBytes);
+  return b;
+}
+
 template <int D, bool SAVE>
 cudaError_t launch(const float* rays, const float* z, const unsigned char* tiles,
                    const Biases& bias, float* rgb, float* dist, float* w_out, float* a_out,
@@ -264,9 +295,11 @@ cudaError_t launch(const float* rays, const float* z, const unsigned char* tiles
                    int head_dist_alpha, int dist_alpha, cudaStream_t stream) {
   const RayPlace place = fwd_place<D>(S);
   const size_t area = place.area(fixed_bytes<D>(), S);
-  const typename FwdTrunk<D>::Layout L(false, area);
+  typename FwdTrunk<D>::Layout L(false, area);
   if (L.stages < 2) return cudaErrorInvalidValue;
-  if (place.spill_floats(S) > 0 && spill == nullptr) return cudaErrorInvalidValue;
+  if (fwd_scratch_bytes<D>(n_rays, S) > 0 && spill == nullptr) return cudaErrorInvalidValue;
+  if constexpr (D > 512)
+    L.stage = reinterpret_cast<unsigned char*>(spill) + ray_spill_bytes<D>(n_rays, S);
   const size_t smem = L.bytes(area);
   auto* kernel = render_fwd_kernel<D, SAVE>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -286,6 +319,18 @@ cudaError_t launch_at(int D, const float* rays, const float* z, const unsigned c
                       float* spill, unsigned char* xops, int n_rays, int S, int occ_softplus,
                       int head_dist_alpha, int dist_alpha, cudaStream_t st) {
   switch (D) {
+    case 1024:
+      return launch<1024, SAVE>(rays, z, w, bias, rgb, dist, w_out, a_out, spill, xops, n_rays,
+                                S, occ_softplus, head_dist_alpha, dist_alpha, st);
+    case 896:
+      return launch<896, SAVE>(rays, z, w, bias, rgb, dist, w_out, a_out, spill, xops, n_rays, S,
+                               occ_softplus, head_dist_alpha, dist_alpha, st);
+    case 768:
+      return launch<768, SAVE>(rays, z, w, bias, rgb, dist, w_out, a_out, spill, xops, n_rays, S,
+                               occ_softplus, head_dist_alpha, dist_alpha, st);
+    case 640:
+      return launch<640, SAVE>(rays, z, w, bias, rgb, dist, w_out, a_out, spill, xops, n_rays, S,
+                               occ_softplus, head_dist_alpha, dist_alpha, st);
     case 512:
       return launch<512, SAVE>(rays, z, w, bias, rgb, dist, w_out, a_out, spill, xops, n_rays, S,
                                occ_softplus, head_dist_alpha, dist_alpha, st);
@@ -332,7 +377,7 @@ int render_fwd_entry(const float* rays, const float* z, const void* tiles,
 // rays (n_rays, 9) f32 [origin | ray_vec | mlp_dir], z (n_rays, S) f32, all
 // contiguous on the device; tiles: the weight buffer of pack_tiles (16-byte
 // aligned); biases: an array of 12 device pointers in pack_weights' order; w_out/a_out may both be null. spill: the bytes
-// nerf_render_fwd_spill gives (null where it gives 0). Returns a cudaError_t
+// nerf_render_fwd_spill gives (null where it gives 0; never 0 past 512). Returns a cudaError_t
 // (0 on success); the launch is asynchronous on `stream`.
 extern "C" int nerf_render_fwd(const float* rays, const float* z, const void* tiles,
                                const void* const* biases, float* rgb, float* dist, float* w_out,
@@ -362,27 +407,30 @@ extern "C" int nerf_render_fwd_operands(const float* rays, const float* z, const
 // Bytes of nerf_render_fwd's spill scratch for n_rays x S at width D: the
 // per-sample arrays that do not fit in shared memory, for each CTA of the
 // grid (0 where everything fits, every S <= 1024 at D <= 256 and S <= 640 at
-// D = 512); -1 for a width or an S the kernel does not take.
+// D = 512), and at 640 to 1024 the trunk's staging, 64 x (D - 128) bf16 a CTA;
+// -1 for a width or an S the kernel does not take.
 extern "C" long long nerf_render_fwd_spill(int n_rays, int S, int D) {
   if (S <= 0 || S % kPts != 0 || n_rays <= 0) return -1;
-  long long per_cta;
   switch (D) {
+    case 1024:
+      return fwd_scratch_bytes<1024>(n_rays, S);
+    case 896:
+      return fwd_scratch_bytes<896>(n_rays, S);
+    case 768:
+      return fwd_scratch_bytes<768>(n_rays, S);
+    case 640:
+      return fwd_scratch_bytes<640>(n_rays, S);
     case 512:
-      per_cta = fwd_place<512>(S).spill_floats(S);
-      break;
+      return fwd_scratch_bytes<512>(n_rays, S);
     case 384:
-      per_cta = fwd_place<384>(S).spill_floats(S);
-      break;
+      return fwd_scratch_bytes<384>(n_rays, S);
     case 256:
-      per_cta = fwd_place<256>(S).spill_floats(S);
-      break;
+      return fwd_scratch_bytes<256>(n_rays, S);
     case 128:
-      per_cta = fwd_place<128>(S).spill_floats(S);
-      break;
+      return fwd_scratch_bytes<128>(n_rays, S);
     default:
       return -1;
   }
-  return per_cta == 0 ? 0 : static_cast<long long>(sizeof(float)) * per_cta * fwd_grid(n_rays);
 }
 
 extern "C" const char* nerf_error_string(int code) {

@@ -10,7 +10,10 @@ sample count the fused render does not take).
 On a CUDA tensor `point_mlp` launches the hand-written Hopper kernels in
 `nope_nerf_torch/csrc/point_mlp_fwd.cu` and `csrc/point_mlp_bwd.cu` (or,
 when no nerf parameter wants a gradient, K6's frozen-network variant
-`csrc/point_mlp_bwd_frozen.cu`), or raises. Both backward variants run the
+`csrc/point_mlp_bwd_frozen.cu`), or raises. The forward takes hidden_dim
+128 to 1024 (past 512 on `csrc/mlp_fwd_xwide_sm90.cuh`'s trunk, with a
+per-CTA staging scratch the wrapper allocates), the backward 128 to 512.
+Both backward variants run the
 wgmma dX chain (`csrc/mlp_dx_sm90.cuh`; at hidden_dim 384 and 512 the
 64-point chain of `csrc/mlp_dx_wide_sm90.cuh`); the full one also writes
 every operand of a weight-gradient product to device memory and forms the
@@ -46,8 +49,8 @@ import torch
 from ..models.nerf import NerfConfig, _occupancy, bf16_round, softplus
 from ._build import CudaLibrary, runs_plain
 from .fused_render import (DE_DIM, PE_DIM, SWIZZLE_COLS, _backward_ctas, _enc_deriv_to_coords,
-                           _grad_blocks, _mlp_forward, _packed_tiles_on, _scratch_bytes,
-                           check_kernel_width, encode_lanes, mlp_backward, pack_tiles,
+                           _grad_blocks, _mlp_forward, _packed_tiles_on, _ptr, _scratch_bytes,
+                           _spill, check_kernel_width, encode_lanes, mlp_backward, pack_tiles,
                            pack_weights, tile_rows, unpack_grads, x_operands)
 
 PTS_PER_PASS = 128        # the kernels' pass over consecutive points
@@ -59,10 +62,12 @@ DW_TILE_ROWS = 128        # dW rows of one CTA tile of the dW kernel
 def _setup_fwd(lib: ctypes.CDLL) -> None:
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.nerf_point_mlp_fwd.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, i, i, i, p]
+    lib.nerf_point_mlp_fwd.argtypes = [p] * 7 + [ctypes.c_longlong, i, i, i, p]
     lib.nerf_point_mlp_fwd.restype = ctypes.c_int
-    lib.nerf_point_mlp_fwd_operands.argtypes = [p] * 7 + [ctypes.c_longlong, i, i, i, p]
+    lib.nerf_point_mlp_fwd_operands.argtypes = [p] * 8 + [ctypes.c_longlong, i, i, i, p]
     lib.nerf_point_mlp_fwd_operands.restype = ctypes.c_int
+    lib.nerf_point_mlp_fwd_stage.argtypes = [ctypes.c_longlong, i]
+    lib.nerf_point_mlp_fwd_stage.restype = ctypes.c_longlong
     lib.nerf_error_string.argtypes = [ctypes.c_int]
     lib.nerf_error_string.restype = ctypes.c_char_p
 
@@ -121,9 +126,9 @@ def _check_inputs(pts: torch.Tensor, dirs: torch.Tensor) -> None:
 
 
 def _check_width(cfg: NerfConfig, kernel: str) -> None:
-    """The point-query MLP `kernel` ("forward": K5; "backward (frozen
-    network)": K6's frozen-network variant; "backward": K6 full; each 128 to
-    512) takes cfg's width and the reference 10/4 encoding levels, or this
+    """The point-query MLP `kernel` ("forward": K5, 128 to 1024; "backward
+    (frozen network)": K6's frozen-network variant; "backward": K6 full; each
+    128 to 512) takes cfg's width and the reference 10/4 encoding levels, or this
     raises NotImplementedError before any device work."""
     if cfg.pos_enc_levels != 10 or cfg.dir_enc_levels != 4:
         raise NotImplementedError(
@@ -403,17 +408,20 @@ def _mlp_fwd_cuda(params, pts: torch.Tensor, dirs: torch.Tensor, cfg: NerfConfig
     lib = POINT_MLP_FWD.lib()
     bptrs = (ctypes.c_void_p * 12)(*[b.data_ptr() for b in B])
     with torch.cuda.device(dev):
+        # the staging of the trunk past 512 (none at 128 to 512)
+        stage = _spill(lib.nerf_point_mlp_fwd_stage(M, cfg.hidden_dim), dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         flags = (int(cfg.occ_activation == "softplus"), int(cfg.dist_alpha))
         if xops is None:
             err = lib.nerf_point_mlp_fwd(pts.data_ptr(), dirs.data_ptr(), tiles.data_ptr(),
-                                         bptrs, rgb.data_ptr(), density.data_ptr(), M,
-                                         cfg.hidden_dim, *flags, stream)
+                                         bptrs, rgb.data_ptr(), density.data_ptr(), _ptr(stage),
+                                         M, cfg.hidden_dim, *flags, stream)
         else:
             err = lib.nerf_point_mlp_fwd_operands(pts.data_ptr(), dirs.data_ptr(),
                                                   tiles.data_ptr(), bptrs, rgb.data_ptr(),
-                                                  density.data_ptr(), xops.data_ptr(), M,
-                                                  cfg.hidden_dim, *flags, stream)
+                                                  density.data_ptr(), _ptr(stage),
+                                                  xops.data_ptr(), M, cfg.hidden_dim, *flags,
+                                                  stream)
     if err != 0:
         raise RuntimeError("point-query MLP forward kernel launch failed: "
                            + lib.nerf_error_string(err).decode())

@@ -29,11 +29,12 @@ switch for checks that hold the kernels' route against the plain one):
 The forward kernels (render_fwd here, point_mlp_fwd in fused_mlp.py) take the
 weights as `pack_tiles`' pre-swizzled slices, the layout their wgmma trunk
 (csrc/mlp_fwd_sm90.cuh; csrc/mlp_fwd_wide_sm90.cuh at hidden_dim 384 and
-512) streams into shared memory; every backward kernel takes those and
-`pack_tiles_dx`' slices of the (in, out) weights, the B operands of its
-wgmma dX chain (csrc/mlp_dx_sm90.cuh; csrc/mlp_dx_wide_sm90.cuh's 64-point
-chain at 384 and 512). Which kernel takes which hidden_dim is
-KERNEL_WIDTHS': every kernel 128 to 512.
+512; csrc/mlp_fwd_xwide_sm90.cuh at 640 to 1024) streams into shared memory;
+every backward kernel takes those and `pack_tiles_dx`' slices of the (in,
+out) weights, the B operands of its wgmma dX chain (csrc/mlp_dx_sm90.cuh;
+csrc/mlp_dx_wide_sm90.cuh's 64-point chain at 384 and 512). Which kernel
+takes which hidden_dim is KERNEL_WIDTHS': the forward kernels 128 to 1024,
+the backward kernels 128 to 512.
 
 The ray table is (N, 9) [origin | ray_vec | mlp_dir]: the TPU's 128-lane
 padding is a layout of that machine and is not carried over. The train
@@ -58,7 +59,8 @@ PE_DIM = 64             # position encoding 63 -> 64 lanes
 DE_DIM = 32             # direction encoding 27 -> 32 lanes
 HEAD_DIM = 8            # head outputs padded to one mma n-tile
 PTS_PER_PASS = 128      # the kernel's pass over a ray's samples
-WIDE_TILE_ROWS = 64     # points of a tile of the 64-point trunk and chain (D 384, 512)
+WIDE_TILE_ROWS = 64     # points of a tile of the 64-point trunks and chain (D 384 to 1024)
+XWIDE_PASS_COLS = 128   # output columns of a pass of csrc/mlp_fwd_xwide_sm90.cuh (D 640 to 1024)
 PLAIN_BLOCK_RAYS = 2048  # rays per block of the plain version (bounds its memory)
 
 Packed = Tuple[List[torch.Tensor], List[torch.Tensor]]
@@ -182,26 +184,34 @@ def _tile_layout(D: int) -> List[Tuple[int, int, int]]:
             (9, HEAD_DIM, D), (13, HEAD_DIM, H)]
 
 
+def _slice_index(base: int, N: int, K: int, C: int, r0: int, n: int,
+                 k_major: bool) -> np.ndarray:
+    """Rows r0..r0+n-1 of one weight (N rows, K columns) as ceil(K/C) slices
+    of n rows of C columns, a row 2C bytes: each bf16's index in the source
+    block at `base`, -1 for columns past K. The block is (K, N) row-major
+    (stored (in, out) and read transposed) unless k_major, when it is (N, K)
+    row-major. The 16-byte chunk c of a slice's row r is stored at chunk c ^
+    ((2C r / 128) % (C/8)): the 128-byte swizzle (C = 64, c ^ (r % 8)) or the
+    64-byte one (C = 32, c ^ ((r / 2) % 4)) that wgmma and the bulk copies
+    read (r0 a multiple of 8, where the pattern starts over)."""
+    chunks = C // 8
+    kblocks = -(-K // C)
+    r = np.arange(n)[None, :, None, None]
+    chunk = np.arange(chunks)[None, None, :, None] ^ ((2 * C * r // 128) % chunks)
+    col = (np.arange(kblocks)[:, None, None, None] * C + chunk * 8
+           + np.arange(8)[None, None, None, :])
+    src = base + (r0 + r) * K + col if k_major else base + col * N + r0 + r
+    return np.where(col < K, src, -1).reshape(-1)
+
+
 def _swizzled_slices(shapes: List[Tuple[int, int, int]], k_major: bool) -> np.ndarray:
     """For each bf16 of a buffer of swizzled weight slices, its index in the
     concatenation of the source blocks followed by one zero. shapes: (rows N,
-    columns K, slice columns C) of each weight in buffer order; its source
-    block is (K, N) row-major (stored (in, out) and read transposed) unless
-    k_major, when it is (N, K) row-major. A weight becomes ceil(K/C) slices
-    of N rows of C columns, a row 2C bytes; the 16-byte chunk c of row r is
-    stored at chunk c ^ ((2C r / 128) % (C/8)): the 128-byte swizzle (C = 64,
-    c ^ (r % 8)) or the 64-byte one (C = 32, c ^ ((r / 2) % 4)) that wgmma and
-    the bulk copies read. Columns past K are zero."""
+    columns K, slice columns C) of each weight in buffer order, each one
+    _slice_index of all its rows. Columns past K are zero."""
     parts, base = [], 0
     for N, K, C in shapes:
-        chunks = C // 8
-        kblocks = -(-K // C)
-        r = np.arange(N)[None, :, None, None]
-        chunk = np.arange(chunks)[None, None, :, None] ^ ((2 * C * r // 128) % chunks)
-        col = (np.arange(kblocks)[:, None, None, None] * C + chunk * 8
-               + np.arange(8)[None, None, None, :])
-        src = base + r * K + col if k_major else base + col * N + r
-        parts.append(np.where(col < K, src, -1).reshape(-1))
+        parts.append(_slice_index(base, N, K, C, 0, N, k_major))
         base += K * N
     idx = np.concatenate(parts)
     return np.where(idx < 0, base, idx)
@@ -212,9 +222,44 @@ def _tile_index(D: int) -> np.ndarray:
     """The forward buffer's gather index (_swizzled_slices) over the
     _packed_blocks (stored (in, out)) in _tile_layout's order: the weights in
     slices of _slice_cols(D) columns, the heads (resident in the kernels'
-    shared memory) in 64-column blocks at every width."""
+    shared memory) in 64-column blocks at every width. Past 512, _tile_x_index."""
+    if D > 512:
+        return _tile_x_index(D)
     return _swizzled_slices([(N, K, SWIZZLE_COLS if i in (9, 13) else _slice_cols(D))
                              for i, N, K in _tile_layout(D)], k_major=False)
+
+
+# The layers of csrc/mlp_fwd_xwide_sm90.cuh's trunk in the order a tile runs
+# them, each as the pack_weights blocks of its products
+_XWIDE_LAYERS = ((0,), (1,), (2,), (3,), (4, 5), (6,), (7,), (8,), (10,))
+
+
+def _tile_x_index(D: int) -> np.ndarray:
+    """The forward buffer at 640 to 1024 (csrc/mlp_fwd_xwide_sm90.cuh::TilesX):
+    for each layer in the order a tile runs it, for each of its D/128 passes,
+    the 64-column slices (128-byte swizzle) of the pass's 128 rows (output
+    columns) of each of the layer's blocks (the skip layer: w4's, then w5's);
+    then the rgb-hidden layer, pass by pass, w11's and w12's slices of the
+    pass's 64 rows (w12's 32 columns padded with zeros to one slice); then the
+    two heads in 64-column blocks of 8 rows. Over the same concatenation of
+    the _packed_blocks as at every width."""
+    base, at = {}, 0
+    for i, N, K in _tile_layout(D):
+        base[i] = (at, N, K)
+        at += N * K
+
+    def rows(i, r0, n, C=SWIZZLE_COLS):
+        b, N, K = base[i]
+        return _slice_index(b, N, K, C, r0, n, k_major=False)
+
+    passes = D // XWIDE_PASS_COLS
+    h_rows = XWIDE_PASS_COLS // 2
+    parts = [rows(i, XWIDE_PASS_COLS * p, XWIDE_PASS_COLS)
+             for layer in _XWIDE_LAYERS for p in range(passes) for i in layer]
+    parts += [rows(i, h_rows * p, h_rows) for p in range(passes) for i in (11, 12)]
+    parts += [rows(i, 0, base[i][1], SWIZZLE_COLS) for i in (9, 13)]
+    idx = np.concatenate(parts)
+    return np.where(idx < 0, at, idx)
 
 
 def pack_tiles(params: Dict[str, torch.Tensor], cfg: NerfConfig) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -229,7 +274,7 @@ def pack_tiles(params: Dict[str, torch.Tensor], cfg: NerfConfig) -> Tuple[torch.
 
 def tile_rows(D: int) -> int:
     """Points of one tile of the kernels' trunk and dX chain at width D: 128
-    at 128 and 256, 64 at 384 and 512."""
+    at 128 and 256, 64 from 384 on."""
     return PTS_PER_PASS if D <= 256 else WIDE_TILE_ROWS
 
 
@@ -457,7 +502,8 @@ def _render_cuda(tiles, B, rays, z, cfg: NerfConfig, dist_alpha: bool, want_aux:
         return rgb, dist, weights, alpha
     bptrs = (ctypes.c_void_p * 12)(*[b.data_ptr() for b in B])
     with torch.cuda.device(rays.device):
-        # the per-sample arrays past shared memory's room (S > 3,840 at D = 256)
+        # the per-sample arrays past shared memory's room (S > 3,840 at D = 256) and,
+        # past 512, the trunk's staging
         spill = _spill(lib.nerf_render_fwd_spill(n, S, D), rays.device)
         stream = torch.cuda.current_stream(rays.device).cuda_stream
         flags = (int(cfg.occ_activation == "softplus"), int(cfg.dist_alpha), int(dist_alpha))
@@ -797,30 +843,44 @@ def _train_plain(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p:
 
 
 # The hidden_dim each CUDA kernel takes, by the name its wrapper raises with:
-# 128 to 512 for every kernel, 128 and 256 on the 128-row trunk and dX chain
-# of csrc/mlp_fwd_sm90.cuh and csrc/mlp_dx_sm90.cuh, 384 and 512 on the
-# 64-row ones of csrc/mlp_fwd_wide_sm90.cuh and csrc/mlp_dx_wide_sm90.cuh (the
-# kernels that form weight gradients, K1, K4 full and K6 full, with
-# csrc/mlp_dw_chain_sm90.cuh's OperandSaveW there).
-FORWARD_WIDTHS = (128, 256, 384, 512)
+# 128 and 256 on the 128-row trunk and dX chain of csrc/mlp_fwd_sm90.cuh and
+# csrc/mlp_dx_sm90.cuh, 384 and 512 on the 64-row ones of
+# csrc/mlp_fwd_wide_sm90.cuh and csrc/mlp_dx_wide_sm90.cuh (the kernels that
+# form weight gradients, K1, K4 full and K6 full, with
+# csrc/mlp_dw_chain_sm90.cuh's OperandSaveW there); the forward kernels, K3
+# and K5, also 640 to 1024 on csrc/mlp_fwd_xwide_sm90.cuh's trunk.
+BACKWARD_WIDTHS = (128, 256, 384, 512)
+FORWARD_WIDTHS = BACKWARD_WIDTHS + (640, 768, 896, 1024)
 KERNEL_WIDTHS = {"render": FORWARD_WIDTHS, "point-query MLP forward": FORWARD_WIDTHS,
-                 "render-backward (frozen network)": FORWARD_WIDTHS,
-                 "point-query MLP backward (frozen network)": FORWARD_WIDTHS,
-                 "point-query MLP backward": FORWARD_WIDTHS,
-                 "train": FORWARD_WIDTHS, "render-backward": FORWARD_WIDTHS}
+                 "render-backward (frozen network)": BACKWARD_WIDTHS,
+                 "point-query MLP backward (frozen network)": BACKWARD_WIDTHS,
+                 "point-query MLP backward": BACKWARD_WIDTHS,
+                 "train": BACKWARD_WIDTHS, "render-backward": BACKWARD_WIDTHS}
+# The entry of ROADMAP.md's Queue 3 (c) that brings each backward kernel to
+# 640 to 1024, on the forward the forward kernels run there
+BACKWARD_QUEUE = {"render-backward (frozen network)": 2,
+                  "point-query MLP backward (frozen network)": 2,
+                  "point-query MLP backward": 3, "train": 4, "render-backward": 4}
 
 
 def check_kernel_width(kernel: str, D: int) -> None:
     """Raise NotImplementedError, before any device work, unless the CUDA
     `kernel` (a key of KERNEL_WIDTHS) takes hidden_dim D; past 512 naming the
-    slice of ROADMAP.md's Queue 3 that would bring D to it."""
+    entry of ROADMAP.md's Queue 3 (c) that would bring D to it."""
     widths = KERNEL_WIDTHS[kernel]
     if D in widths:
         return
+    if D > FORWARD_WIDTHS[-1]:
+        why = (f": widths past {FORWARD_WIDTHS[-1]} need a tile plan of their own in every "
+               "trunk header (ROADMAP.md, Queue 3 (c))")
+    elif D > BACKWARD_WIDTHS[-1] and D in FORWARD_WIDTHS:
+        why = (f": only the forward kernels run past {BACKWARD_WIDTHS[-1]}; this one is queued "
+               f"on their trunk (ROADMAP.md, Queue 3 (c), item {BACKWARD_QUEUE[kernel]})")
+    else:
+        why = ""
     raise NotImplementedError(
         f"the CUDA {kernel} kernel takes hidden_dim {', '.join(map(str, widths))}, got {D}"
-        + (": widths past 512 need a tile shape of their own in every trunk header "
-           "(ROADMAP.md, Queue 3 (c))" if D > 512 else ""))
+        + why)
 
 
 def render_bwd_kernel(want_param_grads: bool) -> str:
@@ -847,10 +907,11 @@ def _scratch_bytes(nbytes: int, dev: torch.device) -> torch.Tensor:
 
 
 def _spill(nbytes: int, dev: torch.device) -> Optional[torch.Tensor]:
-    """The scratch a render kernel's C entry asks for its per-sample arrays
-    that do not fit in shared memory (None for none)."""
+    """The scratch a kernel's C entry asks for: a render kernel's per-sample
+    arrays that do not fit in shared memory and, in K3 and K5 past 512, the
+    trunk's staging (None for none)."""
     if nbytes < 0:
-        raise RuntimeError("the render kernel reports no spill size")
+        raise RuntimeError("the kernel reports no scratch size")
     return None if nbytes == 0 else torch.empty((nbytes // 4,), dtype=torch.float32, device=dev)
 
 

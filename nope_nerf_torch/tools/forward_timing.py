@@ -9,9 +9,10 @@ bits:
     python3 -m nope_nerf_torch.tools.forward_timing --kernels frozen --widths 256 384 512 --sass
     python3 -m nope_nerf_torch.tools.forward_timing --kernels full --widths 128 256 384 512 --sass
 
-from the root of a checkout, on a machine with one NVIDIA GPU (it uses only
-the wrappers, so a copy of this file runs in a checkout that predates it, at
-the widths that checkout takes). Per width, on seeded weights (softplus, no
+from the root of a checkout, on a machine with one NVIDIA GPU (each checkout
+runs its own copy: "kernel alone" calls the C interface of its checkout, at
+the widths that checkout takes, 128 to 1024 for the forward kernels since
+they run csrc/mlp_fwd_xwide_sm90.cuh's trunk past 512). Per width, on seeded weights (softplus, no
 dist_alpha) and inputs, each case by CUDA events over `--reps` calls after
 one warm-up:
 - `--kernels forward` (the default): K3 (render_fwd.cu) over a 188x621
@@ -131,11 +132,15 @@ def forward_cases(dev, gen, widths, reps: int):
         tiles, biases = F.pack_tiles(params, ncfg)
         bptrs = (ctypes.c_void_p * 12)(*[b.data_ptr() for b in biases])
         rgb, density = torch.empty(POINTS, 3, device=dev), torch.empty(POINTS, 1, device=dev)
+        # the staging of the trunk past 512 (none at 128 to 512)
+        stage = F._spill(FM.POINT_MLP_FWD.lib().nerf_point_mlp_fwd_stage(POINTS, D), dev)
 
-        def k5_alone(D=D, tiles=tiles, biases=biases, bptrs=bptrs, rgb=rgb, density=density):
+        def k5_alone(D=D, tiles=tiles, biases=biases, bptrs=bptrs, rgb=rgb, density=density,
+                     stage=stage):
             err = FM.POINT_MLP_FWD.lib().nerf_point_mlp_fwd(
                 pts.data_ptr(), dirs.data_ptr(), tiles.data_ptr(), bptrs, rgb.data_ptr(),
-                density.data_ptr(), POINTS, D, 1, 0, torch.cuda.current_stream().cuda_stream)
+                density.data_ptr(), F._ptr(stage), POINTS, D, 1, 0,
+                torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(FM.POINT_MLP_FWD.lib().nerf_error_string(err).decode())
             return rgb, density

@@ -1089,6 +1089,33 @@ def test_wide_frames_launch_k3_once_and_k5_twice(cuda_device, hidden):
                 1.0, float(ref.abs().max()))
 
 
+def test_xwide_render_fwd_matches_plain(cuda_device):
+    """K3 at hidden_dim 768 (csrc/mlp_fwd_xwide_sm90.cuh's trunk: passes of 128
+    columns, all but the last staged in device memory) on 133 rays x 128,
+    launched once, against its plain version."""
+    gen, rays, z = _inputs(cuda_device, 133, 128, seed=4)
+    ncfg = NerfConfig(hidden_dim=768, use_pallas=True)
+    params = init_nerf_params(ncfg, gen, device=cuda_device)
+    params["density_b"] = params["density_b"] - 4.0   # transmittance alive past sample 0
+    before = F.RENDER_FWD.launches
+    got = F.render_rays_fused(params, rays, z, ncfg, False, True)
+    assert F.RENDER_FWD.launches == before + 1
+    _assert_close(got, F.render_rays_fused_plain(params, rays, z, ncfg, False, True))
+
+
+def test_xwide_point_mlp_fwd_matches_plain(cuda_device):
+    """K5 at hidden_dim 1024 on 127 points (a full 64-point pass and a ragged
+    one of 63), launched once, against its plain version."""
+    gen, pts, dirs = _points(cuda_device, 127, seed=5)
+    ncfg = NerfConfig(hidden_dim=1024, use_pallas=True)
+    params = init_nerf_params(ncfg, gen, device=cuda_device)
+    before = M.POINT_MLP_FWD.launches
+    with torch.no_grad():
+        got = M.point_mlp(params, pts, dirs, ncfg)
+    assert M.POINT_MLP_FWD.launches == before + 1
+    _assert_close(got, M.point_mlp_fwd_plain(params, pts, dirs, ncfg))
+
+
 def test_wide_backward_kernels_raise_before_any_launch(cuda_device):
     """Past hidden_dim 512 the render kernels that form weight gradients (K1,
     K4 full) raise NotImplementedError naming Queue 3 (c) with no launch, and

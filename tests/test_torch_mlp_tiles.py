@@ -1,12 +1,15 @@
 """The tiled weight buffers of the wgmma kernels, on the CPU: the forward
 trunk's (ops/fused_render.py::pack_tiles, read by csrc/mlp_fwd_sm90.cuh at
-hidden_dim 128 and 256 and by csrc/mlp_fwd_wide_sm90.cuh at 384 and 512) holds
+hidden_dim 128 and 256, by csrc/mlp_fwd_wide_sm90.cuh at 384 and 512 and by
+csrc/mlp_fwd_xwide_sm90.cuh, pass by pass, at 640 to 1024) holds
 exactly pack_weights' bf16 weights, and the frozen-network backward's
 (pack_tiles_dx, read by csrc/mlp_dx_sm90.cuh) exactly pack_weights_both's
 (in, out) blocks, each in the order and the swizzle the kernels' bulk copies
 and wgmma descriptors assume (64-column slices in the 128-byte swizzle; the
 wide trunk's 32-column slices in the 64-byte one), at every width the kernels
 take."""
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -40,7 +43,7 @@ def _packed(D):
     return pack_tiles(params, cfg), pack_weights(params, cfg)
 
 
-@pytest.mark.parametrize("D", [128, 256, 384, 512])
+@pytest.mark.parametrize("D", [128, 256, 384, 512, 640, 1024])
 def test_unpacking_the_tiles_gives_pack_weights_blocks(D):
     (tiles, biases), (W, B) = _packed(D)
     assert tiles.dtype == torch.bfloat16 and tiles.is_contiguous()
@@ -90,6 +93,75 @@ def test_tile_buffer_follows_the_kernels_slice_order(D):
             for c in range(8):
                 assert torch.equal(block[r, c ^ r], w[:, 64 * kb + 8 * c:64 * kb + 8 * c + 8]), \
                     (i, kb, c)
+
+
+@pytest.mark.parametrize("D", [640, 1024])
+def test_xwide_tile_buffer_follows_the_trunks_pass_order(D):
+    """The byte counts and order of csrc/mlp_fwd_xwide_sm90.cuh's TilesX<D>:
+    for each layer (w0; w1, w2, w3; w4 then w5; w6, w7, w8; w10), for each of
+    its D/128 passes, the 64-column slices of the pass's 128 rows; then per
+    pass w11's D/64 and w12's one slice of the pass's 64 rows (w12's 32
+    columns and 32 of zeros); then the two heads of 8 rows in 64-column
+    blocks. Each slice's row r holds its 16-byte chunk c at c ^ (r % 8)."""
+    (tiles, _), (W, _) = _packed(D)
+    P, kK = D // 128, D // 64
+    full, half = 128 * 64, 64 * 64
+    trunk, hidden = P * (2 + 8 * kK), P * (kK + 1)
+    heads = trunk * full + hidden * half
+    assert tiles.numel() == heads + 8 * D + 8 * D // 2
+    r = torch.arange(128)
+    swizzle = r % 8
+
+    def holds(start, i, r0, rows, s):
+        """Slice s of rows r0..r0+rows-1 of W[i] at element `start`."""
+        block = tiles[start:start + rows * 64].view(rows, 8, 8)
+        for c in range(8):
+            col = 64 * s + 8 * c
+            ref = (W[i][r0:r0 + rows, col:col + 8] if col < W[i].shape[1]
+                   else torch.zeros(rows, 8, dtype=W[i].dtype))   # columns past K are zero
+            assert torch.equal(block[r[:rows], c ^ swizzle[:rows]], ref), (i, r0, s, c)
+
+    at = 0
+    for layer in ((0,), (1,), (2,), (3,), (4, 5), (6,), (7,), (8,), (10,)):
+        for p in range(P):
+            for i in layer:
+                n = -(-W[i].shape[1] // 64)
+                for s in sorted({0, n - 1}):   # each weight's first and last slice of the pass
+                    holds(at + s * full, i, 128 * p, 128, s)
+                at += n * full
+    assert at == trunk * full
+    for p in range(P):
+        for i in (11, 12):
+            n = -(-W[i].shape[1] // 64)
+            for s in sorted({0, n - 1}):
+                holds(at + s * half, i, 64 * p, 64, s)
+            at += n * half
+    assert at == heads
+    for i, start in ((9, heads), (13, heads + 8 * D)):
+        w = W[i]
+        for kb in range(w.shape[1] // 64):
+            block = tiles[start + kb * 512:start + (kb + 1) * 512].view(8, 8, 8)
+            for c in range(8):
+                assert torch.equal(block[r[:8], c ^ r[:8]],
+                                   w[:, 64 * kb + 8 * c:64 * kb + 8 * c + 8]), (i, kb, c)
+
+
+# The gather indices of pack_tiles and pack_tiles_dx at 128 to 512, as the
+# kernels there read them (SHA-256 of the little-endian int64 indices)
+INDEX_DIGESTS = {128: ("2fc1a3c29da3aa19", "e63a264fd11039bc"),
+                 256: ("cef8661ae5ef0dcc", "198d4e752383e948"),
+                 384: ("695bb0ce723e8e52", "a90195555ae1d16d"),
+                 512: ("ac50ea4ed73cfa5d", "e18ba6d6c1f3b1be")}
+
+
+@pytest.mark.parametrize("D", [128, 256, 384, 512])
+def test_tile_buffers_at_128_to_512_are_unchanged(D):
+    """The buffers of every width the backward kernels take stay byte for byte
+    what their trunks and chains read: the gather indices' digests."""
+    def digest(idx):
+        return hashlib.sha256(np.asarray(idx, dtype="<i8").tobytes()).hexdigest()[:16]
+
+    assert (digest(_tile_index(D)), digest(_tile_dx_index(D))) == INDEX_DIGESTS[D]
 
 
 @pytest.mark.parametrize("D", [128, 256])

@@ -146,12 +146,14 @@ def test_width_gates(D):
     """Every CUDA kernel takes 128 to 512: K3, K5, the frozen-network
     variants of K4 and K6, K6 full, and the render kernels that form weight
     gradients, K1 and K4 full (their wide kernel on csrc/mlp_dx_wide_sm90.cuh's
-    chain). Every kernel raises NotImplementedError for 640 and past, naming
-    Queue 3 (c), and for a width JAX's kernels do not take; no message names
-    Queue 3 (b) any more. The checks run before any device work, here on the
-    CPU."""
+    chain); K3 and K5 also take 640 and 1024 (csrc/mlp_fwd_xwide_sm90.cuh's
+    trunk). Every other kernel raises NotImplementedError for 640 and past,
+    naming Queue 3 (c), and every kernel for a width JAX's kernels do not
+    take; no message names Queue 3 (b) any more. The checks run before any
+    device work, here on the CPU."""
+    forward = ("render", "point-query MLP forward")
     for kernel in F.KERNEL_WIDTHS:
-        if D in (128, 256, 384, 512):
+        if D in (128, 256, 384, 512) or (D in (640, 1024) and kernel in forward):
             F.check_kernel_width(kernel, D)
             F._check_kernel_shapes(kernel, 128, D)
             continue
@@ -167,7 +169,7 @@ def test_width_gates(D):
     assert F.render_bwd_kernel(True) == "render-backward"
     cfg = NerfConfig(hidden_dim=D, use_pallas=True)
     for kernel in ("forward", FM.mlp_bwd_kernel(False), FM.mlp_bwd_kernel(True)):
-        if D in (128, 256, 384, 512):
+        if D in (128, 256, 384, 512) or (D in (640, 1024) and kernel == "forward"):
             FM._check_width(cfg, kernel)
         else:
             with pytest.raises(NotImplementedError):
