@@ -3148,7 +3148,8 @@ def check_wide_frozen(torch, dev, widths=WIDE_D) -> dict:
     WIDE_BWD_RAYS rays and K6's at the point counts of WIDE_BWD_M, at each
     width of `widths` (phase 13: 384 and 512, csrc/mlp_dx_wide_sm90.cuh's
     64-point chain; phase 14: 128 and 256, csrc/mlp_dx_sm90.cuh's 128-point
-    chain), over both flag sets of WIDE_FLAGS: d(rays), dz and d(points),
+    chain; phase 16: 640 to 1024, csrc/mlp_dx_xwide_sm90.cuh's chain in
+    passes of 128 columns), over both flag sets of WIDE_FLAGS: d(rays), dz and d(points),
     d(directions) within the per-sample rule of their plain versions
     (per_sample_share), two launches bit-equal. K4 runs on the pose-opt
     step's 1024 rays: one flipped ReLU mask or bf16 rounding at one sample
@@ -3903,7 +3904,7 @@ def run_one_forward(torch, dev) -> dict:
     return {"holds": held}
 
 
-# ---- phase 16: hidden_dim 640 to 1024 on the forward trunk (K3, K5) --------------------
+# ---- phase 16: hidden_dim 640 to 1024 (K3, K5, K4 and K6 frozen) -------------------------
 
 XWIDE_D = (640, 768, 896, 1024)   # the widths of mlp_fwd_xwide_sm90.cuh's trunk
 # K3 on MANY_S_RAYS rays: at 2048 samples, past 1,536 at 1024 (4,480 at 640), z and the
@@ -3913,12 +3914,12 @@ XWIDE_PATH_D = (1024, 640)        # model.hidden_dim of the phase's main path; p
 
 
 def check_xwide_backward_raises(torch, dev, D: int) -> list:
-    """Phase 16 (c): at hidden_dim D the five backward kernels stop before any
-    device work, through the calls a user makes: render_ray_loss_fused (K1),
-    render_rays_fused under autograd with parameters that want gradients (K4
-    full) and with only the rays wanting them (K4 frozen), point_mlp the same
-    way (K6 full, K6 frozen). Each raises NotImplementedError naming its entry
-    of Queue 3 (c), and no kernel launches. Returns the misses."""
+    """Phase 16 (d): at hidden_dim D the three kernels that form weight
+    gradients stop before any device work, through the calls a user makes:
+    render_ray_loss_fused (K1), render_rays_fused under autograd with
+    parameters that want gradients (K4 full), point_mlp the same way (K6
+    full). Each raises NotImplementedError naming its entry of Queue 3 (c),
+    and no kernel launches. Returns the misses."""
     from nope_nerf_torch.ops import fused_mlp as FM
     from nope_nerf_torch.ops import fused_render as F
     gen = torch.Generator().manual_seed(SEED + 42)
@@ -3930,11 +3931,7 @@ def check_xwide_backward_raises(torch, dev, D: int) -> list:
         "render_train (K1)": ("item 4", lambda: F.render_ray_loss_fused(params, rays, z, tgt,
                                                                       ncfg, False, 1, False)),
         "render_bwd (K4 full)": ("item 4", lambda: F.render_rays_fused(leaves, rays, z, ncfg)),
-        "render_bwd_frozen (K4 frozen)": ("item 2", lambda: F.render_rays_fused(
-            params, rays.detach().requires_grad_(True), z, ncfg)),
-        "point_mlp_bwd (K6 full)": ("item 3", lambda: FM.point_mlp(leaves, pts, dirs, ncfg)),
-        "point_mlp_bwd_frozen (K6 frozen)": ("item 2", lambda: FM.point_mlp(
-            params, pts.detach().requires_grad_(True), dirs, ncfg))}
+        "point_mlp_bwd (K6 full)": ("item 3", lambda: FM.point_mlp(leaves, pts, dirs, ncfg))}
     missed = []
     for name, (item, fn) in calls.items():
         def attempt(fn=fn):
@@ -3955,22 +3952,37 @@ def check_xwide_backward_raises(torch, dev, D: int) -> list:
     return missed
 
 
+def xwide_path(torch, np, dev, D: int) -> dict:
+    """Phase 16 (c) at model.hidden_dim D: the render path from a checkpoint
+    of seeded weights (run_wide_render: cli.render over N_VIEWS views,
+    Trainer.render_frame fused and with n_importance N_IMPORTANCE), then
+    cli.eval's pose optimisation and the pose-opt steps from the same
+    weights (run_wide_eval: K3 and K4 frozen a step, replayed against eager
+    fused and hierarchical, HIER_STEPS hierarchical steps with K5 twice and
+    K6 frozen once a step)."""
+    out = run_wide_render(torch, np, dev, D)
+    out.update(run_wide_eval(torch, np, dev, D, out["params"]["nerf"]))
+    return out
+
+
 def run_xwide(torch, np, dev) -> dict:
     """Phase 16: (a) K3 and K5 at every width of XWIDE_D against their plain
-    versions (check_wide_kernels' cases, K3 also at 2048 samples); (b) the
-    render path at each width of XWIDE_PATH_D from a checkpoint of seeded
-    weights (run_wide_render:
-    cli.render over N_VIEWS views, Trainer.render_frame fused and with
-    n_importance N_IMPORTANCE); (c) the backward kernels stopping there
+    versions (check_wide_kernels' cases, K3 also at 2048 samples); (b) K4
+    frozen and K6 frozen there (check_wide_frozen's cases); (c) the path at
+    each width of XWIDE_PATH_D (xwide_path: render, cli.eval, pose
+    optimisation); (d) the kernels that form weight gradients stopping there
     (check_xwide_backward_raises). Every part reports before the phase fails."""
     t_phase = time.perf_counter()
-    out, missed = {}, []
+    out, missed = {"worst": {}}, []
     for what, fn in (("kernels", lambda: check_wide_kernels(torch, dev, XWIDE_D, SEED + 41,
                                                           "past 512", XWIDE_S)),
-                     *((D, lambda D=D: run_wide_render(torch, np, dev, D))
-                       for D in XWIDE_PATH_D)):
+                     ("frozen", lambda: check_wide_frozen(torch, dev, XWIDE_D)),
+                     *((D, lambda D=D: xwide_path(torch, np, dev, D)) for D in XWIDE_PATH_D)):
         try:
-            out["worst" if what == "kernels" else what] = fn()
+            if what in ("kernels", "frozen"):
+                out["worst"].update(fn())
+            else:
+                out[what] = fn()
         except Exception as e:   # every part runs and reports; the phase fails below
             missed.append(f"{what}: {type(e).__name__}: {e}")
             print(f"phase 16 ({what}) failed: {type(e).__name__}: {e}")
@@ -4073,20 +4085,110 @@ def time_forward(torch, dev, p: dict, worst: dict, D: int, table, z, pts, dirs, 
     return entries, summary
 
 
+def time_frozen(torch, dev, p: dict, worst: dict, D: int, pts, dirs, pcfg, pparams, bgen):
+    """Phase 9's frozen-network backward at width D from a path's state p
+    (run_wide_eval's counts): K4's frozen variant at the pose-opt batch's 1024
+    rays x 128 (inputs from bgen) and K6's at the points pts, dirs (weights
+    pparams), each beside its bound (forward + dX, 2 mlp_flops) and its plain
+    version (timed once, its output held against the kernel's). Returns (the
+    `kernels` JSON entries, their times by name)."""
+    from nope_nerf_torch.ops.fused_mlp import _mlp_bwd_cuda, point_mlp_bwd_plain
+    from nope_nerf_torch.ops.fused_render import (_render_bwd_cuda, pack_weights,
+                                                  render_rays_fused_bwd_plain)
+    fine_m = pts.shape[0]
+    entries, summary = [], {}
+    # K4's frozen variant at the pose-opt batch, on a colour and depth loss's cotangents
+    rays, tz, tgt = train_inputs(torch, dev, bgen, TRAIN_RAYS)
+    bcfg, bparams = many_params(torch, dev, bgen, D, "softplus", False, 128)
+    cot = bwd_cotangents(torch, bparams, rays, tz, tgt, bcfg, False, False)
+    fz_ms = time_ms(lambda: _render_bwd_cuda(bparams, rays, tz, *cot, bcfg, False,
+                                             want_param_grads=False), 10)
+    got = _render_bwd_cuda(bparams, rays, tz, *cot, bcfg, False, want_param_grads=False)
+    ref, fz_plain_ms = timed_once(torch, lambda: render_rays_fused_bwd_plain(
+        bparams, rays, tz, *cot, bcfg, False))
+    fz_err, fk, fshare, _ = held(dict(rays=got[2], z=got[3]), dict(rays=ref[2], z=ref[3]),
+                                 ("rays", "z"))
+    if not fshare <= 1.0:
+        raise RuntimeError(f"render_bwd_frozen at {TRAIN_RAYS} x 128, hidden_dim {D}: {fk} at "
+                           f"{fshare:.2f} of its tolerance")
+    W, B = pack_weights(bparams, bcfg)
+    fz_flops = 2 * mlp_flops(D, TRAIN_RAYS, 128)
+    fz_io = (numel_bytes([rays, tz, cot[0], cot[1]]) + numel_bytes([rays, tz])
+             + numel_bytes(W) + numel_bytes(B))
+    fz_bound, fz_by, _, _ = bound(fz_flops, PEAK_BF16_FLOPS, fz_io)
+    print(f"hidden_dim {D}: render_bwd_frozen {TRAIN_RAYS} rays x 128 {fz_ms:.3f} ms "
+          f"({fz_flops / fz_ms / 1e9:.1f} TFLOP/s, {fz_ms / fz_bound:.2f} x the bound "
+          f"{fz_bound:.3f} ms by {fz_by}, {fz_flops / 1e12:.3f} TFLOP), plain version "
+          f"{fz_plain_ms:.1f} ms; against it {fk} at {fshare:.3f} of its tolerance")
+    entries.append({"name": f"render_bwd_frozen (hidden_dim {D})", "route": "cuda",
+                    "source": "nope_nerf_torch/csrc/render_bwd_frozen.cu",
+                    "replaces": "nope_nerf_tpu/ops/pallas_render.py:535",
+                    "launches": p["eval_counts"]["render_bwd_frozen"],
+                    "max_abs_err": max(worst[("render_bwd_frozen", D)], fz_err),
+                    "ms": fz_ms, "plain_ms": fz_plain_ms, "bound_ms": fz_bound,
+                    "bound_by": fz_by, "library_ms": None})
+    summary[f"render_bwd_frozen_ms_{D}"] = fz_ms
+    del got, ref
+
+    # K6's frozen variant at the fine pass's points, on a smooth loss's cotangents
+    g_rgb, g_den = point_cotangents(torch, pparams, pts, dirs, pcfg)
+    pz_ms = time_ms(lambda: _mlp_bwd_cuda(pparams, pts, dirs, g_rgb, g_den, pcfg,
+                                          want_param_grads=False), 10)
+    got = _mlp_bwd_cuda(pparams, pts, dirs, g_rgb, g_den, pcfg, want_param_grads=False)
+    ref, pz_plain_ms = timed_once(torch, lambda: point_mlp_bwd_plain(
+        pparams, pts, dirs, g_rgb, g_den, pcfg, want_param_grads=False))
+    pz_err, pk, pshare, _ = held(dict(points=got[2], directions=got[3]),
+                                 dict(points=ref[2], directions=ref[3]),
+                                 ("points", "directions"))
+    if not pshare <= 1.0:
+        raise RuntimeError(f"point_mlp_bwd_frozen at {fine_m} points, hidden_dim {D}: {pk} at "
+                           f"{pshare:.2f} of its tolerance")
+    pz_flops = 2 * mlp_flops(D, 1, 1) * fine_m
+    pz_bound, pz_by, _, _ = bound(pz_flops, PEAK_BF16_FLOPS,
+                                  64 * fine_m + numel_bytes(W) + numel_bytes(B))
+    print(f"hidden_dim {D}: point_mlp_bwd_frozen {fine_m} points {pz_ms:.3f} ms "
+          f"({pz_flops / pz_ms / 1e9:.1f} TFLOP/s, {pz_ms / pz_bound:.2f} x the bound "
+          f"{pz_bound:.3f} ms by {pz_by}, {pz_flops / 1e12:.3f} TFLOP), plain version "
+          f"{pz_plain_ms:.1f} ms; against it {pk} at {pshare:.3f} of its tolerance")
+    entries.append({"name": f"point_mlp_bwd_frozen (hidden_dim {D})", "route": "cuda",
+                    "source": "nope_nerf_torch/csrc/point_mlp_bwd_frozen.cu",
+                    "replaces": "nope_nerf_tpu/ops/pallas_mlp.py:273",
+                    "launches": p["hier_pose_counts"]["point_mlp_bwd_frozen"],
+                    "max_abs_err": max(worst[("point_mlp_bwd_frozen", D)], pz_err),
+                    "ms": pz_ms, "plain_ms": pz_plain_ms, "bound_ms": pz_bound,
+                    "bound_by": pz_by, "library_ms": None})
+    summary[f"point_mlp_bwd_frozen_ms_{D}"] = pz_ms
+    del got, ref
+
+    return entries, summary
+
+
 def time_xwide(torch, dev, xwide: dict, table, z, smi: str) -> list:
-    """Phase 9's part for phase 16: time_forward at each width of
-    XWIDE_PATH_D, K5 at the fine pass's 196,608 points. Prints an `xwide`
-    JSON line; returns the `kernels` JSON entries."""
+    """Phase 9's part for phase 16: at each width of XWIDE_PATH_D,
+    time_forward (K5 at the fine pass's 196,608 points) and time_frozen (K4
+    frozen at the pose-opt batch's 1024 rays x 128, K6 frozen at those
+    points), and phase 16's replayed pose-opt steps, fused and hierarchical.
+    Prints an `xwide` JSON line; returns the `kernels` JSON entries."""
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
     gen = torch.Generator().manual_seed(SEED + 43)
+    bgen = torch.Generator().manual_seed(SEED + 44)   # the frozen backward's inputs
     pts, dirs = point_inputs(torch, dev, gen, TRAIN_RAYS * (128 + N_IMPORTANCE))
     entries, summary = [], {"card": smi}
     for D in sorted(XWIDE_PATH_D):
+        p = xwide[D]
         pcfg = NerfConfig(hidden_dim=D, use_pallas=True)
-        e, times = time_forward(torch, dev, xwide[D], xwide["worst"], D, table, z, pts, dirs,
-                                pcfg, init_nerf_params(pcfg, gen, device=dev))
-        entries += e
-        summary.update(times)
+        pparams = init_nerf_params(pcfg, gen, device=dev)
+        for fn in (time_forward, time_frozen):
+            args = (table, z, pts, dirs, pcfg, pparams) if fn is time_forward else (
+                pts, dirs, pcfg, pparams, bgen)
+            e, times = fn(torch, dev, p, xwide["worst"], D, *args)
+            entries += e
+            summary.update(times)
+        for path in ("fused", "hier"):
+            g = p[f"graph_{path}"]
+            summary[f"pose_opt_{path}_ms_{D}"] = {"eager": g["eager_ms"], "replay": g["replay_ms"]}
+            print(f"hidden_dim {D}: pose-opt step ({path}), {TRAIN_RAYS} rays, replayed "
+                  f"{g['replay_ms']:.3f} ms, eager {g['eager_ms']:.3f} ms a step")
         torch.cuda.empty_cache()
     print(json.dumps({"xwide": summary}))
     return entries
@@ -4133,68 +4235,10 @@ def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
         entries += e
         summary.update(times)
 
-        # K4's frozen variant at the pose-opt batch, on a colour and depth loss's cotangents
-        rays, tz, tgt = train_inputs(torch, dev, bgen, TRAIN_RAYS)
-        bcfg, bparams = many_params(torch, dev, bgen, D, "softplus", False, 128)
-        cot = bwd_cotangents(torch, bparams, rays, tz, tgt, bcfg, False, False)
-        fz_ms = time_ms(lambda: _render_bwd_cuda(bparams, rays, tz, *cot, bcfg, False,
-                                                 want_param_grads=False), 10)
-        got = _render_bwd_cuda(bparams, rays, tz, *cot, bcfg, False, want_param_grads=False)
-        ref, fz_plain_ms = timed_once(torch, lambda: render_rays_fused_bwd_plain(
-            bparams, rays, tz, *cot, bcfg, False))
-        fz_err, fk, fshare, _ = held(dict(rays=got[2], z=got[3]), dict(rays=ref[2], z=ref[3]),
-                                     ("rays", "z"))
-        if not fshare <= 1.0:
-            raise RuntimeError(f"render_bwd_frozen at {TRAIN_RAYS} x 128, hidden_dim {D}: {fk} at "
-                               f"{fshare:.2f} of its tolerance")
-        W, B = pack_weights(bparams, bcfg)
-        fz_flops = 2 * mlp_flops(D, TRAIN_RAYS, 128)
-        fz_io = (numel_bytes([rays, tz, cot[0], cot[1]]) + numel_bytes([rays, tz])
-                 + numel_bytes(W) + numel_bytes(B))
-        fz_bound, fz_by, _, _ = bound(fz_flops, PEAK_BF16_FLOPS, fz_io)
-        print(f"hidden_dim {D}: render_bwd_frozen {TRAIN_RAYS} rays x 128 {fz_ms:.3f} ms "
-              f"({fz_flops / fz_ms / 1e9:.1f} TFLOP/s, {fz_ms / fz_bound:.2f} x the bound "
-              f"{fz_bound:.3f} ms by {fz_by}, {fz_flops / 1e12:.3f} TFLOP), plain version "
-              f"{fz_plain_ms:.1f} ms; against it {fk} at {fshare:.3f} of its tolerance")
-        entries.append({"name": f"render_bwd_frozen (hidden_dim {D})", "route": "cuda",
-                        "source": "nope_nerf_torch/csrc/render_bwd_frozen.cu",
-                        "replaces": "nope_nerf_tpu/ops/pallas_render.py:535",
-                        "launches": p["eval_counts"]["render_bwd_frozen"],
-                        "max_abs_err": max(wide["worst"][("render_bwd_frozen", D)], fz_err),
-                        "ms": fz_ms, "plain_ms": fz_plain_ms, "bound_ms": fz_bound,
-                        "bound_by": fz_by, "library_ms": None})
-        summary[f"render_bwd_frozen_ms_{D}"] = fz_ms
-        del got, ref
-
-        # K6's frozen variant at the fine pass's points, on a smooth loss's cotangents
+        e, times = time_frozen(torch, dev, p, wide["worst"], D, pts, dirs, pcfg, pparams, bgen)
+        entries += e
+        summary.update(times)
         g_rgb, g_den = point_cotangents(torch, pparams, pts, dirs, pcfg)
-        pz_ms = time_ms(lambda: _mlp_bwd_cuda(pparams, pts, dirs, g_rgb, g_den, pcfg,
-                                              want_param_grads=False), 10)
-        got = _mlp_bwd_cuda(pparams, pts, dirs, g_rgb, g_den, pcfg, want_param_grads=False)
-        ref, pz_plain_ms = timed_once(torch, lambda: point_mlp_bwd_plain(
-            pparams, pts, dirs, g_rgb, g_den, pcfg, want_param_grads=False))
-        pz_err, pk, pshare, _ = held(dict(points=got[2], directions=got[3]),
-                                     dict(points=ref[2], directions=ref[3]),
-                                     ("points", "directions"))
-        if not pshare <= 1.0:
-            raise RuntimeError(f"point_mlp_bwd_frozen at {fine_m} points, hidden_dim {D}: {pk} at "
-                               f"{pshare:.2f} of its tolerance")
-        pz_flops = 2 * mlp_flops(D, 1, 1) * fine_m
-        pz_bound, pz_by, _, _ = bound(pz_flops, PEAK_BF16_FLOPS,
-                                      64 * fine_m + numel_bytes(W) + numel_bytes(B))
-        print(f"hidden_dim {D}: point_mlp_bwd_frozen {fine_m} points {pz_ms:.3f} ms "
-              f"({pz_flops / pz_ms / 1e9:.1f} TFLOP/s, {pz_ms / pz_bound:.2f} x the bound "
-              f"{pz_bound:.3f} ms by {pz_by}, {pz_flops / 1e12:.3f} TFLOP), plain version "
-              f"{pz_plain_ms:.1f} ms; against it {pk} at {pshare:.3f} of its tolerance")
-        entries.append({"name": f"point_mlp_bwd_frozen (hidden_dim {D})", "route": "cuda",
-                        "source": "nope_nerf_torch/csrc/point_mlp_bwd_frozen.cu",
-                        "replaces": "nope_nerf_tpu/ops/pallas_mlp.py:273",
-                        "launches": p["hier_pose_counts"]["point_mlp_bwd_frozen"],
-                        "max_abs_err": max(wide["worst"][("point_mlp_bwd_frozen", D)], pz_err),
-                        "ms": pz_ms, "plain_ms": pz_plain_ms, "bound_ms": pz_bound,
-                        "bound_by": pz_by, "library_ms": None})
-        summary[f"point_mlp_bwd_frozen_ms_{D}"] = pz_ms
-        del got, ref
 
         # K6 full at the fine pass's points on the same cotangents: its chain, the in-order
         # sum of the chain's partials and the dW kernel (column pieces) in one call

@@ -6,7 +6,11 @@
 // position encoding, no weight gradient formed. The render kernels' per-ray
 // pieces that depend on the tile (the producer, the rgb head's backward, the
 // encoding and direction VJPs) close this file; the composite forward and
-// backward are mlp_dx_sm90.cuh's, which are per ray.
+// backward are mlp_dx_sm90.cuh's, which are per ray. Past 512 the frozen
+// variants run mlp_dx_xwide_sm90.cuh's chain (one buffer, passes of 128
+// columns, each product summed slice by slice from zero), which takes this
+// file's epilogue (store_dx_w), ring_skip, render encoders and direction VJP
+// (dir_vjp).
 //
 // Numerics are those of mlp_dx_sm90.cuh (and of the plain version,
 // ops/fused_render.py::mlp_backward), in a fixed order:
@@ -360,11 +364,40 @@ __device__ __forceinline__ void dx_chain_w(float (&dpe)[32], unsigned char* act,
 
 // ---- the render's per-ray pieces at these widths: K4's frozen variant -----------
 
+// The producer warpgroup's encoders (etid: 0..kEncoders-1) of a render
+// backward kernel on 64-point tiles: every tile's sample positions of the
+// CTA's rays in the consumers' order, o + v*z by explicitly rounded mul and
+// add, one forward tile after another.
+__device__ __forceinline__ void render_encoder_w(const float* __restrict__ rays,
+                                                 const float* __restrict__ z, const Handoff& hand,
+                                                 unsigned char* pe, int etid, int n_rays, int S) {
+  const int passes = S / kWRows;
+  long long tile = 0;
+  for (long long r = blockIdx.x; r < n_rays; r += gridDim.x) {
+    float o[3], v[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      o[c] = rays[r * 9 + c];
+      v[c] = rays[r * 9 + 3 + c];
+    }
+    for (int k = 0; k < passes; ++k, ++tile) {
+      wait_free(hand.pe_free, tile);
+      const float* zt = z + r * S + k * kWRows;
+      encode_tile<10, kPe, kWRows>(pe, etid, [&](int p, int c) {
+        const float oc = c == 0 ? o[0] : (c == 1 ? o[1] : o[2]);
+        const float vc = c == 0 ? v[0] : (c == 1 ? v[1] : v[2]);
+        return __fadd_rn(oc, __fmul_rn(vc, zt[p]));
+      });
+      hand_over(hand.pe_full);
+    }
+  }
+}
+
 // The producer warpgroup of a wide render backward kernel (persistent CTA,
 // rays blockIdx.x, blockIdx.x + gridDim.x, ...): its first thread loads the
 // heads and streams, per ray, the forward slices of its S/64 tiles and then
 // each tile's backward slices; warps 1..3 encode every tile's sample
-// positions in the consumers' order, o + v*z by explicitly rounded mul and add.
+// positions (render_encoder_w).
 template <int D>
 __device__ __forceinline__ void render_producer_w(const float* __restrict__ rays,
                                                   const float* __restrict__ z,
@@ -386,25 +419,7 @@ __device__ __forceinline__ void render_producer_w(const float* __restrict__ rays
       for (int p = 0; p < passes; ++p) push_backward_w<D, false>(f, tiles_dx);
     }
   } else if (etid >= 0) {
-    long long tile = 0;
-    for (long long r = blockIdx.x; r < n_rays; r += gridDim.x) {
-      float o[3], v[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        o[c] = rays[r * 9 + c];
-        v[c] = rays[r * 9 + 3 + c];
-      }
-      for (int k = 0; k < passes; ++k, ++tile) {
-        wait_free(hand.pe_free, tile);
-        const float* zt = z + r * S + k * kWRows;
-        encode_tile<10, kPe, kWRows>(pe, etid, [&](int p, int c) {
-          const float oc = c == 0 ? o[0] : (c == 1 ? o[1] : o[2]);
-          const float vc = c == 0 ? v[0] : (c == 1 ? v[1] : v[2]);
-          return __fadd_rn(oc, __fmul_rn(vc, zt[p]));
-        });
-        hand_over(hand.pe_full);
-      }
-    }
+    render_encoder_w(rays, z, hand, pe, etid, n_rays, S);
   }
 }
 
@@ -467,24 +482,17 @@ __device__ __forceinline__ void stage_w12_w(unsigned char* dst, const unsigned c
     reinterpret_cast<uint4*>(dst)[e] = __ldcg(reinterpret_cast<const uint4*>(src) + e);
 }
 
-// The direction encoding's cotangent, once per ray: w12 staged into `w12`
-// (shared memory), dde = (sum_s bf16 g_h) wrde^T, pulled through the
-// encoding to d(dir) into rsum[6..8]. Ends synchronised.
-template <int D>
-__device__ __forceinline__ void ray_dir_vjp_w(unsigned char* w12, const unsigned char* w12_src,
-                                              const float* ghsum, const float* ray, float* rsum,
-                                              float* red) {
-  constexpr int H = D / 2;
+// The direction encoding's cotangent of a ray from a staged w12, whose
+// elements are w12_at(j, k) (out j < H, in k < 32): dde = ghsum wrde^T, pulled
+// through the encoding to d(dir) into rsum[6..8]. Ends synchronised.
+template <int H, typename W12>
+__device__ __forceinline__ void dir_vjp(const W12& w12_at, const float* ghsum, const float* ray,
+                                        float* rsum, float* red) {
   const int tid = threadIdx.x;
-  stage_w12_w<D>(w12, w12_src);
-  consumer_sync();
   if (tid < kDe) {
     float dd = 0.f;
 #pragma unroll 16
-    for (int j = 0; j < H; ++j) {
-      const bf16 wv = *reinterpret_cast<const bf16*>(w12 + swz64(j, tid));
-      dd = fmaf(ghsum[j], __bfloat162float(wv), dd);
-    }
+    for (int j = 0; j < H; ++j) dd = fmaf(ghsum[j], __bfloat162float(w12_at(j, tid)), dd);
     int c;
     red[tid] = enc_lane_grad(dd, ray + 6, tid, 4, &c);
     red[kDe + tid] = static_cast<float>(c);
@@ -497,6 +505,19 @@ __device__ __forceinline__ void ray_dir_vjp_w(unsigned char* w12, const unsigned
     rsum[6 + tid] = acc;
   }
   consumer_sync();
+}
+
+// The direction encoding's cotangent, once per ray: w12 staged into `w12`
+// (shared memory), dde = (sum_s bf16 g_h) wrde^T, pulled through the
+// encoding to d(dir) into rsum[6..8]. Ends synchronised.
+template <int D>
+__device__ __forceinline__ void ray_dir_vjp_w(unsigned char* w12, const unsigned char* w12_src,
+                                              const float* ghsum, const float* ray, float* rsum,
+                                              float* red) {
+  stage_w12_w<D>(w12, w12_src);
+  consumer_sync();
+  dir_vjp<D / 2>([&](int j, int k) { return *reinterpret_cast<const bf16*>(w12 + swz64(j, k)); },
+                 ghsum, ray, rsum, red);
 }
 
 }  // namespace

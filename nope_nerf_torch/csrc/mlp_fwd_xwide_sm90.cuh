@@ -2,9 +2,11 @@
 // (sm_90a): one 64-point tile through the 9-layer MLP with its layer-4 skip,
 // the feature and rgb-hidden layers and the f32 heads (mlp_tile_x_masks), the
 // forward of every kernel at these widths: render_fwd.cu (K3) and
-// point_mlp_fwd.cu (K5) run it without its ReLU masks, and the backward
-// kernels are to run it with them. FwdTrunk<D> (mlp_fwd_wide_sm90.cuh) takes
-// it at these widths through the explicit specialisations at the end.
+// point_mlp_fwd.cu (K5) run it without its ReLU masks, and the
+// frozen-network backward kernels (K4's and K6's variants, on
+// mlp_dx_xwide_sm90.cuh's dX chain) with them. FwdTrunk<D>
+// (mlp_fwd_wide_sm90.cuh) takes it at these widths through the explicit
+// specialisations at the end.
 //
 // Numerics are those of mlp_fwd_wide_sm90.cuh's trunk: bf16 operands, f32
 // accumulators that start at the bias, each 32-column span of K summed from
@@ -183,22 +185,36 @@ __device__ __forceinline__ void unstage_x(unsigned char* buf, const unsigned cha
 }
 
 // The end of a layer of PASSES passes of `cols` columns: once both
-// warpgroups' products are done (every read of the input), the last pass
-// from acc and the staged passes into the buffer; ends synchronised, the
-// buffer fenced for wgmma. The drain first: a save still reading the input
-// finishes before anything goes over it.
-template <int N, bool RELU, bool MASKS, int PASSES, typename Save>
-__device__ __forceinline__ void layer_end_x(const float (&acc)[N / 2], unsigned char* act,
-                                            const unsigned char* stage, int cols,
-                                            uint32_t* mask, const Save& save) {
+// warpgroups' products are done (every read of the input), the last pass by
+// store_last(buffer, its first column) and the staged passes into the
+// buffer; ends synchronised, the buffer fenced for wgmma. The drain first: a
+// save still reading the input finishes before anything goes over it. The
+// forward's layers (layer_end_x) and the dX chain's (mlp_dx_xwide_sm90.cuh)
+// end here.
+template <int N, int PASSES, typename Store, typename Save>
+__device__ __forceinline__ void layer_end_with(const Store& store_last, unsigned char* act,
+                                               const unsigned char* stage, int cols,
+                                               const Save& save) {
   const int wg = threadIdx.x >> 7;
   save.drain(wg);
   consumer_sync();
-  store_x<N, RELU, MASKS>(acc, act, cols * (PASSES - 1) + N * wg, mask + (PASSES - 1) * kConsumers);
+  store_last(act, cols * (PASSES - 1) + N * wg);
 #pragma unroll 1
   for (int q = 0; q + 1 < PASSES; ++q) unstage_x<N>(act, stage, cols * q + N * wg);
   fence_proxy_async();
   consumer_sync();
+}
+
+// A forward layer's end: its last pass from acc by store_x.
+template <int N, bool RELU, bool MASKS, int PASSES, typename Save>
+__device__ __forceinline__ void layer_end_x(const float (&acc)[N / 2], unsigned char* act,
+                                            const unsigned char* stage, int cols,
+                                            uint32_t* mask, const Save& save) {
+  layer_end_with<N, PASSES>(
+      [&](unsigned char* buf, int col) {
+        store_x<N, RELU, MASKS>(acc, buf, col, mask + (PASSES - 1) * kConsumers);
+      },
+      act, stage, cols, save);
 }
 
 // The forward of every kernel at D = 640 to 1024 (mlp_fwd_wide_sm90.cuh's

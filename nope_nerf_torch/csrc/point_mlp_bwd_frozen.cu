@@ -18,10 +18,11 @@
 // (M, 3) and density (M, 1), f32. Outputs: d(points), d(directions) (M, 3).
 //
 // Bound: compute. Forward + dX, 2.37 MFLOP a point at D=256 (5.23 at 384,
-// 9.20 at 512; the direction product per point), against 64 bytes of input
-// and output a point and the weights once. No activation goes to device
-// memory (mlp_dx_sm90.cuh); at 384 and 512 the ReLU masks and g4 do, to a
-// per-CTA scratch that stays in L2.
+// 9.20 at 512, 14.3 at 640, 36.2 at 1024; the direction product per point),
+// against 64 bytes of input and output a point and the weights once. No
+// activation goes to device memory (mlp_dx_sm90.cuh); from 384 on the ReLU
+// masks and g4 do, to a per-CTA scratch that stays in L2, and past 512 the
+// staged passes of a layer.
 //
 // Design: the chain over 128 consecutive points, as point_mlp_fwd.cu walks
 // them: persistent CTAs, one per SM, over the passes blockIdx.x, blockIdx.x +
@@ -43,8 +44,15 @@
 // arrays 2.5 KB, two 32 KB ring stages (222.5 KB of 227); at 384, 96 + 8 +
 // 8 + 9 KB, 2.5 KB and four 24 KB stages. The direction product (N = 32)
 // and the encoding VJPs run in warpgroup 0.
+//
+// At D = 640 to 1024, point_mlp_bwd_frozen_xwide_kernel runs the same order
+// on mlp_dx_xwide_sm90.cuh's chain (K5's forward with w12's product, then
+// the passes of 128 columns); the CTA's scratch holds g4, the staging and
+// one tile's masks: 312 KB at 1024. Shared memory at 1024: activations 128
+// KB, position and direction encodings 8 KB each, heads 24 KB, f32 arrays
+// 2.5 KB, three 16 KB ring stages.
 
-#include "mlp_dx_wide_sm90.cuh"
+#include "mlp_dx_xwide_sm90.cuh"
 
 namespace {
 
@@ -173,6 +181,57 @@ __host__ __device__ constexpr size_t frozen_scratch_w() {
   return g4_bytes_w<D>() + mask_tile_bytes_w<D>();
 }
 
+// The producer warpgroup's encoders (etid: 0..kEncoders-1) of a 64-point
+// kernel: each pass's points and directions (zeros past M), the CTA's passes
+// in order.
+__device__ __forceinline__ void point_encoder_w(const float* __restrict__ pts,
+                                                const float* __restrict__ dirs,
+                                                const Handoff& hand, unsigned char* pe,
+                                                unsigned char* de, int etid, long long M,
+                                                long long n_pass) {
+  long long tile = 0;
+  for (long long pass = blockIdx.x; pass < n_pass; pass += gridDim.x, ++tile) {
+    const long long p0 = pass * kWRows;
+    const int n = static_cast<int>(M - p0 < kWRows ? M - p0 : kWRows);
+    wait_free(hand.pe_free, tile);
+    encode_tile<10, kPe, kWRows>(pe, etid, [&](int p, int c) {
+      return p < n ? pts[3 * (p0 + p) + c] : 0.f;
+    });
+    hand_over(hand.pe_full);
+    wait_free(hand.de_free, tile);
+    encode_tile<4, kDe, kWRows>(de, etid, [&](int p, int c) {
+      return p < n ? dirs[3 * (p0 + p) + c] : 0.f;
+    });
+    hand_over(hand.de_full);
+  }
+}
+
+// The head VJP (f32) of a 64-point pass from its raw heads: the raw-rgb and
+// raw-density cotangents and the latter's bf16 value; rows of a ragged pass
+// (n points) get zero cotangents.
+__device__ __forceinline__ void point_head_vjp(const float* hout, const float* __restrict__ g_rgb,
+                                               const float* __restrict__ g_density, float* grgb,
+                                               float* graw, float* gsbf, int n, long long p0,
+                                               int occ_softplus, int head_dist_alpha) {
+  const int tid = threadIdx.x;
+  if (tid < kWRows) {
+    const bool live = tid < n;
+    const float raw = hout[4 * tid + 3];
+    const float gd = live ? g_density[p0 + tid] : 0.f;
+    const float sigma = density_act(raw, occ_softplus);
+    const float g_sigma = head_dist_alpha ? gd : gd * expf(-sigma);
+    const float gr =
+        occ_softplus ? g_sigma * (1.f / (1.f + expf(-raw))) : (raw > 0.f ? g_sigma : 0.f);
+    graw[tid] = gr;
+    gsbf[tid] = bf16_round(gr);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float s = 1.f / (1.f + expf(-hout[4 * tid + k]));
+      grgb[4 * tid + k] = (live ? g_rgb[3 * (p0 + tid) + k] : 0.f) * (s * (1.f - s));
+    }
+  }
+}
+
 // K6's frozen variant at D = 384 and 512: per 64-point pass, the forward
 // with its masks kept in the CTA's scratch, the head VJP, the rgb head's
 // backward, the direction product and the dX chain, each encoding's VJP by
@@ -211,23 +270,7 @@ point_mlp_bwd_frozen_wide_kernel(const float* __restrict__ pts, const float* __r
         push_backward_w<D, true>(f, tiles_dx);
       }
     } else if (etid >= 0) {
-      unsigned char* pe = base + L.pe;
-      unsigned char* de = base + L.de;
-      long long tile = 0;
-      for (long long pass = blockIdx.x; pass < n_pass; pass += gridDim.x, ++tile) {
-        const long long p0 = pass * kWRows;
-        const int n = static_cast<int>(M - p0 < kWRows ? M - p0 : kWRows);
-        wait_free(hand.pe_free, tile);
-        encode_tile<10, kPe, kWRows>(pe, etid, [&](int p, int c) {
-          return p < n ? pts[3 * (p0 + p) + c] : 0.f;
-        });
-        hand_over(hand.pe_full);
-        wait_free(hand.de_free, tile);
-        encode_tile<4, kDe, kWRows>(de, etid, [&](int p, int c) {
-          return p < n ? dirs[3 * (p0 + p) + c] : 0.f;
-        });
-        hand_over(hand.de_full);
-      }
+      point_encoder_w(pts, dirs, hand, base + L.pe, base + L.de, etid, M, n_pass);
     }
     return;
   }
@@ -255,23 +298,8 @@ point_mlp_bwd_frozen_wide_kernel(const float* __restrict__ pts, const float* __r
                         bias.b[10], hout, hand, tile, ring, masks);
     consumer_sync();   // both warpgroups' raw heads are in
 
-    // ---- head VJP (f32); rows of a ragged pass get zero cotangents -------------
-    if (tid < kWRows) {
-      const bool live = tid < n;
-      const float raw = hout[4 * tid + 3];
-      const float gd = live ? g_density[p0 + tid] : 0.f;
-      const float sigma = density_act(raw, occ_softplus);
-      const float g_sigma = head_dist_alpha ? gd : gd * expf(-sigma);
-      const float gr =
-          occ_softplus ? g_sigma * (1.f / (1.f + expf(-raw))) : (raw > 0.f ? g_sigma : 0.f);
-      graw[tid] = gr;
-      gsbf[tid] = bf16_round(gr);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float s = 1.f / (1.f + expf(-hout[4 * tid + k]));
-        grgb[4 * tid + k] = (live ? g_rgb[3 * (p0 + tid) + k] : 0.f) * (s * (1.f - s));
-      }
-    }
+    point_head_vjp(hout, g_rgb, g_density, grgb, graw, gsbf, n, p0, occ_softplus,
+                   head_dist_alpha);
     rgb_head_bwd_w<D>(base + L.act, grgb, masks + 8 * mask_layer_words_w<D>(), rgb_head,
                       nullptr, nullptr);
 
@@ -290,6 +318,120 @@ point_mlp_bwd_frozen_wide_kernel(const float* __restrict__ pts, const float* __r
     if (wg == 0) coord_grad90<8>(dpe, pts, 10, n, p0, dpts);
     consumer_sync();   // the pass is done with every buffer before the next one's forward
   }
+}
+
+// ---- hidden_dim 640 to 1024: the 64-point tiles of mlp_dx_xwide_sm90.cuh --------
+
+// A CTA's scratch past 512: g4's parked copy, the staging of the forward's
+// and the chain's passes, then one tile's masks.
+template <int D>
+__host__ __device__ constexpr size_t frozen_scratch_x() {
+  return g4_bytes_w<D>() + TilesX<D>::kStageBytes + mask_tile_bytes_x<D>();
+}
+
+// K6's frozen variant at D = 640 to 1024: point_mlp_bwd_frozen_wide_kernel's
+// order on mlp_fwd_xwide_sm90.cuh's forward (K5's, with w12's product) and
+// mlp_dx_xwide_sm90.cuh's chain.
+template <int D>
+__global__ void __launch_bounds__(kThreads90, 1)
+point_mlp_bwd_frozen_xwide_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
+                                  const float* __restrict__ g_rgb,
+                                  const float* __restrict__ g_density,
+                                  const unsigned char* __restrict__ tiles,
+                                  const unsigned char* __restrict__ tiles_dx, Biases bias,
+                                  unsigned char* scratch, float* __restrict__ dpts,
+                                  float* __restrict__ ddirs, long long M, int occ_softplus,
+                                  int head_dist_alpha, LayoutX<D> L) {
+  using T = TilesX<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = setup90(smem_raw, L.bars, L.stages);
+  Ring ring = make_ring(base, L.ring, L.bars, T::kFull, L.stages);
+  const uint32_t head_bar = ring.full + 16 * kMaxStages;
+  const uint32_t heads = smem_addr(base + L.heads);
+  const Handoff hand = make_handoff(ring);
+  const long long n_pass = (M + kWRows - 1) / kWRows;
+
+  if (threadIdx.x >= kConsumers) {
+    set_producer_regs();
+    const int etid = threadIdx.x - kConsumers - 32;
+    if (threadIdx.x == kConsumers) {
+      const long long mine = (n_pass - blockIdx.x + gridDim.x - 1) / gridDim.x;
+      mbar_expect_tx(head_bar, T::kDensHead + T::kRgbHead);
+      bulk_load(heads, tiles + T::kHeads, T::kDensHead + T::kRgbHead, head_bar);
+      Feeder f{ring};
+      for (long long k = 0; k < mine; ++k) {
+        push_forward_x<D>(f, tiles, true);
+        push_backward_x<D, true>(f, tiles_dx);
+      }
+    } else if (etid >= 0) {
+      point_encoder_w(pts, dirs, hand, base + L.pe, base + L.de, etid, M, n_pass);
+    }
+    return;
+  }
+  set_consumer_regs();
+
+  float* hout = reinterpret_cast<float*>(base + L.f32);   // (64, 4) raw
+  float* grgb = hout + 4 * kWRows;                        // raw-rgb cotangent     (64, 4)
+  float* graw = grgb + 4 * kWRows;                        // raw-density cotangent (64)
+  float* gsbf = graw + kWRows;                            // its bf16 value        (64)
+  unsigned char* g4 = scratch + static_cast<size_t>(blockIdx.x) * frozen_scratch_x<D>();
+  unsigned char* stage = g4 + g4_bytes_w<D>();
+  uint32_t* masks = reinterpret_cast<uint32_t*>(stage + T::kStageBytes);
+  const unsigned char* dens_head = base + L.heads;
+  const unsigned char* rgb_head = dens_head + T::kDensHead;
+  const uint32_t pe_s = smem_addr(base + L.pe), de_s = smem_addr(base + L.de);
+  const uint32_t act_s = smem_addr(base + L.act);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  mbar_wait(head_bar, 0);
+
+  long long tile = 0;
+  for (long long pass = blockIdx.x; pass < n_pass; pass += gridDim.x, ++tile) {
+    const long long p0 = pass * kWRows;
+    const int n = static_cast<int>(M - p0 < kWRows ? M - p0 : kWRows);
+    mlp_tile_x_masks<D>(bias.b, pe_s, de_s, base + L.act, heads, heads + T::kDensHead,
+                        bias.b[10], hout, hand, tile, ring, masks, stage);
+    consumer_sync();   // both warpgroups' raw heads are in
+    point_head_vjp(hout, g_rgb, g_density, grgb, graw, gsbf, n, p0, occ_softplus,
+                   head_dist_alpha);
+    rgb_head_bwd_x<D>(base + L.act, grgb, masks + 8 * mask_layer_words_x<D>(), rgb_head,
+                      nullptr, nullptr);
+
+    // d(directions) = (g_h wrde^T) through the direction encoding, by warpgroup 0
+    if (wg == 0) {
+      float acc[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+      ring_products_x<32, 2>(acc, act_s, T::kPasses, 0, ring);
+      coord_grad90<4>(acc, dirs, 4, n, p0, ddirs);
+    } else {
+      ring_skip(T::kPasses, ring);
+    }
+    float dpe[32];
+    dx_chain_x<D>(dpe, base + L.act, stage, ring, masks, gsbf, dens_head, g4);
+    if (wg == 0) coord_grad90<8>(dpe, pts, 10, n, p0, dpts);
+    consumer_sync();   // the pass is done with every buffer before the next one's forward
+  }
+}
+
+template <int D>
+cudaError_t launch_frozen_x(const float* pts, const float* dirs, const float* g_rgb,
+                            const float* g_density, const unsigned char* tiles,
+                            const unsigned char* tiles_dx, const Biases& bias,
+                            unsigned char* scratch, float* dpts, float* ddirs, long long M,
+                            int n_ctas, int occ_softplus, int head_dist_alpha,
+                            cudaStream_t stream) {
+  const LayoutX<D> L(true, kFrozenF32BytesW);
+  if (L.stages < 2) return cudaErrorInvalidValue;
+  const size_t smem = L.bytes(kFrozenF32BytesW);
+  cudaError_t err = cudaFuncSetAttribute(point_mlp_bwd_frozen_xwide_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  point_mlp_bwd_frozen_xwide_kernel<D><<<n_ctas, kThreads90, smem, stream>>>(
+      pts, dirs, g_rgb, g_density, tiles, tiles_dx, bias, scratch, dpts, ddirs, M, occ_softplus,
+      head_dist_alpha, L);
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -340,17 +482,17 @@ cudaError_t launch_frozen(const float* pts, const float* dirs, const float* g_rg
 // tiles: pack_tiles' forward weight buffer, tiles_dx: pack_tiles_dx's
 // backward buffer (both 16-byte aligned); biases: 12 f32 device pointers in
 // pack_weights' order. scratch: the bytes nerf_point_mlp_bwd_frozen_scratch
-// gives (the chain's parked g4, and at 384 and 512 one tile's masks). dpts,
-// ddirs (M, 3) f32 (out). 0 < n_ctas <= the number of passes (128 points at
-// D = 128 and 256, 64 at 384 and 512). Returns a cudaError_t (0 on success); the launch is asynchronous
-// on `stream`.
+// gives (the chain's parked g4, from 384 on one tile's masks, past 512 the
+// staging). dpts, ddirs (M, 3) f32 (out). 0 < n_ctas <= the number of passes
+// (128 points at D = 128 and 256, 64 from 384 on). Returns a cudaError_t (0
+// on success); the launch is asynchronous on `stream`.
 extern "C" int nerf_point_mlp_bwd_frozen(const float* pts, const float* dirs, const float* g_rgb,
                                          const float* g_density, const void* tiles,
                                          const void* tiles_dx, const void* const* biases,
                                          void* scratch, float* dpts, float* ddirs, long long M,
                                          int D, int n_ctas, int occ_softplus, int head_dist_alpha,
                                          void* stream) {
-  const int rows = D > 256 ? kWRows : kPts;   // points of a pass at this width
+  const int rows = D > 256 ? kWRows : kPts;   // points of a pass at this width (64 past 256)
   const long long n_pass = (M + rows - 1) / rows;
   if (M <= 0 || n_ctas <= 0 || n_ctas > n_pass) return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(tiles) % 16 != 0 || reinterpret_cast<uintptr_t>(tiles_dx) % 16 != 0)
@@ -363,6 +505,22 @@ extern "C" int nerf_point_mlp_bwd_frozen(const float* pts, const float* dirs, co
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
+    case 1024:
+      err = launch_frozen_x<1024>(pts, dirs, g_rgb, g_density, w, wdx, bias, sc, dpts, ddirs, M,
+                                  n_ctas, occ_softplus, head_dist_alpha, st);
+      break;
+    case 896:
+      err = launch_frozen_x<896>(pts, dirs, g_rgb, g_density, w, wdx, bias, sc, dpts, ddirs, M,
+                                 n_ctas, occ_softplus, head_dist_alpha, st);
+      break;
+    case 768:
+      err = launch_frozen_x<768>(pts, dirs, g_rgb, g_density, w, wdx, bias, sc, dpts, ddirs, M,
+                                 n_ctas, occ_softplus, head_dist_alpha, st);
+      break;
+    case 640:
+      err = launch_frozen_x<640>(pts, dirs, g_rgb, g_density, w, wdx, bias, sc, dpts, ddirs, M,
+                                 n_ctas, occ_softplus, head_dist_alpha, st);
+      break;
     case 512:
       err = launch_frozen_w<512>(pts, dirs, g_rgb, g_density, w, wdx, bias, sc, dpts, ddirs, M,
                                  n_ctas, occ_softplus, head_dist_alpha, st);
@@ -386,12 +544,20 @@ extern "C" int nerf_point_mlp_bwd_frozen(const float* pts, const float* dirs, co
 }
 
 // Bytes of nerf_point_mlp_bwd_frozen's scratch at width D over n_ctas CTAs:
-// each CTA's parked g4 (128 x D bf16 at D = 128 and 256; 64 x D at 384 and
-// 512, followed by one tile's ReLU masks); -1 for a width the kernel does
-// not take.
+// each CTA's parked g4 (128 x D bf16 at D = 128 and 256; 64 x D from 384 on,
+// followed past 512 by the staging, then by one tile's ReLU masks); -1 for a
+// width the kernel does not take.
 extern "C" long long nerf_point_mlp_bwd_frozen_scratch(int D, int n_ctas) {
   if (n_ctas <= 0) return -1;
   switch (D) {
+    case 1024:
+      return static_cast<long long>(frozen_scratch_x<1024>()) * n_ctas;
+    case 896:
+      return static_cast<long long>(frozen_scratch_x<896>()) * n_ctas;
+    case 768:
+      return static_cast<long long>(frozen_scratch_x<768>()) * n_ctas;
+    case 640:
+      return static_cast<long long>(frozen_scratch_x<640>()) * n_ctas;
     case 512:
       return static_cast<long long>(frozen_scratch_w<512>()) * n_ctas;
     case 384:

@@ -17,10 +17,11 @@
 // (N,S). Outputs: d(rays) (N,9), dz (N,S).
 //
 // Bound: compute. Forward + dX are two products per layer, 2.36 MFLOP a
-// point at D=256 (5.21 at 384, 9.18 at 512), against 52 bytes a sample of
-// input and output and the weights once. No activation goes to device
-// memory (mlp_dx_sm90.cuh); at 384 and 512 the ReLU masks and g4 do, to a
-// per-CTA scratch that L2 keeps.
+// point at D=256 (5.21 at 384, 9.18 at 512, 14.3 at 640, 36.2 at 1024),
+// against 52 bytes a sample of input and output and the weights once. No
+// activation goes to device memory (mlp_dx_sm90.cuh); from 384 on the ReLU
+// masks and g4 do, to a per-CTA scratch that L2 keeps, and past 512 the
+// staged passes of a layer.
 //
 // Design: persistent CTAs, one per SM, walk over the rays blockIdx.x,
 // blockIdx.x + gridDim.x, ...; per ray the S/128 tiles go through the
@@ -53,8 +54,19 @@
 // the spill scratch above S = 128, the composite's above S = 6,528. At
 // D = 384, S = 128: 96 + 8 + 9 KB, f32 10.6 KB and four 24 KB stages; the
 // per-sample arrays spill above S = 1,280, the composite's above 4,864.
+//
+// At D = 640 to 1024, render_bwd_frozen_xwide_kernel runs the same order on
+// mlp_dx_xwide_sm90.cuh's chain: one 64 x D buffer, each layer (forward and
+// dX) in passes of 128 columns, all but the last staged in the CTA's scratch,
+// which holds g4 (64 x D bf16), the staging (64 x (D - 128)) and the masks of
+// the ray's S/64 tiles (9 x D/128 KB each): 384 KB at 1024 and S = 128.
+// Shared memory at 1024, S = 128: activations 128 KB, position encodings 8
+// KB, heads 24 KB, f32 arrays 18.1 KB (the samples' 5.5 KB, the fixed 12.6
+// KB), two 16 KB ring stages; the per-sample arrays spill above S = 384, the
+// composite's above 6,528. w12 (D/128 slices of 8 KB) is staged in the
+// activation buffer between rays.
 
-#include "mlp_dx_wide_sm90.cuh"
+#include "mlp_dx_xwide_sm90.cuh"
 
 namespace {
 
@@ -351,6 +363,174 @@ render_bwd_frozen_wide_kernel(const float* __restrict__ rays, const float* __res
   }
 }
 
+// ---- hidden_dim 640 to 1024: the 64-point tiles of mlp_dx_xwide_sm90.cuh --------
+
+template <int D>
+RayPlace frozen_place_x(int S) {
+  return ray_place<D, LayoutX<D>>(S, kRaySampleF32, kRayCompositeF32, frozen_fixed_bytes_w<D>(),
+                                  TrunkX<D>::kActBytes);
+}
+
+// A CTA's scratch past 512: g4's parked copy, the staging of the forward's
+// and the chain's passes, then the masks of every tile of a ray.
+template <int D>
+__host__ __device__ size_t frozen_scratch_x(int S) {
+  return g4_bytes_w<D>() + TilesX<D>::kStageBytes +
+         static_cast<size_t>(S / kWRows) * mask_tile_bytes_x<D>();
+}
+
+// K4's frozen variant at D = 640 to 1024: render_bwd_frozen_wide_kernel's
+// order on mlp_fwd_xwide_sm90.cuh's forward and mlp_dx_xwide_sm90.cuh's chain
+// (one activation buffer; each layer in passes of 128 columns, staged).
+template <int D>
+__global__ void __launch_bounds__(kThreads90, 1)
+render_bwd_frozen_xwide_kernel(const float* __restrict__ rays, const float* __restrict__ z,
+                               const float* __restrict__ g_rgb, const float* __restrict__ g_dist,
+                               const float* __restrict__ g_w, const float* __restrict__ g_a,
+                               const unsigned char* __restrict__ tiles,
+                               const unsigned char* __restrict__ tiles_dx, Biases bias,
+                               unsigned char* scratch, float* spill, float* __restrict__ drays,
+                               float* __restrict__ dz, int n_rays, int S, int occ_softplus,
+                               int head_dist_alpha, int dist_alpha, LayoutX<D> L, RayPlace place) {
+  using T = TilesX<D>;
+  constexpr int H = D / 2;
+  constexpr size_t kMaskTileWords = mask_tile_bytes_x<D>() / sizeof(uint32_t);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = setup90(smem_raw, L.bars, L.stages);
+  Ring ring = make_ring(base, L.ring, L.bars, T::kFull, L.stages);
+  const uint32_t head_bar = ring.full + 16 * kMaxStages;
+  const uint32_t heads = smem_addr(base + L.heads);
+  const Handoff hand = make_handoff(ring);
+  const int passes = S / kWRows;
+
+  if (threadIdx.x >= kConsumers) {
+    set_producer_regs();
+    render_producer_x<D>(rays, z, tiles, tiles_dx, ring, heads, head_bar, hand, base + L.pe,
+                         n_rays, S);
+    return;
+  }
+  set_consumer_regs();
+
+  float* const f32 = reinterpret_cast<float*>(base + L.f32);
+  float* const act = reinterpret_cast<float*>(base + L.act);
+  const RayArrays arr = ray_arrays(place, S, f32, act, spill);
+  float* fz = arr.samples;                              // z                      (S)
+  float* hout = fz + S;                                 // rgb | raw density      (S,4)
+  float* graw = hout + 4 * S;                           // raw-density cotangent  (S)
+  float* grgb = graw + S;                               // raw-rgb cotangent      (S,4)
+  float* gz = grgb + 4 * S;                             // dz                     (S)
+  float* de = arr.fixed;                                // direction encoding     (32)
+  float* debias = de + kDe;                             // rgb-hidden bias        (D/2)
+  float* ghsum = debias + H;                            // sum of bf16 g_h        (D/2)
+  float* red = ghsum + H;                               // scratch                (4 D/2)
+  float* ray = red + 4 * H;                             // o | v | dir            (16)
+  float* rsum = ray + 16;                               // d_o, d_v, d_dir        (16)
+  float* gsbf = rsum + 16;                              // the tile's bf16 graw   (64)
+  float* cot = gsbf + kWRows;                           // g_rgb (0-2), g_dist    (16)
+  // between the forward and the backward: alpha, weights, transmittance and
+  // the scan buffers (S each), in the activation buffer while they fit
+  float* alpha = arr.composite;
+  float* wts = alpha + S;
+  float* trans = wts + S;
+  float* scan0 = trans + S;
+  float* scan1 = scan0 + S;
+  unsigned char* g4 = scratch + static_cast<size_t>(blockIdx.x) * frozen_scratch_x<D>(S);
+  unsigned char* stage = g4 + g4_bytes_w<D>();
+  uint32_t* masks = reinterpret_cast<uint32_t*>(stage + T::kStageBytes);
+  const unsigned char* dens_head = base + L.heads;
+  const unsigned char* rgb_head = dens_head + T::kDensHead;
+  // w12 staged for the per-ray bias and dde where the activation buffer is
+  // free: at the ray's start and end
+  unsigned char* w12 = base + L.act;
+  const uint32_t pe_s = smem_addr(base + L.pe);
+  const int tid = threadIdx.x;
+  mbar_wait(head_bar, 0);
+
+  long long tile = 0;
+  for (long long r = blockIdx.x; r < n_rays; r += gridDim.x) {
+    consumer_sync();   // the previous ray is done with every buffer
+    if (tid < 9) ray[tid] = rays[r * 9 + tid];
+    if (tid < 3) cot[tid] = g_rgb[r * 3 + tid];
+    if (tid == 3) cot[3] = g_dist[r];
+    for (int s = tid; s < S; s += kConsumers) fz[s] = z[r * S + s];
+    consumer_sync();
+    if (tid < kDe) de[tid] = __bfloat162float(__float2bfloat16_rn(dense_lane(ray + 6, tid, 4)));
+    stage_w12_x<D>(w12, tiles);
+    consumer_sync();
+    for (int j = tid; j < H; j += kConsumers) {   // render_fwd.cu's order: the same bits
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < kDe; ++k) {
+        const bf16 wv = *reinterpret_cast<const bf16*>(w12 + w12_x<D>(j, k));
+        acc = fmaf(de[k], __bfloat162float(wv), acc);
+      }
+      debias[j] = acc + bias.b[10][j];
+    }
+    consumer_sync();
+
+    // ---- forward: every tile's raw heads, its masks kept --------------------
+    for (int p = 0; p < passes; ++p, ++tile)
+      mlp_tile_x_masks<D>(bias.b, pe_s, 0, base + L.act, heads, heads + T::kDensHead, debias,
+                          hout + 4 * kWRows * p, hand, tile, ring, masks + p * kMaskTileWords,
+                          stage);
+    consumer_sync();
+    composite_fwd90(hout, fz, alpha, trans, wts, scan0, scan1, S, occ_softplus, head_dist_alpha,
+                    dist_alpha);
+
+    // ---- composite backward (f32) ---------------------------------------------
+    composite_bwd90(cot, cot[3], 0, g_w == nullptr ? nullptr : g_w + r * S,
+                    g_a == nullptr ? nullptr : g_a + r * S, hout, fz, alpha, trans, wts, scan0,
+                    scan1, graw, grgb, gz, S, occ_softplus, head_dist_alpha, dist_alpha);
+    for (int j = tid; j < H; j += kConsumers) ghsum[j] = 0.f;   // D/2 passes 256 here
+    if (tid < 16) rsum[tid] = 0.f;
+    consumer_sync();
+
+    // ---- heads -> MLP -> encoding, tile by tile -------------------------------
+    for (int p = 0; p < passes; ++p) {
+      const int p0 = p * kWRows;
+      const uint32_t* tmask = masks + p * kMaskTileWords;
+      if (tid < kWRows) gsbf[tid] = bf16_round(graw[p0 + tid]);
+      rgb_head_bwd_x<D>(base + L.act, grgb + 4 * p0, tmask + 8 * mask_layer_words_x<D>(),
+                        rgb_head, red, ghsum);
+      float dpe[32];
+      dx_chain_x<D>(dpe, base + L.act, stage, ring, tmask, gsbf, dens_head, g4);
+      tile_enc_vjp_w(dpe, ray, fz, gz, rsum, red, p0);
+    }
+
+    // ---- direction encoding, once per ray: dde = (sum_s bf16 g_h) wrde^T -----
+    stage_w12_x<D>(w12, tiles);
+    consumer_sync();
+    dir_vjp<H>([&](int j, int k) { return *reinterpret_cast<const bf16*>(w12 + w12_x<D>(j, k)); },
+               ghsum, ray, rsum, red);
+    if (tid < 9) drays[r * 9 + tid] = rsum[tid];
+    for (int s = tid; s < S; s += kConsumers) dz[r * S + s] = gz[s];
+  }
+}
+
+template <int D>
+cudaError_t launch_frozen_x(const float* rays, const float* z, const float* g_rgb,
+                            const float* g_dist, const float* g_w, const float* g_a,
+                            const unsigned char* tiles, const unsigned char* tiles_dx,
+                            const Biases& bias, unsigned char* scratch, float* spill,
+                            float* drays, float* dz, int n_rays, int S, int n_ctas,
+                            int occ_softplus, int head_dist_alpha, int dist_alpha,
+                            cudaStream_t stream) {
+  const RayPlace place = frozen_place_x<D>(S);
+  const size_t area = place.area(frozen_fixed_bytes_w<D>(), S);
+  const LayoutX<D> L(false, area);
+  if (L.stages < 2) return cudaErrorInvalidValue;
+  if (place.spill_floats(S) > 0 && spill == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = L.bytes(area);
+  cudaError_t err = cudaFuncSetAttribute(render_bwd_frozen_xwide_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  render_bwd_frozen_xwide_kernel<D><<<n_ctas, kThreads90, smem, stream>>>(
+      rays, z, g_rgb, g_dist, g_w, g_a, tiles, tiles_dx, bias, scratch, spill, drays, dz, n_rays,
+      S, occ_softplus, head_dist_alpha, dist_alpha, L, place);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_frozen_w(const float* rays, const float* z, const float* g_rgb,
                             const float* g_dist, const float* g_w, const float* g_a,
@@ -408,8 +588,8 @@ cudaError_t launch_frozen(const float* rays, const float* z, const float* g_rgb,
 // (n_rays, S) f32 or null (a zero cotangent); tiles: pack_tiles' forward
 // weight buffer, tiles_dx: pack_tiles_dx's backward buffer (both 16-byte
 // aligned); biases: 12 f32 device pointers in pack_weights' order. scratch:
-// the bytes nerf_render_bwd_frozen_scratch gives (the chain's parked g4, and
-// at 384 and 512 the masks); spill: the bytes
+// the bytes nerf_render_bwd_frozen_scratch gives (the chain's parked g4, from
+// 384 on the masks, past 512 the staging); spill: the bytes
 // nerf_render_bwd_frozen_spill gives (null where it gives 0). drays
 // (n_rays, 9), dz (n_rays, S) f32 (out). 0 < n_ctas <= n_rays. Returns a
 // cudaError_t (0 on success); the launch is asynchronous on `stream`.
@@ -433,6 +613,26 @@ extern "C" int nerf_render_bwd_frozen(const float* rays, const float* z, const f
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {
+    case 1024:
+      err = launch_frozen_x<1024>(rays, z, g_rgb, g_dist, g_w, g_a, w, wdx, bias, sc, spill, drays,
+                                  dz, n_rays, S, n_ctas, occ_softplus, head_dist_alpha, dist_alpha,
+                                  st);
+      break;
+    case 896:
+      err = launch_frozen_x<896>(rays, z, g_rgb, g_dist, g_w, g_a, w, wdx, bias, sc, spill, drays,
+                                 dz, n_rays, S, n_ctas, occ_softplus, head_dist_alpha, dist_alpha,
+                                 st);
+      break;
+    case 768:
+      err = launch_frozen_x<768>(rays, z, g_rgb, g_dist, g_w, g_a, w, wdx, bias, sc, spill, drays,
+                                 dz, n_rays, S, n_ctas, occ_softplus, head_dist_alpha, dist_alpha,
+                                 st);
+      break;
+    case 640:
+      err = launch_frozen_x<640>(rays, z, g_rgb, g_dist, g_w, g_a, w, wdx, bias, sc, spill, drays,
+                                 dz, n_rays, S, n_ctas, occ_softplus, head_dist_alpha, dist_alpha,
+                                 st);
+      break;
     case 512:
       err = launch_frozen_w<512>(rays, z, g_rgb, g_dist, g_w, g_a, w, wdx, bias, sc, spill, drays,
                                  dz, n_rays, S, n_ctas, occ_softplus, head_dist_alpha, dist_alpha,
@@ -466,6 +666,18 @@ extern "C" long long nerf_render_bwd_frozen_spill(int S, int D, int n_ctas) {
   if (S <= 0 || S % kPts != 0 || n_ctas <= 0) return -1;
   long long per_cta;
   switch (D) {
+    case 1024:
+      per_cta = frozen_place_x<1024>(S).spill_floats(S);
+      break;
+    case 896:
+      per_cta = frozen_place_x<896>(S).spill_floats(S);
+      break;
+    case 768:
+      per_cta = frozen_place_x<768>(S).spill_floats(S);
+      break;
+    case 640:
+      per_cta = frozen_place_x<640>(S).spill_floats(S);
+      break;
     case 512:
       per_cta = frozen_place_w<512>(S).spill_floats(S);
       break;
@@ -486,12 +698,25 @@ extern "C" long long nerf_render_bwd_frozen_spill(int S, int D, int n_ctas) {
 
 // Bytes of nerf_render_bwd_frozen's scratch for S samples at width D over
 // n_ctas CTAs: each CTA's parked g4 (128 x D bf16 at D = 128 and 256; 64 x D
-// at 384 and 512, followed by the ReLU masks of the ray's S/64 tiles); -1 for
-// a width or an S the kernel does not take.
+// from 384 on, followed past 512 by the staging of 64 x (D - 128) bf16, then
+// by the ReLU masks of the ray's S/64 tiles); -1 for a width or an S the
+// kernel does not take.
 extern "C" long long nerf_render_bwd_frozen_scratch(int S, int D, int n_ctas) {
   if (S <= 0 || S % kPts != 0 || n_ctas <= 0) return -1;
   long long per_cta;
   switch (D) {
+    case 1024:
+      per_cta = static_cast<long long>(frozen_scratch_x<1024>(S));
+      break;
+    case 896:
+      per_cta = static_cast<long long>(frozen_scratch_x<896>(S));
+      break;
+    case 768:
+      per_cta = static_cast<long long>(frozen_scratch_x<768>(S));
+      break;
+    case 640:
+      per_cta = static_cast<long long>(frozen_scratch_x<640>(S));
+      break;
     case 512:
       per_cta = static_cast<long long>(frozen_scratch_w<512>(S));
       break;

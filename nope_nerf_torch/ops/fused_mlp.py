@@ -12,10 +12,11 @@ On a CUDA tensor `point_mlp` launches the hand-written Hopper kernels in
 when no nerf parameter wants a gradient, K6's frozen-network variant
 `csrc/point_mlp_bwd_frozen.cu`), or raises. The forward takes hidden_dim
 128 to 1024 (past 512 on `csrc/mlp_fwd_xwide_sm90.cuh`'s trunk, with a
-per-CTA staging scratch the wrapper allocates), the backward 128 to 512.
-Both backward variants run the
-wgmma dX chain (`csrc/mlp_dx_sm90.cuh`; at hidden_dim 384 and 512 the
-64-point chain of `csrc/mlp_dx_wide_sm90.cuh`); the full one also writes
+per-CTA staging scratch the wrapper allocates), and so does the backward's
+frozen-network variant; the full backward 128 to 512. Both backward
+variants run the wgmma dX chain (`csrc/mlp_dx_sm90.cuh`; at hidden_dim 384
+and 512 the 64-point chain of `csrc/mlp_dx_wide_sm90.cuh`; the frozen one
+at 640 to 1024 that of `csrc/mlp_dx_xwide_sm90.cuh`); the full one also writes
 every operand of a weight-gradient product to device memory and forms the
 dW blocks with the generic weight-gradient kernel `csrc/dw_sm90.cuh`
 (dW = X^T G over the points, split into chunks of points summed in order,
@@ -126,10 +127,10 @@ def _check_inputs(pts: torch.Tensor, dirs: torch.Tensor) -> None:
 
 
 def _check_width(cfg: NerfConfig, kernel: str) -> None:
-    """The point-query MLP `kernel` ("forward": K5, 128 to 1024; "backward
-    (frozen network)": K6's frozen-network variant; "backward": K6 full; each
-    128 to 512) takes cfg's width and the reference 10/4 encoding levels, or this
-    raises NotImplementedError before any device work."""
+    """The point-query MLP `kernel` ("forward": K5, and "backward (frozen
+    network)": K6's frozen-network variant, 128 to 1024; "backward": K6 full,
+    128 to 512) takes cfg's width and the reference 10/4 encoding levels, or
+    this raises NotImplementedError before any device work."""
     if cfg.pos_enc_levels != 10 or cfg.dir_enc_levels != 4:
         raise NotImplementedError(
             "the CUDA point-query MLP kernels are built for the reference 10/4 encoding "
@@ -569,8 +570,8 @@ def dw_sm90(xs: Sequence[torch.Tensor], gs: Sequence[torch.Tensor], Ks: Sequence
 def _mlp_bwd_frozen_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig):
     """(dpts, ddirs) by one launch of K6's frozen-network variant: no
     operands, no partial sums; a per-CTA scratch holds the chain's g4 (one
-    tile x D bf16) and, at 384 and 512, the tile's ReLU masks (the kernel's
-    entry gives its size)."""
+    tile x D bf16) and, from 384 on, the tile's ReLU masks (past 512 also the
+    staging of a layer's passes; the kernel's entry gives its size)."""
     D = cfg.hidden_dim
     dev = pts.device
     M = pts.shape[0]

@@ -32,9 +32,11 @@ weights as `pack_tiles`' pre-swizzled slices, the layout their wgmma trunk
 512; csrc/mlp_fwd_xwide_sm90.cuh at 640 to 1024) streams into shared memory;
 every backward kernel takes those and `pack_tiles_dx`' slices of the (in,
 out) weights, the B operands of its wgmma dX chain (csrc/mlp_dx_sm90.cuh;
-csrc/mlp_dx_wide_sm90.cuh's 64-point chain at 384 and 512). Which kernel
-takes which hidden_dim is KERNEL_WIDTHS': the forward kernels 128 to 1024,
-the backward kernels 128 to 512.
+csrc/mlp_dx_wide_sm90.cuh's 64-point chain at 384 and 512;
+csrc/mlp_dx_xwide_sm90.cuh's, in passes of 128 columns, at 640 to 1024).
+Which kernel takes which hidden_dim is KERNEL_WIDTHS': the forward kernels
+and the frozen-network backward variants 128 to 1024, the kernels that form
+weight gradients (K1, K4 full, K6 full) 128 to 512.
 
 The ray table is (N, 9) [origin | ray_vec | mlp_dir]: the TPU's 128-lane
 padding is a layout of that machine and is not carried over. The train
@@ -281,7 +283,8 @@ def tile_rows(D: int) -> int:
 def _tile_dx_layout(D: int) -> List[Tuple[int, int, int]]:
     """(pack_weights index, rows N = inputs, columns K = outputs) of each
     weight of the frozen-network backward's buffer (csrc/mlp_dx_sm90.cuh::
-    TilesDx; csrc/mlp_dx_wide_sm90.cuh::TilesDxW at 384 and 512), in the
+    TilesDx; csrc/mlp_dx_wide_sm90.cuh::TilesDxW at 384 and 512;
+    csrc/mlp_dx_xwide_sm90.cuh::TilesDxX at 640 to 1024), in the
     order its dX products g_in = g_out W consume them: the
     rgb-hidden layer's direction part (K6 only; K4 starts after it) and x
     part, the feature layer, the trunk from layer 7 down to 1 (w8, w7, w6,
@@ -298,9 +301,39 @@ def _tile_dx_index(D: int) -> np.ndarray:
     (in, out) block is already (N, K) with K contiguous, the K-major B operand
     of a dX product, cut into slices of _slice_cols(D) columns: 64 in the
     128-byte swizzle at 128 and 256, 32 in the 64-byte one at 384 and 512
-    (the wide chain's ring stages hold the forward's 32-column slices)."""
+    (the wide chain's ring stages hold the forward's 32-column slices). Past
+    512, _tile_dx_x_index."""
+    if D > 512:
+        return _tile_dx_x_index(D)
     return _swizzled_slices([(N, K, _slice_cols(D)) for _, N, K in _tile_dx_layout(D)],
                             k_major=True)
+
+
+def _tile_dx_x_index(D: int) -> np.ndarray:
+    """The backward buffer at 640 to 1024 (csrc/mlp_dx_xwide_sm90.cuh::
+    TilesDxX), in the order the chain's passes read it: w12's 32 rows in
+    64-column slices (128-byte swizzle); then for each weight from w11 to w1
+    and each of its D/128 passes, the 64-column slices of the pass's 128 rows
+    (the inputs that pass computes); then w0 and w5's encoding part, their 64
+    rows in 64-column slices. Over the same concatenation of the
+    _packed_blocks as at every width."""
+    base, at = {}, 0
+    for i, N, K in _tile_dx_layout(D):
+        base[i] = (at, N, K)
+        at += N * K
+
+    def rows(i, r0, n):
+        b, N, K = base[i]
+        return _slice_index(b, N, K, SWIZZLE_COLS, r0, n, k_major=True)
+
+    layout = [i for i, _, _ in _tile_dx_layout(D)]
+    trunk = layout[1:-2]      # w11, w10, w8, w7, w6, w4, w3, w2, w1
+    parts = [rows(12, 0, DE_DIM)]
+    parts += [rows(i, XWIDE_PASS_COLS * p, XWIDE_PASS_COLS)
+              for i in trunk for p in range(D // XWIDE_PASS_COLS)]
+    parts += [rows(i, 0, PE_DIM) for i in layout[-2:]]
+    idx = np.concatenate(parts)
+    return np.where(idx < 0, at, idx)
 
 
 @functools.lru_cache(maxsize=16)
@@ -321,8 +354,9 @@ def pack_tiles_dx(params: Dict[str, torch.Tensor], cfg: NerfConfig):
     """nerf params -> (the forward buffer of pack_tiles, the frozen-network
     backward's buffer, 12 f32 biases), from one _packed_blocks. The backward
     buffer holds each weight of _tile_dx_layout as 64-column (output) slices
-    of its (in, out) storage (32-column ones at 384 and 512), pre-swizzled,
-    in the order the chain's producer streams them."""
+    of its (in, out) storage (32-column ones at 384 and 512; past 512 those
+    of each 128-row pass, _tile_dx_x_index), pre-swizzled, in the order the
+    chain's producer streams them."""
     blocks, biases = _packed_blocks(params, cfg)
     D = cfg.hidden_dim
     return (_gather_slices(blocks, D, _tile_layout, _tile_index),
@@ -848,19 +882,18 @@ def _train_plain(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p:
 # csrc/mlp_fwd_wide_sm90.cuh and csrc/mlp_dx_wide_sm90.cuh (the kernels that
 # form weight gradients, K1, K4 full and K6 full, with
 # csrc/mlp_dw_chain_sm90.cuh's OperandSaveW there); the forward kernels, K3
-# and K5, also 640 to 1024 on csrc/mlp_fwd_xwide_sm90.cuh's trunk.
+# and K5, and the frozen-network variants of K4 and K6 also 640 to 1024, on
+# csrc/mlp_fwd_xwide_sm90.cuh's trunk and csrc/mlp_dx_xwide_sm90.cuh's chain.
 BACKWARD_WIDTHS = (128, 256, 384, 512)
 FORWARD_WIDTHS = BACKWARD_WIDTHS + (640, 768, 896, 1024)
 KERNEL_WIDTHS = {"render": FORWARD_WIDTHS, "point-query MLP forward": FORWARD_WIDTHS,
-                 "render-backward (frozen network)": BACKWARD_WIDTHS,
-                 "point-query MLP backward (frozen network)": BACKWARD_WIDTHS,
+                 "render-backward (frozen network)": FORWARD_WIDTHS,
+                 "point-query MLP backward (frozen network)": FORWARD_WIDTHS,
                  "point-query MLP backward": BACKWARD_WIDTHS,
                  "train": BACKWARD_WIDTHS, "render-backward": BACKWARD_WIDTHS}
-# The entry of ROADMAP.md's Queue 3 (c) that brings each backward kernel to
-# 640 to 1024, on the forward the forward kernels run there
-BACKWARD_QUEUE = {"render-backward (frozen network)": 2,
-                  "point-query MLP backward (frozen network)": 2,
-                  "point-query MLP backward": 3, "train": 4, "render-backward": 4}
+# The entry of ROADMAP.md's Queue 3 (c) that brings each kernel that forms
+# weight gradients to 640 to 1024, on the chain the frozen variants run there
+BACKWARD_QUEUE = {"point-query MLP backward": 3, "train": 4, "render-backward": 4}
 
 
 def check_kernel_width(kernel: str, D: int) -> None:
@@ -874,8 +907,9 @@ def check_kernel_width(kernel: str, D: int) -> None:
         why = (f": widths past {FORWARD_WIDTHS[-1]} need a tile plan of their own in every "
                "trunk header (ROADMAP.md, Queue 3 (c))")
     elif D > BACKWARD_WIDTHS[-1] and D in FORWARD_WIDTHS:
-        why = (f": only the forward kernels run past {BACKWARD_WIDTHS[-1]}; this one is queued "
-               f"on their trunk (ROADMAP.md, Queue 3 (c), item {BACKWARD_QUEUE[kernel]})")
+        why = (f": past {BACKWARD_WIDTHS[-1]} only the forward kernels and the frozen-network "
+               "backward variants run; this one is queued on their trunk and dX chain "
+               f"(ROADMAP.md, Queue 3 (c), item {BACKWARD_QUEUE[kernel]})")
     else:
         why = ""
     raise NotImplementedError(
@@ -1323,9 +1357,10 @@ def _render_bwd_frozen_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfC
                             dist_alpha: bool):
     """(drays, dz) by one launch of K4's frozen-network variant: no operands,
     no partial sums; a per-CTA scratch holds the chain's g4 (one tile x D
-    bf16) and, at 384 and 512, the ReLU masks of a ray's S/64 tiles (the
-    kernel's entry gives its size), and another the per-sample arrays that do
-    not fit in shared memory (S > 896 at D = 256, S > 128 at 512)."""
+    bf16) and, from 384 on, the ReLU masks of a ray's S/64 tiles (past 512
+    also the staging of a layer's passes; the kernel's entry gives its
+    size), and another the per-sample arrays that do not fit in shared
+    memory (S > 896 at D = 256, S > 128 at 512, S > 384 at 1024)."""
     n, S = z.shape
     D = cfg.hidden_dim
     dev = rays.device

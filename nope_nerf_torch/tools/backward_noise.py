@@ -35,7 +35,8 @@ deviation. A deviation that such flips reproduce is the function's noise; one
 they do not is a fault.
 With `--frozen`, the frozen-network variant (csrc/render_bwd_frozen.cu: the
 dX chain of csrc/mlp_dx_sm90.cuh at hidden_dim 128 and 256, of
-csrc/mlp_dx_wide_sm90.cuh at 384 and 512) in two parts instead:
+csrc/mlp_dx_wide_sm90.cuh at 384 and 512, of csrc/mlp_dx_xwide_sm90.cuh at 640
+to 1024) in two parts instead:
 1. the same yardstick at every width: chip_smoke.py phase 13's inputs
    (train_inputs, many_params, bwd_cotangents with all four cotangents),
    S = 128, both flag sets of WIDE_FLAGS, FROZEN_SEEDS seeds, on 133 rays
@@ -56,6 +57,11 @@ csrc/mlp_dx_wide_sm90.cuh at 384 and 512) in two parts instead:
    zero, the share of entries whose bf16 rounding differs from the exact
    value's, and the forward's pre-activations (+ bias in f32) whose sign
    differs from the exact one's (a flipped ReLU mask).
+With `--frozen --widths 640 1024` (any widths), part 1 alone at those widths
+on the pose-opt step's 1024 rays, with per width and flag set the kernel's
+mean L2 distance from the f64 sum over the f32 plain version's, held to
+FROZEN_RULE (2.0: at or under it the chain is a faithful f32 evaluation;
+the rule for csrc/mlp_dx_xwide_sm90.cuh's chain, fixed before it first ran).
 With `--full`, K6 full (csrc/point_mlp_bwd.cu) at hidden_dim 384 and 512 (or
 the `--widths` given) on chip_smoke.py phase 13's inputs (point_inputs,
 point_cotangents, both flag sets of WIDE_FLAGS) at its point counts
@@ -126,6 +132,10 @@ INPUT_SETS = {"wide": (3.0, 8.1), "scene": (0.5, 6.0)}
 FROZEN_WIDTHS = (128, 256, 384, 512)
 FROZEN_RAYS = (133, 1024)
 FROZEN_SEEDS = 6
+# --frozen --widths: the kernel's mean L2 distance from the f64 sum over the f32 plain
+# version's, per width and flag set, above which the chain is at fault (fixed before the
+# chain past 512 first ran)
+FROZEN_RULE = 2.0
 FULL_SEEDS = 4
 RENDER_FULL_SEEDS = 2
 
@@ -214,17 +224,19 @@ def explain_rgb_hidden_bias(torch, chip_smoke, dev, name, occ, head_da, dist_alp
               f"{margins or 'none'}) leave {left / tol:.3f} of the tolerance unexplained")
 
 
-def frozen_yardstick(torch, chip_smoke, dev) -> None:
+def frozen_yardstick(torch, chip_smoke, dev, widths=FROZEN_WIDTHS, ray_counts=FROZEN_RAYS) -> None:
     """Part 1 of --frozen: K4 frozen, its f32 plain version and the f64 sum,
     at every width and ray count (see the module text)."""
     from nope_nerf_torch.ops.fused_render import _render_bwd_cuda, render_rays_fused_bwd_plain
     pairs = ("kernel~f32", "kernel~f64", "f32~f64")
-    for D in FROZEN_WIDTHS:
-        for n_rays in FROZEN_RAYS:
+    for D in widths:
+        for n_rays in ray_counts:
             worst = {(p, b): 0.0 for p in pairs for b in ("rays", "z")}
             beyond = dict.fromkeys(pairs, 0)
             l2 = dict.fromkeys(pairs, 0.0)
+            ratios = []
             for occ, da in chip_smoke.WIDE_FLAGS:
+                flag_l2 = dict.fromkeys(pairs, 0.0)
                 for seed in range(FROZEN_SEEDS):
                     gen = torch.Generator().manual_seed(100 + seed)
                     rays, z, tgt = chip_smoke.train_inputs(torch, dev, gen, n_rays, SAMPLES)
@@ -247,18 +259,26 @@ def frozen_yardstick(torch, chip_smoke, dev) -> None:
                             worst[(what, b)] = max(worst[(what, b)], share)
                             beyond[what] += share > 1.0
                             l2[what] += norm
+                            flag_l2[what] += norm
                             parts.append(f"{what} {share:.3f} ({off} off)")
                         row.append(f"{b}: " + ", ".join(parts))
                     print(f"frozen D={D} {n_rays} rays occ={occ} dist_alpha={da} seed {seed}: "
                           + "; ".join(row), flush=True)
+                ratio = flag_l2["kernel~f64"] / flag_l2["f32~f64"]
+                ratios.append(ratio)
+                print(f"frozen D={D} {n_rays} rays occ={occ} dist_alpha={da}, {FROZEN_SEEDS} seeds: "
+                      f"mean L2 share kernel~f64 {flag_l2['kernel~f64'] / (2 * FROZEN_SEEDS):.3f}, "
+                      f"f32~f64 {flag_l2['f32~f64'] / (2 * FROZEN_SEEDS):.3f}, ratio {ratio:.2f} "
+                      f"(rule: at most {FROZEN_RULE}: {ratio <= FROZEN_RULE})", flush=True)
             cases = 2 * len(chip_smoke.WIDE_FLAGS) * FROZEN_SEEDS
             print(f"frozen D={D} {n_rays} rays, summary over {cases // 2} cases: worst share "
                   + ", ".join(f"{p} rays {worst[(p, 'rays')]:.3f} z {worst[(p, 'z')]:.3f}"
                               for p in pairs)
                   + "; blocks beyond the rule " + ", ".join(f"{p} {beyond[p]}" for p in pairs)
                   + f"; mean L2 share kernel~f64 {l2['kernel~f64'] / cases:.3f}, f32~f64 "
-                  f"{l2['f32~f64'] / cases:.3f}, ratio {l2['kernel~f64'] / l2['f32~f64']:.2f}",
-                  flush=True)
+                  f"{l2['f32~f64'] / cases:.3f}, ratio {l2['kernel~f64'] / l2['f32~f64']:.2f}; "
+                  f"per flag set {', '.join(f'{r:.2f}' for r in ratios)}, every one at most "
+                  f"{FROZEN_RULE}: {all(r <= FROZEN_RULE for r in ratios)}", flush=True)
 
 
 def full_yardstick(torch, chip_smoke, dev, widths) -> None:
@@ -694,7 +714,8 @@ def main(argv=None) -> int:
                     help="with --render-full: these cases instead of phase 13's, and no part 2")
     ap.add_argument("--widths", type=int, nargs="+", default=None,
                     help="with --render-full or --forward (default 128 to 512) or --full "
-                         "(default 384 and 512): the widths")
+                         "(default 384 and 512): the widths; with --frozen, part 1 alone at "
+                         "these widths on 1024 rays")
     ap.add_argument("--seeds", type=int, default=RENDER_FULL_SEEDS,
                     help="with --render-full: seeds a case")
     ap.add_argument("--attribute", action="store_true",
@@ -739,6 +760,10 @@ def main(argv=None) -> int:
                                   None if args.flag_set is None else (args.flag_set,))
             if cases is None:
                 render_full_flips(torch, chip_smoke, dev, widths)
+            return 0
+        if args.widths:
+            build_all((fused_render.RENDER_BWD_FROZEN,))
+            frozen_yardstick(torch, chip_smoke, dev, args.widths, (chip_smoke.WIDE_BWD_RAYS,))
             return 0
         build_all((fused_render.RENDER_BWD_FROZEN, fused_mlp.DW_SM90))
         tensor_core_products(torch, chip_smoke, dev)

@@ -26,7 +26,8 @@ one warm-up:
   (render_bwd_frozen.cu) at 1024 rays x 128 samples (the pose-opt step's
   launch) and 1024 x 512, on the cotangents of a colour and depth loss, and
   K6's (point_mlp_bwd_frozen.cu) at 196,608 points (the fine pass of a
-  hierarchical pose-opt step);
+  hierarchical pose-opt step), at 128 to 1024 since their chain past 512
+  (csrc/mlp_dx_xwide_sm90.cuh);
 - `--kernels full`: K6 full through `_mlp_bwd_cuda` at 196,608 points (the
   fine pass of a hierarchical train step: every dW, dB, d(points),
   d(directions)); at the widths K1 and K4 full take (128 to 512; 128 and
@@ -73,7 +74,7 @@ BWD_RAYS = 1024
 BWD_SAMPLES = (128, 512)
 # the mangled names of each set's kernel instances: kernel, template arguments
 SASS_NAMES = {"forward": r"(render_fwd_kernel|point_mlp_fwd_kernel)I(Li\d+E(?:Lb\d)?)",
-              "frozen": r"((?:render|point_mlp)_bwd_frozen(?:_wide)?_kernel)I(Li\d+E(?:Lb\d)?)",
+              "frozen": r"((?:render|point_mlp)_bwd_frozen(?:_wide|_xwide)?_kernel)I(Li\d+E(?:Lb\d)?)",
               "full": r"((?:point_mlp_bwd(?:_wide)?|render_full(?:_wide)?|dw_sm90|dw_reduce|"
                       r"chain_reduce)_kernel)(I(?:Li\d+E|Lb\d+E)+E|E)"}
 

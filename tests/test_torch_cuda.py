@@ -1154,11 +1154,13 @@ def test_wide_backward_kernels_raise_before_any_launch(cuda_device):
 
 @pytest.mark.parametrize("flags", [("softplus", False), ("relu", True)], ids=["softplus", "relu"])
 @pytest.mark.parametrize("S", [128, 256, 1024])
-@pytest.mark.parametrize("hidden", [384, 512])
+@pytest.mark.parametrize("hidden", [384, 512, 640, 1024])
 def test_render_bwd_frozen_wide(cuda_device, hidden, S, flags):
     """K4's frozen-network variant at 384 and 512 (csrc/mlp_dx_wide_sm90.cuh's
     64-point chain; the masks of a ray's tiles in device memory, its arrays
-    past shared memory from S = 256 at 512): two launches bit-equal, within
+    past shared memory from S = 256 at 512) and at 640 and 1024
+    (csrc/mlp_dx_xwide_sm90.cuh's passes of 128 columns, staged in device
+    memory; the arrays past shared memory from S = 512 at 1024): two launches bit-equal, within
     the per-sample tolerance of the plain version. The pose-opt step's 1024
     rays (7 or 8 a CTA): on 133 the rule's 1 entry in 1000 of d(rays) is less
     than one flipped bf16 rounding moves, and the f32 plain version itself
@@ -1178,9 +1180,9 @@ def test_render_bwd_frozen_wide(cuda_device, hidden, S, flags):
 
 
 @pytest.mark.parametrize("m", [1, 63, 64, 65, 127, 64 * 265 + 5])
-@pytest.mark.parametrize("hidden", [384, 512])
+@pytest.mark.parametrize("hidden", [384, 512, 640, 1024])
 def test_point_mlp_bwd_frozen_wide(cuda_device, hidden, m):
-    """K6's frozen-network variant at 384 and 512 on 64-point passes: one
+    """K6's frozen-network variant at 384 to 1024 on 64-point passes: one
     point, a ragged, a full and a two-pass count, and two waves of the SMs
     ending ragged; two launches bit-equal, within the per-sample tolerance of
     the plain version (the L2 rule alone under 1000 entries)."""
