@@ -1171,7 +1171,8 @@ def counted(fn, expected: dict, what: str):
     name: 0). render_bwd counts both variants of the render-backward kernel,
     render_bwd_frozen those of its frozen-network variant among them;
     point_mlp_bwd and point_mlp_bwd_frozen likewise for K6; dw_sm90 counts
-    the weight-gradient kernel, which K6's full variant launches once and K1
+    the weight-gradient kernel, which K6's full variant launches once (twice
+    past hidden_dim 512, where its table takes two launches) and K1
     and K4's full variant once per chunk of rays (render_chunks), as they
     launch their own chain kernel.
     Returns (fn's result, counts)."""
@@ -3227,11 +3228,18 @@ def check_wide_full(torch, dev, widths=WIDE_D) -> dict:
     width of `widths` (phase 13: 384 and 512, csrc/mlp_dx_wide_sm90.cuh's
     chain with mlp_dw_chain_sm90.cuh's OperandSaveW and dw_sm90.cuh's column
     pieces; phase 14: 128 and 256, csrc/mlp_dx_sm90.cuh's chain with
-    OperandSave), over both flag sets of WIDE_FLAGS, on the cotangents of a
+    OperandSave; phase 16: 640 to 1024, csrc/mlp_dx_xwide_sm90.cuh's chain
+    with OperandSaveX, the dW kernel's pieces in two launches), over both
+    flag sets of WIDE_FLAGS, on the cotangents of a
     smooth loss: every dW and dB block and d(points), d(directions) against
     the plain version (wide_full_share), two launches bit-equal, d(points)
-    and d(directions) torch.equal to K6 frozen's. Returns the worst absolute
-    error by width; fails if any case disagrees."""
+    and d(directions) torch.equal to K6 frozen's. Where a case misses the
+    rule and the f32 plain version is itself beyond it against the plain
+    version summed in f64, the kernel is held to the f64 sum by the same rule
+    (a flipped ReLU mask at one point moves a block summed over one point by
+    several times 2e-2, in either f32 evaluation: PERF.md sections 2 and
+    6). Returns the worst absolute error by width; fails if any case
+    disagrees."""
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
     from nope_nerf_torch.ops.fused_mlp import _mlp_bwd_cuda, point_mlp_bwd_plain
     from nope_nerf_torch.ops.fused_render import unpack_grads
@@ -3261,10 +3269,27 @@ def check_wide_full(torch, dev, widths=WIDE_D) -> dict:
                 want = dict(unpack_grads(ref[0], ref[1], ncfg), points=ref[2], directions=ref[3])
                 shares = {k: wide_full_share(got[k], want[k], k, M) for k in want}
                 k_worst = max(shares, key=shares.get)
+                against = "plain"
+                if not shares[k_worst] <= 1.0:
+                    # the f32 plain version, itself an f32 evaluation, can stray from the exact
+                    # sum at a point or two by a flipped ReLU mask; where it strays beyond the
+                    # same rule, the kernel is held by that rule to the plain version summed in
+                    # f64 (PERF.md section 2)
+                    ref64 = point_mlp_bwd_plain(params, pts, dirs, *cot, ncfg,
+                                                dtype=torch.float64)
+                    exact = dict(unpack_grads([w.float() for w in ref64[0]],
+                                              [b.float() for b in ref64[1]], ncfg),
+                                 points=ref64[2].float(), directions=ref64[3].float())
+                    strays = max(wide_full_share(want[k], exact[k], k, M) for k in exact)
+                    if not strays <= 1.0:
+                        against = f"the f64 sum (the f32 plain version at {strays:.3f} from it)"
+                        want = exact
+                        shares = {k: wide_full_share(got[k], want[k], k, M) for k in want}
+                        k_worst = max(shares, key=shares.get)
                 worst[D] = max(worst.get(D, 0.0), max(max_err(got[k], want[k]) for k in want))
                 rule = "L2" if M < WIDE_FULL_SUM_POINTS else "5e-3"
-                print(f"point_mlp_bwd vs plain, {case}: {len(shares)} gradient blocks (dW, dB by "
-                      f"{rule}), worst {k_worst} at {shares[k_worst]:.3f} of its tolerance "
+                print(f"point_mlp_bwd vs {against}, {case}: {len(shares)} gradient blocks (dW, dB "
+                      f"by {rule}), worst {k_worst} at {shares[k_worst]:.3f} of its tolerance "
                       f"(points {shares['points']:.3f}, directions {shares['directions']:.3f}); "
                       f"two launches bit-equal; d(points), d(directions) equal to the "
                       f"frozen-network variant's")
@@ -3515,22 +3540,25 @@ def run_wide_eval(torch, np, dev, D: int, nerf) -> dict:
 
 def run_wide_train(torch, np, dev, D: int, nerf) -> dict:
     """Phase 13 (c): hierarchical training (rendering.n_importance
-    N_IMPORTANCE) at model.hidden_dim D from phase 13's seeded weights,
-    written as a checkpoint that cli.train loads (training.
-    load_ckpt_model_only): one epoch of the built-in 8-frame 120x160 scene
-    through cli.train (its replayed step graph), per step K5 twice, K6 full
-    and the dW kernel once, Chamfer once, K1 and K4 full never, the loss
+    N_IMPORTANCE) at model.hidden_dim D from phase 13's seeded weights (and
+    phase 16 (c) from its own at 640 and 1024), written as a checkpoint that
+    cli.train loads (training.load_ckpt_model_only): one epoch of the
+    built-in 8-frame 120x160 scene through cli.train (its replayed step
+    graph), per step K5 twice, K6 full once and the dW kernel once (twice
+    past 512: point_dw_launches), Chamfer once, K1 and K4 full never, the loss
     finite; then HIER_STEPS steps of Trainer.run_steps replayed against the
     same steps eager on the 188x621 4-frame scene (graph_train_path: states
     torch.equal), with the replayed steps' peak device memory. Returns the
     counts and the step-graph result."""
     from nope_nerf_torch.cli.train import train
     from nope_nerf_torch.data import SceneData, make_synthetic_scene
+    from nope_nerf_torch.ops.fused_mlp import point_dw_launches
     from nope_nerf_torch.training import ModelConfigs, create_train_state
     from nope_nerf_torch.training.checkpoints import save_params
 
     out = {}
     steps = 8   # one epoch of the built-in scene
+    dw = point_dw_launches(D)   # the dW kernel's launches a call of K6 full: 2 past 512
     with tempfile.TemporaryDirectory() as out_dir:
         cfg = hier_config(model={"hidden_dim": D},
                           training={"out_dir": out_dir, "load_ckpt_model_only": True,
@@ -3545,7 +3573,7 @@ def run_wide_train(torch, np, dev, D: int, nerf) -> dict:
         save_params(out_dir, cfg["training"]["load_dir"], seeded.params)
         (state, _, _), out["train_counts"] = counted(
             lambda: train(cfg, synthetic=True, max_epochs=1, device=dev),
-            {"point_mlp_fwd": 2 * steps, "point_mlp_bwd": steps, "dw_sm90": steps,
+            {"point_mlp_fwd": 2 * steps, "point_mlp_bwd": steps, "dw_sm90": dw * steps,
              "chamfer_bidir": steps},
             f"cli.train, hidden_dim {D}, n_importance {N_IMPORTANCE}, 1 epoch of {steps} steps "
             "from the seeded checkpoint")
@@ -3564,8 +3592,8 @@ def run_wide_train(torch, np, dev, D: int, nerf) -> dict:
     hstate.params["nerf"] = {k: v.detach().clone() for k, v in nerf.items()}
     out["graph"] = graph_train_path(
         torch, np, dev, f"hierarchical, hidden_dim {D}", hcfg, hmc, tscene, hstate,
-        {"point_mlp_fwd": 2 * HIER_STEPS, "point_mlp_bwd": HIER_STEPS, "dw_sm90": HIER_STEPS,
-         "chamfer_bidir": HIER_STEPS})
+        {"point_mlp_fwd": 2 * HIER_STEPS, "point_mlp_bwd": HIER_STEPS,
+         "dw_sm90": dw * HIER_STEPS, "chamfer_bidir": HIER_STEPS})
     return out
 
 
@@ -3812,7 +3840,8 @@ def differ_text(names: list) -> str:
     return "True" if not names else "False (" + ", ".join(names) + ")"
 
 
-def run_one_forward(torch, dev) -> dict:
+def run_one_forward(torch, dev, widths=None, render=True, seed=SEED + 40,
+                    phase="phase 15") -> dict:
     """Phase 15: every kernel runs one forward (mlp_fwd_sm90.cuh's
     mlp_tile_masks, mlp_fwd_wide_sm90.cuh's mlp_tile_w_masks), as the JAX
     kernels run _fwd_tail. At each width of FORWARD_D and both flag sets of
@@ -3826,12 +3855,14 @@ def run_one_forward(torch, dev) -> dict:
     points. Each also holds the check build's outputs torch.equal to the main
     build's. Every hold runs and reports before the phase fails
     on any that missed; a miss is never retried or drawn anew. Returns the
-    holds' count."""
+    holds' count. Phase 16 runs (F3) alone (render=False) at 640 to 1024
+    (csrc/mlp_dw_chain_sm90.cuh's OperandSaveX against K5's check build,
+    which saves with OperandSaveW's split)."""
     from nope_nerf_torch.ops import fused_mlp as FM
     from nope_nerf_torch.ops import fused_render as F
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
     t_phase = time.perf_counter()
-    gen = torch.Generator().manual_seed(SEED + 40)
+    gen = torch.Generator().manual_seed(seed)
     missed, held = [], 0
 
     def hold(what: str, ok: bool) -> None:
@@ -3840,9 +3871,9 @@ def run_one_forward(torch, dev) -> dict:
         if not ok:
             missed.append(what)
 
-    for D in FORWARD_D:
+    for D in FORWARD_D if widths is None else widths:
         for occ, da in WIDE_FLAGS:
-            for n, S in FORWARD_RENDER_CASES:
+            for n, S in FORWARD_RENDER_CASES if render else ():
                 rays, z, tgt = train_inputs(torch, dev, gen, n, S)
                 ncfg, params = many_params(torch, dev, gen, D, occ, da, S)
                 g_rgb = (torch.randn(n, 3, generator=gen) * 1e-3).to(dev)
@@ -3897,41 +3928,40 @@ def run_one_forward(torch, dev) -> dict:
                 hold(f"outputs K5 {case}", outs)
                 del k5, k6
             torch.cuda.empty_cache()
-    print(f"one-forward phase: {held - len(missed)} of {held} holds, "
+    print(f"one-forward {phase}: {held - len(missed)} of {held} holds, "
           f"{time.perf_counter() - t_phase:.1f} s wall")
     if missed:
-        raise RuntimeError("phase 15: missed " + "; ".join(missed))
+        raise RuntimeError(f"{phase}: missed " + "; ".join(missed))
     return {"holds": held}
 
 
-# ---- phase 16: hidden_dim 640 to 1024 (K3, K5, K4 and K6 frozen) -------------------------
+# ---- phase 16: hidden_dim 640 to 1024 (K3, K5, K4 and K6 frozen, K6 full) ---------------
 
 XWIDE_D = (640, 768, 896, 1024)   # the widths of mlp_fwd_xwide_sm90.cuh's trunk
 # K3 on MANY_S_RAYS rays: at 2048 samples, past 1,536 at 1024 (4,480 at 640), z and the
 # raw heads leave shared memory for the spill scratch, which the staging follows
 XWIDE_S = WIDE_S + (2048,)
 XWIDE_PATH_D = (1024, 640)        # model.hidden_dim of the phase's main path; phase 9 times both
+for _D in XWIDE_PATH_D:
+    GRAPH_STEPS[f"hierarchical, hidden_dim {_D}"] = HIER_STEPS
 
 
 def check_xwide_backward_raises(torch, dev, D: int) -> list:
-    """Phase 16 (d): at hidden_dim D the three kernels that form weight
-    gradients stop before any device work, through the calls a user makes:
-    render_ray_loss_fused (K1), render_rays_fused under autograd with
-    parameters that want gradients (K4 full), point_mlp the same way (K6
-    full). Each raises NotImplementedError naming its entry of Queue 3 (c),
-    and no kernel launches. Returns the misses."""
-    from nope_nerf_torch.ops import fused_mlp as FM
+    """Phase 16 (d): at hidden_dim D the two kernels that still stop at 512
+    stop before any device work, through the calls a user makes:
+    render_ray_loss_fused (K1) and render_rays_fused under autograd with
+    parameters that want gradients (K4 full). Each raises
+    NotImplementedError naming its entry of Queue 3 (c), and no kernel
+    launches. Returns the misses."""
     from nope_nerf_torch.ops import fused_render as F
     gen = torch.Generator().manual_seed(SEED + 42)
     rays, z, tgt = train_inputs(torch, dev, gen, MANY_S_RAYS, 128)
     ncfg, params = many_params(torch, dev, gen, D, "softplus", False, 128)
-    pts, dirs = point_inputs(torch, dev, gen, 127)
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     calls = {
         "render_train (K1)": ("item 4", lambda: F.render_ray_loss_fused(params, rays, z, tgt,
                                                                       ncfg, False, 1, False)),
-        "render_bwd (K4 full)": ("item 4", lambda: F.render_rays_fused(leaves, rays, z, ncfg)),
-        "point_mlp_bwd (K6 full)": ("item 3", lambda: FM.point_mlp(leaves, pts, dirs, ncfg))}
+        "render_bwd (K4 full)": ("item 4", lambda: F.render_rays_fused(leaves, rays, z, ncfg))}
     missed = []
     for name, (item, fn) in calls.items():
         def attempt(fn=fn):
@@ -3959,28 +3989,40 @@ def xwide_path(torch, np, dev, D: int) -> dict:
     cli.eval's pose optimisation and the pose-opt steps from the same
     weights (run_wide_eval: K3 and K4 frozen a step, replayed against eager
     fused and hierarchical, HIER_STEPS hierarchical steps with K5 twice and
-    K6 frozen once a step)."""
+    K6 frozen once a step), then hierarchical training from them
+    (run_wide_train: one cli.train epoch with K5 twice, K6 full once and the
+    dW kernel twice a step, and HIER_STEPS steps replayed against eager)."""
     out = run_wide_render(torch, np, dev, D)
     out.update(run_wide_eval(torch, np, dev, D, out["params"]["nerf"]))
+    out.update(run_wide_train(torch, np, dev, D, out["params"]["nerf"]))
     return out
 
 
 def run_xwide(torch, np, dev) -> dict:
     """Phase 16: (a) K3 and K5 at every width of XWIDE_D against their plain
     versions (check_wide_kernels' cases, K3 also at 2048 samples); (b) K4
-    frozen and K6 frozen there (check_wide_frozen's cases); (c) the path at
-    each width of XWIDE_PATH_D (xwide_path: render, cli.eval, pose
-    optimisation); (d) the kernels that form weight gradients stopping there
+    frozen and K6 frozen there (check_wide_frozen's cases); (b') K6 full
+    there (check_wide_full's cases: every dW and dB block against the plain
+    version, two launches bit-equal, d(points) and d(directions) torch.equal
+    to K6 frozen's) and the X operands it hands the dW kernel torch.equal to
+    K5's check build's (run_one_forward's F3); (c) the path at each width of
+    XWIDE_PATH_D (xwide_path: render, cli.eval, pose optimisation,
+    hierarchical training); (d) K1 and K4 full stopping there
     (check_xwide_backward_raises). Every part reports before the phase fails."""
     t_phase = time.perf_counter()
     out, missed = {"worst": {}}, []
     for what, fn in (("kernels", lambda: check_wide_kernels(torch, dev, XWIDE_D, SEED + 41,
                                                           "past 512", XWIDE_S)),
                      ("frozen", lambda: check_wide_frozen(torch, dev, XWIDE_D)),
+                     ("full", lambda: check_wide_full(torch, dev, XWIDE_D)),
+                     ("one forward", lambda: run_one_forward(torch, dev, XWIDE_D, False,
+                                                             SEED + 45, "phase 16 (F3)")),
                      *((D, lambda D=D: xwide_path(torch, np, dev, D)) for D in XWIDE_PATH_D)):
         try:
             if what in ("kernels", "frozen"):
                 out["worst"].update(fn())
+            elif what == "full":
+                out["worst_full"] = fn()
             else:
                 out[what] = fn()
         except Exception as e:   # every part runs and reports; the phase fails below
@@ -4163,12 +4205,90 @@ def time_frozen(torch, dev, p: dict, worst: dict, D: int, pts, dirs, pcfg, ppara
     return entries, summary
 
 
+def time_full(torch, dev, p: dict, worst_full: float, D: int, pts, dirs, pcfg, pparams, g_rgb,
+              g_den):
+    """Phase 9's K6 full at width D at the points pts, dirs (weights pparams,
+    a smooth loss's cotangents g_rgb, g_den) from a path's state p
+    (run_wide_train's counts): its chain, the in-order sum of the chain's
+    partials and the dW kernel (column pieces, in launches of at most
+    DW_MAX_PIECES) in one call, beside its bound (forward + dX + dW, 3
+    mlp_flops) and its plain version (timed once, its output held against the
+    kernel's), with the dW kernel's share of its device time
+    (torch.profiler), the dW kernel's CTAs and the operand bytes. Returns
+    (the `kernels` JSON entry, its summary by name)."""
+    from torch.profiler import ProfilerActivity, profile
+    from nope_nerf_torch.ops.fused_mlp import (_mlp_bwd_cuda, point_dw_chunks, point_dw_launches,
+                                               point_mlp_bwd_library, point_mlp_bwd_plain)
+    from nope_nerf_torch.ops.fused_render import pack_weights, unpack_grads
+    from nope_nerf_torch.tools.profile_train import _self_device_us
+
+    fine_m = pts.shape[0]
+    pk_ms = time_ms(lambda: _mlp_bwd_cuda(pparams, pts, dirs, g_rgb, g_den, pcfg), 10)
+    got = _mlp_bwd_cuda(pparams, pts, dirs, g_rgb, g_den, pcfg)
+    ref, pk_plain_ms = timed_once(torch, lambda: point_mlp_bwd_plain(
+        pparams, pts, dirs, g_rgb, g_den, pcfg))
+    pk_err, pkk, pkshare, _ = held(
+        dict(unpack_grads(got[0], got[1], pcfg), points=got[2], directions=got[3]),
+        dict(unpack_grads(ref[0], ref[1], pcfg), points=ref[2], directions=ref[3]),
+        ("points", "directions"))
+    if not pkshare <= 1.0:
+        raise RuntimeError(f"point_mlp_bwd at {fine_m} points, hidden_dim {D}: {pkk} at "
+                           f"{pkshare:.2f} of its tolerance")
+    W, B = pack_weights(pparams, pcfg)
+    pk_flops = 3 * mlp_flops(D, 1, 1) * fine_m
+    pk_bound, pk_by, _, _ = bound(pk_flops, PEAK_BF16_FLOPS,
+                                  64 * fine_m + numel_bytes(W) + numel_bytes(B)
+                                  + numel_bytes(got[0] + got[1]))
+    del got, ref
+    sizes = (ctypes.c_longlong * 6)()
+    point_mlp_bwd_library(D).lib().nerf_point_mlp_bwd_scratch(D, fine_m, 1, sizes)
+    operand_bytes = sizes[0] + sizes[1]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    dw_ctas = sizes[4] * point_dw_chunks(D, sizes[4], fine_m, sms)
+    # where K6 full's device time goes: the chain, the partials' sum, the dW kernel
+    chain_name = "point_mlp_bwd_xwide_kernel" if D > 512 else "point_mlp_bwd_wide_kernel"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            _mlp_bwd_cuda(pparams, pts, dirs, g_rgb, g_den, pcfg)
+        torch.cuda.synchronize()
+    kt = {e.key: _self_device_us(e) / 3e3 for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA}
+    dw_ms = sum(v for k, v in kt.items() if "dw_sm90_kernel" in k or "dw_reduce_kernel" in k)
+    chain_ms = sum(v for k, v in kt.items() if chain_name in k)
+    dw_text = (f"dW kernel {dw_ms:.3f} ms ({dw_ms / pk_ms:.1%} of the call; {sizes[4]} CTA "
+               f"tiles x {dw_ctas // sizes[4]} chunks = {dw_ctas} CTAs on {sms} SMs in "
+               f"{point_dw_launches(D)} launch(es)), chain {chain_ms:.3f} ms (torch.profiler)"
+               if kt else "dW kernel's share not measured (torch.profiler saw no device time)")
+    print(f"hidden_dim {D}: point_mlp_bwd {fine_m} points {pk_ms:.3f} ms "
+          f"({pk_flops / pk_ms / 1e9:.1f} TFLOP/s, {pk_ms / pk_bound:.2f} x the bound "
+          f"{pk_bound:.3f} ms by {pk_by}, {pk_flops / 1e12:.3f} TFLOP), plain version "
+          f"{pk_plain_ms:.1f} ms; against it {pkk} at {pkshare:.3f} of its tolerance; "
+          f"{dw_text}; operands the chain hands the dW kernel {operand_bytes / 1e9:.3f} GB "
+          f"({operand_bytes / fine_m:.0f} B a point, outside the bound)")
+    entry = {"name": f"point_mlp_bwd (hidden_dim {D})", "route": "cuda",
+             "source": "nope_nerf_torch/csrc/" + point_mlp_bwd_library(D).source.name,
+             "replaces": "nope_nerf_tpu/ops/pallas_mlp.py:273",
+             "launches": p["train_counts"]["point_mlp_bwd"],
+             "max_abs_err": max(worst_full, pk_err),
+             "ms": pk_ms, "plain_ms": pk_plain_ms, "bound_ms": pk_bound,
+             "bound_by": pk_by, "library_ms": None}
+    summary = {f"point_mlp_bwd_{D}": {
+        "ms": pk_ms, "bound_ms": pk_bound, "plain_ms": pk_plain_ms,
+        "dw_ms": dw_ms if kt else None, "chain_ms": chain_ms if kt else None,
+        "dw_ctas": dw_ctas, "dw_launches": point_dw_launches(D),
+        "operand_bytes": operand_bytes}}
+    return entry, summary
+
+
 def time_xwide(torch, dev, xwide: dict, table, z, smi: str) -> list:
     """Phase 9's part for phase 16: at each width of XWIDE_PATH_D,
-    time_forward (K5 at the fine pass's 196,608 points) and time_frozen (K4
+    time_forward (K5 at the fine pass's 196,608 points), time_frozen (K4
     frozen at the pose-opt batch's 1024 rays x 128, K6 frozen at those
-    points), and phase 16's replayed pose-opt steps, fused and hierarchical.
-    Prints an `xwide` JSON line; returns the `kernels` JSON entries."""
+    points) and time_full (K6 full at those points, with the dW kernel's
+    share), and phase 16's replayed pose-opt steps, fused and hierarchical,
+    and its hierarchical train steps (eager, replayed, pool, peak device
+    memory). Prints an `xwide` JSON line; returns the `kernels` JSON
+    entries."""
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
     gen = torch.Generator().manual_seed(SEED + 43)
     bgen = torch.Generator().manual_seed(SEED + 44)   # the frozen backward's inputs
@@ -4184,6 +4304,19 @@ def time_xwide(torch, dev, xwide: dict, table, z, smi: str) -> list:
             e, times = fn(torch, dev, p, xwide["worst"], D, *args)
             entries += e
             summary.update(times)
+        g_rgb, g_den = point_cotangents(torch, pparams, pts, dirs, pcfg)
+        e, times = time_full(torch, dev, p, xwide["worst_full"][D], D, pts, dirs, pcfg, pparams,
+                             g_rgb, g_den)
+        entries.append(e)
+        summary.update(times)
+        del g_rgb, g_den
+        g = p["graph"]
+        summary[f"hier_step_ms_{D}"] = {"eager": g["eager_ms"], "replay": g["replay_ms"],
+                                        "peak_gb": g["peak_gb"], "pool_mb": g["pool_mb"]}
+        print(f"hidden_dim {D}: hierarchical train step, {TRAIN_RAYS} rays on {RESOLUTION[0]}x"
+              f"{RESOLUTION[1]} frames, replayed {g['replay_ms']:.3f} ms, eager "
+              f"{g['eager_ms']:.3f} ms a step; pool {g['pool_mb']:.0f} MB, peak device memory of "
+              f"the eager steps {g['peak_gb']:.2f} GB")
         for path in ("fused", "hier"):
             g = p[f"graph_{path}"]
             summary[f"pose_opt_{path}_ms_{D}"] = {"eager": g["eager_ms"], "replay": g["replay_ms"]}
@@ -4212,8 +4345,7 @@ def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
     memory). Returns the `kernels` JSON entries."""
     from torch.profiler import ProfilerActivity, profile
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
-    from nope_nerf_torch.ops.fused_mlp import (POINT_MLP_BWD, _mlp_bwd_cuda, dw_chunks,
-                                               point_mlp_bwd_plain)
+    from nope_nerf_torch.ops.fused_mlp import dw_chunks
     from nope_nerf_torch.ops.fused_render import (RENDER_TRAIN, _render_bwd_cuda, _train_cuda,
                                                   _train_plain, pack_weights,
                                                   render_rays_fused_bwd_plain, unpack_grads)
@@ -4240,60 +4372,11 @@ def time_wide(torch, dev, wide: dict, table, z, smi: str) -> list:
         summary.update(times)
         g_rgb, g_den = point_cotangents(torch, pparams, pts, dirs, pcfg)
 
-        # K6 full at the fine pass's points on the same cotangents: its chain, the in-order
-        # sum of the chain's partials and the dW kernel (column pieces) in one call
-        pk_ms = time_ms(lambda: _mlp_bwd_cuda(pparams, pts, dirs, g_rgb, g_den, pcfg), 10)
-        got = _mlp_bwd_cuda(pparams, pts, dirs, g_rgb, g_den, pcfg)
-        ref, pk_plain_ms = timed_once(torch, lambda: point_mlp_bwd_plain(
-            pparams, pts, dirs, g_rgb, g_den, pcfg))
-        pk_err, pkk, pkshare, _ = held(
-            dict(unpack_grads(got[0], got[1], pcfg), points=got[2], directions=got[3]),
-            dict(unpack_grads(ref[0], ref[1], pcfg), points=ref[2], directions=ref[3]),
-            ("points", "directions"))
-        if not pkshare <= 1.0:
-            raise RuntimeError(f"point_mlp_bwd at {fine_m} points, hidden_dim {D}: {pkk} at "
-                               f"{pkshare:.2f} of its tolerance")
-        W, B = pack_weights(pparams, pcfg)
-        pk_flops = 3 * mlp_flops(D, 1, 1) * fine_m
-        pk_bound, pk_by, _, _ = bound(pk_flops, PEAK_BF16_FLOPS,
-                                      64 * fine_m + numel_bytes(W) + numel_bytes(B)
-                                      + numel_bytes(got[0] + got[1]))
-        del got, ref
-        sizes = (ctypes.c_longlong * 6)()
-        POINT_MLP_BWD.lib().nerf_point_mlp_bwd_scratch(D, fine_m, 1, sizes)
-        operand_bytes = sizes[0] + sizes[1]
+        e, times = time_full(torch, dev, p, wide["worst_full"][D], D, pts, dirs, pcfg, pparams,
+                             g_rgb, g_den)
+        entries.append(e)
+        summary.update(times)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        dw_ctas = sizes[4] * dw_chunks(sizes[4], fine_m, sms)
-        # where K6 full's device time goes: the chain, the partials' sum, the dW kernel
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                _mlp_bwd_cuda(pparams, pts, dirs, g_rgb, g_den, pcfg)
-            torch.cuda.synchronize()
-        kt = {e.key: _self_device_us(e) / 3e3 for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA}
-        dw_ms = sum(v for k, v in kt.items() if "dw_sm90_kernel" in k or "dw_reduce_kernel" in k)
-        chain_ms = sum(v for k, v in kt.items() if "point_mlp_bwd_wide_kernel" in k)
-        dw_text = (f"dW kernel {dw_ms:.3f} ms ({dw_ms / pk_ms:.1%} of the call; {sizes[4]} CTA "
-                   f"tiles x {dw_ctas // sizes[4]} chunks = {dw_ctas} CTAs on {sms} SMs), chain "
-                   f"{chain_ms:.3f} ms (torch.profiler)" if kt else
-                   "dW kernel's share not measured (torch.profiler saw no device time)")
-        print(f"hidden_dim {D}: point_mlp_bwd {fine_m} points {pk_ms:.3f} ms "
-              f"({pk_flops / pk_ms / 1e9:.1f} TFLOP/s, {pk_ms / pk_bound:.2f} x the bound "
-              f"{pk_bound:.3f} ms by {pk_by}, {pk_flops / 1e12:.3f} TFLOP), plain version "
-              f"{pk_plain_ms:.1f} ms; against it {pkk} at {pkshare:.3f} of its tolerance; "
-              f"{dw_text}; operands the chain hands the dW kernel {operand_bytes / 1e9:.3f} GB "
-              f"({operand_bytes / fine_m:.0f} B a point, outside the bound)")
-        entries.append({"name": f"point_mlp_bwd (hidden_dim {D})", "route": "cuda",
-                        "source": "nope_nerf_torch/csrc/point_mlp_bwd.cu",
-                        "replaces": "nope_nerf_tpu/ops/pallas_mlp.py:273",
-                        "launches": p["train_counts"]["point_mlp_bwd"],
-                        "max_abs_err": max(wide["worst_full"][D], pk_err),
-                        "ms": pk_ms, "plain_ms": pk_plain_ms, "bound_ms": pk_bound,
-                        "bound_by": pk_by, "library_ms": None})
-        summary[f"point_mlp_bwd_{D}"] = {
-            "ms": pk_ms, "bound_ms": pk_bound, "dw_ms": dw_ms if kt else None,
-            "chain_ms": chain_ms if kt else None, "dw_ctas": dw_ctas,
-            "operand_bytes": operand_bytes}
         # K1 and K4 full at the train step's 1024 rays x 128 (render_full_sm90.cuh's wide
         # kernel, the in-order sum of its partials and the dW kernel's column pieces in one
         # call): K1 on its own loss, K4 full on a colour and depth loss's cotangents
@@ -4400,8 +4483,9 @@ def main() -> int:
                                              nearest_idx_bidirectional_plain, nearest_idx_plain)
     from nope_nerf_torch.tools.chamfer_profile import sweep_instructions_per_pair
     from nope_nerf_torch.ops.fused_mlp import (DW_SM90, POINT_MLP_BWD, POINT_MLP_BWD_FROZEN,
-                                               POINT_MLP_FWD, _mlp_bwd_cuda, _mlp_fwd_cuda,
-                                               dw_chunks, dw_cta_tiles, dw_plain, dw_sm90,
+                                               POINT_MLP_BWD_XWIDE, POINT_MLP_FWD, _mlp_bwd_cuda,
+                                               _mlp_fwd_cuda, dw_chunks, dw_cta_tiles, dw_plain,
+                                               dw_sm90,
                                                point_dw_table, point_mlp_bwd_plain,
                                                point_mlp_fwd_plain, render_dw_table)
     from nope_nerf_torch.ops.fused_render import (
@@ -4418,7 +4502,8 @@ def main() -> int:
 
     # ---- 1. build -----------------------------------------------------------
     libraries = (RENDER_FWD, RENDER_TRAIN, RENDER_BWD, RENDER_BWD_FROZEN, CHAMFER_BIDIR,
-                 POINT_MLP_FWD, POINT_MLP_BWD, POINT_MLP_BWD_FROZEN, CHAMFER_NEAREST, DW_SM90)
+                 POINT_MLP_FWD, POINT_MLP_BWD, POINT_MLP_BWD_FROZEN, CHAMFER_NEAREST, DW_SM90,
+                 POINT_MLP_BWD_XWIDE)
     t0 = time.perf_counter()
     build_all(libraries)
     print(f"build: {time.perf_counter() - t0:.1f} s for "

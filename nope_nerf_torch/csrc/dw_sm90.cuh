@@ -38,7 +38,7 @@
 //   partials in chunk order. No float atomics: two launches give the same bits.
 // - A block wider than 256 columns (N = 384 or 512, and 192 for the rgb-hidden
 //   layer, at hidden_dim 384 and 512) is split into column pieces of 256, 128
-//   or 64 (mlp_dw_chain_sm90.cuh's chain_dw_table): each piece reads its
+//   or 64 (mlp_dw_chain_sm90.cuh's chain_dw_pieces): each piece reads its
 //   columns of G's row tiles (gstride blocks apart) and writes its columns of
 //   dW (rows ldd floats apart).
 

@@ -1,7 +1,8 @@
 // The hand-off from the wgmma dX chain to the weight-gradient kernel on
 // Hopper (sm_90a), shared by the backward kernels that form every weight
-// gradient: point_mlp_bwd.cu (K6 full) and render_full_sm90.cuh (K1, the
-// render train step, and K4 full, the render backward).
+// gradient: point_mlp_bwd.cu and point_mlp_bwd_xwide.cu (K6 full) and
+// render_full_sm90.cuh (K1, the render train step, and K4 full, the render
+// backward).
 //
 // The chain of mlp_dx_sm90.cuh forms no weight gradient. These pieces make
 // it hand over what the dW products need:
@@ -15,10 +16,12 @@
 //   sums in device memory, with the head blocks that stay in the chain
 //   (dW[9], dW[13], dB[8], dB[10], dB[11]; rgb_head_bwd_full), summed at the
 //   end in CTA and warpgroup order (chain_reduce_kernel);
-// - the work table of dw_sm90.cuh over those operands (chain_dw_table).
+// - the work table of dw_sm90.cuh over those operands (chain_dw_pieces, chain_dw_launch).
 // At hidden_dim 384 and 512 the same hand-off runs on the 64-point chain of
 // mlp_dx_wide_sm90.cuh (OperandSaveW and the heads below it; K6 full, and with
-// RENDER the render kernels, whose segment starts at dW[12]).
+// RENDER the render kernels, whose segment starts at dW[12]); at 640 to 1024
+// on mlp_dx_xwide_sm90.cuh's chain in passes of 128 columns (OperandSaveX and
+// rgb_head_bwd_x_full; K6 full).
 // No float atomics: two launches give the same bits.
 
 #pragma once
@@ -26,6 +29,7 @@
 #include "dw_sm90.cuh"
 #include "mlp_dx_sm90.cuh"
 #include "mlp_dx_wide_sm90.cuh"
+#include "mlp_dx_xwide_sm90.cuh"
 
 namespace {
 
@@ -322,13 +326,23 @@ inline cudaError_t chain_reduce_launch(const float* part, float* grads, int seg,
 // operands, each (pack_weights index, X operand, G operand, K, N): K6's 12,
 // or, without the direction block (dW[12] = de^T g_h, which the render
 // kernels form per ray), the render kernels' first 11. A block wider than the
-// dW kernel's 256 columns (at hidden_dim 384 and 512) goes in column pieces of
+// dW kernel's 256 columns (from hidden_dim 384 on) goes in column pieces of
 // 256, then 128, then 64 (ops/fused_mlp.py::point_dw_pieces): 24 pieces at
-// 384, 22 at 512 (the render kernels' table: 22 and 21,
-// fused_mlp.render_dw_pieces); at 128 and 256 every block is one piece.
+// 384, 22 at 512, 34 at 640 and 768, 46 at 896, 44 at 1024 (the render
+// kernels' table: 22 and 21 at 384 and 512, fused_mlp.render_dw_pieces); at
+// 128 and 256 every block is one piece. One launch of the dW kernel takes at
+// most kDwMaxBlocks pieces, so past 512 the table goes in two launches
+// (chain_dw_launch).
+constexpr int kChainMaxPieces = 48;
+
+struct ChainPieces {
+  DwBlock b[kChainMaxPieces];
+  int n;
+};
+
 template <int D>
-DwTable chain_dw_table(const unsigned char* xops, const unsigned char* gops, float* grads,
-                       long long n_pass, bool de) {
+ChainPieces chain_dw_pieces(const unsigned char* xops, const unsigned char* gops, float* grads,
+                            long long n_pass, bool de) {
   using O = Operands<D>;
   constexpr int H = D / 2;
   const GradLayout lay = grad_layout(D);
@@ -337,7 +351,7 @@ DwTable chain_dw_table(const unsigned char* xops, const unsigned char* gops, flo
                            {6, 5, 4, D, D},   {7, 6, 3, D, D},  {8, 7, 2, D, D},
                            {10, 8, 1, D, D},  {11, 9, 0, D, H}, {12, 10, 0, 32, H}};
   const size_t tile_bytes = static_cast<size_t>(n_pass) * kBlockBytes;
-  DwTable tab;
+  ChainPieces tab;
   tab.n = 0;
   for (int i = 0; i < (de ? 12 : 11); ++i) {
     for (int c0 = 0; c0 < rows[i][4];) {
@@ -359,10 +373,32 @@ DwTable chain_dw_table(const unsigned char* xops, const unsigned char* gops, flo
   return tab;
 }
 
+// The dW kernel over a chain's table on `stream`: consecutive launches of at
+// most kDwMaxBlocks pieces in table order, each with the same `chunks` of
+// the M rows (n_pass row tiles), with `add` (dw_sm90_launch's). A piece's
+// sum depends only on the chunk split, never on the launch it goes in, so
+// how the table is cut moves no bit. The launches reuse dw_part one after
+// another.
+template <int D>
+cudaError_t chain_dw_launch(const unsigned char* xops, const unsigned char* gops, float* grads,
+                            long long n_pass, bool de, long long M, int chunks, float* dw_part,
+                            cudaStream_t stream, bool add = false) {
+  const ChainPieces all = chain_dw_pieces<D>(xops, gops, grads, n_pass, de);
+  for (int first = 0; first < all.n; first += kDwMaxBlocks) {
+    DwTable tab;
+    tab.n = all.n - first < kDwMaxBlocks ? all.n - first : kDwMaxBlocks;
+    for (int i = 0; i < tab.n; ++i) tab.b[i] = all.b[first + i];
+    const cudaError_t err = dw_sm90_launch(tab, M, chunks, dw_part, stream, add);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 // Bytes of a chain's scratch into sizes[0..3] (the X and G operands of
 // n_pass passes, the chain's partial sums for n_ctas CTAs of segments of
-// `seg` floats, the dW kernel's partials per chunk of points) and the dW
-// kernel's CTA tiles into sizes[4].
+// `seg` floats, the dW kernel's partials per chunk of points, for every
+// piece of the table) and the dW kernel's CTA tiles over the whole table
+// into sizes[4].
 template <int D>
 void chain_scratch_sizes(long long n_pass, int n_ctas, int seg, bool de, long long* sizes) {
   using O = Operands<D>;
@@ -371,7 +407,7 @@ void chain_scratch_sizes(long long n_pass, int n_ctas, int seg, bool de, long lo
   sizes[2] = 4ll * n_ctas * 2 * seg;
   long long kn = 0;
   int tiles = 0;
-  DwTable tab = chain_dw_table<D>(nullptr, nullptr, nullptr, n_pass, de);
+  const ChainPieces tab = chain_dw_pieces<D>(nullptr, nullptr, nullptr, n_pass, de);
   for (int i = 0; i < tab.n; ++i) {
     kn += static_cast<long long>(tab.b[i].K) * tab.b[i].N;
     tiles += (tab.b[i].K + 127) / 128;
@@ -493,6 +529,201 @@ struct OperandSaveW {
     return red + ((i & 1) * 2 + wg) * 4 * (D / 2);
   }
 };
+
+// ---- hidden_dim 640 to 1024: the hand-off from mlp_dx_xwide_sm90.cuh's chain ------
+//
+// The chain's tile is 64 points, as at 384 and 512, so a pass writes half
+// pass % 2 of each operand's 128-row tile (PassTilesW). What differs is who
+// writes which columns: a D-wide layer runs in D/128 passes of 128 columns,
+// and in pass p warpgroup g writes columns [128p + 64g, 128p + 64g + 64), the
+// 64-column block 2p + g. The hook is called once a layer is whole in the
+// buffer (after layer_end_with's last barrier), and each warpgroup drains its
+// copies before the next write over the buffer (layer_end_with drains, then
+// synchronises), so any split of the copies between the warpgroups would do:
+// each copies the blocks it wrote.
+
+// The blocks wg, wg + 2, ..., of `blocks` of them (generic pointer to block
+// 0 of a 64-row buffer; kWBlockBytes apart) to their place in a row tile
+// (kBlockBytes apart): copy_blocks_w_async's rules, by bulk copies.
+__device__ __forceinline__ void copy_own_blocks_x_async(const unsigned char* src,
+                                                        unsigned char* dst, int wg, int blocks) {
+  if ((threadIdx.x & 127) != 0) return;
+  for (int k = 0; k < blocks; ++k) {
+    const int blk = 2 * k + wg;
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                     dst + static_cast<size_t>(blk) * kBlockBytes),
+                 "r"(smem_addr(src + blk * kWBlockBytes)), "r"(kWBlockBytes)
+                 : "memory");
+  }
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// The same by the warpgroup's own 16-byte stores past L1.
+__device__ __forceinline__ void copy_own_blocks_x(const unsigned char* src, unsigned char* dst,
+                                                  int wg, int blocks) {
+  for (int e = threadIdx.x & 127; e < blocks * (kWBlockBytes / 16); e += 128) {
+    const int blk = 2 * (e / (kWBlockBytes / 16)) + wg, off = (e % (kWBlockBytes / 16)) * 16;
+    __stcg(reinterpret_cast<int4*>(dst + static_cast<size_t>(blk) * kBlockBytes + off),
+           *reinterpret_cast<const int4*>(src + blk * kWBlockBytes + off));
+  }
+}
+
+// mlp_tile_x_masks' and dx_chain_x's hook in K6 full at 640 to 1024:
+// OperandSaveW's, but each warpgroup saves the blocks it wrote (2p + g in
+// pass p); pe and de (one block each) and g_h (D/128 blocks) go by warpgroup
+// 0, x7 (X operand 8), which density_head_dw_w reads back for dW[9], by the
+// warpgroup's own stores (the kernel fences them before its barrier), every
+// other operand by bulk copies. The column sums: store_dx_w<64, ..., SUM>
+// writes pass p's four warp sums at red_pass(i, wg, p) + w 64 + c, so a
+// layer's D/128 passes keep theirs apart in red_at(i, wg)'s 2 D floats (4
+// warps x 64 columns x D/128 passes: OperandSaveW's two-buffer layout of
+// red_bytes_w, the other warpgroup's region untouched); grad(i) adds each
+// column's four sums in warp order to the warpgroup's segment at the
+// column's place, 128p + 64g + c of the layer's dB block.
+template <int D>
+struct OperandSaveX : OperandSaveW<D> {
+  static constexpr int kPasses = D / kXCols;
+  __device__ __forceinline__ void operator()(int i, int wg, const unsigned char* src) const {
+    if (i == 0 || i == 10) {
+      if (wg == 0) copy_blocks_w_async(src, this->tiles.x(i), 1);
+      return;
+    }
+    if (i == 8)
+      copy_own_blocks_x(src, this->tiles.x(i), wg, kPasses);
+    else
+      copy_own_blocks_x_async(src, this->tiles.x(i), wg, kPasses);
+  }
+  __device__ __forceinline__ void grad(int i, int wg, const unsigned char* src) const {
+    if (i == 0) {
+      if (wg == 0) copy_blocks_w_async(src, this->tiles.g(0), D / 128);
+      return;
+    }
+    copy_own_blocks_x_async(src, this->tiles.g(i), wg, kPasses);
+    const GradLayout lay = grad_layout(D);
+    const int k = i == 1 ? 9 : 9 - i;   // the layer's dB block: g_feat's 9, g_l's l
+    float* b = this->part + wg * this->seg + D + (lay.b[0] - lay.w[13]) +
+               (k == 9 ? lay.b[9] - lay.b[0] : k * D) + 64 * wg;
+    for (int e = threadIdx.x & 127; e < 64 * kPasses; e += 128) {
+      const int p = e >> 6, c = e & 63;
+      const float* r = red_pass(i, wg, p) + c;
+      b[kXCols * p + c] +=
+          ((__ldcg(r) + __ldcg(r + 64)) + __ldcg(r + 128)) + __ldcg(r + 192);
+    }
+  }
+  __device__ __forceinline__ float* red_pass(int i, int wg, int p) const {
+    return this->red_at(i, wg) + 4 * 64 * p;
+  }
+};
+
+// rgb_head_bwd_x's g_h bits (the rgb-hidden layer's passes of 64 columns,
+// this warpgroup's 32 of each, its mask words) with the gradients that stay
+// in the chain, as rgb_head_bwd_w_full forms them at 384 and 512: each thread
+// reads h under its cells (the buffer's first D/2 columns) before it writes
+// g_h over them, and sums over its two rows the masked f32 g_h (dB[10]) and h
+// bf16(g_rgb[k]) (dW[13]); then the warp's eight row groups by shfl_xor over
+// 4, 8, 16, and the warpgroup's four warps in order through red (4 sums x 4
+// warps x the warpgroup's D/4 columns), added to the warpgroup's segment
+// seg_wg at each column's place. dB[11] and dB[8], the tile's f32 sums of the
+// raw-rgb and raw-density cotangents in row order, by four threads into seg0
+// (the CTA's first segment). Starts and ends synchronised (both warpgroups),
+// the buffer fenced for wgmma.
+template <int D>
+__device__ __forceinline__ void rgb_head_bwd_x_full(unsigned char* act, const float* grgb,
+                                                    const float* graw, const uint32_t* mask_h,
+                                                    const unsigned char* rgb_head, float* red,
+                                                    float* seg0, float* seg_wg) {
+  constexpr int P = D / kXCols;     // the rgb-hidden layer's passes
+  constexpr int N = kXHCols / 2;    // a warpgroup's columns of a pass
+  constexpr int NW = P * N;         // ... of h
+  const GradLayout lay = grad_layout(D);
+  const int from = lay.w[13];       // the segments' first float
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int lane = tid & 31, w = (tid >> 5) & 3;
+  const int row = 16 * w + (lane >> 2), t = lane & 3;
+  float* red_wg = red + wg * 16 * NW;   // [sum][warp][column]
+  consumer_sync();   // the forward is done with the buffer, the cotangents are in
+  float g[2][3];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) g[r][c] = bf16_round(grgb[4 * (row + 8 * r) + c]);
+  }
+#pragma unroll 1
+  for (int p = 0; p < P; ++p) {
+    const uint32_t bits = __ldcg(mask_h + p * kConsumers + tid);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int col = kXHCols * p + N * wg + 8 * j + 2 * t;
+      const uint32_t m = bits >> (4 * j);
+      const __nv_bfloat162 h0 =
+          *reinterpret_cast<const __nv_bfloat162*>(act + swz(row, col, kWBlockBytes));
+      const __nv_bfloat162 h1 =
+          *reinterpret_cast<const __nv_bfloat162*>(act + swz(row + 8, col, kWBlockBytes));
+      const float hv[2][2] = {{__low2float(h0), __high2float(h0)},
+                              {__low2float(h1), __high2float(h1)}};
+      float v[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float wo0 = __bfloat162float(*reinterpret_cast<const bf16*>(rgb_head + swz(0, col + h, 1024)));
+        const float wo1 = __bfloat162float(*reinterpret_cast<const bf16*>(rgb_head + swz(1, col + h, 1024)));
+        const float wo2 = __bfloat162float(*reinterpret_cast<const bf16*>(rgb_head + swz(2, col + h, 1024)));
+        v[h] = (m >> h) & 1u ? g[0][0] * wo0 + g[0][1] * wo1 + g[0][2] * wo2 : 0.f;
+        v[2 + h] = (m >> (2 + h)) & 1u ? g[1][0] * wo0 + g[1][1] * wo1 + g[1][2] * wo2 : 0.f;
+      }
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]), hi = __floats2bfloat162_rn(v[2], v[3]);
+      *reinterpret_cast<__nv_bfloat162*>(act + swz(row, col, kWBlockBytes)) = lo;
+      *reinterpret_cast<__nv_bfloat162*>(act + swz(row + 8, col, kWBlockBytes)) = hi;
+      float s[2][4];   // per column h: the masked g_h, then h bf16(g_rgb[k])
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        s[h][0] = v[h] + v[2 + h];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) s[h][1 + k] = hv[0][h] * g[0][k] + hv[1][h] * g[1][k];
+      }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) s[h][q] += __shfl_xor_sync(0xffffffffu, s[h][q], off);
+        }
+      }
+      if ((lane >> 2) == 0) {
+        const int lc = N * p + 8 * j + 2 * t;   // the warpgroup's column of h
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) __stcg(red_wg + (4 * q + w) * NW + lc + h, s[h][q]);
+        }
+      }
+    }
+  }
+  fence_proxy_async();
+  consumer_sync();
+  for (int lc = tid & 127; lc < NW; lc += 128) {
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float* r = red_wg + 4 * q * NW + lc;
+      v[q] = ((__ldcg(r) + __ldcg(r + NW)) + __ldcg(r + 2 * NW)) + __ldcg(r + 3 * NW);
+    }
+    const int c = kXHCols * (lc / N) + N * wg + lc % N;   // the column of h
+    seg_wg[D + (lay.b[10] - from) + c] += v[0];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) seg_wg[D + (lay.w[13] - from) + 3 * c + k] += v[1 + k];
+  }
+  if (tid < 4) {   // dB[11] (3) and dB[8]
+    float acc = 0.f;
+    if (tid < 3) {
+      for (int m = 0; m < kWRows; ++m) acc += grgb[4 * m + tid];
+      seg0[D + (lay.b[11] - from) + tid] += acc;
+    } else {
+      for (int m = 0; m < kWRows; ++m) acc += graw[m];
+      seg0[D + (lay.b[8] - from)] += acc;
+    }
+  }
+  consumer_sync();   // red is free again
+}
 
 // ---- the forward kernels' check builds -----------------------------------------
 //

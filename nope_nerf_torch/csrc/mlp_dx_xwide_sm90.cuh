@@ -1,10 +1,12 @@
 // The dX chain at hidden_dim 640, 768, 896 and 1024 on Hopper (sm_90a), on
 // the 64-point tile of mlp_fwd_xwide_sm90.cuh: for the frozen-network
 // backward kernels render_bwd_frozen.cu (K4's variant) and
-// point_mlp_bwd_frozen.cu (K6's). It does what mlp_dx_wide_sm90.cuh does at
-// 384 and 512: the tile's forward with its ReLU masks kept
-// (mlp_tile_x_masks<D, true>), then every layer's dX = g W back to the
-// cotangent of the position encoding, no weight gradient formed.
+// point_mlp_bwd_frozen.cu (K6's), and for K6 full (point_mlp_bwd_xwide.cu,
+// with mlp_dw_chain_sm90.cuh's OperandSaveX as the chain's Save hook). It
+// does what mlp_dx_wide_sm90.cuh does at 384 and 512: the tile's forward
+// with its ReLU masks kept (mlp_tile_x_masks<D, true>), then every layer's
+// dX = g W back to the cotangent of the position encoding; the frozen
+// variants pass no hook and form no weight gradient.
 //
 // Numerics, fixed before the chain's first run on a card: those of the plain
 // version (ops/fused_render.py::mlp_backward with want_param_grads=False), in
@@ -20,8 +22,8 @@
 //   accumulator, which truncates: at K = 512 that lands 14.89 ulps from the
 //   exact sum, against cuBLAS f32's 6.81 (PERF.md section 7). K reaches 1024
 //   here, so the chain takes the forward's sums, whose truncation is on the
-//   scale of 32 products. K6 full, K1 and K4 full past 512 are to run this
-//   chain, so their d(points), d(directions), d(rays) and dz are to be the
+//   scale of 32 products. K6 full past 512 runs this chain, and K1 and K4
+//   full are to, so their d(points), d(directions), d(rays) and dz are the
 //   frozen variants' bit for bit;
 // - the masks from the bf16 activations (bf16(relu(x)) > 0);
 // - the rgb head's backward in f32, g_h = (bf16 g_rgb . wo[:, j]) * mask; its
@@ -149,16 +151,27 @@ __host__ __device__ constexpr size_t mask_tile_bytes_x() {
 // ring), in D/128 passes; every pass but the last to the staging, the last
 // after the barrier that ends every read of g_out. mask: the layer's words
 // (pass p at mask + p kConsumers); with SAVE every pass's output also goes to
-// `save` (g4's parked copy, the buffer's layout, past L1).
-template <int D, int K, bool MASK, bool RANK1, bool SAVE>
+// `save` (g4's parked copy, the buffer's layout, past L1). The hook (NoSaveW,
+// or K6 full's OperandSaveX) drains before the epilogues write the buffer
+// (layer_end_with), has each epilogue form pass p's column sums at
+// red_pass(op, wg, p) (store_dx_w's SUM, with kSum) and takes G operand `op`
+// from the buffer once the layer is whole (grad).
+template <int D, int K, bool MASK, bool RANK1, bool SAVE, typename Save = NoSaveW>
 __device__ __forceinline__ void dx_layer_x(unsigned char* act, unsigned char* stage, Ring& ring,
                                            const uint32_t* mask, const float* gs,
-                                           const unsigned char* dens_head, unsigned char* save) {
+                                           const unsigned char* dens_head, unsigned char* save,
+                                           const Save& hook = Save(), int op = 0) {
   constexpr int P = D / kXCols;
   constexpr int N = kXCols / 2;
   const int wg = threadIdx.x >> 7;
   const uint32_t act_s = smem_addr(act);
   const uint32_t b_off = wg * N * kXSliceCols * 2;   // the warpgroup's rows of a slice
+  auto red = [&](int p) -> float* {
+    if constexpr (Save::kSum)
+      return hook.red_pass(op, wg, p);
+    else
+      return nullptr;
+  };
   float acc[N / 2];
 #pragma unroll 1
   for (int p = 0; p < P; ++p) {
@@ -166,16 +179,18 @@ __device__ __forceinline__ void dx_layer_x(unsigned char* act, unsigned char* st
     for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
     ring_products_x<N, 2>(acc, act_s, K / kXSliceCols, b_off, ring);
     if (p + 1 < P)
-      store_dx_w<N, MASK, RANK1, SAVE>(acc, stage, kXCols * p + N * wg, mask + p * kConsumers, gs,
-                                       dens_head, save);
+      store_dx_w<N, MASK, RANK1, SAVE, Save::kSum>(acc, stage, kXCols * p + N * wg,
+                                                   mask + p * kConsumers, gs, dens_head, save,
+                                                   red(p));
   }
   layer_end_with<N, P>(
       [&](unsigned char* buf, int col) {
-        store_dx_w<N, MASK, RANK1, SAVE>(acc, buf, col, mask + (P - 1) * kConsumers, gs,
-                                         dens_head, save);
+        store_dx_w<N, MASK, RANK1, SAVE, Save::kSum>(acc, buf, col, mask + (P - 1) * kConsumers,
+                                                     gs, dens_head, save, red(P - 1));
         if (SAVE) __threadfence_block();   // g4's device-memory writes, before others read them
       },
-      act, stage, kXCols, NoSaveW());
+      act, stage, kXCols, hook);
+  hook.grad(op, wg, act);
 }
 
 // The rgb head's backward for the tile: g_h = (bf16 g_rgb . wo[:, j]) * mask,
@@ -254,24 +269,31 @@ __device__ __forceinline__ void rgb_head_bwd_x(unsigned char* act, const float* 
 // warpgroup 0 into `dpe` (the m64n64 fragment of all 64 rows; warpgroup 1
 // leaves it zero). stage: the CTA's staging (TilesX<D>::kStageBytes); masks:
 // the tile's words; gsbf: the tile's 64 bf16-valued raw-density cotangents.
-// Ends with warpgroup 0's products done; nothing synchronised after them.
-template <int D>
+// The hook takes the G operands g_h 0, g_feat 1, g7 2, ..., g0 9 (dx_chain_w's
+// order) and drains before g4 goes over g0. Ends with warpgroup 0's products
+// done; nothing synchronised after them.
+template <int D, typename Save = NoSaveW>
 __device__ __forceinline__ void dx_chain_x(float (&dpe)[32], unsigned char* act,
                                            unsigned char* stage, Ring& ring,
                                            const uint32_t* masks, const float* gsbf,
-                                           const unsigned char* dens_head, unsigned char* g4) {
+                                           const unsigned char* dens_head, unsigned char* g4,
+                                           const Save& hook = Save()) {
   constexpr int LW = mask_layer_words_x<D>();
   const int wg = threadIdx.x >> 7;
   const uint32_t act_s = smem_addr(act);
-  dx_layer_x<D, D / 2, false, false, false>(act, stage, ring, nullptr, nullptr, nullptr, nullptr);
-  dx_layer_x<D, D, true, true, false>(act, stage, ring, masks + 7 * LW, gsbf, dens_head, nullptr);
+  hook.grad(0, wg, act);   // g_h
+  dx_layer_x<D, D / 2, false, false, false>(act, stage, ring, nullptr, nullptr, nullptr, nullptr,
+                                            hook, 1);
+  dx_layer_x<D, D, true, true, false>(act, stage, ring, masks + 7 * LW, gsbf, dens_head, nullptr,
+                                      hook, 2);
 #pragma unroll 1
   for (int l = 7; l >= 1; --l) {   // g_{l-1} from g_l
     if (l == 5)
-      dx_layer_x<D, D, true, false, true>(act, stage, ring, masks + 4 * LW, nullptr, nullptr, g4);
+      dx_layer_x<D, D, true, false, true>(act, stage, ring, masks + 4 * LW, nullptr, nullptr, g4,
+                                          hook, 10 - l);
     else
       dx_layer_x<D, D, true, false, false>(act, stage, ring, masks + (l - 1) * LW, nullptr,
-                                           nullptr, nullptr);
+                                           nullptr, nullptr, hook, 10 - l);
   }
 #pragma unroll
   for (int i = 0; i < 32; ++i) dpe[i] = 0.f;
@@ -279,6 +301,7 @@ __device__ __forceinline__ void dx_chain_x(float (&dpe)[32], unsigned char* act,
     ring_products_x<64, 2>(dpe, act_s, D / kXSliceCols, 0, ring);   // g0 W0
   else
     ring_skip(D / kXSliceCols, ring);
+  hook.drain(wg);    // g0's copies have read the buffer
   consumer_sync();   // every read of g0 is done: g4 goes over it
   {
     constexpr int kChunks = static_cast<int>(g4_bytes_w<D>() / 16);

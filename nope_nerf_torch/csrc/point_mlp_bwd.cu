@@ -44,7 +44,7 @@
 //    dB[10], dB[11]. g4 goes to dpe (after g0 W0) from its operand tile.
 // 2. The chain's partials summed in CTA order (and warpgroup order) into the
 //    gradient buffer.
-// 3. dw_sm90.cuh on K6's work table (chain_dw_table): the 12 other dW blocks.
+// 3. dw_sm90.cuh on K6's work table (chain_dw_pieces): the 12 other dW blocks.
 // No float atomics anywhere: two launches give the same bits.
 //
 // Shared memory at D=256: point_mlp_bwd_frozen.cu's (activations 64 KB,
@@ -63,6 +63,11 @@
 // the column sums go to a per-CTA scratch in device memory (114 KB at 512).
 // The dW kernel takes blocks wider than 256 columns as column pieces (24 at
 // 384, 22 at 512).
+//
+// At D = 640 to 1024 K6 full is point_mlp_bwd_xwide.cu, a translation unit
+// of its own with the same C entries: built beside the kernels here, its
+// instances moved the SASS of the 384 and 512 ones (their outputs bit-equal;
+// the stack frame's layout moved), and those keep their code.
 
 #include "mlp_dw_chain_sm90.cuh"
 
@@ -228,8 +233,8 @@ cudaError_t launch_bwd(const float* pts, const float* dirs, const float* g_rgb,
   err = chain_reduce_launch(chain_part, grads, chain_seg(D, lay.w[13], lay.sums), n_ctas, D,
                             lay.w[13], stream);
   if (err != cudaSuccess) return err;
-  DwTable tab = chain_dw_table<D>(xops, gops, grads, (M + kPts - 1) / kPts, true);
-  return dw_sm90_launch(tab, M, chunks, dw_part, stream);
+  return chain_dw_launch<D>(xops, gops, grads, (M + kPts - 1) / kPts, true, M, chunks, dw_part,
+                            stream);
 }
 
 // ---- hidden_dim 384 and 512: the 64-point chain of mlp_dx_wide_sm90.cuh ----------
@@ -400,8 +405,8 @@ cudaError_t launch_bwd_w(const float* pts, const float* dirs, const float* g_rgb
   err = chain_reduce_launch(chain_part, grads, chain_seg(D, lay.w[13], lay.sums), n_ctas, D,
                             lay.w[13], stream);
   if (err != cudaSuccess) return err;
-  DwTable tab = chain_dw_table<D>(xops, gops, grads, (M + kPts - 1) / kPts, true);
-  return dw_sm90_launch(tab, M, chunks, dw_part, stream);
+  return chain_dw_launch<D>(xops, gops, grads, (M + kPts - 1) / kPts, true, M, chunks, dw_part,
+                            stream);
 }
 
 }  // namespace

@@ -47,7 +47,7 @@
 //      in ray order, dB[0..11] and the loss sums.
 // 2. The chain's partials summed in CTA, then warpgroup, order.
 // 3. dw_sm90.cuh on the 11-block table (mlp_dw_chain_sm90.cuh's
-//    chain_dw_table without its direction block) over the N S samples.
+//    chain_dw_pieces without its direction block) over the N S samples.
 // The operands take 9,600 B a sample at D = 256 (4,864 at D = 128): 5 GB for
 // 1024 rays x 512 samples, 20 GB at 2048. So the rays go in consecutive
 // chunks whose operands stay within a budget the caller sets
@@ -684,9 +684,9 @@ cudaError_t render_full_launch(const float* rays, const float* z, const RayCotan
     if (err != cudaSuccess) return err;
     err = chain_reduce_launch(chain_part, grads, render_seg(D), ctas, D, lay.w[12], stream, add);
     if (err != cudaSuccess) return err;
-    DwTable tab = chain_dw_table<D>(xops, gops, grads, n_pass, false);
-    err = dw_sm90_launch(tab, n_pass * kPts, chunks < n_pass ? chunks : static_cast<int>(n_pass),
-                         dw_part, stream, add);
+    err = chain_dw_launch<D>(xops, gops, grads, n_pass, false, n_pass * kPts,
+                             chunks < n_pass ? chunks : static_cast<int>(n_pass), dw_part,
+                             stream, add);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;

@@ -8,20 +8,20 @@ package runs around them. `point_mlp` is the MLP query of the unfused render
 sample count the fused render does not take).
 
 On a CUDA tensor `point_mlp` launches the hand-written Hopper kernels in
-`nope_nerf_torch/csrc/point_mlp_fwd.cu` and `csrc/point_mlp_bwd.cu` (or,
-when no nerf parameter wants a gradient, K6's frozen-network variant
-`csrc/point_mlp_bwd_frozen.cu`), or raises. The forward takes hidden_dim
-128 to 1024 (past 512 on `csrc/mlp_fwd_xwide_sm90.cuh`'s trunk, with a
-per-CTA staging scratch the wrapper allocates), and so does the backward's
-frozen-network variant; the full backward 128 to 512. Both backward
-variants run the wgmma dX chain (`csrc/mlp_dx_sm90.cuh`; at hidden_dim 384
-and 512 the 64-point chain of `csrc/mlp_dx_wide_sm90.cuh`; the frozen one
-at 640 to 1024 that of `csrc/mlp_dx_xwide_sm90.cuh`); the full one also writes
-every operand of a weight-gradient product to device memory and forms the
-dW blocks with the generic weight-gradient kernel `csrc/dw_sm90.cuh`
-(dW = X^T G over the points, split into chunks of points summed in order,
-blocks wider than 256 columns in column pieces, `point_dw_pieces`;
-standalone as `dw_sm90`, plain version `dw_plain`). On a CPU
+`nope_nerf_torch/csrc/point_mlp_fwd.cu` and `csrc/point_mlp_bwd.cu` (past
+512 `csrc/point_mlp_bwd_xwide.cu`; or, when no nerf parameter wants a
+gradient, K6's frozen-network variant `csrc/point_mlp_bwd_frozen.cu`), or
+raises. Each takes hidden_dim 128 to 1024 (past 512 on
+`csrc/mlp_fwd_xwide_sm90.cuh`'s trunk, with a per-CTA staging scratch the
+wrapper allocates). Both backward variants run the
+wgmma dX chain (`csrc/mlp_dx_sm90.cuh`; at hidden_dim 384 and 512 the
+64-point chain of `csrc/mlp_dx_wide_sm90.cuh`; at 640 to 1024 that of
+`csrc/mlp_dx_xwide_sm90.cuh`); the full one also writes every operand of a
+weight-gradient product to device memory and forms the dW blocks with the
+generic weight-gradient kernel `csrc/dw_sm90.cuh` (dW = X^T G over the
+points, split into chunks of points summed in order, blocks wider than 256
+columns in column pieces, `point_dw_pieces`, at most DW_MAX_PIECES a launch
+of it; standalone as `dw_sm90`, plain version `dw_plain`). On a CPU
 tensor, and on any tensor inside `with plain_versions():`, it runs
 `point_mlp_fwd_plain` and `point_mlp_bwd_plain`, the same arithmetic in
 plain PyTorch:
@@ -108,8 +108,14 @@ def _setup_dw(lib: ctypes.CDLL) -> None:
 
 POINT_MLP_FWD = CudaLibrary("point_mlp_fwd.cu", _setup_fwd)
 POINT_MLP_BWD = CudaLibrary("point_mlp_bwd.cu", _setup_bwd)
+# K6 full at hidden_dim 640 to 1024: the same C entries in a translation unit of its own
+# (csrc/point_mlp_bwd_xwide.cu). Its launches count in POINT_MLP_BWD.launches, which
+# counts every launch of K6 at every width.
+POINT_MLP_BWD_XWIDE = CudaLibrary("point_mlp_bwd_xwide.cu", _setup_bwd)
 # The weight-gradient kernel (csrc/dw_sm90.cuh). Its `launches` counts every
-# launch of it: by K6 full (point_mlp_bwd.cu's entry) once per launch, by K1
+# launch of it: by K6 full (point_mlp_bwd.cu's and point_mlp_bwd_xwide.cu's
+# entry) once per launch of K6 full up to hidden_dim 512 and twice past it
+# (point_dw_launches), by K1
 # and K4 full (render_train.cu's and render_bwd.cu's) once per chunk of rays
 # (fused_render.render_chunks), and by `dw_sm90`, the kernel on its own
 # (dw_sm90.cu).
@@ -127,10 +133,10 @@ def _check_inputs(pts: torch.Tensor, dirs: torch.Tensor) -> None:
 
 
 def _check_width(cfg: NerfConfig, kernel: str) -> None:
-    """The point-query MLP `kernel` ("forward": K5, and "backward (frozen
-    network)": K6's frozen-network variant, 128 to 1024; "backward": K6 full,
-    128 to 512) takes cfg's width and the reference 10/4 encoding levels, or
-    this raises NotImplementedError before any device work."""
+    """The point-query MLP `kernel` ("forward": K5, "backward (frozen
+    network)": K6's frozen-network variant, "backward": K6 full; each 128 to
+    1024) takes cfg's width and the reference 10/4 encoding levels, or this
+    raises NotImplementedError before any device work."""
     if cfg.pos_enc_levels != 10 or cfg.dir_enc_levels != 4:
         raise NotImplementedError(
             "the CUDA point-query MLP kernels are built for the reference 10/4 encoding "
@@ -213,11 +219,19 @@ def _dw_pieces(table) -> List[Tuple[int, str, str, int, int, int]]:
 
 def point_dw_pieces(D: int) -> List[Tuple[int, str, str, int, int, int]]:
     """The dW kernel's work table for K6 full at width D
-    (mlp_dw_chain_sm90.cuh's chain_dw_table): each block of point_dw_table
+    (mlp_dw_chain_sm90.cuh's chain_dw_pieces): each block of point_dw_table
     in column pieces of 256, then 128, then 64 columns, as (pack_weights
     index, X operand, G operand, K, first column, N). At 128 and 256 every
-    block is one piece; 24 pieces at 384, 22 at 512."""
+    block is one piece; 24 pieces at 384, 22 at 512, 34 at 640 and 768, 46
+    at 896, 44 at 1024."""
     return _dw_pieces(point_dw_table(D))
+
+
+def point_dw_launches(D: int) -> int:
+    """Launches of the dW kernel in one call of K6 full at width D: its
+    pieces in table order, at most DW_MAX_PIECES a launch
+    (mlp_dw_chain_sm90.cuh's chain_dw_launch); 1 up to 512, 2 past it."""
+    return -(-len(point_dw_pieces(D)) // DW_MAX_PIECES)
 
 
 # K1's and K4 full's (render_full_sm90.cuh): K6's table without its direction
@@ -230,7 +244,7 @@ def render_dw_table(D: int) -> List[Tuple[int, str, str, int, int]]:
 
 def render_dw_pieces(D: int) -> List[Tuple[int, str, str, int, int, int]]:
     """K1's and K4 full's work table for the dW kernel at width D
-    (chain_dw_table without the direction block): render_dw_table in
+    (chain_dw_pieces without the direction block): render_dw_table in
     point_dw_pieces' column pieces; 11 at 128 and 256, 22 at 384, 21 at 512."""
     return _dw_pieces(render_dw_table(D))
 
@@ -246,6 +260,26 @@ def dw_chunks(cta_tiles: int, M: int, sms: int) -> int:
     with, at least 1 and at most the row tiles. From M and the SM count
     only, so two launches split alike."""
     return max(1, min(-(-M // DW_ROWS), sms // cta_tiles))
+
+
+# Past hidden_dim 512: the row tiles one chunk of K6 full's dW kernel sums at most. The
+# kernel's wgmma accumulator truncates, so a run of 1,537 row tiles (196,608 points, one
+# chunk: the table's CTA tiles pass the SM count there) drifts from an f32 sum of the
+# same products by 4.5 to 6.0 x the f32 plain version's distance from the f64 sum
+# (tools/backward_noise.py --full, PERF.md section 6); the chunks' partials are
+# summed in f32 in chunk order.
+DW_XWIDE_CHUNK_TILES = 64
+
+
+def point_dw_chunks(D: int, cta_tiles: int, M: int, sms: int) -> int:
+    """The chunks of K6 full's dW kernel at width D: dw_chunks', and past 512
+    at least enough that none sums more than DW_XWIDE_CHUNK_TILES row tiles
+    (at most the row tiles)."""
+    chunks = dw_chunks(cta_tiles, M, sms)
+    if D > 512:
+        nt = -(-M // DW_ROWS)
+        chunks = max(chunks, min(nt, -(-nt // DW_XWIDE_CHUNK_TILES)))
+    return chunks
 
 
 def _chunk_bounds(M: int, chunks: int) -> List[Tuple[int, int]]:
@@ -461,6 +495,12 @@ def point_mlp_fwd_operands(params: Dict[str, torch.Tensor], pts: torch.Tensor,
         return rgb, density, xops
 
 
+def point_mlp_bwd_library(D: int):
+    """The library of K6 full at width D: point_mlp_bwd.cu up to 512,
+    point_mlp_bwd_xwide.cu past it (the same C entries)."""
+    return POINT_MLP_BWD_XWIDE if D > 512 else POINT_MLP_BWD
+
+
 def mlp_bwd_kernel(want_param_grads: bool) -> str:
     """_check_width's name of the backward's variant: K6 full when a nerf
     parameter wants a gradient, else its frozen-network variant."""
@@ -472,8 +512,10 @@ def _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig,
     """(dWs, dBs, dpts, ddirs) by one launch of the backward kernel: its C
     entry issues the chain (one CTA per SM over tile_rows(D)-point passes),
     the in-order sum of the chain's partial sums and the dW kernel (with its
-    in-order sum of the chunks). At 384 and 512 the chain also takes a
-    per-CTA scratch (the ReLU masks, the parked g4, the bias column sums). With
+    in-order sum of the chunks; past 512 two launches of it,
+    point_dw_launches). From 384 on the chain also takes a per-CTA scratch
+    (the ReLU masks, the parked g4, the bias column sums; past 512 the staging
+    of a layer's passes), whose size the C entry gives in sizes[5]. With
     want_param_grads=False its frozen-network variant runs: no dW/dB, and
     dWs, dBs are None. For checks, a list given as `operands` gets the X
     operands the chain handed the dW kernel (point_mlp_fwd_operands' layout,
@@ -489,7 +531,7 @@ def _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig,
     if not want_param_grads:
         return (None, None) + _mlp_bwd_frozen_cuda(params, pts, dirs, g_rgb, g_density, cfg)
     tiles, tiles_dx, _B, bptrs = _packed_tiles_on(params, cfg, dev)
-    lib = POINT_MLP_BWD.lib()
+    lib = point_mlp_bwd_library(D).lib()
     offsets = (ctypes.c_int * 26)()
     total = lib.nerf_point_mlp_grad_layout(D, offsets)
     if total <= 0:
@@ -498,14 +540,15 @@ def _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig,
     sizes = (ctypes.c_longlong * 6)()
     if lib.nerf_point_mlp_bwd_scratch(D, M, n_ctas, sizes) != 0:
         raise RuntimeError("the point-query MLP backward kernel reports no scratch sizes")
-    chunks = dw_chunks(sizes[4], M, torch.cuda.get_device_properties(dev).multi_processor_count)
+    chunks = point_dw_chunks(D, sizes[4], M,
+                             torch.cuda.get_device_properties(dev).multi_processor_count)
     xops, gops = (torch.empty((sizes[i],), dtype=torch.uint8, device=dev) for i in (0, 1))
     if operands is not None:
         xops.zero_()
         operands.append(xops.view(torch.bfloat16))
     chain_part = torch.empty((sizes[2] // 4,), dtype=torch.float32, device=dev)
     dw_part = torch.empty((chunks * sizes[3] // 4,), dtype=torch.float32, device=dev)
-    scratch = _scratch_bytes(sizes[5], dev) if sizes[5] else None   # the wide chain's
+    scratch = _scratch_bytes(sizes[5], dev) if sizes[5] else None   # the 64-point chains'
     f32 = dict(dtype=torch.float32, device=dev)
     grads = torch.empty((total,), **f32)
     dpts = torch.empty((M, 3), **f32)
@@ -523,7 +566,7 @@ def _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig,
         raise RuntimeError("point-query MLP backward kernel launch failed: "
                            + lib.nerf_error_string(err).decode())
     POINT_MLP_BWD.launches += 1
-    DW_SM90.launches += 1
+    DW_SM90.launches += point_dw_launches(D)
     dWs, dBs = _grad_blocks(grads, offsets, D)
     return dWs, dBs, dpts, ddirs
 

@@ -882,18 +882,20 @@ def _train_plain(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p:
 # csrc/mlp_fwd_wide_sm90.cuh and csrc/mlp_dx_wide_sm90.cuh (the kernels that
 # form weight gradients, K1, K4 full and K6 full, with
 # csrc/mlp_dw_chain_sm90.cuh's OperandSaveW there); the forward kernels, K3
-# and K5, and the frozen-network variants of K4 and K6 also 640 to 1024, on
-# csrc/mlp_fwd_xwide_sm90.cuh's trunk and csrc/mlp_dx_xwide_sm90.cuh's chain.
+# and K5, the frozen-network variants of K4 and K6, and K6 full (with
+# OperandSaveX) also 640 to 1024, on csrc/mlp_fwd_xwide_sm90.cuh's trunk and
+# csrc/mlp_dx_xwide_sm90.cuh's chain.
 BACKWARD_WIDTHS = (128, 256, 384, 512)
 FORWARD_WIDTHS = BACKWARD_WIDTHS + (640, 768, 896, 1024)
 KERNEL_WIDTHS = {"render": FORWARD_WIDTHS, "point-query MLP forward": FORWARD_WIDTHS,
                  "render-backward (frozen network)": FORWARD_WIDTHS,
                  "point-query MLP backward (frozen network)": FORWARD_WIDTHS,
-                 "point-query MLP backward": BACKWARD_WIDTHS,
+                 "point-query MLP backward": FORWARD_WIDTHS,
                  "train": BACKWARD_WIDTHS, "render-backward": BACKWARD_WIDTHS}
-# The entry of ROADMAP.md's Queue 3 (c) that brings each kernel that forms
-# weight gradients to 640 to 1024, on the chain the frozen variants run there
-BACKWARD_QUEUE = {"point-query MLP backward": 3, "train": 4, "render-backward": 4}
+# The entry of ROADMAP.md's Queue 3 (c) that brings each kernel that still
+# stops at 512 to 640 to 1024, on the chain the frozen variants and K6 full
+# run there
+BACKWARD_QUEUE = {"train": 4, "render-backward": 4}
 
 
 def check_kernel_width(kernel: str, D: int) -> None:
@@ -907,9 +909,9 @@ def check_kernel_width(kernel: str, D: int) -> None:
         why = (f": widths past {FORWARD_WIDTHS[-1]} need a tile plan of their own in every "
                "trunk header (ROADMAP.md, Queue 3 (c))")
     elif D > BACKWARD_WIDTHS[-1] and D in FORWARD_WIDTHS:
-        why = (f": past {BACKWARD_WIDTHS[-1]} only the forward kernels and the frozen-network "
-               "backward variants run; this one is queued on their trunk and dX chain "
-               f"(ROADMAP.md, Queue 3 (c), item {BACKWARD_QUEUE[kernel]})")
+        why = (f": past {BACKWARD_WIDTHS[-1]} only the forward kernels, the frozen-network "
+               "backward variants and K6 full run; this one is queued on their trunk and dX "
+               f"chain (ROADMAP.md, Queue 3 (c), item {BACKWARD_QUEUE[kernel]})")
     else:
         why = ""
     raise NotImplementedError(

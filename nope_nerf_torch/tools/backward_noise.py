@@ -73,6 +73,14 @@ worst shares, the blocks beyond the rule and the case's class (classify).
 Below a few hundred points a block sums too few products for one flipped
 bf16 rounding to average away: where the f32 plain version misses the 5e-3
 rule against the f64 sum, no f32 evaluation can be held to it.
+With `--full --widths 640 1024` (any width past 512: K6 full,
+csrc/point_mlp_bwd_xwide.cu, on csrc/mlp_dx_xwide_sm90.cuh's chain with
+OperandSaveX), per width and flag
+set the point counts of WIDE_FULL_M from WIDE_FULL_SUM_POINTS on (196,645
+points), FULL_RULE_SEEDS seeds: the mean L2 distance of the 26 dW and dB
+blocks from the f64 sum (each as a share of 2e-2 of the f64 block's norm),
+kernel over f32 plain, held to FULL_RULE (2.0: at or under it the kernel is
+a faithful f32 evaluation; fixed before that kernel first ran).
 With `--render-full`, K1 (csrc/render_train.cu) and K4 full
 (csrc/render_bwd.cu), both instances of csrc/render_full_sm90.cuh (its wide
 kernel at 384 and 512), at hidden_dim 128 to 512 on chip_smoke.py phase
@@ -137,6 +145,10 @@ FROZEN_SEEDS = 6
 # chain past 512 first ran)
 FROZEN_RULE = 2.0
 FULL_SEEDS = 4
+# --full past 512: seeds a flag set, and the kernel's mean L2 distance of the dW and dB
+# blocks from the f64 sum over the f32 plain version's above which the kernel is at fault
+FULL_RULE_SEEDS = 6
+FULL_RULE = 2.0
 RENDER_FULL_SEEDS = 2
 
 
@@ -324,6 +336,68 @@ def full_yardstick(torch, chip_smoke, dev, widths) -> None:
                   + ", ".join(f"{p} {worst[p]:.3f}" for p in pairs) + "; blocks beyond 5e-3 "
                   + ", ".join(f"{p} {beyond[p]}" for p in pairs)
                   + f"; class ({case_class(classes)})", flush=True)
+
+
+def full_rule(torch, chip_smoke, dev, widths) -> None:
+    """--full past 512: K6 full's and its f32 plain version's mean L2
+    distance of the dW and dB blocks from the f64 sum, per width and flag
+    set, against FULL_RULE (see the module text)."""
+    from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
+    from nope_nerf_torch.ops.fused_mlp import _mlp_bwd_cuda, point_mlp_bwd_plain
+    from nope_nerf_torch.ops.fused_render import unpack_grads
+    pairs = ("kernel~f32", "kernel~f64", "f32~f64")
+    counts = [M for M in chip_smoke.WIDE_FULL_M if M >= chip_smoke.WIDE_FULL_SUM_POINTS]
+    for D in widths:
+        for M in counts:
+            ratios = []
+            for occ, da in chip_smoke.WIDE_FLAGS:
+                l2 = dict.fromkeys(pairs, 0.0)
+                worst = dict.fromkeys(pairs, 0.0)
+                by_block = {}   # kernel~f64 L2 share per block, summed over the seeds
+                for seed in range(FULL_RULE_SEEDS):
+                    gen = torch.Generator().manual_seed(400 + seed)
+                    pts, dirs = chip_smoke.point_inputs(torch, dev, gen, M)
+                    ncfg = NerfConfig(hidden_dim=D, occ_activation=occ, dist_alpha=da,
+                                      use_pallas=True)
+                    params = init_nerf_params(ncfg, gen, device=dev)
+                    cot = chip_smoke.point_cotangents(torch, params, pts, dirs, ncfg)
+                    outs = [_mlp_bwd_cuda(params, pts, dirs, *cot, ncfg),
+                            point_mlp_bwd_plain(params, pts, dirs, *cot, ncfg),
+                            point_mlp_bwd_plain(params, pts, dirs, *cot, ncfg,
+                                                dtype=torch.float64)]
+                    k, p32, p64 = (unpack_grads([w.float() for w in o[0]],
+                                                [b.float() for b in o[1]], ncfg) for o in outs)
+                    del outs
+                    parts = []
+                    for what, got, ref in zip(pairs, (k, k, p32), (p32, p64, p64)):
+                        shares = {n: float((got[n] - ref[n]).norm())
+                                  / (2e-2 * float(ref[n].norm()) + 1e-12) for n in ref}
+                        mean = sum(shares.values()) / len(shares)
+                        l2[what] += mean
+                        if what == "kernel~f64":
+                            for n, v in shares.items():
+                                by_block[n] = by_block.get(n, 0.0) + v
+                        worst[what] = max(worst[what], chip_smoke.grad_share(
+                            got[max(shares, key=shares.get)], ref[max(shares, key=shares.get)],
+                            False))
+                        parts.append(f"{what} mean L2 share {mean:.4f}")
+                    print(f"full rule D={D} {M} points occ={occ} head_dist_alpha={da} seed "
+                          f"{seed}: " + "; ".join(parts), flush=True)
+                ratio = l2["kernel~f64"] / l2["f32~f64"]
+                ratios.append(ratio)
+                print(f"full rule D={D} {M} points occ={occ} head_dist_alpha={da}, "
+                      f"{FULL_RULE_SEEDS} seeds: mean L2 share kernel~f64 "
+                      f"{l2['kernel~f64'] / FULL_RULE_SEEDS:.4f}, f32~f64 "
+                      f"{l2['f32~f64'] / FULL_RULE_SEEDS:.4f}, kernel~f32 "
+                      f"{l2['kernel~f32'] / FULL_RULE_SEEDS:.4f}; ratio {ratio:.2f} (rule: at "
+                      f"most {FULL_RULE}: {ratio <= FULL_RULE}); worst block by 5e-3: "
+                      + ", ".join(f"{p} {worst[p]:.3f}" for p in pairs) + "; kernel~f64 "
+                      "farthest blocks " + ", ".join(
+                          f"{n} {v / FULL_RULE_SEEDS:.4f}" for n, v in
+                          sorted(by_block.items(), key=lambda kv: -kv[1])[:4]), flush=True)
+            print(f"full rule D={D} {M} points: per flag set {', '.join(f'{r:.2f}' for r in ratios)}"
+                  f", every one at most {FULL_RULE}: {all(r <= FULL_RULE for r in ratios)}",
+                  flush=True)
 
 
 def render_full_yardstick(torch, chip_smoke, dev, widths=FROZEN_WIDTHS, cases=None,
@@ -703,7 +777,8 @@ def main(argv=None) -> int:
     ap.add_argument("--frozen", action="store_true",
                     help="the frozen-network variant at every width (see the module text)")
     ap.add_argument("--full", action="store_true",
-                    help="K6 full at 384 and 512 and small point counts (see the module text)")
+                    help="K6 full at 384 and 512 and small point counts, or the numerics rule "
+                         "past 512 (see the module text)")
     ap.add_argument("--render-full", action="store_true",
                     help="K1 and K4 full at every width on phase 13's cases (see the module "
                          "text)")
@@ -744,8 +819,12 @@ def main(argv=None) -> int:
             forward_flips(torch, chip_smoke, dev, args.widths or FROZEN_WIDTHS)
             return 0
         if args.full:
-            build_all((fused_mlp.POINT_MLP_BWD,))
-            full_yardstick(torch, chip_smoke, dev, args.widths or chip_smoke.WIDE_D)
+            build_all((fused_mlp.POINT_MLP_BWD, fused_mlp.POINT_MLP_BWD_XWIDE))
+            widths = args.widths or chip_smoke.WIDE_D
+            if any(D <= 512 for D in widths):
+                full_yardstick(torch, chip_smoke, dev, [D for D in widths if D <= 512])
+            if any(D > 512 for D in widths):
+                full_rule(torch, chip_smoke, dev, [D for D in widths if D > 512])
             return 0
         if args.render_full:
             widths = args.widths or list(FROZEN_WIDTHS)

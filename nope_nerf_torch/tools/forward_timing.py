@@ -30,7 +30,8 @@ one warm-up:
   (csrc/mlp_dx_xwide_sm90.cuh);
 - `--kernels full`: K6 full through `_mlp_bwd_cuda` at 196,608 points (the
   fine pass of a hierarchical train step: every dW, dB, d(points),
-  d(directions)); at the widths K1 and K4 full take (128 to 512; 128 and
+  d(directions)), 128 to 1024 since its kernel past 512 (csrc/point_mlp_bwd_xwide.cu);
+  at the widths K1 and K4 full take (128 to 512; 128 and
   256 in a checkout before their wide kernel), K1 through `_train_cuda` and
   K4 full through `_render_bwd_cuda` at 1024 rays x 128 samples (the train
   step's launch); and the dW kernel on its own
@@ -75,7 +76,7 @@ BWD_SAMPLES = (128, 512)
 # the mangled names of each set's kernel instances: kernel, template arguments
 SASS_NAMES = {"forward": r"(render_fwd_kernel|point_mlp_fwd_kernel)I(Li\d+E(?:Lb\d)?)",
               "frozen": r"((?:render|point_mlp)_bwd_frozen(?:_wide|_xwide)?_kernel)I(Li\d+E(?:Lb\d)?)",
-              "full": r"((?:point_mlp_bwd(?:_wide)?|render_full(?:_wide)?|dw_sm90|dw_reduce|"
+              "full": r"((?:point_mlp_bwd(?:_wide|_xwide)?|render_full(?:_wide)?|dw_sm90|dw_reduce|"
                       r"chain_reduce)_kernel)(I(?:Li\d+E|Lb\d+E)+E|E)"}
 
 
@@ -258,7 +259,8 @@ def _width_params(dev, widths):
 
 KERNEL_SETS = {"forward": ((F.RENDER_FWD, FM.POINT_MLP_FWD), forward_cases, 5),
                "frozen": ((F.RENDER_BWD_FROZEN, FM.POINT_MLP_BWD_FROZEN), frozen_cases, 10),
-               "full": ((FM.POINT_MLP_BWD, F.RENDER_TRAIN, F.RENDER_BWD, FM.DW_SM90), full_cases,
+               "full": ((FM.POINT_MLP_BWD, FM.POINT_MLP_BWD_XWIDE, F.RENDER_TRAIN, F.RENDER_BWD,
+                         FM.DW_SM90), full_cases,
                         5)}
 
 

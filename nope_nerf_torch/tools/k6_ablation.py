@@ -68,8 +68,8 @@ VARIANTS = {
     "nosum": _NOSUM,
     "now9": [_W9],
     "bare": [(_X_SAVE, ""), (_G_SAVE, ""), (_GH_SAVE, "")] + _NOSUM + [_W9],
-    "nodw": [("  return dw_sm90_launch(tab, M, chunks, dw_part, stream);",
-              "  (void)tab;\n  return cudaSuccess;")],
+    "nodw": [("    const cudaError_t err = dw_sm90_launch(tab, M, chunks, dw_part, stream, add);",
+              "    const cudaError_t err = cudaSuccess;")],
 }
 
 

@@ -18,7 +18,7 @@ pieces) runs as its plain version:
       call's bit for bit, which tests/test_torch_wide_backward.py holds
       against the same VJP entry by entry;
 (ii)  the dW kernel's work table at every width (point_dw_pieces, the mirror
-      of chain_dw_table's column split): each block's columns covered once
+      of chain_dw_pieces' column split): each block's columns covered once
       by pieces of 64, 128 or 256 columns, no more pieces than the kernel
       takes, and dw_plain over each piece's columns of the operands the plain
       backward forms giving those columns of the block;

@@ -147,13 +147,13 @@ def test_width_gates(D):
     variants of K4 and K6, K6 full, and the render kernels that form weight
     gradients, K1 and K4 full (their wide kernel on csrc/mlp_dx_wide_sm90.cuh's
     chain); K3 and K5 also take 640 and 1024 (csrc/mlp_fwd_xwide_sm90.cuh's
-    trunk), and so do the frozen-network variants of K4 and K6
+    trunk), and so do the frozen-network variants of K4 and K6 and K6 full
     (csrc/mlp_dx_xwide_sm90.cuh's chain). Every other kernel raises
     NotImplementedError for 640 and past, naming Queue 3 (c), and every
     kernel for a width JAX's kernels do not take; no message names Queue 3
     (b) any more. The checks run before any device work, here on the CPU."""
     forward = ("render", "point-query MLP forward", "render-backward (frozen network)",
-               "point-query MLP backward (frozen network)")
+               "point-query MLP backward (frozen network)", "point-query MLP backward")
     for kernel in F.KERNEL_WIDTHS:
         if D in (128, 256, 384, 512) or (D in (640, 1024) and kernel in forward):
             F.check_kernel_width(kernel, D)
@@ -171,7 +171,7 @@ def test_width_gates(D):
     assert F.render_bwd_kernel(True) == "render-backward"
     cfg = NerfConfig(hidden_dim=D, use_pallas=True)
     for kernel in ("forward", FM.mlp_bwd_kernel(False), FM.mlp_bwd_kernel(True)):
-        if D in (128, 256, 384, 512) or (D in (640, 1024) and kernel != FM.mlp_bwd_kernel(True)):
+        if D in (128, 256, 384, 512, 640, 1024):
             FM._check_width(cfg, kernel)
         else:
             with pytest.raises(NotImplementedError):

@@ -18,7 +18,7 @@ OperandSaveW and the dW kernel's column pieces) run as their plain versions:
       render_ray_loss_fused) at hidden_dim 384 against the JAX package's,
       from a converted state with the draws pinned;
 (iv)  the dW kernel's work table of the render kernels at every width
-      (fused_mlp.render_dw_pieces, the mirror of chain_dw_table's column
+      (fused_mlp.render_dw_pieces, the mirror of chain_dw_pieces' column
       split without the direction block): each block's columns covered once,
       22 pieces at 384 and 21 at 512, and dw_plain over each piece's columns
       of the operands the plain backward forms giving those columns of K4

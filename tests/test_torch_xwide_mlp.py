@@ -3,9 +3,8 @@ K3 (ops/fused_render.py::render_rays_fused) and K5 (ops/fused_mlp.py::
 point_mlp) against the JAX package's Pallas kernels in interpret mode, and the
 width gates of the CUDA wrappers there (csrc/mlp_fwd_xwide_sm90.cuh serves K3
 and K5 at 640, 768, 896 and 1024, and with csrc/mlp_dx_xwide_sm90.cuh the
-frozen-network variants of K4 and K6; the kernels that form weight gradients
-stop at 512 and name the entry of ROADMAP.md's Queue 3 (c) that brings each
-of them).
+frozen-network variants of K4 and K6 and K6 full; K1 and K4 full stop at 512
+and name the entry of ROADMAP.md's Queue 3 (c) that brings them).
 
 Tolerances, as tests/test_torch_wide_mlp.py holds the same functions at 384
 and 512: K3's outputs within 2e-3 of the largest entry (at least 1e-3); K5's
@@ -34,11 +33,12 @@ from nope_nerf_torch.ops import fused_render as F
 
 torch.set_num_threads(2)
 FLAGS = [("softplus", False), ("relu", True)]   # (occupancy, head and renderer dist_alpha)
-BACKWARD = {   # each kernel with weight gradients: its entry of Queue 3 (c) past 512
-    "point-query MLP backward": 3, "train": 4, "render-backward": 4}
-# the kernels that take 640 to 1024: K3, K5 and the frozen-network variants of K4 and K6
+BACKWARD = {   # each kernel that stops at 512: its entry of Queue 3 (c) past it
+    "train": 4, "render-backward": 4}
+# the kernels that take 640 to 1024: K3, K5, the frozen-network variants of K4 and K6,
+# and K6 full
 FORWARD = ("render", "point-query MLP forward", "render-backward (frozen network)",
-           "point-query MLP backward (frozen network)")
+           "point-query MLP backward (frozen network)", "point-query MLP backward")
 
 
 def _port_cfg(jc):
@@ -99,11 +99,11 @@ def test_point_mlp_plain_matches_pallas_kernel_interpret(D, occ, dist_alpha):
 
 @pytest.mark.parametrize("D", [640, 768, 896, 1024, 1152])
 def test_xwide_width_gates(D):
-    """K3, K5 and the frozen-network variants of K4 and K6 take 640 to 1024;
-    at those widths each kernel with weight gradients raises
-    NotImplementedError naming its entry of Queue 3 (c) (K6 full item 3, K1
-    and K4 full item 4). Past 1024 every kernel raises, naming Queue 3 (c).
-    The checks run before any device work, here on the CPU."""
+    """K3, K5, the frozen-network variants of K4 and K6, and K6 full take
+    640 to 1024; at those widths K1 and K4 full raise NotImplementedError
+    naming their entry of Queue 3 (c), item 4. Past 1024 every kernel
+    raises, naming Queue 3 (c). The checks run before any device work, here
+    on the CPU."""
     assert set(F.KERNEL_WIDTHS) == set(FORWARD) | set(BACKWARD)
     for kernel in F.KERNEL_WIDTHS:
         if D <= 1024 and kernel in FORWARD:
@@ -120,7 +120,7 @@ def test_xwide_width_gates(D):
             assert "past 1024" in text and "item" not in text
     cfg = NerfConfig(hidden_dim=D, use_pallas=True)
     for kernel in ("forward", FM.mlp_bwd_kernel(False), FM.mlp_bwd_kernel(True)):
-        if D <= 1024 and kernel != FM.mlp_bwd_kernel(True):
+        if D <= 1024:
             FM._check_width(cfg, kernel)
         else:
             with pytest.raises(NotImplementedError, match="Queue 3 \\(c\\)"):
@@ -137,10 +137,10 @@ def test_xwide_routes_raise_before_any_build():
     the checks come before any launch or build), at 640: K3's and K5's
     forwards, the differentiable routes for a frozen network and the frozen
     backward wrappers pass their gates and go on to a kernel's build (no nvcc
-    on this machine); with parameters that want gradients the differentiable
-    routes of K3 and K5 check the backward's variant first and raise
-    NotImplementedError, and so does every wrapper of a kernel with weight
-    gradients."""
+    on this machine), and so do K5's differentiable route and K6 full's
+    wrapper with parameters that want gradients; with such parameters K3's
+    differentiable route checks the backward's variant first and raises
+    NotImplementedError, and so do the wrappers of K1 and K4 full."""
     cfg = NerfConfig(hidden_dim=640, use_pallas=True)
     meta = dict(device="meta")
     rays, z = torch.empty(4, 9, **meta), torch.empty(4, 128, **meta)
@@ -160,7 +160,7 @@ def test_xwide_routes_raise_before_any_build():
         F._RenderFused.forward(wants, rays, z, cfg, False, True, names, *tensors)
     with pytest.raises(RuntimeError, match="nvcc"):
         F._RenderFused.forward(frozen, rays, z, cfg, False, True, names, *tensors)
-    with pytest.raises(NotImplementedError, match="MLP backward kernel.*item 3"):
+    with pytest.raises(RuntimeError, match="nvcc"):
         FM._PointMLP.forward(SimpleNamespace(needs_input_grad=wants.needs_input_grad[2:]),
                              pts, pts, cfg, names, *tensors)
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -173,8 +173,8 @@ def test_xwide_routes_raise_before_any_build():
     with pytest.raises(RuntimeError, match="nvcc"):
         F._render_bwd_cuda(params, rays, z, g_rgb, g_dist, None, None, cfg, False,
                            want_param_grads=False)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        FM._mlp_bwd_cuda({}, pts, pts, pts, torch.empty(4, 1, **meta), cfg)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        FM._mlp_bwd_cuda(params, pts, pts, pts, torch.empty(4, 1, **meta), cfg)
     with pytest.raises(RuntimeError, match="nvcc"):
         FM._mlp_bwd_cuda(params, pts, pts, pts, torch.empty(4, 1, **meta), cfg,
                          want_param_grads=False)
