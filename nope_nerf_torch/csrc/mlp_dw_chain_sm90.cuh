@@ -21,7 +21,7 @@
 // mlp_dx_wide_sm90.cuh (OperandSaveW and the heads below it; K6 full, and with
 // RENDER the render kernels, whose segment starts at dW[12]); at 640 to 1024
 // on mlp_dx_xwide_sm90.cuh's chain in passes of 128 columns (OperandSaveX and
-// rgb_head_bwd_x_full; K6 full).
+// rgb_head_bwd_x_full; K6 full, and with RENDER the render kernels).
 // No float atomics: two launches give the same bits.
 
 #pragma once
@@ -378,11 +378,11 @@ ChainPieces chain_dw_pieces(const unsigned char* xops, const unsigned char* gops
 // the M rows (n_pass row tiles), with `add` (dw_sm90_launch's). A piece's
 // sum depends only on the chunk split, never on the launch it goes in, so
 // how the table is cut moves no bit. The launches reuse dw_part one after
-// another.
+// another. A non-null `launched` is raised by one for each launch made.
 template <int D>
 cudaError_t chain_dw_launch(const unsigned char* xops, const unsigned char* gops, float* grads,
                             long long n_pass, bool de, long long M, int chunks, float* dw_part,
-                            cudaStream_t stream, bool add = false) {
+                            cudaStream_t stream, bool add = false, int* launched = nullptr) {
   const ChainPieces all = chain_dw_pieces<D>(xops, gops, grads, n_pass, de);
   for (int first = 0; first < all.n; first += kDwMaxBlocks) {
     DwTable tab;
@@ -390,6 +390,7 @@ cudaError_t chain_dw_launch(const unsigned char* xops, const unsigned char* gops
     for (int i = 0; i < tab.n; ++i) tab.b[i] = all.b[first + i];
     const cudaError_t err = dw_sm90_launch(tab, M, chunks, dw_part, stream, add);
     if (err != cudaSuccess) return err;
+    if (launched != nullptr) ++*launched;
   }
   return cudaSuccess;
 }
@@ -530,6 +531,12 @@ struct OperandSaveW {
   }
 };
 
+// h's two bf16 under a thread's cell of a buffer parked in device memory, past L1.
+__device__ __forceinline__ __nv_bfloat162 ldcg_bf162(const unsigned char* p) {
+  const unsigned int u = __ldcg(reinterpret_cast<const unsigned int*>(p));
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+
 // ---- hidden_dim 640 to 1024: the hand-off from mlp_dx_xwide_sm90.cuh's chain ------
 //
 // The chain's tile is 64 points, as at 384 and 512, so a pass writes half
@@ -568,20 +575,22 @@ __device__ __forceinline__ void copy_own_blocks_x(const unsigned char* src, unsi
   }
 }
 
-// mlp_tile_x_masks' and dx_chain_x's hook in K6 full at 640 to 1024:
-// OperandSaveW's, but each warpgroup saves the blocks it wrote (2p + g in
-// pass p); pe and de (one block each) and g_h (D/128 blocks) go by warpgroup
-// 0, x7 (X operand 8), which density_head_dw_w reads back for dW[9], by the
-// warpgroup's own stores (the kernel fences them before its barrier), every
-// other operand by bulk copies. The column sums: store_dx_w<64, ..., SUM>
-// writes pass p's four warp sums at red_pass(i, wg, p) + w 64 + c, so a
-// layer's D/128 passes keep theirs apart in red_at(i, wg)'s 2 D floats (4
-// warps x 64 columns x D/128 passes: OperandSaveW's two-buffer layout of
-// red_bytes_w, the other warpgroup's region untouched); grad(i) adds each
-// column's four sums in warp order to the warpgroup's segment at the
-// column's place, 128p + 64g + c of the layer's dB block.
-template <int D>
-struct OperandSaveX : OperandSaveW<D> {
+// mlp_tile_x_masks' and dx_chain_x's hook in K6 full at 640 to 1024, and with
+// RENDER in K1 and K4 full there (segments from dW[12], as OperandSaveW<D,
+// true>'s): OperandSaveW's, but each warpgroup saves the blocks it wrote (2p +
+// g in pass p); pe and de (one block each) and g_h (D/128 blocks) go by
+// warpgroup 0, x7 (X operand 8), which density_head_dw_w reads back for
+// dW[9], by the warpgroup's own stores (the kernel fences them before its
+// barrier), every other operand by bulk copies. The column sums:
+// store_dx_w<64, ..., SUM> writes pass p's four warp sums at red_pass(i, wg,
+// p) + w 64 + c, so a layer's D/128 passes keep theirs apart in red_at(i,
+// wg)'s 2 D floats (4 warps x 64 columns x D/128 passes: OperandSaveW's
+// two-buffer layout of red_bytes_w's first 8 D floats, the other warpgroup's
+// region untouched); grad(i) adds each column's four sums in warp order to
+// the warpgroup's segment at the column's place, 128p + 64g + c of the
+// layer's dB block.
+template <int D, bool RENDER = false>
+struct OperandSaveX : OperandSaveW<D, RENDER> {
   static constexpr int kPasses = D / kXCols;
   __device__ __forceinline__ void operator()(int i, int wg, const unsigned char* src) const {
     if (i == 0 || i == 10) {
@@ -601,7 +610,7 @@ struct OperandSaveX : OperandSaveW<D> {
     copy_own_blocks_x_async(src, this->tiles.g(i), wg, kPasses);
     const GradLayout lay = grad_layout(D);
     const int k = i == 1 ? 9 : 9 - i;   // the layer's dB block: g_feat's 9, g_l's l
-    float* b = this->part + wg * this->seg + D + (lay.b[0] - lay.w[13]) +
+    float* b = this->part + wg * this->seg + D + (lay.b[0] - (RENDER ? lay.w[12] : lay.w[13])) +
                (k == 9 ? lay.b[9] - lay.b[0] : k * D) + 64 * wg;
     for (int e = threadIdx.x & 127; e < 64 * kPasses; e += 128) {
       const int p = e >> 6, c = e & 63;
@@ -625,22 +634,30 @@ struct OperandSaveX : OperandSaveW<D> {
 // warps x the warpgroup's D/4 columns), added to the warpgroup's segment
 // seg_wg at each column's place. dB[11] and dB[8], the tile's f32 sums of the
 // raw-rgb and raw-density cotangents in row order, by four threads into seg0
-// (the CTA's first segment). Starts and ends synchronised (both warpgroups),
-// the buffer fenced for wgmma.
-template <int D>
+// (the CTA's first segment). With RENDER (K1 and K4 full: segments from
+// dW[12]) h comes from `hsrc`, the tile's h parked in device memory in the
+// buffer's layout (the composite has had the buffer since the tile's
+// forward), and each thread also sums its two rows' bf16 g_h, which go
+// through rgb_head_bwd_x's warp and warpgroup order into ghsum: the same bits;
+// red then holds five sums a column (red_bytes_w<D, true>), not four. Starts
+// and ends synchronised (both warpgroups), the buffer fenced for wgmma.
+template <int D, bool RENDER = false>
 __device__ __forceinline__ void rgb_head_bwd_x_full(unsigned char* act, const float* grgb,
                                                     const float* graw, const uint32_t* mask_h,
                                                     const unsigned char* rgb_head, float* red,
-                                                    float* seg0, float* seg_wg) {
+                                                    float* seg0, float* seg_wg,
+                                                    const unsigned char* hsrc = nullptr,
+                                                    float* ghsum = nullptr) {
   constexpr int P = D / kXCols;     // the rgb-hidden layer's passes
   constexpr int N = kXHCols / 2;    // a warpgroup's columns of a pass
   constexpr int NW = P * N;         // ... of h
+  constexpr int R = RENDER ? 5 : 4;   // sums a column
   const GradLayout lay = grad_layout(D);
-  const int from = lay.w[13];       // the segments' first float
+  const int from = RENDER ? lay.w[12] : lay.w[13];   // the segments' first float
   const int tid = threadIdx.x, wg = tid >> 7;
   const int lane = tid & 31, w = (tid >> 5) & 3;
   const int row = 16 * w + (lane >> 2), t = lane & 3;
-  float* red_wg = red + wg * 16 * NW;   // [sum][warp][column]
+  float* red_wg = red + wg * 4 * R * NW;   // [sum][warp][column]
   consumer_sync();   // the forward is done with the buffer, the cotangents are in
   float g[2][3];
 #pragma unroll
@@ -656,9 +673,11 @@ __device__ __forceinline__ void rgb_head_bwd_x_full(unsigned char* act, const fl
       const int col = kXHCols * p + N * wg + 8 * j + 2 * t;
       const uint32_t m = bits >> (4 * j);
       const __nv_bfloat162 h0 =
-          *reinterpret_cast<const __nv_bfloat162*>(act + swz(row, col, kWBlockBytes));
+          RENDER ? ldcg_bf162(hsrc + swz(row, col, kWBlockBytes))
+                 : *reinterpret_cast<const __nv_bfloat162*>(act + swz(row, col, kWBlockBytes));
       const __nv_bfloat162 h1 =
-          *reinterpret_cast<const __nv_bfloat162*>(act + swz(row + 8, col, kWBlockBytes));
+          RENDER ? ldcg_bf162(hsrc + swz(row + 8, col, kWBlockBytes))
+                 : *reinterpret_cast<const __nv_bfloat162*>(act + swz(row + 8, col, kWBlockBytes));
       const float hv[2][2] = {{__low2float(h0), __high2float(h0)},
                               {__low2float(h1), __high2float(h1)}};
       float v[4];
@@ -673,19 +692,23 @@ __device__ __forceinline__ void rgb_head_bwd_x_full(unsigned char* act, const fl
       const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]), hi = __floats2bfloat162_rn(v[2], v[3]);
       *reinterpret_cast<__nv_bfloat162*>(act + swz(row, col, kWBlockBytes)) = lo;
       *reinterpret_cast<__nv_bfloat162*>(act + swz(row + 8, col, kWBlockBytes)) = hi;
-      float s[2][4];   // per column h: the masked g_h, then h bf16(g_rgb[k])
+      float s[2][R];   // per column h: the masked g_h, then h bf16(g_rgb[k]), then bf16 g_h
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         s[h][0] = v[h] + v[2 + h];
 #pragma unroll
         for (int k = 0; k < 3; ++k) s[h][1 + k] = hv[0][h] * g[0][k] + hv[1][h] * g[1][k];
       }
+      if (RENDER) {
+        s[0][R - 1] = __low2float(lo) + __low2float(hi);
+        s[1][R - 1] = __high2float(lo) + __high2float(hi);
+      }
 #pragma unroll
       for (int off = 4; off < 32; off <<= 1) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
 #pragma unroll
-          for (int q = 0; q < 4; ++q) s[h][q] += __shfl_xor_sync(0xffffffffu, s[h][q], off);
+          for (int q = 0; q < R; ++q) s[h][q] += __shfl_xor_sync(0xffffffffu, s[h][q], off);
         }
       }
       if ((lane >> 2) == 0) {
@@ -693,7 +716,7 @@ __device__ __forceinline__ void rgb_head_bwd_x_full(unsigned char* act, const fl
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
 #pragma unroll
-          for (int q = 0; q < 4; ++q) __stcg(red_wg + (4 * q + w) * NW + lc + h, s[h][q]);
+          for (int q = 0; q < R; ++q) __stcg(red_wg + (4 * q + w) * NW + lc + h, s[h][q]);
         }
       }
     }
@@ -701,9 +724,9 @@ __device__ __forceinline__ void rgb_head_bwd_x_full(unsigned char* act, const fl
   fence_proxy_async();
   consumer_sync();
   for (int lc = tid & 127; lc < NW; lc += 128) {
-    float v[4];
+    float v[R];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int q = 0; q < R; ++q) {
       const float* r = red_wg + 4 * q * NW + lc;
       v[q] = ((__ldcg(r) + __ldcg(r + NW)) + __ldcg(r + 2 * NW)) + __ldcg(r + 3 * NW);
     }
@@ -711,6 +734,7 @@ __device__ __forceinline__ void rgb_head_bwd_x_full(unsigned char* act, const fl
     seg_wg[D + (lay.b[10] - from) + c] += v[0];
 #pragma unroll
     for (int k = 0; k < 3; ++k) seg_wg[D + (lay.w[13] - from) + 3 * c + k] += v[1 + k];
+    if (RENDER) ghsum[c] += v[R - 1];
   }
   if (tid < 4) {   // dB[11] (3) and dB[8]
     float acc = 0.f;
@@ -752,12 +776,6 @@ struct FwdOperandSave {
     return s;
   }
 };
-
-// h's two bf16 under a thread's cell of a buffer parked in device memory, past L1.
-__device__ __forceinline__ __nv_bfloat162 ldcg_bf162(const unsigned char* p) {
-  const unsigned int u = __ldcg(reinterpret_cast<const unsigned int*>(p));
-  return *reinterpret_cast<const __nv_bfloat162*>(&u);
-}
 
 // mlp_dx_wide_sm90.cuh's rgb_head_bwd_w (the same g_h bits) with the
 // gradients that stay in the chain (rgb_head_bwd_full's at these widths):

@@ -215,7 +215,8 @@ cudaError_t launch_bwd(const float* pts, const float* dirs, const float* g_rgb,
                        const unsigned char* tiles_dx, const Biases& bias, unsigned char* xops,
                        unsigned char* gops, float* chain_part, float* dw_part, float* grads,
                        float* dpts, float* ddirs, long long M, int n_ctas, int chunks,
-                       int occ_softplus, int head_dist_alpha, cudaStream_t stream) {
+                       int occ_softplus, int head_dist_alpha, int* launches,
+                       cudaStream_t stream) {
   const size_t area = mask_bytes<D>() + full_f32_bytes<D>();   // masks, then the f32 arrays
   const Layout90<D> L(true, area);
   if (L.stages < 2) return cudaErrorInvalidValue;
@@ -229,12 +230,13 @@ cudaError_t launch_bwd(const float* pts, const float* dirs, const float* g_rgb,
       occ_softplus, head_dist_alpha, L);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  launches[0] = 1;
   const GradLayout lay = grad_layout(D);
   err = chain_reduce_launch(chain_part, grads, chain_seg(D, lay.w[13], lay.sums), n_ctas, D,
                             lay.w[13], stream);
   if (err != cudaSuccess) return err;
   return chain_dw_launch<D>(xops, gops, grads, (M + kPts - 1) / kPts, true, M, chunks, dw_part,
-                            stream);
+                            stream, false, launches + 1);
 }
 
 // ---- hidden_dim 384 and 512: the 64-point chain of mlp_dx_wide_sm90.cuh ----------
@@ -388,7 +390,7 @@ cudaError_t launch_bwd_w(const float* pts, const float* dirs, const float* g_rgb
                          unsigned char* gops, float* chain_part, unsigned char* scratch,
                          float* dw_part, float* grads, float* dpts, float* ddirs, long long M,
                          int n_ctas, int chunks, int occ_softplus, int head_dist_alpha,
-                         cudaStream_t stream) {
+                         int* launches, cudaStream_t stream) {
   const LayoutW<D> L(true, kWideF32Bytes);
   if (L.stages < 2) return cudaErrorInvalidValue;
   const size_t smem = L.bytes(kWideF32Bytes);
@@ -401,12 +403,13 @@ cudaError_t launch_bwd_w(const float* pts, const float* dirs, const float* g_rgb
       ddirs, M, occ_softplus, head_dist_alpha, L);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  launches[0] = 1;
   const GradLayout lay = grad_layout(D);
   err = chain_reduce_launch(chain_part, grads, chain_seg(D, lay.w[13], lay.sums), n_ctas, D,
                             lay.w[13], stream);
   if (err != cudaSuccess) return err;
   return chain_dw_launch<D>(xops, gops, grads, (M + kPts - 1) / kPts, true, M, chunks, dw_part,
-                            stream);
+                            stream, false, launches + 1);
 }
 
 }  // namespace
@@ -464,7 +467,8 @@ extern "C" int nerf_point_mlp_bwd_scratch(int D, long long M, int n_ctas, long l
 // sizes[5], null at 128 and 256; all 16-byte aligned). grads: total f32
 // (out), dpts, ddirs (M, 3) f32 (out). 0 < n_ctas <= the number of passes
 // (128 points at D = 128 and 256, 64 at 384 and 512), 0 < chunks <= the
-// number of 128-point row tiles. Returns a cudaError_t (0 on success); the
+// number of 128-point row tiles. launches: 2 ints (out), the launches made of
+// the chain kernel and of the dW kernel. Returns a cudaError_t (0 on success); the
 // launches are asynchronous on `stream`.
 extern "C" int nerf_point_mlp_bwd(const float* pts, const float* dirs, const float* g_rgb,
                                   const float* g_density, const void* tiles, const void* tiles_dx,
@@ -472,7 +476,7 @@ extern "C" int nerf_point_mlp_bwd(const float* pts, const float* dirs, const flo
                                   float* chain_part, float* dw_part, void* scratch, float* grads,
                                   float* dpts, float* ddirs, long long M, int D, int n_ctas,
                                   int chunks, int occ_softplus, int head_dist_alpha, int total,
-                                  void* stream) {
+                                  int* launches, void* stream) {
   const bool wide = D == 384 || D == 512;
   const long long n_pass = (M + (wide ? kWRows : kPts) - 1) / (wide ? kWRows : kPts);
   const long long row_tiles = (M + kPts - 1) / kPts;
@@ -493,27 +497,28 @@ extern "C" int nerf_point_mlp_bwd(const float* pts, const float* dirs, const flo
   auto* go = static_cast<unsigned char*>(gops);
   auto* sc = static_cast<unsigned char*>(scratch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  launches[0] = launches[1] = 0;
   cudaError_t err;
   switch (D) {
     case 512:
       err = launch_bwd_w<512>(pts, dirs, g_rgb, g_density, w, wdx, bias, xo, go, chain_part, sc,
                               dw_part, grads, dpts, ddirs, M, n_ctas, chunks, occ_softplus,
-                              head_dist_alpha, st);
+                              head_dist_alpha, launches, st);
       break;
     case 384:
       err = launch_bwd_w<384>(pts, dirs, g_rgb, g_density, w, wdx, bias, xo, go, chain_part, sc,
                               dw_part, grads, dpts, ddirs, M, n_ctas, chunks, occ_softplus,
-                              head_dist_alpha, st);
+                              head_dist_alpha, launches, st);
       break;
     case 256:
       err = launch_bwd<256>(pts, dirs, g_rgb, g_density, w, wdx, bias, xo, go, chain_part,
                             dw_part, grads, dpts, ddirs, M, n_ctas, chunks, occ_softplus,
-                            head_dist_alpha, st);
+                            head_dist_alpha, launches, st);
       break;
     default:
       err = launch_bwd<128>(pts, dirs, g_rgb, g_density, w, wdx, bias, xo, go, chain_part,
                             dw_part, grads, dpts, ddirs, M, n_ctas, chunks, occ_softplus,
-                            head_dist_alpha, st);
+                            head_dist_alpha, launches, st);
   }
   return static_cast<int>(err);
 }

@@ -242,7 +242,7 @@ cudaError_t launch_bwd_x(const float* pts, const float* dirs, const float* g_rgb
                          unsigned char* gops, float* chain_part, unsigned char* scratch,
                          float* dw_part, float* grads, float* dpts, float* ddirs, long long M,
                          int n_ctas, int chunks, int occ_softplus, int head_dist_alpha,
-                         cudaStream_t stream) {
+                         int* launches, cudaStream_t stream) {
   const LayoutX<D> L(true, kXwideF32Bytes);
   if (L.stages < 2) return cudaErrorInvalidValue;
   const size_t smem = L.bytes(kXwideF32Bytes);
@@ -255,12 +255,13 @@ cudaError_t launch_bwd_x(const float* pts, const float* dirs, const float* g_rgb
       ddirs, M, occ_softplus, head_dist_alpha, L);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  launches[0] = 1;
   const GradLayout lay = grad_layout(D);
   err = chain_reduce_launch(chain_part, grads, chain_seg(D, lay.w[13], lay.sums), n_ctas, D,
                             lay.w[13], stream);
   if (err != cudaSuccess) return err;
   return chain_dw_launch<D>(xops, gops, grads, (M + kPts - 1) / kPts, true, M, chunks, dw_part,
-                            stream);
+                            stream, false, launches + 1);
 }
 
 }  // namespace
@@ -319,7 +320,7 @@ extern "C" int nerf_point_mlp_bwd(const float* pts, const float* dirs, const flo
                                   float* chain_part, float* dw_part, void* scratch, float* grads,
                                   float* dpts, float* ddirs, long long M, int D, int n_ctas,
                                   int chunks, int occ_softplus, int head_dist_alpha, int total,
-                                  void* stream) {
+                                  int* launches, void* stream) {
   const long long n_pass = (M + kWRows - 1) / kWRows;
   const long long row_tiles = (M + kPts - 1) / kPts;
   if (M <= 0 || n_ctas <= 0 || n_ctas > n_pass || chunks <= 0 || chunks > row_tiles)
@@ -343,8 +344,9 @@ extern "C" int nerf_point_mlp_bwd(const float* pts, const float* dirs, const flo
     return launch_bwd_x<decltype(width)::value>(pts, dirs, g_rgb, g_density, w, wdx, bias, xo,
                                                 go, chain_part, sc, dw_part, grads, dpts, ddirs,
                                                 M, n_ctas, chunks, occ_softplus, head_dist_alpha,
-                                                st);
+                                                launches, st);
   };
+  launches[0] = launches[1] = 0;
   cudaError_t err;
   switch (D) {
     case 640:

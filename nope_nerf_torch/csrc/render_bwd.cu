@@ -17,29 +17,34 @@
 
 #include "render_full_sm90.cuh"
 
-// C interface, bound with ctypes by nope_nerf_torch/ops/fused_render.py.
+namespace {
+constexpr bool kXwide = false;   // hidden_dim 128 to 512
+}  // namespace
+
+// C interface, bound with ctypes by nope_nerf_torch/ops/fused_render.py; at
+// hidden_dim 640 to 1024 render_bwd_xwide.cu has the same entries.
 
 // Offsets (floats) of the 14 dW blocks and the 12 dB blocks in the gradient
 // buffer, into offsets[26]; returns the buffer's length, or 0 for a width the
 // kernel is not built for. (The layout is the train kernel's; its 3 loss sums
 // stay 0 here.)
 extern "C" int nerf_bwd_grad_layout(int D, int* offsets) {
-  return render_grad_layout(D, offsets, false);
+  return render_grad_layout<kXwide>(D, offsets, false);
 }
 
 // Bytes of nerf_render_bwd's scratch buffers into sizes[0..6], as
 // nerf_render_train_scratch gives them for the train kernel.
 extern "C" int nerf_render_bwd_scratch(int D, long long chunk_rays, int S, int n_ctas,
                                        long long* sizes) {
-  return static_cast<int>(render_full_scratch(D, chunk_rays, S, n_ctas, sizes));
+  return static_cast<int>(render_full_scratch<kXwide>(D, chunk_rays, S, n_ctas, sizes));
 }
 
 // rays (n_rays, 9) f32 [origin | ray_vec | mlp_dir], z (n_rays, S) f32, g_rgb
 // (n_rays, 3), g_dist (n_rays) f32, contiguous on the device; g_w, g_a
 // (n_rays, S) f32 or null (a zero cotangent); tiles, tiles_dx, biases, the
-// scratch, grads, drays, dz and the chunks of rays as nerf_render_train's.
-// Returns a cudaError_t (0 on success); the launches are asynchronous on
-// `stream`.
+// scratch, grads, drays, dz, the chunks of rays and launches as
+// nerf_render_train's. Returns a cudaError_t (0 on success); the launches
+// are asynchronous on `stream`.
 extern "C" int nerf_render_bwd(const float* rays, const float* z, const float* g_rgb,
                                const float* g_dist, const float* g_w, const float* g_a,
                                const void* tiles, const void* tiles_dx,
@@ -47,23 +52,12 @@ extern "C" int nerf_render_bwd(const float* rays, const float* z, const float* g
                                float* chain_part, float* dw_part, float* spill, void* scratch,
                                float* grads, float* drays, float* dz, int n_rays, int chunk_rays,
                                int S, int D, int n_ctas, int chunks, int occ_softplus,
-                               int head_dist_alpha, int dist_alpha, int total, void* stream) {
-  cudaError_t err = render_full_check(n_rays, chunk_rays, S, D, n_ctas, chunks, total, tiles,
-                                      tiles_dx, xops, gops);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Biases bias;
-  for (int i = 0; i < 12; ++i) bias.b[i] = static_cast<const float*>(biases[i]);
-  RayCotangents cin{nullptr, nullptr, 1, 0, g_rgb, g_dist, g_w, g_a};
-  const RenderFlags fl{occ_softplus, head_dist_alpha, dist_alpha};
-  const auto* w = static_cast<const unsigned char*>(tiles);
-  const auto* wdx = static_cast<const unsigned char*>(tiles_dx);
-  auto* xo = static_cast<unsigned char*>(xops);
-  auto* go = static_cast<unsigned char*>(gops);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = render_full_run<false>(D, rays, z, cin, w, wdx, bias, xo, go, chain_part, dw_part,
-                               spill, static_cast<unsigned char*>(scratch), grads, drays, dz,
-                               n_rays, chunk_rays, S, n_ctas, chunks, fl, st);
-  return static_cast<int>(err);
+                               int head_dist_alpha, int dist_alpha, int total, int* launches,
+                               void* stream) {
+  return render_bwd_entry<kXwide>(rays, z, g_rgb, g_dist, g_w, g_a, tiles, tiles_dx, biases, xops,
+                                  gops, chain_part, dw_part, spill, scratch, grads, drays, dz,
+                                  n_rays, chunk_rays, S, D, n_ctas, chunks, occ_softplus,
+                                  head_dist_alpha, dist_alpha, total, launches, stream);
 }
 
 extern "C" const char* nerf_error_string(int code) {

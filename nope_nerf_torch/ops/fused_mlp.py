@@ -80,7 +80,7 @@ def _setup_bwd(lib: ctypes.CDLL) -> None:
     lib.nerf_point_mlp_grad_layout.restype = ctypes.c_int
     lib.nerf_point_mlp_bwd_scratch.argtypes = [i, ctypes.c_longlong, i, p]
     lib.nerf_point_mlp_bwd_scratch.restype = ctypes.c_int
-    lib.nerf_point_mlp_bwd.argtypes = [p] * 15 + [ctypes.c_longlong] + [i] * 6 + [p]
+    lib.nerf_point_mlp_bwd.argtypes = [p] * 15 + [ctypes.c_longlong] + [i] * 6 + [p, p]
     lib.nerf_point_mlp_bwd.restype = ctypes.c_int
     lib.nerf_error_string.argtypes = [ctypes.c_int]
     lib.nerf_error_string.restype = ctypes.c_char_p
@@ -116,9 +116,9 @@ POINT_MLP_BWD_XWIDE = CudaLibrary("point_mlp_bwd_xwide.cu", _setup_bwd)
 # launch of it: by K6 full (point_mlp_bwd.cu's and point_mlp_bwd_xwide.cu's
 # entry) once per launch of K6 full up to hidden_dim 512 and twice past it
 # (point_dw_launches), by K1
-# and K4 full (render_train.cu's and render_bwd.cu's) once per chunk of rays
-# (fused_render.render_chunks), and by `dw_sm90`, the kernel on its own
-# (dw_sm90.cu).
+# and K4 full (render_train.cu's and render_bwd.cu's, and their _xwide twins') once per
+# chunk of rays (fused_render.render_chunks) up to 512 and twice past it
+# (render_dw_launches), and by `dw_sm90`, the kernel on its own (dw_sm90.cu).
 DW_SM90 = CudaLibrary("dw_sm90.cu", _setup_dw)
 # K6's frozen-network variant (d(points), d(directions) only) on the wgmma dX
 # chain. Its `launches` counts those launches; each also counts in
@@ -245,8 +245,16 @@ def render_dw_table(D: int) -> List[Tuple[int, str, str, int, int]]:
 def render_dw_pieces(D: int) -> List[Tuple[int, str, str, int, int, int]]:
     """K1's and K4 full's work table for the dW kernel at width D
     (chain_dw_pieces without the direction block): render_dw_table in
-    point_dw_pieces' column pieces; 11 at 128 and 256, 22 at 384, 21 at 512."""
+    point_dw_pieces' column pieces; 11 at 128 and 256, 22 at 384, 21 at 512,
+    32 at 640 and 768, 43 at 896, 42 at 1024."""
     return _dw_pieces(render_dw_table(D))
+
+
+def render_dw_launches(D: int) -> int:
+    """Launches of the dW kernel for one chunk of rays of K1 or K4 full at
+    width D (render_dw_pieces at most DW_MAX_PIECES a launch,
+    chain_dw_launch): 1 up to 512, 2 past it."""
+    return -(-len(render_dw_pieces(D)) // DW_MAX_PIECES)
 
 
 def dw_cta_tiles(Ks) -> int:
@@ -272,9 +280,10 @@ DW_XWIDE_CHUNK_TILES = 64
 
 
 def point_dw_chunks(D: int, cta_tiles: int, M: int, sms: int) -> int:
-    """The chunks of K6 full's dW kernel at width D: dw_chunks', and past 512
-    at least enough that none sums more than DW_XWIDE_CHUNK_TILES row tiles
-    (at most the row tiles)."""
+    """The chunks of the dW kernel of K6 full, and of K1 and K4 full over a
+    chunk of rays (M samples), at width D: dw_chunks', and past 512 at least
+    enough that none sums more than DW_XWIDE_CHUNK_TILES row tiles (at most
+    the row tiles)."""
     chunks = dw_chunks(cta_tiles, M, sms)
     if D > 512:
         nt = -(-M // DW_ROWS)
@@ -553,6 +562,7 @@ def _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig,
     grads = torch.empty((total,), **f32)
     dpts = torch.empty((M, 3), **f32)
     ddirs = torch.empty((M, 3), **f32)
+    launched = (ctypes.c_int * 2)()   # the C entry's launches of the chain and the dW kernel
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nerf_point_mlp_bwd(
@@ -561,12 +571,12 @@ def _mlp_bwd_cuda(params, pts, dirs, g_rgb, g_density, cfg: NerfConfig,
             chain_part.data_ptr(), dw_part.data_ptr(),
             None if scratch is None else scratch.data_ptr(), grads.data_ptr(), dpts.data_ptr(),
             ddirs.data_ptr(), M, D, n_ctas, chunks, int(cfg.occ_activation == "softplus"),
-            int(cfg.dist_alpha), total, stream)
+            int(cfg.dist_alpha), total, launched, stream)
     if err != 0:
         raise RuntimeError("point-query MLP backward kernel launch failed: "
                            + lib.nerf_error_string(err).decode())
-    POINT_MLP_BWD.launches += 1
-    DW_SM90.launches += point_dw_launches(D)
+    POINT_MLP_BWD.launches += launched[0]
+    DW_SM90.launches += launched[1]
     dWs, dBs = _grad_blocks(grads, offsets, D)
     return dWs, dBs, dpts, ddirs
 

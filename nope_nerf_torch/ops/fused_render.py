@@ -618,13 +618,17 @@ def _setup_train(lib: ctypes.CDLL) -> None:
     lib.nerf_train_grad_layout.restype = ctypes.c_int
     lib.nerf_render_train_scratch.argtypes = [i, ctypes.c_longlong, i, i, p]
     lib.nerf_render_train_scratch.restype = ctypes.c_int
-    lib.nerf_render_train.argtypes = [p] * 16 + [i] * 12 + [p]
+    lib.nerf_render_train.argtypes = [p] * 16 + [i] * 12 + [p, p]
     lib.nerf_render_train.restype = ctypes.c_int
     lib.nerf_error_string.argtypes = [ctypes.c_int]
     lib.nerf_error_string.restype = ctypes.c_char_p
 
 
 RENDER_TRAIN = CudaLibrary("render_train.cu", _setup_train)
+# K1 at hidden_dim 640 to 1024: the same C entries in a translation unit of its own
+# (csrc/render_train_xwide.cu). Its launches count in RENDER_TRAIN.launches, which counts
+# every launch of K1 at every width.
+RENDER_TRAIN_XWIDE = CudaLibrary("render_train_xwide.cu", _setup_train)
 
 
 def pack_targets(rgb_gt: torch.Tensor, depth_gt: torch.Tensor, mask: torch.Tensor,
@@ -881,37 +885,26 @@ def _train_plain(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p:
 # csrc/mlp_dx_sm90.cuh, 384 and 512 on the 64-row ones of
 # csrc/mlp_fwd_wide_sm90.cuh and csrc/mlp_dx_wide_sm90.cuh (the kernels that
 # form weight gradients, K1, K4 full and K6 full, with
-# csrc/mlp_dw_chain_sm90.cuh's OperandSaveW there); the forward kernels, K3
-# and K5, the frozen-network variants of K4 and K6, and K6 full (with
-# OperandSaveX) also 640 to 1024, on csrc/mlp_fwd_xwide_sm90.cuh's trunk and
-# csrc/mlp_dx_xwide_sm90.cuh's chain.
-BACKWARD_WIDTHS = (128, 256, 384, 512)
-FORWARD_WIDTHS = BACKWARD_WIDTHS + (640, 768, 896, 1024)
-KERNEL_WIDTHS = {"render": FORWARD_WIDTHS, "point-query MLP forward": FORWARD_WIDTHS,
-                 "render-backward (frozen network)": FORWARD_WIDTHS,
-                 "point-query MLP backward (frozen network)": FORWARD_WIDTHS,
-                 "point-query MLP backward": FORWARD_WIDTHS,
-                 "train": BACKWARD_WIDTHS, "render-backward": BACKWARD_WIDTHS}
-# The entry of ROADMAP.md's Queue 3 (c) that brings each kernel that still
-# stops at 512 to 640 to 1024, on the chain the frozen variants and K6 full
-# run there
-BACKWARD_QUEUE = {"train": 4, "render-backward": 4}
+# csrc/mlp_dw_chain_sm90.cuh's OperandSaveW there), 640 to 1024 on
+# csrc/mlp_fwd_xwide_sm90.cuh's trunk and csrc/mlp_dx_xwide_sm90.cuh's chain
+# (K1, K4 full and K6 full with OperandSaveX): every kernel at every width.
+FORWARD_WIDTHS = (128, 256, 384, 512, 640, 768, 896, 1024)
+KERNEL_WIDTHS = {kernel: FORWARD_WIDTHS for kernel in (
+    "render", "point-query MLP forward", "render-backward (frozen network)",
+    "point-query MLP backward (frozen network)", "point-query MLP backward", "train",
+    "render-backward")}
 
 
 def check_kernel_width(kernel: str, D: int) -> None:
     """Raise NotImplementedError, before any device work, unless the CUDA
-    `kernel` (a key of KERNEL_WIDTHS) takes hidden_dim D; past 512 naming the
-    entry of ROADMAP.md's Queue 3 (c) that would bring D to it."""
+    `kernel` (a key of KERNEL_WIDTHS) takes hidden_dim D; past 1024 naming
+    ROADMAP.md's Queue 3 (c)."""
     widths = KERNEL_WIDTHS[kernel]
     if D in widths:
         return
     if D > FORWARD_WIDTHS[-1]:
         why = (f": widths past {FORWARD_WIDTHS[-1]} need a tile plan of their own in every "
                "trunk header (ROADMAP.md, Queue 3 (c))")
-    elif D > BACKWARD_WIDTHS[-1] and D in FORWARD_WIDTHS:
-        why = (f": past {BACKWARD_WIDTHS[-1]} only the forward kernels, the frozen-network "
-               "backward variants and K6 full run; this one is queued on their trunk and dX "
-               f"chain (ROADMAP.md, Queue 3 (c), item {BACKWARD_QUEUE[kernel]})")
     else:
         why = ""
     raise NotImplementedError(
@@ -967,10 +960,11 @@ def _backward_ctas(n: int, dev: torch.device) -> int:
 def render_operand_bytes(D: int, n_rays: int, S: int) -> Tuple[int, int]:
     """Bytes of the X and G operands K1 and K4 full hand the dW kernel for
     n_rays x S samples: every operand is one 128-row tile per 128 samples of
-    64-column bf16 blocks (16 KB each; at 384 and 512 two 64-point passes
-    fill a row tile's halves). X: pe (1 block), x0..x7 and feat (D/64 each);
-    G: g_h (D/128), g_feat and g7..g0 (D/64 each). At D = 256, 4,736 and
-    4,864 B a sample; 14,336 B in all at 384, 19,072 at 512."""
+    64-column bf16 blocks (16 KB each; from 384 on two 64-point passes fill a
+    row tile's halves). X: pe (1 block), x0..x7 and feat (D/64 each); G: g_h
+    (D/128), g_feat and g7..g0 (D/64 each). At D = 256, 4,736 and 4,864 B a
+    sample; 14,336 B in all at 384, 19,072 at 512, 23,808 at 640, 28,544 at
+    768, 33,280 at 896, 38,016 at 1024."""
     tiles = n_rays * (S // PTS_PER_PASS)
     block = PTS_PER_PASS * 2 * SWIZZLE_COLS
     return tiles * block * (1 + 9 * (D // 64)), tiles * block * (D // 128 + 9 * (D // 64))
@@ -981,7 +975,8 @@ def render_chunks(n_rays: int, S: int, D: int) -> List[Tuple[int, int]]:
     in order: the fewest whose dW operands (render_operand_bytes) each stay
     within OPERAND_BUDGET_BYTES, all of one size but the last, which takes
     the rest. One chunk for every call up to 1024 x 256 samples at D = 256,
-    and up to 1024 x 128 at 384 and 512."""
+    and up to 1024 x 128 at 384 and 512; 2 chunks of 512 rays at 1024 x 128
+    from 640 to 1024, and 5 to 8 chunks at 1024 x 512."""
     fit = max(1, OPERAND_BUDGET_BYTES // sum(render_operand_bytes(D, 1, S)))
     step = -(-n_rays // -(-n_rays // fit))
     return [(a, min(a + step, n_rays)) for a in range(0, n_rays, step)]
@@ -992,10 +987,12 @@ def _full_scratch(scratch_fn, D: int, n: int, S: int, dev: torch.device):
     scratch]) for one launch of K1 or K4 full: the rays' chunks by
     render_chunks, the scratch sizes of one chunk from the kernel's own entry
     (its X and G operands checked against render_operand_bytes), the dW
-    kernel's chunks of samples by fused_mlp.dw_chunks; spill is None where
-    the per-sample arrays fit in shared memory, scratch (the wide chain's
-    per-CTA g4, column sums, masks and h) None at 128 and 256."""
-    from .fused_mlp import dw_chunks   # fused_mlp imports this module
+    kernel's chunks of samples by fused_mlp.point_dw_chunks (dw_chunks', and
+    past 512 at most DW_XWIDE_CHUNK_TILES row tiles a chunk: 8 a chunk of
+    rays at 1024 x 128); spill is None where the per-sample arrays fit in
+    shared memory, scratch (the 64-point chains' per-CTA g4, column sums,
+    masks and h, past 512 also the staging) None at 128 and 256."""
+    from .fused_mlp import point_dw_chunks   # fused_mlp imports this module
     chunk_rays = render_chunks(n, S, D)[0][1]
     n_ctas = _backward_ctas(chunk_rays, dev)
     sizes = (ctypes.c_longlong * 7)()
@@ -1008,8 +1005,8 @@ def _full_scratch(scratch_fn, D: int, n: int, S: int, dev: torch.device):
     if (sizes[6] > 0) != (D > 256):
         raise RuntimeError(f"the render backward kernel reports {sizes[6]} B of wide-chain "
                            f"scratch at hidden_dim {D}")
-    chunks = dw_chunks(sizes[4], chunk_rays * S,
-                       torch.cuda.get_device_properties(dev).multi_processor_count)
+    chunks = point_dw_chunks(D, sizes[4], chunk_rays * S,
+                             torch.cuda.get_device_properties(dev).multi_processor_count)
     scratch = [torch.empty((sizes[i],), dtype=torch.uint8, device=dev) for i in (0, 1)]
     scratch += [torch.empty((sizes[2] // 4,), dtype=torch.float32, device=dev),
                 torch.empty((chunks * sizes[3] // 4,), dtype=torch.float32, device=dev),
@@ -1036,13 +1033,14 @@ def _full_operands(operands: Optional[list], scratch, chunk_rays: int, n: int) -
     operands.append(scratch[0].view(torch.bfloat16))
 
 
-def _count_full_launches(lib, n: int, chunk_rays: int) -> None:
-    """K1 and K4 full launch their chain kernel and the dW kernel once per
-    chunk of rays from their own C entries: that many more launches of each."""
+def _count_full_launches(lib, launched) -> None:
+    """K1's and K4 full's C entries report the launches they made of their
+    chain kernel (one a chunk of rays) and of the dW kernel
+    (render_dw_launches a chunk: twice past 512) in `launched`; count them
+    (`lib`: RENDER_TRAIN or RENDER_BWD, which count every width)."""
     from .fused_mlp import DW_SM90   # fused_mlp imports this module
-    launched = -(-n // chunk_rays)
-    lib.launches += launched
-    DW_SM90.launches += launched
+    lib.launches += launched[0]
+    DW_SM90.launches += launched[1]
 
 
 def _grad_blocks(grads: torch.Tensor, offsets, D: int):
@@ -1070,7 +1068,7 @@ def _train_cuda(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p: 
     rays, z, tgt = (t.detach() for t in (rays, z, tgt))
     _check_backward_tensors((("rays", rays), ("z", z), ("tgt", tgt)), dev)
     tiles, tiles_dx, _B, bptrs = _packed_tiles_on(params, cfg, dev)
-    lib = RENDER_TRAIN.lib()
+    lib = render_full_library(True, D).lib()
     offsets = (ctypes.c_int * 27)()
     total = lib.nerf_train_grad_layout(D, offsets)
     if total <= 0:
@@ -1083,6 +1081,7 @@ def _train_cuda(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p: 
     drays = torch.empty((n, RAY_DIM), **f32)
     dz = torch.empty((n, S), **f32)
     dtgt = torch.empty((n, TGT_DIM), **f32)
+    launched = (ctypes.c_int * 2)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nerf_render_train(
@@ -1090,11 +1089,11 @@ def _train_cuda(params, rays, z, tgt, cfg: NerfConfig, dist_alpha: bool, rgb_p: 
             bptrs, *[_ptr(t) for t in scratch], grads.data_ptr(), drays.data_ptr(),
             dz.data_ptr(), dtgt.data_ptr(), n, chunk_rays, S, D, n_ctas, chunks,
             int(cfg.occ_activation == "softplus"), int(cfg.dist_alpha), int(dist_alpha),
-            int(rgb_p), int(white_bg), total, stream)
+            int(rgb_p), int(white_bg), total, launched, stream)
     if err != 0:
         raise RuntimeError("train kernel launch failed: "
                            + lib.nerf_error_string(err).decode())
-    _count_full_launches(RENDER_TRAIN, n, chunk_rays)
+    _count_full_launches(RENDER_TRAIN, launched)
     dWs, dBs = _grad_blocks(grads, offsets, D)
     sums = grads[offsets[26]:offsets[26] + 3]
     return sums, dWs, dBs, drays, dz, dtgt
@@ -1172,13 +1171,23 @@ def _setup_bwd(lib: ctypes.CDLL) -> None:
     lib.nerf_bwd_grad_layout.restype = ctypes.c_int
     lib.nerf_render_bwd_scratch.argtypes = [i, ctypes.c_longlong, i, i, p]
     lib.nerf_render_bwd_scratch.restype = ctypes.c_int
-    lib.nerf_render_bwd.argtypes = [p] * 18 + [i] * 10 + [p]
+    lib.nerf_render_bwd.argtypes = [p] * 18 + [i] * 10 + [p, p]
     lib.nerf_render_bwd.restype = ctypes.c_int
     lib.nerf_error_string.argtypes = [ctypes.c_int]
     lib.nerf_error_string.restype = ctypes.c_char_p
 
 
 RENDER_BWD = CudaLibrary("render_bwd.cu", _setup_bwd)
+# K4 full at hidden_dim 640 to 1024 (csrc/render_bwd_xwide.cu), counted in RENDER_BWD.launches.
+RENDER_BWD_XWIDE = CudaLibrary("render_bwd_xwide.cu", _setup_bwd)
+
+
+def render_full_library(loss: bool, D: int):
+    """The library of K1 (loss) or K4 full at width D: render_train.cu /
+    render_bwd.cu up to 512, their _xwide twins past it (the same C entries)."""
+    if loss:
+        return RENDER_TRAIN_XWIDE if D > 512 else RENDER_TRAIN
+    return RENDER_BWD_XWIDE if D > 512 else RENDER_BWD
 
 
 def _setup_bwd_frozen(lib: ctypes.CDLL) -> None:
@@ -1316,7 +1325,7 @@ def _render_bwd_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig,
                                             dist_alpha)
         return None, None, drays, dz
     tiles, tiles_dx, _B, bptrs = _packed_tiles_on(params, cfg, dev)
-    lib = RENDER_BWD.lib()
+    lib = render_full_library(False, D).lib()
     offsets = (ctypes.c_int * 26)()
     total = lib.nerf_bwd_grad_layout(D, offsets)
     if total <= 0:
@@ -1328,6 +1337,7 @@ def _render_bwd_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig,
     grads = torch.empty((total,), **f32)
     drays = torch.empty((n, RAY_DIM), **f32)
     dz = torch.empty((n, S), **f32)
+    launched = (ctypes.c_int * 2)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nerf_render_bwd(
@@ -1335,11 +1345,11 @@ def _render_bwd_cuda(params, rays, z, g_rgb, g_dist, g_w, g_a, cfg: NerfConfig,
             _ptr(g_a), tiles.data_ptr(), tiles_dx.data_ptr(), bptrs,
             *[_ptr(t) for t in scratch], grads.data_ptr(), drays.data_ptr(), dz.data_ptr(),
             n, chunk_rays, S, D, n_ctas, chunks, int(cfg.occ_activation == "softplus"),
-            int(cfg.dist_alpha), int(dist_alpha), total, stream)
+            int(cfg.dist_alpha), int(dist_alpha), total, launched, stream)
     if err != 0:
         raise RuntimeError("render-backward kernel launch failed: "
                            + lib.nerf_error_string(err).decode())
-    _count_full_launches(RENDER_BWD, n, chunk_rays)
+    _count_full_launches(RENDER_BWD, launched)
     dWs, dBs = _grad_blocks(grads, offsets, D)
     return dWs, dBs, drays, dz
 
@@ -1396,6 +1406,7 @@ def _render_forward(params, rays, z, cfg: NerfConfig, dist_alpha: bool, want_aux
     with torch.no_grad():
         if plain:
             return render_rays_fused_plain(params, rays, z, cfg, dist_alpha, want_aux)
+        _check_kernel_shapes("render", z.shape[1], cfg.hidden_dim)   # before the packing
         tiles, B = pack_tiles(params, cfg)
         return _render_cuda(tiles, B, rays.detach(), z.detach(), cfg, dist_alpha, want_aux)
 

@@ -81,9 +81,19 @@ points), FULL_RULE_SEEDS seeds: the mean L2 distance of the 26 dW and dB
 blocks from the f64 sum (each as a share of 2e-2 of the f64 block's norm),
 kernel over f32 plain, held to FULL_RULE (2.0: at or under it the kernel is
 a faithful f32 evaluation; fixed before that kernel first ran).
-With `--render-full`, K1 (csrc/render_train.cu) and K4 full
+With `--render-full` (not with `--cases` or `--attribute`), at every width
+it is given (past 512 K1 and K4 full are csrc/render_train_xwide.cu and
+csrc/render_bwd_xwide.cu, on csrc/mlp_dx_xwide_sm90.cuh's chain with
+OperandSaveX<D, true>), `--full --widths 640 1024`'s rule (l2_rule): per
+width, kernel and flag set of WIDE_FLAGS, on 1024 rays x 128 (RENDER_RULE_CASE),
+FULL_RULE_SEEDS seeds, the mean L2 distance of the 26 dW and dB blocks from
+the f64 sum (each as a share of 2e-2 of the f64 block's norm), kernel over
+f32 plain (K1 at each side's own cotangents), held to FULL_RULE (2.0; fixed
+before the kernels past 512 first ran).
+Before it, at the widths given up to 512 (or at any width with
+`--cases`), K1 (csrc/render_train.cu) and K4 full
 (csrc/render_bwd.cu), both instances of csrc/render_full_sm90.cuh (its wide
-kernel at 384 and 512), at hidden_dim 128 to 512 on chip_smoke.py phase
+kernel at 384 and 512), on chip_smoke.py phase
 13's cases WIDE_RENDER_CASES (train_inputs, many_params, both flag sets of
 WIDE_FLAGS with K1's rgb_p 1 and 2 in turn; K4 full on bwd_cotangents' four
 cotangents), RENDER_FULL_SEEDS seeds: per case the worst dW or dB block by
@@ -150,6 +160,7 @@ FULL_SEEDS = 4
 FULL_RULE_SEEDS = 6
 FULL_RULE = 2.0
 RENDER_FULL_SEEDS = 2
+RENDER_RULE_CASE = (1024, 128)   # --render-full's rule: the train step's rays x samples
 
 
 def classify(kernel_f64: float, f32_f64: float) -> str:
@@ -338,66 +349,123 @@ def full_yardstick(torch, chip_smoke, dev, widths) -> None:
                   + f"; class ({case_class(classes)})", flush=True)
 
 
+def l2_rule(torch, chip_smoke, title: str, widths, subjects, draw) -> None:
+    """The numerics rule past 512 (see the module text): for each width D and
+    (text, key) of `subjects`, over FULL_RULE_SEEDS seeds, draw(D, key, seed)
+    gives the kernel's, its f32 plain version's and the f64 sum's dW and dB
+    blocks (the f64 sum at the kernel's and at the plain version's own
+    cotangents): their mean L2 shares, kernel~f64 over f32~f64 against
+    FULL_RULE."""
+    pairs = ("kernel~f32", "kernel~f64", "f32~f64")
+    for D in widths:
+        ratios = []
+        for text, key in subjects:
+            l2 = dict.fromkeys(pairs, 0.0)
+            worst = dict.fromkeys(pairs, 0.0)
+            by_block = {}   # kernel~f64 L2 share per block, summed over the seeds
+            for seed in range(FULL_RULE_SEEDS):
+                K, P, EK, EP = draw(D, key, seed)
+                parts = []
+                for what, got, ref in zip(pairs, (K, K, P), (P, EK, EP)):
+                    shares = l2_shares(got, ref)
+                    mean = sum(shares.values()) / len(shares)
+                    l2[what] += mean
+                    if what == "kernel~f64":
+                        for b, v in shares.items():
+                            by_block[b] = by_block.get(b, 0.0) + v
+                    worst[what] = max(worst[what], max(
+                        chip_smoke.grad_share(got[b], ref[b], False) for b in ref))
+                    parts.append(f"{what} mean L2 share {mean:.4f}")
+                print(f"{title} D={D} {text} seed {seed}: " + "; ".join(parts), flush=True)
+            ratio = l2["kernel~f64"] / l2["f32~f64"]
+            ratios.append(ratio)
+            print(f"{title} D={D} {text}, {FULL_RULE_SEEDS} seeds: mean L2 share kernel~f64 "
+                  f"{l2['kernel~f64'] / FULL_RULE_SEEDS:.4f}, f32~f64 "
+                  f"{l2['f32~f64'] / FULL_RULE_SEEDS:.4f}, kernel~f32 "
+                  f"{l2['kernel~f32'] / FULL_RULE_SEEDS:.4f}; ratio {ratio:.2f} (rule: at "
+                  f"most {FULL_RULE}: {ratio <= FULL_RULE}); worst block by 5e-3: "
+                  + ", ".join(f"{q} {worst[q]:.3f}" for q in pairs) + "; kernel~f64 "
+                  "farthest blocks " + ", ".join(
+                      f"{b} {v / FULL_RULE_SEEDS:.4f}" for b, v in
+                      sorted(by_block.items(), key=lambda kv: -kv[1])[:4]), flush=True)
+            torch.cuda.empty_cache()
+        print(f"{title} D={D}: per {', '.join(text for text, _ in subjects)}: "
+              f"{', '.join(f'{r:.2f}' for r in ratios)}, every one at most {FULL_RULE}: "
+              f"{all(r <= FULL_RULE for r in ratios)}", flush=True)
+
+
 def full_rule(torch, chip_smoke, dev, widths) -> None:
-    """--full past 512: K6 full's and its f32 plain version's mean L2
-    distance of the dW and dB blocks from the f64 sum, per width and flag
-    set, against FULL_RULE (see the module text)."""
+    """--full past 512: K6 full's rule (l2_rule) per width, point count of
+    WIDE_FULL_M from WIDE_FULL_SUM_POINTS on and flag set."""
     from nope_nerf_torch.models.nerf import NerfConfig, init_nerf_params
     from nope_nerf_torch.ops.fused_mlp import _mlp_bwd_cuda, point_mlp_bwd_plain
     from nope_nerf_torch.ops.fused_render import unpack_grads
-    pairs = ("kernel~f32", "kernel~f64", "f32~f64")
-    counts = [M for M in chip_smoke.WIDE_FULL_M if M >= chip_smoke.WIDE_FULL_SUM_POINTS]
-    for D in widths:
-        for M in counts:
-            ratios = []
-            for occ, da in chip_smoke.WIDE_FLAGS:
-                l2 = dict.fromkeys(pairs, 0.0)
-                worst = dict.fromkeys(pairs, 0.0)
-                by_block = {}   # kernel~f64 L2 share per block, summed over the seeds
-                for seed in range(FULL_RULE_SEEDS):
-                    gen = torch.Generator().manual_seed(400 + seed)
-                    pts, dirs = chip_smoke.point_inputs(torch, dev, gen, M)
-                    ncfg = NerfConfig(hidden_dim=D, occ_activation=occ, dist_alpha=da,
-                                      use_pallas=True)
-                    params = init_nerf_params(ncfg, gen, device=dev)
-                    cot = chip_smoke.point_cotangents(torch, params, pts, dirs, ncfg)
-                    outs = [_mlp_bwd_cuda(params, pts, dirs, *cot, ncfg),
-                            point_mlp_bwd_plain(params, pts, dirs, *cot, ncfg),
-                            point_mlp_bwd_plain(params, pts, dirs, *cot, ncfg,
-                                                dtype=torch.float64)]
-                    k, p32, p64 = (unpack_grads([w.float() for w in o[0]],
-                                                [b.float() for b in o[1]], ncfg) for o in outs)
-                    del outs
-                    parts = []
-                    for what, got, ref in zip(pairs, (k, k, p32), (p32, p64, p64)):
-                        shares = {n: float((got[n] - ref[n]).norm())
-                                  / (2e-2 * float(ref[n].norm()) + 1e-12) for n in ref}
-                        mean = sum(shares.values()) / len(shares)
-                        l2[what] += mean
-                        if what == "kernel~f64":
-                            for n, v in shares.items():
-                                by_block[n] = by_block.get(n, 0.0) + v
-                        worst[what] = max(worst[what], chip_smoke.grad_share(
-                            got[max(shares, key=shares.get)], ref[max(shares, key=shares.get)],
-                            False))
-                        parts.append(f"{what} mean L2 share {mean:.4f}")
-                    print(f"full rule D={D} {M} points occ={occ} head_dist_alpha={da} seed "
-                          f"{seed}: " + "; ".join(parts), flush=True)
-                ratio = l2["kernel~f64"] / l2["f32~f64"]
-                ratios.append(ratio)
-                print(f"full rule D={D} {M} points occ={occ} head_dist_alpha={da}, "
-                      f"{FULL_RULE_SEEDS} seeds: mean L2 share kernel~f64 "
-                      f"{l2['kernel~f64'] / FULL_RULE_SEEDS:.4f}, f32~f64 "
-                      f"{l2['f32~f64'] / FULL_RULE_SEEDS:.4f}, kernel~f32 "
-                      f"{l2['kernel~f32'] / FULL_RULE_SEEDS:.4f}; ratio {ratio:.2f} (rule: at "
-                      f"most {FULL_RULE}: {ratio <= FULL_RULE}); worst block by 5e-3: "
-                      + ", ".join(f"{p} {worst[p]:.3f}" for p in pairs) + "; kernel~f64 "
-                      "farthest blocks " + ", ".join(
-                          f"{n} {v / FULL_RULE_SEEDS:.4f}" for n, v in
-                          sorted(by_block.items(), key=lambda kv: -kv[1])[:4]), flush=True)
-            print(f"full rule D={D} {M} points: per flag set {', '.join(f'{r:.2f}' for r in ratios)}"
-                  f", every one at most {FULL_RULE}: {all(r <= FULL_RULE for r in ratios)}",
-                  flush=True)
+
+    def draw(D, key, seed):
+        M, occ, da = key
+        gen = torch.Generator().manual_seed(400 + seed)
+        pts, dirs = chip_smoke.point_inputs(torch, dev, gen, M)
+        ncfg = NerfConfig(hidden_dim=D, occ_activation=occ, dist_alpha=da, use_pallas=True)
+        params = init_nerf_params(ncfg, gen, device=dev)
+        cot = chip_smoke.point_cotangents(torch, params, pts, dirs, ncfg)
+        k, p, e = (unpack_grads([w.float() for w in o[0]], [b.float() for b in o[1]], ncfg)
+                   for o in (_mlp_bwd_cuda(params, pts, dirs, *cot, ncfg),
+                             point_mlp_bwd_plain(params, pts, dirs, *cot, ncfg),
+                             point_mlp_bwd_plain(params, pts, dirs, *cot, ncfg,
+                                                 dtype=torch.float64)))
+        return k, p, e, e
+
+    subjects = [(f"{M} points occ={occ} head_dist_alpha={da}", (M, occ, da))
+                for M in chip_smoke.WIDE_FULL_M if M >= chip_smoke.WIDE_FULL_SUM_POINTS
+                for occ, da in chip_smoke.WIDE_FLAGS]
+    l2_rule(torch, chip_smoke, "full rule", widths, subjects, draw)
+
+
+def l2_shares(got: dict, ref: dict) -> dict:
+    """{block: its L2 distance from `ref` as a share of 2e-2 of ref's norm}."""
+    return {n: float((got[n] - ref[n]).norm()) / (2e-2 * float(ref[n].norm()) + 1e-12)
+            for n in ref}
+
+
+def render_full_rule(torch, chip_smoke, dev, widths) -> None:
+    """--render-full's rule (l2_rule) per width, kernel (K1 at each side's
+    own cotangents, K4 full on bwd_cotangents') and flag set, on
+    RENDER_RULE_CASE."""
+    from nope_nerf_torch.ops.fused_render import (_render_bwd_cuda, _train_cuda, _train_plain,
+                                                  render_rays_fused_bwd_plain, unpack_grads)
+    n, S = RENDER_RULE_CASE
+
+    def exact(params, rays, z, cot, ncfg, da):
+        return render_rays_fused_bwd_plain(params, rays, z, *cot, ncfg, da,
+                                           dtype=torch.float64)[:2]
+
+    def own_cotangents(dtgt):
+        return (-dtgt[:, 0:3]).contiguous(), (-dtgt[:, 3]).contiguous(), None, None
+
+    def draw(D, key, seed):
+        kname, occ, da, rgb_p = key
+        gen = torch.Generator().manual_seed(500 + seed)
+        rays, z, tgt = chip_smoke.train_inputs(torch, dev, gen, n, S)
+        ncfg, params = chip_smoke.many_params(torch, dev, gen, D, occ, da, S)
+        if kname == "render_train":
+            k = _train_cuda(params, rays, z, tgt, ncfg, da, rgb_p, False)
+            p = _train_plain(params, rays, z, tgt, ncfg, da, rgb_p, False)
+            e_k = exact(params, rays, z, own_cotangents(k[5]), ncfg, da)
+            e_p = (e_k if torch.equal(k[5][:, :4], p[5][:, :4])
+                   else exact(params, rays, z, own_cotangents(p[5]), ncfg, da))
+            k, p = k[1:3], p[1:3]
+        else:
+            cot = chip_smoke.bwd_cotangents(torch, params, rays, z, tgt, ncfg, da, True)
+            k = _render_bwd_cuda(params, rays, z, *cot, ncfg, da)[:2]
+            p = render_rays_fused_bwd_plain(params, rays, z, *cot, ncfg, da)[:2]
+            e_k = e_p = exact(params, rays, z, cot, ncfg, da)
+        return tuple(unpack_grads([w.float() for w in o[0]], [b.float() for b in o[1]], ncfg)
+                     for o in (k, p, e_k, e_p))
+
+    subjects = [(f"{kname} {n} rays x {S} occ={occ} dist_alpha={da}", (kname, occ, da, rgb_p))
+                for kname in ("render_train", "render_bwd")
+                for (occ, da), rgb_p in zip(chip_smoke.WIDE_FLAGS, (1, 2))]
+    l2_rule(torch, chip_smoke, "render rule", widths, subjects, draw)
 
 
 def render_full_yardstick(torch, chip_smoke, dev, widths=FROZEN_WIDTHS, cases=None,
@@ -828,17 +896,24 @@ def main(argv=None) -> int:
             return 0
         if args.render_full:
             widths = args.widths or list(FROZEN_WIDTHS)
-            build_all((fused_render.RENDER_TRAIN, fused_render.RENDER_BWD))
+            build_all((fused_render.RENDER_TRAIN, fused_render.RENDER_BWD)
+                      + ((fused_render.RENDER_TRAIN_XWIDE, fused_render.RENDER_BWD_XWIDE)
+                         if any(D > 512 for D in widths) else ()))
             cases = None if args.cases is None else [
                 tuple(int(v) for v in c.split("x")) for c in args.cases]
             if args.attribute:
                 render_full_attribution(torch, chip_smoke, dev, widths,
                                         cases or chip_smoke.WIDE_RENDER_CASES, args.seeds)
                 return 0
-            render_full_yardstick(torch, chip_smoke, dev, widths, cases, args.seeds,
-                                  None if args.flag_set is None else (args.flag_set,))
-            if cases is None:
-                render_full_flips(torch, chip_smoke, dev, widths)
+            flags = None if args.flag_set is None else (args.flag_set,)
+            if cases is not None:
+                render_full_yardstick(torch, chip_smoke, dev, widths, cases, args.seeds, flags)
+                return 0
+            classes = [D for D in widths if D <= 512]   # the yardstick's widths
+            if classes:
+                render_full_yardstick(torch, chip_smoke, dev, classes, None, args.seeds, flags)
+                render_full_flips(torch, chip_smoke, dev, classes)
+            render_full_rule(torch, chip_smoke, dev, widths)
             return 0
         if args.widths:
             build_all((fused_render.RENDER_BWD_FROZEN,))

@@ -31,10 +31,11 @@ one warm-up:
 - `--kernels full`: K6 full through `_mlp_bwd_cuda` at 196,608 points (the
   fine pass of a hierarchical train step: every dW, dB, d(points),
   d(directions)), 128 to 1024 since its kernel past 512 (csrc/point_mlp_bwd_xwide.cu);
-  at the widths K1 and K4 full take (128 to 512; 128 and
-  256 in a checkout before their wide kernel), K1 through `_train_cuda` and
-  K4 full through `_render_bwd_cuda` at 1024 rays x 128 samples (the train
-  step's launch); and the dW kernel on its own
+  at the widths K1 and K4 full take (128 to 1024 since their kernel past 512,
+  csrc/render_train_xwide.cu and csrc/render_bwd_xwide.cu; 128 to 512 in a
+  checkout before it), K1 through `_train_cuda` and K4 full through
+  `_render_bwd_cuda` at 1024 rays x 128 samples (the train step's launch, two
+  chunks of rays past 512); and the dW kernel on its own
   (`dw_sm90`) over K6's blocks at 256 on 196,608 rows of seeded operands.
   Its SASS digests are per library (each source builds its own copy of the
   dW kernel and of the sums of the partials). Per case of K1, K4 full and
@@ -76,7 +77,7 @@ BWD_SAMPLES = (128, 512)
 # the mangled names of each set's kernel instances: kernel, template arguments
 SASS_NAMES = {"forward": r"(render_fwd_kernel|point_mlp_fwd_kernel)I(Li\d+E(?:Lb\d)?)",
               "frozen": r"((?:render|point_mlp)_bwd_frozen(?:_wide|_xwide)?_kernel)I(Li\d+E(?:Lb\d)?)",
-              "full": r"((?:point_mlp_bwd(?:_wide|_xwide)?|render_full(?:_wide)?|dw_sm90|dw_reduce|"
+              "full": r"((?:point_mlp_bwd(?:_wide|_xwide)?|render_full(?:_wide|_xwide)?|dw_sm90|dw_reduce|"
                       r"chain_reduce)_kernel)(I(?:Li\d+E|Lb\d+E)+E|E)"}
 
 
@@ -260,8 +261,7 @@ def _width_params(dev, widths):
 KERNEL_SETS = {"forward": ((F.RENDER_FWD, FM.POINT_MLP_FWD), forward_cases, 5),
                "frozen": ((F.RENDER_BWD_FROZEN, FM.POINT_MLP_BWD_FROZEN), frozen_cases, 10),
                "full": ((FM.POINT_MLP_BWD, FM.POINT_MLP_BWD_XWIDE, F.RENDER_TRAIN, F.RENDER_BWD,
-                         FM.DW_SM90), full_cases,
-                        5)}
+                         F.RENDER_TRAIN_XWIDE, F.RENDER_BWD_XWIDE, FM.DW_SM90), full_cases, 5)}
 
 
 def main(argv=None) -> int:

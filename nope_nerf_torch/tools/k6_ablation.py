@@ -147,7 +147,8 @@ def main() -> int:
             pts.data_ptr(), dirs.data_ptr(), g_rgb.data_ptr(), g_den.data_ptr(),
             tiles.data_ptr(), tiles_dx.data_ptr(), bptrs, xops.data_ptr(), gops.data_ptr(),
             chain_part.data_ptr(), dw_part.data_ptr(), None, grads.data_ptr(), dpts.data_ptr(),
-            ddirs.data_ptr(), POINTS, D, n_ctas, chunks, 1, 0, total, stream)
+            ddirs.data_ptr(), POINTS, D, n_ctas, chunks, 1, 0, total, (ctypes.c_int * 2)(),
+            stream)
         if err:
             raise RuntimeError(lib.nerf_error_string(err).decode())
 

@@ -315,8 +315,10 @@ def _flat(out):
 def test_render_full_kernels_bit_equal_and_launch_the_dw_kernel_once(cuda_device, kernel):
     """K1 and K4 full: two launches give the same bits (no float atomics in
     the chain, its partial sums or the dW kernel), and each launch of either
-    launches the dW kernel once."""
+    launches the dW kernel once (render_dw_launches: its table fits one
+    launch up to 512)."""
     params, rays, z, tgt, ncfg = _train_case(cuda_device, 301, 256, 256, seed=6)
+    assert M.render_dw_launches(256) == 1
     if kernel == "render_train":
         lib = F.RENDER_TRAIN
         run = lambda: F._train_cuda(params, rays, z, tgt, ncfg, False, 2, True)   # noqa: E731
@@ -332,13 +334,15 @@ def test_render_full_kernels_bit_equal_and_launch_the_dw_kernel_once(cuda_device
 
 
 @pytest.mark.parametrize("kernel", ["render_train", "render_bwd"])
-@pytest.mark.parametrize("hidden", [384, 512])
+@pytest.mark.parametrize("hidden", [384, 512, 640, 1024])
 def test_render_full_wide(cuda_device, hidden, kernel):
-    """K1 and K4 full at 384 and 512 (render_full_sm90.cuh's wide kernel):
-    two launches bit-equal, the dW kernel launched once a launch, K4 full fed
-    K1's cotangents giving K1's dW, dB, d(rays) and dz bit for bit, and dW,
-    dB within 5e-3 of each block's largest entry of the plain version's on
-    the train step's 1024 rays."""
+    """K1 and K4 full at 384 and 512 (render_full_sm90.cuh's wide kernel)
+    and 640 and 1024 (its xwide kernel, in two chunks of rays): two launches
+    bit-equal, the chain launched once a chunk of rays and the dW kernel
+    render_dw_launches times a chunk (once up to 512, twice past it), K4 full
+    fed K1's cotangents giving K1's dW, dB, d(rays) and dz bit for bit, and
+    dW, dB within 5e-3 of each block's largest entry of the plain version's
+    on the train step's 1024 rays."""
     params, rays, z, tgt, ncfg = _train_case(cuda_device, 1024, 128, hidden, seed=11,
                                              spread=0.5, far=6.0)
     if kernel == "render_train":
@@ -350,7 +354,10 @@ def test_render_full_wide(cuda_device, hidden, kernel):
         run = lambda: F._render_bwd_cuda(params, rays, z, *cot, ncfg, False)    # noqa: E731
     before = (lib.launches, M.DW_SM90.launches)
     a, b = run(), run()
-    assert (lib.launches - before[0], M.DW_SM90.launches - before[1]) == (2, 2)
+    chunks = len(F.render_chunks(1024, 128, hidden))
+    assert chunks == (2 if hidden > 512 else 1)
+    assert (lib.launches - before[0], M.DW_SM90.launches - before[1]) == (
+        2 * chunks, 2 * chunks * M.render_dw_launches(hidden))
     for x, y in zip(_flat(a), _flat(b)):
         assert torch.equal(x, y)
     if kernel == "render_train":
@@ -1119,12 +1126,12 @@ def test_xwide_point_mlp_fwd_matches_plain(cuda_device):
 
 
 def test_wide_backward_kernels_raise_before_any_launch(cuda_device):
-    """Past hidden_dim 512 the render kernels that form weight gradients (K1,
-    K4 full) raise NotImplementedError naming Queue 3 (c) with no launch, and
-    so does render_rays_fused under autograd when a nerf parameter wants a
-    gradient: its forward checks the backward's variant before K3 launches.
-    At 512 the same three calls launch: K1 once, K4 full once (after K3),
-    each with the dW kernel once."""
+    """Past hidden_dim 1024 the render kernels that form weight gradients
+    (K1, K4 full) raise NotImplementedError naming Queue 3 (c) with no
+    launch, and so does render_rays_fused under autograd when a nerf
+    parameter wants a gradient: its forward checks the backward's variant
+    before K3 launches. At 512 the same three calls launch: K1 once, K4 full
+    once (after K3), each with the dW kernel once."""
     gen, rays, z = _inputs(cuda_device, 133, 128)
     tgt = F.pack_targets(torch.rand(133, 3, device=cuda_device),
                          torch.ones(133, device=cuda_device),
@@ -1134,7 +1141,7 @@ def test_wide_backward_kernels_raise_before_any_launch(cuda_device):
             M.POINT_MLP_BWD_FROZEN, M.DW_SM90, M.POINT_MLP_FWD, F.RENDER_FWD)
     params = init_nerf_params(NerfConfig(hidden_dim=512, use_pallas=True), gen,
                               device=cuda_device)
-    past = NerfConfig(hidden_dim=640, use_pallas=True)
+    past = NerfConfig(hidden_dim=1152, use_pallas=True)
     before = [lib.launches for lib in libs]
     with pytest.raises(NotImplementedError, match=r"Queue 3 \(c\)"):
         F.render_ray_loss_fused(params, rays, z, tgt, past, False, 1, False)

@@ -1,14 +1,16 @@
 """The pure-Python pieces around the narrow chain's forward repair, on the CPU:
 the decision rule's classes (tools/backward_noise.py's classify and
-case_class), and chip_smoke.py's phase 14, which holds the backward kernels
+case_class), the numerics rule past 512 (its l2_rule), and chip_smoke.py's
+phase 14, which holds the backward kernels
 at hidden_dim 128 and 256 on phase 13's cases (its checks need the card;
 here they are stand-ins that record how the phase calls them)."""
 
 import pytest
+import torch
 
 import chip_smoke
 from nope_nerf_torch.ops import fused_render as F
-from nope_nerf_torch.tools.backward_noise import case_class, classify
+from nope_nerf_torch.tools.backward_noise import FULL_RULE_SEEDS, case_class, classify, l2_rule
 
 
 # (kernel~f64, f32 plain~f64, class): among them the first draws measured at 256 and 512
@@ -27,10 +29,37 @@ def test_a_case_takes_its_worst_draw(draws, want):
     assert case_class(draws) == want
 
 
+@pytest.mark.parametrize("kernel_noise, want", [(1.0, "1.00"), (1.9, "1.90"), (3.0, "3.00")])
+def test_l2_rule_holds_the_kernel_to_twice_the_plain_versions_distance(capsys, kernel_noise,
+                                                                        want):
+    """l2_rule on draws whose kernel strays from the f64 blocks by
+    kernel_noise times the f32 plain version's noise, in every block: the
+    ratio of their mean L2 distances, held to FULL_RULE (2.0)."""
+    draws = []
+
+    def draw(D, key, seed):
+        draws.append((D, key, seed))
+        gen = torch.Generator().manual_seed(seed)
+        exact = {f"b{i}": torch.randn(64, generator=gen) for i in range(3)}
+        noise = {k: torch.randn(64, generator=gen) * 1e-3 for k in exact}
+        plain = {k: v + noise[k] for k, v in exact.items()}
+        kernel = {k: v + kernel_noise * noise[k] for k, v in exact.items()}
+        return kernel, plain, exact, exact
+
+    l2_rule(torch, chip_smoke, "test rule", [640, 1024], [("one", 1), ("two", 2)], draw)
+    out = capsys.readouterr().out
+    assert len(draws) == 2 * 2 * FULL_RULE_SEEDS
+    for D in (640, 1024):
+        assert (f"test rule D={D}: per one, two: {want}, {want}, every one at most 2.0: "
+                f"{kernel_noise <= 2.0}") in out
+
+
 @pytest.mark.parametrize("missing", [None, "render_full", "frozen", "full"])
 def test_phase_14_runs_every_hold_before_it_fails(monkeypatch, missing):
-    # the widths of the narrow chain: every trained width below the wide one's
-    assert set(chip_smoke.NARROW_D) | set(chip_smoke.WIDE_D) == set(F.KERNEL_WIDTHS["train"])
+    # the widths of the narrow chain: every trained width below the wide one's (and the
+    # widths past 512, phase 16's)
+    assert (set(chip_smoke.NARROW_D) | set(chip_smoke.WIDE_D) | set(chip_smoke.XWIDE_D)
+            == set(F.KERNEL_WIDTHS["train"]))
     assert not set(chip_smoke.NARROW_D) & set(chip_smoke.WIDE_D)
     assert max(chip_smoke.NARROW_D) == 256
     called = []

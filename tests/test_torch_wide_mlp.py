@@ -146,16 +146,13 @@ def test_width_gates(D):
     """Every CUDA kernel takes 128 to 512: K3, K5, the frozen-network
     variants of K4 and K6, K6 full, and the render kernels that form weight
     gradients, K1 and K4 full (their wide kernel on csrc/mlp_dx_wide_sm90.cuh's
-    chain); K3 and K5 also take 640 and 1024 (csrc/mlp_fwd_xwide_sm90.cuh's
-    trunk), and so do the frozen-network variants of K4 and K6 and K6 full
-    (csrc/mlp_dx_xwide_sm90.cuh's chain). Every other kernel raises
-    NotImplementedError for 640 and past, naming Queue 3 (c), and every
-    kernel for a width JAX's kernels do not take; no message names Queue 3
-    (b) any more. The checks run before any device work, here on the CPU."""
-    forward = ("render", "point-query MLP forward", "render-backward (frozen network)",
-               "point-query MLP backward (frozen network)", "point-query MLP backward")
+    chain); every one also takes 640 and 1024 (csrc/mlp_fwd_xwide_sm90.cuh's
+    trunk and csrc/mlp_dx_xwide_sm90.cuh's chain). Every kernel raises
+    NotImplementedError for a width JAX's kernels do not take; no message
+    names Queue 3 (b) any more. The checks run before any device work, here
+    on the CPU."""
     for kernel in F.KERNEL_WIDTHS:
-        if D in (128, 256, 384, 512) or (D in (640, 1024) and kernel in forward):
+        if D in (128, 256, 384, 512, 640, 1024):
             F.check_kernel_width(kernel, D)
             F._check_kernel_shapes(kernel, 128, D)
             continue
@@ -191,9 +188,9 @@ def test_wide_gates_fire_before_device_work():
     K6 full's gate, the differentiable route of K5 with or without parameters
     that want gradients, the frozen variants' gates and K3's forward for a
     frozen network: every call goes on to the kernel's build (no nvcc on this
-    machine). At 640 K1 and K4 full, and the differentiable route of K3 with
-    parameters that want gradients, raise NotImplementedError naming Queue 3
-    (c) before any build."""
+    machine). Past 1024 (1152) K1 and K4 full, and the differentiable route
+    of K3 with parameters that want gradients, raise NotImplementedError
+    naming Queue 3 (c) before any build."""
     cfg = NerfConfig(hidden_dim=512, use_pallas=True)
     meta = dict(device="meta")
     rays, z = torch.empty(4, 9, **meta), torch.empty(4, 128, **meta)
@@ -227,7 +224,7 @@ def test_wide_gates_fire_before_device_work():
     with pytest.raises(RuntimeError, match="nvcc"):
         FM._mlp_bwd_cuda(params, pts, pts, pts, torch.empty(4, 1, **meta), cfg,
                          want_param_grads=False)
-    past = NerfConfig(hidden_dim=640, use_pallas=True)
+    past = NerfConfig(hidden_dim=1152, use_pallas=True)
     with pytest.raises(NotImplementedError, match="Queue 3 \\(c\\)"):
         F._train_cuda({}, rays, z, tgt, past, False, 1, False)
     with pytest.raises(NotImplementedError, match="Queue 3 \\(c\\)"):

@@ -2,9 +2,9 @@
 K3 (ops/fused_render.py::render_rays_fused) and K5 (ops/fused_mlp.py::
 point_mlp) against the JAX package's Pallas kernels in interpret mode, and the
 width gates of the CUDA wrappers there (csrc/mlp_fwd_xwide_sm90.cuh serves K3
-and K5 at 640, 768, 896 and 1024, and with csrc/mlp_dx_xwide_sm90.cuh the
-frozen-network variants of K4 and K6 and K6 full; K1 and K4 full stop at 512
-and name the entry of ROADMAP.md's Queue 3 (c) that brings them).
+and K5 at 640, 768, 896 and 1024, and with csrc/mlp_dx_xwide_sm90.cuh every
+backward kernel: the frozen-network variants of K4 and K6, K6 full, K1 and K4
+full; past 1024 every kernel raises, naming ROADMAP.md's Queue 3 (c)).
 
 Tolerances, as tests/test_torch_wide_mlp.py holds the same functions at 384
 and 512: K3's outputs within 2e-3 of the largest entry (at least 1e-3); K5's
@@ -33,12 +33,11 @@ from nope_nerf_torch.ops import fused_render as F
 
 torch.set_num_threads(2)
 FLAGS = [("softplus", False), ("relu", True)]   # (occupancy, head and renderer dist_alpha)
-BACKWARD = {   # each kernel that stops at 512: its entry of Queue 3 (c) past it
-    "train": 4, "render-backward": 4}
 # the kernels that take 640 to 1024: K3, K5, the frozen-network variants of K4 and K6,
-# and K6 full
+# K6 full, K1 and K4 full
 FORWARD = ("render", "point-query MLP forward", "render-backward (frozen network)",
-           "point-query MLP backward (frozen network)", "point-query MLP backward")
+           "point-query MLP backward (frozen network)", "point-query MLP backward", "train",
+           "render-backward")
 
 
 def _port_cfg(jc):
@@ -99,14 +98,13 @@ def test_point_mlp_plain_matches_pallas_kernel_interpret(D, occ, dist_alpha):
 
 @pytest.mark.parametrize("D", [640, 768, 896, 1024, 1152])
 def test_xwide_width_gates(D):
-    """K3, K5, the frozen-network variants of K4 and K6, and K6 full take
-    640 to 1024; at those widths K1 and K4 full raise NotImplementedError
-    naming their entry of Queue 3 (c), item 4. Past 1024 every kernel
-    raises, naming Queue 3 (c). The checks run before any device work, here
-    on the CPU."""
-    assert set(F.KERNEL_WIDTHS) == set(FORWARD) | set(BACKWARD)
+    """Every kernel takes 640 to 1024: K3, K5, the frozen-network variants
+    of K4 and K6, K6 full, K1 and K4 full. Past 1024 every kernel raises
+    NotImplementedError, naming Queue 3 (c). The checks run before any
+    device work, here on the CPU."""
+    assert set(F.KERNEL_WIDTHS) == set(FORWARD)
     for kernel in F.KERNEL_WIDTHS:
-        if D <= 1024 and kernel in FORWARD:
+        if D <= 1024:
             F.check_kernel_width(kernel, D)
             F._check_kernel_shapes(kernel, 1024, D)
             continue
@@ -114,10 +112,7 @@ def test_xwide_width_gates(D):
             F.check_kernel_width(kernel, D)
         text = str(info.value)
         assert "Queue 3 (c)" in text
-        if D <= 1024:
-            assert f"Queue 3 (c), item {BACKWARD[kernel]}" in text
-        else:
-            assert "past 1024" in text and "item" not in text
+        assert "past 1024" in text and "item" not in text
     cfg = NerfConfig(hidden_dim=D, use_pallas=True)
     for kernel in ("forward", FM.mlp_bwd_kernel(False), FM.mlp_bwd_kernel(True)):
         if D <= 1024:
@@ -137,10 +132,9 @@ def test_xwide_routes_raise_before_any_build():
     the checks come before any launch or build), at 640: K3's and K5's
     forwards, the differentiable routes for a frozen network and the frozen
     backward wrappers pass their gates and go on to a kernel's build (no nvcc
-    on this machine), and so do K5's differentiable route and K6 full's
-    wrapper with parameters that want gradients; with such parameters K3's
-    differentiable route checks the backward's variant first and raises
-    NotImplementedError, and so do the wrappers of K1 and K4 full."""
+    on this machine), and so do, with parameters that want gradients, K3's
+    and K5's differentiable routes (each checks its backward's variant
+    first) and the wrappers of K6 full, K1 and K4 full."""
     cfg = NerfConfig(hidden_dim=640, use_pallas=True)
     meta = dict(device="meta")
     rays, z = torch.empty(4, 9, **meta), torch.empty(4, 128, **meta)
@@ -156,7 +150,7 @@ def test_xwide_routes_raise_before_any_build():
         F._render_forward(params, rays, z, cfg, False, True, False)
     with pytest.raises(RuntimeError, match="nvcc"):
         FM._mlp_fwd_cuda(params, pts, pts, cfg)
-    with pytest.raises(NotImplementedError, match="render-backward kernel.*item 4"):
+    with pytest.raises(RuntimeError, match="nvcc"):
         F._RenderFused.forward(wants, rays, z, cfg, False, True, names, *tensors)
     with pytest.raises(RuntimeError, match="nvcc"):
         F._RenderFused.forward(frozen, rays, z, cfg, False, True, names, *tensors)
@@ -166,10 +160,10 @@ def test_xwide_routes_raise_before_any_build():
     with pytest.raises(RuntimeError, match="nvcc"):
         FM._PointMLP.forward(SimpleNamespace(needs_input_grad=frozen.needs_input_grad[2:]),
                              pts, pts, cfg, names, *tensors)
-    with pytest.raises(NotImplementedError, match="train kernel.*item 4"):
-        F._train_cuda({}, rays, z, tgt, cfg, False, 1, False)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        F._render_bwd_cuda({}, rays, z, g_rgb, g_dist, None, None, cfg, False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        F._train_cuda(params, rays, z, tgt, cfg, False, 1, False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        F._render_bwd_cuda(params, rays, z, g_rgb, g_dist, None, None, cfg, False)
     with pytest.raises(RuntimeError, match="nvcc"):
         F._render_bwd_cuda(params, rays, z, g_rgb, g_dist, None, None, cfg, False,
                            want_param_grads=False)
