@@ -73,8 +73,8 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    188x621 pair and DPT-Hybrid (default widths, the JAX package's random
    init) on one 384x1280 input, each on the card against the same module on
    this machine's CPU (DPT: l1 to l4, path1, the inverse depth and the
-   depth); cli.preprocess with configs/V_KITTI/preprocess_straight.yaml's
-   keys writes the 6 priors; cli.train trains straight_d2 for 1 epoch on them
+   depth); cli.preprocess on configs/V_KITTI/preprocess_straight.yaml
+   writes the 6 priors; cli.train trains straight_d2 for 1 epoch on them
    (K1 and K2 once a step); cli.eval reports LPIPS; cli.get_vkitti turns a
    raw V-KITTI tree (375x1242 PNGs, extrinsics txt) into a scene that
    DataField reads back; DPT and LPIPS are timed beside their FLOP bounds and
@@ -177,6 +177,21 @@ Run from the root of a checkout: `python3 chip_smoke.py`. In order it
    1 to 196,645 points; the check builds' outputs torch.equal to the main
    builds'. Every hold reports before the phase fails. `python3 chip_smoke.py
    --forward` builds the kernels and runs this phase alone;
+17. runs the README's on-disk demo pipeline through the port's own entry
+   points, after phase 16, in a temporary working directory: every
+   configs/**/*.yaml through load_config without PyYAML; scripts.
+   make_demo_scene (a subprocess), cli.train on the shipped configs/
+   demo_drive.yaml for 2 epochs and resumed to 4; cli.eval_poses --vis,
+   cli.eval (20 pose-opt epochs) and cli.render (12 views) on a yaml that
+   save_config wrote with those cuts; scripts.make_nonmetric_priors and
+   cli.train on configs/demo_drive_npz_dist.yaml; scripts.
+   demo_joint_pose_training for 2 epochs. Each entry point runs as `python3
+   -m` runs it (runpy) in this process, its launches counted (K1, K2 and the
+   dW kernel once a train step, K3 once per frame chunk and pose-opt step, K4
+   frozen once per pose-opt step), its numbers checked finite. The configs'
+   relative paths (data/demo, out/demo/drive) land in the working directory.
+   `python3 chip_smoke.py --demo` builds the kernels and runs this phase
+   alone;
 9. times each path and each kernel at its main path's shapes (CUDA events;
    dw_sm90 also on its own over K1's and K4 full's 11 blocks, beside the
    bytes of the operands those kernels hand it; K2 and K7 through their
@@ -229,70 +244,18 @@ DENSITY_SHIFT = -4.0         # density bias of the seeded weights: keeps transmi
                              # backward are exercised whole
 DISK_FRAMES = 6              # frames per scene on disk: frame 4 is the eval split (sample
                              # rate 8), so an epoch is 5 train steps
-# The three configurations' own keys, as configs/LLFF/fern.yaml, configs/Tanks/
-# Ballroom.yaml and configs/V_KITTI/straight_d4.yaml set them (the card's machine
-# has no PyYAML; tests/test_torch_cli_disk.py holds them equal to the files).
-DISK_CONFIGS = {
-    "fern": {
-        "dataloading": {"path": "data/nerf_llff_data", "scene": ["fern"], "random_ref": 1,
-                        "resize_factor": 4},
-        "depth": {"type": None},
-        "pose": {"learn_pose": True},
-        "rendering": {"depth_range": [0.0, 1.0], "dist_alpha": True, "sample_option": "ndc"},
-        "training": {"out_dir": "out/llff/fern", "vis_resolution": [75, 100]},
-        "extract_images": {"resolution": [756, 1008]}},
-    "Ballroom": {
-        "dataloading": {"path": "data/Tanks", "scene": ["Ballroom"], "customized_focal": False,
-                        "random_ref": 1},
-        "depth": {"type": None},
-        "pose": {"learn_pose": True},
-        "training": {"out_dir": "out/Tanks/Ballroom", "auto_scheduler": True},
-        "extract_images": {"resolution": [540, 960]}},
-    "straight_d4": {
-        "dataloading": {"path": "data/V_KITTI", "scene": ["straight"], "resize_factor": 2,
-                        "customized_focal": True, "customized_poses": False,
-                        "load_colmap_poses": True, "random_ref": 1, "with_depth": True,
-                        "depth_scale": 0.01, "sparsify_depth": True,
-                        "sparsify_depth_pattern": [1, 3, 1, 3]},
-        "depth": {"type": None},
-        "pose": {"learn_pose": True, "init_pose": True, "init_pose_type": "colmap",
-                 "init_R_only": False, "learn_R": False, "learn_t": False,
-                 "learn_focal": False, "update_focal": True},
-        "distortion": {"learn_distortion": True, "learn_scale": False, "learn_shift": False},
-        "training": {"out_dir": "out/V_KITTI/straight_d4", "depth_loss_type": "l1",
-                     "match_method": "dense", "with_ssim": False, "auto_scheduler": True},
-        "extract_images": {"resolution": [188, 621], "eval_depth": True,
-                           "traj_option": "interp", "bspline_degree": 100}},
-}
+# The shipped yamls the on-disk phases read, through the port's own YAML reader
+# (config.py::load_config; the card's machine has no PyYAML); each phase's cuts go on
+# top as overrides (disk_config, phase 10 (e)).
+CONFIG_FILES = {"fern": "configs/LLFF/fern.yaml", "Ballroom": "configs/Tanks/Ballroom.yaml",
+                "straight_d4": "configs/V_KITTI/straight_d4.yaml",
+                "preprocess_straight": "configs/V_KITTI/preprocess_straight.yaml",
+                "straight_d2": "configs/V_KITTI/straight_d2.yaml"}
 DISK_SIZES = {"fern": (756, 1008), "Ballroom": (540, 960), "straight_d4": (375, 1242)}
 # Ballroom's frames as JPEG files (tools/jpeg_writer.py): 4:2:0 at quality 95 but for
 # these frames
 BALLROOM_JPEG = {0: {"sampling": "4:4:4"}, 1: {"sampling": "4:2:2", "restart_interval": 4},
                  2: {"orientation": 1}}
-# Phase 8 on phase 7's straight scene: configs/V_KITTI/preprocess_straight.yaml writes its
-# DPT priors, configs/V_KITTI/straight_d2.yaml trains on them (their keys, as above;
-# tests/test_torch_preprocess.py holds them equal to the files)
-PREP_CONFIGS = {
-    "preprocess_straight": {
-        "dataloading": {"path": "data/V_KITTI", "scene": ["straight"], "resize_factor": 2,
-                        "customized_focal": True, "customized_poses": False,
-                        "load_colmap_poses": True},
-        "depth": {"type": "DPT"},
-        "training": {"mode": "all"}},
-    "straight_d2": {
-        "dataloading": {"path": "data/V_KITTI", "scene": ["straight"], "resize_factor": 2,
-                        "customized_focal": True, "customized_poses": False,
-                        "load_colmap_poses": True, "random_ref": 1},
-        "depth": {"type": None},
-        "pose": {"learn_pose": True, "init_pose": True, "init_pose_type": "colmap",
-                 "init_R_only": False, "learn_R": False, "learn_t": False,
-                 "learn_focal": False, "update_focal": True},
-        "distortion": {"learn_distortion": True},
-        "training": {"out_dir": "out/V_KITTI/straight_d2", "depth_loss_type": "l1",
-                     "match_method": "dense", "with_ssim": False, "auto_scheduler": True},
-        "extract_images": {"resolution": [188, 621], "eval_depth": True,
-                           "traj_option": "interp", "bspline_degree": 100}},
-}
 DPT_INPUT = (384, 1280)      # a 188x621 V-KITTI frame after the DPT input transform
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate (data sheet)
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 rate outside the tensor cores (data sheet)
@@ -1658,25 +1621,35 @@ def run_slice_rest(torch, np, dev):
     return trainer_a, state_a, vis
 
 
-def disk_config(name: str, root: str):
-    """DISK_CONFIGS[name] with this run's changes: the scene under `root`, fern
+def shipped_config(name: str, overrides=None) -> dict:
+    """CONFIG_FILES[name] as load_config reads it, `overrides` on top."""
+    from nope_nerf_torch.config import load_config
+    return load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    CONFIG_FILES[name]), overrides=overrides)
+
+
+def disk_cuts(name: str, root: str) -> dict:
+    """This run's changes to CONFIG_FILES[name]: the scene under `root`, fern
     read at its working size (resize_factor 1: the one cut, see the module
     docstring), the output under `root`, the hooks that write images or render
-    views off (phase 5 drives them; here they would only add launches), cli.eval's pose optimisation cut to POSE_OPT_EPOCHS
-    epochs, one novel view."""
-    from nope_nerf_torch.config import load_config
-    over = copy.deepcopy({**DISK_CONFIGS, **PREP_CONFIGS}[name])
-    d = over["dataloading"]
-    d["path"] = os.path.join(root, os.path.basename(d["path"]))
+    views off (phase 5 drives them; here they would only add launches),
+    cli.eval's pose optimisation cut to POSE_OPT_EPOCHS epochs, one novel view."""
+    path = shipped_config(name)["dataloading"]["path"]
+    over = {"dataloading": {"path": os.path.join(root, os.path.basename(path))},
+            "training": {"out_dir": os.path.join(root, "out", name), "vis_geo": False,
+                         "print_every": 0, "validate_every": 0, "checkpoint_every": 0,
+                         "visualize_every": 0, "vis_reprojection_every": 0,
+                         "backup_every": 0},
+            "eval_pose": {"opt_pose_epoch": POSE_OPT_EPOCHS, "n_points": TRAIN_RAYS},
+            "extract_images": {"N_novel_imgs": 1}}
     if name == "fern":
-        d["resize_factor"] = 1
-    over.setdefault("training", {}).update(
-        out_dir=os.path.join(root, "out", name), vis_geo=False, print_every=0,
-        validate_every=0, checkpoint_every=0, visualize_every=0, vis_reprojection_every=0,
-        backup_every=0)
-    over["eval_pose"] = {"opt_pose_epoch": POSE_OPT_EPOCHS, "n_points": TRAIN_RAYS}
-    over.setdefault("extract_images", {})["N_novel_imgs"] = 1
-    return load_config(overrides=over)
+        over["dataloading"]["resize_factor"] = 1
+    return over
+
+
+def disk_config(name: str, root: str) -> dict:
+    """CONFIG_FILES[name] read from the checkout, with disk_cuts(name, root)."""
+    return shipped_config(name, disk_cuts(name, root))
 
 
 def write_disk_scenes(np, root: str) -> None:
@@ -1686,7 +1659,7 @@ def write_disk_scenes(np, root: str) -> None:
     where the configuration reads them (with_depth false)."""
     from nope_nerf_torch.data import make_driving_scene, write_vkitti_scene
     for name, (h, w) in DISK_SIZES.items():
-        d = DISK_CONFIGS[name]["dataloading"]
+        d = shipped_config(name)["dataloading"]
         dest = os.path.join(root, os.path.basename(d["path"]), d["scene"][0])
         scene = make_driving_scene(n_frames=DISK_FRAMES, h=h, w=w, seed=SEED)
         write_vkitti_scene(dest, scene, pose_noise_deg=1.0, pose_noise_trans=0.05, seed=SEED)
@@ -1706,7 +1679,7 @@ def write_jpeg_frames(np, root: str):
     from nope_nerf_torch.data.image_io import image_shape, read_png, read_rgb8
     from nope_nerf_torch.tools.jpeg_writer import kept_psnr, write_jpeg
     name = "Ballroom"
-    d = DISK_CONFIGS[name]["dataloading"]
+    d = shipped_config(name)["dataloading"]
     img_dir = os.path.join(root, os.path.basename(d["path"]), d["scene"][0], "images")
     times = []
     for i, png in enumerate(sorted(os.listdir(img_dir))):
@@ -1842,7 +1815,7 @@ def run_disk_scenes(torch, np, dev, root: str):
 
     # decoding on this machine's host: a Ballroom frame, a V-KITTI frame with every
     # row Paeth-filtered (cv2's adaptive writer picks Paeth most) and one LLFF original
-    d = DISK_CONFIGS["straight_d4"]["dataloading"]
+    d = shipped_config("straight_d4")["dataloading"]
     img = read_png(os.path.join(root, os.path.basename(d["path"]), d["scene"][0], "images",
                                 "00000.png"))
     times = decode_times(ballroom_frame, img, root, large=(3024, 4032))
@@ -2332,9 +2305,19 @@ def parallel_worker(argv) -> int:
     return 0
 
 
+def mesh_cuts(root: str) -> dict:
+    """Phase 10 (e)'s changes to configs/V_KITTI/straight_d4.yaml: phase 7's
+    scene under `root`, TRAIN_RAYS rays a step, the hooks off, the mesh."""
+    return {"dataloading": {"path": os.path.join(root, "V_KITTI")},
+            "training": {"n_training_points": TRAIN_RAYS, "vis_geo": False, "print_every": 0,
+                         "validate_every": 0, "checkpoint_every": 0, "visualize_every": 0,
+                         "vis_reprojection_every": 0, "backup_every": 0},
+            "tpu": {"mesh_shape": [PARALLEL_RANKS]}}
+
+
 def cli_worker(argv) -> int:
     """One rank of phase 10 (e), launched by `python3 -m torch.distributed.run
-    --standalone --nproc_per_node 2 chip_smoke.py --cli-worker <config json> <work>`:
+    --standalone --nproc_per_node 2 chip_smoke.py --cli-worker <config yaml> <work>`:
     cli.train with tpu.mesh_shape [2] under gloo for 2 epochs straight, then 1
     epoch and a resume to 2 in another directory, counting each run's launches
     and which ranks write a checkpoint. Writes <work>/cli_<rank>.pt."""
@@ -2344,8 +2327,6 @@ def cli_worker(argv) -> int:
     from nope_nerf_torch.config import load_config
     from nope_nerf_torch.training import checkpoints
     cfg_path, work = argv
-    with open(cfg_path) as f:
-        over = json.load(f)
     rank = int(os.environ["RANK"])
     writes = []
     real_write = checkpoints._write
@@ -2359,8 +2340,8 @@ def cli_worker(argv) -> int:
     runs = {}
     for name, out_dir, epochs in (("straight", "cli_straight", 2), ("first", "cli_resume", 1),
                                   ("resumed", "cli_resume", 2)):
-        over["training"]["out_dir"] = os.path.join(work, out_dir)
-        cfg = load_config(overrides=over)
+        cfg = load_config(cfg_path, overrides={"training": {
+            "out_dir": os.path.join(work, out_dir)}})
         n = steps * (2 if name == "straight" else 1)
         (state, _, _), _ = counted(
             lambda: train(cfg, max_epochs=epochs, backend="gloo"),
@@ -2382,6 +2363,7 @@ def cli_worker(argv) -> int:
 def run_parallel_phase(torch, np, root: str, smi: str) -> None:
     """Phase 10: the multi-device layer, in processes of its own (see the module
     docstring); the kernels are built already, so the ranks only load them."""
+    from nope_nerf_torch.config import save_config
     from nope_nerf_torch.parallel.multihost import run_ranks
     t_phase = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2425,15 +2407,10 @@ def run_parallel_phase(torch, np, root: str, smi: str) -> None:
     spawn("nccl", 1)
 
     # (e): cli.train through torch.distributed.run on phase 7's straight_d4 scene
-    over = copy.deepcopy(DISK_CONFIGS["straight_d4"])
-    over["dataloading"]["path"] = os.path.join(root, "V_KITTI")
-    over["training"].update(n_training_points=TRAIN_RAYS, vis_geo=False, print_every=0,
-                            validate_every=0, checkpoint_every=0, visualize_every=0,
-                            vis_reprojection_every=0, backup_every=0)
-    over["tpu"] = {"mesh_shape": [PARALLEL_RANKS]}
-    cfg_path = os.path.join(work, "straight_d4_mesh.json")
-    with open(cfg_path, "w") as f:
-        json.dump(over, f)
+    # (the shipped yaml with the phase's cuts, written as block YAML by save_config
+    # and read by each rank's load_config)
+    cfg_path = os.path.join(work, "straight_d4_mesh.yaml")
+    save_config(shipped_config("straight_d4", mesh_cuts(root)), cfg_path)
     outs = run_ranks([[sys.executable, "-m", "torch.distributed.run", "--standalone",
                        "--nproc_per_node", str(PARALLEL_RANKS), me, "--cli-worker", cfg_path,
                        work]], SPAWN_TIMEOUT_S, env=env, cwd=here)
@@ -4219,6 +4196,178 @@ def xwide_path(torch, np, dev, D: int) -> dict:
     return out
 
 
+DEMO_EPOCHS = 2              # phase 17: cli.train epochs before the resume, and after it
+DEMO_VIEWS = 12              # phase 17: cli.render's novel views (extract_images.N_novel_imgs 120)
+
+
+def run_entry(module: str, args: list, log: list) -> None:
+    """`python3 -m <module> <args>` as the interpreter runs it (runpy, module
+    as __main__), in this process, so that the launch counts see it; what it
+    prints goes to stdout and into `log`."""
+    import io
+    import runpy
+    import warnings
+
+    class Tee(io.TextIOBase):
+        def write(self, text):
+            sys.__stdout__.write(text)
+            log.append(text)
+            return len(text)
+
+    saved = sys.argv
+    sys.argv = [module] + args
+    try:
+        with warnings.catch_warnings(), contextlib.redirect_stdout(Tee()):
+            warnings.simplefilter("ignore", RuntimeWarning)   # the module is imported already
+            runpy.run_module(module, run_name="__main__", alter_sys=False)
+    finally:
+        sys.argv = saved
+        sys.stdout.flush()
+
+
+def run_demo(torch, np, dev, smi: str) -> dict:
+    """Phase 17: the README's on-disk demo pipeline through the port's own entry
+    points, in a temporary working directory (the yamls' relative data/demo
+    and out/demo/drive land there): (a) every configs/**/*.yaml through
+    load_config, PyYAML absent; (b) scripts.make_demo_scene in a subprocess,
+    cli.train on the shipped configs/demo_drive.yaml for DEMO_EPOCHS epochs
+    and resumed for DEMO_EPOCHS more; (c) cli.eval_poses --vis, cli.eval and
+    cli.render on a yaml save_config wrote with the phase's cuts; (d)
+    scripts.make_nonmetric_priors and cli.train on configs/
+    demo_drive_npz_dist.yaml (the npz priors, norm_depth); (e)
+    scripts.demo_joint_pose_training. Each entry point runs as `python3 -m`
+    runs it, with its launches counted: K1, K2 and the dW kernel once a train
+    step, K3 once per frame chunk and pose-opt step, K4 frozen once per pose-opt
+    step. Returns the counts and the numbers the entry points printed."""
+    import glob
+    from nope_nerf_torch.config import load_config, save_config
+    from nope_nerf_torch.data import DataField
+    from nope_nerf_torch.tools.demo_protocol import parse_eval, parse_eval_poses, parse_train
+    from nope_nerf_torch.training.trainer import RENDER_CHUNK
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+
+    # (a) every shipped config, through the port's own reader
+    paths = sorted(glob.glob(os.path.join(here, "configs", "**", "*.yaml"), recursive=True))
+    loaded = [load_config(p) for p in paths]
+    no_yaml = "yaml" not in sys.modules
+    print(f"demo (a): {len(loaded)} configs/**/*.yaml read through load_config; "
+          f"'yaml' in sys.modules: {not no_yaml}")
+    if not (paths and no_yaml and all(c["training"]["out_dir"] for c in loaded)):
+        raise RuntimeError("demo (a): the shipped configs did not read without PyYAML")
+
+    drive = os.path.join(here, "configs", "demo_drive.yaml")
+    npz = os.path.join(here, "configs", "demo_drive_npz_dist.yaml")
+    out: dict = {"configs_read": len(loaded)}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            def script(name, *args):
+                res = subprocess.run([sys.executable, "-m", f"nope_nerf_torch.scripts.{name}",
+                                      *args], cwd=work, env=env, capture_output=True,
+                                     text=True, timeout=300)
+                if res.returncode != 0:
+                    raise RuntimeError(f"scripts.{name} exited {res.returncode}: "
+                                       f"{res.stderr[-2000:]}")
+                print(f"demo: scripts.{name}: {res.stdout.strip().splitlines()[-1]}")
+
+            # (b) the scene, cli.train on the shipped yaml and its resume
+            script("make_demo_scene")
+            cfg = load_config(drive)
+            n_train = DataField.from_cfg(cfg, mode="train").scene.n_frames
+            eval_split = DataField.from_cfg(cfg, mode="eval").scene
+            n_eval, (h, w) = eval_split.n_frames, eval_split.imgs.shape[1:3]
+            chunks = -(-h * w // RENDER_CHUNK)
+            steps = n_train * DEMO_EPOCHS
+            train_log: list = []
+            counted(lambda: run_entry("nope_nerf_torch.cli.train",
+                                      [drive, "--max-epochs", str(DEMO_EPOCHS)], train_log),
+                    {"render_train": steps, "chamfer_bidir": steps, "dw_sm90": steps,
+                     "render_fwd": 1},
+                    f"demo (b): cli.train configs/demo_drive.yaml --max-epochs {DEMO_EPOCHS} "
+                    f"({n_train} train frames a step each; the visualize hook at it 0)")
+            resume_log: list = []
+            counted(lambda: run_entry("nope_nerf_torch.cli.train",
+                                      [drive, "--max-epochs", str(2 * DEMO_EPOCHS)],
+                                      resume_log),
+                    {"render_train": steps, "chamfer_bidir": steps, "dw_sm90": steps},
+                    f"demo (b): cli.train --max-epochs {2 * DEMO_EPOCHS}, resumed")
+            first, second = parse_train("".join(train_log)), parse_train("".join(resume_log))
+            resumed = f"at epoch {DEMO_EPOCHS - 1}," in "".join(resume_log)
+            print(f"demo (b): resumed from the epoch-{DEMO_EPOCHS - 1} checkpoint: {resumed}; "
+                  f"train PSNR {first.get('train_psnr')} -> {second.get('train_psnr')}, "
+                  f"train ATE_r {first.get('train_ate_r_deg')} -> "
+                  f"{second.get('train_ate_r_deg')} deg at epoch {second.get('epoch')}")
+            if not (resumed and second.get("epoch") == 2 * DEMO_EPOCHS - 1
+                    and all(math.isfinite(v) for v in (*first.values(), *second.values()))):
+                raise RuntimeError(f"demo (b): cli.train {first} then {second}")
+
+            # (c) eval_poses, eval and render on a yaml with the phase's cuts
+            cuts = {"eval_pose": {"opt_pose_epoch": POSE_OPT_EPOCHS},
+                    "extract_images": {"N_novel_imgs": DEMO_VIEWS}}
+            cut_path = os.path.join(work, "demo_drive_cut.yaml")
+            save_config(load_config(drive, overrides=cuts), cut_path)
+            print(f"demo (c): cuts to configs/demo_drive.yaml, written by save_config to "
+                  f"{os.path.basename(cut_path)}: eval_pose.opt_pose_epoch 1000 -> "
+                  f"{POSE_OPT_EPOCHS}, extract_images.N_novel_imgs 120 -> {DEMO_VIEWS}")
+            logs: dict = {k: [] for k in ("poses", "eval", "render")}
+            counted(lambda: run_entry("nope_nerf_torch.cli.eval_poses", [cut_path, "--vis"],
+                                      logs["poses"]), {}, "demo (c): cli.eval_poses --vis")
+            opt = POSE_OPT_EPOCHS * n_eval
+            counted(lambda: run_entry("nope_nerf_torch.cli.eval", [cut_path], logs["eval"]),
+                    {"render_fwd": opt + n_eval * chunks, "render_bwd": opt,
+                     "render_bwd_frozen": opt},
+                    f"demo (c): cli.eval, {n_eval} views at {h}x{w}, {POSE_OPT_EPOCHS} pose-opt "
+                    f"epochs")
+            counted(lambda: run_entry("nope_nerf_torch.cli.render", [cut_path], logs["render"]),
+                    {"render_fwd": DEMO_VIEWS * chunks},
+                    f"demo (c): cli.render, {DEMO_VIEWS} novel views at {h}x{w}")
+            poses = parse_eval_poses("".join(logs["poses"]))
+            summary = parse_eval("".join(logs["eval"]))
+            ply = os.path.exists(os.path.join(cfg["training"]["out_dir"], "extraction",
+                                              "trajectory.ply"))
+            rendered = f"rendered {DEMO_VIEWS} novel views" in "".join(logs["render"])
+            print(f"demo (c): eval_poses {poses}, trajectory.ply written: {ply}; eval {summary}; "
+                  f"render wrote {DEMO_VIEWS} views: {rendered}")
+            if not (poses and summary and ply and rendered
+                    and all(math.isfinite(v) for v in (*poses.values(), *summary.values()))):
+                raise RuntimeError("demo (c): eval_poses, eval or render failed")
+
+            # (d) the npz-prior path with norm_depth
+            script("make_nonmetric_priors")
+            npz_log: list = []
+            counted(lambda: run_entry("nope_nerf_torch.cli.train",
+                                      [npz, "--max-epochs", str(DEMO_EPOCHS)], npz_log),
+                    {"render_train": steps, "chamfer_bidir": steps, "dw_sm90": steps,
+                     "render_fwd": 1},
+                    f"demo (d): cli.train configs/demo_drive_npz_dist.yaml --max-epochs "
+                    f"{DEMO_EPOCHS}")
+            npz_train = parse_train("".join(npz_log))
+            if not (npz_train and all(math.isfinite(v) for v in npz_train.values())):
+                raise RuntimeError(f"demo (d): cli.train on the npz priors: {npz_train}")
+
+            # (e) joint NeRF and pose training from identity poses
+            from nope_nerf_torch.scripts.demo_joint_pose_training import main as joint
+            joint_steps = 8 * DEMO_EPOCHS
+            metrics, _ = counted(lambda: joint(["--epochs", str(DEMO_EPOCHS)]),
+                                 {"render_train": joint_steps, "chamfer_bidir": joint_steps,
+                                  "dw_sm90": joint_steps},
+                                 f"demo (e): scripts.demo_joint_pose_training --epochs "
+                                 f"{DEMO_EPOCHS}")
+            a, b = metrics["initial"]["ate_r_v2_deg"], metrics["final"]["ate_r_v2_deg"]
+            print(f"demo (e): ATE_r {a:.4f} deg first, {b:.4f} deg last")
+            if not (math.isfinite(a) and math.isfinite(b)):
+                raise RuntimeError("demo (e): non-finite ATE")
+        finally:
+            os.chdir(cwd)
+    out.update(train=second, eval_poses=poses, eval=summary, npz_train=npz_train,
+               joint_ate_r_deg=[a, b], wall_s=time.perf_counter() - t_phase)
+    print(f"demo phase 17: {out['wall_s']:.1f} s wall on {smi}")
+    return out
+
+
 def run_xwide(torch, np, dev) -> dict:
     """Phase 16: (a) K3 and K5 at every width of XWIDE_D against their plain
     versions (check_wide_kernels' cases, K3 also at 2048 samples); (b) K4
@@ -4798,6 +4947,10 @@ def main() -> int:
         # phase 15 alone, for work on the one forward (the full run takes every phase)
         run_one_forward(torch, dev)
         return 0
+    if sys.argv[1:2] == ["--demo"]:
+        # phase 17 alone, for work on the demo pipeline (the full run takes every phase)
+        run_demo(torch, np, dev, smi)
+        return 0
     if sys.argv[1:2] == ["--xwide"]:
         # phase 16 alone, for work on the trunk past 512 (the full run takes every phase)
         run_xwide(torch, np, dev)
@@ -4867,6 +5020,9 @@ def main() -> int:
 
     # ---- 16. hidden_dim 640 to 1024: K3 and K5 on the trunk past 512; the render path
     xwide = run_xwide(torch, np, dev)
+
+    # ---- 17. the README's on-disk demo pipeline through the port's entry points
+    run_demo(torch, np, dev, smi)
 
     # ---- 9. timing at the main paths' shapes ---------------------------------
     h, w = RESOLUTION

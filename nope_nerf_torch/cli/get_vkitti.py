@@ -14,9 +14,9 @@ numpy and scipy only:
 
 The INFERNO disparity previews (`disp/`) need cv2's colour map and are
 written only where cv2 is installed, as evaluation/artifacts.py does for its
-disparity maps. The yamls go through PyYAML where it is installed; otherwise
-through a small emitter of the same dicts in YAML's flow form (which is also
-JSON), which config.py::load_config reads without PyYAML.
+disparity maps. The yamls go through the port's own emitter
+(yaml_subset.dumps) on every machine: block YAML that config.py::load_config
+and yaml.safe_load read back to the same dicts.
 
 Usage:
   python -m nope_nerf_torch.cli.get_vkitti <root> <version> <id> <dest> <method> [...]
@@ -27,13 +27,12 @@ under the working directory.
 from __future__ import annotations
 
 import argparse
-import json
-import math
 import os
 import shutil
 
 import numpy as np
 
+from .. import yaml_subset
 from ..data.image_io import read_png
 
 # V-KITTI intrinsics (reference get_kittivirtual.py:12-14)
@@ -181,40 +180,9 @@ def build_scene(root: str, version: str, drive_id: str, variation: str, dest: st
     return [height, width]
 
 
-def _flow(obj, depth: int = 0) -> str:
-    """YAML flow text of nested dicts, lists, strings, numbers, bools and None:
-    JSON, with every float written with a '.' so that PyYAML (YAML 1.1) reads
-    it as a float too."""
-    if isinstance(obj, dict):
-        if not obj:
-            return "{}"
-        pad = "  " * (depth + 1)
-        items = [f"{pad}{json.dumps(str(k))}: {_flow(v, depth + 1)}" for k, v in obj.items()]
-        return "{\n" + ",\n".join(items) + "\n" + "  " * depth + "}"
-    if isinstance(obj, (list, tuple)):
-        return "[" + ", ".join(_flow(v, depth) for v in obj) + "]"
-    if obj is None or isinstance(obj, (bool, str)):
-        return json.dumps(obj)
-    if isinstance(obj, (int, np.integer)):
-        return str(int(obj))
-    if isinstance(obj, (float, np.floating)) and math.isfinite(obj):
-        text = repr(float(obj))
-        if "." not in text:                       # 1e-05 -> 1.0e-05
-            mantissa, exponent = text.split("e")
-            text = f"{mantissa}.0e{exponent}"
-        return text
-    raise TypeError(f"cannot write {obj!r} to a config")
-
-
 def _write_yaml(path: str, data: dict) -> None:
-    try:
-        import yaml
-    except ImportError:
-        text = _flow(data) + "\n"
-    else:
-        text = yaml.safe_dump(data, sort_keys=False)
     with open(path, "w") as f:
-        f.write(text)
+        f.write(yaml_subset.dumps(data))
 
 
 def make_configs(dest: str, args, resolution, config_dir: str = "configs/V_KITTI"):

@@ -1,9 +1,8 @@
 """Config system: a two-level YAML merge over a complete in-code default schema.
 
-Copy of nope_nerf_tpu/config.py (the port keeps its own). PyYAML is imported
-only where a yaml file is read or written, so configs built in code need no
-yaml at all. Without PyYAML, `load_config` still reads a yaml in the flow form
-that is also JSON, as cli/get_vkitti.py writes its configs there.
+Copy of nope_nerf_tpu/config.py (the port keeps its own), except that it
+reads and writes YAML itself (yaml_subset.py), on every machine: PyYAML is
+never imported, so the card's machine, which lacks it, reads configs/** too.
 
 Capability parity with the reference's `dataloading/configloading.py:3-47` (scene yaml
 recursively merged over `configs/default.yaml`), except the default option surface lives
@@ -14,9 +13,10 @@ on-disk default yaml can still be layered in between.
 from __future__ import annotations
 
 import copy
-import json
 import os
 from typing import Any, Dict, Optional
+
+from . import yaml_subset
 
 # The full option surface, mirroring the semantics of the reference's
 # configs/default.yaml:1-158 (keys kept name-compatible so reference users can port
@@ -235,17 +235,9 @@ def update_recursive(dict1: Dict[str, Any], dict2: Dict[str, Any]) -> None:
 
 
 def _parse_yaml(text: str, path: str) -> Any:
-    """A yaml document through PyYAML, or without it, JSON (YAML's flow form)."""
-    try:
-        import yaml
-    except ImportError:
-        try:
-            return json.loads(text)
-        except json.JSONDecodeError as e:
-            raise ImportError(f"{path}: PyYAML is not installed, and without it only configs "
-                              "in JSON form (as cli.get_vkitti writes them there) are "
-                              "read") from e
-    return yaml.safe_load(text)
+    """A yaml document in the subset configs/** is written in
+    (yaml_subset.loads: values as yaml.safe_load gives them)."""
+    return yaml_subset.loads(text, path)
 
 
 def load_config(path: Optional[str] = None,
@@ -273,7 +265,8 @@ def load_config(path: Optional[str] = None,
 
 
 def save_config(cfg: Dict[str, Any], path: str) -> None:
-    import yaml
+    """cfg as block YAML (yaml_subset.dumps), which load_config and
+    yaml.safe_load read back to the same dict."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
-        yaml.safe_dump(cfg, f, sort_keys=False)
+        f.write(yaml_subset.dumps(cfg))

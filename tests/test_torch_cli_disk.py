@@ -1,8 +1,8 @@
 """The port's CLIs on a scene on disk, on the CPU: cli.train for 1 epoch and
 its resume, cli.eval_poses with its frustum PLY (byte for byte the JAX
 package's write_frustums_ply on the same trajectories), cli.render, cli.eval
-with a few pose-opt epochs, and show_pose_only; and chip_smoke.py's config
-dicts against the yaml files they stand for (the card has no PyYAML).
+with a few pose-opt epochs, and show_pose_only; and chip_smoke.py's configs:
+the yaml files as the port reads them, plus the phase's listed cuts.
 
 The scene is a 9-frame 24x32 driving scene written by the port's
 write_vkitti_scene with DPT npz priors, read through an LLFF-style config
@@ -132,6 +132,35 @@ def test_show_pose_only_and_colmap_init_on_disk(disk_scene, tmp_path):
                                        ("Ballroom", "configs/Tanks/Ballroom.yaml"),
                                        ("straight_d4", "configs/V_KITTI/straight_d4.yaml")])
 def test_chip_smoke_configs_equal_the_yaml_files(name, path):
+    """chip_smoke.py's phase 7 reads the yaml itself (the port's load_config; the
+    card's machine has no PyYAML), and its cuts go on top (chip_smoke.disk_cuts):
+    the file's dict plus the listed cuts, nothing else."""
     from_yaml = jax_load_config(os.path.join(REPO, path))
-    assert load_config(overrides=chip_smoke.DISK_CONFIGS[name]) == from_yaml
-    assert load_config(os.path.join(REPO, path)) == from_yaml
+    assert chip_smoke.CONFIG_FILES[name] == path
+    assert chip_smoke.shipped_config(name) == load_config(os.path.join(REPO, path)) == from_yaml
+    root = "/disk/root"
+    cuts = chip_smoke.disk_cuts(name, root)
+    cfg = chip_smoke.disk_config(name, root)
+    assert cfg == jax_load_config(os.path.join(REPO, path), overrides=cuts)
+    changed = {(sec, k) for sec, d in cfg.items() for k, v in d.items() if v != from_yaml[sec][k]}
+    assert changed <= {(sec, k) for sec, d in cuts.items() for k in d}
+    assert cfg["dataloading"]["path"] == os.path.join(
+        root, os.path.basename(from_yaml["dataloading"]["path"]))
+    assert cfg["dataloading"]["resize_factor"] == (1 if name == "fern" else
+                                                    from_yaml["dataloading"]["resize_factor"])
+
+
+def test_chip_smoke_mesh_config_is_the_file_plus_its_cuts(tmp_path):
+    """Phase 10 (e) writes configs/V_KITTI/straight_d4.yaml with its cuts
+    (chip_smoke.mesh_cuts) through save_config; each rank reads that file."""
+    from nope_nerf_torch.config import save_config
+    path = os.path.join(REPO, "configs", "V_KITTI", "straight_d4.yaml")
+    from_yaml = jax_load_config(path)
+    cuts = chip_smoke.mesh_cuts("/disk/root")
+    written = str(tmp_path / "straight_d4_mesh.yaml")
+    save_config(chip_smoke.shipped_config("straight_d4", cuts), written)
+    cfg = load_config(written)
+    assert cfg == jax_load_config(path, overrides=cuts) == jax_load_config(written)
+    changed = {(sec, k) for sec, d in cfg.items() for k, v in d.items() if v != from_yaml[sec][k]}
+    assert changed <= {(sec, k) for sec, d in cuts.items() for k in d}
+    assert cfg["tpu"]["mesh_shape"] == [chip_smoke.PARALLEL_RANKS]

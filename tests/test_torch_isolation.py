@@ -31,7 +31,9 @@ REQUIRED = tuple("nope_nerf_torch." + m for m in (
     "data.llff", "data.degrade", "data.fields", "evaluation.lpips", "models.dpt",
     "data.dpt_transforms", "cli.preprocess", "cli.get_vkitti", "parallel.mesh",
     "parallel.multihost", "parallel.sharding", "data.jpeg", "tools.jpeg_writer",
-    "tools.decode_timing"))
+    "tools.decode_timing", "yaml_subset", "scripts.make_demo_scene",
+    "scripts.make_nonmetric_priors", "scripts.demo_joint_pose_training",
+    "tools.demo_protocol"))
 
 torch.set_num_threads(2)
 
@@ -49,6 +51,30 @@ import chip_smoke
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in {blocked!r})
 print(len(names), loaded)
+"""
+
+_WITHOUT_PYYAML = r"""
+import glob, importlib, importlib.abc, os, pkgutil, sys
+
+class BlockYaml(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "yaml" or name.startswith("yaml."):
+            raise ImportError("blocked")
+
+sys.meta_path.insert(0, BlockYaml())
+import nope_nerf_torch
+from nope_nerf_torch.config import load_config, save_config
+names = [m.name for m in pkgutil.walk_packages(nope_nerf_torch.__path__, "nope_nerf_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+paths = glob.glob(os.path.join({repo!r}, "configs", "**", "*.yaml"), recursive=True)
+for p in paths:
+    cfg = load_config(p)
+    save_config(cfg, {out!r})
+    assert load_config({out!r}) == cfg, p
+assert "yaml" not in sys.modules
+print(len(names), len(paths))
 """
 
 _ENTRY_WITHOUT_DEVICE = r"""
@@ -90,6 +116,21 @@ def test_every_module_imports_without_jax_or_reference():
     n, loaded = res.stdout.strip().split(" ", 1)
     assert int(n) >= 48       # every module of the five slices, the CLIs' included
     assert loaded == "[]", loaded
+
+
+def test_every_module_and_config_without_pyyaml(tmp_path):
+    """With `import yaml` failing (a sys.meta_path finder), every module of the
+    port and chip_smoke.py import, and every configs/**/*.yaml loads through
+    load_config and reads back from what save_config writes; no module
+    names yaml in an import statement."""
+    res = _run(_WITHOUT_PYYAML.format(repo=str(REPO), out=str(tmp_path / "back.yaml")))
+    assert res.returncode == 0, res.stderr
+    n_modules, n_configs = map(int, res.stdout.split())
+    assert n_modules >= 48 and n_configs == 69
+    pattern = re.compile(r"^\s*(import|from)\s+yaml\b")
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert not [f"{f.relative_to(REPO)}:{i}" for f in files
+                for i, line in enumerate(f.read_text().splitlines(), 1) if pattern.match(line)]
 
 
 def test_no_import_statement_names_jax_or_reference():

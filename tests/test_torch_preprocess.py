@@ -41,18 +41,27 @@ torch.set_num_threads(2)
 
 SMALL = dict(features=32, vit_dim=64, vit_heads=4, vit_blocks=2, resnet_layers=(1, 1, 1),
              hooks=(0, 1), patch_grid=4)
-PREPROCESS_STRAIGHT = chip_smoke.PREP_CONFIGS["preprocess_straight"]
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+with open(os.path.join(REPO, "configs", "V_KITTI", "preprocess_straight.yaml")) as _f:
+    PREPROCESS_STRAIGHT = yaml.safe_load(_f)
 
 
 @pytest.mark.parametrize("name", ["preprocess_straight", "straight_d2"])
 def test_chip_smoke_configs_equal_the_yaml_files(name):
-    """chip_smoke.py's phase 8 builds these two configs in code (no PyYAML on the
-    card's machine): the same dicts as the yamls."""
-    path = os.path.join(REPO, "configs", "V_KITTI", f"{name}.yaml")
-    from_yaml = jax_load_config(path)
-    assert load_config(overrides=chip_smoke.PREP_CONFIGS[name]) == from_yaml
-    assert load_config(path) == from_yaml
+    """chip_smoke.py's phase 8 reads these two yamls through the port's
+    load_config (the card's machine has no PyYAML) and puts its cuts on top
+    (chip_smoke.disk_cuts): the file's dict plus the listed cuts, nothing else."""
+    rel = f"configs/V_KITTI/{name}.yaml"
+    from_yaml = jax_load_config(os.path.join(REPO, rel))
+    assert chip_smoke.CONFIG_FILES[name] == rel
+    assert chip_smoke.shipped_config(name) == load_config(os.path.join(REPO, rel)) == from_yaml
+    root = "/disk/root"
+    cuts = chip_smoke.disk_cuts(name, root)
+    cfg = chip_smoke.disk_config(name, root)
+    assert cfg == jax_load_config(os.path.join(REPO, rel), overrides=cuts)
+    changed = {(sec, k) for sec, d in cfg.items() for k, v in d.items() if v != from_yaml[sec][k]}
+    assert changed <= {(sec, k) for sec, d in cuts.items() for k in d}
+    assert cfg["dataloading"]["path"] == os.path.join(root, "V_KITTI")
 
 
 def test_preprocess_matches_jax(tmp_path, monkeypatch):
@@ -176,10 +185,12 @@ def test_get_vkitti_matches_jax(tmp_path, monkeypatch, case, without_yaml):
             raw_j, raw_t = yaml.safe_load(f), yaml.safe_load(g)
         assert raw_t == raw_j
         want = load_config(j)
+        with open(t) as f:
+            text = f.read()
+        # block YAML from the port's emitter, whether PyYAML was there or not
+        assert not text.lstrip().startswith("{") and tgv.yaml_subset.loads(text) == raw_j
         with monkeypatch.context() as m:
             if without_yaml:
-                with open(t) as f:
-                    assert json.load(f) == raw_j
                 m.setitem(sys.modules, "yaml", None)
             assert load_config(t) == want
         assert jax_load_config(j)["dataloading"] == jax_load_config(t)["dataloading"]
@@ -197,12 +208,18 @@ def test_get_vkitti_matches_jax(tmp_path, monkeypatch, case, without_yaml):
 
 
 def test_flow_emitter_reads_back_in_json_and_yaml():
+    """get_vkitti's yamls go through yaml_subset.dumps: block YAML that the port's
+    reader and yaml.safe_load read back; the JSON-form yamls the port wrote
+    before read back too."""
     data = {"a": {"path": "out/V_KITTI/x y", "scene": ["straight"], "n": 3, "neg": -2,
                   "f": 0.01, "tiny": 1e-5, "big": 1e20, "third": 1 / 3, "flag": True,
                   "off": False, "none": None, "pattern": [1, 0, 1, 0], "empty": {}},
             "quote": 'say "hi"\\', "unicode": "dépth"}
-    text = tgv._flow(data)
-    assert json.loads(text) == data
+    text = tgv.yaml_subset.dumps(data)
+    assert tgv.yaml_subset.loads(text) == data
     assert yaml.safe_load(text) == data
-    with pytest.raises(TypeError):
-        tgv._flow({"x": float("nan")})
+    as_json = json.dumps(data).replace("1e-05", "1.0e-05").replace("1e+20", "1.0e+20")
+    assert json.loads(as_json) == data
+    assert tgv.yaml_subset.loads(as_json) == yaml.safe_load(as_json) == data
+    nan = tgv.yaml_subset.loads(tgv.yaml_subset.dumps({"x": float("nan")}))["x"]
+    assert nan != nan
